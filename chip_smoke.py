@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA Hopper GPU (an H100), the CUDA toolkit's nvcc and triton.
+It builds the port's kernels from this checkout's sources, holds each one
+against its plain PyTorch version on the card, drives Algorithm 1 through
+``repro_torch.launch.train.train`` on full-width, full-depth SmolLM-360M
+(361,821,120 parameters, random weights from a seed), checks that the run
+went through the kernels, and runs a full-size gossip period against the
+plain version and Lemma 1.  Every phase prints one JSON line; any failure
+raises and the script exits non-zero.  Before the last line it prints the
+per-kernel JSON summary and the GPU's name and power limit; the last line
+is ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
+prints no result.  It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
+# float32 (non-tensor-core) flop/s, at the full 700 W power limit
+H100_BYTES_PER_S = 3.35e12
+H100_F32_FLOP_PER_S = 67e12
+
+# the main path of this slice: the trainer's defaults but M = 4 servers
+# (a 2-ring's Metropolis A makes one round the exact mean) and T_C = 2
+TRAIN = dict(smoke=False, servers=4, clients=2, t_client=2, t_server=5,
+             epochs=2, seq_len=128, per_client_batch=2, graph="ring",
+             device="cuda")
+SMOLLM_PARAMS = 361_821_120
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events around the run, after ``warmup`` untimed calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def alternate(torch, fns: dict, reps: int) -> dict:
+    """Time each function in turns (a, b, c, c, b, a) and keep the mean of
+    its two runs, so a drift in the card's clock hits all alike."""
+    order = list(fns) + list(reversed(list(fns)))
+    runs: dict = {k: [] for k in fns}
+    for name in order:
+        runs[name].append(cuda_ms(torch, fns[name], reps))
+    return {k: sum(v) / len(v) for k, v in runs.items()}
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_flops / H100_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rel_err(torch, got, want) -> tuple:
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    return err, err / max(scale, 1e-30)
+
+
+def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
+    """Device busy time, the top device kernels and host ops, and the port's
+    own kernels' device times, from a ``torch.profiler`` run (times in ms;
+    the profiler adds host overhead, so its wall time is longer than an
+    unprofiled epoch's, while device kernel times are not inflated)."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0)
+    events = list(prof.key_averages())
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    ours = [e for e in kernels if any(
+        k in e.key for k in ("consensus_mix", "rmsnorm", "column_sum"))]
+    host = sorted((e for e in events if e not in kernels),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
+
+    def row(e):
+        return {"name": e.key[:80], "calls": e.count,
+                "total_ms": dev_us(e) / 1e3,
+                "avg_us": dev_us(e) / max(e.count, 1)}
+    return {
+        "wall_s": wall_s, "device_busy_ms": device_ms,
+        "device_busy_share_of_profiled_wall": device_ms / (wall_s * 1e3),
+        "top_device": [row(e) for e in sorted(kernels, key=dev_us,
+                                              reverse=True)[:top]],
+        "port_kernels": [row(e) for e in ours],
+        "top_host": [{"name": e.key[:80], "calls": e.count,
+                      "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                     for e in host]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script measures the "
+              "port on a GPU and has nothing to run here", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import topology as tp
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import train as ttrain
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    ttrain.set_full_f32()
+    smi = nvidia_smi()
+
+    # ---- 1. device ----
+    emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+
+    # ---- 2. build (set-up) ----
+    t0 = time.perf_counter()
+    _build.compile_all(_build.sources())
+    nvcc_s = time.perf_counter() - t0
+    regs = sorted({line.split("Used ")[1].split(",")[0]
+                   for log in _build.build_logs.values()
+                   for line in log.splitlines() if "Used " in line})
+    g = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    x = torch.randn((8, 960), device=dev, generator=g)
+    y, rstd = rn.rmsnorm_fwd_cuda(x, torch.ones(960, device=dev), 1e-6)
+    rn.rmsnorm_bwd_cuda(x, torch.ones(960, device=dev), rstd,
+                        torch.ones_like(y))
+    torch.cuda.synchronize()
+    emit("build", nvcc_s=nvcc_s, sources=_build.sources(),
+         ptxas_registers=regs, triton_first_launch_s=time.perf_counter() - t0)
+
+    # ---- 3. kernel 1 vs its plain version ----
+    for m in (1, 4, 5, 16):
+        a_np = (tp.metropolis_weights(tp.ring_graph(m)) if m > 1
+                else [[1.0]])
+        a = torch.tensor(cns.collapse_mixing(a_np, 3), dtype=torch.float32,
+                         device=dev)
+        for d in (4096, 1_000_003):
+            w = torch.randn((m, d), device=dev, generator=g)
+            err, rel = rel_err(torch, ops.consensus_mix(a, w),
+                               ref.consensus_mix_ref(a, w))
+            torch.cuda.synchronize()
+            emit("consensus_mix_check", m=m, d=d, max_abs_err=err,
+                 max_rel_err=rel)
+            assert rel < 1e-5, (m, d, rel)
+    m, d = TRAIN["servers"], SMOLLM_PARAMS
+    a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)),
+                     dtype=torch.float32, device=dev)
+    w = torch.randn((m, d), device=dev, generator=g)
+    out = torch.empty_like(w)
+    cm_err, cm_rel = rel_err(torch, ops.consensus_mix(a, w, out=out),
+                             ref.consensus_mix_ref(a, w))
+    assert cm_rel < 1e-5, cm_rel
+    cm_times = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix(a, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(a, w),
+        "library": lambda: torch.matmul(a, w)}, reps=10)
+    cm_bytes = 2 * m * d * 4 + m * m * 4
+    cm_bound, cm_by = bound_ms(cm_bytes, 2 * m * m * d)
+    emit("consensus_mix_main_shape", m=m, d=d, max_abs_err=cm_err,
+         max_rel_err=cm_rel, kernel_ms=cm_times["kernel"],
+         plain_ms=cm_times["plain"], library_ms=cm_times["library"],
+         bound_ms=cm_bound, bound_by=cm_by,
+         kernel_GBps=cm_bytes / cm_times["kernel"] / 1e6,
+         bound_GBps=H100_BYTES_PER_S / 1e9)
+    del w, out
+    torch.cuda.empty_cache()
+
+    # ---- 4. kernel 2 (forward and backward) vs its plain version ----
+    rn_stats = {}
+    for rows in (256, 1000):
+        d = 960
+        x = torch.randn((rows, d), device=dev, generator=g,
+                        requires_grad=True)
+        s = (1 + 0.1 * torch.randn(d, device=dev, generator=g)
+             ).requires_grad_(True)
+        gy = torch.randn((rows, d), device=dev, generator=g)
+        y = ops.rmsnorm(x, s)
+        dx, ds = torch.autograd.grad(y, (x, s), gy)
+        y_ref = ref.rmsnorm_ref(x, s)
+        dx_ref, ds_ref = torch.autograd.grad(y_ref, (x, s), gy,
+                                             retain_graph=True)
+        f_err, f_rel = rel_err(torch, y.detach(), y_ref.detach())
+        dx_err, dx_rel = rel_err(torch, dx, dx_ref)
+        ds_err, ds_rel = rel_err(torch, ds, ds_ref)
+        assert f_rel < 1e-5 and max(dx_rel, ds_rel) < 1e-4, \
+            (rows, f_rel, dx_rel, ds_rel)
+        xd, sd = x.detach(), s.detach()
+        _, rstd = rn.rmsnorm_fwd_cuda(xd, sd, 1e-6)
+        y_lib = torch.nn.functional.rms_norm(x, (d,), s, 1e-6)
+        fwd = alternate(torch, {
+            "kernel": lambda: rn.rmsnorm_fwd_cuda(xd, sd, 1e-6),
+            "plain": lambda: ref.rmsnorm_ref(xd, sd),
+            "library": lambda: torch.nn.functional.rms_norm(
+                xd, (d,), sd, 1e-6)}, reps=200)
+        bwd = alternate(torch, {
+            "kernel": lambda: rn.rmsnorm_bwd_cuda(xd, sd, rstd, gy),
+            "plain": lambda: torch.autograd.grad(
+                y_ref, (x, s), gy, retain_graph=True),
+            "library": lambda: torch.autograd.grad(
+                y_lib, (x, s), gy, retain_graph=True)}, reps=200)
+        fb, fby = bound_ms(2 * rows * d * 4 + d * 4 + rows * 4,
+                           4 * rows * d)
+        bb, bby = bound_ms(3 * rows * d * 4 + 2 * d * 4 + rows * 4,
+                           10 * rows * d)
+        rn_stats[rows] = dict(fwd=fwd, bwd=bwd, fwd_err=f_err,
+                              bwd_err=max(dx_err, ds_err), fwd_bound=fb,
+                              fwd_by=fby, bwd_bound=bb, bwd_by=bby)
+        emit("rmsnorm_check", rows=rows, d=d, fwd_max_abs_err=f_err,
+             fwd_max_rel_err=f_rel, dx_max_abs_err=dx_err,
+             dx_max_rel_err=dx_rel, dscale_max_abs_err=ds_err,
+             dscale_max_rel_err=ds_rel, fwd_ms=fwd, bwd_ms=bwd,
+             fwd_bound_ms=fb, bwd_bound_ms=bb)
+
+    # ---- 5. training: the main path ----
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = ttrain.train("smollm-360m", **TRAIN)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    hist = run["history"]
+    n_params = sum(t[0, 0].numel() for t in
+                   tree_leaves(run["state"].client_params))
+    tokens_per_epoch = (TRAIN["t_client"] * TRAIN["servers"]
+                        * TRAIN["clients"] * TRAIN["per_client_batch"]
+                        * TRAIN["seq_len"])
+    client_steps = (TRAIN["t_client"] * TRAIN["servers"] * TRAIN["clients"]
+                    * TRAIN["epochs"])
+    norms_per_step = 2 * run["cfg"].num_layers + 1
+    emit("train", arch="smollm-360m", params=n_params,
+         loss=hist["loss"], disagreement=hist["disagreement"],
+         drift=hist["drift"], sigma_prod=hist["sigma_prod"],
+         epoch_s=hist["epoch_s"],
+         tokens_per_s=[tokens_per_epoch / t for t in hist["epoch_s"]],
+         launches=launches,
+         expected_launches={
+             "consensus_mix": TRAIN["t_server"] * TRAIN["epochs"],
+             "rmsnorm_fwd": norms_per_step * client_steps,
+             "rmsnorm_bwd": norms_per_step * client_steps},
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    assert n_params == SMOLLM_PARAMS, n_params
+    assert all(v > 0 for v in launches.values()), launches
+    assert launches["consensus_mix"] == TRAIN["t_server"] * TRAIN["epochs"]
+    assert launches["rmsnorm_fwd"] == norms_per_step * client_steps
+    assert launches["rmsnorm_bwd"] == norms_per_step * client_steps
+    assert all(torch.isfinite(torch.tensor(v)) for v in hist["loss"]), hist
+
+    # ---- 6. gossip at full size: kernel vs plain, mean, Lemma 1 ----
+    gen = torch.Generator(device=dev).manual_seed(1)
+    server = tree_map(lambda x: x[:, 0].clone(), run["state"].client_params)
+    del run
+    torch.cuda.empty_cache()
+    server = tree_map(lambda x: x + 0.01 * torch.randn(
+        x.shape, device=dev, generator=gen), server)
+    a_np = tp.metropolis_weights(tp.ring_graph(m))
+    t_s = TRAIN["t_server"]
+    mixed = cns.make_backend("gossip", a_np, t_s).mix(server)
+    plain = cns.gossip_scan(torch.tensor(a_np, dtype=torch.float32,
+                                         device=dev), server, t_s)
+
+    def stats(tree):
+        """Per-leaf server means and the f64 deviation norm ||W - 1 wbar'||."""
+        means, dev_sq = [], 0.0
+        for leaf in tree_leaves(tree):
+            flat = leaf.reshape(leaf.shape[0], -1)
+            means.append(flat.double().mean(0))
+            for lo in range(0, flat.shape[1], 1 << 24):
+                c = flat[:, lo:lo + (1 << 24)].double()
+                dev_sq += float(((c - c.mean(0)) ** 2).sum())
+        return means, dev_sq ** 0.5
+
+    mean0, dis0 = stats(server)
+    mean1, dis1 = stats(mixed)
+    mean_err = max(float((p - q).abs().max()) for p, q in zip(mean0, mean1))
+    mean_scale = max(float(p.abs().max()) for p in mean0)
+    vs_plain = max(rel_err(torch, p, q)[1]
+                   for p, q in zip(tree_leaves(mixed), tree_leaves(plain)))
+    sigma = tp.sigma_a(a_np, t_s)
+    emit("gossip_full_size", m=m, t_server=t_s, d=SMOLLM_PARAMS,
+         mean_max_rel_err=mean_err / mean_scale,
+         disagreement_before=dis0, disagreement_after=dis1,
+         ratio=dis1 / dis0, sigma_a=sigma, vs_plain_max_rel_err=vs_plain)
+    assert mean_err / mean_scale < 1e-5, mean_err / mean_scale
+    assert dis1 <= sigma * dis0 * (1 + 1e-4), (dis1, sigma * dis0)
+    assert vs_plain < 1e-5, vs_plain
+    del server, mixed, plain
+    torch.cuda.empty_cache()
+
+    # ---- 7. where the time goes: one more epoch under the profiler ----
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ttrain.train("smollm-360m", **{**TRAIN, "epochs": 1}, log=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    emit("profile", **profile_summary(prof, wall_s))
+
+    # ---- 8. per-kernel summary, card, result ----
+    r256 = rn_stats[256]
+    kernels = [
+        {"name": "consensus_mix", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/consensus_mix.cu",
+         "replaces": "src/repro/kernels/consensus_mix.py:71",
+         "launches": launches["consensus_mix"], "max_abs_err": cm_err,
+         "ms": cm_times["kernel"], "plain_ms": cm_times["plain"],
+         "bound_ms": cm_bound, "bound_by": cm_by,
+         "library_ms": cm_times["library"]},
+        {"name": "rmsnorm_fwd", "route": "triton",
+         "source": "src/repro_torch/kernels/rmsnorm.py",
+         "replaces": "src/repro/kernels/rmsnorm.py:28",
+         "launches": launches["rmsnorm_fwd"], "max_abs_err": r256["fwd_err"],
+         "ms": r256["fwd"]["kernel"], "plain_ms": r256["fwd"]["plain"],
+         "bound_ms": r256["fwd_bound"], "bound_by": r256["fwd_by"],
+         "library_ms": r256["fwd"]["library"]},
+        {"name": "rmsnorm_bwd", "route": "triton",
+         "source": "src/repro_torch/kernels/rmsnorm.py",
+         "replaces": "src/repro/kernels/rmsnorm.py:28",
+         "launches": launches["rmsnorm_bwd"], "max_abs_err": r256["bwd_err"],
+         "ms": r256["bwd"]["kernel"], "plain_ms": r256["bwd"]["plain"],
+         "bound_ms": r256["bwd_bound"], "bound_by": r256["bwd_by"],
+         "library_ms": r256["bwd"]["library"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

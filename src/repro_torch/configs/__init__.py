@@ -1,0 +1,34 @@
+"""Architecture configs of the port: ``get_arch`` / ``get_smoke`` by id.
+
+Only the archs whose model the port runs are registered; the others arrive
+with the model-zoo slice (ROADMAP.md, Queue 1).
+"""
+from __future__ import annotations
+
+from repro_torch.configs import smollm_360m
+from repro_torch.configs.base import ArchConfig
+
+_ARCHS = {"smollm_360m": smollm_360m}
+
+
+def _module(arch_id: str):
+    key = arch_id.replace("-", "_").replace(".", "_")
+    if key not in _ARCHS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not ported yet (the port has "
+            f"{sorted(_ARCHS)}); the rest of the model zoo is a later slice "
+            f"of ROADMAP.md Queue 1")
+    return _ARCHS[key]
+
+
+def get_arch(arch_id: str) -> ArchConfig:
+    """The published-size config (``CONFIG``) of ``arch_id`` (dashes ok)."""
+    return _module(arch_id).CONFIG
+
+
+def get_smoke(arch_id: str) -> ArchConfig:
+    """The reduced CPU-test member of ``arch_id``'s family."""
+    return _module(arch_id).smoke_config()
+
+
+__all__ = ["ArchConfig", "get_arch", "get_smoke"]

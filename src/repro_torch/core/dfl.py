@@ -1,0 +1,354 @@
+"""The DFL algorithm (Algorithm 1) as a PyTorch epoch step: port of the
+static path of ``repro.core.dfl``.
+
+One epoch step is the paper's full cycle:
+
+    1. local period     — T_C SGD steps of every client of the (M, N) grid
+                          (Eq. 3)
+    2. aggregation      — mean over the client axis       (Eq. 4)
+    3. consensus period — T_S rounds W <- A W             (Eq. 5/7)
+    4. broadcast        — server model back to its N clients
+
+State layout as in the reference: every parameter leaf carries leading axes
+``(M, N, *w)``; optimizer state follows it.  Two differences of form, none
+of arithmetic:
+
+* The reference vmaps ``value_and_grad`` over the client grid; here the
+  local step loops over the M*N clients in Python and updates each one as
+  soon as its gradient is ready.  Clients are independent during the local
+  period, so the numbers are the same, and one client's gradients and
+  activations are live at a time.
+* The step consumes its input state like a donated jit argument: the client
+  parameter (and optimizer-state) buffers are updated in place, so a full
+  copy of the (M, N) model is never held twice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import consensus as cns
+from repro_torch.core.topology import FLTopology
+from repro_torch.optim import Optimizer
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+
+LossFn = Callable[[Any, Any, Any], Tuple[torch.Tensor, Any]]
+# (params, batch, rng) -> (scalar loss, aux)
+
+
+class DFLState(NamedTuple):
+    """Carried across epochs. ``client_params`` leaves: (M, N, *w).
+    ``rng`` is the ``torch.Generator`` handed to the loss (which may ignore
+    it, as the LM and regression losses do)."""
+
+    client_params: Any
+    opt_state: Any
+    epoch: int
+    rng: Optional[torch.Generator] = None
+
+
+class DFLMetrics(NamedTuple):
+    loss: torch.Tensor                 # (T_C, M, N) per local step per client
+    server_disagreement: torch.Tensor  # ||W - 1 wbar'||_F after consensus (Lemma 1 LHS)
+    client_drift: torch.Tensor         # max_ij ||w^{ij} - w^i_p|| before aggregation (Lemma 3 LHS)
+    grad_norm: torch.Tensor            # mean per-client grad norm of last local step
+
+
+@dataclasses.dataclass(frozen=True)
+class DFLConfig:
+    topology: FLTopology
+    consensus_mode: str = "gossip"   # gossip | gossip_blocked | collapsed | exact_mean | none
+    # "symmetric": A doubly stochastic (Eq. 6), the paper.
+    # "row_stochastic": naive directed gossip with the same W <- A W update
+    # (converges to the Perron-weighted average).  push_sum is a later slice.
+    mixing: str = "symmetric"
+    # "full": compute the Lemma-1/Lemma-3 diagnostics every epoch; "light":
+    # skip them (zeros).
+    metrics: str = "full"
+    # each local iteration's per-client batch in this many sequential
+    # microbatches, the mean gradient applied once (identical math to Eq. 3)
+    grad_microbatches: int = 1
+
+
+# ---------------------------------------------------------------------------
+# helpers on the (M, N, ...) layout
+# ---------------------------------------------------------------------------
+
+
+def replicate_to_clients(params: Any, m: int, n: int) -> Any:
+    """Initial broadcast: shared w_0 across all servers and clients (a
+    materialised copy per client, since the local period updates each)."""
+    return tree_map(lambda p: p[None, None].expand((m, n) + tuple(p.shape))
+                    .contiguous(), params)
+
+
+def server_mean(client_tree: Any) -> Any:
+    """Eq. 4: w^i = (1/N) sum_j w^{ij}  — mean over the client axis."""
+    return tree_map(lambda x: x.mean(dim=1), client_tree)
+
+
+def broadcast_to_clients(server_tree: Any, n: int) -> Any:
+    """End-of-epoch broadcast: every client restarts from its server model."""
+    return tree_map(lambda s: s[:, None].expand(
+        (s.shape[0], n) + tuple(s.shape[1:])).contiguous(), server_tree)
+
+
+def _broadcast_into(client_tree: Any, server_tree: Any) -> None:
+    """``broadcast_to_clients`` written into the existing client buffers."""
+    for c, s in zip(tree_leaves(client_tree), tree_leaves(server_tree)):
+        c.copy_(s[:, None].expand_as(c))
+
+
+def disagreement_norm(server_tree: Any) -> torch.Tensor:
+    """||W - 1 wbar'||_F over the stacked server models (Lemma 1 LHS), as
+    ``sum_i ||w_i||^2 - M ||wbar||^2`` per leaf with f32 accumulation (the
+    reference's formula; it rounds like the reference where the
+    disagreement is far below the model's norm)."""
+    total = None
+    for leaf in tree_leaves(server_tree):
+        m = leaf.shape[0]
+        s_sq = torch.sum(torch.square(leaf), dtype=torch.float32)
+        mean = leaf.mean(dim=0, dtype=torch.float32)
+        term = s_sq - m * torch.sum(torch.square(mean))
+        total = term if total is None else total + term
+    return torch.sqrt(torch.clamp(total, min=0.0))
+
+
+def max_client_drift(client_tree: Any, server_tree: Any) -> torch.Tensor:
+    """max_{ij} ||w^{ij} - w^i|| (Lemma 3 LHS), as
+    ``sum c^2 - 2 sum c*s + sum s^2`` per (i, j) with f32 accumulation."""
+    sq = None
+    for c, s in zip(tree_leaves(client_tree), tree_leaves(server_tree)):
+        dims = tuple(range(2, c.dim()))
+        sb = s[:, None]
+        term = (_sum_over(torch.square(c), dims)
+                - 2.0 * _sum_over(c * sb, dims)
+                + _sum_over(torch.square(sb), dims))
+        sq = term if sq is None else sq + term
+    return torch.sqrt(torch.clamp(torch.max(sq), min=0.0))
+
+
+def _sum_over(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
+    if not dims:
+        return x.float()
+    return torch.sum(x, dim=dims, dtype=torch.float32)
+
+
+def resolve_backend(cfg: DFLConfig):
+    """The ``consensus.ConsensusBackend`` this config's consensus period runs
+    through (``None`` for consensus_mode='none')."""
+    topo = cfg.topology
+    m = topo.num_servers
+    a_np = topo.mixing_matrix() if m > 1 else np.ones((1, 1))
+    return cns.make_backend(cfg.consensus_mode, a_np, topo.t_server)
+
+
+# ---------------------------------------------------------------------------
+# per-client slicing of the (M, N, ...) layout
+# ---------------------------------------------------------------------------
+
+
+def _client_slice(tree: Any, i: int, j: int, grid: Tuple[int, int]) -> Any:
+    """Client (i, j)'s view of every leaf with a leading (M, N) grid; shared
+    leaves (e.g. the optimizer's step count) pass through."""
+    return tree_map(lambda x: x[i, j] if _on_grid(x, grid) else x, tree)
+
+
+def _client_write(tree: Any, new: Any, i: int, j: int,
+                  grid: Tuple[int, int]) -> Any:
+    """Write client (i, j)'s ``new`` leaves into ``tree``'s grid leaves in
+    place; shared leaves take ``new``'s value."""
+    def leaf(x, nx):
+        if _on_grid(x, grid):
+            x[i, j].copy_(nx)
+            return x
+        return nx
+    return tree_map(leaf, tree, new)
+
+
+def _on_grid(x: Any, grid: Tuple[int, int]) -> bool:
+    return (isinstance(x, torch.Tensor) and x.dim() >= 2
+            and tuple(x.shape[:2]) == grid)
+
+
+# ---------------------------------------------------------------------------
+# the epoch step builder
+# ---------------------------------------------------------------------------
+
+
+def build_dfl_epoch_step(
+    cfg: DFLConfig,
+    loss_fn: LossFn,
+    optimizer: Optimizer,
+) -> Callable[[DFLState, Any], Tuple[DFLState, DFLMetrics]]:
+    """Return ``epoch_step(state, batches) -> (state, metrics)``.
+
+    ``batches`` leaves are ``(T_C, M, N, *per_client_batch)`` — one
+    microbatch per client per local iteration.  The step updates
+    ``state``'s buffers in place (see the module docstring)."""
+    topo = cfg.topology
+    m, n = topo.num_servers, topo.clients_per_server
+    grid = (m, n)
+    if cfg.mixing == "push_sum":
+        raise NotImplementedError(
+            "mixing='push_sum' arrives with directed federation in the "
+            "dynamic-federation slice (ROADMAP.md, Queue 1)")
+    if cfg.mixing not in ("symmetric", "row_stochastic"):
+        raise ValueError(f"unknown mixing interpretation {cfg.mixing!r}")
+    if cfg.mixing == "symmetric" and topo.mixing == "out_degree" and m > 1:
+        raise ValueError(
+            "topology.mixing='out_degree' emits a row-stochastic (generally "
+            "not doubly stochastic) A: running it through the symmetric "
+            "gossip path would silently converge to the biased "
+            "Perron-weighted average — choose mixing='row_stochastic' (the "
+            "explicit biased baseline)")
+    if cfg.metrics not in ("full", "light"):
+        raise ValueError(f"unknown metrics level {cfg.metrics!r}")
+    backend = resolve_backend(cfg)
+    if backend is not None and cfg.mixing != "symmetric" \
+            and not backend.supports_directed:
+        raise ValueError(
+            f"consensus backend {backend.name!r} is undefined for "
+            f"mixing={cfg.mixing!r}: the directed paths need the literal "
+            f"W <- A W update")
+    n_micro = max(cfg.grad_microbatches, 1)
+    full = cfg.metrics == "full"
+
+    def client_grad(p_ij, batch_ij, rng):
+        """(loss, grads) of one client at its own params, averaged over
+        ``n_micro`` sequential microbatches."""
+        leaves, treedef = tree_flatten(p_ij)
+        live = [leaf.detach().requires_grad_(True) for leaf in leaves]
+        params = tree_unflatten(treedef, live)
+        if n_micro == 1:
+            loss, _aux = loss_fn(params, batch_ij, rng)
+            grads = torch.autograd.grad(loss, live)
+            return loss.detach(), tree_unflatten(treedef, list(grads))
+
+        def split(leaf):
+            b = leaf.shape[0]
+            if b % n_micro:
+                raise ValueError(f"per-client batch {b} does not split into "
+                                 f"{n_micro} microbatches")
+            return leaf.reshape((n_micro, b // n_micro) + tuple(leaf.shape[1:]))
+
+        micro = tree_map(split, batch_ij)
+        acc = [torch.zeros_like(leaf) for leaf in leaves]
+        losses = []
+        for k in range(n_micro):
+            mloss, _aux = loss_fn(params, tree_map(lambda x: x[k], micro),
+                                  rng)
+            g = torch.autograd.grad(mloss, live)
+            # accumulate in the PARAM dtype, each microgradient scaled by
+            # 1/n first, as the reference does
+            acc = [a + (x / n_micro).to(a.dtype) for a, x in zip(acc, g)]
+            losses.append(mloss.detach())
+        return torch.stack(losses).mean(), tree_unflatten(treedef, acc)
+
+    def local_period(state: DFLState, batches: Any):
+        params, opt_state = state.client_params, state.opt_state
+        t_c = tree_leaves(batches)[0].shape[0]
+        device = tree_leaves(params)[0].device
+        # kept on the device and read back once per epoch: no host sync
+        # inside the client loop
+        losses = torch.zeros((t_c, m, n), dtype=torch.float32, device=device)
+        gnorm = torch.zeros((), dtype=torch.float32, device=device)
+        for t in range(t_c):
+            batch_t = tree_map(lambda x: x[t], batches)
+            sq = None
+            new_shared = opt_state
+            for i in range(m):
+                for j in range(n):
+                    p_ij = _client_slice(params, i, j, grid)
+                    loss, grads = client_grad(
+                        p_ij, tree_map(lambda x: x[i, j], batch_t), state.rng)
+                    with torch.no_grad():
+                        new_p, new_s = optimizer.update(
+                            grads, _client_slice(opt_state, i, j, grid), p_ij)
+                        _client_write(params, new_p, i, j, grid)
+                        new_shared = _client_write(opt_state, new_s, i, j,
+                                                   grid)
+                        losses[t, i, j] = loss.float()
+                        if full:
+                            g_sq = sum(torch.sum(torch.square(g),
+                                                 dtype=torch.float32)
+                                       for g in tree_leaves(grads))
+                            sq = g_sq if sq is None else sq + g_sq
+                    del grads
+            # every client advanced the shared leaves (the step count) from
+            # the same value, so the last client's are everyone's
+            opt_state = new_shared
+            if full:
+                gnorm = torch.sqrt(sq / (m * n))
+        return params, opt_state, losses.cpu(), gnorm.cpu()
+
+    def epoch_step(state: DFLState, batches: Any
+                   ) -> Tuple[DFLState, DFLMetrics]:
+        # Lemma 3 LHS needs each client's start-of-epoch server model w^i_p
+        # (== the broadcast client params at entry), which the in-place
+        # local period overwrites: keep a copy
+        start_server = (tree_map(lambda x: x[:, 0].clone(),
+                                 state.client_params) if full else None)
+
+        # ---- 1. local period: T_C client SGD iterations (Eq. 3) ----
+        params, opt_state, losses, gnorm = local_period(state, batches)
+
+        with torch.no_grad():
+            if full:
+                drift = max_client_drift(params, start_server)
+                del start_server
+            else:
+                drift = torch.zeros((), dtype=torch.float32)
+
+            # ---- 2. aggregation at each server (Eq. 4) ----
+            server = server_mean(params)
+
+            # ---- 3. consensus period: T_S gossip rounds (Eq. 5/7) ----
+            if m > 1 and topo.t_server > 0 and backend is not None:
+                server = backend.mix(server)
+            disagreement = (disagreement_norm(server) if full
+                            else torch.zeros((), dtype=torch.float32))
+
+            # ---- 4. broadcast w^i_p back to C_i ----
+            _broadcast_into(params, server)
+            del server
+
+        new_state = DFLState(params, opt_state, state.epoch + 1, state.rng)
+        metrics = DFLMetrics(loss=losses,
+                             server_disagreement=disagreement.float().cpu(),
+                             client_drift=drift.float().cpu(),
+                             grad_norm=gnorm)
+        return new_state, metrics
+
+    return epoch_step
+
+
+def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
+                   rng: Optional[torch.Generator] = None) -> DFLState:
+    """Replicate shared w_0 (Alg. 1 'Initialize') and build optimizer state."""
+    topo = cfg.topology
+    client_params = replicate_to_clients(params, topo.num_servers,
+                                         topo.clients_per_server)
+    return DFLState(client_params, optimizer.init(client_params), 0, rng)
+
+
+# ---------------------------------------------------------------------------
+# baselines the paper compares against (conceptually)
+# ---------------------------------------------------------------------------
+
+
+def build_fedavg_epoch_step(topology: FLTopology, loss_fn: LossFn,
+                            optimizer: Optimizer) -> Callable:
+    """Classic single-server FedAvg: DFL with consensus_mode='exact_mean'."""
+    cfg = DFLConfig(topology=topology, consensus_mode="exact_mean")
+    return build_dfl_epoch_step(cfg, loss_fn, optimizer)
+
+
+def build_local_only_epoch_step(topology: FLTopology, loss_fn: LossFn,
+                                optimizer: Optimizer) -> Callable:
+    """No-communication ablation (lower bound on agreement)."""
+    cfg = DFLConfig(topology=topology, consensus_mode="none")
+    return build_dfl_epoch_step(cfg, loss_fn, optimizer)

@@ -1,0 +1,155 @@
+"""Data pipeline for DFL training (port of ``repro.data.pipeline``).
+
+Every batch is indexed by (server, client) and stacked as
+``(T_C, M, N, per_client_batch, ...)`` — one microbatch per client per local
+iteration — which is what ``repro_torch.core.dfl.build_dfl_epoch_step``
+consumes.
+
+* ``make_regression_data`` is numpy and returns the reference's arrays
+  exactly; ``make_regression_task`` wraps them with a torch loss.
+* ``FLDataPipeline`` draws tokens from a seeded ``numpy.random.Generator``
+  under the reference's zipf + bigram law.  The reference draws from
+  ``jax.random``, whose stream numpy cannot reproduce, so parity tests hand
+  both sides the same tokens instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.topology import FLTopology
+
+
+# ---------------------------------------------------------------------------
+# the paper's Sec.-IV regression task
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RegressionSpec:
+    w_star: Tuple[float, ...] = (5.0, 2.0)   # paper: w* = (5, 2) (slope, intercept)
+    points_per_client: int = 100             # paper: D = 100
+    noise_std: float = 0.5
+    x_range: Tuple[float, float] = (-5.0, 5.0)
+    heterogeneity: float = 0.0               # per-client covariate shift
+    # per-SERVER concept shift: server i's data comes from w_star + delta_i
+    concept_shift: float = 0.0
+
+
+def make_regression_data(topo: FLTopology, spec: RegressionSpec,
+                         seed: int = 0) -> Dict[str, np.ndarray]:
+    """Returns {'x': (M, N, D, d), 'y': (M, N, D), 'w_server': (M, d)} with
+    d = len(w_star); the last feature is the constant 1 (intercept)."""
+    rng = np.random.default_rng(seed)
+    m, n, d_pts = topo.num_servers, topo.clients_per_server, spec.points_per_client
+    d = len(spec.w_star)
+    lo, hi = spec.x_range
+    xs = rng.uniform(lo, hi, size=(m, n, d_pts, d - 1))
+    if spec.heterogeneity:
+        shift = rng.normal(scale=spec.heterogeneity, size=(m, n, 1, d - 1))
+        xs = xs + shift
+    feats = np.concatenate([xs, np.ones((m, n, d_pts, 1))], axis=-1)
+    w = np.broadcast_to(np.asarray(spec.w_star), (m, d)).copy()
+    if spec.concept_shift:
+        w = w + rng.normal(scale=spec.concept_shift, size=(m, d))
+    y = (np.einsum("mncd,md->mnc", feats, w)
+         + rng.normal(scale=spec.noise_std, size=(m, n, d_pts)))
+    return {"x": feats.astype(np.float32), "y": y.astype(np.float32),
+            "w_server": w}
+
+
+def regression_loss(w: torch.Tensor, batch, rng=None):
+    """0.5 * MSE of the linear model ``w`` on ``batch = (x, y)``."""
+    del rng
+    xx, yy = batch
+    return 0.5 * torch.mean((xx @ w - yy) ** 2), {}
+
+
+def make_regression_task(topo: FLTopology,
+                         spec: Optional[RegressionSpec] = None,
+                         seed: int = 0, device="cpu") -> Dict[str, object]:
+    """The Sec.-IV harness: the 0.5*MSE loss, full-batch per-iteration
+    batches of shape ``(T_C, M, N, D, d)`` on ``device``, and the global
+    least-squares ``w_star``."""
+    spec = spec or RegressionSpec()
+    data = make_regression_data(topo, spec, seed=seed)
+    x = torch.as_tensor(data["x"], device=device)
+    y = torch.as_tensor(data["y"], device=device)
+    bx = x.expand((topo.t_client,) + tuple(x.shape))
+    by = y.expand((topo.t_client,) + tuple(y.shape))
+    w_star = np.linalg.lstsq(data["x"].reshape(-1, data["x"].shape[-1]),
+                             data["y"].reshape(-1), rcond=None)[0]
+    return {"loss_fn": regression_loss, "batches": (bx, by),
+            "w_star": w_star, "x": x, "y": y}
+
+
+def perron_ideal(x, y, pi: np.ndarray) -> np.ndarray:
+    """Minimiser of the pi-weighted server objective ``sum_i pi_i f_i(w)``:
+    the biased target of naive row-stochastic gossip on this task."""
+    x, y = np.asarray(x), np.asarray(y)
+    d = x.shape[-1]
+    gram, moment = np.zeros((d, d)), np.zeros(d)
+    for i in range(x.shape[0]):
+        xi, yi = x[i].reshape(-1, d), y[i].reshape(-1)
+        gram += pi[i] * xi.T @ xi / len(yi)
+        moment += pi[i] * xi.T @ yi / len(yi)
+    return np.linalg.solve(gram, moment)
+
+
+# ---------------------------------------------------------------------------
+# synthetic LM token streams
+# ---------------------------------------------------------------------------
+
+
+def synthetic_lm_tokens(rng: np.random.Generator, vocab: int,
+                        shape: Tuple[int, ...],
+                        alpha: float = 1.1) -> np.ndarray:
+    """Zipf-distributed token ids with a learnable bigram: with p=0.5 a
+    token is ``(prev * 7 + 3) % vocab`` (the reference's law)."""
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks ** -alpha
+    probs = probs / probs.sum()
+    base = rng.choice(vocab, size=shape, p=probs)
+    mix = rng.random(shape) < 0.5
+    rolled = (np.roll(base, 1, axis=-1) * 7 + 3) % vocab
+    return np.where(mix, rolled, base).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seq_len: int
+    per_client_batch: int
+    vocab_size: int
+    seed: int = 0
+
+
+class FLDataPipeline:
+    """Per-epoch stacked LM batches for DFL: ``{"tokens": (T_C, M, N, b, s)}``
+    int64 on ``device``, drawn from ``numpy.random.default_rng([seed,
+    epoch])`` so each epoch is reproducible on its own."""
+
+    def __init__(self, topo: FLTopology, cfg: DataConfig,
+                 arch: Optional[ArchConfig] = None, device="cpu"):
+        if arch is not None and arch.frontend is not None:
+            raise NotImplementedError(
+                "frontend (vision/audio) batches arrive with the model-zoo "
+                "slice (ROADMAP.md)")
+        self.topo = topo
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self._epoch = 0
+
+    def epoch_batches(self, epoch: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
+        e = self._epoch if epoch is None else epoch
+        topo, cfg = self.topo, self.cfg
+        shape = (topo.t_client, topo.num_servers, topo.clients_per_server,
+                 cfg.per_client_batch, cfg.seq_len)
+        rng = np.random.default_rng([cfg.seed, e])
+        tokens = synthetic_lm_tokens(rng, cfg.vocab_size, shape)
+        self._epoch = e + 1
+        return {"tokens": torch.as_tensor(tokens, device=self.device)}

@@ -1,0 +1,104 @@
+"""Public kernel entry points of the port, dispatched by tensor device.
+
+For a CPU tensor each op runs its plain PyTorch version
+(``repro_torch.kernels.ref``); for a CUDA tensor it launches its Hopper
+kernel or raises — there is no path from a CUDA tensor to the plain
+version.  Port of ``repro.kernels.ops.consensus_mix_pytree`` and
+``repro.kernels.ops.rmsnorm``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.kernels import consensus_mix as _cm
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+
+def reset_launch_counts() -> None:
+    _cm.launches = 0
+    _rn.fwd_launches = 0
+    _rn.bwd_launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {"consensus_mix": _cm.launches, "rmsnorm_fwd": _rn.fwd_launches,
+            "rmsnorm_bwd": _rn.bwd_launches}
+
+
+# ---------------------------------------------------------------------------
+# consensus mixing
+# ---------------------------------------------------------------------------
+
+
+def consensus_mix(a: torch.Tensor, w: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``A @ W`` for W (M, D): the CUDA kernel on the card (into ``out``,
+    which must not overlap ``w``), the plain version on the CPU."""
+    if w.is_cuda:
+        if out is None:
+            out = torch.empty_like(w)
+        return _cm.consensus_mix_cuda(a.to(w.device), w, out)
+    res = _ref.consensus_mix_ref(a, w)
+    if out is None:
+        return res
+    return out.copy_(res)
+
+
+def consensus_mix_pytree(a: torch.Tensor, tree: Any, rounds: int = 1,
+                         block: Optional[int] = None) -> Any:
+    """``rounds`` rounds of ``W <- A W`` over every leaf (leading server axis
+    M), through ONE flattened ``(M, D)`` f32 matrix: the leaves are
+    concatenated once, the rounds ping-pong between two (M, D) buffers, and
+    the result is split back into views of the final buffer.  ``block``
+    streams the rounds over column blocks of that width (block-major,
+    round-minor — the same operator, since columns mix independently).
+    Leaves must be float32: nothing is cast."""
+    leaves, treedef = tree_flatten(tree)
+    if not leaves:
+        return tree
+    for leaf in leaves:
+        if leaf.dtype != torch.float32:
+            raise TypeError(f"consensus_mix_pytree takes float32 leaves, got "
+                            f"{leaf.dtype} (bf16 leaves are a later slice)")
+    if rounds == 0:
+        return tree
+    m = leaves[0].shape[0]
+    sizes = [leaf[0].numel() for leaf in leaves]
+    flat = torch.cat([leaf.reshape(m, -1) for leaf in leaves], dim=1)
+    d = flat.shape[1]
+    other = torch.empty_like(flat)
+    a = a.to(device=flat.device, dtype=torch.float32).contiguous()
+    step = d if block is None else block
+    for lo in range(0, d, max(step, 1)):
+        hi = min(d, lo + step)
+        src, dst = flat[:, lo:hi], other[:, lo:hi]
+        for _ in range(rounds):
+            consensus_mix(a, src, out=dst)
+            src, dst = dst, src
+    # every block ran the same number of rounds, so all end in one buffer
+    result = other if rounds % 2 else flat
+    out, off = [], 0
+    for leaf, size in zip(leaves, sizes):
+        out.append(result[:, off:off + size].reshape(leaf.shape))
+        off += size
+    return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm  (model layout: (..., d))
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis: the Triton forward/backward pair on the
+    card, the differentiable plain version on the CPU."""
+    if not x.is_cuda:
+        return _ref.rmsnorm_ref(x, scale, eps)
+    lead, d = x.shape[:-1], x.shape[-1]
+    y = _rn.RMSNormFn.apply(x.reshape(-1, d).contiguous(), scale, eps)
+    return y.reshape(*lead, d)

@@ -1,0 +1,152 @@
+"""DFL trainer on PyTorch: port of the static ``repro.launch.train.train``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+        --full --servers 4 --clients 2 --t-client 2 --t-server 5 --epochs 2
+
+Runs Algorithm 1 end to end on the card (``--device cpu`` runs it on the
+CPU, with the kernels' plain versions): T_C local SGD steps per client on
+per-client synthetic LM shards, per-server aggregation, T_S gossip rounds
+(kernel 1), broadcast — printing the reference trainer's epoch record
+(loss, disagreement, drift, participation, num_servers, sigma_prod) every
+epoch.  float32 matmuls run in full float32: TF32 is switched off.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch, get_smoke
+from repro_torch.core import (DFLConfig, FLTopology, SigmaTracker,
+                              build_dfl_epoch_step, init_dfl_state)
+from repro_torch.data import DataConfig, FLDataPipeline
+from repro_torch.models import transformer as tf
+from repro_torch.optim import sgd
+
+_ORDER = ("loss", "disagreement", "drift", "sigma_prod", "num_servers")
+_FMT = {"loss": ".4f", "disagreement": ".3e", "drift": ".3e",
+        "sigma_prod": ".3f", "num_servers": ".0f"}
+
+
+def resolve_device(device: str) -> torch.device:
+    """The run's device: CUDA unless the caller asks for the CPU.  Asking
+    for CUDA on a host without it raises — nothing falls back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but CUDA is not available; pass "
+            f"device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+def set_full_f32() -> None:
+    """float32 matmuls and convolutions in full float32 (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def format_record(epoch: int, rec: dict) -> str:
+    parts = [f"epoch {epoch:4d}"]
+    parts += [f"{k}={rec[k]:{_FMT[k]}}" for k in _ORDER if k in rec]
+    parts.append(f"({rec['epoch_s']:.2f}s)")
+    return "  ".join(parts)
+
+
+def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
+          clients: int = 2, t_client: int = 4, t_server: int = 5,
+          epochs: int = 3, seq_len: int = 128, per_client_batch: int = 2,
+          gamma: float = 0.05, graph: str = "ring",
+          consensus_mode: str = "gossip", mixing: str = "symmetric",
+          seed: int = 0, device: str = "cuda",
+          params: Optional[dict] = None, log: bool = True) -> dict:
+    """Static Algorithm 1 on an LM.  ``params`` (optional) replaces the
+    seeded random init, e.g. weights carried over by
+    ``transformer.params_from_numpy``.  Returns the final state, the
+    per-epoch history (metric name -> list) and the run's objects."""
+    dev = resolve_device(device)
+    set_full_f32()
+    cfg = get_smoke(arch_id) if smoke else get_arch(arch_id)
+    topo = FLTopology(num_servers=servers, clients_per_server=clients,
+                      t_client=t_client, t_server=t_server, graph_kind=graph,
+                      mixing="out_degree" if mixing != "symmetric"
+                      else "metropolis")
+    loss_fn = tf.make_loss_fn(cfg)
+    optimizer = sgd(gamma)
+    pipe = FLDataPipeline(topo, DataConfig(seq_len=seq_len,
+                                           per_client_batch=per_client_batch,
+                                           vocab_size=cfg.vocab_size,
+                                           seed=seed), arch=cfg, device=dev)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = tf.init_params(gen, cfg, device=dev)
+    dfl_cfg = DFLConfig(topology=topo, consensus_mode=consensus_mode,
+                        mixing=mixing)
+    step = build_dfl_epoch_step(dfl_cfg, loss_fn, optimizer)
+    state = init_dfl_state(dfl_cfg, params, optimizer,
+                           torch.Generator(device=dev).manual_seed(seed + 1))
+    del params
+    sigma = SigmaTracker(topo.num_servers)
+    a_np = (topo.mixing_matrix() if topo.num_servers > 1
+            else np.ones((1, 1)))
+    history: dict = {}
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        state, metrics = step(state, pipe.epoch_batches(epoch))
+        # the metrics are host tensors: reading them waited for the device
+        rec = {
+            "loss": float(metrics.loss[-1].mean()),
+            "disagreement": float(metrics.server_disagreement),
+            "drift": float(metrics.client_drift),
+            "participation": 1.0,
+            "num_servers": float(topo.num_servers),
+            "sigma_prod": sigma.update(a_np, topo.t_server),
+            "epoch_s": time.perf_counter() - t0,
+        }
+        for k, v in rec.items():
+            history.setdefault(k, []).append(v)
+        if log:
+            print(format_record(epoch, rec))
+    return {"state": state, "history": history, "topology": topo,
+            "cfg": cfg}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--arch", default="smollm-360m")
+    p.add_argument("--smoke", action="store_true", default=True)
+    p.add_argument("--full", dest="smoke", action="store_false",
+                   help="the published-size config")
+    p.add_argument("--servers", type=int, default=2)
+    p.add_argument("--clients", type=int, default=2)
+    p.add_argument("--t-client", type=int, default=4)
+    p.add_argument("--t-server", type=int, default=5)
+    p.add_argument("--epochs", type=int, default=3)
+    p.add_argument("--seq-len", type=int, default=128)
+    p.add_argument("--batch", type=int, default=2)
+    p.add_argument("--gamma", type=float, default=0.05)
+    p.add_argument("--graph", default="ring",
+                   choices=("ring", "complete", "star", "line"))
+    p.add_argument("--consensus-mode", default="gossip",
+                   choices=("gossip", "gossip_blocked", "collapsed",
+                            "exact_mean", "none"))
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without CUDA) or cpu")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def main() -> None:
+    args = build_parser().parse_args()
+    train(args.arch, smoke=args.smoke, servers=args.servers,
+          clients=args.clients, t_client=args.t_client,
+          t_server=args.t_server, epochs=args.epochs, seq_len=args.seq_len,
+          per_client_batch=args.batch, gamma=args.gamma, graph=args.graph,
+          consensus_mode=args.consensus_mode, device=args.device,
+          seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

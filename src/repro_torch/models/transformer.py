@@ -1,0 +1,226 @@
+"""Decoder transformer: port of the dense path of ``repro.models.transformer``.
+
+The parameter tree has the reference's layout exactly — ``embed``,
+``final_norm``, optional ``head``, and ``stack``: a tuple of one block dict
+per layer of a period, every leaf stacked over ``n_periods`` — so the
+reference's parameters carry over leaf by leaf (``params_from_numpy``).
+Where the reference scans over periods, this loops over them.
+
+Public API
+----------
+    init_params(gen, cfg, dtype, device)        -> params tree
+    params_from_numpy(tree, device)             -> params tree
+    forward(params, cfg, batch)                 -> (logits, aux_loss)
+    make_loss_fn(cfg)                           -> loss_fn(params, batch, rng)
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import modules as nn
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class ApplyOptions:
+    """Knobs threaded through the apply path (no param-structure impact)."""
+
+    attn_impl: str = "reference"     # the only one this slice ports
+
+
+DEFAULT_OPTS = ApplyOptions()
+
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    num_prefix: int          # unscanned leading layers (0 on the dense path)
+    period: int              # layers per stacked step
+    n_periods: int
+
+
+def _check_dense(cfg: ArchConfig) -> None:
+    later = [name for name, v in (("moe", cfg.moe), ("mla", cfg.mla),
+                                  ("mamba", cfg.mamba),
+                                  ("encdec", cfg.encdec),
+                                  ("frontend", cfg.frontend))
+             if v is not None]
+    if later or "mamba" in cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: {later or ['mamba']} blocks arrive with the "
+            f"model-zoo slice (ROADMAP.md); this slice ports the dense path")
+
+
+def stack_plan(cfg: ArchConfig) -> StackPlan:
+    _check_dense(cfg)
+    period = len(cfg.layer_pattern)
+    if cfg.num_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
+                         f"into periods of {period}")
+    return StackPlan(0, period, cfg.num_layers // period)
+
+
+# ---------------------------------------------------------------------------
+# single block
+# ---------------------------------------------------------------------------
+
+
+def block_init(gen, cfg: ArchConfig, dtype=torch.float32,
+               device="cpu") -> Dict:
+    d = cfg.d_model
+    p: Dict[str, Any] = {"ln1": nn.rmsnorm_init(d, dtype, device),
+                         "ln2": nn.rmsnorm_init(d, dtype, device),
+                         "mixer": nn.attention_init(gen, cfg, dtype, device)}
+    if cfg.d_ff > 0:
+        p["ffn"] = nn.mlp_init(gen, d, cfg.d_ff, dtype, device)
+    if cfg.final_logit_softcap is not None:  # gemma2 family: post-norms
+        p["post_ln1"] = nn.rmsnorm_init(d, dtype, device)
+        p["post_ln2"] = nn.rmsnorm_init(d, dtype, device)
+    return p
+
+
+def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
+                *, opts: ApplyOptions = DEFAULT_OPTS,
+                causal: bool = True) -> torch.Tensor:
+    """Full-sequence pre-norm block."""
+    h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
+    mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
+                             causal=causal, attn_impl=opts.attn_impl)
+    if "post_ln1" in params:
+        mix = nn.rmsnorm_apply(params["post_ln1"], mix, cfg.norm_eps)
+    x = x + mix
+    if "ffn" in params:
+        h = nn.rmsnorm_apply(params["ln2"], x, cfg.norm_eps)
+        ff = nn.mlp_apply(params["ffn"], h, cfg.act)
+        if "post_ln2" in params:
+            ff = nn.rmsnorm_apply(params["post_ln2"], ff, cfg.norm_eps)
+        x = x + ff
+    return x
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+                device="cpu") -> Dict:
+    """Random parameters from ``gen`` (a generator on ``device``)."""
+    plan = stack_plan(cfg)
+    d = cfg.d_model
+    vp = cfg.padded_vocab_size
+    params: Dict[str, Any] = {
+        "embed": nn._dense_init(gen, (vp, d), dtype, device, scale=0.02),
+        "final_norm": nn.rmsnorm_init(d, dtype, device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = nn._dense_init(gen, (d, vp), dtype, device)
+    periods = [[block_init(gen, cfg, dtype, device)
+                for _ in range(plan.period)] for _ in range(plan.n_periods)]
+    params["stack"] = tuple(
+        tree_map(lambda *layers: torch.stack(layers),
+                 *[periods[p][i] for p in range(plan.n_periods)])
+        for i in range(plan.period))
+    return params
+
+
+def params_from_numpy(tree: Any, device="cpu") -> Any:
+    """The reference's parameters (numpy arrays under the same key paths,
+    e.g. ``jax.tree.map(np.asarray, params)``) as the port's tensors."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True))
+                    .to(device), tree)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.final_logit_softcap is not None:  # gemma family scales embeddings
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = nn.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x, params["head"])
+    logits = nn.softcap(logits, cfg.final_logit_softcap)
+    if cfg.padded_vocab_size != cfg.vocab_size:   # mask vocab-padding ids
+        pad_ids = torch.arange(logits.shape[-1],
+                               device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad_ids, -1e30)
+    return logits
+
+
+def _run_stack(params, cfg: ArchConfig, x: torch.Tensor, *, causal=True,
+               opts: ApplyOptions = DEFAULT_OPTS) -> torch.Tensor:
+    plan = stack_plan(cfg)
+    # unbind each stacked leaf once: its backward is one stack of the
+    # per-layer grads, not one full-size zero-fill per layer
+    per_block = []
+    for blk in params["stack"]:
+        leaves, treedef = tree_flatten(blk)
+        per_block.append((treedef, [leaf.unbind(0) for leaf in leaves]))
+    for p in range(plan.n_periods):
+        for i, (treedef, unbound) in enumerate(per_block):
+            layer = tree_unflatten(treedef, [u[p] for u in unbound])
+            x = block_apply(layer, x, cfg, cfg.pattern_for_layer(i),
+                            opts=opts, causal=causal)
+    return x
+
+
+def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+                   opts: ApplyOptions = DEFAULT_OPTS
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trunk only: final hidden states (pre-head) and the aux loss (0 on the
+    dense path).  ``batch``: ``{"tokens": (b, s) int64}``."""
+    x = _embed(params, cfg, batch["tokens"])
+    x = _run_stack(params, cfg, x, opts=opts)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            opts: ApplyOptions = DEFAULT_OPTS
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: (logits over the token part, aux loss)."""
+    x, aux = forward_hidden(params, cfg, batch, opts=opts)
+    return _head(params, cfg, x), aux
+
+
+LOSS_CHUNK = 512     # sequence positions per head/loss chunk
+
+
+def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
+                 loss_chunk: int = LOSS_CHUNK):
+    """Next-token cross-entropy, the head and logsumexp taken over
+    ``loss_chunk``-position slices so the peak logits tensor is
+    (b, chunk, vocab).  Signature matches ``repro_torch.core.dfl.LossFn``."""
+
+    def loss_fn(params, batch, rng):
+        del rng
+        x, aux = forward_hidden(params, cfg, batch, opts=opts)
+        xs = x[:, :-1]                                       # predict t+1
+        targets = batch["tokens"][:, 1:]
+        b, sm1, _ = xs.shape
+        chunk = min(loss_chunk, sm1)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for lo in range(0, sm1, chunk):
+            logits = _head(params, cfg, xs[:, lo:lo + chunk]).float()
+            t_c = targets[:, lo:lo + chunk]
+            lse = torch.logsumexp(logits, dim=-1)            # (b, chunk)
+            tgt = torch.gather(logits, -1, t_c[..., None])[..., 0]
+            total = total + (lse - tgt).sum()
+        nll_mean = total / (b * sm1)
+        return nll_mean + aux, {"nll": nll_mean, "aux": aux}
+
+    return loss_fn

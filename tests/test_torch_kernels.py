@@ -1,0 +1,134 @@
+"""Port parity for the kernels' plain versions and the device dispatch.
+
+On the CPU: the port's plain ``consensus_mix_ref`` / ``rmsnorm_ref`` (and
+the closed-form RMSNorm backward the Triton kernel computes) against the
+JAX package's Pallas kernels in interpret mode, its jnp oracles and
+``jax.grad``; ``ops.*`` on CPU tensors runs the plain version and launches
+nothing.  The Hopper kernels themselves are held against the plain versions
+on the card by ``tests/test_torch_kernels_cuda.py``.
+
+Tolerances: f32 contractions and reductions summed in another order than
+XLA's — rtol/atol 2e-5 on O(1) data, as ``tests/test_kernels_misc.py``
+uses for the Pallas kernels themselves.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.consensus import collapse_mixing as j_collapse  # noqa: E402
+from repro.core import topology as jtp  # noqa: E402
+from repro.kernels.consensus_mix import consensus_mix_2d  # noqa: E402
+from repro.kernels.ref import consensus_mix_ref as j_mix_ref  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm_2d  # noqa: E402
+from repro.models.modules import rmsnorm_apply  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _mixing(m: int) -> np.ndarray:
+    if m == 1:
+        return np.ones((1, 1), np.float32)
+    a = j_collapse(jtp.metropolis_weights(jtp.ring_graph(m)), 3)
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [1, 4, 5])
+@pytest.mark.parametrize("d", [1000, 4099])
+def test_consensus_mix_plain_matches_pallas_and_oracle(m, d):
+    rng = np.random.default_rng(m * 7 + d)
+    a = _mixing(m)
+    w = rng.standard_normal((m, d)).astype(np.float32)
+    port = ref.consensus_mix_ref(torch.from_numpy(a), torch.from_numpy(w))
+    pallas = consensus_mix_2d(jnp.asarray(a), jnp.asarray(w), block_d=512,
+                              interpret=True)
+    oracle = j_mix_ref(jnp.asarray(a), jnp.asarray(w))
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(port.numpy(), np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("rows,d", [(7, 64), (32, 120), (256, 960)])
+def test_rmsnorm_plain_matches_pallas_and_module(rows, d):
+    rng = np.random.default_rng(rows + d)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    port = ref.rmsnorm_ref(torch.from_numpy(x), torch.from_numpy(s))
+    pallas = rmsnorm_2d(jnp.asarray(x), jnp.asarray(s), block_rows=rows,
+                        interpret=True)
+    module = rmsnorm_apply({"scale": jnp.asarray(s)}, jnp.asarray(x))
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas), **TOL)
+    np.testing.assert_allclose(port.numpy(), np.asarray(module), **TOL)
+
+
+@pytest.mark.parametrize("rows,d", [(5, 64), (48, 120)])
+def test_rmsnorm_backward_matches_jax_grad(rows, d):
+    """Autograd of the plain version AND the closed-form backward (the
+    Triton kernel's formula) against ``jax.grad`` of the module's norm.
+    Tolerance 1e-4: gradients sum d products in another order."""
+    rng = np.random.default_rng(rows * d)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((rows, d)).astype(np.float32)
+
+    def jloss(xx, ss):
+        return jnp.sum(rmsnorm_apply({"scale": ss}, xx) * g)
+
+    jdx, jds = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(s))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ts = torch.from_numpy(s).requires_grad_(True)
+    adx, ads = torch.autograd.grad(ref.rmsnorm_ref(tx, ts),
+                                   (tx, ts), torch.from_numpy(g))
+    cdx, cds = ref.rmsnorm_bwd_ref(torch.from_numpy(x), torch.from_numpy(s),
+                                   torch.from_numpy(g))
+    for dx, ds in ((adx, ads), (cdx, cds)):
+        np.testing.assert_allclose(dx.numpy(), np.asarray(jdx),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(ds.numpy(), np.asarray(jds),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
+    ops.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(_mixing(4))
+    w = torch.from_numpy(rng.standard_normal((4, 300)).astype(np.float32))
+    out = torch.empty_like(w)
+    assert ops.consensus_mix(a, w, out=out) is out
+    assert torch.equal(out, ref.consensus_mix_ref(a, w))
+    x = torch.from_numpy(rng.standard_normal((2, 3, 40)).astype(np.float32))
+    s = torch.ones(40)
+    assert torch.equal(ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s))
+    assert ops.launch_counts() == {"consensus_mix": 0, "rmsnorm_fwd": 0,
+                                   "rmsnorm_bwd": 0}
+
+
+@pytest.mark.parametrize("rounds,block", [(1, None), (4, None), (3, 7),
+                                          (0, None)])
+def test_consensus_mix_pytree_matches_per_leaf_rounds(rounds, block):
+    """The flattened ping-pong path equals ``rounds`` per-leaf rounds of the
+    reference's ``consensus_mix_ref`` oracle (f32 tolerance)."""
+    rng = np.random.default_rng(rounds)
+    a = _mixing(5)
+    tree = {"w": rng.standard_normal((5, 4, 3)).astype(np.float32),
+            "b": rng.standard_normal((5, 6)).astype(np.float32),
+            "n": (rng.standard_normal((5, 2, 2)).astype(np.float32),)}
+    port = ops.consensus_mix_pytree(
+        torch.from_numpy(a), jax.tree.map(torch.from_numpy, tree),
+        rounds=rounds, block=block)
+    want = jax.tree.map(jnp.asarray, tree)
+    for _ in range(rounds):
+        want = jax.tree.map(lambda leaf: j_mix_ref(
+            jnp.asarray(a), leaf.reshape(5, -1)).reshape(leaf.shape), want)
+    for got, exp in zip(jax.tree.leaves(jax.tree.map(
+            lambda t: t.numpy(), port)), jax.tree.leaves(want)):
+        np.testing.assert_allclose(got, np.asarray(exp), **TOL)
+
+
+def test_consensus_mix_pytree_refuses_non_f32():
+    tree = {"w": torch.zeros((2, 3), dtype=torch.bfloat16)}
+    with pytest.raises(TypeError, match="float32"):
+        ops.consensus_mix_pytree(torch.eye(2), tree)

@@ -1,0 +1,91 @@
+"""The port's Hopper kernels against their plain versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips without a GPU.  The
+file imports neither JAX nor the JAX package, so it also runs on the GPU
+machine, which has no JAX:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import topology as tp  # noqa: E402
+from repro_torch.core.consensus import collapse_mixing  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernels run only there")
+    return torch.device("cuda")
+
+
+def _mixing(m: int) -> np.ndarray:
+    if m == 1:
+        return np.ones((1, 1), np.float32)
+    return collapse_mixing(tp.metropolis_weights(tp.ring_graph(m)),
+                           3).astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 16])
+@pytest.mark.parametrize("d", [4096, 1_000_003])
+def test_consensus_mix_kernel_matches_plain(cuda, m, d):
+    g = torch.Generator(device=cuda).manual_seed(m + d)
+    a = torch.from_numpy(_mixing(m)).to(cuda)
+    w = torch.randn((m, d), device=cuda, generator=g)
+    before = ops.launch_counts()["consensus_mix"]
+    out = ops.consensus_mix(a, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["consensus_mix"] == before + 1
+    torch.testing.assert_close(out, ref.consensus_mix_ref(a, w),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_consensus_mix_pytree_blocks_match_plain_rounds(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.from_numpy(_mixing(5)).to(cuda)
+    tree = {"w": torch.randn((5, 33, 7), device=cuda, generator=g),
+            "b": torch.randn((5, 1001), device=cuda, generator=g)}
+    for block in (None, 64):
+        got = ops.consensus_mix_pytree(a, tree, rounds=3, block=block)
+        for key, leaf in tree.items():
+            want = leaf.reshape(5, -1)
+            for _ in range(3):
+                want = ref.consensus_mix_ref(a, want)
+            torch.testing.assert_close(got[key], want.reshape(leaf.shape),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [256, 1000])
+def test_rmsnorm_kernels_match_plain(cuda, rows):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn((rows, 960), device=cuda, generator=g, requires_grad=True)
+    s = (1 + 0.1 * torch.randn(960, device=cuda, generator=g)
+         ).requires_grad_(True)
+    gy = torch.randn((rows, 960), device=cuda, generator=g)
+    y = ops.rmsnorm(x, s)
+    dx, ds = torch.autograd.grad(y, (x, s), gy)
+    yr = ref.rmsnorm_ref(x, s)
+    dxr, dsr = torch.autograd.grad(yr, (x, s), gy)
+    torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dx, dxr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ds, dsr, rtol=1e-4, atol=1e-4)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    w = torch.zeros((4, 8), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        ops.consensus_mix(torch.eye(4, device=cuda), w)
+    w32 = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="overlap"):
+        ops.consensus_mix(torch.eye(4, device=cuda), w32, out=w32)
+    with pytest.raises(ValueError, match="M <= 64"):
+        ops.consensus_mix(torch.eye(65, device=cuda),
+                          torch.zeros((65, 8), device=cuda))

@@ -1,0 +1,128 @@
+"""Port parity: ``repro_torch.models`` against ``repro.models`` on the
+SmolLM smoke config (2 layers, d = 120, 3/1 heads), the reference's
+``init_params`` carried over with ``params_from_numpy``, tokens from a numpy
+seed.  Tolerances: logits and loss atol 1e-4 (f32 matmuls over d = 120 and
+a 512-way softmax, summed in another order); gradients rtol/atol 1e-4."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke as j_get_smoke  # noqa: E402
+from repro.models import modules as jnn  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro_torch.configs import get_arch, get_smoke  # noqa: E402
+from repro_torch.models import modules as tnn  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+from repro_torch.tree import (tree_flatten, tree_leaves,  # noqa: E402
+                              tree_unflatten)
+
+ARCH = "smollm-360m"
+REF_OPTS = jtf.ApplyOptions(remat=False)
+
+
+@pytest.fixture(scope="module")
+def carried():
+    jcfg = j_get_smoke(ARCH)
+    jparams = jtf.init_params(jax.random.key(3), jcfg)
+    tparams = ttf.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jcfg.vocab_size, size=(2, 16))
+    return jcfg, jparams, tparams, tokens
+
+
+def test_config_copy_matches_reference():
+    cfg, jcfg = get_smoke(ARCH), j_get_smoke(ARCH)
+    assert cfg.__dict__ == jcfg.__dict__
+    assert get_arch(ARCH).param_count() == 361_821_120
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_arch("mixtral-8x22b")
+
+
+def test_params_carry_over_with_same_key_paths(carried):
+    jcfg, jparams, tparams, _ = carried
+    jleaves = jax.tree.leaves(jparams)
+    tleaves = tree_leaves(tparams)
+    assert [tuple(x.shape) for x in jleaves] == \
+        [tuple(t.shape) for t in tleaves]
+    for j, t in zip(jleaves, tleaves):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    own = ttf.init_params(torch.Generator().manual_seed(0), get_smoke(ARCH))
+    assert [tuple(t.shape) for t in tree_leaves(own)] == \
+        [tuple(t.shape) for t in tleaves]
+    assert sum(t.numel() for t in tree_leaves(own)) == \
+        get_smoke(ARCH).param_count()
+
+
+def test_logits_and_loss_match_reference(carried):
+    jcfg, jparams, tparams, tokens = carried
+    jlogits, _ = jtf.forward(jparams, jcfg, {"tokens": jnp.asarray(tokens)},
+                             opts=REF_OPTS)
+    tlogits, _ = ttf.forward(tparams, get_smoke(ARCH),
+                             {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(tlogits.detach().numpy(), np.asarray(jlogits),
+                               rtol=0, atol=1e-4)
+    jloss, _ = jtf.make_loss_fn(jcfg, REF_OPTS)(
+        jparams, {"tokens": jnp.asarray(tokens)}, None)
+    tloss, aux = ttf.make_loss_fn(get_smoke(ARCH))(
+        tparams, {"tokens": torch.from_numpy(tokens)}, None)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=0, atol=1e-4)
+    assert float(aux["aux"]) == 0.0
+
+
+def test_chunked_loss_matches_one_chunk(carried):
+    _, _, tparams, tokens = carried
+    batch = {"tokens": torch.from_numpy(tokens)}
+    whole = ttf.make_loss_fn(get_smoke(ARCH))(tparams, batch, None)[0]
+    chunked = ttf.make_loss_fn(get_smoke(ARCH), loss_chunk=4)(
+        tparams, batch, None)[0]
+    torch.testing.assert_close(chunked, whole, rtol=1e-6, atol=1e-6)
+
+
+def test_grads_match_jax_grad(carried):
+    jcfg, jparams, tparams, tokens = carried
+    jgrads = jax.grad(lambda p: jtf.make_loss_fn(jcfg, REF_OPTS)(
+        p, {"tokens": jnp.asarray(tokens)}, None)[0])(jparams)
+    leaves = tree_leaves(tparams)
+    live = [t.clone().requires_grad_(True) for t in leaves]
+    treedef = tree_flatten(tparams)[1]
+    loss, _ = ttf.make_loss_fn(get_smoke(ARCH))(
+        tree_unflatten(treedef, live), {"tokens": torch.from_numpy(tokens)},
+        None)
+    grads = tree_unflatten(treedef, list(torch.autograd.grad(loss, live)))
+    for path in (("embed",), ("stack", 0, "ffn", "down"),
+                 ("stack", 0, "ln1", "scale")):
+        g, jg = grads, jgrads
+        for key in path:
+            g, jg = g[key], jg[key]
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_rope_and_attention_match_reference():
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((2, 6, 4, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 6, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 6, 2, 8)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(6), (2, 6))
+    np.testing.assert_allclose(
+        tnn.apply_rope(torch.from_numpy(q), torch.from_numpy(pos.copy()),
+                       1e4).numpy(),
+        np.asarray(jnn.apply_rope(jnp.asarray(q), jnp.asarray(pos), 1e4)),
+        rtol=0, atol=1e-5)
+    for window, cap in ((None, None), (3, 5.0)):
+        got = tnn.dispatch_attend(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=True,
+                                  window=window, attn_softcap=cap)
+        want = jnn.dispatch_attend(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True,
+                                   window=window, attn_softcap=cap)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    with pytest.raises(NotImplementedError, match="serving"):
+        tnn.dispatch_attend(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal=True, window=None,
+                            attn_softcap=None, attn_impl="pallas")
