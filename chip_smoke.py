@@ -5,11 +5,20 @@
 
 Needs one NVIDIA Hopper GPU (an H100), the CUDA toolkit's nvcc and triton.
 It builds the port's kernels from this checkout's sources, holds each one
-against its plain PyTorch version on the card, drives Algorithm 1 through
-``repro_torch.launch.train.train`` on full-width, full-depth SmolLM-360M
-(361,821,120 parameters, random weights from a seed), checks that the run
-went through the kernels, and runs a full-size gossip period against the
-plain version and Lemma 1.  Every phase prints one JSON line; any failure
+against its plain PyTorch version on the card, and drives two paths, each
+with the launch counters reset just before it and read just after:
+
+* training: Algorithm 1 through ``repro_torch.launch.train.train`` on
+  full-width, full-depth SmolLM-360M (361,821,120 parameters, random
+  weights from a seed), then a full-size gossip period against the plain
+  version and Lemma 1;
+* serving: ``repro_torch.launch.serve.serve`` on full-width, full-depth
+  Qwen3-1.7B (1,720,574,976 parameters, f32 weights from a seed, f32 KV
+  cache): 4 prompts of 1024 tokens prefilled through the flash-attention
+  kernel, 64 tokens decoded each; then the kernel-route prefill against the
+  reference route and three decode steps against a full forward.
+
+Every phase prints one JSON line; any failure
 raises and the script exits non-zero.  Before the last line it prints the
 per-kernel JSON summary and the GPU's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -34,6 +43,32 @@ TRAIN = dict(smoke=False, servers=4, clients=2, t_client=2, t_server=5,
              epochs=2, seq_len=128, per_client_batch=2, graph="ring",
              device="cuda")
 SMOLLM_PARAMS = 361_821_120
+
+# the serving path: full Qwen3-1.7B, 4 prompts of 1024 tokens, 64 generated
+SERVE = dict(smoke=False, batch=4, prompt_len=1024, gen=64, device="cuda")
+QWEN3_PARAMS = 1_720_574_976
+
+# the flash-attention sweep: (b, sq, sk, h, kvh, hd), options, dtype — the
+# reference's tests/test_kernels_attention.py, plus hd 40 and the main shape
+FLASH_SWEEP = [
+    ((1, 128, 128, 4, 4, 64), {}, "float32"),            # MHA
+    ((2, 128, 128, 8, 2, 64), {}, "float32"),            # GQA 4:1
+    ((1, 256, 256, 4, 1, 128), {}, "float32"),           # MQA, hd 128
+    ((2, 64, 192, 4, 2, 64), {}, "float32"),             # sq < sk
+    ((1, 100, 100, 3, 3, 32), {}, "float32"),            # ragged, hd 32
+    ((1, 128, 130, 4, 4, 64), {}, "float32"),            # ragged keys
+    ((1, 128, 128, 4, 2, 64), {"window": 16}, "float32"),
+    ((1, 128, 128, 4, 2, 64), {"window": 64}, "float32"),
+    ((1, 128, 128, 4, 2, 64), {"window": 4096}, "float32"),
+    ((1, 128, 128, 4, 4, 64), {"softcap": 20.0}, "float32"),
+    ((1, 128, 128, 4, 4, 64), {"softcap": 50.0}, "float32"),
+    ((1, 128, 128, 4, 4, 64), {"causal": False}, "float32"),
+    ((1, 128, 128, 4, 2, 64), {"window": 48, "softcap": 30.0}, "float32"),
+    ((1, 128, 128, 4, 2, 64), {}, "bfloat16"),
+    ((2, 1, 512, 8, 2, 64), {}, "float32"),              # sq = 1
+    ((1, 96, 96, 3, 1, 40), {}, "float32"),              # hd 40
+    ((4, 1024, 1024, 16, 8, 128), {}, "float32"),        # serving prefill
+]
 
 
 def emit(phase: str, **fields) -> None:
@@ -85,6 +120,21 @@ def rel_err(torch, got, want) -> tuple:
     return err, err / max(scale, 1e-30)
 
 
+def flash_limit(kw: dict, dtype: str) -> float:
+    """The reference's tolerances: f32 sums in another order (2e-5; 5e-5
+    through a softcap's tanh), bf16 rounding of the output (2e-2)."""
+    if dtype == "bfloat16":
+        return 2e-2
+    return 5e-5 if "softcap" in kw else 2e-5
+
+
+def causal_pairs(torch, sq: int, sk: int) -> int:
+    """(query, key) pairs a causal mask lets through, queries end-aligned:
+    the work any attention must do for these inputs."""
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    return int((torch.arange(sk)[None, :] <= qpos).sum())
+
+
 def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
     """Device busy time, the top device kernels and host ops, and the port's
     own kernels' device times, from a ``torch.profiler`` run (times in ms;
@@ -97,7 +147,8 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     ours = [e for e in kernels if any(
-        k in e.key for k in ("consensus_mix", "rmsnorm", "column_sum"))]
+        k in e.key for k in ("consensus_mix", "rmsnorm", "column_sum",
+                             "flash_fwd"))]
     host = sorted((e for e in events if e not in kernels),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
 
@@ -125,9 +176,13 @@ def main() -> int:
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     from repro_torch.core import consensus as cns
     from repro_torch.core import topology as tp
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import serve as tserve
     from repro_torch.launch import train as ttrain
+    from repro_torch.models import transformer as ttf
     from repro_torch.tree import tree_leaves, tree_map
 
     dev = torch.device("cuda")
@@ -264,11 +319,12 @@ def main() -> int:
          launches=launches,
          expected_launches={
              "consensus_mix": TRAIN["t_server"] * TRAIN["epochs"],
+             "flash_attention": 0,
              "rmsnorm_fwd": norms_per_step * client_steps,
              "rmsnorm_bwd": norms_per_step * client_steps},
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     assert n_params == SMOLLM_PARAMS, n_params
-    assert all(v > 0 for v in launches.values()), launches
+    assert launches["flash_attention"] == 0, launches   # not on this path
     assert launches["consensus_mix"] == TRAIN["t_server"] * TRAIN["epochs"]
     assert launches["rmsnorm_fwd"] == norms_per_step * client_steps
     assert launches["rmsnorm_bwd"] == norms_per_step * client_steps
@@ -312,7 +368,7 @@ def main() -> int:
     assert mean_err / mean_scale < 1e-5, mean_err / mean_scale
     assert dis1 <= sigma * dis0 * (1 + 1e-4), (dis1, sigma * dis0)
     assert vs_plain < 1e-5, vs_plain
-    del server, mixed, plain
+    del server, mixed, plain, mean0, mean1
     torch.cuda.empty_cache()
 
     # ---- 7. where the time goes: one more epoch under the profiler ----
@@ -325,7 +381,157 @@ def main() -> int:
         wall_s = time.perf_counter() - t0
     emit("profile", **profile_summary(prof, wall_s))
 
-    # ---- 8. per-kernel summary, card, result ----
+    # ---- 8. kernel 3 vs its plain version over the reference's sweep ----
+    for shape, kw, dtype in FLASH_SWEEP:
+        b, sq, sk, h, kvh, hd = shape
+        q = torch.randn((b, sq, h, hd), device=dev, generator=g)
+        k = torch.randn((b, sk, kvh, hd), device=dev, generator=g)
+        v = torch.randn((b, sk, kvh, hd), device=dev, generator=g)
+        q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(torch, got, want)
+        limit = flash_limit(kw, dtype)
+        emit("flash_attention_check", shape=shape, dtype=dtype, **kw,
+             out_dtype=str(got.dtype), max_abs_err=err, max_rel_err=rel,
+             limit=limit)
+        assert got.dtype == q.dtype and rel < limit, (shape, kw, dtype, rel)
+
+    # ---- 9. kernel 3 at the serving path's shape: times and bound ----
+    qcfg = get_arch("qwen3-1.7b")
+    b, s_len = SERVE["batch"], SERVE["prompt_len"]
+    h, kvh, hd = qcfg.num_heads, qcfg.num_kv_heads, qcfg.resolved_head_dim()
+    q = torch.randn((b, s_len, h, hd), device=dev, generator=g)
+    k = torch.randn((b, s_len, kvh, hd), device=dev, generator=g)
+    v = torch.randn((b, s_len, kvh, hd), device=dev, generator=g)
+    fa_err, fa_rel = rel_err(torch, ops.flash_attention(q, k, v),
+                             ref.attention_ref(q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = rel_err(torch, sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), is_causal=True,
+                                  enable_gqa=True).transpose(1, 2),
+                      ref.attention_ref(q, k, v))[1]
+    assert fa_rel < 2e-5, fa_rel
+    fa_times = alternate(torch, {
+        "kernel": lambda: ops.flash_attention(q, k, v),
+        "plain": lambda: ref.attention_ref(q, k, v),
+        "library": lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), is_causal=True,
+                                enable_gqa=True)}, reps=20)
+    fa_flops = b * h * causal_pairs(torch, s_len, s_len) * 4 * hd
+    fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+    fa_bound, fa_by = bound_ms(fa_bytes, fa_flops)
+    emit("flash_attention_main_shape", shape=[b, s_len, s_len, h, kvh, hd],
+         causal=True, max_abs_err=fa_err, max_rel_err=fa_rel,
+         library_max_rel_err=lib_err, kernel_ms=fa_times["kernel"],
+         plain_ms=fa_times["plain"], library_ms=fa_times["library"],
+         flops=fa_flops, bytes=fa_bytes, bound_ms=fa_bound, bound_by=fa_by,
+         kernel_TFLOPs=fa_flops / fa_times["kernel"] / 1e9,
+         bound_share=fa_bound / fa_times["kernel"],
+         dynamic_smem_bytes=fa.smem_bytes(hd),
+         ptxas=[line.strip() for line in
+                _build.build_logs.get("flash_attention", "").splitlines()
+                if "Used" in line or "spill" in line])
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- 10. serving: the second path ----
+    # a short run at the same widths and batch first, so that the timed run
+    # holds no Triton compile of RMSNorm at Qwen3's row shapes
+    tserve.serve("qwen3-1.7b", **{**SERVE, "prompt_len": 16, "gen": 2})
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    res = tserve.serve("qwen3-1.7b", **SERVE)
+    torch.cuda.synchronize()
+    serve_launches = ops.launch_counts()
+    norms_per_pass = 4 * qcfg.num_layers + 1
+    serve_expected = {"consensus_mix": 0,
+                      "flash_attention": qcfg.num_layers,
+                      "rmsnorm_fwd": norms_per_pass * SERVE["gen"],
+                      "rmsnorm_bwd": 0}
+    generated = res["generated"]
+    emit("serve", arch="qwen3-1.7b", batch=b, prompt_len=s_len,
+         gen=SERVE["gen"], prefill_s=res["prefill_s"],
+         decode_s=res["decode_s"], tok_per_s=res["tok_per_s"],
+         prefill_tok_per_s=b * s_len / res["prefill_s"],
+         peak_mem_gb=(torch.cuda.max_memory_allocated() - baseline) / 1e9,
+         launches=serve_launches, expected_launches=serve_expected,
+         first_row=generated[0, :16].tolist())
+    assert serve_launches == serve_expected, serve_launches
+    assert tuple(generated.shape) == (b, SERVE["gen"])
+    assert 0 <= int(generated.min()) and \
+        int(generated.max()) < qcfg.vocab_size
+
+    # ---- 11. serving, checked: kernel vs reference route, decode vs
+    # forward, on the weights and prompt serve() drew from seed 0 ----
+    rng = torch.Generator(device=dev).manual_seed(0)
+    params = ttf.init_params(rng, qcfg, device=dev)
+    n_qwen = sum(t.numel() for t in tree_leaves(params))
+    prompt = torch.randint(0, qcfg.vocab_size, (b, s_len), generator=rng,
+                           device=dev)
+    assert n_qwen == QWEN3_PARAMS, n_qwen
+    assert torch.equal(prompt, res["prompt"])
+    prefill = dict(max_len=s_len + 4, cache_dtype=torch.float32)
+    ref_logits, _ = ttf.prefill(params, qcfg, {"tokens": prompt}, **prefill)
+    logits, cache = ttf.prefill(params, qcfg, {"tokens": prompt},
+                                opts=ttf.ApplyOptions(attn_impl="kernel"),
+                                **prefill)
+    pf_err, pf_rel = rel_err(torch, logits, ref_logits)
+    del ref_logits
+    assert pf_rel < 1e-4, pf_rel
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    assert torch.equal(nxt, generated[:, :1]), "prefill differs from serve()"
+    toks, dec_errs = prompt, []
+    for _ in range(3):
+        toks = torch.cat([toks, nxt], dim=1)
+        logits, cache = ttf.decode_step(params, qcfg, nxt, cache)
+        with torch.inference_mode():
+            full, _ = ttf.forward(params, qcfg, {"tokens": toks})
+        want = full[:, -1]
+        del full
+        dec_errs.append(rel_err(torch, logits[:, 0], want)[0])
+        torch.testing.assert_close(logits[:, 0], want, rtol=2e-3, atol=2e-3)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+    emit("serve_check", params=n_qwen, prefill_max_abs_err=pf_err,
+         prefill_max_rel_err=pf_rel, prefill_limit=1e-4,
+         decode_vs_forward_max_abs_err=dec_errs, decode_limit=2e-3,
+         forward_keys=toks.shape[1])
+    del cache, logits, want
+
+    # ---- 12. where the serving time goes: prefill and 8 decode steps
+    # under the profiler, then the same decode steps timed alone ----
+    from torch.profiler import ProfilerActivity, profile
+    steps = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = ttf.prefill(params, qcfg, {"tokens": prompt},
+                                    opts=ttf.ApplyOptions(attn_impl="kernel"),
+                                    **{**prefill, "max_len": s_len + steps})
+        for _ in range(steps):
+            logits, cache = ttf.decode_step(
+                params, qcfg, logits[:, -1].argmax(-1)[:, None], cache)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    emit("serve_profile", steps=steps, **profile_summary(prof, wall_s))
+    logits, cache = ttf.prefill(params, qcfg, {"tokens": prompt},
+                                opts=ttf.ApplyOptions(attn_impl="kernel"),
+                                **{**prefill, "max_len": s_len + steps})
+    torch.cuda.synchronize()
+    step_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = ttf.decode_step(
+            params, qcfg, logits[:, -1].argmax(-1)[:, None], cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    emit("decode_steps", step_s=step_s)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+    # ---- 13. per-kernel summary, card, result ----
     r256 = rn_stats[256]
     kernels = [
         {"name": "consensus_mix", "route": "cuda",
@@ -349,6 +555,13 @@ def main() -> int:
          "ms": r256["bwd"]["kernel"], "plain_ms": r256["bwd"]["plain"],
          "bound_ms": r256["bwd_bound"], "bound_by": r256["bwd_by"],
          "library_ms": r256["bwd"]["library"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:118",
+         "launches": serve_launches["flash_attention"], "max_abs_err": fa_err,
+         "ms": fa_times["kernel"], "plain_ms": fa_times["plain"],
+         "bound_ms": fa_bound, "bound_by": fa_by,
+         "library_ms": fa_times["library"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -5,10 +5,10 @@ with the model-zoo slice (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
-from repro_torch.configs import smollm_360m
+from repro_torch.configs import qwen3_1_7b, smollm_360m
 from repro_torch.configs.base import ArchConfig
 
-_ARCHS = {"smollm_360m": smollm_360m}
+_ARCHS = {"qwen3_1_7b": qwen3_1_7b, "smollm_360m": smollm_360m}
 
 
 def _module(arch_id: str):

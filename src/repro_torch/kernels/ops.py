@@ -3,8 +3,8 @@
 For a CPU tensor each op runs its plain PyTorch version
 (``repro_torch.kernels.ref``); for a CUDA tensor it launches its Hopper
 kernel or raises — there is no path from a CUDA tensor to the plain
-version.  Port of ``repro.kernels.ops.consensus_mix_pytree`` and
-``repro.kernels.ops.rmsnorm``.
+version.  Port of ``repro.kernels.ops.consensus_mix_pytree``,
+``repro.kernels.ops.rmsnorm`` and ``repro.kernels.ops.flash_attention``.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.kernels import consensus_mix as _cm
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.tree import tree_flatten, tree_unflatten
@@ -20,13 +21,14 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 
 def reset_launch_counts() -> None:
     _cm.launches = 0
+    _fa.launches = 0
     _rn.fwd_launches = 0
     _rn.bwd_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"consensus_mix": _cm.launches, "rmsnorm_fwd": _rn.fwd_launches,
-            "rmsnorm_bwd": _rn.bwd_launches}
+    return {"consensus_mix": _cm.launches, "flash_attention": _fa.launches,
+            "rmsnorm_fwd": _rn.fwd_launches, "rmsnorm_bwd": _rn.bwd_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -102,3 +104,23 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     lead, d = x.shape[:-1], x.shape[-1]
     y = _rn.RMSNormFn.apply(x.reshape(-1, d).contiguous(), scale, eps)
     return y.reshape(*lead, d)
+
+
+# ---------------------------------------------------------------------------
+# flash attention  (model layout: q (b, sq, h, hd), k/v (b, sk, kvh, hd))
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention with end-aligned queries -> (b, sq, h, hd) in q's dtype:
+    the CUDA kernel on the card (forward only; it reads the layout through
+    its strides and masks its ragged edges, so nothing is transposed or
+    padded), the plain version on the CPU."""
+    if not q.is_cuda:
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)

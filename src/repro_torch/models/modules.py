@@ -4,14 +4,18 @@ Same conventions as the reference: ``<name>_init(gen, ..., device)`` builds a
 plain dict of tensors with the reference's leaf names and layouts, and
 ``<name>_apply(params, x, ...)`` is a pure function.  Compute happens in
 ``x.dtype``.  ``rmsnorm_apply`` goes through ``repro_torch.kernels.ops``
-(the Triton kernel on the card).  Attention takes the reference branch of
-``dispatch_attend`` only; the Pallas flash-attention path is the serving
-slice's kernel (ROADMAP.md).
+(the Triton kernel on the card).  ``dispatch_attend`` routes a
+full-sequence attention as the reference does: ``attn_impl="kernel"`` (the
+reference's ``"pallas"``) to ``kernels.ops.flash_attention`` (the CUDA
+kernel on the card), else to ``attend_chunked`` above
+``FULL_ATTEND_MAX_KEYS`` keys and to ``mha_attend`` below.  Incremental
+decode (``attention_cache_init`` / ``attention_decode_step``) keeps a
+ring-buffer KV cache and attends it with ``mha_attend``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -130,8 +134,11 @@ def mha_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: Optional[torch.Tensor], *,
                attn_softcap: Optional[float],
                scale: Optional[float] = None) -> torch.Tensor:
-    """Reference attention. q: (b, sq, h, hd); k/v: (b, sk, kvh, hd);
-    mask: (sq, sk) boolean.  Materialises the (b, h, sq, sk) scores."""
+    """Reference attention. q: (b, sq, h, hd); k/v: (b, sk, kvh, hd).
+    mask: boolean (sq, sk), (b, sq, sk) or (b, 1, sq, sk), broadcast over
+    the (b, h, sq, sk) scores as the reference does: a leading axis of
+    length b is the batch axis.  Materialises the scores — fine for decode
+    (sq = 1) and short sequences; long ones go to ``attend_chunked``."""
     b, sq, h, hd = q.shape
     vd = v.shape[-1]
     k = _expand_kv(k, h)
@@ -140,6 +147,9 @@ def mha_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     scores = softcap(scores, attn_softcap)
     if mask is not None:
+        while mask.dim() < scores.dim():
+            mask = (mask[:, None] if mask.dim() >= 2 and mask.shape[0] == b
+                    else mask[None])
         scores = torch.where(mask, scores, torch.full((), -1e30,
                                                       device=scores.device))
     probs = torch.softmax(scores, dim=-1)
@@ -159,15 +169,131 @@ def causal_mask(sq: int, sk: int, q_offset: int = 0,
     return m
 
 
+def _chunk_mask(lo: int, n: int, sk: int, sq: int, causal: bool,
+                window: Optional[int], device) -> torch.Tensor:
+    """(sq, n) validity of keys lo .. lo+n-1 (queries end-aligned)."""
+    q_pos = torch.arange(sq, device=device) + (sk - sq)
+    k_pos = lo + torch.arange(n, device=device)
+    valid = (k_pos[None, :] < sk).expand(sq, n)
+    if causal:
+        valid = valid & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        valid = valid & (k_pos[None, :] > q_pos[:, None] - window)
+    return valid
+
+
+def _attend_fwd_impl(q, k, v, causal, window, cap, scale, chunk):
+    """Online-softmax forward over key chunks.  q: (b, sq, h, hd); k/v:
+    (b, sk, h, {hd, vd}).  Returns (out (b, sq, h, vd) f32, lse (b, h, sq))."""
+    b, sq, h, _ = q.shape
+    sk, vd = k.shape[1], v.shape[-1]
+    qf = q.float() * scale
+    m = torch.full((b, h, sq), -math.inf, device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, vd), device=q.device)
+    for lo in range(0, sk, chunk):
+        k_c, v_c = k[:, lo:lo + chunk].float(), v[:, lo:lo + chunk].float()
+        s = softcap(torch.einsum("bqhd,bkhd->bhqk", qf, k_c), cap)
+        valid = _chunk_mask(lo, k_c.shape[1], sk, sq, causal, window,
+                            q.device)
+        s = torch.where(valid, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        safe_m = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.where(valid, torch.exp(s - safe_m[..., None]), 0.0)
+        alpha = torch.where(torch.isinf(m), 0.0, torch.exp(m - safe_m))
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                    v_c)
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    lse = torch.where(l > 0.0, m + torch.log(torch.where(l > 0.0, l, 1.0)),
+                      -math.inf)
+    return out.transpose(1, 2), lse
+
+
+class _AttendChunked(torch.autograd.Function):
+    """``attend_chunked``'s core with a flash-style backward: the scores are
+    recomputed chunk by chunk from (q, k, v, lse), so neither direction
+    keeps a (b, h, sq, sk) tensor.  Port of ``repro.models.modules.
+    _attend_core`` (``custom_vjp``) and ``_attend_core_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, scale, chunk):
+        out, lse = _attend_fwd_impl(q, k, v, causal, window, cap, scale,
+                                    chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, cap, scale, chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, cap, scale, chunk = ctx.args
+        sq, sk = q.shape[1], k.shape[1]
+        qf = q.float() * scale
+        doutf = dout.float().transpose(1, 2)                  # (b, h, sq, vd)
+        delta = (doutf * out.float().transpose(1, 2)).sum(-1)  # (b, h, sq)
+        lse_safe = torch.where(torch.isinf(lse), 0.0, lse)
+        dq = torch.zeros(q.shape, device=q.device)
+        dks, dvs = [], []
+        for lo in range(0, sk, chunk):
+            k_c, v_c = k[:, lo:lo + chunk].float(), v[:, lo:lo + chunk].float()
+            s = softcap(torch.einsum("bqhd,bkhd->bhqk", qf, k_c), cap)
+            valid = _chunk_mask(lo, k_c.shape[1], sk, sq, causal, window,
+                                q.device)
+            p = torch.where(valid, torch.exp(s - lse_safe[..., None]), 0.0)
+            dvs.append(torch.einsum("bhqk,bhqd->bkhd", p, doutf))
+            dp = torch.einsum("bhqd,bkhd->bhqk", doutf, v_c)
+            ds = p * (dp - delta[..., None])
+            if cap is not None:
+                ds = ds * (1.0 - torch.square(s / cap))
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, k_c) * scale
+            dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+        dk, dv = torch.cat(dks, 1), torch.cat(dvs, 1)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
+
+
+def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   attn_softcap: Optional[float] = None,
+                   scale: Optional[float] = None,
+                   chunk: int = 512) -> torch.Tensor:
+    """Memory-efficient (online-softmax) attention over ``chunk``-key slices,
+    with the flash-style backward of ``_AttendChunked``: peak transient
+    O(b*h*sq*chunk) instead of O(b*h*sq*sk) in both directions.  Queries sit
+    at the END of the keys.  Returns f32 (b, sq, h, vd), as the reference's
+    ``attend_chunked`` does."""
+    h, hd = q.shape[2], q.shape[3]
+    k = _expand_kv(k, h)
+    v = _expand_kv(v, h)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    chunk = min(chunk, k.shape[1])
+    return _AttendChunked.apply(q, k, v, causal, window, attn_softcap, scale,
+                                chunk)
+
+
+# sk above this uses attend_chunked on the reference full-sequence path
+FULL_ATTEND_MAX_KEYS = 1024
+
+
 def dispatch_attend(q, k, v, *, causal: bool, window: Optional[int],
                     attn_softcap: Optional[float],
                     scale: Optional[float] = None,
                     attn_impl: str = "reference") -> torch.Tensor:
-    """Full-sequence attention, the reference's ``mha_attend`` branch."""
+    """Route a full-sequence attention: ``"kernel"`` to the flash-attention
+    op (the CUDA kernel on the card, ``attention_ref`` on the CPU),
+    ``"reference"`` to ``attend_chunked`` above ``FULL_ATTEND_MAX_KEYS``
+    keys and to ``mha_attend`` at or below it."""
+    if attn_impl == "kernel":
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    softcap=attn_softcap, scale=scale)
     if attn_impl != "reference":
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r}: the flash-attention kernel arrives "
-            f"with the serving slice (ROADMAP.md)")
+        raise ValueError(f"attn_impl must be 'reference' or 'kernel', got "
+                         f"{attn_impl!r}")
+    if k.shape[1] > FULL_ATTEND_MAX_KEYS:
+        return attend_chunked(q, k, v, causal=causal, window=window,
+                              attn_softcap=attn_softcap, scale=scale)
     sq, sk = q.shape[1], k.shape[1]
     if causal or window is not None:
         mask = causal_mask(sq, sk, q_offset=sk - sq, window=window,
@@ -183,6 +309,18 @@ def attention_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                     causal: bool = True,
                     attn_impl: str = "reference") -> torch.Tensor:
     """Self-attention over a full sequence."""
+    return attention_apply_kv(params, x, cfg, layer_kind=layer_kind,
+                              positions=positions, causal=causal,
+                              attn_impl=attn_impl)[0]
+
+
+def attention_apply_kv(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
+                       layer_kind: str = "global",
+                       positions: Optional[torch.Tensor] = None,
+                       causal: bool = True, attn_impl: str = "reference"
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``attention_apply`` that also returns the layer's k and v
+    (b, s, kvh, hd), which a prefill writes into the cache."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
@@ -195,7 +333,55 @@ def attention_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["w_o"])
     if "b_o" in params:
         y = y + params["b_o"]
-    return y
+    return y, k, v
+
+
+# -- incremental decode ------------------------------------------------------
+
+
+def attention_cache_init(cfg: ArchConfig, batch: int, max_len: int,
+                         layer_kind: str, dtype=torch.bfloat16,
+                         device="cpu") -> Dict:
+    """Ring-buffer KV cache.  Local layers only keep ``sliding_window``
+    slots; ``pos`` is the true position of each slot (-1: empty)."""
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim()
+    n = min(max_len, cfg.sliding_window) if (
+        layer_kind == "local" and cfg.sliding_window) else max_len
+    return {
+        "k": torch.zeros((batch, n, kvh, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, n, kvh, hd), dtype=dtype, device=device),
+        "pos": torch.full((batch, n), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attention_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
+                          position: int, cfg: ArchConfig, *,
+                          layer_kind: str = "global"
+                          ) -> Tuple[torch.Tensor, Dict]:
+    """One-token decode.  x: (b, 1, d); ``position``: the int position of
+    the token (one for the whole batch — synchronous decode).  Writes the
+    token's k, v and position into slot ``position % n`` of ``cache`` IN
+    PLACE (the reference returns a new cache; the port saves the copy) and
+    returns ``(y, cache)``."""
+    b = x.shape[0]
+    n = cache["k"].shape[1]
+    pos_b = torch.full((b, 1), position, dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(params, x, x, cfg, pos_b, pos_b, use_rope=True)
+    slot = position % n
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][:, slot] = position
+    cpos = cache["pos"]
+    window = cfg.sliding_window if layer_kind == "local" else None
+    valid = (cpos >= 0) & (cpos <= position)
+    if window is not None:
+        valid = valid & (cpos > position - window)
+    out = mha_attend(q, cache["k"], cache["v"], valid[:, None, :],
+                     attn_softcap=cfg.attn_logit_softcap)
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["w_o"])
+    if "b_o" in params:
+        y = y + params["b_o"]
+    return y, cache
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,23 @@ Public API
     params_from_numpy(tree, device)             -> params tree
     forward(params, cfg, batch)                 -> (logits, aux_loss)
     make_loss_fn(cfg)                           -> loss_fn(params, batch, rng)
+    init_cache(cfg, batch, max_len, dtype)      -> cache
+    prefill(params, cfg, batch)                 -> (logits, cache)
+    decode_step(params, cfg, token, cache)      -> (logits, cache)
+
+The cache is a plain dict with the reference's key paths: ``position``,
+``prefix`` (empty on the dense path) and ``stack``, one dict per layer of a
+period with every leaf stacked over periods.  ``position`` is a 0-dim int32
+tensor kept on the CPU: the decode step needs it on the host to pick the
+ring slot, and a device copy would cost a synchronisation per step.
+``decode_step`` updates the cache's tensors in place.  Prefill and decode
+run under ``torch.inference_mode()``: no autograd tape is recorded.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +42,10 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 class ApplyOptions:
     """Knobs threaded through the apply path (no param-structure impact)."""
 
-    attn_impl: str = "reference"     # the only one this slice ports
+    # "reference" (mha_attend / attend_chunked) or "kernel" (the
+    # flash-attention op: the CUDA kernel on the card); the reference calls
+    # the latter "pallas"
+    attn_impl: str = "reference"
 
 
 DEFAULT_OPTS = ApplyOptions()
@@ -91,6 +105,12 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
     mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
                              causal=causal, attn_impl=opts.attn_impl)
+    return _block_rest(params, x, mix, cfg)
+
+
+def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    """The block after its mixer: (post-norm,) residual, then the FFN."""
     if "post_ln1" in params:
         mix = nn.rmsnorm_apply(params["post_ln1"], mix, cfg.norm_eps)
     x = x + mix
@@ -165,18 +185,24 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def _run_stack(params, cfg: ArchConfig, x: torch.Tensor, *, causal=True,
                opts: ApplyOptions = DEFAULT_OPTS) -> torch.Tensor:
     plan = stack_plan(cfg)
-    # unbind each stacked leaf once: its backward is one stack of the
-    # per-layer grads, not one full-size zero-fill per layer
+    for i, layer in _per_layer(params["stack"], plan.n_periods):
+        x = block_apply(layer, x, cfg, cfg.pattern_for_layer(i), opts=opts,
+                        causal=causal)
+    return x
+
+
+def _per_layer(stack, n_periods: int):
+    """``(i, tree)`` for every layer in order, ``i`` its index in the
+    period and ``tree`` views into the stacked leaves (params or cache).
+    Each leaf is unbound once: in training its backward is then one stack
+    of the per-layer grads, not one full-size zero-fill per layer."""
     per_block = []
-    for blk in params["stack"]:
+    for blk in stack:
         leaves, treedef = tree_flatten(blk)
         per_block.append((treedef, [leaf.unbind(0) for leaf in leaves]))
-    for p in range(plan.n_periods):
+    for p in range(n_periods):
         for i, (treedef, unbound) in enumerate(per_block):
-            layer = tree_unflatten(treedef, [u[p] for u in unbound])
-            x = block_apply(layer, x, cfg, cfg.pattern_for_layer(i),
-                            opts=opts, causal=causal)
-    return x
+            yield i, tree_unflatten(treedef, [u[p] for u in unbound])
 
 
 def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
@@ -224,3 +250,107 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
         return nll_mean + aux, {"nll": nll_mean, "aux": aux}
 
     return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cpu") -> Dict:
+    """An empty cache for ``batch`` sequences of up to ``max_len`` tokens."""
+    plan = stack_plan(cfg)
+
+    def stacked(i):
+        one = nn.attention_cache_init(cfg, batch, max_len,
+                                      cfg.pattern_for_layer(i), dtype, device)
+        return {"mixer": tree_map(lambda t: t[None].repeat(
+            plan.n_periods, *([1] * t.dim())), one)}
+
+    return {"position": torch.zeros((), dtype=torch.int32),
+            "prefix": (),
+            "stack": tuple(stacked(i) for i in range(plan.period))}
+
+
+def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
+                  position: int) -> torch.Tensor:
+    """One block of a decode step; writes its k/v into ``cache``."""
+    h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
+    mix, _ = nn.attention_decode_step(params["mixer"], h, cache["mixer"],
+                                      position, cfg, layer_kind=kind)
+    return _block_rest(params, x, mix, cfg)
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Dict
+                ) -> Tuple[torch.Tensor, Dict]:
+    """One synchronous decode step. token: (b, 1) int.  Updates ``cache``'s
+    tensors in place and returns ``(logits (b, 1, v), cache)`` with
+    ``position`` advanced by one."""
+    plan = stack_plan(cfg)
+    position = int(cache["position"])
+    x = _embed(params, cfg, token)
+    for (i, layer), (_, layer_cache) in zip(
+            _per_layer(params["stack"], plan.n_periods),
+            _per_layer(cache["stack"], plan.n_periods)):
+        x = _block_decode(layer, layer_cache, x, cfg,
+                          cfg.pattern_for_layer(i), position)
+    cache["position"] = torch.tensor(position + 1, dtype=torch.int32)
+    return _head(params, cfg, x), cache
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
+            max_len: Optional[int] = None, cache_dtype=torch.bfloat16,
+            opts: ApplyOptions = DEFAULT_OPTS) -> Tuple[torch.Tensor, Dict]:
+    """Run the full prompt ``batch["tokens"]`` (b, s) and build a cache
+    ready for decode: per layer, the full-sequence block whose attention
+    goes through ``dispatch_attend(attn_impl=opts.attn_impl)``, recording
+    its K/V (padded to the cache, or the last ``n`` keys in ring order for a
+    sliding-window layer).  Returns the last position's logits (b, 1, v)."""
+    tokens = batch["tokens"]
+    b, seq = tokens.shape
+    max_len = max_len or seq
+    x = _embed(params, cfg, tokens)
+    plan = stack_plan(cfg)
+    cache = init_cache(cfg, b, max_len, cache_dtype, x.device)
+    positions = torch.arange(seq, device=x.device).expand(b, seq)
+    for (i, layer), (_, layer_cache) in zip(
+            _per_layer(params["stack"], plan.n_periods),
+            _per_layer(cache["stack"], plan.n_periods)):
+        h = nn.rmsnorm_apply(layer["ln1"], x, cfg.norm_eps)
+        mix, k, v = nn.attention_apply_kv(
+            layer["mixer"], h, cfg, layer_kind=cfg.pattern_for_layer(i),
+            positions=positions, attn_impl=opts.attn_impl)
+        slots = layer_cache["mixer"]
+        n = slots["k"].shape[1]
+        if n >= seq:
+            filled = {"k": _pad_to(k, n), "v": _pad_to(v, n),
+                      "pos": _pad_to(positions, n, fill=-1)}
+        else:  # sliding-window ring: keep the last n, slot = pos % n
+            filled = _ring_pack(k, v, positions, n, cache_dtype)
+        for key, val in filled.items():
+            slots[key].copy_(val)
+        x = _block_rest(layer, x, mix, cfg)
+    cache["position"] = torch.tensor(seq, dtype=torch.int32)
+    return _head(params, cfg, x[:, -1:]), cache
+
+
+def _pad_to(arr: torch.Tensor, n: int, fill=0) -> torch.Tensor:
+    """``arr`` padded with ``fill`` along axis 1 to length ``n``."""
+    if arr.shape[1] == n:
+        return arr
+    pad = arr.new_full((arr.shape[0], n - arr.shape[1], *arr.shape[2:]),
+                       fill)
+    return torch.cat([arr, pad], dim=1)
+
+
+def _ring_pack(k, v, positions, n, cache_dtype) -> Dict:
+    """Pack the last ``n`` keys of a longer prompt into ring order: the
+    entry of position p sits at slot p % n."""
+    kk, vv, pp = k[:, -n:], v[:, -n:], positions[:, -n:]
+    order = torch.argsort(pp[0] % n)
+    return {"k": kk[:, order].to(cache_dtype),
+            "v": vv[:, order].to(cache_dtype),
+            "pos": pp[:, order].to(torch.int32)}

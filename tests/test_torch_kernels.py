@@ -1,9 +1,9 @@
 """Port parity for the kernels' plain versions and the device dispatch.
 
 On the CPU: the port's plain ``consensus_mix_ref`` / ``rmsnorm_ref`` (and
-the closed-form RMSNorm backward the Triton kernel computes) against the
-JAX package's Pallas kernels in interpret mode, its jnp oracles and
-``jax.grad``; ``ops.*`` on CPU tensors runs the plain version and launches
+the closed-form RMSNorm backward the Triton kernel computes) /
+``attention_ref`` against the JAX package's Pallas kernels in interpret
+mode, its jnp oracles and ``jax.grad``; ``ops.*`` on CPU tensors runs the plain version and launches
 nothing.  The Hopper kernels themselves are held against the plain versions
 on the card by ``tests/test_torch_kernels_cuda.py``.
 
@@ -21,7 +21,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.consensus import collapse_mixing as j_collapse  # noqa: E402
 from repro.core import topology as jtp  # noqa: E402
+from repro.kernels import ops as j_ops  # noqa: E402
 from repro.kernels.consensus_mix import consensus_mix_2d  # noqa: E402
+from repro.kernels.ref import attention_ref as j_attention_ref  # noqa: E402
 from repro.kernels.ref import consensus_mix_ref as j_mix_ref  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_2d  # noqa: E402
 from repro.models.modules import rmsnorm_apply  # noqa: E402
@@ -102,8 +104,12 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
     x = torch.from_numpy(rng.standard_normal((2, 3, 40)).astype(np.float32))
     s = torch.ones(40)
     assert torch.equal(ops.rmsnorm(x, s), ref.rmsnorm_ref(x, s))
-    assert ops.launch_counts() == {"consensus_mix": 0, "rmsnorm_fwd": 0,
-                                   "rmsnorm_bwd": 0}
+    q = torch.from_numpy(rng.standard_normal((1, 5, 2, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 7, 1, 8)).astype(np.float32))
+    assert torch.equal(ops.flash_attention(q, k, k, window=3),
+                       ref.attention_ref(q, k, k, window=3))
+    assert ops.launch_counts() == {"consensus_mix": 0, "flash_attention": 0,
+                                   "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
 
 
 @pytest.mark.parametrize("rounds,block", [(1, None), (4, None), (3, 7),
@@ -132,3 +138,80 @@ def test_consensus_mix_pytree_refuses_non_f32():
     tree = {"w": torch.zeros((2, 3), dtype=torch.bfloat16)}
     with pytest.raises(TypeError, match="float32"):
         ops.consensus_mix_pytree(torch.eye(2), tree)
+
+
+def _qkv(seed, b, sq, sk, h, kvh, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd)).astype(np.float32),
+            rng.standard_normal((b, sk, kvh, hd)).astype(np.float32),
+            rng.standard_normal((b, sk, kvh, hd)).astype(np.float32))
+
+
+# (b, sq, sk, h, kvh, hd) and options: a subset of the reference's sweep
+# (tests/test_kernels_attention.py) at CPU-test sizes
+ATTN_CASES = [
+    ((1, 64, 64, 4, 4, 32), {}),                                 # MHA
+    ((2, 64, 64, 8, 2, 16), {}),                                 # GQA 4:1
+    ((1, 64, 64, 4, 1, 40), {}),                                 # MQA, hd 40
+    ((2, 32, 96, 4, 2, 16), {}),                                 # sq < sk
+    ((1, 50, 50, 3, 3, 32), {}),                                 # ragged
+    ((1, 64, 66, 2, 2, 16), {}),                                 # ragged keys
+    ((2, 1, 128, 4, 2, 16), {}),                                 # sq = 1
+    ((1, 64, 64, 4, 2, 16), {"window": 16}),
+    ((1, 64, 64, 2, 2, 16), {"softcap": 20.0}),
+    ((1, 64, 64, 2, 2, 16), {"causal": False}),
+    ((1, 64, 64, 4, 2, 16), {"window": 24, "softcap": 30.0}),
+]
+
+
+@pytest.mark.parametrize("shape,kw", ATTN_CASES,
+                         ids=["x".join(map(str, s)) + "".join(
+                             f"-{k}{v}" for k, v in kw.items())
+                             for s, kw in ATTN_CASES])
+def test_attention_ref_matches_pallas_and_oracle(shape, kw):
+    """The port's plain flash attention against the reference's Pallas
+    kernel (interpret mode, 32-row blocks so the k loop has several steps)
+    and its jnp oracle; no row here is fully masked.  rtol/atol 2e-5, 5e-5
+    with a softcap (the reference's own tolerances)."""
+    q, k, v = _qkv(sum(shape), *shape)
+    tol = 5e-5 if "softcap" in kw else 2e-5
+    port = ref.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), **kw)
+    pallas = j_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), block_q=32, block_k=32,
+                                   **kw)
+    oracle = j_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             **kw)
+    np.testing.assert_allclose(port.numpy(), np.asarray(pallas),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(port.numpy(), np.asarray(oracle),
+                               rtol=tol, atol=tol)
+
+
+def test_attention_ref_fully_masked_rows_are_zero_as_in_the_kernel():
+    """sq > sk under causality: the first sq - sk queries see no key.  The
+    TPU kernel's l == 0 guard makes them 0, and so does the port; the
+    reference's jnp oracle averages v there, so it is compared on the other
+    rows only."""
+    q, k, v = _qkv(5, 1, 48, 40, 2, 1, 16)
+    port = ref.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v)).numpy()
+    pallas = np.asarray(j_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=16,
+        block_k=16))
+    oracle = np.asarray(j_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v)))
+    assert not port[:, :8].any()
+    np.testing.assert_allclose(port, pallas, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(port[:, 8:], oracle[:, 8:], rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_attention_ref_bf16_keeps_dtype():
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(6, 1, 32, 32, 2, 1, 16))
+    out = ref.attention_ref(q, k, v)
+    assert out.dtype == torch.bfloat16
+    want = ref.attention_ref(q.float(), k.float(), v.float())
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), rtol=2e-2,
+                               atol=2e-2)

@@ -6,7 +6,9 @@ machine, which has no JAX:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward.
+Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward; the
+flash-attention kernel 2e-5 in f32 (5e-5 with a softcap) and 2e-2 in bf16,
+the tolerances the reference holds its Pallas kernel to.
 """
 import numpy as np
 import pytest
@@ -89,3 +91,77 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="M <= 64"):
         ops.consensus_mix(torch.eye(65, device=cuda),
                           torch.zeros((65, 8), device=cuda))
+
+
+# (b, sq, sk, h, kvh, hd) and options: the reference's sweep
+# (tests/test_kernels_attention.py) plus hd 40 and the serving shape
+FLASH_CASES = [
+    ((1, 128, 128, 4, 4, 64), {}),                         # MHA
+    ((2, 128, 128, 8, 2, 64), {}),                         # GQA 4:1
+    ((1, 256, 256, 4, 1, 128), {}),                        # MQA, hd 128
+    ((2, 64, 192, 4, 2, 64), {}),                          # sq < sk
+    ((1, 100, 100, 3, 3, 32), {}),                         # ragged, hd 32
+    ((1, 128, 130, 4, 4, 64), {}),                         # ragged keys
+    ((1, 128, 128, 4, 2, 64), {"window": 16}),
+    ((1, 128, 128, 4, 2, 64), {"window": 64}),
+    ((1, 128, 128, 4, 2, 64), {"window": 4096}),
+    ((1, 128, 128, 4, 4, 64), {"softcap": 20.0}),
+    ((1, 128, 128, 4, 4, 64), {"softcap": 50.0}),
+    ((1, 128, 128, 4, 4, 64), {"causal": False}),
+    ((1, 128, 128, 4, 2, 64), {"window": 48, "softcap": 30.0}),
+    ((2, 1, 512, 8, 2, 64), {}),                           # sq = 1
+    ((1, 96, 96, 3, 1, 40), {}),                           # hd 40
+    ((4, 1024, 1024, 16, 8, 128), {}),                     # serving prefill
+]
+
+
+def _flash_inputs(cuda, shape, dtype=torch.float32):
+    b, sq, sk, h, kvh, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    return (torch.randn((b, sq, h, hd), device=cuda, generator=g).to(dtype),
+            torch.randn((b, sk, kvh, hd), device=cuda, generator=g).to(dtype),
+            torch.randn((b, sk, kvh, hd), device=cuda, generator=g).to(dtype))
+
+
+@pytest.mark.parametrize("shape,kw", FLASH_CASES,
+                         ids=["x".join(map(str, s)) + "".join(
+                             f"-{k}{v}" for k, v in kw.items())
+                             for s, kw in FLASH_CASES])
+def test_flash_attention_kernel_matches_plain(cuda, shape, kw):
+    q, k, v = _flash_inputs(cuda, shape)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    tol = 5e-5 if "softcap" in kw else 2e-5
+    torch.testing.assert_close(out, ref.attention_ref(q, k, v, **kw),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_bf16_and_masked_rows(cuda):
+    q, k, v = _flash_inputs(cuda, (1, 128, 128, 4, 2, 64), torch.bfloat16)
+    out = ops.flash_attention(q, k, v)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.attention_ref(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
+    # sq > sk: the first 24 queries see no key and come out 0
+    q, k, v = _flash_inputs(cuda, (1, 88, 64, 2, 1, 32))
+    out = ops.flash_attention(q, k, v)
+    assert not out[:, :24].any()
+    torch.testing.assert_close(out, ref.attention_ref(q, k, v), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(cuda, (1, 8, 8, 2, 1, 32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(ValueError, match="CUDA tensors"):   # mixed devices
+        ops.flash_attention(q, k.cpu(), v)
+    for hd in (36, 136):
+        bad = _flash_inputs(cuda, (1, 8, 8, 2, 1, hd))
+        with pytest.raises(ValueError, match="head_dim"):
+            ops.flash_attention(*bad)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.flash_attention(q.requires_grad_(True), k, v)

@@ -122,7 +122,94 @@ def test_rope_and_attention_match_reference():
                                    window=window, attn_softcap=cap)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                    atol=1e-5)
-    with pytest.raises(NotImplementedError, match="serving"):
+        got = tnn.dispatch_attend(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=True,
+                                  window=window, attn_softcap=cap,
+                                  attn_impl="kernel")
+        want = jnn.dispatch_attend(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True,
+                                   window=window, attn_softcap=cap,
+                                   attn_impl="pallas")
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="'kernel'"):
         tnn.dispatch_attend(torch.from_numpy(q), torch.from_numpy(k),
                             torch.from_numpy(v), causal=True, window=None,
                             attn_softcap=None, attn_impl="pallas")
+
+
+@pytest.mark.parametrize("shape", ["bqk", "b1qk"])
+def test_mha_attend_takes_batched_masks(shape):
+    """(b, sq, sk) and (b, 1, sq, sk) masks broadcast over the batch axis,
+    as in the reference — here a different key mask per sequence."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((3, 4, 2, 8)).astype(np.float32)
+    k = rng.standard_normal((3, 5, 1, 8)).astype(np.float32)
+    v = rng.standard_normal((3, 5, 1, 8)).astype(np.float32)
+    mask = rng.random((3, 4, 5)) < 0.7
+    mask[..., 0] = True
+    if shape == "b1qk":
+        mask = mask[:, None]
+    got = tnn.mha_attend(torch.from_numpy(q), torch.from_numpy(k),
+                         torch.from_numpy(v), torch.from_numpy(mask),
+                         attn_softcap=None)
+    want = jnn.mha_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(mask), attn_softcap=None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,cap", [(True, None, None),
+                                               (True, 12, 25.0),
+                                               (False, None, None)])
+def test_attend_chunked_matches_reference_forward_and_grads(causal, window,
+                                                            cap):
+    """The port's chunked attention (online softmax forward, backward
+    recomputed chunk by chunk from the saved lse) against the reference's
+    ``attend_chunked`` (its custom VJP), with chunk 16 < sk = 40 so the loop
+    runs three steps, the last one ragged.  rtol/atol 1e-4: gradients sum
+    over chunks in another order."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 32, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 40, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 40, 2, 16)).astype(np.float32)
+    g = rng.standard_normal((2, 32, 4, 16)).astype(np.float32)
+    kw = dict(causal=causal, window=window, attn_softcap=cap, chunk=16)
+
+    def jloss(qq, kk, vv):
+        return jnp.sum(jnn.attend_chunked(qq, kk, vv, **kw) * g)
+
+    jout = jnn.attend_chunked(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), **kw)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tnn.attend_chunked(*leaves, **kw)
+    assert out.dtype == torch.float32
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                               rtol=1e-4, atol=1e-4)
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_reference_route_goes_chunked_above_1024_keys():
+    """Above ``FULL_ATTEND_MAX_KEYS`` keys the reference route runs
+    ``attend_chunked`` (no (b, h, s, s) scores), as the reference's does."""
+    assert tnn.FULL_ATTEND_MAX_KEYS == jnn.FULL_ATTEND_MAX_KEYS == 1024
+    rng = np.random.default_rng(12)
+    q = rng.standard_normal((1, 8, 2, 8)).astype(np.float32)
+    k = rng.standard_normal((1, 1100, 1, 8)).astype(np.float32)
+    v = rng.standard_normal((1, 1100, 1, 8)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = tnn.dispatch_attend(tq, tk, tv, causal=True, window=None,
+                              attn_softcap=None)
+    want = jnn.dispatch_attend(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=True, window=None,
+                               attn_softcap=None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got, tnn.attend_chunked(
+        tq, tk, tv, causal=True, window=None, attn_softcap=None),
+        rtol=0, atol=0)
