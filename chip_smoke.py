@@ -5,7 +5,7 @@
 
 Needs one NVIDIA Hopper GPU (an H100), the CUDA toolkit's nvcc and triton.
 It builds the port's kernels from this checkout's sources, holds each one
-against its plain PyTorch version on the card, and drives two paths, each
+against its plain PyTorch version on the card, and drives these paths, each
 with the launch counters reset just before it and read just after:
 
 * training: Algorithm 1 through ``repro_torch.launch.train.train`` on
@@ -16,7 +16,14 @@ with the launch counters reset just before it and read just after:
   Qwen3-1.7B (1,720,574,976 parameters, f32 weights from a seed, f32 KV
   cache): 4 prompts of 1024 tokens prefilled through the flash-attention
   kernel, 64 tokens decoded each; then the kernel-route prefill against the
-  reference route and three decode steps against a full forward.
+  reference route and three decode steps against a full forward;
+* the physical wire: ``train`` on full SmolLM-360M with int8 codes on the
+  wire and error feedback (kernels 6 and 7 every round), then one epoch of
+  it at staleness 1 (kernel 8 every round), each period's disagreement
+  read in float64 before and after it; then one full-size wire period at
+  staleness 0, at staleness 1 and in the per-leaf layout (kernel 5), each
+  held against the plain versions on column slabs of the same inputs
+  (chunks are independent, so a slab is exact).
 
 Every phase prints one JSON line; any failure
 raises and the script exits non-zero.  Before the last line it prints the
@@ -26,6 +33,7 @@ prints no result.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -43,6 +51,32 @@ TRAIN = dict(smoke=False, servers=4, clients=2, t_client=2, t_server=5,
              epochs=2, seq_len=128, per_client_batch=2, graph="ring",
              device="cuda")
 SMOLLM_PARAMS = 361_821_120
+
+# the physical wire's path: the training path with int8 codes on the wire
+WIRE_TRAIN = dict(TRAIN, compression="int8", wire="physical",
+                  error_feedback=True)
+WIRE_CHUNK = 256
+# the wire kernels: ops entry point -> (C entry, the TPU kernel replaced)
+WIRE_KERNELS = {
+    "quantized_gossip_encode": "src/repro/kernels/consensus_mix.py:334",
+    "bucketed_gossip_round": "src/repro/kernels/consensus_mix.py:440",
+    "bucketed_gossip_round_pipelined":
+        "src/repro/kernels/consensus_mix.py:577",
+    "quantized_gossip_round": "src/repro/kernels/consensus_mix.py:219",
+}
+# what each wire kernel must move (each input read once, each output
+# written once): bytes per element of its (M, D) operands, passes over the
+# (M, D/chunk) f32 scales, and whether it reads the (M, M) f32 A.  The
+# encode reads w, ref, u and writes codes and scales; the rounds read codes,
+# scales, ref, u (and acc, w) and write their outputs, codes and scales.
+WIRE_TRAFFIC = {"quantized_gossip_encode": (4 + 4 + 4 + 1, 1, False),
+                "bucketed_gossip_round": ((1 + 4 + 4 + 4) + (4 + 4 + 1), 2,
+                                          True),
+                "bucketed_gossip_round_pipelined":
+                    ((1 + 4 + 4 + 4 + 4) + (4 + 4 + 1), 2, True),
+                "quantized_gossip_round": ((1 + 4 + 4) + (4 + 4 + 1), 2,
+                                           True)}
+WIRE_SLAB = 1 << 20         # columns of a slab held against the plain version
 
 # the serving path: full Qwen3-1.7B, 4 prompts of 1024 tokens, 64 generated
 SERVE = dict(smoke=False, batch=4, prompt_len=1024, gen=64, device="cuda")
@@ -148,7 +182,8 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     ours = [e for e in kernels if any(
         k in e.key for k in ("consensus_mix", "rmsnorm", "column_sum",
-                             "flash_fwd"))]
+                             "flash_fwd", "encode_kernel", "bucketed_kernel",
+                             "pipelined_kernel", "leaf_kernel"))]
     host = sorted((e for e in events if e not in kernels),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
 
@@ -165,6 +200,150 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
         "top_host": [{"name": e.key[:80], "calls": e.count,
                       "self_cpu_ms": e.self_cpu_time_total / 1e3}
                      for e in host]}
+
+
+def disagreement_f64(torch, leaves) -> float:
+    """The deviation norm ||W - 1 wbar'||_F of (M, ...) leaves, summed in
+    float64 over column blocks (the epoch record's f32 form cancels to noise
+    at full width)."""
+    dev_sq = 0.0
+    for leaf in leaves:
+        flat = leaf.reshape(leaf.shape[0], -1)
+        for lo in range(0, flat.shape[1], 1 << 24):
+            c = flat[:, lo:lo + (1 << 24)].double()
+            dev_sq += float(((c - c.mean(0)) ** 2).sum())
+    return dev_sq ** 0.5
+
+
+@contextlib.contextmanager
+def wire_period_disagreement(torch, cns, tree_leaves):
+    """Within the block, every physical-wire period records the float64
+    disagreement of the server models before and after it, and the seconds
+    the two readings took (they fall inside the epoch's time)."""
+    records = []
+    inner = cns.CompressedBackend.mix_compressed
+
+    def measured(self, tree, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = disagreement_f64(torch, tree_leaves(tree))
+        cost = time.perf_counter() - t0
+        out = inner(self, tree, *args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        after = disagreement_f64(torch, tree_leaves(out[0]))
+        records.append({"before": before, "after": after,
+                        "ratio": after / before,
+                        "measure_s": cost + time.perf_counter() - t0})
+        return out
+
+    cns.CompressedBackend.mix_compressed = measured
+    try:
+        yield records
+    finally:
+        cns.CompressedBackend.mix_compressed = inner
+
+
+# ---------------------------------------------------------------------------
+# the physical wire: comparisons and plain periods on column slabs
+# ---------------------------------------------------------------------------
+
+
+def wire_compare(torch, got, want) -> dict:
+    """The wire's limits: scales identical; codes identical but for a
+    counted few that differ by exactly one step (at most 1e-6 of the
+    codes); f32 outputs exact wherever the codes agree."""
+    codes = [(g, w) for g, w in zip(got, want) if g.dtype == torch.int8]
+    agree = None
+    off_by_one, n_codes = 0, 0
+    for g, w in codes:
+        diff = (g.int() - w.int()).abs()
+        assert int(diff.max()) <= 1, int(diff.max())
+        off_by_one += int((diff == 1).sum())
+        n_codes += diff.numel()
+        agree = diff == 0
+    assert off_by_one <= 1e-6 * n_codes, (off_by_one, n_codes)
+    max_err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype == torch.int8:
+            continue
+        if agree is not None and g.shape == agree.shape:
+            err = float(((g - w).abs() * agree).max())
+        else:
+            err = float((g - w).abs().max())
+            assert err == 0.0, ("scales differ", err)
+        assert err == 0.0, err
+        max_err = max(max_err, err)
+    return {"codes_off_by_one": off_by_one, "codes": n_codes,
+            "max_abs_err": max_err}
+
+
+def slab_dither(torch, cp, key, m, lo, hi, *, leaf=0, rnd, block=0,
+                real=None, device):
+    """(m, hi - lo) wire dither of bucket (or block) columns [lo, hi): the
+    cell (leaf, rnd, server, block) of every server; columns at or past
+    ``real`` (a block's pad) get 0, as the period gives them."""
+    out = torch.zeros((m, hi - lo), dtype=torch.float32, device=device)
+    stop = hi if real is None else min(hi, real)
+    for s in range(m):
+        if stop > lo:
+            cp.wire_dither(key, stop, leaf=leaf, rnd=rnd, server=s,
+                           block=block, start=lo, stop=stop,
+                           out=out[s, :stop - lo])
+    return out
+
+
+def plain_bucketed_slab(torch, ref, cp, a, x, key, lo, t_s, staleness,
+                        bits, chunk):
+    """The bucketed wire period of ``x`` = bucket columns [lo, lo + n) with
+    the plain versions (acc after ``t_s`` rounds)."""
+    m, n = x.shape
+    kw = dict(bits=bits, chunk=chunk)
+
+    def u(rnd):
+        return slab_dither(torch, cp, key, m, lo, lo + n, rnd=rnd,
+                           device=x.device)
+
+    zeros = torch.zeros_like(x)
+    r, acc = zeros, zeros
+    if staleness == 0:
+        c, s = ref.quantized_gossip_encode_ref(x, zeros, u(0), **kw)
+        for t in range(t_s):
+            acc, r, c, s = ref.bucketed_gossip_round_ref(
+                a, c, s, r, acc, u(min(t + 1, t_s - 1)), **kw)
+        return acc
+    ring = [(torch.zeros((m, n), dtype=torch.int8, device=x.device),
+             torch.ones((m, n // chunk), device=x.device))
+            for _ in range(staleness)]
+    w = x
+    for t in range(t_s):
+        acc, r, c, s = ref.bucketed_gossip_round_pipelined_ref(
+            a, *ring[t % staleness], w, r, acc, u(t), **kw)
+        ring[t % staleness] = (c, s)
+        if t >= staleness:
+            w = acc
+    return w
+
+
+def plain_leaf_slab(torch, ref, cp, a, x, key, leaf, block, lo, real, t_s,
+                    bits, chunk):
+    """The per-leaf wire period of ``x`` = columns [lo, lo + n) of block
+    ``block`` of leaf ``leaf`` (its ``real`` first columns are data, the
+    rest pad) with the plain versions (the iterate after ``t_s`` rounds)."""
+    m, n = x.shape
+    kw = dict(bits=bits, chunk=chunk)
+
+    def u(rnd):
+        return slab_dither(torch, cp, key, m, lo, lo + n, leaf=leaf, rnd=rnd,
+                           block=block, real=real, device=x.device)
+
+    r = torch.zeros_like(x)
+    c, s = ref.quantized_gossip_encode_ref(x, r, u(0), **kw)
+    mixed = x
+    for t in range(t_s):
+        mixed, r, c, s = ref.quantized_gossip_round_ref(
+            a, c, s, r, u(min(t + 1, t_s - 1)), **kw)
+    return mixed
 
 
 def main() -> int:
@@ -184,6 +363,7 @@ def main() -> int:
     from repro_torch.launch import train as ttrain
     from repro_torch.models import transformer as ttf
     from repro_torch.tree import tree_leaves, tree_map
+    import numpy as np
 
     dev = torch.device("cuda")
     ttrain.set_full_f32()
@@ -325,6 +505,7 @@ def main() -> int:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     assert n_params == SMOLLM_PARAMS, n_params
     assert launches["flash_attention"] == 0, launches   # not on this path
+    assert all(launches[k] == 0 for k in WIRE_KERNELS), launches
     assert launches["consensus_mix"] == TRAIN["t_server"] * TRAIN["epochs"]
     assert launches["rmsnorm_fwd"] == norms_per_step * client_steps
     assert launches["rmsnorm_bwd"] == norms_per_step * client_steps
@@ -345,14 +526,9 @@ def main() -> int:
 
     def stats(tree):
         """Per-leaf server means and the f64 deviation norm ||W - 1 wbar'||."""
-        means, dev_sq = [], 0.0
-        for leaf in tree_leaves(tree):
-            flat = leaf.reshape(leaf.shape[0], -1)
-            means.append(flat.double().mean(0))
-            for lo in range(0, flat.shape[1], 1 << 24):
-                c = flat[:, lo:lo + (1 << 24)].double()
-                dev_sq += float(((c - c.mean(0)) ** 2).sum())
-        return means, dev_sq ** 0.5
+        means = [leaf.reshape(leaf.shape[0], -1).double().mean(0)
+                 for leaf in tree_leaves(tree)]
+        return means, disagreement_f64(torch, tree_leaves(tree))
 
     mean0, dis0 = stats(server)
     mean1, dis1 = stats(mixed)
@@ -450,7 +626,7 @@ def main() -> int:
     serve_expected = {"consensus_mix": 0,
                       "flash_attention": qcfg.num_layers,
                       "rmsnorm_fwd": norms_per_pass * SERVE["gen"],
-                      "rmsnorm_bwd": 0}
+                      "rmsnorm_bwd": 0, **{k: 0 for k in WIRE_KERNELS}}
     generated = res["generated"]
     emit("serve", arch="qwen3-1.7b", batch=b, prompt_len=s_len,
          gen=SERVE["gen"], prefill_s=res["prefill_s"],
@@ -531,7 +707,361 @@ def main() -> int:
     del params, cache, logits
     torch.cuda.empty_cache()
 
-    # ---- 13. per-kernel summary, card, result ----
+    # ---- 13. the wire kernels vs their plain versions ----
+    from repro_torch.comm import compressors as cp
+    from repro_torch.comm import prng
+    wire_errs = {name: 0.0 for name in WIRE_KERNELS}
+    off_by_one = 0
+    for m in (1, 4, 5, 16):
+        a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)) if m > 1
+                         else [[1.0]], dtype=torch.float32, device=dev)
+        for bits in (8, 4):
+            qmax = 2 ** (bits - 1) - 1
+            for chunk in (16, 256, 960):
+                d = chunk * 517         # the last slab of a block is ragged
+                w, r, acc = (torch.randn((m, d), device=dev, generator=g)
+                             * sc for sc in (1.0, 0.5, 0.5))
+                u = torch.rand((m, d), device=dev, generator=g)
+                codes = torch.randint(-qmax, qmax + 1, (m, d), device=dev,
+                                      generator=g, dtype=torch.int8)
+                scales = torch.rand((m, d // chunk), device=dev,
+                                    generator=g) * 0.02 + 1e-3
+                kw = dict(bits=bits, chunk=chunk)
+
+                def st(*ts):    # the kernels update their state in place
+                    return [t.clone() for t in ts]
+
+                pairs = {
+                    "quantized_gossip_encode": (
+                        ops.quantized_gossip_encode(w, r, u,
+                                                    *st(codes, scales), **kw),
+                        ref.quantized_gossip_encode_ref(w, r, u, **kw)),
+                    "bucketed_gossip_round": (
+                        ops.bucketed_gossip_round(
+                            a, *st(codes, scales, r, acc), u, **kw),
+                        ref.bucketed_gossip_round_ref(a, codes, scales, r,
+                                                      acc, u, **kw)),
+                    "bucketed_gossip_round_pipelined": (
+                        ops.bucketed_gossip_round_pipelined(
+                            a, *st(codes, scales), w, *st(r, acc), u, **kw),
+                        ref.bucketed_gossip_round_pipelined_ref(
+                            a, codes, scales, w, r, acc, u, **kw)),
+                    "quantized_gossip_round": (
+                        ops.quantized_gossip_round(
+                            a, *st(codes, scales, r), torch.empty_like(r), u,
+                            **kw),
+                        ref.quantized_gossip_round_ref(a, codes, scales, r,
+                                                       u, **kw)),
+                }
+                torch.cuda.synchronize()
+                res = {k: wire_compare(torch, *v) for k, v in pairs.items()}
+                for k, v in res.items():
+                    wire_errs[k] = max(wire_errs[k], v["max_abs_err"])
+                    off_by_one += v["codes_off_by_one"]
+                emit("wire_kernel_check", m=m, bits=bits, chunk=chunk, d=d,
+                     **{k: v["codes_off_by_one"] for k, v in res.items()},
+                     max_abs_err=max(v["max_abs_err"] for v in res.values()))
+    # the dither: the card's int64 hash against the CPU's, bitwise
+    for n in (1000, (1 << 24) + 17):
+        kw = dict(leaf=0, rnd=3, server=2, block=0)
+        assert torch.equal(cp.wire_dither(prng.key(5), n, device=dev,
+                                          **kw).cpu(),
+                           cp.wire_dither(prng.key(5), n, **kw))
+    emit("wire_dither_check", ok=True, codes_off_by_one=off_by_one)
+    del w, r, acc, u, codes, scales, pairs
+    torch.cuda.empty_cache()
+
+    # ---- 14. the wire path: training with int8 codes on the wire and
+    # error feedback ----
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with wire_period_disagreement(torch, cns, tree_leaves) as periods:
+        run = ttrain.train("smollm-360m", **WIRE_TRAIN)
+        torch.cuda.synchronize()
+    wire_launches = ops.launch_counts()
+    hist = run["history"]
+    n_params = sum(t[0, 0].numel() for t in
+                   tree_leaves(run["state"].client_params))
+    wire_expected = {
+        "consensus_mix": 0, "flash_attention": 0,
+        "rmsnorm_fwd": norms_per_step * client_steps,
+        "rmsnorm_bwd": norms_per_step * client_steps,
+        "quantized_gossip_encode": WIRE_TRAIN["epochs"],
+        "bucketed_gossip_round": WIRE_TRAIN["t_server"] * WIRE_TRAIN["epochs"],
+        "bucketed_gossip_round_pipelined": 0, "quantized_gossip_round": 0}
+    emit("train_wire", arch="smollm-360m", params=n_params,
+         compression=WIRE_TRAIN["compression"], wire=WIRE_TRAIN["wire"],
+         error_feedback=WIRE_TRAIN["error_feedback"], loss=hist["loss"],
+         disagreement=hist["disagreement"], drift=hist["drift"],
+         epoch_s=hist["epoch_s"],
+         tokens_per_s=[tokens_per_epoch / t for t in hist["epoch_s"]],
+         wire_mb=hist["wire_mb"], wire_ratio=hist["wire_ratio"],
+         launches=wire_launches, expected_launches=wire_expected,
+         periods=periods, sigma_a=tp.sigma_a(
+             tp.metropolis_weights(tp.ring_graph(WIRE_TRAIN["servers"])),
+             WIRE_TRAIN["t_server"]),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    assert n_params == SMOLLM_PARAMS, n_params
+    assert wire_launches == wire_expected, wire_launches
+    assert all(torch.isfinite(torch.tensor(v)) for v in hist["loss"]), hist
+    # every wire period contracts the servers' disagreement (float64)
+    assert len(periods) == WIRE_TRAIN["epochs"], periods
+    assert all(p["after"] < p["before"] for p in periods), periods
+    del run
+    torch.cuda.empty_cache()
+
+    # ---- 14b. the wire path at staleness 1: one epoch, every gossip round
+    # on kernel 8 ----
+    stale_train = dict(WIRE_TRAIN, epochs=1, staleness=1)
+    ops.reset_launch_counts()
+    with wire_period_disagreement(torch, cns, tree_leaves) as stale_periods:
+        run = ttrain.train("smollm-360m", **stale_train)
+        torch.cuda.synchronize()
+    stale_launches = ops.launch_counts()
+    stale_expected = {
+        "consensus_mix": 0, "flash_attention": 0,
+        "rmsnorm_fwd": norms_per_step * client_steps // TRAIN["epochs"],
+        "rmsnorm_bwd": norms_per_step * client_steps // TRAIN["epochs"],
+        "quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
+        "bucketed_gossip_round_pipelined": stale_train["t_server"],
+        "quantized_gossip_round": 0}
+    hist = run["history"]
+    emit("train_wire_stale", arch="smollm-360m", staleness=1,
+         loss=hist["loss"], epoch_s=hist["epoch_s"],
+         tokens_per_s=[tokens_per_epoch / t for t in hist["epoch_s"]],
+         sigma_prod=hist["sigma_prod"], periods=stale_periods,
+         sigma_a=tp.sigma_a(
+             tp.metropolis_weights(tp.ring_graph(stale_train["servers"])),
+             stale_train["t_server"] // 2),
+         launches=stale_launches, expected_launches=stale_expected)
+    assert stale_launches == stale_expected, stale_launches
+    assert all(torch.isfinite(torch.tensor(v)) for v in hist["loss"]), hist
+    assert len(stale_periods) == 1, stale_periods
+    assert stale_periods[0]["after"] < stale_periods[0]["before"], \
+        stale_periods
+
+    # ---- 15. one wire period at full size: staleness 0 and 1, and the
+    # per-leaf layout; each against the plain versions on column slabs ----
+    m, t_s = WIRE_TRAIN["servers"], WIRE_TRAIN["t_server"]
+    server = tree_map(lambda x: x[:, 0].clone(), run["state"].client_params)
+    del run
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    server = tree_map(lambda x: x + 0.01 * torch.randn(
+        x.shape, device=dev, generator=gen), server)
+    a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)),
+                     dtype=torch.float32, device=dev)
+    q = cp.StochasticQuantizer(bits=8, chunk=WIRE_CHUNK)
+    key = prng.key(11)
+    leaves = tree_leaves(server)
+    d_tot, d_pad = cns._bucket_layout(leaves, cns.DEFAULT_GOSSIP_BLOCK,
+                                         WIRE_CHUNK)
+    flat_in = cns._bucket_flat(leaves, d_pad)
+    mean0, dis0 = stats(server)
+    period_launches = {}
+    slabs = [0, (d_pad // 2) // WIRE_CHUNK * WIRE_CHUNK, d_pad - WIRE_SLAB]
+    for staleness in (0, 1):
+        ops.reset_launch_counts()
+        out = cns.gossip_scan_wire_bucketed(a, server, t_s, q, key,
+                                            staleness=staleness)
+        torch.cuda.synchronize()
+        got_launches = ops.launch_counts()
+        period_launches[staleness] = got_launches
+        flat_out = cns._bucket_flat(tree_leaves(out), d_pad)
+        errs = []
+        for lo in slabs:
+            want = plain_bucketed_slab(
+                torch, ref, cp, a, flat_in[:, lo:lo + WIRE_SLAB].clone(),
+                key, lo, t_s, staleness, 8, WIRE_CHUNK)
+            assert torch.equal(flat_out[:, lo:lo + WIRE_SLAB], want), lo
+            errs.append(float((flat_out[:, lo:lo + WIRE_SLAB]
+                               - want).abs().max()))
+        mean1, dis1 = stats(out)
+        mean_err = max(float((p_ - q_).abs().max())
+                       for p_, q_ in zip(mean0, mean1))
+        emit("wire_period_full_size", layout="bucketed",
+             staleness=staleness, m=m, t_server=t_s, d=d_tot, d_pad=d_pad,
+             launches=got_launches, slabs=slabs, slab_cols=WIRE_SLAB,
+             slab_max_abs_err=max(errs), mean_max_abs_drift=mean_err,
+             disagreement_before=dis0, disagreement_after=dis1,
+             ratio=dis1 / dis0, sigma_a=tp.sigma_a(
+                 np.asarray(a.cpu()), t_s // (staleness + 1)))
+        want_launches = ({"quantized_gossip_encode": 1,
+                          "bucketed_gossip_round": t_s} if staleness == 0
+                         else {"bucketed_gossip_round_pipelined": t_s})
+        assert all(got_launches[k] == want_launches.get(k, 0)
+                   for k in WIRE_KERNELS), got_launches
+        assert dis1 < dis0, (dis1, dis0)
+        del out, flat_out
+        torch.cuda.empty_cache()
+    del flat_in
+    # the per-leaf layout: one encode and T_S per-leaf rounds per leaf
+    ops.reset_launch_counts()
+    out = cns.gossip_scan_wire(a, server, t_s, q, key)
+    torch.cuda.synchronize()
+    leaf_launches = ops.launch_counts()
+    period_launches["per_leaf"] = leaf_launches
+    block = cns.DEFAULT_GOSSIP_BLOCK
+    errs = []
+    for li, (x_in, x_out) in enumerate(zip(leaves, tree_leaves(out))):
+        d_leaf = x_in[0].numel()
+        if li > 1 and d_leaf < block:
+            continue                    # the embedding and one small leaf
+        rows_in, blk, nb, blk_pad = cns._leaf_blocks(
+            x_in.reshape(m, -1), block, WIRE_CHUNK)
+        rows_out = cns._leaf_blocks(x_out.reshape(m, -1), block,
+                                    WIRE_CHUNK)[0]
+        for b in sorted({0, nb - 1}):
+            real = min(blk, d_leaf - b * blk)
+            n = min(WIRE_SLAB, blk_pad)
+            lo = max(0, (real - n // 2) // WIRE_CHUNK * WIRE_CHUNK)
+            lo = min(lo, blk_pad - n)
+            cols = slice(b * blk_pad + lo, b * blk_pad + lo + n)
+            want = plain_leaf_slab(torch, ref, cp, a,
+                                   rows_in[:, cols].clone(), key, li, b, lo,
+                                   real, t_s, 8, WIRE_CHUNK)
+            assert torch.equal(rows_out[:, cols], want), (li, b)
+            errs.append(float((rows_out[:, cols] - want).abs().max()))
+        del rows_in, rows_out
+    mean1, dis1 = stats(out)
+    n_leaves = len(leaves)
+    emit("wire_period_full_size", layout="per_leaf", m=m, t_server=t_s,
+         d=d_tot, leaves=n_leaves, launches=leaf_launches,
+         slab_max_abs_err=max(errs),
+         mean_max_abs_drift=max(float((p_ - q_).abs().max())
+                                for p_, q_ in zip(mean0, mean1)),
+         disagreement_before=dis0, disagreement_after=dis1,
+         ratio=dis1 / dis0)
+    assert leaf_launches["quantized_gossip_encode"] == n_leaves
+    assert leaf_launches["quantized_gossip_round"] == n_leaves * t_s
+    assert dis1 < dis0, (dis1, dis0)
+    leaf_pad = sum(cns._leaf_blocks(torch.empty((1, x[0].numel()),
+                                                device="meta"),
+                                    block, WIRE_CHUNK)[0].shape[1]
+                   for x in leaves)
+    del out, mean0, mean1
+    torch.cuda.empty_cache()
+
+    # where a wire period's time goes besides its kernels: one round's
+    # dither (all servers), the bucket copy, the EF residual (CUDA events)
+    flat = cns._bucket_flat(leaves, d_pad)
+    u = torch.empty_like(flat)
+    res = [torch.zeros_like(x).reshape(m, -1) for x in leaves]
+    codes = torch.zeros((m, d_pad), dtype=torch.int8, device=dev)
+    scales = torch.ones((m, d_pad // WIRE_CHUNK), device=dev)
+
+    def residual():
+        off = 0
+        for r_ in res:
+            cns._ef_residual_into(r_, flat, codes, scales, off, WIRE_CHUNK)
+            off += r_.shape[1]
+
+    emit("wire_breakdown", m=m, d_pad=d_pad,
+         dither_ms=cuda_ms(torch, lambda: cns._bucket_dither_rows(
+             key, m, d_pad, rnd=1, out=u), reps=2, warmup=1),
+         bucket_flat_ms=cuda_ms(torch, lambda: cns._bucket_flat(
+             leaves, d_pad), reps=2, warmup=1),
+         ef_residual_ms=cuda_ms(torch, residual, reps=1, warmup=1),
+         per_epoch={"dither": t_s, "bucket_flat": 1, "ef_residual": 1,
+                    "quantized_gossip_encode": 1,
+                    "bucketed_gossip_round": t_s})
+    del flat, u, res, codes, scales, server, leaves
+    torch.cuda.empty_cache()
+
+    # where a wire epoch's time goes: one more epoch under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ttrain.train("smollm-360m", **{**WIRE_TRAIN, "epochs": 1}, log=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    emit("profile_wire", **profile_summary(prof, wall_s))
+    del prof
+    torch.cuda.empty_cache()
+
+    # ---- 16. the wire kernels at the main path's shape: times, bounds, and
+    # a slab of each call held against the plain version ----
+    wire_times = {}
+    n_max = m * max(d_pad, leaf_pad)    # one set of buffers for all four
+    big = {"w": torch.randn(n_max, device=dev, generator=g),
+           "r": torch.randn(n_max, device=dev, generator=g) * 0.5,
+           "acc": torch.randn(n_max, device=dev, generator=g) * 0.5,
+           "u": torch.rand(n_max, device=dev, generator=g),
+           "codes": torch.randint(-127, 128, (n_max,), device=dev,
+                                  generator=g, dtype=torch.int8),
+           "scales": torch.rand(n_max // WIRE_CHUNK, device=dev,
+                                generator=g) * 0.02 + 1e-3}
+    lo = (d_pad // 3) // WIRE_CHUNK * WIRE_CHUNK
+    cols = slice(lo, lo + WIRE_SLAB)
+    kw = dict(bits=8, chunk=WIRE_CHUNK)
+
+    def leaf_view(t, d):                # a contiguous (m, d) prefix
+        return t[:m * d].view(m, d)
+
+    calls = {
+        "quantized_gossip_encode": (
+            d_pad, lambda b: ops.quantized_gossip_encode(
+                b["w"], b["r"], b["u"], b["codes"], b["scales"], **kw),
+            lambda b: ref.quantized_gossip_encode_ref(
+                b["w"], b["r"], b["u"], **kw)),
+        "bucketed_gossip_round": (d_pad, lambda b: ops.bucketed_gossip_round(
+            a, b["codes"], b["scales"], b["r"], b["acc"], b["u"], **kw),
+            lambda b: ref.bucketed_gossip_round_ref(
+                a, b["codes"], b["scales"], b["r"], b["acc"], b["u"], **kw)),
+        "bucketed_gossip_round_pipelined": (
+            d_pad, lambda b: ops.bucketed_gossip_round_pipelined(
+                a, b["codes"], b["scales"], b["w"], b["r"], b["acc"], b["u"],
+                **kw),
+            lambda b: ref.bucketed_gossip_round_pipelined_ref(
+                a, b["codes"], b["scales"], b["w"], b["r"], b["acc"], b["u"],
+                **kw)),
+        "quantized_gossip_round": (
+            leaf_pad, lambda b: ops.quantized_gossip_round(
+                a, b["codes"], b["scales"], b["r"], b["acc"], b["u"], **kw),
+            lambda b: ref.quantized_gossip_round_ref(
+                a, b["codes"], b["scales"], b["r"], b["u"], **kw)),
+    }
+    for name, (d_k, kernel, plain) in calls.items():
+        buf = {k: leaf_view(v, d_k // WIRE_CHUNK if k == "scales" else d_k)
+               for k, v in big.items()}
+        slab = {k: (v[:, lo // WIRE_CHUNK:(lo + WIRE_SLAB) // WIRE_CHUNK]
+                    if k == "scales" else v[:, cols]).clone()
+                for k, v in buf.items()}
+        want = plain(slab)
+        got = kernel(buf)
+        torch.cuda.synchronize()
+        got_slab = tuple(
+            x[:, lo // WIRE_CHUNK:(lo + WIRE_SLAB) // WIRE_CHUNK]
+            if x.shape[1] == d_k // WIRE_CHUNK else x[:, cols] for x in got)
+        cmp = wire_compare(torch, got_slab, want)
+        ms = alternate(torch, {"kernel": lambda: kernel(buf)}, reps=10)
+        plain_ms = cuda_ms(torch, lambda: plain(slab), reps=3)
+        per_elem, scale_passes, reads_a = WIRE_TRAFFIC[name]
+        n_bytes = (m * d_k * per_elem
+                   + scale_passes * m * (d_k // WIRE_CHUNK) * 4
+                   + (m * m * 4 if reads_a else 0))
+        # f32 operations: the encode's subtract and dither multiply-add, and
+        # the rounds' mixing multiply-adds
+        n_ops = 4 * m * d_k + (2 * m * m * d_k if reads_a else 0)
+        bound, by = bound_ms(n_bytes, n_ops)
+        wire_times[name] = dict(
+            ms=ms["kernel"], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            max_abs_err=max(wire_errs[name], cmp["max_abs_err"]))
+        emit("wire_main_shape", kernel=name, m=m, d=d_k, chunk=WIRE_CHUNK,
+             kernel_ms=ms["kernel"], bound_ms=bound, bound_by=by,
+             bytes=n_bytes, kernel_GBps=n_bytes / ms["kernel"] / 1e6,
+             bound_share=bound / ms["kernel"], plain_ms=plain_ms,
+             plain_shape=[m, WIRE_SLAB], library_ms=None,
+             slab_cols=[lo, lo + WIRE_SLAB], **cmp)
+        del buf, slab, want, got, got_slab
+    ptxas = [line.strip() for line in _build.build_logs.get(
+        "quantized_wire", "").splitlines()
+        if "Used" in line or "spill" in line]
+    emit("wire_ptxas", ptxas=ptxas)
+    del big
+    torch.cuda.empty_cache()
+
+    # ---- 17. per-kernel summary, card, result ----
     r256 = rn_stats[256]
     kernels = [
         {"name": "consensus_mix", "route": "cuda",
@@ -563,6 +1093,23 @@ def main() -> int:
          "bound_ms": fa_bound, "bound_by": fa_by,
          "library_ms": fa_times["library"]},
     ]
+    # launches: kernels 6 and 7 from the wire training path, kernel 8 from
+    # its staleness-1 epoch, kernel 5 from the per-leaf period
+    wire_path_launches = {
+        "quantized_gossip_encode": wire_launches,
+        "bucketed_gossip_round": wire_launches,
+        "bucketed_gossip_round_pipelined": stale_launches,
+        "quantized_gossip_round": period_launches["per_leaf"]}
+    for name, replaces in WIRE_KERNELS.items():
+        t = wire_times[name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/quantized_wire.cu",
+             "replaces": replaces,
+             "launches": wire_path_launches[name][name],
+             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": t["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

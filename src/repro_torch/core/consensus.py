@@ -10,24 +10,43 @@ card, its plain version on the CPU.  Leaves gossip independently
 (``gossip_scan`` in the reference), so mixing the concatenation is the same
 operator.
 
-One difference from the reference: the reference's ``_mix_leaf`` contracts
-in the leaf dtype, and its core never calls the Pallas kernel; here the
-backends go through the f32 kernel, which takes f32 leaves only (bf16 leaves
-are a later slice, see ROADMAP.md).
+**Physical wire.**  ``CompressedBackend(wire="physical")`` makes int8/int4
+codes what every gossip round ships: each round encodes each server's DELTA
+against the receivers' shared decoded reference (``gossip_scan_wire`` per
+leaf, ``gossip_scan_wire_bucketed`` with the whole tree as one padded
+bucket), and dequantizes and mixes after.  Every step runs on the wire
+kernels through ``repro_torch.kernels.ops``: the encode of round 0
+(kernel 6), then per round the bucketed round (kernel 7), its
+bounded-staleness form (kernel 8, ``staleness >= 1``) or the per-leaf
+round (kernel 5).  The dither is the reference's keyed hash
+(``comm.compressors.wire_dither``), so the codes are the reference's.
+Error feedback tracks round 0's transmission.  The state buffers of a
+period are updated in place by the kernels; a period allocates its
+(M, D_pad) buffers once.
 
-This slice ports ``gossip``, ``gossip_blocked``, ``collapsed``,
-``exact_mean`` and ``none``; every other mode raises ``NotImplementedError``
-naming the slice that brings it.
+One difference from the reference: the reference's ``_mix_leaf`` contracts
+in the leaf dtype, and its core never calls the Pallas kernels; here the
+backends go through the f32 kernels, which take f32 leaves only (bf16
+leaves are a later slice, see ROADMAP.md).
+
+Ported modes: ``gossip``, ``gossip_blocked``, ``collapsed``,
+``exact_mean`` and ``none``, and the physical wire around the first two.
+Still to come, each raising ``NotImplementedError`` that names its slice:
+the simulated wire (``wire="simulated"``: quantize once per period, top-k,
+random-k), uncompressed bounded-staleness gossip, Chebyshev, push-sum and
+the robust screens.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.comm import compressors as _compressors
 from repro_torch.kernels import ops as kops
-from repro_torch.tree import tree_map
+from repro_torch.kernels.ref import fma
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 DEFAULT_GOSSIP_BLOCK = 4_194_304
 
@@ -72,6 +91,291 @@ def gossip_collapsed(a_eff: torch.Tensor, tree: Any) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# quantized-wire gossip: the per-round physical wire
+# ---------------------------------------------------------------------------
+
+def _f32_leaves(tree: Any):
+    leaves, treedef = tree_flatten(tree)
+    for leaf in leaves:
+        if leaf.dtype != torch.float32:
+            raise TypeError(f"the physical wire takes float32 leaves, got "
+                            f"{leaf.dtype} (bf16 leaves are a later slice)")
+    return leaves, treedef
+
+
+def _wire_dither_rows(key, m: int, nb: int, blk: int, *, leaf: int,
+                      rnd: int, blk_pad: Optional[int] = None,
+                      device: Any = "cpu") -> torch.Tensor:
+    """(m, nb * blk_pad) dither of one round of one leaf of the per-leaf
+    wire: cell (leaf, rnd, server, block) over the ``blk`` real elements of
+    each block, zero over its pad to ``blk_pad``; 0.5 everywhere without a
+    key (the reference's deterministic rounding)."""
+    blk_pad = blk if blk_pad is None else blk_pad
+    out = torch.zeros((m, nb, blk_pad), dtype=torch.float32, device=device)
+    if key is None:
+        out[:, :, :blk] = 0.5
+    else:
+        for s in range(m):
+            for b in range(nb):
+                _compressors.wire_dither(key, blk, leaf=leaf, rnd=rnd,
+                                         server=s, block=b,
+                                         out=out[s, b, :blk])
+    return out.reshape(m, nb * blk_pad)
+
+
+def _leaf_blocks(flat: torch.Tensor, block: int, chunk: int):
+    """The per-leaf wire layout of one (m, d) leaf: ``nb`` blocks of
+    ``blk = min(block, d)`` elements, each zero-padded to ``blk_pad``, a
+    chunk multiple (zeros never raise an absmax and code to 0, so the pad
+    is bitwise neutral).  Returns ``(rows (m, nb * blk_pad), blk, nb,
+    blk_pad)``."""
+    m, d = flat.shape
+    blk = min(block, d)
+    nb = -(-d // blk)
+    blk_pad = -(-blk // chunk) * chunk
+    rows = torch.zeros((m, nb * blk), dtype=torch.float32,
+                       device=flat.device)
+    rows[:, :d] = flat
+    padded = torch.zeros((m, nb, blk_pad), dtype=torch.float32,
+                         device=flat.device)
+    padded[:, :, :blk] = rows.reshape(m, nb, blk)
+    return padded.reshape(m, nb * blk_pad), blk, nb, blk_pad
+
+
+def _leaf_unblock(rows: torch.Tensor, d: int, blk: int, nb: int,
+                  blk_pad: int) -> torch.Tensor:
+    m = rows.shape[0]
+    return rows.reshape(m, nb, blk_pad)[:, :, :blk].reshape(m, nb * blk)[
+        :, :d]
+
+
+def gossip_scan_wire(a: torch.Tensor, tree: Any, t_server: int, codec,
+                     key=None, *, block: int = DEFAULT_GOSSIP_BLOCK) -> Any:
+    """Per-round quantized-wire gossip in the per-leaf layout (the
+    reference's ``gossip_scan_wire``): every round, every server encodes
+    the DELTA between its iterate and the receivers' shared decoded
+    reference, every receiver adds the decoded deltas to its reference of
+    every sender and mixes the references::
+
+        delta_t = W_t - R_(t-1)          (encoded; crosses the wire)
+        R_t     = R_(t-1) + D(C(delta_t))
+        W_(t+1) = A R_t                  (R_(-1) = 0)
+
+    Each leaf is cut into blocks of ``min(block, d)`` elements with its own
+    dither cell (leaf, round, server, block).  Per leaf: one encode
+    (kernel 6), then T_S per-leaf rounds (kernel 5), each of which also
+    re-encodes the next round's deltas (the last re-encode is never
+    consumed and reuses its round's dither)."""
+    if t_server == 0:
+        return tree
+    leaves, treedef = _f32_leaves(tree)
+    m = leaves[0].shape[0]
+    a32 = a.to(device=leaves[0].device, dtype=torch.float32)
+    out = []
+    for li, leaf in enumerate(leaves):
+        flat = leaf.reshape(m, -1)
+        d = flat.shape[1]
+        w, blk, nb, blk_pad = _leaf_blocks(flat, block, codec.chunk)
+
+        def dither(rnd, li=li, blk=blk, nb=nb, blk_pad=blk_pad):
+            return _wire_dither_rows(key, m, nb, blk, leaf=li,
+                                     rnd=rnd, blk_pad=blk_pad,
+                                     device=w.device)
+
+        ref = torch.zeros_like(w)
+        u = dither(0)
+        codes, scales = kops.quantized_gossip_encode(
+            w, ref, u, *_code_buffers(w, codec.chunk), bits=codec.bits,
+            chunk=codec.chunk)
+        mixed = w
+        for t in range(t_server):
+            if t + 1 < t_server:
+                u = dither(t + 1)
+            kops.quantized_gossip_round(a32, codes, scales, ref, mixed, u,
+                                        bits=codec.bits, chunk=codec.chunk)
+        out.append(_leaf_unblock(mixed, d, blk, nb, blk_pad)
+                   .reshape(leaf.shape))
+    return tree_unflatten(treedef, out)
+
+
+def _code_buffers(x: torch.Tensor, chunk: int):
+    """Uninitialised ``(codes, scales)`` buffers for the encode of an
+    (m, d) f32 operand: (m, d) int8 and (m, d / chunk) f32."""
+    m, d = x.shape
+    return (torch.empty((m, d), dtype=torch.int8, device=x.device),
+            torch.empty((m, d // chunk), dtype=torch.float32,
+                        device=x.device))
+
+
+def _bucket_layout(leaves, block: int, chunk: int):
+    """``(d_tot, d_pad)`` of the bucketed layout of a server tree."""
+    d_tot = sum(leaf[0].numel() for leaf in leaves)
+    blk, nb = _compressors.bucket_block(d_tot, block, chunk)
+    return d_tot, blk * nb
+
+
+def _bucket_flat(leaves, d_pad: int) -> torch.Tensor:
+    """(m, d_pad) f32 bucket of a server tree's leaves, flattened row-wise
+    in leaf order, zero tail."""
+    m = leaves[0].shape[0]
+    flat = torch.zeros((m, d_pad), dtype=torch.float32,
+                       device=leaves[0].device)
+    off = 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        flat[:, off:off + size] = leaf.reshape(m, size)
+        off += size
+    return flat
+
+
+def _bucket_split(flat: torch.Tensor, leaves, treedef) -> Any:
+    """Invert ``_bucket_flat``: views of the bucket in the leaves' shapes
+    (the pad tail is dropped)."""
+    out, off = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        out.append(flat[:, off:off + size].reshape(leaf.shape))
+        off += size
+    return tree_unflatten(treedef, out)
+
+
+def _bucket_dither_rows(key, m: int, d_pad: int, *, rnd: int,
+                        out: torch.Tensor) -> torch.Tensor:
+    """(m, d_pad) dither of one round of the bucketed wire, into ``out``:
+    one cell (leaf 0, rnd, server, block 0) per server over the whole
+    bucket, or 0.5 without a key."""
+    if key is None:
+        return out.fill_(0.5)
+    for s in range(m):
+        _compressors.wire_dither(key, d_pad, leaf=0, rnd=rnd, server=s,
+                                 block=0, out=out[s])
+    return out
+
+
+def _bucketed_period(a: torch.Tensor, flat: torch.Tensor, t_server: int,
+                     codec, key, staleness: int,
+                     shipped: Optional[Callable] = None) -> torch.Tensor:
+    """The bucketed recursion on a (m, d_pad) f32 bucket; returns the
+    iterate buffer after ``t_server`` rounds.  ``shipped(codes, scales)``
+    is called with round 0's codes and scales while they still exist (the
+    error-feedback hook)."""
+    m, d_pad = flat.shape
+    bits, chunk = codec.bits, codec.chunk
+    a32 = a.to(device=flat.device, dtype=torch.float32)
+    ref = torch.zeros_like(flat)
+    acc = torch.zeros_like(flat)
+    u = torch.empty_like(flat)
+
+    def dither(rnd):
+        return _bucket_dither_rows(key, m, d_pad, rnd=rnd, out=u)
+
+    if staleness == 0:
+        codes, scales = kops.quantized_gossip_encode(
+            flat, ref, dither(0), *_code_buffers(flat, chunk), bits=bits,
+            chunk=chunk)
+        if shipped is not None:
+            shipped(codes, scales)
+        for t in range(t_server):
+            if t + 1 < t_server:    # the last re-encode is never consumed
+                dither(t + 1)
+            kops.bucketed_gossip_round(a32, codes, scales, ref, acc, u,
+                                       bits=bits, chunk=chunk)
+        return acc
+    # the ring of the last `staleness` in-flight (codes, scales): zero codes
+    # and unit scales decode to nothing, so the pre-fill is inert; round t
+    # consumes slot t % s (round t - s's payload) and ships into it
+    ring_c = torch.zeros((staleness, m, d_pad), dtype=torch.int8,
+                         device=flat.device)
+    ring_s = torch.ones((staleness, m, d_pad // chunk), dtype=torch.float32,
+                        device=flat.device)
+    w = flat
+    for t in range(t_server):
+        slot = t % staleness
+        kops.bucketed_gossip_round_pipelined(
+            a32, ring_c[slot], ring_s[slot], w, ref, acc, dither(t),
+            bits=bits, chunk=chunk)
+        if t == 0 and shipped is not None:   # slot 0 holds round 0's
+            shipped(ring_c[0], ring_s[0])     # codes until round s
+        if t >= staleness:          # a delayed buffer has landed
+            w = acc
+    return w
+
+
+def gossip_scan_wire_bucketed(a: torch.Tensor, tree: Any, t_server: int,
+                              codec, key=None, *,
+                              block: int = DEFAULT_GOSSIP_BLOCK,
+                              staleness: int = 0) -> Any:
+    """BUCKETED quantized-wire gossip (the reference's
+    ``gossip_scan_wire_bucketed``): the whole tree is one zero-padded
+    (M, D_pad) bucket (``comm.compressors.bucket_block``), and server i
+    carries its own reference row r_i and a running accumulator acc_i::
+
+        delta_t = W_t - r_(t-1)                (encoded; crosses the wire)
+        r_t     = r_(t-1) + D(C(delta_t))_i
+        acc_t   = acc_(t-1) + sum_j a[i,j] D(C(delta_t))_j
+        W_(t+1) = acc_t
+
+    ``staleness=0``: one encode (kernel 6), then T_S bucketed rounds
+    (kernel 7).  ``staleness=s >= 1``: T_S pipelined rounds (kernel 8);
+    round t consumes round t-s's codes from an s-deep ring, and the iterate
+    stays frozen until the first delayed buffer lands.  Returns views of
+    the result bucket in the tree's shapes."""
+    if t_server == 0:
+        return tree
+    if staleness < 0:
+        raise ValueError(f"staleness must be >= 0, got {staleness}")
+    leaves, treedef = _f32_leaves(tree)
+    _, d_pad = _bucket_layout(leaves, block, codec.chunk)
+    out = _bucketed_period(a, _bucket_flat(leaves, d_pad), t_server, codec,
+                           key, staleness)
+    return _bucket_split(out, leaves, treedef)
+
+
+def bucketed_roundtrip_tree(codec, tree: Any, key=None, *,
+                            block: int = DEFAULT_GOSSIP_BLOCK,
+                            rnd: int = 0) -> Any:
+    """One wire round-trip of a server tree in the bucketed layout: what
+    round ``rnd`` of the bucketed wire ships of each server's own model
+    (the reference's error-feedback oracle)."""
+    leaves, treedef = _f32_leaves(tree)
+    m = leaves[0].shape[0]
+    _, d_pad = _bucket_layout(leaves, block, codec.chunk)
+    flat = _bucket_flat(leaves, d_pad)
+    u = _bucket_dither_rows(key, m, d_pad, rnd=rnd,
+                            out=torch.empty_like(flat))
+    codes, scales = kops.quantized_gossip_encode(
+        flat, torch.zeros_like(flat), u, *_code_buffers(flat, codec.chunk),
+        bits=codec.bits, chunk=codec.chunk)
+    y = (codes.reshape(m, -1, codec.chunk).float()
+         * scales[..., None]).reshape(m, d_pad)
+    return _bucket_split(y, leaves, treedef)
+
+
+def wire_roundtrip_tree(codec, tree: Any, key=None, *,
+                        block: int = DEFAULT_GOSSIP_BLOCK,
+                        rnd: int = 0) -> Any:
+    """One wire round-trip of a server tree in the per-leaf layout: what
+    round ``rnd`` of ``gossip_scan_wire`` ships of each server's own model
+    (the reference's round-0 oracle of the per-leaf wire)."""
+    leaves, treedef = _f32_leaves(tree)
+    m = leaves[0].shape[0]
+    out = []
+    for li, leaf in enumerate(leaves):
+        flat = leaf.reshape(m, -1)
+        d = flat.shape[1]
+        rows, blk, nb, blk_pad = _leaf_blocks(flat, block, codec.chunk)
+        u = _wire_dither_rows(key, m, nb, blk, leaf=li, rnd=rnd,
+                              blk_pad=blk_pad, device=rows.device)
+        codes, scales = kops.quantized_gossip_encode(
+            rows, torch.zeros_like(rows), u, *_code_buffers(rows, codec.chunk),
+            bits=codec.bits, chunk=codec.chunk)
+        y = (codes.reshape(m, -1, codec.chunk).float()
+             * scales[..., None]).reshape(rows.shape)
+        out.append(_leaf_unblock(y, d, blk, nb, blk_pad).reshape(leaf.shape))
+    return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
 # consensus backends: one interface over every execution strategy
 # ---------------------------------------------------------------------------
 
@@ -108,13 +412,26 @@ class ConsensusBackend:
         raise NotImplementedError
 
 
+_STALE_GOSSIP = ("uncompressed bounded-staleness gossip (gossip_scan_stale) "
+                 "arrives with the overlap work of the dynamic-federation "
+                 "slice (ROADMAP.md, Queue 1); staleness runs on the "
+                 "physical wire today")
+
+
 class GossipBackend(ConsensusBackend):
     """T_S rounds on the tree flattened once to ``(M, D)``: each round one
-    ``ops.consensus_mix`` (one kernel launch on the card)."""
+    ``ops.consensus_mix`` (one kernel launch on the card).  ``staleness``
+    is carried for the physical-wire wrapper, which pipelines it."""
 
     name = "gossip"
 
+    def __init__(self, a_static, t_server, *, staleness: int = 0):
+        super().__init__(a_static, t_server)
+        self.staleness = staleness
+
     def _mix(self, tree, a):
+        if self.staleness:
+            raise NotImplementedError(_STALE_GOSSIP)
         return kops.consensus_mix_pytree(a, tree, rounds=self.t_server)
 
 
@@ -125,11 +442,14 @@ class BlockedGossipBackend(ConsensusBackend):
     name = "gossip_blocked"
 
     def __init__(self, a_static, t_server, *,
-                 block: int = DEFAULT_GOSSIP_BLOCK):
+                 block: int = DEFAULT_GOSSIP_BLOCK, staleness: int = 0):
         super().__init__(a_static, t_server)
         self.block = block
+        self.staleness = staleness
 
     def _mix(self, tree, a):
+        if self.staleness:
+            raise NotImplementedError(_STALE_GOSSIP)
         return gossip_scan_blocked(a, tree, self.t_server, block=self.block)
 
 
@@ -173,6 +493,125 @@ class ExactMeanBackend(ConsensusBackend):
                         tree)
 
 
+def _ef_residual_into(res: torch.Tensor, flat: torch.Tensor,
+                      codes: torch.Tensor, scales: torch.Tensor, lo: int,
+                      chunk: int, step: int = 1 << 22) -> None:
+    """``res <- flat - codes * scales`` over bucket columns [lo, lo + n),
+    with one rounding (``fma(-q, s, x)``), in column blocks of ``step``."""
+    n = res.shape[1]
+    for a0 in range(0, n, step):
+        a1 = min(n, a0 + step)
+        cols = torch.arange(lo + a0, lo + a1, device=flat.device)
+        res[:, a0:a1] = fma(-codes[:, lo + a0:lo + a1].float(),
+                            scales[:, cols // chunk],
+                            flat[:, lo + a0:lo + a1])
+
+
+class CompressedBackend(ConsensusBackend):
+    """The compression layer around a gossip backend (the reference's
+    ``CompressedBackend``), with the physical wire: the codes are what
+    every round ships (``gossip_scan_wire_bucketed``, the whole tree as one
+    bucket, one code and one scale buffer per server and round).  Only the
+    int8/int4 quantizers define a wire byte format, and only the literal
+    T_S-round schedules (gossip, gossip_blocked) have a per-round wire.
+
+    Error feedback tracks the round-0 transmission of each server's own
+    model: the residual is ``corrected - D(round-0 codes)``, computed from
+    the period's own round-0 codes and scales (``bucketed_roundtrip_tree``
+    would encode the same input with the same dither again), with the
+    subtraction and the decode's product in one rounding, as the
+    reference's jitted program rounds it.
+
+    ``wire="simulated"`` (quantize once per period) arrives with the
+    simulated-wire slice."""
+
+    compressed = True
+
+    def __init__(self, inner: ConsensusBackend, compressor, *,
+                 error_feedback: bool = True, wire: str = "simulated",
+                 wire_block: Optional[int] = None):
+        if getattr(inner, "compressed", False):
+            raise ValueError("refusing to wrap an already-compressed "
+                             "backend: double compression double-counts "
+                             "wire bytes and compounds loss")
+        if wire not in ("simulated", "physical"):
+            raise ValueError(f"wire must be 'simulated' or 'physical', "
+                             f"got {wire!r}")
+        if wire == "physical":
+            if getattr(inner, "robust", False):
+                raise ValueError(
+                    f"wire='physical' ships quantized codes, but the robust "
+                    f"screening backend {inner.name!r} must rank/clip every "
+                    f"neighbor's plaintext values before mixing")
+            if not isinstance(compressor, _compressors.StochasticQuantizer):
+                raise ValueError(
+                    "wire='physical' ships quantized codes through the "
+                    "collectives; only the int8/int4 quantizers define a "
+                    "wire byte format")
+            if inner.name not in ("gossip", "gossip_blocked"):
+                raise ValueError(
+                    f"wire='physical' re-quantizes at every gossip hop, so "
+                    f"it needs the literal T_S-round W <- A W schedule; "
+                    f"backend {inner.name!r} has no per-round wire — use "
+                    f"'gossip' or 'gossip_blocked'")
+        if getattr(inner, "staleness", 0) and wire != "physical":
+            raise ValueError(
+                "bounded staleness + wire='simulated' is incoherent: the "
+                "simulated wire quantizes ONCE per period (no per-round "
+                "in-flight buffers exist to be late) — use wire='physical' "
+                "or staleness=0")
+        if wire == "simulated":
+            raise NotImplementedError(
+                f"compressed gossip on wire='simulated': "
+                f"{_compressors.SIMULATED_SLICE}")
+        super().__init__(None, inner.t_server)
+        self.inner = inner
+        self.compressor = compressor
+        self.error_feedback = error_feedback
+        self.wire = wire
+        self.wire_block = (getattr(inner, "block", None) or wire_block
+                           or DEFAULT_GOSSIP_BLOCK)
+        self.a_static = inner.a_static
+        self.staleness = getattr(inner, "staleness", 0)
+        self.name = f"compressed[{inner.name}+{compressor.name}+wire]"
+        self.supports_directed = inner.supports_directed
+
+    def mix_compressed(self, tree: Any, a_p: Optional[torch.Tensor] = None,
+                       *, residual: Optional[Any] = None, key=None):
+        """One physical-wire period: ``(mixed tree, new EF residual)``.
+        ``key`` is the period's threefry key data (``None``: deterministic
+        rounding).  With error feedback the residual is folded into the
+        message first, and the new residual is written into ``residual``'s
+        own buffers (consumed like a donated argument); the mixed leaves are
+        views of one (M, D_pad) buffer."""
+        a = self._resolve(a_p)
+        codec = self.compressor
+        leaves, treedef = _f32_leaves(tree)
+        _, d_pad = _bucket_layout(leaves, self.wire_block, codec.chunk)
+        flat = _bucket_flat(leaves, d_pad)
+        ef = residual is not None and self.error_feedback
+        shipped = None
+        if ef:
+            res_leaves, _ = _f32_leaves(residual)
+            m, off, spans = flat.shape[0], 0, []
+            for leaf in res_leaves:
+                size = leaf[0].numel()
+                flat[:, off:off + size] += leaf.reshape(m, size)
+                spans.append((leaf.view(m, size), off))
+                off += size
+
+            def shipped(codes, scales):
+                for res, lo in spans:
+                    _ef_residual_into(res, flat, codes, scales, lo,
+                                      codec.chunk)
+        out = _bucketed_period(a, flat, self.t_server, codec, key,
+                               self.staleness, shipped=shipped)
+        return _bucket_split(out, leaves, treedef), residual
+
+    def _mix(self, tree, a):
+        return self.mix_compressed(tree, a)[0]
+
+
 _LATER = {
     "chebyshev": "Chebyshev gossip arrives with the dynamic-federation "
                  "slice",
@@ -185,30 +624,44 @@ _LATER = {
 def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
                  block: int = DEFAULT_GOSSIP_BLOCK,
                  compression: str = "none",
+                 error_feedback: bool = False,
+                 wire: str = "simulated",
                  staleness: int = 0) -> Optional[ConsensusBackend]:
     """Map a ``DFLConfig.consensus_mode`` string to a backend (``None`` for
-    ``"none"``: no inter-server communication)."""
+    ``"none"``: no inter-server communication).  ``compression`` other than
+    ``"none"`` wraps it in a ``CompressedBackend`` (``wire="physical"``;
+    the simulated wire is a later slice).  ``staleness`` needs the literal
+    T_S-round schedules, and runs on the physical wire only."""
     base = mode.partition(":")[0]
     if base in _LATER:
         raise NotImplementedError(
             f"consensus mode {mode!r} is not ported yet: {_LATER[base]} "
             f"(ROADMAP.md, Queue 1)")
-    if compression != "none":
-        raise NotImplementedError(
-            "compressed gossip arrives with the compressed-wire slice "
-            "(ROADMAP.md, Queue 1)")
-    if staleness:
-        raise NotImplementedError(
-            "bounded staleness arrives with the overlap work of the "
-            "dynamic-federation slice (ROADMAP.md, Queue 1)")
+    if staleness < 0:
+        raise ValueError(f"staleness must be >= 0, got {staleness}")
+    if staleness and base not in ("gossip", "gossip_blocked"):
+        raise ValueError(
+            f"bounded staleness needs the literal T_S-round W <- A W "
+            f"schedule (round t consumes round t-s's messages); mode "
+            f"{mode!r} has no per-round message stream to delay — use "
+            f"'gossip'/'gossip_blocked' or staleness=0")
+    if staleness and compression == "none":
+        raise NotImplementedError(_STALE_GOSSIP)
     if mode == "none":
         return None
     if mode == "gossip":
-        return GossipBackend(a_static, t_server)
-    if mode == "gossip_blocked":
-        return BlockedGossipBackend(a_static, t_server, block=block)
-    if mode == "collapsed":
-        return CollapsedBackend(a_static, t_server)
-    if mode == "exact_mean":
-        return ExactMeanBackend(a_static, t_server)
-    raise ValueError(f"unknown consensus mode {mode!r}")
+        backend = GossipBackend(a_static, t_server, staleness=staleness)
+    elif mode == "gossip_blocked":
+        backend = BlockedGossipBackend(a_static, t_server, block=block,
+                                       staleness=staleness)
+    elif mode == "collapsed":
+        backend = CollapsedBackend(a_static, t_server)
+    elif mode == "exact_mean":
+        backend = ExactMeanBackend(a_static, t_server)
+    else:
+        raise ValueError(f"unknown consensus mode {mode!r}")
+    if compression != "none":
+        backend = CompressedBackend(
+            backend, _compressors.make_compressor(compression),
+            error_feedback=error_feedback, wire=wire, wire_block=block)
+    return backend

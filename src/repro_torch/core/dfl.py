@@ -19,8 +19,15 @@ of arithmetic:
   period, so the numbers are the same, and one client's gradients and
   activations are live at a time.
 * The step consumes its input state like a donated jit argument: the client
-  parameter (and optimizer-state) buffers are updated in place, so a full
-  copy of the (M, N) model is never held twice.
+  parameter (and optimizer-state, and error-feedback residual) buffers are
+  updated in place, so a full copy of the (M, N) model is never held twice.
+
+Compressed consensus (``DFLConfig.compression``) runs the physical wire
+(``consensus.CompressedBackend``).  Its stochastic rounding is keyed by the
+reference's rng stream: ``DFLState.wire_key`` holds threefry key data
+(``comm.prng``) that the epoch splits as the reference splits its ``rng`` —
+once per local step, then once for the consensus key (``dfl.py:637`` of the
+reference) — so the port's wire codes are the reference's.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.comm import prng
+from repro_torch.comm.compressors import make_compressor
 from repro_torch.core import consensus as cns
 from repro_torch.core.topology import FLTopology
 from repro_torch.optim import Optimizer
@@ -42,12 +51,18 @@ LossFn = Callable[[Any, Any, Any], Tuple[torch.Tensor, Any]]
 class DFLState(NamedTuple):
     """Carried across epochs. ``client_params`` leaves: (M, N, *w).
     ``rng`` is the ``torch.Generator`` handed to the loss (which may ignore
-    it, as the LM and regression losses do)."""
+    it, as the LM and regression losses do).  ``ef_residual`` is the
+    per-server compression residual (leaves (M, *w)) under compressed
+    consensus with error feedback, else ``None``.  ``wire_key`` is the
+    threefry key data (``comm.prng``) the wire's dither is keyed from,
+    split as the reference splits its rng; ``None`` when nothing uses it."""
 
     client_params: Any
     opt_state: Any
     epoch: int
     rng: Optional[torch.Generator] = None
+    ef_residual: Optional[Any] = None
+    wire_key: Optional[np.ndarray] = None
 
 
 class DFLMetrics(NamedTuple):
@@ -71,6 +86,19 @@ class DFLConfig:
     # each local iteration's per-client batch in this many sequential
     # microbatches, the mean gradient applied once (identical math to Eq. 3)
     grad_microbatches: int = 1
+    # lossy inter-server compression: "none" | "int8[:chunk]" |
+    # "int4[:chunk]" (comm.compressors.make_compressor); anything but "none"
+    # wraps the backend in consensus.CompressedBackend
+    compression: str = "none"
+    # carry each server's compression residual in DFLState.ef_residual and
+    # fold it into the next period's message (comm.error_feedback)
+    error_feedback: bool = False
+    # "physical": the codes are the wire, every round (the simulated
+    # once-per-period wire is a later slice).  Ignored without compression.
+    wire: str = "simulated"
+    # bounded staleness: gossip round t mixes the neighbours' codes of round
+    # t - staleness (the physical wire's pipelined rounds, kernel 8)
+    staleness: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +171,36 @@ def resolve_backend(cfg: DFLConfig):
     topo = cfg.topology
     m = topo.num_servers
     a_np = topo.mixing_matrix() if m > 1 else np.ones((1, 1))
-    return cns.make_backend(cfg.consensus_mode, a_np, topo.t_server)
+    return cns.make_backend(cfg.consensus_mode, a_np, topo.t_server,
+                            compression=cfg.compression,
+                            error_feedback=cfg.error_feedback,
+                            wire=cfg.wire, staleness=cfg.staleness)
+
+
+def active_compressor(cfg: DFLConfig):
+    """The compressor this config's consensus period runs through, or
+    ``None`` when the wire is exact."""
+    if cfg.compression != "none" and cfg.consensus_mode != "none":
+        return make_compressor(cfg.compression)
+    return None
+
+
+def wants_error_feedback(cfg: DFLConfig) -> bool:
+    """Whether this config carries an EF residual in ``DFLState``."""
+    return (cfg.compression != "none" and cfg.error_feedback
+            and cfg.consensus_mode != "none")
+
+
+def active_wire(cfg: DFLConfig) -> Tuple[str, int]:
+    """``(wire mode, wire block)`` of the compression layer: the block is
+    the byte layout's partitioning the ledger counts."""
+    return cfg.wire, cns.DEFAULT_GOSSIP_BLOCK
+
+
+def _compresses(cfg: DFLConfig) -> bool:
+    topo = cfg.topology
+    return (active_compressor(cfg) is not None and topo.num_servers > 1
+            and topo.t_server > 0)
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +264,17 @@ def build_dfl_epoch_step(
             "explicit biased baseline)")
     if cfg.metrics not in ("full", "light"):
         raise ValueError(f"unknown metrics level {cfg.metrics!r}")
+    if cfg.staleness < 0:
+        raise ValueError(f"staleness must be >= 0, got {cfg.staleness}")
+    if cfg.staleness and cfg.consensus_mode == "none":
+        raise ValueError("staleness > 0 with consensus_mode='none' is "
+                         "meaningless: there are no gossip rounds to delay")
     backend = resolve_backend(cfg)
+    # compression wire state is a static fact of the config: without it the
+    # step never touches the wire key or the residual
+    compressed = (backend is not None
+                  and getattr(backend, "compressed", False)
+                  and m > 1 and topo.t_server > 0)
     if backend is not None and cfg.mixing != "symmetric" \
             and not backend.supports_directed:
         raise ValueError(
@@ -307,7 +374,21 @@ def build_dfl_epoch_step(
             server = server_mean(params)
 
             # ---- 3. consensus period: T_S gossip rounds (Eq. 5/7) ----
-            if m > 1 and topo.t_server > 0 and backend is not None:
+            # the wire key follows the reference's rng: one split per local
+            # step, then the consensus key split off
+            key, ef_res = state.wire_key, state.ef_residual
+            if key is not None:
+                for _ in range(tree_leaves(batches)[0].shape[0]):
+                    key = prng.split(key)[0]
+            if compressed:
+                if key is None:
+                    raise ValueError("compressed consensus needs "
+                                     "DFLState.wire_key (init_dfl_state's "
+                                     "wire_key=prng.key(seed))")
+                key, ckey = prng.split(key)
+                server, ef_res = backend.mix_compressed(
+                    server, residual=ef_res, key=ckey)
+            elif m > 1 and topo.t_server > 0 and backend is not None:
                 server = backend.mix(server)
             disagreement = (disagreement_norm(server) if full
                             else torch.zeros((), dtype=torch.float32))
@@ -316,7 +397,8 @@ def build_dfl_epoch_step(
             _broadcast_into(params, server)
             del server
 
-        new_state = DFLState(params, opt_state, state.epoch + 1, state.rng)
+        new_state = DFLState(params, opt_state, state.epoch + 1, state.rng,
+                             ef_res, key)
         metrics = DFLMetrics(loss=losses,
                              server_disagreement=disagreement.float().cpu(),
                              client_drift=drift.float().cpu(),
@@ -327,12 +409,28 @@ def build_dfl_epoch_step(
 
 
 def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
-                   rng: Optional[torch.Generator] = None) -> DFLState:
-    """Replicate shared w_0 (Alg. 1 'Initialize') and build optimizer state."""
+                   rng: Optional[torch.Generator] = None,
+                   wire_key: Optional[np.ndarray] = None) -> DFLState:
+    """Replicate shared w_0 (Alg. 1 'Initialize') and build optimizer state.
+    Under compressed consensus ``wire_key`` (threefry key data, e.g.
+    ``prng.key(seed)`` where the reference passes ``jax.random.key(seed)``)
+    is required, and error feedback adds a zero residual (leaves
+    ``(M, *w)``)."""
     topo = cfg.topology
     client_params = replicate_to_clients(params, topo.num_servers,
                                          topo.clients_per_server)
-    return DFLState(client_params, optimizer.init(client_params), 0, rng)
+    ef = None
+    if _compresses(cfg):
+        if wire_key is None:
+            raise ValueError("compressed consensus keys its dither from "
+                             "wire_key: pass wire_key=prng.key(seed)")
+        if wants_error_feedback(cfg):
+            ef = tree_map(lambda p: torch.zeros(
+                (topo.num_servers,) + tuple(p.shape), dtype=p.dtype,
+                device=p.device), params)
+    return DFLState(client_params, optimizer.init(client_params), 0, rng,
+                    ef, None if wire_key is None else np.asarray(
+                        wire_key, dtype=np.uint32))
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,11 @@ class SigmaTracker:
 
     Accumulates ``P <- A_p^{T_S} P``; ``sigma()`` is ``||P - 11'/M||_2``, the
     factor by which the initial server disagreement has provably contracted
-    so far (Lemma 1 with a matrix product in place of a power)."""
+    so far (Lemma 1 with a matrix product in place of a power).
+
+    ``staleness`` is the bounded-staleness depth s of the period: only one
+    round in every s + 1 advances the chain, so an epoch contributes
+    ``A_p^(T_S // (s + 1))``."""
 
     def __init__(self, m: int, mode: str = "average", *, staleness: int = 0):
         if mode == "push_sum":
@@ -25,17 +29,17 @@ class SigmaTracker:
                 "federation in the dynamic-federation slice (ROADMAP.md)")
         if mode != "average":
             raise ValueError(f"unknown SigmaTracker mode {mode!r}")
-        if staleness:
-            raise NotImplementedError(
-                "bounded staleness arrives with the overlap work of the "
-                "dynamic-federation slice (ROADMAP.md)")
+        if staleness < 0:
+            raise ValueError(f"staleness must be >= 0, got {staleness}")
         self.m = m
         self.mode = mode
+        self.staleness = staleness
         self.prod = np.eye(m)
 
     def update(self, a: np.ndarray, t_server: int) -> float:
         op = np.asarray(a, np.float64)
-        self.prod = np.linalg.matrix_power(op, t_server) @ self.prod
+        rounds = t_server // (self.staleness + 1)
+        self.prod = np.linalg.matrix_power(op, rounds) @ self.prod
         return self.sigma()
 
     def sigma(self) -> float:

@@ -1,12 +1,22 @@
-"""Kernel 1: one consensus round ``W <- A W`` on the card (CUDA C++).
+"""The consensus kernels on the card (CUDA C++), as in
+``repro.kernels.consensus_mix``.
 
-Replaces ``repro.kernels.consensus_mix.consensus_mix_2d`` (the Pallas TPU
-kernel).  The source is ``csrc/consensus_mix.cu``; its note says what bounds
-it and how the design answers.  ``consensus_mix_cuda`` checks its operands,
-launches on PyTorch's current stream, raises on a launch error and counts
-its launches in ``launches``.  Its plain version is
-``repro_torch.kernels.ref.consensus_mix_ref``; ``repro_torch.kernels.ops``
-picks between them by device.
+* Kernel 1, ``consensus_mix_cuda`` (source ``csrc/consensus_mix.cu``):
+  one round ``W <- A W``; replaces ``consensus_mix_2d``.
+* The physical wire's kernels 5-8 (one source, ``csrc/quantized_wire.cu``):
+  ``quantized_gossip_encode_cuda``, ``bucketed_gossip_round_cuda``,
+  ``bucketed_gossip_round_pipelined_cuda`` and
+  ``quantized_gossip_round_cuda``; they replace the Pallas kernels of the
+  same names (``..._2d``).  They update their state operands IN PLACE (each
+  block reads a slab of whole chunks before it overwrites it), so a gossip
+  period allocates nothing per round.
+
+Each wrapper checks its operands, launches on PyTorch's current stream,
+raises on a launch error and counts its launches (``launches``,
+``wire_launches``).  The sources' notes say what bounds each kernel and how
+the design answers.  The plain versions are in ``repro_torch.kernels.ref``;
+``repro_torch.kernels.ops`` picks between kernel and plain version by
+device.
 """
 from __future__ import annotations
 
@@ -18,6 +28,10 @@ from repro_torch.kernels import _build
 
 #: kernel launches since the last ``ops.reset_launch_counts()``
 launches = 0
+#: launches of the wire kernels, by the name of the ``ops`` entry point
+wire_launches = {"quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
+                 "bucketed_gossip_round_pipelined": 0,
+                 "quantized_gossip_round": 0}
 _MAX_M = 64
 
 
@@ -80,3 +94,120 @@ def _overlap(x: torch.Tensor, y: torch.Tensor) -> bool:
         return lo, hi
     (a0, a1), (b0, b1) = span(x), span(y)
     return a0 < b1 and b0 < a1
+
+
+# ---------------------------------------------------------------------------
+# the physical wire: kernels 5-8
+# ---------------------------------------------------------------------------
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_WIRE_ARGS = {
+    "wire_encode_f32": [_P] * 5 + [_I, _L, _I, _I, _P],
+    "wire_bucketed_round_f32": [_P] * 6 + [_I, _L, _I, _I, _P],
+    "wire_pipelined_round_f32": [_P] * 7 + [_I, _L, _I, _I, _P],
+    "wire_leaf_round_f32": [_P] * 6 + [_I, _L, _I, _I, _P],
+}
+
+
+def _wire_fn(name: str):
+    lib = _build.load("quantized_wire")
+    fn = getattr(lib, name)
+    fn.argtypes = _WIRE_ARGS[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _wire_check(m: int, d: int, bits: int, chunk: int, a=None, **tensors):
+    """Device, dtype, shape and contiguity of a wire kernel's operands."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    if chunk < 1 or d % chunk:
+        raise ValueError(f"chunk={chunk} must divide D={d} (pad the wire "
+                         f"buffer to the bucket grid first, as the gossip "
+                         f"paths do)")
+    if not 1 <= m <= _MAX_M:
+        raise ValueError(f"the wire kernels take 1 <= M <= {_MAX_M}, got {m}")
+    if a is not None:
+        tensors["a"] = a
+    want = {"codes": (torch.int8, (m, d)), "scales": (torch.float32,
+                                                      (m, d // chunk)),
+            "a": (torch.float32, (m, m))}
+    device = None
+    for name, t in tensors.items():
+        dtype, shape = want.get(name, (torch.float32, (m, d)))
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if device is None:
+            device = t.device
+        if t.device != device:
+            raise ValueError("every operand must be on one device")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {shape} tensor, "
+                             f"got {tuple(t.shape)}")
+
+
+def _wire_launch(name: str, counter: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = _wire_fn(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    wire_launches[counter] += 1
+
+
+def quantized_gossip_encode_cuda(w, ref, dither, codes, scales, *, bits: int,
+                                 chunk: int):
+    """Kernel 6: ``codes, scales <- C(w - ref; dither)``.  Returns
+    ``(codes, scales)``."""
+    m, d = w.shape
+    _wire_check(m, d, bits, chunk, w=w, ref=ref, dither=dither, codes=codes,
+                scales=scales)
+    _wire_launch("wire_encode_f32", "quantized_gossip_encode", w.data_ptr(),
+                 ref.data_ptr(), dither.data_ptr(), codes.data_ptr(),
+                 scales.data_ptr(), m, d, chunk, bits)
+    return codes, scales
+
+
+def bucketed_gossip_round_cuda(a, codes, scales, ref, acc, dither, *,
+                               bits: int, chunk: int):
+    """Kernel 7, in place on ``codes``, ``scales``, ``ref`` and ``acc``.
+    Returns ``(acc, ref, codes, scales)``."""
+    m, d = codes.shape
+    _wire_check(m, d, bits, chunk, a=a, codes=codes, scales=scales, ref=ref,
+                acc=acc, dither=dither)
+    _wire_launch("wire_bucketed_round_f32", "bucketed_gossip_round",
+                 a.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                 ref.data_ptr(), acc.data_ptr(), dither.data_ptr(), m, d,
+                 chunk, bits)
+    return acc, ref, codes, scales
+
+
+def bucketed_gossip_round_pipelined_cuda(a, codes, scales, w, ref, acc,
+                                         dither, *, bits: int, chunk: int):
+    """Kernel 8, in place on ``codes``/``scales`` (delayed in, shipped out),
+    ``ref`` and ``acc``; ``acc`` may be ``w`` itself.  Returns ``(acc, ref,
+    codes, scales)``."""
+    m, d = codes.shape
+    _wire_check(m, d, bits, chunk, a=a, codes=codes, scales=scales, w=w,
+                ref=ref, acc=acc, dither=dither)
+    _wire_launch("wire_pipelined_round_f32",
+                 "bucketed_gossip_round_pipelined", a.data_ptr(),
+                 codes.data_ptr(), scales.data_ptr(), w.data_ptr(),
+                 ref.data_ptr(), acc.data_ptr(), dither.data_ptr(), m, d,
+                 chunk, bits)
+    return acc, ref, codes, scales
+
+
+def quantized_gossip_round_cuda(a, codes, scales, ref, mixed, dither, *,
+                                bits: int, chunk: int):
+    """Kernel 5, in place on ``codes``, ``scales`` and ``ref``; the mixed
+    iterates go to ``mixed``.  Returns ``(mixed, ref, codes, scales)``."""
+    m, d = codes.shape
+    _wire_check(m, d, bits, chunk, a=a, codes=codes, scales=scales, ref=ref,
+                mixed=mixed, dither=dither)
+    _wire_launch("wire_leaf_round_f32", "quantized_gossip_round",
+                 a.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+                 ref.data_ptr(), mixed.data_ptr(), dither.data_ptr(), m, d,
+                 chunk, bits)
+    return mixed, ref, codes, scales

@@ -4,7 +4,9 @@ For a CPU tensor each op runs its plain PyTorch version
 (``repro_torch.kernels.ref``); for a CUDA tensor it launches its Hopper
 kernel or raises — there is no path from a CUDA tensor to the plain
 version.  Port of ``repro.kernels.ops.consensus_mix_pytree``,
-``repro.kernels.ops.rmsnorm`` and ``repro.kernels.ops.flash_attention``.
+``repro.kernels.ops.rmsnorm`` and ``repro.kernels.ops.flash_attention``,
+plus entry points for the physical wire's kernels (the reference's wire
+paths call jnp code; the port's call these on every round).
 """
 from __future__ import annotations
 
@@ -24,11 +26,14 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _rn.fwd_launches = 0
     _rn.bwd_launches = 0
+    for name in _cm.wire_launches:
+        _cm.wire_launches[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return {"consensus_mix": _cm.launches, "flash_attention": _fa.launches,
-            "rmsnorm_fwd": _rn.fwd_launches, "rmsnorm_bwd": _rn.bwd_launches}
+            "rmsnorm_fwd": _rn.fwd_launches, "rmsnorm_bwd": _rn.bwd_launches,
+            **_cm.wire_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +93,80 @@ def consensus_mix_pytree(a: torch.Tensor, tree: Any, rounds: int = 1,
         out.append(result[:, off:off + size].reshape(leaf.shape))
         off += size
     return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# the physical wire (kernels 5-8): codes (M, D) int8 (int4 values unpacked),
+# scales (M, D/chunk) f32, every other operand (M, D) f32
+#
+# On both devices each entry point updates its state operands (codes,
+# scales, ref, acc) in place and writes its product into the buffers it is
+# given (the encode's codes and scales, the per-leaf round's ``mixed``), so
+# a gossip period allocates nothing per round.  A caller that needs an input
+# afterwards passes a clone.
+# ---------------------------------------------------------------------------
+
+
+def _a32(a: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return a.to(device=like.device, dtype=torch.float32).contiguous()
+
+
+def _store(dests, results):
+    for dst, res in zip(dests, results):
+        if dst is not res:
+            dst.copy_(res)
+    return dests
+
+
+def quantized_gossip_encode(w, ref, dither, codes, scales, *, bits: int = 8,
+                            chunk: int = 256):
+    """Kernel 6: ``codes, scales <- C(w - ref; dither)`` -> ``(codes,
+    scales)``."""
+    if w.is_cuda:
+        return _cm.quantized_gossip_encode_cuda(w, ref, dither, codes, scales,
+                                                bits=bits, chunk=chunk)
+    return _store((codes, scales), _ref.quantized_gossip_encode_ref(
+        w, ref, dither, bits=bits, chunk=chunk))
+
+
+def bucketed_gossip_round(a, codes, scales, ref, acc, dither, *,
+                          bits: int = 8, chunk: int = 256):
+    """Kernel 7: one bucketed wire round, in place -> ``(acc, ref, codes,
+    scales)``."""
+    if codes.is_cuda:
+        return _cm.bucketed_gossip_round_cuda(
+            _a32(a, codes), codes, scales, ref, acc, dither,
+            bits=bits, chunk=chunk)
+    return _store((acc, ref, codes, scales), _ref.bucketed_gossip_round_ref(
+        a, codes, scales, ref, acc, dither, bits=bits, chunk=chunk))
+
+
+def bucketed_gossip_round_pipelined(a, codes, scales, w, ref, acc, dither, *,
+                                    bits: int = 8, chunk: int = 256):
+    """Kernel 8: one bounded-staleness wire round over the DELAYED
+    ``(codes, scales)``, in place (they leave holding this round's shipped
+    codes) -> ``(acc, ref, codes, scales)``; ``acc`` may be ``w`` itself."""
+    if codes.is_cuda:
+        return _cm.bucketed_gossip_round_pipelined_cuda(
+            _a32(a, codes), codes, scales, w, ref, acc, dither,
+            bits=bits, chunk=chunk)
+    return _store((acc, ref, codes, scales),
+                  _ref.bucketed_gossip_round_pipelined_ref(
+                      a, codes, scales, w, ref, acc, dither, bits=bits,
+                      chunk=chunk))
+
+
+def quantized_gossip_round(a, codes, scales, ref, mixed, dither, *,
+                           bits: int = 8, chunk: int = 256):
+    """Kernel 5: one per-leaf wire round, in place on ``codes``, ``scales``
+    and ``ref``, the mixed iterates into ``mixed`` -> ``(mixed, ref, codes,
+    scales)``."""
+    if codes.is_cuda:
+        return _cm.quantized_gossip_round_cuda(
+            _a32(a, codes), codes, scales, ref, mixed, dither,
+            bits=bits, chunk=chunk)
+    return _store((mixed, ref, codes, scales), _ref.quantized_gossip_round_ref(
+        a, codes, scales, ref, dither, bits=bits, chunk=chunk))
 
 
 # ---------------------------------------------------------------------------

@@ -81,3 +81,169 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1) * mask.any(-1, keepdim=True)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the physical wire: kernels 5-8 (quantized, delta-coded gossip)
+#
+# The reference runs these steps under jit, where XLA:CPU contracts some
+# multiply-adds into fused multiply-adds (one rounding) and leaves others
+# apart (two roundings).  Codes are integers read off ``floor``, so one
+# rounding more or less moves a code by one step: each multiply-add below
+# states which form it takes, and the CUDA kernels use the same form
+# (``__fmaf_rn`` for ``fma``, ``__fmul_rn``/``__fadd_rn`` otherwise).
+# ---------------------------------------------------------------------------
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in float32 with ONE rounding (IEEE fusedMultiplyAdd),
+    computed exactly in float64: the product of two float32 values is exact
+    there, the sum is rounded to odd (``s`` plus the sign of the TwoSum
+    error in the last bit), and one cast to float32 then rounds correctly.
+    Plain PyTorch has no fused multiply-add of its own that is sure to
+    fuse."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0)
+    away = (err > 0) == (s > 0)
+    bits = torch.where(odd, torch.where(away, bits + 1, bits - 1), bits)
+    return bits.view(torch.float64).float()
+
+
+def _qmax(bits: int) -> float:
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    return float(2 ** (bits - 1) - 1)
+
+
+def _chunked(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    m, d = x.shape
+    if d % chunk:
+        raise ValueError(f"chunk={chunk} must divide D={d} (pad the wire "
+                         f"buffer to the bucket grid first, as the gossip "
+                         f"paths do)")
+    return x.reshape(m, d // chunk, chunk)
+
+
+def wire_encode(delta: torch.Tensor, dither: torch.Tensor, *, bits: int,
+                chunk: int):
+    """``C(delta; dither)``: per-chunk absmax scales
+    ``where(absmax > 0, absmax * f32(1/qmax), 1)`` and codes
+    ``clip(floor(fma(delta, 1/scale, u)), -qmax, qmax)`` (XLA contracts the
+    multiply-add; ``1/scale`` is a true division).  Returns ``(codes (M, D)
+    int8, scales (M, D/chunk) f32)``."""
+    qmax = _qmax(bits)
+    d3 = _chunked(delta, chunk)
+    absmax = d3.abs().amax(dim=-1)
+    one = torch.ones((), dtype=torch.float32, device=delta.device)
+    scale = torch.where(absmax > 0, absmax * torch.tensor(
+        1.0 / qmax, dtype=torch.float32, device=delta.device), one)
+    inv = (one / scale)[..., None].expand_as(d3)
+    q = torch.floor(fma(d3, inv, _chunked(dither, chunk)))
+    return (torch.clamp(q, -qmax, qmax).to(torch.int8)
+            .reshape(delta.shape), scale)
+
+
+def quantized_gossip_encode_ref(w: torch.Tensor, ref: torch.Tensor,
+                                dither: torch.Tensor, *, bits: int = 8,
+                                chunk: int = 256):
+    """Kernel 6: ``C(w - ref; dither)`` -> ``(codes, scales)``."""
+    return wire_encode(w.float() - ref, dither, bits=bits, chunk=chunk)
+
+
+def bucketed_gossip_round_ref(a: torch.Tensor, codes: torch.Tensor,
+                              scales: torch.Tensor, ref: torch.Tensor,
+                              acc: torch.Tensor, dither: torch.Tensor, *,
+                              bits: int = 8, chunk: int = 256):
+    """Kernel 7, in the order of the bucketed wire that users run
+    (``gossip_scan_wire_bucketed``'s synchronous body)::
+
+        ref'  = fma(c, s, ref)                     (own decoded delta)
+        acc'  = fma(a[i,j] * s[j], c[j], acc')     for j = 0 .. M-1
+        codes', scales' = C(acc' - ref'; dither)
+
+    The TPU kernel multiplies ``a[i,j] * (c s)[j]`` instead; the two agree
+    when ``a`` is dyadic.  Returns ``(acc', ref', codes', scales')``."""
+    m = codes.shape[0]
+    c3 = _chunked(codes.float(), chunk)
+    s3 = scales[..., None].expand_as(c3)
+    ref = fma(c3, s3, _chunked(ref, chunk)).reshape(ref.shape)
+    ws = a.float()[:, :, None] * scales[None]          # ws[i, j] = a_ij s_j
+    acc3 = _chunked(acc, chunk)
+    for j in range(m):
+        acc3 = fma(ws[:, j, :, None].expand_as(acc3),
+                   c3[j][None].expand_as(acc3), acc3)
+    acc = acc3.reshape(acc.shape)
+    codes, scales = wire_encode(acc - ref, dither, bits=bits, chunk=chunk)
+    return acc, ref, codes, scales
+
+
+def bucketed_gossip_round_pipelined_ref(a: torch.Tensor, codes: torch.Tensor,
+                                        scales: torch.Tensor, w: torch.Tensor,
+                                        ref: torch.Tensor, acc: torch.Tensor,
+                                        dither: torch.Tensor, *,
+                                        bits: int = 8, chunk: int = 256):
+    """Kernel 8, one round of the bounded-staleness wire::
+
+        codes', scales' = C(w - ref; dither)       (what this round ships)
+        ref'  = fma(codes', scales', ref)          (own decode, local codes)
+        acc'  = fma(a[i,j] * s[j], c[j], acc')     over the DELAYED codes
+
+    Returns ``(acc', ref', codes', scales')``."""
+    m = codes.shape[0]
+    new_c, new_s = wire_encode(w.float() - ref, dither, bits=bits,
+                               chunk=chunk)
+    n3 = _chunked(new_c.float(), chunk)
+    ref = fma(n3, new_s[..., None].expand_as(n3),
+              _chunked(ref, chunk)).reshape(ref.shape)
+    c3 = _chunked(codes.float(), chunk)
+    ws = a.float()[:, :, None] * scales[None]
+    acc3 = _chunked(acc, chunk)
+    for j in range(m):
+        acc3 = fma(ws[:, j, :, None].expand_as(acc3),
+                   c3[j][None].expand_as(acc3), acc3)
+    return acc3.reshape(acc.shape), ref, new_c, new_s
+
+
+def quantized_gossip_round_ref(a: torch.Tensor, codes: torch.Tensor,
+                               scales: torch.Tensor, ref: torch.Tensor,
+                               dither: torch.Tensor, *, bits: int = 8,
+                               chunk: int = 256):
+    """Kernel 5, one round of the per-leaf wire::
+
+        ref'   = fma(c, s, ref)                    (every sender's reference)
+        mixed  = fma(a[:,0], ref'[0], a[:,1] * ref'[1]), then
+                 fma(a[:,j], ref'[j], mixed) for j = 2 .. M-1
+        codes', scales' = C(mixed - ref'; dither)
+
+    Returns ``(mixed, ref', codes', scales')``."""
+    c3 = _chunked(codes.float(), chunk)
+    ref = fma(c3, scales[..., None].expand_as(c3),
+              _chunked(ref, chunk)).reshape(ref.shape)
+    mixed = wire_mix_rows(a, ref)
+    codes, scales = wire_encode(mixed - ref, dither, bits=bits, chunk=chunk)
+    return mixed, ref, codes, scales
+
+
+def wire_mix_rows(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``out[i] = sum_j a[i, j] * g[j]`` over the leading axis, rounded as
+    the reference's jitted ``consensus._wire_mix_rows`` and the TPU kernel
+    round it: ``fma(a[:,0], g[0], a[:,1] * g[1])``, then
+    ``fma(a[:,j], g[j], out)`` left to right (``a[:,0] * g[0]`` at M = 1)."""
+    m = g.shape[0]
+    a = a.float()
+    col = (-1,) + (1,) * (g.dim() - 1)
+
+    def term(j):
+        return a[:, j].reshape(col).expand(g.shape), g[j:j + 1].expand(g.shape)
+
+    if m == 1:
+        return torch.mul(*term(0))
+    out = fma(*term(0), torch.mul(*term(1)))
+    for j in range(2, m):
+        out = fma(*term(j), out)
+    return out

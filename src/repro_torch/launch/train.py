@@ -9,6 +9,14 @@ per-client synthetic LM shards, per-server aggregation, T_S gossip rounds
 (kernel 1), broadcast — printing the reference trainer's epoch record
 (loss, disagreement, drift, participation, num_servers, sigma_prod) every
 epoch.  float32 matmuls run in full float32: TF32 is switched off.
+
+``--compression int8 --wire physical [--error-feedback]`` runs the gossip
+rounds on the quantized, delta-coded physical wire (kernels 5-8) and adds
+the reference's wire ledger to the record: ``wire_mb`` (on-wire megabytes
+of the epoch) and ``wire_ratio`` (cumulative float32 bytes over shipped
+bytes), counted in the per-leaf layout as the reference's static trainer
+counts them.  ``--staleness s`` (physical wire only) lets gossip round t
+mix the neighbours' codes of round t - s (kernel 8).
 """
 from __future__ import annotations
 
@@ -19,16 +27,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.comm import accounting, prng
+from repro_torch.comm.compressors import tree_message_elems
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.core import (DFLConfig, FLTopology, SigmaTracker,
                               build_dfl_epoch_step, init_dfl_state)
+from repro_torch.core.dfl import active_compressor, active_wire
 from repro_torch.data import DataConfig, FLDataPipeline
 from repro_torch.models import transformer as tf
 from repro_torch.optim import sgd
+from repro_torch.tree import tree_leaves
 
-_ORDER = ("loss", "disagreement", "drift", "sigma_prod", "num_servers")
+_ORDER = ("loss", "disagreement", "drift", "sigma_prod", "num_servers",
+          "wire_mb", "wire_ratio")
 _FMT = {"loss": ".4f", "disagreement": ".3e", "drift": ".3e",
-        "sigma_prod": ".3f", "num_servers": ".0f"}
+        "sigma_prod": ".3f", "num_servers": ".0f", "wire_mb": ".1f",
+        "wire_ratio": ".2f"}
 
 
 def resolve_device(device: str) -> torch.device:
@@ -60,12 +74,17 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
           epochs: int = 3, seq_len: int = 128, per_client_batch: int = 2,
           gamma: float = 0.05, graph: str = "ring",
           consensus_mode: str = "gossip", mixing: str = "symmetric",
-          seed: int = 0, device: str = "cuda",
+          compression: str = "none", error_feedback: bool = False,
+          wire: str = "simulated", staleness: int = 0, seed: int = 0,
+          device: str = "cuda",
           params: Optional[dict] = None, log: bool = True) -> dict:
     """Static Algorithm 1 on an LM.  ``params`` (optional) replaces the
     seeded random init, e.g. weights carried over by
-    ``transformer.params_from_numpy``.  Returns the final state, the
-    per-epoch history (metric name -> list) and the run's objects."""
+    ``transformer.params_from_numpy``.  ``compression`` / ``error_feedback``
+    / ``wire`` select the compressed physical wire, ``staleness`` its
+    bounded-staleness rounds.  Returns the final
+    state, the per-epoch history (metric name -> list) and the run's
+    objects."""
     dev = resolve_device(device)
     set_full_f32()
     cfg = get_smoke(arch_id) if smoke else get_arch(arch_id)
@@ -83,12 +102,17 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = tf.init_params(gen, cfg, device=dev)
     dfl_cfg = DFLConfig(topology=topo, consensus_mode=consensus_mode,
-                        mixing=mixing)
+                        mixing=mixing, compression=compression,
+                        error_feedback=error_feedback, wire=wire,
+                        staleness=staleness)
     step = build_dfl_epoch_step(dfl_cfg, loss_fn, optimizer)
+    ledger = _make_wire_ledger(dfl_cfg, params)
+    # the wire key is the reference trainer's rng, jax.random.key(seed + 1)
     state = init_dfl_state(dfl_cfg, params, optimizer,
-                           torch.Generator(device=dev).manual_seed(seed + 1))
+                           torch.Generator(device=dev).manual_seed(seed + 1),
+                           wire_key=prng.key(seed + 1))
     del params
-    sigma = SigmaTracker(topo.num_servers)
+    sigma = SigmaTracker(topo.num_servers, staleness=staleness)
     a_np = (topo.mixing_matrix() if topo.num_servers > 1
             else np.ones((1, 1)))
     history: dict = {}
@@ -105,12 +129,50 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
             "sigma_prod": sigma.update(a_np, topo.t_server),
             "epoch_s": time.perf_counter() - t0,
         }
+        if ledger is not None:
+            rec["wire_mb"] = ledger.update() / 1e6
+            rec["wire_ratio"] = ledger.tracker.ratio()
         for k, v in rec.items():
             history.setdefault(k, []).append(v)
         if log:
             print(format_record(epoch, rec))
     return {"state": state, "history": history, "topology": topo,
             "cfg": cfg}
+
+
+class _StaticWireLedger:
+    """The static trainer's wire ledger: a ``comm.accounting.BytesTracker``
+    bound to the fixed topology and model shapes.  As the reference's
+    static trainer does, it counts the PER-LEAF physical layout
+    (``tree_physical_wire_bytes_per_server``) even though the rounds ship
+    the bucketed one."""
+
+    def __init__(self, dfl_cfg: DFLConfig, params, compressor):
+        topo = dfl_cfg.topology
+        server_abs = [torch.empty((topo.num_servers,) + tuple(p.shape),
+                                  device="meta")
+                      for p in tree_leaves(params)]
+        _, wire_block = active_wire(dfl_cfg)     # the physical wire's
+        self._row = accounting.tree_physical_wire_bytes_per_server(
+            compressor, server_abs, wire_block)
+        self._elems = tree_message_elems(server_abs)
+        self._a = (topo.mixing_matrix() if topo.num_servers > 1
+                   else np.ones((1, 1)))
+        self._t_s = topo.t_server
+        self.tracker = accounting.BytesTracker(
+            compressor, push_sum=dfl_cfg.mixing == "push_sum")
+
+    def update(self) -> float:
+        return self.tracker.update(self._a, self._t_s, row_bytes=self._row,
+                                   elems_per_row=self._elems)
+
+
+def _make_wire_ledger(dfl_cfg: DFLConfig,
+                      params) -> Optional[_StaticWireLedger]:
+    compressor = active_compressor(dfl_cfg)
+    if compressor is None:
+        return None
+    return _StaticWireLedger(dfl_cfg, params, compressor)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -132,20 +194,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--consensus-mode", default="gossip",
                    choices=("gossip", "gossip_blocked", "collapsed",
                             "exact_mean", "none"))
+    p.add_argument("--compression", default="none",
+                   help="none | int8[:chunk] | int4[:chunk]: quantize the "
+                        "gossip messages")
+    p.add_argument("--error-feedback", action="store_true",
+                   help="carry each server's compression residual into the "
+                        "next period's message")
+    p.add_argument("--wire", default="simulated",
+                   choices=("simulated", "physical"),
+                   help="where --compression happens: 'physical' ships the "
+                        "codes every round ('simulated' is a later slice)")
+    p.add_argument("--staleness", type=int, default=0,
+                   help="bounded gossip staleness s: round t mixes the "
+                        "neighbours' codes of round t-s (--wire physical "
+                        "only); 0 = the synchronous path")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     p.add_argument("--seed", type=int, default=0)
     return p
 
 
-def main() -> None:
-    args = build_parser().parse_args()
+def main(argv: Optional[list] = None) -> None:
+    args = build_parser().parse_args(argv)
     train(args.arch, smoke=args.smoke, servers=args.servers,
           clients=args.clients, t_client=args.t_client,
           t_server=args.t_server, epochs=args.epochs, seq_len=args.seq_len,
           per_client_batch=args.batch, gamma=args.gamma, graph=args.graph,
-          consensus_mode=args.consensus_mode, device=args.device,
-          seed=args.seed)
+          consensus_mode=args.consensus_mode, compression=args.compression,
+          error_feedback=args.error_feedback, wire=args.wire,
+          staleness=args.staleness, device=args.device, seed=args.seed)
 
 
 if __name__ == "__main__":

@@ -13,41 +13,44 @@ from typing import Any, Callable, List, Tuple
 def tree_flatten(tree: Any) -> Tuple[List[Any], Any]:
     """``(leaves, treedef)``; ``tree_unflatten(treedef, leaves)`` inverts it."""
     leaves: List[Any] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return ("none",)
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (tuple, list)):
-            return (type(node), None, [walk(c) for c in node])
-        leaves.append(node)
-        return ("leaf",)
 
-    return leaves, walk(tree)
+def _walk(node: Any, leaves: List[Any]) -> Any:
+    # a module-level recursion: a nested function that calls itself sits in
+    # a reference cycle with its closure, which would keep ``leaves`` (and
+    # so every tensor of the tree) alive until the cyclic collector runs
+    if node is None:
+        return ("none",)
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if isinstance(node, (tuple, list)):
+        return (type(node), None, [_walk(c, leaves) for c in node])
+    leaves.append(node)
+    return ("leaf",)
 
 
 def tree_unflatten(treedef: Any, leaves: List[Any]) -> Any:
     it = iter(leaves)
-
-    def build(d):
-        kind = d[0]
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        children = [build(c) for c in d[2]]
-        if kind == "dict":
-            return dict(zip(d[1], children))
-        if issubclass(kind, tuple) and hasattr(kind, "_fields"):
-            return kind(*children)
-        return kind(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree structure holds")
     return out
+
+
+def _build(d: Any, it) -> Any:
+    kind = d[0]
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    children = [_build(c, it) for c in d[2]]
+    if kind == "dict":
+        return dict(zip(d[1], children))
+    if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+        return kind(*children)
+    return kind(children)
 
 
 def tree_leaves(tree: Any) -> List[Any]:

@@ -109,7 +109,11 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
     assert torch.equal(ops.flash_attention(q, k, k, window=3),
                        ref.attention_ref(q, k, k, window=3))
     assert ops.launch_counts() == {"consensus_mix": 0, "flash_attention": 0,
-                                   "rmsnorm_fwd": 0, "rmsnorm_bwd": 0}
+                                   "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
+                                   "quantized_gossip_encode": 0,
+                                   "bucketed_gossip_round": 0,
+                                   "bucketed_gossip_round_pipelined": 0,
+                                   "quantized_gossip_round": 0}
 
 
 @pytest.mark.parametrize("rounds,block", [(1, None), (4, None), (3, 7),

@@ -8,7 +8,9 @@ machine, which has no JAX:
 
 Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward; the
 flash-attention kernel 2e-5 in f32 (5e-5 with a softcap) and 2e-2 in bf16,
-the tolerances the reference holds its Pallas kernel to.
+the tolerances the reference holds its Pallas kernel to.  The physical
+wire's kernels (5-8) and the wire periods built on them: bitwise, since
+kernel and plain version pin every rounding to the same operations.
 """
 import numpy as np
 import pytest
@@ -165,3 +167,144 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
             ops.flash_attention(*bad)
     with pytest.raises(RuntimeError, match="forward only"):
         ops.flash_attention(q.requires_grad_(True), k, v)
+
+
+# ---------------------------------------------------------------------------
+# the physical wire: kernels 5-8 (bitwise against their plain versions)
+# ---------------------------------------------------------------------------
+
+WIRE_NAMES = ("quantized_gossip_encode", "bucketed_gossip_round",
+              "bucketed_gossip_round_pipelined", "quantized_gossip_round")
+
+
+def _wire_inputs(cuda, m, d, chunk, bits, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qmax = 2 ** (bits - 1) - 1
+
+    def f(scale):
+        return torch.randn((m, d), device=cuda, generator=g) * scale
+
+    return dict(
+        a=torch.from_numpy(_mixing(m)).to(cuda), w=f(1.0), ref=f(0.5),
+        acc=f(0.5), u=torch.rand((m, d), device=cuda, generator=g),
+        codes=torch.randint(-qmax, qmax + 1, (m, d), device=cuda,
+                            generator=g, dtype=torch.int8),
+        scales=torch.rand((m, d // chunk), device=cuda, generator=g)
+        * 0.02 + 1e-3)
+
+
+def _assert_same(got, want):
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape
+        assert torch.equal(g_, w_), int((g_ != w_).sum())
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("chunk", [16, 256, 960])
+@pytest.mark.parametrize("m", [1, 4, 5, 16])
+def test_wire_kernels_match_plain(cuda, m, chunk, bits):
+    d = chunk * 37          # 37 chunks: the last slab of a block is ragged
+    x = _wire_inputs(cuda, m, d, chunk, bits, seed=m * chunk + bits)
+    kw = dict(bits=bits, chunk=chunk)
+
+    def st(*names):         # the kernels update their state in place
+        return [x[k].clone() for k in names]
+
+    before = ops.launch_counts()
+    _assert_same(ops.quantized_gossip_encode(x["w"], x["ref"], x["u"],
+                                             *st("codes", "scales"), **kw),
+                 ref.quantized_gossip_encode_ref(x["w"], x["ref"], x["u"],
+                                                 **kw))
+    state = (x["codes"], x["scales"], x["ref"], x["acc"])
+    _assert_same(ops.bucketed_gossip_round(
+        x["a"], *st("codes", "scales", "ref", "acc"), x["u"], **kw),
+        ref.bucketed_gossip_round_ref(x["a"], *state, x["u"], **kw))
+    c, s_, r, acc = st("codes", "scales", "ref", "acc")
+    _assert_same(ops.bucketed_gossip_round_pipelined(
+        x["a"], c, s_, x["w"], r, acc, x["u"], **kw),
+        ref.bucketed_gossip_round_pipelined_ref(
+            x["a"], x["codes"], x["scales"], x["w"], x["ref"], x["acc"],
+            x["u"], **kw))
+    _assert_same(ops.quantized_gossip_round(
+        x["a"], *st("codes", "scales", "ref"), torch.empty_like(x["ref"]),
+        x["u"], **kw),
+        ref.quantized_gossip_round_ref(x["a"], x["codes"], x["scales"],
+                                       x["ref"], x["u"], **kw))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert all(after[n] == before[n] + 1 for n in WIRE_NAMES), after
+
+
+def test_wire_kernels_in_place_and_aliased(cuda):
+    """In place, as the wire periods call them: the pipelined round with
+    ``acc`` the iterate itself, the round kernels overwriting the codes
+    they consume, and the per-leaf round mixing into its own iterate."""
+    m, d, chunk = 4, 256 * 40, 256
+    x = _wire_inputs(cuda, m, d, chunk, 8, seed=1)
+    want = ref.bucketed_gossip_round_pipelined_ref(
+        x["a"], x["codes"], x["scales"], x["acc"], x["ref"], x["acc"],
+        x["u"], chunk=chunk)
+    st = [t.clone() for t in (x["codes"], x["scales"], x["ref"], x["acc"])]
+    got = ops.bucketed_gossip_round_pipelined(
+        x["a"], st[0], st[1], st[3], st[2], st[3], x["u"], chunk=chunk)
+    assert got[0] is st[3] and got[2] is st[0]
+    _assert_same(got, want)
+    st = [t.clone() for t in (x["codes"], x["scales"], x["ref"], x["acc"])]
+    got = ops.bucketed_gossip_round(x["a"], *st, x["u"], chunk=chunk)
+    assert got[0] is st[3] and got[1] is st[2]
+    _assert_same(got, ref.bucketed_gossip_round_ref(
+        x["a"], x["codes"], x["scales"], x["ref"], x["acc"], x["u"],
+        chunk=chunk))
+    st = [t.clone() for t in (x["codes"], x["scales"], x["ref"], x["w"])]
+    got = ops.quantized_gossip_round(x["a"], *st, x["u"], chunk=chunk)
+    assert got[0] is st[3] and got[1] is st[2]
+    _assert_same(got, ref.quantized_gossip_round_ref(
+        x["a"], x["codes"], x["scales"], x["ref"], x["u"], chunk=chunk))
+
+
+def test_wire_kernels_refuse_what_they_do_not_take(cuda):
+    x = _wire_inputs(cuda, 4, 1024, 256, 8, seed=2)
+    out = (x["codes"], x["scales"])
+    with pytest.raises(ValueError, match="divide D"):
+        ops.quantized_gossip_encode(x["w"], x["ref"], x["u"], *out,
+                                    chunk=1000)
+    with pytest.raises(ValueError, match="bits"):
+        ops.quantized_gossip_encode(x["w"], x["ref"], x["u"], *out, bits=3)
+    with pytest.raises(TypeError, match="float32"):
+        ops.quantized_gossip_encode(x["w"].double(), x["ref"], x["u"], *out)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.bucketed_gossip_round(x["a"], x["codes"], x["scales"],
+                                  x["ref"].cpu(), x["acc"], x["u"])
+
+
+def test_wire_dither_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.comm import compressors as cp
+    from repro_torch.comm import prng
+    for n in (1000, (1 << 24) + 17):
+        kw = dict(leaf=0, rnd=3, server=2, block=0)
+        gpu = cp.wire_dither(prng.key(5), n, device=cuda, **kw)
+        assert torch.equal(gpu.cpu(), cp.wire_dither(prng.key(5), n, **kw))
+
+
+@pytest.mark.parametrize("staleness", [0, 1, 2])
+def test_wire_periods_on_the_card_match_the_cpu(cuda, staleness):
+    """The port's wire periods with the kernels (card) and with the plain
+    versions (CPU), bitwise: bucketed at every staleness, per-leaf too."""
+    from repro_torch.comm import compressors as cp
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus as cns
+    g = torch.Generator().manual_seed(staleness)
+    tree = {"w": torch.randn((4, 33, 70), generator=g),
+            "b": torch.randn((4, 960), generator=g)}
+    a = torch.from_numpy(tp.metropolis_weights(tp.ring_graph(4))).float()
+    q = cp.StochasticQuantizer(bits=8, chunk=256)
+    on_card = {k: v.to(cuda) for k, v in tree.items()}
+    for fn, kw in ((cns.gossip_scan_wire_bucketed,
+                    dict(staleness=staleness, block=1024)),
+                   (cns.gossip_scan_wire, dict(block=1000))):
+        if fn is cns.gossip_scan_wire and staleness:
+            continue
+        want = fn(a, tree, 5, q, prng.key(9), **kw)
+        got = fn(a.to(cuda), on_card, 5, q, prng.key(9), **kw)
+        for k in tree:
+            assert torch.equal(got[k].cpu(), want[k]), k

@@ -213,3 +213,23 @@ def test_reference_route_goes_chunked_above_1024_keys():
     torch.testing.assert_close(got, tnn.attend_chunked(
         tq, tk, tv, causal=True, window=None, attn_softcap=None),
         rtol=0, atol=0)
+
+
+def test_tree_helpers_leave_no_reference_cycle():
+    """Flattening and unflattening a tree keeps no tensor alive past its last
+    reference (a self-recursive closure would, until the cyclic collector
+    ran: at full size, tens of GB of freed buffers held on the card)."""
+    import gc
+    import weakref
+    from repro_torch.tree import tree_unflatten
+    t = torch.zeros(8)
+    alive = weakref.ref(t)
+    gc.disable()
+    try:
+        leaves, treedef = tree_flatten({"a": t, "b": (t, [None, t])})
+        out = tree_unflatten(treedef, leaves)
+        assert out["b"][1][1] is t
+        del t, leaves, out
+        assert alive() is None
+    finally:
+        gc.enable()

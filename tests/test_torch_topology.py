@@ -108,8 +108,18 @@ def test_sigma_tracker_average_equal():
     np.testing.assert_array_equal(port.prod, ref.prod)
 
 
+@pytest.mark.parametrize("staleness", [1, 2])
+def test_sigma_tracker_stale_equal(staleness):
+    a = jtp.metropolis_weights(jtp.ring_graph(5))
+    ref = jsched.SigmaTracker(5, staleness=staleness)
+    port = tsched.SigmaTracker(5, staleness=staleness)
+    for t_server in (5, 2, 6):
+        assert port.update(a, t_server) == ref.update(a, t_server)
+    np.testing.assert_array_equal(port.prod, ref.prod)
+
+
 def test_sigma_tracker_later_modes_raise():
     with pytest.raises(NotImplementedError):
         tsched.SigmaTracker(3, mode="push_sum")
-    with pytest.raises(NotImplementedError):
-        tsched.SigmaTracker(3, staleness=1)
+    with pytest.raises(ValueError, match="staleness"):
+        tsched.SigmaTracker(3, staleness=-1)
