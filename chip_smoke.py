@@ -23,7 +23,14 @@ with the launch counters reset just before it and read just after:
   read in float64 before and after it; then one full-size wire period at
   staleness 0, at staleness 1 and in the per-leaf layout (kernel 5), each
   held against the plain versions on column slabs of the same inputs
-  (chunks are independent, so a slab is exact).
+  (chunks are independent, so a slab is exact);
+* the simulated wire: kernel 4 against its plain version over M, bits and
+  chunk; ``train`` on full SmolLM-360M with int8 compression on the default
+  simulated wire (each period's round trip and first mix on kernel 4, the
+  rest on kernel 1), then one epoch of int4 with error feedback and one
+  each of top-k and random-k; then one full-size period, kernel 4 held
+  against its plain version on whole-row slabs of every leaf, and the
+  period's times (dither, pad copies, kernel 4, kernel 1).
 
 Every phase prints one JSON line; any failure
 raises and the script exits non-zero.  Before the last line it prints the
@@ -77,6 +84,13 @@ WIRE_TRAFFIC = {"quantized_gossip_encode": (4 + 4 + 4 + 1, 1, False),
                 "quantized_gossip_round": ((1 + 4 + 4) + (4 + 4 + 1), 2,
                                            True)}
 WIRE_SLAB = 1 << 20         # columns of a slab held against the plain version
+
+# the simulated wire's path: the training path with int8 compression on the
+# default wire (once a period), no error feedback
+SIM_TRAIN = dict(TRAIN, compression="int8")
+SIM_KERNEL = ("quantized_consensus_mix",
+              "src/repro/kernels/consensus_mix.py:124")
+SIM_SLAB = 1 << 20          # elements of a slab held against the plain version
 
 # the serving path: full Qwen3-1.7B, 4 prompts of 1024 tokens, 64 generated
 SERVE = dict(smoke=False, batch=4, prompt_len=1024, gen=64, device="cuda")
@@ -183,7 +197,8 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
     ours = [e for e in kernels if any(
         k in e.key for k in ("consensus_mix", "rmsnorm", "column_sum",
                              "flash_fwd", "encode_kernel", "bucketed_kernel",
-                             "pipelined_kernel", "leaf_kernel"))]
+                             "pipelined_kernel", "leaf_kernel",
+                             "quant_mix_kernel"))]
     host = sorted((e for e in events if e not in kernels),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
 
@@ -506,6 +521,7 @@ def main() -> int:
     assert n_params == SMOLLM_PARAMS, n_params
     assert launches["flash_attention"] == 0, launches   # not on this path
     assert all(launches[k] == 0 for k in WIRE_KERNELS), launches
+    assert launches[SIM_KERNEL[0]] == 0, launches
     assert launches["consensus_mix"] == TRAIN["t_server"] * TRAIN["epochs"]
     assert launches["rmsnorm_fwd"] == norms_per_step * client_steps
     assert launches["rmsnorm_bwd"] == norms_per_step * client_steps
@@ -626,7 +642,8 @@ def main() -> int:
     serve_expected = {"consensus_mix": 0,
                       "flash_attention": qcfg.num_layers,
                       "rmsnorm_fwd": norms_per_pass * SERVE["gen"],
-                      "rmsnorm_bwd": 0, **{k: 0 for k in WIRE_KERNELS}}
+                      "rmsnorm_bwd": 0, SIM_KERNEL[0]: 0,
+                      **{k: 0 for k in WIRE_KERNELS}}
     generated = res["generated"]
     emit("serve", arch="qwen3-1.7b", batch=b, prompt_len=s_len,
          gen=SERVE["gen"], prefill_s=res["prefill_s"],
@@ -788,7 +805,8 @@ def main() -> int:
         "rmsnorm_bwd": norms_per_step * client_steps,
         "quantized_gossip_encode": WIRE_TRAIN["epochs"],
         "bucketed_gossip_round": WIRE_TRAIN["t_server"] * WIRE_TRAIN["epochs"],
-        "bucketed_gossip_round_pipelined": 0, "quantized_gossip_round": 0}
+        "bucketed_gossip_round_pipelined": 0, "quantized_gossip_round": 0,
+        SIM_KERNEL[0]: 0}
     emit("train_wire", arch="smollm-360m", params=n_params,
          compression=WIRE_TRAIN["compression"], wire=WIRE_TRAIN["wire"],
          error_feedback=WIRE_TRAIN["error_feedback"], loss=hist["loss"],
@@ -824,7 +842,7 @@ def main() -> int:
         "rmsnorm_bwd": norms_per_step * client_steps // TRAIN["epochs"],
         "quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
         "bucketed_gossip_round_pipelined": stale_train["t_server"],
-        "quantized_gossip_round": 0}
+        "quantized_gossip_round": 0, SIM_KERNEL[0]: 0}
     hist = run["history"]
     emit("train_wire_stale", arch="smollm-360m", staleness=1,
          loss=hist["loss"], epoch_s=hist["epoch_s"],
@@ -1061,7 +1079,244 @@ def main() -> int:
     del big
     torch.cuda.empty_cache()
 
-    # ---- 17. per-kernel summary, card, result ----
+    # ---- 17. the simulated wire: kernel 4 vs its plain version, on a
+    # mixing matrix and on A = I (the round trip itself) ----
+    from repro_torch.comm import accounting as acc
+    sim_err = 0.0
+    for m in (1, 4, 5, 16):
+        a_m = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)) if m > 1
+                           else [[1.0]], dtype=torch.float32, device=dev)
+        for bits in (8, 4):
+            for chunk in (16, 64, 256, 960):
+                d = chunk * 517         # the last slab of a block is ragged
+                w = torch.randn((m, d), device=dev, generator=g)
+                u = torch.rand((m, d), device=dev, generator=g)
+                same, err = [], 0.0
+                for a_ in (a_m, torch.eye(m, device=dev)):
+                    got = ops.quantized_consensus_mix(a_, w, u, bits=bits,
+                                                      chunk=chunk)
+                    want = ref.quantized_consensus_mix_ref(
+                        a_, w, u, bits=bits, chunk=chunk)
+                    torch.cuda.synchronize()
+                    same.append(torch.equal(got, want))
+                    err = max(err, float((got - want).abs().max()))
+                sim_err = max(sim_err, err)
+                emit("sim_kernel_check", m=m, bits=bits, chunk=chunk, d=d,
+                     identical=same, max_abs_err=err)
+                assert all(same), (m, bits, chunk)
+    del w, u, got, want
+    torch.cuda.empty_cache()
+
+    # ---- 18. the simulated wire's path: training with int8 compression on
+    # the default wire, no error feedback ----
+    m, t_s = SIM_TRAIN["servers"], SIM_TRAIN["t_server"]
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with wire_period_disagreement(torch, cns, tree_leaves) as sim_periods:
+        run = ttrain.train("smollm-360m", **SIM_TRAIN)
+        torch.cuda.synchronize()
+    sim_launches = ops.launch_counts()
+    hist = run["history"]
+    server_shapes = [(m,) + tuple(x.shape[2:])
+                     for x in tree_leaves(run["state"].client_params)]
+    n_leaves = len(server_shapes)
+    per_epoch_norms = norms_per_step * client_steps // TRAIN["epochs"]
+
+    def sim_expected(epochs, kernel4, mixes):
+        return {"consensus_mix": mixes * epochs, "flash_attention": 0,
+                "rmsnorm_fwd": per_epoch_norms * epochs,
+                "rmsnorm_bwd": per_epoch_norms * epochs,
+                SIM_KERNEL[0]: kernel4 * epochs,
+                **{k: 0 for k in WIRE_KERNELS}}
+
+    # the ledger by host arithmetic: 8 live links of the 4-ring, T_S
+    # messages each, of the closed-form payload of every leaf
+    q8 = cp.StochasticQuantizer(bits=8, chunk=WIRE_CHUNK)
+    row = sum(acc.analytic_leaf_bytes(q8, sh) for sh in server_shapes)
+    links = 2 * m
+    want_mb = float(links * t_s * row) / 1e6
+    want_ratio = SMOLLM_PARAMS * 4 / row
+    expected = sim_expected(SIM_TRAIN["epochs"], n_leaves, t_s - 1)
+    emit("train_sim", arch="smollm-360m", compression="int8",
+         wire="simulated", error_feedback=False, loss=hist["loss"],
+         disagreement=hist["disagreement"], epoch_s=hist["epoch_s"],
+         tokens_per_s=[tokens_per_epoch / t for t in hist["epoch_s"]],
+         wire_mb=hist["wire_mb"], wire_ratio=hist["wire_ratio"],
+         host_wire_mb=want_mb, host_wire_ratio=want_ratio,
+         bytes_per_server_round=row, kernel4_launches_per_period=n_leaves,
+         launches=sim_launches, expected_launches=expected,
+         periods=sim_periods, sigma_a=tp.sigma_a(
+             tp.metropolis_weights(tp.ring_graph(m)), t_s),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    assert row == SMOLLM_PARAMS + 4 * 2_029_828, row
+    assert hist["wire_mb"] == [want_mb] * SIM_TRAIN["epochs"], hist
+    assert hist["wire_ratio"] == [want_ratio] * SIM_TRAIN["epochs"], hist
+    assert sim_launches == expected, sim_launches
+    assert all(torch.isfinite(torch.tensor(v)) for v in hist["loss"]), hist
+    assert len(sim_periods) == SIM_TRAIN["epochs"], sim_periods
+    assert all(p["after"] < p["before"] for p in sim_periods), sim_periods
+
+    # ---- 19. one simulated period at full size on the trained tree: the
+    # period's launches and contraction, then kernel 4 (on A and on I)
+    # against its plain version on whole-row slabs of every leaf ----
+    server = tree_map(lambda x: x[:, 0].clone(), run["state"].client_params)
+    del run
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    server = tree_map(lambda x: x + 0.01 * torch.randn(
+        x.shape, device=dev, generator=gen), server)
+    a_np = tp.metropolis_weights(tp.ring_graph(m))
+    a = torch.tensor(a_np, dtype=torch.float32, device=dev)
+    key = prng.key(13)
+    leaves = tree_leaves(server)
+    mean0, dis0 = stats(server)
+    ops.reset_launch_counts()
+    out = cns.make_backend("gossip", a_np, t_s,
+                           compression="int8").mix_compressed(
+                               server, key=key)[0]
+    torch.cuda.synchronize()
+    period_sim = ops.launch_counts()
+    mean1, dis1 = stats(out)
+    del out
+    torch.cuda.empty_cache()
+    slab_checks = 0
+    for li, leaf in enumerate(leaves):
+        k_i = prng.fold_in(key, li)
+        n = leaf.shape[-1]
+        rows = leaf[0].numel() // n
+        kc = n if n <= WIRE_CHUNK else WIRE_CHUNK
+        n_pad = -(-n // kc) * kc
+        nr = max(1, SIM_SLAB // n)
+        for a_ in (a, None):
+            got = q8.mix(leaf, k_i, a_).reshape(m, rows, n)
+            for r0 in sorted({0, max(0, rows - nr)}):
+                r1 = min(rows, r0 + nr)
+                x = torch.zeros((m, r1 - r0, n_pad), device=dev)
+                x[..., :n] = leaf.reshape(m, rows, n)[:, r0:r1]
+                u = torch.zeros_like(x)
+                for srv in range(m):
+                    prng.uniform(k_i, (r1 - r0, n), out=u[srv, :, :n],
+                                 start=srv * rows * n + r0 * n)
+                want = ref.quantized_consensus_mix_ref(
+                    torch.eye(m, device=dev) if a_ is None else a_,
+                    x.view(m, -1), u.view(m, -1), bits=8, chunk=kc)
+                assert torch.equal(got[:, r0:r1], want.view(
+                    m, r1 - r0, n_pad)[..., :n]), (li, r0, a_ is None)
+                slab_checks += 1
+            del got
+    emit("sim_period_full_size", m=m, t_server=t_s, d=SMOLLM_PARAMS,
+         leaves=n_leaves, launches=period_sim, slab_checks=slab_checks,
+         slab_rows_elems=SIM_SLAB, identical=True,
+         mean_max_abs_drift=max(float((p_ - q_).abs().max())
+                                for p_, q_ in zip(mean0, mean1)),
+         disagreement_before=dis0, disagreement_after=dis1,
+         ratio=dis1 / dis0, sigma_a=tp.sigma_a(a_np, t_s))
+    assert period_sim[SIM_KERNEL[0]] == n_leaves, period_sim
+    assert period_sim["consensus_mix"] == t_s - 1, period_sim
+    assert dis1 < dis0, (dis1, dis0)
+    del mean0, mean1
+
+    # ---- 20. where a simulated period's time goes, and kernel 4 at the
+    # main path's shape (every leaf's launch, padded as the period pads it)
+    # against its bound ----
+    def padded(leaf):
+        n = leaf.shape[-1]
+        n_pad = -(-n // WIRE_CHUNK) * WIRE_CHUNK if n > WIRE_CHUNK else n
+        x = leaf.reshape(-1, n)
+        if n_pad != n:
+            x = torch.nn.functional.pad(x, (0, n_pad - n))
+        return x.view(m, -1), min(n, WIRE_CHUNK)
+
+    def dither_all():
+        for li, leaf in enumerate(leaves):
+            prng.uniform(prng.fold_in(key, li), tuple(leaf.shape),
+                         out=dith[li])
+
+    dith = [torch.empty_like(x) for x in leaves]
+    dither_ms = cuda_ms(torch, dither_all, reps=1, warmup=1)
+    pad_ms = cuda_ms(torch, lambda: [padded(x) for x in leaves], reps=2,
+                     warmup=1)
+    del dith
+    bufs = []
+    for leaf in leaves:
+        w_p, kc = padded(leaf)
+        bufs.append((w_p, torch.rand(w_p.shape, device=dev, generator=g),
+                     torch.empty_like(w_p), kc))
+    d_pad = sum(b[0].shape[1] for b in bufs)
+
+    def kernel4_period():
+        for w_p, u_p, o_p, kc in bufs:
+            ops.quantized_consensus_mix(a, w_p, u_p, bits=8, chunk=kc,
+                                        out=o_p)
+
+    k4 = alternate(torch, {"kernel": kernel4_period}, reps=5)
+    rest_ms = cuda_ms(torch, lambda: ops.consensus_mix_pytree(
+        a, server, rounds=t_s - 1), reps=1, warmup=1)
+    slab_w = bufs[2][0][:, :SIM_SLAB].clone()
+    slab_u = bufs[2][1][:, :SIM_SLAB].clone()
+    sim_plain_ms = cuda_ms(torch, lambda: ref.quantized_consensus_mix_ref(
+        a, slab_w, slab_u, bits=8, chunk=WIRE_CHUNK), reps=3)
+    k4_bytes = 12 * m * d_pad + n_leaves * m * m * 4
+    k4_ops = 2 * m * m * d_pad + 4 * m * d_pad
+    k4_bound, k4_by = bound_ms(k4_bytes, k4_ops)
+    emit("sim_breakdown", m=m, d=SMOLLM_PARAMS, d_pad=d_pad,
+         dither_ms=dither_ms, pad_copies_ms=pad_ms,
+         kernel4_ms=k4["kernel"], kernel1_rounds_ms=rest_ms,
+         per_period={"dither": 1, "pad_copies": 1,
+                     SIM_KERNEL[0]: n_leaves, "consensus_mix": t_s - 1})
+    emit("sim_main_shape", kernel=SIM_KERNEL[0], m=m, d_pad=d_pad,
+         launches=n_leaves, chunk=WIRE_CHUNK, kernel_ms=k4["kernel"],
+         bound_ms=k4_bound, bound_by=k4_by, bytes=k4_bytes,
+         kernel_GBps=k4_bytes / k4["kernel"] / 1e6,
+         bound_share=k4_bound / k4["kernel"], plain_ms=sim_plain_ms,
+         plain_shape=[m, SIM_SLAB], library_ms=None,
+         ptxas=[line.strip() for line in _build.build_logs.get(
+             "quantized_mix", "").splitlines()
+             if "Used" in line or "spill" in line])
+    del bufs, slab_w, slab_u, server, leaves
+    torch.cuda.empty_cache()
+
+    # ---- 21. the simulated wire with error feedback (int4), then top-k and
+    # random-k with error feedback: one epoch each ----
+    ops.reset_launch_counts()
+    with wire_period_disagreement(torch, cns, tree_leaves) as ef_periods:
+        run = ttrain.train("smollm-360m", **{**SIM_TRAIN, "epochs": 1,
+                                             "compression": "int4",
+                                             "error_feedback": True})
+        torch.cuda.synchronize()
+    ef_launches = ops.launch_counts()
+    hist = run["history"]
+    expected = sim_expected(1, n_leaves, t_s)
+    emit("train_sim_ef", compression="int4", error_feedback=True,
+         loss=hist["loss"], epoch_s=hist["epoch_s"],
+         tokens_per_s=[tokens_per_epoch / t for t in hist["epoch_s"]],
+         wire_mb=hist["wire_mb"], wire_ratio=hist["wire_ratio"],
+         periods=ef_periods, launches=ef_launches,
+         expected_launches=expected)
+    assert ef_launches == expected, ef_launches
+    assert all(torch.isfinite(torch.tensor(v)) for v in hist["loss"]), hist
+    assert ef_periods[0]["after"] < ef_periods[0]["before"], ef_periods
+    del run
+    torch.cuda.empty_cache()
+    for spec in ("top_k:0.05", "random_k:0.05"):
+        ops.reset_launch_counts()
+        run = ttrain.train("smollm-360m", **{**SIM_TRAIN, "epochs": 1,
+                                             "compression": spec,
+                                             "error_feedback": True})
+        torch.cuda.synchronize()
+        sparse_launches = ops.launch_counts()
+        hist = run["history"]
+        expected = sim_expected(1, 0, t_s)
+        emit("train_sim_sparse", compression=spec, error_feedback=True,
+             loss=hist["loss"], epoch_s=hist["epoch_s"],
+             wire_mb=hist["wire_mb"], wire_ratio=hist["wire_ratio"],
+             launches=sparse_launches, expected_launches=expected)
+        assert sparse_launches == expected, sparse_launches
+        assert all(torch.isfinite(torch.tensor(v)) for v in hist["loss"])
+        del run
+        torch.cuda.empty_cache()
+
+    # ---- 22. per-kernel summary, card, result ----
     r256 = rn_stats[256]
     kernels = [
         {"name": "consensus_mix", "route": "cuda",
@@ -1110,6 +1365,13 @@ def main() -> int:
              "max_abs_err": t["max_abs_err"], "ms": t["ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": t["bound_by"], "library_ms": None})
+    kernels.append(
+        {"name": SIM_KERNEL[0], "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quantized_mix.cu",
+         "replaces": SIM_KERNEL[1],
+         "launches": sim_launches[SIM_KERNEL[0]], "max_abs_err": sim_err,
+         "ms": k4["kernel"], "plain_ms": sim_plain_ms, "bound_ms": k4_bound,
+         "bound_by": k4_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

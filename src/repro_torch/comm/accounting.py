@@ -8,10 +8,12 @@ round, so
     link (i <- j) is live iff  A[i, j] != 0, i != j
 
 ``BytesTracker`` accumulates that per epoch beside the float32 baseline of
-the same traffic.  On the physical wire ``row_bytes`` is the padded code +
-scale layout the rounds actually move: ``tree_bucketed_wire_bytes_per_server``
-for the bucketed layout, ``tree_physical_wire_bytes_per_server`` for the
-per-leaf one.  The reference's ``hlo_collective_bytes`` reads XLA's compiled
+the same traffic.  On the simulated wire ``row_bytes`` is the unpadded
+payload of one message (``compressors.tree_wire_bytes_per_server``), and
+push-sum's f32 weight adds 4 bytes a message.  On the physical wire
+``row_bytes`` is the padded code + scale layout the rounds actually move:
+``tree_bucketed_wire_bytes_per_server`` for the bucketed layout,
+``tree_physical_wire_bytes_per_server`` for the per-leaf one.  The reference's ``hlo_collective_bytes`` reads XLA's compiled
 HLO and has no counterpart here.
 """
 from __future__ import annotations
@@ -37,6 +39,10 @@ def analytic_row_bytes(compressor: cp.Compressor, d: int) -> int:
     if isinstance(compressor, cp.StochasticQuantizer):
         nc = -(-d // compressor.chunk)
         return int(np.ceil(d * compressor.bits / 8)) + 4 * nc
+    if isinstance(compressor, cp.TopKCompressor):
+        return compressor.k_for(d) * (4 + 4)              # values + indices
+    if isinstance(compressor, cp.RandomKCompressor):
+        return compressor.k_for(d) * 4                    # seed-shared idx
     raise ValueError(f"no analytic byte count for {compressor!r}")
 
 

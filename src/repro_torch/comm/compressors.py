@@ -1,23 +1,39 @@
 """Lossy compressors for inter-server gossip messages: port of
-``repro.comm.compressors`` for the physical wire.
+``repro.comm.compressors``.
 
 Every compressor is a ``compress``/``decompress`` pair over arrays whose
-leading axis is the server (row i is server i's outgoing message).  The
-physical wire (``core.consensus.CompressedBackend(wire="physical")``) uses
-the quantizers as wire codecs: ``StochasticQuantizer.encode_block`` turns a
-flattened block into the byte layout that crosses the wire — int8 codes
-(two int4 codes packed per byte by ``pack_int4``) plus one f32 scale per
-chunk — and ``decode_block`` inverts it.
+leading axis is the server (row i is server i's outgoing message):
 
-The stochastic rounding's dither is ``wire_dither``: a keyed counter hash
-(``_mix32``) over the element index, keyed by four threefry ``fold_in``s
-(``comm.prng``) of the wire key — bitwise the reference's, so the port's
-codes are the reference's codes.  The simulated wire's threefry
-``jax.random.uniform`` dither, top-k, random-k and ``roundtrip_tree`` arrive
-with the simulated-wire slice and raise ``NotImplementedError`` here.
+* ``IdentityCompressor``: exact passthrough (the accounting baseline);
+* ``StochasticQuantizer(bits, chunk)``: int8/int4 with per-chunk absmax
+  scales over the LAST axis and stochastic rounding
+  ``clip(floor(x * (1/s) + u), -qmax, qmax)``, the multiply-add fused into
+  one rounding as the reference's jitted programs round it;
+* ``TopKCompressor(ratio)``: per-row magnitude top-k, values and int32
+  indices on the wire;
+* ``RandomKCompressor(ratio)``: one shared coordinate set per call, drawn
+  by the O(k) Feistel ``keyed_index_sample`` from the shared key, so only
+  the values cross the wire.
+
+**Simulated wire** (quantize once per period): ``roundtrip_tree`` is what
+every receiver reconstructs of a server tree, leaf ``i`` keyed by
+``prng.fold_in(key, i)`` in JAX's sorted leaf order.  A quantizer's dither
+is ``prng.uniform(key_i, leaf.shape)``, bitwise ``jax.random.uniform``, and
+its round trip runs on kernel 4 (``kernels.ops.quantized_consensus_mix``,
+``StochasticQuantizer.mix``): each leaf in its natural layout, rows of the
+last axis zero-padded to a multiple of the kernel's chunk where they are
+ragged.  Top-k and random-k flatten each leaf to (M, d) and run in plain
+PyTorch ops (no TPU kernel computes them).
+
+**Physical wire**: ``StochasticQuantizer.encode_block`` turns a flattened
+block into the byte layout that crosses the wire -- int8 codes (two int4
+codes packed per byte by ``pack_int4``) plus one f32 scale per chunk -- and
+``decode_block`` inverts it; its dither is ``wire_dither``, a keyed counter
+hash (``_mix32``) over the element index keyed by four threefry
+``fold_in``s, bitwise the reference's.
 
 Spec grammar of ``make_compressor``: ``none | int8[:CHUNK] | int4[:CHUNK] |
-identity`` (``top_k:RATIO`` and ``random_k:RATIO`` are the next slice's).
+top_k:RATIO | random_k:RATIO | identity``.
 """
 from __future__ import annotations
 
@@ -28,12 +44,9 @@ import numpy as np
 import torch
 
 from repro_torch.comm import prng
+from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
-from repro_torch.tree import tree_leaves
-
-SIMULATED_SLICE = ("the simulated wire (threefry uniform dither, top-k, "
-                   "random-k, roundtrip_tree, ef_roundtrip) arrives with the "
-                   "simulated-wire slice (ROADMAP.md, Queue 1)")
+from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
 
 _MASK32 = 0xFFFFFFFF
 #: columns of one dither block: bounds the int64 transient to ~0.5 GB
@@ -115,6 +128,45 @@ def wire_dither(key, n: int, *, leaf: int, rnd: int, server: int,
 
 
 # ---------------------------------------------------------------------------
+# counter-based O(k) index sampling (random-k at LM scale)
+# ---------------------------------------------------------------------------
+
+
+def keyed_index_sample(key, d: int, k: int, *,
+                       device: Any = "cpu") -> torch.Tensor:
+    """``k`` distinct indices in ``[0, d)`` in O(k) work, bitwise the
+    reference's: the counters ``0..k-1`` encrypted by a keyed 4-round
+    Feistel bijection over the smallest even-bit power-of-two domain
+    ``>= d`` (round keys ``jax.random.bits(key, (4,), uint32)``), values
+    outside ``[0, d)`` walked back through the cipher until they land.
+    ``d`` is capped at ``2^31 - 1`` as in the reference (uint32 cipher,
+    int32 indices).  Returns a (k,) int32 tensor."""
+    if not 0 < k <= d:
+        raise ValueError(f"need 0 < k <= d, got k={k}, d={d}")
+    if d > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"keyed_index_sample is 32-bit (uint32 cipher, int32 gather "
+            f"indices): d={d} exceeds 2^31 - 1 and would silently alias "
+            f"coordinates")
+    half = max(1, -(-max(d - 1, 1).bit_length() // 2))    # ceil(bits/2)
+    mask = (1 << half) - 1
+    round_keys = [int(b) for b in prng.random_bits(key, (4,))]
+
+    def feistel(x):
+        left, right = x >> half, x & mask
+        for rk in round_keys:
+            left, right = right, left ^ (_mix32(right ^ rk) & mask)
+        return (left << half) | right
+
+    idx = feistel(torch.arange(k, dtype=torch.int64, device=device))
+    while True:     # cycle-walk: the cipher is a bijection, so this ends
+        outside = (idx >= d).nonzero().squeeze(1)
+        if outside.numel() == 0:
+            return idx.to(torch.int32)
+        idx[outside] = feistel(idx[outside])
+
+
+# ---------------------------------------------------------------------------
 # compressors
 # ---------------------------------------------------------------------------
 
@@ -153,6 +205,12 @@ class Compressor:
         return self.decompress(self.compress(x, key),
                                x.shape[-1]).to(x.dtype)
 
+    def residual(self, corrected: torch.Tensor,
+                 msg: torch.Tensor) -> torch.Tensor:
+        """Error feedback's new residual: what ``msg`` left of
+        ``corrected``."""
+        return corrected - msg
+
     def wire_bytes_per_row(self, d: int) -> int:
         """On-wire bytes of ONE server's compressed d-element message."""
         return self.wire_bytes_per_leaf((1, d))
@@ -167,7 +225,8 @@ class Compressor:
             shape = (1, int(np.prod(shape[1:])))
         else:
             shape = (1,) + shape[1:]
-        comp = self.compress(torch.empty(shape, device="meta"))
+        comp = self.compress(torch.empty(shape, device="meta"),
+                             key=prng.key(0))
         total = int(np.ceil(comp.data.numel() * self.wire_bits_data / 8))
         if comp.scale is not None:
             total += comp.scale.numel() * comp.scale.element_size()
@@ -230,11 +289,8 @@ class StochasticQuantizer(Compressor):
 
     def compress(self, x, key=None, *, dither=None):
         if dither is None:
-            if key is not None:
-                raise NotImplementedError(
-                    "StochasticQuantizer.compress with a key draws a "
-                    "threefry uniform dither: " + SIMULATED_SLICE)
-            dither = 0.5
+            dither = (0.5 if key is None
+                      else prng.uniform(key, tuple(x.shape), device=x.device))
         d = x.shape[-1]
         x32 = x.float().reshape(-1, d)
         u = torch.as_tensor(dither, dtype=torch.float32, device=x.device)
@@ -251,6 +307,79 @@ class StochasticQuantizer(Compressor):
     def decompress(self, comp, d):
         scale = self._per_elem(comp.scale, d)
         return comp.data[..., :d].float() * scale
+
+    # -- the simulated wire: kernel 4 -----------------------------------------
+    def roundtrip(self, x, key=None):
+        """``D(C(x))`` with the dither ``prng.uniform(key, x.shape)`` (0.5
+        without a key), through kernel 4 with A = I."""
+        return self.mix(x, key)
+
+    def mix(self, x: torch.Tensor, key=None,
+            a: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``a · D(C(x))`` over the leading (server) axis of ``x`` (``a``
+        None: ``D(C(x))`` itself), in ``x``'s layout and dtype, through one
+        launch of kernel 4 (``ops.quantized_consensus_mix``).
+
+        The last axis (``n`` elements a row) is chunked as the reference
+        chunks it: the kernel's chunk is ``n`` when ``n <= chunk``, else
+        ``chunk`` with each row zero-padded to a multiple of it (a zero
+        never raises an absmax, codes to ``floor(0 + u) = 0`` and mixes to
+        0), so that no chunk crosses a row.  The kernel then sees the leaf
+        as (M, rows * n_pad) rows to mix, or, with ``a`` None, as one row.
+        The dither's real elements are the reference's
+        ``jax.random.uniform(key, x.shape)``; its pad columns are 0.  A 1-D
+        leaf (one value a server) is chunked across the servers, as in the
+        reference: it is decoded as one row, then mixed by kernel 1."""
+        n = x.shape[-1] if x.dim() else 1
+        rows = x.numel() // max(n, 1)
+        kc = n if n <= self.chunk else self.chunk
+        n_pad = -(-n // kc) * kc
+        one_row = a is None or x.dim() < 2
+        lead = 1 if one_row else x.shape[0]
+        w = x.float().reshape(rows, n)
+        if n_pad != n:
+            w = torch.nn.functional.pad(w, (0, n_pad - n))
+        u = torch.zeros((rows, n_pad), dtype=torch.float32, device=x.device)
+        if key is None:
+            u[:, :n] = 0.5
+        else:
+            prng.uniform(key, (rows, n), out=u[:, :n])
+        eye = torch.ones((1, 1), dtype=torch.float32, device=x.device)
+        out = _ops.quantized_consensus_mix(
+            eye if one_row else a, w.view(lead, -1), u.view(lead, -1),
+            bits=self.bits, chunk=kc, out=u.view(lead, -1))
+        y = out.view(rows, n_pad)[:, :n].reshape(x.shape)
+        if a is not None and one_row:
+            y = _ops.consensus_mix(a, y.reshape(x.shape[0], -1)).reshape(
+                x.shape)
+        return y.to(x.dtype)
+
+    def residual(self, corrected: torch.Tensor, msg: torch.Tensor,
+                 step: int = 1 << 22) -> torch.Tensor:
+        """Error feedback's new residual ``corrected - msg``, rounded as the
+        reference's jitted ``ef_roundtrip`` rounds it: XLA fuses the
+        decode's product into the subtraction, ``fma(-q, s, corrected)``,
+        except where a row is longer than a chunk and not a multiple of it
+        (the rows ``mix`` pads), where it subtracts the rounded ``msg``.
+        The codes are read back off ``msg`` (``q = rint(msg / s)``, exact
+        for |q| <= 127), in row blocks of about ``step`` elements."""
+        n = corrected.shape[-1] if corrected.dim() else 1
+        if n > self.chunk and n % self.chunk:
+            return corrected - msg
+        kc = min(n, self.chunk)
+        c2, m2 = corrected.reshape(-1, n), msg.reshape(-1, n)
+        out = torch.empty_like(c2)
+        rq = torch.tensor(1.0 / self.qmax, dtype=torch.float32,
+                          device=c2.device)
+        stride = max(1, step // n)
+        for r0 in range(0, c2.shape[0], stride):
+            c3 = c2[r0:r0 + stride].reshape(-1, n // kc, kc)
+            absmax = c3.abs().amax(dim=-1, keepdim=True)
+            s = torch.where(absmax > 0, absmax * rq, torch.ones_like(absmax))
+            s = s.expand_as(c3)
+            q = torch.round(m2[r0:r0 + stride].reshape(c3.shape) / s)
+            out[r0:r0 + stride] = _ref.fma(-q, s, c3).reshape(-1, n)
+        return out.reshape(corrected.shape)
 
     # -- the wire codec (the physical wire's byte layout) --------------------
     def encode_block(self, x: torch.Tensor, dither) -> Tuple[torch.Tensor,
@@ -286,10 +415,77 @@ class StochasticQuantizer(Compressor):
         return code_bytes, 4 * nc
 
 
+@dataclasses.dataclass(frozen=True)
+class TopKCompressor(Compressor):
+    """Per-row magnitude top-k: each server keeps its ``k = max(1,
+    round(ratio * d))`` largest-|.| coordinates; values and int32 indices
+    cross the wire.  Ties rank as ``torch.topk`` ranks them, which need not
+    be ``jax.lax.top_k``'s order."""
+
+    ratio: float = 0.05
+
+    name = "top_k"
+
+    def __post_init__(self):
+        if not 0.0 < self.ratio <= 1.0:
+            raise ValueError(f"top_k ratio must be in (0, 1], got {self.ratio}")
+
+    def k_for(self, d: int) -> int:
+        return max(1, min(d, int(round(self.ratio * d))))
+
+    def compress(self, x, key=None):
+        del key
+        idx = torch.topk(x.abs(), self.k_for(x.shape[1]), dim=1).indices
+        return Compressed(data=torch.gather(x, 1, idx),
+                          idx=idx.to(torch.int32))
+
+    def decompress(self, comp, d):
+        out = torch.zeros((comp.data.shape[0], d), dtype=torch.float32,
+                          device=comp.data.device)
+        return out.scatter_(1, comp.idx.long(), comp.data.float())
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomKCompressor(Compressor):
+    """Seed-coordinated random-k: ONE coordinate set per call, drawn from
+    the shared key by ``keyed_index_sample`` and used by every server, so
+    only the values cross the wire.  Unscaled (no d/k), as the reference."""
+
+    ratio: float = 0.05
+
+    name = "random_k"
+    idx_on_wire = False
+
+    def __post_init__(self):
+        if not 0.0 < self.ratio <= 1.0:
+            raise ValueError(
+                f"random_k ratio must be in (0, 1], got {self.ratio}")
+
+    def k_for(self, d: int) -> int:
+        return max(1, min(d, int(round(self.ratio * d))))
+
+    def compress(self, x, key=None):
+        if key is None:
+            raise ValueError("random_k needs the shared rng key (the "
+                             "coordinate set IS the seed)")
+        d = x.shape[1]
+        k = self.k_for(d)
+        if x.is_meta:
+            idx = torch.empty((k,), dtype=torch.int32, device="meta")
+        else:
+            idx = keyed_index_sample(key, d, k, device=x.device)
+        return Compressed(data=x[:, idx.long()], idx=idx)
+
+    def decompress(self, comp, d):
+        out = torch.zeros((comp.data.shape[0], d), dtype=torch.float32,
+                          device=comp.data.device)
+        out[:, comp.idx.long()] = comp.data.float()
+        return out
+
+
 def make_compressor(spec: str) -> Compressor:
-    """Parse a compression spec.  ``"none"`` raises ``ValueError`` (it means
-    no compression layer at all); top-k and random-k raise
-    ``NotImplementedError`` until the simulated-wire slice."""
+    """Parse a compression spec.  ``"none"`` raises ``ValueError``: it means
+    no compression layer at all, not an identity compressor."""
     s = spec.strip()
     if s in ("none", ""):
         raise ValueError("compression='none' disables the layer; there is "
@@ -299,7 +495,10 @@ def make_compressor(spec: str) -> Compressor:
         chunk = int(arg) if arg else 256
         return StochasticQuantizer(bits=int(head[3:]), chunk=chunk)
     if head in ("top_k", "random_k"):
-        raise NotImplementedError(f"compression {spec!r}: {SIMULATED_SLICE}")
+        if not arg:
+            raise ValueError(f"{head} needs a keep ratio, e.g. '{head}:0.05'")
+        cls = TopKCompressor if head == "top_k" else RandomKCompressor
+        return cls(ratio=float(arg))
     if head == "identity":
         return IdentityCompressor()
     raise ValueError(f"unknown compression spec {spec!r}; expected none | "
@@ -313,8 +512,21 @@ def make_compressor(spec: str) -> Compressor:
 
 
 def roundtrip_tree(compressor: Compressor, tree: Any, key=None) -> Any:
-    """The simulated wire's once-per-period round-trip: not ported yet."""
-    raise NotImplementedError(f"roundtrip_tree: {SIMULATED_SLICE}")
+    """The simulated wire's round trip of a server tree (leaves ``(M, *w)``):
+    what every receiver reconstructs.  Leaf ``i`` (JAX's sorted leaf order)
+    is keyed by ``prng.fold_in(key, i)``.  Shape-preserving compressors
+    (identity, the quantizers) work in each leaf's natural layout, the
+    quantizers through kernel 4; top-k and random-k flatten it to (M, d)."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    for i, leaf in enumerate(leaves):
+        k = prng.fold_in(key, i) if key is not None else None
+        if compressor.shape_preserving:
+            out.append(compressor.roundtrip(leaf, k))
+            continue
+        x = leaf.reshape(leaf.shape[0], -1)
+        out.append(compressor.roundtrip(x, k).reshape(leaf.shape))
+    return tree_unflatten(treedef, out)
 
 
 def tree_message_elems(tree: Any) -> int:
@@ -323,3 +535,12 @@ def tree_message_elems(tree: Any) -> int:
     holders with ``.shape``)."""
     return sum(int(np.prod(tuple(leaf.shape)[1:])) for leaf in
                tree_leaves(tree))
+
+
+def tree_wire_bytes_per_server(compressor: Compressor, tree: Any) -> int:
+    """On-wire bytes of one server's whole compressed message on the
+    simulated wire: ``wire_bytes_per_leaf`` summed over the leaves (chunking
+    and top-k rounding apply per leaf, and per leaf row for the
+    quantizers); leaves need only ``.shape``."""
+    return sum(compressor.wire_bytes_per_leaf(leaf.shape)
+               for leaf in tree_leaves(tree))

@@ -7,17 +7,18 @@ period's message::
     msg_i = C(x_i + e_i)                    (crosses the wire)
     e_i'  = (x_i + e_i) - D(msg_i)          (stays local)
 
-On the physical wire the tracked transmission is round 0 of the period
+On the simulated wire the transmission is the period's one message
+(``ef_roundtrip``); on the physical wire it is round 0 of the period
 (``core.consensus.CompressedBackend``).  The residual tree (leaves
 ``(M, *w)``) rides across epochs in ``core.dfl.DFLState.ef_residual``.
-The simulated wire's ``ef_roundtrip`` arrives with the simulated-wire slice.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Tuple
 
 import torch
 
+from repro_torch.comm.compressors import Compressor, roundtrip_tree
 from repro_torch.tree import tree_map
 
 
@@ -25,3 +26,15 @@ def init_ef_residual(server_tree: Any) -> Any:
     """Zero residual, shaped like the server aggregates (leaves (M, *w))."""
     return tree_map(torch.zeros_like, server_tree)
 
+
+
+def ef_roundtrip(compressor: Compressor, tree: Any, residual: Any,
+                 key=None) -> Tuple[Any, Any]:
+    """One error-compensated transmission of a server tree: ``(decompressed
+    message tree, new residual)``.  ``corrected = x + e`` leaf by leaf, the
+    message is ``roundtrip_tree(corrected)``, and the new residual is
+    ``corrected - message`` as the reference's jitted program rounds it
+    (``Compressor.residual``)."""
+    corrected = tree_map(lambda x, e: x + e, tree, residual)
+    msg = roundtrip_tree(compressor, corrected, key)
+    return msg, tree_map(compressor.residual, corrected, msg)

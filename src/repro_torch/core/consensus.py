@@ -10,6 +10,27 @@ card, its plain version on the CPU.  Leaves gossip independently
 (``gossip_scan`` in the reference), so mixing the concatenation is the same
 operator.
 
+**Simulated wire** (``CompressedBackend(wire="simulated")``, the default):
+each server's message is compressed ONCE per period and the period mixes
+the decoded messages, ``inner.mix(D(C(W)))``, as the reference's
+``CompressedBackend._wire`` does.  Routes:
+
+* a quantizer without error feedback: the round trip and the period's
+  first operator run as one pass of kernel 4 per leaf
+  (``StochasticQuantizer.mix`` → ``ops.quantized_consensus_mix``), then
+  the rest of the period on kernel 1.  The first operator is ``A`` for
+  gossip and gossip_blocked (then T_S - 1 rounds), ``A^{T_S}`` for
+  collapsed and ``J/M`` for exact_mean (nothing after);
+* a quantizer with error feedback: the residual needs the decoded message
+  itself, so the message is kernel 4 with ``A = I`` (exact: products by 1
+  and 0, sums with 0), ``comm.error_feedback.ef_roundtrip``, and then the
+  inner backend's whole period;
+* top-k, random-k and identity: their round trips in plain PyTorch ops
+  (no TPU kernel computes them), then the inner backend's period.
+
+The dither is ``jax.random.uniform`` of the reference's per-leaf key
+(``comm.prng.uniform``), bitwise, so the codes are the reference's.
+
 **Physical wire.**  ``CompressedBackend(wire="physical")`` makes int8/int4
 codes what every gossip round ships: each round encodes each server's DELTA
 against the receivers' shared decoded reference (``gossip_scan_wire`` per
@@ -30,11 +51,10 @@ backends go through the f32 kernels, which take f32 leaves only (bf16
 leaves are a later slice, see ROADMAP.md).
 
 Ported modes: ``gossip``, ``gossip_blocked``, ``collapsed``,
-``exact_mean`` and ``none``, and the physical wire around the first two.
-Still to come, each raising ``NotImplementedError`` that names its slice:
-the simulated wire (``wire="simulated"``: quantize once per period, top-k,
-random-k), uncompressed bounded-staleness gossip, Chebyshev, push-sum and
-the robust screens.
+``exact_mean`` and ``none``, both wires around them (the physical wire
+around the first two).  Still to come, each raising
+``NotImplementedError`` that names its slice: uncompressed
+bounded-staleness gossip, Chebyshev, push-sum and the robust screens.
 """
 from __future__ import annotations
 
@@ -44,6 +64,8 @@ import numpy as np
 import torch
 
 from repro_torch.comm import compressors as _compressors
+from repro_torch.comm import prng
+from repro_torch.comm.error_feedback import ef_roundtrip
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import fma
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
@@ -411,6 +433,13 @@ class ConsensusBackend:
     def _mix(self, tree: Any, a: torch.Tensor) -> Any:
         raise NotImplementedError
 
+    def first_round(self, a_p: Optional[torch.Tensor], m: int):
+        """The period split after its first operator: ``(first, rest)``,
+        ``first`` the (M, M) operator of the first round (``None`` for an
+        empty period) and ``rest(tree)`` the rest of the period.  The
+        simulated wire fuses ``first`` into kernel 4."""
+        raise NotImplementedError
+
 
 _STALE_GOSSIP = ("uncompressed bounded-staleness gossip (gossip_scan_stale) "
                  "arrives with the overlap work of the dynamic-federation "
@@ -434,6 +463,9 @@ class GossipBackend(ConsensusBackend):
             raise NotImplementedError(_STALE_GOSSIP)
         return kops.consensus_mix_pytree(a, tree, rounds=self.t_server)
 
+    def first_round(self, a_p, m):
+        return _first_of_rounds(self._resolve(a_p), self.t_server, None)
+
 
 class BlockedGossipBackend(ConsensusBackend):
     """``gossip_scan_blocked``: the rounds streamed over fixed-size column
@@ -451,6 +483,18 @@ class BlockedGossipBackend(ConsensusBackend):
         if self.staleness:
             raise NotImplementedError(_STALE_GOSSIP)
         return gossip_scan_blocked(a, tree, self.t_server, block=self.block)
+
+    def first_round(self, a_p, m):
+        return _first_of_rounds(self._resolve(a_p), self.t_server,
+                                self.block)
+
+
+def _first_of_rounds(a: torch.Tensor, t_server: int, block: Optional[int]):
+    """``first_round`` of T_S literal rounds of ``a``."""
+    if t_server == 0:
+        return None, lambda tree: tree
+    return a, lambda tree: kops.consensus_mix_pytree(
+        a, tree, rounds=t_server - 1, block=block)
 
 
 class CollapsedBackend(ConsensusBackend):
@@ -479,6 +523,9 @@ class CollapsedBackend(ConsensusBackend):
     def mix(self, tree, a_p=None):
         return kops.consensus_mix_pytree(self._eff(a_p), tree, rounds=1)
 
+    def first_round(self, a_p, m):
+        return self._eff(a_p), lambda tree: tree
+
 
 class ExactMeanBackend(ConsensusBackend):
     """The idealised sigma_A = 0 limit (hierarchical FL with a root
@@ -491,6 +538,9 @@ class ExactMeanBackend(ConsensusBackend):
     def _mix(self, tree, a):
         return tree_map(lambda x: x.mean(dim=0, keepdim=True).expand(x.shape),
                         tree)
+
+    def first_round(self, a_p, m):
+        return torch.full((m, m), 1.0 / m), lambda tree: tree
 
 
 def _ef_residual_into(res: torch.Tensor, flat: torch.Tensor,
@@ -509,21 +559,25 @@ def _ef_residual_into(res: torch.Tensor, flat: torch.Tensor,
 
 class CompressedBackend(ConsensusBackend):
     """The compression layer around a gossip backend (the reference's
-    ``CompressedBackend``), with the physical wire: the codes are what
-    every round ships (``gossip_scan_wire_bucketed``, the whole tree as one
-    bucket, one code and one scale buffer per server and round).  Only the
-    int8/int4 quantizers define a wire byte format, and only the literal
-    T_S-round schedules (gossip, gossip_blocked) have a per-round wire.
+    ``CompressedBackend``).
 
-    Error feedback tracks the round-0 transmission of each server's own
-    model: the residual is ``corrected - D(round-0 codes)``, computed from
-    the period's own round-0 codes and scales (``bucketed_roundtrip_tree``
+    ``wire="simulated"`` (default): each server's message is compressed once
+    a period and the inner backend mixes the decoded messages (routes in the
+    module docstring); with error feedback the residual is ``corrected -
+    D(C(corrected))`` (``comm.error_feedback.ef_roundtrip``).  With the
+    identity compressor every output is exactly the inner backend's.
+
+    ``wire="physical"``: the codes are what every round ships
+    (``gossip_scan_wire_bucketed``, the whole tree as one bucket, one code
+    and one scale buffer per server and round).  Only the int8/int4
+    quantizers define a wire byte format, and only the literal T_S-round
+    schedules (gossip, gossip_blocked) have a per-round wire.  Error
+    feedback tracks the round-0 transmission of each server's own model:
+    the residual is ``corrected - D(round-0 codes)``, computed from the
+    period's own round-0 codes and scales (``bucketed_roundtrip_tree``
     would encode the same input with the same dither again), with the
     subtraction and the decode's product in one rounding, as the
-    reference's jitted program rounds it.
-
-    ``wire="simulated"`` (quantize once per period) arrives with the
-    simulated-wire slice."""
+    reference's jitted program rounds it."""
 
     compressed = True
 
@@ -560,10 +614,6 @@ class CompressedBackend(ConsensusBackend):
                 "simulated wire quantizes ONCE per period (no per-round "
                 "in-flight buffers exist to be late) — use wire='physical' "
                 "or staleness=0")
-        if wire == "simulated":
-            raise NotImplementedError(
-                f"compressed gossip on wire='simulated': "
-                f"{_compressors.SIMULATED_SLICE}")
         super().__init__(None, inner.t_server)
         self.inner = inner
         self.compressor = compressor
@@ -573,17 +623,37 @@ class CompressedBackend(ConsensusBackend):
                            or DEFAULT_GOSSIP_BLOCK)
         self.a_static = inner.a_static
         self.staleness = getattr(inner, "staleness", 0)
-        self.name = f"compressed[{inner.name}+{compressor.name}+wire]"
+        self.name = f"compressed[{inner.name}+{compressor.name}" + (
+            "+wire" if wire == "physical" else "") + "]"
         self.supports_directed = inner.supports_directed
+
+    def _mix_simulated(self, tree: Any, a_p: Optional[torch.Tensor], *,
+                       residual: Optional[Any], key):
+        """One simulated-wire period: ``(mixed tree, new EF residual)``."""
+        codec = self.compressor
+        if residual is not None and self.error_feedback:
+            msg, residual = ef_roundtrip(codec, tree, residual, key)
+            return self.inner.mix(msg, a_p), residual
+        if not isinstance(codec, _compressors.StochasticQuantizer):
+            msg = _compressors.roundtrip_tree(codec, tree, key)
+            return self.inner.mix(msg, a_p), residual
+        # the round trip and the first operator in one pass of kernel 4
+        leaves, treedef = tree_flatten(tree)
+        first, rest = self.inner.first_round(a_p, leaves[0].shape[0])
+        mixed = [codec.mix(leaf, None if key is None else prng.fold_in(key, i),
+                           first) for i, leaf in enumerate(leaves)]
+        return rest(tree_unflatten(treedef, mixed)), residual
 
     def mix_compressed(self, tree: Any, a_p: Optional[torch.Tensor] = None,
                        *, residual: Optional[Any] = None, key=None):
-        """One physical-wire period: ``(mixed tree, new EF residual)``.
+        """One compressed period: ``(mixed tree, new EF residual)``.
         ``key`` is the period's threefry key data (``None``: deterministic
-        rounding).  With error feedback the residual is folded into the
-        message first, and the new residual is written into ``residual``'s
-        own buffers (consumed like a donated argument); the mixed leaves are
-        views of one (M, D_pad) buffer."""
+        rounding).  On the physical wire, with error feedback the residual
+        is folded into the message first and the new residual is written
+        into ``residual``'s own buffers (consumed like a donated argument);
+        the mixed leaves are views of one (M, D_pad) buffer."""
+        if self.wire == "simulated":
+            return self._mix_simulated(tree, a_p, residual=residual, key=key)
         a = self._resolve(a_p)
         codec = self.compressor
         leaves, treedef = _f32_leaves(tree)
@@ -629,9 +699,9 @@ def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
                  staleness: int = 0) -> Optional[ConsensusBackend]:
     """Map a ``DFLConfig.consensus_mode`` string to a backend (``None`` for
     ``"none"``: no inter-server communication).  ``compression`` other than
-    ``"none"`` wraps it in a ``CompressedBackend`` (``wire="physical"``;
-    the simulated wire is a later slice).  ``staleness`` needs the literal
-    T_S-round schedules, and runs on the physical wire only."""
+    ``"none"`` wraps it in a ``CompressedBackend`` on the ``wire`` given.
+    ``staleness`` needs the literal T_S-round schedules, and runs on the
+    physical wire only."""
     base = mode.partition(":")[0]
     if base in _LATER:
         raise NotImplementedError(

@@ -22,12 +22,13 @@ of arithmetic:
   parameter (and optimizer-state, and error-feedback residual) buffers are
   updated in place, so a full copy of the (M, N) model is never held twice.
 
-Compressed consensus (``DFLConfig.compression``) runs the physical wire
-(``consensus.CompressedBackend``).  Its stochastic rounding is keyed by the
-reference's rng stream: ``DFLState.wire_key`` holds threefry key data
+Compressed consensus (``DFLConfig.compression``) runs the simulated wire
+(quantize once a period; the default) or the physical wire (codes every
+round), both ``consensus.CompressedBackend``.  Its stochastic rounding is
+keyed by the reference's rng stream: ``DFLState.wire_key`` holds threefry key data
 (``comm.prng``) that the epoch splits as the reference splits its ``rng`` —
 once per local step, then once for the consensus key (``dfl.py:637`` of the
-reference) — so the port's wire codes are the reference's.
+reference) — so the port's codes are the reference's on either wire.
 """
 from __future__ import annotations
 
@@ -87,14 +88,16 @@ class DFLConfig:
     # microbatches, the mean gradient applied once (identical math to Eq. 3)
     grad_microbatches: int = 1
     # lossy inter-server compression: "none" | "int8[:chunk]" |
-    # "int4[:chunk]" (comm.compressors.make_compressor); anything but "none"
-    # wraps the backend in consensus.CompressedBackend
+    # "int4[:chunk]" | "top_k:ratio" | "random_k:ratio"
+    # (comm.compressors.make_compressor); anything but "none" wraps the
+    # backend in consensus.CompressedBackend
     compression: str = "none"
     # carry each server's compression residual in DFLState.ef_residual and
     # fold it into the next period's message (comm.error_feedback)
     error_feedback: bool = False
-    # "physical": the codes are the wire, every round (the simulated
-    # once-per-period wire is a later slice).  Ignored without compression.
+    # "simulated": compress once per period and mix the decoded messages;
+    # "physical": the codes are the wire, every round.  Ignored without
+    # compression.
     wire: str = "simulated"
     # bounded staleness: gossip round t mixes the neighbours' codes of round
     # t - staleness (the physical wire's pipelined rounds, kernel 8)

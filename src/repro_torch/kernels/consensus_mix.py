@@ -3,6 +3,9 @@
 
 * Kernel 1, ``consensus_mix_cuda`` (source ``csrc/consensus_mix.cu``):
   one round ``W <- A W``; replaces ``consensus_mix_2d``.
+* Kernel 4, ``quantized_consensus_mix_cuda`` (source
+  ``csrc/quantized_mix.cu``): the simulated wire's ``A · D(C(w; u))`` in
+  one pass; replaces ``quantized_consensus_mix_2d``.
 * The physical wire's kernels 5-8 (one source, ``csrc/quantized_wire.cu``):
   ``quantized_gossip_encode_cuda``, ``bucketed_gossip_round_cuda``,
   ``bucketed_gossip_round_pipelined_cuda`` and
@@ -13,7 +16,7 @@
 
 Each wrapper checks its operands, launches on PyTorch's current stream,
 raises on a launch error and counts its launches (``launches``,
-``wire_launches``).  The sources' notes say what bounds each kernel and how
+``quant_mix_launches``, ``wire_launches``).  The sources' notes say what bounds each kernel and how
 the design answers.  The plain versions are in ``repro_torch.kernels.ref``;
 ``repro_torch.kernels.ops`` picks between kernel and plain version by
 device.
@@ -28,6 +31,8 @@ from repro_torch.kernels import _build
 
 #: kernel launches since the last ``ops.reset_launch_counts()``
 launches = 0
+#: launches of kernel 4 since the last reset
+quant_mix_launches = 0
 #: launches of the wire kernels, by the name of the ``ops`` entry point
 wire_launches = {"quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
                  "bucketed_gossip_round_pipelined": 0,
@@ -211,3 +216,34 @@ def quantized_gossip_round_cuda(a, codes, scales, ref, mixed, dither, *,
                  ref.data_ptr(), mixed.data_ptr(), dither.data_ptr(), m, d,
                  chunk, bits)
     return mixed, ref, codes, scales
+
+
+# ---------------------------------------------------------------------------
+# the simulated wire: kernel 4
+# ---------------------------------------------------------------------------
+
+
+def quantized_consensus_mix_cuda(a, w, dither, out, *, bits: int,
+                                 chunk: int):
+    """Kernel 4: ``out <- a · D(C(w; dither))``.  a: (M, M); w, dither,
+    out: contiguous (M, D) float32 CUDA tensors, ``chunk`` dividing D;
+    ``out`` may be ``w`` or ``dither`` itself (each column is read whole
+    before it is written), but no other overlap.  Returns ``out``."""
+    global quant_mix_launches
+    m, d = w.shape
+    _wire_check(m, d, bits, chunk, a=a, w=w, dither=dither, out=out)
+    if d and out.data_ptr() not in (w.data_ptr(), dither.data_ptr()) and (
+            _overlap(out, w) or _overlap(out, dither)):
+        raise ValueError("out may be w or dither itself, but must not "
+                         "partly overlap them")
+    lib = _build.load("quantized_mix")
+    fn = lib.quantized_mix_f32
+    fn.argtypes = [_P] * 4 + [_I, _L, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    err = fn(a.data_ptr(), w.data_ptr(), dither.data_ptr(), out.data_ptr(), m,
+             d, chunk, bits, torch.cuda.current_stream(w.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quantized_mix kernel launch failed: CUDA error "
+                           f"{err}")
+    quant_mix_launches += 1
+    return out

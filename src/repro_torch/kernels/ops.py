@@ -5,8 +5,9 @@ For a CPU tensor each op runs its plain PyTorch version
 kernel or raises — there is no path from a CUDA tensor to the plain
 version.  Port of ``repro.kernels.ops.consensus_mix_pytree``,
 ``repro.kernels.ops.rmsnorm`` and ``repro.kernels.ops.flash_attention``,
-plus entry points for the physical wire's kernels (the reference's wire
-paths call jnp code; the port's call these on every round).
+plus entry points for the simulated wire's kernel 4 and the physical wire's
+kernels (the reference's wire paths call jnp code; the port's call these on
+every period and round).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _rn.fwd_launches = 0
     _rn.bwd_launches = 0
+    _cm.quant_mix_launches = 0
     for name in _cm.wire_launches:
         _cm.wire_launches[name] = 0
 
@@ -33,6 +35,7 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     return {"consensus_mix": _cm.launches, "flash_attention": _fa.launches,
             "rmsnorm_fwd": _rn.fwd_launches, "rmsnorm_bwd": _rn.bwd_launches,
+            "quantized_consensus_mix": _cm.quant_mix_launches,
             **_cm.wire_launches}
 
 
@@ -93,6 +96,35 @@ def consensus_mix_pytree(a: torch.Tensor, tree: Any, rounds: int = 1,
         out.append(result[:, off:off + size].reshape(leaf.shape))
         off += size
     return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# the simulated wire (kernel 4)
+# ---------------------------------------------------------------------------
+
+
+def quantized_consensus_mix(a: torch.Tensor, w: torch.Tensor,
+                            dither: torch.Tensor, *, bits: int = 8,
+                            chunk: int = 256,
+                            out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Kernel 4: ``A · D(C(w; dither))`` for (M, D) f32 ``w`` and dither in
+    [0, 1), ``chunk`` dividing D: the CUDA kernel on the card, the plain
+    version on the CPU.  ``out`` (default: a new tensor) may be ``w`` or
+    ``dither`` itself.  Other bits, dtypes or a chunk that does not divide
+    D raise, as the TPU kernel refuses them."""
+    for name, t in (("w", w), ("dither", dither)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"quantized_consensus_mix takes float32 only; "
+                            f"{name} is {t.dtype}")
+    if w.is_cuda:
+        if out is None:
+            out = torch.empty_like(w)
+        return _cm.quantized_consensus_mix_cuda(
+            _a32(a, w), w, dither, out, bits=bits, chunk=chunk)
+    res = _ref.quantized_consensus_mix_ref(a, w, dither, bits=bits,
+                                           chunk=chunk)
+    return res if out is None else out.copy_(res)
 
 
 # ---------------------------------------------------------------------------

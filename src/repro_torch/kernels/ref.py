@@ -148,6 +148,29 @@ def wire_encode(delta: torch.Tensor, dither: torch.Tensor, *, bits: int,
             .reshape(delta.shape), scale)
 
 
+def quantized_consensus_mix_ref(a: torch.Tensor, w: torch.Tensor,
+                                dither: torch.Tensor, *, bits: int = 8,
+                                chunk: int = 256) -> torch.Tensor:
+    """Kernel 4: ``A · D(C(w; dither))`` -- the simulated wire's round trip
+    and one mix in one pass::
+
+        codes, s = C(w; dither)               (``wire_encode``: fused encode)
+        deq      = codes * s                  (one rounding)
+        out[i]   = fma(a[i,j], deq[j], out[i])  for j = 0 .. M-1, out = +0
+
+    With ``a = I`` every product is by 1 or 0 and every sum with 0, so the
+    chain is exact: ``out`` is ``D(C(w))`` itself.  Returns (M, D) f32."""
+    codes, scale = wire_encode(w.float(), dither, bits=bits, chunk=chunk)
+    deq = (_chunked(codes.float(), chunk) * scale[..., None]).reshape(
+        w.shape)
+    a = a.to(device=w.device, dtype=torch.float32)
+    out = torch.zeros_like(deq)
+    for j in range(deq.shape[0]):
+        out = fma(a[:, j:j + 1].expand_as(deq), deq[j:j + 1].expand_as(deq),
+                  out)
+    return out
+
+
 def quantized_gossip_encode_ref(w: torch.Tensor, ref: torch.Tensor,
                                 dither: torch.Tensor, *, bits: int = 8,
                                 chunk: int = 256):

@@ -10,13 +10,16 @@ per-client synthetic LM shards, per-server aggregation, T_S gossip rounds
 (loss, disagreement, drift, participation, num_servers, sigma_prod) every
 epoch.  float32 matmuls run in full float32: TF32 is switched off.
 
-``--compression int8 --wire physical [--error-feedback]`` runs the gossip
-rounds on the quantized, delta-coded physical wire (kernels 5-8) and adds
-the reference's wire ledger to the record: ``wire_mb`` (on-wire megabytes
-of the epoch) and ``wire_ratio`` (cumulative float32 bytes over shipped
-bytes), counted in the per-leaf layout as the reference's static trainer
-counts them.  ``--staleness s`` (physical wire only) lets gossip round t
-mix the neighbours' codes of round t - s (kernel 8).
+``--compression int8|int4[:C]|top_k:R|random_k:R [--error-feedback]``
+compresses the gossip messages and adds the reference's wire ledger to the
+record: ``wire_mb`` (on-wire megabytes of the epoch) and ``wire_ratio``
+(cumulative float32 bytes over shipped bytes).  The default ``--wire
+simulated`` compresses each server's message once a period (a quantizer's
+round trip and first mix on kernel 4) and counts its unpadded payload;
+``--wire physical`` (int8/int4) ships delta codes every round (kernels
+5-8) and counts the per-leaf layout, as the reference's static trainer
+does.  ``--staleness s`` (physical wire only) lets gossip round t mix the
+neighbours' codes of round t - s (kernel 8).
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.comm import accounting, prng
-from repro_torch.comm.compressors import tree_message_elems
+from repro_torch.comm.compressors import (tree_message_elems,
+                                          tree_wire_bytes_per_server)
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.core import (DFLConfig, FLTopology, SigmaTracker,
                               build_dfl_epoch_step, init_dfl_state)
@@ -81,8 +85,8 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
     """Static Algorithm 1 on an LM.  ``params`` (optional) replaces the
     seeded random init, e.g. weights carried over by
     ``transformer.params_from_numpy``.  ``compression`` / ``error_feedback``
-    / ``wire`` select the compressed physical wire, ``staleness`` its
-    bounded-staleness rounds.  Returns the final
+    / ``wire`` select the compressed wire, ``staleness`` the physical
+    wire's bounded-staleness rounds.  Returns the final
     state, the per-epoch history (metric name -> list) and the run's
     objects."""
     dev = resolve_device(device)
@@ -143,18 +147,22 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
 class _StaticWireLedger:
     """The static trainer's wire ledger: a ``comm.accounting.BytesTracker``
     bound to the fixed topology and model shapes.  As the reference's
-    static trainer does, it counts the PER-LEAF physical layout
-    (``tree_physical_wire_bytes_per_server``) even though the rounds ship
-    the bucketed one."""
+    static trainer does, the simulated wire counts the unpadded payload of
+    one message (``tree_wire_bytes_per_server``) and the physical wire the
+    PER-LEAF layout (``tree_physical_wire_bytes_per_server``), even though
+    its rounds ship the bucketed one."""
 
     def __init__(self, dfl_cfg: DFLConfig, params, compressor):
         topo = dfl_cfg.topology
         server_abs = [torch.empty((topo.num_servers,) + tuple(p.shape),
                                   device="meta")
                       for p in tree_leaves(params)]
-        _, wire_block = active_wire(dfl_cfg)     # the physical wire's
-        self._row = accounting.tree_physical_wire_bytes_per_server(
-            compressor, server_abs, wire_block)
+        wire, wire_block = active_wire(dfl_cfg)
+        if wire == "physical":
+            self._row = accounting.tree_physical_wire_bytes_per_server(
+                compressor, server_abs, wire_block)
+        else:
+            self._row = tree_wire_bytes_per_server(compressor, server_abs)
         self._elems = tree_message_elems(server_abs)
         self._a = (topo.mixing_matrix() if topo.num_servers > 1
                    else np.ones((1, 1)))
@@ -195,15 +203,16 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("gossip", "gossip_blocked", "collapsed",
                             "exact_mean", "none"))
     p.add_argument("--compression", default="none",
-                   help="none | int8[:chunk] | int4[:chunk]: quantize the "
-                        "gossip messages")
+                   help="none | int8[:chunk] | int4[:chunk] | top_k:ratio | "
+                        "random_k:ratio: compress the gossip messages")
     p.add_argument("--error-feedback", action="store_true",
                    help="carry each server's compression residual into the "
                         "next period's message")
     p.add_argument("--wire", default="simulated",
                    choices=("simulated", "physical"),
-                   help="where --compression happens: 'physical' ships the "
-                        "codes every round ('simulated' is a later slice)")
+                   help="where --compression happens: 'simulated' "
+                        "compresses once per period, 'physical' ships the "
+                        "codes every round")
     p.add_argument("--staleness", type=int, default=0,
                    help="bounded gossip staleness s: round t mixes the "
                         "neighbours' codes of round t-s (--wire physical "

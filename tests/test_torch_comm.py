@@ -151,21 +151,39 @@ def test_quantizer_bytes_and_specs_match_reference():
         tcp.make_compressor("none")
     with pytest.raises(ValueError, match="unknown"):
         tcp.make_compressor("int16")
-    for spec in ("top_k:0.05", "random_k:0.1"):
-        with pytest.raises(NotImplementedError, match="simulated-wire"):
-            tcp.make_compressor(spec)
+    for spec in ("top_k:0.05", "random_k:0.1"):     # the simulated wire's
+        tq, jq = tcp.make_compressor(spec), jcp.make_compressor(spec)
+        assert tq.name == jq.name and tq.ratio == jq.ratio
+        for shape in ((4, 960), (4, 33, 7), (2, 49152, 960)):
+            assert tq.wire_bytes_per_leaf(shape) == \
+                jq.wire_bytes_per_leaf(shape), (spec, shape)
     with pytest.raises(ValueError, match="bits"):
         tcp.StochasticQuantizer(bits=3)
-    with pytest.raises(NotImplementedError, match="simulated-wire"):
-        tcp.StochasticQuantizer().compress(torch.zeros(2, 8), key=prng.key(0))
+    # a key draws the simulated wire's threefry uniform dither, bitwise
+    x = np.random.default_rng(0).standard_normal((2, 300)).astype(np.float32)
+    got = tcp.StochasticQuantizer().compress(torch.from_numpy(x),
+                                             key=prng.key(0))
+    want = jcp.StochasticQuantizer().compress(jnp.asarray(x),
+                                              key=jax.random.key(0))
+    np.testing.assert_array_equal(got.data.numpy(), _np(want.data))
+    np.testing.assert_array_equal(got.scale.numpy(), _np(want.scale))
 
 
 def test_simulated_wire_pieces_raise_and_ef_init():
-    tree = {"w": torch.ones(3, 4), "b": torch.ones(3, 2, 2)}
-    with pytest.raises(NotImplementedError, match="simulated-wire"):
-        tcp.roundtrip_tree(tcp.StochasticQuantizer(), tree)
-    res = tef.init_ef_residual(tree)
-    assert all(torch.equal(res[k], torch.zeros_like(tree[k])) for k in tree)
+    """The simulated wire's pieces run (they raised before their slice):
+    ``roundtrip_tree`` without a key rounds to nearest, as the reference's;
+    the EF residual starts at zero."""
+    rng = np.random.default_rng(1)
+    tree = {"w": rng.standard_normal((3, 4)).astype(np.float32),
+            "b": rng.standard_normal((3, 2, 2)).astype(np.float32)}
+    got = tcp.roundtrip_tree(tcp.StochasticQuantizer(),
+                             {k: torch.from_numpy(v) for k, v in tree.items()})
+    want = jcp.roundtrip_tree(jcp.StochasticQuantizer(),
+                              {k: jnp.asarray(v) for k, v in tree.items()})
+    for k in tree:
+        np.testing.assert_array_equal(got[k].numpy(), _np(want[k]))
+    res = tef.init_ef_residual(got)
+    assert all(torch.equal(res[k], torch.zeros_like(got[k])) for k in tree)
 
 
 # ---------------------------------------------------------------------------

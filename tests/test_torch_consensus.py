@@ -100,8 +100,12 @@ def test_later_modes_raise_not_implemented(mode):
 
 def test_later_options_and_bad_modes_raise():
     a = jtp.metropolis_weights(jtp.ring_graph(4))
-    with pytest.raises(NotImplementedError, match="compressed"):
-        tc.make_backend("gossip", a, 3, compression="int8")
+    # compression wraps the backend in the simulated wire, as the reference
+    from repro.core import consensus as jc
+    be = tc.make_backend("gossip", a, 3, compression="int8")
+    assert be.compressed and be.wire == "simulated"
+    assert be.name == jc.make_backend("gossip", a, 3,
+                                      compression="int8").name
     with pytest.raises(NotImplementedError, match="staleness"):
         tc.make_backend("gossip", a, 3, staleness=1)
     with pytest.raises(ValueError, match="unknown"):

@@ -108,8 +108,12 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
     k = torch.from_numpy(rng.standard_normal((1, 7, 1, 8)).astype(np.float32))
     assert torch.equal(ops.flash_attention(q, k, k, window=3),
                        ref.attention_ref(q, k, k, window=3))
+    u = torch.from_numpy(rng.uniform(0, 1, (4, 300)).astype(np.float32))
+    assert torch.equal(ops.quantized_consensus_mix(a, w, u, chunk=60),
+                       ref.quantized_consensus_mix_ref(a, w, u, chunk=60))
     assert ops.launch_counts() == {"consensus_mix": 0, "flash_attention": 0,
                                    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
+                                   "quantized_consensus_mix": 0,
                                    "quantized_gossip_encode": 0,
                                    "bucketed_gossip_round": 0,
                                    "bucketed_gossip_round_pipelined": 0,

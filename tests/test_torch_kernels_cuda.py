@@ -8,9 +8,11 @@ machine, which has no JAX:
 
 Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward; the
 flash-attention kernel 2e-5 in f32 (5e-5 with a softcap) and 2e-2 in bf16,
-the tolerances the reference holds its Pallas kernel to.  The physical
-wire's kernels (5-8) and the wire periods built on them: bitwise, since
-kernel and plain version pin every rounding to the same operations.
+the tolerances the reference holds its Pallas kernel to.  The simulated
+wire's kernel 4 and the physical wire's kernels (5-8), and the wire periods
+built on the latter: bitwise, since kernel and plain version pin every
+rounding to the same operations.  The simulated periods: 1e-5 (their
+kernel-1 rounds sum in another order than the CPU's).
 """
 import numpy as np
 import pytest
@@ -308,3 +310,85 @@ def test_wire_periods_on_the_card_match_the_cpu(cuda, staleness):
         got = fn(a.to(cuda), on_card, 5, q, prng.key(9), **kw)
         for k in tree:
             assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the simulated wire: kernel 4
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("chunk", [16, 64, 256, 960])
+@pytest.mark.parametrize("m", [1, 4, 5, 16])
+def test_quantized_consensus_mix_matches_plain(cuda, m, chunk, bits):
+    """Bitwise, on a mixing matrix and on A = I (the round trip itself)."""
+    d = chunk * 37          # the last slab of a block is ragged
+    x = _wire_inputs(cuda, m, d, chunk, bits, seed=m * chunk + bits + 1)
+    before = ops.launch_counts()["quantized_consensus_mix"]
+    for a in (x["a"], torch.eye(m, device=cuda)):
+        got = ops.quantized_consensus_mix(a, x["w"], x["u"], bits=bits,
+                                          chunk=chunk)
+        want = ref.quantized_consensus_mix_ref(a, x["w"], x["u"], bits=bits,
+                                               chunk=chunk)
+        _assert_same((got,), (want,))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["quantized_consensus_mix"] == before + 2
+
+
+def test_quantized_consensus_mix_in_place_and_refusals(cuda):
+    x = _wire_inputs(cuda, 4, 256 * 40, 256, 8, seed=3)
+    want = ref.quantized_consensus_mix_ref(x["a"], x["w"], x["u"])
+    for target in ("w", "u"):
+        w, u = x["w"].clone(), x["u"].clone()
+        out = w if target == "w" else u
+        assert ops.quantized_consensus_mix(x["a"], w, u, out=out) is out
+        _assert_same((out,), (want,))
+    with pytest.raises(ValueError, match="divide D"):
+        ops.quantized_consensus_mix(x["a"], x["w"], x["u"], chunk=1000)
+    with pytest.raises(ValueError, match="bits"):
+        ops.quantized_consensus_mix(x["a"], x["w"], x["u"], bits=2)
+    with pytest.raises(TypeError, match="float32"):
+        ops.quantized_consensus_mix(x["a"], x["w"].double(), x["u"])
+    buf = torch.zeros(4 * 256 * 40 + 256, device=cuda)
+    w = buf[:4 * 256 * 40].view(4, -1)
+    with pytest.raises(ValueError, match="overlap"):
+        ops.quantized_consensus_mix(x["a"], w, x["u"],
+                                    out=buf[256:].view(4, -1))
+
+
+@pytest.mark.parametrize("mode,spec,ef", [
+    ("gossip", "int8", False), ("gossip_blocked", "int4:32", True),
+    ("collapsed", "int8", True), ("exact_mean", "int8:64", False),
+    ("gossip", "top_k:0.1", True), ("gossip", "random_k:0.2", False)])
+def test_simulated_periods_on_the_card_match_the_cpu(cuda, mode, spec, ef):
+    """The simulated wire's period with the kernels (card) and the plain
+    versions (CPU): kernel 4 and the plain version are bitwise, kernel 1
+    sums in another order (1e-5)."""
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus as cns
+    g = torch.Generator().manual_seed(7)
+    tree = {"q": torch.randn((4, 6, 64), generator=g) * 0.05,
+            "o": torch.randn((4, 5, 300), generator=g) * 0.05,
+            "up": torch.randn((4, 2, 512), generator=g) * 0.05,
+            "scalar": torch.randn((4,), generator=g)}
+    res = ({k: torch.randn(v.shape, generator=g) * 1e-3
+            for k, v in tree.items()} if ef else None)
+    a = tp.metropolis_weights(tp.ring_graph(4))
+    be = cns.make_backend(mode, a, 4, compression=spec, error_feedback=ef,
+                          block=512)
+    want, want_res = be.mix_compressed(tree, residual=res, key=prng.key(4))
+    ops.reset_launch_counts()
+    got, got_res = be.mix_compressed(
+        {k: v.to(cuda) for k, v in tree.items()},
+        residual=None if res is None else {k: v.to(cuda)
+                                           for k, v in res.items()},
+        key=prng.key(4))
+    torch.cuda.synchronize()
+    n = ops.launch_counts()["quantized_consensus_mix"]
+    assert n == (len(tree) if spec.startswith("int") else 0), n
+    for k in tree:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
+                                   atol=1e-6)
+        if ef:
+            torch.testing.assert_close(got_res[k].cpu(), want_res[k],
+                                       rtol=1e-5, atol=1e-6)

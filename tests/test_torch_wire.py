@@ -375,9 +375,11 @@ def test_backend_refusals():
     a = jtp.metropolis_weights(jtp.ring_graph(4))
     q = tcp.StochasticQuantizer()
     wire = dict(compression="int8", wire="physical")
-    with pytest.raises(NotImplementedError, match="simulated-wire"):
-        tcns.make_backend("gossip", a, 3, compression="int8")
-    with pytest.raises(NotImplementedError, match="simulated-wire"):
+    # the simulated wire is the default; the physical one takes quantizers
+    sim = tcns.make_backend("gossip", a, 3, compression="int8")
+    assert sim.wire == "simulated" and sim.name == \
+        jcns.make_backend("gossip", a, 3, compression="int8").name
+    with pytest.raises(ValueError, match="quantizers"):
         tcns.make_backend("gossip", a, 3, compression="top_k:0.1",
                           wire="physical")
     for mode in ("collapsed", "exact_mean"):
@@ -486,12 +488,22 @@ def test_epoch_step_refusals():
     loss = make_regression_task(topo)["loss_fn"]
     for bad, err in ((dict(staleness=-1), ValueError),
                      (dict(staleness=1, consensus_mode="none"), ValueError),
-                     (dict(compression="int8"), NotImplementedError),
+                     (dict(compression="int8", staleness=1), ValueError),
                      (dict(compression="int8", wire="physical",
                            consensus_mode="collapsed"), ValueError)):
         with pytest.raises(err):
             tdfl.build_dfl_epoch_step(tdfl.DFLConfig(topology=topo, **bad),
                                       loss, sgd(0.1))
+    # the default wire is the simulated one, which builds and runs
+    from repro.core import dfl as jdfl
+    from repro.core.topology import FLTopology as JTopology
+    sim = tdfl.DFLConfig(topology=topo, compression="int8")
+    jsim = jdfl.DFLConfig(topology=JTopology(
+        num_servers=3, clients_per_server=2, t_client=2, t_server=2),
+        compression="int8")
+    assert tdfl.active_wire(sim) == jdfl.active_wire(jsim) == (
+        "simulated", tcns.DEFAULT_GOSSIP_BLOCK)
+    tdfl.build_dfl_epoch_step(sim, loss, sgd(0.1))
     cfg = tdfl.DFLConfig(topology=topo, **WIRE)
     with pytest.raises(ValueError, match="wire_key"):
         tdfl.init_dfl_state(cfg, {"w": torch.zeros(3)}, sgd(0.1))
