@@ -30,7 +30,16 @@ with the launch counters reset just before it and read just after:
   rest on kernel 1), then one epoch of int4 with error feedback and one
   each of top-k and random-k; then one full-size period, kernel 4 held
   against its plain version on whole-row slabs of every leaf, and the
-  period's times (dither, pad copies, kernel 4, kernel 1).
+  period's times (dither, pad copies, kernel 4, kernel 1);
+* Mamba-2 serving: kernel 9 (the SSD scan) against its plain version over
+  the reference's sweep, bf16, the model's strided layout and the decay
+  extremes; then ``serve`` on full-width, full-depth Mamba2-780M
+  (780,259,584 f32 parameters from a seed, f32 cache): 4 prompts of 1024
+  tokens prefilled through kernel 9 (48 launches), 64 tokens decoded each
+  (O(1) state, no kernel 9); the kernel-route prefill against the reference
+  route (``ssd_chunked``) on the logits and every layer's cache, decode
+  against a full forward, kernel 9's time at the prefill's shape against
+  its bound, and the prefill and decode under the profiler.
 
 Every phase prints one JSON line; any failure
 raises and the script exits non-zero.  Before the last line it prints the
@@ -41,6 +50,7 @@ prints no result.  It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -95,6 +105,21 @@ SIM_SLAB = 1 << 20          # elements of a slab held against the plain version
 # the serving path: full Qwen3-1.7B, 4 prompts of 1024 tokens, 64 generated
 SERVE = dict(smoke=False, batch=4, prompt_len=1024, gen=64, device="cuda")
 QWEN3_PARAMS = 1_720_574_976
+
+# the Mamba-2 serving path: full Mamba2-780M at the Qwen3 serving cell's shape
+MAMBA_PARAMS = 780_259_584
+SSD_KERNEL = ("ssd_scan", "src/repro/kernels/ssd_scan.py:92")
+# kernel 9 against its plain version: (b, s, nh, hd, ds, chunk) — the
+# reference's tests/test_kernels_ssd.py sweep, its chunk-invariance shape at
+# three chunks, a chunk that is no tile multiple, hd 128 with chunk cut to s
+SSD_SWEEP = [(1, 128, 2, 32, 64, 64), (2, 256, 4, 64, 128, 128),
+             (1, 200, 2, 32, 64, 64), (2, 64, 8, 64, 128, 64),
+             (1, 192, 2, 32, 64, 32), (1, 192, 2, 32, 64, 64),
+             (1, 192, 2, 32, 64, 128), (1, 192, 2, 32, 64, 48),
+             (2, 96, 3, 128, 16, 256)]
+# the reference's SSD tolerance (rtol = atol): f32 sums in another order and
+# exp(cum_t - cum_k) of cumulative decays that cancel most of their digits
+SSD_LIMIT = 2e-4
 
 # the flash-attention sweep: (b, sq, sk, h, kvh, hd), options, dtype — the
 # reference's tests/test_kernels_attention.py, plus hd 40 and the main shape
@@ -198,7 +223,7 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
         k in e.key for k in ("consensus_mix", "rmsnorm", "column_sum",
                              "flash_fwd", "encode_kernel", "bucketed_kernel",
                              "pipelined_kernel", "leaf_kernel",
-                             "quant_mix_kernel"))]
+                             "quant_mix_kernel", "ssd_scan_kernel"))]
     host = sorted((e for e in events if e not in kernels),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
 
@@ -215,6 +240,44 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
         "top_host": [{"name": e.key[:80], "calls": e.count,
                       "self_cpu_ms": e.self_cpu_time_total / 1e3}
                      for e in host]}
+
+
+def profile_serving(torch, params, cfg, prompt, prefill_kw: dict,
+                    phases: tuple, steps: int = 8) -> None:
+    """Prefill ``prompt`` on the kernel route and decode ``steps`` greedy
+    tokens under the profiler (the first phase's line), then the same
+    decode steps timed alone, each synchronised (the second's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as ttf
+    kw = dict(prefill_kw, max_len=prompt.shape[1] + steps,
+              opts=ttf.ApplyOptions(attn_impl="kernel"))
+
+    def prefill():
+        return ttf.prefill(params, cfg, {"tokens": prompt}, **kw)
+
+    def step(logits, cache):
+        return ttf.decode_step(params, cfg, logits[:, -1].argmax(-1)[:, None],
+                               cache)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        for _ in range(steps):
+            logits, cache = step(logits, cache)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    emit(phases[0], steps=steps, **profile_summary(prof, wall_s))
+    logits, cache = prefill()
+    torch.cuda.synchronize()
+    step_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = step(logits, cache)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    emit(phases[1], step_s=step_s)
 
 
 def disagreement_f64(torch, leaves) -> float:
@@ -359,6 +422,275 @@ def plain_leaf_slab(torch, ref, cp, a, x, key, leaf, block, lo, real, t_s,
         mixed, r, c, s = ref.quantized_gossip_round_ref(
             a, c, s, r, u(min(t + 1, t_s - 1)), **kw)
     return mixed
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 serving: kernel 9 and the path that runs it
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(torch, g, b, s, nh, hd, ds, *, a=None, dtype="float32"):
+    """Kernel 9's operands in the model's layout: x, B and C are views into
+    one (b, s, nh*hd + 2*ds) tensor, as the mixer splits its conv output;
+    x ~ N(0, 1), B and C ~ N(0, 0.25), dt = softplus(N(0, 1)), A =
+    -exp(linspace(-1, 1)) unless given."""
+    dev = torch.device("cuda")
+    xbc = torch.randn((b, s, nh * hd + 2 * ds), device=dev, generator=g)
+    xbc[..., nh * hd:] *= 0.5
+    xbc = xbc.to(getattr(torch, dtype))
+    xs = xbc[..., :nh * hd].view(b, s, nh, hd)
+    bs = xbc[..., nh * hd:nh * hd + ds].view(b, s, 1, ds)
+    cs = xbc[..., nh * hd + ds:].view(b, s, 1, ds)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), device=dev, generator=g))
+    if a is None:
+        a = -torch.exp(torch.linspace(-1.0, 1.0, nh, device=dev))
+    return xs, bs, cs, dt, a
+
+
+def ssd_work(b, s, nh, hd, ds, chunk):
+    """The flops and bytes the SSD scan needs on these shapes.  Flops per
+    chunk of r steps, counting only the r(r+1)/2 causal (t, k) pairs: C.B'
+    once per (batch, chunk), since B and C are one group shared by every
+    head; per (batch, head) the scores times x, C.h and the state update.
+    Bytes: each input read once (f32), y and the final state written once.
+    Also returns the flops with C.B' per head, as the TPU kernel and kernel
+    9 compute it."""
+    q = min(chunk, s)
+    shared, per_head = 0, 0
+    for c0 in range(0, s, q):
+        r = min(q, s - c0)
+        pairs = r * (r + 1) // 2
+        shared += b * pairs * 2 * ds
+        per_head += b * nh * (pairs * 2 * hd + 2 * 2 * r * ds * hd)
+    n_bytes = 4 * (2 * b * s * nh * hd + 2 * b * s * ds + b * s * nh + nh
+                   + b * nh * ds * hd)
+    return shared + per_head, n_bytes, shared * nh + per_head
+
+
+def mamba_serving(torch, g, serve_shape: dict) -> dict:
+    """The Mamba-2 phases; returns kernel 9's row of the ``kernels`` line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import mamba as tmm
+    from repro_torch.models import transformer as ttf
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+
+    def close(got, want):
+        """Max abs and relative (to the largest |want|) error over (y,
+        state), after holding both to the reference's SSD tolerance."""
+        errs = [rel_err(torch, g_, w_) for g_, w_ in zip(got, want)]
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == torch.float32 and g_.shape == w_.shape
+            torch.testing.assert_close(g_, w_, rtol=SSD_LIMIT,
+                                       atol=SSD_LIMIT)
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    # ---- a. kernel 9 vs its plain version ----
+    cfg = get_arch("mamba2-780m")
+    m = cfg.mamba
+    nh, hd, ds = m.num_heads(cfg.d_model), m.head_dim, m.d_state
+    b, s_len = serve_shape["batch"], serve_shape["prompt_len"]
+    a48 = -torch.arange(1, nh + 1, dtype=torch.float32, device=dev)
+    cases = [(shape, {}) for shape in SSD_SWEEP] + [
+        ((2, 160, 4, 64, 128, 64), {"dtype": "bfloat16"}),
+        ((1, 512, nh, hd, ds, m.chunk_size), {"a": a48}),
+        ((b, s_len, nh, hd, ds, m.chunk_size), {"a": a48})]   # main shape
+    for (bb, s, h_, p_, n_, chunk), kw in cases:
+        args = ssd_inputs(torch, g, bb, s, h_, p_, n_, **kw)
+        err, rel = close(ops.ssd_scan(*args, chunk=chunk),
+                         ref.ssd_scan_chunked_ref(*args, chunk=chunk))
+        torch.cuda.synchronize()
+        emit("ssd_kernel_check", shape=[bb, s, h_, p_, n_, chunk],
+             dtype=kw.get("dtype", "float32"),
+             a="-(1..nh)" if "a" in kw else "-exp(linspace(-1, 1))",
+             x_contiguous=args[0].is_contiguous(), max_abs_err=err,
+             max_rel_err=rel, limit=SSD_LIMIT)
+    args = ssd_inputs(torch, g, 2, 96, 4, 32, 64)
+    y, st = ops.ssd_scan(args[0], args[1], args[2],
+                         torch.zeros_like(args[3]), args[4], chunk=32)
+    emit("ssd_kernel_check", case="dt = 0", y_max=float(y.abs().max()),
+         state_max=float(st.abs().max()))
+    assert not y.any() and not st.any()
+    y, _ = ops.ssd_scan(*args[:4], torch.full_like(args[4], -1e4), chunk=32)
+    own = torch.einsum("bsn,bsn,bsh,bshp->bshp", args[2][:, :, 0],
+                       args[1][:, :, 0], args[3], args[0])
+    err, rel = rel_err(torch, y, own)
+    emit("ssd_kernel_check", case="A = -1e4: y_t = its own step's term",
+         max_abs_err=err, max_rel_err=rel, limit=SSD_LIMIT)
+    torch.testing.assert_close(y, own, rtol=SSD_LIMIT, atol=SSD_LIMIT)
+
+    # ---- b. serving: full Mamba2-780M through serve() ----
+    # a short run at the same widths and batch first, so that the timed run
+    # holds no Triton compile of RMSNorm at Mamba's row widths
+    tserve.serve("mamba2-780m", **{**serve_shape, "prompt_len": 16,
+                                   "gen": 2})
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    baseline = torch.cuda.memory_allocated()
+    res = tserve.serve("mamba2-780m", **serve_shape)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    norms_per_pass = 2 * cfg.num_layers + 1     # ln1, the gated norm; final
+    expected = {k: 0 for k in launches}
+    expected.update(ssd_scan=cfg.num_layers,
+                    rmsnorm_fwd=norms_per_pass * serve_shape["gen"])
+    generated = res["generated"]
+    gen = serve_shape["gen"]
+    emit("serve_mamba", arch="mamba2-780m", batch=b, prompt_len=s_len,
+         gen=gen, prefill_s=res["prefill_s"], decode_s=res["decode_s"],
+         tok_per_s=res["tok_per_s"],
+         prefill_tok_per_s=b * s_len / res["prefill_s"],
+         peak_mem_gb=(torch.cuda.max_memory_allocated() - baseline) / 1e9,
+         launches=launches, expected_launches=expected,
+         first_row=generated[0, :16].tolist())
+    assert launches == expected, launches
+    assert tuple(generated.shape) == (b, gen)
+    assert 0 <= int(generated.min()) and \
+        int(generated.max()) < cfg.vocab_size
+
+    # ---- c. checked, on the weights and prompt serve() drew from seed 0:
+    # the kernel route's prefill against the reference route (ssd_chunked)
+    # on the logits; every layer's mixer output and SSM state on the two
+    # routes from the same layer input (the reference route's); decode
+    # against a full forward ----
+    rng = torch.Generator(device=dev).manual_seed(0)
+    params = ttf.init_params(rng, cfg, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompt = torch.randint(0, cfg.vocab_size, (b, s_len), generator=rng,
+                           device=dev)
+    assert n_params == MAMBA_PARAMS, n_params
+    assert torch.equal(prompt, res["prompt"])
+    kernel_opts = ttf.ApplyOptions(attn_impl="kernel")
+    prefill = dict(max_len=s_len + 4, cache_dtype=torch.float32)
+    vocab = cfg.vocab_size       # the padded ids' logits are -1e30 on all
+    ref_logits, ref_cache = ttf.prefill(params, cfg, {"tokens": prompt},
+                                        **prefill)
+    # the reference route at half the chunk: the same scan with its sums
+    # grouped otherwise, so its distance from the reference route is what
+    # 48 random layers make of rounding alone
+    cfg128 = dataclasses.replace(cfg, mamba=dataclasses.replace(
+        m, chunk_size=m.chunk_size // 2))
+    alt_logits, alt_cache = ttf.prefill(params, cfg128, {"tokens": prompt},
+                                        **prefill)
+    ops.reset_launch_counts()
+    logits, cache = ttf.prefill(params, cfg, {"tokens": prompt},
+                                opts=kernel_opts, **prefill)
+    torch.cuda.synchronize()
+    prefill_launches = ops.launch_counts()
+    pf_err, pf_rel = rel_err(torch, logits[..., :vocab],
+                             ref_logits[..., :vocab])
+    chunk_err = rel_err(torch, alt_logits[..., :vocab],
+                        ref_logits[..., :vocab])[0]
+
+    def drift(c):                 # per layer, relative to the largest |h|
+        return [rel_err(torch, c["stack"][0]["mixer"]["ssm"][i],
+                        ref_cache["stack"][0]["mixer"]["ssm"][i])[1]
+                for i in range(cfg.num_layers)]
+    kernel_drift, chunk_drift = drift(cache), drift(alt_cache)
+    del ref_logits, ref_cache, alt_logits, alt_cache
+    assert prefill_launches["ssd_scan"] == cfg.num_layers, prefill_launches
+    assert prefill_launches["rmsnorm_fwd"] == norms_per_pass
+    assert prefill_launches["flash_attention"] == 0
+    # the kernel route is no further from the reference route than the
+    # reference route is from itself at another chunk, with a factor of 2
+    # for the spread of such rounding walks
+    assert pf_err <= 2 * chunk_err, (pf_err, chunk_err)
+    layer_out, layer_state = [], []
+    with torch.inference_mode():
+        x = ttf._embed(params, cfg, prompt)
+        for _, layer in ttf._per_layer(params["stack"],
+                                       ttf.stack_plan(cfg).n_periods):
+            h = ops.rmsnorm(x, layer["ln1"]["scale"], cfg.norm_eps)
+            mix, c_ref = tmm.mamba_prefill(layer["mixer"], h, cfg,
+                                           impl="reference")
+            mix_k, c_k = tmm.mamba_prefill(layer["mixer"], h, cfg,
+                                           impl="kernel")
+            layer_out.append(rel_err(torch, mix_k, mix)[1])
+            layer_state.append(rel_err(torch, c_k["ssm"], c_ref["ssm"])[1])
+            x = x + mix
+        del x, h, mix, mix_k, c_ref, c_k
+    assert max(layer_state) < SSD_LIMIT and max(layer_out) < SSD_LIMIT, \
+        (layer_state, layer_out)
+    nxt = logits[:, -1].argmax(-1)[:, None]
+    assert torch.equal(nxt, generated[:, :1]), "prefill differs from serve()"
+    # decode against a full forward on the same (kernel) route, as the
+    # reference's test_decode_matches_forward runs prefill, decode and
+    # forward with one set of options
+    toks, dec_errs, decode_launches = prompt, [], []
+    for _ in range(3):
+        toks = torch.cat([toks, nxt], dim=1)
+        ops.reset_launch_counts()
+        logits, cache = ttf.decode_step(params, cfg, nxt, cache)
+        decode_launches.append(ops.launch_counts())
+        with torch.inference_mode():
+            full, _ = ttf.forward(params, cfg, {"tokens": toks},
+                                  opts=kernel_opts)
+        want = full[:, -1]
+        del full
+        dec_errs.append(rel_err(torch, logits[:, 0], want)[0])
+        torch.testing.assert_close(logits[:, 0], want, rtol=2e-3, atol=2e-3)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+    assert all(d["ssd_scan"] == 0 and d["rmsnorm_fwd"] == norms_per_pass
+               for d in decode_launches), decode_launches
+    emit("serve_mamba_check", params=n_params,
+         prefill_launches=prefill_launches,
+         decode_step_launches=decode_launches[0],
+         prefill_max_abs_err=pf_err, prefill_max_rel_err=pf_rel,
+         reference_chunk128_max_abs_err=chunk_err,
+         prefill_limit="2 x reference_chunk128_max_abs_err",
+         layer_ssm_state_max_rel_err=layer_state,
+         layer_mixer_out_max_rel_err=layer_out, layer_limit=SSD_LIMIT,
+         full_run_ssm_state_rel_drift=kernel_drift,
+         full_run_ssm_state_rel_drift_chunk128=chunk_drift,
+         decode_vs_forward_max_abs_err=dec_errs, decode_limit=2e-3,
+         forward_keys=toks.shape[1])
+    del cache, logits, want
+
+    # ---- d. kernel 9 at the prefill's shape: times and bound ----
+    args = ssd_inputs(torch, g, b, s_len, nh, hd, ds, a=a48)
+    chunk = m.chunk_size
+    got = ops.ssd_scan(*args, chunk=chunk)
+    ssd_err = rel_err(torch, got[0], ref.ssd_scan_chunked_ref(
+        *args, chunk=chunk)[0])[0]
+    del got
+    times = alternate(torch, {
+        "kernel": lambda: ops.ssd_scan(*args, chunk=chunk),
+        "plain": lambda: ref.ssd_scan_chunked_ref(*args, chunk=chunk)},
+        reps=10)
+    flops, n_bytes, flops_cb_per_head = ssd_work(b, s_len, nh, hd, ds, chunk)
+    ssd_bound, ssd_by = bound_ms(n_bytes, flops)
+    emit("ssd_main_shape", shape=[b, s_len, nh, hd, ds, chunk],
+         kernel_ms=times["kernel"], plain_ms=times["plain"], library_ms=None,
+         max_abs_err=ssd_err, flops=flops,
+         flops_cb_per_head=flops_cb_per_head, bytes=n_bytes,
+         bound_ms=ssd_bound, bound_by=ssd_by,
+         bound_ms_cb_per_head=bound_ms(n_bytes, flops_cb_per_head)[0],
+         kernel_TFLOPs=flops / times["kernel"] / 1e9,
+         computed_TFLOPs=flops_cb_per_head / times["kernel"] / 1e9,
+         bound_share=ssd_bound / times["kernel"],
+         prefill_share=times["kernel"] * cfg.num_layers
+         / (res["prefill_s"] * 1e3),
+         dynamic_smem_bytes=ssd.smem_bytes(hd, ds, chunk),
+         ptxas=[line.strip() for line in
+                _build.build_logs.get("ssd_scan", "").splitlines()
+                if "Used" in line or "spill" in line])
+    del args
+
+    # ---- e. where the serving time goes ----
+    profile_serving(torch, params, cfg, prompt, prefill,
+                    ("serve_mamba_profile", "mamba_decode_steps"))
+    del params
+    torch.cuda.empty_cache()
+    return {"name": SSD_KERNEL[0], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": SSD_KERNEL[1], "launches": launches["ssd_scan"],
+            "max_abs_err": ssd_err, "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": ssd_bound,
+            "bound_by": ssd_by, "library_ms": None}
 
 
 def main() -> int:
@@ -522,6 +854,7 @@ def main() -> int:
     assert launches["flash_attention"] == 0, launches   # not on this path
     assert all(launches[k] == 0 for k in WIRE_KERNELS), launches
     assert launches[SIM_KERNEL[0]] == 0, launches
+    assert launches["ssd_scan"] == 0, launches
     assert launches["consensus_mix"] == TRAIN["t_server"] * TRAIN["epochs"]
     assert launches["rmsnorm_fwd"] == norms_per_step * client_steps
     assert launches["rmsnorm_bwd"] == norms_per_step * client_steps
@@ -642,7 +975,7 @@ def main() -> int:
     serve_expected = {"consensus_mix": 0,
                       "flash_attention": qcfg.num_layers,
                       "rmsnorm_fwd": norms_per_pass * SERVE["gen"],
-                      "rmsnorm_bwd": 0, SIM_KERNEL[0]: 0,
+                      "rmsnorm_bwd": 0, SIM_KERNEL[0]: 0, "ssd_scan": 0,
                       **{k: 0 for k in WIRE_KERNELS}}
     generated = res["generated"]
     emit("serve", arch="qwen3-1.7b", batch=b, prompt_len=s_len,
@@ -695,33 +1028,9 @@ def main() -> int:
 
     # ---- 12. where the serving time goes: prefill and 8 decode steps
     # under the profiler, then the same decode steps timed alone ----
-    from torch.profiler import ProfilerActivity, profile
-    steps = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        logits, cache = ttf.prefill(params, qcfg, {"tokens": prompt},
-                                    opts=ttf.ApplyOptions(attn_impl="kernel"),
-                                    **{**prefill, "max_len": s_len + steps})
-        for _ in range(steps):
-            logits, cache = ttf.decode_step(
-                params, qcfg, logits[:, -1].argmax(-1)[:, None], cache)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    emit("serve_profile", steps=steps, **profile_summary(prof, wall_s))
-    logits, cache = ttf.prefill(params, qcfg, {"tokens": prompt},
-                                opts=ttf.ApplyOptions(attn_impl="kernel"),
-                                **{**prefill, "max_len": s_len + steps})
-    torch.cuda.synchronize()
-    step_s = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        logits, cache = ttf.decode_step(
-            params, qcfg, logits[:, -1].argmax(-1)[:, None], cache)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    emit("decode_steps", step_s=step_s)
-    del params, cache, logits
+    profile_serving(torch, params, qcfg, prompt, prefill,
+                    ("serve_profile", "decode_steps"))
+    del params
     torch.cuda.empty_cache()
 
     # ---- 13. the wire kernels vs their plain versions ----
@@ -806,7 +1115,7 @@ def main() -> int:
         "quantized_gossip_encode": WIRE_TRAIN["epochs"],
         "bucketed_gossip_round": WIRE_TRAIN["t_server"] * WIRE_TRAIN["epochs"],
         "bucketed_gossip_round_pipelined": 0, "quantized_gossip_round": 0,
-        SIM_KERNEL[0]: 0}
+        SIM_KERNEL[0]: 0, "ssd_scan": 0}
     emit("train_wire", arch="smollm-360m", params=n_params,
          compression=WIRE_TRAIN["compression"], wire=WIRE_TRAIN["wire"],
          error_feedback=WIRE_TRAIN["error_feedback"], loss=hist["loss"],
@@ -842,7 +1151,7 @@ def main() -> int:
         "rmsnorm_bwd": norms_per_step * client_steps // TRAIN["epochs"],
         "quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
         "bucketed_gossip_round_pipelined": stale_train["t_server"],
-        "quantized_gossip_round": 0, SIM_KERNEL[0]: 0}
+        "quantized_gossip_round": 0, SIM_KERNEL[0]: 0, "ssd_scan": 0}
     hist = run["history"]
     emit("train_wire_stale", arch="smollm-360m", staleness=1,
          loss=hist["loss"], epoch_s=hist["epoch_s"],
@@ -1126,7 +1435,7 @@ def main() -> int:
         return {"consensus_mix": mixes * epochs, "flash_attention": 0,
                 "rmsnorm_fwd": per_epoch_norms * epochs,
                 "rmsnorm_bwd": per_epoch_norms * epochs,
-                SIM_KERNEL[0]: kernel4 * epochs,
+                SIM_KERNEL[0]: kernel4 * epochs, "ssd_scan": 0,
                 **{k: 0 for k in WIRE_KERNELS}}
 
     # the ledger by host arithmetic: 8 live links of the 4-ring, T_S
@@ -1316,7 +1625,10 @@ def main() -> int:
         del run
         torch.cuda.empty_cache()
 
-    # ---- 22. per-kernel summary, card, result ----
+    # ---- 22. Mamba-2 serving: kernel 9, then full Mamba2-780M ----
+    ssd_row = mamba_serving(torch, g, SERVE)
+
+    # ---- 23. per-kernel summary, card, result ----
     r256 = rn_stats[256]
     kernels = [
         {"name": "consensus_mix", "route": "cuda",
@@ -1372,6 +1684,7 @@ def main() -> int:
          "launches": sim_launches[SIM_KERNEL[0]], "max_abs_err": sim_err,
          "ms": k4["kernel"], "plain_ms": sim_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None})
+    kernels.append(ssd_row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

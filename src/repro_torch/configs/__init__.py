@@ -1,14 +1,17 @@
 """Architecture configs of the port: ``get_arch`` / ``get_smoke`` by id.
 
-Only the archs whose model the port runs are registered; the others arrive
-with the model-zoo slice (ROADMAP.md, Queue 1).
+Only the archs whose model the port runs are registered: the dense GQA path
+(``qwen3_1_7b``, ``smollm_360m``) and the Mamba-2 path (``mamba2_780m``).
+Archs with MoE, MLA, an encoder-decoder or a frontend are not ported yet
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_1_7b, smollm_360m
+from repro_torch.configs import mamba2_780m, qwen3_1_7b, smollm_360m
 from repro_torch.configs.base import ArchConfig
 
-_ARCHS = {"qwen3_1_7b": qwen3_1_7b, "smollm_360m": smollm_360m}
+_ARCHS = {"mamba2_780m": mamba2_780m, "qwen3_1_7b": qwen3_1_7b,
+          "smollm_360m": smollm_360m}
 
 
 def _module(arch_id: str):
@@ -16,8 +19,8 @@ def _module(arch_id: str):
     if key not in _ARCHS:
         raise NotImplementedError(
             f"arch {arch_id!r} is not ported yet (the port has "
-            f"{sorted(_ARCHS)}); the rest of the model zoo is a later slice "
-            f"of ROADMAP.md Queue 1")
+            f"{sorted(_ARCHS)}); MoE, MLA, encoder-decoder and frontend "
+            f"archs are later slices of ROADMAP.md Queue 1")
     return _ARCHS[key]
 
 

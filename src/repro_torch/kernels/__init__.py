@@ -3,8 +3,9 @@
 * the Hopper kernels: ``csrc/consensus_mix.cu`` and the physical wire's
   ``csrc/quantized_wire.cu`` (CUDA C++, built by ``_build`` with nvcc and
   bound with ctypes, wrapped in ``consensus_mix.py``),
-  ``csrc/flash_attention.cu`` (wrapped in ``flash_attention.py``) and the
-  Triton RMSNorm in ``rmsnorm.py``;
+  ``csrc/flash_attention.cu`` (wrapped in ``flash_attention.py``),
+  ``csrc/ssd_scan.cu`` (wrapped in ``ssd_scan.py``) and the Triton RMSNorm
+  in ``rmsnorm.py``;
 * ``ops``, which launches them for CUDA tensors and runs the plain
   versions for CPU tensors;
 * ``ref``, the plain PyTorch versions.

@@ -4,10 +4,10 @@ For a CPU tensor each op runs its plain PyTorch version
 (``repro_torch.kernels.ref``); for a CUDA tensor it launches its Hopper
 kernel or raises — there is no path from a CUDA tensor to the plain
 version.  Port of ``repro.kernels.ops.consensus_mix_pytree``,
-``repro.kernels.ops.rmsnorm`` and ``repro.kernels.ops.flash_attention``,
-plus entry points for the simulated wire's kernel 4 and the physical wire's
-kernels (the reference's wire paths call jnp code; the port's call these on
-every period and round).
+``repro.kernels.ops.rmsnorm``, ``repro.kernels.ops.flash_attention`` and
+``repro.kernels.ops.ssd_scan``, plus entry points for the simulated wire's
+kernel 4 and the physical wire's kernels (the reference's wire paths call
+jnp code; the port's call these on every period and round).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.kernels import consensus_mix as _cm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 
@@ -27,6 +28,7 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _rn.fwd_launches = 0
     _rn.bwd_launches = 0
+    _ssd.launches = 0
     _cm.quant_mix_launches = 0
     for name in _cm.wire_launches:
         _cm.wire_launches[name] = 0
@@ -35,6 +37,7 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     return {"consensus_mix": _cm.launches, "flash_attention": _fa.launches,
             "rmsnorm_fwd": _rn.fwd_launches, "rmsnorm_bwd": _rn.bwd_launches,
+            "ssd_scan": _ssd.launches,
             "quantized_consensus_mix": _cm.quant_mix_launches,
             **_cm.wire_launches}
 
@@ -235,3 +238,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                   softcap=softcap, scale=scale)
     return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     softcap=softcap, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan  (model layout: xs (b,s,nh,hd), bs/cs (b,s,g,ds), dt (b,s,nh))
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan(xs: torch.Tensor, bs: torch.Tensor, cs: torch.Tensor,
+             dt: torch.Tensor, a_coef: torch.Tensor, *, chunk: int = 128):
+    """Kernel 9 with ``ssd_chunked``'s contract -> (y (b, s, nh, hd) f32,
+    final state (b, nh, ds, hd) f32), over chunks of ``min(chunk, s)``
+    steps, B and C read from group 0: the CUDA kernel on the card (forward
+    only: operands that need a gradient raise; it reads the layout through
+    its strides, so B and C are never broadcast to the heads), the plain
+    version on the CPU."""
+    if not xs.is_cuda:
+        return _ref.ssd_scan_chunked_ref(xs, bs, cs, dt, a_coef, chunk=chunk)
+    return _ssd.ssd_scan_cuda(xs, bs, cs, dt, a_coef.to(torch.float32),
+                              chunk=chunk)

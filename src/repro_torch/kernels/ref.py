@@ -84,6 +84,92 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
+# mamba2 / SSD scan (kernel 9)
+# ---------------------------------------------------------------------------
+
+
+def ssd_scan_ref(xs: torch.Tensor, bs: torch.Tensor, cs: torch.Tensor,
+                 dt: torch.Tensor, a_coef: torch.Tensor):
+    """Naive per-timestep SSM recurrence (the definition, O(s) sequential):
+
+        h_t = exp(dt_t * A_h) * h_{t-1} + dt_t * B_t x_t'
+        y_t = C_t . h_t
+
+    xs: (b, s, nh, hd); bs/cs: (b, s, 1, ds); dt: (b, s, nh); a_coef:
+    (nh,) negative.  Returns (y (b, s, nh, hd) f32, state (b, nh, ds, hd)
+    f32).  The tests' oracle; the model never calls it."""
+    bsz, s, nh, hd = xs.shape
+    ds = bs.shape[-1]
+    a = a_coef.float()
+    h = torch.zeros((bsz, nh, ds, hd), dtype=torch.float32, device=xs.device)
+    ys = []
+    for t in range(s):
+        x_t = xs[:, t].float()                       # (b, nh, hd)
+        b_t = bs[:, t, 0].float()                    # (b, ds)
+        c_t = cs[:, t, 0].float()
+        dt_t = dt[:, t].float()                      # (b, nh)
+        decay = torch.exp(dt_t * a)
+        upd = torch.einsum("bn,bhp->bhnp", b_t, x_t * dt_t[..., None])
+        h = h * decay[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", c_t, h))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_scan_chunked_ref(xs: torch.Tensor, bs: torch.Tensor,
+                         cs: torch.Tensor, dt: torch.Tensor,
+                         a_coef: torch.Tensor, *, chunk: int):
+    """Kernel 9's plain version: what the TPU kernel's body computes, for
+    every (batch, head) at once, over chunks of ``q = min(chunk, s)`` steps
+    with a running state ``h`` (ds, hd) per (batch, head):
+
+        cum   = cumsum(dt * A) over the chunk (inclusive), total = cum[-1]
+        y     = (C B' * where(k <= q, exp(cum_q - cum_k), 0) * dt_k) x
+                + exp(cum) * (C h)
+        h    <- exp(total) h + sum_k (B_k * exp(total - cum_k) dt_k) x_k'
+
+    Takes the model layout: xs (b, s, nh, hd), bs/cs (b, s, 1, ds) (group 0
+    read for every head), dt (b, s, nh), a_coef (nh,); any float dtype,
+    computed in f32.  Steps past ``s`` in the last chunk are zeros with
+    dt = 0 (decay 1, no input), as the TPU kernel masks its ragged tail.
+    Returns (y (b, s, nh, hd) f32, final state (b, nh, ds, hd) f32)."""
+    bsz, s, nh, hd = xs.shape
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    x = xs.float()
+    bb = bs[:, :, 0].float()
+    cc = cs[:, :, 0].float()
+    dtf = dt.float()
+    if pad:
+        x, bb, cc, dtf = (torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, bb, cc, dtf))
+    a = a_coef.float()
+    tri = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
+    h = torch.zeros((bsz, nh, bb.shape[-1], hd), dtype=torch.float32,
+                    device=xs.device)
+    ys = []
+    for c in range(nc):
+        rows = slice(c * q, (c + 1) * q)
+        xc, bc, c_c, dtc = x[:, rows], bb[:, rows], cc[:, rows], dtf[:, rows]
+        cum = torch.cumsum(dtc * a, dim=1)                      # (b, q, nh)
+        total = cum[:, -1]                                      # (b, nh)
+        seg = cum[:, :, None] - cum[:, None]                    # (b, q, k, nh)
+        l_mat = torch.where(tri[..., None], torch.exp(seg),
+                            torch.zeros((), device=xs.device))
+        scores = torch.einsum("bqn,bkn->bqk", c_c, bc)[..., None]
+        scores = scores * l_mat * dtc[:, None]                  # (b, q, k, nh)
+        y = torch.einsum("bqkh,bkhp->bqhp", scores, xc)
+        ch = torch.einsum("bqn,bhnp->bqhp", c_c, h)
+        y = y + torch.exp(cum)[..., None] * ch
+        w = torch.exp(total[:, None] - cum) * dtc               # (b, q, nh)
+        upd = torch.einsum("bkhn,bkhp->bhnp", bc[:, :, None] * w[..., None],
+                           xc)
+        h = torch.exp(total)[..., None, None] * h + upd
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :s], h
+
+
+# ---------------------------------------------------------------------------
 # the physical wire: kernels 5-8 (quantized, delta-coded gossip)
 #
 # The reference runs these steps under jit, where XLA:CPU contracts some

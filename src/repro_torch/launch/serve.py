@@ -1,12 +1,16 @@
 """Serving entry point on PyTorch: port of ``repro.launch.serve``.
 
 Batched prefill, then a synchronous greedy (or temperature) decode loop over
-the KV cache.  The prefill's attention runs on the flash-attention kernel on
-the card (``attn_impl="kernel"``; ``--device cpu`` runs its plain version on
-the CPU), every norm on the RMSNorm kernel.  float32 matmuls run in full
-float32: TF32 is switched off.
+the cache (KV slots for attention layers, the conv window and SSM state for
+Mamba-2 layers).  The prefill runs on the kernel route
+(``attn_impl="kernel"``): its attention on the flash-attention kernel and a
+Mamba-2 layer's scan on the SSD-scan kernel on the card (``--device cpu``
+runs their plain versions on the CPU), every norm on the RMSNorm kernel.
+float32 matmuls run in full float32: TF32 is switched off.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --full --batch 4 --prompt-len 1024 --gen 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --full --batch 4 --prompt-len 1024 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """

@@ -1,0 +1,269 @@
+"""Mamba2 (state-space duality) block: port of ``repro.models.mamba``.
+
+Recurrence implemented (per head h, state dim n, head dim p):
+    h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t x_t'
+    y_t = C_t h_t + D * x_t
+
+The full-sequence forward splits it into chunk-local quadratic products plus
+a small inter-chunk state recurrence (the SSD form).  ``impl="reference"``
+runs the plain chunked form ``ssd_chunked`` (differentiable);
+``impl="kernel"`` runs ``kernels.ops.ssd_scan`` — kernel 9 on the card, its
+plain version on the CPU — the reference's ``impl="pallas"``.  Unlike the
+reference, whose ``mamba_prefill`` always calls ``ssd_chunked``, the port's
+prefill takes the same ``impl``: the kernel returns the outputs and the
+final state from one scan, which is what the prefill needs.
+
+``softplus`` and ``silu`` follow JAX's definitions: ``jax.nn.softplus`` is
+``logaddexp(x, 0)`` (``torch.nn.functional.softplus`` computes
+``log1p(exp(x))`` and returns x itself above 20), ``jax.nn.silu`` is
+``x * sigmoid(x)``.  The causal convolution is the reference's sum of
+shifted products, not ``conv1d`` (which cuDNN runs in TF32 unless told
+otherwise).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.models.modules import _dense_init, rmsnorm_apply, rmsnorm_init
+
+N_GROUPS = 1  # B/C groups (mamba2 default n_groups=1 at these scales)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``."""
+    return x * torch.sigmoid(x)
+
+
+def mamba_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+               device="cpu") -> Dict:
+    m = cfg.mamba
+    d = cfg.d_model
+    di = m.d_inner(d)
+    nh = m.num_heads(d)
+    conv_ch = di + 2 * N_GROUPS * m.d_state
+    return {
+        # order: [z (di), xBC (conv_ch), dt (nh)]
+        "in_proj": _dense_init(gen, (d, 2 * di + 2 * N_GROUPS * m.d_state + nh),
+                               dtype, device),
+        "conv_w": _dense_init(gen, (m.d_conv, conv_ch), dtype, device,
+                              scale=1.0 / math.sqrt(m.d_conv)),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
+        "dt_bias": torch.zeros((nh,), dtype=dtype, device=device),
+        "a_log": torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                        device=device)).to(dtype),
+        "d_skip": torch.ones((nh,), dtype=dtype, device=device),
+        "norm": rmsnorm_init(di, dtype, device),
+        "out_proj": _dense_init(gen, (di, d), dtype, device),
+    }
+
+
+def _split_proj(params, x, cfg: ArchConfig):
+    m = cfg.mamba
+    di = m.d_inner(cfg.d_model)
+    zxbcdt = torch.einsum("bsd,de->bse", x, params["in_proj"])
+    z, xbc, dt = torch.split(
+        zxbcdt, [di, di + 2 * N_GROUPS * m.d_state,
+                 zxbcdt.shape[-1] - 2 * di - 2 * N_GROUPS * m.d_state], dim=-1)
+    dt = softplus(dt.float() + params["dt_bias"].float())
+    return z, xbc, dt  # (b,s,di), (b,s,conv_ch), (b,s,nh) f32
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along seq. xbc: (b, s, ch); w: (width, ch)."""
+    width = w.shape[0]
+    s = xbc.shape[1]
+    pad = torch.nn.functional.pad(xbc, (0, 0, width - 1, 0))
+    out = sum(pad[:, i:i + s] * w[i] for i in range(width))
+    return silu(out + b)
+
+
+def _split_xbc(xbc, cfg: ArchConfig):
+    m = cfg.mamba
+    di = m.d_inner(cfg.d_model)
+    nh = m.num_heads(cfg.d_model)
+    xs, bs, cs = torch.split(xbc, [di, N_GROUPS * m.d_state,
+                                   N_GROUPS * m.d_state], dim=-1)
+    b, s = xs.shape[:2]
+    xs = xs.reshape(b, s, nh, m.head_dim)
+    bs = bs.reshape(b, s, N_GROUPS, m.d_state)
+    cs = cs.reshape(b, s, N_GROUPS, m.d_state)
+    return xs, bs, cs
+
+
+def segsum(a: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{j < k <= i} a[..., k]
+    (=-inf for j > i).  a: (..., q)."""
+    q = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, diff, torch.full((), -math.inf,
+                                              device=a.device))
+
+
+def ssd_chunked(xs, bs, cs, dt, a_coef, chunk: int):
+    """Chunked SSD scan (the plain reference form).
+
+    xs: (b,s,nh,hd); bs/cs: (b,s,g,ds); dt: (b,s,nh) f32; a_coef: (nh,)
+    negative.  Returns y: (b,s,nh,hd) f32 and the final state
+    (b,nh,ds,hd) f32 (the layout the reference's code returns; its
+    docstring says (b,nh,hd,ds)).
+    """
+    bsz, s, nh, hd = xs.shape
+    ds = bs.shape[-1]
+    orig_s = s
+    if s % chunk:
+        # right-pad with dt=0 steps: decay=exp(0)=1 and dt*B*x=0, so padding
+        # is exact for both outputs (sliced off) and the final state.
+        pad = chunk - s % chunk
+
+        def z(t):
+            return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                           + (0, pad))
+        xs, bs, cs, dt = z(xs), z(bs), z(cs), z(dt)
+        s = s + pad
+    nc = s // chunk
+    # group-broadcast B/C to heads (g=1)
+    bh = bs[:, :, 0][:, :, None].expand(bsz, s, nh, ds)
+    ch = cs[:, :, 0][:, :, None].expand(bsz, s, nh, ds)
+
+    def r(t, last):  # reshape to chunks
+        return t.reshape((bsz, nc, chunk) + last)
+
+    xc = r(xs, (nh, hd)).float()
+    bc = r(bh, (nh, ds)).float()
+    cc = r(ch, (nh, ds)).float()
+    dtc = r(dt, (nh,))
+    a = dtc * a_coef.float()                          # (b,nc,q,nh) log-decay
+    a_t = a.movedim(-1, -2)                           # (b,nc,nh,q)
+    cum = torch.cumsum(a_t, dim=-1)                   # (b,nc,nh,q)
+    total = cum[..., -1]                              # (b,nc,nh)
+
+    # ---- intra-chunk (quadratic) ----
+    l_mat = torch.exp(segsum(a_t))                    # (b,nc,nh,q,q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", cc, bc) * l_mat
+    # weight by dt of the source step
+    scores = scores * dtc.movedim(-1, -2)[:, :, :, None, :]
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores, xc)
+
+    # ---- chunk states ----
+    decay_to_end = torch.exp(total[..., None] - cum)  # (b,nc,nh,q)
+    sts = torch.einsum("bcqhn,bchq,bcqh,bcqhp->bchnp",
+                       bc, decay_to_end, dtc, xc)
+
+    # ---- inter-chunk recurrence over nc (sequential, tiny) ----
+    h = torch.zeros((bsz, nh, ds, hd), dtype=torch.float32, device=xs.device)
+    prev_states = []
+    for c in range(nc):
+        prev_states.append(h)                         # state BEFORE chunk
+        h = h * torch.exp(total[:, c])[..., None, None] + sts[:, c]
+    prev = torch.stack(prev_states, dim=1)            # (b,nc,nh,ds,hd)
+
+    # ---- inter-chunk contribution ----
+    in_decay = torch.exp(cum)                         # (b,nc,nh,q)
+    y_inter = torch.einsum("bcqhn,bchq,bchnp->bcqhp", cc, in_decay, prev)
+
+    y = (y_intra + y_inter).reshape(bsz, s, nh, hd)
+    return y[:, :orig_s], h
+
+
+def _mix_out(params, x, xs, z, y, cfg: ArchConfig) -> torch.Tensor:
+    """Skip term, gate, gated norm and out-projection after the scan (or
+    the decode step's state update)."""
+    y = y + xs.float() * params["d_skip"].float()[:, None]
+    y = y.reshape(x.shape[0], x.shape[1], -1)
+    y = y * silu(z.float())
+    y = rmsnorm_apply(params["norm"], y.to(x.dtype), cfg.norm_eps)
+    return torch.einsum("bsd,de->bse", y, params["out_proj"])
+
+
+def mamba_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+                impl: str = "reference") -> torch.Tensor:
+    """Full-sequence forward (training / prefill)."""
+    return mamba_prefill(params, x, cfg, impl=impl)[0]
+
+
+def mamba_prefill(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+                  conv_cache_dtype=torch.bfloat16,
+                  impl: str = "reference") -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence forward that ALSO returns the decode cache — one SSD
+    scan for both: ``{"conv": the last d_conv - 1 pre-conv inputs,
+    "ssm": the final state (b, nh, ds, hd) f32}``."""
+    m = cfg.mamba
+    z, xbc_raw, dt = _split_proj(params, x, cfg)
+    xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
+    xs, bs, cs = _split_xbc(xbc, cfg)
+    a_coef = -torch.exp(params["a_log"].float())
+    if impl == "kernel":
+        y, final = kops.ssd_scan(xs, bs, cs, dt, a_coef, chunk=m.chunk_size)
+    elif impl == "reference":
+        y, final = ssd_chunked(xs, bs, cs, dt, a_coef, m.chunk_size)
+    else:
+        raise ValueError(f"impl must be 'reference' or 'kernel', got {impl!r}")
+    out = _mix_out(params, x, xs, z, y, cfg)
+    cache = {"conv": xbc_raw[:, -(m.d_conv - 1):].to(conv_cache_dtype),
+             "ssm": final}
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# incremental decode
+# ---------------------------------------------------------------------------
+
+
+def mamba_cache_init(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                     device="cpu") -> Dict:
+    m = cfg.mamba
+    d = cfg.d_model
+    di = m.d_inner(d)
+    nh = m.num_heads(d)
+    conv_ch = di + 2 * N_GROUPS * m.d_state
+    return {
+        "conv": torch.zeros((batch, m.d_conv - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, nh, m.d_state, m.head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
+                      cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
+    """x: (b, 1, d).  O(1) per token.  Writes the new conv window and SSM
+    state into ``cache`` IN PLACE (the reference returns a new cache) and
+    returns ``(y, cache)``."""
+    m = cfg.mamba
+    z, xbc_raw, dt = _split_proj(params, x, cfg)          # seq dim == 1
+    # conv over [cache, current]
+    hist = torch.cat([cache["conv"], xbc_raw.to(cache["conv"].dtype)], dim=1)
+    w = params["conv_w"]
+    window = hist[:, -m.d_conv:].to(torch.promote_types(hist.dtype, w.dtype))
+    conv_out = torch.einsum("bwc,wc->bc", window, w.to(window.dtype)) \
+        + params["conv_b"]
+    xbc = silu(conv_out)[:, None]                         # (b,1,ch)
+    xs, bs, cs = _split_xbc(xbc, cfg)
+    a_coef = -torch.exp(params["a_log"].float())
+    dt1 = dt[:, 0]                                        # (b,nh)
+    decay = torch.exp(dt1 * a_coef)                       # (b,nh)
+    bx = torch.einsum("bhn,bhp->bhnp",
+                      bs[:, 0, 0][:, None].expand(*dt1.shape, m.d_state)
+                      .float(),
+                      xs[:, 0].float() * dt1[..., None])
+    ssm = cache["ssm"] * decay[..., None, None] + bx
+    y = torch.einsum("bhn,bhnp->bhp",
+                     cs[:, 0, 0][:, None].expand(*dt1.shape, m.d_state)
+                     .float(), ssm)
+    out = _mix_out(params, x, xs[:, 0], z, y, cfg)
+    cache["conv"].copy_(hist[:, 1:])
+    cache["ssm"].copy_(ssm)
+    return out, cache

@@ -1,4 +1,6 @@
-"""Decoder transformer: port of the dense path of ``repro.models.transformer``.
+"""Decoder stack: port of ``repro.models.transformer`` for the dense GQA
+path and the Mamba-2 path (``mamba`` layers, ``models.mamba``).  MoE, MLA,
+encoder-decoder and frontend archs raise ``NotImplementedError``.
 
 The parameter tree has the reference's layout exactly — ``embed``,
 ``final_norm``, optional ``head``, and ``stack``: a tuple of one block dict
@@ -17,10 +19,12 @@ Public API
     decode_step(params, cfg, token, cache)      -> (logits, cache)
 
 The cache is a plain dict with the reference's key paths: ``position``,
-``prefix`` (empty on the dense path) and ``stack``, one dict per layer of a
-period with every leaf stacked over periods.  ``position`` is a 0-dim int32
-tensor kept on the CPU: the decode step needs it on the host to pick the
-ring slot, and a device copy would cost a synchronisation per step.
+``prefix`` (empty on the ported paths) and ``stack``, one dict per layer of
+a period with every leaf stacked over periods: a ring-buffer KV cache for an
+attention layer, the conv window and SSM state for a ``mamba`` layer.
+``position`` is a 0-dim int32 tensor kept on the CPU: the decode step needs
+it on the host to pick the ring slot, and a device copy would cost a
+synchronisation per step.
 ``decode_step`` updates the cache's tensors in place.  Prefill and decode
 run under ``torch.inference_mode()``: no autograd tape is recorded.
 """
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import modules as nn
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -42,9 +47,10 @@ from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 class ApplyOptions:
     """Knobs threaded through the apply path (no param-structure impact)."""
 
-    # "reference" (mha_attend / attend_chunked) or "kernel" (the
-    # flash-attention op: the CUDA kernel on the card); the reference calls
-    # the latter "pallas"
+    # "reference" (mha_attend / attend_chunked; ssd_chunked in a mamba
+    # layer) or "kernel" (the flash-attention op, and in a mamba layer the
+    # SSD-scan op: the CUDA kernels on the card); the reference calls the
+    # latter "pallas"
     attn_impl: str = "reference"
 
 
@@ -53,25 +59,25 @@ DEFAULT_OPTS = ApplyOptions()
 
 @dataclasses.dataclass(frozen=True)
 class StackPlan:
-    num_prefix: int          # unscanned leading layers (0 on the dense path)
+    num_prefix: int          # unscanned leading layers (0 on the ported paths)
     period: int              # layers per stacked step
     n_periods: int
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    later = [name for name, v in (("moe", cfg.moe), ("mla", cfg.mla),
-                                  ("mamba", cfg.mamba),
-                                  ("encdec", cfg.encdec),
+def _check_ported(cfg: ArchConfig) -> None:
+    later = [name for name, v in (("MoE", cfg.moe), ("MLA", cfg.mla),
+                                  ("encoder-decoder", cfg.encdec),
                                   ("frontend", cfg.frontend))
              if v is not None]
-    if later or "mamba" in cfg.layer_pattern:
+    if later:
         raise NotImplementedError(
-            f"{cfg.name}: {later or ['mamba']} blocks arrive with the "
-            f"model-zoo slice (ROADMAP.md); this slice ports the dense path")
+            f"{cfg.name}: {', '.join(later)} blocks are not ported yet "
+            f"(ROADMAP.md, Queue 1); the port runs dense GQA and mamba "
+            f"layers")
 
 
 def stack_plan(cfg: ArchConfig) -> StackPlan:
-    _check_dense(cfg)
+    _check_ported(cfg)
     period = len(cfg.layer_pattern)
     if cfg.num_layers % period:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
@@ -84,12 +90,18 @@ def stack_plan(cfg: ArchConfig) -> StackPlan:
 # ---------------------------------------------------------------------------
 
 
-def block_init(gen, cfg: ArchConfig, dtype=torch.float32,
+def block_init(gen, cfg: ArchConfig, kind: str, dtype=torch.float32,
                device="cpu") -> Dict:
+    """One block's parameters.  A ``mamba`` block keeps the reference's
+    ``ln2`` leaf, which its forward never reads, and has no ``ffn`` when
+    ``d_ff == 0``, so the tree has the reference's key paths."""
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": nn.rmsnorm_init(d, dtype, device),
-                         "ln2": nn.rmsnorm_init(d, dtype, device),
-                         "mixer": nn.attention_init(gen, cfg, dtype, device)}
+                         "ln2": nn.rmsnorm_init(d, dtype, device)}
+    if kind == "mamba":
+        p["mixer"] = mamba_mod.mamba_init(gen, cfg, dtype, device)
+    else:
+        p["mixer"] = nn.attention_init(gen, cfg, dtype, device)
     if cfg.d_ff > 0:
         p["ffn"] = nn.mlp_init(gen, d, cfg.d_ff, dtype, device)
     if cfg.final_logit_softcap is not None:  # gemma2 family: post-norms
@@ -103,9 +115,17 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
                 causal: bool = True) -> torch.Tensor:
     """Full-sequence pre-norm block."""
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
-    mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
-                             causal=causal, attn_impl=opts.attn_impl)
+    if kind == "mamba":
+        mix = mamba_mod.mamba_apply(params["mixer"], h, cfg,
+                                    impl=_ssd_impl(opts))
+    else:
+        mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
+                                 causal=causal, attn_impl=opts.attn_impl)
     return _block_rest(params, x, mix, cfg)
+
+
+def _ssd_impl(opts: ApplyOptions) -> str:
+    return "kernel" if opts.attn_impl == "kernel" else "reference"
 
 
 def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
@@ -140,8 +160,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     }
     if not cfg.tie_embeddings:
         params["head"] = nn._dense_init(gen, (d, vp), dtype, device)
-    periods = [[block_init(gen, cfg, dtype, device)
-                for _ in range(plan.period)] for _ in range(plan.n_periods)]
+    periods = [[block_init(gen, cfg, cfg.pattern_for_layer(i), dtype, device)
+                for i in range(plan.period)] for _ in range(plan.n_periods)]
     params["stack"] = tuple(
         tree_map(lambda *layers: torch.stack(layers),
                  *[periods[p][i] for p in range(plan.n_periods)])
@@ -263,8 +283,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     plan = stack_plan(cfg)
 
     def stacked(i):
-        one = nn.attention_cache_init(cfg, batch, max_len,
-                                      cfg.pattern_for_layer(i), dtype, device)
+        kind = cfg.pattern_for_layer(i)
+        if kind == "mamba":
+            one = mamba_mod.mamba_cache_init(cfg, batch, dtype, device)
+        else:
+            one = nn.attention_cache_init(cfg, batch, max_len, kind, dtype,
+                                          device)
         return {"mixer": tree_map(lambda t: t[None].repeat(
             plan.n_periods, *([1] * t.dim())), one)}
 
@@ -275,10 +299,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
                   position: int) -> torch.Tensor:
-    """One block of a decode step; writes its k/v into ``cache``."""
+    """One block of a decode step; writes its k/v (an attention layer) or
+    its conv window and SSM state (a mamba layer) into ``cache``."""
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
-    mix, _ = nn.attention_decode_step(params["mixer"], h, cache["mixer"],
-                                      position, cfg, layer_kind=kind)
+    if kind == "mamba":
+        mix, _ = mamba_mod.mamba_decode_step(params["mixer"], h,
+                                             cache["mixer"], cfg)
+    else:
+        mix, _ = nn.attention_decode_step(params["mixer"], h, cache["mixer"],
+                                          position, cfg, layer_kind=kind)
     return _block_rest(params, x, mix, cfg)
 
 
@@ -308,7 +337,9 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     ready for decode: per layer, the full-sequence block whose attention
     goes through ``dispatch_attend(attn_impl=opts.attn_impl)``, recording
     its K/V (padded to the cache, or the last ``n`` keys in ring order for a
-    sliding-window layer).  Returns the last position's logits (b, 1, v)."""
+    sliding-window layer); a mamba layer's ``mamba_prefill`` (its scan on
+    kernel 9 under ``attn_impl="kernel"``) records its conv window and final
+    SSM state.  Returns the last position's logits (b, 1, v)."""
     tokens = batch["tokens"]
     b, seq = tokens.shape
     max_len = max_len or seq
@@ -320,21 +351,33 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             _per_layer(params["stack"], plan.n_periods),
             _per_layer(cache["stack"], plan.n_periods)):
         h = nn.rmsnorm_apply(layer["ln1"], x, cfg.norm_eps)
-        mix, k, v = nn.attention_apply_kv(
-            layer["mixer"], h, cfg, layer_kind=cfg.pattern_for_layer(i),
-            positions=positions, attn_impl=opts.attn_impl)
         slots = layer_cache["mixer"]
-        n = slots["k"].shape[1]
-        if n >= seq:
-            filled = {"k": _pad_to(k, n), "v": _pad_to(v, n),
-                      "pos": _pad_to(positions, n, fill=-1)}
-        else:  # sliding-window ring: keep the last n, slot = pos % n
-            filled = _ring_pack(k, v, positions, n, cache_dtype)
+        kind = cfg.pattern_for_layer(i)
+        if kind == "mamba":
+            mix, filled = mamba_mod.mamba_prefill(
+                layer["mixer"], h, cfg, conv_cache_dtype=slots["conv"].dtype,
+                impl=_ssd_impl(opts))
+        else:
+            mix, k, v = nn.attention_apply_kv(
+                layer["mixer"], h, cfg, layer_kind=kind, positions=positions,
+                attn_impl=opts.attn_impl)
+            filled = _attention_fill(k, v, positions, slots["k"].shape[1],
+                                     cache_dtype)
         for key, val in filled.items():
             slots[key].copy_(val)
         x = _block_rest(layer, x, mix, cfg)
     cache["position"] = torch.tensor(seq, dtype=torch.int32)
     return _head(params, cfg, x[:, -1:]), cache
+
+
+def _attention_fill(k, v, positions, n: int, cache_dtype) -> Dict:
+    """An attention layer's cache slots after the prompt: its K/V padded to
+    the cache's ``n`` slots, or the last ``n`` keys in ring order for a
+    sliding-window layer shorter than the prompt."""
+    if n >= k.shape[1]:
+        return {"k": _pad_to(k, n), "v": _pad_to(v, n),
+                "pos": _pad_to(positions, n, fill=-1)}
+    return _ring_pack(k, v, positions, n, cache_dtype)
 
 
 def _pad_to(arr: torch.Tensor, n: int, fill=0) -> torch.Tensor:

@@ -111,8 +111,17 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
     u = torch.from_numpy(rng.uniform(0, 1, (4, 300)).astype(np.float32))
     assert torch.equal(ops.quantized_consensus_mix(a, w, u, chunk=60),
                        ref.quantized_consensus_mix_ref(a, w, u, chunk=60))
+    xs = torch.from_numpy(rng.standard_normal((1, 9, 2, 4)).astype(np.float32))
+    bs = torch.from_numpy(rng.standard_normal((1, 9, 1, 8)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(0, 1, (1, 9, 2)).astype(np.float32))
+    a_coef = -torch.ones(2)
+    for got, want in zip(
+            ops.ssd_scan(xs, bs, bs, dt, a_coef, chunk=4),
+            ref.ssd_scan_chunked_ref(xs, bs, bs, dt, a_coef, chunk=4)):
+        assert torch.equal(got, want)
     assert ops.launch_counts() == {"consensus_mix": 0, "flash_attention": 0,
                                    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
+                                   "ssd_scan": 0,
                                    "quantized_consensus_mix": 0,
                                    "quantized_gossip_encode": 0,
                                    "bucketed_gossip_round": 0,

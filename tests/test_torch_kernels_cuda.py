@@ -8,7 +8,8 @@ machine, which has no JAX:
 
 Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward; the
 flash-attention kernel 2e-5 in f32 (5e-5 with a softcap) and 2e-2 in bf16,
-the tolerances the reference holds its Pallas kernel to.  The simulated
+the tolerances the reference holds its Pallas kernel to; the SSD-scan
+kernel 2e-4, the reference's SSD tolerance.  The simulated
 wire's kernel 4 and the physical wire's kernels (5-8), and the wire periods
 built on the latter: bitwise, since kernel and plain version pin every
 rounding to the same operations.  The simulated periods: 1e-5 (their
@@ -169,6 +170,92 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
             ops.flash_attention(*bad)
     with pytest.raises(RuntimeError, match="forward only"):
         ops.flash_attention(q.requires_grad_(True), k, v)
+
+
+# ---------------------------------------------------------------------------
+# kernel 9: the SSD scan (2e-4 against its plain version, the tolerance the
+# reference holds its own SSD kernel to: f32 sums in another order, and
+# exp(cum_t - cum_k) of cumulative decays that cancel most of their digits)
+# ---------------------------------------------------------------------------
+
+SSD_SWEEP = [                       # (b, s, nh, hd, ds, chunk)
+    (1, 128, 2, 32, 64, 64),
+    (2, 256, 4, 64, 128, 128),
+    (1, 200, 2, 32, 64, 64),        # ragged: s % chunk != 0
+    (2, 64, 8, 64, 128, 64),        # single chunk
+    (1, 192, 2, 32, 64, 48),        # chunk not a multiple of a tile
+    (2, 96, 3, 128, 16, 256),       # hd 128, chunk cut to s
+]
+
+
+def _ssd_inputs(cuda, b, s, nh, hd, ds, seed=0, dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xs = torch.randn((b, s, nh, hd), device=cuda, generator=g)
+    bs = torch.randn((b, s, 1, ds), device=cuda, generator=g) * 0.5
+    cs = torch.randn((b, s, 1, ds), device=cuda, generator=g) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), device=cuda, generator=g))
+    a_coef = -torch.exp(torch.linspace(-1.0, 1.0, nh, device=cuda))
+    return xs.to(dtype), bs.to(dtype), cs.to(dtype), dt, a_coef
+
+
+def _ssd_close(got, want):
+    for g_, w_ in zip(got, want):
+        assert g_.dtype == torch.float32 and g_.shape == w_.shape
+        torch.testing.assert_close(g_, w_, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", SSD_SWEEP)
+def test_ssd_scan_kernel_matches_plain(cuda, shape):
+    *dims, chunk = shape
+    args = _ssd_inputs(cuda, *dims, seed=sum(shape))
+    before = ops.launch_counts()["ssd_scan"]
+    got = ops.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    _ssd_close(got, ref.ssd_scan_chunked_ref(*args, chunk=chunk))
+
+
+def test_ssd_scan_kernel_bf16_strided_and_extremes(cuda):
+    # bf16 x, B and C, cast on load as the plain version casts them
+    args = _ssd_inputs(cuda, 2, 160, 4, 64, 128, dtype=torch.bfloat16)
+    _ssd_close(ops.ssd_scan(*args, chunk=64),
+               ref.ssd_scan_chunked_ref(*args, chunk=64))
+    # the model's layout: x, B and C are views into one (b, s, conv) tensor
+    b, s, nh, hd, ds = 2, 100, 4, 32, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    xbc = torch.randn((b, s, nh * hd + 2 * ds), device=cuda, generator=g)
+    xs = xbc[..., :nh * hd].view(b, s, nh, hd)
+    bs = xbc[..., nh * hd:nh * hd + ds].view(b, s, 1, ds)
+    cs = xbc[..., nh * hd + ds:].view(b, s, 1, ds)
+    _, _, _, dt, a_coef = _ssd_inputs(cuda, b, s, nh, hd, ds)
+    assert not xs.is_contiguous()
+    _ssd_close(ops.ssd_scan(xs, bs, cs, dt, a_coef, chunk=32),
+               ref.ssd_scan_chunked_ref(xs, bs, cs, dt, a_coef, chunk=32))
+    # dt = 0: y = 0 and state = 0, exactly
+    y, st = ops.ssd_scan(xs, bs, cs, torch.zeros_like(dt), a_coef, chunk=32)
+    assert not y.any() and not st.any()
+    # the serving shape's decays: A = -(1..48), cum in the thousands
+    args = _ssd_inputs(cuda, 1, 512, 48, 64, 128, seed=2)
+    a48 = -torch.arange(1, 49, device=cuda, dtype=torch.float32)
+    _ssd_close(ops.ssd_scan(*args[:4], a48, chunk=256),
+               ref.ssd_scan_chunked_ref(*args[:4], a48, chunk=256))
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    xs, bs, cs, dt, a = _ssd_inputs(cuda, 1, 16, 2, 32, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_scan_cuda(xs.cpu(), bs.cpu(), cs.cpu(), dt.cpu(), a.cpu(),
+                      chunk=8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.ssd_scan(xs.double(), bs.double(), cs.double(), dt, a, chunk=8)
+    with pytest.raises(TypeError, match="float32 dt"):
+        ops.ssd_scan(xs, bs, cs, dt.bfloat16(), a, chunk=8)
+    with pytest.raises(ValueError, match="d_state"):
+        ops.ssd_scan(xs, bs[..., :60], cs[..., :60], dt, a, chunk=8)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.ssd_scan(xs.requires_grad_(True), bs, cs, dt, a, chunk=8)
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,8 @@ SmolLM smoke config (2 layers, d = 120, 3/1 heads), the reference's
 ``init_params`` carried over with ``params_from_numpy``, tokens from a numpy
 seed.  Tolerances: logits and loss atol 1e-4 (f32 matmuls over d = 120 and
 a 512-way softmax, summed in another order); gradients rtol/atol 1e-4."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -14,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke as j_get_smoke  # noqa: E402
 from repro.models import modules as jnn  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
+from repro_torch.configs import base as tcfg  # noqa: E402
 from repro_torch.configs import get_arch, get_smoke  # noqa: E402
 from repro_torch.models import modules as tnn  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
@@ -233,3 +236,68 @@ def test_tree_helpers_leave_no_reference_cycle():
         assert alive() is None
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 path (mamba2-780m smoke: 2 layers, d = 128, d_state 16)
+# ---------------------------------------------------------------------------
+
+MAMBA = "mamba2-780m"
+
+
+@pytest.fixture(scope="module")
+def mamba_carried():
+    jcfg = j_get_smoke(MAMBA)
+    jparams = jtf.init_params(jax.random.key(4), jcfg)
+    tparams = ttf.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tokens = np.random.default_rng(4).integers(0, jcfg.vocab_size, (2, 24))
+    return jcfg, jparams, tparams, tokens
+
+
+def test_mamba_params_have_reference_key_paths(mamba_carried):
+    """The port's own init has the reference tree's key paths and shapes:
+    ``ln2`` kept though a mamba block never reads it, no ``ffn``."""
+    _, jparams, _, _ = mamba_carried
+    own = ttf.init_params(torch.Generator().manual_seed(0), get_smoke(MAMBA))
+    jflat = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    leaves = tree_leaves(own)
+    assert len(leaves) == len(jflat)
+    for leaf, (path, want) in zip(leaves, jflat):
+        assert tuple(leaf.shape) == want.shape, jax.tree_util.keystr(path)
+    assert sorted(own["stack"][0]) == sorted(jparams["stack"][0]) == \
+        ["ln1", "ln2", "mixer"]
+    assert sorted(own["stack"][0]["mixer"]) == \
+        sorted(jparams["stack"][0]["mixer"])
+
+
+@pytest.mark.parametrize("t_impl,j_impl", [("reference", "reference"),
+                                           ("kernel", "pallas")])
+def test_mamba_forward_matches_reference(mamba_carried, t_impl, j_impl):
+    """Logits at atol 1e-4 (a 512-way head over d = 128 after two mixers
+    whose scans sum in another order); ``attn_impl="kernel"`` takes kernel
+    9's plain version here, the reference's ``"pallas"`` its SSD kernel in
+    interpret mode."""
+    jcfg, jparams, tparams, tokens = mamba_carried
+    jlogits, _ = jtf.forward(
+        jparams, jcfg, {"tokens": jnp.asarray(tokens)},
+        opts=jtf.ApplyOptions(remat=False, attn_impl=j_impl))
+    with torch.no_grad():
+        tlogits, aux = ttf.forward(
+            tparams, get_smoke(MAMBA), {"tokens": torch.from_numpy(tokens)},
+            opts=ttf.ApplyOptions(attn_impl=t_impl))
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0,
+                               atol=1e-4)
+    assert float(aux) == 0.0
+
+
+def test_unported_families_still_raise():
+    """MoE (a Mixtral smoke config), MLA, encoder-decoder and frontend archs
+    are not ported: the registry and the stack plan name what is missing."""
+    with pytest.raises(NotImplementedError, match="MoE, MLA"):
+        get_smoke("mixtral-8x22b")
+    jmix = j_get_smoke("mixtral_8x22b")
+    mix = dataclasses.replace(
+        get_smoke("smollm-360m"), name=jmix.name,
+        moe=tcfg.MoEConfig(**dataclasses.asdict(jmix.moe)))
+    with pytest.raises(NotImplementedError, match="MoE blocks are not ported"):
+        ttf.init_params(torch.Generator(), mix)

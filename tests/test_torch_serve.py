@@ -1,14 +1,18 @@
 """Port parity for the serving path: ``repro_torch`` prefill, KV cache and
-decode against ``repro.models.transformer`` on smoke configs.
+decode against ``repro.models.transformer`` on smoke configs (the dense
+archs and Mamba2, whose cache is a conv window and an SSM state).
 
 The reference's ``init_params`` is carried over with ``params_from_numpy``
 and the prompts are numpy-made.  The reference prefills with
 ``attn_impl="pallas"`` (its flash-attention kernel, in interpret mode on the
 CPU); the port with ``attn_impl="kernel"`` (on a CPU tensor: the kernel's
-plain version, ``attention_ref``).  Tolerances: logits 1e-4 (f32 matmuls
-and softmaxes summed in another order), cache k/v 1e-5 (a few f32 products
-deep), ``pos`` and ``position`` exact; decode against a full forward 2e-3,
-as ``tests/test_decode.py`` holds the reference.
+plain version, ``attention_ref``).  A mamba layer's prefill runs the
+reference's ``ssd_chunked`` in the reference and, on the port's kernel
+route, kernel 9's plain version.  Tolerances: logits 1e-4 (f32 matmuls and
+softmaxes summed in another order), cache k/v and the conv window 1e-5 (a
+few f32 products deep), the SSM state 1e-4 (a chunked scan whose sums run
+in another order), ``pos`` and ``position`` exact; decode against a full
+forward 2e-3, as ``tests/test_decode.py`` holds the reference.
 """
 import dataclasses
 
@@ -28,7 +32,7 @@ from repro_torch.launch.serve import sample_token, serve  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.tree import tree_flatten  # noqa: E402
 
-ARCHS = ["qwen3_1_7b", "smollm_360m"]
+ARCHS = ["qwen3_1_7b", "smollm_360m", "mamba2_780m"]
 J_OPTS = jtf.ApplyOptions(remat=False, attn_impl="pallas")
 T_OPTS = ttf.ApplyOptions(attn_impl="kernel")
 F32 = dict(rtol=1e-4, atol=1e-4)
@@ -53,6 +57,8 @@ def _assert_caches_match(tcache, jcache):
         assert tuple(got.shape) == want.shape, name
         if name.endswith("['pos']"):
             np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        elif name.endswith("['ssm']"):
+            np.testing.assert_allclose(got.numpy(), want, **F32, err_msg=name)
         else:
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
                                        atol=1e-5, err_msg=name)
@@ -151,6 +157,32 @@ def test_serve_entry_point_runs():
                     temperature=1.0, device="cpu")["generated"]
     assert tuple(sampled.shape) == (2, 3)
     assert int(sampled.max()) < get_smoke("qwen3-1.7b").vocab_size
+
+
+def test_serve_entry_point_runs_mamba():
+    res = serve("mamba2-780m", batch=2, prompt_len=16, gen=4, device="cpu")
+    assert tuple(res["generated"].shape) == (2, 4)
+    assert res["tok_per_s"] > 0 and res["prefill_s"] > 0
+    assert int(res["generated"].max()) < get_smoke("mamba2-780m").vocab_size
+
+
+def test_mamba_config_copy_matches_reference():
+    """The copied config, and the tree size serving loads at full width:
+    780,259,584 parameters (``param_count()`` reports 780,060,672 in both
+    packages: it counts the unpadded vocab and leaves out ``conv_b`` and
+    ``dt_bias``)."""
+    for get, jget in ((get_smoke, j_get_smoke), (get_arch, j_get_arch)):
+        assert dataclasses.asdict(get("mamba2-780m")) == \
+            dataclasses.asdict(jget("mamba2-780m"))
+    cfg = get_arch("mamba2-780m")
+    shapes = jax.eval_shape(lambda: jtf.init_params(
+        jax.random.key(0), j_get_arch("mamba2-780m")))
+    meta = ttf.init_params(torch.Generator(), cfg, device="meta")
+    assert sum(x.size for x in jax.tree.leaves(shapes)) == 780_259_584
+    assert sum(t.numel() for t in tree_flatten(meta)[0]) == 780_259_584
+    assert cfg.param_count() == j_get_arch("mamba2-780m").param_count() \
+        == 780_060_672
+    assert cfg.padded_vocab_size == 50304
 
 
 def test_serve_refuses_a_missing_card():
