@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Needs one NVIDIA Hopper GPU (an H100), the CUDA toolkit's nvcc and triton.
-It builds the port's kernels from this checkout's sources, holds each one
-against its plain PyTorch version on the card, and drives these paths, each
-with the launch counters reset just before it and read just after:
+Needs one NVIDIA Hopper GPU (an H100) and the CUDA toolkit's nvcc.  It
+builds the port's kernels (six CUDA C++ sources) from this checkout, holds
+each one against its plain PyTorch version on the card (kernel 2, RMSNorm
+forward and backward, at every row shape the paths below run, in f32 and
+bf16), and drives these paths, each with the launch counters reset just
+before it and read just after:
 
 * training: Algorithm 1 through ``repro_torch.launch.train.train`` on
   full-width, full-depth SmolLM-360M (361,821,120 parameters, random
@@ -102,6 +104,35 @@ SIM_KERNEL = ("quantized_consensus_mix",
               "src/repro/kernels/consensus_mix.py:124")
 SIM_SLAB = 1 << 20          # elements of a slab held against the plain version
 
+# kernel 2 against its plain version and F.rms_norm: (rows, d, dtype, where
+# the paths run it, launches there) -- the SmolLM-360M client step, Qwen3's
+# prefill (4 x 1024 tokens: ln1 / ln2 / final, q_norm over 16 heads, k_norm
+# over 8) and decode step (4 rows), Mamba2's prefill (ln1 and the final
+# norm; the gated norm over d_inner) and decode step; 1000 rows, a count
+# that fills no whole block; bf16 instances of the training and prefill
+# shapes
+RMSNORM_SHAPES = [
+    (256, 960, "float32", "smollm-360m client step", "65 + 65 a step"),
+    (1000, 960, "float32", "ragged rows", "-"),
+    (4096, 2048, "float32", "qwen3 prefill ln1/ln2/final", "57 a prefill"),
+    (65536, 128, "float32", "qwen3 prefill q_norm", "28 a prefill"),
+    (32768, 128, "float32", "qwen3 prefill k_norm", "28 a prefill"),
+    (4, 2048, "float32", "qwen3 decode ln1/ln2/final", "57 a step"),
+    (64, 128, "float32", "qwen3 decode q_norm", "28 a step"),
+    (32, 128, "float32", "qwen3 decode k_norm", "28 a step"),
+    (4096, 1536, "float32", "mamba2 prefill ln1/final", "49 a prefill"),
+    (4096, 3072, "float32", "mamba2 prefill gated norm", "48 a prefill"),
+    (4, 1536, "float32", "mamba2 decode ln1/final", "49 a step"),
+    (4, 3072, "float32", "mamba2 decode gated norm", "48 a step"),
+    (256, 960, "bfloat16", "smollm-360m client step", "-"),
+    (4096, 2048, "bfloat16", "qwen3 prefill ln1/ln2/final", "-"),
+    (65536, 128, "bfloat16", "qwen3 prefill q_norm", "-"),
+    (32768, 128, "bfloat16", "qwen3 prefill k_norm", "-"),
+    (4096, 1536, "bfloat16", "mamba2 prefill ln1/final", "-"),
+    (4096, 3072, "bfloat16", "mamba2 prefill gated norm", "-"),
+]
+RMSNORM_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
+
 # the serving path: full Qwen3-1.7B, 4 prompts of 1024 tokens, 64 generated
 SERVE = dict(smoke=False, batch=4, prompt_len=1024, gen=64, device="cuda")
 QWEN3_PARAMS = 1_720_574_976
@@ -181,6 +212,61 @@ def alternate(torch, fns: dict, reps: int) -> dict:
     return {k: sum(v) / len(v) for k, v in runs.items()}
 
 
+def host_us(torch, fn, reps: int) -> float:
+    """Host time of one call of ``fn`` (the enqueue: no synchronisation
+    inside the timed loop), in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def device_us(torch, fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: every kernel it launches, summed,
+    from the profiler, in microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0)
+               or getattr(e, "self_cuda_time_total", 0)
+               for e in prof.key_averages()) / reps
+
+
+def bf16_steps(torch, got, want) -> int:
+    """Most bf16 steps between two bf16 tensors (0 when empty)."""
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    if not got.numel():
+        return 0
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def ptxas_entries(log: str) -> list:
+    """Each entry function of an ``nvcc -Xptxas -v`` log: its (mangled)
+    name, registers and spill-store bytes."""
+    out, name, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used " in line and name:
+            out.append({"kernel": name,
+                        "registers": int(line.split("Used ")[1].split()[0]),
+                        "spill_store_bytes": spill})
+            name = None
+    return out
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_flops / H100_F32_FLOP_PER_S * 1e3
@@ -208,11 +294,44 @@ def causal_pairs(torch, sq: int, sk: int) -> int:
     return int((torch.arange(sk)[None, :] <= qpos).sum())
 
 
-def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
+@contextlib.contextmanager
+def timed_norms():
+    """Within the block, every RMSNorm call of the port is counted and its
+    host time summed (perf_counter around the call, no synchronisation):
+    ``ops.rmsnorm``, each forward (with the autograd Function around the
+    kernel when a gradient will be asked for), and the backward wrapper,
+    which autograd calls."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    stats = {"fwd_calls": 0, "fwd_host_ms": 0.0, "bwd_calls": 0,
+             "bwd_host_ms": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                stats[key + "_calls"] += 1
+                stats[key + "_host_ms"] += (time.perf_counter() - t0) * 1e3
+        return call
+    saved = ops.rmsnorm, rn.rmsnorm_bwd_cuda
+    ops.rmsnorm = timed(saved[0], "fwd")
+    rn.rmsnorm_bwd_cuda = timed(saved[1], "bwd")
+    try:
+        yield stats
+    finally:
+        ops.rmsnorm, rn.rmsnorm_bwd_cuda = saved
+
+
+def profile_summary(prof, wall_s: float, top: int = 12,
+                    norms: dict = None) -> dict:
     """Device busy time, the top device kernels and host ops, and the port's
     own kernels' device times, from a ``torch.profiler`` run (times in ms;
     the profiler adds host overhead, so its wall time is longer than an
-    unprofiled epoch's, while device kernel times are not inflated)."""
+    unprofiled epoch's, while device kernel times are not inflated).
+    ``norms``, from ``timed_norms`` around the same run, adds the RMSNorm
+    calls, their host time and their kernels' device time."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) \
             or getattr(e, "self_cuda_time_total", 0)
@@ -220,7 +339,7 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     ours = [e for e in kernels if any(
-        k in e.key for k in ("consensus_mix", "rmsnorm", "column_sum",
+        k in e.key for k in ("consensus_mix", "rmsnorm",
                              "flash_fwd", "encode_kernel", "bucketed_kernel",
                              "pipelined_kernel", "leaf_kernel",
                              "quant_mix_kernel", "ssd_scan_kernel"))]
@@ -231,7 +350,17 @@ def profile_summary(prof, wall_s: float, top: int = 12) -> dict:
         return {"name": e.key[:80], "calls": e.count,
                 "total_ms": dev_us(e) / 1e3,
                 "avg_us": dev_us(e) / max(e.count, 1)}
+    extra = {}
+    if norms is not None:
+        calls = norms["fwd_calls"] + norms["bwd_calls"]
+        host_ms = norms["fwd_host_ms"] + norms["bwd_host_ms"]
+        extra["norms"] = dict(
+            norms, calls=calls, host_ms=host_ms,
+            host_us_per_call=host_ms * 1e3 / max(calls, 1),
+            device_ms=sum(dev_us(e) for e in kernels
+                          if "rmsnorm" in e.key) / 1e3)
     return {
+        **extra,
         "wall_s": wall_s, "device_busy_ms": device_ms,
         "device_busy_share_of_profiled_wall": device_ms / (wall_s * 1e3),
         "top_device": [row(e) for e in sorted(kernels, key=dev_us,
@@ -261,14 +390,16 @@ def profile_serving(torch, params, cfg, prompt, prefill_kw: dict,
                                cache)
 
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            timed_norms() as norms:
         t0 = time.perf_counter()
         logits, cache = prefill()
         for _ in range(steps):
             logits, cache = step(logits, cache)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    emit(phases[0], steps=steps, **profile_summary(prof, wall_s))
+    emit(phases[0], steps=steps,
+         **profile_summary(prof, wall_s, norms=norms))
     logits, cache = prefill()
     torch.cuda.synchronize()
     step_s = []
@@ -525,7 +656,7 @@ def mamba_serving(torch, g, serve_shape: dict) -> dict:
 
     # ---- b. serving: full Mamba2-780M through serve() ----
     # a short run at the same widths and batch first, so that the timed run
-    # holds no Triton compile of RMSNorm at Mamba's row widths
+    # holds none of the first calls' set-up
     tserve.serve("mamba2-780m", **{**serve_shape, "prompt_len": 16,
                                    "gen": 2})
     ops.reset_launch_counts()
@@ -693,6 +824,150 @@ def mamba_serving(torch, g, serve_shape: dict) -> dict:
             "bound_by": ssd_by, "library_ms": None}
 
 
+def rmsnorm_sweep(torch, g) -> dict:
+    """Kernel 2 at each of RMSNORM_SHAPES: forward and backward through
+    ``ops.rmsnorm`` under autograd against the plain versions (f32: 1e-5
+    forward, 1e-4 backward, of the largest value; bf16: the forward within
+    one bf16 step, the backward within 2^-8 of the largest value, since
+    dx cancels), then kernel, plain version and ``F.rms_norm`` timed in
+    turns (forward; backward through autograd), the kernel call's host and
+    device time, and the bound.  Returns each shape's numbers by (rows, d,
+    dtype)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+    rms_norm = torch.nn.functional.rms_norm
+    dev = torch.device("cuda")
+    # the host cost of reading the current stream: the public call, and the
+    # binding the kernel wrappers call (the same stream, no Stream object)
+    stream_us = {
+        "current_stream": host_us(torch, lambda: torch.cuda.current_stream(
+            dev).cuda_stream, 10000),
+        "raw": host_us(torch, lambda: torch._C._cuda_getCurrentRawStream(
+            dev.index or 0), 10000)}
+    stats = {}
+    for rows, d, dtype, where, path_launches in RMSNORM_SHAPES:
+        dt = getattr(torch, dtype)
+        x = torch.randn((rows, d), device=dev, generator=g).to(dt)
+        s = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        gy = torch.randn((rows, d), device=dev, generator=g).to(dt)
+        xg, sg = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+        before = ops.launch_counts()
+        y = ops.rmsnorm(xg, sg)
+        dx, ds = torch.autograd.grad(y, (xg, sg), gy)
+        after = ops.launch_counts()
+        assert after["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 1
+        assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1
+        y_ref = ref.rmsnorm_ref(x, s)
+        dx_ref, ds_ref = ref.rmsnorm_bwd_ref(x, s, gy)
+        torch.cuda.synchronize()
+        errs = {k: rel_err(torch, a, b) for k, (a, b) in {
+            "y": (y.detach(), y_ref), "dx": (dx, dx_ref),
+            "dscale": (ds, ds_ref)}.items()}
+        if dtype == "float32":
+            limits = {"y": 1e-5, "dx": 1e-4, "dscale": 1e-4}
+            y_steps = None
+            ok = all(errs[k][1] < lim for k, lim in limits.items())
+        else:
+            limits = {"y": "1 bf16 step", "dx": 2 ** -8, "dscale": 2 ** -8}
+            y_steps = bf16_steps(torch, y.detach(), y_ref)
+            ok = y_steps <= 1 and all(errs[k][1] <= 2 ** -8
+                                      for k in ("dx", "dscale"))
+        assert y.dtype == dx.dtype == dt and ds.dtype == dt
+        _, rstd = rn.rmsnorm_fwd_cuda(x, s, 1e-6)
+        y_plain = ref.rmsnorm_ref(xg, sg)
+        y_lib = rms_norm(xg, (d,), sg, 1e-6)
+        reps = 200 if rows * d <= 1 << 20 else 50
+        # the forward as training calls it (rstd kept for the backward) and
+        # as serving does (no rstd); the library call without autograd, and
+        # both sides under autograd (a graph node that saves what the
+        # backward needs) as the training forward runs them
+        fwd = alternate(torch, {
+            "kernel": lambda: rn.rmsnorm_fwd_cuda(x, s, 1e-6),
+            "kernel_no_rstd": lambda: rn.rmsnorm_fwd_cuda(
+                x, s, 1e-6, need_rstd=False),
+            "kernel_autograd": lambda: rn.RMSNormFn.apply(xg, sg, 1e-6),
+            "plain": lambda: ref.rmsnorm_ref(x, s),
+            "library": lambda: rms_norm(x, (d,), s, 1e-6),
+            "library_autograd": lambda: rms_norm(xg, (d,), sg, 1e-6)}, reps)
+        bwd = alternate(torch, {
+            "kernel": lambda: rn.rmsnorm_bwd_cuda(x, s, rstd, gy),
+            "plain": lambda: torch.autograd.grad(y_plain, (xg, sg), gy,
+                                                 retain_graph=True),
+            "library": lambda: torch.autograd.grad(y_lib, (xg, sg), gy,
+                                                   retain_graph=True)}, reps)
+        es = x.element_size()
+        fb, fby = bound_ms(2 * rows * d * es + d * es + rows * 4,
+                           4 * rows * d)
+        bb, bby = bound_ms(3 * rows * d * es + 2 * d * es + rows * 4,
+                           10 * rows * d)
+        st = dict(
+            fwd=fwd, bwd=bwd, fwd_err=errs["y"][0],
+            bwd_err=max(errs["dx"][0], errs["dscale"][0]), fwd_bound=fb,
+            fwd_by=fby, bwd_bound=bb, bwd_by=bby,
+            fwd_host_us=host_us(torch, fwd_kernel := (
+                lambda: rn.rmsnorm_fwd_cuda(x, s, 1e-6)), 200),
+            bwd_host_us=host_us(torch, bwd_kernel := (
+                lambda: rn.rmsnorm_bwd_cuda(x, s, rstd, gy)), 200),
+            fwd_device_us=device_us(torch, fwd_kernel),
+            bwd_device_us=device_us(torch, bwd_kernel))
+        stats[(rows, d, dtype)] = st
+        emit("rmsnorm_check", rows=rows, d=d, dtype=dtype, path=where,
+             path_launches=path_launches,
+             max_abs_err={k: e[0] for k, e in errs.items()},
+             max_rel_err={k: e[1] for k, e in errs.items()},
+             y_bf16_steps=y_steps, limits=limits, ok=ok,
+             fwd_ms=fwd, bwd_ms=bwd, fwd_bound_ms=fb, fwd_bound_by=fby,
+             bwd_bound_ms=bb, bwd_bound_by=bby,
+             fwd_bound_share=fb / fwd["kernel"],
+             bwd_bound_share=bb / bwd["kernel"],
+             fwd_vs_library=fwd["kernel"] / fwd["library"],
+             fwd_no_rstd_vs_library=fwd["kernel_no_rstd"] / fwd["library"],
+             fwd_autograd_vs_library=(fwd["kernel_autograd"]
+                                      / fwd["library_autograd"]),
+             bwd_vs_library=bwd["kernel"] / bwd["library"],
+             fwd_host_us=st["fwd_host_us"], bwd_host_us=st["bwd_host_us"],
+             fwd_device_us=st["fwd_device_us"],
+             bwd_device_us=st["bwd_device_us"],
+             current_stream_us=stream_us)
+        assert ok, (rows, d, dtype, errs, y_steps)
+    rmsnorm_host_path(torch, stream_us)
+    return stats
+
+
+def rmsnorm_host_path(torch, stream_us: dict) -> None:
+    """Where a kernel-2 forward call's host time goes, at 256 x 960 f32:
+    each step of the wrapper alone, the whole wrapper, the serving call
+    through ``ops.rmsnorm``, and ``F.rms_norm`` (microseconds a call,
+    enqueue only)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    x = torch.randn((256, 960), device=dev)
+    s = torch.ones(960, device=dev)
+    y, rstd = rn.rmsnorm_fwd_cuda(x, s, 1e-6)
+    ptrs = (x.data_ptr(), s.data_ptr(), y.data_ptr(), rstd.data_ptr())
+    stream = torch._C._cuda_getCurrentRawStream(dev.index or 0)
+    x3 = x.view(2, 128, 960)
+    steps = {
+        "checks": lambda: rn._check(x, s),
+        "alloc_y": lambda: torch.empty_like(
+            x, memory_format=torch.contiguous_format),
+        "alloc_rstd": lambda: x.new_empty((256,), dtype=torch.float32),
+        "ctypes_launch": lambda: rn._fwd(ptrs[0], 960, ptrs[1], ptrs[2],
+                                         ptrs[3], 256, 960, 1e-6, 0, 1,
+                                         stream),
+        "wrapper": lambda: rn.rmsnorm_fwd_cuda(x, s, 1e-6),
+        "wrapper_no_rstd": lambda: rn.rmsnorm_fwd_cuda(x, s, 1e-6,
+                                                       need_rstd=False),
+        "library": lambda: torch.nn.functional.rms_norm(x, (960,), s, 1e-6)}
+    out = {k: host_us(torch, fn, 2000) for k, fn in steps.items()}
+    with torch.no_grad():
+        out["ops_rmsnorm_serving"] = host_us(
+            torch, lambda: ops.rmsnorm(x3, s), 2000)
+    emit("rmsnorm_host_path", rows=256, d=960, host_us=out,
+         stream_us=stream_us)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -730,6 +1005,18 @@ def main() -> int:
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in _build.build_logs.values()
                    for line in log.splitlines() if "Used " in line})
+    # kernel 2's instances by family and block bound (1024: the widest rows)
+    rn_ptxas: dict = {}
+    for e in ptxas_entries(_build.build_logs.get("rmsnorm", "")):
+        family = next(f for f in ("fwd", "bwd", "column_sum", "")
+                      if f"rmsnorm_{f}" in e["kernel"])
+        key = family + ("_1024" if "Li1024E" in e["kernel"] else "")
+        row = rn_ptxas.setdefault(key, {"instances": 0, "max_registers": 0,
+                                        "max_spill_store_bytes": 0})
+        row["instances"] += 1
+        row["max_registers"] = max(row["max_registers"], e["registers"])
+        row["max_spill_store_bytes"] = max(row["max_spill_store_bytes"],
+                                           e["spill_store_bytes"])
     g = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     x = torch.randn((8, 960), device=dev, generator=g)
@@ -738,7 +1025,9 @@ def main() -> int:
                         torch.ones_like(y))
     torch.cuda.synchronize()
     emit("build", nvcc_s=nvcc_s, sources=_build.sources(),
-         ptxas_registers=regs, triton_first_launch_s=time.perf_counter() - t0)
+         ptxas_registers=regs, rmsnorm_ptxas=rn_ptxas,
+         rmsnorm_first_call_s=time.perf_counter() - t0)
+    assert len(_build.sources()) == 6, _build.sources()
 
     # ---- 3. kernel 1 vs its plain version ----
     for m in (1, 4, 5, 16):
@@ -777,51 +1066,9 @@ def main() -> int:
     del w, out
     torch.cuda.empty_cache()
 
-    # ---- 4. kernel 2 (forward and backward) vs its plain version ----
-    rn_stats = {}
-    for rows in (256, 1000):
-        d = 960
-        x = torch.randn((rows, d), device=dev, generator=g,
-                        requires_grad=True)
-        s = (1 + 0.1 * torch.randn(d, device=dev, generator=g)
-             ).requires_grad_(True)
-        gy = torch.randn((rows, d), device=dev, generator=g)
-        y = ops.rmsnorm(x, s)
-        dx, ds = torch.autograd.grad(y, (x, s), gy)
-        y_ref = ref.rmsnorm_ref(x, s)
-        dx_ref, ds_ref = torch.autograd.grad(y_ref, (x, s), gy,
-                                             retain_graph=True)
-        f_err, f_rel = rel_err(torch, y.detach(), y_ref.detach())
-        dx_err, dx_rel = rel_err(torch, dx, dx_ref)
-        ds_err, ds_rel = rel_err(torch, ds, ds_ref)
-        assert f_rel < 1e-5 and max(dx_rel, ds_rel) < 1e-4, \
-            (rows, f_rel, dx_rel, ds_rel)
-        xd, sd = x.detach(), s.detach()
-        _, rstd = rn.rmsnorm_fwd_cuda(xd, sd, 1e-6)
-        y_lib = torch.nn.functional.rms_norm(x, (d,), s, 1e-6)
-        fwd = alternate(torch, {
-            "kernel": lambda: rn.rmsnorm_fwd_cuda(xd, sd, 1e-6),
-            "plain": lambda: ref.rmsnorm_ref(xd, sd),
-            "library": lambda: torch.nn.functional.rms_norm(
-                xd, (d,), sd, 1e-6)}, reps=200)
-        bwd = alternate(torch, {
-            "kernel": lambda: rn.rmsnorm_bwd_cuda(xd, sd, rstd, gy),
-            "plain": lambda: torch.autograd.grad(
-                y_ref, (x, s), gy, retain_graph=True),
-            "library": lambda: torch.autograd.grad(
-                y_lib, (x, s), gy, retain_graph=True)}, reps=200)
-        fb, fby = bound_ms(2 * rows * d * 4 + d * 4 + rows * 4,
-                           4 * rows * d)
-        bb, bby = bound_ms(3 * rows * d * 4 + 2 * d * 4 + rows * 4,
-                           10 * rows * d)
-        rn_stats[rows] = dict(fwd=fwd, bwd=bwd, fwd_err=f_err,
-                              bwd_err=max(dx_err, ds_err), fwd_bound=fb,
-                              fwd_by=fby, bwd_bound=bb, bwd_by=bby)
-        emit("rmsnorm_check", rows=rows, d=d, fwd_max_abs_err=f_err,
-             fwd_max_rel_err=f_rel, dx_max_abs_err=dx_err,
-             dx_max_rel_err=dx_rel, dscale_max_abs_err=ds_err,
-             dscale_max_rel_err=ds_rel, fwd_ms=fwd, bwd_ms=bwd,
-             fwd_bound_ms=fb, bwd_bound_ms=bb)
+    # ---- 4. kernel 2 (forward and backward) vs its plain version and
+    # F.rms_norm at every row shape of the paths ----
+    rn_stats = rmsnorm_sweep(torch, g)
 
     # ---- 5. training: the main path ----
     ops.reset_launch_counts()
@@ -899,12 +1146,13 @@ def main() -> int:
     # ---- 7. where the time goes: one more epoch under the profiler ----
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            timed_norms() as norms:
         t0 = time.perf_counter()
         ttrain.train("smollm-360m", **{**TRAIN, "epochs": 1}, log=False)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    emit("profile", **profile_summary(prof, wall_s))
+    emit("profile", **profile_summary(prof, wall_s, norms=norms))
 
     # ---- 8. kernel 3 vs its plain version over the reference's sweep ----
     for shape, kw, dtype in FLASH_SWEEP:
@@ -963,7 +1211,7 @@ def main() -> int:
 
     # ---- 10. serving: the second path ----
     # a short run at the same widths and batch first, so that the timed run
-    # holds no Triton compile of RMSNorm at Qwen3's row shapes
+    # holds none of the first calls' set-up (cuBLAS handles, the allocator)
     tserve.serve("qwen3-1.7b", **{**SERVE, "prompt_len": 16, "gen": 2})
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1629,7 +1877,7 @@ def main() -> int:
     ssd_row = mamba_serving(torch, g, SERVE)
 
     # ---- 23. per-kernel summary, card, result ----
-    r256 = rn_stats[256]
+    r256 = rn_stats[(256, 960, "float32")]
     kernels = [
         {"name": "consensus_mix", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/consensus_mix.cu",
@@ -1638,15 +1886,13 @@ def main() -> int:
          "ms": cm_times["kernel"], "plain_ms": cm_times["plain"],
          "bound_ms": cm_bound, "bound_by": cm_by,
          "library_ms": cm_times["library"]},
-        {"name": "rmsnorm_fwd", "route": "triton",
-         "source": "src/repro_torch/kernels/rmsnorm.py",
+        {"name": "rmsnorm_fwd", "route": "cuda", "source": RMSNORM_SOURCE,
          "replaces": "src/repro/kernels/rmsnorm.py:28",
          "launches": launches["rmsnorm_fwd"], "max_abs_err": r256["fwd_err"],
          "ms": r256["fwd"]["kernel"], "plain_ms": r256["fwd"]["plain"],
          "bound_ms": r256["fwd_bound"], "bound_by": r256["fwd_by"],
          "library_ms": r256["fwd"]["library"]},
-        {"name": "rmsnorm_bwd", "route": "triton",
-         "source": "src/repro_torch/kernels/rmsnorm.py",
+        {"name": "rmsnorm_bwd", "route": "cuda", "source": RMSNORM_SOURCE,
          "replaces": "src/repro/kernels/rmsnorm.py:28",
          "launches": launches["rmsnorm_bwd"], "max_abs_err": r256["bwd_err"],
          "ms": r256["bwd"]["kernel"], "plain_ms": r256["bwd"]["plain"],

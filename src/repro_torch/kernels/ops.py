@@ -211,12 +211,19 @@ def quantized_gossip_round(a, codes, scales, ref, mixed, dither, *,
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis: the Triton forward/backward pair on the
-    card, the differentiable plain version on the CPU."""
+    """RMSNorm over the last axis: the CUDA forward/backward pair on the
+    card (the forward alone, with no ``rstd``, where autograd will not ask
+    for a gradient), the differentiable plain version on the CPU."""
     if not x.is_cuda:
         return _ref.rmsnorm_ref(x, scale, eps)
     lead, d = x.shape[:-1], x.shape[-1]
-    y = _rn.RMSNormFn.apply(x.reshape(-1, d).contiguous(), scale, eps)
+    x2 = x.reshape(-1, d)
+    if x2.stride(1) != 1:
+        x2 = x2.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        y = _rn.RMSNormFn.apply(x2, scale, eps)
+    else:
+        y, _ = _rn.rmsnorm_fwd_cuda(x2, scale, eps, need_rstd=False)
     return y.reshape(*lead, d)
 
 

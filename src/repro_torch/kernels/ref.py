@@ -30,7 +30,7 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
 def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
                     eps: float = 1e-6):
     """Closed-form backward of ``rmsnorm_ref`` for x (rows, d), the formula
-    the Triton backward computes: with ``r = rsqrt(mean(x^2) + eps)``,
+    the CUDA backward computes: with ``r = rsqrt(mean(x^2) + eps)``,
 
         dx     = r * (g * s) - x * r^3 * mean(g * s * x)
         dscale = sum_rows g * x * r

@@ -4,7 +4,7 @@ Same conventions as the reference: ``<name>_init(gen, ..., device)`` builds a
 plain dict of tensors with the reference's leaf names and layouts, and
 ``<name>_apply(params, x, ...)`` is a pure function.  Compute happens in
 ``x.dtype``.  ``rmsnorm_apply`` goes through ``repro_torch.kernels.ops``
-(the Triton kernel on the card).  ``dispatch_attend`` routes a
+(the CUDA kernel on the card).  ``dispatch_attend`` routes a
 full-sequence attention as the reference does: ``attn_impl="kernel"`` (the
 reference's ``"pallas"``) to ``kernels.ops.flash_attention`` (the CUDA
 kernel on the card), else to ``attend_chunked`` above

@@ -184,7 +184,11 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"][tokens]
     if cfg.final_logit_softcap is not None:  # gemma family scales embeddings
-        x = x * math.sqrt(cfg.d_model)
+        # sqrt(d) rounded to the activation dtype first, as the reference
+        # does (jnp.asarray(..., x.dtype)); the rounded value, exact in
+        # x.dtype, then scales on the host side of the op, so the product
+        # rounds once in both frameworks (bf16 at d = 4608: 68.0, not 67.88)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
     return x
 
 

@@ -1,7 +1,7 @@
 """Port parity for the kernels' plain versions and the device dispatch.
 
 On the CPU: the port's plain ``consensus_mix_ref`` / ``rmsnorm_ref`` (and
-the closed-form RMSNorm backward the Triton kernel computes) /
+the closed-form RMSNorm backward the CUDA kernel computes) /
 ``attention_ref`` against the JAX package's Pallas kernels in interpret
 mode, its jnp oracles and ``jax.grad``; ``ops.*`` on CPU tensors runs the plain version and launches
 nothing.  The Hopper kernels themselves are held against the plain versions
@@ -11,6 +11,9 @@ Tolerances: f32 contractions and reductions summed in another order than
 XLA's — rtol/atol 2e-5 on O(1) data, as ``tests/test_kernels_misc.py``
 uses for the Pallas kernels themselves.
 """
+import ast
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -27,7 +30,8 @@ from repro.kernels.ref import attention_ref as j_attention_ref  # noqa: E402
 from repro.kernels.ref import consensus_mix_ref as j_mix_ref  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_2d  # noqa: E402
 from repro.models.modules import rmsnorm_apply  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -53,7 +57,9 @@ def test_consensus_mix_plain_matches_pallas_and_oracle(m, d):
     np.testing.assert_allclose(port.numpy(), np.asarray(oracle), **TOL)
 
 
-@pytest.mark.parametrize("rows,d", [(7, 64), (32, 120), (256, 960)])
+@pytest.mark.parametrize("rows,d", [(7, 64), (32, 120), (256, 960),
+                                    (5, 128), (3, 1536), (2, 2048),
+                                    (2, 3072)])
 def test_rmsnorm_plain_matches_pallas_and_module(rows, d):
     rng = np.random.default_rng(rows + d)
     x = rng.standard_normal((rows, d)).astype(np.float32)
@@ -66,10 +72,42 @@ def test_rmsnorm_plain_matches_pallas_and_module(rows, d):
     np.testing.assert_allclose(port.numpy(), np.asarray(module), **TOL)
 
 
+def _bf16_ulps(a: np.ndarray, b: np.ndarray) -> int:
+    """Most bf16 steps between two bf16 arrays (as int16 bit patterns)."""
+    def ordered(bits):
+        bits = bits.astype(np.int32)
+        return np.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int(np.abs(ordered(a) - ordered(b)).max())
+
+
+@pytest.mark.parametrize("rows,d", [(6, 128), (4, 960), (2, 2048)])
+def test_rmsnorm_plain_matches_pallas_and_module_bf16(rows, d):
+    """bf16 in and out, f32 inside: the plain version within one bf16 step
+    of the Pallas kernel and the module (both round once, from f32 values
+    whose rsqrt and sum order differ in the last f32 bits)."""
+    rng = np.random.default_rng(rows * d)
+    x = jnp.asarray(rng.standard_normal((rows, d)).astype(np.float32)
+                    ).astype(jnp.bfloat16)
+    s = jnp.asarray((1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+                    ).astype(jnp.bfloat16)
+
+    def bf16(a):
+        return torch.from_numpy(np.asarray(a).view(np.int16).copy()
+                                ).view(torch.bfloat16)
+    port = ref.rmsnorm_ref(bf16(x), bf16(s))
+    assert port.dtype == torch.bfloat16
+    port_bits = port.view(torch.int16).numpy()
+    pallas = rmsnorm_2d(x, s, block_rows=rows, interpret=True)
+    module = rmsnorm_apply({"scale": s}, x)
+    for other in (pallas, module):
+        assert other.dtype == jnp.bfloat16
+        assert _bf16_ulps(port_bits, np.asarray(other).view(np.int16)) <= 1
+
+
 @pytest.mark.parametrize("rows,d", [(5, 64), (48, 120)])
 def test_rmsnorm_backward_matches_jax_grad(rows, d):
     """Autograd of the plain version AND the closed-form backward (the
-    Triton kernel's formula) against ``jax.grad`` of the module's norm.
+    CUDA kernel's formula) against ``jax.grad`` of the module's norm.
     Tolerance 1e-4: gradients sum d products in another order."""
     rng = np.random.default_rng(rows * d)
     x = rng.standard_normal((rows, d)).astype(np.float32)
@@ -127,6 +165,40 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
                                    "bucketed_gossip_round": 0,
                                    "bucketed_gossip_round_pipelined": 0,
                                    "quantized_gossip_round": 0}
+
+
+def test_rmsnorm_kernels_refuse_cpu_tensors():
+    """The CUDA wrappers never fall back: a CPU tensor raises (``ops``
+    sends CPU tensors to the plain version before reaching them)."""
+    x, s = torch.ones((4, 8)), torch.ones(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_fwd_cuda(x, s, 1e-6)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_bwd_cuda(x, s, torch.ones(4), x)
+    assert rn.fwd_launches == 0 and rn.bwd_launches == 0
+
+
+def test_build_lists_every_cuda_source():
+    assert _build.sources() == ["consensus_mix", "flash_attention",
+                                "quantized_mix", "quantized_wire",
+                                "rmsnorm", "ssd_scan"]
+
+
+def test_no_port_module_imports_triton():
+    """Every kernel of the port is CUDA C++ bound with ctypes: no module
+    imports ``triton``, at top level or inside a function."""
+    root = pathlib.Path(ops.__file__).resolve().parents[1]
+    found = []
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            found += [f"{path.name}:{node.lineno}" for n in names
+                      if n.split(".")[0] == "triton"]
+    assert len(list(root.rglob("*.py"))) > 20
+    assert not found, found
 
 
 @pytest.mark.parametrize("rounds,block", [(1, None), (4, None), (3, 7),

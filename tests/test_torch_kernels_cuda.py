@@ -6,7 +6,9 @@ machine, which has no JAX:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward; the
+Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward (the
+RMSNorm kernels' bf16 instances: one bf16 step forward, 2^-8 of the
+largest value backward); the
 flash-attention kernel 2e-5 in f32 (5e-5 with a softcap) and 2e-2 in bf16,
 the tolerances the reference holds its Pallas kernel to; the SSD-scan
 kernel 2e-4, the reference's SSD tolerance.  The simulated
@@ -70,20 +72,156 @@ def test_consensus_mix_pytree_blocks_match_plain_rounds(cuda):
                                        rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("rows", [256, 1000])
-def test_rmsnorm_kernels_match_plain(cuda, rows):
-    g = torch.Generator(device=cuda).manual_seed(rows)
-    x = torch.randn((rows, 960), device=cuda, generator=g, requires_grad=True)
-    s = (1 + 0.1 * torch.randn(960, device=cuda, generator=g)
-         ).requires_grad_(True)
-    gy = torch.randn((rows, 960), device=cuda, generator=g)
+# (rows, d) of the paths' norms, rows cut: a SmolLM client step (256 x 960),
+# Qwen3's ln and final norms (2048), its q_norm / k_norm (128), Mamba2's ln
+# (1536) and gated norm (3072), a decode step's 4 rows; and 1000 x 960
+RMSNORM_SHAPES = [(256, 960), (1000, 960), (512, 2048), (4, 2048),
+                  (4096, 128), (64, 128), (32, 128), (512, 1536), (4, 1536),
+                  (512, 3072), (4, 3072)]
+
+
+def _bf16_steps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Most bf16 steps between two bf16 tensors."""
+    def ordered(t):
+        bits = t.view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+def _rms_inputs(cuda, rows, d, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(rows * 131 + d + seed)
+    x = torch.randn((rows, d), device=cuda, generator=g).to(dtype)
+    s = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(dtype)
+    gy = torch.randn((rows, d), device=cuda, generator=g).to(dtype)
+    return x, s, gy
+
+
+def _check_rmsnorm(cuda, x, s, gy):
+    """Forward (through ``ops.rmsnorm`` under autograd, so one launch each
+    way) and backward against the plain version and its autograd.  f32:
+    1e-5 forward, 1e-4 backward (sums in another order); bf16: the forward
+    within one bf16 step (one rounding of f32 values a few f32 ulps
+    apart), the backward within 2^-8 of the largest value (dx cancels, so
+    a per-element step count near 0 says nothing)."""
+    x = x.detach().requires_grad_(True)
+    s = s.detach().requires_grad_(True)
+    before = dict(ops.launch_counts())
     y = ops.rmsnorm(x, s)
     dx, ds = torch.autograd.grad(y, (x, s), gy)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    rows = x.shape[0]
+    assert after["rmsnorm_fwd"] == before["rmsnorm_fwd"] + (rows > 0)
+    assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + (rows > 0)
     yr = ref.rmsnorm_ref(x, s)
-    dxr, dsr = torch.autograd.grad(yr, (x, s), gy)
-    torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(dx, dxr, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(ds, dsr, rtol=1e-4, atol=1e-4)
+    dxr, dsr = ref.rmsnorm_bwd_ref(x.detach(), s.detach(), gy)
+    assert y.dtype == dx.dtype == x.dtype and ds.dtype == s.dtype
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dx, dxr, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(ds, dsr, rtol=1e-4, atol=1e-4)
+        return
+    if rows:
+        assert _bf16_steps(y.detach(), yr.detach()) <= 1
+    for got, want in ((dx, dxr), (ds, dsr)):
+        err = (got.float() - want.float()).abs().max() if got.numel() else 0
+        top = want.float().abs().max() if want.numel() else 0
+        assert err <= 2 ** -8 * top, (float(err), float(top))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", RMSNORM_SHAPES,
+                         ids=[f"{r}x{d}" for r, d in RMSNORM_SHAPES])
+def test_rmsnorm_kernels_match_plain(cuda, rows, d, dtype):
+    _check_rmsnorm(cuda, *_rms_inputs(cuda, rows, d, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,d", [(4, 130), (7, 1001), (0, 960), (1, 960),
+                                    (4, 960), (1, 16384), (3, 5000)])
+def test_rmsnorm_kernels_ragged_and_edge_shapes(cuda, rows, d, dtype):
+    """A d that fills no whole 16-byte vector (the scalar path), 0, 1 and 4
+    rows (one block, idle row groups; 0 rows launch nothing and give a zero
+    dscale), and the widest rows (blocks of up to 1024 threads)."""
+    _check_rmsnorm(cuda, *_rms_inputs(cuda, rows, d, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rmsnorm_kernels_strided_and_misaligned_views(cuda, dtype):
+    """x and g as views: a row stride wider than d (vector path), and a
+    start 2 elements into the storage, not 16-byte aligned (scalar path)."""
+    rows, d = 48, 960
+    g = torch.Generator(device=cuda).manual_seed(7)
+    wide = torch.randn((rows, d + 64), device=cuda, generator=g).to(dtype)
+    flat = torch.randn(rows * d + 2, device=cuda, generator=g).to(dtype)
+    shifted = flat[2:].view(rows, d)
+    assert shifted.data_ptr() % 16 and wide.stride(0) != d
+    s = (1 + 0.1 * torch.randn(d, device=cuda, generator=g)).to(dtype)
+    for x in (wide[:, :d], shifted):
+        gy = torch.randn((rows, d + 64), device=cuda, generator=g
+                         ).to(dtype)[:, 32:32 + d]
+        _check_rmsnorm(cuda, x, s, gy)
+    with torch.no_grad():                # serving: the ops' reshape, no copy
+        for x in (wide[:, :d], shifted):
+            got = ops.rmsnorm(x.reshape(4, 12, d), s).reshape(rows, d)
+            want = ref.rmsnorm_ref(x, s)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            else:
+                assert _bf16_steps(got, want) <= 1
+
+
+@pytest.mark.parametrize("rows,d", [(256, 960), (4096, 128), (3, 1001)])
+def test_rmsnorm_backward_is_bitwise_run_to_run(cuda, rows, d):
+    """dscale sums its rows in an order fixed by the shape: two calls on
+    the same inputs agree bit for bit (no float atomics)."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, gy = _rms_inputs(cuda, rows, d)
+    _, rstd = rn.rmsnorm_fwd_cuda(x, s, 1e-6)
+    dx1, ds1 = rn.rmsnorm_bwd_cuda(x, s, rstd, gy)
+    dx2, ds2 = rn.rmsnorm_bwd_cuda(x, s, rstd, gy)
+    torch.cuda.synchronize()
+    assert torch.equal(ds1, ds2) and torch.equal(dx1, dx2)
+
+
+def test_rmsnorm_serving_forward_skips_rstd(cuda):
+    """Without autograd the forward writes no rstd and is the same y."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, _ = _rms_inputs(cuda, 64, 128)
+    y, rstd = rn.rmsnorm_fwd_cuda(x, s, 1e-6, need_rstd=False)
+    assert rstd is None
+    with torch.no_grad():
+        assert torch.equal(ops.rmsnorm(x, s), y)
+    assert torch.equal(rn.rmsnorm_fwd_cuda(x, s, 1e-6)[0], y)
+
+
+def test_rmsnorm_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, gy = _rms_inputs(cuda, 8, 64)
+    _, rstd = rn.rmsnorm_fwd_cuda(x, s, 1e-6)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rn.rmsnorm_fwd_cuda(x.half(), s.half(), 1e-6)
+    with pytest.raises(TypeError, match="one dtype"):
+        rn.rmsnorm_fwd_cuda(x, s.bfloat16(), 1e-6)
+    with pytest.raises(ValueError, match=r"scale \(d,\)"):
+        rn.rmsnorm_fwd_cuda(x, s[:63], 1e-6)
+    wide = torch.zeros((2, rn.MAX_D + 1), device=cuda)
+    with pytest.raises(ValueError, match="d <= 16384"):
+        rn.rmsnorm_fwd_cuda(wide, torch.ones(rn.MAX_D + 1, device=cuda),
+                            1e-6)
+    with pytest.raises(ValueError, match="one device"):
+        rn.rmsnorm_fwd_cuda(x, s.cpu(), 1e-6)
+    with pytest.raises(ValueError, match="one device"):
+        rn.rmsnorm_bwd_cuda(x, s.cpu(), rstd, gy)
+    with pytest.raises(ValueError, match="g must match"):
+        rn.rmsnorm_bwd_cuda(x, s, rstd, gy.cpu())
+    with pytest.raises(ValueError, match="unit column stride"):
+        rn.rmsnorm_fwd_cuda(x.t(), torch.ones(8, device=cuda), 1e-6)
+    with pytest.raises(ValueError, match="rstd"):
+        rn.rmsnorm_bwd_cuda(x, s, rstd[:4], gy)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

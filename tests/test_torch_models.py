@@ -301,3 +301,31 @@ def test_unported_families_still_raise():
         moe=tcfg.MoEConfig(**dataclasses.asdict(jmix.moe)))
     with pytest.raises(NotImplementedError, match="MoE blocks are not ported"):
         ttf.init_params(torch.Generator(), mix)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_gemma_embedding_scale_is_bitwise_the_reference(dtype):
+    """The Gemma family scales embeddings by sqrt(d_model) rounded to the
+    activation dtype (``repro.models.transformer._embed``).  At d = 4608 in
+    bf16, sqrt(d) = 67.88 rounds to 68.0, so an unrounded scale changes a
+    third of the products; the port's ``_embed`` must equal the reference
+    bit for bit in bf16 and in f32."""
+    d, vocab = 4608, 96
+    jcfg = dataclasses.replace(j_get_smoke(ARCH), d_model=d,
+                               vocab_size=vocab, final_logit_softcap=30.0)
+    cfg = dataclasses.replace(get_smoke(ARCH), d_model=d, vocab_size=vocab,
+                              final_logit_softcap=30.0)
+    rng = np.random.default_rng(16)
+    table = jnp.asarray(rng.standard_normal((vocab, d)).astype(np.float32)
+                        ).astype(getattr(jnp, dtype))
+    tokens = rng.integers(0, vocab, size=(2, 24))
+    want = np.asarray(jtf._embed({"embed": table}, jcfg,
+                                 jnp.asarray(tokens)))
+    bits = np.asarray(table).view(np.int16 if dtype == "bfloat16"
+                                  else np.int32)
+    ttable = torch.from_numpy(bits.copy()).view(getattr(torch, dtype))
+    got = ttf._embed({"embed": ttable}, cfg, torch.from_numpy(tokens))
+    assert got.dtype == getattr(torch, dtype)
+    int_t = torch.int16 if dtype == "bfloat16" else torch.int32
+    np.testing.assert_array_equal(got.view(int_t).numpy(),
+                                  want.view(bits.dtype))
