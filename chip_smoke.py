@@ -43,6 +43,10 @@ before it and read just after:
   against a full forward, kernel 9's time at the prefill's shape against
   its bound, and the prefill and decode under the profiler.
 
+Kernels 3 and 9 at their prefill shapes also report each device kernel's
+time from the profiler, the blocks of each launch, and the registers and
+spills of every compiled instance.
+
 Every phase prints one JSON line; any failure
 raises and the script exits non-zero.  Before the last line it prints the
 per-kernel JSON summary and the GPU's name and power limit; the last line
@@ -238,6 +242,32 @@ def device_us(torch, fn, reps: int = 20) -> float:
     return sum(getattr(e, "self_device_time_total", 0)
                or getattr(e, "self_cuda_time_total", 0)
                for e in prof.key_averages()) / reps
+
+
+def device_kernels(torch, fn, reps: int = 10) -> dict:
+    """Each device kernel that ``fn`` launches, from the profiler: its name
+    (template arguments kept), its device microseconds a launch, averaged
+    over the launches the profiler recorded, and those launches a call of
+    ``fn`` (a session late in this long process may record fewer than were
+    made)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen: dict = {}
+    for e in prof.key_averages():    # a name may come in more than one group
+        us = getattr(e, "self_device_time_total", 0) or getattr(
+            e, "self_cuda_time_total", 0)
+        if us:
+            name = e.key.split("::")[-2] if "::" in e.key else e.key
+            row = seen.setdefault(name.split("(")[0].strip() or e.key, [0, 0])
+            row[0] += us
+            row[1] += e.count
+    return {k: {"us_a_launch": us / n, "launches_recorded_a_call": n / reps}
+            for k, (us, n) in seen.items()}
 
 
 def bf16_steps(torch, got, want) -> int:
@@ -794,6 +824,7 @@ def mamba_serving(torch, g, serve_shape: dict) -> dict:
         reps=10)
     flops, n_bytes, flops_cb_per_head = ssd_work(b, s_len, nh, hd, ds, chunk)
     ssd_bound, ssd_by = bound_ms(n_bytes, flops)
+    ssd_dev = device_kernels(torch, lambda: ops.ssd_scan(*args, chunk=chunk))
     emit("ssd_main_shape", shape=[b, s_len, nh, hd, ds, chunk],
          kernel_ms=times["kernel"], plain_ms=times["plain"], library_ms=None,
          max_abs_err=ssd_err, flops=flops,
@@ -808,7 +839,11 @@ def mamba_serving(torch, g, serve_shape: dict) -> dict:
          dynamic_smem_bytes=ssd.smem_bytes(hd, ds, chunk),
          ptxas=[line.strip() for line in
                 _build.build_logs.get("ssd_scan", "").splitlines()
-                if "Used" in line or "spill" in line])
+                if "Used" in line or "spill" in line],
+         device_us=ssd_dev,
+         device_kernels_per_call=len(ssd_dev),
+         blocks=ssd.blocks(b, s_len, nh, hd, ds, chunk),
+         ptxas_instances=ptxas_entries(_build.build_logs.get("ssd_scan", "")))
     del args
 
     # ---- e. where the serving time goes ----
@@ -1195,6 +1230,7 @@ def main() -> int:
     fa_flops = b * h * causal_pairs(torch, s_len, s_len) * 4 * hd
     fa_bytes = (2 * q.numel() + k.numel() + v.numel()) * 4
     fa_bound, fa_by = bound_ms(fa_bytes, fa_flops)
+    fa_dev = device_kernels(torch, lambda: ops.flash_attention(q, k, v))
     emit("flash_attention_main_shape", shape=[b, s_len, s_len, h, kvh, hd],
          causal=True, max_abs_err=fa_err, max_rel_err=fa_rel,
          library_max_rel_err=lib_err, kernel_ms=fa_times["kernel"],
@@ -1205,7 +1241,12 @@ def main() -> int:
          dynamic_smem_bytes=fa.smem_bytes(hd),
          ptxas=[line.strip() for line in
                 _build.build_logs.get("flash_attention", "").splitlines()
-                if "Used" in line or "spill" in line])
+                if "Used" in line or "spill" in line],
+         device_us=fa_dev,
+         device_kernels_per_call=len(fa_dev),
+         blocks=fa.blocks(b, s_len, h, kvh),
+         ptxas_instances=ptxas_entries(
+             _build.build_logs.get("flash_attention", "")))
     del q, k, v
     torch.cuda.empty_cache()
 

@@ -11,35 +11,50 @@
 // are f32; the output is in q's dtype (f32 or bf16).  A row that sees no key
 // is 0, as the TPU kernel's l == 0 guard makes it.
 //
-// What bounds it on an H100: operations.  At the serving path's shape
-// (Qwen3-1.7B prefill: b=4, sq=sk=1024, h=16, kvh=8, hd=128, causal) the
-// visible (q, k) pairs cost 4*hd flops each -- 1.72e10 flops, 0.257 ms at the
-// card's 67 TFLOP/s of f32 FMA (the port keeps f32 products in full f32, so
-// TF32 tensor cores are off) -- while q, k, v and out are 100.7 MB, 0.030 ms
-// at 3.35 TB/s.  So the kernel has to keep the FMA pipes fed and touch each
-// byte of device memory about once.
+// What bounds it on an H100: operations.  chip_smoke.py counts 4*hd flops for
+// each visible (q, k) pair: at the serving path's shape (Qwen3-1.7B prefill:
+// b=4, sq=sk=1024, h=16, kvh=8, hd=128, causal) 1.72e10 flops, 0.257 ms at
+// the card's 67 TFLOP/s of f32 FMA (f32 products stay in full f32: TF32
+// tensor cores are off), while q, k, v and out are 100.7 MB, 0.030 ms at
+// 3.35 TB/s.  So the kernel has to keep the FMA pipes fed.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are a
-// later step):
-//   * One block owns one (batch, head, 64-query tile) and loops over the
-//     64-key tiles inside itself -- in place of the TPU's sequential k grid
-//     axis -- with the online-softmax state (m, l) and the 64 x hd output
-//     accumulator in registers.  The (b*h) x q-tile grid is ordered with the
-//     latest (most loaded, under causality) q tiles first.
-//   * The loop starts and ends at the live key tiles: tiles wholly outside
-//     the causal or window band are never loaded (the TPU kernel's pl.when
-//     skip); masks inside a tile handle the diagonal and the ragged edges.
-//   * Q (pre-scaled), K and V tiles are staged in dynamic shared memory as
-//     f32, rows padded to hd + 4 floats so the 16-byte reads of 8 threads
-//     hit distinct banks.  The P tile reuses K's buffer once the scores are
-//     taken, which keeps a block under 102 KB at hd = 128: two blocks (16
-//     warps) per SM.
-//   * 256 threads as a 16 x 16 grid: a thread computes a 4 x 4 patch of the
-//     scores with f32 FMA (rows ty*4.., keys tx+16j), reduces each row's max
-//     and sum with warp shuffles over its 16 lanes, and accumulates a 4-row
-//     by 4*ceil(hd/64)-column patch of P V.
-//   * Rows and keys past sq / sk are zero-filled in shared memory and masked,
-//     so no v row past sk is read and no padding is needed in the caller.
+// What held the first design back (0.79 ms, 0.325 of the bound): a block per
+// (batch, QUERY head, 64-query tile), so the two query heads of a Qwen3 KV
+// head each loaded the same K and V tiles; 4 x 4 scores a thread, 8 FMAs per
+// float4 read from shared memory; synchronous K/V copies, and P in K's buffer,
+// four barriers a key tile.
+//
+// This design:
+//   * A block holds 128 query rows: the query tile of tq = 128 / gb queries of
+//     gb heads that share one KV head (gb the largest power of two, at most 8,
+//     that divides h / kvh: both heads of a Qwen3 KV head, tq = 64; a group of
+//     8 in one block, tq = 16; a group of 3 over three blocks, tq = 128).  Each
+//     K and V tile is loaded once for all of them.  The grid runs the latest
+//     (most loaded, under causality) query tiles first, and the key loop runs
+//     over the live 64-key tiles only: tiles wholly outside the causal or
+//     window band are never loaded (the TPU kernel's pl.when skip); masks
+//     inside a tile handle the diagonal and the ragged edges.
+//   * K and V are double-buffered in shared memory and copied with cp.async
+//     (16 bytes a copy; 8 for bf16, which stays bf16 in shared memory and is
+//     widened on read): the next tile's copy is in flight while the current
+//     one computes.  Rows past sk and columns past hd are zero-filled by the
+//     copy, so no padding is needed in the caller.  P has its own buffer: two
+//     barriers a key tile.
+//   * 256 threads.  Scores: a thread owns 8 query rows x 8 keys over one half
+//     of head_dim (the halves interleaved by float4), reading one float4 of q
+//     and of k per 4 FMAs of each of the other operand's 8 rows: 16 FMAs a
+//     float4; the halves are summed with one shuffle a score, after which each
+//     thread keeps 4 of its keys.  Exponentials of the probabilities use the
+//     MUFU ex2 unit (__expf); a tile whose row maxima did not move skips the
+//     rescale of the accumulators.  The online softmax's max and sum reduce
+//     over the 16 lanes that share the 8 rows, which are also the lanes that
+//     hold those rows' output: (m, l) and the rescale never leave registers.
+//     P V: a thread owns the 8 rows x 4 * hdp / 64 columns, 2 float4 of P and
+//     hdp / 64 float4 of V per key: 16 FMAs a float4 at hd 128.
+//   * Q (pre-scaled, f32), K and V rows are stored unpadded with their float4
+//     units XOR-swizzled by row, so the reads of a warp fall on distinct
+//     banks; at hd = 128 the block takes 230,400 bytes of shared memory, one
+//     block (8 warps) per SM.  head_dim is padded with zeros to 64 or 128.
 //   * Tensors are read and written through their (batch, seq, head) strides:
 //     the model's (b, s, h, hd) layout goes in without a transpose.
 //
@@ -54,18 +69,18 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;  // a 16 x 16 grid: (ty, tx)
-constexpr int kPad = 4;        // floats of padding per shared-memory row
-constexpr int kLdP = kBlockK + kPad;
+constexpr int kRows = 128;      // query rows a block holds (heads of a group x query tile)
+constexpr int kTK = 64;         // keys a tile
+constexpr int kThreads = 256;
+constexpr int kLdP = kRows + 4;  // P row: 128 query rows + 4 floats of padding
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  int bh, sq, sk, h, group, hd, n_q_tiles;
+  int b, sq, sk, kvh, group, gb, tq, n_hg, n_q_tiles, hd;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -107,82 +122,62 @@ struct Elem<__nv_bfloat16> {
   }
 };
 
-__host__ __device__ __forceinline__ int row_floats(int hd) { return hd + kPad; }
-
-__host__ __device__ __forceinline__ int kbuf_floats(int hd) {
-  const int ld = row_floats(hd);
-  return kBlockK * (ld > kLdP ? ld : kLdP);
-}
-
-size_t smem_bytes(int hd) {
-  return (size_t)(kBlockQ * row_floats(hd) + kbuf_floats(hd) + kBlockK * row_floats(hd)) *
-         sizeof(float);
-}
-
-// Stage `rows_valid` rows of hd values (times `mul`) as f32 into a 64-row
-// shared tile of row length ld; rows past rows_valid become 0.
+// ---- asynchronous copies: 4 elements (16 bytes of f32, 8 of bf16), or 4 zeros ----
 template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, long long row_stride,
-                                          int rows_valid, int hd, float mul) {
-  const int chunks = hd / 4;
-  for (int idx = threadIdx.x; idx < kBlockQ * chunks; idx += kThreads) {
-    const int r = idx / chunks;
-    const int c = (idx - r * chunks) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows_valid) {
-      val = Elem<T>::load4(src + r * row_stride + c);
-      val.x *= mul;
-      val.y *= mul;
-      val.z *= mul;
-      val.w *= mul;
-    }
-    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
+__device__ __forceinline__ void cp_async4(T* dst, const T* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 4 * static_cast<int>(sizeof(T)) : 0;
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+__host__ __device__ __forceinline__ int head_dim_padded(int hd) { return hd > 64 ? 128 : 64; }
+
+size_t smem_bytes(int hd, int elem) {
+  const int hdp = head_dim_padded(hd);
+  return (size_t)kRows * hdp * 4 + (size_t)2 * 2 * kTK * hdp * elem +
+         (size_t)kTK * kLdP * 4;
 }
 
-// NG = ceil(hd / 64): the float4 column groups of the output a thread owns.
+// NG = hdp / 64: hd padded to 64 (NG 1) or 128 (NG 2).
 template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 1) flash_fwd_kernel(const Params p) {
+  constexpr int kHdp = 64 * NG;
+  constexpr int kUnits = kHdp / 4;  // float4 units of a row
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int hd = p.hd;
-  const int ld = row_floats(hd);
-  float* qs = smem;                     // kBlockQ x ld, pre-scaled q
-  float* ks = qs + kBlockQ * ld;        // kBlockK x ld; then P, kBlockQ x kLdP
-  float* vs = ks + kbuf_floats(hd);     // kBlockK x ld
-  float* ps = ks;
+  float* qs = reinterpret_cast<float*>(smem4);       // [kRows][kHdp], unit u at u ^ ((r >> 2) & 7)
+  T* ks = reinterpret_cast<T*>(qs + kRows * kHdp);  // [2][kTK][kHdp], unit u at u ^ (r & 7)
+  T* vs = ks + 2 * kTK * kHdp;                       // [2][kTK][kHdp], likewise
+  float* ps = reinterpret_cast<float*>(vs + 2 * kTK * kHdp);  // [kTK][kLdP]
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int q_tile = p.n_q_tiles - 1 - (int)(blockIdx.x / p.bh);
-  const int bh = (int)(blockIdx.x % p.bh);
-  const int b = bh / p.h;
-  const int head = bh - b * p.h;
-  const int kv_head = head / p.group;
-  const int q0 = q_tile * kBlockQ;
+  const int tid = threadIdx.x;
+  const int per = p.b * p.kvh * p.n_hg;
+  const int q_tile = p.n_q_tiles - 1 - (int)(blockIdx.x / per);
+  int rest = (int)(blockIdx.x % per);
+  const int hg = rest % p.n_hg;
+  rest /= p.n_hg;
+  const int kv_head = rest % p.kvh;
+  const int b = rest / p.kvh;
+  const int head0 = kv_head * p.group + hg * p.gb;
+  const int q0 = q_tile * p.tq;
   const int q_off = p.sk - p.sq;
+  const int q_rows = min(p.tq, p.sq - q0);
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + (long long)q0 * p.q_ss + head * p.q_sh;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + kv_head * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + kv_head * p.v_sh;
-  const int q_rows = min(kBlockQ, p.sq - q0);
-  load_tile<T>(qs, ld, qg, p.q_ss, q_rows, hd, p.scale);
 
   // the live keys of this tile's real rows: [k_begin, k_end)
   const int pos_lo = q0 + q_off;
@@ -191,145 +186,237 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(const Params p) 
   int k_end = p.sk;
   if (p.causal) k_end = min(k_end, pos_hi + 1);
   if (p.window > 0) k_begin = max(0, pos_lo - p.window + 1);
-  const int t_begin = k_begin / kBlockK;
-  const int t_end = (k_end > k_begin) ? (k_end + kBlockK - 1) / kBlockK : t_begin;
+  const int t_begin = k_begin / kTK;
+  const int t_end = (k_end > k_begin) ? (k_end + kTK - 1) / kTK : t_begin;
 
-  float acc[4][NG][4];
-  float m_i[4], l_i[4];
+  auto fetch = [&](int t, int st) {
+    const int k0 = t * kTK;
+    T* kd = ks + st * kTK * kHdp;
+    T* vd = vs + st * kTK * kHdp;
+    for (int idx = tid; idx < kTK * kUnits; idx += kThreads) {
+      const int r = idx / kUnits;
+      const int u = idx - r * kUnits;
+      const bool ok = k0 + r < p.sk && u * 4 < p.hd;
+      const int at = r * kHdp + ((u ^ (r & 7)) << 2);
+      cp_async4<T>(kd + at, ok ? kg + (long long)(k0 + r) * p.k_ss + u * 4 : kg, ok);
+      cp_async4<T>(vd + at, ok ? vg + (long long)(k0 + r) * p.v_ss + u * 4 : vg, ok);
+    }
+    cp_async_commit();
+  };
+  if (t_begin < t_end) fetch(t_begin, 0);
+
+  // Q, pre-scaled, as f32; rows past sq and columns past hd are 0
+  {
+    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb;
+    for (int idx = tid; idx < kRows * kUnits; idx += kThreads) {
+      const int r = idx / kUnits;
+      const int u = idx - r * kUnits;
+      const int qi = r % p.tq;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (qi < q_rows && u * 4 < p.hd) {
+        val = Elem<T>::load4(qg + (long long)(q0 + qi) * p.q_ss + (head0 + r / p.tq) * p.q_sh +
+                             u * 4);
+        val.x *= p.scale;
+        val.y *= p.scale;
+        val.z *= p.scale;
+        val.w *= p.scale;
+      }
+      *reinterpret_cast<float4*>(qs + r * kHdp + ((u ^ ((r >> 2) & 7)) << 2)) = val;
+    }
+  }
+
+  // lanes: rg = the 8 rows (rg*8 ..) both roles share; scores: dh = head_dim half,
+  // kg8 = keys kg8 + 8 j; P V: cg = columns (cg + 16 g) * 4
+  const float inv_cap = p.softcap > 0.f ? 1.f / p.softcap : 0.f;
+  const int rg = tid >> 4;
+  const int dh = (tid >> 3) & 1;
+  const int kg8 = tid & 7;
+  const int cg = tid & 15;
+
+  float acc[8][4 * NG];
+  float m_i[8], l_i[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m_i[i] = -INFINITY;
     l_i[i] = 0.f;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
   }
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBlockK;
-    const int k_rows = min(kBlockK, p.sk - k0);
-    __syncthreads();  // the previous tile's P V is done with ps (= ks) and vs
-    load_tile<T>(ks, ld, kg + (long long)k0 * p.k_ss, p.k_ss, k_rows, hd, 1.f);
-    load_tile<T>(vs, ld, vg + (long long)k0 * p.v_ss, p.v_ss, k_rows, hd, 1.f);
-    __syncthreads();
+    const int st = (t - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t (and Q) landed; every thread is done with tile t - 1 and P
+    if (t + 1 < t_end) fetch(t + 1, st ^ 1);
+    const T* kc = ks + st * kTK * kHdp;
+    const T* vc = vs + st * kTK * kHdp;
+    const int k0 = t * kTK;
 
-    // scores: rows ty*4 + i, keys tx + 16 j
-    float s[4][4];
+    // partial scores over this thread's half of head_dim: rows rg*8 + i, keys kg8 + 8 (j ^ 4 dh),
+    // so that both halves keep their columns 0-3 (the keys kg8 + 8 (4 dh + jj)) and send 4-7
+    float s[8][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < hd; d += 4) {
-      float4 qv[4], kv[4];
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    const T* k_keep = kc + (kg8 + 32 * dh) * kHdp;
+    const T* k_send = kc + (kg8 + 32 - 32 * dh) * kHdp;
+#pragma unroll 1
+    for (int m = 0; m < kUnits / 2; ++m) {
+      const int u = 2 * m + dh;
+      float4 qv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * ld + d);
+      for (int i = 0; i < 8; ++i) {
+        const int r = rg * 8 + i;
+        qv[i] = *reinterpret_cast<const float4*>(qs + r * kHdp + ((u ^ ((r >> 2) & 7)) << 2));
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * ld + d);
+      for (int j = 0; j < 8; ++j) {
+        const T* kr = (j < 4 ? k_keep : k_send) + 8 * (j & 3) * kHdp;
+        const float4 kv = Elem<T>::load4(kr + ((u ^ kg8) << 2));
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        for (int i = 0; i < 8; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
         }
-    }
-
-    // softcap, mask, online softmax
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pos = q0 + ty * 4 + i + q_off;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        bool ok = kpos < p.sk;
-        if (p.causal) ok = ok && kpos <= pos;
-        if (p.window > 0) ok = ok && kpos > pos - p.window;
-        s[i][j] = ok ? x : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
       }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m_i[i], mx);
-      // a row with no visible key so far keeps p = 0 and acc = 0
+    }
+    // sum the two halves: this thread keeps keys kg8 + 8 (4 dh + jj), jj < 4
+    float own[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) own[i][jj] = s[i][jj] + __shfl_xor_sync(kFull, s[i][jj + 4], 8);
+
+    // softcap, mask (only on tiles some row does not see whole), online softmax; the 8
+    // rows' reductions interleaved, so their shuffles overlap
+    const bool whole = k0 + kTK <= p.sk && (!p.causal || k0 + kTK - 1 <= pos_lo) &&
+                       (p.window <= 0 || k0 > pos_hi - p.window);
+    float mx[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int pos = q0 + (rg * 8 + i) % p.tq + q_off;
+      mx[i] = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float x = own[i][jj];
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x * inv_cap);
+        if (!whole) {
+          const int kpos = k0 + kg8 + 8 * (4 * dh + jj);
+          bool ok = kpos < p.sk;
+          if (p.causal) ok = ok && kpos <= pos;
+          if (p.window > 0) ok = ok && kpos > pos - p.window;
+          x = ok ? x : -INFINITY;
+        }
+        own[i][jj] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], off));
+    float rs[8];
+    bool moved = false;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float m_new = fmaxf(m_i[i], mx[i]);
+      // a row with no visible key so far keeps p = 0 and acc = 0: exp(-inf - 0) = 0
       const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      float rs = 0.f;
+      rs[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - m_use);
-        s[i][j] = e;
-        rs += e;
+      for (int jj = 0; jj < 4; ++jj) {
+        const float e = __expf(own[i][jj] - m_use);
+        own[i][jj] = e;
+        rs[i] += e;
       }
-      rs = half_warp_sum(rs);
-      const float alpha = (m_i[i] == -INFINITY) ? 0.f : expf(m_i[i] - m_use);
-      l_i[i] = alpha * l_i[i] + rs;
+      moved = moved || m_new != m_i[i];
+      mx[i] = expf(m_i[i] - m_use);  // now the rescale alpha (0 from m_i = -inf)
       m_i[i] = m_new;
-#pragma unroll
-      for (int g = 0; g < NG; ++g)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][g][e] *= alpha;
     }
-
-    __syncthreads();  // every thread is done reading ks: P takes its place
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int off = 8; off > 0; off >>= 1)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(ty * 4 + i) * kLdP + tx + 16 * j] = s[i][j];
-    __syncthreads();
+      for (int i = 0; i < 8; ++i) rs[i] += __shfl_xor_sync(kFull, rs[i], off);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) l_i[i] = mx[i] * l_i[i] + rs[i];
+    if (moved) {  // else every alpha is 1
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= mx[i];
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float* pr = ps + (kg8 + 8 * (4 * dh + jj)) * kLdP + rg * 8;
+      *reinterpret_cast<float4*>(pr) = make_float4(own[0][jj], own[1][jj], own[2][jj], own[3][jj]);
+      *reinterpret_cast<float4*>(pr + 4) =
+          make_float4(own[4][jj], own[5][jj], own[6][jj], own[7][jj]);
+    }
+    __syncthreads();  // P is complete
 
     // acc += P V; keys past sk have p = 0 and zero-filled v rows
-    for (int c = 0; c < kBlockK; c += 4) {
-      float4 pv[4];
+#pragma unroll 8
+    for (int k = 0; k < kTK; ++k) {
+      const float4 p0 = *reinterpret_cast<const float4*>(ps + k * kLdP + rg * 8);
+      const float4 p1 = *reinterpret_cast<const float4*>(ps + k * kLdP + rg * 8 + 4);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(ps + (ty * 4 + i) * kLdP + c);
+      for (int g = 0; g < NG; ++g) {
+        const float4 vv = Elem<T>::load4(vc + k * kHdp + (((cg + 16 * g) ^ (k & 7)) << 2));
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const int col = (tx + 16 * g) * 4;
-          if (col < hd) {
-            const float4 vv = *reinterpret_cast<const float4*>(vs + (c + cc) * ld + col);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float pi = comp(pv[i], cc);
-              acc[i][g][0] = fmaf(pi, vv.x, acc[i][g][0]);
-              acc[i][g][1] = fmaf(pi, vv.y, acc[i][g][1]);
-              acc[i][g][2] = fmaf(pi, vv.z, acc[i][g][2]);
-              acc[i][g][3] = fmaf(pi, vv.w, acc[i][g][3]);
-            }
-          }
+        for (int i = 0; i < 8; ++i) {
+          acc[i][4 * g] = fmaf(pv[i], vv.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(pv[i], vv.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(pv[i], vv.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(pv[i], vv.w, acc[i][4 * g + 3]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= q_rows) continue;
-    const float l = (l_i[i] == 0.f) ? 1.f : l_i[i];
-    T* og = static_cast<T*>(p.o) + b * p.o_sb + (long long)(q0 + r) * p.o_ss + head * p.o_sh;
+  for (int i = 0; i < 8; ++i) {
+    const int r = rg * 8 + i;
+    const int qi = r % p.tq;
+    if (qi >= q_rows) continue;
+    const float inv_l = (l_i[i] == 0.f) ? 1.f : 1.f / l_i[i];
+    T* og = static_cast<T*>(p.o) + b * p.o_sb + (long long)(q0 + qi) * p.o_ss +
+            (head0 + r / p.tq) * p.o_sh;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      const int col = (tx + 16 * g) * 4;
-      if (col < hd)
-        Elem<T>::store4(og + col, make_float4(acc[i][g][0] / l, acc[i][g][1] / l,
-                                              acc[i][g][2] / l, acc[i][g][3] / l));
+      const int col = (cg + 16 * g) * 4;
+      if (col < p.hd)
+        Elem<T>::store4(og + col, make_float4(acc[i][4 * g] * inv_l, acc[i][4 * g + 1] * inv_l,
+                                              acc[i][4 * g + 2] * inv_l,
+                                              acc[i][4 * g + 3] * inv_l));
     }
   }
 }
 
+// heads a block takes: the largest power of two, at most 8, that divides the group
+int heads_a_block(int group) {
+  int gb = 1;
+  while (gb < 8 && group % (2 * gb) == 0) gb *= 2;
+  return gb;
+}
+
+long long grid_blocks(int b, int sq, int h, int kvh) {
+  const int group = h / kvh;
+  const int gb = heads_a_block(group);
+  const int tq = kRows / gb;
+  return (long long)((sq + tq - 1) / tq) * b * kvh * (group / gb);
+}
+
 template <typename T, int NG>
 int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes(p.hd);
+  const size_t smem = smem_bytes(p.hd, (int)sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, NG>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)p.n_q_tiles * p.bh;
+  const long long blocks = (long long)p.n_q_tiles * p.b * p.kvh * p.n_hg;
   flash_fwd_kernel<T, NG><<<(unsigned)blocks, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -353,13 +440,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.k = k;
   p.v = v;
   p.o = o;
-  p.bh = b * h;
+  p.b = b;
   p.sq = sq;
   p.sk = sk;
-  p.h = h;
+  p.kvh = kvh;
   p.group = h / kvh;
+  p.gb = heads_a_block(p.group);
+  p.tq = kRows / p.gb;
+  p.n_hg = p.group / p.gb;
+  p.n_q_tiles = (sq + p.tq - 1) / p.tq;
   p.hd = hd;
-  p.n_q_tiles = (sq + kBlockQ - 1) / kBlockQ;
   p.q_sb = strides[0];
   p.q_ss = strides[1];
   p.q_sh = strides[2];
@@ -377,10 +467,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.softcap = softcap;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = hd > 64;
+  const bool wide = head_dim_padded(hd) > 64;
   if (dtype == 0) return wide ? launch<float, 2>(p, s) : launch<float, 1>(p, s);
   return wide ? launch<__nv_bfloat16, 2>(p, s) : launch<__nv_bfloat16, 1>(p, s);
 }
 
-// Dynamic shared memory a block takes at head_dim hd, in bytes.
-extern "C" long long flash_attention_smem_bytes(int hd) { return (long long)smem_bytes(hd); }
+// Dynamic shared memory a block takes at head_dim hd, in bytes, for f32 (dtype 0)
+// or bf16 (dtype 1) operands.
+extern "C" long long flash_attention_smem_bytes(int hd, int dtype) {
+  return (long long)smem_bytes(hd, dtype == 1 ? 2 : 4);
+}
+
+// Blocks of one launch.
+extern "C" long long flash_attention_blocks(int b, int sq, int h, int kvh) {
+  if (b < 1 || sq < 1 || h < 1 || kvh < 1 || h % kvh) return 0;
+  return grid_blocks(b, sq, h, kvh);
+}

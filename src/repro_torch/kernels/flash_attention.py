@@ -5,7 +5,8 @@ TPU kernel).  The source is ``csrc/flash_attention.cu``; its note says what
 bounds it and how the design answers.  ``flash_attention_cuda`` takes the
 model layout — q ``(b, sq, h, hd)``, k/v ``(b, sk, kvh, hd)`` — reads it
 through its strides, checks its operands, launches on PyTorch's current
-stream, raises on a launch error and counts its launches in ``launches``.
+stream (read on every call through the raw binding, without the Stream
+object), raises on a launch error and counts its launches in ``launches``.
 Its plain version is ``repro_torch.kernels.ref.attention_ref``;
 ``repro_torch.kernels.ops.flash_attention`` picks between them by device.
 """
@@ -24,21 +25,37 @@ launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
-    lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
-    return lib
+# the bound C functions, set on first use
+_fwd = _lib = None
+
+
+def _bind() -> ctypes.CDLL:
+    global _fwd, _lib
+    if _lib is None:
+        lib = _build.load("flash_attention")
+        i32 = ctypes.c_int
+        fwd = lib.flash_attention_fwd
+        fwd.argtypes = [ctypes.c_void_p] * 4 + [i32] * 7 + [
+            ctypes.POINTER(ctypes.c_longlong), i32, i32, ctypes.c_float,
+            ctypes.c_float, ctypes.c_void_p]
+        fwd.restype = i32
+        lib.flash_attention_smem_bytes.argtypes = [i32, i32]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.flash_attention_blocks.argtypes = [i32] * 4
+        lib.flash_attention_blocks.restype = ctypes.c_longlong
+        _fwd, _lib = fwd, lib
+    return _lib
 
 
 def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at ``head_dim``."""
-    return int(_lib().flash_attention_smem_bytes(head_dim))
+    """Dynamic shared memory one block of the kernel takes at ``head_dim``
+    with f32 operands (bf16 ones take less)."""
+    return int(_bind().flash_attention_smem_bytes(head_dim, 0))
+
+
+def blocks(b: int, sq: int, h: int, kvh: int) -> int:
+    """Blocks of one launch: (query tile, batch, KV head, head group)."""
+    return int(_bind().flash_attention_blocks(b, sq, h, kvh))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -95,11 +112,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    err = _lib().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], b, sq, sk, h, kvh, hd, strides, int(causal),
-        window or 0, softcap or 0.0, scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if _fwd is None:
+        _bind()
+    err = _fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               _DTYPES[q.dtype], b, sq, sk, h, kvh, hd, strides, int(causal),
+               window or 0, softcap or 0.0, scale,
+               torch._C._cuda_getCurrentRawStream(q.get_device()))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

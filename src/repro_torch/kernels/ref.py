@@ -169,6 +169,82 @@ def ssd_scan_chunked_ref(xs: torch.Tensor, bs: torch.Tensor,
     return torch.cat(ys, dim=1)[:, :s], h
 
 
+def ssd_scan_passes_ref(xs: torch.Tensor, bs: torch.Tensor, cs: torch.Tensor,
+                        dt: torch.Tensor, a_coef: torch.Tensor, *,
+                        chunk: int):
+    """Kernel 9's algebra, pass by pass, in plain PyTorch (used by tests
+    only: the CUDA kernel's plain version is ``ssd_scan_chunked_ref``).
+    Takes and returns what ``ssd_scan_chunked_ref`` does.
+
+    (a) cum: the in-chunk prefix of dt * A, each step rounded and added in
+        order in f32, carried past s (dt = 0 there);
+    (b) C.B' once per (batch, chunk), shared by every head;
+    (c) each chunk's state contribution sum_k (B_k exp(total - cum_k) dt_k)
+        x_k';
+    (d) the state entering each chunk, h_c = exp(total_{c-1}) h_{c-1} +
+        S_{c-1}, and the final state;
+    (e) y per tile of 64 queries t0.. (the kernel's), r = t0 - 1: the state
+        term exp(cum_r) C.h and the keys before the tile, C.B' exp(cum_r -
+        cum_k) dt_k x_k, both scaled by exp(cum_t - cum_r); then the tile's
+        own band, C.B' exp(cum_t - cum_k) dt_k x_k where k <= t and 0
+        selected elsewhere."""
+    bsz, s, nh, hd = xs.shape
+    ds = bs.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    x, bb, cc, dtf = xs.float(), bs[:, :, 0].float(), cs[:, :, 0].float(), \
+        dt.float()
+    if pad:
+        x, bb, cc, dtf = (torch.nn.functional.pad(
+            t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, bb, cc, dtf))
+    xc = x.reshape(bsz, nc, q, nh, hd)
+    bc, ccc = bb.reshape(bsz, nc, q, ds), cc.reshape(bsz, nc, q, ds)
+    dtc = dtf.reshape(bsz, nc, q, nh)
+    a = a_coef.float()
+    # (a)
+    steps, run = [], torch.zeros((bsz, nc, nh), dtype=torch.float32,
+                                 device=xs.device)
+    for t in range(q):
+        run = run + dtc[:, :, t] * a
+        steps.append(run)
+    cum = torch.stack(steps, dim=2)                          # (b, nc, q, nh)
+    total = cum[:, :, -1]
+    # (b)
+    cb = torch.einsum("bctn,bckn->bctk", ccc, bc)            # (b, nc, q, q)
+    # (c)
+    w = torch.exp(total[:, :, None] - cum) * dtc
+    st = torch.einsum("bckn,bckh,bckhp->bchnp", bc, w, xc)  # b, nc, nh, ds, hd
+    # (d)
+    h = torch.zeros((bsz, nh, ds, hd), dtype=torch.float32, device=xs.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = torch.exp(total[:, c])[..., None, None] * h + st[:, c]
+    h_in = torch.stack(h_in, dim=1)                         # b, nc, nh, ds, hd
+    # (e)
+    y = torch.empty((bsz, nc, q, nh, hd), dtype=torch.float32,
+                    device=xs.device)
+    for t0 in range(0, q, 64):
+        t1 = min(t0 + 64, q)
+        cum_r = cum[:, :, t0 - 1] if t0 else torch.zeros_like(total)
+        acc = torch.einsum("bctn,bchnp->bcthp", ccc[:, :, t0:t1], h_in) \
+            * torch.exp(cum_r)[:, :, None, :, None]
+        colf = torch.exp(cum_r[:, :, None] - cum[:, :, :t0]) * dtc[:, :, :t0]
+        acc = acc + torch.einsum("bctk,bckh,bckhp->bcthp",
+                                 cb[:, :, t0:t1, :t0], colf, xc[:, :, :t0])
+        acc = acc * torch.exp(cum[:, :, t0:t1] - cum_r[:, :, None])[..., None]
+        seg = cum[:, :, t0:t1, None] - cum[:, :, None, t0:t1]  # (b,nc,t,k,nh)
+        band = torch.ones((t1 - t0, t1 - t0), dtype=torch.bool,
+                          device=xs.device).tril()
+        decay = torch.where(band[..., None], torch.exp(seg),
+                            torch.zeros((), device=xs.device))
+        y[:, :, t0:t1] = acc + torch.einsum(
+            "bctk,bctkh,bckh,bckhp->bcthp", cb[:, :, t0:t1, t0:t1], decay,
+            dtc[:, :, t0:t1], xc[:, :, t0:t1])
+    return y.reshape(bsz, nc * q, nh, hd)[:, :s], h
+
+
 # ---------------------------------------------------------------------------
 # the physical wire: kernels 5-8 (quantized, delta-coded gossip)
 #

@@ -4,8 +4,10 @@ Replaces ``repro.kernels.ssd_scan.ssd_scan_bhs`` (the Pallas TPU kernel).
 The source is ``csrc/ssd_scan.cu``; its note says what bounds it and how the
 design answers.  ``ssd_scan_cuda`` takes the model layout — x ``(b, s, nh,
 hd)``, B and C ``(b, s, 1, ds)``, dt ``(b, s, nh)`` — reads it through its
-strides, checks its operands, launches on PyTorch's current stream, raises
-on a launch error and counts its launches in ``launches``.  Its plain
+strides, checks its operands, takes the passes' workspace from PyTorch's
+allocator, launches the passes on PyTorch's current stream (read on
+every call through the raw binding, without the Stream object), raises on
+a launch error and counts its calls in ``launches``.  Its plain
 version is ``repro_torch.kernels.ref.ssd_scan_chunked_ref``;
 ``repro_torch.kernels.ops.ssd_scan`` picks between them by device.
 """
@@ -17,27 +19,50 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches since the last ``ops.reset_launch_counts()``
+#: kernel launches since the last ``ops.reset_launch_counts()`` (one a call,
+#: though a call runs its passes as three device kernels)
 launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the most dynamic shared memory a block may take on a Hopper SM
 MAX_SMEM = 232_448
+#: the device kernels a call launches, in order (``ssd_scan_blocks``' order)
+PASSES = ("prefix and C.B' (a, b)", "chunk states and state pass (c, d)",
+          "output (e)")
+
+# the bound C functions, set on first use
+_fwd = _lib = None
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan")
-    fn = lib.ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
-    return lib
+def _bind() -> ctypes.CDLL:
+    global _fwd, _lib
+    if _lib is None:
+        lib = _build.load("ssd_scan")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fwd = lib.ssd_scan_fwd
+        fwd.argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.POINTER(i64), ptr]
+        fwd.restype = i32
+        lib.ssd_scan_work_bytes.argtypes = [i32] * 6
+        lib.ssd_scan_work_bytes.restype = i64
+        lib.ssd_scan_smem_bytes.argtypes = [i32] * 4
+        lib.ssd_scan_smem_bytes.restype = i64
+        lib.ssd_scan_blocks.argtypes = [i32] * 6 + [ctypes.POINTER(i64)]
+        lib.ssd_scan_blocks.restype = None
+        _fwd, _lib = fwd, lib
+    return _lib
 
 
 def smem_bytes(head_dim: int, d_state: int, chunk: int) -> int:
-    """Dynamic shared memory one block of the kernel takes."""
-    return int(_lib().ssd_scan_smem_bytes(head_dim, d_state, chunk))
+    """The most dynamic shared memory a block of the three launches takes
+    with f32 operands (bf16 ones take no more)."""
+    return int(_bind().ssd_scan_smem_bytes(head_dim, d_state, chunk, 0))
+
+
+def blocks(b: int, s: int, nh: int, head_dim: int, d_state: int,
+           chunk: int) -> dict:
+    """Blocks of each device kernel of one call, keyed by ``PASSES``."""
+    out = (ctypes.c_longlong * len(PASSES))()
+    _bind().ssd_scan_blocks(b, s, nh, head_dim, d_state, chunk, out)
+    return dict(zip(PASSES, map(int, out)))
 
 
 def _check(xs, bs, cs, dt, a_coef) -> None:
@@ -103,18 +128,22 @@ def ssd_scan_cuda(xs: torch.Tensor, bs: torch.Tensor, cs: torch.Tensor,
     if not b * s:
         return y, state.zero_()
     q = min(chunk, s)
-    if smem_bytes(hd, ds, q) > MAX_SMEM:
+    code = _DTYPES[xs.dtype]
+    lib = _bind()
+    smem = lib.ssd_scan_smem_bytes(hd, ds, q, code)
+    if smem > MAX_SMEM:
         raise ValueError(f"chunk {q} at head_dim {hd}, d_state {ds} needs "
-                         f"{smem_bytes(hd, ds, q)} bytes of shared memory, "
-                         f"over the {MAX_SMEM} a block may take")
+                         f"{smem} bytes of shared memory, over the "
+                         f"{MAX_SMEM} a block may take")
+    work = torch.empty(lib.ssd_scan_work_bytes(b, s, nh, hd, ds, q),
+                       dtype=torch.uint8, device=xs.device)
     a32 = a_coef.contiguous()
     strides = (ctypes.c_longlong * 10)(*xs.stride()[:3], *bs.stride()[:2],
                                        *cs.stride()[:2], *dt.stride())
-    err = _lib().ssd_scan_fwd(
-        xs.data_ptr(), bs.data_ptr(), cs.data_ptr(), dt.data_ptr(),
-        a32.data_ptr(), y.data_ptr(), state.data_ptr(), _DTYPES[xs.dtype],
-        b, s, nh, hd, ds, q, strides,
-        torch.cuda.current_stream(xs.device).cuda_stream)
+    err = _fwd(xs.data_ptr(), bs.data_ptr(), cs.data_ptr(), dt.data_ptr(),
+               a32.data_ptr(), y.data_ptr(), state.data_ptr(),
+               work.data_ptr(), code, b, s, nh, hd, ds, q, strides,
+               torch._C._cuda_getCurrentRawStream(xs.get_device()))
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     launches += 1

@@ -255,6 +255,8 @@ FLASH_CASES = [
     ((2, 1, 512, 8, 2, 64), {}),                           # sq = 1
     ((1, 96, 96, 3, 1, 40), {}),                           # hd 40
     ((4, 1024, 1024, 16, 8, 128), {}),                     # serving prefill
+    ((1, 256, 256, 8, 1, 128), {}),                        # a group of 8
+    ((1, 256, 256, 4, 2, 128), {"window": 64, "softcap": 50.0}),  # Gemma-2
 ]
 
 
@@ -323,10 +325,16 @@ SSD_SWEEP = [                       # (b, s, nh, hd, ds, chunk)
     (2, 64, 8, 64, 128, 64),        # single chunk
     (1, 192, 2, 32, 64, 48),        # chunk not a multiple of a tile
     (2, 96, 3, 128, 16, 256),       # hd 128, chunk cut to s
+    (1, 1024, 48, 64, 128, 256, "serving"),  # 4 chunks, A = -(1..48)
+    (1, 200, 3, 64, 128, 48),       # ragged, chunk 48 over two key tiles
 ]
 
 
-def _ssd_inputs(cuda, b, s, nh, hd, ds, seed=0, dtype=torch.float32):
+def _ssd_inputs(cuda, b, s, nh, hd, ds, seed=0, dtype=torch.float32,
+                decays=None):
+    """x ~ N(0, 1), B and C ~ N(0, 0.25), dt = softplus(N(0, 1)); A =
+    -exp(linspace(-1, 1)), or the serving path's -(1..nh) with
+    ``decays="serving"``."""
     g = torch.Generator(device=cuda).manual_seed(seed)
     xs = torch.randn((b, s, nh, hd), device=cuda, generator=g)
     bs = torch.randn((b, s, 1, ds), device=cuda, generator=g) * 0.5
@@ -334,6 +342,8 @@ def _ssd_inputs(cuda, b, s, nh, hd, ds, seed=0, dtype=torch.float32):
     dt = torch.nn.functional.softplus(
         torch.randn((b, s, nh), device=cuda, generator=g))
     a_coef = -torch.exp(torch.linspace(-1.0, 1.0, nh, device=cuda))
+    if decays == "serving":
+        a_coef = -torch.arange(1, nh + 1, device=cuda, dtype=torch.float32)
     return xs.to(dtype), bs.to(dtype), cs.to(dtype), dt, a_coef
 
 
@@ -345,8 +355,9 @@ def _ssd_close(got, want):
 
 @pytest.mark.parametrize("shape", SSD_SWEEP)
 def test_ssd_scan_kernel_matches_plain(cuda, shape):
-    *dims, chunk = shape
-    args = _ssd_inputs(cuda, *dims, seed=sum(shape))
+    *dims, chunk = shape[:6]
+    args = _ssd_inputs(cuda, *dims, seed=sum(shape[:6]),
+                       decays=shape[6] if len(shape) > 6 else None)
     before = ops.launch_counts()["ssd_scan"]
     got = ops.ssd_scan(*args, chunk=chunk)
     torch.cuda.synchronize()

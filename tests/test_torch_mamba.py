@@ -93,6 +93,32 @@ def test_ssd_plain_versions_match_reference(shape):
         _close(got, want, tol)
 
 
+@pytest.mark.parametrize("shape,decays", [(s, "exp") for s in SWEEP] + [
+    ((1, 128, 48, 16, 32, 64), "serving")])
+def test_ssd_passes_algebra_matches_reference(shape, decays):
+    """Kernel 9's passes (a)-(e) in plain PyTorch against the Pallas kernel
+    (interpret mode) and ``ssd_chunked``, with the reference sweep's decays
+    and the serving path's A = -(1..48).  ALGO: the passes are another
+    algorithm than the chunked form -- C.B' once per chunk, the state pass
+    over chunks, and exp(cum_t - cum_r) exp(cum_r - cum_k) for the keys
+    before a query tile in place of exp(cum_t - cum_k) -- so their f32
+    sums and exponents round otherwise, as the reference's own kernel does
+    against its oracle."""
+    b, s, nh, hd, ds, chunk = shape
+    xs, bs, cs, dt, a_coef = _inputs(b, s, nh, hd, ds)
+    if decays == "serving":
+        a_coef = -np.arange(1, nh + 1, dtype=np.float32)
+    jin, tin = _both(xs, bs, cs, dt, a_coef)
+    y, st = ref.ssd_scan_passes_ref(*tin, chunk=chunk)
+    assert y.dtype == st.dtype == torch.float32
+    assert tuple(y.shape) == (b, s, nh, hd) and tuple(st.shape) == (b, nh,
+                                                                     ds, hd)
+    for y_want, st_want in (jops.ssd_scan(*jin, chunk=chunk),
+                            jmm.ssd_chunked(*jin, chunk)):
+        _close(y, y_want, ALGO)
+        _close(st, st_want, ALGO)
+
+
 @pytest.mark.parametrize("chunk", [32, 64, 128])
 def test_ssd_chunk_invariance(chunk):
     """The port's kernel-9 route at any chunk against the reference's
