@@ -14,6 +14,17 @@ before it and read just after:
   full-width, full-depth SmolLM-360M (361,821,120 parameters, random
   weights from a seed), then a full-size gossip period against the plain
   version and Lemma 1;
+* dynamic federation: Algorithm 1 through
+  ``repro_torch.launch.train.train_dynamic`` on full SmolLM-360M with
+  Bernoulli(0.5) participation, per-epoch edge drops and server 2 dropping
+  at epoch 1 and rejoining at epoch 2 (M = 4 -> 3 -> 4: kernel 1 five
+  times an epoch, one epoch step built per M, the memory of two client
+  replicas freed by the drop and taken back by the rejoin), then one
+  Chebyshev epoch (kernel 1 ceil(sqrt(5)) = 3 times); then one dynamic
+  period at full size and M = 3 (the masked mean and kernel 1 on an
+  edge-dropped A_p against their plain versions, the server mean kept and
+  the disagreement lowered in float64, kernel 1's time at M = 3 against
+  its bound);
 * serving: ``repro_torch.launch.serve.serve`` on full-width, full-depth
   Qwen3-1.7B (1,720,574,976 parameters, f32 weights from a seed, f32 KV
   cache): 4 prompts of 1024 tokens prefilled through the flash-attention
@@ -100,6 +111,17 @@ WIRE_TRAFFIC = {"quantized_gossip_encode": (4 + 4 + 4 + 1, 1, False),
                 "quantized_gossip_round": ((1 + 4 + 4) + (4 + 4 + 1), 2,
                                            True)}
 WIRE_SLAB = 1 << 20         # columns of a slab held against the plain version
+
+# the dynamic-federation path: the training path with Bernoulli(0.5)
+# participation, per-epoch edge drops (p = 0.3) and server 2 dropping at
+# epoch 1 and rejoining at epoch 2 (M = 4 -> 3 -> 4)
+DYN_TRAIN = dict(smoke=False, servers=4, clients=2, t_client=2, t_server=5,
+                 epochs=3, seq_len=128, per_client_batch=2, gamma=0.05,
+                 participation_kind="bernoulli", participation_rate=0.5,
+                 edge_drop_prob=0.3, faults="drop:1:2,rejoin:2:2",
+                 device="cuda")
+# f32 bytes of one SmolLM-360M replica: a client's share of the state
+SMOLLM_REPLICA_GB = SMOLLM_PARAMS * 4 / 1e9
 
 # the simulated wire's path: the training path with int8 compression on the
 # default wire (once a period), no error feedback
@@ -481,6 +503,205 @@ def wire_period_disagreement(torch, cns, tree_leaves):
         yield records
     finally:
         cns.CompressedBackend.mix_compressed = inner
+
+
+# ---------------------------------------------------------------------------
+# dynamic federation: the engine path and one period at M = 3
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def per_epoch_readings(torch, ops, engine_cls):
+    """Within the block, every ``run_epoch`` of the engine records the
+    kernel launches it made and the device's peak memory during it."""
+    records = []
+    inner = engine_cls.run_epoch
+
+    def measured(self, *args, **kw):
+        before = ops.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = inner(self, *args, **kw)
+        after = ops.launch_counts()
+        records.append({"launches": {k: after[k] - before[k] for k in after
+                                     if after[k] != before[k]},
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        return out
+
+    engine_cls.run_epoch = measured
+    try:
+        yield records
+    finally:
+        engine_cls.run_epoch = inner
+
+
+def dynamic_federation(torch, ttrain, ops) -> dict:
+    """The dynamic path through ``train_dynamic``: launches, M, memory and
+    the epoch step's builds per M, then one Chebyshev epoch."""
+    import numpy as np
+    from repro_torch.core.engine import DynamicFederationEngine
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with per_epoch_readings(torch, ops, DynamicFederationEngine) as epochs:
+        run = ttrain.train_dynamic("smollm-360m", **DYN_TRAIN)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    hist, engine = run["history"], run["engine"]
+    t_s, n_ep = DYN_TRAIN["t_server"], DYN_TRAIN["epochs"]
+    norms_per_step = 2 * run["cfg"].num_layers + 1
+    client_steps = sum(int(m) * DYN_TRAIN["clients"] * DYN_TRAIN["t_client"]
+                       for m in hist["num_servers"])
+    emit("train_dynamic", arch="smollm-360m", loss=hist["loss"],
+         num_servers=hist["num_servers"],
+         participation=hist["participation"],
+         sigma_prod=hist["sigma_prod"], disagreement=hist["disagreement"],
+         epoch_s=hist["epoch_s"], alloc_gb=hist["alloc_gb"],
+         epoch_peak_gb=[e["peak_gb"] for e in epochs],
+         epoch_launches=[e["launches"] for e in epochs],
+         launches=launches, builds_per_m=engine.compile_counts(),
+         replica_gb=SMOLLM_REPLICA_GB)
+    assert hist["num_servers"] == [4.0, 3.0, 4.0], hist["num_servers"]
+    assert all(e["launches"].get("consensus_mix") == t_s for e in epochs), \
+        epochs
+    assert launches["consensus_mix"] == t_s * n_ep, launches
+    assert launches["rmsnorm_fwd"] == norms_per_step * client_steps
+    assert launches["rmsnorm_bwd"] == norms_per_step * client_steps
+    assert all(launches[k] == 0 for k in WIRE_KERNELS), launches
+    assert launches[SIM_KERNEL[0]] == 0 and launches["ssd_scan"] == 0
+    assert launches["flash_attention"] == 0, launches
+    assert engine.compile_counts() == {4: 1, 3: 1}, engine.compile_counts()
+    assert all(np.isfinite(hist["loss"])), hist["loss"]
+    # the drop frees the dropped server's two client replicas, the rejoin
+    # takes them back
+    alloc = hist["alloc_gb"]
+    two = 2 * SMOLLM_REPLICA_GB
+    assert alloc[0] - alloc[1] > 0.9 * two, alloc
+    assert abs(alloc[2] - alloc[0]) < 0.1 * two, alloc
+    row = {"epoch_s": hist["epoch_s"], "alloc_gb": alloc,
+           "epoch_peak_gb": [e["peak_gb"] for e in epochs]}
+    del run, engine
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    cheb = dict(DYN_TRAIN, epochs=1, faults="", consensus_mode="chebyshev")
+    with per_epoch_readings(torch, ops, DynamicFederationEngine) as epochs:
+        run = ttrain.train_dynamic("smollm-360m", **cheb)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    hist = run["history"]
+    rounds = int(np.ceil(np.sqrt(t_s)))
+    emit("train_dynamic_chebyshev", loss=hist["loss"],
+         participation=hist["participation"], sigma_prod=hist["sigma_prod"],
+         disagreement=hist["disagreement"], epoch_s=hist["epoch_s"],
+         epoch_peak_gb=[e["peak_gb"] for e in epochs],
+         launches=launches, expected_consensus_mix=rounds)
+    assert launches["consensus_mix"] == rounds, launches
+    assert all(np.isfinite(hist["loss"])), hist["loss"]
+    row["chebyshev_epoch_s"] = hist["epoch_s"]
+    row["chebyshev_peak_gb"] = epochs[0]["peak_gb"]
+    del run
+    torch.cuda.empty_cache()
+    return row
+
+
+def dynamic_period_full_size(torch, cns, tp, ttf, dfl, ops, ref,
+                             tree_leaves, tree_map) -> dict:
+    """One dynamic period at full width and M = 3, N = 2: random client
+    trees around seeded SmolLM weights, a Bernoulli mask with an idle
+    client and at least one participant a server, and an edge-dropped A_p;
+    the masked mean and the T_S kernel-1 rounds on A_p each against their
+    plain versions, the server mean and disagreement in float64, and
+    kernel 1's time at M = 3 against its byte bound."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.core.schedule import (ParticipationSchedule,
+                                           TopologySchedule)
+    dev = torch.device("cuda")
+    m, n, t_s = 3, 2, DYN_TRAIN["t_server"]
+    topo = tp.FLTopology(num_servers=m, clients_per_server=n, t_client=1,
+                         t_server=t_s, graph_kind="ring")
+    part = ParticipationSchedule(kind="bernoulli", rate=0.5, seed=0)
+    tsched = TopologySchedule(kind="edge_drop", drop_prob=0.3, seed=1)
+    epoch = next(e for e in range(100)
+                 if (part.mask(e, m, n) == 0).any()
+                 and not np.array_equal(tsched.mixing(topo, e),
+                                        topo.mixing_matrix()))
+    mask_np, a_np = part.mask(epoch, m, n), tsched.mixing(topo, epoch)
+    g = torch.Generator(device=dev).manual_seed(3)
+    base = ttf.init_params(g, get_arch("smollm-360m"), device=dev)
+    clients = tree_map(lambda p: p[None, None] + 0.01 * torch.randn(
+        (m, n) + tuple(p.shape), device=dev, generator=g), base)
+    del base
+    mask = torch.as_tensor(mask_np, dtype=torch.float32, device=dev)
+    a_p = torch.as_tensor(a_np, dtype=torch.float32, device=dev)
+
+    # the masked mean against a float64 plain mean over the participants
+    server = dfl.masked_server_mean(clients, mask)
+    mean_rel = 0.0
+    for c, s_ in zip(tree_leaves(clients), tree_leaves(server)):
+        mk = mask.double().reshape((m, n) + (1,) * (c.dim() - 2))
+        want = (c.double() * mk).sum(1) / mk.sum(1)
+        err, scale = float((s_.double() - want).abs().max()), float(
+            want.abs().max())
+        mean_rel = max(mean_rel, err / scale)
+        del want
+    del clients
+    torch.cuda.empty_cache()
+    assert mean_rel < 1e-6, mean_rel
+
+    # the period on A_p: kernel 1 T_S times, against the plain rounds
+    def f64_stats(tree):
+        means = [leaf.reshape(m, -1).double().mean(0)
+                 for leaf in tree_leaves(tree)]
+        return means, disagreement_f64(torch, tree_leaves(tree))
+
+    mean0, dis0 = f64_stats(server)
+    ops.reset_launch_counts()
+    mixed = cns.make_backend("gossip", topo.mixing_matrix(), t_s).mix(
+        server, a_p)
+    torch.cuda.synchronize()
+    period_launches = ops.launch_counts()["consensus_mix"]
+    plain = cns.gossip_scan(a_p, server, t_s)
+    vs_plain = max(rel_err(torch, p, q)[1]
+                   for p, q in zip(tree_leaves(mixed), tree_leaves(plain)))
+    del plain
+    mean1, dis1 = f64_stats(mixed)
+    keep_err = max(float((p - q).abs().max()) for p, q in zip(mean0, mean1))
+    keep_scale = max(float(p.abs().max()) for p in mean0)
+    sigma = tp.sigma_a(a_np, t_s)
+    del mixed, server, mean0, mean1
+    torch.cuda.empty_cache()
+    assert period_launches == t_s, period_launches
+    assert vs_plain < 1e-5, vs_plain
+    assert keep_err / keep_scale <= 1e-6, keep_err / keep_scale
+    assert dis1 < dis0, (dis0, dis1)
+
+    # kernel 1 at M = 3 (the MT = 4 instance, one zero-padded row) on A_p
+    w = torch.randn((m, SMOLLM_PARAMS), device=dev, generator=g)
+    out = torch.empty_like(w)
+    err, rel = rel_err(torch, ops.consensus_mix(a_p, w, out=out),
+                       ref.consensus_mix_ref(a_p, w))
+    assert rel < 1e-5, rel
+    times = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix(a_p, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(a_p, w),
+        "library": lambda: torch.matmul(a_p, w)}, reps=10)
+    n_bytes = 2 * m * SMOLLM_PARAMS * 4 + m * m * 4
+    bound, by = bound_ms(n_bytes, 2 * m * m * SMOLLM_PARAMS)
+    del w, out
+    torch.cuda.empty_cache()
+    row = {"m": m, "n": n, "epoch": epoch, "mask": mask_np.tolist(),
+           "a_p": a_np.tolist(), "masked_mean_max_rel_err": mean_rel,
+           "period_launches": period_launches,
+           "period_vs_plain_max_rel_err": vs_plain,
+           "mean_kept_max_rel_err": keep_err / keep_scale,
+           "disagreement_before": dis0, "disagreement_after": dis1,
+           "ratio": dis1 / dis0, "sigma_a": sigma,
+           "kernel_max_abs_err": err, "kernel_max_rel_err": rel,
+           "kernel_ms": times["kernel"], "plain_ms": times["plain"],
+           "library_ms": times["library"], "bound_ms": bound,
+           "bound_by": by, "bound_share": bound / times["kernel"]}
+    emit("dynamic_period_full_size", **row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1011,6 +1232,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
     from repro_torch.core import consensus as cns
+    from repro_torch.core import dfl as tdfl
     from repro_torch.core import topology as tp
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build, ops, ref
@@ -1188,6 +1410,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     emit("profile", **profile_summary(prof, wall_s, norms=norms))
+
+    # ---- 7b. dynamic federation: participation, edge drops, a server
+    # dropping and rejoining, then a Chebyshev epoch ----
+    dynamic_federation(torch, ttrain, ops)
+    # ---- 7c. one dynamic period at full size, M = 3 ----
+    dynamic_period_full_size(torch, cns, tp, ttf, tdfl, ops, ref,
+                             tree_leaves, tree_map)
 
     # ---- 8. kernel 3 vs its plain version over the reference's sweep ----
     for shape, kw, dtype in FLASH_SWEEP:

@@ -50,11 +50,18 @@ in the leaf dtype, and its core never calls the Pallas kernels; here the
 backends go through the f32 kernels, which take f32 leaves only (bf16
 leaves are a later slice, see ROADMAP.md).
 
-Ported modes: ``gossip``, ``gossip_blocked``, ``collapsed``,
+**Dynamic federation.**  Every backend takes a per-epoch ``A_p`` (a tensor
+on the tree's device) in place of its static matrix.  ``gossip_scan_tv``
+runs a per-round stack of matrices, ``gossip_scan_stale`` the
+bounded-staleness rounds (round t mixes the iterate of round t - s), and
+``gossip_chebyshev`` the Chebyshev semi-iteration, whose products A·w are
+one kernel-1 launch each; its affine step stays plain tensor code.
+
+Ported modes: ``gossip``, ``gossip_blocked``, ``collapsed``, ``chebyshev``,
 ``exact_mean`` and ``none``, both wires around them (the physical wire
-around the first two).  Still to come, each raising
-``NotImplementedError`` that names its slice: uncompressed
-bounded-staleness gossip, Chebyshev, push-sum and the robust screens.
+around the first two), and bounded staleness on and off the wire.  Still
+to come, each raising ``NotImplementedError`` that names its slice:
+push-sum and the robust screens.
 """
 from __future__ import annotations
 
@@ -66,6 +73,7 @@ import torch
 from repro_torch.comm import compressors as _compressors
 from repro_torch.comm import prng
 from repro_torch.comm.error_feedback import ef_roundtrip
+from repro_torch.core.topology import lambda_2 as tp_lambda_2
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import fma
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
@@ -93,6 +101,74 @@ def gossip_scan(a: torch.Tensor, tree: Any, t_server: int) -> Any:
     return tree_map(leaf_loop, tree)
 
 
+def _flatten(tree: Any):
+    """The server tree as ONE (M, D) f32 matrix (a new buffer, leaves
+    concatenated row-wise in leaf order) and the function that splits an
+    (M, D) matrix back into views in the tree's shapes."""
+    leaves, treedef = tree_flatten(tree)
+    for leaf in leaves:
+        if leaf.dtype != torch.float32:
+            raise TypeError(f"the gossip kernels take float32 leaves, got "
+                            f"{leaf.dtype} (bf16 leaves are a later slice)")
+    m = leaves[0].shape[0]
+    flat = torch.cat([leaf.reshape(m, -1) for leaf in leaves], dim=1)
+
+    def split(mat: torch.Tensor) -> Any:
+        out, off = [], 0
+        for leaf in leaves:
+            size = leaf[0].numel()
+            out.append(mat[:, off:off + size].reshape(leaf.shape))
+            off += size
+        return tree_unflatten(treedef, out)
+
+    return flat, split
+
+
+def _f32_on(a: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return a.to(device=like.device, dtype=torch.float32).contiguous()
+
+
+def gossip_scan_stale(a: torch.Tensor, tree: Any, t_server: int,
+                      staleness: int) -> Any:
+    """Bounded-staleness consensus: round ``t`` mixes the ``s``-round-old
+    iterate, ``W_(t+1) = A W_(t-s)``, and holds ``W_(t+1) = W_t`` while no
+    delayed iterate exists yet (``t < s``).  In exact arithmetic the period
+    is ``A^(T_S // (s+1))``, the contraction ``schedule.SigmaTracker``
+    budgets for.  ``staleness=0`` IS ``gossip_scan`` (the call branches to
+    it, so the degeneration is bitwise).  Otherwise the tree is flattened
+    once to (M, D) and every mixing round is one ``ops.consensus_mix`` (one
+    kernel-1 launch on the card) into a new buffer; the last s + 1 iterates
+    are kept."""
+    if staleness <= 0:
+        return gossip_scan(a, tree, t_server)
+    if t_server == 0:
+        return tree
+    flat, split = _flatten(tree)
+    a32 = _f32_on(a, flat)
+    hist = [flat] * (staleness + 1)     # hist[u] = W_(t-s+u), clamped to W_0
+    for t in range(t_server):
+        new = kops.consensus_mix(a32, hist[0]) if t >= staleness else hist[-1]
+        hist = hist[1:] + [new]
+    return split(hist[-1])
+
+
+def gossip_scan_tv(a_rounds: torch.Tensor, tree: Any) -> Any:
+    """Time-varying consensus: round t applies ``a_rounds[t]``, a
+    ``(T_S, M, M)`` stack with one matrix per ROUND of one period (a stack
+    of T_S copies of A is ``gossip_scan(A, tree, T_S)``).  The tree is
+    flattened once to (M, D); each round is one ``ops.consensus_mix`` (one
+    kernel-1 launch on the card), ping-ponging two buffers."""
+    if a_rounds.shape[0] == 0:
+        return tree
+    flat, split = _flatten(tree)
+    stack = _f32_on(a_rounds, flat)
+    src, dst = flat, torch.empty_like(flat)
+    for t in range(stack.shape[0]):
+        kops.consensus_mix(stack[t], src, out=dst)
+        src, dst = dst, src
+    return split(src)
+
+
 def gossip_scan_blocked(a: torch.Tensor, tree: Any, t_server: int,
                         block: int = DEFAULT_GOSSIP_BLOCK) -> Any:
     """T_S rounds streamed over fixed-size column blocks of the flattened
@@ -110,6 +186,74 @@ def collapse_mixing(a: np.ndarray, t_server: int) -> np.ndarray:
 def gossip_collapsed(a_eff: torch.Tensor, tree: Any) -> Any:
     """Single-round application of the collapsed operator A^{T_S}."""
     return mix_pytree(a_eff, tree)
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev-accelerated gossip (beyond-paper)
+# ---------------------------------------------------------------------------
+
+
+def chebyshev_coefficients(a: np.ndarray, rounds: int) -> float:
+    """The contraction sigma of ``rounds`` Chebyshev steps (for reporting),
+    from lambda_2 of the symmetric mixing matrix."""
+    ev = np.sort(np.abs(np.linalg.eigvalsh(a)))[::-1]
+    lam2 = ev[1] if len(ev) > 1 else 0.0
+    if lam2 == 0.0:
+        return 0.0
+    # |T_k(1/lam2)|^{-1} with T_k the Chebyshev polynomial of the first kind
+    x = 1.0 / lam2
+    return float(1.0 / np.cosh(rounds * np.arccosh(x)))
+
+
+def gossip_chebyshev(a: torch.Tensor, tree: Any, rounds: int, lam2) -> Any:
+    """Chebyshev semi-iterative consensus,
+    ``w_k = 2 c_k/(lam2 c_{k+1}) A w_{k-1} - (c_{k-1}/c_{k+1}) w_{k-2}`` with
+    ``c_k = cosh(k acosh(1/lam2))``, in the reference's ratio form, which
+    never forms c_k (it overflows f32 within a few rounds for a small
+    lam2)::
+
+        alpha_k = 2x / (2x - r_k),  beta_k = r_k / (2x - r_k),
+        r_{k+1} = 1 / (2x - r_k),   x = 1/lam2,  r_1 = lam2
+
+    ``lam2`` is a host float (the static topology) or a float32 tensor (the
+    per-epoch estimate of a dynamic schedule), clamped below at 1e-6 as in
+    the reference.  The tree is flattened once to (M, D): each product
+    ``A w`` is one ``ops.consensus_mix`` (one kernel-1 launch on the card),
+    ``rounds`` in all; the affine step ``alpha * mixed - beta * prev`` is
+    plain f32 tensor code, with the coefficients computed in f32 as the
+    reference computes them.  Three (M, D) buffers rotate."""
+    if rounds == 0:
+        return tree
+    if isinstance(lam2, (int, float)) and lam2 <= 0.0:
+        return kops.consensus_mix_pytree(a, tree, rounds=1)
+    flat, split = _flatten(tree)
+    a32 = _f32_on(a, flat)
+    x = 1.0 / torch.clamp(torch.as_tensor(lam2, dtype=torch.float32,
+                                          device=flat.device), min=1e-6)
+    r = 1.0 / x          # r_1 = c_0 / c_1 = lam2
+    w_prev = flat
+    w_cur = kops.consensus_mix(a32, flat)   # k = 1: the first iterate is A w
+    spare = None
+    for _ in range(1, rounds):
+        denom = 2.0 * x - r
+        alpha, beta = 2.0 * x / denom, r / denom
+        mixed = kops.consensus_mix(a32, w_cur, out=spare)
+        mixed.mul_(alpha)
+        mixed.sub_(w_prev.mul_(beta))       # w_prev is not read again
+        w_prev, w_cur, spare = w_cur, mixed, w_prev
+        r = 1.0 / denom
+    return split(w_cur)
+
+
+def lambda2_traced(a: torch.Tensor) -> torch.Tensor:
+    """|lambda_2| of a symmetric mixing-matrix tensor, as a float32 scalar
+    on its device (a tiny (M, M) eigendecomposition): the fallback of a
+    spectral backend called with an ``A_p`` but no estimate; the engine
+    passes ``topology.lambda_2`` of the host matrix instead."""
+    if a.shape[0] < 2:
+        return torch.zeros((), dtype=torch.float32, device=a.device)
+    ev = torch.sort(torch.abs(torch.linalg.eigvalsh(a.float()))).values
+    return ev[-2].float()
 
 
 # ---------------------------------------------------------------------------
@@ -403,14 +547,17 @@ def wire_roundtrip_tree(codec, tree: Any, key=None, *,
 
 
 class ConsensusBackend:
-    """One consensus period behind one interface: ``mix(tree, a_p)`` runs it
-    on a server-leading pytree.  ``a_p`` is an optional per-epoch ``(M, M)``
-    mixing matrix; ``None`` selects the static matrix the backend was built
-    with.  ``supports_directed`` says whether the update is the literal
-    ``W <- A W`` (so a row-stochastic A is well defined)."""
+    """One consensus period behind one interface: ``mix(tree, a_p, lam2)``
+    runs it on a server-leading pytree.  ``a_p`` is an optional per-epoch
+    ``(M, M)`` mixing matrix; ``None`` selects the static matrix the
+    backend was built with.  ``lam2`` is the optional per-epoch spectral
+    estimate, read by ``needs_spectral`` backends (Chebyshev) and ignored
+    by the rest.  ``supports_directed`` says whether the update is the
+    literal ``W <- A W`` (so a row-stochastic A is well defined)."""
 
     name = "?"
     supports_directed = True
+    needs_spectral = False
 
     def __init__(self, a_static: Optional[np.ndarray], t_server: int):
         self.a_static = (None if a_static is None
@@ -426,14 +573,16 @@ class ConsensusBackend:
                              f"static mixing matrix; pass a per-epoch A_p")
         return self.a_static
 
-    def mix(self, tree: Any, a_p: Optional[torch.Tensor] = None) -> Any:
+    def mix(self, tree: Any, a_p: Optional[torch.Tensor] = None,
+            lam2=None) -> Any:
         """T_S rounds of ``W <- A W`` over the leading server axis."""
+        del lam2
         return self._mix(tree, self._resolve(a_p))
 
     def _mix(self, tree: Any, a: torch.Tensor) -> Any:
         raise NotImplementedError
 
-    def first_round(self, a_p: Optional[torch.Tensor], m: int):
+    def first_round(self, a_p: Optional[torch.Tensor], m: int, lam2=None):
         """The period split after its first operator: ``(first, rest)``,
         ``first`` the (M, M) operator of the first round (``None`` for an
         empty period) and ``rest(tree)`` the rest of the period.  The
@@ -441,16 +590,11 @@ class ConsensusBackend:
         raise NotImplementedError
 
 
-_STALE_GOSSIP = ("uncompressed bounded-staleness gossip (gossip_scan_stale) "
-                 "arrives with the overlap work of the dynamic-federation "
-                 "slice (ROADMAP.md, Queue 1); staleness runs on the "
-                 "physical wire today")
-
-
 class GossipBackend(ConsensusBackend):
     """T_S rounds on the tree flattened once to ``(M, D)``: each round one
-    ``ops.consensus_mix`` (one kernel launch on the card).  ``staleness``
-    is carried for the physical-wire wrapper, which pipelines it."""
+    ``ops.consensus_mix`` (one kernel launch on the card).  With
+    ``staleness=s > 0`` the plain mix is ``gossip_scan_stale`` (the
+    physical-wire wrapper pipelines the codes instead)."""
 
     name = "gossip"
 
@@ -460,10 +604,10 @@ class GossipBackend(ConsensusBackend):
 
     def _mix(self, tree, a):
         if self.staleness:
-            raise NotImplementedError(_STALE_GOSSIP)
+            return gossip_scan_stale(a, tree, self.t_server, self.staleness)
         return kops.consensus_mix_pytree(a, tree, rounds=self.t_server)
 
-    def first_round(self, a_p, m):
+    def first_round(self, a_p, m, lam2=None):
         return _first_of_rounds(self._resolve(a_p), self.t_server, None)
 
 
@@ -481,10 +625,13 @@ class BlockedGossipBackend(ConsensusBackend):
 
     def _mix(self, tree, a):
         if self.staleness:
-            raise NotImplementedError(_STALE_GOSSIP)
+            # the delayed history would multiply the blocked working set by
+            # s + 1 for nothing: the unblocked stale rounds, as the
+            # reference does
+            return gossip_scan_stale(a, tree, self.t_server, self.staleness)
         return gossip_scan_blocked(a, tree, self.t_server, block=self.block)
 
-    def first_round(self, a_p, m):
+    def first_round(self, a_p, m, lam2=None):
         return _first_of_rounds(self._resolve(a_p), self.t_server,
                                 self.block)
 
@@ -520,11 +667,48 @@ class CollapsedBackend(ConsensusBackend):
             eff = a_p @ eff
         return eff
 
-    def mix(self, tree, a_p=None):
+    def mix(self, tree, a_p=None, lam2=None):
+        del lam2
         return kops.consensus_mix_pytree(self._eff(a_p), tree, rounds=1)
 
-    def first_round(self, a_p, m):
+    def first_round(self, a_p, m, lam2=None):
         return self._eff(a_p), lambda tree: tree
+
+
+class ChebyshevBackend(ConsensusBackend):
+    """Chebyshev semi-iterative gossip (``gossip_chebyshev``), ``rounds``
+    products a period (default ceil(sqrt(T_S))).  Its spectral datum rides
+    beside the matrix: ``lambda_2(A)`` of the static topology, computed on
+    the host at construction, or the per-epoch ``lam2`` of a dynamic
+    schedule; a per-epoch ``A_p`` without one falls back to
+    ``lambda2_traced``.  The affine recursion has negative coefficients,
+    so it has no directed (push-sum) analogue."""
+
+    name = "chebyshev"
+    supports_directed = False
+    needs_spectral = True
+
+    def __init__(self, a_static, t_server, *, rounds: Optional[int] = None):
+        super().__init__(a_static, t_server)
+        self.lam2 = (None if a_static is None
+                     else tp_lambda_2(np.asarray(a_static)))
+        self.rounds = rounds or max(1, int(np.ceil(np.sqrt(max(t_server,
+                                                               1)))))
+
+    def mix(self, tree, a_p=None, lam2=None):
+        a = self._resolve(a_p)
+        if lam2 is None:
+            lam2 = self.lam2 if a_p is None else lambda2_traced(a_p)
+        if lam2 is None:
+            raise ValueError("'chebyshev' was built without a static mixing "
+                             "matrix; pass (a_p, lam2) per call")
+        return gossip_chebyshev(a, tree, self.rounds, lam2)
+
+    def first_round(self, a_p, m, lam2=None):
+        # the recursion reads the decoded message itself (w_0), so the
+        # simulated wire's kernel-4 pass decodes on A = I (exact) and the
+        # whole recursion follows
+        return torch.eye(m), lambda tree: self.mix(tree, a_p, lam2=lam2)
 
 
 class ExactMeanBackend(ConsensusBackend):
@@ -539,7 +723,7 @@ class ExactMeanBackend(ConsensusBackend):
         return tree_map(lambda x: x.mean(dim=0, keepdim=True).expand(x.shape),
                         tree)
 
-    def first_round(self, a_p, m):
+    def first_round(self, a_p, m, lam2=None):
         return torch.full((m, m), 1.0 / m), lambda tree: tree
 
 
@@ -626,26 +810,29 @@ class CompressedBackend(ConsensusBackend):
         self.name = f"compressed[{inner.name}+{compressor.name}" + (
             "+wire" if wire == "physical" else "") + "]"
         self.supports_directed = inner.supports_directed
+        self.needs_spectral = inner.needs_spectral
 
     def _mix_simulated(self, tree: Any, a_p: Optional[torch.Tensor], *,
-                       residual: Optional[Any], key):
+                       residual: Optional[Any], key, lam2=None):
         """One simulated-wire period: ``(mixed tree, new EF residual)``."""
         codec = self.compressor
         if residual is not None and self.error_feedback:
             msg, residual = ef_roundtrip(codec, tree, residual, key)
-            return self.inner.mix(msg, a_p), residual
+            return self.inner.mix(msg, a_p, lam2=lam2), residual
         if not isinstance(codec, _compressors.StochasticQuantizer):
             msg = _compressors.roundtrip_tree(codec, tree, key)
-            return self.inner.mix(msg, a_p), residual
+            return self.inner.mix(msg, a_p, lam2=lam2), residual
         # the round trip and the first operator in one pass of kernel 4
         leaves, treedef = tree_flatten(tree)
-        first, rest = self.inner.first_round(a_p, leaves[0].shape[0])
+        first, rest = self.inner.first_round(a_p, leaves[0].shape[0],
+                                             lam2=lam2)
         mixed = [codec.mix(leaf, None if key is None else prng.fold_in(key, i),
                            first) for i, leaf in enumerate(leaves)]
         return rest(tree_unflatten(treedef, mixed)), residual
 
     def mix_compressed(self, tree: Any, a_p: Optional[torch.Tensor] = None,
-                       *, residual: Optional[Any] = None, key=None):
+                       *, residual: Optional[Any] = None, key=None,
+                       lam2=None):
         """One compressed period: ``(mixed tree, new EF residual)``.
         ``key`` is the period's threefry key data (``None``: deterministic
         rounding).  On the physical wire, with error feedback the residual
@@ -653,7 +840,8 @@ class CompressedBackend(ConsensusBackend):
         into ``residual``'s own buffers (consumed like a donated argument);
         the mixed leaves are views of one (M, D_pad) buffer."""
         if self.wire == "simulated":
-            return self._mix_simulated(tree, a_p, residual=residual, key=key)
+            return self._mix_simulated(tree, a_p, residual=residual, key=key,
+                                       lam2=lam2)
         a = self._resolve(a_p)
         codec = self.compressor
         leaves, treedef = _f32_leaves(tree)
@@ -678,13 +866,11 @@ class CompressedBackend(ConsensusBackend):
                                self.staleness, shipped=shipped)
         return _bucket_split(out, leaves, treedef), residual
 
-    def _mix(self, tree, a):
-        return self.mix_compressed(tree, a)[0]
+    def mix(self, tree, a_p=None, lam2=None):
+        return self.mix_compressed(tree, a_p, lam2=lam2)[0]
 
 
 _LATER = {
-    "chebyshev": "Chebyshev gossip arrives with the dynamic-federation "
-                 "slice",
     "trimmed_mean": "the robust screens arrive with the robust-gossip slice",
     "median": "the robust screens arrive with the robust-gossip slice",
     "clipped": "the robust screens arrive with the robust-gossip slice",
@@ -692,6 +878,7 @@ _LATER = {
 
 
 def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
+                 chebyshev_rounds: Optional[int] = None,
                  block: int = DEFAULT_GOSSIP_BLOCK,
                  compression: str = "none",
                  error_feedback: bool = False,
@@ -700,8 +887,9 @@ def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
     """Map a ``DFLConfig.consensus_mode`` string to a backend (``None`` for
     ``"none"``: no inter-server communication).  ``compression`` other than
     ``"none"`` wraps it in a ``CompressedBackend`` on the ``wire`` given.
-    ``staleness`` needs the literal T_S-round schedules, and runs on the
-    physical wire only."""
+    ``staleness`` needs the literal T_S-round schedules (gossip,
+    gossip_blocked): ``gossip_scan_stale`` without compression, the
+    pipelined codes on the physical wire."""
     base = mode.partition(":")[0]
     if base in _LATER:
         raise NotImplementedError(
@@ -715,8 +903,6 @@ def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
             f"schedule (round t consumes round t-s's messages); mode "
             f"{mode!r} has no per-round message stream to delay — use "
             f"'gossip'/'gossip_blocked' or staleness=0")
-    if staleness and compression == "none":
-        raise NotImplementedError(_STALE_GOSSIP)
     if mode == "none":
         return None
     if mode == "gossip":
@@ -726,6 +912,9 @@ def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
                                        staleness=staleness)
     elif mode == "collapsed":
         backend = CollapsedBackend(a_static, t_server)
+    elif mode == "chebyshev":
+        backend = ChebyshevBackend(a_static, t_server,
+                                   rounds=chebyshev_rounds)
     elif mode == "exact_mean":
         backend = ExactMeanBackend(a_static, t_server)
     else:

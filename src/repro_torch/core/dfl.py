@@ -1,5 +1,5 @@
-"""The DFL algorithm (Algorithm 1) as a PyTorch epoch step: port of the
-static path of ``repro.core.dfl``.
+"""The DFL algorithm (Algorithm 1) as a PyTorch epoch step: port of
+``repro.core.dfl``.
 
 One epoch step is the paper's full cycle:
 
@@ -29,6 +29,20 @@ keyed by the reference's rng stream: ``DFLState.wire_key`` holds threefry key da
 (``comm.prng``) that the epoch splits as the reference splits its ``rng`` —
 once per local step, then once for the consensus key (``dfl.py:637`` of the
 reference) — so the port's codes are the reference's on either wire.
+
+Dynamic federation (``DFLConfig.dynamic=True``): the epoch step takes a
+third operand, a ``schedule.EpochSchedule`` of tensors on the state's
+device — the ``(M, N)`` participation mask, the epoch's ``(M, M)`` mixing
+matrix ``A_p`` and, for Chebyshev, its ``lam2``.  Every client trains its
+local period, as in the reference; non-participants then get their
+start-of-epoch model and optimizer state back (``carry_forward``'s select,
+done in place from copies of their slices taken before the local period,
+for which the step reads the mask to the host once an epoch), Eq. 4
+becomes the masked mean (``masked_server_mean``), and the consensus period
+runs on ``A_p``.  The static and the masked mean share one operation (a
+sum over the participating clients divided by their count), so an
+all-ones mask on the static graph is bitwise the static step.  Server
+drop and rejoin change M and live in ``engine.DynamicFederationEngine``.
 """
 from __future__ import annotations
 
@@ -67,6 +81,10 @@ class DFLState(NamedTuple):
 
 
 class DFLMetrics(NamedTuple):
+    """Per-epoch diagnostics.  The static step returns them on the host;
+    the dynamic step leaves them on the state's device for the engine's one
+    read-back a dispatch."""
+
     loss: torch.Tensor                 # (T_C, M, N) per local step per client
     server_disagreement: torch.Tensor  # ||W - 1 wbar'||_F after consensus (Lemma 1 LHS)
     client_drift: torch.Tensor         # max_ij ||w^{ij} - w^i_p|| before aggregation (Lemma 3 LHS)
@@ -76,11 +94,13 @@ class DFLMetrics(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class DFLConfig:
     topology: FLTopology
-    consensus_mode: str = "gossip"   # gossip | gossip_blocked | collapsed | exact_mean | none
+    consensus_mode: str = "gossip"   # gossip | gossip_blocked | collapsed | chebyshev | exact_mean | none
     # "symmetric": A doubly stochastic (Eq. 6), the paper.
     # "row_stochastic": naive directed gossip with the same W <- A W update
     # (converges to the Perron-weighted average).  push_sum is a later slice.
     mixing: str = "symmetric"
+    # Chebyshev products a period (default ceil(sqrt(T_S)))
+    chebyshev_rounds: Optional[int] = None
     # "full": compute the Lemma-1/Lemma-3 diagnostics every epoch; "light":
     # skip them (zeros).
     metrics: str = "full"
@@ -99,9 +119,16 @@ class DFLConfig:
     # "physical": the codes are the wire, every round.  Ignored without
     # compression.
     wire: str = "simulated"
-    # bounded staleness: gossip round t mixes the neighbours' codes of round
-    # t - staleness (the physical wire's pipelined rounds, kernel 8)
+    # bounded staleness: gossip round t mixes the neighbours' messages of
+    # round t - staleness (gossip_scan_stale; on the physical wire the
+    # pipelined rounds, kernel 8)
     staleness: int = 0
+    # dynamic federation: the epoch step takes a schedule.EpochSchedule
+    # operand (participation mask, per-epoch A_p, optional lam2)
+    dynamic: bool = False
+    # the reference's adversarial-server schedule; refused until the
+    # Byzantine injection is ported (the robust-gossip slice)
+    byzantine: Optional[Any] = None
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +143,60 @@ def replicate_to_clients(params: Any, m: int, n: int) -> Any:
                     .contiguous(), params)
 
 
+def _client_sum_over(x: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Eq. 4's one operation: the sum over the client axis divided by the
+    per-server ``count`` ((M,), on ``x``'s device).  The static and the
+    masked mean both go through it, so they round alike."""
+    c = count.reshape((-1,) + (1,) * (x.dim() - 2)).to(x.dtype)
+    return x.sum(dim=1) / c
+
+
+def _full_count(x: torch.Tensor) -> torch.Tensor:
+    return torch.full((x.shape[0],), x.shape[1], dtype=x.dtype,
+                      device=x.device)
+
+
 def server_mean(client_tree: Any) -> Any:
     """Eq. 4: w^i = (1/N) sum_j w^{ij}  — mean over the client axis."""
-    return tree_map(lambda x: x.mean(dim=1), client_tree)
+    return tree_map(lambda x: _client_sum_over(x, _full_count(x)),
+                    client_tree)
+
+
+def masked_server_mean(client_tree: Any, mask: torch.Tensor) -> Any:
+    """Eq. 4 under partial participation: server i's mean over its
+    participating set ``{j : mask[i, j] = 1}``.  Non-participants carry
+    their broadcast model (``carry_forward``), so a fully idle server's
+    plain mean over its N copies is its previous model.  An all-ones mask
+    is ``server_mean`` bitwise (``x * 1`` is ``x``, and both divide the same
+    sum by the same count)."""
+    cnt = mask.sum(dim=1)                                     # (M,)
+    safe = torch.clamp(cnt, min=1.0)
+
+    def leaf(x):
+        mk = mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - 2)).to(
+            x.dtype)
+        s = _client_sum_over(x * mk, safe)
+        sel = (cnt > 0).reshape((-1,) + (1,) * (s.dim() - 1))
+        return torch.where(sel, s, _client_sum_over(x, _full_count(x)))
+
+    return tree_map(leaf, client_tree)
+
+
+def carry_forward(mask: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:
+    """Per-client participation select: leaves with a leading ``(M, N)``
+    client grid take ``new`` where ``mask`` is set and ``old`` where it is
+    not; shared leaves (e.g. the step count) always advance.  (The epoch
+    step restores its non-participants in place instead: its local period
+    overwrites the old buffers.)"""
+    grid = tuple(mask.shape)
+
+    def leaf(nl, ol):
+        if _on_grid(nl, grid):
+            mk = mask.reshape(grid + (1,) * (nl.dim() - 2))
+            return torch.where(mk > 0, nl, ol)
+        return nl
+
+    return tree_map(leaf, new_tree, old_tree)
 
 
 def broadcast_to_clients(server_tree: Any, n: int) -> Any:
@@ -175,6 +253,7 @@ def resolve_backend(cfg: DFLConfig):
     m = topo.num_servers
     a_np = topo.mixing_matrix() if m > 1 else np.ones((1, 1))
     return cns.make_backend(cfg.consensus_mode, a_np, topo.t_server,
+                            chebyshev_rounds=cfg.chebyshev_rounds,
                             compression=cfg.compression,
                             error_feedback=cfg.error_feedback,
                             wire=cfg.wire, staleness=cfg.staleness)
@@ -243,8 +322,10 @@ def build_dfl_epoch_step(
     cfg: DFLConfig,
     loss_fn: LossFn,
     optimizer: Optimizer,
-) -> Callable[[DFLState, Any], Tuple[DFLState, DFLMetrics]]:
-    """Return ``epoch_step(state, batches) -> (state, metrics)``.
+) -> Callable[..., Tuple[DFLState, DFLMetrics]]:
+    """Return ``epoch_step(state, batches) -> (state, metrics)``, or under
+    ``cfg.dynamic`` ``epoch_step(state, batches, sched)`` with ``sched`` a
+    ``schedule.EpochSchedule`` of tensors on the state's device.
 
     ``batches`` leaves are ``(T_C, M, N, *per_client_batch)`` — one
     microbatch per client per local iteration.  The step updates
@@ -254,8 +335,12 @@ def build_dfl_epoch_step(
     grid = (m, n)
     if cfg.mixing == "push_sum":
         raise NotImplementedError(
-            "mixing='push_sum' arrives with directed federation in the "
-            "dynamic-federation slice (ROADMAP.md, Queue 1)")
+            "mixing='push_sum' arrives with directed federation (push-sum), "
+            "a later slice (ROADMAP.md)")
+    if cfg.byzantine is not None:
+        raise NotImplementedError(
+            "DFLConfig.byzantine: the Byzantine injection arrives with the "
+            "robust-gossip slice (ROADMAP.md)")
     if cfg.mixing not in ("symmetric", "row_stochastic"):
         raise ValueError(f"unknown mixing interpretation {cfg.mixing!r}")
     if cfg.mixing == "symmetric" and topo.mixing == "out_degree" and m > 1:
@@ -319,11 +404,12 @@ def build_dfl_epoch_step(
         return torch.stack(losses).mean(), tree_unflatten(treedef, acc)
 
     def local_period(state: DFLState, batches: Any):
+        """T_C SGD steps of every client, in place; the losses and the last
+        step's grad norm stay on the device."""
         params, opt_state = state.client_params, state.opt_state
         t_c = tree_leaves(batches)[0].shape[0]
         device = tree_leaves(params)[0].device
-        # kept on the device and read back once per epoch: no host sync
-        # inside the client loop
+        # kept on the device: no host sync inside the client loop
         losses = torch.zeros((t_c, m, n), dtype=torch.float32, device=device)
         gnorm = torch.zeros((), dtype=torch.float32, device=device)
         for t in range(t_c):
@@ -353,28 +439,49 @@ def build_dfl_epoch_step(
             opt_state = new_shared
             if full:
                 gnorm = torch.sqrt(sq / (m * n))
-        return params, opt_state, losses.cpu(), gnorm.cpu()
+        return params, opt_state, losses, gnorm
 
-    def epoch_step(state: DFLState, batches: Any
-                   ) -> Tuple[DFLState, DFLMetrics]:
+    def run_epoch(state: DFLState, batches: Any, mask=None, a_p=None,
+                  lam2=None) -> Tuple[DFLState, DFLMetrics]:
+        """One epoch; ``mask`` None is the static step (full participation,
+        the static matrix).  Metrics stay on the device."""
+        device = tree_leaves(state.client_params)[0].device
         # Lemma 3 LHS needs each client's start-of-epoch server model w^i_p
         # (== the broadcast client params at entry), which the in-place
         # local period overwrites: keep a copy
         start_server = (tree_map(lambda x: x[:, 0].clone(),
                                  state.client_params) if full else None)
+        # the non-participants' start-of-epoch model and optimizer state:
+        # their local period runs (as the reference's does) and is undone
+        idle = ([] if mask is None else
+                [tuple(ij) for ij in (mask.detach().cpu() == 0).nonzero()
+                 .tolist()])
+        saved = [(ij, tree_map(torch.clone, _client_slice(
+                      state.client_params, *ij, grid)),
+                  tree_map(torch.clone, _client_slice(
+                      state.opt_state, *ij, grid))) for ij in idle]
 
         # ---- 1. local period: T_C client SGD iterations (Eq. 3) ----
         params, opt_state, losses, gnorm = local_period(state, batches)
 
         with torch.no_grad():
+            # non-participants carry their start-of-epoch model and
+            # optimizer state through the epoch; shared leaves (the step
+            # count) keep advancing, so the tree _client_write returns for
+            # them is dropped
+            for (i, j), p_old, o_old in saved:
+                _client_write(params, p_old, i, j, grid)
+                _client_write(opt_state, o_old, i, j, grid)
+            del saved
             if full:
                 drift = max_client_drift(params, start_server)
                 del start_server
             else:
-                drift = torch.zeros((), dtype=torch.float32)
+                drift = torch.zeros((), dtype=torch.float32, device=device)
 
             # ---- 2. aggregation at each server (Eq. 4) ----
-            server = server_mean(params)
+            server = (server_mean(params) if mask is None
+                      else masked_server_mean(params, mask))
 
             # ---- 3. consensus period: T_S gossip rounds (Eq. 5/7) ----
             # the wire key follows the reference's rng: one split per local
@@ -390,25 +497,45 @@ def build_dfl_epoch_step(
                                      "wire_key=prng.key(seed))")
                 key, ckey = prng.split(key)
                 server, ef_res = backend.mix_compressed(
-                    server, residual=ef_res, key=ckey)
+                    server, a_p, residual=ef_res, key=ckey, lam2=lam2)
             elif m > 1 and topo.t_server > 0 and backend is not None:
-                server = backend.mix(server)
+                server = backend.mix(server, a_p, lam2=lam2)
             disagreement = (disagreement_norm(server) if full
-                            else torch.zeros((), dtype=torch.float32))
+                            else torch.zeros((), dtype=torch.float32,
+                                             device=device))
 
-            # ---- 4. broadcast w^i_p back to C_i ----
+            # ---- 4. broadcast w^i_p back to C_i (every client) ----
             _broadcast_into(params, server)
             del server
 
         new_state = DFLState(params, opt_state, state.epoch + 1, state.rng,
                              ef_res, key)
-        metrics = DFLMetrics(loss=losses,
-                             server_disagreement=disagreement.float().cpu(),
-                             client_drift=drift.float().cpu(),
-                             grad_norm=gnorm)
-        return new_state, metrics
+        return new_state, DFLMetrics(loss=losses,
+                                     server_disagreement=disagreement,
+                                     client_drift=drift, grad_norm=gnorm)
 
-    return epoch_step
+    def epoch_step(state: DFLState, batches: Any
+                   ) -> Tuple[DFLState, DFLMetrics]:
+        state, mt = run_epoch(state, batches)
+        # the static step's metrics are host tensors: reading them waits
+        # for the device
+        return state, DFLMetrics(*(x.float().cpu() for x in mt))
+
+    def epoch_step_dynamic(state: DFLState, batches: Any, sched: Any
+                           ) -> Tuple[DFLState, DFLMetrics]:
+        """Dynamic variant: ``sched`` is an ``EpochSchedule(mask, mixing[,
+        lam2])`` of tensors on the state's device."""
+        if sched.byz is not None:
+            raise NotImplementedError(
+                "EpochSchedule.byz: the Byzantine injection arrives with "
+                "the robust-gossip slice (ROADMAP.md)")
+        if tuple(sched.mask.shape) != grid:
+            raise ValueError(f"participation mask of shape "
+                             f"{tuple(sched.mask.shape)} for an {grid} grid")
+        return run_epoch(state, batches, sched.mask, sched.mixing,
+                         sched.lam2)
+
+    return epoch_step_dynamic if cfg.dynamic else epoch_step
 
 
 def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,

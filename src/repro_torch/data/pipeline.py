@@ -73,8 +73,9 @@ def make_regression_task(topo: FLTopology,
                          spec: Optional[RegressionSpec] = None,
                          seed: int = 0, device="cpu") -> Dict[str, object]:
     """The Sec.-IV harness: the 0.5*MSE loss, full-batch per-iteration
-    batches of shape ``(T_C, M, N, D, d)`` on ``device``, and the global
-    least-squares ``w_star``."""
+    batches of shape ``(T_C, M, N, D, d)`` on ``device``, the global
+    least-squares ``w_star``, and a ``batch_fn(epoch, alive_server_ids)``
+    for the dynamic-federation engine (rows by ORIGINAL server identity)."""
     spec = spec or RegressionSpec()
     data = make_regression_data(topo, spec, seed=seed)
     x = torch.as_tensor(data["x"], device=device)
@@ -83,8 +84,23 @@ def make_regression_task(topo: FLTopology,
     by = y.expand((topo.t_client,) + tuple(y.shape))
     w_star = np.linalg.lstsq(data["x"].reshape(-1, data["x"].shape[-1]),
                              data["y"].reshape(-1), rcond=None)[0]
+
+    def batch_fn(epoch, alive):
+        ids = _server_ids(alive, topo.num_servers)
+        return bx[:, ids], by[:, ids]
+
     return {"loss_fn": regression_loss, "batches": (bx, by),
-            "w_star": w_star, "x": x, "y": y}
+            "batch_fn": batch_fn, "w_star": w_star, "x": x, "y": y}
+
+
+def _server_ids(alive, m: int) -> torch.Tensor:
+    """ORIGINAL server ids as an index tensor, checked against the original
+    federation size: an out-of-range id would otherwise alias another
+    server's shard or fail mid-run."""
+    ids = np.asarray(alive, dtype=np.int64).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= m):
+        raise ValueError(f"server ids {tuple(alive)} out of range for M={m}")
+    return torch.as_tensor(ids)
 
 
 def perron_ideal(x, y, pi: np.ndarray) -> np.ndarray:
@@ -143,13 +159,21 @@ class FLDataPipeline:
         self.device = torch.device(device)
         self._epoch = 0
 
-    def epoch_batches(self, epoch: Optional[int] = None
+    def epoch_batches(self, epoch: Optional[int] = None,
+                      server_ids: Optional[Tuple[int, ...]] = None
                       ) -> Dict[str, torch.Tensor]:
+        """``{"tokens": (T_C, M, N, b, s)}``.  ``server_ids`` (ORIGINAL
+        server indices) keeps only those servers' shards, in that order:
+        after fault surgery only the alive servers train, and a server that
+        rejoins gets its own clients' streams back."""
         e = self._epoch if epoch is None else epoch
         topo, cfg = self.topo, self.cfg
         shape = (topo.t_client, topo.num_servers, topo.clients_per_server,
                  cfg.per_client_batch, cfg.seq_len)
         rng = np.random.default_rng([cfg.seed, e])
         tokens = synthetic_lm_tokens(rng, cfg.vocab_size, shape)
+        if server_ids is not None:
+            tokens = tokens[:, _server_ids(server_ids,
+                                           topo.num_servers).numpy()]
         self._epoch = e + 1
         return {"tokens": torch.as_tensor(tokens, device=self.device)}

@@ -1,4 +1,5 @@
-"""DFL trainer on PyTorch: port of the static ``repro.launch.train.train``.
+"""DFL trainer on PyTorch: port of ``repro.launch.train`` (``train`` and
+``train_dynamic``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --full --servers 4 --clients 2 --t-client 2 --t-server 5 --epochs 2
@@ -18,8 +19,20 @@ simulated`` compresses each server's message once a period (a quantizer's
 round trip and first mix on kernel 4) and counts its unpadded payload;
 ``--wire physical`` (int8/int4) ships delta codes every round (kernels
 5-8) and counts the per-leaf layout, as the reference's static trainer
-does.  ``--staleness s`` (physical wire only) lets gossip round t mix the
-neighbours' codes of round t - s (kernel 8).
+does.
+
+Dynamic federation (``train_dynamic``, through
+``core.engine.DynamicFederationEngine``): ``--participation-rate``,
+``--participation-kind``, ``--participation-trace``, ``--edge-drop-prob``,
+``--straggler-weaken``, ``--asymmetric-drop-prob`` (with ``--mixing
+row_stochastic``) and ``--faults drop:EPOCH:SERVER,rejoin:EPOCH:SERVER``.
+Any of them away from its default sends the run to ``train_dynamic``, as
+do ``--superepoch K > 1`` (K epochs a dispatch) and ``--staleness s > 0``
+(gossip round t mixes round t - s: plain rounds through kernel 1, or the
+physical wire's codes through kernel 8).  Both drivers print the same
+epoch line.  ``--byzantine`` parses and raises: the Byzantine
+injection comes with the robust-gossip slice, and ``--mixing push_sum``
+with directed federation.
 """
 from __future__ import annotations
 
@@ -37,16 +50,21 @@ from repro_torch.configs import get_arch, get_smoke
 from repro_torch.core import (DFLConfig, FLTopology, SigmaTracker,
                               build_dfl_epoch_step, init_dfl_state)
 from repro_torch.core.dfl import active_compressor, active_wire
+from repro_torch.core.engine import make_engine
+from repro_torch.core.schedule import (ByzantineSchedule, FaultSchedule,
+                                       ParticipationSchedule,
+                                       TopologySchedule,
+                                       load_participation_trace)
 from repro_torch.data import DataConfig, FLDataPipeline
 from repro_torch.models import transformer as tf
 from repro_torch.optim import sgd
 from repro_torch.tree import tree_leaves
 
 _ORDER = ("loss", "disagreement", "drift", "sigma_prod", "num_servers",
-          "wire_mb", "wire_ratio")
+          "participation", "wire_mb", "wire_ratio")
 _FMT = {"loss": ".4f", "disagreement": ".3e", "drift": ".3e",
-        "sigma_prod": ".3f", "num_servers": ".0f", "wire_mb": ".1f",
-        "wire_ratio": ".2f"}
+        "sigma_prod": ".3f", "num_servers": ".0f", "participation": ".2f",
+        "wire_mb": ".1f", "wire_ratio": ".2f"}
 
 
 def resolve_device(device: str) -> torch.device:
@@ -85,26 +103,13 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
     """Static Algorithm 1 on an LM.  ``params`` (optional) replaces the
     seeded random init, e.g. weights carried over by
     ``transformer.params_from_numpy``.  ``compression`` / ``error_feedback``
-    / ``wire`` select the compressed wire, ``staleness`` the physical
-    wire's bounded-staleness rounds.  Returns the final
+    / ``wire`` select the compressed wire, ``staleness`` the
+    bounded-staleness rounds.  Returns the final
     state, the per-epoch history (metric name -> list) and the run's
     objects."""
-    dev = resolve_device(device)
-    set_full_f32()
-    cfg = get_smoke(arch_id) if smoke else get_arch(arch_id)
-    topo = FLTopology(num_servers=servers, clients_per_server=clients,
-                      t_client=t_client, t_server=t_server, graph_kind=graph,
-                      mixing="out_degree" if mixing != "symmetric"
-                      else "metropolis")
-    loss_fn = tf.make_loss_fn(cfg)
-    optimizer = sgd(gamma)
-    pipe = FLDataPipeline(topo, DataConfig(seq_len=seq_len,
-                                           per_client_batch=per_client_batch,
-                                           vocab_size=cfg.vocab_size,
-                                           seed=seed), arch=cfg, device=dev)
-    if params is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        params = tf.init_params(gen, cfg, device=dev)
+    dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
+        arch_id, smoke, servers, clients, t_client, t_server, graph, gamma,
+        seq_len, per_client_batch, seed, device, mixing, params)
     dfl_cfg = DFLConfig(topology=topo, consensus_mode=consensus_mode,
                         mixing=mixing, compression=compression,
                         error_feedback=error_feedback, wire=wire,
@@ -141,6 +146,130 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
         if log:
             print(format_record(epoch, rec))
     return {"state": state, "history": history, "topology": topo,
+            "cfg": cfg}
+
+
+def _setup_lm(arch_id, smoke, servers, clients, t_client, t_server, graph,
+              gamma, seq_len, per_client_batch, seed, device, mixing,
+              params):
+    """What both drivers share: the device, arch config, topology (directed
+    mixing takes row-stochastic out-degree weights, symmetric gossip
+    Metropolis weights), loss, optimizer, data pipeline and the seeded
+    weights (unless ``params`` is given)."""
+    dev = resolve_device(device)
+    set_full_f32()
+    cfg = get_smoke(arch_id) if smoke else get_arch(arch_id)
+    topo = FLTopology(num_servers=servers, clients_per_server=clients,
+                      t_client=t_client, t_server=t_server, graph_kind=graph,
+                      mixing="out_degree" if mixing != "symmetric"
+                      else "metropolis")
+    pipe = FLDataPipeline(topo, DataConfig(seq_len=seq_len,
+                                           per_client_batch=per_client_batch,
+                                           vocab_size=cfg.vocab_size,
+                                           seed=seed), arch=cfg, device=dev)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = tf.init_params(gen, cfg, device=dev)
+    return dev, cfg, topo, tf.make_loss_fn(cfg), sgd(gamma), pipe, params
+
+
+def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
+                  clients: int = 2, t_client: int = 4, t_server: int = 5,
+                  epochs: int = 3, seq_len: int = 128,
+                  per_client_batch: int = 2, gamma: float = 0.05,
+                  graph: str = "ring", consensus_mode: str = "gossip",
+                  mixing: str = "symmetric", compression: str = "none",
+                  error_feedback: bool = False, wire: str = "simulated",
+                  superepoch: int = 1, staleness: int = 0,
+                  participation_rate: float = 1.0,
+                  participation_kind: str = "bernoulli",
+                  edge_drop_prob: float = 0.0,
+                  straggler_weaken: float = 0.0,
+                  asymmetric_drop_prob: float = 0.0, faults: str = "",
+                  byzantine: str = "", participation_trace: str = "",
+                  seed: int = 0, device: str = "cuda",
+                  params: Optional[dict] = None, log: bool = True) -> dict:
+    """Dynamic-federation LM training: Algorithm 1 driven by the scenario
+    engine — partial participation (``participation_rate`` with
+    ``participation_kind`` bernoulli | fixed_k | round_robin, or a JSONL
+    ``participation_trace``), per-epoch degraded graphs
+    (``edge_drop_prob``, ``straggler_weaken``, or ``asymmetric_drop_prob``
+    with ``mixing="row_stochastic"``), and scheduled server drop/rejoin
+    (``faults``, ``"drop:EPOCH:SERVER,rejoin:EPOCH:SERVER"``).
+    ``superepoch=K`` runs blocks of K epochs a dispatch (the same
+    history); ``staleness=s`` lets round t mix round t - s.  The record of
+    an epoch is the engine's, plus ``epoch_s`` (host seconds, the read-back
+    included; a superepoch block's seconds split evenly over its epochs)
+    and, on a GPU, ``alloc_gb``, the memory the run holds after it.
+    Returns the final state, the history and the run's objects."""
+    if byzantine:
+        ByzantineSchedule.parse(byzantine)          # raises: a later slice
+    dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
+        arch_id, smoke, servers, clients, t_client, t_server, graph, gamma,
+        seq_len, per_client_batch, seed, device, mixing, params)
+    if participation_trace:
+        part = ParticipationSchedule(
+            kind="trace", trace=load_participation_trace(participation_trace))
+    elif participation_rate >= 1.0:
+        part = ParticipationSchedule()                       # full
+    elif participation_kind == "bernoulli":
+        part = ParticipationSchedule(kind="bernoulli",
+                                     rate=participation_rate, seed=seed)
+    else:   # fixed_k / round_robin: the rate gives the clients an epoch
+        part = ParticipationSchedule(
+            kind=participation_kind,
+            k=max(1, round(participation_rate * clients)), seed=seed)
+    if asymmetric_drop_prob > 0.0 or (straggler_weaken > 0.0
+                                      and mixing != "symmetric"):
+        tsched = TopologySchedule(kind="asymmetric",
+                                  drop_prob=asymmetric_drop_prob,
+                                  weaken=straggler_weaken, seed=seed + 1)
+    elif edge_drop_prob > 0.0:
+        tsched = TopologySchedule(kind="edge_drop", drop_prob=edge_drop_prob,
+                                  seed=seed + 1)
+    elif straggler_weaken > 0.0:
+        tsched = TopologySchedule(kind="straggler", weaken=straggler_weaken,
+                                  seed=seed + 1)
+    else:
+        tsched = TopologySchedule()                          # static
+    engine = make_engine(topo, loss_fn, optimizer,
+                         consensus_mode=consensus_mode, mixing=mixing,
+                         compression=compression,
+                         error_feedback=error_feedback, wire=wire,
+                         participation=part, topology_schedule=tsched,
+                         faults=FaultSchedule.parse(faults),
+                         superepoch=superepoch, staleness=staleness)
+    # the wire key is the reference trainer's rng, jax.random.key(seed + 1)
+    state = init_dfl_state(engine.cfg, params, optimizer,
+                           torch.Generator(device=dev).manual_seed(seed + 1),
+                           wire_key=prng.key(seed + 1))
+    del params
+
+    def batch_fn(epoch, alive):
+        return pipe.epoch_batches(epoch, server_ids=alive)
+
+    history: dict = {}
+    epoch = 0
+    for epoch0, k in engine._plan_blocks(epochs):
+        t0 = time.perf_counter()
+        if superepoch > 1:
+            state, recs = engine.run_superepoch(state, epoch0, k, batch_fn)
+        else:
+            state, rec = engine.run_epoch(state, epoch0, batch_fn)
+            recs = [rec]
+        # the engine's read-back waited for the device; the old state is
+        # released now that ``state`` is rebound
+        block_s = time.perf_counter() - t0
+        for rec in recs:
+            rec["epoch_s"] = block_s / k
+            if dev.type == "cuda":
+                rec["alloc_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+            for key, v in rec.items():
+                history.setdefault(key, []).append(v)
+            if log:
+                print(format_record(epoch, rec))
+            epoch += 1
+    return {"state": state, "history": history, "engine": engine,
             "cfg": cfg}
 
 
@@ -201,7 +330,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("ring", "complete", "star", "line"))
     p.add_argument("--consensus-mode", default="gossip",
                    choices=("gossip", "gossip_blocked", "collapsed",
-                            "exact_mean", "none"))
+                            "chebyshev", "exact_mean", "none"))
+    p.add_argument("--mixing", default="symmetric",
+                   choices=("symmetric", "row_stochastic", "push_sum"),
+                   help="symmetric doubly-stochastic gossip (the paper) or "
+                        "naive row-stochastic gossip (directed, biased); "
+                        "push_sum is a later slice and raises")
     p.add_argument("--compression", default="none",
                    help="none | int8[:chunk] | int4[:chunk] | top_k:ratio | "
                         "random_k:ratio: compress the gossip messages")
@@ -213,25 +347,71 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where --compression happens: 'simulated' "
                         "compresses once per period, 'physical' ships the "
                         "codes every round")
+    p.add_argument("--superepoch", type=int, default=1,
+                   help="epochs a dispatch of the dynamic engine; the "
+                        "history is the same at any K")
     p.add_argument("--staleness", type=int, default=0,
                    help="bounded gossip staleness s: round t mixes the "
-                        "neighbours' codes of round t-s (--wire physical "
-                        "only); 0 = the synchronous path")
+                        "neighbours' messages of round t-s (gossip and "
+                        "gossip_blocked; on --wire physical their codes); "
+                        "0 = the synchronous path")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     p.add_argument("--seed", type=int, default=0)
+    dyn = p.add_argument_group(
+        "dynamic federation (any of these switches to the scenario engine)")
+    dyn.add_argument("--participation-rate", type=float, default=1.0,
+                     help="fraction of clients training each epoch (< 1 "
+                          "enables partial participation)")
+    dyn.add_argument("--participation-kind", default="bernoulli",
+                     choices=("bernoulli", "fixed_k", "round_robin"))
+    dyn.add_argument("--participation-trace", default="",
+                     help="JSONL availability trace "
+                          "(schedule.save_participation_trace) replayed "
+                          "instead of sampled participation")
+    dyn.add_argument("--edge-drop-prob", type=float, default=0.0,
+                     help="per-epoch probability that each server link fails")
+    dyn.add_argument("--straggler-weaken", type=float, default=0.0,
+                     help="weight fraction removed from one random link an "
+                          "epoch (with --mixing row_stochastic: from one "
+                          "link direction)")
+    dyn.add_argument("--asymmetric-drop-prob", type=float, default=0.0,
+                     help="per-epoch probability that each link DIRECTION "
+                          "fails (with --mixing row_stochastic)")
+    dyn.add_argument("--faults", default="",
+                     help="server fault schedule, e.g. 'drop:5:1,rejoin:9:1'")
+    dyn.add_argument("--byzantine", default="",
+                     help="the reference's attack schedule; the Byzantine "
+                          "injection is a later slice, so it raises")
     return p
 
 
 def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
-    train(args.arch, smoke=args.smoke, servers=args.servers,
-          clients=args.clients, t_client=args.t_client,
-          t_server=args.t_server, epochs=args.epochs, seq_len=args.seq_len,
-          per_client_batch=args.batch, gamma=args.gamma, graph=args.graph,
-          consensus_mode=args.consensus_mode, compression=args.compression,
-          error_feedback=args.error_feedback, wire=args.wire,
-          staleness=args.staleness, device=args.device, seed=args.seed)
+    kw = dict(smoke=args.smoke, servers=args.servers, clients=args.clients,
+              t_client=args.t_client, t_server=args.t_server,
+              epochs=args.epochs, seq_len=args.seq_len,
+              per_client_batch=args.batch, gamma=args.gamma,
+              graph=args.graph, consensus_mode=args.consensus_mode,
+              mixing=args.mixing, compression=args.compression,
+              error_feedback=args.error_feedback, wire=args.wire,
+              staleness=args.staleness, device=args.device, seed=args.seed)
+    dynamic = (args.participation_rate < 1.0 or args.edge_drop_prob > 0.0
+               or args.straggler_weaken > 0.0
+               or args.asymmetric_drop_prob > 0.0 or bool(args.faults)
+               or bool(args.byzantine) or bool(args.participation_trace)
+               or args.superepoch > 1 or args.staleness > 0)
+    if dynamic:
+        train_dynamic(args.arch, superepoch=args.superepoch,
+                      participation_rate=args.participation_rate,
+                      participation_kind=args.participation_kind,
+                      edge_drop_prob=args.edge_drop_prob,
+                      straggler_weaken=args.straggler_weaken,
+                      asymmetric_drop_prob=args.asymmetric_drop_prob,
+                      faults=args.faults, byzantine=args.byzantine,
+                      participation_trace=args.participation_trace, **kw)
+    else:
+        train(args.arch, **kw)
 
 
 if __name__ == "__main__":

@@ -90,8 +90,7 @@ def test_gossip_preserves_mean_and_contracts():
         assert dev_y <= sig * dev_x * (1 + 1e-4) + 1e-6
 
 
-@pytest.mark.parametrize("mode", ["chebyshev", "trimmed_mean:1", "median",
-                                  "clipped"])
+@pytest.mark.parametrize("mode", ["trimmed_mean:1", "median", "clipped"])
 def test_later_modes_raise_not_implemented(mode):
     a = jtp.metropolis_weights(jtp.ring_graph(4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -106,8 +105,94 @@ def test_later_options_and_bad_modes_raise():
     assert be.compressed and be.wire == "simulated"
     assert be.name == jc.make_backend("gossip", a, 3,
                                       compression="int8").name
-    with pytest.raises(NotImplementedError, match="staleness"):
-        tc.make_backend("gossip", a, 3, staleness=1)
+    # uncompressed bounded staleness runs gossip_scan_stale
+    stale = tc.make_backend("gossip", a, 3, staleness=1)
+    tree = _tree(4, seed=2)
+    _compare(stale.mix(tree_map(torch.from_numpy, tree)),
+             jc.make_backend("gossip", a, 3, staleness=1).mix(
+                 jax.tree.map(jnp.asarray, tree)))
     with pytest.raises(ValueError, match="unknown"):
         tc.make_backend("bogus", a, 3)
     assert tc.make_backend("none", a, 3) is None
+
+
+# ---------------------------------------------------------------------------
+# Chebyshev: the static backend, a per-epoch A_p with and without lam2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind,m,t_s", [("ring", 5, 25), ("line", 4, 9),
+                                        ("complete", 3, 2)])
+def test_chebyshev_static_matches_reference(kind, m, t_s):
+    a = jtp.metropolis_weights(jtp.build_graph(kind, m))
+    tree = _tree(m, seed=m + t_s)
+    port = tc.make_backend("chebyshev", a, t_s)
+    ref = jc.make_backend("chebyshev", a, t_s)
+    assert port.rounds == ref.rounds and port.lam2 == ref.lam2
+    _compare(port.mix(tree_map(torch.from_numpy, tree)),
+             ref.mix(jax.tree.map(jnp.asarray, tree)))
+    assert tc.chebyshev_coefficients(a, port.rounds) == \
+        jc.chebyshev_coefficients(a, ref.rounds)
+
+
+def test_chebyshev_per_epoch_matrix_with_lam2_matches_reference():
+    a_static = jtp.metropolis_weights(jtp.ring_graph(6))
+    a_p = jtp.metropolis_weights(jtp.random_edge_drop(
+        jtp.ring_graph(6), 0.4, np.random.default_rng(3)))
+    lam2 = jtp.lambda_2(a_p)
+    tree = _tree(6, seed=5)
+    port = tc.make_backend("chebyshev", a_static, 16).mix(
+        tree_map(torch.from_numpy, tree),
+        torch.as_tensor(a_p, dtype=torch.float32),
+        lam2=torch.tensor(lam2, dtype=torch.float32))
+    ref = jc.make_backend("chebyshev", a_static, 16).mix(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(a_p, jnp.float32),
+        lam2=jnp.float32(lam2))
+    _compare(port, ref)
+    # the plain function with a host lam2, and lam2 <= 0: one plain round
+    ta = torch.as_tensor(a_p, dtype=torch.float32)
+    _compare(tc.gossip_chebyshev(ta, tree_map(torch.from_numpy, tree), 4,
+                                 lam2),
+             jc.gossip_chebyshev(jnp.asarray(a_p, jnp.float32),
+                                 jax.tree.map(jnp.asarray, tree), 4, lam2))
+    _compare(tc.gossip_chebyshev(ta, tree_map(torch.from_numpy, tree), 4,
+                                 0.0),
+             jc.gossip_chebyshev(jnp.asarray(a_p, jnp.float32),
+                                 jax.tree.map(jnp.asarray, tree), 4, 0.0))
+
+
+def test_chebyshev_per_epoch_matrix_without_lam2_matches_reference():
+    """No spectral estimate with a per-epoch A_p: both fall back to an
+    eigendecomposition of the matrix (f32 on both sides: 2e-4)."""
+    a_static = jtp.metropolis_weights(jtp.ring_graph(5))
+    a_p = jtp.metropolis_weights(jtp.line_graph(5)).astype(np.float32)
+    tree = _tree(5, seed=6)
+    np.testing.assert_allclose(
+        float(tc.lambda2_traced(torch.from_numpy(a_p))),
+        float(jc.lambda2_traced(jnp.asarray(a_p))), rtol=1e-6)
+    port = tc.make_backend("chebyshev", a_static, 9).mix(
+        tree_map(torch.from_numpy, tree), torch.from_numpy(a_p))
+    ref = jc.make_backend("chebyshev", a_static, 9).mix(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(a_p))
+    for g, w in zip(tree_leaves(port), jax.tree.leaves(ref)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4,
+                                   atol=2e-4)
+    assert float(tc.lambda2_traced(torch.ones((1, 1)))) == 0.0
+
+
+@pytest.mark.parametrize("compression", ["int8", "top_k:0.5"])
+def test_chebyshev_on_the_simulated_wire_matches_reference(compression):
+    """Kernel 4 decodes on A = I, then the whole recursion; the codes are
+    the reference's (the same dither key)."""
+    from repro.core import consensus as jcns
+    from repro_torch.comm import prng
+    a = jtp.metropolis_weights(jtp.ring_graph(4))
+    tree = _tree(4, seed=8)
+    port = tc.make_backend("chebyshev", a, 9, compression=compression)
+    ref = jcns.make_backend("chebyshev", a, 9, compression=compression)
+    assert port.needs_spectral and port.name == ref.name
+    got, _ = port.mix_compressed(tree_map(torch.from_numpy, tree),
+                                 key=prng.key(3))
+    want, _ = ref.mix_compressed(jax.tree.map(jnp.asarray, tree),
+                                 key=jax.random.key(3))
+    _compare(got, want)

@@ -11,7 +11,10 @@ RMSNorm kernels' bf16 instances: one bf16 step forward, 2^-8 of the
 largest value backward); the
 flash-attention kernel 2e-5 in f32 (5e-5 with a softcap) and 2e-2 in bf16,
 the tolerances the reference holds its Pallas kernel to; the SSD-scan
-kernel 2e-4, the reference's SSD tolerance.  The simulated
+kernel 2e-4, the reference's SSD tolerance.  Kernel 1 at M = 3 on an
+edge-dropped A_p and the dynamic path's gossip periods (per-epoch A_p,
+per-round stack, staleness 1, Chebyshev) against the same periods on the
+CPU: 1e-5.  The simulated
 wire's kernel 4 and the physical wire's kernels (5-8), and the wire periods
 built on the latter: bitwise, since kernel and plain version pin every
 rounding to the same operations.  The simulated periods: 1e-5 (their
@@ -70,6 +73,71 @@ def test_consensus_mix_pytree_blocks_match_plain_rounds(cuda):
                 want = ref.consensus_mix_ref(a, want)
             torch.testing.assert_close(got[key], want.reshape(leaf.shape),
                                        rtol=1e-5, atol=1e-5)
+
+
+def _edge_dropped_m3() -> np.ndarray:
+    """An edge-dropped A_p at M = 3 (the dynamic path after a drop): the
+    first epoch whose graph lost an edge, so its Metropolis weights are not
+    uniform."""
+    from repro_torch.core.schedule import TopologySchedule
+    topo = tp.FLTopology(num_servers=3, clients_per_server=2, t_client=1,
+                         t_server=5, graph_kind="ring")
+    sched = TopologySchedule(kind="edge_drop", drop_prob=0.3, seed=1)
+    a = next(sched.mixing(topo, e) for e in range(100)
+             if not np.array_equal(sched.mixing(topo, e),
+                                   topo.mixing_matrix()))
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [4096, 1_000_003])
+def test_consensus_mix_m3_edge_dropped_matches_plain(cuda, d):
+    """M = 3 runs through the kernel's 4-row instance with a zero-padded
+    row in shared memory."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    a = torch.from_numpy(_edge_dropped_m3()).to(cuda)
+    w = torch.randn((3, d), device=cuda, generator=g)
+    before = ops.launch_counts()["consensus_mix"]
+    out = ops.consensus_mix(a, w)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["consensus_mix"] == before + 1
+    torch.testing.assert_close(out, ref.consensus_mix_ref(a, w),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dynamic_gossip_periods_match_the_cpu(cuda):
+    """The dynamic path's periods on the card against the same periods on
+    the CPU (plain rounds): T_S rounds on an edge-dropped A_p, a per-round
+    stack, staleness 1 and Chebyshev with a per-epoch lam2 (1e-5: kernel 1
+    sums in another order than the CPU)."""
+    from repro_torch.core import consensus as cns
+    a_np = _edge_dropped_m3()
+    lam2 = tp.lambda_2(a_np)
+    rng = np.random.default_rng(0)
+    tree = {"w": rng.standard_normal((3, 33, 7)).astype(np.float32),
+            "b": rng.standard_normal((3, 1001)).astype(np.float32)}
+    periods = {
+        "gossip": (5, lambda a, t: cns.make_backend("gossip", a_np, 5).mix(
+            t, a)),
+        "tv": (3, lambda a, t: cns.gossip_scan_tv(torch.stack([a] * 3), t)),
+        # rounds 1..6 mix (round 0 holds): A^(7 // 2) in exact arithmetic
+        "stale": (6, lambda a, t: cns.gossip_scan_stale(a, t, 7, 1)),
+        "chebyshev": (3, lambda a, t: cns.make_backend(
+            "chebyshev", a_np, 5).mix(t, a, lam2=torch.tensor(
+                lam2, dtype=torch.float32, device=a.device))),
+    }
+    for name, (launches, period) in periods.items():
+        cpu = period(torch.from_numpy(a_np), {k: torch.from_numpy(v)
+                                              for k, v in tree.items()})
+        before = ops.launch_counts()["consensus_mix"]
+        got = period(torch.from_numpy(a_np).to(cuda),
+                     {k: torch.from_numpy(v).to(cuda)
+                      for k, v in tree.items()})
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["consensus_mix"] == before + launches, \
+            name
+        for k in tree:
+            torch.testing.assert_close(got[k].cpu(), cpu[k], rtol=1e-5,
+                                       atol=1e-5, msg=name)
 
 
 # (rows, d) of the paths' norms, rows cut: a SmolLM client step (256 x 960),

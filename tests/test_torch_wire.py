@@ -394,8 +394,9 @@ def test_backend_refusals():
                           wire="physical")
     with pytest.raises(ValueError, match=">= 0"):
         tcns.make_backend("gossip", a, 3, staleness=-1, **wire)
-    with pytest.raises(NotImplementedError, match="staleness"):
-        tcns.make_backend("gossip_blocked", a, 3, staleness=2)
+    # without compression staleness runs the plain stale rounds
+    assert tcns.make_backend("gossip_blocked", a, 3, staleness=2).staleness \
+        == 2
     inner = tcns.GossipBackend(a, 3)
     be = tcns.CompressedBackend(inner, q, wire="physical")
     with pytest.raises(ValueError, match="already-compressed"):
