@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Needs one NVIDIA Hopper GPU (an H100) and the CUDA toolkit's nvcc.  It
+Needs one NVIDIA Hopper GPU (an H100, 80 GB: Command-R-35B's bf16 weights
+alone take 60.6 GB) and the CUDA toolkit's nvcc.  It
 builds the port's kernels (six CUDA C++ sources) from this checkout, holds
 each one against its plain PyTorch version on the card (kernel 2, RMSNorm
 forward and backward, at every row shape the paths below run, in f32 and
@@ -52,7 +53,28 @@ before it and read just after:
   (O(1) state, no kernel 9); the kernel-route prefill against the reference
   route (``ssd_chunked``) on the logits and every layer's cache, decode
   against a full forward, kernel 9's time at the prefill's shape against
-  its bound, and the prefill and decode under the profiler.
+  its bound, and the prefill and decode under the profiler;
+* the dense zoo: kernel 1's bf16 instance at SmolLM-360M's full size and
+  kernel 3 at each new mode's main shape (bf16 with Gemma-2's window 4096
+  and softcap 50 at 6144 tokens, and its global layers; Command-R's group
+  of 8 in bf16; InternVL2's group 7 at head_dim 64; Seamless's non-causal
+  encoder and causal decoder) against their plain versions (on a slice of
+  heads where the plain scores would not fit), timed against their bounds
+  and ``F.scaled_dot_product_attention`` where it computes the same
+  function; one static epoch of full SmolLM-360M with bf16 leaves through
+  ``train`` (kernel 1's bf16 instance five times) and one period of each
+  wire on a bf16 tree at smoke width, card against CPU; then four serving
+  paths, each model freed before the next loads: Gemma2-27B (bf16, 2
+  prompts of 6144 tokens, 32 generated) and Command-R-35B (bf16, 4 x 1024,
+  64) through ``init_params(dtype=bf16)``, ``prefill``, ``decode_step`` and
+  ``sample_token``, the loop ``serve()`` runs, and InternVL2-1B (256 patch
+  embeddings ahead of the prompt) and Seamless-M4T-large-v2 (1024 frame
+  embeddings through the encoder) in f32 through ``serve()``; each with
+  its launches (kernel 3 by mode), peak memory, the kernel-route prefill
+  against the reference route (f32: 1e-4 of the largest logit; bf16:
+  twice the reference route's distance from itself with its key sums
+  grouped otherwise, plus four bf16 steps) and three decode steps against
+  a full forward.
 
 Kernels 3 and 9 at their prefill shapes also report each device kernel's
 time from the profiler, the blocks of each launch, and the registers and
@@ -74,10 +96,15 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 # float32 (non-tensor-core) flop/s, at the full 700 W power limit
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
+# bf16 operands: the dense tensor-core peak (the bound any bf16 attention
+# could reach; kernel 3 computes on FFMA, so its share of it is low)
+H100_BF16_TC_FLOP_PER_S = 989e12
 
 # the main path of this slice: the trainer's defaults but M = 4 servers
 # (a 2-ring's Metropolis A makes one round the exact mean) and T_C = 2
@@ -319,9 +346,10 @@ def ptxas_entries(log: str) -> list:
     return out
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float,
+             flop_per_s: float = H100_F32_FLOP_PER_S):
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_flops / H100_F32_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -329,6 +357,25 @@ def rel_err(torch, got, want) -> tuple:
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     return err, err / max(scale, 1e-30)
+
+
+def row_rel_err(torch, got, want) -> float:
+    """The largest error of a row (one query of one head) over that row's
+    largest |value|: a row that attends to few keys has large values, one
+    that averages thousands has small ones, and a fault in the mask or the
+    softcap may show only in the latter."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30))
+                 .max())
+
+
+# kernel 3 in bf16 against its plain version, per row: both round an f32
+# sum once to bf16, and two roundings of f32 values that differ only by the
+# order of the sums lie at most one bf16 step of the value apart, at most
+# 2^-7 of the row's largest value; 1e-3 more for the f32 sums' order
+FLASH_BF16_ROW_LIMIT = 2.0 ** -7 + 1e-3
+# q's scale in the softcap modes' checks: the scores reach the cap's bend
+FLASH_SOFTCAP_Q_SCALE = 8.0
 
 
 def flash_limit(kw: dict, dtype: str) -> float:
@@ -1078,6 +1125,539 @@ def mamba_serving(torch, g, serve_shape: dict) -> dict:
             "max_abs_err": ssd_err, "ms": times["kernel"],
             "plain_ms": times["plain"], "bound_ms": ssd_bound,
             "bound_by": ssd_by, "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# the dense zoo families: kernel 1's bf16 instance, kernel 3's new modes,
+# bf16 leaves through Algorithm 1 and the wires, and four serving paths
+# ---------------------------------------------------------------------------
+
+# the serving paths: full width and depth, weights from seed 0
+ZOO = {
+    # bf16 weights (the published dtype; 54.4 / 60.6 GB), driven through
+    # init_params(dtype=bf16), prefill, decode_step and sample_token, the
+    # loop serve() runs; a prompt past Gemma-2's 4096 window
+    "gemma2-27b": dict(dtype="bfloat16", batch=2, prompt_len=6144, gen=32),
+    "command-r-35b": dict(dtype="bfloat16", batch=4, prompt_len=1024,
+                          gen=64),
+    # f32 through serve(): 256 patches ahead of the prompt (max_len covers
+    # them), and 1024 frames through the encoder
+    "internvl2-1b": dict(dtype="float32", batch=4, prompt_len=1024, gen=64,
+                         max_len=256 + 1024 + 64),
+    "seamless-m4t-large-v2": dict(dtype="float32", batch=4, prompt_len=1024,
+                                  gen=64),
+}
+# kernel 3's modes on the zoo's prefills: (name, arch, b, s, h, kvh, hd,
+# options, dtype, heads held against the plain version (None: all))
+FLASH_ZOO = [
+    ("gemma2_local", "gemma2-27b", 2, 6144, 32, 16, 128,
+     {"window": 4096, "softcap": 50.0}, "bfloat16", 4),
+    ("gemma2_global", "gemma2-27b", 2, 6144, 32, 16, 128,
+     {"softcap": 50.0}, "bfloat16", 4),
+    ("command_r", "command-r-35b", 4, 1024, 64, 8, 128, {}, "bfloat16", 16),
+    ("internvl2", "internvl2-1b", 4, 1280, 14, 2, 64, {}, "float32", None),
+    ("seamless_encoder", "seamless-m4t-large-v2", 4, 1024, 16, 16, 64,
+     {"causal": False}, "float32", None),
+    ("seamless_decoder", "seamless-m4t-large-v2", 4, 1024, 16, 16, 64, {},
+     "float32", None),
+]
+
+
+def attn_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through, queries end-aligned: the
+    work any attention must do for these inputs."""
+    qpos = np.arange(sq) + (sk - sq)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+@contextlib.contextmanager
+def reference_route_regrouped(nn):
+    """The reference route with its key sums grouped otherwise: every
+    full-sequence attention through ``attend_chunked`` at chunk 256 (at or
+    below 1024 keys it would take ``mha_attend``).  Its distance from the
+    reference route is what the model's depth makes of rounding alone."""
+    import functools
+    orig_max, orig_chunked = nn.FULL_ATTEND_MAX_KEYS, nn.attend_chunked
+    nn.FULL_ATTEND_MAX_KEYS = 0
+    nn.attend_chunked = functools.partial(orig_chunked, chunk=256)
+    try:
+        yield
+    finally:
+        nn.FULL_ATTEND_MAX_KEYS, nn.attend_chunked = orig_max, orig_chunked
+
+
+def bf16_mix_excess(torch, a, w, got) -> float:
+    """How far kernel 1's bf16 output ``got`` lies beyond what rounding an
+    f32 sum once to bf16 allows: |got - A w| (A w summed in f32 here) less
+    half a bf16 step of |A w| and M f32 steps of sum |a| |w| (the sums run
+    in another order, which near a cancellation may flip a rounding).  At
+    most 0 means within; a bf16 step count is no measure near a
+    cancellation, where A w is close to 0."""
+    exact = torch.einsum("ij,jd->id", a.float(), w.float())
+    lim = exact.abs().mul_(2.0 ** -8)
+    lim.add_(torch.einsum("ij,jd->id", a.float().abs(), w.float().abs()),
+             alpha=w.shape[0] * 2.0 ** -24)
+    return float((got.float() - exact).abs_().sub_(lim).max())
+
+
+def bf16_step(x: float) -> float:
+    """One bf16 step (ulp) at |x|."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
+
+
+def zoo_kernel_checks(torch, g) -> dict:
+    """Kernel 1's bf16 instance at SmolLM-360M's full size and kernel 3 at
+    each new mode's main shape, against their plain versions (kernel 3's
+    plain version on a slice of heads where its (b, h, s, s) scores would
+    not fit beside the kernel's), timed beside their bounds and a library
+    call.  Returns the rows of the ``kernels`` line (launches filled in
+    later from the paths)."""
+    from repro_torch.core import topology as tp
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    rows = {}
+    # ---- kernel 1, bf16: load bf16, sum in f32, store bf16 ----
+    m, d = TRAIN["servers"], SMOLLM_PARAMS
+    a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)),
+                     dtype=torch.float32, device=dev)
+    w = torch.randn((m, d), device=dev, generator=g).bfloat16()
+    out = torch.empty_like(w)
+    got = ops.consensus_mix(a, w, out=out)
+    want = ref.consensus_mix_ref(a, w)
+    err = float((got.float() - want.float()).abs().max())
+    excess = bf16_mix_excess(torch, a, w, got)
+    assert got.dtype == torch.bfloat16 and excess <= 0, excess
+    del want
+    a16 = a.bfloat16()
+    times = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix(a, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(a, w),
+        "library": lambda: torch.matmul(a16, w)}, reps=10)
+    n_bytes = 2 * m * d * 2 + m * m * 4
+    bound, by = bound_ms(n_bytes, 2 * m * m * d)
+    emit("consensus_mix_bf16_main_shape", m=m, d=d, max_abs_err=err,
+         excess_over_one_rounding=excess,
+         kernel_ms=times["kernel"], plain_ms=times["plain"],
+         library_ms=times["library"],
+         library="torch.matmul(A in bf16, W): A rounded to bf16, as the "
+                 "reference's _mix_leaf does",
+         bound_ms=bound, bound_by=by, bytes=n_bytes,
+         kernel_GBps=n_bytes / times["kernel"] / 1e6,
+         bound_share=bound / times["kernel"])
+    rows["consensus_mix_bf16"] = {
+        "name": "consensus_mix_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/consensus_mix.cu",
+        "replaces": "src/repro/kernels/consensus_mix.py:71",
+        "max_abs_err": err, "ms": times["kernel"],
+        "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
+        "library_ms": times["library"]}
+    del w, out, got
+    torch.cuda.empty_cache()
+
+    # ---- kernel 3 at each new mode's main shape ----
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, arch, b, s, h, kvh, hd, kw, dtype, heads in FLASH_ZOO:
+        dt = getattr(torch, dtype)
+        grp = h // kvh
+        hs = h if heads is None else heads      # q heads a plain call takes
+        # with a softcap, q is scaled so that the scores (std ~8, largest
+        # ~30 a row) reach where the cap bends them
+        q_scale = FLASH_SOFTCAP_Q_SCALE if "softcap" in kw else 1.0
+        q = (torch.randn((b, s, h, hd), device=dev, generator=g)
+             * q_scale).to(dt)
+        k = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
+        v = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
+        got = ops.flash_attention(q, k, v, **kw)
+        # the plain version over every head, hs heads a call (its (b, h, s,
+        # s) f32 scores at once would not fit beside the kernel's)
+        slices = [(q[:, :, i:i + hs], k[:, :, i // grp:(i + hs) // grp],
+                   v[:, :, i // grp:(i + hs) // grp])
+                  for i in range(0, h, hs)]
+
+        def plain_all(kw=kw, slices=slices):
+            return [ref.attention_ref(*x, **kw) for x in slices]
+
+        want = torch.cat(plain_all(), dim=2)
+        torch.cuda.synchronize()
+        err, rel = rel_err(torch, got, want)
+        row = row_rel_err(torch, got, want)
+        if dtype == "bfloat16":
+            limit, measure = FLASH_BF16_ROW_LIMIT, row
+        else:
+            limit, measure = flash_limit(kw, dtype), rel
+        assert got.dtype == dt and measure <= limit, (name, measure, limit)
+        # controls that must fail: the kernel without its window, its
+        # softcap or its non-causal mask, held against the plain version
+        # with them
+        controls = {}
+        for opt, off in (("window", None), ("softcap", None),
+                         ("causal", True)):
+            if opt in kw:
+                wrong = ops.flash_attention(q, k, v, **{**kw, opt: off})
+                controls[f"{opt}={off}"] = row_rel_err(torch, wrong, want)
+                del wrong
+                assert controls[f"{opt}={off}"] > 4 * limit, \
+                    (name, opt, controls, limit)
+        del want, got
+        causal = kw.get("causal", True)
+        window = kw.get("window")
+        fns = {"kernel": lambda: ops.flash_attention(q, k, v, **kw),
+               "plain": plain_all}
+        if "softcap" not in kw:     # sdpa computes the same function
+            mask = None
+            if window is not None:
+                i = torch.arange(s, device=dev)
+                mask = (i[None, :] <= i[:, None]) & \
+                    (i[None, :] > i[:, None] - window)
+            fns["library"] = lambda: sdpa(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+        times = alternate(torch, fns, reps=5 if s > 2048 else 10)
+        pairs = attn_pairs(s, s, causal, window)
+        flops = b * h * pairs * 4 * hd
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        peak = (H100_BF16_TC_FLOP_PER_S if dtype == "bfloat16"
+                else H100_F32_FLOP_PER_S)
+        bound, by = bound_ms(n_bytes, flops, peak)
+        emit("flash_attention_zoo_mode", mode=name, arch=arch,
+             shape=[b, s, s, h, kvh, hd], group=grp, dtype=dtype,
+             causal=causal, window=window, softcap=kw.get("softcap"),
+             q_scale=q_scale, max_abs_err=err, max_rel_err=rel,
+             max_row_rel_err=row, limit=limit,
+             limit_on="max_row_rel_err" if dtype == "bfloat16"
+             else "max_rel_err",
+             controls_row_rel_err=controls, kernel_ms=times["kernel"],
+             plain_ms=times["plain"], plain_calls=len(slices),
+             library_ms=times.get("library"), flops=flops, bytes=n_bytes,
+             bound_ms=bound, bound_by=by, peak_flop_per_s=peak,
+             kernel_TFLOPs=flops / times["kernel"] / 1e9,
+             bound_share=bound / times["kernel"])
+        rows[f"flash_attention_{name}"] = {
+            "name": f"flash_attention_{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:118",
+            "max_abs_err": err, "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": times.get("library")}
+        del q, k, v, slices
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_training(torch, ttrain, ops) -> int:
+    """One static epoch of Algorithm 1 on full SmolLM-360M with bf16 leaves
+    through ``train`` (the gossip period on kernel 1's bf16 instance, five
+    launches), then one period of each wire on a bf16 tree at smoke width,
+    on the card and on the CPU.  Returns kernel 1's launches in the
+    epoch."""
+    from repro_torch.comm import compressors as cp
+    from repro_torch.comm import prng
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import topology as tp
+    from repro_torch.models import transformer as ttf
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    params = ttf.init_params(torch.Generator(device=dev).manual_seed(0),
+                             get_arch("smollm-360m"), dtype=torch.bfloat16,
+                             device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = ttrain.train("smollm-360m", **{**TRAIN, "epochs": 1},
+                       params=params, log=False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    del params
+    hist = run["history"]
+    leaves = tree_leaves(run["state"].client_params)
+    norms = (2 * run["cfg"].num_layers + 1) * TRAIN["t_client"] \
+        * TRAIN["servers"] * TRAIN["clients"]
+    expected = {k: 0 for k in launches}
+    expected.update(consensus_mix=TRAIN["t_server"], rmsnorm_fwd=norms,
+                    rmsnorm_bwd=norms)
+    emit("train_bf16", arch="smollm-360m", dtype="bfloat16",
+         leaf_dtypes=sorted({str(x.dtype) for x in leaves}),
+         loss=hist["loss"], disagreement=hist["disagreement"],
+         epoch_s=hist["epoch_s"], launches=launches,
+         expected_launches=expected,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    assert launches == expected, launches
+    assert all(x.dtype == torch.bfloat16 for x in leaves)
+    assert all(np.isfinite(v) for v in hist["loss"]), hist
+    del run, leaves
+    torch.cuda.empty_cache()
+
+    # the wires at smoke width: M = 4 servers of SmolLM's smoke tree in bf16
+    cfg = get_smoke("smollm-360m")
+    gen = torch.Generator().manual_seed(4)
+    one = ttf.init_params(gen, cfg)
+    tree = tree_map(lambda x: (x[None] + 0.05 * torch.randn(
+        (4,) + tuple(x.shape), generator=gen)).bfloat16(), one)
+    card = tree_map(lambda x: x.to(dev), tree)
+    a = torch.tensor(tp.metropolis_weights(tp.ring_graph(4)),
+                     dtype=torch.float32)
+    q = cp.StochasticQuantizer(bits=8, chunk=WIRE_CHUNK)
+    key = prng.key(21)
+    t_s = TRAIN["t_server"]
+    out = {}
+    for name, fn, kw in (
+            ("bucketed_s0", cns.gossip_scan_wire_bucketed, {}),
+            ("bucketed_s1", cns.gossip_scan_wire_bucketed, {"staleness": 1}),
+            ("per_leaf", cns.gossip_scan_wire, {})):
+        ops.reset_launch_counts()
+        got = fn(a.to(dev), card, t_s, q, key, **kw)
+        torch.cuda.synchronize()
+        got_l = ops.launch_counts()
+        want = fn(a, tree, t_s, q, key, **kw)
+        same = all(torch.equal(x.cpu(), y) and x.dtype == torch.bfloat16
+                   for x, y in zip(tree_leaves(got), tree_leaves(want)))
+        out[name] = {"identical_to_cpu": same,
+                     "launches": {k: v for k, v in got_l.items() if v}}
+        assert same, name
+    # error feedback on the physical wire, and the simulated wire with EF
+    for wire in ("physical", "simulated"):
+        be = cns.make_backend("gossip", tp.metropolis_weights(
+            tp.ring_graph(4)), t_s, compression="int8", error_feedback=True,
+            wire=wire)
+        res = tree_map(lambda x: (0.01 * x).contiguous(), tree)
+        ops.reset_launch_counts()
+        got, got_res = be.mix_compressed(
+            card, residual=tree_map(lambda x: x.to(dev), res), key=key)
+        torch.cuda.synchronize()
+        got_l = ops.launch_counts()
+        want, want_res = be.mix_compressed(tree, residual=res, key=key)
+        # physical: bitwise; simulated: kernel 1's bf16 rounds sum in
+        # another order than the CPU's, one bf16 step of the largest value
+        # a round at most
+        diff = max(float((x.cpu().float() - y.float()).abs().max())
+                   for x, y in zip(tree_leaves(got), tree_leaves(want)))
+        top = max(float(y.float().abs().max()) for y in tree_leaves(want))
+        res_same = all(torch.equal(x.cpu(), y) for x, y in
+                       zip(tree_leaves(got_res), tree_leaves(want_res)))
+        limit = 0.0 if wire == "physical" else t_s * 2.0 ** -8 * top
+        out[f"{wire}_ef"] = {"max_abs_diff_to_cpu": diff, "limit": limit,
+                             "residual_identical_to_cpu": res_same,
+                             "launches": {k: v for k, v in got_l.items()
+                                          if v}}
+        assert res_same, wire
+        assert diff <= limit, (wire, diff, limit)
+    emit("wire_bf16_smoke_width", arch="smollm-360m (smoke width)", m=4,
+         t_server=t_s, params=sum(x[0].numel() for x in tree_leaves(tree)),
+         **out)
+    return launches["consensus_mix"]
+
+
+def zoo_serving(torch, g, kernel_rows: dict) -> None:
+    """The four serving paths, each with the launch counters reset just
+    before it and the previous model freed; fills the launches of kernel
+    3's zoo rows."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as ttf
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    kernel_opts = ttf.ApplyOptions(attn_impl="kernel")
+    mode_of = {"gemma2-27b": {"bfloat16/2/128/True/4096/50.0":
+                              "gemma2_local",
+                              "bfloat16/2/128/True/None/50.0":
+                              "gemma2_global"},
+               "command-r-35b": {"bfloat16/8/128/True/None/None":
+                                 "command_r"},
+               "internvl2-1b": {"float32/7/64/True/None/None": "internvl2"},
+               "seamless-m4t-large-v2": {
+                   "float32/1/64/False/None/None": "seamless_encoder",
+                   "float32/1/64/True/None/None": "seamless_decoder"}}
+    for arch, shape in ZOO.items():
+        cfg = get_arch(arch)
+        b, s_len, gen = shape["batch"], shape["prompt_len"], shape["gen"]
+        dtype = getattr(torch, shape["dtype"])
+        fe = cfg.frontend
+        n_fe = 0 if fe is None else (fe.num_tokens or s_len)
+        fe_name = None if fe is None else (
+            "patch_embeds" if fe.kind == "vision_patches" else "frames")
+        seq = s_len + (n_fe if fe_name == "patch_embeds" else 0)
+        max_len = shape.get("max_len", s_len + gen)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        n_layers = cfg.num_layers
+        enc = cfg.encdec.num_encoder_layers if cfg.encdec else 0
+        post = 2 if cfg.final_logit_softcap is not None else 0
+        cross = 1 if cfg.encdec else 0
+        norms_pass = (2 + post + cross) * n_layers + 1
+        expected = {k: 0 for k in ops.launch_counts()}
+        expected.update(flash_attention=n_layers + enc,
+                        rmsnorm_fwd=norms_pass * gen + (2 * enc + 1
+                                                        if enc else 0))
+        if shape["dtype"] == "float32":
+            # serve(), as a user calls it; a short run first, so that the
+            # timed one holds none of the first calls' set-up
+            kw = dict(smoke=False, batch=b, prompt_len=s_len, gen=gen,
+                      max_len=max_len, device="cuda")
+            tserve.serve(arch, **{**kw, "prompt_len": 16, "gen": 2,
+                                  "max_len": 16 + 2 + (
+                                      n_fe if fe_name == "patch_embeds"
+                                      else 0)})
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            res = tserve.serve(arch, **kw)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            modes = ops.flash_attention_mode_counts()
+            peak_serve = torch.cuda.max_memory_allocated() - base
+            prefill_s, decode_s = res["prefill_s"], res["decode_s"]
+            generated, served = res["generated"], res["inputs"]
+            del res
+            rng = torch.Generator(device=dev).manual_seed(0)
+            t0 = time.perf_counter()
+            params = ttf.init_params(rng, cfg, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            peak_init = None
+        else:
+            # bf16 weights: the loop serve() runs, on bf16 params
+            rng = torch.Generator(device=dev).manual_seed(0)
+            t0 = time.perf_counter()
+            params = ttf.init_params(rng, cfg, dtype=dtype, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            peak_init = torch.cuda.max_memory_allocated() - base
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(params)) / 1e9
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        prompt = torch.randint(0, cfg.vocab_size, (b, s_len), generator=rng,
+                               device=dev)
+        inputs = {"tokens": prompt}
+        if fe_name is not None:
+            inputs[fe_name] = torch.randn((b, n_fe, cfg.d_model),
+                                          generator=rng, device=dev) * 0.02
+        if shape["dtype"] == "float32":     # serve() drew these from seed 0
+            assert all(torch.equal(inputs[k], served[k]) for k in inputs)
+            del served
+        pf_kw = dict(max_len=max_len, cache_dtype=torch.float32)
+        if shape["dtype"] != "float32":
+            warm = {"tokens": prompt[:, :16]}
+            logits, cache = ttf.prefill(params, cfg, warm, opts=kernel_opts,
+                                        max_len=18,
+                                        cache_dtype=torch.float32)
+            ttf.decode_step(params, cfg, tserve.sample_token(logits, None),
+                            cache)
+            del logits, cache
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = ttf.prefill(params, cfg, inputs,
+                                        opts=kernel_opts, **pf_kw)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            toks = [tserve.sample_token(logits, None)]
+            t0 = time.perf_counter()
+            for _ in range(gen - 1):
+                logits, cache = ttf.decode_step(params, cfg, toks[-1],
+                                                cache)
+                toks.append(tserve.sample_token(logits, None))
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            modes = ops.flash_attention_mode_counts()
+            peak_serve = torch.cuda.max_memory_allocated() - base
+            generated = torch.cat(toks, dim=1)
+            del logits, cache, toks
+        torch.cuda.empty_cache()
+        n_modes = {mode_of[arch].get(k, k): v for k, v in modes.items()}
+        emit("serve_zoo", arch=arch, dtype=shape["dtype"], params=n_params,
+             weights_gb=weights_gb, batch=b, prompt_len=s_len,
+             frontend_positions=n_fe, prefill_positions=seq, gen=gen,
+             max_len=max_len, init_s=init_s, prefill_s=prefill_s,
+             decode_s=decode_s,
+             tok_per_s=b * (gen - 1) / decode_s,
+             ms_a_decode_step=decode_s / (gen - 1) * 1e3,
+             prefill_tok_per_s=b * seq / prefill_s,
+             peak_init_gb=None if peak_init is None else peak_init / 1e9,
+             peak_serve_gb=peak_serve / 1e9, launches=launches,
+             expected_launches=expected, attention_modes=n_modes,
+             first_row=generated[0, :16].tolist())
+        assert launches == expected, (arch, launches, expected)
+        assert set(n_modes) == set(mode_of[arch].values()), n_modes
+        assert sum(n_modes.values()) == launches["flash_attention"], \
+            (n_modes, launches)
+        for k, v in n_modes.items():
+            kernel_rows[f"flash_attention_{k}"]["launches"] = v
+        assert tuple(generated.shape) == (b, gen)
+        assert 0 <= int(generated.min()) and \
+            int(generated.max()) < cfg.vocab_size
+        if arch == "gemma2-27b":
+            assert peak_serve < 70e9 and peak_init < 70e9, \
+                (peak_init, peak_serve)
+
+        # ---- checked: the kernel route's prefill against the reference
+        # route, and decode against a full forward ----
+        vocab = cfg.vocab_size
+        ref_logits, _ = ttf.prefill(params, cfg, inputs, **pf_kw)
+        torch.cuda.empty_cache()
+        with reference_route_regrouped(nn):
+            alt_logits, _ = ttf.prefill(params, cfg, inputs, **pf_kw)
+        torch.cuda.empty_cache()
+        logits, cache = ttf.prefill(params, cfg, inputs, opts=kernel_opts,
+                                    **pf_kw)
+        cache_gb = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(cache["stack"])) / 1e9
+        pf_err, pf_rel = rel_err(torch, logits[..., :vocab],
+                                 ref_logits[..., :vocab])
+        alt_err = rel_err(torch, alt_logits[..., :vocab],
+                          ref_logits[..., :vocab])[0]
+        top = float(ref_logits[..., :vocab].float().abs().max())
+        del ref_logits, alt_logits
+        if shape["dtype"] == "float32":
+            pf_limit = 1e-4 * top
+        else:
+            # bf16: each route rounds its attention output to bf16 after an
+            # f32 sum in its own order; the reference route regrouped shows
+            # what the depth makes of such roundings
+            pf_limit = 2 * alt_err + 4 * bf16_step(top)
+        assert pf_err <= pf_limit, (arch, pf_err, pf_limit, alt_err)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        assert torch.equal(nxt, generated[:, :1]), \
+            "prefill differs from the serving run"
+        toks, dec_errs = prompt, []
+        for _ in range(3):
+            toks = torch.cat([toks, nxt], dim=1)
+            logits, cache = ttf.decode_step(params, cfg, nxt, cache)
+            with torch.inference_mode():
+                hidden, _ = ttf.forward_hidden(params, cfg,
+                                               {**inputs, "tokens": toks})
+                want = ttf._head(params, cfg, hidden[:, -1:])[:, 0]
+            del hidden
+            got, want = logits[:, 0, :vocab].float(), want[:, :vocab].float()
+            dec_errs.append(float((got - want).abs().max()))
+            if shape["dtype"] == "float32":   # as tests/test_decode.py
+                torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+            else:
+                assert dec_errs[-1] <= pf_limit, (arch, dec_errs, pf_limit)
+            nxt = logits[:, -1].argmax(-1)[:, None]
+        emit("serve_zoo_check", arch=arch, dtype=shape["dtype"],
+             cache_gb=cache_gb, prefill_max_abs_err=pf_err,
+             prefill_max_rel_err=pf_rel,
+             reference_regrouped_max_abs_err=alt_err, max_abs_logit=top,
+             prefill_limit=pf_limit,
+             prefill_limit_rule=("1e-4 of the largest logit"
+                                 if shape["dtype"] == "float32" else
+                                 "2 x reference_regrouped + 4 bf16 steps "
+                                 "of the largest logit"),
+             decode_vs_forward_max_abs_err=dec_errs,
+             decode_limit=("rtol = atol = 2e-3" if shape["dtype"] == "float32"
+                           else pf_limit),
+             forward_positions=toks.shape[1] + (
+                 n_fe if fe_name == "patch_embeds" else 0))
+        del params, cache, logits, want, inputs, prompt
+        torch.cuda.empty_cache()
 
 
 def rmsnorm_sweep(torch, g) -> dict:
@@ -2146,6 +2726,16 @@ def main() -> int:
     # ---- 22. Mamba-2 serving: kernel 9, then full Mamba2-780M ----
     ssd_row = mamba_serving(torch, g, SERVE)
 
+    # ---- 22b. the dense zoo families: kernel 1's bf16 instance and kernel
+    # 3's new modes against their plain versions, bf16 leaves through
+    # Algorithm 1 and the wires, then four serving paths ----
+    zoo_rows = zoo_kernel_checks(torch, g)
+    zoo_rows["consensus_mix_bf16"]["launches"] = bf16_training(
+        torch, ttrain, ops)
+    zoo_serving(torch, g, zoo_rows)
+    assert all("launches" in r and r["launches"] > 0
+               for r in zoo_rows.values()), zoo_rows
+
     # ---- 23. per-kernel summary, card, result ----
     r256 = rn_stats[(256, 960, "float32")]
     kernels = [
@@ -2201,6 +2791,7 @@ def main() -> int:
          "ms": k4["kernel"], "plain_ms": sim_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": None})
     kernels.append(ssd_row)
+    kernels.extend(zoo_rows.values())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

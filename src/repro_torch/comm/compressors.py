@@ -362,9 +362,12 @@ class StochasticQuantizer(Compressor):
         except where a row is longer than a chunk and not a multiple of it
         (the rows ``mix`` pads), where it subtracts the rounded ``msg``.
         The codes are read back off ``msg`` (``q = rint(msg / s)``, exact
-        for |q| <= 127), in row blocks of about ``step`` elements."""
+        for |q| <= 127), in row blocks of about ``step`` elements.  A leaf of
+        another dtype than f32 subtracts the message as it was rounded to
+        that dtype."""
         n = corrected.shape[-1] if corrected.dim() else 1
-        if n > self.chunk and n % self.chunk:
+        if (n > self.chunk and n % self.chunk) or \
+                corrected.dtype != torch.float32:
             return corrected - msg
         kc = min(n, self.chunk)
         c2, m2 = corrected.reshape(-1, n), msg.reshape(-1, n)

@@ -34,7 +34,13 @@ def ef_roundtrip(compressor: Compressor, tree: Any, residual: Any,
     message tree, new residual)``.  ``corrected = x + e`` leaf by leaf, the
     message is ``roundtrip_tree(corrected)``, and the new residual is
     ``corrected - message`` as the reference's jitted program rounds it
-    (``Compressor.residual``)."""
+    (``Compressor.residual``).  On a bf16 leaf that program encodes the sum
+    ``x + e`` before it is rounded to bf16 (XLA keeps the fused add in f32)
+    and rounds the message to bf16; the residual subtracts the rounded
+    message from the rounded sum.  The port does the same."""
     corrected = tree_map(lambda x, e: x + e, tree, residual)
-    msg = roundtrip_tree(compressor, corrected, key)
+    sent = tree_map(lambda x, e, c: c if c.dtype == torch.float32
+                    else x.float() + e.float(), tree, residual, corrected)
+    msg = tree_map(lambda q, c: q.to(c.dtype),
+                   roundtrip_tree(compressor, sent, key), corrected)
     return msg, tree_map(compressor.residual, corrected, msg)

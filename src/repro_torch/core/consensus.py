@@ -45,10 +45,15 @@ Error feedback tracks round 0's transmission.  The state buffers of a
 period are updated in place by the kernels; a period allocates its
 (M, D_pad) buffers once.
 
-One difference from the reference: the reference's ``_mix_leaf`` contracts
-in the leaf dtype, and its core never calls the Pallas kernels; here the
-backends go through the f32 kernels, which take f32 leaves only (bf16
-leaves are a later slice, see ROADMAP.md).
+Leaf dtypes: a tree of one dtype (f32 or bf16) mixes as one slab of that
+dtype through kernel 1, whose rounds sum in f32 and round once to the
+leaves' dtype (the Pallas ``_mix_kernel``'s rule); a tree of mixed dtypes
+mixes leaf by leaf.  The reference's core contracts with ``tensordot`` in
+the leaf dtype, A cast down to it, and never calls its kernel: in bf16 the
+two differ by about one bf16 step a round.  The wires keep their kernels
+f32 and carry a bf16 bucket cast up (exact), rounding to bf16 where the
+reference stores the bucket's dtype: each round's iterate and output, the
+error-feedback correction and residual.
 
 **Dynamic federation.**  Every backend takes a per-epoch ``A_p`` (a tensor
 on the tree's device) in place of its static matrix.  ``gossip_scan_tv``
@@ -102,14 +107,10 @@ def gossip_scan(a: torch.Tensor, tree: Any, t_server: int) -> Any:
 
 
 def _flatten(tree: Any):
-    """The server tree as ONE (M, D) f32 matrix (a new buffer, leaves
-    concatenated row-wise in leaf order) and the function that splits an
-    (M, D) matrix back into views in the tree's shapes."""
+    """The server tree as ONE (M, D) matrix in its leaves' one dtype (a new
+    buffer, leaves concatenated row-wise in leaf order) and the function
+    that splits an (M, D) matrix back into views in the tree's shapes."""
     leaves, treedef = tree_flatten(tree)
-    for leaf in leaves:
-        if leaf.dtype != torch.float32:
-            raise TypeError(f"the gossip kernels take float32 leaves, got "
-                            f"{leaf.dtype} (bf16 leaves are a later slice)")
     m = leaves[0].shape[0]
     flat = torch.cat([leaf.reshape(m, -1) for leaf in leaves], dim=1)
 
@@ -122,6 +123,16 @@ def _flatten(tree: Any):
         return tree_unflatten(treedef, out)
 
     return flat, split
+
+
+def _leafwise_if_mixed(fn: Callable[[Any], Any], tree: Any):
+    """``fn(tree)`` on a tree of one dtype; a tree of mixed dtypes runs
+    ``fn`` leaf by leaf, each leaf in its own dtype (the reference mixes
+    every leaf in its dtype).  ``None`` when the tree has one dtype."""
+    leaves, treedef = tree_flatten(tree)
+    if kops.one_dtype(leaves, "the gossip backends"):
+        return None
+    return tree_unflatten(treedef, [fn(leaf) for leaf in leaves])
 
 
 def _f32_on(a: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -143,6 +154,10 @@ def gossip_scan_stale(a: torch.Tensor, tree: Any, t_server: int,
         return gossip_scan(a, tree, t_server)
     if t_server == 0:
         return tree
+    mixed = _leafwise_if_mixed(
+        lambda t: gossip_scan_stale(a, t, t_server, staleness), tree)
+    if mixed is not None:
+        return mixed
     flat, split = _flatten(tree)
     a32 = _f32_on(a, flat)
     hist = [flat] * (staleness + 1)     # hist[u] = W_(t-s+u), clamped to W_0
@@ -160,6 +175,9 @@ def gossip_scan_tv(a_rounds: torch.Tensor, tree: Any) -> Any:
     kernel-1 launch on the card), ping-ponging two buffers."""
     if a_rounds.shape[0] == 0:
         return tree
+    mixed = _leafwise_if_mixed(lambda t: gossip_scan_tv(a_rounds, t), tree)
+    if mixed is not None:
+        return mixed
     flat, split = _flatten(tree)
     stack = _f32_on(a_rounds, flat)
     src, dst = flat, torch.empty_like(flat)
@@ -220,12 +238,18 @@ def gossip_chebyshev(a: torch.Tensor, tree: Any, rounds: int, lam2) -> Any:
     the reference.  The tree is flattened once to (M, D): each product
     ``A w`` is one ``ops.consensus_mix`` (one kernel-1 launch on the card),
     ``rounds`` in all; the affine step ``alpha * mixed - beta * prev`` is
-    plain f32 tensor code, with the coefficients computed in f32 as the
-    reference computes them.  Three (M, D) buffers rotate."""
+    plain tensor code, with the coefficients computed in f32 as the
+    reference computes them (on bf16 leaves in f32, rounded once to bf16,
+    as the reference's ``(alpha * m - beta * p).astype(m.dtype)``).  Three
+    (M, D) buffers rotate."""
     if rounds == 0:
         return tree
     if isinstance(lam2, (int, float)) and lam2 <= 0.0:
         return kops.consensus_mix_pytree(a, tree, rounds=1)
+    mixed = _leafwise_if_mixed(
+        lambda t: gossip_chebyshev(a, t, rounds, lam2), tree)
+    if mixed is not None:
+        return mixed
     flat, split = _flatten(tree)
     a32 = _f32_on(a, flat)
     x = 1.0 / torch.clamp(torch.as_tensor(lam2, dtype=torch.float32,
@@ -238,8 +262,11 @@ def gossip_chebyshev(a: torch.Tensor, tree: Any, rounds: int, lam2) -> Any:
         denom = 2.0 * x - r
         alpha, beta = 2.0 * x / denom, r / denom
         mixed = kops.consensus_mix(a32, w_cur, out=spare)
-        mixed.mul_(alpha)
-        mixed.sub_(w_prev.mul_(beta))       # w_prev is not read again
+        if mixed.dtype == torch.float32:
+            mixed.mul_(alpha)
+            mixed.sub_(w_prev.mul_(beta))   # w_prev is not read again
+        else:
+            mixed.copy_(alpha * mixed.float() - beta * w_prev.float())
         w_prev, w_cur, spare = w_cur, mixed, w_prev
         r = 1.0 / denom
     return split(w_cur)
@@ -260,13 +287,20 @@ def lambda2_traced(a: torch.Tensor) -> torch.Tensor:
 # quantized-wire gossip: the per-round physical wire
 # ---------------------------------------------------------------------------
 
-def _f32_leaves(tree: Any):
+def _wire_leaves(tree: Any):
+    """The leaves of a tree the wire takes: float32 or bfloat16 (carried in
+    f32, exactly); other dtypes raise."""
     leaves, treedef = tree_flatten(tree)
-    for leaf in leaves:
-        if leaf.dtype != torch.float32:
-            raise TypeError(f"the physical wire takes float32 leaves, got "
-                            f"{leaf.dtype} (bf16 leaves are a later slice)")
+    kops.one_dtype(leaves, "the wire")
     return leaves, treedef
+
+
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (f32) rounded to ``dtype`` and held in f32 again, in place:
+    the wire kernels stay f32, and a bf16 value cast up is exact."""
+    if dtype != torch.float32:
+        x.copy_(x.to(dtype))
+    return x
 
 
 def _wire_dither_rows(key, m: int, nb: int, blk: int, *, leaf: int,
@@ -301,7 +335,7 @@ def _leaf_blocks(flat: torch.Tensor, block: int, chunk: int):
     blk_pad = -(-blk // chunk) * chunk
     rows = torch.zeros((m, nb * blk), dtype=torch.float32,
                        device=flat.device)
-    rows[:, :d] = flat
+    rows[:, :d] = flat                  # a bf16 leaf cast up: exact
     padded = torch.zeros((m, nb, blk_pad), dtype=torch.float32,
                          device=flat.device)
     padded[:, :, :blk] = rows.reshape(m, nb, blk)
@@ -331,10 +365,13 @@ def gossip_scan_wire(a: torch.Tensor, tree: Any, t_server: int, codec,
     dither cell (leaf, round, server, block).  Per leaf: one encode
     (kernel 6), then T_S per-leaf rounds (kernel 5), each of which also
     re-encodes the next round's deltas (the last re-encode is never
-    consumed and reuses its round's dither)."""
+    consumed and reuses its round's dither).  A leaf of another dtype than
+    f32 rides in f32 (exact), and each round's mixed iterate is rounded to
+    the leaf's dtype, as the reference stores it; the next round's deltas
+    are then re-encoded from the rounded iterate (kernel 6 again)."""
     if t_server == 0:
         return tree
-    leaves, treedef = _f32_leaves(tree)
+    leaves, treedef = _wire_leaves(tree)
     m = leaves[0].shape[0]
     a32 = a.to(device=leaves[0].device, dtype=torch.float32)
     out = []
@@ -359,8 +396,14 @@ def gossip_scan_wire(a: torch.Tensor, tree: Any, t_server: int, codec,
                 u = dither(t + 1)
             kops.quantized_gossip_round(a32, codes, scales, ref, mixed, u,
                                         bits=codec.bits, chunk=codec.chunk)
+            if leaf.dtype != torch.float32:
+                _round_to(mixed, leaf.dtype)
+                if t + 1 < t_server:
+                    kops.quantized_gossip_encode(
+                        mixed, ref, u, codes, scales, bits=codec.bits,
+                        chunk=codec.chunk)
         out.append(_leaf_unblock(mixed, d, blk, nb, blk_pad)
-                   .reshape(leaf.shape))
+                   .reshape(leaf.shape).to(leaf.dtype))
     return tree_unflatten(treedef, out)
 
 
@@ -382,25 +425,31 @@ def _bucket_layout(leaves, block: int, chunk: int):
 
 def _bucket_flat(leaves, d_pad: int) -> torch.Tensor:
     """(m, d_pad) f32 bucket of a server tree's leaves, flattened row-wise
-    in leaf order, zero tail."""
+    in leaf order, zero tail.  Every leaf is first cast to the FIRST leaf's
+    dtype, the bucket's one wire dtype (as the reference's
+    ``_bucket_flat``); a bf16 value then sits in the f32 bucket exactly."""
     m = leaves[0].shape[0]
     flat = torch.zeros((m, d_pad), dtype=torch.float32,
                        device=leaves[0].device)
     off = 0
     for leaf in leaves:
         size = leaf[0].numel()
-        flat[:, off:off + size] = leaf.reshape(m, size)
+        flat[:, off:off + size] = leaf.reshape(m, size).to(leaves[0].dtype)
         off += size
     return flat
 
 
-def _bucket_split(flat: torch.Tensor, leaves, treedef) -> Any:
-    """Invert ``_bucket_flat``: views of the bucket in the leaves' shapes
-    (the pad tail is dropped)."""
+def _bucket_split(flat: torch.Tensor, leaves, treedef,
+                  via: torch.dtype = torch.float32) -> Any:
+    """Invert ``_bucket_flat``: the bucket's leaves in their shapes and
+    dtypes (the pad tail is dropped), rounded to ``via`` first where the
+    reference stores the bucket in its wire dtype.  An f32 leaf of an f32
+    bucket is a view."""
     out, off = [], 0
     for leaf in leaves:
         size = leaf[0].numel()
-        out.append(flat[:, off:off + size].reshape(leaf.shape))
+        out.append(flat[:, off:off + size].reshape(leaf.shape).to(via)
+                   .to(leaf.dtype))
         off += size
     return tree_unflatten(treedef, out)
 
@@ -420,11 +469,16 @@ def _bucket_dither_rows(key, m: int, d_pad: int, *, rnd: int,
 
 def _bucketed_period(a: torch.Tensor, flat: torch.Tensor, t_server: int,
                      codec, key, staleness: int,
-                     shipped: Optional[Callable] = None) -> torch.Tensor:
+                     shipped: Optional[Callable] = None,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The bucketed recursion on a (m, d_pad) f32 bucket; returns the
     iterate buffer after ``t_server`` rounds.  ``shipped(codes, scales)``
     is called with round 0's codes and scales while they still exist (the
-    error-feedback hook)."""
+    error-feedback hook).  ``dtype`` is the bucket's wire dtype: the
+    reference carries the iterate in it, so for bf16 each round's iterate
+    is rounded to bf16 before the next round encodes it (kernel 7 fuses
+    the re-encode of the unrounded one, so kernel 6 encodes again; kernel
+    8 encodes first and reads a rounded copy)."""
     m, d_pad = flat.shape
     bits, chunk = codec.bits, codec.chunk
     a32 = a.to(device=flat.device, dtype=torch.float32)
@@ -441,11 +495,16 @@ def _bucketed_period(a: torch.Tensor, flat: torch.Tensor, t_server: int,
             chunk=chunk)
         if shipped is not None:
             shipped(codes, scales)
+        w = None if dtype == torch.float32 else torch.empty_like(flat)
         for t in range(t_server):
             if t + 1 < t_server:    # the last re-encode is never consumed
                 dither(t + 1)
             kops.bucketed_gossip_round(a32, codes, scales, ref, acc, u,
                                        bits=bits, chunk=chunk)
+            if w is not None and t + 1 < t_server:
+                kops.quantized_gossip_encode(
+                    _round_to(w.copy_(acc), dtype), ref, u, codes, scales,
+                    bits=bits, chunk=chunk)
         return acc
     # the ring of the last `staleness` in-flight (codes, scales): zero codes
     # and unit scales decode to nothing, so the pre-fill is inert; round t
@@ -463,7 +522,12 @@ def _bucketed_period(a: torch.Tensor, flat: torch.Tensor, t_server: int,
         if t == 0 and shipped is not None:   # slot 0 holds round 0's
             shipped(ring_c[0], ring_s[0])     # codes until round s
         if t >= staleness:          # a delayed buffer has landed
-            w = acc
+            if dtype == torch.float32:
+                w = acc
+            else:
+                if w is flat:
+                    w = torch.empty_like(flat)
+                _round_to(w.copy_(acc), dtype)
     return w
 
 
@@ -490,11 +554,12 @@ def gossip_scan_wire_bucketed(a: torch.Tensor, tree: Any, t_server: int,
         return tree
     if staleness < 0:
         raise ValueError(f"staleness must be >= 0, got {staleness}")
-    leaves, treedef = _f32_leaves(tree)
+    leaves, treedef = _wire_leaves(tree)
     _, d_pad = _bucket_layout(leaves, block, codec.chunk)
+    dtype = leaves[0].dtype
     out = _bucketed_period(a, _bucket_flat(leaves, d_pad), t_server, codec,
-                           key, staleness)
-    return _bucket_split(out, leaves, treedef)
+                           key, staleness, dtype=dtype)
+    return _bucket_split(out, leaves, treedef, via=dtype)
 
 
 def bucketed_roundtrip_tree(codec, tree: Any, key=None, *,
@@ -503,7 +568,7 @@ def bucketed_roundtrip_tree(codec, tree: Any, key=None, *,
     """One wire round-trip of a server tree in the bucketed layout: what
     round ``rnd`` of the bucketed wire ships of each server's own model
     (the reference's error-feedback oracle)."""
-    leaves, treedef = _f32_leaves(tree)
+    leaves, treedef = _wire_leaves(tree)
     m = leaves[0].shape[0]
     _, d_pad = _bucket_layout(leaves, block, codec.chunk)
     flat = _bucket_flat(leaves, d_pad)
@@ -523,7 +588,7 @@ def wire_roundtrip_tree(codec, tree: Any, key=None, *,
     """One wire round-trip of a server tree in the per-leaf layout: what
     round ``rnd`` of ``gossip_scan_wire`` ships of each server's own model
     (the reference's round-0 oracle of the per-leaf wire)."""
-    leaves, treedef = _f32_leaves(tree)
+    leaves, treedef = _wire_leaves(tree)
     m = leaves[0].shape[0]
     out = []
     for li, leaf in enumerate(leaves):
@@ -537,7 +602,8 @@ def wire_roundtrip_tree(codec, tree: Any, key=None, *,
             bits=codec.bits, chunk=codec.chunk)
         y = (codes.reshape(m, -1, codec.chunk).float()
              * scales[..., None]).reshape(rows.shape)
-        out.append(_leaf_unblock(y, d, blk, nb, blk_pad).reshape(leaf.shape))
+        out.append(_leaf_unblock(y, d, blk, nb, blk_pad).reshape(leaf.shape)
+                   .to(leaf.dtype))
     return tree_unflatten(treedef, out)
 
 
@@ -819,11 +885,14 @@ class CompressedBackend(ConsensusBackend):
         if residual is not None and self.error_feedback:
             msg, residual = ef_roundtrip(codec, tree, residual, key)
             return self.inner.mix(msg, a_p, lam2=lam2), residual
-        if not isinstance(codec, _compressors.StochasticQuantizer):
+        leaves, treedef = tree_flatten(tree)
+        if not isinstance(codec, _compressors.StochasticQuantizer) or any(
+                leaf.dtype != torch.float32 for leaf in leaves):
+            # the reference rounds a bf16 message to bf16 before it mixes
+            # it, so only an f32 tree fuses the first operator
             msg = _compressors.roundtrip_tree(codec, tree, key)
             return self.inner.mix(msg, a_p, lam2=lam2), residual
         # the round trip and the first operator in one pass of kernel 4
-        leaves, treedef = tree_flatten(tree)
         first, rest = self.inner.first_round(a_p, leaves[0].shape[0],
                                              lam2=lam2)
         mixed = [codec.mix(leaf, None if key is None else prng.fold_in(key, i),
@@ -844,13 +913,15 @@ class CompressedBackend(ConsensusBackend):
                                        lam2=lam2)
         a = self._resolve(a_p)
         codec = self.compressor
-        leaves, treedef = _f32_leaves(tree)
+        leaves, treedef = _wire_leaves(tree)
+        dtype = leaves[0].dtype
         _, d_pad = _bucket_layout(leaves, self.wire_block, codec.chunk)
-        flat = _bucket_flat(leaves, d_pad)
         ef = residual is not None and self.error_feedback
         shipped = None
-        if ef:
-            res_leaves, _ = _f32_leaves(residual)
+        if ef and all(leaf.dtype == torch.float32 for leaf in leaves):
+            # f32: fold the residual into the bucket in place
+            flat = _bucket_flat(leaves, d_pad)
+            res_leaves = tree_flatten(residual)[0]
             m, off, spans = flat.shape[0], 0, []
             for leaf in res_leaves:
                 size = leaf[0].numel()
@@ -862,9 +933,29 @@ class CompressedBackend(ConsensusBackend):
                 for res, lo in spans:
                     _ef_residual_into(res, flat, codes, scales, lo,
                                       codec.chunk)
+        elif ef:
+            # other dtypes: the correction x + e in the leaf's dtype, and
+            # the residual c - q with q the decode rounded to it, as the
+            # reference computes them leaf by leaf
+            res_leaves = tree_flatten(residual)[0]
+            corrected = [x + e.to(x.dtype) for x, e in zip(leaves,
+                                                            res_leaves)]
+            flat = _bucket_flat(corrected, d_pad)
+
+            def shipped(codes, scales):
+                m, off = flat.shape[0], 0
+                sent = (codes.reshape(m, -1, codec.chunk).float()
+                        * scales[..., None]).reshape(m, -1)
+                for res, c in zip(res_leaves, corrected):
+                    size = c[0].numel()
+                    q = sent[:, off:off + size].reshape(c.shape).to(c.dtype)
+                    res.copy_(c - q)
+                    off += size
+        else:
+            flat = _bucket_flat(leaves, d_pad)
         out = _bucketed_period(a, flat, self.t_server, codec, key,
-                               self.staleness, shipped=shipped)
-        return _bucket_split(out, leaves, treedef), residual
+                               self.staleness, shipped=shipped, dtype=dtype)
+        return _bucket_split(out, leaves, treedef, via=dtype), residual
 
     def mix(self, tree, a_p=None, lam2=None):
         return self.mix_compressed(tree, a_p, lam2=lam2)[0]

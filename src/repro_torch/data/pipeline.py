@@ -146,14 +146,16 @@ class DataConfig:
 class FLDataPipeline:
     """Per-epoch stacked LM batches for DFL: ``{"tokens": (T_C, M, N, b, s)}``
     int64 on ``device``, drawn from ``numpy.random.default_rng([seed,
-    epoch])`` so each epoch is reproducible on its own."""
+    epoch])`` so each epoch is reproducible on its own.  An arch with a
+    frontend adds its precomputed embeddings, as the reference does:
+    ``patch_embeds`` (..., num_tokens, embed_dim) for a vision frontend,
+    whose text tokens shrink to ``seq_len - num_tokens`` so the sequence
+    stays ``seq_len``, or ``frames`` (..., num_tokens, embed_dim) for an
+    audio one; standard normal f32 from ``default_rng([seed, epoch, 1])``."""
 
     def __init__(self, topo: FLTopology, cfg: DataConfig,
                  arch: Optional[ArchConfig] = None, device="cpu"):
-        if arch is not None and arch.frontend is not None:
-            raise NotImplementedError(
-                "frontend (vision/audio) batches arrive with the model-zoo "
-                "slice (ROADMAP.md)")
+        self.arch = arch
         self.topo = topo
         self.cfg = cfg
         self.device = torch.device(device)
@@ -171,9 +173,20 @@ class FLDataPipeline:
         shape = (topo.t_client, topo.num_servers, topo.clients_per_server,
                  cfg.per_client_batch, cfg.seq_len)
         rng = np.random.default_rng([cfg.seed, e])
-        tokens = synthetic_lm_tokens(rng, cfg.vocab_size, shape)
+        batch = {"tokens": synthetic_lm_tokens(rng, cfg.vocab_size, shape)}
+        fe = None if self.arch is None else self.arch.frontend
+        if fe is not None:
+            name = ("patch_embeds" if fe.kind == "vision_patches"
+                    else "frames")
+            batch[name] = np.random.default_rng([cfg.seed, e, 1]) \
+                .standard_normal(shape[:-1] + (fe.num_tokens, fe.embed_dim),
+                                 dtype=np.float32)
+            if fe.kind == "vision_patches":
+                batch["tokens"] = batch["tokens"][
+                    ..., :cfg.seq_len - fe.num_tokens]
         if server_ids is not None:
-            tokens = tokens[:, _server_ids(server_ids,
-                                           topo.num_servers).numpy()]
+            ids = _server_ids(server_ids, topo.num_servers).numpy()
+            batch = {k: v[:, ids] for k, v in batch.items()}
         self._epoch = e + 1
-        return {"tokens": torch.as_tensor(tokens, device=self.device)}
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}

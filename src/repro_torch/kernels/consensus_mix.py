@@ -2,7 +2,9 @@
 ``repro.kernels.consensus_mix``.
 
 * Kernel 1, ``consensus_mix_cuda`` (source ``csrc/consensus_mix.cu``):
-  one round ``W <- A W``; replaces ``consensus_mix_2d``.
+  one round ``W <- A W`` for f32 or bf16 ``W`` (A f32, an f32 sum, the
+  output in W's dtype, as the Pallas ``_mix_kernel``); replaces
+  ``consensus_mix_2d``.
 * Kernel 4, ``quantized_consensus_mix_cuda`` (source
   ``csrc/quantized_mix.cu``): the simulated wire's ``A · D(C(w; u))`` in
   one pass; replaces ``quantized_consensus_mix_2d``.
@@ -40,9 +42,13 @@ wire_launches = {"quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
 _MAX_M = 64
 
 
-def _lib():
+_MIX_FNS = {torch.float32: "consensus_mix_f32",
+            torch.bfloat16: "consensus_mix_bf16"}
+
+
+def _lib(dtype: torch.dtype):
     lib = _build.load("consensus_mix")
-    fn = lib.consensus_mix_f32
+    fn = getattr(lib, _MIX_FNS[dtype])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_void_p]
@@ -53,18 +59,20 @@ def _lib():
 def consensus_mix_cuda(a: torch.Tensor, w: torch.Tensor,
                        out: torch.Tensor) -> torch.Tensor:
     """``out <- a @ w`` on the card.  a: (M, M) f32 contiguous, M <= 64;
-    w, out: (M, D) f32 CUDA views with unit column stride (any row stride,
-    so a column block of a wider buffer works); ``out`` must not overlap
-    ``w``.  f32 only: other dtypes raise, nothing is cast."""
+    w, out: (M, D) CUDA views of one dtype, float32 or bfloat16, with unit
+    column stride (any row stride, so a column block of a wider buffer
+    works); ``out`` must not overlap ``w``.  The sum runs in f32 and rounds
+    once to W's dtype.  Other dtypes raise, nothing is cast."""
     global launches
     if not (a.is_cuda and w.is_cuda and out.is_cuda):
         raise ValueError("consensus_mix_cuda takes CUDA tensors only")
     if a.device != w.device or out.device != w.device:
         raise ValueError("a, w and out must be on one device")
-    for name, t in (("a", a), ("w", w), ("out", out)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"consensus_mix_cuda takes float32 only; {name} "
-                            f"is {t.dtype} (bf16 leaves are a later slice)")
+    if a.dtype != torch.float32:
+        raise TypeError(f"consensus_mix_cuda takes a float32 A, got {a.dtype}")
+    if w.dtype not in _MIX_FNS or out.dtype != w.dtype:
+        raise TypeError(f"consensus_mix_cuda takes float32 or bfloat16 W and "
+                        f"out of one dtype; got {w.dtype} and {out.dtype}")
     if w.dim() != 2 or out.shape != w.shape:
         raise ValueError(f"w and out must be one (M, D) shape, got "
                          f"{tuple(w.shape)} and {tuple(out.shape)}")
@@ -82,7 +90,7 @@ def consensus_mix_cuda(a: torch.Tensor, w: torch.Tensor,
         raise ValueError("out must not overlap w (ping-pong two buffers)")
     ld_w = w.stride(0) if m > 1 else d
     ld_o = out.stride(0) if m > 1 else d
-    fn = _lib()
+    fn = _lib(w.dtype)
     err = fn(a.data_ptr(), m, w.data_ptr(), ld_w, out.data_ptr(), ld_o, d,
              torch.cuda.current_stream(w.device).cuda_stream)
     if err != 0:
@@ -95,7 +103,8 @@ def consensus_mix_cuda(a: torch.Tensor, w: torch.Tensor,
 def _overlap(x: torch.Tensor, y: torch.Tensor) -> bool:
     def span(t):
         lo = t.data_ptr()
-        hi = lo + ((t.shape[0] - 1) * t.stride(0) + t.shape[1]) * 4
+        hi = lo + ((t.shape[0] - 1) * t.stride(0)
+                   + t.shape[1]) * t.element_size()
         return lo, hi
     (a0, a1), (b0, b1) = span(x), span(y)
     return a0 < b1 and b0 < a1

@@ -6,7 +6,8 @@ bounds it and how the design answers.  ``flash_attention_cuda`` takes the
 model layout — q ``(b, sq, h, hd)``, k/v ``(b, sk, kvh, hd)`` — reads it
 through its strides, checks its operands, launches on PyTorch's current
 stream (read on every call through the raw binding, without the Stream
-object), raises on a launch error and counts its launches in ``launches``.
+object), raises on a launch error and counts its launches in ``launches``,
+and by mode in ``mode_launches``.
 Its plain version is ``repro_torch.kernels.ref.attention_ref``;
 ``repro_torch.kernels.ops.flash_attention`` picks between them by device.
 """
@@ -22,6 +23,8 @@ from repro_torch.kernels import _build
 
 #: kernel launches since the last ``ops.reset_launch_counts()``
 launches = 0
+#: the same launches by mode, keyed ``mode_key(...)``
+mode_launches: dict = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,6 +59,14 @@ def smem_bytes(head_dim: int) -> int:
 def blocks(b: int, sq: int, h: int, kvh: int) -> int:
     """Blocks of one launch: (query tile, batch, KV head, head group)."""
     return int(_bind().flash_attention_blocks(b, sq, h, kvh))
+
+
+def mode_key(dtype: torch.dtype, group: int, head_dim: int, causal: bool,
+             window: Optional[int], softcap: Optional[float]) -> str:
+    """``dtype/group/head_dim/causal/window/softcap``, e.g.
+    ``bfloat16/2/128/True/4096/50.0``: the key of ``mode_launches``."""
+    return "/".join(map(str, (str(dtype).split(".")[-1], group, head_dim,
+                              causal, window, softcap)))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -122,4 +133,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
+    key = mode_key(q.dtype, h // kvh, hd, bool(causal), window, softcap)
+    mode_launches[key] = mode_launches.get(key, 0) + 1
     return out

@@ -26,6 +26,7 @@ from repro_torch.tree import tree_flatten, tree_unflatten
 def reset_launch_counts() -> None:
     _cm.launches = 0
     _fa.launches = 0
+    _fa.mode_launches.clear()
     _rn.fwd_launches = 0
     _rn.bwd_launches = 0
     _ssd.launches = 0
@@ -42,6 +43,12 @@ def launch_counts() -> Dict[str, int]:
             **_cm.wire_launches}
 
 
+def flash_attention_mode_counts() -> Dict[str, int]:
+    """Kernel 3's launches since the last ``reset_launch_counts()`` by mode
+    (``flash_attention.mode_key``); they sum to its ``launch_counts()``."""
+    return dict(_fa.mode_launches)
+
+
 # ---------------------------------------------------------------------------
 # consensus mixing
 # ---------------------------------------------------------------------------
@@ -49,42 +56,58 @@ def launch_counts() -> Dict[str, int]:
 
 def consensus_mix(a: torch.Tensor, w: torch.Tensor,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``A @ W`` for W (M, D): the CUDA kernel on the card (into ``out``,
-    which must not overlap ``w``), the plain version on the CPU."""
+    """``A @ W`` for W (M, D), f32 or bf16 (an f32 sum, W's dtype out): the
+    CUDA kernel on the card (into ``out``, which must not overlap ``w``),
+    the plain version on the CPU."""
     if w.is_cuda:
         if out is None:
             out = torch.empty_like(w)
-        return _cm.consensus_mix_cuda(a.to(w.device), w, out)
+        return _cm.consensus_mix_cuda(_a32(a, w), w, out)
     res = _ref.consensus_mix_ref(a, w)
     if out is None:
         return res
     return out.copy_(res)
 
 
+#: the leaf dtypes the consensus kernels take (kernel 1 has an instance of
+#: each; the wires carry bf16 in f32, exactly)
+MIX_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def one_dtype(leaves, what: str = "consensus_mix_pytree") -> bool:
+    """Whether every leaf has the first leaf's dtype: such a tree mixes as
+    one flattened (M, D) slab of that dtype; a tree of mixed dtypes mixes
+    leaf by leaf, each in its own dtype, as the reference's ``_mix_leaf``
+    does.  Leaves of other dtypes than f32 and bf16 raise."""
+    for leaf in leaves:
+        if leaf.dtype not in MIX_DTYPES:
+            raise TypeError(f"{what} takes float32 or bfloat16 leaves, got "
+                            f"{leaf.dtype}")
+    return all(leaf.dtype == leaves[0].dtype for leaf in leaves)
+
+
 def consensus_mix_pytree(a: torch.Tensor, tree: Any, rounds: int = 1,
                          block: Optional[int] = None) -> Any:
     """``rounds`` rounds of ``W <- A W`` over every leaf (leading server axis
-    M), through ONE flattened ``(M, D)`` f32 matrix: the leaves are
-    concatenated once, the rounds ping-pong between two (M, D) buffers, and
-    the result is split back into views of the final buffer.  ``block``
-    streams the rounds over column blocks of that width (block-major,
-    round-minor — the same operator, since columns mix independently).
-    Leaves must be float32: nothing is cast."""
+    M), through ONE flattened ``(M, D)`` matrix in the leaves' dtype (f32
+    or bf16 on the card): the leaves are concatenated once, the rounds
+    ping-pong between two (M, D) buffers, and the result is split back into
+    views of the final buffer.  ``block`` streams the rounds over column
+    blocks of that width (block-major, round-minor — the same operator,
+    since columns mix independently).  Each round sums in f32 and rounds
+    once to the leaves' dtype.  A tree of mixed dtypes runs leaf by leaf."""
     leaves, treedef = tree_flatten(tree)
-    if not leaves:
+    if not leaves or rounds == 0:
         return tree
-    for leaf in leaves:
-        if leaf.dtype != torch.float32:
-            raise TypeError(f"consensus_mix_pytree takes float32 leaves, got "
-                            f"{leaf.dtype} (bf16 leaves are a later slice)")
-    if rounds == 0:
-        return tree
+    if not one_dtype(leaves):
+        return tree_unflatten(treedef, [
+            consensus_mix_pytree(a, leaf, rounds, block) for leaf in leaves])
     m = leaves[0].shape[0]
     sizes = [leaf[0].numel() for leaf in leaves]
     flat = torch.cat([leaf.reshape(m, -1) for leaf in leaves], dim=1)
     d = flat.shape[1]
     other = torch.empty_like(flat)
-    a = a.to(device=flat.device, dtype=torch.float32).contiguous()
+    a = _a32(a, flat)
     step = d if block is None else block
     for lo in range(0, d, max(step, 1)):
         hi = min(d, lo + step)

@@ -13,6 +13,9 @@ float32 matmuls run in full float32: TF32 is switched off.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \
         --full --batch 4 --prompt-len 1024 --gen 64
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
+        --device cpu          # also command-r-35b, internvl2-1b,
+                              # seamless-m4t-large-v2 (smoke configs)
 """
 from __future__ import annotations
 
@@ -48,10 +51,16 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
           cache_dtype=torch.float32, device: str = "cuda") -> Dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens each, with weights and prompts drawn from one generator
-    seeded with ``seed`` (weights first).  Returns the generated tokens
-    (batch, gen), the prompt, and the prefill and decode seconds (host
-    clock, the device synchronised before each read) with the decode rate
-    in tokens per second."""
+    seeded with ``seed`` (weights first).  An arch with a frontend gets its
+    embeddings as the reference's ``serve`` makes them: ``num_tokens`` of
+    them (``prompt_len`` where that is 0), normal times 0.02, as
+    ``patch_embeds`` ahead of the tokens (vision) or as the encoder's
+    ``frames`` (audio).  ``max_len`` defaults to ``prompt_len + gen`` as in
+    the reference, so a vision prompt longer than that keeps only its last
+    ``max_len`` positions in every layer's cache.  Returns the generated
+    tokens (batch, gen), the prompt, and the prefill and decode seconds
+    (host clock, the device synchronised before each read) with the decode
+    rate in tokens per second."""
     dev = resolve_device(device)
     set_full_f32()
     cfg = get_smoke(arch_id) if smoke else get_arch(arch_id)
@@ -61,13 +70,19 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
     opts = tf.ApplyOptions(attn_impl="kernel")
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=rng, device=dev)
+    inputs = {"tokens": prompt}
+    if cfg.frontend is not None:
+        n = cfg.frontend.num_tokens or prompt_len
+        name = ("patch_embeds" if cfg.frontend.kind == "vision_patches"
+                else "frames")
+        inputs[name] = torch.randn((batch, n, cfg.d_model), generator=rng,
+                                   device=dev) * 0.02
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = tf.prefill(params, cfg, {"tokens": prompt},
-                               max_len=max_len, cache_dtype=cache_dtype,
-                               opts=opts)
+    logits, cache = tf.prefill(params, cfg, inputs, max_len=max_len,
+                               cache_dtype=cache_dtype, opts=opts)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -79,7 +94,7 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
     _sync(dev)
     t_decode = time.perf_counter() - t0
     return {"generated": torch.cat(tokens, dim=1), "prompt": prompt,
-            "prefill_s": t_prefill, "decode_s": t_decode,
+            "inputs": inputs, "prefill_s": t_prefill, "decode_s": t_decode,
             "tok_per_s": batch * (gen - 1) / max(t_decode, 1e-9)}
 
 

@@ -8,8 +8,11 @@ plain dict of tensors with the reference's leaf names and layouts, and
 full-sequence attention as the reference does: ``attn_impl="kernel"`` (the
 reference's ``"pallas"``) to ``kernels.ops.flash_attention`` (the CUDA
 kernel on the card), else to ``attend_chunked`` above
-``FULL_ATTEND_MAX_KEYS`` keys and to ``mha_attend`` below.  Incremental
-decode (``attention_cache_init`` / ``attention_decode_step``) keeps a
+``FULL_ATTEND_MAX_KEYS`` keys and to ``mha_attend`` below.  An
+encoder-decoder's cross-attention (``attention_apply(kv_override=...)``)
+is never given ``attn_impl`` by the reference's blocks, so it always takes
+the reference route.  Incremental decode (``attention_cache_init`` /
+``attention_decode_step``, ``cross_attention_decode_step``) keeps a
 ring-buffer KV cache and attends it with ``mha_attend``.
 """
 from __future__ import annotations
@@ -83,7 +86,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def attention_init(gen, cfg: ArchConfig, dtype=torch.float32,
-                   device="cpu") -> Dict:
+                   device="cpu", cross: bool = False) -> Dict:
+    """GQA attention weights; ``cross`` (an encoder-decoder's
+    cross-attention) has no q/k norms."""
     d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim()
     p = {
@@ -98,7 +103,7 @@ def attention_init(gen, cfg: ArchConfig, dtype=torch.float32,
         p["b_k"] = torch.zeros((kvh, hd), dtype=dtype, device=device)
         p["b_v"] = torch.zeros((kvh, hd), dtype=dtype, device=device)
         p["b_o"] = torch.zeros((d,), dtype=dtype, device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = rmsnorm_init(hd, dtype, device)
         p["k_norm"] = rmsnorm_init(hd, dtype, device)
     return p
@@ -306,12 +311,43 @@ def dispatch_attend(q, k, v, *, causal: bool, window: Optional[int],
 def attention_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                     layer_kind: str = "global",
                     positions: Optional[torch.Tensor] = None,
+                    kv_override: Optional[torch.Tensor] = None,
                     causal: bool = True,
                     attn_impl: str = "reference") -> torch.Tensor:
-    """Self-attention over a full sequence."""
-    return attention_apply_kv(params, x, cfg, layer_kind=layer_kind,
-                              positions=positions, causal=causal,
-                              attn_impl=attn_impl)[0]
+    """Self-attention over a full sequence, or cross-attention over the
+    memory ``kv_override`` (b, s_mem, d): queries without rope from ``x``,
+    keys and values from the memory, with their biases, no mask."""
+    if kv_override is None:
+        return attention_apply_kv(params, x, cfg, layer_kind=layer_kind,
+                                  positions=positions, causal=causal,
+                                  attn_impl=attn_impl)[0]
+    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
+    if "b_q" in params:
+        q = q + params["b_q"]
+    k, v = cross_kv(params, kv_override, bias=True)
+    out = dispatch_attend(q, k, v, causal=False, window=None,
+                          attn_softcap=cfg.attn_logit_softcap,
+                          attn_impl=attn_impl)
+    return _out_proj(params, out, x.dtype)
+
+
+def cross_kv(params: Dict, memory: torch.Tensor, *, bias: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values (b, s_mem, kvh, hd) of the memory;
+    with their biases (the full-sequence cross-attention) or without them
+    (what the reference's prefill writes into the cross cache)."""
+    k = torch.einsum("bsd,dhk->bshk", memory, params["w_k"])
+    v = torch.einsum("bsd,dhk->bshk", memory, params["w_v"])
+    if bias and "b_k" in params:
+        k, v = k + params["b_k"], v + params["b_v"]
+    return k, v
+
+
+def _out_proj(params: Dict, out: torch.Tensor, dtype) -> torch.Tensor:
+    y = torch.einsum("bshk,hkd->bsd", out.to(dtype), params["w_o"])
+    if "b_o" in params:
+        y = y + params["b_o"]
+    return y
 
 
 def attention_apply_kv(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -330,10 +366,7 @@ def attention_apply_kv(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     out = dispatch_attend(q, k, v, causal=causal, window=window,
                           attn_softcap=cfg.attn_logit_softcap,
                           attn_impl=attn_impl)
-    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["w_o"])
-    if "b_o" in params:
-        y = y + params["b_o"]
-    return y, k, v
+    return _out_proj(params, out, x.dtype), k, v
 
 
 # -- incremental decode ------------------------------------------------------
@@ -378,10 +411,20 @@ def attention_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
         valid = valid & (cpos > position - window)
     out = mha_attend(q, cache["k"], cache["v"], valid[:, None, :],
                      attn_softcap=cfg.attn_logit_softcap)
-    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["w_o"])
-    if "b_o" in params:
-        y = y + params["b_o"]
-    return y, cache
+    return _out_proj(params, out, x.dtype), cache
+
+
+def cross_attention_decode_step(params: Dict, x: torch.Tensor,
+                                cross_k: torch.Tensor,
+                                cross_v: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention over the cached memory keys and values,
+    as the reference's ``_block_decode`` computes it: no query bias, no
+    output bias and no softcap (its prefill's cross-attention adds them;
+    the biases start at zero, so the two agree on fresh weights)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
+    out = mha_attend(q, cross_k.to(x.dtype), cross_v.to(x.dtype), None,
+                     attn_softcap=None)
+    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["w_o"])
 
 
 # ---------------------------------------------------------------------------

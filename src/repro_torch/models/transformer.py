@@ -1,17 +1,23 @@
-"""Decoder stack: port of ``repro.models.transformer`` for the dense GQA
-path and the Mamba-2 path (``mamba`` layers, ``models.mamba``).  MoE, MLA,
-encoder-decoder and frontend archs raise ``NotImplementedError``.
+"""Decoder and encoder-decoder stacks: port of ``repro.models.transformer``
+for the dense GQA path (with Gemma-2's local/global windows, softcaps and
+post-norms), the Mamba-2 path (``mamba`` layers, ``models.mamba``), the
+vision-patch frontend (InternVL2: patch embeddings ahead of the tokens) and
+the encoder-decoder (Seamless-M4T: ``encode`` over frame embeddings, then
+decoder blocks with cross-attention and a cross K/V cache).  MoE and MLA
+archs raise ``NotImplementedError``.
 
 The parameter tree has the reference's layout exactly — ``embed``,
-``final_norm``, optional ``head``, and ``stack``: a tuple of one block dict
-per layer of a period, every leaf stacked over ``n_periods`` — so the
-reference's parameters carry over leaf by leaf (``params_from_numpy``).
+``final_norm``, optional ``head``, ``stack``: a tuple of one block dict
+per layer of a period, every leaf stacked over ``n_periods``, and for an
+encoder-decoder ``encoder``: ``{"stack": (block,), "final_norm"}`` — so
+the reference's parameters carry over leaf by leaf (``params_from_numpy``).
 Where the reference scans over periods, this loops over them.
 
 Public API
 ----------
     init_params(gen, cfg, dtype, device)        -> params tree
     params_from_numpy(tree, device)             -> params tree
+    encode(params, cfg, frames)                 -> encoder memory
     forward(params, cfg, batch)                 -> (logits, aux_loss)
     make_loss_fn(cfg)                           -> loss_fn(params, batch, rng)
     init_cache(cfg, batch, max_len, dtype)      -> cache
@@ -21,7 +27,8 @@ Public API
 The cache is a plain dict with the reference's key paths: ``position``,
 ``prefix`` (empty on the ported paths) and ``stack``, one dict per layer of
 a period with every leaf stacked over periods: a ring-buffer KV cache for an
-attention layer, the conv window and SSM state for a ``mamba`` layer.
+attention layer, the conv window and SSM state for a ``mamba`` layer, and
+for an encoder-decoder the memory's ``cross_k`` / ``cross_v``.
 ``position`` is a 0-dim int32 tensor kept on the CPU: the decode step needs
 it on the host to pick the ring slot, and a device copy would cost a
 synchronisation per step.
@@ -65,15 +72,15 @@ class StackPlan:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    later = [name for name, v in (("MoE", cfg.moe), ("MLA", cfg.mla),
-                                  ("encoder-decoder", cfg.encdec),
-                                  ("frontend", cfg.frontend))
+    """MoE and MLA blocks (Mixtral, DeepSeek-V2, the Jamba hybrid) are later
+    slices of the port: they raise, naming the block."""
+    later = [name for name, v in (("MoE", cfg.moe), ("MLA", cfg.mla))
              if v is not None]
     if later:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(later)} blocks are not ported yet "
             f"(ROADMAP.md, Queue 1); the port runs dense GQA and mamba "
-            f"layers")
+            f"layers, the vision-patch frontend and the encoder-decoder")
 
 
 def stack_plan(cfg: ArchConfig) -> StackPlan:
@@ -91,10 +98,12 @@ def stack_plan(cfg: ArchConfig) -> StackPlan:
 
 
 def block_init(gen, cfg: ArchConfig, kind: str, dtype=torch.float32,
-               device="cpu") -> Dict:
+               device="cpu", cross: bool = False) -> Dict:
     """One block's parameters.  A ``mamba`` block keeps the reference's
     ``ln2`` leaf, which its forward never reads, and has no ``ffn`` when
-    ``d_ff == 0``, so the tree has the reference's key paths."""
+    ``d_ff == 0``, so the tree has the reference's key paths.  ``cross``
+    (an encoder-decoder's decoder block) adds ``cross_ln`` and
+    ``cross_attn``."""
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": nn.rmsnorm_init(d, dtype, device),
                          "ln2": nn.rmsnorm_init(d, dtype, device)}
@@ -107,13 +116,20 @@ def block_init(gen, cfg: ArchConfig, kind: str, dtype=torch.float32,
     if cfg.final_logit_softcap is not None:  # gemma2 family: post-norms
         p["post_ln1"] = nn.rmsnorm_init(d, dtype, device)
         p["post_ln2"] = nn.rmsnorm_init(d, dtype, device)
+    if cross:
+        p["cross_ln"] = nn.rmsnorm_init(d, dtype, device)
+        p["cross_attn"] = nn.attention_init(gen, cfg, dtype, device,
+                                            cross=True)
     return p
 
 
 def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
-                *, opts: ApplyOptions = DEFAULT_OPTS,
+                *, memory: Optional[torch.Tensor] = None,
+                opts: ApplyOptions = DEFAULT_OPTS,
                 causal: bool = True) -> torch.Tensor:
-    """Full-sequence pre-norm block."""
+    """Full-sequence pre-norm block; with ``memory``, a decoder block's
+    cross-attention over it (on the reference route, as in the
+    reference)."""
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         mix = mamba_mod.mamba_apply(params["mixer"], h, cfg,
@@ -121,7 +137,18 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     else:
         mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
                                  causal=causal, attn_impl=opts.attn_impl)
-    return _block_rest(params, x, mix, cfg)
+    return _block_rest(params, x, mix, cfg, cross=_cross(params, cfg, memory))
+
+
+def _cross(params: Dict, cfg: ArchConfig, memory: Optional[torch.Tensor]):
+    """A decoder block's full-sequence cross-attention over ``memory`` as a
+    function of the normed residual (``None`` without memory): the
+    reference calls ``attention_apply(kv_override=...)`` without
+    ``attn_impl``, so it always takes the reference route."""
+    if memory is None or "cross_attn" not in params:
+        return None
+    return lambda h: nn.attention_apply(params["cross_attn"], h, cfg,
+                                        kv_override=memory)
 
 
 def _ssd_impl(opts: ApplyOptions) -> str:
@@ -129,11 +156,15 @@ def _ssd_impl(opts: ApplyOptions) -> str:
 
 
 def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
-    """The block after its mixer: (post-norm,) residual, then the FFN."""
+                cfg: ArchConfig, *, cross=None) -> torch.Tensor:
+    """The block after its mixer: (post-norm,) residual, the
+    cross-attention ``cross`` (a function of the normed residual, for a
+    decoder block), then the FFN."""
     if "post_ln1" in params:
         mix = nn.rmsnorm_apply(params["post_ln1"], mix, cfg.norm_eps)
     x = x + mix
+    if cross is not None:
+        x = x + cross(nn.rmsnorm_apply(params["cross_ln"], x, cfg.norm_eps))
     if "ffn" in params:
         h = nn.rmsnorm_apply(params["ln2"], x, cfg.norm_eps)
         ff = nn.mlp_apply(params["ffn"], h, cfg.act)
@@ -150,7 +181,10 @@ def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
                 device="cpu") -> Dict:
-    """Random parameters from ``gen`` (a generator on ``device``)."""
+    """Random parameters from ``gen`` (a generator on ``device``).  Each
+    stacked leaf is allocated once and filled layer by layer, so the peak is
+    the weights plus one layer (the values are those of stacking the
+    per-layer trees)."""
     plan = stack_plan(cfg)
     d = cfg.d_model
     vp = cfg.padded_vocab_size
@@ -160,13 +194,34 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     }
     if not cfg.tie_embeddings:
         params["head"] = nn._dense_init(gen, (d, vp), dtype, device)
-    periods = [[block_init(gen, cfg, cfg.pattern_for_layer(i), dtype, device)
-                for i in range(plan.period)] for _ in range(plan.n_periods)]
-    params["stack"] = tuple(
-        tree_map(lambda *layers: torch.stack(layers),
-                 *[periods[p][i] for p in range(plan.n_periods)])
-        for i in range(plan.period))
+    cross = cfg.encdec is not None
+    params["stack"] = _stacked_init(
+        lambda i: block_init(gen, cfg, cfg.pattern_for_layer(i), dtype,
+                             device, cross=cross),
+        plan.period, plan.n_periods)
+    if cross:
+        params["encoder"] = {
+            "stack": _stacked_init(
+                lambda i: block_init(gen, cfg, "global", dtype, device),
+                1, cfg.encdec.num_encoder_layers),
+            "final_norm": nn.rmsnorm_init(d, dtype, device),
+        }
     return params
+
+
+def _stacked_init(make_block, period: int, n_periods: int) -> Tuple:
+    """``period`` block trees, each leaf stacked over ``n_periods``: blocks
+    are drawn period by period, layer by layer (``make_block(i)``), and
+    copied into their slot of a leaf allocated once."""
+    stacked = [None] * period
+    for p in range(n_periods):
+        for i in range(period):
+            blk = make_block(i)
+            if stacked[i] is None:
+                stacked[i] = tree_map(lambda t: t.new_empty(
+                    (n_periods, *t.shape)), blk)
+            tree_map(lambda dst, t: dst[p].copy_(t), stacked[i], blk)
+    return tuple(stacked)
 
 
 def params_from_numpy(tree: Any, device="cpu") -> Any:
@@ -206,13 +261,41 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _run_stack(params, cfg: ArchConfig, x: torch.Tensor, *, causal=True,
-               opts: ApplyOptions = DEFAULT_OPTS) -> torch.Tensor:
+def _run_stack(params, cfg: ArchConfig, x: torch.Tensor, *, memory=None,
+               causal=True, opts: ApplyOptions = DEFAULT_OPTS) -> torch.Tensor:
     plan = stack_plan(cfg)
     for i, layer in _per_layer(params["stack"], plan.n_periods):
-        x = block_apply(layer, x, cfg, cfg.pattern_for_layer(i), opts=opts,
-                        causal=causal)
+        x = block_apply(layer, x, cfg, cfg.pattern_for_layer(i),
+                        memory=memory, opts=opts, causal=causal)
     return x
+
+
+def encode(params, cfg: ArchConfig, frames: torch.Tensor,
+           opts: ApplyOptions = DEFAULT_OPTS) -> torch.Tensor:
+    """The encoder of an encoder-decoder over ``frames`` (b, enc_len, d),
+    the frontend's precomputed embeddings: non-causal global blocks (their
+    attention on the flash kernel under ``attn_impl="kernel"``), then the
+    encoder's final norm."""
+    enc = params["encoder"]
+    x = frames
+    for _, layer in _per_layer(enc["stack"],
+                               cfg.encdec.num_encoder_layers):
+        x = block_apply(layer, x, cfg, "global", opts=opts, causal=False)
+    return nn.rmsnorm_apply(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _trunk_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+                  opts: ApplyOptions):
+    """``(x, memory)``: the token embeddings, with a vision frontend's patch
+    embeddings ahead of them, and an encoder-decoder's encoder memory
+    (``None`` otherwise)."""
+    memory = None
+    if cfg.encdec is not None:
+        memory = encode(params, cfg, batch["frames"], opts)
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.frontend is not None and cfg.frontend.kind == "vision_patches":
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x, memory
 
 
 def _per_layer(stack, n_periods: int):
@@ -232,11 +315,15 @@ def _per_layer(stack, n_periods: int):
 def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
                    opts: ApplyOptions = DEFAULT_OPTS
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Trunk only: final hidden states (pre-head) and the aux loss (0 on the
-    dense path).  ``batch``: ``{"tokens": (b, s) int64}``."""
-    x = _embed(params, cfg, batch["tokens"])
-    x = _run_stack(params, cfg, x, opts=opts)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """Trunk only: final hidden states over the token positions (pre-head)
+    and the aux loss (0 on the ported paths).  ``batch`` keys by family:
+    text ``tokens`` (b, s); vlm ``patch_embeds`` (b, p, d) and ``tokens``;
+    audio ``frames`` (b, enc_len, d) and ``tokens`` (b, dec_len)."""
+    n_text = batch["tokens"].shape[1]
+    x, memory = _trunk_inputs(params, cfg, batch, opts)
+    x = _run_stack(params, cfg, x, memory=memory, opts=opts)
+    return (x[:, -n_text:],
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
@@ -282,8 +369,11 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu") -> Dict:
-    """An empty cache for ``batch`` sequences of up to ``max_len`` tokens."""
+               dtype=torch.bfloat16, device="cpu",
+               enc_len: Optional[int] = None) -> Dict:
+    """An empty cache for ``batch`` sequences of up to ``max_len`` tokens;
+    an encoder-decoder's cross K/V hold ``enc_len`` memory positions
+    (default ``int(max_len * encoder_len_ratio)``, as the reference)."""
     plan = stack_plan(cfg)
 
     def stacked(i):
@@ -293,8 +383,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         else:
             one = nn.attention_cache_init(cfg, batch, max_len, kind, dtype,
                                           device)
-        return {"mixer": tree_map(lambda t: t[None].repeat(
-            plan.n_periods, *([1] * t.dim())), one)}
+        blk = {"mixer": one}
+        if cfg.encdec is not None:
+            n = (int(max_len * cfg.encdec.encoder_len_ratio)
+                 if enc_len is None else enc_len)
+            shape = (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim())
+            blk["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+            blk["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+        return tree_map(lambda t: t[None].repeat(
+            plan.n_periods, *([1] * t.dim())), blk)
 
     return {"position": torch.zeros((), dtype=torch.int32),
             "prefix": (),
@@ -312,7 +409,12 @@ def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
     else:
         mix, _ = nn.attention_decode_step(params["mixer"], h, cache["mixer"],
                                           position, cfg, layer_kind=kind)
-    return _block_rest(params, x, mix, cfg)
+    cross = None
+    if "cross_k" in cache:
+        def cross(hh):
+            return nn.cross_attention_decode_step(
+                params["cross_attn"], hh, cache["cross_k"], cache["cross_v"])
+    return _block_rest(params, x, mix, cfg, cross=cross)
 
 
 @torch.inference_mode()
@@ -337,19 +439,28 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Dict
 def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             max_len: Optional[int] = None, cache_dtype=torch.bfloat16,
             opts: ApplyOptions = DEFAULT_OPTS) -> Tuple[torch.Tensor, Dict]:
-    """Run the full prompt ``batch["tokens"]`` (b, s) and build a cache
-    ready for decode: per layer, the full-sequence block whose attention
-    goes through ``dispatch_attend(attn_impl=opts.attn_impl)``, recording
-    its K/V (padded to the cache, or the last ``n`` keys in ring order for a
-    sliding-window layer); a mamba layer's ``mamba_prefill`` (its scan on
+    """Run the full prompt and build a cache ready for decode: per layer,
+    the full-sequence block whose attention goes through
+    ``dispatch_attend(attn_impl=opts.attn_impl)``, recording its K/V (padded
+    to the cache, or the last ``n`` keys in ring order where the cache is
+    shorter than the sequence: a sliding-window layer, or any layer when
+    ``max_len`` is shorter); a mamba layer's ``mamba_prefill`` (its scan on
     kernel 9 under ``attn_impl="kernel"``) records its conv window and final
-    SSM state.  Returns the last position's logits (b, 1, v)."""
+    SSM state.  ``batch`` as ``forward_hidden`` takes it: a vision
+    frontend's patches sit ahead of the tokens and count as positions
+    (``max_len`` defaults to the token count, as in the reference); an
+    encoder-decoder encodes ``frames`` first, and each decoder block's
+    cross-attention (reference route) records the memory's K/V without their
+    biases, as the reference's prefill does.  Returns the last position's
+    logits (b, 1, v)."""
     tokens = batch["tokens"]
-    b, seq = tokens.shape
-    max_len = max_len or seq
-    x = _embed(params, cfg, tokens)
+    b = tokens.shape[0]
+    max_len = max_len or tokens.shape[1]
+    x, memory = _trunk_inputs(params, cfg, batch, opts)
+    seq = x.shape[1]
     plan = stack_plan(cfg)
-    cache = init_cache(cfg, b, max_len, cache_dtype, x.device)
+    cache = init_cache(cfg, b, max_len, cache_dtype, x.device,
+                       enc_len=None if memory is None else memory.shape[1])
     positions = torch.arange(seq, device=x.device).expand(b, seq)
     for (i, layer), (_, layer_cache) in zip(
             _per_layer(params["stack"], plan.n_periods),
@@ -369,7 +480,12 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
                                      cache_dtype)
         for key, val in filled.items():
             slots[key].copy_(val)
-        x = _block_rest(layer, x, mix, cfg)
+        if memory is not None:
+            ck, cv = nn.cross_kv(layer["cross_attn"], memory, bias=False)
+            layer_cache["cross_k"].copy_(ck)
+            layer_cache["cross_v"].copy_(cv)
+        x = _block_rest(layer, x, mix, cfg,
+                        cross=_cross(layer, cfg, memory))
     cache["position"] = torch.tensor(seq, dtype=torch.int32)
     return _head(params, cfg, x[:, -1:]), cache
 

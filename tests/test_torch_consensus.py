@@ -196,3 +196,103 @@ def test_chebyshev_on_the_simulated_wire_matches_reference(compression):
     want, _ = ref.mix_compressed(jax.tree.map(jnp.asarray, tree),
                                  key=jax.random.key(3))
     _compare(got, want)
+
+
+# ---------------------------------------------------------------------------
+# bf16 leaves: kernel 1's bf16 instance and the backends
+# ---------------------------------------------------------------------------
+
+
+def _bf16(x: np.ndarray):
+    """``x`` rounded to bf16, as (JAX array, torch tensor) with equal bits."""
+    j = jnp.asarray(x).astype(jnp.bfloat16)
+    t = torch.from_numpy(np.asarray(j).view(np.int16).copy()).view(
+        torch.bfloat16)
+    return j, t
+
+
+def _f32(x) -> np.ndarray:
+    return (x.float().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(jnp.asarray(x).astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("m,d", [(4, 1000), (5, 2048), (1, 7)])
+def test_consensus_mix_bf16_plain_matches_pallas_kernel(m, d):
+    """Kernel 1's bf16 instance loads bf16, sums A·w in f32 and stores
+    bf16, as the Pallas ``_mix_kernel`` does (run here in interpret mode):
+    its plain version equals that kernel bit for bit (an f32 sum of M
+    products rounds once to bf16; the sums differ in order only within an
+    f32 ulp, far below the bf16 rounding, and no tie was hit)."""
+    from repro.kernels import consensus_mix as jk
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(m * d)
+    a = (jtp.metropolis_weights(jtp.ring_graph(m)) if m > 1
+         else np.ones((1, 1))).astype(np.float32)
+    jw, tw = _bf16(rng.standard_normal((m, d)).astype(np.float32) * 3)
+    want = jk.consensus_mix_2d(jnp.asarray(a), jw, block_d=512)
+    got = ops.consensus_mix(torch.from_numpy(a), tw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+
+
+BF16_MODES = ["gossip", "gossip_blocked", "collapsed", "exact_mean",
+              "chebyshev"]
+
+
+@pytest.mark.parametrize("mode", BF16_MODES)
+def test_backends_mix_bf16_leaves_near_the_reference(mode):
+    """A bf16 tree mixes as one bf16 (M, D) slab through kernel 1 (its plain
+    version here) and comes back bf16.  The reference contracts with
+    ``tensordot`` in bf16, A rounded to bf16 first (``_mix_leaf``), and never
+    calls its kernel; the port keeps A in f32 (the kernel's rule).  Each
+    round's output then differs by at most about one bf16 step of the
+    largest value (2^-8 of it: A's rounding is 2^-9 of an entry, the output
+    rounding half a step), and the rounds contract, so a period of T_S
+    rounds stays within T_S steps.  Exact mean: no A, equal."""
+    m, t_s = 4, 5
+    a = jtp.metropolis_weights(jtp.ring_graph(m))
+    tree = jax.tree.map(lambda v: v * 3, _tree(m, seed=21))
+    jt = jax.tree.map(lambda x: _bf16(x)[0], tree)
+    tt = tree_map(lambda x: _bf16(x)[1], tree)
+    kw = {"block": 8} if mode == "gossip_blocked" else {}
+    want = jc.make_backend(mode, a, t_s, **kw).mix(jt)
+    got = tc.make_backend(mode, a, t_s, **kw).mix(tt)
+    top = max(float(np.abs(x).max()) for x in jax.tree.leaves(tree))
+    for g, w in zip(tree_leaves(got), jax.tree.leaves(want)):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(_f32(g), _f32(w), rtol=0,
+                                   atol=t_s * 2.0 ** -8 * top)
+
+
+def test_stale_and_time_varying_gossip_on_bf16_and_mixed_trees():
+    """Uncompressed bounded staleness and the per-round matrix stack on a
+    bf16 slab, within the same bound as the backends; a tree of mixed
+    dtypes (bf16 and f32 leaves) mixes leaf by leaf, each leaf in its own
+    dtype, as the reference's ``_mix_leaf`` does (the f32 leaf to 2e-5)."""
+    m, t_s = 4, 5
+    a = jtp.metropolis_weights(jtp.ring_graph(m)).astype(np.float32)
+    tree = jax.tree.map(lambda v: v * 3, _tree(m, seed=22))
+    top = max(float(np.abs(x).max()) for x in jax.tree.leaves(tree))
+    jt = jax.tree.map(lambda x: _bf16(x)[0], tree)
+    tt = tree_map(lambda x: _bf16(x)[1], tree)
+    stack = np.stack([a] * t_s)
+    for want, got in (
+            (jc.gossip_scan_stale(jnp.asarray(a), jt, t_s, 1),
+             tc.gossip_scan_stale(torch.from_numpy(a), tt, t_s, 1)),
+            (jc.gossip_scan_tv(jnp.asarray(stack), jt),
+             tc.gossip_scan_tv(torch.from_numpy(stack), tt))):
+        for g, w in zip(tree_leaves(got), jax.tree.leaves(want)):
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_allclose(_f32(g), _f32(w), rtol=0,
+                                       atol=t_s * 2.0 ** -8 * top)
+    jmix = {"a": jt["a"], "b": jnp.asarray(tree["b"]["c"])}
+    tmix = {"a": tt["a"], "b": torch.from_numpy(tree["b"]["c"])}
+    for mode in ("gossip", "chebyshev"):
+        want = jc.make_backend(mode, a, t_s).mix(jmix)
+        got = tc.make_backend(mode, a, t_s).mix(tmix)
+        assert got["a"].dtype == torch.bfloat16
+        assert got["b"].dtype == torch.float32
+        np.testing.assert_allclose(_f32(got["a"]), _f32(want["a"]), rtol=0,
+                                   atol=t_s * 2.0 ** -8 * top)
+        np.testing.assert_allclose(got["b"].numpy(), np.asarray(want["b"]),
+                                   **TOL)

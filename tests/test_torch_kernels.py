@@ -165,6 +165,23 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
                                    "bucketed_gossip_round": 0,
                                    "bucketed_gossip_round_pipelined": 0,
                                    "quantized_gossip_round": 0}
+    assert ops.flash_attention_mode_counts() == {}
+
+
+def test_flash_attention_mode_counts_key_and_reset():
+    """Kernel 3 counts its launches by mode where it launches; the key names
+    dtype, group, head_dim, causal, window and softcap, and a reset clears
+    the tally with the counts."""
+    from repro_torch.kernels import flash_attention as fa
+    assert fa.mode_key(torch.bfloat16, 2, 128, True, 4096, 50.0) == \
+        "bfloat16/2/128/True/4096/50.0"
+    assert fa.mode_key(torch.float32, 1, 64, False, None, None) == \
+        "float32/1/64/False/None/None"
+    fa.mode_launches["float32/1/64/False/None/None"] = 3
+    assert ops.flash_attention_mode_counts() == {
+        "float32/1/64/False/None/None": 3}
+    ops.reset_launch_counts()
+    assert ops.flash_attention_mode_counts() == {}
 
 
 def test_rmsnorm_kernels_refuse_cpu_tensors():
@@ -224,9 +241,16 @@ def test_consensus_mix_pytree_matches_per_leaf_rounds(rounds, block):
 
 
 def test_consensus_mix_pytree_refuses_non_f32():
+    """Kernel 1 has an f32 and a bf16 instance: other leaf dtypes raise (a
+    bf16 tree now mixes; ``test_torch_consensus.py`` holds it to the
+    reference)."""
+    for dtype in (torch.float16, torch.float64):
+        tree = {"w": torch.zeros((2, 3), dtype=dtype)}
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            ops.consensus_mix_pytree(torch.eye(2), tree)
     tree = {"w": torch.zeros((2, 3), dtype=torch.bfloat16)}
-    with pytest.raises(TypeError, match="float32"):
-        ops.consensus_mix_pytree(torch.eye(2), tree)
+    assert ops.consensus_mix_pytree(torch.eye(2), tree)["w"].dtype == \
+        torch.bfloat16
 
 
 def _qkv(seed, b, sq, sk, h, kvh, hd):

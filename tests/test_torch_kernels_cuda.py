@@ -27,6 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import topology as tp  # noqa: E402
 from repro_torch.core.consensus import collapse_mixing  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -44,6 +45,34 @@ def _mixing(m: int) -> np.ndarray:
         return np.ones((1, 1), np.float32)
     return collapse_mixing(tp.metropolis_weights(tp.ring_graph(m)),
                            3).astype(np.float32)
+
+
+def _within_one_bf16_rounding(a, w, got) -> bool:
+    """``got`` is A w summed in f32 and rounded once to bf16: within half a
+    bf16 step of |A w| plus M f32 steps of sum |a| |w| (the sums run in
+    another order; near a cancellation that may flip a rounding, so a count
+    of bf16 steps is no measure there)."""
+    exact = a.float() @ w.float()
+    lim = exact.abs() * 2.0 ** -8 + (a.float().abs() @ w.float().abs()) \
+        * (w.shape[0] * 2.0 ** -24)
+    return bool(((got.float() - exact).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 16])
+@pytest.mark.parametrize("d", [4096, 1_000_003])
+def test_consensus_mix_bf16_instance_matches_plain(cuda, m, d):
+    """Kernel 1's bf16 instance: an f32 sum rounded once to bf16, on aligned
+    and misaligned column blocks."""
+    g = torch.Generator(device=cuda).manual_seed(m + d + 1)
+    a = torch.from_numpy(_mixing(m)).to(cuda)
+    w = torch.randn((m, d), device=cuda, generator=g).bfloat16()
+    before = ops.launch_counts()["consensus_mix"]
+    for cols in (slice(0, d), slice(3, d - 5)):
+        out = ops.consensus_mix(a, w[:, cols])
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16
+        assert _within_one_bf16_rounding(a, w[:, cols], out)
+    assert ops.launch_counts()["consensus_mix"] == before + 2
 
 
 @pytest.mark.parametrize("m", [1, 4, 5, 16])
@@ -293,9 +322,13 @@ def test_rmsnorm_kernels_refuse_what_they_do_not_take(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    w = torch.zeros((4, 8), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((4, 8), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
         ops.consensus_mix(torch.eye(4, device=cuda), w)
+    from repro_torch.kernels.consensus_mix import consensus_mix_cuda
+    with pytest.raises(TypeError, match="one dtype"):
+        consensus_mix_cuda(torch.eye(4, device=cuda), w.float(),
+                           torch.empty_like(w, dtype=torch.bfloat16))
     w32 = torch.zeros((4, 8), device=cuda)
     with pytest.raises(ValueError, match="overlap"):
         ops.consensus_mix(torch.eye(4, device=cuda), w32, out=w32)
@@ -325,7 +358,57 @@ FLASH_CASES = [
     ((4, 1024, 1024, 16, 8, 128), {}),                     # serving prefill
     ((1, 256, 256, 8, 1, 128), {}),                        # a group of 8
     ((1, 256, 256, 4, 2, 128), {"window": 64, "softcap": 50.0}),  # Gemma-2
+    ((1, 300, 300, 14, 2, 64), {}),                        # InternVL: group 7
+    ((2, 200, 200, 4, 4, 64), {"causal": False}),          # Seamless encoder
 ]
+
+
+# the zoo's bf16 modes: (b, sq, sk, h, kvh, hd), options
+FLASH_BF16_CASES = [
+    # Gemma-2's local layers at its 6144-token prompt: the window masks keys
+    # for the last third of the queries
+    ((1, 6144, 6144, 4, 2, 128), {"window": 4096, "softcap": 50.0}),
+    # a short window: it masks keys for 7 of 8 queries
+    ((1, 1024, 1024, 4, 2, 128), {"window": 128, "softcap": 50.0}),
+    ((1, 1024, 1024, 4, 2, 128), {"softcap": 50.0}),       # Gemma-2 global
+    ((1, 512, 512, 16, 2, 128), {}),                       # Command-R: group 8
+]
+# both sides round an f32 sum once to bf16: two such roundings lie at most
+# one bf16 step of the value apart, at most 2^-7 of a row's largest |value|;
+# 1e-3 more for the order of the f32 sums
+BF16_ROW_LIMIT = 2.0 ** -7 + 1e-3
+
+
+def _row_rel_err(got, want) -> float:
+    """Largest error of a row (one query of one head) over that row's
+    largest |value|: rows that average thousands of keys have small values,
+    and a fault in the window or the softcap may show only there."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1)).max())
+
+
+@pytest.mark.parametrize("shape,kw", FLASH_BF16_CASES)
+def test_flash_attention_kernel_bf16_zoo_modes(cuda, shape, kw):
+    """bf16 operands at the zoo's modes, held per row against the plain
+    version; with a softcap q is scaled by 8 so that the scores reach the
+    cap's bend.  The kernel run without its window or softcap must fail the
+    same check, so the check can see either fault."""
+    q, k, v = _flash_inputs(cuda, shape, torch.bfloat16)
+    if "softcap" in kw:
+        q = (q.float() * 8.0).bfloat16()
+    before = ops.flash_attention_mode_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    assert out.dtype == torch.bfloat16
+    want = ref.attention_ref(q, k, v, **kw)
+    assert _row_rel_err(out, want) <= BF16_ROW_LIMIT
+    for opt in ("window", "softcap"):
+        if opt in kw:
+            wrong = ops.flash_attention(q, k, v, **{**kw, opt: None})
+            assert _row_rel_err(wrong, want) > 4 * BF16_ROW_LIMIT, opt
+    key = fa.mode_key(torch.bfloat16, shape[3] // shape[4], shape[5], True,
+                      kw.get("window"), kw.get("softcap"))
+    after = ops.flash_attention_mode_counts()
+    assert after[key] == before.get(key, 0) + 1
 
 
 def _flash_inputs(cuda, shape, dtype=torch.float32):
@@ -614,6 +697,16 @@ def test_wire_periods_on_the_card_match_the_cpu(cuda, staleness):
         got = fn(a.to(cuda), on_card, 5, q, prng.key(9), **kw)
         for k in tree:
             assert torch.equal(got[k].cpu(), want[k]), k
+    # bf16 leaves: the iterate rounded to bf16 each round, bitwise too
+    tree16 = {k: v.bfloat16() for k, v in tree.items()}
+    want = cns.gossip_scan_wire_bucketed(a, tree16, 5, q, prng.key(9),
+                                         staleness=staleness, block=1024)
+    got = cns.gossip_scan_wire_bucketed(
+        a.to(cuda), {k: v.to(cuda) for k, v in tree16.items()}, 5, q,
+        prng.key(9), staleness=staleness, block=1024)
+    for k in tree:
+        assert got[k].dtype == torch.bfloat16
+        assert torch.equal(got[k].cpu(), want[k]), k
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import get_arch as j_get_arch  # noqa: E402
 from repro.configs import get_smoke as j_get_smoke  # noqa: E402
 from repro.models import modules as jnn  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
@@ -291,16 +292,29 @@ def test_mamba_forward_matches_reference(mamba_carried, t_impl, j_impl):
 
 
 def test_unported_families_still_raise():
-    """MoE (a Mixtral smoke config), MLA, encoder-decoder and frontend archs
-    are not ported: the registry and the stack plan name what is missing."""
-    with pytest.raises(NotImplementedError, match="MoE, MLA"):
-        get_smoke("mixtral-8x22b")
-    jmix = j_get_smoke("mixtral_8x22b")
-    mix = dataclasses.replace(
-        get_smoke("smollm-360m"), name=jmix.name,
-        moe=tcfg.MoEConfig(**dataclasses.asdict(jmix.moe)))
-    with pytest.raises(NotImplementedError, match="MoE blocks are not ported"):
-        ttf.init_params(torch.Generator(), mix)
+    """MoE (Mixtral, and the Jamba hybrid's MoE layers) and MLA (DeepSeek-V2)
+    are not ported: the registry names each arch's block, and the stack plan
+    refuses an MoE or MLA config by name.  The dense zoo families, the
+    vision frontend and the encoder-decoder resolve."""
+    for arch, block in (("mixtral-8x22b", "MoE"), ("deepseek-v2-236b", "MLA"),
+                        ("jamba-1.5-large-398b", "MoE")):
+        for get in (get_smoke, get_arch):
+            with pytest.raises(NotImplementedError, match=f"its {block}"):
+                get(arch)
+    for arch in ("gemma2_27b", "command_r_35b", "internvl2_1b",
+                 "seamless_m4t_large_v2"):
+        assert get_arch(arch).name == j_get_arch(arch).name
+        assert get_smoke(arch).name == j_get_smoke(arch).name
+    for jname, field, cls, block in (
+            ("mixtral_8x22b", "moe", tcfg.MoEConfig, "MoE"),
+            ("deepseek_v2_236b", "mla", tcfg.MLAConfig, "MLA")):
+        jcfg = j_get_smoke(jname)
+        cfg = dataclasses.replace(
+            get_smoke("smollm-360m"), name=jcfg.name,
+            **{field: cls(**dataclasses.asdict(getattr(jcfg, field)))})
+        with pytest.raises(NotImplementedError,
+                           match=f"{block} blocks are not ported"):
+            ttf.init_params(torch.Generator(), cfg)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

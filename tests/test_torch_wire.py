@@ -547,3 +547,138 @@ def test_cli_trains_on_the_physical_wire_on_cpu(capsys, staleness):
     assert out["history"]["wire_mb"] == [ledger.update() / 1e6]
     assert out["history"]["wire_ratio"] == [ledger.tracker.ratio()]
     assert np.isfinite(out["history"]["loss"]).all()
+
+
+# ---------------------------------------------------------------------------
+# bf16 leaves on the wires: the kernels stay f32, the bf16 values ride in
+# f32 (exactly), rounded to bf16 where the reference stores them
+# ---------------------------------------------------------------------------
+
+
+def _bf16_tree(m, seed, scale=1.0):
+    """A tree rounded to bf16: (JAX tree, port tree) with equal bits."""
+    tree = {k: v * np.float32(scale) for k, v in _tree(m, seed=seed).items()}
+    j = {k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in tree.items()}
+    t = {k: torch.from_numpy(np.asarray(v).view(np.int16).copy()).view(
+        torch.bfloat16) for k, v in j.items()}
+    return j, t
+
+
+def _assert_bits(got, want):
+    for k in want:
+        assert got[k].dtype == getattr(torch, str(want[k].dtype))
+        np.testing.assert_array_equal(
+            got[k].float().numpy(),
+            np.asarray(jnp.asarray(want[k]).astype(jnp.float32)), err_msg=k)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("layout,staleness", [("bucketed", 0),
+                                              ("bucketed", 1),
+                                              ("per_leaf", 0)])
+def test_bf16_wire_periods_match_reference_exactly(bits, layout, staleness):
+    """A bf16 tree on the physical wire: every round's iterate is rounded to
+    bf16 before the next encode (kernel 6 re-encodes after kernel 7 or 5;
+    kernel 8 encodes a rounded copy), the output leaves are bf16, and the
+    period is the reference's bit for bit, so every code and scale it
+    shipped was the reference's."""
+    m, chunk, t_s = 4, 16, 5
+    jt, tt = _bf16_tree(m, seed=30 + bits)
+    a = _metropolis(m)
+    jc = jcp.StochasticQuantizer(bits=bits, chunk=chunk)
+    tc = tcp.StochasticQuantizer(bits=bits, chunk=chunk)
+    if layout == "bucketed":
+        want = jax.jit(lambda t: jcns.gossip_scan_wire_bucketed(
+            jnp.asarray(a), t, t_s, jc, jax.random.key(3), block=1024,
+            staleness=staleness))(jt)
+        got = tcns.gossip_scan_wire_bucketed(
+            T(a), tt, t_s, tc, prng.key(3), block=1024, staleness=staleness)
+    else:
+        want = jax.jit(lambda t: jcns.gossip_scan_wire(
+            jnp.asarray(a), t, t_s, jc, jax.random.key(3), block=256))(jt)
+        got = tcns.gossip_scan_wire(T(a), tt, t_s, tc, prng.key(3),
+                                    block=256)
+    _assert_bits(got, want)
+
+
+def test_mixed_dtype_bucket_rides_in_the_first_leafs_dtype():
+    """A tree of bf16 and f32 leaves is one bucket in the FIRST leaf's
+    dtype: the f32 leaves round to bf16 on the way in and come back f32,
+    as the reference's ``_bucket_flat`` / ``_bucket_split`` do."""
+    m = 4
+    jt, tt = _bf16_tree(m, seed=35)
+    f32 = _tree(m, seed=36)
+    jt["l2"], tt["l2"] = jnp.asarray(f32["l2"]), T(f32["l2"])
+    a = _metropolis(m)
+    jc = jcp.StochasticQuantizer(bits=8, chunk=16)
+    tc = tcp.StochasticQuantizer(bits=8, chunk=16)
+    want = jax.jit(lambda t: jcns.gossip_scan_wire_bucketed(
+        jnp.asarray(a), t, 3, jc, jax.random.key(3), block=1024))(jt)
+    got = tcns.gossip_scan_wire_bucketed(T(a), tt, 3, tc, prng.key(3),
+                                         block=1024)
+    _assert_bits(got, want)
+    assert got["l2"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("staleness", [0, 1])
+def test_bf16_physical_wire_with_error_feedback(staleness):
+    """EF on a bf16 tree: the correction ``x + e`` and the residual
+    ``c - q`` in bf16, q the round-0 decode rounded to bf16; the mixed tree
+    and the residual are the reference's bit for bit."""
+    m = 4
+    a = jtp.metropolis_weights(jtp.ring_graph(m))
+    jt, tt = _bf16_tree(m, seed=37)
+    jr, tr = _bf16_tree(m, seed=38, scale=0.01)
+    kw = dict(compression="int8:16", error_feedback=True, wire="physical",
+              staleness=staleness, block=1024)
+    jbe = jcns.make_backend("gossip", a, 3, **kw)
+    tbe = tcns.make_backend("gossip", a, 3, **kw)
+    jmix, jres = jax.jit(lambda t, r: jbe.mix_compressed(
+        t, residual=r, key=jax.random.key(4)))(jt, jr)
+    tmix, tnew = tbe.mix_compressed(tt, residual=tr, key=prng.key(4))
+    assert tnew is tr
+    _assert_bits(tmix, jmix)
+    _assert_bits(tnew, jres)
+
+
+@pytest.mark.parametrize("spec", ["int8:16", "int4:16", "random_k:0.5"])
+def test_bf16_simulated_wire_messages_and_residual(spec):
+    """The simulated wire on a bf16 tree: the message is rounded to bf16
+    before the inner period mixes it (so kernel 4 decodes on A = I and
+    kernel 1's bf16 instance mixes; nothing is fused), bitwise the
+    reference's message; with EF the jitted reference encodes ``x + e``
+    before rounding it to bf16 (XLA keeps the fused add in f32) and the
+    residual subtracts the rounded message from the rounded sum, and the
+    port does the same, bitwise.  The mixed tree is within the bf16 gossip
+    bound of ``test_torch_consensus.py`` (T_S steps of 2^-8 of the largest
+    value), since the reference contracts with A rounded to bf16.  (Top-k
+    is left out: bf16 magnitudes tie often, and ``jax.lax.top_k`` and
+    ``torch.topk`` break ties differently; ROADMAP Queue 3.)"""
+    from repro.comm import error_feedback as jef
+    from repro_torch.comm import error_feedback as tef
+    m, t_s = 4, 3
+    a = jtp.metropolis_weights(jtp.ring_graph(m))
+    jt, tt = _bf16_tree(m, seed=39)
+    jr, tr = _bf16_tree(m, seed=40, scale=0.01)
+    jc = jcp.make_compressor(spec)
+    tc = tcp.make_compressor(spec)
+    jmsg = jax.jit(lambda t: jcp.roundtrip_tree(jc, t, jax.random.key(6)))(jt)
+    _assert_bits(tcp.roundtrip_tree(tc, tt, prng.key(6)), jmsg)
+    jmsg, jres = jax.jit(lambda t, r: jef.ef_roundtrip(
+        jc, t, r, jax.random.key(6)))(jt, jr)
+    tmsg, tres = tef.ef_roundtrip(tc, tt, tr, prng.key(6))
+    _assert_bits(tmsg, jmsg)
+    _assert_bits(tres, jres)
+    jbe = jcns.make_backend("gossip", a, t_s, compression=spec)
+    tbe = tcns.make_backend("gossip", a, t_s, compression=spec)
+    want = jax.jit(lambda t: jbe.mix_compressed(t, key=jax.random.key(7)))(
+        jt)[0]
+    got = tbe.mix_compressed(tt, key=prng.key(7))[0]
+    top = max(float(np.abs(np.asarray(v, np.float32)).max())
+              for v in jt.values())
+    for k in jt:
+        assert got[k].dtype == torch.bfloat16
+        np.testing.assert_allclose(
+            got[k].float().numpy(),
+            np.asarray(want[k].astype(jnp.float32)), rtol=0,
+            atol=t_s * 2.0 ** -8 * top)
