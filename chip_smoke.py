@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA Hopper GPU (an H100, 80 GB: Command-R-35B's bf16 weights
-alone take 60.6 GB) and the CUDA toolkit's nvcc.  It
+alone take 60.6 GB, the cut Mixtral-8x22B's 50.9 GB) and the CUDA
+toolkit's nvcc.  It
 builds the port's kernels (six CUDA C++ sources) from this checkout, holds
 each one against its plain PyTorch version on the card (kernel 2, RMSNorm
 forward and backward, at every row shape the paths below run, in f32 and
@@ -74,7 +75,23 @@ before it and read just after:
   against the reference route (f32: 1e-4 of the largest logit; bf16:
   twice the reference route's distance from itself with its key sums
   grouped otherwise, plus four bf16 steps) and three decode steps against
-  a full forward.
+  a full forward;
+* the MoE and MLA families, bf16 at full width and a cut depth: kernel 3
+  at Mixtral's mode (group 6, window 4096, 6144 tokens) and kernel 9 on
+  bf16 x/B/C at Jamba's shape (256 heads) against their plain versions
+  beside controls that must fail; then Mixtral-8x22B (10 of 56 layers, 2 x
+  6144, 32 generated), DeepSeek-V2 (its dense first layer + 5 MoE layers, 4
+  x 1024, 64) and Jamba-1.5-Large (a 4-layer period: mamba, mamba + MoE,
+  attention, mamba + MoE; 4 x 1024, 64) through ``init_params(dtype=bf16)``,
+  ``prefill`` with drop-free MoE (as ``serve()`` sets it), ``decode_step``
+  and ``sample_token``: launches (kernel 3 never for DeepSeek's MLA, kernel
+  9 three times for Jamba), peaks, the tokens whose top-k expert set
+  differs between the kernel route and the reference route (counted; the
+  logits held on the rows without one, and on every row with the kernel
+  route's routing pinned on the reference route), decode against a
+  drop-free full forward with the same routing pinned, beside decode
+  controls that the same limit must fail (a zeroed cache state; a step
+  one position early, where every layer attends), a finite loss.
 
 Kernels 3 and 9 at their prefill shapes also report each device kernel's
 time from the profiler, the blocks of each launch, and the registers and
@@ -181,8 +198,22 @@ RMSNORM_SHAPES = [
     (4096, 2048, "bfloat16", "qwen3 prefill ln1/ln2/final", "-"),
     (65536, 128, "bfloat16", "qwen3 prefill q_norm", "-"),
     (32768, 128, "bfloat16", "qwen3 prefill k_norm", "-"),
-    (4096, 1536, "bfloat16", "mamba2 prefill ln1/final", "-"),
+    (4096, 1536, "bfloat16", "mamba2 prefill ln1/final; deepseek q_norm",
+     "6 a deepseek prefill"),
     (4096, 3072, "bfloat16", "mamba2 prefill gated norm", "-"),
+    (12288, 6144, "bfloat16", "mixtral prefill ln1/ln2", "20 a prefill"),
+    (4096, 5120, "bfloat16", "deepseek prefill ln1/ln2", "12 a prefill"),
+    (4096, 512, "bfloat16", "deepseek prefill kv_norm", "6 a prefill"),
+    (4096, 8192, "bfloat16", "jamba prefill ln1/ln2", "8 a prefill"),
+    (4096, 16384, "bfloat16", "jamba prefill gated norm", "3 a prefill"),
+    (2, 6144, "bfloat16", "mixtral decode ln1/ln2/final", "21 a step"),
+    (4, 5120, "bfloat16", "deepseek decode ln1/ln2/final",
+     "13 a step + the prefill's final norm"),
+    (4, 1536, "bfloat16", "deepseek decode q_norm", "6 a step"),
+    (4, 512, "bfloat16", "deepseek decode kv_norm", "6 a step"),
+    (4, 8192, "bfloat16", "jamba decode ln1/ln2/final",
+     "9 a step + the prefill's final norm"),
+    (4, 16384, "bfloat16", "jamba decode gated norm", "3 a step"),
 ]
 RMSNORM_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 
@@ -1160,7 +1191,36 @@ FLASH_ZOO = [
      {"causal": False}, "float32", None),
     ("seamless_decoder", "seamless-m4t-large-v2", 4, 1024, 16, 16, 64, {},
      "float32", None),
+    # Mixtral-8x22B: group 6 (two heads a block), window 4096, bf16, a
+    # prompt past the window
+    ("mixtral", "mixtral-8x22b", 2, 6144, 48, 8, 128, {"window": 4096},
+     "bfloat16", 6),
 ]
+
+# The MoE and MLA families, bf16 (their published dtype), full width at a
+# cut depth (one H100 holds 80 GB), driven through init_params(dtype=bf16),
+# prefill (drop-free MoE, as serve() sets it), decode_step and sample_token:
+#   mixtral-8x22b: 10 of 56 layers (all MoE, all local), 2 x 6144 (past the
+#     4096 window), 32 generated;
+#   deepseek-v2-236b: the dense prefix layer + 5 MoE layers (6 of 60);
+#   jamba-1.5-large-398b: 4 layers whose period keeps the published
+#     pairings -- MoE only on mamba layers (every_2: layers 1 and 3), a
+#     dense FFN on the attention layer and on a mamba layer, mamba ahead of
+#     attention; the published 8-layer period (MoE on its four mamba
+#     layers) weighs ~90.4 GB in bf16, more than the card.
+MOE_ZOO = {
+    "mixtral-8x22b": dict(num_layers=10, batch=2, prompt_len=6144, gen=32),
+    "deepseek-v2-236b": dict(num_layers=6, batch=4, prompt_len=1024, gen=64),
+    "jamba-1.5-large-398b": dict(
+        num_layers=4, layer_pattern=("mamba", "mamba", "global", "mamba"),
+        batch=4, prompt_len=1024, gen=64),
+}
+# kernel 3's modes on these prefills, by the FLASH_ZOO row they time (Jamba's
+# is Command-R's mode, whose row keeps Command-R's launches)
+MOE_MODES = {"mixtral-8x22b": {"bfloat16/6/128/True/4096/None": "mixtral"},
+             "deepseek-v2-236b": {},
+             "jamba-1.5-large-398b": {"bfloat16/8/128/True/None/None":
+                                      "command_r"}}
 
 
 def attn_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1450,6 +1510,43 @@ def bf16_training(torch, ttrain, ops) -> int:
     return launches["consensus_mix"]
 
 
+def served_loop(torch, params, cfg, inputs, opts, pf_kw: dict,
+                gen: int) -> dict:
+    """The loop ``serve()`` runs, on given params: a short prefill and
+    decode step first (so that the timed run holds none of the first calls'
+    set-up), then, with the launch counters and the peak memory reset just
+    before it, ``prefill`` and ``gen - 1`` decode steps with
+    ``sample_token``.  Returns the seconds, the launches (kernel 3's by
+    mode), the generated tokens and the cache."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as ttf
+    logits, cache = ttf.prefill(params, cfg,
+                                {"tokens": inputs["tokens"][:, :16]},
+                                opts=opts, max_len=18,
+                                cache_dtype=torch.float32)
+    ttf.decode_step(params, cfg, tserve.sample_token(logits, None), cache)
+    del logits, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = ttf.prefill(params, cfg, inputs, opts=opts, **pf_kw)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks = [tserve.sample_token(logits, None)]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, cache = ttf.decode_step(params, cfg, toks[-1], cache)
+        toks.append(tserve.sample_token(logits, None))
+    torch.cuda.synchronize()
+    return {"prefill_s": prefill_s, "decode_s": time.perf_counter() - t0,
+            "launches": ops.launch_counts(),
+            "modes": ops.flash_attention_mode_counts(),
+            "generated": torch.cat(toks, dim=1), "cache": cache}
+
+
 def zoo_serving(torch, g, kernel_rows: dict) -> None:
     """The four serving paths, each with the launch counters reset just
     before it and the previous model freed; fills the launches of kernel
@@ -1541,35 +1638,13 @@ def zoo_serving(torch, g, kernel_rows: dict) -> None:
             del served
         pf_kw = dict(max_len=max_len, cache_dtype=torch.float32)
         if shape["dtype"] != "float32":
-            warm = {"tokens": prompt[:, :16]}
-            logits, cache = ttf.prefill(params, cfg, warm, opts=kernel_opts,
-                                        max_len=18,
-                                        cache_dtype=torch.float32)
-            ttf.decode_step(params, cfg, tserve.sample_token(logits, None),
-                            cache)
-            del logits, cache
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ops.reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = ttf.prefill(params, cfg, inputs,
-                                        opts=kernel_opts, **pf_kw)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
-            toks = [tserve.sample_token(logits, None)]
-            t0 = time.perf_counter()
-            for _ in range(gen - 1):
-                logits, cache = ttf.decode_step(params, cfg, toks[-1],
-                                                cache)
-                toks.append(tserve.sample_token(logits, None))
-            torch.cuda.synchronize()
-            decode_s = time.perf_counter() - t0
-            launches = ops.launch_counts()
-            modes = ops.flash_attention_mode_counts()
+            run = served_loop(torch, params, cfg, inputs, kernel_opts, pf_kw,
+                              gen)
             peak_serve = torch.cuda.max_memory_allocated() - base
-            generated = torch.cat(toks, dim=1)
-            del logits, cache, toks
+            prefill_s, decode_s, launches, modes, generated = (
+                run[k] for k in ("prefill_s", "decode_s", "launches",
+                                 "modes", "generated"))
+            del run
         torch.cuda.empty_cache()
         n_modes = {mode_of[arch].get(k, k): v for k, v in modes.items()}
         emit("serve_zoo", arch=arch, dtype=shape["dtype"], params=n_params,
@@ -1657,6 +1732,369 @@ def zoo_serving(torch, g, kernel_rows: dict) -> None:
              forward_positions=toks.shape[1] + (
                  n_fe if fe_name == "patch_embeds" else 0))
         del params, cache, logits, want, inputs, prompt
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def moe_routing(nn, record=None, pinned=None):
+    """``nn.moe_route`` wrapped: each call's expert indices (g, tg, k)
+    appended to ``record``; with ``pinned`` (index tensors, one a call in
+    call order) the router's probabilities taken at those indices instead
+    of its own top k, renormalised as ``moe_route`` does.  Pinning another
+    run's routing leaves only the rounding of the rest of the model to
+    compare."""
+    orig = nn.moe_route
+    calls = None if pinned is None else iter(pinned)
+
+    def route(params, tokens, cfg):
+        probs, gate_vals, gate_idx = orig(params, tokens, cfg)
+        if calls is not None:
+            gate_idx = next(calls)
+            gate_vals = probs.gather(-1, gate_idx)
+            gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+        if record is not None:
+            record.append(gate_idx.clone())
+        return probs, gate_vals, gate_idx
+
+    nn.moe_route = route
+    try:
+        yield
+    finally:
+        nn.moe_route = orig
+
+
+@contextlib.contextmanager
+def device_spans(torch, targets):
+    """Within the block, each call of ``getattr(module, attr)`` for
+    ``(module, attr, label)`` in ``targets`` is bracketed by CUDA events on
+    the current stream (no synchronisation); yields a dict whose ``label``
+    entries are, after the block, the summed device ms between each call's
+    two events and the call count."""
+    events = {label: [] for _, _, label in targets}
+    saved = [(module, attr, getattr(module, attr))
+             for module, attr, _ in targets]
+
+    def spanned(fn, label):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                return fn(*args, **kw)
+            finally:
+                end.record()
+                events[label].append((start, end))
+        return call
+    for (module, attr, fn), (_, _, label) in zip(saved, targets):
+        setattr(module, attr, spanned(fn, label))
+    out = {}
+    try:
+        yield out
+    finally:
+        for module, attr, fn in saved:
+            setattr(module, attr, fn)
+        torch.cuda.synchronize()
+        for label, pairs in events.items():
+            out[label] = {"ms": sum(a.elapsed_time(b) for a, b in pairs),
+                          "calls": len(pairs)}
+
+
+def routing_flips(a: list, b: list, batch: int) -> dict:
+    """(token, layer) pairs whose top-k expert SET differs between two runs'
+    recorded routings, and the batch rows that hold any."""
+    flips = [(x.sort(-1).values != y.sort(-1).values).any(-1)
+             .reshape(batch, -1) for x, y in zip(a, b)]
+    per_row = sum(f.sum(-1) for f in flips)
+    return {"pairs": int(per_row.sum()), "per_row": per_row.tolist(),
+            "rows": [i for i, n in enumerate(per_row.tolist()) if n]}
+
+
+def ssd_bf16_check(torch, g) -> dict:
+    """Kernel 9 on bf16 x, B and C at Jamba-1.5-Large's prefill shape (b 4,
+    s 1024, 256 heads of 64, d_state 128, chunk 256, A = -(1..256) as the
+    model's init) against its plain version at the reference's SSD
+    tolerance, beside a control that must fail (B and C swapped); timed
+    against its plain version and its bound.  Returns row 9b of the
+    ``kernels`` line (launches filled in from Jamba's serving path)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    cfg = get_arch("jamba-1.5-large-398b")
+    m = cfg.mamba
+    nh, hd, ds, chunk = m.num_heads(cfg.d_model), m.head_dim, m.d_state, \
+        m.chunk_size
+    b, s = MOE_ZOO["jamba-1.5-large-398b"]["batch"], \
+        MOE_ZOO["jamba-1.5-large-398b"]["prompt_len"]
+    a = -torch.arange(1, nh + 1, dtype=torch.float32,
+                      device=torch.device("cuda"))
+    xs, bs, cs, dt, a = ssd_inputs(torch, g, b, s, nh, hd, ds, a=a,
+                                   dtype="bfloat16")
+    got = ops.ssd_scan(xs, bs, cs, dt, a, chunk=chunk)
+    want = ref.ssd_scan_chunked_ref(xs, bs, cs, dt, a, chunk=chunk)
+    errs = [rel_err(torch, x, y) for x, y in zip(got, want)]
+    # elementwise at the reference's rtol = atol, as the other SSD checks
+    within = all(bool(((x - y).abs() <= SSD_LIMIT * (1 + y.abs())).all())
+                 for x, y in zip(got, want))
+    swapped = ops.ssd_scan(xs, cs, bs, dt, a, chunk=chunk)
+    control = max(rel_err(torch, x, y)[1] for x, y in zip(swapped, want))
+    del got, want, swapped
+    times = alternate(torch, {
+        "kernel": lambda: ops.ssd_scan(xs, bs, cs, dt, a, chunk=chunk),
+        "plain": lambda: ref.ssd_scan_chunked_ref(xs, bs, cs, dt, a,
+                                                  chunk=chunk)}, reps=5)
+    flops, f32_bytes, _ = ssd_work(b, s, nh, hd, ds, chunk)
+    # bf16 x, B and C: half of their f32 bytes
+    n_bytes = f32_bytes - 2 * (b * s * nh * hd + 2 * b * s * ds)
+    bound, by = bound_ms(n_bytes, flops)
+    err = max(e[0] for e in errs)
+    emit("ssd_bf16_main_shape", arch="jamba-1.5-large-398b",
+         shape=[b, s, nh, hd, ds, chunk], dtype="bfloat16",
+         a="-(1..nh)", max_abs_err=err,
+         max_rel_err=max(e[1] for e in errs), limit=SSD_LIMIT,
+         control_b_c_swapped_rel_err=control, kernel_ms=times["kernel"],
+         plain_ms=times["plain"], flops=flops, bytes=n_bytes,
+         bound_ms=bound, bound_by=by, bound_share=bound / times["kernel"],
+         within_limit=within)
+    assert within, errs
+    assert control > 4 * SSD_LIMIT, control
+    del xs, bs, cs, dt
+    torch.cuda.empty_cache()
+    return {"name": "ssd_scan_bf16_jamba", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": SSD_KERNEL[1], "max_abs_err": err,
+            "ms": times["kernel"], "plain_ms": times["plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def moe_serving(torch, g, kernel_rows: dict, ssd_row: dict) -> None:
+    """The MoE and MLA serving paths (``MOE_ZOO``), each with the launch
+    counters reset just before it and the previous model freed; fills the
+    launches of kernel 3's Mixtral row and of kernel 9's bf16 row."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as ttf
+    from repro_torch.tree import tree_leaves
+    dev = torch.device("cuda")
+    # serve()'s options: the kernel route, drop-free MoE
+    kernel_opts = ttf.ApplyOptions(attn_impl="kernel", moe_no_drop=True)
+    ref_opts = ttf.ApplyOptions(moe_no_drop=True)
+    for arch, shape in MOE_ZOO.items():
+        cut = {k: v for k, v in shape.items()
+               if k in ("num_layers", "layer_pattern")}
+        cfg = dataclasses.replace(get_arch(arch), **cut)
+        b, s_len, gen = shape["batch"], shape["prompt_len"], shape["gen"]
+        plan = ttf.stack_plan(cfg)
+        kinds = [ttf._layer_flags(cfg, i) for i in range(cfg.num_layers)]
+        n_moe = sum(is_moe for _, is_moe in kinds)
+        n_mamba = sum(kind == "mamba" for kind, _ in kinds)
+        n_attn = 0 if cfg.mla else cfg.num_layers - n_mamba
+        norms_pass = sum(2 + (2 if cfg.mla and kind != "mamba" else 0)
+                         + (kind == "mamba") for kind, _ in kinds) + 1
+        expected = {k: 0 for k in ops.launch_counts()}
+        expected.update(flash_attention=n_attn, ssd_scan=n_mamba,
+                        rmsnorm_fwd=norms_pass * gen)
+        max_len = s_len + gen
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        rng = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = ttf.init_params(rng, cfg, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        peak_init = torch.cuda.max_memory_allocated() - base
+        weights_gb = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(params)) / 1e9
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        prompt = torch.randint(0, cfg.vocab_size, (b, s_len), generator=rng,
+                               device=dev)
+        inputs = {"tokens": prompt}
+        pf_kw = dict(max_len=max_len, cache_dtype=torch.float32)
+        run = served_loop(torch, params, cfg, inputs, kernel_opts, pf_kw,
+                          gen)
+        peak_serve = torch.cuda.max_memory_allocated() - base
+        prefill_s, decode_s, launches, modes, generated = (
+            run[k] for k in ("prefill_s", "decode_s", "launches", "modes",
+                             "generated"))
+        cache_gb = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(run["cache"])) / 1e9
+        del run
+        torch.cuda.empty_cache()
+        # where a prefill's device time goes: one more prefill with each
+        # MoE FFN, kernel-3 call and kernel-9 call bracketed by events
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with device_spans(torch, [(nn, "moe_apply", "moe_ffn"),
+                                  (ops, "flash_attention", "kernel3"),
+                                  (ops, "ssd_scan", "kernel9")]) as spans:
+            ttf.prefill(params, cfg, inputs, opts=kernel_opts, **pf_kw)
+        spans["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        n_modes = {MOE_MODES[arch].get(k, k): v for k, v in modes.items()}
+        emit("serve_moe", arch=arch, dtype="bfloat16", params=n_params,
+             layers=cfg.num_layers,
+             published_layers=get_arch(arch).num_layers,
+             layer_pattern=list(cfg.layer_pattern),
+             moe_layers=[i for i, (_, m) in enumerate(kinds) if m],
+             stack_plan=dataclasses.asdict(plan), weights_gb=weights_gb,
+             batch=b, prompt_len=s_len, gen=gen, max_len=max_len,
+             init_s=init_s, prefill_s=prefill_s, decode_s=decode_s,
+             tok_per_s=b * (gen - 1) / decode_s,
+             ms_a_decode_step=decode_s / (gen - 1) * 1e3,
+             prefill_tok_per_s=b * s_len / prefill_s,
+             peak_init_gb=peak_init / 1e9, peak_serve_gb=peak_serve / 1e9,
+             cache_gb=cache_gb, launches=launches,
+             expected_launches=expected, attention_modes=n_modes,
+             prefill_spans=spans,
+             prefill_shares={k: v["ms"] / spans["prefill_ms"]
+                             for k, v in spans.items() if k != "prefill_ms"},
+             first_row=generated[0, :16].tolist())
+        assert launches == expected, (arch, launches, expected)
+        assert set(n_modes) == set(MOE_MODES[arch].values()), n_modes
+        assert sum(n_modes.values()) == launches["flash_attention"]
+        if arch == "mixtral-8x22b":
+            kernel_rows["flash_attention_mixtral"]["launches"] = \
+                n_modes["mixtral"]
+        if n_mamba:
+            ssd_row["launches"] = launches["ssd_scan"]
+        assert tuple(generated.shape) == (b, gen)
+        assert 0 <= int(generated.min()) and \
+            int(generated.max()) < cfg.vocab_size
+        assert peak_serve < 75e9, (arch, peak_serve)
+
+        # ---- checked: the kernel route's prefill against the reference
+        # route (the tokens whose expert set differs counted; the logits
+        # held on the rows without such a token, and on every row with the
+        # kernel route's routing pinned on the reference route), decode
+        # against a drop-free full forward with the serving run's routing
+        # pinned, and the loss finite ----
+        vocab = cfg.vocab_size
+        k_route, r_route = [], []
+        with moe_routing(nn, record=k_route):
+            logits, cache = ttf.prefill(params, cfg, inputs,
+                                        opts=kernel_opts, **pf_kw)
+        with moe_routing(nn, record=r_route):
+            ref_logits, _ = ttf.prefill(params, cfg, inputs, opts=ref_opts,
+                                        **pf_kw)
+        torch.cuda.empty_cache()
+        with moe_routing(nn, pinned=k_route):
+            pin_logits, _ = ttf.prefill(params, cfg, inputs, opts=ref_opts,
+                                        **pf_kw)
+        torch.cuda.empty_cache()
+        # the reference route regrouped: attention's key sums in chunks of
+        # 256 and a mamba layer's SSD over chunks of half the length, so
+        # that its distance shows what rounding alone does in both mixers
+        alt_cfg = cfg if not n_mamba else dataclasses.replace(
+            cfg, mamba=dataclasses.replace(
+                cfg.mamba, chunk_size=cfg.mamba.chunk_size // 2))
+        with reference_route_regrouped(nn), moe_routing(nn, pinned=k_route):
+            alt_logits, _ = ttf.prefill(params, alt_cfg, inputs,
+                                        opts=ref_opts, **pf_kw)
+        torch.cuda.empty_cache()
+        assert len(k_route) == len(r_route) == n_moe
+        flips = routing_flips(k_route, r_route, b)
+        got = logits[:, -1, :vocab].float()
+        pin = pin_logits[:, -1, :vocab].float()
+        top = float(pin.abs().max())
+        alt_err = float((alt_logits[:, -1, :vocab].float() - pin).abs()
+                        .max())
+        pf_limit = 2 * alt_err + 4 * bf16_step(top)
+        pf_err = float((got - pin).abs().max())
+        same_rows = [i for i in range(b) if i not in flips["rows"]]
+        unpinned = ref_logits[:, -1, :vocab].float()
+        row_errs = (got - unpinned).abs().amax(-1).tolist()
+        finite = bool(torch.isfinite(got).all())
+        del ref_logits, pin_logits, alt_logits, pin, unpinned
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        assert torch.equal(nxt, generated[:, :1]), \
+            "prefill differs from the serving run"
+        prompt_route = [r.reshape(b, s_len, -1) for r in k_route]
+
+        def routed_step(tok):
+            """A decode step of ``tok`` -> (its logits, its routing)."""
+            route = []
+            with moe_routing(nn, record=route):
+                step_logits, _ = ttf.decode_step(params, cfg, tok, cache)
+            return step_logits, [r.reshape(b, 1, -1) for r in route]
+
+        def against_forward(step_logits, toks, step_routes):
+            """A step's logits against the drop-free full forward over
+            ``toks``, the routing of the prompt and of each step
+            (``step_routes``) pinned on it -> the max abs difference."""
+            pinned = [torch.cat([p] + [d[j] for d in step_routes], dim=1)
+                      .reshape(1, -1, p.shape[-1])
+                      for j, p in enumerate(prompt_route)]
+            with torch.inference_mode(), moe_routing(nn, pinned=pinned):
+                hidden, _ = ttf.forward_hidden(params, cfg, {"tokens": toks},
+                                               opts=ref_opts)
+                want = ttf._head(params, cfg, hidden[:, -1:])[:, 0]
+            return float((step_logits[:, 0, :vocab].float()
+                          - want[:, :vocab].float()).abs().max())
+
+        toks, dec_errs, dec_route = prompt, [], []
+        for _ in range(3):
+            toks = torch.cat([toks, nxt], dim=1)
+            logits, route = routed_step(nxt)
+            dec_route.append(route)
+            dec_errs.append(against_forward(logits, toks, dec_route))
+            nxt = logits[:, -1].argmax(-1)[:, None]
+        # controls that the decode limit must fail, each the next step held
+        # against the same forward: written one position early (the cache's
+        # position back by one), then again on a cache whose mixer state
+        # (K/V, latents, conv window and SSM state; not the slot positions)
+        # is zeroed
+        toks = torch.cat([toks, nxt], dim=1)
+        controls = {}
+        cache["position"] = cache["position"] - 1
+        logits, route = routed_step(nxt)
+        controls["position_off_by_one"] = against_forward(
+            logits, toks, dec_route + [route])
+        with torch.inference_mode():    # the cache's tensors are such
+            for blk in cache["prefix"] + cache["stack"]:
+                for key, t in blk["mixer"].items():
+                    if key != "pos":
+                        t.zero_()
+        logits, route = routed_step(nxt)
+        controls["mixer_state_zeroed"] = against_forward(
+            logits, toks, dec_route + [route])
+        with torch.inference_mode():
+            loss, parts = ttf.make_loss_fn(cfg, ref_opts)(params, inputs,
+                                                          None)
+        emit("serve_moe_check", arch=arch, dtype="bfloat16",
+             moe_calls_a_pass=n_moe, routed_tokens_a_call=b * s_len,
+             routing_flips=flips["pairs"], routing_flip_rows=flips["rows"],
+             routing_flips_per_row=flips["per_row"],
+             prefill_vs_pinned_max_abs_err=pf_err,
+             reference_regrouped_pinned_max_abs_err=alt_err,
+             max_abs_logit=top, prefill_limit=pf_limit,
+             prefill_limit_rule="2 x reference_regrouped + 4 bf16 steps of "
+                                "the largest logit",
+             regrouped_ssd_chunk=alt_cfg.mamba.chunk_size if n_mamba
+             else None,
+             unpinned_row_max_abs_err=row_errs,
+             unpinned_rows_checked=same_rows,
+             decode_vs_pinned_forward_max_abs_err=dec_errs,
+             decode_limit=pf_limit,
+             decode_controls_max_abs_err=controls,
+             loss=float(loss), nll=float(parts["nll"]),
+             aux=float(parts["aux"]))
+        # held after the line is out, so that a failing run shows its numbers
+        assert finite and bool(torch.isfinite(loss)) \
+            and float(parts["aux"]) > 0, (arch, float(loss))
+        assert pf_err <= pf_limit, (arch, pf_err, pf_limit, alt_err)
+        assert all(row_errs[i] <= pf_limit for i in same_rows), \
+            (arch, row_errs, same_rows, pf_limit)
+        assert max(dec_errs) <= pf_limit, (arch, dec_errs, pf_limit)
+        # the zeroed state must fail everywhere; the position one back must
+        # fail where every layer attends, and is only read in Jamba, where
+        # one layer in four attends and the step's other rounding leaves
+        # the limit wider than that fault (PERF.md, Findings)
+        must_fail = {k: v for k, v in controls.items()
+                     if k == "mixer_state_zeroed" or not n_mamba}
+        assert all(e > pf_limit for e in must_fail.values()), \
+            (arch, controls, pf_limit)
+        del params, cache, logits, inputs, prompt, k_route, r_route
+        del prompt_route, dec_route, routed_step, against_forward
         torch.cuda.empty_cache()
 
 
@@ -2733,6 +3171,13 @@ def main() -> int:
     zoo_rows["consensus_mix_bf16"]["launches"] = bf16_training(
         torch, ttrain, ops)
     zoo_serving(torch, g, zoo_rows)
+
+    # ---- 22c. the MoE and MLA families: kernel 9 on bf16 at Jamba's
+    # shape, then Mixtral-8x22B, DeepSeek-V2 and Jamba-1.5-Large serving at
+    # full width and a cut depth ----
+    ssd_bf16_row = ssd_bf16_check(torch, g)
+    moe_serving(torch, g, zoo_rows, ssd_bf16_row)
+    zoo_rows["ssd_scan_bf16_jamba"] = ssd_bf16_row
     assert all("launches" in r and r["launches"] > 0
                for r in zoo_rows.values()), zoo_rows
 

@@ -2,11 +2,14 @@
 
 Batched prefill, then a synchronous greedy (or temperature) decode loop over
 the cache (KV slots for attention layers, the conv window and SSM state for
-Mamba-2 layers).  The prefill runs on the kernel route
-(``attn_impl="kernel"``): its attention on the flash-attention kernel and a
-Mamba-2 layer's scan on the SSD-scan kernel on the card (``--device cpu``
-runs their plain versions on the CPU), every norm on the RMSNorm kernel.
-float32 matmuls run in full float32: TF32 is switched off.
+Mamba-2 layers, the latent for MLA layers).  The prefill runs on the kernel
+route (``attn_impl="kernel"``): its attention on the flash-attention kernel
+and a Mamba-2 layer's scan on the SSD-scan kernel on the card (``--device
+cpu`` runs their plain versions on the CPU), every norm on the RMSNorm
+kernel; MLA attention takes the reference route, as in the reference.  MoE
+runs drop-free (``moe_no_drop``: every expert takes every token), as the
+reference's ``serve`` sets it.  float32 matmuls run in full float32: TF32 is
+switched off.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --full --batch 4 --prompt-len 1024 --gen 64
@@ -15,7 +18,9 @@ float32 matmuls run in full float32: TF32 is switched off.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
         --device cpu          # also command-r-35b, internvl2-1b,
-                              # seamless-m4t-large-v2 (smoke configs)
+                              # seamless-m4t-large-v2, mixtral-8x22b,
+                              # deepseek-v2-236b, jamba-1.5-large-398b
+                              # (smoke configs)
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs import get_arch, get_smoke
+from repro_torch.configs import ARCH_IDS, get_arch, get_smoke
 from repro_torch.launch.train import resolve_device, set_full_f32
 from repro_torch.models import transformer as tf
 
@@ -67,7 +72,7 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
     max_len = max_len or (prompt_len + gen)
     rng = torch.Generator(device=dev).manual_seed(seed)
     params = tf.init_params(rng, cfg, device=dev)
-    opts = tf.ApplyOptions(attn_impl="kernel")
+    opts = tf.ApplyOptions(attn_impl="kernel", moe_no_drop=True)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=rng, device=dev)
     inputs = {"tokens": prompt}
@@ -100,7 +105,9 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="qwen3-1.7b")
+    p.add_argument("--arch", default="qwen3-1.7b",
+                   help="an arch id, dashes or underscores: "
+                        + ", ".join(ARCH_IDS))
     p.add_argument("--smoke", action="store_true", default=True)
     p.add_argument("--full", dest="smoke", action="store_false")
     p.add_argument("--batch", type=int, default=4)

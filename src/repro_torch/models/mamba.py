@@ -158,9 +158,12 @@ def ssd_chunked(xs, bs, cs, dt, a_coef, chunk: int):
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores, xc)
 
     # ---- chunk states ----
+    # (two-operand contractions throughout: a many-operand einsum may
+    # contract through a (b, nc, q, nh, ds, hd) intermediate, 34 GB at
+    # Jamba's 256 heads)
     decay_to_end = torch.exp(total[..., None] - cum)  # (b,nc,nh,q)
-    sts = torch.einsum("bcqhn,bchq,bcqh,bcqhp->bchnp",
-                       bc, decay_to_end, dtc, xc)
+    w = (decay_to_end * dtc.movedim(-1, -2)).movedim(-1, -2)   # (b,nc,q,nh)
+    sts = torch.einsum("bcqhn,bcqhp->bchnp", bc * w[..., None], xc)
 
     # ---- inter-chunk recurrence over nc (sequential, tiny) ----
     h = torch.zeros((bsz, nh, ds, hd), dtype=torch.float32, device=xs.device)
@@ -172,7 +175,8 @@ def ssd_chunked(xs, bs, cs, dt, a_coef, chunk: int):
 
     # ---- inter-chunk contribution ----
     in_decay = torch.exp(cum)                         # (b,nc,nh,q)
-    y_inter = torch.einsum("bcqhn,bchq,bchnp->bcqhp", cc, in_decay, prev)
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", cc, prev) \
+        * in_decay.movedim(-1, -2)[..., None]
 
     y = (y_intra + y_inter).reshape(bsz, s, nh, hd)
     return y[:, :orig_s], h

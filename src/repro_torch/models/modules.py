@@ -14,6 +14,16 @@ is never given ``attn_impl`` by the reference's blocks, so it always takes
 the reference route.  Incremental decode (``attention_cache_init`` /
 ``attention_decode_step``, ``cross_attention_decode_step``) keeps a
 ring-buffer KV cache and attends it with ``mha_attend``.
+
+DeepSeek-V2's multi-head latent attention (``mla_*``) and the
+mixture-of-experts FFN (``moe_*``) follow the reference line by line.  MLA's
+full-sequence attention calls ``dispatch_attend`` without ``attn_impl`` in
+the reference, so it always takes the reference route (its q/k head dim,
+192, is also past the flash kernel's 128); its decode cache is the latent
+``c_kv`` and the shared ``k_rope``, written at ``position`` (clamped to the
+last slot, as ``dynamic_update_slice`` does, not a ring).  The MoE routes in
+f32, dispatches by a gather of token indices and combines slot by slot in
+``x.dtype``; the expert matmuls are batched einsums.
 """
 from __future__ import annotations
 
@@ -34,7 +44,9 @@ def _dense_init(gen: torch.Generator, shape, dtype, device,
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+    # scaled in place: one f32 buffer at a time (an expert tensor of Jamba
+    # is 12.9 GB in f32)
+    return t.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -449,3 +461,271 @@ def mlp_apply(params: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     h = _act(torch.einsum("bsd,df->bsf", x, params["gate"]), act)
     h = h * torch.einsum("bsd,df->bsf", x, params["up"])
     return torch.einsum("bsf,fd->bsd", h, params["down"])
+
+
+# ---------------------------------------------------------------------------
+# MLA -- multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu") -> Dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qh = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": _dense_init(gen, (d, m.q_lora_rank), dtype, device),
+        "q_norm": rmsnorm_init(m.q_lora_rank, dtype, device),
+        "w_uq": _dense_init(gen, (m.q_lora_rank, h, qh), dtype, device),
+        "w_dkv": _dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                             dtype, device),
+        "kv_norm": rmsnorm_init(m.kv_lora_rank, dtype, device),
+        "w_ukv": _dense_init(gen, (m.kv_lora_rank, h,
+                                   m.qk_nope_head_dim + m.v_head_dim),
+                             dtype, device),
+        "w_o": _dense_init(gen, (h, m.v_head_dim, d), dtype, device,
+                           scale=1.0 / math.sqrt(h * m.v_head_dim)),
+    }
+
+
+def _mla_qkv(params, x, cfg: ArchConfig, positions):
+    """Returns q (b, s, h, qh), the latent c_kv (b, s, r) and the shared
+    k_rope (b, s, rope)."""
+    m = cfg.mla
+    cq = rmsnorm_apply(params["q_norm"],
+                       torch.einsum("bsd,dr->bsr", x, params["w_dq"]),
+                       cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"])
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"])
+    c_kv, k_rope = torch.split(dkv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                               dim=-1)
+    c_kv = rmsnorm_apply(params["kv_norm"], c_kv, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return torch.cat([q_nope, q_rope], dim=-1), c_kv, k_rope
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _mla_attend(params, q, c_kv, k_rope, mask, cfg: ArchConfig,
+                causal: Optional[bool] = None) -> torch.Tensor:
+    """Expand the latent to per-head K/V and attend: with ``causal`` a
+    full sequence through ``dispatch_attend``'s reference route, else
+    (decode) ``mha_attend`` under ``mask``."""
+    m = cfg.mla
+    ukv = torch.einsum("bsr,rhk->bshk", c_kv, params["w_ukv"])
+    k_nope, v = torch.split(ukv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+    if causal is not None:
+        out = dispatch_attend(q, k, v, causal=causal, window=None,
+                              attn_softcap=None, scale=_mla_scale(cfg))
+    else:
+        out = mha_attend(q, k, v, mask, attn_softcap=None,
+                         scale=_mla_scale(cfg))
+    return torch.einsum("bshk,hkd->bsd", out.to(q.dtype), params["w_o"])
+
+
+def mla_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return mla_apply_latent(params, x, cfg, positions)[0]
+
+
+def mla_apply_latent(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+                     positions: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mla_apply`` that also returns the latent c_kv and k_rope, which a
+    prefill writes into the cache."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
+    return (_mla_attend(params, q, c_kv, k_rope, None, cfg, causal=True),
+            c_kv, k_rope)
+
+
+def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device="cpu") -> Dict:
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                              dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
+                    position: int, cfg: ArchConfig,
+                    absorbed: bool = False) -> Tuple[torch.Tensor, Dict]:
+    """One-token MLA decode.  Writes the token's latent, k_rope and position
+    into slot ``min(position, max_len - 1)`` of ``cache`` IN PLACE: the
+    reference's ``dynamic_update_slice`` clamps an index past the end, so
+    a token past ``max_len`` overwrites the last slot (not a ring).
+    ``absorbed`` attends the latent cache directly
+    (``_mla_attend_absorbed``), as the reference's decode does."""
+    b = x.shape[0]
+    pos_b = torch.full((b, 1), position, dtype=torch.int64, device=x.device)
+    q, c_kv, k_rope = _mla_qkv(params, x, cfg, pos_b)
+    slot = min(position, cache["c_kv"].shape[1] - 1)
+    cache["c_kv"][:, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, slot] = k_rope[:, 0].to(cache["k_rope"].dtype)
+    cache["pos"][:, slot] = position
+    cpos = cache["pos"]
+    mask = ((cpos >= 0) & (cpos <= position))[:, None, :]
+    if absorbed:
+        y = _mla_attend_absorbed(params, q, cache["c_kv"], cache["k_rope"],
+                                 mask, cfg)
+    else:
+        y = _mla_attend(params, q, cache["c_kv"].to(x.dtype),
+                        cache["k_rope"].to(x.dtype), mask, cfg)
+    return y, cache
+
+
+def _mla_attend_absorbed(params, q, c_kv, k_rope, mask, cfg: ArchConfig):
+    """W_UK folded into the query and W_UV into the output, so the latent
+    cache is attended directly, in f32; the output cast to q's dtype before
+    ``w_o``.  The same function as ``_mla_attend`` (associativity)."""
+    m = cfg.mla
+    w_uk, w_uv = torch.split(params["w_ukv"],
+                             [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    q_lat = torch.einsum("bthk,rhk->bthr", q_nope.float(), w_uk.float())
+    scores = (torch.einsum("bthr,bsr->bhts", q_lat, c_kv.float())
+              + torch.einsum("bthk,bsk->bhts", q_rope.float(),
+                             k_rope.float())) * _mla_scale(cfg)
+    scores = torch.where(mask[:, None] if mask.dim() == 3 else mask, scores,
+                         torch.full((), -1e30, device=scores.device))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhts,bsr->bthr", probs, c_kv.float())
+    out = torch.einsum("bthr,rhv->bthv", ctx, w_uv.float())
+    return torch.einsum("bthv,hvd->btd", out.to(q.dtype), params["w_o"])
+
+
+# ---------------------------------------------------------------------------
+# MoE -- top-k capacity-based dispatch (einsum experts)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu") -> Dict:
+    moe = cfg.moe
+    d = cfg.d_model
+    e, ff = moe.num_experts, moe.d_ff_expert
+    p = {
+        "router": _dense_init(gen, (d, e), dtype, device, scale=0.02),
+        "w_gate": _dense_init(gen, (e, d, ff), dtype, device),
+        "w_up": _dense_init(gen, (e, d, ff), dtype, device),
+        "w_down": _dense_init(gen, (e, ff, d), dtype, device),
+    }
+    if moe.num_shared_experts:
+        p["shared"] = mlp_init(gen, d, moe.num_shared_experts *
+                               (moe.d_ff_shared or moe.d_ff_expert), dtype,
+                               device)
+    return p
+
+
+def moe_route(params: Dict, tokens: torch.Tensor, cfg: ArchConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router of ``moe_apply`` over tokens (g, tg, d): f32 logits, a
+    softmax, the top k (ties to the lower expert, as ``lax.top_k``), the
+    gates renormalised with ``+ 1e-9``.  Returns probs (g, tg, e) f32,
+    gates (g, tg, k) f32 and expert indices (g, tg, k) int64."""
+    logits = torch.einsum("gtd,de->gte", tokens.float(),
+                          params["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    gate_vals, gate_idx = vals[..., :k], idx[..., :k]
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def moe_dispatch(gate_idx: torch.Tensor, num_experts: int, capacity: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each (token, slot)'s position in its expert's buffer: an exclusive
+    cumsum over the (token, slot) pairs, token-major; ``keep`` where it is
+    below ``capacity``; and the slot table (g, e, capacity) of token ids,
+    ``tg`` (the drop sentinel) where a slot holds none.  gate_idx:
+    (g, tg, k).  Returns (pos, keep, slot_token)."""
+    g, tg, k = gate_idx.shape
+    e = num_experts
+    e_onehot = torch.nn.functional.one_hot(gate_idx, e)
+    flat = e_onehot.reshape(g, tg * k, e)
+    pos = ((torch.cumsum(flat, dim=1) - flat).reshape(g, tg, k, e)
+           * e_onehot).sum(-1)                                # (g, tg, k)
+    keep = pos < capacity
+    safe_pos = torch.where(keep, pos, capacity)
+    grange = torch.arange(g, device=gate_idx.device)[:, None]
+    token_ids = torch.arange(tg, device=gate_idx.device).expand(g, tg)
+    slot_token = torch.full((g, e, capacity + 1), tg, dtype=torch.int64,
+                            device=gate_idx.device)
+    for slot in range(k):
+        slot_token[grange, gate_idx[:, :, slot], safe_pos[:, :, slot]] = \
+            token_ids
+    return pos, keep, slot_token[:, :, :capacity]
+
+
+def moe_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
+              capacity_factor: float = 1.25, no_drop: bool = False,
+              groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k capacity-based dispatch with group-limited routing: the b*s
+    tokens split into ``groups`` groups (only when they divide evenly and
+    not under ``no_drop``), each with capacity ``int(capacity_factor * tg
+    * k / e)`` (at least 1), or every token under ``no_drop``.  Returns
+    (output in x's dtype, the Switch load-balance aux loss
+    ``e * sum(me * ce) * router_aux_weight``)."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    e, k = moe.num_experts, moe.top_k
+    t = b * s
+    g = groups if (not no_drop and t % max(groups, 1) == 0) else 1
+    tg = t // g
+    tokens = x.reshape(g, tg, d)
+    probs, gate_vals, gate_idx = moe_route(params, tokens, cfg)
+
+    me = probs.mean((0, 1))
+    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+        0, gate_idx.reshape(-1),
+        torch.ones((gate_idx.numel(),), dtype=torch.float32,
+                   device=x.device)) / (t * k)
+    aux = e * torch.sum(me * ce) * moe.router_aux_weight
+
+    capacity = tg if no_drop else max(1, int(capacity_factor * tg * k / e))
+    pos, keep, slot_token = moe_dispatch(gate_idx, e, capacity)
+    gate_vals = gate_vals * keep
+
+    # the gather of token vectors by the slot table; token id tg reads the
+    # zero row appended as its sentinel
+    tokens_pad = torch.cat([tokens, tokens.new_zeros((g, 1, d))], dim=1)
+    grange = torch.arange(g, device=x.device)[:, None]
+    expert_in = tokens_pad[grange, slot_token.reshape(g, e * capacity)
+                           ].reshape(g, e, capacity, d)
+    del tokens_pad
+    h = _act(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]),
+             cfg.act)
+    h = h * torch.einsum("gecd,edf->gecf", expert_in, params["w_up"])
+    del expert_in
+    flat_out = torch.einsum("gecf,efd->gecd", h, params["w_down"]
+                            ).reshape(g, e * capacity, d)
+    del h
+    # combine slot by slot in x's dtype; a dropped (token, slot) adds
+    # nothing (the reference reads its zero sentinel slot ``capacity``)
+    y = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
+    for slot in range(k):
+        kept = keep[:, :, slot, None]
+        idx = gate_idx[:, :, slot] * capacity + torch.where(
+            keep[:, :, slot], pos[:, :, slot], 0)
+        picked = flat_out[grange, idx]
+        y = y + torch.where(kept, picked * gate_vals[:, :, slot, None]
+                            .to(x.dtype), 0)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], tokens, cfg.act)
+    return y.reshape(b, s, d), aux

@@ -1,17 +1,22 @@
 """Decoder and encoder-decoder stacks: port of ``repro.models.transformer``
 for the dense GQA path (with Gemma-2's local/global windows, softcaps and
 post-norms), the Mamba-2 path (``mamba`` layers, ``models.mamba``), the
-vision-patch frontend (InternVL2: patch embeddings ahead of the tokens) and
-the encoder-decoder (Seamless-M4T: ``encode`` over frame embeddings, then
-decoder blocks with cross-attention and a cross K/V cache).  MoE and MLA
-archs raise ``NotImplementedError``.
+vision-patch frontend (InternVL2: patch embeddings ahead of the tokens), the
+encoder-decoder (Seamless-M4T: ``encode`` over frame embeddings, then
+decoder blocks with cross-attention and a cross K/V cache), the MoE FFN
+(Mixtral; Jamba's hybrid period of mamba and attention layers with MoE on
+every other one) and MLA with a dense first layer (DeepSeek-V2).
 
 The parameter tree has the reference's layout exactly — ``embed``,
 ``final_norm``, optional ``head``, ``stack``: a tuple of one block dict
-per layer of a period, every leaf stacked over ``n_periods``, and for an
-encoder-decoder ``encoder``: ``{"stack": (block,), "final_norm"}`` — so
-the reference's parameters carry over leaf by leaf (``params_from_numpy``).
-Where the reference scans over periods, this loops over them.
+per layer of a period, every leaf stacked over ``n_periods``; ``prefix``:
+a tuple of unstacked blocks ahead of the stack (DeepSeek's dense first
+layer, ``num_prefix`` of ``stack_plan``); and for an encoder-decoder
+``encoder``: ``{"stack": (block,), "final_norm"}`` — so the reference's
+parameters carry over leaf by leaf (``params_from_numpy``).  A period is
+``lcm(len(layer_pattern), moe_period)`` layers, so a layer's kind and
+whether its FFN is MoE are the same in every period.  Where the reference
+scans over periods, this loops over them.
 
 Public API
 ----------
@@ -25,10 +30,11 @@ Public API
     decode_step(params, cfg, token, cache)      -> (logits, cache)
 
 The cache is a plain dict with the reference's key paths: ``position``,
-``prefix`` (empty on the ported paths) and ``stack``, one dict per layer of
-a period with every leaf stacked over periods: a ring-buffer KV cache for an
-attention layer, the conv window and SSM state for a ``mamba`` layer, and
-for an encoder-decoder the memory's ``cross_k`` / ``cross_v``.
+``prefix`` (one unstacked dict per prefix layer) and ``stack``, one dict
+per layer of a period with every leaf stacked over periods: a ring-buffer
+KV cache for an attention layer, the latent ``c_kv`` / ``k_rope`` for an
+MLA layer, the conv window and SSM state for a ``mamba`` layer, and for an
+encoder-decoder the memory's ``cross_k`` / ``cross_v``.
 ``position`` is a 0-dim int32 tensor kept on the CPU: the decode step needs
 it on the host to pick the ring slot, and a device copy would cost a
 synchronisation per step.
@@ -59,37 +65,60 @@ class ApplyOptions:
     # SSD-scan op: the CUDA kernels on the card); the reference calls the
     # latter "pallas"
     attn_impl: str = "reference"
+    # exact MoE: every expert takes every token (capacity = tokens), as
+    # serving and the decode tests run it; else capacity_factor * t * k / e
+    # tokens an expert, the rest dropped (training)
+    moe_no_drop: bool = False
+    capacity_factor: float = 1.25
+    # group-limited routing: the tokens split into this many groups, each
+    # routed with its own capacity (not under moe_no_drop)
+    moe_groups: int = 1
+
+    def moe_kw(self) -> Dict[str, Any]:
+        return {"capacity_factor": self.capacity_factor,
+                "no_drop": self.moe_no_drop, "groups": self.moe_groups}
 
 
 DEFAULT_OPTS = ApplyOptions()
+# a decode step's MoE, as the reference's ``_block_decode`` calls it
+_DECODE_MOE = {"no_drop": True}
 
 
 @dataclasses.dataclass(frozen=True)
 class StackPlan:
-    num_prefix: int          # unscanned leading layers (0 on the ported paths)
+    num_prefix: int          # unstacked leading layers (DeepSeek's dense one)
     period: int              # layers per stacked step
     n_periods: int
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    """MoE and MLA blocks (Mixtral, DeepSeek-V2, the Jamba hybrid) are later
-    slices of the port: they raise, naming the block."""
-    later = [name for name, v in (("MoE", cfg.moe), ("MLA", cfg.mla))
-             if v is not None]
-    if later:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(later)} blocks are not ported yet "
-            f"(ROADMAP.md, Queue 1); the port runs dense GQA and mamba "
-            f"layers, the vision-patch frontend and the encoder-decoder")
+_MOE_PERIOD = {"all": 1, "every_2": 2, "all_but_first": 1, None: 1}
 
 
 def stack_plan(cfg: ArchConfig) -> StackPlan:
-    _check_ported(cfg)
-    period = len(cfg.layer_pattern)
-    if cfg.num_layers % period:
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
-                         f"into periods of {period}")
-    return StackPlan(0, period, cfg.num_layers // period)
+    """A period of ``lcm(len(layer_pattern), moe_period)`` layers after
+    ``num_prefix`` = 1 dense layer under ``all_but_first`` MoE.  A depth
+    whose layers after the prefix do not fill whole periods raises (the
+    reference asserts it, and truncates when asserts are stripped)."""
+    pattern = cfg.moe.layer_pattern if cfg.moe else None
+    num_prefix = 1 if pattern == "all_but_first" else 0
+    period = math.lcm(len(cfg.layer_pattern), _MOE_PERIOD[pattern])
+    rest = cfg.num_layers - num_prefix
+    if rest % period:
+        raise ValueError(f"{cfg.name}: {rest} layers after {num_prefix} "
+                         f"prefix layer(s) do not split into periods of "
+                         f"{period}")
+    return StackPlan(num_prefix, period, rest // period)
+
+
+def _layer_flags(cfg: ArchConfig, abs_idx: int) -> Tuple[str, bool]:
+    """(kind, is_moe) of the layer at absolute index ``abs_idx``."""
+    return cfg.pattern_for_layer(abs_idx), cfg.is_moe_layer(abs_idx)
+
+
+def _period_flags(cfg: ArchConfig, plan: StackPlan) -> list:
+    """``_layer_flags`` of each layer of a stacked period, by its index in
+    the period: every period repeats them."""
+    return [_layer_flags(cfg, plan.num_prefix + i) for i in range(plan.period)]
 
 
 # ---------------------------------------------------------------------------
@@ -98,20 +127,26 @@ def stack_plan(cfg: ArchConfig) -> StackPlan:
 
 
 def block_init(gen, cfg: ArchConfig, kind: str, dtype=torch.float32,
-               device="cpu", cross: bool = False) -> Dict:
+               device="cpu", cross: bool = False, *,
+               is_moe: bool = False) -> Dict:
     """One block's parameters.  A ``mamba`` block keeps the reference's
-    ``ln2`` leaf, which its forward never reads, and has no ``ffn`` when
-    ``d_ff == 0``, so the tree has the reference's key paths.  ``cross``
-    (an encoder-decoder's decoder block) adds ``cross_ln`` and
-    ``cross_attn``."""
+    ``ln2`` leaf, which its forward never reads when it has no FFN; a block
+    has an MoE ``ffn`` when ``is_moe``, else a dense one when ``d_ff > 0``,
+    so the tree has the reference's key paths.  A non-mamba block of an MLA
+    config has the MLA mixer.  ``cross`` (an encoder-decoder's decoder
+    block) adds ``cross_ln`` and ``cross_attn``."""
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": nn.rmsnorm_init(d, dtype, device),
                          "ln2": nn.rmsnorm_init(d, dtype, device)}
     if kind == "mamba":
         p["mixer"] = mamba_mod.mamba_init(gen, cfg, dtype, device)
+    elif cfg.mla is not None:
+        p["mixer"] = nn.mla_init(gen, cfg, dtype, device)
     else:
         p["mixer"] = nn.attention_init(gen, cfg, dtype, device)
-    if cfg.d_ff > 0:
+    if is_moe:
+        p["ffn"] = nn.moe_init(gen, cfg, dtype, device)
+    elif cfg.d_ff > 0:
         p["ffn"] = nn.mlp_init(gen, d, cfg.d_ff, dtype, device)
     if cfg.final_logit_softcap is not None:  # gemma2 family: post-norms
         p["post_ln1"] = nn.rmsnorm_init(d, dtype, device)
@@ -124,20 +159,25 @@ def block_init(gen, cfg: ArchConfig, kind: str, dtype=torch.float32,
 
 
 def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
-                *, memory: Optional[torch.Tensor] = None,
+                *, is_moe: bool = False,
+                memory: Optional[torch.Tensor] = None,
                 opts: ApplyOptions = DEFAULT_OPTS,
-                causal: bool = True) -> torch.Tensor:
-    """Full-sequence pre-norm block; with ``memory``, a decoder block's
-    cross-attention over it (on the reference route, as in the
-    reference)."""
+                causal: bool = True) -> Tuple[torch.Tensor, Any]:
+    """Full-sequence pre-norm block -> (x, its MoE aux loss; 0.0 without);
+    with ``memory``, a decoder block's cross-attention over it (on the
+    reference route, as in the reference).  An MLA mixer always takes the
+    reference route (the reference gives it no ``attn_impl``)."""
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         mix = mamba_mod.mamba_apply(params["mixer"], h, cfg,
                                     impl=_ssd_impl(opts))
+    elif cfg.mla is not None:
+        mix = nn.mla_apply(params["mixer"], h, cfg)
     else:
         mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
                                  causal=causal, attn_impl=opts.attn_impl)
-    return _block_rest(params, x, mix, cfg, cross=_cross(params, cfg, memory))
+    return _block_rest(params, x, mix, cfg, cross=_cross(params, cfg, memory),
+                       moe_kw=opts.moe_kw() if is_moe else None)
 
 
 def _cross(params: Dict, cfg: ArchConfig, memory: Optional[torch.Tensor]):
@@ -156,10 +196,15 @@ def _ssd_impl(opts: ApplyOptions) -> str:
 
 
 def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
-                cfg: ArchConfig, *, cross=None) -> torch.Tensor:
+                cfg: ArchConfig, *, cross=None,
+                moe_kw: Optional[Dict[str, Any]] = None
+                ) -> Tuple[torch.Tensor, Any]:
     """The block after its mixer: (post-norm,) residual, the
     cross-attention ``cross`` (a function of the normed residual, for a
-    decoder block), then the FFN."""
+    decoder block), then the FFN: ``moe_apply(**moe_kw)`` for an MoE block
+    (``moe_kw`` given), else the dense MLP.  Returns (x, the MoE's aux loss;
+    0.0 for a dense block, as the reference)."""
+    aux = 0.0
     if "post_ln1" in params:
         mix = nn.rmsnorm_apply(params["post_ln1"], mix, cfg.norm_eps)
     x = x + mix
@@ -167,11 +212,14 @@ def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
         x = x + cross(nn.rmsnorm_apply(params["cross_ln"], x, cfg.norm_eps))
     if "ffn" in params:
         h = nn.rmsnorm_apply(params["ln2"], x, cfg.norm_eps)
-        ff = nn.mlp_apply(params["ffn"], h, cfg.act)
+        if moe_kw is not None:
+            ff, aux = nn.moe_apply(params["ffn"], h, cfg, **moe_kw)
+        else:
+            ff = nn.mlp_apply(params["ffn"], h, cfg.act)
         if "post_ln2" in params:
             ff = nn.rmsnorm_apply(params["post_ln2"], ff, cfg.norm_eps)
         x = x + ff
-    return x
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +243,26 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     if not cfg.tie_embeddings:
         params["head"] = nn._dense_init(gen, (d, vp), dtype, device)
     cross = cfg.encdec is not None
-    params["stack"] = _stacked_init(
-        lambda i: block_init(gen, cfg, cfg.pattern_for_layer(i), dtype,
-                             device, cross=cross),
-        plan.period, plan.n_periods)
+
+    flags = _period_flags(cfg, plan)
+
+    def layer(i):
+        kind, is_moe = flags[i]
+        return block_init(gen, cfg, kind, dtype, device, cross=cross,
+                          is_moe=is_moe)
+
+    params["stack"] = _stacked_init(layer, plan.period, plan.n_periods)
+    if plan.num_prefix:
+        # DeepSeek-style dense first layer(s), with the wide dense d_ff
+        dense = dataclasses.replace(cfg, d_ff=0)
+        prefix = []
+        for i in range(plan.num_prefix):
+            blk = block_init(gen, dense, cfg.pattern_for_layer(i), dtype,
+                             device, cross=cross)
+            blk["ffn"] = nn.mlp_init(gen, d, cfg.d_ff or
+                                     cfg.moe.d_ff_expert * 8, dtype, device)
+            prefix.append(blk)
+        params["prefix"] = tuple(prefix)
     if cross:
         params["encoder"] = {
             "stack": _stacked_init(
@@ -212,11 +276,15 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
 def _stacked_init(make_block, period: int, n_periods: int) -> Tuple:
     """``period`` block trees, each leaf stacked over ``n_periods``: blocks
     are drawn period by period, layer by layer (``make_block(i)``), and
-    copied into their slot of a leaf allocated once."""
+    copied into their slot of a leaf allocated once (one period: each leaf
+    is the block's own, viewed with a leading axis of 1)."""
     stacked = [None] * period
     for p in range(n_periods):
         for i in range(period):
             blk = make_block(i)
+            if n_periods == 1:
+                stacked[i] = tree_map(lambda t: t[None], blk)
+                continue
             if stacked[i] is None:
                 stacked[i] = tree_map(lambda t: t.new_empty(
                     (n_periods, *t.shape)), blk)
@@ -262,12 +330,23 @@ def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _run_stack(params, cfg: ArchConfig, x: torch.Tensor, *, memory=None,
-               causal=True, opts: ApplyOptions = DEFAULT_OPTS) -> torch.Tensor:
+               causal=True, opts: ApplyOptions = DEFAULT_OPTS
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prefix layers (dense), then the stack -> (x, the MoE layers' aux
+    losses summed in f32; 0 without MoE layers)."""
     plan = stack_plan(cfg)
+    flags = _period_flags(cfg, plan)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, blk in enumerate(params.get("prefix", ())):
+        x, _ = block_apply(blk, x, cfg, cfg.pattern_for_layer(i),
+                           memory=memory, opts=opts, causal=causal)
     for i, layer in _per_layer(params["stack"], plan.n_periods):
-        x = block_apply(layer, x, cfg, cfg.pattern_for_layer(i),
-                        memory=memory, opts=opts, causal=causal)
-    return x
+        kind, is_moe = flags[i]
+        x, a = block_apply(layer, x, cfg, kind, is_moe=is_moe, memory=memory,
+                           opts=opts, causal=causal)
+        if is_moe:
+            aux = aux + a
+    return x, aux
 
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor,
@@ -280,7 +359,7 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor,
     x = frames
     for _, layer in _per_layer(enc["stack"],
                                cfg.encdec.num_encoder_layers):
-        x = block_apply(layer, x, cfg, "global", opts=opts, causal=False)
+        x, _ = block_apply(layer, x, cfg, "global", opts=opts, causal=False)
     return nn.rmsnorm_apply(enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -316,14 +395,14 @@ def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
                    opts: ApplyOptions = DEFAULT_OPTS
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trunk only: final hidden states over the token positions (pre-head)
-    and the aux loss (0 on the ported paths).  ``batch`` keys by family:
+    and the aux loss (the MoE layers' load-balance losses summed; 0 without
+    MoE).  ``batch`` keys by family:
     text ``tokens`` (b, s); vlm ``patch_embeds`` (b, p, d) and ``tokens``;
     audio ``frames`` (b, enc_len, d) and ``tokens`` (b, dec_len)."""
     n_text = batch["tokens"].shape[1]
     x, memory = _trunk_inputs(params, cfg, batch, opts)
-    x = _run_stack(params, cfg, x, memory=memory, opts=opts)
-    return (x[:, -n_text:],
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    x, aux = _run_stack(params, cfg, x, memory=memory, opts=opts)
+    return x[:, -n_text:], aux
 
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
@@ -341,7 +420,8 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
                  loss_chunk: int = LOSS_CHUNK):
     """Next-token cross-entropy, the head and logsumexp taken over
     ``loss_chunk``-position slices so the peak logits tensor is
-    (b, chunk, vocab).  Signature matches ``repro_torch.core.dfl.LossFn``."""
+    (b, chunk, vocab); the loss is the mean nll plus the aux loss.
+    Signature matches ``repro_torch.core.dfl.LossFn``."""
 
     def loss_fn(params, batch, rng):
         del rng
@@ -376,10 +456,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     (default ``int(max_len * encoder_len_ratio)``, as the reference)."""
     plan = stack_plan(cfg)
 
-    def stacked(i):
-        kind = cfg.pattern_for_layer(i)
+    def block(kind):
         if kind == "mamba":
             one = mamba_mod.mamba_cache_init(cfg, batch, dtype, device)
+        elif cfg.mla is not None:
+            one = nn.mla_cache_init(cfg, batch, max_len, dtype, device)
         else:
             one = nn.attention_cache_init(cfg, batch, max_len, kind, dtype,
                                           device)
@@ -390,22 +471,32 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             shape = (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim())
             blk["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
             blk["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+        return blk
+
+    def stacked(kind):
         return tree_map(lambda t: t[None].repeat(
-            plan.n_periods, *([1] * t.dim())), blk)
+            plan.n_periods, *([1] * t.dim())), block(kind))
 
     return {"position": torch.zeros((), dtype=torch.int32),
-            "prefix": (),
-            "stack": tuple(stacked(i) for i in range(plan.period))}
+            "prefix": tuple(block(cfg.pattern_for_layer(i))
+                            for i in range(plan.num_prefix)),
+            "stack": tuple(stacked(kind)
+                           for kind, _ in _period_flags(cfg, plan))}
 
 
 def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
-                  position: int) -> torch.Tensor:
-    """One block of a decode step; writes its k/v (an attention layer) or
-    its conv window and SSM state (a mamba layer) into ``cache``."""
+                  is_moe: bool, position: int) -> torch.Tensor:
+    """One block of a decode step; writes its k/v (an attention layer), its
+    latent (MLA: the absorbed decode, as the reference's) or its conv
+    window and SSM state (a mamba layer) into ``cache``.  An MoE FFN runs
+    drop-free."""
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         mix, _ = mamba_mod.mamba_decode_step(params["mixer"], h,
                                              cache["mixer"], cfg)
+    elif cfg.mla is not None:
+        mix, _ = nn.mla_decode_step(params["mixer"], h, cache["mixer"],
+                                    position, cfg, absorbed=True)
     else:
         mix, _ = nn.attention_decode_step(params["mixer"], h, cache["mixer"],
                                           position, cfg, layer_kind=kind)
@@ -414,7 +505,20 @@ def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
         def cross(hh):
             return nn.cross_attention_decode_step(
                 params["cross_attn"], hh, cache["cross_k"], cache["cross_v"])
-    return _block_rest(params, x, mix, cfg, cross=cross)
+    return _block_rest(params, x, mix, cfg, cross=cross,
+                       moe_kw=_DECODE_MOE if is_moe else None)[0]
+
+
+def _layers(params, cache, cfg: ArchConfig, plan: StackPlan):
+    """``(layer params, layer cache, kind, is_moe)`` for every layer in
+    order: the prefix layers (dense FFN), then the stack's."""
+    for i, blk in enumerate(params.get("prefix", ())):
+        yield blk, cache["prefix"][i], cfg.pattern_for_layer(i), False
+    flags = _period_flags(cfg, plan)
+    for (i, layer), (_, layer_cache) in zip(
+            _per_layer(params["stack"], plan.n_periods),
+            _per_layer(cache["stack"], plan.n_periods)):
+        yield (layer, layer_cache) + flags[i]
 
 
 @torch.inference_mode()
@@ -426,11 +530,8 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Dict
     plan = stack_plan(cfg)
     position = int(cache["position"])
     x = _embed(params, cfg, token)
-    for (i, layer), (_, layer_cache) in zip(
-            _per_layer(params["stack"], plan.n_periods),
-            _per_layer(cache["stack"], plan.n_periods)):
-        x = _block_decode(layer, layer_cache, x, cfg,
-                          cfg.pattern_for_layer(i), position)
+    for layer, layer_cache, kind, is_moe in _layers(params, cache, cfg, plan):
+        x = _block_decode(layer, layer_cache, x, cfg, kind, is_moe, position)
     cache["position"] = torch.tensor(position + 1, dtype=torch.int32)
     return _head(params, cfg, x), cache
 
@@ -444,15 +545,17 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     ``dispatch_attend(attn_impl=opts.attn_impl)``, recording its K/V (padded
     to the cache, or the last ``n`` keys in ring order where the cache is
     shorter than the sequence: a sliding-window layer, or any layer when
-    ``max_len`` is shorter); a mamba layer's ``mamba_prefill`` (its scan on
-    kernel 9 under ``attn_impl="kernel"``) records its conv window and final
-    SSM state.  ``batch`` as ``forward_hidden`` takes it: a vision
-    frontend's patches sit ahead of the tokens and count as positions
-    (``max_len`` defaults to the token count, as in the reference); an
-    encoder-decoder encodes ``frames`` first, and each decoder block's
-    cross-attention (reference route) records the memory's K/V without their
-    biases, as the reference's prefill does.  Returns the last position's
-    logits (b, 1, v)."""
+    ``max_len`` is shorter); an MLA layer (always the reference route)
+    records its latent ``c_kv`` and ``k_rope`` (``max_len`` must cover the
+    prompt, as in the reference); a mamba layer's ``mamba_prefill`` (its
+    scan on kernel 9 under ``attn_impl="kernel"``) records its conv window
+    and final SSM state; an MoE FFN runs with ``opts.moe_kw()``.  ``batch``
+    as ``forward_hidden`` takes it: a vision frontend's patches sit ahead
+    of the tokens and count as positions (``max_len`` defaults to the token
+    count, as in the reference); an encoder-decoder encodes ``frames``
+    first, and each decoder block's cross-attention (reference route)
+    records the memory's K/V without their biases, as the reference's
+    prefill does.  Returns the last position's logits (b, 1, v)."""
     tokens = batch["tokens"]
     b = tokens.shape[0]
     max_len = max_len or tokens.shape[1]
@@ -462,16 +565,22 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     cache = init_cache(cfg, b, max_len, cache_dtype, x.device,
                        enc_len=None if memory is None else memory.shape[1])
     positions = torch.arange(seq, device=x.device).expand(b, seq)
-    for (i, layer), (_, layer_cache) in zip(
-            _per_layer(params["stack"], plan.n_periods),
-            _per_layer(cache["stack"], plan.n_periods)):
+    moe_kw = opts.moe_kw()
+    for layer, layer_cache, kind, is_moe in _layers(params, cache, cfg, plan):
         h = nn.rmsnorm_apply(layer["ln1"], x, cfg.norm_eps)
         slots = layer_cache["mixer"]
-        kind = cfg.pattern_for_layer(i)
         if kind == "mamba":
             mix, filled = mamba_mod.mamba_prefill(
                 layer["mixer"], h, cfg, conv_cache_dtype=slots["conv"].dtype,
                 impl=_ssd_impl(opts))
+        elif cfg.mla is not None:
+            mix, c_kv, k_rope = nn.mla_apply_latent(layer["mixer"], h, cfg,
+                                                    positions)
+            if seq > slots["c_kv"].shape[1]:
+                raise ValueError(f"an MLA cache of {slots['c_kv'].shape[1]} "
+                                 f"positions cannot hold a {seq}-position "
+                                 f"prompt")
+            filled = {"c_kv": c_kv, "k_rope": k_rope, "pos": positions}
         else:
             mix, k, v = nn.attention_apply_kv(
                 layer["mixer"], h, cfg, layer_kind=kind, positions=positions,
@@ -479,34 +588,26 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             filled = _attention_fill(k, v, positions, slots["k"].shape[1],
                                      cache_dtype)
         for key, val in filled.items():
-            slots[key].copy_(val)
+            # the slots past the prompt keep their empty values (0, pos -1)
+            slots[key][:, :val.shape[1]].copy_(val)
         if memory is not None:
             ck, cv = nn.cross_kv(layer["cross_attn"], memory, bias=False)
             layer_cache["cross_k"].copy_(ck)
             layer_cache["cross_v"].copy_(cv)
-        x = _block_rest(layer, x, mix, cfg,
-                        cross=_cross(layer, cfg, memory))
+        x, _ = _block_rest(layer, x, mix, cfg,
+                           cross=_cross(layer, cfg, memory),
+                           moe_kw=moe_kw if is_moe else None)
     cache["position"] = torch.tensor(seq, dtype=torch.int32)
     return _head(params, cfg, x[:, -1:]), cache
 
 
 def _attention_fill(k, v, positions, n: int, cache_dtype) -> Dict:
-    """An attention layer's cache slots after the prompt: its K/V padded to
-    the cache's ``n`` slots, or the last ``n`` keys in ring order for a
-    sliding-window layer shorter than the prompt."""
+    """An attention layer's cache slots after the prompt: its K/V for the
+    first slots of the cache's ``n``, or the last ``n`` keys in ring order
+    for a sliding-window layer shorter than the prompt."""
     if n >= k.shape[1]:
-        return {"k": _pad_to(k, n), "v": _pad_to(v, n),
-                "pos": _pad_to(positions, n, fill=-1)}
+        return {"k": k, "v": v, "pos": positions}
     return _ring_pack(k, v, positions, n, cache_dtype)
-
-
-def _pad_to(arr: torch.Tensor, n: int, fill=0) -> torch.Tensor:
-    """``arr`` padded with ``fill`` along axis 1 to length ``n``."""
-    if arr.shape[1] == n:
-        return arr
-    pad = arr.new_full((arr.shape[0], n - arr.shape[1], *arr.shape[2:]),
-                       fill)
-    return torch.cat([arr, pad], dim=1)
 
 
 def _ring_pack(k, v, positions, n, cache_dtype) -> Dict:
