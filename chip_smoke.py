@@ -91,7 +91,24 @@ before it and read just after:
   route's routing pinned on the reference route), decode against a
   drop-free full forward with the same routing pinned, beside decode
   controls that the same limit must fail (a zeroed cache state; a step
-  one position early, where every layer attends), a finite loss.
+  one position early, where every layer attends; in Jamba, where one
+  layer in four attends, that control is held on the attention layer's
+  decode output against the pinned forward's), a finite loss;
+* Algorithm 1 training the other families through ``train``: full
+  Mamba2-780M in f32 (its mixer on the reference route, so kernels 3 and
+  9 never launch) and Mixtral-8x22B at full width in bf16 with its depth
+  cut to one layer (kernel 1's bf16 instance), each with its launches,
+  peak, the kernel-2 shapes it launched (all held by the sweep), finite
+  losses (and aux losses), parameters moved and each period's float64
+  disagreement falling;
+* directed federation (push-sum) on full SmolLM-360M over a random
+  orientation of K_4 with out-degree weights: two static epochs (kernel 1
+  under P = A' every round), one full-size period (kernel 1 on P against
+  its plain version and timed; the numerator's column sums and sum w = M
+  in float64; the ratio nearer the servers' mean than row-stochastic
+  gossip), one epoch on each wire (kernels 6 and 7; kernel 4 then 1) and
+  three dynamic epochs with direction drops and server 2 out and back
+  (the weight exactly 1 after each surgery).
 
 Kernels 3 and 9 at their prefill shapes also report each device kernel's
 time from the profiler, the blocks of each launch, and the registers and
@@ -180,9 +197,13 @@ SIM_SLAB = 1 << 20          # elements of a slab held against the plain version
 # over 8) and decode step (4 rows), Mamba2's prefill (ln1 and the final
 # norm; the gated norm over d_inner) and decode step; 1000 rows, a count
 # that fills no whole block; bf16 instances of the training and prefill
-# shapes
+# shapes; the MoE families' prefill and decode shapes; the client steps of
+# the Mamba2-780M and Mixtral-8x22B training cells
 RMSNORM_SHAPES = [
-    (256, 960, "float32", "smollm-360m client step", "65 + 65 a step"),
+    (256, 960, "float32", "smollm-360m client step ln1/ln2",
+     "64 + 64 a step"),
+    (254, 960, "float32", "smollm-360m client step final norm (the loss "
+     "drops the last position)", "1 + 1 a step"),
     (1000, 960, "float32", "ragged rows", "-"),
     (4096, 2048, "float32", "qwen3 prefill ln1/ln2/final", "57 a prefill"),
     (65536, 128, "float32", "qwen3 prefill q_norm", "28 a prefill"),
@@ -214,6 +235,14 @@ RMSNORM_SHAPES = [
     (4, 8192, "bfloat16", "jamba decode ln1/ln2/final",
      "9 a step + the prefill's final norm"),
     (4, 16384, "bfloat16", "jamba decode gated norm", "3 a step"),
+    (256, 1536, "float32", "mamba2 client step ln1", "48 + 48 a step"),
+    (254, 1536, "float32", "mamba2 client step final norm", "1 + 1 a step"),
+    (256, 3072, "float32", "mamba2 client step gated norm",
+     "48 + 48 a step"),
+    (256, 6144, "bfloat16", "mixtral (1 layer) client step ln1/ln2",
+     "2 + 2 a step"),
+    (254, 6144, "bfloat16", "mixtral (1 layer) client step final norm",
+     "1 + 1 a step"),
 ]
 RMSNORM_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 
@@ -555,32 +584,48 @@ def disagreement_f64(torch, leaves) -> float:
 
 
 @contextlib.contextmanager
-def wire_period_disagreement(torch, cns, tree_leaves):
-    """Within the block, every physical-wire period records the float64
-    disagreement of the server models before and after it, and the seconds
-    the two readings took (they fall inside the epoch's time)."""
+def period_disagreement(torch, tree_leaves, owner, attr: str,
+                        before=lambda tree: tree, after=lambda out: out,
+                        extra=None):
+    """Within the block, every call of the consensus period ``owner.attr``
+    (a method) records the float64 disagreement of the server models
+    before it (``before`` of its first argument) and after it (``after`` of
+    its result), ``extra(result)``'s fields, and the seconds the readings
+    took (they fall inside the epoch's time)."""
     records = []
-    inner = cns.CompressedBackend.mix_compressed
+    inner = getattr(owner, attr)
+    own = attr in vars(owner)
 
     def measured(self, tree, *args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        before = disagreement_f64(torch, tree_leaves(tree))
+        dis0 = disagreement_f64(torch, tree_leaves(before(tree)))
         cost = time.perf_counter() - t0
         out = inner(self, tree, *args, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        after = disagreement_f64(torch, tree_leaves(out[0]))
-        records.append({"before": before, "after": after,
-                        "ratio": after / before,
-                        "measure_s": cost + time.perf_counter() - t0})
+        dis1 = disagreement_f64(torch, tree_leaves(after(out)))
+        rec = {"before": dis0, "after": dis1, "ratio": dis1 / dis0}
+        if extra is not None:
+            rec.update(extra(out))
+        rec["measure_s"] = cost + time.perf_counter() - t0
+        records.append(rec)
         return out
 
-    cns.CompressedBackend.mix_compressed = measured
+    setattr(owner, attr, measured)
     try:
         yield records
     finally:
-        cns.CompressedBackend.mix_compressed = inner
+        if own:
+            setattr(owner, attr, inner)
+        else:
+            delattr(owner, attr)
+
+
+def wire_period_disagreement(torch, cns, tree_leaves):
+    """``period_disagreement`` of every physical-wire period."""
+    return period_disagreement(torch, tree_leaves, cns.CompressedBackend,
+                               "mix_compressed", after=lambda out: out[0])
 
 
 # ---------------------------------------------------------------------------
@@ -1764,6 +1809,36 @@ def moe_routing(nn, record=None, pinned=None):
 
 
 @contextlib.contextmanager
+def attention_outputs(nn, record):
+    """Within the block, the output of every full-sequence self-attention
+    (``nn.attention_apply`` without ``kv_override``; (b, s, d)) and of every
+    decode step's attention (``nn.attention_decode_step``; (b, 1, d)) is
+    appended to ``record``, in call order (nothing with ``record`` None)."""
+    if record is None:
+        yield
+        return
+    apply, step = nn.attention_apply, nn.attention_decode_step
+
+    def recorded_apply(*args, **kw):
+        out = apply(*args, **kw)
+        if kw.get("kv_override") is None:
+            record.append(out)
+        return out
+
+    def recorded_step(*args, **kw):
+        out = step(*args, **kw)
+        record.append(out[0])
+        return out
+
+    nn.attention_apply, nn.attention_decode_step = (recorded_apply,
+                                                    recorded_step)
+    try:
+        yield
+    finally:
+        nn.attention_apply, nn.attention_decode_step = apply, step
+
+
+@contextlib.contextmanager
 def device_spans(torch, targets):
     """Within the block, each call of ``getattr(module, attr)`` for
     ``(module, attr, label)`` in ``targets`` is bracketed by CUDA events on
@@ -2010,53 +2085,102 @@ def moe_serving(torch, g, kernel_rows: dict, ssd_row: dict) -> None:
             "prefill differs from the serving run"
         prompt_route = [r.reshape(b, s_len, -1) for r in k_route]
 
-        def routed_step(tok):
-            """A decode step of ``tok`` -> (its logits, its routing)."""
-            route = []
-            with moe_routing(nn, record=route):
-                step_logits, _ = ttf.decode_step(params, cfg, tok, cache)
-            return step_logits, [r.reshape(b, 1, -1) for r in route]
+        # in a hybrid (Jamba: one attention layer in four) the logits do
+        # not resolve a decode step written one position early, so the
+        # attention layers' decode outputs are held too, each against the
+        # pinned forward's at the same position
+        mixer_check = bool(n_mamba and n_attn)
 
-        def against_forward(step_logits, toks, step_routes):
-            """A step's logits against the drop-free full forward over
-            ``toks``, the routing of the prompt and of each step
-            (``step_routes``) pinned on it -> the max abs difference."""
+        def routed_step(tok):
+            """A decode step of ``tok`` -> (its logits, its routing, its
+            attention layers' outputs (b, 1, d))."""
+            route, mix = [], []
+            with moe_routing(nn, record=route), \
+                    attention_outputs(nn, mix if mixer_check else None):
+                step_logits, _ = ttf.decode_step(params, cfg, tok, cache)
+            return step_logits, [r.reshape(b, 1, -1) for r in route], mix
+
+        def pinned_forward(toks, step_routes, regrouped=False):
+            """The drop-free full forward over ``toks``, the routing of the
+            prompt and of each step (``step_routes``) pinned on it (on
+            ``reference_route_regrouped`` and ``alt_cfg`` with
+            ``regrouped``) -> (the last position's logits, the attention
+            layers' outputs there)."""
             pinned = [torch.cat([p] + [d[j] for d in step_routes], dim=1)
                       .reshape(1, -1, p.shape[-1])
                       for j, p in enumerate(prompt_route)]
-            with torch.inference_mode(), moe_routing(nn, pinned=pinned):
-                hidden, _ = ttf.forward_hidden(params, cfg, {"tokens": toks},
-                                               opts=ref_opts)
+            mix = []
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.inference_mode())
+                stack.enter_context(moe_routing(nn, pinned=pinned))
+                stack.enter_context(attention_outputs(
+                    nn, mix if mixer_check else None))
+                if regrouped:
+                    stack.enter_context(reference_route_regrouped(nn))
+                hidden, _ = ttf.forward_hidden(
+                    params, alt_cfg if regrouped else cfg, {"tokens": toks},
+                    opts=ref_opts)
                 want = ttf._head(params, cfg, hidden[:, -1:])[:, 0]
-            return float((step_logits[:, 0, :vocab].float()
-                          - want[:, :vocab].float()).abs().max())
+            return want, [x[:, -1].float() for x in mix]
 
-        toks, dec_errs, dec_route = prompt, [], []
-        for _ in range(3):
+        def against_forward(step, toks, step_routes):
+            """A step's (logits, attention outputs) against the pinned
+            forward's -> (logits' max abs difference, the attention
+            outputs')."""
+            step_logits, step_mix = step
+            want, want_mix = pinned_forward(toks, step_routes)
+            mix_err = max((float((m[:, 0].float() - w).abs().max())
+                           for m, w in zip(step_mix, want_mix)),
+                          default=None)
+            return float((step_logits[:, 0, :vocab].float()
+                          - want[:, :vocab].float()).abs().max()), mix_err
+
+        toks, dec_errs, dec_mix_errs, dec_route = prompt, [], [], []
+        for i in range(3):
             toks = torch.cat([toks, nxt], dim=1)
-            logits, route = routed_step(nxt)
+            logits, route, mix = routed_step(nxt)
             dec_route.append(route)
-            dec_errs.append(against_forward(logits, toks, dec_route))
+            err, mix_err = against_forward((logits, mix), toks, dec_route)
+            dec_errs.append(err)
+            dec_mix_errs.append(mix_err)
+            if i == 0 and mixer_check:
+                # the attention outputs' yardstick: the regrouped reference
+                # route's distance from the pinned forward at this step
+                _, ref_mix = pinned_forward(toks, dec_route)
+                _, alt_mix = pinned_forward(toks, dec_route, regrouped=True)
+                mix_alt_err = max(float((x - y).abs().max())
+                                  for x, y in zip(alt_mix, ref_mix))
+                mix_top = max(float(x.abs().max()) for x in ref_mix)
+                mix_limit = 2 * mix_alt_err + 4 * bf16_step(mix_top)
+                del ref_mix, alt_mix
             nxt = logits[:, -1].argmax(-1)[:, None]
-        # controls that the decode limit must fail, each the next step held
+        # controls that the decode limits must fail, each the next step held
         # against the same forward: written one position early (the cache's
         # position back by one), then again on a cache whose mixer state
         # (K/V, latents, conv window and SSM state; not the slot positions)
         # is zeroed
         toks = torch.cat([toks, nxt], dim=1)
-        controls = {}
+        controls, mix_controls = {}, {}
         cache["position"] = cache["position"] - 1
-        logits, route = routed_step(nxt)
-        controls["position_off_by_one"] = against_forward(
-            logits, toks, dec_route + [route])
+        logits, route, mix = routed_step(nxt)
+        controls["position_off_by_one"], \
+            mix_controls["position_off_by_one"] = against_forward(
+                (logits, mix), toks, dec_route + [route])
         with torch.inference_mode():    # the cache's tensors are such
             for blk in cache["prefix"] + cache["stack"]:
                 for key, t in blk["mixer"].items():
                     if key != "pos":
                         t.zero_()
-        logits, route = routed_step(nxt)
-        controls["mixer_state_zeroed"] = against_forward(
-            logits, toks, dec_route + [route])
+        logits, route, mix = routed_step(nxt)
+        controls["mixer_state_zeroed"], \
+            mix_controls["mixer_state_zeroed"] = against_forward(
+                (logits, mix), toks, dec_route + [route])
+        mixer_row = ({} if not mixer_check else dict(
+            attention_decode_max_abs_err=dec_mix_errs,
+            attention_reference_regrouped_max_abs_err=mix_alt_err,
+            max_abs_attention_output=mix_top,
+            attention_decode_limit=mix_limit,
+            attention_controls_max_abs_err=mix_controls))
         with torch.inference_mode():
             loss, parts = ttf.make_loss_fn(cfg, ref_opts)(params, inputs,
                                                           None)
@@ -2075,7 +2199,7 @@ def moe_serving(torch, g, kernel_rows: dict, ssd_row: dict) -> None:
              unpinned_rows_checked=same_rows,
              decode_vs_pinned_forward_max_abs_err=dec_errs,
              decode_limit=pf_limit,
-             decode_controls_max_abs_err=controls,
+             decode_controls_max_abs_err=controls, **mixer_row,
              loss=float(loss), nll=float(parts["nll"]),
              aux=float(parts["aux"]))
         # held after the line is out, so that a failing run shows its numbers
@@ -2086,16 +2210,486 @@ def moe_serving(torch, g, kernel_rows: dict, ssd_row: dict) -> None:
             (arch, row_errs, same_rows, pf_limit)
         assert max(dec_errs) <= pf_limit, (arch, dec_errs, pf_limit)
         # the zeroed state must fail everywhere; the position one back must
-        # fail where every layer attends, and is only read in Jamba, where
-        # one layer in four attends and the step's other rounding leaves
-        # the limit wider than that fault (PERF.md, Findings)
+        # fail on the logits where every layer attends; in Jamba, where one
+        # layer in four attends and the step's other rounding leaves the
+        # logits' limit wider than that fault, it must fail on the attention
+        # layer's output instead (PERF.md, Findings)
         must_fail = {k: v for k, v in controls.items()
                      if k == "mixer_state_zeroed" or not n_mamba}
         assert all(e > pf_limit for e in must_fail.values()), \
             (arch, controls, pf_limit)
-        del params, cache, logits, inputs, prompt, k_route, r_route
+        if mixer_check:
+            assert max(dec_mix_errs) <= mix_limit, \
+                (arch, dec_mix_errs, mix_limit)
+            assert all(e > mix_limit for e in mix_controls.values()), \
+                (arch, mix_controls, mix_limit)
+        del params, cache, logits, inputs, prompt, k_route, r_route, mix
         del prompt_route, dec_route, routed_step, against_forward
+        del pinned_forward
         torch.cuda.empty_cache()
+
+# ---------------------------------------------------------------------------
+# Algorithm 1 training the Mamba-2 and MoE families; directed federation
+# ---------------------------------------------------------------------------
+
+# full Mamba2-780M (f32) at the SmolLM cell's shape: M = 4 ring, N = 2,
+# T_C = 2, T_S = 5, seq 128, batch 2 a client, SGD 0.05, 2 epochs
+MAMBA_TRAIN = dict(TRAIN, gamma=0.05)
+# Mixtral-8x22B at full width in bf16, depth cut to 1 of its 56 layers
+# (88.1 M attention, 2,415.9 M expert and 2 x 201.3 M embedding parameters,
+# 5.81 GB a model); M = 2 ring, N = 2, the rest TRAIN's shape
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "mixtral-8x22b", 1
+MOE_TRAIN = dict(TRAIN, servers=2, gamma=0.05)
+# directed federation on full SmolLM-360M: TRAIN's shape with push-sum over
+# a directed graph's row-stochastic out-degree weights.  A directed RING's
+# out-degree weights are doubly stochastic (every out-degree is 1), which
+# would leave push-sum's weights at 1 and nothing to correct, so the graph
+# is the reference's directed test graph, a random strongly connected
+# orientation of K_4 (unequal out-degrees, a skewed Perron vector)
+PS_TRAIN = dict(TRAIN, mixing="push_sum", graph="random_orientation",
+                gamma=0.05)
+# ... and under dynamic federation: per-epoch direction drops (p = 0.3,
+# ``TopologySchedule(kind="asymmetric")`` on the ring), Bernoulli(0.5)
+# participation, server 2 out at epoch 1 and back at epoch 2
+PS_DYN_TRAIN = dict(DYN_TRAIN, edge_drop_prob=0.0, asymmetric_drop_prob=0.3,
+                    mixing="push_sum")
+EPS32 = 2.0 ** -23
+
+
+@contextlib.contextmanager
+def launched_norms(torch):
+    """Within the block, the (rows, d, dtype) of every kernel-2 launch,
+    forward and backward, into a set."""
+    from repro_torch.kernels import rmsnorm as rn
+    seen = set()
+    fwd, bwd = rn.rmsnorm_fwd_cuda, rn.rmsnorm_bwd_cuda
+
+    def note(x):
+        seen.add((x.shape[0], x.shape[1], str(x.dtype).split(".")[-1]))
+
+    def fwd_noted(x, *args, **kw):
+        note(x)
+        return fwd(x, *args, **kw)
+
+    def bwd_noted(x, *args, **kw):
+        note(x)
+        return bwd(x, *args, **kw)
+
+    rn.rmsnorm_fwd_cuda, rn.rmsnorm_bwd_cuda = fwd_noted, bwd_noted
+    try:
+        yield seen
+    finally:
+        rn.rmsnorm_fwd_cuda, rn.rmsnorm_bwd_cuda = fwd, bwd
+
+
+@contextlib.contextmanager
+def cut_depth(ttrain, arch: str, layers: int):
+    """Within the block, ``train`` resolves ``arch`` with its depth cut to
+    ``layers`` (the published widths kept)."""
+    saved = ttrain.get_arch, ttrain.get_smoke
+
+    def cut(resolve):
+        def get(arch_id):
+            cfg = resolve(arch_id)
+            return (dataclasses.replace(cfg, num_layers=layers)
+                    if arch_id == arch else cfg)
+        return get
+
+    ttrain.get_arch, ttrain.get_smoke = (cut(f) for f in saved)
+    try:
+        yield
+    finally:
+        ttrain.get_arch, ttrain.get_smoke = saved
+
+
+def leaf_heads(leaves, n: int = 4096) -> list:
+    """Copies of the first ``n`` elements of each leaf."""
+    return [x.reshape(-1)[:n].clone() for x in leaves]
+
+
+def trained_cell(torch, ttrain, ops, arch: str, shape: dict, params,
+                 norms_per_step: int, sweep: set, *, ctx=None) -> dict:
+    """``train(arch, **shape, params=...)`` with the launch counters reset
+    just before it: each period's float64 disagreement before and after
+    it, the kernel-2 shapes launched (all held by the sweep), launches
+    against the prediction (kernel 1 T_S an epoch, kernel 2 forward and
+    backward ``norms_per_step`` a client step, nothing else), the peak,
+    finite losses and parameters moved.  ``params`` is a one-item list the
+    call empties, so the trainer holds the only reference.  Returns the
+    run's numbers."""
+    from repro_torch.core import consensus as cns
+    from repro_torch.tree import tree_leaves
+    heads = leaf_heads(tree_leaves(params[0]))
+    n_params = sum(t.numel() for t in tree_leaves(params[0]))
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with launched_norms(torch) as norms, \
+            period_disagreement(torch, tree_leaves, cns.GossipBackend,
+                                "mix") as periods, \
+            (ctx or contextlib.nullcontext()):
+        run = ttrain.train(arch, **shape, params=params.pop(), log=False)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = run["history"]
+    steps = (shape["t_client"] * shape["servers"] * shape["clients"]
+             * shape["epochs"])
+    expected = {k: 0 for k in launches}
+    expected.update(consensus_mix=shape["t_server"] * shape["epochs"],
+                    rmsnorm_fwd=norms_per_step * steps,
+                    rmsnorm_bwd=norms_per_step * steps)
+    after = leaf_heads([x[0, 0] for x in
+                        tree_leaves(run["state"].client_params)])
+    moved = sum(not torch.equal(a, b) for a, b in zip(after, heads))
+    tokens = (shape["t_client"] * shape["servers"] * shape["clients"]
+              * shape["per_client_batch"] * shape["seq_len"])
+    row = dict(arch=arch, params=n_params, layers=run["cfg"].num_layers,
+               servers=shape["servers"],
+               clients=shape["clients"],
+               leaf_dtypes=sorted({str(x.dtype) for x in tree_leaves(
+                   run["state"].client_params)}),
+               loss=hist["loss"], epoch_s=hist["epoch_s"],
+               tokens_per_s=[tokens / t for t in hist["epoch_s"]],
+               sigma_prod=hist["sigma_prod"], periods=periods,
+               peak_mem_gb=peak, launches=launches,
+               expected_launches=expected,
+               norm_shapes=sorted(norms), leaves_moved=moved,
+               leaves=len(heads))
+    assert launches == expected, (arch, launches, expected)
+    assert norms <= sweep, (arch, sorted(norms - sweep))
+    assert all(np.isfinite(v) for v in hist["loss"]), hist["loss"]
+    assert moved > len(heads) // 2, (moved, len(heads))
+    assert len(periods) == shape["epochs"], periods
+    assert all(p["after"] < p["before"] for p in periods), periods
+    return row
+
+
+def family_training(torch, ttrain, ops, sweep: set) -> None:
+    """Algorithm 1 through ``train`` on full Mamba2-780M (f32; the mixer on
+    the reference route, ``ssd_chunked`` under autograd, so no kernel 9;
+    no attention, so no kernel 3) and on Mixtral-8x22B at full width, bf16,
+    one layer (the capacity MoE path, the f32 router, the Switch aux loss;
+    kernel 1's bf16 instance), each with the counters reset before it."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as ttf
+    resolve = get_smoke if TRAIN["smoke"] else get_arch
+    dev = torch.device(TRAIN["device"])
+    cfg = resolve("mamba2-780m")
+    params = [ttf.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, device=dev)]
+    # kernel 2 a client step: ln1 and the mixer's gated norm a layer, and
+    # the final norm (no FFN, so ln2 is never read): 97 at full depth
+    row = trained_cell(torch, ttrain, ops, "mamba2-780m", MAMBA_TRAIN,
+                       params, 2 * cfg.num_layers + 1, sweep)
+    emit("train_mamba", **row, model_gb=row["params"] * 4 / 1e9)
+    if not TRAIN["smoke"]:
+        assert row["params"] == MAMBA_PARAMS, row["params"]
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(resolve(MOE_TRAIN_ARCH),
+                              num_layers=MOE_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = [ttf.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg, dtype=torch.bfloat16, device=dev)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    aux = []
+    orig = nn.moe_apply
+
+    def recorded(*args, **kw):
+        out = orig(*args, **kw)
+        aux.append(out[1].detach())
+        return out
+
+    nn.moe_apply = recorded
+    try:
+        # kernel 2 a client step: ln1 and ln2 a layer, the final norm
+        row = trained_cell(torch, ttrain, ops, MOE_TRAIN_ARCH, MOE_TRAIN,
+                           params, 2 * MOE_TRAIN_LAYERS + 1, sweep,
+                           ctx=cut_depth(ttrain, MOE_TRAIN_ARCH,
+                                         MOE_TRAIN_LAYERS))
+    finally:
+        nn.moe_apply = orig
+    aux_vals = torch.stack(aux).float().cpu()
+    steps = (MOE_TRAIN["t_client"] * MOE_TRAIN["servers"]
+             * MOE_TRAIN["clients"] * MOE_TRAIN["epochs"])
+    published = resolve(MOE_TRAIN_ARCH).num_layers
+    emit("train_moe", **row, dtype="bfloat16", init_s=init_s,
+         model_gb=row["params"] * 2 / 1e9,
+         reduced={"depth": f"{MOE_TRAIN_LAYERS}/{published}",
+                  "servers": MOE_TRAIN["servers"],
+                  "clients": MOE_TRAIN["clients"]},
+         moe_calls=len(aux), aux_loss=[float(aux_vals.min()),
+                                       float(aux_vals.max())])
+    assert row["leaf_dtypes"] == ["torch.bfloat16"], row["leaf_dtypes"]
+    assert len(aux) == steps * MOE_TRAIN_LAYERS, (len(aux), steps)
+    assert bool(torch.isfinite(aux_vals).all()) and float(aux_vals.min()) > 0
+    torch.cuda.empty_cache()
+
+
+def mass_f64(torch, leaves, ref_leaves, rounds: int) -> float:
+    """The largest column's |sum_i num_i - sum_i x_i| over its rounding
+    allowance, float64: ``rounds`` rounds of an f32 column-stochastic mix
+    (with P itself rounded to f32) keep each column sum within
+    ``rounds (M + 1) eps32 sum_i |x_i|``.  At most 1 means kept."""
+    worst = 0.0
+    for x, y in zip(ref_leaves, leaves):
+        m = x.shape[0]
+        xf, yf = x.reshape(m, -1), y.reshape(m, -1)
+        for lo in range(0, xf.shape[1], 1 << 24):
+            a = xf[:, lo:lo + (1 << 24)].double()
+            b = yf[:, lo:lo + (1 << 24)].double()
+            lim = a.abs().sum(0).mul_(rounds * (m + 1) * EPS32)
+            ratio = (b.sum(0) - a.sum(0)).abs_() / lim.clamp_(min=1e-300)
+            worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def distance_from_mean_f64(torch, leaves, ref_leaves) -> float:
+    """||W - 1 xbar'||_F in float64, ``xbar`` the unweighted mean of the
+    servers' ``ref_leaves``."""
+    sq = 0.0
+    for x, y in zip(ref_leaves, leaves):
+        m = x.shape[0]
+        xf, yf = x.reshape(m, -1), y.reshape(m, -1)
+        for lo in range(0, xf.shape[1], 1 << 24):
+            mean = xf[:, lo:lo + (1 << 24)].double().mean(0)
+            sq += float(((yf[:, lo:lo + (1 << 24)].double() - mean) ** 2)
+                        .sum())
+    return sq ** 0.5
+
+
+@contextlib.contextmanager
+def surgery_weights(engine_cls):
+    """Within the block, the push-sum weight the engine's fault surgery
+    leaves, per epoch that had faults."""
+    records = []
+    inner = engine_cls.apply_faults
+
+    def recorded(self, state, epoch):
+        out = inner(self, state, epoch)
+        if self.faults.at(epoch):
+            records.append((epoch, out.psum_weight.detach().cpu()))
+        return out
+
+    engine_cls.apply_faults = recorded
+    try:
+        yield records
+    finally:
+        engine_cls.apply_faults = inner
+
+
+def directed_federation(torch, ttrain, ops, sweep: set) -> dict:
+    """Push-sum on full SmolLM-360M, each cell with the counters reset
+    before it: two static epochs (kernel 1 T_S times an epoch under
+    P = A'), one full-size period (kernel 1 on P against its plain version
+    and timed; the numerator's column sums and sum w = M in float64; the
+    ratio nearer the servers' unweighted mean than row-stochastic gossip on
+    the same A), one epoch on each wire (physical: kernel 6 once, kernel 7
+    T_S times; simulated: kernel 4 once a leaf, then kernel 1 T_S - 1
+    times), and three dynamic epochs with direction drops and a server out
+    and back (the weight exactly 1 after each surgery).  Returns kernel 1's
+    row under P."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import topology as tp
+    from repro_torch.core.engine import DynamicFederationEngine
+    from repro_torch.kernels import ref
+    from repro_torch.tree import tree_leaves, tree_map
+    dev = torch.device(PS_TRAIN["device"])
+    shape = PS_TRAIN
+    m, t_s, n_ep = shape["servers"], shape["t_server"], shape["epochs"]
+    steps = shape["t_client"] * m * shape["clients"]
+    # kernel 2 a client step: ln1, ln2 a layer, the final norm (65)
+    norms = 2 * (get_smoke if shape["smoke"] else get_arch)(
+        "smollm-360m").num_layers + 1
+
+    def weights(out):
+        return {"weight_sum": float(out.weight.double().sum()),
+                "weight_min": float(out.weight.min())}
+
+    # ---- two static epochs ----
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with launched_norms(torch) as seen, period_disagreement(
+            torch, tree_leaves, cns.GossipBackend, "mix_push_sum",
+            before=lambda st: st.values, after=lambda out: out.ratio(),
+            extra=weights) as periods:
+        run = ttrain.train("smollm-360m", **shape, log=False)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    hist = run["history"]
+    expected = {k: 0 for k in launches}
+    expected.update(consensus_mix=t_s * n_ep, rmsnorm_fwd=norms * steps * n_ep,
+                    rmsnorm_bwd=norms * steps * n_ep)
+    a_np = run["topology"].mixing_matrix()
+    tokens = steps * shape["per_client_batch"] * shape["seq_len"]
+    emit("train_push_sum", arch="smollm-360m", graph=shape["graph"],
+         a=a_np.tolist(), perron=tp.perron_weights(a_np).tolist(),
+         loss=hist["loss"], psum_min_weight=hist["psum_min_weight"],
+         sigma_prod=hist["sigma_prod"], disagreement=hist["disagreement"],
+         epoch_s=hist["epoch_s"],
+         tokens_per_s=[tokens / t for t in hist["epoch_s"]],
+         periods=periods, launches=launches, expected_launches=expected,
+         norm_shapes=sorted(seen),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    assert launches == expected, launches
+    assert seen <= sweep, sorted(seen - sweep)
+    assert all(np.isfinite(v) for v in hist["loss"]), hist["loss"]
+    assert all(0.0 < v <= 1.0 + 1e-6 for v in hist["psum_min_weight"])
+    assert all(abs(p["weight_sum"] - m) < 1e-4 * m for p in periods)
+    assert all(p["after"] < p["before"] for p in periods), periods
+    ps_launches = launches["consensus_mix"]
+
+    # ---- one period at full size ----
+    gen = torch.Generator(device=dev).manual_seed(3)
+    server = tree_map(lambda x: x[:, 0].clone(), run["state"].client_params)
+    del run
+    torch.cuda.empty_cache()
+    server = tree_map(lambda x: x + 0.01 * torch.randn(
+        x.shape, device=dev, generator=gen), server)
+    leaves = tree_leaves(server)
+    p = torch.tensor(np.ascontiguousarray(a_np.T), dtype=torch.float32,
+                     device=dev)
+    w = torch.cat([x.reshape(m, -1) for x in leaves], dim=1)
+    out = torch.empty_like(w)
+    err, rel = rel_err(torch, ops.consensus_mix(p, w, out=out),
+                       ref.consensus_mix_ref(p, w))
+    times = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix(p, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(p, w),
+        "library": lambda: torch.matmul(p, w)}, reps=10)
+    d = w.shape[1]
+    bound, by = bound_ms(2 * m * d * 4 + m * m * 4, 2 * m * m * d)
+    del w, out
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    ps = cns.make_backend("gossip", a_np, t_s).mix_push_sum(
+        cns.init_push_sum(server))
+    torch.cuda.synchronize()
+    period_launches = ops.launch_counts()["consensus_mix"]
+
+    def plain_rounds(x):
+        want = x.reshape(m, -1)
+        for _ in range(t_s):
+            want = ref.consensus_mix_ref(p, want)
+        return want
+
+    # a comprehension, so that no loop variable keeps a leaf (a view of
+    # the period's whole buffer) alive after it
+    vs_plain = max(rel_err(torch, got.reshape(m, -1), plain_rounds(x))[1]
+                   for x, got in zip(leaves, tree_leaves(ps.values)))
+    mass = mass_f64(torch, tree_leaves(ps.values), leaves, t_s)
+    w_sum = float(ps.weight.double().sum())
+    ratio = ps.ratio()
+    d_ps = distance_from_mean_f64(torch, tree_leaves(ratio), leaves)
+    del ratio, ps
+    torch.cuda.empty_cache()
+    rs = cns.make_backend("gossip", a_np, t_s).mix(server)
+    d_rs = distance_from_mean_f64(torch, tree_leaves(rs), leaves)
+    del rs
+    d_0 = distance_from_mean_f64(torch, leaves, leaves)
+    emit("push_sum_period_full_size", m=m, t_server=t_s, d=d,
+         kernel_max_abs_err=err, kernel_max_rel_err=rel, kernel_limit=1e-5,
+         kernel_ms=times["kernel"], plain_ms=times["plain"],
+         library_ms=times["library"], bound_ms=bound, bound_by=by,
+         bound_share=bound / times["kernel"], period_launches=period_launches,
+         period_vs_plain_max_rel_err=vs_plain,
+         mass_error_over_allowance=mass, weight_sum=w_sum,
+         weight_sum_error=abs(w_sum - m),
+         distance_from_mean={"before": d_0, "push_sum_ratio": d_ps,
+                             "row_stochastic": d_rs},
+         sigma_push_sum=tp.sigma_push_sum(a_np, t_s),
+         sigma_a=tp.sigma_a(a_np, t_s))
+    assert rel < 1e-5, rel
+    assert period_launches == t_s, period_launches
+    assert vs_plain < 1e-5, vs_plain
+    assert mass <= 1.0, mass
+    assert abs(w_sum - m) <= t_s * (m + 1) * EPS32 * m, w_sum
+    assert d_ps < d_rs, (d_ps, d_rs)
+    del server, leaves
+    torch.cuda.empty_cache()
+    row = {"name": "consensus_mix_push_sum", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/consensus_mix.cu",
+           "replaces": "src/repro/kernels/consensus_mix.py:71",
+           "launches": ps_launches, "max_abs_err": err, "ms": times["kernel"],
+           "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
+           "library_ms": times["library"]}
+
+    # ---- one epoch on each wire ----
+    wires = {
+        "physical": (dict(shape, epochs=1, compression="int8",
+                          wire="physical", error_feedback=True),
+                     {"quantized_gossip_encode": 1,
+                      "bucketed_gossip_round": t_s}),
+        "simulated": (dict(shape, epochs=1, compression="int8"),
+                      {"quantized_consensus_mix": 11,
+                       "consensus_mix": t_s - 1})}
+    for wire, (wshape, kernels) in wires.items():
+        ops.reset_launch_counts()
+        with period_disagreement(
+                torch, tree_leaves, cns.CompressedBackend,
+                "mix_push_sum_compressed", before=lambda st: st.values,
+                after=lambda out: out[0].ratio(),
+                extra=lambda out: weights(out[0])) as wperiods:
+            run = ttrain.train("smollm-360m", **wshape, log=False)
+            torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        hist = run["history"]
+        expected = {k: 0 for k in launches}
+        expected.update(rmsnorm_fwd=norms * steps, rmsnorm_bwd=norms * steps,
+                        **kernels)
+        emit("train_push_sum_wire", wire=wire, compression="int8",
+             error_feedback=wshape.get("error_feedback", False),
+             loss=hist["loss"], psum_min_weight=hist["psum_min_weight"],
+             epoch_s=hist["epoch_s"], wire_mb=hist["wire_mb"],
+             wire_ratio=hist["wire_ratio"], periods=wperiods,
+             launches=launches, expected_launches=expected)
+        assert launches == expected, (wire, launches)
+        assert all(np.isfinite(v) for v in hist["loss"]), hist["loss"]
+        assert len(wperiods) == 1 and wperiods[0]["after"] < \
+            wperiods[0]["before"], wperiods
+        assert abs(wperiods[0]["weight_sum"] - m) < 1e-4 * m, wperiods
+        del run
+        torch.cuda.empty_cache()
+
+    # ---- three dynamic epochs: direction drops, server 2 out and back ----
+    ops.reset_launch_counts()
+    with surgery_weights(DynamicFederationEngine) as surgeries, \
+            per_epoch_readings(torch, ops, DynamicFederationEngine) as eps:
+        run = ttrain.train_dynamic("smollm-360m", **PS_DYN_TRAIN, log=False)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    hist, engine = run["history"], run["engine"]
+    client_steps = sum(int(k) * PS_DYN_TRAIN["clients"]
+                       * PS_DYN_TRAIN["t_client"]
+                       for k in hist["num_servers"])
+    emit("train_dynamic_push_sum", arch="smollm-360m",
+         loss=hist["loss"], num_servers=hist["num_servers"],
+         participation=hist["participation"],
+         psum_min_weight=hist["psum_min_weight"],
+         sigma_prod=hist["sigma_prod"], disagreement=hist["disagreement"],
+         epoch_s=hist["epoch_s"], alloc_gb=hist.get("alloc_gb"),
+         epoch_peak_gb=[e["peak_gb"] for e in eps],
+         weights_after_surgery={e: w.tolist() for e, w in surgeries},
+         launches=launches, builds_per_m=engine.compile_counts())
+    assert hist["num_servers"] == [4.0, 3.0, 4.0], hist["num_servers"]
+    assert [e for e, _ in surgeries] == [1, 2], surgeries
+    assert all(torch.equal(w, torch.ones_like(w)) for _, w in surgeries)
+    assert [len(w) for _, w in surgeries] == [3, 4], surgeries
+    assert launches["consensus_mix"] == t_s * 3, launches
+    assert launches["rmsnorm_fwd"] == norms * client_steps, launches
+    assert launches["rmsnorm_bwd"] == norms * client_steps, launches
+    assert all(v == 0 for k, v in launches.items()
+               if not k.startswith(("consensus_mix", "rmsnorm"))), launches
+    assert all(np.isfinite(v) for v in hist["loss"]), hist["loss"]
+    assert all(0.0 < v <= 1.0 + 1e-6 for v in hist["psum_min_weight"])
+    assert engine.compile_counts() == {4: 1, 3: 1}, engine.compile_counts()
+    del run, engine
+    torch.cuda.empty_cache()
+    return row
 
 
 def rmsnorm_sweep(torch, g) -> dict:
@@ -3180,6 +3774,13 @@ def main() -> int:
     zoo_rows["ssd_scan_bf16_jamba"] = ssd_bf16_row
     assert all("launches" in r and r["launches"] > 0
                for r in zoo_rows.values()), zoo_rows
+
+    # ---- 22d. Algorithm 1 training full Mamba2-780M and a one-layer
+    # Mixtral-8x22B; directed federation (push-sum) on full SmolLM-360M:
+    # static, one full-size period, both wires, dynamic ----
+    family_training(torch, ttrain, ops, set(rn_stats))
+    zoo_rows["consensus_mix_push_sum"] = directed_federation(
+        torch, ttrain, ops, set(rn_stats))
 
     # ---- 23. per-kernel summary, card, result ----
     r256 = rn_stats[(256, 960, "float32")]

@@ -62,15 +62,28 @@ bounded-staleness rounds (round t mixes the iterate of round t - s), and
 ``gossip_chebyshev`` the Chebyshev semi-iteration, whose products A·w are
 one kernel-1 launch each; its affine step stays plain tensor code.
 
+**Push-sum** (directed federation, ratio consensus): a numerator tree and
+an ``(M,)`` weight, both mixed with the column-stochastic ``P = A'`` of a
+row-stochastic ``A`` (``PushSumState``, ``init_push_sum``,
+``gossip_push_sum``, ``_blocked``, ``_tv`` and every backend's
+``mix_push_sum``); the read-out ``ratio()`` divides the numerator by the
+weight.  The numerator runs through the same execution strategies as
+``mix`` — each round one launch of kernel 1 with ``P`` on the card, which
+takes any (M, M) matrix — and the weight is a plain f32 matvec on the
+tree's device, as in the reference.  On the simulated wire kernel 4 fuses
+the round trip with the first operator ``P``; on the physical wire the
+numerator's codes ride kernels 6 and 7 under ``P`` and the weight stays
+exact.  Staleness has no push-sum form and is refused.
+
 Ported modes: ``gossip``, ``gossip_blocked``, ``collapsed``, ``chebyshev``,
 ``exact_mean`` and ``none``, both wires around them (the physical wire
-around the first two), and bounded staleness on and off the wire.  Still
-to come, each raising ``NotImplementedError`` that names its slice:
-push-sum and the robust screens.
+around the first two), bounded staleness on and off the wire, and push-sum
+over the first three.  Still to come, raising ``NotImplementedError`` that
+names its slice: the robust screens.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -81,7 +94,8 @@ from repro_torch.comm.error_feedback import ef_roundtrip
 from repro_torch.core.topology import lambda_2 as tp_lambda_2
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import fma
-from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
+    tree_unflatten
 
 DEFAULT_GOSSIP_BLOCK = 4_194_304
 
@@ -204,6 +218,94 @@ def collapse_mixing(a: np.ndarray, t_server: int) -> np.ndarray:
 def gossip_collapsed(a_eff: torch.Tensor, tree: Any) -> Any:
     """Single-round application of the collapsed operator A^{T_S}."""
     return mix_pytree(a_eff, tree)
+
+
+# ---------------------------------------------------------------------------
+# push-sum (ratio consensus) for directed graphs
+# ---------------------------------------------------------------------------
+
+
+class PushSumState(NamedTuple):
+    """Numerator tree (leaves ``(M, *w)``) and per-server weight ``(M,)``
+    (float32, positive, summing to M under mixing); ``ratio()`` of a fresh
+    state is the values themselves."""
+
+    values: Any
+    weight: torch.Tensor
+
+    def ratio(self) -> Any:
+        """The read-out z_i = num_i / w_i, the weight cast to each leaf's
+        dtype first (as the reference casts it)."""
+        return tree_map(
+            lambda v: v / self.weight.reshape((-1,) + (1,) * (v.dim() - 1))
+            .to(device=v.device, dtype=v.dtype), self.values)
+
+
+def init_push_sum(tree: Any) -> PushSumState:
+    """Start of a consensus period: numerator = the server models, weight =
+    1 for every server (reset every period, as the reference does: a
+    carried weight would bring the Perron bias back)."""
+    leaf = tree_leaves(tree)[0]
+    return PushSumState(tree, torch.ones((leaf.shape[0],),
+                                         dtype=torch.float32,
+                                         device=leaf.device))
+
+
+def _transpose(a: torch.Tensor) -> torch.Tensor:
+    """``P = A'`` as a contiguous matrix (the kernels read A row-major)."""
+    return a.transpose(0, 1).contiguous()
+
+
+def _push_weight(p: torch.Tensor, weight: torch.Tensor,
+                 rounds: int) -> torch.Tensor:
+    """``rounds`` rounds of the weight recursion ``w <- P w``: an (M,) f32
+    matvec on the weight's device."""
+    p = p.to(device=weight.device, dtype=torch.float32)
+    for _ in range(rounds):
+        weight = (p @ weight.to(p.dtype)).to(weight.dtype)
+    return weight
+
+
+def gossip_push_sum(a: torch.Tensor, state: PushSumState,
+                    t_server: int) -> PushSumState:
+    """T_S rounds of push-sum over a ROW-stochastic ``a`` (support: a
+    directed graph with self-loops, e.g. ``topology.out_degree_weights``):
+    numerator and weight both mixed with ``P = a'``.  The numerator runs
+    through ``ops.consensus_mix_pytree`` (one kernel-1 launch a round on the
+    card); they meet only at ``ratio()``."""
+    if t_server == 0:
+        return state
+    p = _transpose(a)
+    return PushSumState(
+        kops.consensus_mix_pytree(p, state.values, rounds=t_server),
+        _push_weight(p, state.weight, t_server))
+
+
+def gossip_push_sum_blocked(a: torch.Tensor, state: PushSumState,
+                            t_server: int,
+                            block: int = DEFAULT_GOSSIP_BLOCK
+                            ) -> PushSumState:
+    """Blocked push-sum: the numerator streamed over column blocks of
+    ``block`` (``BlockedGossipBackend.mix_push_sum``), the weight by the
+    matvec."""
+    if t_server == 0:
+        return state
+    return BlockedGossipBackend(None, t_server, block=block).mix_push_sum(
+        state, a)
+
+
+def gossip_push_sum_tv(a_rounds: torch.Tensor,
+                       state: PushSumState) -> PushSumState:
+    """Time-varying push-sum: round t mixes with ``a_rounds[t]'``, a
+    ``(T_S, M, M)`` stack of row-stochastic matrices (``gossip_scan_tv``'s
+    layout).  Each transpose is column stochastic, so both sums are kept."""
+    if a_rounds.shape[0] == 0:
+        return state
+    p_rounds = a_rounds.transpose(1, 2).contiguous()
+    weight = state.weight
+    for t in range(p_rounds.shape[0]):
+        weight = _push_weight(p_rounds[t], weight, 1)
+    return PushSumState(gossip_scan_tv(p_rounds, state.values), weight)
 
 
 # ---------------------------------------------------------------------------
@@ -619,11 +721,13 @@ class ConsensusBackend:
     backend was built with.  ``lam2`` is the optional per-epoch spectral
     estimate, read by ``needs_spectral`` backends (Chebyshev) and ignored
     by the rest.  ``supports_directed`` says whether the update is the
-    literal ``W <- A W`` (so a row-stochastic A is well defined)."""
+    literal ``W <- A W`` (so a row-stochastic A is well defined, and
+    ``mix_push_sum`` runs ratio consensus through the same strategy)."""
 
     name = "?"
     supports_directed = True
     needs_spectral = False
+    staleness = 0
 
     def __init__(self, a_static: Optional[np.ndarray], t_server: int):
         self.a_static = (None if a_static is None
@@ -648,10 +752,49 @@ class ConsensusBackend:
     def _mix(self, tree: Any, a: torch.Tensor) -> Any:
         raise NotImplementedError
 
-    def first_round(self, a_p: Optional[torch.Tensor], m: int, lam2=None):
+    def mix_push_sum(self, state: PushSumState,
+                     a_p: Optional[torch.Tensor] = None) -> PushSumState:
+        """Ratio consensus: the numerator through this backend's strategy
+        with ``P = A'``, the weight by the ``(M,)`` matvec.  Refused where
+        the update is not the literal ``W <- A W``, and under staleness (the
+        exact weight recursion has no delayed twin)."""
+        self._check_push_sum()
+        return PushSumState(self.mix_numerator(state.values, a_p),
+                            self.push_weight(state.weight, a_p))
+
+    def _check_push_sum(self) -> None:
+        if not self.supports_directed:
+            raise ValueError(
+                f"consensus backend {self.name!r} has no ratio-consensus "
+                f"analogue: its value update is not the literal W <- A W, "
+                f"so a numerator/weight pair mixed by it would be "
+                f"inconsistent")
+        if self.staleness:
+            raise ValueError(
+                f"consensus backend {self.name!r} has staleness="
+                f"{self.staleness}, but ratio consensus mixes a "
+                f"numerator/weight PAIR and the exact (M,) weight recursion "
+                f"has no delayed twin — a stale numerator over a fresh "
+                f"weight breaks mass conservation; use staleness=0 with "
+                f"push-sum")
+
+    def mix_numerator(self, tree: Any, a_p: Optional[torch.Tensor] = None
+                      ) -> Any:
+        """The push-sum numerator's period: ``mix`` with ``P = A'``."""
+        return self._mix(tree, _transpose(self._resolve(a_p)))
+
+    def push_weight(self, weight: torch.Tensor,
+                    a_p: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The push-sum weight's period: T_S rounds of ``w <- P w``."""
+        return _push_weight(_transpose(self._resolve(a_p)), weight,
+                            self.t_server)
+
+    def first_round(self, a_p: Optional[torch.Tensor], m: int, lam2=None,
+                    transpose: bool = False):
         """The period split after its first operator: ``(first, rest)``,
         ``first`` the (M, M) operator of the first round (``None`` for an
-        empty period) and ``rest(tree)`` the rest of the period.  The
+        empty period) and ``rest(tree)`` the rest of the period; with
+        ``transpose`` the push-sum numerator's period (``P = A'``).  The
         simulated wire fuses ``first`` into kernel 4."""
         raise NotImplementedError
 
@@ -673,8 +816,9 @@ class GossipBackend(ConsensusBackend):
             return gossip_scan_stale(a, tree, self.t_server, self.staleness)
         return kops.consensus_mix_pytree(a, tree, rounds=self.t_server)
 
-    def first_round(self, a_p, m, lam2=None):
-        return _first_of_rounds(self._resolve(a_p), self.t_server, None)
+    def first_round(self, a_p, m, lam2=None, transpose=False):
+        return _first_of_rounds(self._resolve(a_p), self.t_server, None,
+                                transpose)
 
 
 class BlockedGossipBackend(ConsensusBackend):
@@ -697,15 +841,19 @@ class BlockedGossipBackend(ConsensusBackend):
             return gossip_scan_stale(a, tree, self.t_server, self.staleness)
         return gossip_scan_blocked(a, tree, self.t_server, block=self.block)
 
-    def first_round(self, a_p, m, lam2=None):
+    def first_round(self, a_p, m, lam2=None, transpose=False):
         return _first_of_rounds(self._resolve(a_p), self.t_server,
-                                self.block)
+                                self.block, transpose)
 
 
-def _first_of_rounds(a: torch.Tensor, t_server: int, block: Optional[int]):
-    """``first_round`` of T_S literal rounds of ``a``."""
+def _first_of_rounds(a: torch.Tensor, t_server: int, block: Optional[int],
+                     transpose: bool = False):
+    """``first_round`` of T_S literal rounds of ``a`` (of ``a'`` with
+    ``transpose``)."""
     if t_server == 0:
         return None, lambda tree: tree
+    if transpose:
+        a = _transpose(a)
     return a, lambda tree: kops.consensus_mix_pytree(
         a, tree, rounds=t_server - 1, block=block)
 
@@ -737,8 +885,18 @@ class CollapsedBackend(ConsensusBackend):
         del lam2
         return kops.consensus_mix_pytree(self._eff(a_p), tree, rounds=1)
 
-    def first_round(self, a_p, m, lam2=None):
-        return self._eff(a_p), lambda tree: tree
+    # push-sum: (A^{T_S})' == (A')^{T_S}, one collapsed round of the
+    # transpose for the numerator and for the weight
+    def mix_numerator(self, tree, a_p=None):
+        return kops.consensus_mix_pytree(_transpose(self._eff(a_p)), tree,
+                                         rounds=1)
+
+    def push_weight(self, weight, a_p=None):
+        return _push_weight(_transpose(self._eff(a_p)), weight, 1)
+
+    def first_round(self, a_p, m, lam2=None, transpose=False):
+        eff = self._eff(a_p)
+        return (_transpose(eff) if transpose else eff), lambda tree: tree
 
 
 class ChebyshevBackend(ConsensusBackend):
@@ -770,7 +928,7 @@ class ChebyshevBackend(ConsensusBackend):
                              "matrix; pass (a_p, lam2) per call")
         return gossip_chebyshev(a, tree, self.rounds, lam2)
 
-    def first_round(self, a_p, m, lam2=None):
+    def first_round(self, a_p, m, lam2=None, transpose=False):
         # the recursion reads the decoded message itself (w_0), so the
         # simulated wire's kernel-4 pass decodes on A = I (exact) and the
         # whole recursion follows
@@ -789,7 +947,7 @@ class ExactMeanBackend(ConsensusBackend):
         return tree_map(lambda x: x.mean(dim=0, keepdim=True).expand(x.shape),
                         tree)
 
-    def first_round(self, a_p, m, lam2=None):
+    def first_round(self, a_p, m, lam2=None, transpose=False):
         return torch.full((m, m), 1.0 / m), lambda tree: tree
 
 
@@ -879,22 +1037,31 @@ class CompressedBackend(ConsensusBackend):
         self.needs_spectral = inner.needs_spectral
 
     def _mix_simulated(self, tree: Any, a_p: Optional[torch.Tensor], *,
-                       residual: Optional[Any], key, lam2=None):
-        """One simulated-wire period: ``(mixed tree, new EF residual)``."""
+                       residual: Optional[Any], key, lam2=None,
+                       push_sum: bool = False):
+        """One simulated-wire period: ``(mixed tree, new EF residual)``;
+        with ``push_sum`` the inner backend's numerator period (``P =
+        A'``)."""
         codec = self.compressor
+
+        def period(msg):
+            if push_sum:
+                return self.inner.mix_numerator(msg, a_p)
+            return self.inner.mix(msg, a_p, lam2=lam2)
+
         if residual is not None and self.error_feedback:
             msg, residual = ef_roundtrip(codec, tree, residual, key)
-            return self.inner.mix(msg, a_p, lam2=lam2), residual
+            return period(msg), residual
         leaves, treedef = tree_flatten(tree)
         if not isinstance(codec, _compressors.StochasticQuantizer) or any(
                 leaf.dtype != torch.float32 for leaf in leaves):
             # the reference rounds a bf16 message to bf16 before it mixes
             # it, so only an f32 tree fuses the first operator
             msg = _compressors.roundtrip_tree(codec, tree, key)
-            return self.inner.mix(msg, a_p, lam2=lam2), residual
+            return period(msg), residual
         # the round trip and the first operator in one pass of kernel 4
         first, rest = self.inner.first_round(a_p, leaves[0].shape[0],
-                                             lam2=lam2)
+                                             lam2=lam2, transpose=push_sum)
         mixed = [codec.mix(leaf, None if key is None else prng.fold_in(key, i),
                            first) for i, leaf in enumerate(leaves)]
         return rest(tree_unflatten(treedef, mixed)), residual
@@ -957,8 +1124,34 @@ class CompressedBackend(ConsensusBackend):
                                self.staleness, shipped=shipped, dtype=dtype)
         return _bucket_split(out, leaves, treedef, via=dtype), residual
 
+    def mix_push_sum_compressed(self, state: PushSumState,
+                                a_p: Optional[torch.Tensor] = None, *,
+                                residual: Optional[Any] = None, key=None):
+        """One compressed push-sum period: ``(PushSumState, new EF
+        residual)``.  The numerator rides the wire — on the simulated wire
+        the inner backend's numerator period of the decoded messages (kernel
+        4 fusing the round trip with ``P``), on the physical wire the codes
+        of every round under ``P`` — and the ``(M,)`` weight recursion stays
+        exact."""
+        if not self.supports_directed:
+            raise ValueError(f"consensus backend {self.name!r} has no "
+                             f"ratio-consensus analogue")
+        if self.wire == "physical":
+            values, residual = self.mix_compressed(
+                state.values, _transpose(self._resolve(a_p)),
+                residual=residual, key=key)
+        else:
+            values, residual = self._mix_simulated(
+                state.values, a_p, residual=residual, key=key,
+                push_sum=True)
+        return PushSumState(values, self.inner.push_weight(state.weight,
+                                                           a_p)), residual
+
     def mix(self, tree, a_p=None, lam2=None):
         return self.mix_compressed(tree, a_p, lam2=lam2)[0]
+
+    def mix_push_sum(self, state, a_p=None):
+        return self.mix_push_sum_compressed(state, a_p)[0]
 
 
 _LATER = {

@@ -30,6 +30,13 @@ keyed by the reference's rng stream: ``DFLState.wire_key`` holds threefry key da
 once per local step, then once for the consensus key (``dfl.py:637`` of the
 reference) — so the port's codes are the reference's on either wire.
 
+Directed federation (``DFLConfig(mixing="push_sum")``): each consensus
+period is a fresh ratio consensus (``consensus.init_push_sum``: the
+numerator is the epoch's server aggregates, the weight 1) over the
+column-stochastic ``P = A'`` of the topology's row-stochastic A; the
+servers take the ratio, and the period's terminal weight rides along in
+``DFLState.psum_weight`` as a diagnostic.
+
 Dynamic federation (``DFLConfig.dynamic=True``): the epoch step takes a
 third operand, a ``schedule.EpochSchedule`` of tensors on the state's
 device — the ``(M, N)`` participation mask, the epoch's ``(M, M)`` mixing
@@ -70,7 +77,10 @@ class DFLState(NamedTuple):
     per-server compression residual (leaves (M, *w)) under compressed
     consensus with error feedback, else ``None``.  ``wire_key`` is the
     threefry key data (``comm.prng``) the wire's dither is keyed from,
-    split as the reference splits its rng; ``None`` when nothing uses it."""
+    split as the reference splits its rng; ``None`` when nothing uses it.
+    ``psum_weight`` is the last push-sum period's terminal ``(M,)`` weight
+    under ``mixing='push_sum'`` (ones before the first), else ``None``; it
+    never seeds the next period."""
 
     client_params: Any
     opt_state: Any
@@ -78,6 +88,7 @@ class DFLState(NamedTuple):
     rng: Optional[torch.Generator] = None
     ef_residual: Optional[Any] = None
     wire_key: Optional[np.ndarray] = None
+    psum_weight: Optional[torch.Tensor] = None
 
 
 class DFLMetrics(NamedTuple):
@@ -97,7 +108,9 @@ class DFLConfig:
     consensus_mode: str = "gossip"   # gossip | gossip_blocked | collapsed | chebyshev | exact_mean | none
     # "symmetric": A doubly stochastic (Eq. 6), the paper.
     # "row_stochastic": naive directed gossip with the same W <- A W update
-    # (converges to the Perron-weighted average).  push_sum is a later slice.
+    # (converges to the Perron-weighted average).
+    # "push_sum": ratio consensus with P = A' (unbiased on a directed graph;
+    # the terminal weights in DFLState.psum_weight).
     mixing: str = "symmetric"
     # Chebyshev products a period (default ceil(sqrt(T_S)))
     chebyshev_rounds: Optional[int] = None
@@ -333,27 +346,30 @@ def build_dfl_epoch_step(
     topo = cfg.topology
     m, n = topo.num_servers, topo.clients_per_server
     grid = (m, n)
-    if cfg.mixing == "push_sum":
-        raise NotImplementedError(
-            "mixing='push_sum' arrives with directed federation (push-sum), "
-            "a later slice (ROADMAP.md)")
     if cfg.byzantine is not None:
         raise NotImplementedError(
             "DFLConfig.byzantine: the Byzantine injection arrives with the "
             "robust-gossip slice (ROADMAP.md)")
-    if cfg.mixing not in ("symmetric", "row_stochastic"):
+    if cfg.mixing not in ("symmetric", "row_stochastic", "push_sum"):
         raise ValueError(f"unknown mixing interpretation {cfg.mixing!r}")
     if cfg.mixing == "symmetric" and topo.mixing == "out_degree" and m > 1:
         raise ValueError(
             "topology.mixing='out_degree' emits a row-stochastic (generally "
             "not doubly stochastic) A: running it through the symmetric "
             "gossip path would silently converge to the biased "
-            "Perron-weighted average — choose mixing='row_stochastic' (the "
-            "explicit biased baseline)")
+            "Perron-weighted average — choose DFLConfig(mixing='push_sum') "
+            "(unbiased) or mixing='row_stochastic' (the explicit biased "
+            "baseline)")
     if cfg.metrics not in ("full", "light"):
         raise ValueError(f"unknown metrics level {cfg.metrics!r}")
     if cfg.staleness < 0:
         raise ValueError(f"staleness must be >= 0, got {cfg.staleness}")
+    if cfg.staleness and cfg.mixing == "push_sum":
+        raise ValueError(
+            "bounded staleness is undefined under mixing='push_sum': the "
+            "exact (M,) weight recursion has no delayed twin, so a stale "
+            "numerator over a fresh weight breaks mass conservation — use "
+            "staleness=0 or a symmetric/row_stochastic mixing")
     if cfg.staleness and cfg.consensus_mode == "none":
         raise ValueError("staleness > 0 with consensus_mode='none' is "
                          "meaningless: there are no gossip rounds to delay")
@@ -368,19 +384,23 @@ def build_dfl_epoch_step(
         raise ValueError(
             f"consensus backend {backend.name!r} is undefined for "
             f"mixing={cfg.mixing!r}: the directed paths need the literal "
-            f"W <- A W update")
+            f"W <- A W / ratio-consensus update — use one of ('gossip', "
+            f"'gossip_blocked', 'collapsed', 'none')")
     n_micro = max(cfg.grad_microbatches, 1)
     full = cfg.metrics == "full"
+    push_sum = cfg.mixing == "push_sum"
 
     def client_grad(p_ij, batch_ij, rng):
         """(loss, grads) of one client at its own params, averaged over
-        ``n_micro`` sequential microbatches."""
+        ``n_micro`` sequential microbatches.  A leaf the loss never reads
+        (a mamba block's ``ln2``) gets a zero gradient, as ``jax.grad``
+        gives it."""
         leaves, treedef = tree_flatten(p_ij)
         live = [leaf.detach().requires_grad_(True) for leaf in leaves]
         params = tree_unflatten(treedef, live)
         if n_micro == 1:
             loss, _aux = loss_fn(params, batch_ij, rng)
-            grads = torch.autograd.grad(loss, live)
+            grads = torch.autograd.grad(loss, live, materialize_grads=True)
             return loss.detach(), tree_unflatten(treedef, list(grads))
 
         def split(leaf):
@@ -396,7 +416,7 @@ def build_dfl_epoch_step(
         for k in range(n_micro):
             mloss, _aux = loss_fn(params, tree_map(lambda x: x[k], micro),
                                   rng)
-            g = torch.autograd.grad(mloss, live)
+            g = torch.autograd.grad(mloss, live, materialize_grads=True)
             # accumulate in the PARAM dtype, each microgradient scaled by
             # 1/n first, as the reference does
             acc = [a + (x / n_micro).to(a.dtype) for a, x in zip(acc, g)]
@@ -487,15 +507,31 @@ def build_dfl_epoch_step(
             # the wire key follows the reference's rng: one split per local
             # step, then the consensus key split off
             key, ef_res = state.wire_key, state.ef_residual
+            psw = state.psum_weight
             if key is not None:
                 for _ in range(tree_leaves(batches)[0].shape[0]):
                     key = prng.split(key)[0]
+            ckey = None
             if compressed:
                 if key is None:
                     raise ValueError("compressed consensus needs "
                                      "DFLState.wire_key (init_dfl_state's "
                                      "wire_key=prng.key(seed))")
                 key, ckey = prng.split(key)
+            if push_sum and m > 1 and topo.t_server > 0 \
+                    and backend is not None:
+                # a fresh ratio consensus each period: numerator = this
+                # epoch's aggregates, weight 1 (the carried weight is a
+                # diagnostic, never a seed)
+                ps = cns.init_push_sum(server)
+                if compressed:
+                    ps, ef_res = backend.mix_push_sum_compressed(
+                        ps, a_p, residual=ef_res, key=ckey)
+                else:
+                    ps = backend.mix_push_sum(ps, a_p)
+                server, psw = ps.ratio(), ps.weight
+                del ps
+            elif compressed:
                 server, ef_res = backend.mix_compressed(
                     server, a_p, residual=ef_res, key=ckey, lam2=lam2)
             elif m > 1 and topo.t_server > 0 and backend is not None:
@@ -509,7 +545,7 @@ def build_dfl_epoch_step(
             del server
 
         new_state = DFLState(params, opt_state, state.epoch + 1, state.rng,
-                             ef_res, key)
+                             ef_res, key, psw)
         return new_state, DFLMetrics(loss=losses,
                                      server_disagreement=disagreement,
                                      client_drift=drift, grad_norm=gnorm)
@@ -545,7 +581,8 @@ def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
     Under compressed consensus ``wire_key`` (threefry key data, e.g.
     ``prng.key(seed)`` where the reference passes ``jax.random.key(seed)``)
     is required, and error feedback adds a zero residual (leaves
-    ``(M, *w)``)."""
+    ``(M, *w)``).  Under ``mixing='push_sum'`` the state carries a unit
+    per-server weight."""
     topo = cfg.topology
     client_params = replicate_to_clients(params, topo.num_servers,
                                          topo.clients_per_server)
@@ -558,9 +595,12 @@ def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
             ef = tree_map(lambda p: torch.zeros(
                 (topo.num_servers,) + tuple(p.shape), dtype=p.dtype,
                 device=p.device), params)
+    psw = (torch.ones((topo.num_servers,), dtype=torch.float32,
+                      device=tree_leaves(client_params)[0].device)
+           if cfg.mixing == "push_sum" else None)
     return DFLState(client_params, optimizer.init(client_params), 0, rng,
                     ef, None if wire_key is None else np.asarray(
-                        wire_key, dtype=np.uint32))
+                        wire_key, dtype=np.uint32), psw)
 
 
 # ---------------------------------------------------------------------------

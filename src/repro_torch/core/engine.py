@@ -18,8 +18,9 @@ The epoch step updates the state's buffers in place, so surgery allocates
 new ``(M±1, ...)`` tensors and keeps no reference to the old ones: once the
 caller drops the old state, its memory is free.  A rejoining server
 re-enters at the last row with the survivors' mean model.  Surgery resets
-the ``SigmaTracker`` (its product is over the old federation) and the
-error-feedback residual (wire state of the old federation); the
+the ``SigmaTracker`` (its product is over the old federation), the
+error-feedback residual (wire state of the old federation) and, under
+``mixing='push_sum'``, the push-sum weight to ones at the new M; the
 ``BytesTracker`` ledger runs on across it.
 
 ``superepoch=K > 1``: ``run`` plans blocks of up to K epochs, cut at fault
@@ -103,8 +104,8 @@ class DynamicFederationEngine:
             raise ValueError(
                 "TopologySchedule(kind='asymmetric') emits row-stochastic "
                 "A_p: the symmetric gossip path would silently converge to "
-                "a biased average — use DFLConfig(mixing='row_stochastic') "
-                "(push-sum, the unbiased path, is a later slice)")
+                "a biased average — use DFLConfig(mixing='push_sum') or "
+                "mixing='row_stochastic'")
         if self.cfg.byzantine is not None:
             raise NotImplementedError(
                 "DFLConfig.byzantine: the Byzantine injection arrives with "
@@ -128,7 +129,10 @@ class DynamicFederationEngine:
         # the wire ledger (None when the wire is exact): one across the whole
         # run, through fault surgery
         self._compressor = dfl.active_compressor(self.cfg)
+        # push-sum's (M,) weight adds 4 bytes a message on the simulated
+        # wire's ledger; on the physical wire it never crosses
         self._bytes = (BytesTracker(self._compressor,
+                                    push_sum=self.cfg.mixing == "push_sum",
                                     wire=dfl.active_wire(self.cfg)[0])
                        if self._compressor is not None else None)
         self._row_bytes: Dict[int, Tuple[int, int]] = {}
@@ -138,8 +142,19 @@ class DynamicFederationEngine:
                                     and backend.needs_spectral)
 
     def _fresh_tracker(self) -> SigmaTracker:
-        return SigmaTracker(self.topo.num_servers,
+        mode = "push_sum" if self.cfg.mixing == "push_sum" else "average"
+        return SigmaTracker(self.topo.num_servers, mode=mode,
                             staleness=self.cfg.staleness)
+
+    def _reset_psum_weight(self, state: dfl.DFLState) -> dfl.DFLState:
+        """Push-sum weights are mass fractions of the CURRENT federation:
+        after surgery they restart at one, a new tensor at the new M (every
+        period starts from unit weight anyway)."""
+        if self.cfg.mixing != "push_sum":
+            return state
+        device = tree_leaves(state.client_params)[0].device
+        return state._replace(psum_weight=torch.ones(
+            (self.topo.num_servers,), dtype=torch.float32, device=device))
 
     def _reset_ef_residual(self, state: dfl.DFLState) -> dfl.DFLState:
         """Error-feedback residuals are wire state of the old federation
@@ -220,7 +235,7 @@ class DynamicFederationEngine:
                              tree_map(leaf, state.opt_state), state.epoch,
                              state.rng, None, state.wire_key)
         self._tracker = self._fresh_tracker()
-        return self._reset_ef_residual(state)
+        return self._reset_ef_residual(self._reset_psum_weight(state))
 
     def _rejoin(self, state: dfl.DFLState,
                 server: Optional[int]) -> dfl.DFLState:
@@ -249,7 +264,7 @@ class DynamicFederationEngine:
                              tree_map(leaf, state.opt_state), state.epoch,
                              state.rng, None, state.wire_key)
         self._tracker = self._fresh_tracker()
-        return self._reset_ef_residual(state)
+        return self._reset_ef_residual(self._reset_psum_weight(state))
 
     def apply_faults(self, state: dfl.DFLState, epoch: int) -> dfl.DFLState:
         for ev in self.faults.at(epoch):
@@ -272,16 +287,21 @@ class DynamicFederationEngine:
         return EpochSchedule(mask_np, a_np, lam2), sigma_prod
 
     def _record(self, mask_np: np.ndarray, loss_last, disagreement, drift,
-                sigma_prod: float) -> Dict[str, float]:
+                sigma_prod: float, psw=None) -> Dict[str, float]:
         # participant-weighted loss of the last local iteration
         last = np.asarray(loss_last, np.float32)
         w = mask_np if mask_np.sum() else np.ones_like(mask_np)
-        return {"loss": float((last * w).sum() / w.sum()),
-                "disagreement": float(disagreement),
-                "drift": float(drift),
-                "participation": float(mask_np.mean()),
-                "num_servers": float(self.topo.num_servers),
-                "sigma_prod": sigma_prod}
+        record = {"loss": float((last * w).sum() / w.sum()),
+                  "disagreement": float(disagreement),
+                  "drift": float(drift),
+                  "participation": float(mask_np.mean()),
+                  "num_servers": float(self.topo.num_servers),
+                  "sigma_prod": sigma_prod}
+        if psw is not None:
+            # ratio-consensus conditioning: a terminal weight near 0 means
+            # that server's num / w read-out amplified rounding
+            record["psum_min_weight"] = float(np.min(np.asarray(psw)))
+        return record
 
     def run_epoch(self, state: dfl.DFLState, epoch: int,
                   batch_fn: BatchFn) -> Tuple[dfl.DFLState, Dict[str, float]]:
@@ -301,10 +321,11 @@ class DynamicFederationEngine:
                 plan.mixing, self.topo.t_server, row_bytes=row_bytes,
                 elems_per_row=elems)
         state, metrics = self._step()(state, batches, sched)
-        # ONE device-to-host transfer for the whole metrics struct
-        mh = self._device_get(metrics)
+        # ONE device-to-host transfer for the metrics and the push-sum
+        # weight
+        mh, psw_h = self._device_get((metrics, state.psum_weight))
         record = self._record(plan.mask, mh.loss[-1], mh.server_disagreement,
-                              mh.client_drift, sigma_prod)
+                              mh.client_drift, sigma_prod, psw_h)
         if epoch_wire_bytes is not None:
             # this epoch's own bytes (0.0 for an epoch without rounds) and
             # the cumulative ratio
@@ -362,14 +383,15 @@ class DynamicFederationEngine:
             wire = self._bytes.update_many(
                 [p.mixing for p in plans], self.topo.t_server,
                 row_bytes=row_bytes, elems_per_row=elems)
-        state, metrics = self._super_step(k)(state, batches, sched)
+        state, metrics, psw = self._super_step(k)(state, batches, sched)
         # the block's ONLY device-to-host transfer
-        mh = self._device_get(metrics)
+        mh, psw_h = self._device_get((metrics, psw))
         records = []
         for i in range(k):
             record = self._record(plans[i].mask, mh.loss[i][-1],
                                   mh.server_disagreement[i],
-                                  mh.client_drift[i], sigmas[i])
+                                  mh.client_drift[i], sigmas[i],
+                                  None if psw_h is None else psw_h[i])
             if wire is not None:
                 epoch_bytes, ratio_after, _ = wire[i]
                 record["wire_mb"] = epoch_bytes / 1e6
@@ -427,8 +449,8 @@ def make_engine(topology: FLTopology, loss_fn: dfl.LossFn,
         state, history = engine.run(state, 40, task["batch_fn"])
 
     ``history`` maps metric name -> per-epoch list (loss, disagreement,
-    drift, participation, num_servers, sigma_prod, and wire_mb /
-    wire_ratio under compression).  ``superepoch=K`` is an engine knob:
+    drift, participation, num_servers, sigma_prod, psum_min_weight under
+    ``mixing="push_sum"``, and wire_mb / wire_ratio under compression).  ``superepoch=K`` is an engine knob:
     blocks of up to K epochs a dispatch, the same history at any K."""
     cfg = dfl.DFLConfig(topology=topology, consensus_mode=consensus_mode,
                         dynamic=True, **cfg_kw)

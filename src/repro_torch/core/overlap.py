@@ -82,15 +82,18 @@ def build_dfl_superepoch_step(
     optimizer: Optimizer,
     k: int,
 ) -> Callable[[dfl.DFLState, Any, EpochScheduleBatch],
-              Tuple[dfl.DFLState, dfl.DFLMetrics]]:
+              Tuple[dfl.DFLState, dfl.DFLMetrics,
+                    Optional[torch.Tensor]]]:
     """Return ``superepoch_step(state, batches, sched_batch) -> (state,
-    stacked_metrics)``: K epochs of the dynamic epoch step in one call.
+    stacked_metrics, psum_weights)``: K epochs of the dynamic epoch step in
+    one call.
 
     ``batches`` leaves are ``(K, T_C, M, N, *per_client_batch)``;
     ``sched_batch`` is the matching ``EpochScheduleBatch`` of tensors on the
     state's device.  ``stacked_metrics`` is ``dfl.DFLMetrics`` with a
-    leading K axis on every leaf, left on the device.  (The reference also
-    returns the per-epoch push-sum weights; push-sum is a later slice.)"""
+    leading K axis on every leaf, left on the device; ``psum_weights`` is
+    the ``(K, M)`` per-epoch terminal push-sum weight under
+    ``mixing='push_sum'`` (the state keeps only the last), else ``None``."""
     if k < 1:
         raise ValueError(f"superepoch length must be >= 1, got {k}")
     if not cfg.dynamic:
@@ -101,7 +104,7 @@ def build_dfl_superepoch_step(
 
     def superepoch_step(state: dfl.DFLState, batches: Any,
                         sched_batch: EpochScheduleBatch):
-        per_epoch = []
+        per_epoch, weights = [], []
         for i in range(k):
             sched = EpochSchedule(
                 sched_batch.mask[i], sched_batch.mixing[i],
@@ -110,8 +113,10 @@ def build_dfl_superepoch_step(
             state, metrics = epoch_step(
                 state, tree_map(lambda x, i=i: x[i], batches), sched)
             per_epoch.append(metrics)
+            weights.append(state.psum_weight)
         stacked = dfl.DFLMetrics(*(torch.stack(xs)
                                    for xs in zip(*per_epoch)))
-        return state, stacked
+        psw = None if weights[0] is None else torch.stack(weights)
+        return state, stacked, psw
 
     return superepoch_step

@@ -20,8 +20,7 @@ consumes their output as per-epoch operands on the state's device:
 
 Every sampler draws from ``numpy.random.default_rng((seed, epoch))``, as
 the reference does, so masks, matrices and traces equal the reference's
-exactly.  Still to come, each refused with the slice that brings it:
-``SigmaTracker(mode="push_sum")`` (directed federation) and
+exactly.  Still to come, refused with the slice that brings it:
 ``ByzantineAttack`` / ``ByzantineSchedule`` (the Byzantine injection, with
 the robust screens).
 """
@@ -300,16 +299,15 @@ class TopologySchedule:
                     ``(1 - weaken)`` of their weight, the rest returning to
                     the SENDER's self-loop
                     (``topology.weaken_directed_links``) — one-sided slow
-                    links, not dead ones.  Legal here only with
-                    ``DFLConfig(mixing="row_stochastic")``, the biased
-                    baseline, until push-sum (the unbiased directed path)
-                    is ported.
+                    links, not dead ones.  Legal only with a directed
+                    mixing: ``DFLConfig(mixing="push_sum")`` (unbiased) or
+                    ``"row_stochastic"`` (the biased baseline).
 
     Under the first three kinds every emitted A_p is symmetric doubly
     stochastic (Eq. 6 without the fixed-support clause), so each epoch's
     gossip preserves the server mean; under ``asymmetric`` the A_p are only
     row stochastic and plain gossip is biased (push-sum's ratio read-out
-    restores the mean in the reference).  Contraction over a run is
+    restores the mean).  Contraction over a run is
     tracked by ``SigmaTracker``.
     """
 
@@ -371,23 +369,24 @@ class TopologySchedule:
 class SigmaTracker:
     """Host-side product-contraction tracking for time-varying gossip.
 
-    Accumulates ``P <- A_p^{T_S} P`` across epochs (symmetric,
-    doubly-stochastic gossip); ``sigma()`` is ``||P - 11'/M||_2``, the
-    factor by which the initial server disagreement has provably contracted
-    so far (Lemma 1 with a matrix product in place of a power).
+    ``mode="average"`` (symmetric, doubly-stochastic gossip): accumulates
+    ``P <- A_p^{T_S} P`` across epochs; ``sigma()`` is ``||P - 11'/M||_2``,
+    the factor by which the initial server disagreement has provably
+    contracted so far (Lemma 1 with a matrix product in place of a power).
+
+    ``mode="push_sum"`` (directed, row-stochastic A_p): accumulates the
+    column-stochastic ``P <- (A_p')^{T_S} P``; ``sigma()`` is
+    ``topology.push_sum_deviation(P)``, the contraction of the ratio
+    read-out, which goes to 0 under joint strong connectivity although P
+    itself tends to a skewed rank-one ``v 1'``.
 
     ``staleness`` is the bounded-staleness depth s of the consensus period:
     only one round in every s + 1 advances the chain, so an epoch
     contributes ``A_p^(T_S // (s + 1))``.  Reset on topology surgery (M
-    changes).  ``mode="push_sum"`` (the directed tracker) arrives with
-    directed federation."""
+    changes)."""
 
     def __init__(self, m: int, mode: str = "average", *, staleness: int = 0):
-        if mode == "push_sum":
-            raise NotImplementedError(
-                "SigmaTracker(mode='push_sum') arrives with directed "
-                "federation (push-sum), a later slice (ROADMAP.md)")
-        if mode != "average":
+        if mode not in ("average", "push_sum"):
             raise ValueError(f"unknown SigmaTracker mode {mode!r}")
         if staleness < 0:
             raise ValueError(f"staleness must be >= 0, got {staleness}")
@@ -398,11 +397,15 @@ class SigmaTracker:
 
     def update(self, a: np.ndarray, t_server: int) -> float:
         op = np.asarray(a, np.float64)
+        if self.mode == "push_sum":
+            op = op.T
         rounds = t_server // (self.staleness + 1)
         self.prod = np.linalg.matrix_power(op, rounds) @ self.prod
         return self.sigma()
 
     def sigma(self) -> float:
+        if self.mode == "push_sum":
+            return tp.push_sum_deviation(self.prod)
         return tp.consensus_deviation(self.prod)
 
 

@@ -25,14 +25,19 @@ Dynamic federation (``train_dynamic``, through
 ``core.engine.DynamicFederationEngine``): ``--participation-rate``,
 ``--participation-kind``, ``--participation-trace``, ``--edge-drop-prob``,
 ``--straggler-weaken``, ``--asymmetric-drop-prob`` (with ``--mixing
-row_stochastic``) and ``--faults drop:EPOCH:SERVER,rejoin:EPOCH:SERVER``.
-Any of them away from its default sends the run to ``train_dynamic``, as
-do ``--superepoch K > 1`` (K epochs a dispatch) and ``--staleness s > 0``
-(gossip round t mixes round t - s: plain rounds through kernel 1, or the
-physical wire's codes through kernel 8).  Both drivers print the same
-epoch line.  ``--byzantine`` parses and raises: the Byzantine
-injection comes with the robust-gossip slice, and ``--mixing push_sum``
-with directed federation.
+push_sum`` or ``row_stochastic``) and ``--faults
+drop:EPOCH:SERVER,rejoin:EPOCH:SERVER``.  Any of them away from its default
+sends the run to ``train_dynamic``, as do ``--superepoch K > 1`` (K epochs
+a dispatch) and ``--staleness s > 0`` (gossip round t mixes round t - s:
+plain rounds through kernel 1, or the physical wire's codes through kernel
+8).  Both drivers print the same epoch line.
+
+``--mixing push_sum`` (either driver) is directed federation: the topology
+takes row-stochastic out-degree weights, each period is ratio consensus
+with ``P = A'`` (kernel 1 every round, or the wires under ``P``), and the
+record adds ``psum_min_weight``, the smallest terminal push-sum weight.
+``--byzantine`` parses and raises: the Byzantine injection comes with the
+robust-gossip slice.
 """
 from __future__ import annotations
 
@@ -61,10 +66,10 @@ from repro_torch.optim import sgd
 from repro_torch.tree import tree_leaves
 
 _ORDER = ("loss", "disagreement", "drift", "sigma_prod", "num_servers",
-          "participation", "wire_mb", "wire_ratio")
+          "participation", "psum_min_weight", "wire_mb", "wire_ratio")
 _FMT = {"loss": ".4f", "disagreement": ".3e", "drift": ".3e",
         "sigma_prod": ".3f", "num_servers": ".0f", "participation": ".2f",
-        "wire_mb": ".1f", "wire_ratio": ".2f"}
+        "psum_min_weight": ".3f", "wire_mb": ".1f", "wire_ratio": ".2f"}
 
 
 def resolve_device(device: str) -> torch.device:
@@ -121,7 +126,9 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
                            torch.Generator(device=dev).manual_seed(seed + 1),
                            wire_key=prng.key(seed + 1))
     del params
-    sigma = SigmaTracker(topo.num_servers, staleness=staleness)
+    sigma = SigmaTracker(topo.num_servers, staleness=staleness,
+                         mode="push_sum" if mixing == "push_sum"
+                         else "average")
     a_np = (topo.mixing_matrix() if topo.num_servers > 1
             else np.ones((1, 1)))
     history: dict = {}
@@ -138,6 +145,8 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
             "sigma_prod": sigma.update(a_np, topo.t_server),
             "epoch_s": time.perf_counter() - t0,
         }
+        if state.psum_weight is not None:
+            rec["psum_min_weight"] = float(state.psum_weight.min())
         if ledger is not None:
             rec["wire_mb"] = ledger.update() / 1e6
             rec["wire_ratio"] = ledger.tracker.ratio()
@@ -194,7 +203,8 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
     ``participation_kind`` bernoulli | fixed_k | round_robin, or a JSONL
     ``participation_trace``), per-epoch degraded graphs
     (``edge_drop_prob``, ``straggler_weaken``, or ``asymmetric_drop_prob``
-    with ``mixing="row_stochastic"``), and scheduled server drop/rejoin
+    with ``mixing="push_sum"`` or ``"row_stochastic"``), and scheduled
+    server drop/rejoin
     (``faults``, ``"drop:EPOCH:SERVER,rejoin:EPOCH:SERVER"``).
     ``superepoch=K`` runs blocks of K epochs a dispatch (the same
     history); ``staleness=s`` lets round t mix round t - s.  The record of
@@ -327,15 +337,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--gamma", type=float, default=0.05)
     p.add_argument("--graph", default="ring",
-                   choices=("ring", "complete", "star", "line"))
+                   choices=("ring", "complete", "star", "line", "erdos_renyi",
+                            "directed_ring", "random_orientation"))
     p.add_argument("--consensus-mode", default="gossip",
                    choices=("gossip", "gossip_blocked", "collapsed",
                             "chebyshev", "exact_mean", "none"))
     p.add_argument("--mixing", default="symmetric",
                    choices=("symmetric", "row_stochastic", "push_sum"),
-                   help="symmetric doubly-stochastic gossip (the paper) or "
-                        "naive row-stochastic gossip (directed, biased); "
-                        "push_sum is a later slice and raises")
+                   help="symmetric doubly-stochastic gossip (the paper), "
+                        "naive row-stochastic gossip (directed, biased) or "
+                        "push-sum ratio consensus (directed, unbiased)")
     p.add_argument("--compression", default="none",
                    help="none | int8[:chunk] | int4[:chunk] | top_k:ratio | "
                         "random_k:ratio: compress the gossip messages")
@@ -373,11 +384,11 @@ def build_parser() -> argparse.ArgumentParser:
                      help="per-epoch probability that each server link fails")
     dyn.add_argument("--straggler-weaken", type=float, default=0.0,
                      help="weight fraction removed from one random link an "
-                          "epoch (with --mixing row_stochastic: from one "
-                          "link direction)")
+                          "epoch (with --mixing push_sum/row_stochastic: "
+                          "from one link direction)")
     dyn.add_argument("--asymmetric-drop-prob", type=float, default=0.0,
                      help="per-epoch probability that each link DIRECTION "
-                          "fails (with --mixing row_stochastic)")
+                          "fails (with --mixing push_sum/row_stochastic)")
     dyn.add_argument("--faults", default="",
                      help="server fault schedule, e.g. 'drop:5:1,rejoin:9:1'")
     dyn.add_argument("--byzantine", default="",

@@ -131,10 +131,14 @@ def block_init(gen, cfg: ArchConfig, kind: str, dtype=torch.float32,
                is_moe: bool = False) -> Dict:
     """One block's parameters.  A ``mamba`` block keeps the reference's
     ``ln2`` leaf, which its forward never reads when it has no FFN; a block
-    has an MoE ``ffn`` when ``is_moe``, else a dense one when ``d_ff > 0``,
-    so the tree has the reference's key paths.  A non-mamba block of an MLA
-    config has the MLA mixer.  ``cross`` (an encoder-decoder's decoder
-    block) adds ``cross_ln`` and ``cross_attn``."""
+    has an MoE ``ffn`` when ``is_moe``, else a dense one when ``d_ff > 0``
+    and its kind is not ``mamba_only``, so the tree has the reference's key
+    paths.  A non-mamba block of an MLA config has the MLA mixer.  As in the
+    reference's code, a ``mamba_only`` block is the ATTENTION (or MLA) mixer
+    with global attention and no FFN: only ``kind == "mamba"`` selects the
+    SSM mixer, and only ``"local"`` a window.  ``cross`` (an
+    encoder-decoder's decoder block) adds ``cross_ln`` and
+    ``cross_attn``."""
     d = cfg.d_model
     p: Dict[str, Any] = {"ln1": nn.rmsnorm_init(d, dtype, device),
                          "ln2": nn.rmsnorm_init(d, dtype, device)}
@@ -146,7 +150,7 @@ def block_init(gen, cfg: ArchConfig, kind: str, dtype=torch.float32,
         p["mixer"] = nn.attention_init(gen, cfg, dtype, device)
     if is_moe:
         p["ffn"] = nn.moe_init(gen, cfg, dtype, device)
-    elif cfg.d_ff > 0:
+    elif cfg.d_ff > 0 and kind != "mamba_only":
         p["ffn"] = nn.mlp_init(gen, d, cfg.d_ff, dtype, device)
     if cfg.final_logit_softcap is not None:  # gemma2 family: post-norms
         p["post_ln1"] = nn.rmsnorm_init(d, dtype, device)

@@ -160,9 +160,18 @@ def test_microbatches_momentum_and_light_metrics_match_reference():
 def test_builder_refuses_what_the_slice_does_not_port():
     topo, _ = _setup(m=3, n=2, t_c=2, t_s=2)
     loss = make_regression_task(topo)["loss_fn"]
-    with pytest.raises(NotImplementedError, match="push_sum"):
+    # push-sum builds, as the reference's does, and refuses staleness and
+    # a backend whose update is not W <- A W (the reference's refusals)
+    tdfl.build_dfl_epoch_step(
+        tdfl.DFLConfig(topology=topo, mixing="push_sum"), loss, sgd(0.1))
+    with pytest.raises(ValueError, match="push_sum"):
         tdfl.build_dfl_epoch_step(
-            tdfl.DFLConfig(topology=topo, mixing="push_sum"), loss, sgd(0.1))
+            tdfl.DFLConfig(topology=topo, mixing="push_sum", staleness=1),
+            loss, sgd(0.1))
+    with pytest.raises(ValueError, match="undefined"):
+        tdfl.build_dfl_epoch_step(
+            tdfl.DFLConfig(topology=topo, mixing="push_sum",
+                           consensus_mode="chebyshev"), loss, sgd(0.1))
     with pytest.raises(ValueError, match="directed"):
         tdfl.build_dfl_epoch_step(
             tdfl.DFLConfig(topology=topo, consensus_mode="exact_mean",

@@ -444,8 +444,14 @@ def test_later_slices_are_refused_by_name():
         tsched.ByzantineSchedule.parse("sign_flip:0.25")
     with pytest.raises(NotImplementedError, match="robust-gossip"):
         tsched.ByzantineAttack("sign_flip", 0.25)
-    with pytest.raises(NotImplementedError, match="directed"):
-        SigmaTracker(3, mode="push_sum")
+    # directed federation is ported: the push-sum tracker builds and
+    # tracks the transpose product, as the reference's
+    a = tp.out_degree_weights(tp.directed_ring(3))
+    tr, jtr = SigmaTracker(3, mode="push_sum"), jsched.SigmaTracker(
+        3, mode="push_sum")
+    assert tr.mode == "push_sum"
+    assert tr.update(a, 4) == jtr.update(a, 4)
+    np.testing.assert_array_equal(tr.prod, jtr.prod)
     topo, loss_fn, _, _ = _setup(m=3, n=2, t_c=1, t_s=1)
     with pytest.raises(NotImplementedError, match="robust-gossip"):
         build_dfl_epoch_step(DFLConfig(topology=topo, dynamic=True,

@@ -18,7 +18,10 @@ CPU: 1e-5.  The simulated
 wire's kernel 4 and the physical wire's kernels (5-8), and the wire periods
 built on the latter: bitwise, since kernel and plain version pin every
 rounding to the same operations.  The simulated periods: 1e-5 (their
-kernel-1 rounds sum in another order than the CPU's).
+kernel-1 rounds sum in another order than the CPU's).  Push-sum: kernel 1
+under a column-stochastic P as kernel 1 is held; push-sum periods on the
+card against the CPU's, as the periods above (bf16: T_S bf16 steps of the
+largest value).
 """
 import numpy as np
 import pytest
@@ -167,6 +170,134 @@ def test_dynamic_gossip_periods_match_the_cpu(cuda):
         for k in tree:
             torch.testing.assert_close(got[k].cpu(), cpu[k], rtol=1e-5,
                                        atol=1e-5, msg=name)
+
+
+def _push_operator(m: int) -> np.ndarray:
+    """Push-sum's P = A' for a random orientation of K_m with out-degree
+    weights: column stochastic, its rows not summing to 1."""
+    a = tp.out_degree_weights(tp.build_graph("random_orientation", m))
+    return np.ascontiguousarray(a.T).astype(np.float32)
+
+
+@pytest.mark.parametrize("m", [4, 5, 16])
+@pytest.mark.parametrize("d", [4096, 1_000_003])
+def test_consensus_mix_under_a_column_stochastic_p(cuda, m, d):
+    """Kernel 1 takes any (M, M) f32 matrix: under push-sum's P (rows not
+    summing to 1) the f32 instance is within 1e-5 of its plain version and
+    the bf16 instance one rounding of an f32 sum (the P kept in f32)."""
+    p = torch.from_numpy(_push_operator(m)).to(cuda)
+    assert not torch.allclose(p.sum(1), torch.ones(m, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + d)
+    w = torch.randn((m, d), device=cuda, generator=g)
+    before = ops.launch_counts()["consensus_mix"]
+    out = ops.consensus_mix(p, w)
+    out16 = ops.consensus_mix(p, w.bfloat16())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["consensus_mix"] == before + 2
+    torch.testing.assert_close(out, ref.consensus_mix_ref(p, w), rtol=1e-5,
+                               atol=1e-5)
+    assert out16.dtype == torch.bfloat16
+    assert _within_one_bf16_rounding(p, w.bfloat16(), out16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_push_sum_periods_match_the_cpu(cuda, dtype):
+    """Push-sum periods on the card (kernel 1 under P every round) against
+    the same periods on the CPU: ``gossip_push_sum`` and the gossip,
+    gossip_blocked and collapsed backends' ``mix_push_sum``.  f32 values
+    1e-5 (kernel 1 sums in another order); bf16 within T_S bf16 steps of
+    the largest value (one rounding a round); the weights, an f32 matvec,
+    1e-6."""
+    from repro_torch.core import consensus as cns
+    m, t_s = 5, 5
+    a_np = np.ascontiguousarray(_push_operator(m).T)
+    rng = np.random.default_rng(1)
+    tree = {"w": rng.standard_normal((m, 33, 7)).astype(np.float32),
+            "b": rng.standard_normal((m, 1001)).astype(np.float32)}
+    dt = getattr(torch, dtype)
+    periods = {
+        "gossip_push_sum": (t_s, lambda a, st: cns.gossip_push_sum(
+            a, st, t_s)),
+        "gossip": (t_s, lambda a, st: cns.make_backend(
+            "gossip", a_np, t_s).mix_push_sum(st, a)),
+        "gossip_blocked": (2 * t_s, lambda a, st: cns.make_backend(
+            "gossip_blocked", a_np, t_s, block=1000).mix_push_sum(st, a)),
+        "collapsed": (1, lambda a, st: cns.make_backend(
+            "collapsed", a_np, t_s).mix_push_sum(st, a)),
+    }
+    for name, (launches, period) in periods.items():
+        cpu = period(torch.from_numpy(a_np), cns.init_push_sum(
+            {k: torch.from_numpy(v).to(dt) for k, v in tree.items()}))
+        before = ops.launch_counts()["consensus_mix"]
+        got = period(torch.from_numpy(a_np).to(cuda), cns.init_push_sum(
+            {k: torch.from_numpy(v).to(dt).to(cuda)
+             for k, v in tree.items()}))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["consensus_mix"] == before + launches, \
+            name
+        torch.testing.assert_close(got.weight.cpu(), cpu.weight, rtol=1e-6,
+                                   atol=1e-6, msg=name)
+        for k in tree:
+            if dtype == "float32":
+                torch.testing.assert_close(got.values[k].cpu(),
+                                           cpu.values[k], rtol=1e-5,
+                                           atol=1e-5, msg=name)
+            else:
+                top = float(cpu.values[k].float().abs().max())
+                err = float((got.values[k].cpu().float()
+                             - cpu.values[k].float()).abs().max())
+                assert got.values[k].dtype == torch.bfloat16
+                assert err <= t_s * 2.0 ** -8 * top, (name, k, err, top)
+
+
+@pytest.mark.parametrize("wire", ["simulated", "physical"])
+def test_compressed_push_sum_periods_match_the_cpu(cuda, wire):
+    """Both wires under P on the card against the same periods on the CPU:
+    the simulated wire's kernel-4 pass fuses P (then kernel 1), the
+    physical wire's kernels 6 and 7 carry P (error feedback on).  Physical:
+    values and residual bitwise (kernels and plain versions pin the same
+    roundings); simulated: 1e-5 (its kernel-1 rounds sum in another order);
+    the weights exact-ish (1e-6)."""
+    from repro_torch.comm import prng
+    from repro_torch.core import consensus as cns
+    m = 4
+    a_np = np.ascontiguousarray(_push_operator(m).T)
+    rng = np.random.default_rng(2)
+    tree = {"w": rng.standard_normal((m, 64, 9)).astype(np.float32),
+            "b": rng.standard_normal((m, 1000)).astype(np.float32)}
+    res = {k: (0.01 * rng.standard_normal(v.shape)).astype(np.float32)
+           for k, v in tree.items()}
+    kw = dict(compression="int8:16", error_feedback=wire == "physical",
+              wire=wire, block=1024)
+    backend = cns.make_backend("gossip", a_np, 3, **kw)
+    runs = []
+    for dev in ("cpu", cuda):
+        residual = ({k: torch.from_numpy(v.copy()).to(dev)
+                     for k, v in res.items()} if wire == "physical" else None)
+        before = dict(ops.launch_counts())
+        ps, new = backend.mix_push_sum_compressed(
+            cns.init_push_sum({k: torch.from_numpy(v).to(dev)
+                               for k, v in tree.items()}),
+            residual=residual, key=prng.key(5))
+        torch.cuda.synchronize()
+        runs.append((ps, new, {k: v - before[k]
+                               for k, v in ops.launch_counts().items()}))
+    (cpu, cpu_res, _), (got, got_res, launches) = runs
+    if wire == "physical":
+        assert launches["quantized_gossip_encode"] == 1
+        assert launches["bucketed_gossip_round"] == 3
+    else:
+        assert launches["quantized_consensus_mix"] == len(tree)
+        assert launches["consensus_mix"] == 2
+    torch.testing.assert_close(got.weight.cpu(), cpu.weight, rtol=1e-6,
+                               atol=1e-6)
+    for k in tree:
+        if wire == "physical":
+            assert torch.equal(got.values[k].cpu(), cpu.values[k]), k
+            assert torch.equal(got_res[k].cpu(), cpu_res[k]), k
+        else:
+            torch.testing.assert_close(got.values[k].cpu(), cpu.values[k],
+                                       rtol=1e-5, atol=1e-5)
 
 
 # (rows, d) of the paths' norms, rows cut: a SmolLM client step (256 x 960),

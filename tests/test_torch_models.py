@@ -292,22 +292,25 @@ def test_mamba_forward_matches_reference(mamba_carried, t_impl, j_impl):
     assert float(aux) == 0.0
 
 
-def test_unported_families_still_raise():
-    """What the port still refuses of the MoE and MLA families, and what no
-    longer raises.  Their blocks build on the dense SmolLM base (an MoE FFN
-    with its router; an MLA mixer with its latent down-projection) and run
-    a prefill; an MLA prefill whose prompt outgrows its latent cache raises,
-    where the reference needs ``max_len`` to cover the prompt.  The
+def _on_dense_base(jname: str, field: str, cls):
+    """The dense SmolLM smoke config with the reference's ``field`` (its MoE
+    or MLA section) of ``jname``'s smoke config."""
+    jcfg = j_get_smoke(jname)
+    return dataclasses.replace(
+        get_smoke(ARCH), name=jcfg.name,
+        **{field: cls(**dataclasses.asdict(getattr(jcfg, field)))})
+
+
+def test_moe_and_mla_blocks_build_on_a_dense_base():
+    """An MoE FFN (with its router) and an MLA mixer (with its latent
+    down-projection) build on the dense SmolLM base and run a prefill.  The
     registry and the stack plans are held against the reference's in
     ``tests/test_torch_moe_mla.py``."""
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, get_smoke(ARCH).vocab_size, size=(1, 8)))
     for jname, field, cls in (("mixtral_8x22b", "moe", tcfg.MoEConfig),
                               ("deepseek_v2_236b", "mla", tcfg.MLAConfig)):
-        jcfg = j_get_smoke(jname)
-        cfg = dataclasses.replace(
-            get_smoke(ARCH), name=jcfg.name,
-            **{field: cls(**dataclasses.asdict(getattr(jcfg, field)))})
+        cfg = _on_dense_base(jname, field, cls)
         params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
         block = params["stack"][0]
         assert ("router" in block["ffn"]) == (field == "moe")
@@ -315,9 +318,17 @@ def test_unported_families_still_raise():
         logits, _ = ttf.prefill(params, cfg, {"tokens": tokens}, max_len=8)
         assert logits.shape == (1, 1, cfg.padded_vocab_size)
         assert bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
-        if field == "mla":
-            with pytest.raises(ValueError, match="cannot hold an? 8-position"):
-                ttf.prefill(params, cfg, {"tokens": tokens}, max_len=7)
+
+
+def test_mla_prefill_longer_than_its_cache_raises():
+    """An MLA prefill whose prompt outgrows its latent cache raises, where
+    the reference needs ``max_len`` to cover the prompt."""
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, get_smoke(ARCH).vocab_size, size=(1, 8)))
+    cfg = _on_dense_base("deepseek_v2_236b", "mla", tcfg.MLAConfig)
+    params = ttf.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="cannot hold an? 8-position"):
+        ttf.prefill(params, cfg, {"tokens": tokens}, max_len=7)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -14,8 +14,9 @@ read-back a dispatch, and bounded-staleness gossip off the wire.
   regression within the fig-3 tolerance, and the engine reads metrics
   back once a dispatch.
 
-Left out: the push-sum and Byzantine rows, the shard_map wire and the
-Pallas kernel rows (later slices; kernel 8 has its own CUDA tests).
+Left out: the Byzantine rows, the shard_map wire and the Pallas kernel
+rows (later slices; kernel 8 has its own CUDA tests).  The push-sum rows
+are twinned in ``tests/test_torch_directed.py``.
 """
 import numpy as np
 import pytest
@@ -297,8 +298,9 @@ def test_staleness_refusal_matrix():
         make_backend("chebyshev", topo.mixing_matrix(), 2, staleness=1)
     with pytest.raises(ValueError, match="negative|>= 0"):
         make_backend("gossip", topo.mixing_matrix(), 2, staleness=-1)
-    # push-sum is a later slice: refused by name before its staleness check
-    with pytest.raises(NotImplementedError, match="push_sum"):
+    # push-sum's exact weight recursion has no stale twin (the reference's
+    # refusal, tests/test_overlap.py)
+    with pytest.raises(ValueError, match="push_sum"):
         build_dfl_epoch_step(
             DFLConfig(topology=topo, mixing="push_sum", staleness=1),
             task["loss_fn"], sgd(GAMMA))
@@ -356,8 +358,12 @@ def test_cli_routes_dynamic_flags_to_train_dynamic(capsys, monkeypatch):
         calls.clear()
         ttrain.main(base + flags)
         assert calls[0][0] == want, flags
+    # --mixing push_sum reaches the dynamic driver with its flags
+    calls.clear()
+    ttrain.main(base + ["--faults", "drop:1:0", "--mixing", "push_sum"])
+    assert calls[0][0] == "dynamic"
+    assert calls[0][1]["mixing"] == "push_sum"
+    assert calls[0][1]["faults"] == "drop:1:0"
     monkeypatch.undo()
     with pytest.raises(NotImplementedError, match="robust-gossip"):
         ttrain.main(base + ["--byzantine", "sign_flip:0.25"])
-    with pytest.raises(NotImplementedError, match="push_sum"):
-        ttrain.main(base + ["--faults", "drop:1:0", "--mixing", "push_sum"])

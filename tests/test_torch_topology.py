@@ -119,7 +119,15 @@ def test_sigma_tracker_stale_equal(staleness):
 
 
 def test_sigma_tracker_later_modes_raise():
-    with pytest.raises(NotImplementedError):
-        tsched.SigmaTracker(3, mode="push_sum")
+    # push_sum is ported (directed federation): the transpose product, as
+    # the reference's; a mode neither package has still raises
+    a = jtp.out_degree_weights(jtp.directed_ring(3))
+    a[0, 1], a[0, 0] = 0.25, 0.75
+    ref = jsched.SigmaTracker(3, mode="push_sum")
+    port = tsched.SigmaTracker(3, mode="push_sum")
+    assert port.update(a, 4) == ref.update(a, 4)
+    np.testing.assert_array_equal(port.prod, ref.prod)
+    with pytest.raises(ValueError, match="mode"):
+        tsched.SigmaTracker(3, mode="bogus")
     with pytest.raises(ValueError, match="staleness"):
         tsched.SigmaTracker(3, staleness=-1)
