@@ -2692,6 +2692,506 @@ def directed_federation(torch, ttrain, ops, sweep: set) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# robust gossip under the Byzantine injection, and checkpointing
+# ---------------------------------------------------------------------------
+
+# the robust path: the dynamic path's shape on K_4 (Metropolis weights 1/4)
+# with full participation, one epoch a run; one attacker of four is the
+# CLI's sign_flip:0.25
+ROBUST_TRAIN = dict(smoke=False, servers=4, clients=2, t_client=2,
+                    t_server=5, epochs=1, seq_len=128, per_client_batch=2,
+                    gamma=0.05, graph="complete", device="cuda")
+# (consensus mode, attack, epochs): the runs of the train_robust cell
+ROBUST_RUNS = [("gossip", "", 1), ("trimmed_mean:0", "", 1),
+               ("gossip", "sign_flip:0.25", 1),
+               ("trimmed_mean:1", "sign_flip:0.25", 2),
+               ("median", "scaled_noise:0.25:10", 1),
+               ("clipped", "sign_flip:0.25", 2)]
+# the pull of one full-size period: a screen must keep the honest servers
+# within this share of their mean's norm (plain gossip reads ~0.5)
+SCREEN_PULL_LIMIT = 0.05
+# SmolLM-360M's depth cut for the checkpoint cell (the widths kept)
+CKPT_LAYERS = 2
+
+
+@contextlib.contextmanager
+def screen_readings(torch, cns, methods, t_server: int):
+    """Within the block, every call of the given ``(backend class, method)``
+    pairs (a period: ``mix``, or ``mix_stats`` with its per-source counts)
+    records its device milliseconds (CUDA events around the period) and
+    the counts, and the rank screens' counts of each period's
+    FIRST round, the one that sees the attack: on a complete graph every
+    receiver holds the same value after it, and later rounds break those
+    ties by source index (the lowest and the highest lose)."""
+    records = []
+    saved = {(cls, attr): getattr(cls, attr) for cls, attr in methods}
+    block_round = cns._rank_keep_block
+    first = {"rej": None, "calls": 0}
+
+    def round_noted(sup, x, rule, rejected):
+        before = rejected.clone() if first["calls"] % t_server == 0 else None
+        out = block_round(sup, x, rule, rejected)
+        if before is not None:
+            delta = rejected - before
+            first["rej"] = delta if first["rej"] is None \
+                else first["rej"] + delta
+        first["calls"] += 1
+        return out
+
+    def wrap(inner):
+        def measured(self, tree, *args, **kw):
+            first["rej"], first["calls"] = None, 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(self, tree, *args, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            stats = isinstance(out, tuple) and len(out) == 2 \
+                and isinstance(out[1], torch.Tensor)
+            records.append({
+                "ms": start.elapsed_time(end),
+                "rejected": out[1].cpu().tolist() if stats else None,
+                "first_round_rejected": (None if first["rej"] is None
+                                         else first["rej"].cpu().tolist())})
+            return out
+        return measured
+
+    for (cls, attr), inner in saved.items():
+        setattr(cls, attr, wrap(inner))
+    cns._rank_keep_block = round_noted
+    try:
+        yield records
+    finally:
+        for (cls, attr), inner in saved.items():
+            setattr(cls, attr, inner)
+        cns._rank_keep_block = block_round
+
+
+@contextlib.contextmanager
+def synced_seconds(torch, targets: dict):
+    """Within the block, the wall seconds and calls of each ``name: (owner,
+    attribute)`` target, the device synchronised before and after each call
+    (so nested targets each read their own share)."""
+    stats = {name: {"s": 0.0, "calls": 0} for name in targets}
+    saved = {name: getattr(owner, attr)
+             for name, (owner, attr) in targets.items()}
+
+    def wrap(name, inner):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stats[name]["s"] += time.perf_counter() - t0
+                stats[name]["calls"] += 1
+        return call
+
+    for name, (owner, attr) in targets.items():
+        setattr(owner, attr, wrap(name, saved[name]))
+    try:
+        yield stats
+    finally:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[name])
+
+
+def robust_federation(torch, ttrain, ops, sweep: set) -> dict:
+    """``train_dynamic`` on full SmolLM-360M over K_4 for each run of
+    ROBUST_RUNS, the counters reset before each: launches (kernel 1 T_S an
+    epoch for gossip, trimmed_mean:0 and clipped, none for the rank
+    screens; kernel 2 65 x 16 a direction an epoch; nothing else), epoch
+    seconds and peaks, the attacking share, the per-source screen counts
+    (the attacker's at least twice each honest server's under the rank
+    screens) and the screen's device time a period; trimmed_mean:0's
+    server models bitwise plain gossip's.  Then trimmed_mean:1 over the
+    int8 simulated wire (kernel 4 once a leaf on A = I, kernel 1 never).
+    Returns the clipped run's kernel-1 launches."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core import consensus as cns
+    from repro_torch.core.engine import DynamicFederationEngine
+    from repro_torch.core.schedule import ByzantineSchedule
+    from repro_torch.tree import tree_leaves
+    shape = ROBUST_TRAIN
+    m, t_s = shape["servers"], shape["t_server"]
+    steps = shape["t_client"] * m * shape["clients"]
+    norms = 2 * (get_smoke if shape["smoke"] else get_arch)(
+        "smollm-360m").num_layers + 1
+    # the period each run's epoch step calls: plain gossip's mix, the
+    # robust backends' mix_stats (their screen readout)
+    screens = ((cns.GossipBackend, "mix"), (cns.TrimmedMeanBackend,
+                                            "mix_stats"),
+               (cns.MedianBackend, "mix_stats"),
+               (cns.ClippedGossipBackend, "mix_stats"))
+    plain_servers, rows, clipped_launches = None, {}, 0
+    for mode, spec, epochs in ROBUST_RUNS:
+        ops.reset_launch_counts()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        with launched_norms(torch) as seen, \
+                per_epoch_readings(torch, ops,
+                                   DynamicFederationEngine) as eps, \
+                screen_readings(torch, cns, screens, t_s) as periods:
+            run = ttrain.train_dynamic("smollm-360m", **dict(
+                shape, epochs=epochs), consensus_mode=mode, byzantine=spec,
+                log=False)
+            torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        hist = run["history"]
+        mixes = 0 if mode in ("trimmed_mean:1", "median") else t_s
+        expected = {k: 0 for k in launches}
+        expected.update(consensus_mix=mixes * epochs,
+                        rmsnorm_fwd=norms * steps * epochs,
+                        rmsnorm_bwd=norms * steps * epochs)
+        attacker = None
+        if spec:
+            codes = ByzantineSchedule.parse(spec, seed=0).codes(
+                0, tuple(range(m)), m)
+            attacker = int(np.nonzero(codes)[0][0])
+        screened = [p for p in periods if p["rejected"]
+                    and any(p["rejected"])]
+        row = {"mode": mode, "attack": spec, "epochs": epochs,
+               "attacker": attacker, "loss": hist["loss"],
+               "disagreement": hist["disagreement"],
+               "epoch_s": hist["epoch_s"], "held_before_gb": held_gb,
+               "epoch_peak_gb": [e["peak_gb"] for e in eps],
+               "launches": launches, "expected_launches": expected,
+               "byzantine": hist.get("byzantine"),
+               "screen_rejected": hist.get("screen_rejected"),
+               "per_source_rejected": [p["rejected"] for p in periods],
+               "first_round_rejected": [p["first_round_rejected"]
+                                        for p in periods],
+               "screen_ms": [p["ms"] for p in periods],
+               "screen_ms_a_round": [p["ms"] / t_s for p in periods]}
+        emit("train_robust", **row)
+        assert launches == expected, (mode, spec, launches)
+        assert seen <= sweep, sorted(seen - sweep)
+        assert all(np.isfinite(v) for v in hist["loss"]), hist["loss"]
+        assert len(periods) == epochs, periods
+        if spec:
+            assert hist["byzantine"] == [1.0 / m] * epochs, hist["byzantine"]
+        if mode in ("trimmed_mean:1", "median"):
+            assert len(screened) == epochs, periods
+            for p in periods:
+                rej = p["first_round_rejected"]
+                honest = [r for j, r in enumerate(rej) if j != attacker]
+                assert rej[attacker] >= 2 * max(honest), (mode, rej)
+        server = [x[:, 0] for x in tree_leaves(run["state"].client_params)]
+        if mode == "gossip" and not spec:
+            plain_servers = [x.clone() for x in server]
+        elif mode == "trimmed_mean:0":
+            assert all(torch.equal(a, b)
+                       for a, b in zip(server, plain_servers)), mode
+            plain_servers = None
+        if mode == "clipped":
+            clipped_launches = launches["consensus_mix"]
+        rows[f"{mode}+{spec or 'none'}"] = {
+            "epoch_s": hist["epoch_s"],
+            "screen_ms_a_round": row["screen_ms_a_round"]}
+        del run, server
+        torch.cuda.empty_cache()
+
+    # trimmed_mean:1 over the int8 simulated wire: kernel 4 decodes each
+    # leaf on A = I, then the screen runs the whole period
+    from repro_torch.comm import prng
+    from repro_torch.comm.accounting import BytesTracker
+    from repro_torch.comm.compressors import (make_compressor,
+                                              tree_message_elems,
+                                              tree_wire_bytes_per_server)
+    from repro_torch.core import dfl
+    ops.reset_launch_counts()
+    parts = {"period": (cns.CompressedBackend, "mix_compressed"),
+             "kernel4": (ops, "quantized_consensus_mix"),
+             "dither": (prng, "uniform"),
+             "screen": (cns.TrimmedMeanBackend, "mix_stats"),
+             "injection": (dfl, "apply_byzantine")}
+    with per_epoch_readings(torch, ops, DynamicFederationEngine) as eps, \
+            synced_seconds(torch, parts) as split:
+        run = ttrain.train_dynamic(
+            "smollm-360m", **shape, consensus_mode="trimmed_mean:1",
+            byzantine="sign_flip:0.25", compression="int8", log=False)
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    hist = run["history"]
+    leaves = tree_leaves(run["state"].client_params)
+    expected = {k: 0 for k in launches}
+    expected.update(quantized_consensus_mix=len(leaves),
+                    rmsnorm_fwd=norms * steps, rmsnorm_bwd=norms * steps)
+    # the wire ledger counts the links of A, whatever the inner mode
+    abstract = [torch.empty((m,) + tuple(x.shape[2:]), device="meta")
+                for x in leaves]
+    codec = make_compressor("int8")
+    want_mb = BytesTracker(codec).update(
+        run["engine"].topo.mixing_matrix(), t_s,
+        row_bytes=tree_wire_bytes_per_server(codec, abstract),
+        elems_per_row=tree_message_elems(abstract)) / 1e6
+    emit("train_robust_sim", mode="trimmed_mean:1", attack="sign_flip:0.25",
+         compression="int8", loss=hist["loss"], epoch_s=hist["epoch_s"],
+         epoch_peak_gb=[e["peak_gb"] for e in eps],
+         byzantine=hist["byzantine"], wire_mb=hist["wire_mb"],
+         wire_ratio=hist["wire_ratio"], expected_wire_mb=want_mb,
+         seconds=split,
+         launches=launches, expected_launches=expected)
+    assert launches == expected, launches
+    assert hist["wire_mb"] == [want_mb], (hist["wire_mb"], want_mb)
+    assert all(np.isfinite(v) for v in hist["loss"]), hist["loss"]
+    rows["sim"] = {"epoch_s": hist["epoch_s"]}
+    del run, leaves
+    torch.cuda.empty_cache()
+    return {"clipped_launches": clipped_launches, "runs": rows}
+
+
+def pull_f64(torch, leaves, mean_leaves) -> float:
+    """max_i ||x_i - hbar|| / ||hbar|| over the rows of ``leaves``, float64,
+    ``hbar`` given by ``mean_leaves`` (one row a leaf)."""
+    m = leaves[0].shape[0]
+    sq, ref_sq = [0.0] * m, 0.0
+    for x, h in zip(leaves, mean_leaves):
+        xf, hf = x.reshape(m, -1), h.reshape(-1)
+        for lo in range(0, xf.shape[1], 1 << 24):
+            hb = hf[lo:lo + (1 << 24)].double()
+            ref_sq += float((hb * hb).sum())
+            for i in range(m):
+                d = xf[i, lo:lo + (1 << 24)].double() - hb
+                sq[i] += float((d * d).sum())
+    return max(s ** 0.5 for s in sq) / ref_sq ** 0.5
+
+
+def robust_period_full_size(torch) -> dict:
+    """One period of each robust backend on a (4, 361,821,120) server tree:
+    seeded honest rows around the SmolLM init (spread 1e-3 of each leaf's
+    rms), row 0 attacked through ``apply_byzantine``.  The attacks timed
+    (honest rows unchanged bitwise; the inlier shift inside the honest
+    envelope); kernel 1 under clipped gossip's ``C`` against its plain
+    version and timed (row 1c), ``C``'s rows summing to 1 and the
+    attacker's weights under tau/dist; each period's pull of the honest
+    servers from their pre-attack mean, float64: plain gossip as the
+    control (~0.5 on K_4), each screen at least 10x below it."""
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import dfl
+    from repro_torch.core import topology as tp
+    from repro_torch.core.schedule import ByzantineAttack
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as ttf
+    from repro_torch.tree import tree_flatten, tree_leaves, tree_unflatten
+    shape = ROBUST_TRAIN
+    dev = torch.device(shape["device"])
+    m, t_s = shape["servers"], shape["t_server"]
+    a_np = tp.metropolis_weights(tp.complete_graph(m))
+    a = torch.tensor(a_np, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    base = ttf.init_params(g, (get_smoke if shape["smoke"] else get_arch)(
+        "smollm-360m"), device=dev)
+    base_leaves, treedef = tree_flatten(base)
+    honest_leaves = []
+    for p in base_leaves:
+        rms = float(p.float().pow(2).mean().sqrt()) or 1.0
+        honest_leaves.append(p[None] + 1e-3 * rms * torch.randn(
+            (m,) + tuple(p.shape), device=dev, generator=g))
+    del base, base_leaves
+    honest = tree_unflatten(treedef, honest_leaves)
+    hbar = [x[1:].mean(dim=0) for x in honest_leaves]
+    spread = pull_f64(torch, [x[1:] for x in honest_leaves], hbar)
+    codes = np.array([1, 0, 0, 0], np.int32)
+    key = np.array([0, 22], np.uint32)
+
+    # ---- the attacks, each timed ----
+    attack_s, attacked = {}, None
+    for kind, scale in (("sign_flip", 1.0), ("scaled_noise", 10.0),
+                        ("inlier_shift", 0.8)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dfl.apply_byzantine(honest, codes, key,
+                                  (ByzantineAttack(kind, 0.25, scale),))
+        torch.cuda.synchronize()
+        attack_s[kind] = time.perf_counter() - t0
+        for x, y in zip(tree_leaves(honest), tree_leaves(out)):
+            assert torch.equal(x[1:], y[1:]), kind
+            assert not torch.equal(x[0], y[0]), kind
+            if kind == "inlier_shift":
+                lo, hi = x[1:].amin(dim=0), x[1:].amax(dim=0)
+                assert bool(((y[0] >= lo) & (y[0] <= hi)).all()), kind
+        if kind == "sign_flip":
+            attacked = out
+        del out
+    torch.cuda.empty_cache()
+
+    # ---- kernel 1 under clipped gossip's C ----
+    c, clipped = cns.clip_weights_stats(a, attacked)
+    d2 = cns._gram_d2(a, tree_leaves(attacked))
+    dist = torch.sqrt(torch.clamp(d2, min=0.0))
+    off = ~torch.eye(m, dtype=torch.bool, device=dev)
+    tau = torch.stack([dist[i][off[i]].sort().values[(m - 2) // 2]
+                       for i in range(m)])
+    row_sums = c.sum(dim=1)
+    attacker_w = c[1:, 0]
+    attacker_lim = a[1:, 0] * tau[1:] / dist[1:, 0]
+    assert float((row_sums - 1.0).abs().max()) <= 1e-6, row_sums
+    assert bool((attacker_w <= attacker_lim * (1 + 1e-5)).all()), (
+        attacker_w, attacker_lim)
+    w = torch.cat([x.reshape(m, -1) for x in tree_leaves(attacked)], dim=1)
+    out = torch.empty_like(w)
+    ops.reset_launch_counts()
+    err, rel = rel_err(torch, ops.consensus_mix(c, w, out=out),
+                       ref.consensus_mix_ref(c, w))
+    assert ops.launch_counts()["consensus_mix"] == 1
+    times = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix(c, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(c, w),
+        "library": lambda: torch.matmul(c, w)}, reps=10)
+    d = w.shape[1]
+    bound, by = bound_ms(2 * m * d * 4 + m * m * 4, 2 * m * m * d)
+    del w, out
+    torch.cuda.empty_cache()
+    assert rel < 1e-5, rel
+
+    # ---- one period of each backend: the pull, float64 ----
+    pulls, period_ms, launches = {}, {}, {}
+    for mode in ("gossip", "trimmed_mean:1", "median", "clipped"):
+        be = cns.make_backend(mode, a_np, t_s)
+        ops.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mixed, rejected = be.mix_stats(attacked)
+        end.record()
+        torch.cuda.synchronize()
+        period_ms[mode] = start.elapsed_time(end)
+        launches[mode] = ops.launch_counts()["consensus_mix"]
+        pulls[mode] = pull_f64(torch, [x[1:] for x in tree_leaves(mixed)],
+                               hbar)
+        del mixed, rejected
+        torch.cuda.empty_cache()
+    rank_bound, _ = bound_ms(2 * m * d * 4, 0)
+    row = {"m": m, "t_server": t_s, "d": d, "honest_spread": spread,
+           "attack_s": attack_s, "c": c.tolist(),
+           "c_row_sums": row_sums.tolist(),
+           "attacker_weights": attacker_w.tolist(),
+           "attacker_weight_limits": attacker_lim.tolist(),
+           "clipped_links": clipped.tolist(),
+           "kernel_max_abs_err": err, "kernel_max_rel_err": rel,
+           "kernel_limit": 1e-5, "kernel_ms": times["kernel"],
+           "plain_ms": times["plain"], "library_ms": times["library"],
+           "bound_ms": bound, "bound_by": by,
+           "bound_share": bound / times["kernel"],
+           "period_ms": period_ms, "period_launches": launches,
+           "rank_screen_ms_a_round": {
+               k: period_ms[k] / t_s for k in ("trimmed_mean:1", "median")},
+           "rank_screen_bound_ms_a_round": rank_bound,
+           "pull": pulls, "pull_limit": SCREEN_PULL_LIMIT}
+    emit("robust_period_full_size", **row)
+    assert pulls["gossip"] > SCREEN_PULL_LIMIT, pulls
+    for mode in ("trimmed_mean:1", "median", "clipped"):
+        assert pulls[mode] < SCREEN_PULL_LIMIT, (mode, pulls)
+        assert pulls[mode] * 10 <= pulls["gossip"], (mode, pulls)
+    assert launches == {"gossip": t_s, "trimmed_mean:1": 0, "median": 0,
+                        "clipped": t_s}, launches
+    del honest, attacked, honest_leaves, hbar
+    torch.cuda.empty_cache()
+    return {"name": "consensus_mix_clipped", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/consensus_mix.cu",
+            "replaces": "src/repro/kernels/consensus_mix.py:71",
+            "max_abs_err": err, "ms": times["kernel"],
+            "plain_ms": times["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": times["library"]}
+
+
+def ckpt_roundtrip(torch, ttrain) -> None:
+    """SmolLM-360M at full width, depth cut to CKPT_LAYERS: one epoch of
+    ``train_dynamic`` at M = 4, N = 2 saved through ``ckpt_dir``;
+    ``restore_dropped(server 2)`` onto M = 3 and one more epoch on a fresh
+    engine, against the run whose engine drops server 2 at epoch 1 itself
+    (``tests/test_checkpoint_surgery.py``'s tolerance); save and restore
+    seconds and the file's GB."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_arch, get_smoke
+    from repro_torch.core import make_engine
+    from repro_torch.core.dfl import DFLState
+    from repro_torch.optim.optimizers import SGDState
+    from repro_torch.tree import tree_leaves, tree_map
+    shape = dict(DYN_TRAIN, participation_rate=1.0, edge_drop_prob=0.0,
+                 graph="complete", faults="")
+    arch = "smollm-360m"
+    resolve = get_smoke if shape["smoke"] else get_arch
+    with cut_depth(ttrain, arch, CKPT_LAYERS):
+        surgery = ttrain.train_dynamic(arch, **dict(
+            shape, epochs=2, faults="drop:1:2"), log=False)
+        directory = tempfile.mkdtemp(prefix="ckpt_roundtrip_")
+        save_s = []
+        inner = Checkpointer.save
+
+        def timed_save(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(self, *args, **kw)
+            save_s.append(time.perf_counter() - t0)
+            return out
+
+        Checkpointer.save = timed_save
+        try:
+            first = ttrain.train_dynamic(arch, **dict(shape, epochs=1),
+                                         ckpt_dir=directory, log=False)
+        finally:
+            Checkpointer.save = inner
+        ck = Checkpointer(directory)
+        path = ck._path(0)
+        file_gb = os.path.getsize(path) / 1e9
+        state = first["state"]
+        topo = first["engine"].topo
+        keep = torch.tensor([0, 1, 3], device=torch.device(shape["device"]))
+        template = tree_map(lambda x: x.index_select(0, keep),
+                            state.client_params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, new_topo = ck.restore_dropped(template, 2, topo)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        # the pipeline of the ORIGINAL four servers: data follows identity
+        _, cfg, _, loss_fn, optimizer, pipe, params = ttrain._setup_lm(
+            arch, shape["smoke"], 4, shape["clients"], shape["t_client"],
+            shape["t_server"], "complete", shape["gamma"], shape["seq_len"],
+            shape["per_client_batch"], 0, shape["device"], "symmetric", None)
+        del params
+        survivors = [0, 1, 3]
+        eng = make_engine(new_topo, loss_fn, optimizer)
+
+        def batch_fn(epoch, alive):
+            return pipe.epoch_batches(
+                epoch, server_ids=tuple(survivors[i] for i in alive))
+
+        cont = DFLState(restored, SGDState(state.opt_state.count),
+                        state.epoch, state.rng, None, state.wire_key)
+        cont, _ = eng.run_epoch(cont, 1, batch_fn)
+        torch.cuda.synchronize()
+    worst = 0.0
+    for a, b in zip(tree_leaves(cont.client_params),
+                    tree_leaves(surgery["state"].client_params)):
+        lim = 1e-7 + 1e-6 * b.abs()
+        worst = max(worst, float(((a - b).abs() / lim).max()))
+    n_params = sum(x[0, 0].numel() for x in tree_leaves(state.client_params))
+    emit("ckpt_roundtrip", arch=arch, params=n_params,
+         reduced={"depth": f"{CKPT_LAYERS}/{resolve(arch).num_layers}"},
+         servers=[4, 3], save_s=save_s, restore_s=restore_s,
+         file_gb=file_gb, survivors=survivors,
+         surgery_num_servers=surgery["history"]["num_servers"],
+         max_err_over_tolerance=worst, tolerance={"rtol": 1e-6,
+                                                  "atol": 1e-7})
+    assert surgery["history"]["num_servers"] == [4.0, 3.0]
+    assert surgery["engine"].alive == survivors, surgery["engine"].alive
+    assert worst <= 1.0, worst
+    shutil.rmtree(directory)
+    assert not os.path.exists(directory)
+    del surgery, first, state, restored, cont, template
+    torch.cuda.empty_cache()
+
+
 def rmsnorm_sweep(torch, g) -> dict:
     """Kernel 2 at each of RMSNORM_SHAPES: forward and backward through
     ``ops.rmsnorm`` under autograd against the plain versions (f32: 1e-5
@@ -3781,6 +4281,16 @@ def main() -> int:
     family_training(torch, ttrain, ops, set(rn_stats))
     zoo_rows["consensus_mix_push_sum"] = directed_federation(
         torch, ttrain, ops, set(rn_stats))
+
+    # ---- 22e. robust gossip under the Byzantine injection on full
+    # SmolLM-360M (trimmed mean, median, clipped; kernel 1 under clipped
+    # gossip's C), one full-size robust period, then checkpointing with
+    # drop surgery ----
+    robust = robust_federation(torch, ttrain, ops, set(rn_stats))
+    clipped_row = robust_period_full_size(torch)
+    clipped_row["launches"] = robust["clipped_launches"]
+    zoo_rows["consensus_mix_clipped"] = clipped_row
+    ckpt_roundtrip(torch, ttrain)
 
     # ---- 23. per-kernel summary, card, result ----
     r256 = rn_stats[(256, 960, "float32")]

@@ -289,7 +289,9 @@ class StochasticQuantizer(Compressor):
 
     def compress(self, x, key=None, *, dither=None):
         if dither is None:
-            dither = (0.5 if key is None
+            # a meta tensor (the byte ledger's shapes) needs no draw: the
+            # payload's shapes do not depend on the dither
+            dither = (0.5 if key is None or x.is_meta
                       else prng.uniform(key, tuple(x.shape), device=x.device))
         d = x.shape[-1]
         x32 = x.float().reshape(-1, d)

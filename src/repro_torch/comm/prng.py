@@ -20,13 +20,26 @@ tensor's own device: the 32 bits of row-major flat index ``e`` are
 and subtracts 1.  torch has no ``uint32`` arithmetic, so the cipher runs in
 int64 ops masked to 32 bits (about 165 elementwise ops an element), in
 blocks of whole rows of about ``BLOCK`` elements.
+
+``normal`` is ``jax.random.normal``: a uniform draw on ``[nextafter(-1, 0),
+1)`` (the bits as above; a bfloat16 draw keeps the low 8 bits of each
+element's 32, as jax draws 8 bits for fewer than 8 mantissa bits) and ``sqrt(2) * erf_inv(u)``.  XLA's float32 ``erf_inv`` is
+Giles' single-precision polynomial in ``w = -log1p(-u^2)``, which
+``erf_inv`` copies with each step ``c + p * w`` as one fused multiply-add;
+``torch.log1p`` is not XLA's ``log1p`` in the last bit, so ``erf_inv`` is
+within 2 float32 ulps of XLA's and a float32 draw within 4 ulps of the
+reference's (about 99% of elements bitwise); a bfloat16 draw, rounded from
+them, is bitwise (``tests/test_torch_robust.py``).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ref import fma
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -162,5 +175,68 @@ def uniform(k, shape: Tuple[int, ...], *, device: Any = "cpu",
     def fill(dst, bits):
         mant = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000)
         torch.sub(mant.to(torch.int32).view(torch.float32), one, out=dst)
+    _fill_rows(k, _rows_view(out), start, block, fill)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# normal draws (jax.random.normal)
+# ---------------------------------------------------------------------------
+
+# Giles' single-precision erfinv coefficients, highest power first, for
+# w < 5 (in w - 2.5) and w >= 5 (in sqrt(w) - 3): XLA's ErfInv32
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``erf_inv`` (Giles' polynomial), on ``x``'s device:
+    ``erf_inv(+-1) = +-inf``."""
+    x = x.float()
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    lo = torch.tensor(_ERFINV_LO, dtype=torch.float32, device=x.device)
+    hi = torch.tensor(_ERFINV_HI, dtype=torch.float32, device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LO)):
+        p = fma(p, t, torch.where(lt, lo[i], hi[i]))
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * float("inf"), out)
+
+
+def normal(k, shape: Tuple[int, ...], *, dtype: torch.dtype = torch.float32,
+           device: Any = "cpu", start: int = 0,
+           block: int = BLOCK) -> torch.Tensor:
+    """``jax.random.normal(key, full_shape, dtype)`` restricted to the
+    elements of flat index ``[start, start + prod(shape))`` (a run of whole
+    rows of a larger array), in ``dtype`` (float32 or bfloat16): float32
+    within 4 ulps of the reference, bfloat16 bitwise (module docstring)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"normal draws float32 or bfloat16, got {dtype}")
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if dtype == torch.float32:
+        nmant, one, lo = 23, 0x3F800000, float(
+            np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    else:
+        nmant, one, lo = 7, 0x3F80, -(1.0 - 2.0 ** -8)
+    # hi - lo rounds to 2 in either dtype, and u * 2 is exact
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype)
+
+    def fill(dst, bits):
+        if dtype == torch.float32:
+            mant = bits.bitwise_right_shift_(32 - nmant).bitwise_or_(one)
+            u = mant.to(torch.int32).view(torch.float32) - 1.0
+        else:
+            # fewer than 8 mantissa bits: jax draws 8 random bits
+            mant = bits.bitwise_and_(0xFF).bitwise_right_shift_(
+                8 - nmant).bitwise_or_(one)
+            u = (mant.to(torch.int16).view(torch.bfloat16) - 1.0).float()
+        u = torch.clamp((u * 2.0 + lo).to(dtype), min=lo)
+        dst.copy_(sqrt2.to(dst.device) * erf_inv(u).to(dtype))
     _fill_rows(k, _rows_view(out), start, block, fill)
     return out

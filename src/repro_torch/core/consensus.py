@@ -75,11 +75,21 @@ the round trip with the first operator ``P``; on the physical wire the
 numerator's codes ride kernels 6 and 7 under ``P`` and the weight stays
 exact.  Staleness has no push-sum form and is refused.
 
-Ported modes: ``gossip``, ``gossip_blocked``, ``collapsed``, ``chebyshev``,
-``exact_mean`` and ``none``, both wires around them (the physical wire
-around the first two), bounded staleness on and off the wire, and push-sum
-over the first three.  Still to come, raising ``NotImplementedError`` that
-names its slice: the robust screens.
+**Robust screens** (Byzantine-screening gossip): ``trimmed_mean[:f]`` and
+``median`` rank each coordinate's supported values per receiver and
+average the kept ones (``_rank_keep_block``: plain tensor ops over column
+blocks of ``RANK_SCREEN_BLOCK``, no TPU kernel computes them); ``clipped``
+builds a state-dependent effective matrix ``C`` from tree-wide Gram
+distances every round and runs ``W <- C W`` through kernel 1.  Each has
+``mix_stats``, the per-source screen-activity counts.  They refuse
+push-sum (``supports_directed = False``) and the physical wire; on the
+simulated wire their first operator is the identity (kernel 4 decodes on
+``A = I``) and the screen runs the whole period.
+
+Modes: ``gossip``, ``gossip_blocked``, ``collapsed``, ``chebyshev``,
+``exact_mean``, ``trimmed_mean[:f]``, ``median``, ``clipped[:mult]`` and
+``none``; both wires around them (the physical wire around the first two),
+bounded staleness on and off the wire, and push-sum over the first three.
 """
 from __future__ import annotations
 
@@ -727,6 +737,7 @@ class ConsensusBackend:
     name = "?"
     supports_directed = True
     needs_spectral = False
+    robust = False
     staleness = 0
 
     def __init__(self, a_static: Optional[np.ndarray], t_server: int):
@@ -751,6 +762,16 @@ class ConsensusBackend:
 
     def _mix(self, tree: Any, a: torch.Tensor) -> Any:
         raise NotImplementedError
+
+    def mix_stats(self, tree: Any, a_p: Optional[torch.Tensor] = None,
+                  lam2=None):
+        """``mix`` plus the period's per-source screen-activity counts,
+        ``(mixed, rejected)`` with ``rejected[j]`` how many of server j's
+        values its receivers' screens discarded or clipped (float32, on the
+        tree's device).  A backend that screens nothing returns ``mix`` and
+        zeros; the robust backends return their own counts."""
+        return (self.mix(tree, a_p, lam2=lam2),
+                _zero_counts(self._resolve(a_p), tree))
 
     def mix_push_sum(self, state: PushSumState,
                      a_p: Optional[torch.Tensor] = None) -> PushSumState:
@@ -949,6 +970,369 @@ class ExactMeanBackend(ConsensusBackend):
 
     def first_round(self, a_p, m, lam2=None, transpose=False):
         return torch.full((m, m), 1.0 / m), lambda tree: tree
+
+
+# ---------------------------------------------------------------------------
+# robust (Byzantine-screening) gossip: trimmed mean / median / clipped
+# ---------------------------------------------------------------------------
+
+#: columns of one block of the rank screens: the screen is coordinatewise,
+#: so a leaf is screened block by block (all T_S rounds on a block, then
+#: the next), which is the same result as whole leaves.  The workspace of a
+#: block is about (M(M-1)/2 + 14) bytes a column: 0.34 GB at M = 4.
+RANK_SCREEN_BLOCK = 1 << 24
+
+
+def _support(a: torch.Tensor) -> torch.Tensor:
+    """Boolean (M, M) gossip support of a mixing matrix: every positive
+    entry plus the diagonal — a server always counts its OWN value among
+    the screened candidates, even on graphs whose self-weight is 0."""
+    return (a > 0) | torch.eye(a.shape[0], dtype=torch.bool, device=a.device)
+
+
+def _trim_rule(f: int) -> Callable[[int], tuple]:
+    """The trimmed mean's kept ranks, ``f <= r < c - f``, as an inclusive
+    range of a neighbourhood of ``c`` values."""
+    return lambda c: (f, c - f - 1)
+
+
+def _median_rule(c: int) -> tuple:
+    """The median's kept ranks: the middle one, or the middle two of an
+    even neighbourhood (their mean)."""
+    return (c - 1) // 2, c // 2
+
+
+def _rank_keep_block(sup: np.ndarray, x: torch.Tensor, rule,
+                     rejected: torch.Tensor) -> torch.Tensor:
+    """One rank-screened round on an (M, B) block of one leaf: the port of
+    the reference's ``_rank_keep_mean_stats``.
+
+    Receiver ``i`` ranks the supported values ``x[j]`` (``sup[i, j]``) of
+    each coordinate, ties broken by source index, which is the reference's
+    stable double argsort over values with non-neighbours set to +inf: the
+    rank of ``j`` is the number of supported ``k`` whose value sorts before
+    it (``x[k] < x[j]``, or equal with ``k < j``), plus the non-neighbours
+    of lower index where ``x[j]`` is +inf itself.  ``rule(c)`` gives the
+    inclusive range of kept ranks; the kept values are summed in source
+    order (in f32; a bf16 leaf rounds the sum to bf16, as ``jnp.sum``
+    upcasts it) and divided by their count in the leaf dtype.  A receiver
+    with nothing kept holds its own value.  Receivers with the same support
+    share one screen.  ``rejected[j]`` (int64) gains the (receiver,
+    coordinate) pairs that discarded ``x[j]``."""
+    m, width = x.shape
+    # before[k][j]: x[k] sorts before x[j]; only the pairs k < j are
+    # compared, the rest is their complement
+    before = [[None] * m for _ in range(m)]
+    for j in range(m):
+        for k in range(j + 1, m):
+            later_first = x[k] < x[j]
+            before[k][j] = later_first
+            before[j][k] = ~later_first
+    rows: dict = {}
+    for i in range(m):
+        rows.setdefault(tuple(bool(v) for v in sup[i]), []).append(i)
+    out = torch.empty_like(x)
+    for key, receivers in rows.items():
+        srcs = [j for j in range(m) if key[j]]
+        lo, hi = rule(len(srcs))
+        acc = torch.zeros((width,), dtype=torch.float32, device=x.device)
+        kcnt = torch.zeros((width,), dtype=torch.int16, device=x.device)
+        for j in srcs:
+            rank = torch.zeros((width,), dtype=torch.int16, device=x.device)
+            for k in srcs:
+                if k != j:
+                    rank += before[k][j]
+            n_inf = sum(1 for k in range(j) if not key[k])
+            if n_inf:
+                rank += torch.isposinf(x[j]).to(torch.int16) * n_inf
+            keep = (rank >= lo) & (rank <= hi)
+            acc += torch.where(keep, x[j].float(), 0.0)
+            kcnt += keep
+            rejected[j] += len(receivers) * (width - keep.sum())
+        mean = acc.to(x.dtype) / torch.clamp(kcnt, min=1).to(x.dtype)
+        for i in receivers:
+            out[i] = torch.where(kcnt > 0, mean, x[i])
+    return out
+
+
+def _rank_scan_stats(a: torch.Tensor, tree: Any, t_server: int, rule,
+                     block: int = RANK_SCREEN_BLOCK):
+    """T_S rank-screened rounds: ``(tree, rejected)``, ``rejected[j]`` the
+    (receiver, coordinate, round, leaf) count of server j's discarded
+    values this period, float32 on the tree's device.  The support is read
+    to the host once a period; each leaf is screened in column blocks of
+    ``block``, all rounds on a block before the next (the reference's
+    per-leaf round loop, reordered: columns screen independently)."""
+    leaves, treedef = tree_flatten(tree)
+    m = leaves[0].shape[0]
+    device = leaves[0].device
+    rejected = torch.zeros((m,), dtype=torch.int64, device=device)
+    if t_server == 0:
+        return tree, rejected.float()
+    sup = _support(a.to(device)).cpu().numpy()
+    out = []
+    for leaf in leaves:
+        flat = leaf.reshape(m, -1)
+        res = torch.empty_like(flat)
+        for lo in range(0, flat.shape[1], block):
+            w = flat[:, lo:lo + block]
+            for _ in range(t_server):
+                w = _rank_keep_block(sup, w, rule, rejected)
+            res[:, lo:lo + block] = w
+        out.append(res.reshape(leaf.shape))
+    return tree_unflatten(treedef, out), rejected.float()
+
+
+def trimmed_mean_mix(a: torch.Tensor, tree: Any, f: int) -> Any:
+    """One coordinatewise-trimmed-mean screening round: per receiver and
+    coordinate, discard the ``f`` largest and ``f`` smallest supported
+    values and average the rest (unweighted).  With ``f=0`` it is the plain
+    masked neighbour mean, summed in source order."""
+    return gossip_scan_trimmed(a, tree, 1, f)
+
+
+def median_mix(a: torch.Tensor, tree: Any) -> Any:
+    """One coordinatewise-median screening round (the mean of the two
+    middle ranks when the neighbourhood is even)."""
+    return gossip_scan_median(a, tree, 1)
+
+
+def gossip_scan_trimmed(a: torch.Tensor, tree: Any, t_server: int,
+                        f: int) -> Any:
+    """T_S rounds of trimmed-mean screening."""
+    return gossip_scan_trimmed_stats(a, tree, t_server, f)[0]
+
+
+def gossip_scan_median(a: torch.Tensor, tree: Any, t_server: int) -> Any:
+    """T_S rounds of coordinatewise-median screening."""
+    return gossip_scan_median_stats(a, tree, t_server)[0]
+
+
+def gossip_scan_trimmed_stats(a: torch.Tensor, tree: Any, t_server: int,
+                              f: int):
+    """``gossip_scan_trimmed`` plus the per-source screen-activity counts."""
+    if f < 0:
+        raise ValueError(f"trimmed mean needs f >= 0, got {f}")
+    return _rank_scan_stats(a, tree, t_server, _trim_rule(f))
+
+
+def gossip_scan_median_stats(a: torch.Tensor, tree: Any, t_server: int):
+    """``gossip_scan_median`` plus the per-source screen-activity counts."""
+    return _rank_scan_stats(a, tree, t_server, _median_rule)
+
+
+def _clip_from_d2(a: torch.Tensor, d2: torch.Tensor, clip_mult: float):
+    """The clipped effective matrix and its per-source counts from the
+    (M, M) squared tree-wide distances (the reference's
+    ``clip_weights_stats`` after its Gram loop)."""
+    m = a.shape[0]
+    off = _support(a) & ~torch.eye(m, dtype=torch.bool, device=a.device)
+    dist = torch.sqrt(torch.clamp(d2, min=0.0))
+    masked = torch.where(off, dist, torch.full_like(dist, float("inf")))
+    srt = torch.sort(masked, dim=1).values
+    k = off.sum(dim=1)
+    med = torch.gather(srt, 1, torch.clamp((k - 1) // 2, min=0)[:, None])[:, 0]
+    tau = clip_mult * med                 # inf for an isolated receiver
+    fac = torch.where(dist > 0.0,
+                      torch.clamp(tau[:, None] / torch.clamp(dist, min=1e-30),
+                                  max=1.0),
+                      torch.ones_like(dist))
+    c_off = torch.where(off, a.float() * fac, torch.zeros_like(fac))
+    clipped = (off & (fac < 1.0)).sum(dim=0).float()          # per source
+    return c_off + torch.diag(1.0 - c_off.sum(dim=1)), clipped
+
+
+def _gram_d2(a: torch.Tensor, leaves) -> torch.Tensor:
+    """Squared tree-wide distances ``||x_i - x_j||^2`` through the Gram
+    identity, accumulated leaf by leaf in leaf order, in f32."""
+    m = a.shape[0]
+    d2 = torch.zeros((m, m), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        x = leaf.reshape(m, -1).float()
+        g = x @ x.T
+        sq = torch.diagonal(g)
+        d2 = d2 + (sq[:, None] + sq[None, :] - 2.0 * g)
+    return d2
+
+
+def clip_weights_stats(a: torch.Tensor, tree: Any, clip_mult: float = 1.0):
+    """Self-centred clipping as an effective per-round mixing matrix, and
+    ``clipped[j]``, how many receivers clipped sender j's innovation.
+
+    Receiver ``i`` clips every neighbour's innovation against its own
+    model: the off-diagonal weight becomes ``a[i,j] * min(1, tau_i /
+    ||x_j - x_i||)`` and the clipped mass returns to the self-loop.
+    ``tau_i`` is ``clip_mult`` times the median tree-wide distance from i
+    to its neighbours.  Distances come from the Gram identity, one (M, M)
+    product a leaf (``torch.matmul``, as the reference's ``@``)."""
+    a = a.to(device=tree_leaves(tree)[0].device, dtype=torch.float32)
+    return _clip_from_d2(a, _gram_d2(a, tree_leaves(tree)), clip_mult)
+
+
+def clip_weights(a: torch.Tensor, tree: Any,
+                 clip_mult: float = 1.0) -> torch.Tensor:
+    """``clip_weights_stats`` without the counts."""
+    return clip_weights_stats(a, tree, clip_mult)[0]
+
+
+def clipped_mix(a: torch.Tensor, tree: Any, clip_mult: float = 1.0) -> Any:
+    """One clipped-gossip round: the effective matrix, then the weighted
+    round with it (kernel 1 on the card)."""
+    return kops.consensus_mix_pytree(clip_weights(a, tree, clip_mult), tree,
+                                     rounds=1)
+
+
+def gossip_scan_clipped_stats(a: torch.Tensor, tree: Any, t_server: int,
+                              clip_mult: float = 1.0):
+    """T_S rounds of clipped gossip and the per-source counts of links whose
+    clip factor bit (``fac < 1``), summed over rounds and receivers.
+
+    The effective matrix depends on the whole tree's current state, so the
+    rounds cannot run per leaf.  A tree of one dtype is flattened once to
+    (M, D): each round builds ``C`` from the Gram products of the leaves'
+    column ranges and runs ``W <- C W`` as one ``ops.consensus_mix`` (one
+    kernel-1 launch on the card, ``C`` in f32), ping-ponging two buffers.
+    A tree of mixed dtypes mixes leaf by leaf with the round's ``C``."""
+    leaves, treedef = tree_flatten(tree)
+    m = leaves[0].shape[0]
+    a = a.to(device=leaves[0].device, dtype=torch.float32)
+    clipped = torch.zeros((m,), dtype=torch.float32, device=a.device)
+    if t_server == 0:
+        return tree, clipped
+    if not kops.one_dtype(leaves, "clipped gossip"):
+        for _ in range(t_server):
+            c, hit = clip_weights_stats(a, tree, clip_mult)
+            tree = kops.consensus_mix_pytree(c, tree, rounds=1)
+            clipped = clipped + hit
+        return tree, clipped
+    flat, split = _flatten(tree)
+    spans, off = [], 0
+    for leaf in leaves:
+        spans.append((off, off + leaf[0].numel()))
+        off += leaf[0].numel()
+    src, dst = flat, torch.empty_like(flat)
+    for _ in range(t_server):
+        d2 = _gram_d2(a, [src[:, lo:hi] for lo, hi in spans])
+        c, hit = _clip_from_d2(a, d2, clip_mult)
+        kops.consensus_mix(c, src, out=dst)
+        src, dst = dst, src
+        clipped = clipped + hit
+    return split(src), clipped
+
+
+def gossip_scan_clipped(a: torch.Tensor, tree: Any, t_server: int,
+                        clip_mult: float = 1.0) -> Any:
+    """T_S rounds of clipped gossip."""
+    return gossip_scan_clipped_stats(a, tree, t_server, clip_mult)[0]
+
+
+class TrimmedMeanBackend(ConsensusBackend):
+    """Coordinatewise trimmed-mean gossip (``gossip_scan_trimmed``).
+
+    Construction fails when the static graph is past the breakdown point
+    (some supported neighbourhood, self included, has ``c <= 2f`` values).
+    ``f == 0`` requests no screening, so the backend runs the exact
+    weighted schedule, ``GossipBackend``'s own (kernel 1 every round):
+    bitwise the unprotected ``'gossip'`` backend."""
+
+    name = "trimmed_mean"
+    supports_directed = False
+    robust = True
+
+    def __init__(self, a_static, t_server, *, f: int = 1):
+        super().__init__(a_static, t_server)
+        if f < 0:
+            raise ValueError(f"trimmed mean needs f >= 0, got {f}")
+        self.f = f
+        if a_static is not None and f > 0:
+            a = np.asarray(a_static)
+            cnt = int(((a > 0) | np.eye(a.shape[0], dtype=bool))
+                      .sum(axis=1).min())
+            if cnt <= 2 * f:
+                raise ValueError(
+                    f"trimmed_mean with f={f} is past its breakdown point "
+                    f"on this graph: a server has only {cnt} supported "
+                    f"values (self included) but the screen discards "
+                    f"2f={2 * f} per coordinate and needs > 2f survivors' "
+                    f"worth of margin; lower f or densify the graph")
+
+    def _mix(self, tree, a):
+        return self.mix_stats(tree, a)[0]
+
+    def mix_stats(self, tree, a_p=None, lam2=None):
+        a = self._resolve(a_p)
+        if self.f == 0:
+            # no screening requested: the exact weighted schedule, with
+            # identically zero counts
+            return (kops.consensus_mix_pytree(a, tree, rounds=self.t_server),
+                    _zero_counts(a, tree))
+        return gossip_scan_trimmed_stats(a, tree, self.t_server, self.f)
+
+    def first_round(self, a_p, m, lam2=None, transpose=False):
+        if self.f == 0:
+            return _first_of_rounds(self._resolve(a_p), self.t_server, None,
+                                    transpose)
+        return _screen_first_round(self, a_p, m)
+
+
+class MedianBackend(ConsensusBackend):
+    """Coordinatewise-median gossip (``gossip_scan_median``): tolerates any
+    minority of attackers per neighbourhood (breakdown point f < c/2)."""
+
+    name = "median"
+    supports_directed = False
+    robust = True
+
+    def _mix(self, tree, a):
+        return gossip_scan_median(a, tree, self.t_server)
+
+    def mix_stats(self, tree, a_p=None, lam2=None):
+        return gossip_scan_median_stats(self._resolve(a_p), tree,
+                                        self.t_server)
+
+    def first_round(self, a_p, m, lam2=None, transpose=False):
+        return _screen_first_round(self, a_p, m)
+
+
+class ClippedGossipBackend(ConsensusBackend):
+    """Clipped gossip (``gossip_scan_clipped``): neighbour innovations
+    norm-clipped against the receiver's own model through the effective
+    matrix ``clip_weights``, so each round is the weighted round (kernel 1
+    on the card) and an agreed tree is a fixed point (``C == A``)."""
+
+    name = "clipped"
+    supports_directed = False
+    robust = True
+
+    def __init__(self, a_static, t_server, *, clip_mult: float = 1.0):
+        super().__init__(a_static, t_server)
+        if not clip_mult > 0.0:
+            raise ValueError(f"clipped needs clip_mult > 0, got {clip_mult}")
+        self.clip_mult = clip_mult
+
+    def _mix(self, tree, a):
+        return gossip_scan_clipped(a, tree, self.t_server,
+                                   clip_mult=self.clip_mult)
+
+    def mix_stats(self, tree, a_p=None, lam2=None):
+        return gossip_scan_clipped_stats(self._resolve(a_p), tree,
+                                         self.t_server,
+                                         clip_mult=self.clip_mult)
+
+    def first_round(self, a_p, m, lam2=None, transpose=False):
+        return _screen_first_round(self, a_p, m)
+
+
+def _zero_counts(a: torch.Tensor, tree: Any) -> torch.Tensor:
+    return torch.zeros((a.shape[0],), dtype=torch.float32,
+                       device=tree_leaves(tree)[0].device)
+
+
+def _screen_first_round(backend: ConsensusBackend, a_p, m: int):
+    """A screen has no first operator to fuse: the simulated wire's kernel-4
+    pass decodes on ``A = I`` (exact) and the screen runs the whole
+    period."""
+    return torch.eye(m), lambda tree: backend.mix(tree, a_p)
 
 
 def _ef_residual_into(res: torch.Tensor, flat: torch.Tensor,
@@ -1154,13 +1538,6 @@ class CompressedBackend(ConsensusBackend):
         return self.mix_push_sum_compressed(state, a_p)[0]
 
 
-_LATER = {
-    "trimmed_mean": "the robust screens arrive with the robust-gossip slice",
-    "median": "the robust screens arrive with the robust-gossip slice",
-    "clipped": "the robust screens arrive with the robust-gossip slice",
-}
-
-
 def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
                  chebyshev_rounds: Optional[int] = None,
                  block: int = DEFAULT_GOSSIP_BLOCK,
@@ -1169,16 +1546,15 @@ def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
                  wire: str = "simulated",
                  staleness: int = 0) -> Optional[ConsensusBackend]:
     """Map a ``DFLConfig.consensus_mode`` string to a backend (``None`` for
-    ``"none"``: no inter-server communication).  ``compression`` other than
-    ``"none"`` wraps it in a ``CompressedBackend`` on the ``wire`` given.
-    ``staleness`` needs the literal T_S-round schedules (gossip,
-    gossip_blocked): ``gossip_scan_stale`` without compression, the
-    pipelined codes on the physical wire."""
-    base = mode.partition(":")[0]
-    if base in _LATER:
-        raise NotImplementedError(
-            f"consensus mode {mode!r} is not ported yet: {_LATER[base]} "
-            f"(ROADMAP.md, Queue 1)")
+    ``"none"``: no inter-server communication).  The robust screens take an
+    optional argument after a colon: ``"trimmed_mean[:f]"`` (default f=1)
+    and ``"clipped[:mult]"`` (default 1.0); ``"median"`` takes none.
+    ``compression`` other than ``"none"`` wraps the backend in a
+    ``CompressedBackend`` on the ``wire`` given.  ``staleness`` needs the
+    literal T_S-round schedules (gossip, gossip_blocked):
+    ``gossip_scan_stale`` without compression, the pipelined codes on the
+    physical wire."""
+    base, _, arg = mode.partition(":")
     if staleness < 0:
         raise ValueError(f"staleness must be >= 0, got {staleness}")
     if staleness and base not in ("gossip", "gossip_blocked"):
@@ -1201,6 +1577,25 @@ def make_backend(mode: str, a_static: Optional[np.ndarray], t_server: int, *,
                                    rounds=chebyshev_rounds)
     elif mode == "exact_mean":
         backend = ExactMeanBackend(a_static, t_server)
+    elif base == "trimmed_mean":
+        if arg and not arg.isdigit():
+            raise ValueError(f"bad trimmed_mean spec {mode!r}: expected "
+                             f"'trimmed_mean[:f]' with integer f >= 0")
+        backend = TrimmedMeanBackend(a_static, t_server,
+                                     f=int(arg) if arg else 1)
+    elif base == "median":
+        if arg:
+            raise ValueError(f"bad median spec {mode!r}: the coordinatewise "
+                             f"median takes no parameter")
+        backend = MedianBackend(a_static, t_server)
+    elif base == "clipped":
+        try:
+            clip_mult = float(arg) if arg else 1.0
+        except ValueError:
+            raise ValueError(f"bad clipped spec {mode!r}: expected "
+                             f"'clipped[:mult]' with float mult > 0")
+        backend = ClippedGossipBackend(a_static, t_server,
+                                       clip_mult=clip_mult)
     else:
         raise ValueError(f"unknown consensus mode {mode!r}")
     if compression != "none":

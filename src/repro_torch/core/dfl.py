@@ -50,6 +50,14 @@ runs on ``A_p``.  The static and the masked mean share one operation (a
 sum over the participating clients divided by their count), so an
 all-ones mask on the static graph is bitwise the static step.  Server
 drop and rejoin change M and live in ``engine.DynamicFederationEngine``.
+
+Byzantine servers (``DFLConfig.byzantine``, dynamic only): after the
+masked mean, the rows marked by ``EpochSchedule.byz`` replace their
+aggregate with an attack (``apply_byzantine``) before the consensus
+period, keyed by a split of the same key stream (the injection's key is
+split off before the consensus key, as the reference splits its rng).  A
+robust backend (trimmed mean, median, clipped) with ``metrics="full"``
+reports its per-source screen activity in ``DFLMetrics.screen_rejected``.
 """
 from __future__ import annotations
 
@@ -63,6 +71,7 @@ from repro_torch.comm import prng
 from repro_torch.comm.compressors import make_compressor
 from repro_torch.core import consensus as cns
 from repro_torch.core.topology import FLTopology
+from repro_torch.kernels.ref import fma
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -100,6 +109,11 @@ class DFLMetrics(NamedTuple):
     server_disagreement: torch.Tensor  # ||W - 1 wbar'||_F after consensus (Lemma 1 LHS)
     client_drift: torch.Tensor         # max_ij ||w^{ij} - w^i_p|| before aggregation (Lemma 3 LHS)
     grad_norm: torch.Tensor            # mean per-client grad norm of last local step
+    # (M,) per-SOURCE robust-screen activity: how many of server j's values
+    # the receivers' trimmed_mean/median/clipped screens discarded in this
+    # epoch's consensus period.  Set only under a robust backend with
+    # metrics="full" (a fact of the config); None everywhere else.
+    screen_rejected: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,8 +153,9 @@ class DFLConfig:
     # dynamic federation: the epoch step takes a schedule.EpochSchedule
     # operand (participation mask, per-epoch A_p, optional lam2)
     dynamic: bool = False
-    # the reference's adversarial-server schedule; refused until the
-    # Byzantine injection is ported (the robust-gossip slice)
+    # adversarial servers (schedule.ByzantineSchedule): marked servers
+    # replace their aggregate before gossip (apply_byzantine); needs
+    # dynamic=True, whose EpochSchedule.byz carries the per-row codes
     byzantine: Optional[Any] = None
 
 
@@ -210,6 +225,96 @@ def carry_forward(mask: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:
         return nl
 
     return tree_map(leaf, new_tree, old_tree)
+
+
+def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
+                    attacks: Tuple[Any, ...]) -> Any:
+    """Inject the scheduled attacks into the pre-gossip server tree.
+
+    ``codes`` is the (M,) per-row attack marking of
+    ``schedule.ByzantineSchedule.codes`` (0 = honest, k+1 = attacks[k]), a
+    tensor or an array (read to the host: the rows to rewrite are chosen
+    there); ``attacks`` the tuple of ``schedule.ByzantineAttack``; ``key``
+    the threefry key data of the injection (``comm.prng``; only
+    ``scaled_noise`` reads it).  Honest rows pass through bitwise untouched
+    (a leaf with no attacked row is returned as it is, the others are
+    copied and their attacked rows rewritten).
+
+    ``sign_flip`` sends ``-scale * w``; ``scaled_noise`` sends ``w + scale *
+    N(0, I)`` with the reference's draw: leaf ``l`` takes key
+    ``split(key, n_leaves)[l]``, attack ``k`` folds ``k`` into it, and row
+    ``r`` is that normal array's row ``r`` (``prng.normal``, within 4 ulps
+    of ``jax.random.normal``); ``inlier_shift`` sends the honest
+    coordinatewise envelope's ``scale`` quantile, ``h_min + scale * (h_max -
+    h_min)`` over the ``codes == 0`` rows (an attacker keeps its own value
+    when no honest row exists).  On float32 leaves ``scale * x + y`` is one
+    fused multiply-add, as XLA compiles it inside the reference's jitted
+    epoch step (its eager ops round twice)."""
+    codes = np.asarray(codes.detach().cpu() if isinstance(codes, torch.Tensor)
+                       else codes, dtype=np.int64).reshape(-1)
+    leaves, treedef = tree_flatten(server_tree)
+    if not attacks or not codes.any():
+        return server_tree
+    honest = np.nonzero(codes == 0)[0]
+    needs_key = any(a.kind == "scaled_noise" and (codes == i + 1).any()
+                    for i, a in enumerate(attacks))
+    if needs_key and key is None:
+        raise ValueError("a scaled_noise attack draws its noise from a key: "
+                         "pass the injection's threefry key data")
+    leaf_keys = (prng.split(key, len(leaves)) if key is not None
+                 else [None] * len(leaves))
+    out_leaves = []
+    for leaf, leaf_key in zip(leaves, leaf_keys):
+        out = leaf
+        for idx, atk in enumerate(attacks):
+            rows = np.nonzero(codes == idx + 1)[0].tolist()
+            if not rows:
+                continue
+            if out is leaf:
+                out = leaf.clone()
+            if atk.kind == "sign_flip":
+                neg = _scalar(-atk.scale, leaf)
+                for r in rows:
+                    out[r] = neg * leaf[r]
+            elif atk.kind == "scaled_noise":
+                k = prng.fold_in(leaf_key, idx)
+                per_row = leaf[0].numel()
+                for r in rows:
+                    noise = prng.normal(k, tuple(leaf.shape[1:]),
+                                        dtype=leaf.dtype, device=leaf.device,
+                                        start=r * per_row)
+                    out[r] = _scale_add(atk.scale, noise, leaf[r])
+            elif honest.size:                           # inlier_shift
+                idx_t = torch.as_tensor(honest, device=leaf.device)
+                h = leaf.index_select(0, idx_t)
+                hmin, hmax = h.amin(dim=0), h.amax(dim=0)
+                target = _scale_add(atk.scale, hmax - hmin, hmin)
+                for r in rows:
+                    out[r] = target
+        out_leaves.append(out)
+    return tree_unflatten(treedef, out_leaves)
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python scale as a 0-d tensor in the leaf's dtype: JAX rounds a
+    weakly typed scalar to the array's dtype (bf16 too) before the product,
+    where torch would keep it in float32."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _scale_add(scale: float, x: torch.Tensor, y: torch.Tensor,
+               step: int = 1 << 24) -> torch.Tensor:
+    """``scale * x + y``: one rounding on float32 (``kernels.ref.fma``, over
+    runs of ``step`` elements to bound its float64 transients), two in the
+    leaf dtype otherwise."""
+    if x.dtype != torch.float32:
+        return y + _scalar(scale, x) * x
+    out = torch.empty_like(y)
+    xf, yf, of = x.reshape(-1), y.reshape(-1), out.view(-1)
+    s = torch.full((1,), scale, dtype=torch.float32, device=x.device)
+    for lo in range(0, xf.numel(), step):
+        of[lo:lo + step] = fma(s, xf[lo:lo + step], yf[lo:lo + step])
+    return out
 
 
 def broadcast_to_clients(server_tree: Any, n: int) -> Any:
@@ -346,10 +451,6 @@ def build_dfl_epoch_step(
     topo = cfg.topology
     m, n = topo.num_servers, topo.clients_per_server
     grid = (m, n)
-    if cfg.byzantine is not None:
-        raise NotImplementedError(
-            "DFLConfig.byzantine: the Byzantine injection arrives with the "
-            "robust-gossip slice (ROADMAP.md)")
     if cfg.mixing not in ("symmetric", "row_stochastic", "push_sum"):
         raise ValueError(f"unknown mixing interpretation {cfg.mixing!r}")
     if cfg.mixing == "symmetric" and topo.mixing == "out_degree" and m > 1:
@@ -386,8 +487,20 @@ def build_dfl_epoch_step(
             f"mixing={cfg.mixing!r}: the directed paths need the literal "
             f"W <- A W / ratio-consensus update — use one of ('gossip', "
             f"'gossip_blocked', 'collapsed', 'none')")
-    n_micro = max(cfg.grad_microbatches, 1)
     full = cfg.metrics == "full"
+    # the attack kinds and scales are facts of the step; WHO attacks is the
+    # per-epoch EpochSchedule.byz operand
+    byz_attacks = (tuple(cfg.byzantine.attacks)
+                   if cfg.byzantine is not None else ())
+    if byz_attacks and not cfg.dynamic:
+        raise ValueError(
+            "DFLConfig.byzantine needs dynamic=True: the per-epoch attacker "
+            "codes ride the EpochSchedule operand (use engine.make_engine, "
+            "which sets it)")
+    # the robust screen's readout is a fact of the config (a robust backend
+    # and full metrics)
+    screen_stats = (backend is not None and backend.robust and full)
+    n_micro = max(cfg.grad_microbatches, 1)
     push_sum = cfg.mixing == "push_sum"
 
     def client_grad(p_ij, batch_ij, rng):
@@ -462,9 +575,10 @@ def build_dfl_epoch_step(
         return params, opt_state, losses, gnorm
 
     def run_epoch(state: DFLState, batches: Any, mask=None, a_p=None,
-                  lam2=None) -> Tuple[DFLState, DFLMetrics]:
+                  lam2=None, byz=None) -> Tuple[DFLState, DFLMetrics]:
         """One epoch; ``mask`` None is the static step (full participation,
-        the static matrix).  Metrics stay on the device."""
+        the static matrix); ``byz`` the epoch's attack codes.  Metrics stay
+        on the device."""
         device = tree_leaves(state.client_params)[0].device
         # Lemma 3 LHS needs each client's start-of-epoch server model w^i_p
         # (== the broadcast client params at entry), which the in-place
@@ -503,14 +617,26 @@ def build_dfl_epoch_step(
             server = (server_mean(params) if mask is None
                       else masked_server_mean(params, mask))
 
-            # ---- 3. consensus period: T_S gossip rounds (Eq. 5/7) ----
-            # the wire key follows the reference's rng: one split per local
-            # step, then the consensus key split off
+            # the key follows the reference's rng: one split per local step,
+            # then the injection's key and the consensus key split off
             key, ef_res = state.wire_key, state.ef_residual
             psw = state.psum_weight
             if key is not None:
                 for _ in range(tree_leaves(batches)[0].shape[0]):
                     key = prng.split(key)[0]
+
+            # ---- 2b. adversarial injection: marked servers replace their
+            # aggregate before gossip (the message the federation receives,
+            # and what a robust backend must screen) ----
+            if byz_attacks:
+                bkey = None
+                if key is not None:
+                    key, bkey = prng.split(key)
+                server = apply_byzantine(server, byz, bkey, byz_attacks)
+
+            # ---- 3. consensus period: T_S gossip rounds (Eq. 5/7) ----
+            screen = (torch.zeros((m,), dtype=torch.float32, device=device)
+                      if screen_stats else None)
             ckey = None
             if compressed:
                 if key is None:
@@ -535,7 +661,11 @@ def build_dfl_epoch_step(
                 server, ef_res = backend.mix_compressed(
                     server, a_p, residual=ef_res, key=ckey, lam2=lam2)
             elif m > 1 and topo.t_server > 0 and backend is not None:
-                server = backend.mix(server, a_p, lam2=lam2)
+                if screen_stats:
+                    server, screen = backend.mix_stats(server, a_p,
+                                                       lam2=lam2)
+                else:
+                    server = backend.mix(server, a_p, lam2=lam2)
             disagreement = (disagreement_norm(server) if full
                             else torch.zeros((), dtype=torch.float32,
                                              device=device))
@@ -548,28 +678,29 @@ def build_dfl_epoch_step(
                              ef_res, key, psw)
         return new_state, DFLMetrics(loss=losses,
                                      server_disagreement=disagreement,
-                                     client_drift=drift, grad_norm=gnorm)
+                                     client_drift=drift, grad_norm=gnorm,
+                                     screen_rejected=screen)
 
     def epoch_step(state: DFLState, batches: Any
                    ) -> Tuple[DFLState, DFLMetrics]:
         state, mt = run_epoch(state, batches)
         # the static step's metrics are host tensors: reading them waits
         # for the device
-        return state, DFLMetrics(*(x.float().cpu() for x in mt))
+        return state, DFLMetrics(*(None if x is None else x.float().cpu()
+                                   for x in mt))
 
     def epoch_step_dynamic(state: DFLState, batches: Any, sched: Any
                            ) -> Tuple[DFLState, DFLMetrics]:
         """Dynamic variant: ``sched`` is an ``EpochSchedule(mask, mixing[,
-        lam2])`` of tensors on the state's device."""
-        if sched.byz is not None:
-            raise NotImplementedError(
-                "EpochSchedule.byz: the Byzantine injection arrives with "
-                "the robust-gossip slice (ROADMAP.md)")
+        lam2, byz])`` of tensors on the state's device."""
+        if byz_attacks and sched.byz is None:
+            raise ValueError("DFLConfig.byzantine needs the epoch's attack "
+                             "codes in EpochSchedule.byz")
         if tuple(sched.mask.shape) != grid:
             raise ValueError(f"participation mask of shape "
                              f"{tuple(sched.mask.shape)} for an {grid} grid")
         return run_epoch(state, batches, sched.mask, sched.mixing,
-                         sched.lam2)
+                         sched.lam2, sched.byz if byz_attacks else None)
 
     return epoch_step_dynamic if cfg.dynamic else epoch_step
 

@@ -28,8 +28,16 @@ epochs (``_plan_blocks``), and dispatches each through
 ``overlap.build_dfl_superepoch_step``.  Every metric read-back, per epoch
 or per block, is one call of the injectable ``_device_get``.
 
+A Byzantine schedule (``DFLConfig.byzantine``) is validated at
+construction (one honest server at least) and marks each epoch's attackers
+by their ORIGINAL ids through the alive row order
+(``EpochSchedule.byz``); the record adds ``byzantine`` (the attacking
+share) and, under a robust backend, ``screen_rejected`` (screened values
+per gossip round).
+
 Left out until ``repro_torch.obs`` is ported: the reference's
-observability bundle and its consensus-replay timing probes.
+observability bundle, its consensus-replay timing probes and the
+per-server screen histogram.
 """
 from __future__ import annotations
 
@@ -106,14 +114,14 @@ class DynamicFederationEngine:
                 "A_p: the symmetric gossip path would silently converge to "
                 "a biased average — use DFLConfig(mixing='push_sum') or "
                 "mixing='row_stochastic'")
-        if self.cfg.byzantine is not None:
-            raise NotImplementedError(
-                "DFLConfig.byzantine: the Byzantine injection arrives with "
-                "the robust-gossip slice (ROADMAP.md)")
         self.topo: FLTopology = self.cfg.topology
         # fail at construction, not mid-run: every fault event must name an
         # ORIGINAL server id (data shards are keyed by original identity)
         self.faults.validate(self.topo.num_servers)
+        # ... and the byzantine populations must leave at least one honest
+        # server
+        if self.cfg.byzantine is not None:
+            self.cfg.byzantine.validate(self.topo.num_servers)
         # original server ids still alive, in row order of the state
         self.alive: List[int] = list(range(self.topo.num_servers))
         self._initial_m: int = self.topo.num_servers
@@ -284,10 +292,19 @@ class DynamicFederationEngine:
         sigma_prod = self._tracker.update(a_np, self.topo.t_server)
         lam2 = (np.float32(tp.lambda_2(a_np)) if self._needs_spectral
                 else None)
-        return EpochSchedule(mask_np, a_np, lam2), sigma_prod
+        byz_np = None
+        if self.cfg.byzantine is not None and self.cfg.byzantine.attacks:
+            # per-row codes of the CURRENT federation: the attackers'
+            # ORIGINAL ids (drawn over the original size, so stable across
+            # surgery) through the alive row order; passed every epoch,
+            # all-zero ones included
+            byz_np = self.cfg.byzantine.codes(epoch, tuple(self.alive),
+                                              self._initial_m)
+        return EpochSchedule(mask_np, a_np, lam2, byz_np), sigma_prod
 
     def _record(self, mask_np: np.ndarray, loss_last, disagreement, drift,
-                sigma_prod: float, psw=None) -> Dict[str, float]:
+                sigma_prod: float, psw=None, byz_np=None,
+                screen=None) -> Dict[str, float]:
         # participant-weighted loss of the last local iteration
         last = np.asarray(loss_last, np.float32)
         w = mask_np if mask_np.sum() else np.ones_like(mask_np)
@@ -297,10 +314,19 @@ class DynamicFederationEngine:
                   "participation": float(mask_np.mean()),
                   "num_servers": float(self.topo.num_servers),
                   "sigma_prod": sigma_prod}
+        if byz_np is not None:
+            # the share of the CURRENT federation attacking this epoch
+            record["byzantine"] = float((byz_np > 0).mean())
         if psw is not None:
             # ratio-consensus conditioning: a terminal weight near 0 means
             # that server's num / w read-out amplified rounding
             record["psum_min_weight"] = float(np.min(np.asarray(psw)))
+        if screen is not None:
+            # robust-screen activity, normalised per gossip round (the
+            # per-server breakdown waits for the port's metrics hub)
+            rounds = max(self.topo.t_server, 1)
+            record["screen_rejected"] = float(
+                (np.asarray(screen, np.float32) / rounds).sum())
         return record
 
     def run_epoch(self, state: dfl.DFLState, epoch: int,
@@ -313,7 +339,9 @@ class DynamicFederationEngine:
             torch.as_tensor(plan.mask, dtype=torch.float32, device=device),
             torch.as_tensor(plan.mixing, dtype=torch.float32, device=device),
             None if plan.lam2 is None else torch.as_tensor(
-                plan.lam2, dtype=torch.float32, device=device))
+                plan.lam2, dtype=torch.float32, device=device),
+            None if plan.byz is None else torch.as_tensor(
+                plan.byz, dtype=torch.int32, device=device))
         epoch_wire_bytes = None
         if self._bytes is not None:
             row_bytes, elems = self._wire_row_bytes(state)
@@ -325,7 +353,8 @@ class DynamicFederationEngine:
         # weight
         mh, psw_h = self._device_get((metrics, state.psum_weight))
         record = self._record(plan.mask, mh.loss[-1], mh.server_disagreement,
-                              mh.client_drift, sigma_prod, psw_h)
+                              mh.client_drift, sigma_prod, psw_h, plan.byz,
+                              mh.screen_rejected)
         if epoch_wire_bytes is not None:
             # this epoch's own bytes (0.0 for an epoch without rounds) and
             # the cumulative ratio
@@ -388,10 +417,12 @@ class DynamicFederationEngine:
         mh, psw_h = self._device_get((metrics, psw))
         records = []
         for i in range(k):
-            record = self._record(plans[i].mask, mh.loss[i][-1],
-                                  mh.server_disagreement[i],
-                                  mh.client_drift[i], sigmas[i],
-                                  None if psw_h is None else psw_h[i])
+            record = self._record(
+                plans[i].mask, mh.loss[i][-1], mh.server_disagreement[i],
+                mh.client_drift[i], sigmas[i],
+                None if psw_h is None else psw_h[i], plans[i].byz,
+                None if mh.screen_rejected is None
+                else mh.screen_rejected[i])
             if wire is not None:
                 epoch_bytes, ratio_after, _ = wire[i]
                 record["wire_mb"] = epoch_bytes / 1e6
@@ -450,7 +481,9 @@ def make_engine(topology: FLTopology, loss_fn: dfl.LossFn,
 
     ``history`` maps metric name -> per-epoch list (loss, disagreement,
     drift, participation, num_servers, sigma_prod, psum_min_weight under
-    ``mixing="push_sum"``, and wire_mb / wire_ratio under compression).  ``superepoch=K`` is an engine knob:
+    ``mixing="push_sum"``, wire_mb / wire_ratio under compression,
+    byzantine under a Byzantine schedule, and screen_rejected under a
+    robust backend).  ``superepoch=K`` is an engine knob:
     blocks of up to K epochs a dispatch, the same history at any K."""
     cfg = dfl.DFLConfig(topology=topology, consensus_mode=consensus_mode,
                         dynamic=True, **cfg_kw)

@@ -39,8 +39,7 @@ class EpochScheduleBatch(NamedTuple):
     ``mask``:   (K, M, N) float32 participation masks.
     ``mixing``: (K, M, M) float32 mixing matrices A_p.
     ``lam2``:   optional (K,) float32 per-epoch spectral estimates.
-    ``byz``:    optional (K, M) int32 attack codes (the dynamic step refuses
-                them until the Byzantine injection is ported).
+    ``byz``:    optional (K, M) int32 attack codes.
     """
 
     mask: Any
@@ -114,7 +113,7 @@ def build_dfl_superepoch_step(
                 state, tree_map(lambda x, i=i: x[i], batches), sched)
             per_epoch.append(metrics)
             weights.append(state.psum_weight)
-        stacked = dfl.DFLMetrics(*(torch.stack(xs)
+        stacked = dfl.DFLMetrics(*(None if xs[0] is None else torch.stack(xs)
                                    for xs in zip(*per_epoch)))
         psw = None if weights[0] is None else torch.stack(weights)
         return state, stacked, psw

@@ -17,12 +17,14 @@ consumes their output as per-epoch operands on the state's device:
   the engine's graph surgery (``engine.DynamicFederationEngine``).
 * ``diurnal_trace`` / ``save_participation_trace`` /
   ``load_participation_trace`` — availability traces and their JSONL log.
+* ``ByzantineAttack`` / ``ByzantineSchedule`` — which ORIGINAL servers
+  attack, with which attack, each epoch: per-row codes the dynamic step
+  hands to ``dfl.apply_byzantine`` (the attackers' identities are one
+  seeded permutation, as in the reference).
 
 Every sampler draws from ``numpy.random.default_rng((seed, epoch))``, as
 the reference does, so masks, matrices and traces equal the reference's
-exactly.  Still to come, refused with the slice that brings it:
-``ByzantineAttack`` / ``ByzantineSchedule`` (the Byzantine injection, with
-the robust screens).
+exactly.
 """
 from __future__ import annotations
 
@@ -47,9 +49,9 @@ class EpochSchedule(NamedTuple):
                 spectral estimate (``topology.lambda_2``) that spectral
                 backends (``consensus.ChebyshevBackend``) consume; ``None``
                 for every other backend.
-    ``byz``:    the reference's per-server attack codes; always ``None``
-                here until the Byzantine injection is ported (the dynamic
-                step refuses anything else).
+    ``byz``:    optional (M,) int32 per-row attack codes
+                (``ByzantineSchedule.codes``: 0 honest, k + 1 attack k);
+                ``None`` without a Byzantine schedule.
     """
 
     mask: Any
@@ -556,27 +558,143 @@ class FaultSchedule:
 
 
 # ---------------------------------------------------------------------------
-# Byzantine (adversarial-server) schedules: a later slice
+# Byzantine (adversarial-server) schedules
 # ---------------------------------------------------------------------------
 
-_BYZANTINE_LATER = ("the Byzantine injection (ByzantineAttack, "
-                    "ByzantineSchedule, dfl.apply_byzantine) arrives with the "
-                    "robust-gossip slice (ROADMAP.md)")
+ATTACK_KINDS = ("sign_flip", "scaled_noise", "inlier_shift")
 
 
+@dataclasses.dataclass(frozen=True)
 class ByzantineAttack:
-    """Refused: see ``_BYZANTINE_LATER``."""
+    """One attack population: a ``frac`` fraction of the ORIGINAL servers
+    runs attack ``kind`` with strength ``scale``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_BYZANTINE_LATER)
+    kinds (the injection itself is ``dfl.apply_byzantine``):
+      ``sign_flip``    transmit ``-scale * w`` — the classic
+                       gradient/model reversal; drags plain gossip's
+                       average toward the mirrored model.
+      ``scaled_noise`` transmit ``w + scale * N(0, I)`` — a noise flooder;
+                       keeps every honest neighbor's post-mix state jittery
+                       so disagreement never reaches tolerance.
+      ``inlier_shift`` COLLUSION that stays inside the honest coordinate
+                       range: transmit ``h_min + scale * (h_max - h_min)``
+                       per coordinate (the honest envelope's ``scale``
+                       quantile corner, computed over the true honest
+                       servers) — undetectable by range checks, biases
+                       plain averaging toward the envelope edge.
+    """
+
+    kind: str
+    frac: float
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if self.kind not in ATTACK_KINDS:
+            raise ValueError(f"unknown byzantine attack kind {self.kind!r}; "
+                             f"choose from {ATTACK_KINDS}")
+        if not 0.0 <= self.frac <= 1.0:
+            raise ValueError("attack frac must be in [0, 1]")
+        if self.kind == "inlier_shift" and not 0.0 <= self.scale <= 1.0:
+            raise ValueError("inlier_shift scale is an envelope quantile "
+                             "and must be in [0, 1]")
 
 
+@dataclasses.dataclass(frozen=True)
 class ByzantineSchedule:
-    """Refused: see ``_BYZANTINE_LATER``."""
+    """Which servers attack, when — the adversarial sibling of
+    ``FaultSchedule``.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_BYZANTINE_LATER)
+    Attacker identities are drawn over ORIGINAL server ids (one seeded
+    permutation of ``range(M)``, carved into disjoint per-attack sets), so
+    they are stable across drop/rejoin surgery: a server that is both
+    scheduled to attack and currently dropped simply isn't there to
+    attack, and resumes attacking when it rejoins.  With ``resample=True``
+    a fresh permutation is drawn every epoch (a roaming adversary);
+    default is the fixed-adversary model every breakdown-point statement
+    assumes.
+
+    The schedule only MARKS attackers (host-side, ``codes``); the attacks
+    themselves are a pure function applied to the pre-gossip server tree
+    by ``dfl.apply_byzantine``, so one epoch step per federation size
+    serves every epoch's attacker set."""
+
+    attacks: Tuple[ByzantineAttack, ...] = ()
+    seed: int = 0
+    resample: bool = False
 
     @staticmethod
-    def parse(spec: str, **kwargs) -> "ByzantineSchedule":
-        raise NotImplementedError(_BYZANTINE_LATER)
+    def parse(spec: str, *, seed: int = 0,
+              resample: bool = False) -> "ByzantineSchedule":
+        """Parse the CLI grammar of ``launch/train.py --byzantine``.
+
+        Grammar (comma-separated attacks, whitespace ignored)::
+
+            spec   ::= "" | attack ("," attack)*
+            attack ::= kind ":" FRAC [":" SCALE]
+            kind   ::= "sign_flip" | "scaled_noise" | "inlier_shift"
+
+        e.g. ``"sign_flip:0.125"`` (1 of 8 servers flips its sign at the
+        default scale 1.0) or ``"sign_flip:0.1,scaled_noise:0.1:10"``.
+        The empty string parses to an empty (all-honest) schedule."""
+        attacks = []
+        for part in filter(None, (s.strip() for s in spec.split(","))):
+            fields = part.split(":")
+            if len(fields) not in (2, 3):
+                raise ValueError(f"bad byzantine spec {part!r}: expected "
+                                 f"'kind:FRAC[:SCALE]'")
+            try:
+                frac = float(fields[1])
+                scale = float(fields[2]) if len(fields) == 3 else 1.0
+            except ValueError:
+                raise ValueError(f"bad byzantine spec {part!r}: FRAC and "
+                                 f"SCALE must be numbers")
+            attacks.append(ByzantineAttack(fields[0], frac, scale))
+        return ByzantineSchedule(tuple(attacks), seed=seed,
+                                 resample=resample)
+
+    def counts(self, m: int) -> Tuple[int, ...]:
+        """Attackers per attack at federation size ``m`` (rounded)."""
+        return tuple(int(round(a.frac * m)) for a in self.attacks)
+
+    def validate(self, num_servers: int) -> None:
+        """Fail at engine construction when the attack populations don't
+        fit: the per-attack sets are disjoint, so their total size must
+        leave at least one honest server (an all-attacker federation has
+        no honest envelope, no honest metric, and nothing to defend)."""
+        total = sum(self.counts(num_servers))
+        if total >= num_servers and total > 0:
+            raise ValueError(
+                f"byzantine schedule marks {total} attackers but the "
+                f"federation has only {num_servers} servers — at least one "
+                f"honest server must remain")
+
+    def attacker_sets(self, epoch: int, m: int) -> Tuple[frozenset, ...]:
+        """Disjoint per-attack sets of ORIGINAL server ids for ``epoch``:
+        one seeded permutation of ``range(m)`` carved sequentially (a
+        fixed permutation unless ``resample``)."""
+        if not self.attacks:
+            return ()
+        key = (self.seed, epoch) if self.resample else (self.seed,)
+        perm = np.random.default_rng(key).permutation(m)
+        sets, lo = [], 0
+        for cnt in self.counts(m):
+            sets.append(frozenset(int(s) for s in perm[lo:lo + cnt]))
+            lo += cnt
+        return tuple(sets)
+
+    def codes(self, epoch: int, alive: Tuple[int, ...],
+              num_servers: int) -> np.ndarray:
+        """Per-CURRENT-ROW attack codes for ``epoch``: 0 = honest, k+1 =
+        ``attacks[k]``.  ``alive`` is the engine's original-id row order,
+        so the codes line up with the state arrays after any surgery;
+        ``num_servers`` is the ORIGINAL federation size — the permutation
+        is always drawn over it, so attacker identities don't shift when
+        a server drops."""
+        sets = self.attacker_sets(epoch, num_servers)
+        out = np.zeros(len(alive), np.int32)
+        for row, orig in enumerate(alive):
+            for k, ids in enumerate(sets):
+                if orig in ids:
+                    out[row] = k + 1
+                    break
+        return out

@@ -36,8 +36,19 @@ plain rounds through kernel 1, or the physical wire's codes through kernel
 takes row-stochastic out-degree weights, each period is ratio consensus
 with ``P = A'`` (kernel 1 every round, or the wires under ``P``), and the
 record adds ``psum_min_weight``, the smallest terminal push-sum weight.
-``--byzantine`` parses and raises: the Byzantine injection comes with the
-robust-gossip slice.
+
+``--byzantine "sign_flip:0.25"`` (``kind:FRAC[:SCALE]``, comma-separated;
+kinds sign_flip, scaled_noise, inlier_shift) makes that share of the
+ORIGINAL servers replace their aggregate before gossip (``train_dynamic``);
+pair it with a robust ``--consensus-mode trimmed_mean[:f] | median |
+clipped[:mult]``.  The record adds ``byzantine`` (the attacking share) and,
+under a robust mode, ``screen_rejected`` (screened values per round).
+
+``--ckpt-dir DIR`` saves the client parameters every epoch
+(``checkpoint.Checkpointer``, the reference's format, the newest three
+kept; under ``--superepoch K > 1`` at block boundaries) with the arch and
+epoch (and the alive servers' original ids in ``train_dynamic``).
+``--log-every N`` prints every N-th epoch line (and epoch 0's).
 """
 from __future__ import annotations
 
@@ -48,6 +59,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.comm import accounting, prng
 from repro_torch.comm.compressors import (tree_message_elems,
                                           tree_wire_bytes_per_server)
@@ -66,10 +78,12 @@ from repro_torch.optim import sgd
 from repro_torch.tree import tree_leaves
 
 _ORDER = ("loss", "disagreement", "drift", "sigma_prod", "num_servers",
-          "participation", "psum_min_weight", "wire_mb", "wire_ratio")
+          "participation", "psum_min_weight", "wire_mb", "wire_ratio",
+          "byzantine", "screen_rejected")
 _FMT = {"loss": ".4f", "disagreement": ".3e", "drift": ".3e",
         "sigma_prod": ".3f", "num_servers": ".0f", "participation": ".2f",
-        "psum_min_weight": ".3f", "wire_mb": ".1f", "wire_ratio": ".2f"}
+        "psum_min_weight": ".3f", "wire_mb": ".1f", "wire_ratio": ".2f",
+        "byzantine": ".3f", "screen_rejected": ".4g"}
 
 
 def resolve_device(device: str) -> torch.device:
@@ -89,6 +103,12 @@ def set_full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _logged(epoch: int, log_every: int) -> bool:
+    """The console's epoch cadence: epoch 0 and every ``log_every``-th (the
+    reference's ``ConsoleSink``)."""
+    return epoch == 0 or epoch % max(1, int(log_every)) == 0
+
+
 def format_record(epoch: int, rec: dict) -> str:
     parts = [f"epoch {epoch:4d}"]
     parts += [f"{k}={rec[k]:{_FMT[k]}}" for k in _ORDER if k in rec]
@@ -103,15 +123,16 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
           consensus_mode: str = "gossip", mixing: str = "symmetric",
           compression: str = "none", error_feedback: bool = False,
           wire: str = "simulated", staleness: int = 0, seed: int = 0,
-          device: str = "cuda",
+          device: str = "cuda", ckpt_dir: Optional[str] = None,
+          log_every: int = 1,
           params: Optional[dict] = None, log: bool = True) -> dict:
     """Static Algorithm 1 on an LM.  ``params`` (optional) replaces the
     seeded random init, e.g. weights carried over by
     ``transformer.params_from_numpy``.  ``compression`` / ``error_feedback``
     / ``wire`` select the compressed wire, ``staleness`` the
-    bounded-staleness rounds.  Returns the final
-    state, the per-epoch history (metric name -> list) and the run's
-    objects."""
+    bounded-staleness rounds.  ``ckpt_dir`` saves the client parameters
+    after every epoch.  Returns the final state, the per-epoch history
+    (metric name -> list) and the run's objects."""
     dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
         arch_id, smoke, servers, clients, t_client, t_server, graph, gamma,
         seq_len, per_client_batch, seed, device, mixing, params)
@@ -131,6 +152,7 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
                          else "average")
     a_np = (topo.mixing_matrix() if topo.num_servers > 1
             else np.ones((1, 1)))
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     history: dict = {}
     for epoch in range(epochs):
         t0 = time.perf_counter()
@@ -152,8 +174,11 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
             rec["wire_ratio"] = ledger.tracker.ratio()
         for k, v in rec.items():
             history.setdefault(k, []).append(v)
-        if log:
+        if log and _logged(epoch, log_every):
             print(format_record(epoch, rec))
+        if ckpt is not None:
+            ckpt.save(epoch, state.client_params,
+                      meta={"arch": cfg.name, "epoch": epoch})
     return {"state": state, "history": history, "topology": topo,
             "cfg": cfg}
 
@@ -197,6 +222,7 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
                   asymmetric_drop_prob: float = 0.0, faults: str = "",
                   byzantine: str = "", participation_trace: str = "",
                   seed: int = 0, device: str = "cuda",
+                  ckpt_dir: Optional[str] = None, log_every: int = 1,
                   params: Optional[dict] = None, log: bool = True) -> dict:
     """Dynamic-federation LM training: Algorithm 1 driven by the scenario
     engine — partial participation (``participation_rate`` with
@@ -205,15 +231,18 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
     (``edge_drop_prob``, ``straggler_weaken``, or ``asymmetric_drop_prob``
     with ``mixing="push_sum"`` or ``"row_stochastic"``), and scheduled
     server drop/rejoin
-    (``faults``, ``"drop:EPOCH:SERVER,rejoin:EPOCH:SERVER"``).
-    ``superepoch=K`` runs blocks of K epochs a dispatch (the same
-    history); ``staleness=s`` lets round t mix round t - s.  The record of
+    (``faults``, ``"drop:EPOCH:SERVER,rejoin:EPOCH:SERVER"``), and Byzantine
+    servers (``byzantine``, ``"sign_flip:0.25"``; the attackers are drawn
+    with ``seed``).  ``superepoch=K`` runs blocks of K epochs a dispatch
+    (the same history); ``staleness=s`` lets round t mix round t - s.
+    ``ckpt_dir`` saves the client parameters after every epoch, or every
+    block under ``superepoch > 1``.  The record of
     an epoch is the engine's, plus ``epoch_s`` (host seconds, the read-back
     included; a superepoch block's seconds split evenly over its epochs)
     and, on a GPU, ``alloc_gb``, the memory the run holds after it.
     Returns the final state, the history and the run's objects."""
-    if byzantine:
-        ByzantineSchedule.parse(byzantine)          # raises: a later slice
+    byz = (ByzantineSchedule.parse(byzantine, seed=seed) if byzantine
+           else None)
     dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
         arch_id, smoke, servers, clients, t_client, t_server, graph, gamma,
         seq_len, per_client_batch, seed, device, mixing, params)
@@ -247,7 +276,7 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
                          compression=compression,
                          error_feedback=error_feedback, wire=wire,
                          participation=part, topology_schedule=tsched,
-                         faults=FaultSchedule.parse(faults),
+                         faults=FaultSchedule.parse(faults), byzantine=byz,
                          superepoch=superepoch, staleness=staleness)
     # the wire key is the reference trainer's rng, jax.random.key(seed + 1)
     state = init_dfl_state(engine.cfg, params, optimizer,
@@ -258,6 +287,7 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
     def batch_fn(epoch, alive):
         return pipe.epoch_batches(epoch, server_ids=alive)
 
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     history: dict = {}
     epoch = 0
     for epoch0, k in engine._plan_blocks(epochs):
@@ -276,9 +306,14 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
                 rec["alloc_gb"] = torch.cuda.memory_allocated(dev) / 1e9
             for key, v in rec.items():
                 history.setdefault(key, []).append(v)
-            if log:
+            if log and _logged(epoch, log_every):
                 print(format_record(epoch, rec))
             epoch += 1
+        # per epoch, or at a block's end (the state exists only there)
+        if ckpt is not None:
+            ckpt.save(epoch - 1, state.client_params,
+                      meta={"arch": cfg.name, "epoch": epoch - 1,
+                            "alive": list(engine.alive)})
     return {"state": state, "history": history, "engine": engine,
             "cfg": cfg}
 
@@ -340,8 +375,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("ring", "complete", "star", "line", "erdos_renyi",
                             "directed_ring", "random_orientation"))
     p.add_argument("--consensus-mode", default="gossip",
-                   choices=("gossip", "gossip_blocked", "collapsed",
-                            "chebyshev", "exact_mean", "none"))
+                   help="inter-server mixing: gossip | gossip_blocked | "
+                        "collapsed | chebyshev | exact_mean | none, or a "
+                        "robust screen trimmed_mean[:f] | median | "
+                        "clipped[:mult] (validated by "
+                        "consensus.make_backend)")
     p.add_argument("--mixing", default="symmetric",
                    choices=("symmetric", "row_stochastic", "push_sum"),
                    help="symmetric doubly-stochastic gossip (the paper), "
@@ -369,6 +407,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="save the client parameters here every epoch")
+    p.add_argument("--log-every", type=int, default=1,
+                   help="print every N-th epoch line (and epoch 0's)")
     dyn = p.add_argument_group(
         "dynamic federation (any of these switches to the scenario engine)")
     dyn.add_argument("--participation-rate", type=float, default=1.0,
@@ -392,8 +434,10 @@ def build_parser() -> argparse.ArgumentParser:
     dyn.add_argument("--faults", default="",
                      help="server fault schedule, e.g. 'drop:5:1,rejoin:9:1'")
     dyn.add_argument("--byzantine", default="",
-                     help="the reference's attack schedule; the Byzantine "
-                          "injection is a later slice, so it raises")
+                     help="Byzantine attack schedule, e.g. 'sign_flip:0.25' "
+                          "or 'sign_flip:0.1,scaled_noise:0.1:10'; attacked "
+                          "servers replace their aggregate before gossip "
+                          "(pair with a robust --consensus-mode)")
     return p
 
 
@@ -406,7 +450,8 @@ def main(argv: Optional[list] = None) -> None:
               graph=args.graph, consensus_mode=args.consensus_mode,
               mixing=args.mixing, compression=args.compression,
               error_feedback=args.error_feedback, wire=args.wire,
-              staleness=args.staleness, device=args.device, seed=args.seed)
+              staleness=args.staleness, device=args.device, seed=args.seed,
+              ckpt_dir=args.ckpt_dir, log_every=args.log_every)
     dynamic = (args.participation_rate < 1.0 or args.edge_drop_prob > 0.0
                or args.straggler_weaken > 0.0
                or args.asymmetric_drop_prob > 0.0 or bool(args.faults)

@@ -92,9 +92,16 @@ def test_gossip_preserves_mean_and_contracts():
 
 @pytest.mark.parametrize("mode", ["trimmed_mean:1", "median", "clipped"])
 def test_later_modes_raise_not_implemented(mode):
-    a = jtp.metropolis_weights(jtp.ring_graph(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.make_backend(mode, a, 3)
+    """The robust screens were the last modes the port refused: they now
+    build the reference's backend (its name and flags), and mix as it
+    does (``tests/test_torch_robust.py`` holds them in full)."""
+    a = jtp.metropolis_weights(jtp.complete_graph(4))
+    be, jbe = tc.make_backend(mode, a, 3), jc.make_backend(mode, a, 3)
+    assert (be.name, be.robust, be.supports_directed) == (
+        jbe.name, jbe.robust, jbe.supports_directed)
+    tree = _tree(4, seed=5)
+    _compare(be.mix(tree_map(torch.from_numpy, tree)),
+             jbe.mix(jax.tree.map(jnp.asarray, tree)))
 
 
 def test_later_options_and_bad_modes_raise():

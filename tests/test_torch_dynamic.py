@@ -440,10 +440,14 @@ def test_fault_schedule_parse_and_validation():
 
 
 def test_later_slices_are_refused_by_name():
-    with pytest.raises(NotImplementedError, match="robust-gossip"):
-        tsched.ByzantineSchedule.parse("sign_flip:0.25")
-    with pytest.raises(NotImplementedError, match="robust-gossip"):
-        tsched.ByzantineAttack("sign_flip", 0.25)
+    # the Byzantine injection is ported: the schedule parses as the
+    # reference's and marks the same rows
+    byz = tsched.ByzantineSchedule.parse("sign_flip:0.25", seed=3)
+    jbyz = jsched.ByzantineSchedule.parse("sign_flip:0.25", seed=3)
+    assert byz.counts(8) == jbyz.counts(8)
+    np.testing.assert_array_equal(byz.codes(0, tuple(range(8)), 8),
+                                  jbyz.codes(0, tuple(range(8)), 8))
+    assert tsched.ByzantineAttack("sign_flip", 0.25).scale == 1.0
     # directed federation is ported: the push-sum tracker builds and
     # tracks the transpose product, as the reference's
     a = tp.out_degree_weights(tp.directed_ring(3))
@@ -452,10 +456,11 @@ def test_later_slices_are_refused_by_name():
     assert tr.mode == "push_sum"
     assert tr.update(a, 4) == jtr.update(a, 4)
     np.testing.assert_array_equal(tr.prod, jtr.prod)
+    # ... and, as in the reference, it needs the dynamic step
     topo, loss_fn, _, _ = _setup(m=3, n=2, t_c=1, t_s=1)
-    with pytest.raises(NotImplementedError, match="robust-gossip"):
-        build_dfl_epoch_step(DFLConfig(topology=topo, dynamic=True,
-                                       byzantine=object()), loss_fn, sgd(0.1))
+    with pytest.raises(ValueError, match="dynamic"):
+        build_dfl_epoch_step(DFLConfig(topology=topo, byzantine=byz),
+                             loss_fn, sgd(0.1))
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,10 @@ rounding to the same operations.  The simulated periods: 1e-5 (their
 kernel-1 rounds sum in another order than the CPU's).  Push-sum: kernel 1
 under a column-stochastic P as kernel 1 is held; push-sum periods on the
 card against the CPU's, as the periods above (bf16: T_S bf16 steps of the
-largest value).
+largest value).  Kernel 1 under clipped gossip's state-dependent C: as
+kernel 1 is held; the robust periods on the card against the CPU's: the
+rank screens bitwise, clipped gossip 1e-5; the Byzantine injection bitwise
+but for scaled_noise (4 ulps of its noise).
 """
 import numpy as np
 import pytest
@@ -198,6 +201,94 @@ def test_consensus_mix_under_a_column_stochastic_p(cuda, m, d):
                                atol=1e-5)
     assert out16.dtype == torch.bfloat16
     assert _within_one_bf16_rounding(p, w.bfloat16(), out16)
+
+
+def _clipped_operator(m: int) -> np.ndarray:
+    """The clipped-gossip effective matrix ``C`` of a complete graph whose
+    server 0 sits far from the rest: row-stochastic, not symmetric, its
+    diagonal not 1/M (the clipped mass returns to the self-loops)."""
+    from repro_torch.core import consensus as cns
+    rng = np.random.default_rng(m)
+    x = rng.standard_normal((m, 64)).astype(np.float32)
+    x[0] *= 40.0
+    a = torch.from_numpy(tp.metropolis_weights(tp.complete_graph(m))
+                         .astype(np.float32))
+    return cns.clip_weights(a, {"x": torch.from_numpy(x)}).numpy()
+
+
+@pytest.mark.parametrize("m", [4, 5, 8])
+@pytest.mark.parametrize("d", [4096, 1_000_003])
+def test_consensus_mix_under_a_clipped_matrix(cuda, m, d):
+    """Kernel 1 under clipped gossip's state-dependent ``C``: the f32
+    instance within 1e-5 of its plain version, the bf16 instance one
+    rounding of an f32 sum (``C`` kept in f32)."""
+    c = torch.from_numpy(_clipped_operator(m)).to(cuda)
+    torch.testing.assert_close(c.sum(1), torch.ones(m, device=cuda),
+                               rtol=0, atol=1e-6)
+    assert not torch.allclose(c, c.T)
+    assert not torch.allclose(torch.diagonal(c),
+                              torch.full((m,), 1.0 / m, device=cuda))
+    g = torch.Generator(device=cuda).manual_seed(m * 11 + d)
+    w = torch.randn((m, d), device=cuda, generator=g)
+    before = ops.launch_counts()["consensus_mix"]
+    out = ops.consensus_mix(c, w)
+    out16 = ops.consensus_mix(c, w.bfloat16())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["consensus_mix"] == before + 2
+    torch.testing.assert_close(out, ref.consensus_mix_ref(c, w), rtol=1e-5,
+                               atol=1e-5)
+    assert out16.dtype == torch.bfloat16
+    assert _within_one_bf16_rounding(c, w.bfloat16(), out16)
+
+
+def test_robust_periods_and_attacks_match_the_cpu(cuda):
+    """The robust periods on the card against the same periods on the CPU:
+    the rank screens (plain tensor ops, the same comparisons and source-
+    order sums on either device) bitwise, with their counts; clipped gossip
+    (kernel 1 under a new ``C`` every round, the Gram products in another
+    order) within 1e-5 and T_S launches.  The injection: sign_flip and
+    inlier_shift bitwise, scaled_noise within 4 ulps of the noise."""
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import dfl
+    from repro_torch.core.schedule import ByzantineAttack
+    m, t_s = 5, 4
+    a_np = tp.metropolis_weights(tp.complete_graph(m))
+    rng = np.random.default_rng(2)
+    tree = {"w": rng.standard_normal((m, 33, 7)).astype(np.float32),
+            "b": rng.standard_normal((m, 1001)).astype(np.float32)}
+    tree["w"][1] *= -25.0
+    cpu_t = {k: torch.from_numpy(v) for k, v in tree.items()}
+    gpu_t = {k: v.to(cuda) for k, v in cpu_t.items()}
+    for mode in ("trimmed_mean:1", "median", "clipped"):
+        be = cns.make_backend(mode, a_np, t_s)
+        want, wrej = be.mix_stats(cpu_t)
+        before = ops.launch_counts()["consensus_mix"]
+        got, rej = be.mix_stats(gpu_t)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["consensus_mix"] - before
+        assert launches == (t_s if mode == "clipped" else 0), mode
+        for k in tree:
+            if mode == "clipped":
+                torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5,
+                                           atol=1e-5, msg=mode)
+            else:
+                assert torch.equal(got[k].cpu(), want[k]), mode
+                assert torch.equal(rej.cpu(), wrej), mode
+    codes = np.array([1, 0, 2, 0, 3], np.int32)
+    attacks = (ByzantineAttack("sign_flip", 0.2, 1.5),
+               ByzantineAttack("inlier_shift", 0.2, 0.7),
+               ByzantineAttack("scaled_noise", 0.2, 10.0))
+    key = np.array([0, 7], np.uint32)
+    want = dfl.apply_byzantine(cpu_t, codes, key, attacks)
+    got = dfl.apply_byzantine(gpu_t, torch.from_numpy(codes).to(cuda), key,
+                              attacks)
+    for k in tree:
+        g, w = got[k].cpu(), want[k]
+        assert torch.equal(g[:4], w[:4]), k
+        noise = (w[4] - cpu_t[k][4]) / 10.0
+        lim = 4 * 10.0 * torch.abs(torch.nextafter(noise, 2 * noise) - noise) \
+            + torch.abs(torch.nextafter(w[4], 2 * w[4]) - w[4])
+        assert bool(((g[4] - w[4]).abs() <= lim).all()), k
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -14,9 +14,10 @@ read-back a dispatch, and bounded-staleness gossip off the wire.
   regression within the fig-3 tolerance, and the engine reads metrics
   back once a dispatch.
 
-Left out: the Byzantine rows, the shard_map wire and the Pallas kernel
-rows (later slices; kernel 8 has its own CUDA tests).  The push-sum rows
-are twinned in ``tests/test_torch_directed.py``.
+Left out: the shard_map wire and the Pallas kernel rows (later slices;
+kernel 8 has its own CUDA tests).  The push-sum rows are twinned in
+``tests/test_torch_directed.py``, the Byzantine row in
+``tests/test_torch_robust.py``.
 """
 import numpy as np
 import pytest
@@ -364,6 +365,13 @@ def test_cli_routes_dynamic_flags_to_train_dynamic(capsys, monkeypatch):
     assert calls[0][0] == "dynamic"
     assert calls[0][1]["mixing"] == "push_sum"
     assert calls[0][1]["faults"] == "drop:1:0"
+    # --byzantine reaches the dynamic driver, which parses it as the
+    # reference does (a malformed spec fails there)
+    calls.clear()
+    ttrain.main(base + ["--byzantine", "sign_flip:0.25", "--consensus-mode",
+                        "trimmed_mean:1"])
+    assert calls[0][1]["byzantine"] == "sign_flip:0.25"
+    assert calls[0][1]["consensus_mode"] == "trimmed_mean:1"
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="robust-gossip"):
-        ttrain.main(base + ["--byzantine", "sign_flip:0.25"])
+    with pytest.raises(ValueError, match="byzantine"):
+        ttrain.main(base + ["--byzantine", "warp:0.25"])
