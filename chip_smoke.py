@@ -109,6 +109,16 @@ before it and read just after:
   gossip), one epoch on each wire (kernels 6 and 7; kernel 4 then 1) and
   three dynamic epochs with direction drops and server 2 out and back
   (the weight exactly 1 after each surgery).
+* observability: the dynamic cell through ``train_dynamic`` under
+  ``OBS_OFF`` and with the full bundle (console and JSONL sinks, span
+  tracer, convergence monitor), histories held bit for bit, the compile
+  causes, the span tree and both files checked, kernel 1's launches with
+  the consensus-replay probe's (the step's T_S an epoch, the probe's T_S an
+  epoch, one warm-up period per new M); the probe's estimate of each gossip
+  period against CUDA events around the step's own consensus call; the
+  physical wire's probe (kernels 6 and 7, the state's wire key and error-
+  feedback residual untouched); ``superepoch=4`` against 1 in turns; the
+  static trainer's telemetry files.
 
 Kernels 3 and 9 at their prefill shapes also report each device kernel's
 time from the profiler, the blocks of each launch, and the registers and
@@ -2726,6 +2736,9 @@ def screen_readings(torch, cns, methods, t_server: int):
     ties by source index (the lowest and the highest lose)."""
     records = []
     saved = {(cls, attr): getattr(cls, attr) for cls, attr in methods}
+    # an inherited method is restored by deleting the wrapper, so that no
+    # copy of it shadows the base class's afterwards
+    own = {(cls, attr) for cls, attr in methods if attr in vars(cls)}
     block_round = cns._rank_keep_block
     first = {"rej": None, "calls": 0}
 
@@ -2765,7 +2778,10 @@ def screen_readings(torch, cns, methods, t_server: int):
         yield records
     finally:
         for (cls, attr), inner in saved.items():
-            setattr(cls, attr, inner)
+            if (cls, attr) in own:
+                setattr(cls, attr, inner)
+            else:
+                delattr(cls, attr)
         cns._rank_keep_block = block_round
 
 
@@ -3190,6 +3206,346 @@ def ckpt_roundtrip(torch, ttrain) -> None:
     assert not os.path.exists(directory)
     del surgery, first, state, restored, cont, template
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# observability: the engine's spans, the replay probe, the trainers' files
+# ---------------------------------------------------------------------------
+
+# the physical wire through the dynamic engine (full participation, the
+# static ring), where the probe runs kernels 6 and 7
+OBS_WIRE = dict(DYN_TRAIN, participation_rate=1.0, edge_drop_prob=0.0,
+                faults="", epochs=2, compression="int8", wire="physical",
+                error_feedback=True)
+# the superepoch against K = 1: the dynamic cell without faults, 4 epochs
+OBS_SUPER = dict(DYN_TRAIN, faults="", epochs=4)
+# history columns compared bit for bit (epoch_s and alloc_gb are readings)
+OBS_READINGS = ("epoch_s", "alloc_gb")
+
+
+@contextlib.contextmanager
+def obs_off(ttrain):
+    """Within the block the trainers run under ``OBS_OFF``: no sink, no
+    tracer, no monitor."""
+    from repro_torch.obs import OBS_OFF
+    inner = ttrain._make_observability
+    ttrain._make_observability = lambda **kw: OBS_OFF
+    try:
+        yield
+    finally:
+        ttrain._make_observability = inner
+
+
+def state_fingerprint(torch, state, tree_leaves) -> list:
+    """The wire key's bytes and, per error-feedback residual leaf, the sum
+    of its int32 bit patterns (int64) and of its magnitudes (float64)."""
+    fp = [None if state.wire_key is None else state.wire_key.tobytes()]
+    for leaf in ([] if state.ef_residual is None
+                 else tree_leaves(state.ef_residual)):
+        fp.append((int(leaf.view(torch.int32).sum(dtype=torch.int64)),
+                   float(leaf.abs().sum(dtype=torch.float64))))
+    return fp
+
+
+def params_fingerprint(torch, params, tree_leaves) -> list:
+    return [int(x.view(torch.int32).sum(dtype=torch.int64))
+            for x in tree_leaves(params)]
+
+
+@contextlib.contextmanager
+def probe_readings(torch, engine_cls, tree_leaves, check_state=False):
+    """Within the block, every consensus-replay probe run records the
+    federation size, its own clock reading, its wall seconds and (with
+    ``check_state``) whether the state's wire key and error-feedback
+    residual are the same after it as before."""
+    records = []
+    inner = engine_cls._time_probe
+
+    def measured(self, probe, state, a_np, lam2):
+        before = (state_fingerprint(torch, state, tree_leaves)
+                  if check_state else None)
+        t0 = time.perf_counter()
+        ns = inner(self, probe, state, a_np, lam2)
+        rec = {"m": self.topo.num_servers, "probe_ms": ns / 1e6,
+               "wall_s": time.perf_counter() - t0}
+        if check_state:
+            rec["state_untouched"] = before == state_fingerprint(
+                torch, state, tree_leaves)
+        records.append(rec)
+        return ns
+
+    engine_cls._time_probe = measured
+    try:
+        yield records
+    finally:
+        engine_cls._time_probe = inner
+
+
+@contextlib.contextmanager
+def step_consensus_events(torch, cns, engine_cls):
+    """Within the block, CUDA events around every gossip period an epoch
+    step runs (``GossipBackend.mix``, not the replay probe's calls): the
+    in-step truth the replay estimate is held to."""
+    pairs = []
+    in_probe = [False]
+    owner = cns.GossipBackend
+    own = "mix" in vars(owner)
+    mix = owner.mix
+    time_probe = engine_cls._time_probe
+
+    def timed_mix(self, *args, **kw):
+        if in_probe[0]:
+            return mix(self, *args, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = mix(self, *args, **kw)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    def flagged(self, *args, **kw):
+        in_probe[0] = True
+        try:
+            return time_probe(self, *args, **kw)
+        finally:
+            in_probe[0] = False
+
+    owner.mix = timed_mix
+    engine_cls._time_probe = flagged
+    try:
+        yield pairs
+    finally:
+        if own:
+            owner.mix = mix
+        else:
+            del owner.mix
+        engine_cls._time_probe = time_probe
+
+
+def span_rows(tracer) -> list:
+    """Each ``epoch`` span's milliseconds and its children's, by name."""
+    rows = []
+    for ep in (s for s in tracer.spans if s.name == "epoch"):
+        row = {"epoch": ep.args["epoch"], "epoch_ms": ep.duration_ns / 1e6}
+        for s in tracer.spans:
+            if s.parent is ep:
+                row[s.name + "_ms"] = s.duration_ns / 1e6
+        rows.append(row)
+    return rows
+
+
+def check_obs_files(obs_mod, jpath: str, cpath: str, epochs: int) -> set:
+    """Both files validate; the stream holds one epoch event an epoch.
+    Returns the trace's event names."""
+    events = obs_mod.validate_jsonl(obs_mod.load_jsonl(jpath))
+    assert sum(e["kind"] == "epoch" for e in events) == epochs, events
+    with open(cpath, encoding="utf-8") as f:
+        trace = obs_mod.validate_chrome_trace(json.load(f))
+    return {e["name"] for e in trace}
+
+
+def same_records(a: dict, b: dict) -> bool:
+    keys = [k for k in a if k not in OBS_READINGS]
+    return set(keys) == {k for k in b if k not in OBS_READINGS} and all(
+        a[k] == b[k] for k in keys)
+
+
+def observability(torch, ttrain, ops, cns, smi: str) -> None:
+    """The obs phases: the dynamic cell untraced (``OBS_OFF``) and with the
+    full bundle, then with CUDA events around the step's own consensus
+    call; the physical wire's probe; the superepoch against K = 1; the
+    static trainer's files.  Every traced history is held bit for bit to
+    the untraced one."""
+    import shutil
+    import tempfile
+    from repro_torch import obs as tobs
+    from repro_torch.core.engine import DynamicFederationEngine as Eng
+    from repro_torch.tree import tree_leaves
+    directory = tempfile.mkdtemp(prefix="obs_")
+    t_s = DYN_TRAIN["t_server"]
+
+    def path(name):
+        return str(pathlib.Path(directory) / name)
+
+    def run_dynamic(shape, traced: bool, name: str = "dyn"):
+        torch.cuda.reset_peak_memory_stats()
+        if traced:
+            run = ttrain.train_dynamic(
+                "smollm-360m", **shape, telemetry_jsonl=path(name + ".jsonl"),
+                chrome_trace=path(name + ".json"))
+        else:
+            with obs_off(ttrain):
+                run = ttrain.train_dynamic("smollm-360m", **shape)
+        torch.cuda.synchronize()
+        return run, torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- obs_dynamic: OBS_OFF, then hub + JSONL + tracer + monitor ----
+    n_ep = DYN_TRAIN["epochs"]
+    ops.reset_launch_counts()
+    plain, plain_peak = run_dynamic(DYN_TRAIN, False)
+    plain_launches = ops.launch_counts()
+    plain_hist = plain["history"]
+    del plain
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    with probe_readings(torch, Eng, tree_leaves) as probes:
+        run, traced_peak = run_dynamic(DYN_TRAIN, True)
+    launches = ops.launch_counts()
+    hist, tracer = run["history"], run["obs"].tracer
+    causes = [ev["args"]["cause"] for ev in tracer.instants
+              if ev["name"] == "compile"]
+    builds = run["engine"].compile_counts()
+    names = check_obs_files(tobs, path("dyn.jsonl"), path("dyn.json"), n_ep)
+    # the step's T_S an epoch, the probe's timed T_S an epoch, and one
+    # untimed warm-up period per new M (4, then 3)
+    n_m = len(set(hist["num_servers"]))
+    want_k1 = t_s * (n_ep + n_ep + n_m)
+    nests = all(s.parent.encloses(s) for s in tracer.spans
+                if s.parent is not None)
+    rows = span_rows(tracer)
+    del run
+    torch.cuda.empty_cache()
+    emit("obs_dynamic", nvidia_smi=smi, num_servers=hist["num_servers"],
+         epoch_s_untraced=plain_hist["epoch_s"], epoch_s_traced=hist["epoch_s"],
+         traced_minus_untraced_s=[a - b for a, b in zip(
+             hist["epoch_s"], plain_hist["epoch_s"])],
+         periods=rows, probe_runs=probes, compile_causes=causes,
+         builds_per_m=builds, span_names=sorted(names),
+         consensus_mix_launches={"untraced": plain_launches["consensus_mix"],
+                                 "traced": launches["consensus_mix"],
+                                 "expected_traced": want_k1},
+         peak_gb_untraced=plain_peak, peak_gb_traced=traced_peak,
+         server_tree_gb=DYN_TRAIN["servers"] * SMOLLM_REPLICA_GB)
+    assert same_records(hist, plain_hist), (hist, plain_hist)
+    assert causes == ["first_trace", "federation_size_change"], causes
+    assert builds == {4: 1, 3: 1}, builds
+    assert nests, "a span lies outside its parent"
+    assert {"epoch", "fault-surgery", "local-period", "gossip-period",
+            "host-aggregation", "compile"} <= names, names
+    assert plain_launches["consensus_mix"] == t_s * n_ep, plain_launches
+    assert launches["consensus_mix"] == want_k1, launches
+    assert launches["rmsnorm_fwd"] == plain_launches["rmsnorm_fwd"]
+
+    # the replay estimate against the in-step truth: CUDA events around the
+    # step's own consensus call, in one more traced run of two epochs
+    with step_consensus_events(torch, cns, Eng) as pairs:
+        run, _ = run_dynamic(dict(DYN_TRAIN, epochs=2), True, "dyn_events")
+    torch.cuda.synchronize()
+    in_step = [s.elapsed_time(e) for s, e in pairs]
+    rows2 = span_rows(run["obs"].tracer)
+    del run
+    torch.cuda.empty_cache()
+    replay = [r["gossip-period_ms"] for r in rows2]
+    emit("obs_replay_vs_in_step", nvidia_smi=smi, replay_ms=replay,
+         in_step_cuda_event_ms=in_step,
+         ratio=[a / b for a, b in zip(replay, in_step)])
+    assert len(in_step) == len(replay) == 2, (in_step, replay)
+
+    # ---- obs_wire: the physical int8 wire with error feedback ----
+    ops.reset_launch_counts()
+    plain, plain_peak = run_dynamic(OBS_WIRE, False)
+    plain_launches = ops.launch_counts()
+    plain_hist = plain["history"]
+    plain_fp = (params_fingerprint(torch, plain["state"].client_params,
+                                   tree_leaves),
+                state_fingerprint(torch, plain["state"], tree_leaves))
+    del plain
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    with probe_readings(torch, Eng, tree_leaves, check_state=True) as probes:
+        run, traced_peak = run_dynamic(OBS_WIRE, True, "wire")
+    launches = ops.launch_counts()
+    hist = run["history"]
+    fp = (params_fingerprint(torch, run["state"].client_params, tree_leaves),
+          state_fingerprint(torch, run["state"], tree_leaves))
+    rows = span_rows(run["obs"].tracer)
+    check_obs_files(tobs, path("wire.jsonl"), path("wire.json"),
+                    OBS_WIRE["epochs"])
+    del run
+    torch.cuda.empty_cache()
+    n_ep = OBS_WIRE["epochs"]
+    periods = n_ep + n_ep + 1           # step, timed probe, one warm-up
+    wire_kernels = ("quantized_gossip_encode", "bucketed_gossip_round")
+    emit("obs_wire", nvidia_smi=smi, epoch_s_untraced=plain_hist["epoch_s"],
+         epoch_s_traced=hist["epoch_s"],
+         probe_cost_s_per_epoch=[a - b for a, b in zip(
+             hist["epoch_s"], plain_hist["epoch_s"])],
+         probe_runs=probes, periods=rows,
+         launches={k: {"untraced": plain_launches[k], "traced": launches[k]}
+                   for k in wire_kernels + ("consensus_mix",)},
+         expected_traced={"quantized_gossip_encode": periods,
+                          "bucketed_gossip_round": periods * t_s},
+         peak_gb_untraced=plain_peak, peak_gb_traced=traced_peak,
+         final_state_equal=fp == plain_fp)
+    assert same_records(hist, plain_hist), (hist, plain_hist)
+    assert fp == plain_fp
+    assert all(p["state_untouched"] for p in probes), probes
+    assert len(probes) == periods - n_ep, probes
+    assert launches["quantized_gossip_encode"] == periods, launches
+    assert launches["bucketed_gossip_round"] == periods * t_s, launches
+    assert plain_launches["quantized_gossip_encode"] == n_ep
+    assert plain_launches["bucketed_gossip_round"] == n_ep * t_s
+
+    # ---- obs_superepoch: K = 4 against K = 1 in turns (K = 1, K = 4
+    # traced, K = 4, K = 1) ----
+    runs = []
+    for k, traced in ((1, False), (4, True), (4, False), (1, False)):
+        ops.reset_launch_counts()
+        run, peak = run_dynamic(dict(OBS_SUPER, superepoch=k), traced,
+                                "super")
+        runs.append({"k": k, "traced": traced, "hist": run["history"],
+                     "spans": None if not traced else [
+                         (s.name, s.parent, s) for s in
+                         run["obs"].tracer.spans],
+                     "epochs_per_s": OBS_SUPER["epochs"]
+                     / sum(run["history"]["epoch_s"]),
+                     "consensus_mix": ops.launch_counts()["consensus_mix"],
+                     "peak_gb": peak})
+        del run
+        torch.cuda.empty_cache()
+    spans = next(r["spans"] for r in runs if r["traced"])
+    supers = [s for name, _, s in spans if name == "superepoch"]
+    epochs = [s for name, parent, s in spans
+              if name == "epoch" and parent is supers[0]]
+    rounds = [[s for name, parent, s in spans if name == "gossip-round"
+               and parent.parent is ep] for ep in epochs]
+    emit("obs_superepoch", nvidia_smi=smi,
+         runs=[{k: v for k, v in r.items() if k not in ("hist", "spans")}
+               for r in runs],
+         epochs_per_s_k1=[r["epochs_per_s"] for r in runs if r["k"] == 1],
+         epochs_per_s_k4=[r["epochs_per_s"] for r in runs if r["k"] == 4],
+         epoch_s={f"{r['k']}{'_traced' if r['traced'] else ''}_{i}":
+                  r["hist"]["epoch_s"] for i, r in enumerate(runs)},
+         superepoch_spans=len(supers), epoch_spans=len(epochs),
+         gossip_rounds=[len(r) for r in rounds])
+    assert all(same_records(r["hist"], runs[0]["hist"]) for r in runs)
+    assert len(supers) == 1 and len(epochs) == OBS_SUPER["epochs"]
+    assert all(e.args["method"] == "uniform-split" for e in epochs)
+    assert [len(r) for r in rounds] == [t_s] * OBS_SUPER["epochs"], rounds
+    del runs, spans, supers, epochs, rounds
+
+    # ---- obs_static: the static trainer's files ----
+    ops.reset_launch_counts()
+    with obs_off(ttrain):
+        plain = ttrain.train("smollm-360m", **TRAIN)
+    plain_hist = plain["history"]
+    del plain
+    torch.cuda.empty_cache()
+    run = ttrain.train("smollm-360m", **TRAIN,
+                       telemetry_jsonl=path("static.jsonl"),
+                       chrome_trace=path("static.json"))
+    hist = run["history"]
+    names = check_obs_files(tobs, path("static.jsonl"), path("static.json"),
+                            TRAIN["epochs"])
+    del run
+    torch.cuda.empty_cache()
+    emit("obs_static", nvidia_smi=smi, epoch_s_untraced=plain_hist["epoch_s"],
+         epoch_s_traced=hist["epoch_s"], span_names=sorted(names),
+         launches=ops.launch_counts())
+    assert same_records(hist, plain_hist), (hist, plain_hist)
+    assert names == {"epoch"}, names
+    shutil.rmtree(directory)
 
 
 def rmsnorm_sweep(torch, g) -> dict:
@@ -4291,6 +4647,11 @@ def main() -> int:
     clipped_row["launches"] = robust["clipped_launches"]
     zoo_rows["consensus_mix_clipped"] = clipped_row
     ckpt_roundtrip(torch, ttrain)
+
+    # ---- 22f. observability: the dynamic cell traced against OBS_OFF, the
+    # replay estimate against CUDA events in the step, the physical wire's
+    # probe, the superepoch against K = 1, the static trainer's files ----
+    observability(torch, ttrain, ops, cns, smi)
 
     # ---- 23. per-kernel summary, card, result ----
     r256 = rn_stats[(256, 960, "float32")]

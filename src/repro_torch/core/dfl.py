@@ -705,6 +705,54 @@ def build_dfl_epoch_step(
     return epoch_step_dynamic if cfg.dynamic else epoch_step
 
 
+def build_consensus_replay(cfg: DFLConfig) -> Optional[Callable]:
+    """The consensus period alone, for wall-clock attribution.
+
+    ``replay(server_tree, a_p, lam2) -> mixed_tree`` runs the T_S-round
+    consensus period of the epoch step — the same backend
+    (``resolve_backend``) and the same branches: push-sum (plain or
+    compressed), ``mix_compressed`` on either wire, ``mix`` — on a server
+    tree.  The engine's span tracer times it (the result is dropped) to
+    split one epoch step's wall time into local-period and gossip-period
+    estimates; spans carry ``method="consensus-replay"`` to say that they
+    are an estimate.  Under compression the replay uses the fixed key
+    ``prng.key(0)`` and a zero error-feedback residual of its own, so it
+    never reads or writes the state's ``wire_key`` or ``ef_residual``.  The
+    backends update their own period buffers in place, so the caller hands
+    the replay a server tree it may consume (the engine passes a copy).
+    Returns ``None`` when there is no consensus period to time (M == 1,
+    T_S == 0, or consensus_mode='none')."""
+    topo = cfg.topology
+    if topo.num_servers == 1 or topo.t_server == 0:
+        return None
+    backend = resolve_backend(cfg)
+    if backend is None:
+        return None
+    compressed = getattr(backend, "compressed", False)
+    ef = wants_error_feedback(cfg)
+
+    def replay(server_tree: Any, a_p: torch.Tensor,
+               lam2: Optional[torch.Tensor] = None) -> Any:
+        key = prng.key(0) if compressed else None
+        residual = (tree_map(torch.zeros_like, server_tree)
+                    if compressed and ef else None)
+        if cfg.mixing == "push_sum":
+            ps0 = cns.init_push_sum(server_tree)
+            if compressed:
+                ps, _ = backend.mix_push_sum_compressed(
+                    ps0, a_p, residual=residual, key=key)
+            else:
+                ps = backend.mix_push_sum(ps0, a_p)
+            return ps.ratio()
+        if compressed:
+            mixed, _ = backend.mix_compressed(
+                server_tree, a_p, residual=residual, key=key, lam2=lam2)
+            return mixed
+        return backend.mix(server_tree, a_p, lam2=lam2)
+
+    return replay
+
+
 def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
                    rng: Optional[torch.Generator] = None,
                    wire_key: Optional[np.ndarray] = None) -> DFLState:

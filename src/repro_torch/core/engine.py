@@ -35,9 +35,18 @@ by their ORIGINAL ids through the alive row order
 share) and, under a robust backend, ``screen_rejected`` (screened values
 per gossip round).
 
-Left out until ``repro_torch.obs`` is ported: the reference's
-observability bundle, its consensus-replay timing probes and the
-per-server screen histogram.
+Observability (``obs``, a ``repro_torch.obs.Observability``; default
+``OBS_OFF``): the reference's spans (``epoch``, ``fault-surgery``,
+``local-period`` / ``gossip-period``, ``host-aggregation``; under
+``superepoch`` a ``superepoch`` span with uniformly split ``epoch``
+children, their calibrated periods and T_S ``gossip-round`` spans), compile
+events when a step is built, and one ``obs.observe`` an epoch with the
+per-link wire bytes and the robust screens' per-server histogram.  With a
+tracer attached the engine synchronizes the state's device after each
+step (through the injectable ``_sync``, never called without a tracer)
+and times the consensus period alone (``dfl.build_consensus_replay``) on
+a copy of the post-step server tree to split the step's wall time.  The
+bundle never changes a number of the run.
 """
 from __future__ import annotations
 
@@ -58,6 +67,7 @@ from repro_torch.core.schedule import (EpochSchedule, FaultSchedule,
                                        ParticipationSchedule, SigmaTracker,
                                        TopologySchedule)
 from repro_torch.core.topology import FLTopology
+from repro_torch.obs import OBS_OFF
 from repro_torch.optim import Optimizer
 from repro_torch.tree import tree_flatten, tree_leaves, tree_map, \
     tree_unflatten
@@ -87,6 +97,16 @@ def device_get(tree: Any) -> Any:
     return tree_unflatten(treedef, leaves)
 
 
+def device_sync(tree: Any) -> None:
+    """Wait for the device that ``tree``'s first tensor leaf lies on (a
+    no-op for host tensors): the tracer's sync point after a step."""
+    for x in tree_leaves(tree):
+        if isinstance(x, torch.Tensor):
+            if x.device.type == "cuda":
+                torch.cuda.synchronize(x.device)
+            return
+
+
 @dataclasses.dataclass
 class DynamicFederationEngine:
     """Drives DFL training under participation/topology/fault schedules."""
@@ -97,11 +117,19 @@ class DynamicFederationEngine:
     participation: ParticipationSchedule = ParticipationSchedule()
     topology_schedule: TopologySchedule = TopologySchedule()
     faults: FaultSchedule = FaultSchedule()
+    # observability bundle (repro_torch.obs.Observability), or None for the
+    # no-op OBS_OFF.  Attaching one leaves every number of the run as it is:
+    # the hooks read host values the engine computed anyway, the replay
+    # probe works on copies, and the sync after a step exists only when a
+    # tracer is attached
+    obs: Any = None
     # superepoch length K: run() dispatches blocks of up to K epochs and
     # reads their metrics back once a block; 1 = the per-epoch loop
     superepoch: int = 1
 
     def __post_init__(self):
+        if self.obs is None:
+            self.obs = OBS_OFF
         if self.superepoch < 1:
             raise ValueError(
                 f"superepoch must be >= 1, got {self.superepoch}")
@@ -133,6 +161,9 @@ class DynamicFederationEngine:
         self._super_builds: Dict[Tuple[int, int], int] = {}
         # ALL metric read-backs go through this hook, once per dispatch
         self._device_get: Callable = device_get
+        # the tracer's device sync after a step: called only when a tracer
+        # is attached (a test counts it)
+        self._sync: Callable = device_sync
         self._tracker = self._fresh_tracker()
         # the wire ledger (None when the wire is exact): one across the whole
         # run, through fault surgery
@@ -144,6 +175,13 @@ class DynamicFederationEngine:
                                     wire=dfl.active_wire(self.cfg)[0])
                        if self._compressor is not None else None)
         self._row_bytes: Dict[int, Tuple[int, int]] = {}
+        # consensus-replay probes (dfl.build_consensus_replay), built per M
+        # and only when a tracer is attached; the M whose probe has run its
+        # untimed warm-up; and the per-M gossip-period time (ns) that the
+        # superepoch spans are attributed from, measured once per M
+        self._probes: Dict[int, Optional[Callable]] = {}
+        self._probe_warm: set = set()
+        self._probe_cal: Dict[int, Optional[int]] = {}
         # spectral backends (chebyshev) take a host-side |lambda_2(A_p)|
         backend = dfl.resolve_backend(self.cfg)
         self._needs_spectral = bool(backend is not None
@@ -282,6 +320,124 @@ class DynamicFederationEngine:
                 state = self._rejoin(state, ev.server)
         return state
 
+    # -- observability -------------------------------------------------------
+    @staticmethod
+    def _build_cause(cache: Dict) -> str:
+        """The compile event's cause for a step just built into ``cache``:
+        the run's first step, or the step of a new federation size (a
+        superepoch block of a new K counts as one, as in the reference).
+        Steps are cached per key, so the reference's ``retrace`` (a second
+        program for a size already seen) cannot happen here."""
+        return "first_trace" if len(cache) == 1 else "federation_size_change"
+
+    def _consensus_probe(self, m: int) -> Optional[Callable]:
+        """The consensus-replay probe for federation size ``m``
+        (``dfl.build_consensus_replay``), or None when there is no
+        consensus period to time.  Built lazily, and only ever reached when
+        a tracer is attached."""
+        if m not in self._probes:
+            cfg = dataclasses.replace(self.cfg, topology=self.topo)
+            self._probes[m] = dfl.build_consensus_replay(cfg)
+        return self._probes[m]
+
+    def _time_probe(self, probe: Callable, state: dfl.DFLState, a_np,
+                    lam2) -> int:
+        """Wall nanoseconds (the tracer's clock) of one probe run on a copy
+        of the post-step server tree, so that no backend path, the kernels'
+        in-place buffers included, can write the live state.  The copy is
+        made and synchronized before the clock starts."""
+        tracer = self.obs.tracer
+        server = tree_map(lambda x: x[:, 0].clone(), state.client_params)
+        device = tree_leaves(server)[0].device
+        a_t = torch.as_tensor(a_np, dtype=torch.float32, device=device)
+        lam2_t = (None if lam2 is None else
+                  torch.as_tensor(lam2, dtype=torch.float32, device=device))
+        self._sync(server)
+        p0 = tracer.now()
+        out = probe(server, a_t, lam2_t)
+        self._sync(out)
+        return int(tracer.now() - p0)
+
+    def _trace_step(self, epoch_span, epoch: int, m: int, t0: int, t1: int,
+                    state: dfl.DFLState, a_np, lam2) -> None:
+        """Tracer-only post-step work: split the step's [t0, t1] wall
+        interval into local-period / gossip-period spans through the
+        consensus-replay probe (the consensus period run alone on a copy of
+        the post-step server tree, warmed once per M untimed; its wall time
+        estimates the gossip share of the step)."""
+        tracer = self.obs.tracer
+        probe = self._consensus_probe(m)
+        if probe is None:
+            tracer.add_span("local-period", t0, t1, parent=epoch_span,
+                            epoch=epoch)
+            return
+        if m not in self._probe_warm:
+            self._time_probe(probe, state, a_np, lam2)
+            self._probe_warm.add(m)
+        gossip_ns = min(self._time_probe(probe, state, a_np, lam2), t1 - t0)
+        split = t1 - gossip_ns
+        tracer.add_span("local-period", t0, split, parent=epoch_span,
+                        epoch=epoch, method="consensus-replay")
+        tracer.add_span("gossip-period", split, t1, parent=epoch_span,
+                        epoch=epoch, method="consensus-replay",
+                        t_server=self.topo.t_server)
+
+    def _gossip_cal_ns(self, m: int, state: dfl.DFLState, a_np,
+                       lam2) -> Optional[int]:
+        """The gossip period's wall time at federation size ``m``, measured
+        ONCE per M (the probe after an untimed warm-up) and cached: the
+        superepoch spans attribute every epoch of every block at this M
+        from it instead of running the probe K times a block.  ``None``
+        when there is no consensus period to time."""
+        if m not in self._probe_cal:
+            probe = self._consensus_probe(m)
+            if probe is None:
+                self._probe_cal[m] = None
+            else:
+                self._time_probe(probe, state, a_np, lam2)
+                self._probe_cal[m] = self._time_probe(probe, state, a_np,
+                                                      lam2)
+        return self._probe_cal[m]
+
+    def _trace_superepoch(self, se_span, epoch0: int, k: int, m: int,
+                          t0: int, t1: int, state: dfl.DFLState, a_np,
+                          lam2) -> None:
+        """Tracer-only attribution of one K-epoch block: the [t0, t1] wall
+        interval split uniformly into K ``epoch`` spans, each split into
+        local-period / gossip-period by the cached ``_gossip_cal_ns``, and
+        the gossip period into T_S equal ``gossip-round`` spans
+        (``method="calibrated-round"``: attribution, not a per-round
+        measurement, the reference's taxonomy)."""
+        tracer = self.obs.tracer
+        gossip_ns = self._gossip_cal_ns(m, state, a_np, lam2)
+        t_server = self.topo.t_server
+        dt = max((t1 - t0) // k, 1)
+        for i in range(k):
+            e0 = min(t0 + i * dt, t1)
+            e1 = t1 if i == k - 1 else min(t0 + (i + 1) * dt, t1)
+            ep_span = tracer.add_span("epoch", e0, e1, parent=se_span,
+                                      epoch=epoch0 + i,
+                                      method="uniform-split")
+            if gossip_ns is None:
+                tracer.add_span("local-period", e0, e1, parent=ep_span,
+                                epoch=epoch0 + i)
+                continue
+            g = min(gossip_ns, e1 - e0)
+            split = e1 - g
+            tracer.add_span("local-period", e0, split, parent=ep_span,
+                            epoch=epoch0 + i, method="calibrated")
+            gp = tracer.add_span("gossip-period", split, e1, parent=ep_span,
+                                 epoch=epoch0 + i, method="calibrated",
+                                 t_server=t_server)
+            rdt = max(g // max(t_server, 1), 1)
+            for r in range(t_server):
+                r0 = min(split + r * rdt, e1)
+                r1 = e1 if r == t_server - 1 else min(split + (r + 1) * rdt,
+                                                      e1)
+                tracer.add_span("gossip-round", r0, r1, parent=gp,
+                                epoch=epoch0 + i, round=r,
+                                method="calibrated-round")
+
     # -- the loop ------------------------------------------------------------
     def _plan_epoch(self, epoch: int) -> Tuple[EpochSchedule, float]:
         """This epoch's host-side schedule (numpy) and the contraction
@@ -302,9 +458,16 @@ class DynamicFederationEngine:
                                               self._initial_m)
         return EpochSchedule(mask_np, a_np, lam2, byz_np), sigma_prod
 
+    def _screen_per_round(self, screen) -> Optional[np.ndarray]:
+        """The robust screens' per-server counts of an epoch, per gossip
+        round (the hub's histogram; their sum is the record's column)."""
+        if screen is None:
+            return None
+        return np.asarray(screen, np.float32) / max(self.topo.t_server, 1)
+
     def _record(self, mask_np: np.ndarray, loss_last, disagreement, drift,
                 sigma_prod: float, psw=None, byz_np=None,
-                screen=None) -> Dict[str, float]:
+                screen_per_round=None) -> Dict[str, float]:
         # participant-weighted loss of the last local iteration
         last = np.asarray(loss_last, np.float32)
         w = mask_np if mask_np.sum() else np.ones_like(mask_np)
@@ -321,45 +484,69 @@ class DynamicFederationEngine:
             # ratio-consensus conditioning: a terminal weight near 0 means
             # that server's num / w read-out amplified rounding
             record["psum_min_weight"] = float(np.min(np.asarray(psw)))
-        if screen is not None:
-            # robust-screen activity, normalised per gossip round (the
-            # per-server breakdown waits for the port's metrics hub)
-            rounds = max(self.topo.t_server, 1)
-            record["screen_rejected"] = float(
-                (np.asarray(screen, np.float32) / rounds).sum())
+        if screen_per_round is not None:
+            # robust-screen activity, normalised per gossip round; the
+            # per-server breakdown goes to the hub as a histogram
+            record["screen_rejected"] = float(screen_per_round.sum())
         return record
 
     def run_epoch(self, state: dfl.DFLState, epoch: int,
                   batch_fn: BatchFn) -> Tuple[dfl.DFLState, Dict[str, float]]:
-        state = self.apply_faults(state, epoch)
-        plan, sigma_prod = self._plan_epoch(epoch)
-        batches = batch_fn(epoch, tuple(self.alive))
-        device = tree_leaves(state.client_params)[0].device
-        sched = EpochSchedule(
-            torch.as_tensor(plan.mask, dtype=torch.float32, device=device),
-            torch.as_tensor(plan.mixing, dtype=torch.float32, device=device),
-            None if plan.lam2 is None else torch.as_tensor(
-                plan.lam2, dtype=torch.float32, device=device),
-            None if plan.byz is None else torch.as_tensor(
-                plan.byz, dtype=torch.int32, device=device))
-        epoch_wire_bytes = None
-        if self._bytes is not None:
-            row_bytes, elems = self._wire_row_bytes(state)
-            epoch_wire_bytes = self._bytes.update(
-                plan.mixing, self.topo.t_server, row_bytes=row_bytes,
-                elems_per_row=elems)
-        state, metrics = self._step()(state, batches, sched)
-        # ONE device-to-host transfer for the metrics and the push-sum
-        # weight
-        mh, psw_h = self._device_get((metrics, state.psum_weight))
-        record = self._record(plan.mask, mh.loss[-1], mh.server_disagreement,
-                              mh.client_drift, sigma_prod, psw_h, plan.byz,
-                              mh.screen_rejected)
-        if epoch_wire_bytes is not None:
-            # this epoch's own bytes (0.0 for an epoch without rounds) and
-            # the cumulative ratio
-            record["wire_mb"] = epoch_wire_bytes / 1e6
-            record["wire_ratio"] = self._bytes.ratio()
+        obs = self.obs
+        tracer = obs.tracer
+        with obs.span("epoch", epoch=epoch) as epoch_span:
+            with obs.span("fault-surgery", epoch=epoch):
+                state = self.apply_faults(state, epoch)
+            plan, sigma_prod = self._plan_epoch(epoch)
+            batches = batch_fn(epoch, tuple(self.alive))
+            device = tree_leaves(state.client_params)[0].device
+            sched = EpochSchedule(
+                torch.as_tensor(plan.mask, dtype=torch.float32,
+                                device=device),
+                torch.as_tensor(plan.mixing, dtype=torch.float32,
+                                device=device),
+                None if plan.lam2 is None else torch.as_tensor(
+                    plan.lam2, dtype=torch.float32, device=device),
+                None if plan.byz is None else torch.as_tensor(
+                    plan.byz, dtype=torch.int32, device=device))
+            epoch_wire_bytes = None
+            if self._bytes is not None:
+                row_bytes, elems = self._wire_row_bytes(state)
+                epoch_wire_bytes = self._bytes.update(
+                    plan.mixing, self.topo.t_server, row_bytes=row_bytes,
+                    elems_per_row=elems)
+            m = self.topo.num_servers
+            built = m not in self._steps
+            step = self._step()
+            if built:
+                obs.compile_event(self._build_cause(self._steps), m=m,
+                                  programs=self._builds[m], epoch=epoch)
+            t0 = tracer.now() if tracer is not None else 0
+            state, metrics = step(state, batches, sched)
+            if tracer is not None:
+                # the sync exists only when a tracer is attached: the
+                # untraced path dispatches exactly as before
+                self._sync(state.client_params)
+                self._trace_step(epoch_span, epoch, m, t0, tracer.now(),
+                                 state, plan.mixing, plan.lam2)
+            with obs.span("host-aggregation", epoch=epoch):
+                # ONE device-to-host transfer for the metrics and the
+                # push-sum weight
+                mh, psw_h = self._device_get((metrics, state.psum_weight))
+                screen = self._screen_per_round(mh.screen_rejected)
+                record = self._record(plan.mask, mh.loss[-1],
+                                      mh.server_disagreement,
+                                      mh.client_drift, sigma_prod, psw_h,
+                                      plan.byz, screen)
+                if epoch_wire_bytes is not None:
+                    # this epoch's own bytes (0.0 for an epoch without
+                    # rounds) and the cumulative ratio
+                    record["wire_mb"] = epoch_wire_bytes / 1e6
+                    record["wire_ratio"] = self._bytes.ratio()
+            obs.observe(epoch, record, servers=tuple(self.alive),
+                        per_link=(self._bytes.per_link
+                                  if self._bytes is not None else None),
+                        screen_rejected=screen)
         return state, record
 
     # -- superepoch dispatch -------------------------------------------------
@@ -388,47 +575,72 @@ class DynamicFederationEngine:
         first, the K epochs run back to back, and the stacked metrics come
         back in one ``_device_get``.  The records use ``run_epoch``'s
         formulas, so ``run`` gives the same history at any K."""
-        state = self.apply_faults(state, epoch0)
-        plans: List[EpochSchedule] = []
-        sigmas: List[float] = []
-        batch_list: List[Any] = []
-        for i in range(k):
-            plan, sigma_prod = self._plan_epoch(epoch0 + i)
-            plans.append(plan)
-            sigmas.append(sigma_prod)
-            batch_list.append(batch_fn(epoch0 + i, tuple(self.alive)))
-        sb = overlap.stack_epoch_schedules(plans)
-        device = tree_leaves(state.client_params)[0].device
+        obs = self.obs
+        tracer = obs.tracer
+        with obs.span("superepoch", epoch=epoch0, k=k) as se_span:
+            with obs.span("fault-surgery", epoch=epoch0):
+                state = self.apply_faults(state, epoch0)
+            plans: List[EpochSchedule] = []
+            sigmas: List[float] = []
+            batch_list: List[Any] = []
+            for i in range(k):
+                plan, sigma_prod = self._plan_epoch(epoch0 + i)
+                plans.append(plan)
+                sigmas.append(sigma_prod)
+                batch_list.append(batch_fn(epoch0 + i, tuple(self.alive)))
+            sb = overlap.stack_epoch_schedules(plans)
+            device = tree_leaves(state.client_params)[0].device
 
-        def on_device(x):
-            return None if x is None else torch.as_tensor(x, device=device)
+            def on_device(x):
+                return (None if x is None
+                        else torch.as_tensor(x, device=device))
 
-        sched = overlap.EpochScheduleBatch(*(on_device(x) for x in sb))
-        batches = tree_map(lambda *xs: torch.stack(xs), *batch_list)
-        del batch_list
-        wire = None
-        if self._bytes is not None:
-            row_bytes, elems = self._wire_row_bytes(state)
-            wire = self._bytes.update_many(
-                [p.mixing for p in plans], self.topo.t_server,
-                row_bytes=row_bytes, elems_per_row=elems)
-        state, metrics, psw = self._super_step(k)(state, batches, sched)
-        # the block's ONLY device-to-host transfer
-        mh, psw_h = self._device_get((metrics, psw))
-        records = []
-        for i in range(k):
-            record = self._record(
-                plans[i].mask, mh.loss[i][-1], mh.server_disagreement[i],
-                mh.client_drift[i], sigmas[i],
-                None if psw_h is None else psw_h[i], plans[i].byz,
-                None if mh.screen_rejected is None
-                else mh.screen_rejected[i])
-            if wire is not None:
-                epoch_bytes, ratio_after, _ = wire[i]
-                record["wire_mb"] = epoch_bytes / 1e6
-                record["wire_ratio"] = ratio_after
-            records.append(record)
-        return state, records
+            sched = overlap.EpochScheduleBatch(*(on_device(x) for x in sb))
+            batches = tree_map(lambda *xs: torch.stack(xs), *batch_list)
+            del batch_list
+            wire = None
+            if self._bytes is not None:
+                row_bytes, elems = self._wire_row_bytes(state)
+                wire = self._bytes.update_many(
+                    [p.mixing for p in plans], self.topo.t_server,
+                    row_bytes=row_bytes, elems_per_row=elems)
+            m = self.topo.num_servers
+            built = (m, k) not in self._super_steps
+            step = self._super_step(k)
+            if built:
+                obs.compile_event(self._build_cause(self._super_steps), m=m,
+                                  programs=self._super_builds[(m, k)],
+                                  epoch=epoch0, superepoch=k)
+            t0 = tracer.now() if tracer is not None else 0
+            state, metrics, psw = step(state, batches, sched)
+            if tracer is not None:
+                self._sync(state.client_params)
+                self._trace_superepoch(se_span, epoch0, k, m, t0,
+                                       tracer.now(), state,
+                                       plans[-1].mixing, plans[-1].lam2)
+            records = []
+            with obs.span("host-aggregation", epoch=epoch0, k=k):
+                # the block's ONLY device-to-host transfer
+                mh, psw_h = self._device_get((metrics, psw))
+                for i in range(k):
+                    screen = self._screen_per_round(
+                        None if mh.screen_rejected is None
+                        else mh.screen_rejected[i])
+                    record = self._record(
+                        plans[i].mask, mh.loss[i][-1],
+                        mh.server_disagreement[i], mh.client_drift[i],
+                        sigmas[i], None if psw_h is None else psw_h[i],
+                        plans[i].byz, screen)
+                    if wire is not None:
+                        epoch_bytes, ratio_after, _ = wire[i]
+                        record["wire_mb"] = epoch_bytes / 1e6
+                        record["wire_ratio"] = ratio_after
+                    records.append((record, screen))
+            for i, (record, screen) in enumerate(records):
+                obs.observe(epoch0 + i, record, servers=tuple(self.alive),
+                            per_link=wire[i][2] if wire is not None else None,
+                            screen_rejected=screen)
+        return state, [r for r, _ in records]
 
     def run(self, state: dfl.DFLState, epochs: int,
             batch_fn: BatchFn) -> Tuple[dfl.DFLState, Dict[str, List[float]]]:
@@ -451,6 +663,7 @@ def make_engine(topology: FLTopology, loss_fn: dfl.LossFn,
                 participation: Optional[ParticipationSchedule] = None,
                 topology_schedule: Optional[TopologySchedule] = None,
                 faults: Optional[FaultSchedule] = None,
+                obs: Optional[Any] = None,
                 superepoch: int = 1,
                 **cfg_kw) -> DynamicFederationEngine:
     """Convenience constructor mirroring ``DFLConfig`` defaults; any extra
@@ -484,11 +697,12 @@ def make_engine(topology: FLTopology, loss_fn: dfl.LossFn,
     ``mixing="push_sum"``, wire_mb / wire_ratio under compression,
     byzantine under a Byzantine schedule, and screen_rejected under a
     robust backend).  ``superepoch=K`` is an engine knob:
-    blocks of up to K epochs a dispatch, the same history at any K."""
+    blocks of up to K epochs a dispatch, the same history at any K;
+    ``obs`` attaches a ``repro_torch.obs.Observability`` bundle."""
     cfg = dfl.DFLConfig(topology=topology, consensus_mode=consensus_mode,
                         dynamic=True, **cfg_kw)
     return DynamicFederationEngine(
         cfg, loss_fn, optimizer,
         participation=participation or ParticipationSchedule(),
         topology_schedule=topology_schedule or TopologySchedule(),
-        faults=faults or FaultSchedule(), superepoch=superepoch)
+        faults=faults or FaultSchedule(), obs=obs, superepoch=superepoch)

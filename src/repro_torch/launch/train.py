@@ -49,12 +49,22 @@ under a robust mode, ``screen_rejected`` (screened values per round).
 kept; under ``--superepoch K > 1`` at block boundaries) with the arch and
 epoch (and the alive servers' original ids in ``train_dynamic``).
 ``--log-every N`` prints every N-th epoch line (and epoch 0's).
+
+Telemetry (``repro_torch.obs``, the reference's stream formats): every
+epoch record goes through one ``Observability`` bundle — the console lines
+(``ConsoleSink``, the one print site; ``log=False`` drops it), the
+convergence monitor's gauges and watchdogs, ``--telemetry-jsonl PATH``
+(every metric event, schema v1) and ``--chrome-trace PATH`` (host spans:
+the epoch and, through the dynamic engine, fault surgery, the local and
+gossip periods split by the consensus-replay probe, host aggregation;
+open the file in Perfetto).  The record adds ``epoch_s``, the epoch's host
+seconds (the read-back included).
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -74,16 +84,10 @@ from repro_torch.core.schedule import (ByzantineSchedule, FaultSchedule,
                                        load_participation_trace)
 from repro_torch.data import DataConfig, FLDataPipeline
 from repro_torch.models import transformer as tf
+from repro_torch.obs import (ConsoleSink, JSONLSink, MetricsHub,
+                             Observability, Tracer)
 from repro_torch.optim import sgd
 from repro_torch.tree import tree_leaves
-
-_ORDER = ("loss", "disagreement", "drift", "sigma_prod", "num_servers",
-          "participation", "psum_min_weight", "wire_mb", "wire_ratio",
-          "byzantine", "screen_rejected")
-_FMT = {"loss": ".4f", "disagreement": ".3e", "drift": ".3e",
-        "sigma_prod": ".3f", "num_servers": ".0f", "participation": ".2f",
-        "psum_min_weight": ".3f", "wire_mb": ".1f", "wire_ratio": ".2f",
-        "byzantine": ".3f", "screen_rejected": ".4g"}
 
 
 def resolve_device(device: str) -> torch.device:
@@ -103,17 +107,48 @@ def set_full_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _logged(epoch: int, log_every: int) -> bool:
-    """The console's epoch cadence: epoch 0 and every ``log_every``-th (the
-    reference's ``ConsoleSink``)."""
-    return epoch == 0 or epoch % max(1, int(log_every)) == 0
+def _make_observability(*, log: bool = True, log_every: int = 1,
+                        telemetry_jsonl: Optional[str] = None,
+                        chrome_trace: Optional[str] = None,
+                        run_info: Optional[dict] = None) -> Observability:
+    """The trainers' bundle: a ``ConsoleSink`` (unless ``log`` is False),
+    an optional JSONL telemetry stream, an optional span tracer for a
+    Chrome trace, and the convergence monitor."""
+    hub = MetricsHub([ConsoleSink(log_every=log_every)] if log else [])
+    if telemetry_jsonl:
+        hub.add_sink(JSONLSink(telemetry_jsonl, run_info=run_info))
+    return Observability(hub=hub,
+                         tracer=Tracer() if chrome_trace else None,
+                         monitor=True)
 
 
-def format_record(epoch: int, rec: dict) -> str:
-    parts = [f"epoch {epoch:4d}"]
-    parts += [f"{k}={rec[k]:{_FMT[k]}}" for k in _ORDER if k in rec]
-    parts.append(f"({rec['epoch_s']:.2f}s)")
-    return "  ".join(parts)
+def _run_epochs(epochs: int, run_one: Callable[[int], dict],
+                obs: Observability, *, observe: bool,
+                ckpt_save: Optional[Callable[[int], None]] = None) -> dict:
+    """The one epoch loop of both drivers: ``run_one(epoch)`` returns the
+    epoch's record, which goes through the bundle, and the history maps
+    each metric to its per-epoch list.  ``observe=False`` where
+    ``run_one`` observes itself (the dynamic engine's ``run_epoch``, with
+    its per-link and per-server labels and its spans)."""
+    history: dict = {}
+    for epoch in range(epochs):
+        if observe:
+            with obs.span("epoch", epoch=epoch):
+                rec = run_one(epoch)
+            obs.observe(epoch, rec)
+        else:
+            rec = run_one(epoch)
+        for k, v in rec.items():
+            history.setdefault(k, []).append(v)
+        if ckpt_save is not None:
+            ckpt_save(epoch)
+    return history
+
+
+def _finish(obs: Observability, chrome_trace: Optional[str]) -> None:
+    obs.close()
+    if chrome_trace:
+        obs.tracer.save_chrome(chrome_trace)
 
 
 def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
@@ -125,14 +160,18 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
           wire: str = "simulated", staleness: int = 0, seed: int = 0,
           device: str = "cuda", ckpt_dir: Optional[str] = None,
           log_every: int = 1,
-          params: Optional[dict] = None, log: bool = True) -> dict:
+          params: Optional[dict] = None, log: bool = True,
+          telemetry_jsonl: Optional[str] = None,
+          chrome_trace: Optional[str] = None) -> dict:
     """Static Algorithm 1 on an LM.  ``params`` (optional) replaces the
     seeded random init, e.g. weights carried over by
     ``transformer.params_from_numpy``.  ``compression`` / ``error_feedback``
     / ``wire`` select the compressed wire, ``staleness`` the
     bounded-staleness rounds.  ``ckpt_dir`` saves the client parameters
-    after every epoch.  Returns the final state, the per-epoch history
-    (metric name -> list) and the run's objects."""
+    after every epoch.  ``telemetry_jsonl`` / ``chrome_trace`` write the
+    metric stream and the epoch spans.  Returns the final state, the
+    per-epoch history (metric name -> list), the obs bundle and the run's
+    objects."""
     dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
         arch_id, smoke, servers, clients, t_client, t_server, graph, gamma,
         seq_len, per_client_batch, seed, device, mixing, params)
@@ -153,8 +192,13 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
     a_np = (topo.mixing_matrix() if topo.num_servers > 1
             else np.ones((1, 1)))
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
-    history: dict = {}
-    for epoch in range(epochs):
+    obs = _make_observability(
+        log=log, log_every=log_every, telemetry_jsonl=telemetry_jsonl,
+        chrome_trace=chrome_trace,
+        run_info={"arch": cfg.name, "driver": "train", "servers": servers})
+
+    def run_one(epoch: int) -> dict:
+        nonlocal state
         t0 = time.perf_counter()
         state, metrics = step(state, pipe.epoch_batches(epoch))
         # the metrics are host tensors: reading them waited for the device
@@ -172,15 +216,18 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
         if ledger is not None:
             rec["wire_mb"] = ledger.update() / 1e6
             rec["wire_ratio"] = ledger.tracker.ratio()
-        for k, v in rec.items():
-            history.setdefault(k, []).append(v)
-        if log and _logged(epoch, log_every):
-            print(format_record(epoch, rec))
+        return rec
+
+    def ckpt_save(epoch: int) -> None:
         if ckpt is not None:
             ckpt.save(epoch, state.client_params,
                       meta={"arch": cfg.name, "epoch": epoch})
+
+    history = _run_epochs(epochs, run_one, obs, observe=True,
+                          ckpt_save=ckpt_save)
+    _finish(obs, chrome_trace)
     return {"state": state, "history": history, "topology": topo,
-            "cfg": cfg}
+            "cfg": cfg, "obs": obs}
 
 
 def _setup_lm(arch_id, smoke, servers, clients, t_client, t_server, graph,
@@ -223,7 +270,9 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
                   byzantine: str = "", participation_trace: str = "",
                   seed: int = 0, device: str = "cuda",
                   ckpt_dir: Optional[str] = None, log_every: int = 1,
-                  params: Optional[dict] = None, log: bool = True) -> dict:
+                  params: Optional[dict] = None, log: bool = True,
+                  telemetry_jsonl: Optional[str] = None,
+                  chrome_trace: Optional[str] = None) -> dict:
     """Dynamic-federation LM training: Algorithm 1 driven by the scenario
     engine — partial participation (``participation_rate`` with
     ``participation_kind`` bernoulli | fixed_k | round_robin, or a JSONL
@@ -239,8 +288,11 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
     block under ``superepoch > 1``.  The record of
     an epoch is the engine's, plus ``epoch_s`` (host seconds, the read-back
     included; a superepoch block's seconds split evenly over its epochs)
-    and, on a GPU, ``alloc_gb``, the memory the run holds after it.
-    Returns the final state, the history and the run's objects."""
+    and, on a GPU, ``alloc_gb``, the memory the run holds after it.  The
+    engine observes itself through the trainer's bundle
+    (``telemetry_jsonl`` / ``chrome_trace``: the engine's records, per-link
+    wire bytes, the screens' histogram, its spans).  Returns the final
+    state, the history, the obs bundle and the run's objects."""
     byz = (ByzantineSchedule.parse(byzantine, seed=seed) if byzantine
            else None)
     dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
@@ -271,13 +323,19 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
                                   seed=seed + 1)
     else:
         tsched = TopologySchedule()                          # static
+    obs = _make_observability(
+        log=log, log_every=log_every, telemetry_jsonl=telemetry_jsonl,
+        chrome_trace=chrome_trace,
+        run_info={"arch": cfg.name, "driver": "train_dynamic",
+                  "servers": servers})
     engine = make_engine(topo, loss_fn, optimizer,
                          consensus_mode=consensus_mode, mixing=mixing,
                          compression=compression,
                          error_feedback=error_feedback, wire=wire,
                          participation=part, topology_schedule=tsched,
                          faults=FaultSchedule.parse(faults), byzantine=byz,
-                         superepoch=superepoch, staleness=staleness)
+                         obs=obs, superepoch=superepoch,
+                         staleness=staleness)
     # the wire key is the reference trainer's rng, jax.random.key(seed + 1)
     state = init_dfl_state(engine.cfg, params, optimizer,
                            torch.Generator(device=dev).manual_seed(seed + 1),
@@ -288,15 +346,8 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
         return pipe.epoch_batches(epoch, server_ids=alive)
 
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
-    history: dict = {}
-    epoch = 0
-    for epoch0, k in engine._plan_blocks(epochs):
-        t0 = time.perf_counter()
-        if superepoch > 1:
-            state, recs = engine.run_superepoch(state, epoch0, k, batch_fn)
-        else:
-            state, rec = engine.run_epoch(state, epoch0, batch_fn)
-            recs = [rec]
+
+    def timed(recs, t0: float, k: int) -> None:
         # the engine's read-back waited for the device; the old state is
         # released now that ``state`` is rebound
         block_s = time.perf_counter() - t0
@@ -304,18 +355,39 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
             rec["epoch_s"] = block_s / k
             if dev.type == "cuda":
                 rec["alloc_gb"] = torch.cuda.memory_allocated(dev) / 1e9
-            for key, v in rec.items():
-                history.setdefault(key, []).append(v)
-            if log and _logged(epoch, log_every):
-                print(format_record(epoch, rec))
-            epoch += 1
-        # per epoch, or at a block's end (the state exists only there)
+
+    def run_one(epoch: int) -> dict:
+        nonlocal state
+        t0 = time.perf_counter()
+        state, rec = engine.run_epoch(state, epoch, batch_fn)
+        timed([rec], t0, 1)
+        return rec
+
+    def ckpt_save(epoch: int) -> None:
         if ckpt is not None:
-            ckpt.save(epoch - 1, state.client_params,
-                      meta={"arch": cfg.name, "epoch": epoch - 1,
+            ckpt.save(epoch, state.client_params,
+                      meta={"arch": cfg.name, "epoch": epoch,
                             "alive": list(engine.alive)})
+
+    if superepoch > 1:
+        # blocks of up to K epochs; the engine observes each epoch, and the
+        # checkpoint is taken at a block's end (the state exists only there)
+        history: dict = {}
+        for epoch0, k in engine._plan_blocks(epochs):
+            t0 = time.perf_counter()
+            state, recs = engine.run_superepoch(state, epoch0, k, batch_fn)
+            timed(recs, t0, k)
+            for rec in recs:
+                for key, v in rec.items():
+                    history.setdefault(key, []).append(v)
+            ckpt_save(epoch0 + k - 1)
+    else:
+        # observe=False: run_epoch observes itself
+        history = _run_epochs(epochs, run_one, obs, observe=False,
+                              ckpt_save=ckpt_save)
+    _finish(obs, chrome_trace)
     return {"state": state, "history": history, "engine": engine,
-            "cfg": cfg}
+            "cfg": cfg, "obs": obs}
 
 
 class _StaticWireLedger:
@@ -411,6 +483,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="save the client parameters here every epoch")
     p.add_argument("--log-every", type=int, default=1,
                    help="print every N-th epoch line (and epoch 0's)")
+    p.add_argument("--telemetry-jsonl", default=None,
+                   help="write every metric event (schema v1) to this "
+                        "JSONL path")
+    p.add_argument("--chrome-trace", default=None,
+                   help="record host spans and write a Chrome trace-event "
+                        "JSON (open in Perfetto) to this path")
     dyn = p.add_argument_group(
         "dynamic federation (any of these switches to the scenario engine)")
     dyn.add_argument("--participation-rate", type=float, default=1.0,
@@ -451,7 +529,9 @@ def main(argv: Optional[list] = None) -> None:
               mixing=args.mixing, compression=args.compression,
               error_feedback=args.error_feedback, wire=args.wire,
               staleness=args.staleness, device=args.device, seed=args.seed,
-              ckpt_dir=args.ckpt_dir, log_every=args.log_every)
+              ckpt_dir=args.ckpt_dir, log_every=args.log_every,
+              telemetry_jsonl=args.telemetry_jsonl,
+              chrome_trace=args.chrome_trace)
     dynamic = (args.participation_rate < 1.0 or args.edge_drop_prob > 0.0
                or args.straggler_weaken > 0.0
                or args.asymmetric_drop_prob > 0.0 or bool(args.faults)

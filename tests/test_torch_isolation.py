@@ -39,7 +39,8 @@ def test_no_jax_or_repro_imports(path):
 def test_walk_covers_the_port_and_catches_violations():
     names = {p.name for p in FILES}
     assert {"dfl.py", "consensus.py", "ops.py", "train.py", "engine.py",
-            "overlap.py", "schedule.py", "chip_smoke.py"} <= names
+            "overlap.py", "schedule.py", "trace.py", "metrics.py",
+            "monitor.py", "chip_smoke.py"} <= names
     src = "import jax.numpy as jnp\nfrom repro.core import dfl\n" \
           "import repro_torch\nfrom jaxlib import x\n"
     found = [m for _, m in _imported_modules(ast.parse(src))

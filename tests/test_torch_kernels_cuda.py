@@ -1011,3 +1011,37 @@ def test_simulated_periods_on_the_card_match_the_cpu(cuda, mode, spec, ef):
         if ef:
             torch.testing.assert_close(got_res[k].cpu(), want_res[k],
                                        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("path", ["float", "physical_int8_ef"])
+def test_replay_probe_launches_on_the_card(cuda, path, tmp_path):
+    """The consensus-replay probe of a traced ``train_dynamic`` on the
+    card: each epoch launches the step's period and the probe's timed one,
+    and each new M one untimed warm-up period (kernel 1 T_S times a
+    period; on the physical wire kernel 6 once and kernel 7 T_S times);
+    the histories equal the untraced run's bit for bit."""
+    from repro_torch.launch import train as ttrain
+    t_s = 3
+    kw = dict(servers=4, clients=2, t_client=1, t_server=t_s, seq_len=16,
+              device="cuda", log=False)
+    if path == "float":
+        kw.update(epochs=3, participation_rate=0.5, edge_drop_prob=0.3,
+                  faults="drop:1:2,rejoin:2:2")
+        periods = 3 + 3 + 2             # warm-ups at M = 4 and M = 3
+    else:
+        kw.update(epochs=2, compression="int8", wire="physical",
+                  error_feedback=True)
+        periods = 2 + 2 + 1
+    plain = ttrain.train_dynamic("smollm-360m", **kw)
+    ops.reset_launch_counts()
+    traced = ttrain.train_dynamic(
+        "smollm-360m", chrome_trace=str(tmp_path / "t.json"), **kw)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    if path == "float":
+        assert n["consensus_mix"] == periods * t_s, n
+    else:
+        assert n["quantized_gossip_encode"] == periods, n
+        assert n["bucketed_gossip_round"] == periods * t_s, n
+    for k in ("loss", "disagreement", "drift"):
+        assert plain["history"][k] == traced["history"][k], k
