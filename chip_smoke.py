@@ -119,6 +119,24 @@ before it and read just after:
   physical wire's probe (kernels 6 and 7, the state's wire key and error-
   feedback residual untouched); ``superepoch=4`` against 1 in turns; the
   static trainer's telemetry files.
+* the multi-process wire: the row forms of kernels 1, 7 and 8 (a rank's
+  own rows of a gathered round) at the wire's main shape, each row bitwise
+  row r of the square call and held to its plain version; the one-process
+  epochs of the cells below in this process, each freed before the next;
+  then one world of four gloo ranks on this card, one server a rank
+  (spawned after the build, every collective staged through pinned host
+  buffers), training full SmolLM-360M through the trainers with
+  ``consensus_backend="shard_map"``: one epoch on the int8 physical wire
+  with error feedback at staleness 0 and at 1, one uncompressed, two
+  dynamic epochs (Bernoulli 0.5, edge drops 0.3) on the wire, one push-sum
+  epoch on the wire over a random orientation of K_4; each rank's rows
+  bitwise the
+  one-process run's rows (the uncompressed one also within one f32
+  rounding on value samples), every wire round one int8 and one f32
+  all_gather of ``tree_bucketed_wire_bytes_per_server`` bytes, each rank's
+  epoch, collective and staging seconds and peak; then the trainer under
+  ``python -m torch.distributed.run --nproc-per-node 4`` at the smoke
+  size, rank 0's JSONL history against the in-process run's.
 
 Kernels 3 and 9 at their prefill shapes also report each device kernel's
 time from the profiler, the blocks of each launch, and the registers and
@@ -3692,6 +3710,551 @@ def rmsnorm_host_path(torch, stream_us: dict) -> None:
          stream_us=stream_us)
 
 
+# ---------------------------------------------------------------------------
+# the multi-process wire: shard_map over torch.distributed, one rank
+# a server, all four ranks on the one card through gloo
+# ---------------------------------------------------------------------------
+
+SHARD_M = 4
+# the row forms: ops entry point -> (CUDA source, the TPU kernel replaced)
+ROW_KERNELS = {
+    "consensus_mix_rows": ("src/repro_torch/kernels/csrc/consensus_mix.cu",
+                           "src/repro/kernels/consensus_mix.py:71"),
+    "bucketed_gossip_round_rows": (
+        "src/repro_torch/kernels/csrc/quantized_wire.cu",
+        "src/repro/kernels/consensus_mix.py:440"),
+    "bucketed_gossip_round_pipelined_rows": (
+        "src/repro_torch/kernels/csrc/quantized_wire.cu",
+        "src/repro/kernels/consensus_mix.py:577"),
+}
+# the row forms' main shape: the SmolLM-360M wire bucket (M = 4)
+ROW_D = 364_904_448
+# the world's phases: (name, trainer, trainer keywords); every one full
+# width and full depth, one epoch (two for the dynamic one), through the
+# trainers with consensus_backend="shard_map"
+SHARD_PHASES = [
+    ("wire", "train", dict(WIRE_TRAIN, epochs=1)),
+    ("wire_stale", "train", dict(WIRE_TRAIN, epochs=1, staleness=1)),
+    ("plain", "train", dict(TRAIN, epochs=1)),
+    ("dynamic", "train_dynamic", dict(
+        DYN_TRAIN, faults="", epochs=2, compression="int8",
+        wire="physical", error_feedback=True)),
+    ("push_sum", "train", dict(PS_TRAIN, epochs=1, compression="int8",
+                               wire="physical", error_feedback=True)),
+]
+#: each rank's share of the card: four ranks of ~14 GB at their peak and
+#: this process's context fit in 80 GB only if no rank keeps another's
+#: share in its allocator's cache
+SHARD_MEMORY_FRACTION = 0.23
+SHARD_SAMPLE = 4096         # elements a leaf of the plain phase's samples
+SHARD_PLAIN_TOL = 1e-6      # of the leaf's largest |w|: one f32 rounding
+SHARD_TIMEOUT_S = 900
+
+
+def rows_fingerprint(torch, leaves, sample: bool = False) -> list:
+    """Per (row, client) of a client tree, per leaf: the int64 sum of the
+    int32 bit patterns and a position-weighted one (two exact sums that
+    any differing bit moves), and with ``sample`` a strided sample of the
+    values."""
+    out = []
+    for i in range(leaves[0].shape[0]):
+        for j in range(leaves[0].shape[1]):
+            row = []
+            for leaf in leaves:
+                bits = leaf[i, j].reshape(-1).view(torch.int32).to(
+                    torch.int64)
+                pos = torch.arange(bits.numel(), device=bits.device) \
+                    .remainder_(1021).add_(1)
+                fp = [int(bits.sum()), int((bits * pos).sum())]
+                if sample:
+                    flat = leaf[i, j].reshape(-1)
+                    step = max(1, flat.numel() // SHARD_SAMPLE)
+                    fp.append(flat[::step][:SHARD_SAMPLE].float().cpu()
+                              .tolist())
+                row.append(fp)
+                del bits, pos
+            out.append(row)
+    return out
+
+
+def _run_fingerprints(torch, run, tree_leaves, sample=False) -> dict:
+    st = run["state"]
+    leaves = tree_leaves(st.client_params)
+    return {"clients": rows_fingerprint(torch, leaves, sample),
+            # float64 sum of the server models' squares (client 0 of each
+            # row, after the broadcast): the disagreement formula's scale
+            "sumsq": sum(float(x[:, 0].double().square().sum())
+                         for x in leaves),
+            "ef": (None if st.ef_residual is None else rows_fingerprint(
+                torch, [x[:, None] for x in tree_leaves(st.ef_residual)])),
+            "history": {k: v for k, v in run["history"].items()
+                        if k not in ("epoch_s", "alloc_gb")}}
+
+
+def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
+    """One rank of the world: server ``rank`` on ``cuda:0``.  Runs every
+    phase through the trainers and puts its readings on ``q``; a failure
+    is put there too and raised."""
+    import datetime
+    import os
+    import traceback
+
+    # fewer cached fragments in each rank's allocator (set before CUDA)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import consensus as cns
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as ttrain
+    from repro_torch.tree import tree_leaves
+    out = {"rank": rank}
+    try:
+        torch.cuda.set_device(0)
+        torch.cuda.set_per_process_memory_fraction(SHARD_MEMORY_FRACTION, 0)
+        ttrain.set_full_f32()
+        dist.init_process_group("gloo", init_method="file://" + rdv,
+                                world_size=SHARD_M, rank=rank,
+                                timeout=datetime.timedelta(seconds=300))
+        for name, trainer, kw in phases:
+            ops.reset_launch_counts()
+            cns.reset_collective_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            fn = ttrain.train if trainer == "train" else ttrain.train_dynamic
+            run = fn("smollm-360m", **kw, consensus_backend="shard_map",
+                     log=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            leaves = tree_leaves(run["state"].client_params)
+            out[name] = {
+                **_run_fingerprints(torch, run, tree_leaves,
+                                    sample=name == "plain"),
+                "rows": list(leaves[0].shape[:2]),
+                "leaf_shapes": [list(x.shape[2:]) for x in leaves],
+                "epoch_s": run["history"]["epoch_s"], "wall_s": wall,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k: v for k, v in ops.launch_counts().items()
+                             if v},
+                "collectives": cns.collective_counts()}
+            del run, leaves
+        q.put(out)
+    except BaseException:
+        q.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def shard_world(torch, phases) -> list:
+    """Spawn the world of SHARD_M gloo ranks (the parent has initialized
+    CUDA, so ``spawn``), wait for every rank's readings, and stop every
+    process whatever happens; a rank's failure raises here."""
+    import multiprocessing as mp
+    import tempfile
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    base = pathlib.Path(__file__).resolve().parent / "build"
+    base.mkdir(exist_ok=True)
+    rdv = pathlib.Path(tempfile.mkdtemp(dir=base)) / "rdv"
+    procs = [ctx.Process(target=shard_rank_main,
+                         args=(r, str(rdv), phases, q))
+             for r in range(SHARD_M)]
+    import queue
+    got = []
+    deadline = time.perf_counter() + SHARD_TIMEOUT_S
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < SHARD_M:
+            try:
+                item = q.get(timeout=5)
+            except queue.Empty:
+                # a rank that died without reporting (a native abort) ends
+                # the world at once, as does the deadline
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.perf_counter() > deadline:
+                    raise RuntimeError(f"the world stopped: exit codes "
+                                       f"{[p.exitcode for p in procs]}")
+                continue
+            if "error" in item:
+                raise RuntimeError(f"rank {item['rank']} failed:\n"
+                                   f"{item['error']}")
+            got.append(item)
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * SHARD_M:
+        raise RuntimeError(f"ranks exited with {codes}")
+    return sorted(got, key=lambda r: r["rank"])
+
+
+def shard_kernel_rows(torch, ops, ref, tp, g) -> dict:
+    """``shard_map_rows``: the row forms of kernels 1, 7 and 8 at the main
+    shape, each row r bitwise row r of the square call, held to its plain
+    version (kernel 1 over all columns within 1e-5; kernels 7 and 8
+    bitwise on a slab of whole chunks), timed against the plain version,
+    its byte bound and, for kernel 1, ``torch.matmul`` of the same row."""
+    dev = torch.device("cuda")
+    m, d, chunk = SHARD_M, ROW_D, WIRE_CHUNK
+    nc = d // chunk
+    a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)),
+                     dtype=torch.float32, device=dev)
+    rows = {}
+    # kernel 1: W (M, D) f32, A's row r
+    w = torch.randn((m, d), device=dev, generator=g)
+    square = ops.consensus_mix(a, w)
+    out = torch.empty((1, d), device=dev)
+    bitwise = []
+    for r in range(m):
+        a_r = a[r:r + 1].contiguous()
+        bitwise.append(bool(torch.equal(ops.consensus_mix_rows(
+            a_r, w, out=out), square[r:r + 1])))
+    del square
+    err, rel = rel_err(torch, out, ref.consensus_mix_ref(a_r, w))
+    t = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix_rows(a_r, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(a_r, w),
+        "library": lambda: torch.matmul(a_r, w)}, reps=10)
+    bnd, by = bound_ms(m * d * 4 + d * 4 + m * 4, 2 * m * d)
+    rows["consensus_mix_rows"] = dict(
+        bitwise_rows=bitwise, max_abs_err=err, max_rel_err=rel,
+        ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+        bound_ms=bnd, bound_by=by)
+    emit("shard_map_rows", kernel="consensus_mix_rows", m=m, d=d,
+         **rows["consensus_mix_rows"])
+    assert all(bitwise) and rel < 1e-5, rows["consensus_mix_rows"]
+    del w, out
+    torch.cuda.empty_cache()
+    # kernels 7 and 8: the gathered (M, D) codes and scales, the own rows
+    codes = torch.randint(-127, 128, (m, d), device=dev, generator=g,
+                          dtype=torch.int8)
+    scales = torch.rand((m, nc), device=dev, generator=g) * 0.02 + 1e-3
+    own = {k: torch.randn((m, d), device=dev, generator=g) * s
+           for k, s in (("w", 1.0), ("ref", 0.5), ("acc", 0.5))}
+    own["u"] = torch.rand((m, d), device=dev, generator=g)
+    lo, hi = 1 << 24, (1 << 24) + WIRE_SLAB      # a slab of whole chunks
+    for name in ("bucketed_gossip_round_rows",
+                 "bucketed_gossip_round_pipelined_rows"):
+        stale = "pipelined" in name
+        st = [codes.clone(), scales.clone(), own["ref"].clone(),
+              own["acc"].clone()]
+        if stale:
+            sq = ops.bucketed_gossip_round_pipelined(
+                a, st[0], st[1], own["w"], st[2], st[3], own["u"])
+        else:
+            sq = ops.bucketed_gossip_round(a, *st, own["u"])
+        sq = [x[1:2].clone() for x in sq]
+        del st
+        r = 1
+        a_r = a[r:r + 1].contiguous()
+        c_out = torch.empty((1, d), dtype=torch.int8, device=dev)
+        s_out = torch.empty((1, nc), device=dev)
+
+        def call(ref_r, acc_r):
+            if stale:
+                return ops.bucketed_gossip_round_pipelined_rows(
+                    a_r, codes, scales, own["w"][r:r + 1], ref_r, acc_r,
+                    own["u"][r:r + 1], c_out, s_out)
+            return ops.bucketed_gossip_round_rows(
+                a_r, codes, scales, ref_r, acc_r, own["u"][r:r + 1], c_out,
+                s_out, row0=r)
+
+        got = call(own["ref"][r:r + 1].clone(), own["acc"][r:r + 1].clone())
+        bit_square = all(bool(torch.equal(x, y)) for x, y in zip(got, sq))
+        # the plain version on a slab of whole chunks (chunks are
+        # independent), the gathered slab of every row
+        cs = slice(lo // chunk, hi // chunk)
+        slab = dict(codes=codes[:, lo:hi], scales=scales[:, cs],
+                    ref=own["ref"][r:r + 1, lo:hi],
+                    acc=own["acc"][r:r + 1, lo:hi],
+                    u=own["u"][r:r + 1, lo:hi], w=own["w"][r:r + 1, lo:hi])
+        if stale:
+            want = ref.bucketed_gossip_round_pipelined_ref(
+                a_r, slab["codes"], slab["scales"], slab["w"], slab["ref"],
+                slab["acc"], slab["u"])
+        else:
+            want = ref.bucketed_gossip_round_rows_ref(
+                a_r, slab["codes"], slab["scales"], slab["ref"],
+                slab["acc"], slab["u"], row0=r)
+        got_slab = [got[0][:, lo:hi], got[1][:, lo:hi], got[2][:, lo:hi],
+                    got[3][:, cs]]
+        bit_plain = all(bool(torch.equal(x, y))
+                        for x, y in zip(got_slab, want))
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got_slab, want))
+        ref_r, acc_r = own["ref"][r:r + 1].clone(), own["acc"][r:r + 1].clone()
+        if stale:
+            def plain_slab():
+                return ref.bucketed_gossip_round_pipelined_ref(
+                    a_r, slab["codes"], slab["scales"], slab["w"],
+                    slab["ref"], slab["acc"], slab["u"])
+        else:
+            def plain_slab():
+                return ref.bucketed_gossip_round_rows_ref(
+                    a_r, slab["codes"], slab["scales"], slab["ref"],
+                    slab["acc"], slab["u"], row0=r)
+        ms = cuda_ms(torch, lambda: call(ref_r, acc_r), reps=10)
+        plain_ms = cuda_ms(torch, plain_slab, reps=3, warmup=1)
+        # each input read once, each output written once: the gathered
+        # codes and scales of every row, the own ref, acc, u (and w), the
+        # own ref, acc, codes and scales written, A's row
+        own_in = 4 * (3 + (1 if stale else 0))
+        n_bytes = (m * d + m * nc * 4 + d * own_in + d * (4 + 4 + 1)
+                   + nc * 4 + m * 4)
+        bnd, by = bound_ms(n_bytes, 2 * m * d)
+        rows[name] = dict(bitwise_square_row=bit_square,
+                          bitwise_plain_slab=bit_plain, max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms,
+                          plain_cols=hi - lo, bound_ms=bnd, bound_by=by,
+                          library_ms=None)
+        emit("shard_map_rows", kernel=name, m=m, d=d, row=r, **rows[name])
+        assert bit_square and bit_plain, rows[name]
+        del got, sq, ref_r, acc_r, c_out, s_out
+    del codes, scales, own
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _rank_per_round(ranks, name: str, t_server: int, epochs: int) -> list:
+    """Each rank's all_gather calls and bytes a gossip round of a phase."""
+    out = []
+    for r in ranks:
+        c = r[name]["collectives"]
+        rounds = t_server * epochs
+        out.append({
+            "rank": r["rank"],
+            "calls_per_round": {k: v / rounds for k, v in c["calls"].items()
+                                if k.startswith("all_gather")},
+            "bytes_per_round": {k: v / rounds for k, v in c["bytes"].items()
+                                if k.startswith("all_gather")},
+            "collective_s": c["seconds"], "staging_s": c["staging_s"],
+            "op_seconds": c["op_seconds"],
+            "epoch_s": r[name]["epoch_s"], "wall_s": r[name]["wall_s"],
+            "peak_gb": r[name]["peak_gb"], "launches": r[name]["launches"]})
+    return out
+
+
+def _samples_close(got_rows, want_rows) -> float:
+    """The largest difference between two runs' value samples, over every
+    (row, client, leaf), relative to that leaf's largest sampled |w|."""
+    worst = 0.0
+    for g_row, w_row in zip(got_rows, want_rows):
+        for g_leaf, w_leaf in zip(g_row, w_row):
+            g_, w_ = np.asarray(g_leaf[2]), np.asarray(w_leaf[2])
+            scale = max(float(np.abs(w_).max()), 1e-30)
+            worst = max(worst, float(np.abs(g_ - w_).max()) / scale)
+    return worst
+
+
+def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
+    """The multi-process wire on the card: the row forms
+    (``shard_map_rows``), then one-process reference epochs in this process,
+    then one world of four gloo ranks running ``shard_map_wire`` (staleness
+    0 and 1), ``shard_map_plain``, ``shard_map_dynamic`` (and push-sum),
+    each rank's rows held to the one-process run's; then ``shard_map_cli``
+    through ``torch.distributed.run``.  Returns the row forms' kernel rows
+    with their launches."""
+    from repro_torch.comm import compressors as cp
+    from repro_torch.comm.accounting import \
+        tree_bucketed_wire_bytes_per_server
+    from repro_torch.tree import tree_leaves
+    rows = shard_kernel_rows(torch, ops, ref, tp, g)
+
+    # ---- the one-process reference epochs, each freed before the next ----
+    want = {}
+    for name, trainer, kw in SHARD_PHASES:
+        fn = ttrain.train if trainer == "train" else ttrain.train_dynamic
+        t0 = time.perf_counter()
+        run = fn("smollm-360m", **kw, log=False)
+        torch.cuda.synchronize()
+        want[name] = _run_fingerprints(torch, run, tree_leaves,
+                                       sample=name == "plain")
+        want[name]["epoch_s"] = run["history"]["epoch_s"]
+        want[name]["wall_s"] = time.perf_counter() - t0
+        n_params = sum(t[0, 0].numel()
+                       for t in tree_leaves(run["state"].client_params))
+        del run
+        torch.cuda.empty_cache()
+    assert n_params == SMOLLM_PARAMS, n_params
+    emit("shard_map_reference", epoch_s={k: v["epoch_s"]
+                                         for k, v in want.items()},
+         wall_s={k: v["wall_s"] for k, v in want.items()})
+
+    # ---- the world: four ranks, one server each, on the one card (this
+    # process keeps only its context and what main() still holds) ----
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("shard_map_parent", alloc_gb=torch.cuda.memory_allocated() / 1e9,
+         reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    t0 = time.perf_counter()
+    ranks = shard_world(torch, SHARD_PHASES)
+    world_s = time.perf_counter() - t0
+    server_abs = [torch.empty((SHARD_M,) + tuple(s), device="meta")
+                  for s in ranks[0]["wire"]["leaf_shapes"]]
+    codec = cp.make_compressor(WIRE_TRAIN["compression"])
+    for name, trainer, kw in SHARD_PHASES:
+        # the assembled rows: rank r's (1, N) clients are rows r of the
+        # one-process run, leaf by leaf
+        got_clients = [c for r in ranks for c in r[name]["clients"]]
+        n = kw["clients"]
+        assert all(r[name]["rows"] == [1, n] for r in ranks), name
+        epochs = kw["epochs"]
+        per_round = _rank_per_round(ranks, name, kw["t_server"], epochs)
+        sumsq = sum(r[name]["sumsq"] for r in ranks)
+        match = [history_match(r[name]["history"], want[name]["history"],
+                               want[name]["sumsq"]) for r in ranks]
+        same_hist = all(m_[0] for m_ in match)
+        dis_ratio = max(m_[1] for m_ in match)
+        fields = dict(world_s=world_s, ranks=per_round,
+                      one_process_epoch_s=want[name]["epoch_s"],
+                      disagreement=ranks[0][name]["history"].get(
+                          "disagreement"),
+                      one_process_disagreement=want[name]["history"].get(
+                          "disagreement"),
+                      drift=ranks[0][name]["history"].get("drift"),
+                      one_process_drift=want[name]["history"].get("drift"),
+                      diagnostics_over_limit=dis_ratio, sumsq=sumsq,
+                      one_process_sumsq=want[name]["sumsq"],
+                      wire_mb=ranks[0][name]["history"].get("wire_mb"),
+                      one_process_wire_mb=want[name]["history"].get(
+                          "wire_mb"), nvidia_smi=smi)
+        if name == "plain":
+            bitwise = [[fp[:2] for fp in row] for row in got_clients] == [
+                [fp[:2] for fp in row] for row in want[name]["clients"]]
+            worst = _samples_close(got_clients, want[name]["clients"])
+            emit("shard_map_plain", bitwise=bitwise,
+                 sample_rel_err=worst, tolerance=SHARD_PLAIN_TOL,
+                 same_history=same_hist, **fields)
+            assert worst <= SHARD_PLAIN_TOL, worst
+        else:
+            bitwise = got_clients == want[name]["clients"]
+            ef_same = ([e for r in ranks for e in (r[name]["ef"] or [])]
+                       == (want[name]["ef"] or []))
+            phase = {"wire": "shard_map_wire",
+                     "wire_stale": "shard_map_wire",
+                     "dynamic": "shard_map_dynamic",
+                     "push_sum": "shard_map_dynamic"}[name]
+            emit(phase, run=name, staleness=kw.get("staleness", 0),
+                 bitwise=bitwise, ef_bitwise=ef_same,
+                 same_history=same_hist, **fields)
+            assert bitwise and ef_same, name
+        assert same_hist and dis_ratio <= 1.0, (name, match)
+        if kw.get("wire") == "physical":
+            row_bytes = tree_bucketed_wire_bytes_per_server(
+                codec, server_abs, 16_777_216)
+            for rank_row in per_round:
+                assert rank_row["calls_per_round"] == {
+                    "all_gather:int8": 1.0, "all_gather:float32": 1.0}, \
+                    rank_row
+                assert sum(rank_row["bytes_per_round"].values()) \
+                    == row_bytes, rank_row
+    launches = {k: sum(r[name]["launches"].get(k, 0) for r in ranks
+                       for name in ("wire", "wire_stale", "plain"))
+                for k in ROW_KERNELS}
+    assert all(launches.values()), launches
+    for k, row in rows.items():
+        row["launches"] = launches[k]
+
+    # ---- the CLI as users start it, at the smoke size ----
+    shard_cli(torch, ttrain)
+    return rows
+
+
+#: history keys that depend on the wire's byte layout: the shard_map
+#: program's bucket pads to its 16,777,216-element blocks, the one-process
+#: wire's to 4,194,304, so at full size the ledgers differ by the padding
+SHARD_LAYOUT_KEYS = ("wire_mb", "wire_ratio")
+#: the Lemma-1 and Lemma-3 diagnostics: the disagreement is sqrt(sum_i
+#: |w_i|^2 - M |mean|^2) and the drift sqrt(|c|^2 - 2 c.s + |s|^2) in
+#: float32, differences of near-equal sums that the ranks reduce in
+#: another order than one process (all-reduced sums; the card's reduction
+#: kernels split a (1, N, ...) leaf otherwise than an (M, N, ...) one).
+#: Held to the larger of 1e-3 of the value and its float32 floor
+#: sqrt(2^-20 sum_i |w_i|^2) (a float32 sum of 3.6e8 squares carries
+#: ~1e-6 of its size); every other key is held exactly
+SHARD_FLOOR_KEYS = ("disagreement", "drift")
+SHARD_METRIC_RTOL = 1e-3
+SHARD_SUMSQ_FLOOR = 2.0 ** -20
+
+
+def history_match(got: dict, want: dict, sumsq: float) -> tuple:
+    """``(every other key equal, the diagnostics' largest difference over
+    their limit)`` of two runs' histories, the layout keys left out; the
+    limit is the larger of SHARD_METRIC_RTOL of the value and the float32
+    floor of the servers' squared norm ``sumsq``."""
+    keys = set(want) - set(SHARD_LAYOUT_KEYS) - set(SHARD_FLOOR_KEYS)
+    same = set(got) == set(want) and all(got[k] == want[k] for k in keys)
+    floor = (SHARD_SUMSQ_FLOOR * sumsq) ** 0.5
+    ratio = max((abs(g - w) / max(SHARD_METRIC_RTOL * abs(w), floor, 1e-30)
+                 for k in SHARD_FLOOR_KEYS
+                 for g, w in zip(got.get(k, []), want.get(k, []))),
+                default=0.0)
+    return same, ratio
+
+
+def shard_cli(torch, ttrain) -> None:
+    """``shard_map_cli``: ``torch.distributed.run`` with four ranks on the
+    int8 physical wire at the smoke size; rank 0's JSONL history against
+    the in-process one-process run's."""
+    import socket
+    root = pathlib.Path(__file__).resolve().parent
+    jl = root / "build" / f"shard_cli_{int(time.time())}.jsonl"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    args = ["--servers", "4", "--clients", "2", "--t-client", "2",
+            "--t-server", "5", "--epochs", "1", "--compression", "int8",
+            "--wire", "physical"]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "4", "--master-addr", "localhost", "--master-port", str(port),
+         "-m", "repro_torch.launch.train", "--consensus-backend",
+         "shard_map", "--telemetry-jsonl", str(jl)] + args,
+        cwd=root, env={**__import__("os").environ,
+                       "PYTHONPATH": str(root / "src")},
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"torch.distributed.run exited {r.returncode}:\n"
+                           f"{r.stderr[-4000:]}")
+    recs = [json.loads(line)["value"] for line in jl.read_text().splitlines()
+            if json.loads(line).get("kind") == "epoch"]
+    from repro_torch.tree import tree_leaves
+    one_run = ttrain.train("smollm-360m", servers=4, clients=2, t_client=2,
+                           t_server=5, epochs=1, compression="int8",
+                           wire="physical", log=False)
+    one = one_run["history"]
+    cli_sumsq = sum(float(x[:, 0].double().square().sum())
+                    for x in tree_leaves(one_run["state"].client_params))
+    del one_run
+    got = {k: [rec[k] for rec in recs] for k in one
+           if k not in ("epoch_s", "alloc_gb")}
+    want = {k: v for k, v in one.items() if k not in ("epoch_s", "alloc_gb")}
+    # at the smoke size both bucket layouts are one block: the ledger too
+    same, dis_ratio = history_match(got, want, cli_sumsq)
+    same = same and all(got[k] == want[k] for k in SHARD_LAYOUT_KEYS)
+    keys = sorted(want)
+    emit("shard_map_cli", exit_code=r.returncode, seconds=cli_s,
+         records=len(recs), same_history=same, keys=keys,
+         diagnostics_over_limit=dis_ratio,
+         loss=[rec["loss"] for rec in recs], one_process_loss=one["loss"])
+    jl.unlink()
+    assert same and dis_ratio <= 1.0 and len(recs) == 1, (recs, one)
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3962,7 +4525,8 @@ def main() -> int:
                       "flash_attention": qcfg.num_layers,
                       "rmsnorm_fwd": norms_per_pass * SERVE["gen"],
                       "rmsnorm_bwd": 0, SIM_KERNEL[0]: 0, "ssd_scan": 0,
-                      **{k: 0 for k in WIRE_KERNELS}}
+                      **{k: 0 for k in WIRE_KERNELS},
+                      **{k: 0 for k in ROW_KERNELS}}
     generated = res["generated"]
     emit("serve", arch="qwen3-1.7b", batch=b, prompt_len=s_len,
          gen=SERVE["gen"], prefill_s=res["prefill_s"],
@@ -4101,7 +4665,7 @@ def main() -> int:
         "quantized_gossip_encode": WIRE_TRAIN["epochs"],
         "bucketed_gossip_round": WIRE_TRAIN["t_server"] * WIRE_TRAIN["epochs"],
         "bucketed_gossip_round_pipelined": 0, "quantized_gossip_round": 0,
-        SIM_KERNEL[0]: 0, "ssd_scan": 0}
+        SIM_KERNEL[0]: 0, "ssd_scan": 0, **{k: 0 for k in ROW_KERNELS}}
     emit("train_wire", arch="smollm-360m", params=n_params,
          compression=WIRE_TRAIN["compression"], wire=WIRE_TRAIN["wire"],
          error_feedback=WIRE_TRAIN["error_feedback"], loss=hist["loss"],
@@ -4137,7 +4701,8 @@ def main() -> int:
         "rmsnorm_bwd": norms_per_step * client_steps // TRAIN["epochs"],
         "quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
         "bucketed_gossip_round_pipelined": stale_train["t_server"],
-        "quantized_gossip_round": 0, SIM_KERNEL[0]: 0, "ssd_scan": 0}
+        "quantized_gossip_round": 0, SIM_KERNEL[0]: 0, "ssd_scan": 0,
+        **{k: 0 for k in ROW_KERNELS}}
     hist = run["history"]
     emit("train_wire_stale", arch="smollm-360m", staleness=1,
          loss=hist["loss"], epoch_s=hist["epoch_s"],
@@ -4422,7 +4987,8 @@ def main() -> int:
                 "rmsnorm_fwd": per_epoch_norms * epochs,
                 "rmsnorm_bwd": per_epoch_norms * epochs,
                 SIM_KERNEL[0]: kernel4 * epochs, "ssd_scan": 0,
-                **{k: 0 for k in WIRE_KERNELS}}
+                **{k: 0 for k in WIRE_KERNELS},
+                **{k: 0 for k in ROW_KERNELS}}
 
     # the ledger by host arithmetic: 8 live links of the 4-ring, T_S
     # messages each, of the closed-form payload of every leaf
@@ -4653,6 +5219,13 @@ def main() -> int:
     # probe, the superepoch against K = 1, the static trainer's files ----
     observability(torch, ttrain, ops, cns, smi)
 
+    # ---- 22g. the multi-process wire: the row forms of kernels 1, 7 and 8,
+    # then a world of four gloo ranks on this card (one server each)
+    # training full SmolLM-360M on the physical wire at staleness 0 and 1,
+    # uncompressed, dynamic and push-sum, each held to the one-process run;
+    # then the trainer under torch.distributed.run ----
+    row_rows = shard_map_phases(torch, ttrain, ops, ref, tp, smi, g)
+
     # ---- 23. per-kernel summary, card, result ----
     r256 = rn_stats[(256, 960, "float32")]
     kernels = [
@@ -4709,6 +5282,14 @@ def main() -> int:
          "bound_by": k4_by, "library_ms": None})
     kernels.append(ssd_row)
     kernels.extend(zoo_rows.values())
+    for name, (source, replaces) in ROW_KERNELS.items():
+        r = row_rows[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": r["launches"],
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

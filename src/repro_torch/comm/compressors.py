@@ -200,8 +200,12 @@ class Compressor:
     def decompress(self, comp: Compressed, d: int) -> torch.Tensor:
         raise NotImplementedError
 
-    def roundtrip(self, x: torch.Tensor, key=None) -> torch.Tensor:
-        """What the receivers reconstruct: D(C(x)), in ``x``'s dtype."""
+    def roundtrip(self, x: torch.Tensor, key=None,
+                  row0: int = 0) -> torch.Tensor:
+        """What the receivers reconstruct: D(C(x)), in ``x``'s dtype.
+        ``row0`` is the first server row ``x`` holds of the federation's
+        leaf (a rank of the multi-process wire holds its own); a compressor
+        whose draw does not depend on the row ignores it."""
         return self.decompress(self.compress(x, key),
                                x.shape[-1]).to(x.dtype)
 
@@ -311,13 +315,15 @@ class StochasticQuantizer(Compressor):
         return comp.data[..., :d].float() * scale
 
     # -- the simulated wire: kernel 4 -----------------------------------------
-    def roundtrip(self, x, key=None):
+    def roundtrip(self, x, key=None, row0: int = 0):
         """``D(C(x))`` with the dither ``prng.uniform(key, x.shape)`` (0.5
-        without a key), through kernel 4 with A = I."""
-        return self.mix(x, key)
+        without a key), through kernel 4 with A = I; ``row0`` as in
+        ``mix``."""
+        return self.mix(x, key, row0=row0)
 
     def mix(self, x: torch.Tensor, key=None,
-            a: Optional[torch.Tensor] = None) -> torch.Tensor:
+            a: Optional[torch.Tensor] = None,
+            row0: int = 0) -> torch.Tensor:
         """``a · D(C(x))`` over the leading (server) axis of ``x`` (``a``
         None: ``D(C(x))`` itself), in ``x``'s layout and dtype, through one
         launch of kernel 4 (``ops.quantized_consensus_mix``).
@@ -331,7 +337,10 @@ class StochasticQuantizer(Compressor):
         The dither's real elements are the reference's
         ``jax.random.uniform(key, x.shape)``; its pad columns are 0.  A 1-D
         leaf (one value a server) is chunked across the servers, as in the
-        reference: it is decoded as one row, then mixed by kernel 1."""
+        reference: it is decoded as one row, then mixed by kernel 1.
+        ``row0``: ``x`` holds the server rows ``row0, row0 + 1, ...`` of the
+        federation's leaf (a rank of the multi-process wire), so the dither
+        is that run of rows of the federation's draw."""
         n = x.shape[-1] if x.dim() else 1
         rows = x.numel() // max(n, 1)
         kc = n if n <= self.chunk else self.chunk
@@ -345,7 +354,9 @@ class StochasticQuantizer(Compressor):
         if key is None:
             u[:, :n] = 0.5
         else:
-            prng.uniform(key, (rows, n), out=u[:, :n])
+            per_server = x.numel() // max(x.shape[0], 1) if x.dim() else 1
+            prng.uniform(key, (rows, n), out=u[:, :n],
+                         start=row0 * per_server)
         eye = torch.ones((1, 1), dtype=torch.float32, device=x.device)
         out = _ops.quantized_consensus_mix(
             eye if one_row else a, w.view(lead, -1), u.view(lead, -1),
@@ -516,10 +527,12 @@ def make_compressor(spec: str) -> Compressor:
 # ---------------------------------------------------------------------------
 
 
-def roundtrip_tree(compressor: Compressor, tree: Any, key=None) -> Any:
+def roundtrip_tree(compressor: Compressor, tree: Any, key=None,
+                   row0: int = 0) -> Any:
     """The simulated wire's round trip of a server tree (leaves ``(M, *w)``):
     what every receiver reconstructs.  Leaf ``i`` (JAX's sorted leaf order)
-    is keyed by ``prng.fold_in(key, i)``.  Shape-preserving compressors
+    is keyed by ``prng.fold_in(key, i)``; ``row0`` is the federation row of
+    the tree's first row (a rank's own rows).  Shape-preserving compressors
     (identity, the quantizers) work in each leaf's natural layout, the
     quantizers through kernel 4; top-k and random-k flatten it to (M, d)."""
     leaves, treedef = tree_flatten(tree)
@@ -527,10 +540,10 @@ def roundtrip_tree(compressor: Compressor, tree: Any, key=None) -> Any:
     for i, leaf in enumerate(leaves):
         k = prng.fold_in(key, i) if key is not None else None
         if compressor.shape_preserving:
-            out.append(compressor.roundtrip(leaf, k))
+            out.append(compressor.roundtrip(leaf, k, row0=row0))
             continue
         x = leaf.reshape(leaf.shape[0], -1)
-        out.append(compressor.roundtrip(x, k).reshape(leaf.shape))
+        out.append(compressor.roundtrip(x, k, row0=row0).reshape(leaf.shape))
     return tree_unflatten(treedef, out)
 
 

@@ -29,7 +29,7 @@ def init_ef_residual(server_tree: Any) -> Any:
 
 
 def ef_roundtrip(compressor: Compressor, tree: Any, residual: Any,
-                 key=None) -> Tuple[Any, Any]:
+                 key=None, row0: int = 0) -> Tuple[Any, Any]:
     """One error-compensated transmission of a server tree: ``(decompressed
     message tree, new residual)``.  ``corrected = x + e`` leaf by leaf, the
     message is ``roundtrip_tree(corrected)``, and the new residual is
@@ -37,10 +37,12 @@ def ef_roundtrip(compressor: Compressor, tree: Any, residual: Any,
     (``Compressor.residual``).  On a bf16 leaf that program encodes the sum
     ``x + e`` before it is rounded to bf16 (XLA keeps the fused add in f32)
     and rounds the message to bf16; the residual subtracts the rounded
-    message from the rounded sum.  The port does the same."""
+    message from the rounded sum.  The port does the same.  ``row0`` is
+    the federation row of the tree's first row (``roundtrip_tree``)."""
     corrected = tree_map(lambda x, e: x + e, tree, residual)
     sent = tree_map(lambda x, e, c: c if c.dtype == torch.float32
                     else x.float() + e.float(), tree, residual, corrected)
     msg = tree_map(lambda q, c: q.to(c.dtype),
-                   roundtrip_tree(compressor, sent, key), corrected)
+                   roundtrip_tree(compressor, sent, key, row0=row0),
+                   corrected)
     return msg, tree_map(compressor.residual, corrected, msg)

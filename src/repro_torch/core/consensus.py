@@ -86,6 +86,19 @@ push-sum (``supports_directed = False``) and the physical wire; on the
 simulated wire their first operator is the identity (kernel 4 decodes on
 ``A = I``) and the screen runs the whole period.
 
+**The multi-process wire** (the reference's shard_map programs): one
+process a server over a ``torch.distributed`` group, each rank holding its
+own rows.  Every collective goes through ``all_gather_rows``,
+``ring_exchange`` or ``all_reduce_``, which count calls and bytes per dtype
+(``collective_counts``) and, on gloo, move a CUDA tensor through a pinned
+host buffer per collective site (gloo aborts on a device pointer).
+``make_gossip_shard_map`` is the plain program (kernel 1's row form a
+block and round) or the bucketed wire (one int8 and one f32 gather a
+round; kernel 6, then the row forms of kernels 7 or 8), row r bitwise row
+r of ``gossip_scan_wire_bucketed``; ``make_ring_gossip`` exchanges with the
+two ring neighbours; ``ShardMapBackend`` is the backend, also inside
+``CompressedBackend``.
+
 Modes: ``gossip``, ``gossip_blocked``, ``collapsed``, ``chebyshev``,
 ``exact_mean``, ``trimmed_mean[:f]``, ``median``, ``clipped[:mult]`` and
 ``none``; both wires around them (the physical wire around the first two),
@@ -93,10 +106,12 @@ bounded staleness on and off the wire, and push-sum over the first three.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm import compressors as _compressors
 from repro_torch.comm import prng
@@ -720,6 +735,480 @@ def wire_roundtrip_tree(codec, tree: Any, key=None, *,
 
 
 # ---------------------------------------------------------------------------
+# the multi-process wire: one process (rank) per server over a
+# torch.distributed group; every collective of it goes through
+# ``all_gather_rows``, ``ring_exchange`` or ``all_reduce_``
+# ---------------------------------------------------------------------------
+
+#: what the collective helpers did since ``reset_collective_counts()``:
+#: ``calls``, ``bytes`` (what this rank SENT) and host ``op_seconds`` per
+#: ``"op:dtype"``, their total ``seconds`` and, of them, the ``staging_s``
+#: of the copies between the device and the pinned host buffers
+_COLL: Dict[str, Any] = {"calls": {}, "bytes": {}, "op_seconds": {},
+                         "seconds": 0.0, "staging_s": 0.0}
+#: pinned host buffers of the staged collectives, one per collective site
+_STAGING: Dict[str, torch.Tensor] = {}
+
+
+def reset_collective_counts() -> None:
+    _COLL["calls"], _COLL["bytes"], _COLL["op_seconds"] = {}, {}, {}
+    _COLL["seconds"] = _COLL["staging_s"] = 0.0
+
+
+def collective_counts() -> Dict[str, Any]:
+    """A copy of this rank's collective ledger (see ``_COLL``)."""
+    return {"calls": dict(_COLL["calls"]), "bytes": dict(_COLL["bytes"]),
+            "op_seconds": dict(_COLL["op_seconds"]),
+            "seconds": _COLL["seconds"], "staging_s": _COLL["staging_s"]}
+
+
+def _count(op: str, x: torch.Tensor, t0: float, sends: int = 1) -> None:
+    """Count one call of ``op`` on ``x`` that started at ``t0``."""
+    k = f"{op}:{str(x.dtype).replace('torch.', '')}"
+    dt = time.perf_counter() - t0
+    _COLL["calls"][k] = _COLL["calls"].get(k, 0) + 1
+    _COLL["bytes"][k] = (_COLL["bytes"].get(k, 0)
+                         + sends * x.numel() * x.element_size())
+    _COLL["op_seconds"][k] = _COLL["op_seconds"].get(k, 0.0) + dt
+    _COLL["seconds"] += dt
+
+
+def group_size_rank(group) -> Tuple[int, int]:
+    """``(world size, this process's rank)`` of ``group``."""
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` crosses ``group`` through host memory: a CUDA tensor on
+    a gloo group.  Gloo moves host buffers; the staging through pinned host
+    memory IS its transport for device tensors (NCCL takes them as they
+    are)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _host(site: str, shape, dtype: torch.dtype) -> torch.Tensor:
+    """The pinned host buffer of collective site ``site``, grown to hold a
+    ``shape`` tensor of ``dtype`` and viewed as one."""
+    n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    buf = _STAGING.get(site)
+    if buf is None or buf.numel() < n:
+        _STAGING.pop(site, None)
+        buf = torch.empty((max(n, 1),), dtype=torch.uint8, pin_memory=True)
+        _STAGING[site] = buf
+    return buf[:n].view(dtype).view(tuple(shape))
+
+
+def _to_host(x: torch.Tensor, site: str) -> torch.Tensor:
+    t0 = time.perf_counter()
+    h = _host(site, x.shape, x.dtype)
+    h.copy_(x)                  # a device-to-host copy waits for the device
+    _COLL["staging_s"] += time.perf_counter() - t0
+    return h
+
+
+def _to_device(dst: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    t0 = time.perf_counter()
+    dst.copy_(h)
+    torch.cuda.current_stream(dst.device).synchronize()
+    _COLL["staging_s"] += time.perf_counter() - t0
+    return dst
+
+
+def all_gather_rows(x: torch.Tensor, group, *,
+                    out: Optional[torch.Tensor] = None,
+                    site: str = "all_gather") -> torch.Tensor:
+    """Every rank's ``(rows, ...)`` tensor stacked in rank order, ``(M *
+    rows, ...)``: the port of ``jax.lax.all_gather`` over the server axis.
+    ``out`` (contiguous, on ``x``'s device) receives it; ``site`` names the
+    pinned host buffers of a staged call.  On gloo every rank sends its
+    rows to every peer at once in one ``batch_isend_irecv`` (gloo's own
+    ring all_gather runs its M - 1 steps one after another, 3-4x slower
+    over loopback at four ranks); other backends take
+    ``dist.all_gather``.  Counts one call and ``x``'s bytes; a collective
+    error is raised as it comes."""
+    t0 = time.perf_counter()
+    m, r = group_size_rank(group)
+    x = x.contiguous()
+    shape = (m * x.shape[0],) + tuple(x.shape[1:])
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if tuple(out.shape) != shape or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {shape} tensor")
+    if dist.get_backend(group) == "gloo":
+        staged = x.is_cuda
+        send = _to_host(x, site + ":send") if staged else x
+        recv = _host(site + ":recv", shape, x.dtype) if staged else out
+        parts = recv.chunk(m)
+        ops = []
+        for k in range(1, m):
+            dst, src = (r + k) % m, (r - k) % m
+            ops.append(dist.P2POp(dist.isend, send,
+                                  dist.get_global_rank(group, dst), group))
+            ops.append(dist.P2POp(dist.irecv, parts[src],
+                                  dist.get_global_rank(group, src), group))
+        for work in (dist.batch_isend_irecv(ops) if ops else []):
+            work.wait()
+        parts[r].copy_(send)
+        if staged:
+            _to_device(out, recv)
+    else:
+        dist.all_gather(list(out.chunk(m)), x, group=group)
+    _count("all_gather", x, t0)
+    return out
+
+
+def ring_exchange(x: torch.Tensor, group, *,
+                  site: str = "ring") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(left, right)``: ring neighbour ``rank - 1``'s and ``rank + 1``'s
+    copy of ``x``, exchanged in one ``batch_isend_irecv`` (the port of
+    ``jax.lax.ppermute`` with the forward and backward ring permutations).
+    Counts one call and the bytes of the two sends."""
+    t0 = time.perf_counter()
+    m, r = group_size_rank(group)
+    x = x.contiguous()
+    if m == 1:                      # a ring of one: the self-loop
+        return x, x
+    staged = _staged(x, group)
+    send = _to_host(x, site + ":send") if staged else x
+    left = (_host(site + ":left", x.shape, x.dtype) if staged
+            else torch.empty_like(x))
+    right = (_host(site + ":right", x.shape, x.dtype) if staged
+             else torch.empty_like(x))
+    nxt = dist.get_global_rank(group, (r + 1) % m)
+    prv = dist.get_global_rank(group, (r - 1) % m)
+    ops = [dist.P2POp(dist.isend, send, nxt, group),
+           dist.P2POp(dist.isend, send, prv, group),
+           dist.P2POp(dist.irecv, left, prv, group),
+           dist.P2POp(dist.irecv, right, nxt, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        left = _to_device(torch.empty_like(x), left)
+        right = _to_device(torch.empty_like(x), right)
+    _count("ring_exchange", x, t0, sends=2)
+    return left, right
+
+
+def all_reduce_(x: torch.Tensor, group, op: str = "sum", *,
+                site: str = "all_reduce") -> torch.Tensor:
+    """``x`` reduced over the ranks in place (``op`` ``"sum"`` or
+    ``"max"``): the one helper through which the epoch step's metrics
+    reduce over servers.  Counts one call and ``x``'s bytes."""
+    t0 = time.perf_counter()
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    if _staged(x, group):
+        h = _to_host(x, site)
+        dist.all_reduce(h, op=red, group=group)
+        _to_device(x, h)
+    else:
+        dist.all_reduce(x, op=red, group=group)
+    _count("all_reduce", x, t0)
+    return x
+
+
+# -- shard_map gossip: the rank-local programs ------------------------------
+
+
+def _check_shard_map(codec, with_shipped: bool, staleness: int) -> None:
+    if with_shipped and codec is None:
+        raise ValueError("with_shipped is the wire codec's error-feedback "
+                         "hook; it needs codec=")
+    if staleness < 0:
+        raise ValueError(f"staleness must be >= 0, got {staleness}")
+    if staleness and codec is None:
+        raise ValueError(
+            "bounded staleness needs the delta-coded wire (codec=): the "
+            "plain shard_map path gossips raw state, which has no "
+            "innovation stream to consume late — build with a quantizer "
+            "codec or use staleness=0")
+
+
+class _ShardPlain:
+    """The plain shard_map program, ``run(a, local_tree)``: each leaf of the
+    rank's ``(1, ...)`` rows, flattened in its own dtype (bf16 stays bf16
+    on the wire) and cut into blocks of ``min(block, d)`` with a zero-padded
+    tail, runs T_S rounds a block of one ``all_gather_rows`` and kernel 1's
+    row form with A's own row, leaf after leaf."""
+
+    def __init__(self, group, t_server: int, block: int):
+        self.group, self.t_server, self.block = group, t_server, block
+
+    def __call__(self, a: torch.Tensor, tree: Any) -> Any:
+        if self.t_server == 0:
+            return tree
+        m, rank = group_size_rank(self.group)
+        leaves, treedef = tree_flatten(tree)
+        kops.one_dtype(leaves, "the shard_map gossip")
+        out = []
+        for leaf in leaves:
+            rows = leaf.shape[0]
+            a_row = _f32_on(a, leaf)[rank * rows:(rank + 1) * rows] \
+                .contiguous()
+            flat = leaf.reshape(rows, -1)
+            d = flat.shape[1]
+            blk = max(min(self.block, d), 1)
+            nb = -(-d // blk)
+            buf = torch.zeros((rows, nb * blk), dtype=leaf.dtype,
+                              device=leaf.device)
+            buf[:, :d] = flat
+            gathered = torch.empty((m * rows, blk), dtype=leaf.dtype,
+                                   device=leaf.device)
+            nxt = torch.empty((rows, blk), dtype=leaf.dtype,
+                              device=leaf.device)
+            for b in range(nb):
+                w = buf[:, b * blk:(b + 1) * blk]
+                for _ in range(self.t_server):
+                    all_gather_rows(w, self.group, out=gathered,
+                                    site="plain")
+                    kops.consensus_mix_rows(a_row, gathered, out=nxt)
+                    w.copy_(nxt)
+            out.append(buf[:, :d].reshape(leaf.shape))
+        return tree_unflatten(treedef, out)
+
+
+class _ShardWire:
+    """The bucketed quantized-wire shard_map program, ``run(a, local_tree,
+    key=None)`` (``(mixed, shipped)`` with ``with_shipped``): the rank's
+    whole local tree is one zero-padded (1, D_pad) f32 bucket
+    (``_bucket_layout`` / ``_bucket_flat``), and every round is ONE int8
+    ``all_gather_rows`` of codes (int4 packed two a byte) plus ONE f32 one
+    of scales, whatever the leaf count.  The rank keeps its own reference
+    row and accumulator; round 0 encodes on kernel 6, each round then runs
+    kernel 7's row form (staleness 0) or kernel 8's (staleness s >= 1, the
+    gathered codes in an (s, M, D_pad) in-flight ring pre-filled with zero
+    codes and unit scales).  The dither is row ``rank`` of
+    ``_bucket_dither_rows``.  ``gather_codes=False`` ships the same code
+    values at f32 width.  Row ``rank`` of the result is bitwise row
+    ``rank`` of ``gossip_scan_wire_bucketed`` under the same key."""
+
+    def __init__(self, group, t_server: int, block: int, codec,
+                 stochastic: bool, gather_codes: bool, with_shipped: bool,
+                 staleness: int):
+        self.group, self.t_server, self.block = group, t_server, block
+        self.codec, self.stochastic = codec, stochastic
+        self.gather_codes, self.with_shipped = gather_codes, with_shipped
+        self.staleness = staleness
+
+    def __call__(self, a: torch.Tensor, tree: Any, key=None):
+        if self.stochastic and key is None:
+            raise ValueError(
+                "this wire program was built stochastic=True and needs the "
+                "rounding key; build with stochastic=False for "
+                "deterministic round-to-nearest")
+        if self.t_server == 0:      # nothing crosses the wire (or is shipped)
+            return ((tree, tree_map(torch.zeros_like, tree))
+                    if self.with_shipped else tree)
+        codec = self.codec
+        leaves, treedef = _wire_leaves(tree)
+        _, d_pad = _bucket_layout(leaves, self.block, codec.chunk)
+        dtype = leaves[0].dtype
+        sent = []
+
+        def shipped(codes, scales):
+            rows = codes.shape[0]
+            sent.append((codes.reshape(rows, -1, codec.chunk).float()
+                         * scales[..., None]).reshape(rows, d_pad))
+
+        out = self.period(a, _bucket_flat(leaves, d_pad),
+                          key if self.stochastic else None,
+                          shipped=shipped if self.with_shipped else None,
+                          dtype=dtype)
+        mixed = _bucket_split(out, leaves, treedef, via=dtype)
+        if not self.with_shipped:
+            return mixed
+        return mixed, _bucket_split(sent[0], leaves, treedef)
+
+    def _gather(self, codes: torch.Tensor, scales: torch.Tensor,
+                g_codes: torch.Tensor, g_scales: torch.Tensor) -> None:
+        """One round's collective pair into ``g_codes`` / ``g_scales``."""
+        codec = self.codec
+        payload = (_compressors.pack_int4(codes) if codec.bits == 4
+                   else codes)
+        if self.gather_codes and codec.bits == 8:
+            all_gather_rows(payload, self.group, out=g_codes, site="codes")
+        else:
+            wide = payload.float() if not self.gather_codes else payload
+            got = all_gather_rows(wide, self.group, site="codes").to(
+                torch.int8)
+            g_codes.copy_(_compressors.unpack_int4(got, g_codes.shape[1])
+                          if codec.bits == 4 else got)
+        all_gather_rows(scales, self.group, out=g_scales, site="scales")
+
+    def period(self, a: torch.Tensor, flat: torch.Tensor, key,
+               shipped: Optional[Callable] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """``_bucketed_period`` of the rank's own (rows, D_pad) f32 bucket:
+        the iterate after T_S rounds.  ``shipped(codes, scales)`` receives
+        round 0's own codes and scales (the error-feedback hook)."""
+        codec, group = self.codec, self.group
+        m, rank = group_size_rank(group)
+        rows, d_pad = flat.shape
+        bits, chunk, nc = codec.bits, codec.chunk, d_pad // codec.chunk
+        a_rows = _f32_on(a, flat)[rank * rows:(rank + 1) * rows].contiguous()
+        ref = torch.zeros_like(flat)
+        acc = torch.zeros_like(flat)
+        u = torch.empty_like(flat)
+        codes = torch.empty((rows, d_pad), dtype=torch.int8,
+                            device=flat.device)
+        scales = torch.empty((rows, nc), dtype=torch.float32,
+                             device=flat.device)
+
+        def dither(rnd):
+            if key is None:
+                return u.fill_(0.5)
+            for i in range(rows):
+                _compressors.wire_dither(key, d_pad, leaf=0, rnd=rnd,
+                                         server=rank * rows + i, block=0,
+                                         out=u[i])
+            return u
+
+        s = self.staleness
+        if s == 0:
+            kops.quantized_gossip_encode(flat, ref, dither(0), codes, scales,
+                                         bits=bits, chunk=chunk)
+            if shipped is not None:
+                shipped(codes, scales)
+            g_codes = torch.empty((m * rows, d_pad), dtype=torch.int8,
+                                  device=flat.device)
+            g_scales = torch.empty((m * rows, nc), dtype=torch.float32,
+                                   device=flat.device)
+            w = None if dtype == torch.float32 else torch.empty_like(flat)
+            for t in range(self.t_server):
+                self._gather(codes, scales, g_codes, g_scales)
+                if t + 1 < self.t_server:   # the last re-encode is unused
+                    dither(t + 1)
+                kops.bucketed_gossip_round_rows(
+                    a_rows, g_codes, g_scales, ref, acc, u, codes, scales,
+                    row0=rank * rows, bits=bits, chunk=chunk)
+                if w is not None and t + 1 < self.t_server:
+                    kops.quantized_gossip_encode(
+                        _round_to(w.copy_(acc), dtype), ref, u, codes,
+                        scales, bits=bits, chunk=chunk)
+            return acc
+        ring_c = torch.zeros((s, m * rows, d_pad), dtype=torch.int8,
+                             device=flat.device)
+        ring_s = torch.ones((s, m * rows, nc), dtype=torch.float32,
+                            device=flat.device)
+        w = flat
+        for t in range(self.t_server):
+            slot = t % s
+            kops.bucketed_gossip_round_pipelined_rows(
+                a_rows, ring_c[slot], ring_s[slot], w, ref, acc, dither(t),
+                codes, scales, bits=bits, chunk=chunk)
+            if t == 0 and shipped is not None:
+                shipped(codes, scales)
+            # this round's codes, consumed s rounds from now
+            self._gather(codes, scales, ring_c[slot], ring_s[slot])
+            if t >= s:              # a delayed buffer has landed
+                if dtype == torch.float32:
+                    w = acc
+                else:
+                    if w is flat:
+                        w = torch.empty_like(flat)
+                    _round_to(w.copy_(acc), dtype)
+        return w
+
+
+def make_gossip_shard_map(group, t_server: int, *, block: int = 16_777_216,
+                          codec=None, stochastic: bool = True,
+                          gather_codes: bool = True,
+                          with_shipped: bool = False,
+                          staleness: int = 0) -> Callable:
+    """T_S-round gossip as a rank-local program over a ``torch.distributed``
+    group of M processes, rank r holding server r (the reference's
+    ``make_gossip_shard_map`` over a ``('server',)`` mesh).  Returns
+    ``run(a, local_tree)`` (plain) or ``run(a, local_tree, key=None)``
+    (``codec=`` a quantizer): ``a`` the full ``(M, M)`` operator (A, or A'
+    for a push-sum numerator), read row-wise; ``local_tree`` the rank's
+    leading ``(1, ...)`` rows.  The plain program is ``_ShardPlain``, the
+    bucketed wire ``_ShardWire``.  ``with_shipped`` returns ``(mixed,
+    shipped)`` with ``shipped`` round 0's own decoded transmission;
+    ``staleness=s > 0`` needs the codec; ``t_server == 0`` is the
+    identity."""
+    _check_shard_map(codec, with_shipped, staleness)
+    if codec is None:
+        return _ShardPlain(group, t_server, block)
+    return _ShardWire(group, t_server, block, codec, stochastic,
+                      gather_codes, with_shipped, staleness)
+
+
+# -- ring gossip over the neighbour exchange ---------------------------------
+
+
+def ring_gossip_step(w: torch.Tensor, group, *, self_weight: float,
+                     neighbor_weight: float) -> torch.Tensor:
+    """One ring round on the rank's rows: ``self·w + nb·(left + right)``
+    with the two ring neighbours' copies from ``ring_exchange``."""
+    left, right = ring_exchange(w, group)
+    return (self_weight * w + neighbor_weight * (left + right)).to(w.dtype)
+
+
+def make_ring_gossip(group, t_server: int, self_weight: float,
+                     neighbor_weight: float, *, codec=None,
+                     stochastic: bool = True,
+                     gather_codes: bool = True) -> Callable:
+    """T_S-round ring gossip over ``group`` (the reference's
+    ``make_ring_gossip``): ``run(local_tree, key=None)``.
+
+    With ``codec=`` a quantizer the neighbours exchange codes and scales
+    instead of floats: each round every leaf encodes its DELTA against the
+    receivers' decoded reference of it (``codec.encode_block`` over the
+    rank's flattened leaf, dither ``wire_dither(key, length, leaf=li,
+    rnd=t, server=rank, block=0)``), ships the one code buffer to both
+    neighbours, and every rank adds the decoded deltas to its three
+    references (self, left, right) and mixes them one weighted term per
+    add.  ``gather_codes=False`` is the simulated twin: the same code
+    values at f32 width, bitwise the same result."""
+    if codec is not None and not isinstance(
+            codec, _compressors.StochasticQuantizer):
+        raise ValueError("the ring wire ships quantizer codes; codec= must "
+                         "be an int8/int4 StochasticQuantizer")
+
+    def run(tree: Any, key=None) -> Any:
+        if codec is None:
+            for _ in range(t_server):
+                tree = tree_map(lambda x: ring_gossip_step(
+                    x, group, self_weight=self_weight,
+                    neighbor_weight=neighbor_weight), tree)
+            return tree
+        if stochastic and key is None:
+            raise ValueError("this wire program was built stochastic=True "
+                             "and needs the rounding key")
+        _, rank = group_size_rank(group)
+        leaves, treedef = tree_flatten(tree)
+        out = []
+        for li, leaf in enumerate(leaves):
+            flat = leaf.reshape(-1)
+            length = flat.numel()
+            r_self, r_left, r_right = (torch.zeros(
+                (length,), dtype=torch.float32, device=flat.device)
+                for _ in range(3))
+            for t in range(t_server):
+                delta = flat.float() - r_self
+                dither = (0.5 if key is None or not stochastic else
+                          _compressors.wire_dither(
+                              key, length, leaf=li, rnd=t, server=rank,
+                              block=0, device=flat.device))
+                codes, scales = codec.encode_block(delta, dither)
+                wire = codes if gather_codes else codes.float()
+                lc, rc = ring_exchange(wire, group, site="ring_codes")
+                ls, rs = ring_exchange(scales, group, site="ring_scales")
+                r_self = r_self + codec.decode_block(codes, scales, length)
+                r_left = r_left + codec.decode_block(lc.to(codes.dtype), ls,
+                                                     length)
+                r_right = r_right + codec.decode_block(rc.to(codes.dtype),
+                                                       rs, length)
+                acc = self_weight * r_self
+                acc = acc + neighbor_weight * r_left
+                acc = acc + neighbor_weight * r_right
+                flat = acc.to(leaf.dtype)
+            out.append(flat.reshape(leaf.shape))
+        return tree_unflatten(treedef, out)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
 # consensus backends: one interface over every execution strategy
 # ---------------------------------------------------------------------------
 
@@ -739,6 +1228,9 @@ class ConsensusBackend:
     needs_spectral = False
     robust = False
     staleness = 0
+    # bound to a process group of one rank a server (shard_map): the trees
+    # it mixes hold the rank's own rows, and M cannot change
+    mesh_bound = False
 
     def __init__(self, a_static: Optional[np.ndarray], t_server: int):
         self.a_static = (None if a_static is None
@@ -1335,6 +1827,74 @@ def _screen_first_round(backend: ConsensusBackend, a_p, m: int):
     return torch.eye(m), lambda tree: backend.mix(tree, a_p)
 
 
+class ShardMapBackend(ConsensusBackend):
+    """The multi-process wire's backend (the reference's ``ShardMapBackend``):
+    the plain ``make_gossip_shard_map`` program over a ``torch.distributed``
+    group of M ranks, rank r holding server r, with the mixing matrix an
+    operand (a per-epoch ``A_p`` overrides the static one).  Each rank's
+    trees hold its own rows only (``rows``), so the epoch step runs
+    rank-locally (``dfl.build_dfl_epoch_step``); being bound to the group's
+    size it cannot survive fault surgery that changes M (``mesh_bound``).
+    Push-sum mixes the numerator with A' through the same program and the
+    ``(M,)`` weight, replicated on every rank, identically on each.
+    ``wire_runner`` builds the bucketed wire programs
+    (``CompressedBackend(wire="physical")``)."""
+
+    name = "shard_map"
+    mesh_bound = True
+
+    def __init__(self, group, a_static, t_server, *,
+                 block: int = 16_777_216, staleness: int = 0):
+        super().__init__(a_static, t_server)
+        if staleness < 0:
+            raise ValueError(f"staleness must be >= 0, got {staleness}")
+        self.group = group
+        self.block = block
+        self.staleness = staleness
+        self.num_servers, self.rank = group_size_rank(group)
+        if self.a_static is not None and \
+                self.a_static.shape[0] != self.num_servers:
+            raise ValueError(
+                f"the shard_map backend runs one server a rank: a "
+                f"{self.a_static.shape[0]}-server mixing matrix on a group "
+                f"of {self.num_servers}")
+        #: the federation rows this rank holds, [lo, hi)
+        self.rows = (self.rank, self.rank + 1)
+        self._run = make_gossip_shard_map(group, t_server, block=block)
+        self._wire_runners: Dict[tuple, _ShardWire] = {}
+
+    def _mix(self, tree, a):
+        if self.staleness:
+            raise ValueError(
+                "shard_map bounded staleness rides the delta-coded wire "
+                "only (make_gossip_shard_map refuses codec=None): wrap "
+                "with a physical-wire CompressedBackend or use staleness=0")
+        return self._run(a, tree)
+
+    def wire_runner(self, codec, *, stochastic: bool = True,
+                    gather_codes: bool = True,
+                    with_shipped: bool = False) -> "_ShardWire":
+        """The physical-wire twin of this backend's program (same group and
+        block, the codec's codes on the wire), built on demand and cached
+        per mode; the backend's ``staleness`` threads through."""
+        k = (codec, bool(stochastic), bool(gather_codes),
+             bool(with_shipped), self.staleness)
+        if k not in self._wire_runners:
+            self._wire_runners[k] = make_gossip_shard_map(
+                self.group, self.t_server, block=self.block, codec=codec,
+                stochastic=stochastic, gather_codes=gather_codes,
+                with_shipped=with_shipped, staleness=self.staleness)
+        return self._wire_runners[k]
+
+    def first_round(self, a_p, m, lam2=None, transpose=False):
+        # the simulated wire decodes the rank's own message on A = I
+        # (kernel 4, exact) and the whole period then crosses the group
+        a = self._resolve(a_p)
+        rest = ((lambda tree: self._mix(tree, _transpose(a))) if transpose
+                else (lambda tree: self._mix(tree, a)))
+        return torch.eye(m), rest
+
+
 def _ef_residual_into(res: torch.Tensor, flat: torch.Tensor,
                       codes: torch.Tensor, scales: torch.Tensor, lo: int,
                       chunk: int, step: int = 1 << 22) -> None:
@@ -1363,8 +1923,11 @@ class CompressedBackend(ConsensusBackend):
     (``gossip_scan_wire_bucketed``, the whole tree as one bucket, one code
     and one scale buffer per server and round).  Only the int8/int4
     quantizers define a wire byte format, and only the literal T_S-round
-    schedules (gossip, gossip_blocked) have a per-round wire.  Error
-    feedback tracks the round-0 transmission of each server's own model:
+    schedules (gossip, gossip_blocked, shard_map) have a per-round wire;
+    around a ``ShardMapBackend`` the rounds run its ``wire_runner``
+    program, each rank on its own rows (the simulated wire round-trips the
+    rank's own message, then runs the plain program).  Error feedback
+    tracks the round-0 transmission of each server's own model:
     the residual is ``corrected - D(round-0 codes)``, computed from the
     period's own round-0 codes and scales (``bucketed_roundtrip_tree``
     would encode the same input with the same dither again), with the
@@ -1394,12 +1957,12 @@ class CompressedBackend(ConsensusBackend):
                     "wire='physical' ships quantized codes through the "
                     "collectives; only the int8/int4 quantizers define a "
                     "wire byte format")
-            if inner.name not in ("gossip", "gossip_blocked"):
+            if inner.name not in ("gossip", "gossip_blocked", "shard_map"):
                 raise ValueError(
                     f"wire='physical' re-quantizes at every gossip hop, so "
                     f"it needs the literal T_S-round W <- A W schedule; "
                     f"backend {inner.name!r} has no per-round wire — use "
-                    f"'gossip' or 'gossip_blocked'")
+                    f"'gossip', 'gossip_blocked' or the shard_map backend")
         if getattr(inner, "staleness", 0) and wire != "physical":
             raise ValueError(
                 "bounded staleness + wire='simulated' is incoherent: the "
@@ -1419,6 +1982,9 @@ class CompressedBackend(ConsensusBackend):
             "+wire" if wire == "physical" else "") + "]"
         self.supports_directed = inner.supports_directed
         self.needs_spectral = inner.needs_spectral
+        self.mesh_bound = inner.mesh_bound
+        # the federation row of the trees' first row (a rank's own rows)
+        self._row0 = getattr(inner, "rows", (0, 0))[0]
 
     def _mix_simulated(self, tree: Any, a_p: Optional[torch.Tensor], *,
                        residual: Optional[Any], key, lam2=None,
@@ -1433,21 +1999,23 @@ class CompressedBackend(ConsensusBackend):
                 return self.inner.mix_numerator(msg, a_p)
             return self.inner.mix(msg, a_p, lam2=lam2)
 
+        row0 = self._row0
         if residual is not None and self.error_feedback:
-            msg, residual = ef_roundtrip(codec, tree, residual, key)
+            msg, residual = ef_roundtrip(codec, tree, residual, key,
+                                         row0=row0)
             return period(msg), residual
         leaves, treedef = tree_flatten(tree)
         if not isinstance(codec, _compressors.StochasticQuantizer) or any(
                 leaf.dtype != torch.float32 for leaf in leaves):
             # the reference rounds a bf16 message to bf16 before it mixes
             # it, so only an f32 tree fuses the first operator
-            msg = _compressors.roundtrip_tree(codec, tree, key)
+            msg = _compressors.roundtrip_tree(codec, tree, key, row0=row0)
             return period(msg), residual
         # the round trip and the first operator in one pass of kernel 4
         first, rest = self.inner.first_round(a_p, leaves[0].shape[0],
                                              lam2=lam2, transpose=push_sum)
         mixed = [codec.mix(leaf, None if key is None else prng.fold_in(key, i),
-                           first) for i, leaf in enumerate(leaves)]
+                           first, row0=row0) for i, leaf in enumerate(leaves)]
         return rest(tree_unflatten(treedef, mixed)), residual
 
     def mix_compressed(self, tree: Any, a_p: Optional[torch.Tensor] = None,
@@ -1504,8 +2072,14 @@ class CompressedBackend(ConsensusBackend):
                     off += size
         else:
             flat = _bucket_flat(leaves, d_pad)
-        out = _bucketed_period(a, flat, self.t_server, codec, key,
-                               self.staleness, shipped=shipped, dtype=dtype)
+        if isinstance(self.inner, ShardMapBackend):
+            run = self.inner.wire_runner(codec, stochastic=key is not None,
+                                         with_shipped=ef)
+            out = run.period(a, flat, key, shipped=shipped, dtype=dtype)
+        else:
+            out = _bucketed_period(a, flat, self.t_server, codec, key,
+                                   self.staleness, shipped=shipped,
+                                   dtype=dtype)
         return _bucket_split(out, leaves, treedef, via=dtype), residual
 
     def mix_push_sum_compressed(self, state: PushSumState,

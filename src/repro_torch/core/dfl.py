@@ -58,6 +58,17 @@ period, keyed by a split of the same key stream (the injection's key is
 split off before the consensus key, as the reference splits its rng).  A
 robust backend (trimmed mean, median, clipped) with ``metrics="full"``
 reports its per-source screen activity in ``DFLMetrics.screen_rejected``.
+
+The multi-process wire (``DFLConfig.consensus_backend`` a mesh-bound
+``consensus.ShardMapBackend``, bare or inside a ``CompressedBackend``): one
+process a server, and the step runs rank-locally.  Its grid is ``(rows this
+rank holds, N)``; ``init_dfl_state`` builds only those rows; the step takes
+the pipeline's full ``(T_C, M, N, ...)`` draw and the full schedule and
+reads its rows of them; the consensus period crosses the group.  The
+metrics that reduce over servers go through ``consensus.all_reduce_``: the
+losses (exact: the other ranks add zeros), the grad norm's and the
+disagreement's sums (within rounding of the one-process sums), the drift's
+max (exact).  The push-sum weight is replicated on every rank.
 """
 from __future__ import annotations
 
@@ -157,6 +168,11 @@ class DFLConfig:
     # replace their aggregate before gossip (apply_byzantine); needs
     # dynamic=True, whose EpochSchedule.byz carries the per-row codes
     byzantine: Optional[Any] = None
+    # an explicit consensus backend (consensus.ConsensusBackend), used in
+    # place of one built from consensus_mode / compression / wire: the
+    # launcher injects the multi-process wire's this way
+    # (launch.sharding.fl_consensus_backend)
+    consensus_backend: Optional[Any] = None
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +244,7 @@ def carry_forward(mask: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:
 
 
 def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
-                    attacks: Tuple[Any, ...]) -> Any:
+                    attacks: Tuple[Any, ...], row0: int = 0) -> Any:
     """Inject the scheduled attacks into the pre-gossip server tree.
 
     ``codes`` is the (M,) per-row attack marking of
@@ -249,7 +265,10 @@ def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
     h_min)`` over the ``codes == 0`` rows (an attacker keeps its own value
     when no honest row exists).  On float32 leaves ``scale * x + y`` is one
     fused multiply-add, as XLA compiles it inside the reference's jitted
-    epoch step (its eager ops round twice)."""
+    epoch step (its eager ops round twice).  ``row0`` is the federation
+    row of the tree's first row (a rank's own rows under the multi-process
+    wire: ``codes`` is then its rows' codes); ``inlier_shift`` reads every
+    honest row, so it takes the whole federation's tree."""
     codes = np.asarray(codes.detach().cpu() if isinstance(codes, torch.Tensor)
                        else codes, dtype=np.int64).reshape(-1)
     leaves, treedef = tree_flatten(server_tree)
@@ -282,7 +301,7 @@ def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
                 for r in rows:
                     noise = prng.normal(k, tuple(leaf.shape[1:]),
                                         dtype=leaf.dtype, device=leaf.device,
-                                        start=r * per_row)
+                                        start=(row0 + r) * per_row)
                     out[r] = _scale_add(atk.scale, noise, leaf[r])
             elif honest.size:                           # inlier_shift
                 idx_t = torch.as_tensor(honest, device=leaf.device)
@@ -366,7 +385,10 @@ def _sum_over(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
 
 def resolve_backend(cfg: DFLConfig):
     """The ``consensus.ConsensusBackend`` this config's consensus period runs
-    through (``None`` for consensus_mode='none')."""
+    through: the injected ``cfg.consensus_backend`` if any, else one built
+    from ``consensus_mode`` (``None`` for consensus_mode='none')."""
+    if cfg.consensus_backend is not None:
+        return cfg.consensus_backend
     topo = cfg.topology
     m = topo.num_servers
     a_np = topo.mixing_matrix() if m > 1 else np.ones((1, 1))
@@ -379,14 +401,23 @@ def resolve_backend(cfg: DFLConfig):
 
 def active_compressor(cfg: DFLConfig):
     """The compressor this config's consensus period runs through, or
-    ``None`` when the wire is exact."""
+    ``None`` when the wire is exact (an injected backend first)."""
+    backend = cfg.consensus_backend
+    if backend is not None:
+        return backend.compressor if getattr(backend, "compressed",
+                                             False) else None
     if cfg.compression != "none" and cfg.consensus_mode != "none":
         return make_compressor(cfg.compression)
     return None
 
 
 def wants_error_feedback(cfg: DFLConfig) -> bool:
-    """Whether this config carries an EF residual in ``DFLState``."""
+    """Whether this config carries an EF residual in ``DFLState`` (an
+    injected backend first)."""
+    backend = cfg.consensus_backend
+    if backend is not None:
+        return bool(getattr(backend, "compressed", False)
+                    and backend.error_feedback)
     return (cfg.compression != "none" and cfg.error_feedback
             and cfg.consensus_mode != "none")
 
@@ -394,7 +425,36 @@ def wants_error_feedback(cfg: DFLConfig) -> bool:
 def active_wire(cfg: DFLConfig) -> Tuple[str, int]:
     """``(wire mode, wire block)`` of the compression layer: the block is
     the byte layout's partitioning the ledger counts."""
+    backend = cfg.consensus_backend
+    if backend is not None and getattr(backend, "compressed", False):
+        return backend.wire, backend.wire_block
     return cfg.wire, cns.DEFAULT_GOSSIP_BLOCK
+
+
+def mesh_rows(cfg: DFLConfig) -> Optional[Tuple[int, int, Any]]:
+    """``(lo, hi, group)`` of the federation rows ``[lo, hi)`` this process
+    holds under a mesh-bound injected backend (the multi-process wire),
+    else ``None``."""
+    backend = cfg.consensus_backend
+    if backend is None or not getattr(backend, "mesh_bound", False):
+        return None
+    inner = getattr(backend, "inner", backend)
+    lo, hi = inner.rows
+    return lo, hi, inner.group
+
+
+def _disagreement_over(server_tree: Any, group, m: int) -> torch.Tensor:
+    """``disagreement_norm`` of the federation from one rank's rows: the
+    squared norms and the row sums all-reduced over ``group``."""
+    total = None
+    for leaf in tree_leaves(server_tree):
+        s_sq = torch.sum(torch.square(leaf), dtype=torch.float32).reshape(1)
+        col = leaf.sum(dim=0, dtype=torch.float32)
+        cns.all_reduce_(s_sq, group, site="metrics")
+        cns.all_reduce_(col, group, site="metrics")
+        term = s_sq[0] - m * torch.sum(torch.square(col / m))
+        total = term if total is None else total + term
+    return torch.sqrt(torch.clamp(total, min=0.0))
 
 
 def _compresses(cfg: DFLConfig) -> bool:
@@ -450,7 +510,12 @@ def build_dfl_epoch_step(
     ``state``'s buffers in place (see the module docstring)."""
     topo = cfg.topology
     m, n = topo.num_servers, topo.clients_per_server
-    grid = (m, n)
+    # the rows this process holds: all M, or a rank's own under the
+    # multi-process wire (the consensus period then crosses the group)
+    local = mesh_rows(cfg)
+    lo, hi, group = (0, m, None) if local is None else local
+    rows = hi - lo
+    grid = (rows, n)
     if cfg.mixing not in ("symmetric", "row_stochastic", "push_sum"):
         raise ValueError(f"unknown mixing interpretation {cfg.mixing!r}")
     if cfg.mixing == "symmetric" and topo.mixing == "out_degree" and m > 1:
@@ -500,6 +565,11 @@ def build_dfl_epoch_step(
     # the robust screen's readout is a fact of the config (a robust backend
     # and full metrics)
     screen_stats = (backend is not None and backend.robust and full)
+    if local is not None and any(a.kind == "inlier_shift"
+                                 for a in byz_attacks):
+        raise ValueError("inlier_shift reads every honest server's value, "
+                         "which a rank of the multi-process wire does not "
+                         "hold; use sign_flip or scaled_noise there")
     n_micro = max(cfg.grad_microbatches, 1)
     push_sum = cfg.mixing == "push_sum"
 
@@ -543,13 +613,14 @@ def build_dfl_epoch_step(
         t_c = tree_leaves(batches)[0].shape[0]
         device = tree_leaves(params)[0].device
         # kept on the device: no host sync inside the client loop
-        losses = torch.zeros((t_c, m, n), dtype=torch.float32, device=device)
+        losses = torch.zeros((t_c, rows, n), dtype=torch.float32,
+                             device=device)
         gnorm = torch.zeros((), dtype=torch.float32, device=device)
         for t in range(t_c):
             batch_t = tree_map(lambda x: x[t], batches)
             sq = None
             new_shared = opt_state
-            for i in range(m):
+            for i in range(rows):
                 for j in range(n):
                     p_ij = _client_slice(params, i, j, grid)
                     loss, grads = client_grad(
@@ -571,7 +642,17 @@ def build_dfl_epoch_step(
             # the same value, so the last client's are everyone's
             opt_state = new_shared
             if full:
+                if group is not None:
+                    sq = cns.all_reduce_(sq.reshape(1).clone(), group,
+                                         site="metrics")[0]
                 gnorm = torch.sqrt(sq / (m * n))
+        if group is not None:
+            # the federation's (T_C, M, N) losses: every other rank adds
+            # zeros to this rank's rows, so each loss arrives exactly
+            every = torch.zeros((t_c, m, n), dtype=torch.float32,
+                                device=device)
+            every[:, lo:hi] = losses
+            losses = cns.all_reduce_(every, group, site="metrics")
         return params, opt_state, losses, gnorm
 
     def run_epoch(state: DFLState, batches: Any, mask=None, a_p=None,
@@ -580,6 +661,13 @@ def build_dfl_epoch_step(
         the static matrix); ``byz`` the epoch's attack codes.  Metrics stay
         on the device."""
         device = tree_leaves(state.client_params)[0].device
+        if group is not None:
+            # this rank's rows of the federation's draw and schedule
+            batches = tree_map(lambda x: x[:, lo:hi], batches)
+            if mask is not None:
+                mask = mask[lo:hi]
+            if byz is not None:
+                byz = byz[lo:hi]
         # Lemma 3 LHS needs each client's start-of-epoch server model w^i_p
         # (== the broadcast client params at entry), which the in-place
         # local period overwrites: keep a copy
@@ -610,6 +698,9 @@ def build_dfl_epoch_step(
             if full:
                 drift = max_client_drift(params, start_server)
                 del start_server
+                if group is not None:
+                    drift = cns.all_reduce_(drift.reshape(1).clone(), group,
+                                            "max", site="metrics")[0]
             else:
                 drift = torch.zeros((), dtype=torch.float32, device=device)
 
@@ -632,7 +723,8 @@ def build_dfl_epoch_step(
                 bkey = None
                 if key is not None:
                     key, bkey = prng.split(key)
-                server = apply_byzantine(server, byz, bkey, byz_attacks)
+                server = apply_byzantine(server, byz, bkey, byz_attacks,
+                                         row0=lo)
 
             # ---- 3. consensus period: T_S gossip rounds (Eq. 5/7) ----
             screen = (torch.zeros((m,), dtype=torch.float32, device=device)
@@ -649,13 +741,17 @@ def build_dfl_epoch_step(
                 # a fresh ratio consensus each period: numerator = this
                 # epoch's aggregates, weight 1 (the carried weight is a
                 # diagnostic, never a seed)
-                ps = cns.init_push_sum(server)
+                # (the weight is the federation's (M,), on every rank)
+                ps = cns.PushSumState(server, torch.ones(
+                    (m,), dtype=torch.float32, device=device))
                 if compressed:
                     ps, ef_res = backend.mix_push_sum_compressed(
                         ps, a_p, residual=ef_res, key=ckey)
                 else:
                     ps = backend.mix_push_sum(ps, a_p)
-                server, psw = ps.ratio(), ps.weight
+                server = cns.PushSumState(ps.values,
+                                          ps.weight[lo:hi]).ratio()
+                psw = ps.weight
                 del ps
             elif compressed:
                 server, ef_res = backend.mix_compressed(
@@ -666,9 +762,13 @@ def build_dfl_epoch_step(
                                                        lam2=lam2)
                 else:
                     server = backend.mix(server, a_p, lam2=lam2)
-            disagreement = (disagreement_norm(server) if full
-                            else torch.zeros((), dtype=torch.float32,
-                                             device=device))
+            if not full:
+                disagreement = torch.zeros((), dtype=torch.float32,
+                                           device=device)
+            elif group is not None:
+                disagreement = _disagreement_over(server, group, m)
+            else:
+                disagreement = disagreement_norm(server)
 
             # ---- 4. broadcast w^i_p back to C_i (every client) ----
             _broadcast_into(params, server)
@@ -696,9 +796,10 @@ def build_dfl_epoch_step(
         if byz_attacks and sched.byz is None:
             raise ValueError("DFLConfig.byzantine needs the epoch's attack "
                              "codes in EpochSchedule.byz")
-        if tuple(sched.mask.shape) != grid:
+        if tuple(sched.mask.shape) != (m, n):
             raise ValueError(f"participation mask of shape "
-                             f"{tuple(sched.mask.shape)} for an {grid} grid")
+                             f"{tuple(sched.mask.shape)} for an {(m, n)} "
+                             f"grid")
         return run_epoch(state, batches, sched.mask, sched.mixing,
                          sched.lam2, sched.byz if byz_attacks else None)
 
@@ -721,9 +822,11 @@ def build_consensus_replay(cfg: DFLConfig) -> Optional[Callable]:
     backends update their own period buffers in place, so the caller hands
     the replay a server tree it may consume (the engine passes a copy).
     Returns ``None`` when there is no consensus period to time (M == 1,
-    T_S == 0, or consensus_mode='none')."""
+    T_S == 0, or consensus_mode='none'), and under the multi-process wire,
+    whose period is a collective that every rank would have to enter."""
     topo = cfg.topology
-    if topo.num_servers == 1 or topo.t_server == 0:
+    if topo.num_servers == 1 or topo.t_server == 0 \
+            or mesh_rows(cfg) is not None:
         return None
     backend = resolve_backend(cfg)
     if backend is None:
@@ -761,9 +864,13 @@ def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
     ``prng.key(seed)`` where the reference passes ``jax.random.key(seed)``)
     is required, and error feedback adds a zero residual (leaves
     ``(M, *w)``).  Under ``mixing='push_sum'`` the state carries a unit
-    per-server weight."""
+    per-server weight.  Under the multi-process wire (``mesh_rows``) the
+    client grid, the optimizer state and the residual hold this rank's rows
+    only; the push-sum weight stays the federation's ``(M,)``."""
     topo = cfg.topology
-    client_params = replicate_to_clients(params, topo.num_servers,
+    local = mesh_rows(cfg)
+    rows = topo.num_servers if local is None else local[1] - local[0]
+    client_params = replicate_to_clients(params, rows,
                                          topo.clients_per_server)
     ef = None
     if _compresses(cfg):
@@ -772,7 +879,7 @@ def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
                              "wire_key: pass wire_key=prng.key(seed)")
         if wants_error_feedback(cfg):
             ef = tree_map(lambda p: torch.zeros(
-                (topo.num_servers,) + tuple(p.shape), dtype=p.dtype,
+                (rows,) + tuple(p.shape), dtype=p.dtype,
                 device=p.device), params)
     psw = (torch.ones((topo.num_servers,), dtype=torch.float32,
                       device=tree_leaves(client_params)[0].device)

@@ -47,6 +47,16 @@ step (through the injectable ``_sync``, never called without a tracer)
 and times the consensus period alone (``dfl.build_consensus_replay``) on
 a copy of the post-step server tree to split the step's wall time.  The
 bundle never changes a number of the run.
+
+The multi-process wire (a mesh-bound ``DFLConfig.consensus_backend``, one
+process a server): every rank runs its own engine on the same host-side
+schedules (numpy, drawn alike on every rank) and its step reads its rows
+of them; the records, the wire ledger (the federation's bytes, as in one
+process) and the history are the same on every rank.  Fault schedules are
+refused: the group cannot change size with M.  The consensus-replay probe
+would be a collective that only a traced rank enters, so there is none: a
+traced epoch keeps its ``epoch`` span unsplit.  The trainers give rank 0
+alone the console, the files and the tracer.
 """
 from __future__ import annotations
 
@@ -150,6 +160,14 @@ class DynamicFederationEngine:
         # server
         if self.cfg.byzantine is not None:
             self.cfg.byzantine.validate(self.topo.num_servers)
+        backend = self.cfg.consensus_backend
+        self._mesh_bound = bool(getattr(backend, "mesh_bound", False))
+        if self.faults.events and self._mesh_bound:
+            raise ValueError(
+                "a mesh-bound consensus backend (shard_map) cannot survive "
+                "fault surgery: the server axis is a physical mesh axis and "
+                "cannot change size with M — use consensus_mode="
+                "'gossip_blocked' for fault scenarios")
         # original server ids still alive, in row order of the state
         self.alive: List[int] = list(range(self.topo.num_servers))
         self._initial_m: int = self.topo.num_servers
@@ -366,6 +384,8 @@ class DynamicFederationEngine:
         the post-step server tree, warmed once per M untimed; its wall time
         estimates the gossip share of the step)."""
         tracer = self.obs.tracer
+        if self._mesh_bound:
+            return              # no probe: the epoch span stays unsplit
         probe = self._consensus_probe(m)
         if probe is None:
             tracer.add_span("local-period", t0, t1, parent=epoch_span,

@@ -31,9 +31,16 @@
 //     enough loads in flight without launching millions of blocks.
 //   * Leading dimensions (row strides) are arguments, so a column block of
 //     a larger (M, D) buffer is mixed in place of a copy.
+//   * Row form (consensus_mix_rows_*): A is (M_out, M), the rows of the
+//     mixing matrix one process owns, and the output (M_out, D).  A rank of
+//     the multi-process wire gathers all M rows of a block and keeps its
+//     own row of the product.  Each output element is the same left-to-
+//     right fmaf chain over j as in the square call, so the row form's row
+//     r is bitwise row r of the square call; the square entry points are
+//     the row form with M_out = M.
 //
-// C interface, bound with ctypes: consensus_mix_f32 and consensus_mix_bf16
-// return the launch's cudaGetLastError() (0 on success).
+// C interface, bound with ctypes: consensus_mix_f32, consensus_mix_bf16 and
+// their row forms return the launch's cudaGetLastError() (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,7 +102,8 @@ struct Vec<__nv_bfloat16, 8> {
 
 // Mix VEC consecutive columns starting at col.
 template <typename T, int MT, int VEC>
-__device__ __forceinline__ void mix_columns(const float* sa, int m, const T* __restrict__ src,
+__device__ __forceinline__ void mix_columns(const float* sa, int m, int m_out,
+                                            const T* __restrict__ src,
                                             long long ld_src, T* __restrict__ dst,
                                             long long ld_dst, long long col) {
   float v[MT][VEC];
@@ -110,7 +118,7 @@ __device__ __forceinline__ void mix_columns(const float* sa, int m, const T* __r
   }
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
-    if (i < m) {
+    if (i < m_out) {
       float acc[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
@@ -129,35 +137,35 @@ __device__ __forceinline__ void mix_columns(const float* sa, int m, const T* __r
 
 template <typename T, int MT, int VEC>
 __global__ void __launch_bounds__(kThreads)
-    consensus_mix_kernel(const float* __restrict__ a, int m, const T* __restrict__ src,
-                         long long ld_src, T* __restrict__ dst, long long ld_dst,
-                         long long d) {
+    consensus_mix_kernel(const float* __restrict__ a, int m, int m_out,
+                         const T* __restrict__ src, long long ld_src, T* __restrict__ dst,
+                         long long ld_dst, long long d) {
   __shared__ float sa[MT * MT];
   for (int k = threadIdx.x; k < MT * MT; k += blockDim.x) {
     const int i = k / MT, j = k % MT;
-    sa[k] = (i < m && j < m) ? a[i * m + j] : 0.f;
+    sa[k] = (i < m_out && j < m) ? a[i * m + j] : 0.f;
   }
   __syncthreads();
 
   const long long groups = d / VEC;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x; g < groups; g += stride) {
-    mix_columns<T, MT, VEC>(sa, m, src, ld_src, dst, ld_dst, g * VEC);
+    mix_columns<T, MT, VEC>(sa, m, m_out, src, ld_src, dst, ld_dst, g * VEC);
   }
   if (VEC > 1 && blockIdx.x == 0) {
     const long long col = groups * VEC + threadIdx.x;
-    if (col < d) mix_columns<T, MT, 1>(sa, m, src, ld_src, dst, ld_dst, col);
+    if (col < d) mix_columns<T, MT, 1>(sa, m, m_out, src, ld_src, dst, ld_dst, col);
   }
 }
 
 template <typename T, int MT, int VEC>
-void launch(const float* a, int m, const T* src, long long ld_src, T* dst, long long ld_dst,
-            long long d, cudaStream_t stream) {
+void launch(const float* a, int m, int m_out, const T* src, long long ld_src, T* dst,
+            long long ld_dst, long long d, cudaStream_t stream) {
   const long long work = (d / VEC > 0) ? d / VEC : 1;
   long long blocks = (work + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  consensus_mix_kernel<T, MT, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(a, m, src, ld_src,
-                                                                             dst, ld_dst, d);
+  consensus_mix_kernel<T, MT, VEC><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      a, m, m_out, src, ld_src, dst, ld_dst, d);
 }
 
 // Columns a vector load takes: 16 bytes (4 f32 or 8 bf16) while MT * VEC
@@ -166,20 +174,21 @@ template <typename T>
 constexpr int kVec = 16 / (int)sizeof(T);
 
 template <typename T, int MT>
-void launch_mt(bool vec, const float* a, int m, const T* src, long long ld_src, T* dst,
-               long long ld_dst, long long d, cudaStream_t stream) {
+void launch_mt(bool vec, const float* a, int m, int m_out, const T* src, long long ld_src,
+               T* dst, long long ld_dst, long long d, cudaStream_t stream) {
   constexpr bool kWide = MT * kVec<T> <= 64;
   if (kWide && vec) {
-    launch<T, MT, (kWide ? kVec<T> : 1)>(a, m, src, ld_src, dst, ld_dst, d, stream);
+    launch<T, MT, (kWide ? kVec<T> : 1)>(a, m, m_out, src, ld_src, dst, ld_dst, d, stream);
   } else {
-    launch<T, MT, 1>(a, m, src, ld_src, dst, ld_dst, d, stream);
+    launch<T, MT, 1>(a, m, m_out, src, ld_src, dst, ld_dst, d, stream);
   }
 }
 
 template <typename T>
-int mix(const void* a, int m, const void* src, long long ld_src, void* dst, long long ld_dst,
-        long long d, void* stream) {
-  if (m < 1 || m > 64 || d < 0 || ld_src < d || ld_dst < d) return (int)cudaErrorInvalidValue;
+int mix(const void* a, int m, int m_out, const void* src, long long ld_src, void* dst,
+        long long ld_dst, long long d, void* stream) {
+  if (m < 1 || m > 64 || m_out < 1 || m_out > m || d < 0 || ld_src < d || ld_dst < d)
+    return (int)cudaErrorInvalidValue;
   if (d == 0) return 0;
   const float* pa = static_cast<const float*>(a);
   const T* ps = static_cast<const T*>(src);
@@ -189,13 +198,13 @@ int mix(const void* a, int m, const void* src, long long ld_src, void* dst, long
   const bool vec = (reinterpret_cast<uintptr_t>(ps) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(pd) % 16 == 0) && (ld_src % kV == 0) &&
                    (ld_dst % kV == 0);
-  if (m <= 1) launch_mt<T, 1>(vec, pa, m, ps, ld_src, pd, ld_dst, d, s);
-  else if (m <= 2) launch_mt<T, 2>(vec, pa, m, ps, ld_src, pd, ld_dst, d, s);
-  else if (m <= 4) launch_mt<T, 4>(vec, pa, m, ps, ld_src, pd, ld_dst, d, s);
-  else if (m <= 8) launch_mt<T, 8>(vec, pa, m, ps, ld_src, pd, ld_dst, d, s);
-  else if (m <= 16) launch_mt<T, 16>(vec, pa, m, ps, ld_src, pd, ld_dst, d, s);
-  else if (m <= 32) launch_mt<T, 32>(vec, pa, m, ps, ld_src, pd, ld_dst, d, s);
-  else launch_mt<T, 64>(vec, pa, m, ps, ld_src, pd, ld_dst, d, s);
+  if (m <= 1) launch_mt<T, 1>(vec, pa, m, m_out, ps, ld_src, pd, ld_dst, d, s);
+  else if (m <= 2) launch_mt<T, 2>(vec, pa, m, m_out, ps, ld_src, pd, ld_dst, d, s);
+  else if (m <= 4) launch_mt<T, 4>(vec, pa, m, m_out, ps, ld_src, pd, ld_dst, d, s);
+  else if (m <= 8) launch_mt<T, 8>(vec, pa, m, m_out, ps, ld_src, pd, ld_dst, d, s);
+  else if (m <= 16) launch_mt<T, 16>(vec, pa, m, m_out, ps, ld_src, pd, ld_dst, d, s);
+  else if (m <= 32) launch_mt<T, 32>(vec, pa, m, m_out, ps, ld_src, pd, ld_dst, d, s);
+  else launch_mt<T, 64>(vec, pa, m, m_out, ps, ld_src, pd, ld_dst, d, s);
   return (int)cudaGetLastError();
 }
 
@@ -203,11 +212,24 @@ int mix(const void* a, int m, const void* src, long long ld_src, void* dst, long
 
 extern "C" int consensus_mix_f32(const void* a, int m, const void* src, long long ld_src, void* dst,
                                  long long ld_dst, long long d, void* stream) {
-  return mix<float>(a, m, src, ld_src, dst, ld_dst, d, stream);
+  return mix<float>(a, m, m, src, ld_src, dst, ld_dst, d, stream);
 }
 
 // W and the output in bf16, A in f32; leading dimensions in elements.
 extern "C" int consensus_mix_bf16(const void* a, int m, const void* src, long long ld_src,
                                   void* dst, long long ld_dst, long long d, void* stream) {
-  return mix<__nv_bfloat16>(a, m, src, ld_src, dst, ld_dst, d, stream);
+  return mix<__nv_bfloat16>(a, m, m, src, ld_src, dst, ld_dst, d, stream);
+}
+
+// Row forms: A (m_out, m) row-major, W (m, d), the output (m_out, d).
+extern "C" int consensus_mix_rows_f32(const void* a, int m_out, int m, const void* src,
+                                      long long ld_src, void* dst, long long ld_dst, long long d,
+                                      void* stream) {
+  return mix<float>(a, m, m_out, src, ld_src, dst, ld_dst, d, stream);
+}
+
+extern "C" int consensus_mix_rows_bf16(const void* a, int m_out, int m, const void* src,
+                                       long long ld_src, void* dst, long long ld_dst, long long d,
+                                       void* stream) {
+  return mix<__nv_bfloat16>(a, m, m_out, src, ld_src, dst, ld_dst, d, stream);
 }

@@ -50,6 +50,18 @@
 //     is no --use_fast_math.  The plain versions in ../ref.py spell out the
 //     same operations.
 //   * 64-bit offsets: M * D reaches 1.46e9 elements at full size.
+//   * Row forms of kernels 7 and 8 (wire_bucketed_round_rows_f32,
+//     wire_pipelined_round_rows_f32), for a rank of the multi-process wire
+//     that gathers all M rows of codes and scales but owns M_out of them,
+//     starting at row0: A is (M_out, M), the gathered codes and scales are
+//     a read-only (M, .) input, ref / acc / w / u have M_out rows, and the
+//     next codes and scales go to separate (M_out, .) buffers (the gathered
+//     buffer is the receive buffer; it cannot be overwritten).  Each element
+//     runs the same operations in the same order as in the square call, so
+//     row r of a row form is bitwise row r of the square call; the square
+//     entry points are the row forms with M_out = M, row0 = 0 and the code
+//     and scale outputs equal to the inputs.  The code and scale pointers
+//     may therefore alias and carry no __restrict__.
 //
 // C interface, bound with ctypes: each function returns the launch's
 // cudaGetLastError() (0 on success).  Tensors are contiguous, row-major
@@ -66,7 +78,9 @@ constexpr int kMaxSlots = 2048;    // M * chunks-per-slab (shared memory)
 constexpr int kMaxM = 64;
 
 struct Geom {
-  int m;
+  int m;             // rows of the gathered codes and scales (and of A's rows)
+  int m_out;         // rows of the state buffers and of the output codes
+  int row0;          // the first own row among the m (the row-form offset)
   int chunk;
   long long d;       // columns of a row
   long long nc;      // chunks of a row
@@ -93,8 +107,8 @@ __device__ __forceinline__ Slab slab_of(const Geom& g) {
   return s;
 }
 
-// Shared memory: A (M x M), then per (row, local chunk) the absmax bits, the
-// scale and its reciprocal.
+// Shared memory: A (M_out x M), then per (own row, local chunk) the absmax
+// bits, the scale and its reciprocal.
 struct Smem {
   float* a;
   unsigned int* absmax;
@@ -105,18 +119,18 @@ struct Smem {
 __device__ __forceinline__ Smem smem_layout(float* base, const Geom& g) {
   Smem s;
   s.a = base;
-  s.absmax = reinterpret_cast<unsigned int*>(base + g.m * g.m);
-  s.scale = base + g.m * g.m + g.m * g.cpb;
-  s.inv = base + g.m * g.m + 2 * g.m * g.cpb;
+  s.absmax = reinterpret_cast<unsigned int*>(base + g.m_out * g.m);
+  s.scale = base + g.m_out * g.m + g.m_out * g.cpb;
+  s.inv = base + g.m_out * g.m + 2 * g.m_out * g.cpb;
   return s;
 }
 
 __device__ __forceinline__ void stage(const Smem& sm, const float* a, const Geom& g,
                                       const Slab& sl) {
   if (a != nullptr) {
-    for (int k = threadIdx.x; k < g.m * g.m; k += blockDim.x) sm.a[k] = a[k];
+    for (int k = threadIdx.x; k < g.m_out * g.m; k += blockDim.x) sm.a[k] = a[k];
   }
-  for (int k = threadIdx.x; k < g.m * g.cpb; k += blockDim.x) sm.absmax[k] = 0u;
+  for (int k = threadIdx.x; k < g.m_out * g.cpb; k += blockDim.x) sm.absmax[k] = 0u;
   __syncthreads();
 }
 
@@ -137,9 +151,9 @@ __device__ __forceinline__ void fold_absmax(const Smem& sm, const Geom& g, int r
 // Scales and reciprocals of the slab's (row, chunk) cells; the scales are
 // also stored to `scales` when it is given.
 __device__ __forceinline__ void finish_scales(const Smem& sm, const Geom& g, const Slab& sl,
-                                              float* __restrict__ scales) {
+                                              float* scales) {
   __syncthreads();
-  for (int k = threadIdx.x; k < g.m * sl.nch; k += blockDim.x) {
+  for (int k = threadIdx.x; k < g.m_out * sl.nch; k += blockDim.x) {
     const int row = k / sl.nch, lc = k % sl.nch;
     const int slot = row * g.cpb + lc;
     const float am = __uint_as_float(sm.absmax[slot]);
@@ -188,15 +202,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// kernel 7: r' = r + q s; acc' = acc + sum_j (a_ij s_j) q_j; C(acc' - r'; u)
-// in place on codes, scales, ref and acc.
+// kernel 7: r' = r + q s; acc' = acc + sum_j (a_ij s_j) q_j; C(acc' - r'; u).
+// The square call is in place on codes, scales, ref and acc; the row form
+// reads the gathered (codes_in, scales_in) and writes (codes_out,
+// scales_out).
 // ---------------------------------------------------------------------------
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
-    bucketed_kernel(const float* __restrict__ a, signed char* __restrict__ codes,
-                    float* __restrict__ scales, float* __restrict__ ref,
-                    float* __restrict__ acc, const float* __restrict__ u, Geom g) {
+    bucketed_kernel(const float* __restrict__ a, const signed char* codes_in,
+                    const float* scales_in, float* __restrict__ ref, float* __restrict__ acc,
+                    const float* __restrict__ u, signed char* codes_out, float* scales_out,
+                    Geom g) {
   extern __shared__ float smem_raw[];
   const Slab sl = slab_of(g);
   const Smem sm = smem_layout(smem_raw, g);
@@ -208,15 +225,28 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       if (j < g.m) {
-        q[j] = (float)codes[(long long)j * g.d + col];
-        s[j] = scales[(long long)j * g.nc + sl.chunk0 + lc];
+        q[j] = (float)codes_in[(long long)j * g.d + col];
+        s[j] = scales_in[(long long)j * g.nc + sl.chunk0 + lc];
       }
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      if (i < g.m) {
+      if (i < g.m_out) {
+        // the own row's code and scale: row i itself in the square call
+        // (an unrolled index, kept in registers); in a row form, read again
+        // (an L1 hit) rather than picked out of the register arrays by a
+        // run-time index.  The branch is uniform across the grid.
+        float qo, so;
+        if (g.m_out == g.m) {
+          qo = q[i];
+          so = s[i];
+        } else {
+          const int gi = g.row0 + i;
+          qo = (float)codes_in[(long long)gi * g.d + col];
+          so = scales_in[(long long)gi * g.nc + sl.chunk0 + lc];
+        }
         const long long at = (long long)i * g.d + col;
-        const float r2 = __fmaf_rn(q[i], s[i], ref[at]);
+        const float r2 = __fmaf_rn(qo, so, ref[at]);
         float acc2 = acc[at];
 #pragma unroll
         for (int j = 0; j < MT; ++j) {
@@ -228,35 +258,37 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  finish_scales(sm, g, sl, scales);  // every old scale was read in pass 1
+  finish_scales(sm, g, sl, scales_out);  // every old scale was read in pass 1
   for (int c = threadIdx.x; c < sl.ncols; c += blockDim.x) {
     const long long col = sl.col0 + c;
     const int lc = c / g.chunk;
-    for (int i = 0; i < g.m; ++i) {
+    for (int i = 0; i < g.m_out; ++i) {
       const long long at = (long long)i * g.d + col;
-      codes[at] = quantize(__fsub_rn(acc[at], ref[at]), sm.inv[i * g.cpb + lc], u[at], g.qmax);
+      codes_out[at] = quantize(__fsub_rn(acc[at], ref[at]), sm.inv[i * g.cpb + lc], u[at], g.qmax);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
 // kernel 8: q', s' = C(w - r; u); r' = r + q' s'; acc' = acc + sum_j
-// (a_ij s_j) q_j over the delayed (q, s); q', s' replace (q, s) in place.
-// acc may alias w.
+// (a_ij s_j) q_j over the delayed (q, s).  The square call writes q', s'
+// over (q, s) in place; the row form reads the gathered delayed (codes_in,
+// scales_in) and writes (codes_out, scales_out).  acc may alias w.
 // ---------------------------------------------------------------------------
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
-    pipelined_kernel(const float* __restrict__ a, signed char* __restrict__ codes,
-                     float* __restrict__ scales, const float* w, float* __restrict__ ref,
-                     float* acc, const float* __restrict__ u, Geom g) {
+    pipelined_kernel(const float* __restrict__ a, const signed char* codes_in,
+                     const float* scales_in, const float* w, float* __restrict__ ref, float* acc,
+                     const float* __restrict__ u, signed char* codes_out, float* scales_out,
+                     Geom g) {
   extern __shared__ float smem_raw[];
   const Slab sl = slab_of(g);
   const Smem sm = smem_layout(smem_raw, g);
   stage(sm, a, g, sl);
   for (int c = threadIdx.x; c < sl.ncols; c += blockDim.x) {
     const long long col = sl.col0 + c;
-    for (int i = 0; i < g.m; ++i) {
+    for (int i = 0; i < g.m_out; ++i) {
       const long long at = (long long)i * g.d + col;
       fold_absmax(sm, g, i, c / g.chunk, __fsub_rn(w[at], ref[at]));
     }
@@ -269,9 +301,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       if (j < g.m) {
+        // the delayed codes and scales through the read-only data cache:
+        // this thread reads a column's codes before it writes them, and the
+        // block writes its scales after the last __syncthreads, so no
+        // cached line goes stale (on one H100 at M = 4, D = 364,904,448 the
+        // square call takes 19.1-20.3 ms this way, 22.7 with plain loads)
+        q[j] = (float)__ldg(&codes_in[(long long)j * g.d + col]);
+        s[j] = __ldg(&scales_in[(long long)j * g.nc + sl.chunk0 + lc]);
+      }
+      if (j < g.m_out) {
         const long long at = (long long)j * g.d + col;
-        q[j] = (float)codes[at];
-        s[j] = scales[(long long)j * g.nc + sl.chunk0 + lc];
         wv[j] = w[at];
         rv[j] = ref[at];
         av[j] = acc[at];
@@ -279,7 +318,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      if (i < g.m) {
+      if (i < g.m_out) {
         const long long at = (long long)i * g.d + col;
         const int slot = i * g.cpb + lc;
         const signed char qi = quantize(__fsub_rn(wv[i], rv[i]), sm.inv[slot], u[at], g.qmax);
@@ -290,14 +329,14 @@ __global__ void __launch_bounds__(kThreads)
         }
         ref[at] = __fmaf_rn((float)qi, sm.scale[slot], rv[i]);
         acc[at] = acc2;
-        codes[at] = qi;
+        codes_out[at] = qi;
       }
     }
   }
   __syncthreads();  // no thread reads an old scale past this point
-  for (int k = threadIdx.x; k < g.m * sl.nch; k += blockDim.x) {
+  for (int k = threadIdx.x; k < g.m_out * sl.nch; k += blockDim.x) {
     const int row = k / sl.nch, lc = k % sl.nch;
-    scales[(long long)row * g.nc + sl.chunk0 + lc] = sm.scale[row * g.cpb + lc];
+    scales_out[(long long)row * g.nc + sl.chunk0 + lc] = sm.scale[row * g.cpb + lc];
   }
 }
 
@@ -363,10 +402,15 @@ __global__ void __launch_bounds__(kThreads)
 // host side
 // ---------------------------------------------------------------------------
 
-bool make_geom(int m, long long d, int chunk, int bits, Geom* g) {
+bool make_geom(int m, long long d, int chunk, int bits, Geom* g, int m_out = -1,
+               int row0 = 0) {
+  if (m_out < 0) m_out = m;
   if (m < 1 || m > kMaxM || d < 0 || chunk < 1 || d % chunk != 0) return false;
+  if (m_out < 1 || m_out > m || row0 < 0 || row0 + m_out > m) return false;
   if (bits != 8 && bits != 4) return false;
   g->m = m;
+  g->m_out = m_out;
+  g->row0 = row0;
   g->chunk = chunk;
   g->d = d;
   g->nc = d / chunk;
@@ -383,7 +427,7 @@ bool make_geom(int m, long long d, int chunk, int bits, Geom* g) {
 }
 
 size_t smem_bytes(const Geom& g) {
-  return sizeof(float) * ((size_t)g.m * g.m + 3 * (size_t)g.m * g.cpb);
+  return sizeof(float) * ((size_t)g.m_out * g.m + 3 * (size_t)g.m_out * g.cpb);
 }
 
 unsigned grid_of(const Geom& g) { return (unsigned)((g.nc + g.cpb - 1) / g.cpb); }
@@ -416,32 +460,59 @@ extern "C" int wire_encode_f32(const void* w, const void* r, const void* u, void
   return (int)cudaGetLastError();
 }
 
-extern "C" int wire_bucketed_round_f32(const void* a, void* codes, void* scales, void* ref,
-                                       void* acc, const void* u, int m, long long d, int chunk,
-                                       int bits, void* stream) {
+// Row form of kernel 7: a (m_out, m); codes_in (m, d) int8 and scales_in
+// (m, d / chunk) read only; ref, acc, u (m_out, d); codes_out (m_out, d) and
+// scales_out (m_out, d / chunk) written; row0 the first own row.
+extern "C" int wire_bucketed_round_rows_f32(const void* a, const void* codes_in,
+                                            const void* scales_in, void* ref, void* acc,
+                                            const void* u, void* codes_out, void* scales_out,
+                                            int m_out, int row0, int m, long long d, int chunk,
+                                            int bits, void* stream) {
   Geom g;
-  if (!make_geom(m, d, chunk, bits, &g)) return (int)cudaErrorInvalidValue;
+  if (!make_geom(m, d, chunk, bits, &g, m_out, row0)) return (int)cudaErrorInvalidValue;
   if (d == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WIRE_DISPATCH_MT(bucketed_kernel, g, s, static_cast<const float*>(a),
-                   static_cast<signed char*>(codes), static_cast<float*>(scales),
+                   static_cast<const signed char*>(codes_in),
+                   static_cast<const float*>(scales_in), static_cast<float*>(ref),
+                   static_cast<float*>(acc), static_cast<const float*>(u),
+                   static_cast<signed char*>(codes_out), static_cast<float*>(scales_out));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wire_bucketed_round_f32(const void* a, void* codes, void* scales, void* ref,
+                                       void* acc, const void* u, int m, long long d, int chunk,
+                                       int bits, void* stream) {
+  return wire_bucketed_round_rows_f32(a, codes, scales, ref, acc, u, codes, scales, m, 0, m, d,
+                                      chunk, bits, stream);
+}
+
+// Row form of kernel 8: a (m_out, m); the delayed codes_in (m, d) and
+// scales_in (m, d / chunk) read only; w, ref, acc, u (m_out, d), acc may be
+// w; this round's codes_out (m_out, d) and scales_out (m_out, d / chunk).
+extern "C" int wire_pipelined_round_rows_f32(const void* a, const void* codes_in,
+                                             const void* scales_in, const void* w, void* ref,
+                                             void* acc, const void* u, void* codes_out,
+                                             void* scales_out, int m_out, int m, long long d,
+                                             int chunk, int bits, void* stream) {
+  Geom g;
+  if (!make_geom(m, d, chunk, bits, &g, m_out, 0)) return (int)cudaErrorInvalidValue;
+  if (d == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WIRE_DISPATCH_MT(pipelined_kernel, g, s, static_cast<const float*>(a),
+                   static_cast<const signed char*>(codes_in),
+                   static_cast<const float*>(scales_in), static_cast<const float*>(w),
                    static_cast<float*>(ref), static_cast<float*>(acc),
-                   static_cast<const float*>(u));
+                   static_cast<const float*>(u), static_cast<signed char*>(codes_out),
+                   static_cast<float*>(scales_out));
   return (int)cudaGetLastError();
 }
 
 extern "C" int wire_pipelined_round_f32(const void* a, void* codes, void* scales, const void* w,
                                         void* ref, void* acc, const void* u, int m, long long d,
                                         int chunk, int bits, void* stream) {
-  Geom g;
-  if (!make_geom(m, d, chunk, bits, &g)) return (int)cudaErrorInvalidValue;
-  if (d == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  WIRE_DISPATCH_MT(pipelined_kernel, g, s, static_cast<const float*>(a),
-                   static_cast<signed char*>(codes), static_cast<float*>(scales),
-                   static_cast<const float*>(w), static_cast<float*>(ref),
-                   static_cast<float*>(acc), static_cast<const float*>(u));
-  return (int)cudaGetLastError();
+  return wire_pipelined_round_rows_f32(a, codes, scales, w, ref, acc, u, codes, scales, m, m, d,
+                                       chunk, bits, stream);
 }
 
 extern "C" int wire_leaf_round_f32(const void* a, void* codes, void* scales, void* ref,

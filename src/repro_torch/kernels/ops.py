@@ -7,7 +7,9 @@ version.  Port of ``repro.kernels.ops.consensus_mix_pytree``,
 ``repro.kernels.ops.rmsnorm``, ``repro.kernels.ops.flash_attention`` and
 ``repro.kernels.ops.ssd_scan``, plus entry points for the simulated wire's
 kernel 4 and the physical wire's kernels (the reference's wire paths call
-jnp code; the port's call these on every period and round).
+jnp code; the port's call these on every period and round), and the row
+forms of kernels 1, 7 and 8 that a rank of the multi-process wire runs on
+its own rows of a gathered round.
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ def reset_launch_counts() -> None:
     _rn.bwd_launches = 0
     _ssd.launches = 0
     _cm.quant_mix_launches = 0
-    for name in _cm.wire_launches:
-        _cm.wire_launches[name] = 0
+    for counts in (_cm.wire_launches, _cm.row_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -40,7 +43,7 @@ def launch_counts() -> Dict[str, int]:
             "rmsnorm_fwd": _rn.fwd_launches, "rmsnorm_bwd": _rn.bwd_launches,
             "ssd_scan": _ssd.launches,
             "quantized_consensus_mix": _cm.quant_mix_launches,
-            **_cm.wire_launches}
+            **_cm.wire_launches, **_cm.row_launches}
 
 
 def flash_attention_mode_counts() -> Dict[str, int]:
@@ -67,6 +70,22 @@ def consensus_mix(a: torch.Tensor, w: torch.Tensor,
     if out is None:
         return res
     return out.copy_(res)
+
+
+def consensus_mix_rows(a: torch.Tensor, w: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 1's row form, ``A_rows @ W`` for A_rows (M_out, M) and W (M,
+    D) (f32 or bf16, an f32 sum, W's dtype out): what one rank of the
+    multi-process wire keeps of a gathered round.  The CUDA kernel on the
+    card (into ``out``, which must not overlap ``w``), the plain version on
+    the CPU."""
+    if w.is_cuda:
+        if out is None:
+            out = torch.empty((a.shape[0], w.shape[1]), dtype=w.dtype,
+                              device=w.device)
+        return _cm.consensus_mix_rows_cuda(_a32(a, w), w, out)
+    res = _ref.consensus_mix_ref(a, w)
+    return res if out is None else out.copy_(res)
 
 
 #: the leaf dtypes the consensus kernels take (kernel 1 has an instance of
@@ -209,6 +228,41 @@ def bucketed_gossip_round_pipelined(a, codes, scales, w, ref, acc, dither, *,
             _a32(a, codes), codes, scales, w, ref, acc, dither,
             bits=bits, chunk=chunk)
     return _store((acc, ref, codes, scales),
+                  _ref.bucketed_gossip_round_pipelined_ref(
+                      a, codes, scales, w, ref, acc, dither, bits=bits,
+                      chunk=chunk))
+
+
+def bucketed_gossip_round_rows(a, codes, scales, ref, acc, dither, codes_out,
+                               scales_out, *, row0: int, bits: int = 8,
+                               chunk: int = 256):
+    """Kernel 7's row form: A's own rows ``a`` (M_out, M), the gathered
+    ``codes``/``scales`` of all M rows (read only), the own ``ref``, ``acc``
+    (in place) and ``dither``; the next codes and scales into ``codes_out``
+    / ``scales_out`` -> ``(acc, ref, codes_out, scales_out)``."""
+    if codes.is_cuda:
+        return _cm.bucketed_gossip_round_rows_cuda(
+            _a32(a, codes), codes, scales, ref, acc, dither, codes_out,
+            scales_out, row0=row0, bits=bits, chunk=chunk)
+    return _store((acc, ref, codes_out, scales_out),
+                  _ref.bucketed_gossip_round_rows_ref(
+                      a, codes, scales, ref, acc, dither, row0=row0,
+                      bits=bits, chunk=chunk))
+
+
+def bucketed_gossip_round_pipelined_rows(a, codes, scales, w, ref, acc,
+                                         dither, codes_out, scales_out, *,
+                                         bits: int = 8, chunk: int = 256):
+    """Kernel 8's row form: the DELAYED gathered ``codes``/``scales`` of
+    all M rows (read only), A's own rows, the own ``w``, ``ref``, ``acc``
+    (``acc`` may be ``w``) and ``dither``; this round's codes and scales
+    into ``codes_out`` / ``scales_out`` -> ``(acc, ref, codes_out,
+    scales_out)``."""
+    if codes.is_cuda:
+        return _cm.bucketed_gossip_round_pipelined_rows_cuda(
+            _a32(a, codes), codes, scales, w, ref, acc, dither, codes_out,
+            scales_out, bits=bits, chunk=chunk)
+    return _store((acc, ref, codes_out, scales_out),
                   _ref.bucketed_gossip_round_pipelined_ref(
                       a, codes, scales, w, ref, acc, dither, bits=bits,
                       chunk=chunk))

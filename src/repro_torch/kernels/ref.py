@@ -353,10 +353,25 @@ def bucketed_gossip_round_ref(a: torch.Tensor, codes: torch.Tensor,
 
     The TPU kernel multiplies ``a[i,j] * (c s)[j]`` instead; the two agree
     when ``a`` is dyadic.  Returns ``(acc', ref', codes', scales')``."""
-    m = codes.shape[0]
+    return bucketed_gossip_round_rows_ref(a, codes, scales, ref, acc, dither,
+                                          row0=0, bits=bits, chunk=chunk)
+
+
+def bucketed_gossip_round_rows_ref(a: torch.Tensor, codes: torch.Tensor,
+                                   scales: torch.Tensor, ref: torch.Tensor,
+                                   acc: torch.Tensor, dither: torch.Tensor,
+                                   *, row0: int, bits: int = 8,
+                                   chunk: int = 256):
+    """Kernel 7's row form: the rows ``row0 .. row0 + M_out - 1`` of the
+    square round.  ``a`` is those rows of A, (M_out, M); ``codes`` and
+    ``scales`` are all M gathered rows; ``ref``, ``acc`` and ``dither``
+    have M_out rows.  Returns ``(acc', ref', codes', scales')`` of the own
+    rows, each element computed as in the square round."""
+    m, m_out = codes.shape[0], ref.shape[0]
     c3 = _chunked(codes.float(), chunk)
-    s3 = scales[..., None].expand_as(c3)
-    ref = fma(c3, s3, _chunked(ref, chunk)).reshape(ref.shape)
+    own = slice(row0, row0 + m_out)
+    s3 = scales[own][..., None].expand_as(c3[own])
+    ref = fma(c3[own], s3, _chunked(ref, chunk)).reshape(ref.shape)
     ws = a.float()[:, :, None] * scales[None]          # ws[i, j] = a_ij s_j
     acc3 = _chunked(acc, chunk)
     for j in range(m):
@@ -378,7 +393,9 @@ def bucketed_gossip_round_pipelined_ref(a: torch.Tensor, codes: torch.Tensor,
         ref'  = fma(codes', scales', ref)          (own decode, local codes)
         acc'  = fma(a[i,j] * s[j], c[j], acc')     over the DELAYED codes
 
-    Returns ``(acc', ref', codes', scales')``."""
+    Returns ``(acc', ref', codes', scales')``.  The row form is the same
+    function with ``a`` (M_out, M), the delayed ``codes`` and ``scales`` of
+    all M rows and the other operands of the M_out own rows."""
     m = codes.shape[0]
     new_c, new_s = wire_encode(w.float() - ref, dither, bits=bits,
                                chunk=chunk)

@@ -50,6 +50,21 @@ kept; under ``--superepoch K > 1`` at block boundaries) with the arch and
 epoch (and the alive servers' original ids in ``train_dynamic``).
 ``--log-every N`` prints every N-th epoch line (and epoch 0's).
 
+``--consensus-backend {auto,einsum,blocked,shard_map}`` picks the consensus
+execution (``resolve_consensus_backend``): ``shard_map`` is the multi-process
+wire, one process a server over a ``torch.distributed`` group, started as::
+
+    python -m torch.distributed.run --nproc-per-node 4 \
+        -m repro_torch.launch.train --consensus-backend shard_map \
+        --servers 4 --compression int8 --wire physical --epochs 1
+
+Each rank trains its own server's clients and crosses the group only
+through the gossip's collectives (gloo; a rank's CUDA tensors are staged
+through pinned host memory); ``--device cuda`` puts rank r on
+``cuda:{local_rank % device_count}``.  Rank 0 alone prints and writes the
+telemetry, the trace and the checkpoints (the client tree gathered to its
+host leaf by leaf).
+
 Telemetry (``repro_torch.obs``, the reference's stream formats): every
 epoch record goes through one ``Observability`` bundle — the console lines
 (``ConsoleSink``, the one print site; ``log=False`` drops it), the
@@ -63,11 +78,13 @@ seconds (the read-back included).
 from __future__ import annotations
 
 import argparse
+import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.comm import accounting, prng
@@ -76,18 +93,99 @@ from repro_torch.comm.compressors import (tree_message_elems,
 from repro_torch.configs import get_arch, get_smoke
 from repro_torch.core import (DFLConfig, FLTopology, SigmaTracker,
                               build_dfl_epoch_step, init_dfl_state)
-from repro_torch.core.dfl import active_compressor, active_wire
+from repro_torch.core import consensus as cns
+from repro_torch.core.dfl import active_compressor, active_wire, mesh_rows
 from repro_torch.core.engine import make_engine
 from repro_torch.core.schedule import (ByzantineSchedule, FaultSchedule,
                                        ParticipationSchedule,
                                        TopologySchedule,
                                        load_participation_trace)
 from repro_torch.data import DataConfig, FLDataPipeline
+from repro_torch.launch import sharding as shd
 from repro_torch.models import transformer as tf
 from repro_torch.obs import (ConsoleSink, JSONLSink, MetricsHub,
                              Observability, Tracer)
 from repro_torch.optim import sgd
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
+
+CONSENSUS_BACKENDS = ("auto", "einsum", "blocked", "shard_map")
+
+
+def resolve_consensus_backend(backend: str, consensus_mode: str,
+                              topo: FLTopology, params, *,
+                              compression: str = "none",
+                              error_feedback: bool = False,
+                              wire: str = "simulated",
+                              staleness: int = 0,
+                              ) -> Tuple[str, Optional[object]]:
+    """Map the ``--consensus-backend`` flag to the ``DFLConfig`` pair
+    ``(consensus_mode, consensus_backend)``.
+
+    ``auto`` keeps ``consensus_mode``; ``einsum`` forces the per-leaf path
+    ('gossip'); ``blocked`` the streamed 'gossip_blocked' path;
+    ``shard_map`` builds the multi-process wire's backend
+    (``launch.sharding.fl_consensus_backend``) over the initialized default
+    group, which must hold M ranks (``torch.distributed.run`` with
+    ``--nproc-per-node M``).  ``compression`` / ``error_feedback`` / ``wire``
+    / ``staleness`` matter only there (the wrap happens at construction);
+    the string paths are wrapped by the epoch step from ``DFLConfig``."""
+    if backend not in CONSENSUS_BACKENDS:
+        raise ValueError(f"unknown consensus backend {backend!r}; choose "
+                         f"one of {CONSENSUS_BACKENDS}")
+    if backend == "auto":
+        return consensus_mode, None
+    if consensus_mode not in ("gossip", "gossip_blocked"):
+        raise ValueError(
+            f"--consensus-backend {backend} re-executes the T_S-round "
+            f"gossip schedule and is undefined for consensus_mode="
+            f"{consensus_mode!r}; use --consensus-backend auto there")
+    if backend == "einsum":
+        return "gossip", None
+    if backend == "blocked":
+        return "gossip_blocked", None
+    m = topo.num_servers
+    world = (dist.get_world_size() if dist.is_available()
+             and dist.is_initialized() else 1)
+    if world != m:
+        raise ValueError(
+            f"the shard_map backend runs one process a server: M={m} "
+            f"servers need a torch.distributed group of {m} ranks, found "
+            f"{world}; launch with python -m torch.distributed.run "
+            f"--nproc-per-node {m} -m repro_torch.launch.train "
+            f"--consensus-backend shard_map --servers {m} ...")
+    server_abs = [torch.empty((m,) + tuple(p.shape), device="meta")
+                  for p in tree_leaves(params)]
+    return "gossip", shd.fl_consensus_backend(
+        topo, dist.group.WORLD, server_abs, compression=compression,
+        error_feedback=error_feedback, wire=wire, staleness=staleness)
+
+
+def _is_rank0(backend) -> bool:
+    """Whether this process prints and writes files: always, but under the
+    multi-process wire only rank 0."""
+    return not getattr(backend, "mesh_bound", False) or dist.get_rank() == 0
+
+
+def _rank_device(device: str, consensus_backend: str) -> str:
+    """Under ``shard_map``, ``cuda`` is the rank's own card,
+    ``cuda:{local_rank % device_count}`` (several ranks may share one)."""
+    if consensus_backend != "shard_map" or device != "cuda" \
+            or not torch.cuda.is_available():
+        return device
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()
+                               if dist.is_initialized() else 0))
+    return f"cuda:{local % torch.cuda.device_count()}"
+
+
+def _gathered_clients(cfg: DFLConfig, client_params):
+    """The federation's client tree on the host: this process's own, or
+    under the multi-process wire every rank's rows gathered leaf by leaf
+    through the group (host tensors; gloo)."""
+    local = mesh_rows(cfg)
+    if local is None:
+        return client_params
+    return tree_map(lambda x: cns.all_gather_rows(
+        x.detach().cpu(), local[2], site="checkpoint"), client_params)
 
 
 def resolve_device(device: str) -> torch.device:
@@ -162,23 +260,33 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
           log_every: int = 1,
           params: Optional[dict] = None, log: bool = True,
           telemetry_jsonl: Optional[str] = None,
-          chrome_trace: Optional[str] = None) -> dict:
+          chrome_trace: Optional[str] = None,
+          consensus_backend: str = "auto") -> dict:
     """Static Algorithm 1 on an LM.  ``params`` (optional) replaces the
     seeded random init, e.g. weights carried over by
     ``transformer.params_from_numpy``.  ``compression`` / ``error_feedback``
     / ``wire`` select the compressed wire, ``staleness`` the
     bounded-staleness rounds.  ``ckpt_dir`` saves the client parameters
     after every epoch.  ``telemetry_jsonl`` / ``chrome_trace`` write the
-    metric stream and the epoch spans.  Returns the final state, the
-    per-epoch history (metric name -> list), the obs bundle and the run's
-    objects."""
+    metric stream and the epoch spans.  ``consensus_backend`` as the CLI's
+    ``--consensus-backend`` (``shard_map``: this process is one rank of the
+    multi-process wire, and the state holds its rows).  Returns the final
+    state, the per-epoch history (metric name -> list), the obs bundle and
+    the run's objects."""
+    device = _rank_device(device, consensus_backend)
     dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
         arch_id, smoke, servers, clients, t_client, t_server, graph, gamma,
         seq_len, per_client_batch, seed, device, mixing, params)
+    consensus_mode, backend = resolve_consensus_backend(
+        consensus_backend, consensus_mode, topo, params,
+        compression=compression, error_feedback=error_feedback, wire=wire,
+        staleness=staleness)
     dfl_cfg = DFLConfig(topology=topo, consensus_mode=consensus_mode,
                         mixing=mixing, compression=compression,
                         error_feedback=error_feedback, wire=wire,
-                        staleness=staleness)
+                        staleness=staleness, consensus_backend=backend)
+    if not _is_rank0(backend):
+        log, telemetry_jsonl, chrome_trace = False, None, None
     step = build_dfl_epoch_step(dfl_cfg, loss_fn, optimizer)
     ledger = _make_wire_ledger(dfl_cfg, params)
     # the wire key is the reference trainer's rng, jax.random.key(seed + 1)
@@ -220,8 +328,10 @@ def train(arch_id: str, *, smoke: bool = True, servers: int = 2,
 
     def ckpt_save(epoch: int) -> None:
         if ckpt is not None:
-            ckpt.save(epoch, state.client_params,
-                      meta={"arch": cfg.name, "epoch": epoch})
+            clients_all = _gathered_clients(dfl_cfg, state.client_params)
+            if _is_rank0(backend):
+                ckpt.save(epoch, clients_all,
+                          meta={"arch": cfg.name, "epoch": epoch})
 
     history = _run_epochs(epochs, run_one, obs, observe=True,
                           ckpt_save=ckpt_save)
@@ -272,7 +382,8 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
                   ckpt_dir: Optional[str] = None, log_every: int = 1,
                   params: Optional[dict] = None, log: bool = True,
                   telemetry_jsonl: Optional[str] = None,
-                  chrome_trace: Optional[str] = None) -> dict:
+                  chrome_trace: Optional[str] = None,
+                  consensus_backend: str = "auto") -> dict:
     """Dynamic-federation LM training: Algorithm 1 driven by the scenario
     engine — partial participation (``participation_rate`` with
     ``participation_kind`` bernoulli | fixed_k | round_robin, or a JSONL
@@ -291,13 +402,21 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
     and, on a GPU, ``alloc_gb``, the memory the run holds after it.  The
     engine observes itself through the trainer's bundle
     (``telemetry_jsonl`` / ``chrome_trace``: the engine's records, per-link
-    wire bytes, the screens' histogram, its spans).  Returns the final
-    state, the history, the obs bundle and the run's objects."""
+    wire bytes, the screens' histogram, its spans).  ``consensus_backend``
+    as in ``train``.  Returns the final state, the history, the obs bundle
+    and the run's objects."""
     byz = (ByzantineSchedule.parse(byzantine, seed=seed) if byzantine
            else None)
+    device = _rank_device(device, consensus_backend)
     dev, cfg, topo, loss_fn, optimizer, pipe, params = _setup_lm(
         arch_id, smoke, servers, clients, t_client, t_server, graph, gamma,
         seq_len, per_client_batch, seed, device, mixing, params)
+    consensus_mode, backend = resolve_consensus_backend(
+        consensus_backend, consensus_mode, topo, params,
+        compression=compression, error_feedback=error_feedback, wire=wire,
+        staleness=staleness)
+    if not _is_rank0(backend):
+        log, telemetry_jsonl, chrome_trace = False, None, None
     if participation_trace:
         part = ParticipationSchedule(
             kind="trace", trace=load_participation_trace(participation_trace))
@@ -335,7 +454,7 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
                          participation=part, topology_schedule=tsched,
                          faults=FaultSchedule.parse(faults), byzantine=byz,
                          obs=obs, superepoch=superepoch,
-                         staleness=staleness)
+                         staleness=staleness, consensus_backend=backend)
     # the wire key is the reference trainer's rng, jax.random.key(seed + 1)
     state = init_dfl_state(engine.cfg, params, optimizer,
                            torch.Generator(device=dev).manual_seed(seed + 1),
@@ -365,9 +484,11 @@ def train_dynamic(arch_id: str, *, smoke: bool = True, servers: int = 2,
 
     def ckpt_save(epoch: int) -> None:
         if ckpt is not None:
-            ckpt.save(epoch, state.client_params,
-                      meta={"arch": cfg.name, "epoch": epoch,
-                            "alive": list(engine.alive)})
+            clients_all = _gathered_clients(engine.cfg, state.client_params)
+            if _is_rank0(backend):
+                ckpt.save(epoch, clients_all,
+                          meta={"arch": cfg.name, "epoch": epoch,
+                                "alive": list(engine.alive)})
 
     if superepoch > 1:
         # blocks of up to K epochs; the engine observes each epoch, and the
@@ -452,6 +573,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "robust screen trimmed_mean[:f] | median | "
                         "clipped[:mult] (validated by "
                         "consensus.make_backend)")
+    p.add_argument("--consensus-backend", default="auto",
+                   choices=CONSENSUS_BACKENDS,
+                   help="consensus execution: auto (follow "
+                        "--consensus-mode), einsum (per-leaf gossip), "
+                        "blocked (fixed-block streaming) or shard_map (one "
+                        "process a server over torch.distributed; launch "
+                        "with python -m torch.distributed.run "
+                        "--nproc-per-node M)")
     p.add_argument("--mixing", default="symmetric",
                    choices=("symmetric", "row_stochastic", "push_sum"),
                    help="symmetric doubly-stochastic gossip (the paper), "
@@ -531,23 +660,34 @@ def main(argv: Optional[list] = None) -> None:
               staleness=args.staleness, device=args.device, seed=args.seed,
               ckpt_dir=args.ckpt_dir, log_every=args.log_every,
               telemetry_jsonl=args.telemetry_jsonl,
-              chrome_trace=args.chrome_trace)
+              chrome_trace=args.chrome_trace,
+              consensus_backend=args.consensus_backend)
     dynamic = (args.participation_rate < 1.0 or args.edge_drop_prob > 0.0
                or args.straggler_weaken > 0.0
                or args.asymmetric_drop_prob > 0.0 or bool(args.faults)
                or bool(args.byzantine) or bool(args.participation_trace)
                or args.superepoch > 1 or args.staleness > 0)
-    if dynamic:
-        train_dynamic(args.arch, superepoch=args.superepoch,
-                      participation_rate=args.participation_rate,
-                      participation_kind=args.participation_kind,
-                      edge_drop_prob=args.edge_drop_prob,
-                      straggler_weaken=args.straggler_weaken,
-                      asymmetric_drop_prob=args.asymmetric_drop_prob,
-                      faults=args.faults, byzantine=args.byzantine,
-                      participation_trace=args.participation_trace, **kw)
-    else:
-        train(args.arch, **kw)
+    # torch.distributed.run sets the rendezvous in the environment; the
+    # group is this run's to open and close
+    own_group = (args.consensus_backend == "shard_map"
+                 and "WORLD_SIZE" in os.environ and not dist.is_initialized())
+    if own_group:
+        dist.init_process_group("gloo")
+    try:
+        if dynamic:
+            train_dynamic(args.arch, superepoch=args.superepoch,
+                          participation_rate=args.participation_rate,
+                          participation_kind=args.participation_kind,
+                          edge_drop_prob=args.edge_drop_prob,
+                          straggler_weaken=args.straggler_weaken,
+                          asymmetric_drop_prob=args.asymmetric_drop_prob,
+                          faults=args.faults, byzantine=args.byzantine,
+                          participation_trace=args.participation_trace, **kw)
+        else:
+            train(args.arch, **kw)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

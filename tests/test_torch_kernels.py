@@ -157,6 +157,10 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
             ops.ssd_scan(xs, bs, bs, dt, a_coef, chunk=4),
             ref.ssd_scan_chunked_ref(xs, bs, bs, dt, a_coef, chunk=4)):
         assert torch.equal(got, want)
+    # kernel 1's row form (the multi-process wire) takes its plain version
+    # on the CPU too
+    assert torch.equal(ops.consensus_mix_rows(a[1:2], w),
+                       ref.consensus_mix_ref(a[1:2], w))
     assert ops.launch_counts() == {"consensus_mix": 0, "flash_attention": 0,
                                    "rmsnorm_fwd": 0, "rmsnorm_bwd": 0,
                                    "ssd_scan": 0,
@@ -164,7 +168,10 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
                                    "quantized_gossip_encode": 0,
                                    "bucketed_gossip_round": 0,
                                    "bucketed_gossip_round_pipelined": 0,
-                                   "quantized_gossip_round": 0}
+                                   "quantized_gossip_round": 0,
+                                   "consensus_mix_rows": 0,
+                                   "bucketed_gossip_round_rows": 0,
+                                   "bucketed_gossip_round_pipelined_rows": 0}
     assert ops.flash_attention_mode_counts() == {}
 
 

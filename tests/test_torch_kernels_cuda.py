@@ -1045,3 +1045,108 @@ def test_replay_probe_launches_on_the_card(cuda, path, tmp_path):
         assert n["bucketed_gossip_round"] == periods * t_s, n
     for k in ("loss", "disagreement", "drift"):
         assert plain["history"][k] == traced["history"][k], k
+
+
+# ---------------------------------------------------------------------------
+# the row forms of kernels 1, 7 and 8 (the multi-process wire): row r of a
+# row form is bitwise row r of the square call, and bitwise its plain version
+# (kernel 1: within 1e-5 of it, as the square kernel)
+# ---------------------------------------------------------------------------
+
+ROW_NAMES = ("consensus_mix_rows", "bucketed_gossip_round_rows",
+             "bucketed_gossip_round_pipelined_rows")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 4, 5, 16])
+@pytest.mark.parametrize("d", [4096, 1_000_003])
+def test_consensus_mix_row_form_is_row_r_of_the_square_call(cuda, m, d,
+                                                            dtype):
+    g = torch.Generator(device=cuda).manual_seed(m + d)
+    dt = getattr(torch, dtype)
+    a = torch.from_numpy(_mixing(m)).to(cuda)
+    w = torch.randn((m, d), device=cuda, generator=g).to(dt)
+    square = ops.consensus_mix(a, w)
+    before = ops.launch_counts()["consensus_mix_rows"]
+    spans = [(r, r + 1) for r in range(m)] + ([(1, m)] if m > 2 else [])
+    for lo, hi in spans:
+        got = ops.consensus_mix_rows(a[lo:hi].contiguous(), w)
+        assert got.shape == (hi - lo, d) and got.dtype == dt
+        assert torch.equal(got, square[lo:hi]), (lo, hi)
+        plain = ref.consensus_mix_ref(a[lo:hi], w)
+        if dt == torch.float32:
+            assert torch.allclose(got, plain, rtol=1e-5, atol=1e-5)
+        else:
+            assert _within_one_bf16_rounding(a[lo:hi], w, got)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["consensus_mix_rows"] == before + len(spans)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("chunk", [16, 256])
+@pytest.mark.parametrize("m", [1, 4, 5, 16])
+def test_wire_row_forms_are_row_r_of_the_square_calls(cuda, m, chunk, bits):
+    """Kernels 7 and 8 on a rank's row: the gathered codes and scales stay
+    as they were, the own state rows and the separate code outputs are the
+    square call's row r and the plain versions', bit for bit."""
+    d = chunk * 37
+    x = _wire_inputs(cuda, m, d, chunk, bits, seed=3 * m + chunk + bits)
+    kw = dict(bits=bits, chunk=chunk)
+
+    def st(*names):
+        return [x[k].clone() for k in names]
+
+    sq7 = ops.bucketed_gossip_round(x["a"], *st("codes", "scales", "ref",
+                                                "acc"), x["u"], **kw)
+    sq8 = ops.bucketed_gossip_round_pipelined(
+        x["a"], *st("codes", "scales"), x["w"], *st("ref", "acc"), x["u"],
+        **kw)
+    codes0, scales0 = st("codes", "scales")
+    before = ops.launch_counts()
+    for r in range(m):
+        own = slice(r, r + 1)
+        a_r = x["a"][own].contiguous()
+        out_c = torch.empty((1, d), dtype=torch.int8, device=cuda)
+        out_s = torch.empty((1, d // chunk), device=cuda)
+        got = ops.bucketed_gossip_round_rows(
+            a_r, x["codes"], x["scales"], x["ref"][own].clone(),
+            x["acc"][own].clone(), x["u"][own], out_c, out_s, row0=r, **kw)
+        _assert_same(got, [t[own] for t in sq7])
+        _assert_same(got, ref.bucketed_gossip_round_rows_ref(
+            a_r, x["codes"], x["scales"], x["ref"][own], x["acc"][own],
+            x["u"][own], row0=r, **kw))
+        got = ops.bucketed_gossip_round_pipelined_rows(
+            a_r, x["codes"], x["scales"], x["w"][own],
+            x["ref"][own].clone(), x["acc"][own].clone(), x["u"][own],
+            torch.empty_like(out_c), torch.empty_like(out_s), **kw)
+        _assert_same(got, [t[own] for t in sq8])
+        _assert_same(got, ref.bucketed_gossip_round_pipelined_ref(
+            a_r, x["codes"], x["scales"], x["w"][own], x["ref"][own],
+            x["acc"][own], x["u"][own], **kw))
+    _assert_same((x["codes"], x["scales"]), (codes0, scales0))
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["bucketed_gossip_round_rows"] == \
+        before["bucketed_gossip_round_rows"] + m
+    assert after["bucketed_gossip_round_pipelined_rows"] == \
+        before["bucketed_gossip_round_pipelined_rows"] + m
+    assert all(after[n] == before[n] for n in WIRE_NAMES), after
+
+
+def test_row_forms_refuse_what_they_do_not_take(cuda):
+    x = _wire_inputs(cuda, 4, 1024, 256, 8, seed=4)
+    own = slice(1, 2)
+    out_c = torch.empty((1, 1024), dtype=torch.int8, device=cuda)
+    out_s = torch.empty((1, 4), device=cuda)
+    args = (x["a"][own].contiguous(), x["codes"], x["scales"],
+            x["ref"][own].clone(), x["acc"][own].clone(), x["u"][own])
+    with pytest.raises(ValueError, match="row0"):
+        ops.bucketed_gossip_round_rows(*args, out_c, out_s, row0=4)
+    with pytest.raises(ValueError, match="must not overlap"):
+        ops.bucketed_gossip_round_rows(*args, x["codes"][own], out_s,
+                                       row0=1)
+    with pytest.raises(ValueError, match="must be a contiguous"):
+        ops.bucketed_gossip_round_rows(x["a"], *args[1:], out_c, out_s,
+                                       row0=1)
+    with pytest.raises(ValueError, match="rows"):
+        ops.consensus_mix_rows(torch.ones((5, 4), device=cuda), x["w"])

@@ -14,8 +14,10 @@ read-back a dispatch, and bounded-staleness gossip off the wire.
   regression within the fig-3 tolerance, and the engine reads metrics
   back once a dispatch.
 
-Left out: the shard_map wire and the Pallas kernel rows (later slices;
-kernel 8 has its own CUDA tests).  The push-sum rows are twinned in
+The shard_map wire's rows (its bounded staleness included) are twinned in
+``tests/test_torch_shard_map.py``, on one world of 4 gloo ranks; the
+Pallas kernel rows are left out (kernel 8 and its row form have their own
+CUDA tests).  The push-sum rows are twinned in
 ``tests/test_torch_directed.py``, the Byzantine row in
 ``tests/test_torch_robust.py``.
 """
