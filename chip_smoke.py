@@ -116,9 +116,9 @@ before it and read just after:
   the consensus-replay probe's (the step's T_S an epoch, the probe's T_S an
   epoch, one warm-up period per new M); the probe's estimate of each gossip
   period against CUDA events around the step's own consensus call; the
-  physical wire's probe (kernels 6 and 7, the state's wire key and error-
-  feedback residual untouched); ``superepoch=4`` against 1 in turns; the
-  static trainer's telemetry files.
+  physical wire's probe over one epoch (kernels 6 and 7, the state's wire
+  key and error-feedback residual untouched); ``superepoch=4`` against 1 in
+  turns; the static trainer's telemetry files over one epoch.
 * the multi-process wire: the row forms of kernels 1, 7 and 8 (a rank's
   own rows of a gathered round) at the wire's main shape, each row bitwise
   row r of the square call and held to its plain version; the one-process
@@ -127,8 +127,8 @@ before it and read just after:
   (spawned after the build, every collective staged through pinned host
   buffers), training full SmolLM-360M through the trainers with
   ``consensus_backend="shard_map"``: one epoch on the int8 physical wire
-  with error feedback at staleness 0 and at 1, one uncompressed, two
-  dynamic epochs (Bernoulli 0.5, edge drops 0.3) on the wire, one push-sum
+  with error feedback at staleness 0 and at 1, one uncompressed, one
+  dynamic epoch (Bernoulli 0.5, edge drops 0.3) on the wire, one push-sum
   epoch on the wire over a random orientation of K_4; each rank's rows
   bitwise the
   one-process run's rows (the uncompressed one also within one f32
@@ -142,7 +142,8 @@ Kernels 3 and 9 at their prefill shapes also report each device kernel's
 time from the profiler, the blocks of each launch, and the registers and
 spills of every compiled instance.
 
-Every phase prints one JSON line; any failure
+Every phase prints one JSON line, with ``elapsed_s``, the seconds since the
+script started (so a run shows where its time goes); any failure
 raises and the script exits non-zero.  Before the last line it prints the
 per-kernel JSON summary and the GPU's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -160,12 +161,14 @@ import time
 
 import numpy as np
 
+_START = time.perf_counter()
+
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
 # float32 (non-tensor-core) flop/s, at the full 700 W power limit
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOP_PER_S = 67e12
 # bf16 operands: the dense tensor-core peak (the bound any bf16 attention
-# could reach; kernel 3 computes on FFMA, so its share of it is low)
+# could reach; kernel 3's bf16 instance computes on the tensor cores)
 H100_BF16_TC_FLOP_PER_S = 989e12
 
 # the main path of this slice: the trainer's defaults but M = 4 servers
@@ -317,7 +320,8 @@ FLASH_SWEEP = [
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - _START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -457,10 +461,15 @@ def row_rel_err(torch, got, want) -> float:
                  .max())
 
 
-# kernel 3 in bf16 against its plain version, per row: both round an f32
-# sum once to bf16, and two roundings of f32 values that differ only by the
-# order of the sums lie at most one bf16 step of the value apart, at most
-# 2^-7 of the row's largest value; 1e-3 more for the f32 sums' order
+# kernel 3 in bf16 against its plain version, per row: each side rounds its
+# f32 output once to bf16.  Before that the two differ by the order of the
+# f32 sums and by the kernel's P, rounded to bf16 for the tensor cores: up to
+# 2^-8 of each weight, with l summing the rounded P so that the weights stay
+# normalised, which moves an output by up to 2^-8 of a weighted spread of v
+# around it -- below 2^-8 of the row's largest |value| (the CPU emulation in
+# tests/test_torch_kernels.py measures up to 3.6e-3).  Two f32 values that
+# close round at most one bf16 step apart, 2^-7 of the row's largest |value|;
+# 1e-3 more for the f32 sums' order
 FLASH_BF16_ROW_LIMIT = 2.0 ** -7 + 1e-3
 # q's scale in the softcap modes' checks: the scores reach the cap's bend
 FLASH_SOFTCAP_Q_SCALE = 8.0
@@ -1321,6 +1330,36 @@ def reference_route_regrouped(nn):
         nn.FULL_ATTEND_MAX_KEYS, nn.attend_chunked = orig_max, orig_chunked
 
 
+@contextlib.contextmanager
+def flash_layouts():
+    """Within the block, each kernel-3 call's q, k and v strides by mode --
+    the layouts a model path hands the kernel.  The wrapper checks each
+    call's layout against its rule (for bf16, TMA's) and raises, so a path
+    that completes shows that all of its layouts pass."""
+    from repro_torch.kernels import flash_attention as fa
+    seen: dict = {}
+    call = fa.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        key = fa.mode_key(q.dtype, q.shape[2] // k.shape[2], q.shape[3],
+                          kw.get("causal", True), kw.get("window"),
+                          kw.get("softcap"))
+        seen.setdefault(key, set()).add(tuple(
+            tuple(t.stride()) for t in (q, k, v)))
+        return call(q, k, v, **kw)
+    fa.flash_attention_cuda = recorded
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_cuda = call
+
+
+def layouts_json(seen: dict) -> dict:
+    """``flash_layouts``' record as lists for the JSON line."""
+    return {key: [[list(st) for st in layout] for layout in layouts]
+            for key, layouts in seen.items()}
+
+
 def bf16_mix_excess(torch, a, w, got) -> float:
     """How far kernel 1's bf16 output ``got`` lies beyond what rounding an
     f32 sum once to bf16 allows: |got - A w| (A w summed in f32 here) less
@@ -1348,6 +1387,7 @@ def zoo_kernel_checks(torch, g) -> dict:
     call.  Returns the rows of the ``kernels`` line (launches filled in
     later from the paths)."""
     from repro_torch.core import topology as tp
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     rows = {}
@@ -1403,6 +1443,7 @@ def zoo_kernel_checks(torch, g) -> dict:
         k = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
         v = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
         got = ops.flash_attention(q, k, v, **kw)
+        encode_us = fa.encode_ns() / 1e3 if dtype == "bfloat16" else None
         # the plain version over every head, hs heads a call (its (b, h, s,
         # s) f32 scores at once would not fit beside the kernel's)
         slices = [(q[:, :, i:i + hs], k[:, :, i // grp:(i + hs) // grp],
@@ -1460,6 +1501,8 @@ def zoo_kernel_checks(torch, g) -> dict:
              causal=causal, window=window, softcap=kw.get("softcap"),
              q_scale=q_scale, max_abs_err=err, max_rel_err=rel,
              max_row_rel_err=row, limit=limit,
+             tma_encode_us=encode_us,
+             dynamic_smem_bytes=fa.smem_bytes(hd, dt),
              limit_on="max_row_rel_err" if dtype == "bfloat16"
              else "max_rel_err",
              controls_row_rel_err=controls, kernel_ms=times["kernel"],
@@ -1753,8 +1796,12 @@ def zoo_serving(torch, g, kernel_rows: dict) -> None:
         with reference_route_regrouped(nn):
             alt_logits, _ = ttf.prefill(params, cfg, inputs, **pf_kw)
         torch.cuda.empty_cache()
-        logits, cache = ttf.prefill(params, cfg, inputs, opts=kernel_opts,
-                                    **pf_kw)
+        with flash_layouts() as layouts:
+            logits, cache = ttf.prefill(params, cfg, inputs,
+                                        opts=kernel_opts, **pf_kw)
+        emit("kernel3_layouts", arch=arch, rule="strides % 8 (bf16, TMA) "
+             "or % 4 (f32), unit head_dim stride, 16-byte start",
+             layouts=layouts_json(layouts))
         cache_gb = sum(t.numel() * t.element_size()
                        for t in tree_leaves(cache["stack"])) / 1e9
         pf_err, pf_rel = rel_err(torch, logits[..., :vocab],
@@ -2073,9 +2120,12 @@ def moe_serving(torch, g, kernel_rows: dict, ssd_row: dict) -> None:
         # pinned, and the loss finite ----
         vocab = cfg.vocab_size
         k_route, r_route = [], []
-        with moe_routing(nn, record=k_route):
+        with moe_routing(nn, record=k_route), flash_layouts() as layouts:
             logits, cache = ttf.prefill(params, cfg, inputs,
                                         opts=kernel_opts, **pf_kw)
+        emit("kernel3_layouts", arch=arch, rule="strides % 8 (bf16, TMA) "
+             "or % 4 (f32), unit head_dim stride, 16-byte start",
+             layouts=layouts_json(layouts))
         with moe_routing(nn, record=r_route):
             ref_logits, _ = ttf.prefill(params, cfg, inputs, opts=ref_opts,
                                         **pf_kw)
@@ -3233,7 +3283,7 @@ def ckpt_roundtrip(torch, ttrain) -> None:
 # the physical wire through the dynamic engine (full participation, the
 # static ring), where the probe runs kernels 6 and 7
 OBS_WIRE = dict(DYN_TRAIN, participation_rate=1.0, edge_drop_prob=0.0,
-                faults="", epochs=2, compression="int8", wire="physical",
+                faults="", epochs=1, compression="int8", wire="physical",
                 error_feedback=True)
 # the superepoch against K = 1: the dynamic cell without faults, 4 epochs
 OBS_SUPER = dict(DYN_TRAIN, faults="", epochs=4)
@@ -3543,19 +3593,20 @@ def observability(torch, ttrain, ops, cns, smi: str) -> None:
     assert [len(r) for r in rounds] == [t_s] * OBS_SUPER["epochs"], rounds
     del runs, spans, supers, epochs, rounds
 
-    # ---- obs_static: the static trainer's files ----
+    # ---- obs_static: the static trainer's files, one epoch ----
+    static = dict(TRAIN, epochs=1)
     ops.reset_launch_counts()
     with obs_off(ttrain):
-        plain = ttrain.train("smollm-360m", **TRAIN)
+        plain = ttrain.train("smollm-360m", **static)
     plain_hist = plain["history"]
     del plain
     torch.cuda.empty_cache()
-    run = ttrain.train("smollm-360m", **TRAIN,
+    run = ttrain.train("smollm-360m", **static,
                        telemetry_jsonl=path("static.jsonl"),
                        chrome_trace=path("static.json"))
     hist = run["history"]
     names = check_obs_files(tobs, path("static.jsonl"), path("static.json"),
-                            TRAIN["epochs"])
+                            static["epochs"])
     del run
     torch.cuda.empty_cache()
     emit("obs_static", nvidia_smi=smi, epoch_s_untraced=plain_hist["epoch_s"],
@@ -3730,14 +3781,14 @@ ROW_KERNELS = {
 # the row forms' main shape: the SmolLM-360M wire bucket (M = 4)
 ROW_D = 364_904_448
 # the world's phases: (name, trainer, trainer keywords); every one full
-# width and full depth, one epoch (two for the dynamic one), through the
-# trainers with consensus_backend="shard_map"
+# width and full depth, one epoch, through the trainers with
+# consensus_backend="shard_map"
 SHARD_PHASES = [
     ("wire", "train", dict(WIRE_TRAIN, epochs=1)),
     ("wire_stale", "train", dict(WIRE_TRAIN, epochs=1, staleness=1)),
     ("plain", "train", dict(TRAIN, epochs=1)),
     ("dynamic", "train_dynamic", dict(
-        DYN_TRAIN, faults="", epochs=2, compression="int8",
+        DYN_TRAIN, faults="", epochs=1, compression="int8",
         wire="physical", error_feedback=True)),
     ("push_sum", "train", dict(PS_TRAIN, epochs=1, compression="int8",
                                wire="physical", error_feedback=True)),

@@ -46,14 +46,22 @@ def _bind() -> ctypes.CDLL:
         lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_blocks.argtypes = [i32] * 4
         lib.flash_attention_blocks.restype = ctypes.c_longlong
+        lib.flash_attention_encode_ns.argtypes = []
+        lib.flash_attention_encode_ns.restype = ctypes.c_longlong
         _fwd, _lib = fwd, lib
     return _lib
 
 
-def smem_bytes(head_dim: int) -> int:
-    """Dynamic shared memory one block of the kernel takes at ``head_dim``
-    with f32 operands (bf16 ones take less)."""
-    return int(_bind().flash_attention_smem_bytes(head_dim, 0))
+def smem_bytes(head_dim: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory one block of the kernel's ``dtype`` instance
+    takes at ``head_dim``."""
+    return int(_bind().flash_attention_smem_bytes(head_dim, _DTYPES[dtype]))
+
+
+def encode_ns() -> int:
+    """Host nanoseconds the last bf16 call spent encoding its three TMA
+    descriptors."""
+    return int(_bind().flash_attention_encode_ns())
 
 
 def blocks(b: int, sq: int, h: int, kvh: int) -> int:
@@ -89,12 +97,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if hd % 8 or not 8 <= hd <= 128:
         raise ValueError(f"flash_attention_cuda takes head_dim a multiple of "
                          f"8 up to 128, got {hd}")
+    # f32: 16-byte cp.async copies; bf16: TMA, whose global strides are
+    # multiples of 16 bytes from a 16-byte-aligned start
+    unit = 4 if q.dtype == torch.float32 else 8
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
-                or t.data_ptr() % (4 * t.element_size()):
+        if t.stride(3) != 1 or any(s % unit for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
             raise ValueError(f"{name} needs a unit head_dim stride, other "
-                             f"strides that are multiples of 4 and a "
-                             f"4-element-aligned start")
+                             f"strides that are multiples of {unit} and a "
+                             f"16-byte-aligned start ({q.dtype})")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

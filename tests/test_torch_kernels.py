@@ -4,8 +4,10 @@ On the CPU: the port's plain ``consensus_mix_ref`` / ``rmsnorm_ref`` (and
 the closed-form RMSNorm backward the CUDA kernel computes) /
 ``attention_ref`` against the JAX package's Pallas kernels in interpret
 mode, its jnp oracles and ``jax.grad``; ``ops.*`` on CPU tensors runs the plain version and launches
-nothing.  The Hopper kernels themselves are held against the plain versions
-on the card by ``tests/test_torch_kernels_cuda.py``.
+nothing; kernel 3's bf16 arithmetic (P rounded to bf16 for the tensor
+cores) emulated against ``attention_ref`` at the card's per-row limit.  The
+Hopper kernels themselves are held against the plain versions on the card
+by ``tests/test_torch_kernels_cuda.py``.
 
 Tolerances: f32 contractions and reductions summed in another order than
 XLA's — rtol/atol 2e-5 on O(1) data, as ``tests/test_kernels_misc.py``
@@ -335,3 +337,103 @@ def test_attention_ref_bf16_keeps_dtype():
     want = ref.attention_ref(q.float(), k.float(), v.float())
     np.testing.assert_allclose(out.float().numpy(), want.numpy(), rtol=2e-2,
                                atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# kernel 3's bf16 instance: its rounding argument on the CPU
+# ---------------------------------------------------------------------------
+
+# the zoo's bf16 modes at a reduced length (3 key tiles of 128, a window of
+# 160 that cuts them), their groups and head_dim as published: (b, s, h,
+# kvh, hd), options
+BF16_ZOO_MODES = {
+    "gemma2_local": ((1, 384, 4, 2, 128), {"window": 160, "softcap": 50.0}),
+    "gemma2_global": ((1, 384, 4, 2, 128), {"softcap": 50.0}),
+    "command_r": ((1, 384, 16, 2, 128), {}),
+    "mixtral": ((1, 384, 12, 2, 128), {"window": 160}),
+}
+# the card's per-row limit (tests/test_torch_kernels_cuda.py, chip_smoke.py)
+BF16_ROW_LIMIT = 2.0 ** -7 + 1e-3
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal=True, window=None,
+                         softcap=None, tile=128):
+    """The bf16 instance's arithmetic, written out: f32 scores of the bf16
+    operands, the scale (and the softcap) on the f32 scores, an online
+    softmax over key tiles whose P is rounded to bf16 for the product and
+    whose l sums the ROUNDED P, O in f32 divided by l once.  Returns O in
+    f32 (b, sq, h, hd) before its one rounding to bf16."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    kf = torch.repeat_interleave(k.float(), h // kvh, dim=2)
+    vf = torch.repeat_interleave(v.float(), h // kvh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / hd ** 0.5
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    kpos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, float("-inf"))
+    m = torch.full((b, h, sq), float("-inf"))
+    l = torch.zeros((b, h, sq))
+    o = torch.zeros((b, h, sq, hd))
+    for k0 in range(0, sk, tile):
+        st = s[..., k0:k0 + tile]
+        mn = torch.maximum(m, st.amax(-1))
+        mu = torch.where(mn == float("-inf"), torch.zeros(()), mn)
+        al = torch.exp(m - mu)
+        p = torch.exp(st - mu[..., None]).bfloat16().float()
+        l = al * l + p.sum(-1)
+        o = al[..., None] * o + torch.einsum("bhqk,bkhd->bhqd", p,
+                                             vf[:, k0:k0 + tile])
+        m = mn
+    o = torch.where(l[..., None] > 0, o / l.clamp_min(1e-30)[..., None],
+                    torch.zeros(()))
+    return o.transpose(1, 2)
+
+
+def _rows_rel(got, want) -> float:
+    """The largest error of a row over that row's largest |value|."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+@pytest.fixture
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("mode", sorted(BF16_ZOO_MODES))
+def test_bf16_flash_rounding_within_the_row_limit(mode, one_torch_thread):
+    """The bf16 instance's rounding of P (up to 2^-8 of each weight, l from
+    the rounded P) moves a row's f32 output by less than 2^-8 of the row's
+    largest value, one bf16 rounding unit, so after each side's one rounding
+    to bf16 the two lie within one bf16 step (2^-7 of the row's largest
+    value) and the kernel's arithmetic meets BF16_ROW_LIMIT against
+    ``attention_ref`` on every row -- the limit the card holds the kernel
+    to.  ``attention_ref`` is held against the reference's Pallas kernel
+    (interpret mode) on the same inputs.  With a softcap q is scaled by 8,
+    as on the card, so the scores reach the cap's bend."""
+    (b, s, h, kvh, hd), kw = BF16_ZOO_MODES[mode]
+    q, k, v = _qkv(sum(map(ord, mode)), b, s, s, h, kvh, hd)
+    if "softcap" in kw:
+        q = q * 8.0
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    want32 = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+    pallas = j_ops.flash_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), block_q=128,
+        block_k=128, **kw)
+    tol = 5e-5 if "softcap" in kw else 2e-5
+    np.testing.assert_allclose(want32.numpy(), np.asarray(pallas), rtol=tol,
+                               atol=tol)
+    got32 = _emulate_bf16_kernel(q, k, v, **kw)
+    assert 0 < _rows_rel(got32, want32) < 2.0 ** -8   # P was rounded
+    got = got32.bfloat16()
+    assert _rows_rel(got, ref.attention_ref(q, k, v, **kw)) <= BF16_ROW_LIMIT

@@ -10,7 +10,8 @@ Tolerances: 1e-5 forward (f32 sums in another order), 1e-4 backward (the
 RMSNorm kernels' bf16 instances: one bf16 step forward, 2^-8 of the
 largest value backward); the
 flash-attention kernel 2e-5 in f32 (5e-5 with a softcap) and 2e-2 in bf16,
-the tolerances the reference holds its Pallas kernel to; the SSD-scan
+the tolerances the reference holds its Pallas kernel to, and its bf16 modes
+per row at one bf16 step + 1e-3 (``BF16_ROW_LIMIT``); the SSD-scan
 kernel 2e-4, the reference's SSD tolerance.  Kernel 1 at M = 3 on an
 edge-dropped A_p and the dynamic path's gossip periods (per-epoch A_p,
 per-round stack, staleness 1, Chebyshev) against the same periods on the
@@ -585,7 +586,10 @@ FLASH_CASES = [
 ]
 
 
-# the zoo's bf16 modes: (b, sq, sk, h, kvh, hd), options
+# the zoo's bf16 modes and the edges of the bf16 instance: (b, sq, sk, h,
+# kvh, hd), options; "view" (not an option of the kernel) hands it q, k and
+# v as views in the model layout: "fused" slices one (b, s, h + 2 kvh, hd)
+# projection, "bhsd" transposes k and v out of (b, kvh, s, hd) storage
 FLASH_BF16_CASES = [
     # Gemma-2's local layers at its 6144-token prompt: the window masks keys
     # for the last third of the queries
@@ -594,28 +598,72 @@ FLASH_BF16_CASES = [
     ((1, 1024, 1024, 4, 2, 128), {"window": 128, "softcap": 50.0}),
     ((1, 1024, 1024, 4, 2, 128), {"softcap": 50.0}),       # Gemma-2 global
     ((1, 512, 512, 16, 2, 128), {}),                       # Command-R: group 8
+    # Mixtral's group of 6 (two heads a block), a window that cuts tiles
+    ((1, 640, 640, 12, 2, 128), {"window": 200}),
+    ((2, 384, 384, 4, 2, 64), {}),                         # hd 64
+    ((1, 300, 300, 6, 3, 32), {"softcap": 50.0}),          # hd 32, padded
+    # hd past 64: the second 64-column box is read partly past hd (zeros)
+    ((1, 300, 300, 4, 2, 96), {}),
+    ((1, 256, 256, 6, 2, 72), {"softcap": 50.0}),
+    ((1, 256, 300, 4, 2, 128), {}),                        # sk past a tile
+    ((1, 300, 200, 4, 2, 128), {}),                        # 100 rows see none
+    ((1, 512, 512, 4, 2, 128), {"window": 100}),           # window < a tile
+    ((2, 256, 256, 4, 4, 64), {"causal": False}),          # non-causal
+    ((2, 384, 384, 8, 2, 128), {"view": "fused"}),
+    ((1, 384, 384, 8, 2, 128), {"view": "bhsd", "window": 300}),
 ]
-# both sides round an f32 sum once to bf16: two such roundings lie at most
-# one bf16 step of the value apart, at most 2^-7 of a row's largest |value|;
-# 1e-3 more for the order of the f32 sums
+# each side rounds its f32 output once to bf16.  Before that the two differ
+# by the order of the f32 sums and by the kernel's P, rounded to bf16 for the
+# tensor cores: up to 2^-8 of each weight, with l summing the rounded P so
+# that the weights stay normalised, which moves an output by up to 2^-8 of a
+# weighted spread of v around it -- below 2^-8 of the row's largest |value|
+# (the CPU emulation in tests/test_torch_kernels.py measures up to 3.6e-3).
+# Two f32 values that close round at most one bf16 step apart, 2^-7 of the
+# row's largest |value|; 1e-3 more for the f32 sums' order
 BF16_ROW_LIMIT = 2.0 ** -7 + 1e-3
 
 
 def _row_rel_err(got, want) -> float:
     """Largest error of a row (one query of one head) over that row's
     largest |value|: rows that average thousands of keys have small values,
-    and a fault in the window or the softcap may show only there."""
+    and a fault in the window or the softcap may show only there.  A row
+    that sees no key is 0 on both sides (any other value fails)."""
     diff = (got.float() - want.float()).abs().amax(-1)
-    return float((diff / want.float().abs().amax(-1)).max())
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30)).max())
 
 
-@pytest.mark.parametrize("shape,kw", FLASH_BF16_CASES)
+def _flash_views(cuda, shape, view):
+    """q, k, v of ``shape`` in bf16 as views of larger storage (see
+    FLASH_BF16_CASES)."""
+    b, sq, sk, h, kvh, hd = shape
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    if view == "fused":
+        qkv = torch.randn((b, sq, h + 2 * kvh, hd), device=cuda,
+                          generator=g).bfloat16()
+        return qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+    q = torch.randn((b, sq, h, hd), device=cuda, generator=g).bfloat16()
+    k, v = (torch.randn((b, kvh, sk, hd), device=cuda, generator=g)
+            .bfloat16().transpose(1, 2) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("shape,kw", FLASH_BF16_CASES,
+                         ids=["x".join(map(str, s)) + "".join(
+                             f"-{k}{v}" for k, v in kw.items())
+                             for s, kw in FLASH_BF16_CASES])
 def test_flash_attention_kernel_bf16_zoo_modes(cuda, shape, kw):
-    """bf16 operands at the zoo's modes, held per row against the plain
-    version; with a softcap q is scaled by 8 so that the scores reach the
-    cap's bend.  The kernel run without its window or softcap must fail the
-    same check, so the check can see either fault."""
-    q, k, v = _flash_inputs(cuda, shape, torch.bfloat16)
+    """bf16 operands at the zoo's modes and the instance's edges, held per
+    row against the plain version; with a softcap q is scaled by 8 so that
+    the scores reach the cap's bend.  The kernel run without its window or
+    softcap must fail the same check, so the check can see either fault.
+    Rows that see no key are exactly 0."""
+    kw = dict(kw)
+    view = kw.pop("view", None)
+    if view is None:
+        q, k, v = _flash_inputs(cuda, shape, torch.bfloat16)
+    else:
+        q, k, v = _flash_views(cuda, shape, view)
+        assert not (q.is_contiguous() and k.is_contiguous())
     if "softcap" in kw:
         q = (q.float() * 8.0).bfloat16()
     before = ops.flash_attention_mode_counts()
@@ -623,12 +671,16 @@ def test_flash_attention_kernel_bf16_zoo_modes(cuda, shape, kw):
     assert out.dtype == torch.bfloat16
     want = ref.attention_ref(q, k, v, **kw)
     assert _row_rel_err(out, want) <= BF16_ROW_LIMIT
+    sq, sk = shape[1], shape[2]
+    if sq > sk and kw.get("causal", True):
+        assert not out[:, :sq - sk].any()
     for opt in ("window", "softcap"):
         if opt in kw:
             wrong = ops.flash_attention(q, k, v, **{**kw, opt: None})
             assert _row_rel_err(wrong, want) > 4 * BF16_ROW_LIMIT, opt
-    key = fa.mode_key(torch.bfloat16, shape[3] // shape[4], shape[5], True,
-                      kw.get("window"), kw.get("softcap"))
+    key = fa.mode_key(torch.bfloat16, shape[3] // shape[4], shape[5],
+                      kw.get("causal", True), kw.get("window"),
+                      kw.get("softcap"))
     after = ops.flash_attention_mode_counts()
     assert after[key] == before.get(key, 0) + 1
 
@@ -683,6 +735,16 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
             ops.flash_attention(*bad)
     with pytest.raises(RuntimeError, match="forward only"):
         ops.flash_attention(q.requires_grad_(True), k, v)
+    # bf16 goes through TMA: strides in multiples of 8 elements (16 bytes)
+    # and a 16-byte-aligned start; f32 takes the first view (multiples of 4)
+    wide = torch.randn((1, 8, 2, 36), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.flash_attention(wide.bfloat16()[..., :32], k.bfloat16(),
+                            v.bfloat16())
+    ops.flash_attention(wide[..., :32], k.float(), v.float())
+    shifted = torch.randn((1, 8, 2, 40), device=cuda).bfloat16()[..., 4:36]
+    with pytest.raises(ValueError, match="16-byte-aligned start"):
+        ops.flash_attention(shifted, k.bfloat16(), v.bfloat16())
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,16 @@ attention (b=4, s=1024, 16 query and 8 KV heads of 128, causal) -- checks
 that the two agree, times both in turns (other, this, this, other) with
 CUDA events around back-to-back calls, and reads each one's device time per
 kernel from the profiler, then samples ``nvidia-smi``'s SM clock and power
-while this checkout's kernel runs back to back.  Prints one JSON line per
-kernel, then the card's name and power limit.  Needs one NVIDIA GPU.
+while this checkout's kernel runs back to back.  Then kernel 3 at the zoo's
+modes (``chip_smoke.FLASH_ZOO``): the f32 ones (InternVL2, Seamless's
+encoder and decoder) must agree bitwise; the bf16 ones (Gemma-2's local and
+global layers, Command-R, Mixtral) are held per row against each other and
+timed beside their tensor-core bound.  Last, the
+bf16 prefills of ``chip_smoke.py``'s Gemma-2-27B, Command-R-35B and
+Mixtral-8x22B cells (full width, bf16 weights from seed 0; Mixtral cut to 10
+layers) in turns with each checkout's kernel-3 module swapped into
+``ops``, one model at a time.  Prints one JSON line per comparison, then the
+card's name and power limit.  Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -95,13 +103,110 @@ def clocks_under_load(torch, fn, seconds: float = 1.5) -> list:
     return proc.communicate()[0].strip().splitlines()
 
 
-def in_turns(torch, fns: dict, reps: int) -> dict:
+def in_turns(torch, fns: dict, reps: int, profile: bool = True) -> dict:
     times = {name: [] for name in fns}
     for name in ("other", "this", "this", "other"):
         times[name].append(events_ms(torch, fns[name], reps))
     return {name: {"events_ms": sum(t) / len(t), "runs_ms": t,
-                   "device_us": device_us(torch, fns[name], 10)}
+                   **({"device_us": device_us(torch, fns[name], 10)}
+                      if profile else {})}
             for name, t in times.items()}
+
+
+def row_rel(got, want) -> float:
+    """The largest error of a row (one query of one head) over that row's
+    largest |value| (``chip_smoke.row_rel_err``)."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30))
+                 .max())
+
+
+def zoo_modes(torch, cs, other_fa, this_fa, g, reps: int) -> None:
+    """Kernel 3 at each mode of ``chip_smoke.FLASH_ZOO``, both checkouts."""
+    dev = torch.device("cuda")
+    for name, _, b, s, h, kvh, hd, kw, dtype, _ in cs.FLASH_ZOO:
+        dt = getattr(torch, dtype)
+        q_scale = cs.FLASH_SOFTCAP_Q_SCALE if "softcap" in kw else 1.0
+        q = (torch.randn((b, s, h, hd), device=dev, generator=g)
+             * q_scale).to(dt)
+        k = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
+        v = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
+        fns = {n: (lambda mod=mod: mod.flash_attention_cuda(q, k, v, **kw))
+               for n, mod in (("other", other_fa), ("this", this_fa))}
+        o0, o1 = fns["other"](), fns["this"]()
+        torch.cuda.synchronize()
+        row = {"phase": "flash_attention_zoo_vs_parent", "mode": name,
+               "shape": [b, s, s, h, kvh, hd], "dtype": dtype, **kw}
+        if dtype == "float32":
+            row["bitwise_equal"] = bool(torch.equal(o0, o1))
+            assert row["bitwise_equal"], name
+        else:
+            row["row_rel_diff"] = row_rel(o1, o0)
+            row["limit_each_vs_plain"] = cs.FLASH_BF16_ROW_LIMIT
+        del o0, o1
+        row.update(in_turns(torch, fns, reps if s <= 2048 else 5,
+                            profile=False))
+        pairs = cs.attn_pairs(s, s, kw.get("causal", True), kw.get("window"))
+        flops = b * h * pairs * 4 * hd
+        peak = (cs.H100_BF16_TC_FLOP_PER_S if dtype == "bfloat16"
+                else cs.H100_F32_FLOP_PER_S)
+        bound = flops / peak * 1e3
+        row.update(flops=flops, bound_ms=bound, **{
+            f"{n}_bound_share": bound / row[n]["events_ms"]
+            for n in ("other", "this")})
+        print(json.dumps(row), flush=True)
+        del q, k, v, fns
+        torch.cuda.empty_cache()
+
+
+def prefills_in_turns(torch, cs, other_fa, this_fa) -> None:
+    """The bf16 prefills of chip_smoke's Gemma-2, Command-R and Mixtral
+    cells, with each checkout's kernel-3 module in ``ops`` in turns."""
+    import dataclasses
+    import time
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as ttf
+    dev = torch.device("cuda")
+    cells = [(a, get_arch(a), cs.ZOO[a], ttf.ApplyOptions(attn_impl="kernel"))
+             for a in ("gemma2-27b", "command-r-35b")]
+    shape = cs.MOE_ZOO["mixtral-8x22b"]
+    cells.append(("mixtral-8x22b", dataclasses.replace(
+        get_arch("mixtral-8x22b"), num_layers=shape["num_layers"]), shape,
+        ttf.ApplyOptions(attn_impl="kernel", moe_no_drop=True)))
+    saved = ops._fa
+    try:
+        for arch, cfg, shape, opts in cells:
+            b, s, gen = shape["batch"], shape["prompt_len"], shape["gen"]
+            rng = torch.Generator(device=dev).manual_seed(0)
+            params = ttf.init_params(rng, cfg, dtype=torch.bfloat16,
+                                     device=dev)
+            inputs = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                              generator=rng, device=dev)}
+            kw = dict(opts=opts, max_len=s + gen, cache_dtype=torch.float32)
+            runs = {"other": [], "this": []}
+            logits = {}
+            for name in ("other", "this", "this", "other"):
+                ops._fa = other_fa if name == "other" else this_fa
+                if name not in logits:      # first call: set-up, kept out
+                    logits[name] = ttf.prefill(params, cfg, inputs,
+                                               **kw)[0][:, -1].float()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ttf.prefill(params, cfg, inputs, **kw)
+                torch.cuda.synchronize()
+                runs[name].append(time.perf_counter() - t0)
+            print(json.dumps({
+                "phase": "prefill_vs_parent", "arch": arch,
+                "layers": cfg.num_layers, "batch": b, "prompt_len": s,
+                "last_logits_max_abs_diff": float(
+                    (logits["this"] - logits["other"]).abs().max()),
+                **{f"{n}_prefill_s": sum(t) / len(t) for n, t in runs.items()},
+                **{f"{n}_runs_s": t for n, t in runs.items()}}), flush=True)
+            del params, inputs, logits
+            torch.cuda.empty_cache()
+    finally:
+        ops._fa = saved
 
 
 def main() -> int:
@@ -115,6 +220,8 @@ def main() -> int:
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
     from repro_torch.kernels import flash_attention as this_fa
     from repro_torch.kernels import ssd_scan as this_ssd
     parent = pathlib.Path(args.parent).resolve() / "src/repro_torch/kernels"
@@ -166,10 +273,14 @@ def main() -> int:
         row = {"phase": "flash_attention_vs_parent",
                "shape": list(FLASH_SHAPE),
                "max_abs_diff": float((o0 - o1).abs().max()),
+               "bitwise_equal": bool(torch.equal(o0, o1)),
                "blocks": this_fa.blocks(b, sq, h, kvh),
                **in_turns(torch, fns, args.reps),
                "this_clocks_under_load": clocks_under_load(torch, fns["this"])}
         print(json.dumps(row), flush=True)
+        del q, k, v, o0, o1, fns
+        zoo_modes(torch, chip_smoke, other_fa, this_fa, g, args.reps)
+        prefills_in_turns(torch, chip_smoke, other_fa, this_fa)
     print(smi, flush=True)
     return 0
 
