@@ -203,6 +203,11 @@ WIRE_TRAFFIC = {"quantized_gossip_encode": (4 + 4 + 4 + 1, 1, False),
                 "quantized_gossip_round": ((1 + 4 + 4) + (4 + 4 + 1), 2,
                                            True)}
 WIRE_SLAB = 1 << 20         # columns of a slab held against the plain version
+# the instances of kernel 8 that the training paths must take: the resident
+# body with 16-byte loads (VEC = 4), four own rows in one process, one in a
+# rank of the multi-process wire
+KERNEL8_SQUARE = "vec4.own4"
+KERNEL8_ROW = "vec4.own1"
 
 # the dynamic-federation path: the training path with Bernoulli(0.5)
 # participation, per-epoch edge drops (p = 0.3) and server 2 dropping at
@@ -423,18 +428,43 @@ def bf16_steps(torch, got, want) -> int:
 
 def ptxas_entries(log: str) -> list:
     """Each entry function of an ``nvcc -Xptxas -v`` log: its (mangled)
-    name, registers and spill-store bytes."""
-    out, name, spill = [], None, 0
+    name, registers, spill-store bytes and stack frame bytes."""
+    out, name, spill, stack = [], None, 0, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif "spill stores" in line:
             spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+            stack = int(line.split("bytes stack frame")[0].split()[-1])
         elif "Used " in line and name:
             out.append({"kernel": name,
                         "registers": int(line.split("Used ")[1].split()[0]),
-                        "spill_store_bytes": spill})
+                        "spill_store_bytes": spill,
+                        "stack_frame_bytes": stack})
             name = None
+    return out
+
+
+def pipelined_ptxas(log: str) -> list:
+    """Kernel 8's instances in ``quantized_wire.cu``'s ptxas log, named as
+    ``ops.wire_pipelined_instance_counts()`` names them, with VEC, the
+    two-pass body's row bound MT (one template instance per MT in 1, 2, 4,
+    ..., 64), registers, spill-store and stack frame bytes."""
+    import re
+    out = []
+    for e in ptxas_entries(log):
+        m = re.search(r"pipelined_kernelILi(\d+)ELi(\d+)E", e["kernel"])
+        t = re.search(r"pipelined_twopass_kernelILi(\d+)E", e["kernel"])
+        if m:
+            rg, vec = (int(x) for x in m.groups())
+            name, mt = f"vec{vec}.own{rg}", None
+        elif t:
+            name, vec, mt = "twopass", 1, int(t.group(1))
+        else:
+            continue
+        out.append({"instance": name, "vec": vec, "mt": mt,
+                    **{k: e[k] for k in ("registers", "spill_store_bytes",
+                                         "stack_frame_bytes")}})
     return out
 
 
@@ -443,6 +473,12 @@ def bound_ms(n_bytes: float, n_flops: float,
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = n_flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def instance_delta(before: dict, after: dict) -> dict:
+    """Kernel 8's launches by instance between two readings."""
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
 
 
 def rel_err(torch, got, want) -> tuple:
@@ -520,6 +556,85 @@ def timed_norms():
         ops.rmsnorm, rn.rmsnorm_bwd_cuda = saved
 
 
+@dataclasses.dataclass
+class EventSum:
+    """One name's row of ``kineto_averages``, in ``key_averages()``'s
+    fields (times in µs)."""
+    key: str
+    on_device: bool
+    count: int = 0
+    self_cpu_time_total: float = 0.0
+    self_device_time_total: float = 0.0
+
+
+# the events key_averages() leaves out (torch.autograd.profiler_util's
+# _filter_name)
+_UNLISTED = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def kineto_averages(prof) -> list:
+    """``prof.key_averages()`` of a finished ``torch.profiler`` run, summed
+    straight from its kineto events: per name, the calls, the self CPU time
+    (an event's span less the spans of the events nested in it on its
+    thread) and the device time, by ``key_averages()``'s rules: the same
+    events left out, ``ProfilerStep*`` for the steps, no self time for an
+    async span, an only child of its parent's name folded into it.
+    ``key_averages()`` first builds a Python object tree of every event,
+    which over a training epoch's events takes about a minute; this takes
+    seconds.  ``tests/test_torch_profile_summary.py`` holds the two
+    equal."""
+    from torch._C._autograd import DeviceType
+    rows, spans = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in _UNLISTED or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        if name.startswith("ProfilerStep#"):
+            name = "ProfilerStep*"
+        on_device = e.device_type() == DeviceType.CUDA
+        row = rows.get((name, on_device))
+        if row is None:
+            row = rows[(name, on_device)] = EventSum(name, on_device)
+        row.count += 1
+        if on_device:
+            row.self_device_time_total += e.duration_ns() / 1e3
+        elif e.is_async() or e.start_thread_id() != e.end_thread_id():
+            pass            # an async span has no self time, nor children
+        else:
+            spans.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), -e.end_ns(), row))
+    for evs in spans.values():          # self time: nesting on one thread
+        evs.sort(key=lambda t: (t[0], t[1]))
+        # [end_ns, own_ns, children_ns, row, children, last child's row]
+        stack = []
+        for start, neg_end, row in evs:
+            # a span that ends past its would-be parent is not its child
+            while stack and (stack[-1][0] <= start or -neg_end > stack[-1][0]):
+                _close_span(stack.pop())
+            own = -neg_end - start
+            if stack:
+                stack[-1][2] += own
+                stack[-1][4] += 1
+                stack[-1][5] = row
+            stack.append([-neg_end, own, 0, row, 0, None])
+        while stack:
+            _close_span(stack.pop())
+    return list(rows.values())
+
+
+def _close_span(span) -> None:
+    _, own, children, row, n_children, child_row = span
+    row.self_cpu_time_total += (own - children) / 1e3
+    if n_children == 1 and child_row is row:
+        # key_averages() folds an only child of the same name (an op that
+        # calls its own overload) into its parent: one call, the same time
+        row.count -= 1
+
+
 def profile_summary(prof, wall_s: float, top: int = 12,
                     norms: dict = None) -> dict:
     """Device busy time, the top device kernels and host ops, and the port's
@@ -527,19 +642,21 @@ def profile_summary(prof, wall_s: float, top: int = 12,
     the profiler adds host overhead, so its wall time is longer than an
     unprofiled epoch's, while device kernel times are not inflated).
     ``norms``, from ``timed_norms`` around the same run, adds the RMSNorm
-    calls, their host time and their kernels' device time."""
+    calls, their host time and their kernels' device time.  Adds
+    ``summary_s``, the seconds this summary took."""
+    t0 = time.perf_counter()
+
     def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-    events = list(prof.key_averages())
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+        return e.self_device_time_total
+    events = kineto_averages(prof)
+    kernels = [e for e in events if e.on_device]
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
     ours = [e for e in kernels if any(
         k in e.key for k in ("consensus_mix", "rmsnorm",
                              "flash_fwd", "encode_kernel", "bucketed_kernel",
                              "pipelined_kernel", "leaf_kernel",
                              "quant_mix_kernel", "ssd_scan_kernel"))]
-    host = sorted((e for e in events if e not in kernels),
+    host = sorted((e for e in events if not e.on_device),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:top]
 
     def row(e):
@@ -556,7 +673,7 @@ def profile_summary(prof, wall_s: float, top: int = 12,
             device_ms=sum(dev_us(e) for e in kernels
                           if "rmsnorm" in e.key) / 1e3)
     return {
-        **extra,
+        **extra, "summary_s": time.perf_counter() - t0,
         "wall_s": wall_s, "device_busy_ms": device_ms,
         "device_busy_share_of_profiled_wall": device_ms / (wall_s * 1e3),
         "top_device": [row(e) for e in sorted(kernels, key=dev_us,
@@ -3889,6 +4006,7 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                 "launches": {k: v for k, v in ops.launch_counts().items()
                              if v},
+                "kernel8_instances": ops.wire_pipelined_instance_counts(),
                 "collectives": cns.collective_counts()}
             del run, leaves
         q.put(out)
@@ -4054,7 +4172,10 @@ def shard_kernel_rows(torch, ops, ref, tp, g) -> dict:
                 return ref.bucketed_gossip_round_rows_ref(
                     a_r, slab["codes"], slab["scales"], slab["ref"],
                     slab["acc"], slab["u"], row0=r)
+        before = ops.wire_pipelined_instance_counts()
         ms = cuda_ms(torch, lambda: call(ref_r, acc_r), reps=10)
+        instances = instance_delta(before,
+                                   ops.wire_pipelined_instance_counts())
         plain_ms = cuda_ms(torch, plain_slab, reps=3, warmup=1)
         # each input read once, each output written once: the gathered
         # codes and scales of every row, the own ref, acc, u (and w), the
@@ -4068,8 +4189,11 @@ def shard_kernel_rows(torch, ops, ref, tp, g) -> dict:
                           ms=ms, plain_ms=plain_ms,
                           plain_cols=hi - lo, bound_ms=bnd, bound_by=by,
                           library_ms=None)
-        emit("shard_map_rows", kernel=name, m=m, d=d, row=r, **rows[name])
+        emit("shard_map_rows", kernel=name, m=m, d=d, row=r,
+             kernel8_instances=instances, **rows[name])
         assert bit_square and bit_plain, rows[name]
+        assert set(instances) == ({KERNEL8_ROW} if stale else set()), \
+            instances
         del got, sq, ref_r, acc_r, c_out, s_out
     del codes, scales, own
     torch.cuda.empty_cache()
@@ -4196,10 +4320,15 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                      "wire_stale": "shard_map_wire",
                      "dynamic": "shard_map_dynamic",
                      "push_sum": "shard_map_dynamic"}[name]
+            k8 = [r[name]["kernel8_instances"] for r in ranks]
             emit(phase, run=name, staleness=kw.get("staleness", 0),
                  bitwise=bitwise, ef_bitwise=ef_same,
-                 same_history=same_hist, **fields)
+                 same_history=same_hist, kernel8_instances=k8, **fields)
             assert bitwise and ef_same, name
+            # every rank's round on the resident row body, VEC = 4
+            want_k8 = ({KERNEL8_ROW: kw["t_server"] * kw["epochs"]}
+                       if kw.get("staleness") else {})
+            assert all(x == want_k8 for x in k8), k8
         assert same_hist and dis_ratio <= 1.0, (name, match)
         if kw.get("wire") == "physical":
             row_bytes = tree_bucketed_wire_bytes_per_server(
@@ -4363,10 +4492,15 @@ def main() -> int:
     rn.rmsnorm_bwd_cuda(x, torch.ones(960, device=dev), rstd,
                         torch.ones_like(y))
     torch.cuda.synchronize()
+    # kernel 8's instances (only when this run compiled quantized_wire.cu)
+    k8_ptxas = pipelined_ptxas(_build.build_logs.get("quantized_wire", ""))
     emit("build", nvcc_s=nvcc_s, sources=_build.sources(),
          ptxas_registers=regs, rmsnorm_ptxas=rn_ptxas,
+         pipelined_ptxas=k8_ptxas,
          rmsnorm_first_call_s=time.perf_counter() - t0)
     assert len(_build.sources()) == 6, _build.sources()
+    assert not ("quantized_wire" in _build.build_logs and len(k8_ptxas) != 11)
+    assert all(e["spill_store_bytes"] == 0 for e in k8_ptxas), k8_ptxas
 
     # ---- 3. kernel 1 vs its plain version ----
     for m in (1, 4, 5, 16):
@@ -4491,7 +4625,9 @@ def main() -> int:
         ttrain.train("smollm-360m", **{**TRAIN, "epochs": 1}, log=False)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    emit("profile", **profile_summary(prof, wall_s, norms=norms))
+        t_stop = time.perf_counter()
+    emit("profile", profiler_stop_s=time.perf_counter() - t_stop,
+         **profile_summary(prof, wall_s, norms=norms))
 
     # ---- 7b. dynamic federation: participation, edge drops, a server
     # dropping and rejoining, then a Chebyshev epoch ----
@@ -4746,6 +4882,7 @@ def main() -> int:
         run = ttrain.train("smollm-360m", **stale_train)
         torch.cuda.synchronize()
     stale_launches = ops.launch_counts()
+    stale_instances = ops.wire_pipelined_instance_counts()
     stale_expected = {
         "consensus_mix": 0, "flash_attention": 0,
         "rmsnorm_fwd": norms_per_step * client_steps // TRAIN["epochs"],
@@ -4762,8 +4899,12 @@ def main() -> int:
          sigma_a=tp.sigma_a(
              tp.metropolis_weights(tp.ring_graph(stale_train["servers"])),
              stale_train["t_server"] // 2),
-         launches=stale_launches, expected_launches=stale_expected)
+         launches=stale_launches, expected_launches=stale_expected,
+         kernel8_instances=stale_instances)
     assert stale_launches == stale_expected, stale_launches
+    # every round on the resident body, 16-byte loads (VEC = 4)
+    assert stale_instances == {KERNEL8_SQUARE: stale_train["t_server"]}, \
+        stale_instances
     assert all(torch.isfinite(torch.tensor(v)) for v in hist["loss"]), hist
     assert len(stale_periods) == 1, stale_periods
     assert stale_periods[0]["after"] < stale_periods[0]["before"], \
@@ -4795,6 +4936,7 @@ def main() -> int:
                                             staleness=staleness)
         torch.cuda.synchronize()
         got_launches = ops.launch_counts()
+        got_instances = ops.wire_pipelined_instance_counts()
         period_launches[staleness] = got_launches
         flat_out = cns._bucket_flat(tree_leaves(out), d_pad)
         errs = []
@@ -4810,7 +4952,8 @@ def main() -> int:
                        for p_, q_ in zip(mean0, mean1))
         emit("wire_period_full_size", layout="bucketed",
              staleness=staleness, m=m, t_server=t_s, d=d_tot, d_pad=d_pad,
-             launches=got_launches, slabs=slabs, slab_cols=WIRE_SLAB,
+             launches=got_launches, kernel8_instances=got_instances,
+             slabs=slabs, slab_cols=WIRE_SLAB,
              slab_max_abs_err=max(errs), mean_max_abs_drift=mean_err,
              disagreement_before=dis0, disagreement_after=dis1,
              ratio=dis1 / dis0, sigma_a=tp.sigma_a(
@@ -4820,6 +4963,8 @@ def main() -> int:
                          else {"bucketed_gossip_round_pipelined": t_s})
         assert all(got_launches[k] == want_launches.get(k, 0)
                    for k in WIRE_KERNELS), got_launches
+        assert got_instances == ({KERNEL8_SQUARE: t_s} if staleness
+                                 else {}), got_instances
         assert dis1 < dis0, (dis1, dis0)
         del out, flat_out
         torch.cuda.empty_cache()
@@ -4904,7 +5049,9 @@ def main() -> int:
         ttrain.train("smollm-360m", **{**WIRE_TRAIN, "epochs": 1}, log=False)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    emit("profile_wire", **profile_summary(prof, wall_s))
+        t_stop = time.perf_counter()
+    emit("profile_wire", profiler_stop_s=time.perf_counter() - t_stop,
+         **profile_summary(prof, wall_s))
     del prof
     torch.cuda.empty_cache()
 
@@ -4963,7 +5110,10 @@ def main() -> int:
             x[:, lo // WIRE_CHUNK:(lo + WIRE_SLAB) // WIRE_CHUNK]
             if x.shape[1] == d_k // WIRE_CHUNK else x[:, cols] for x in got)
         cmp = wire_compare(torch, got_slab, want)
+        before = ops.wire_pipelined_instance_counts()
         ms = alternate(torch, {"kernel": lambda: kernel(buf)}, reps=10)
+        instances = instance_delta(before,
+                                   ops.wire_pipelined_instance_counts())
         plain_ms = cuda_ms(torch, lambda: plain(slab), reps=3)
         per_elem, scale_passes, reads_a = WIRE_TRAFFIC[name]
         n_bytes = (m * d_k * per_elem
@@ -4981,7 +5131,10 @@ def main() -> int:
              bytes=n_bytes, kernel_GBps=n_bytes / ms["kernel"] / 1e6,
              bound_share=bound / ms["kernel"], plain_ms=plain_ms,
              plain_shape=[m, WIRE_SLAB], library_ms=None,
-             slab_cols=[lo, lo + WIRE_SLAB], **cmp)
+             slab_cols=[lo, lo + WIRE_SLAB], kernel8_instances=instances,
+             **cmp)
+        if name == "bucketed_gossip_round_pipelined":
+            assert set(instances) == {KERNEL8_SQUARE}, instances
         del buf, slab, want, got, got_slab
     ptxas = [line.strip() for line in _build.build_logs.get(
         "quantized_wire", "").splitlines()

@@ -21,7 +21,9 @@
   multi-process wire owns ``M_out`` of the ``M`` gathered rows, so it
   passes A's own rows ``(M_out, M)``, the gathered operand read-only and
   separate output buffers; row r of a row form is bitwise row r of the
-  square call.  Their launches count in ``row_launches``.
+  square call.  Their launches count in ``row_launches``; kernel 8's
+  (both forms) also by the instance its C entry point took
+  (``pipelined_instances``).
 
 Each wrapper checks its operands, launches on PyTorch's current stream,
 raises on a launch error and counts its launches (``launches``,
@@ -49,6 +51,11 @@ wire_launches = {"quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
 #: launches of the row forms of kernels 1, 7 and 8, by ``ops`` entry point
 row_launches = {"consensus_mix_rows": 0, "bucketed_gossip_round_rows": 0,
                 "bucketed_gossip_round_pipelined_rows": 0}
+#: kernel 8's launches (square and row form) by the instance the C entry
+#: point chose: ``vec<4|1>.own<1|4>`` (the resident body: columns a thread,
+#: one or up to four own rows) or ``twopass`` (more than four own rows, or a
+#: chunk wider than a tile)
+pipelined_instances: dict = {}
 _MAX_M = 64
 
 
@@ -171,6 +178,7 @@ _WIRE_ARGS = {
     "wire_leaf_round_f32": [_P] * 6 + [_I, _L, _I, _I, _P],
     "wire_bucketed_round_rows_f32": [_P] * 8 + [_I, _I, _I, _L, _I, _I, _P],
     "wire_pipelined_round_rows_f32": [_P] * 9 + [_I, _I, _L, _I, _I, _P],
+    "wire_pipelined_instance": [],
 }
 
 
@@ -178,7 +186,8 @@ def _wire_fn(name: str):
     lib = _build.load("quantized_wire")
     fn = getattr(lib, name)
     fn.argtypes = _WIRE_ARGS[name]
-    fn.restype = ctypes.c_int
+    fn.restype = (ctypes.c_char_p if name == "wire_pipelined_instance"
+                  else ctypes.c_int)
     return fn
 
 
@@ -230,6 +239,9 @@ def _wire_launch(name: str, counter: str, *args) -> None:
         row_launches[counter] += 1
     else:
         wire_launches[counter] += 1
+    if "pipelined" in name:
+        inst = _wire_fn("wire_pipelined_instance")().decode()
+        pipelined_instances[inst] = pipelined_instances.get(inst, 0) + 1
 
 
 def _distinct(*named) -> None:

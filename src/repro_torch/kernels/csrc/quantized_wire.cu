@@ -23,8 +23,11 @@
 //   bucketed round  22 B/elem  32.16 GB   9.60 ms
 //   pipelined round 26 B/elem  38.00 GB  11.34 ms
 //   per-leaf round  18 B/elem  26.10 GB   7.79 ms (summed over the leaves)
+// and the pipelined round's row form (one own row of M = 4 gathered ones:
+// 4 delayed codes, w, u, ref and acc read, ref, acc and the new code
+// written, 29 bytes a column) 10.61 GB, 3.17 ms.
 //
-// Design (a simple one; the point is bit-exactness):
+// Kernels 5, 6 and 7 (a simple design; the point is bit-exactness):
 //   * One block owns a slab of whole chunks (about 1024 columns) of EVERY
 //     row, so a chunk's absmax is reduced inside one block and every state
 //     buffer can be updated in place: the block reads each of its inputs
@@ -36,19 +39,53 @@
 //     exact).  __syncthreads, scales and
 //     reciprocals per (row, chunk), __syncthreads.  Pass 2: each thread
 //     re-reads its own pass-1 outputs (from L2) and writes the codes.
-//   * The pipelined round consumes the DELAYED codes and ships new ones into
-//     the same ring slot: its pass 1 only reduces the absmax, and pass 2
-//     loads a column's old codes, w, r and acc for every row before it
-//     writes anything of that column, so acc may alias w (the iterate IS the
-//     accumulator once the first delayed buffer has landed).  Its new scales
-//     are written after a last __syncthreads, when no thread reads the old.
+//
+// Kernel 8, the pipelined round, consumes the DELAYED codes and ships new
+// ones (in the square call into the same ring slot, in place).  What held
+// its first, two-pass design at 0.43-0.59 of the bound: w and r read twice
+// (once for the absmax, once to quantize), 4-byte and 1-byte accesses, and
+// a third of a million small blocks each passing four barriers with no load
+// in flight across them.  Its resident body (pipelined_kernel) instead:
+//   * A thread owns VEC consecutive columns (VEC = 4: 16-byte loads and
+//     stores of w, r, acc, u, r' and acc', one 4-byte load of each gathered
+//     row's delayed codes and one 4-byte store of its new ones) in G column
+//     groups of a slab of whole chunks, for up to four own rows (two groups
+//     at one own row, a 2048-column slab; one at up to four, 1024).
+//   * Each operand is read once, into registers: phase 1 forms delta =
+//     w - r (kept), acc' (stored at once: w and acc of the column are
+//     already loaded, so acc may be w) and folds |delta| into the slab's
+//     (row, chunk) absmax: a warp shuffle over the chunk's lanes, then one
+//     atomicMax a warp and chunk into shared memory.  One __syncthreads,
+//     then phase 2 quantizes from registers and stores r', the codes and
+//     the slab's scales.  The absmax slots rotate through three sets, so one
+//     barrier a slab suffices.
+//   * A persistent grid (as many blocks as fit on the card) walks the
+//     slabs, and each block issues the NEXT slab's loads before it waits at
+//     the barrier, so they are in flight across it (register double
+//     buffering).  The delayed codes and scales of the first four gathered
+//     rows ride in that prefetch; phase 1 reads any further rows' itself.
+//   * In the square call the delayed codes of a column are read by the
+//     thread that later writes that column's new codes, every old scale of
+//     a slab is read before its barrier and the new ones stored after it,
+//     and the prefetched slab is disjoint from the one being written, so
+//     the in-place update is safe.
+//   * The C entry point picks the instance: VEC = 4 when chunk and D are
+//     multiples of 4 and w, r, acc, u are 16-byte and the codes 4-byte
+//     aligned, else VEC = 1 (any chunk the wire accepts); more than four
+//     own rows (one process holding more than four servers) or a chunk
+//     wider than the slab run the two-pass body (pipelined_twopass_kernel,
+//     which re-reads w and r); wire_pipelined_instance() names the last one
+//     launched, for the wrapper's per-instance count.
+//
+// All four:
 //   * Rounding is pinned op by op to the reference's jitted XLA programs:
 //     __fmaf_rn where XLA fuses a multiply-add (the encode's x * inv + u,
 //     r + q s, acc + (a s) q, the per-leaf mix a0 R0 + a1 R1 + ...),
 //     __fmul_rn / __fsub_rn where it does not, 1/s as a true division
 //     (__fdiv_rn).  Nothing is left to nvcc's --fmad contraction, and there
 //     is no --use_fast_math.  The plain versions in ../ref.py spell out the
-//     same operations.
+//     same operations; kernel 8's bodies run them in the same order, so
+//     either is bitwise the plain version.
 //   * 64-bit offsets: M * D reaches 1.46e9 elements at full size.
 //   * Row forms of kernels 7 and 8 (wire_bucketed_round_rows_f32,
 //     wire_pipelined_round_rows_f32), for a rank of the multi-process wire
@@ -276,12 +313,306 @@ __global__ void __launch_bounds__(kThreads)
 // scales_in) and writes (codes_out, scales_out).  acc may alias w.
 // ---------------------------------------------------------------------------
 
-template <int MT>
+constexpr int kPreRows = 4;     // gathered rows whose delayed codes ride in the prefetch
+constexpr int kAbsmaxSets = 3;  // absmax slot sets in rotation (one barrier a slab)
+
+// The resident body's geometry: a slab is `cpb` whole chunks of every own
+// row, at most one tile of kThreads * VEC * G columns.
+struct PGeom {
+  int m, m_out, chunk, cpb;
+  long long d, nc, nslabs;
+  float qmax, rq;
+  bool warp_chunks;  // chunk % (32 * VEC) == 0: a warp's columns lie in one chunk
+};
+
+// column groups a thread holds: two at one own row, one at up to four
+template <int RG>
+__host__ __device__ constexpr int col_groups() { return RG == 1 ? 2 : 1; }
+
+template <int VEC>
+__device__ __forceinline__ void ld_vec(const float* p, float* v) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void ld_vec_stream(const float* p, float* v) {  // read once: evict first
+  if constexpr (VEC == 4) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void st_vec(float* p, const float* v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// VEC codes as one word (code e in byte e)
+template <int VEC>
+__device__ __forceinline__ unsigned ld_codes(const signed char* p) {
+  if constexpr (VEC == 4) return *reinterpret_cast<const unsigned*>(p);
+  else return (unsigned)(unsigned char)*p;
+}
+
+template <int VEC>
+__device__ __forceinline__ void st_codes(signed char* p, unsigned word) {
+  if constexpr (VEC == 4) *reinterpret_cast<unsigned*>(p) = word;
+  else *p = (signed char)(unsigned char)word;
+}
+
+__device__ __forceinline__ float code_at(unsigned word, int e) {
+  return (float)(int)(signed char)(unsigned char)(word >> (8 * e));
+}
+
+// Fold |delta| of a thread's VEC columns of one row into the slab's
+// (row, chunk) absmax: a max over the chunk's lanes of the warp by shuffles
+// (a butterfly when the whole warp lies in one chunk, else a segmented max
+// down to each chunk's first lane), then one atomicMax on the bits of a
+// non-negative float (order-free, so exact) by that lane.  Every lane of the
+// warp calls it; `valid` is false past the slab's last column.
+template <int VEC>
+__device__ __forceinline__ void fold_vec(unsigned* slots, const PGeom& g, int row, int lc,
+                                         bool valid, const float* delta) {
+  unsigned v = 0u;
+  if (valid) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v = max(v, __float_as_uint(fabsf(delta[e])));
+  }
+  const int lane = threadIdx.x & 31;
+  if (g.warp_chunks) {  // validity is uniform across the warp here
+    if (!valid) return;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) atomicMax(&slots[row * g.cpb + lc], v);
+    return;
+  }
+  const int seg = valid ? lc : -1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned ov = __shfl_down_sync(0xffffffffu, v, o);
+    const int os = __shfl_down_sync(0xffffffffu, seg, o);
+    if (lane + o < 32 && os == seg) v = max(v, ov);
+  }
+  const int prev = __shfl_up_sync(0xffffffffu, seg, 1);
+  if (valid && (lane == 0 || prev != seg)) atomicMax(&slots[row * g.cpb + lc], v);
+}
+
+__device__ __forceinline__ float scale_of(unsigned bits, float rq) {
+  const float am = __uint_as_float(bits);
+  return am > 0.f ? __fmul_rn(am, rq) : 1.f;
+}
+
+// What a thread loads of one slab: its G column groups of VEC columns for
+// RG own rows, and the delayed codes and scales of the first kPreRows
+// gathered rows at those columns.
+template <int RG, int VEC, int G>
+struct Tile {
+  float w[G][RG][VEC], r[G][RG][VEC], a[G][RG][VEC], u[G][RG][VEC];
+  unsigned q[G][kPreRows];
+  float s[G][kPreRows];
+};
+
+struct SlabPos {
+  long long chunk0, col0;
+  int nch, ncols;
+};
+
+__device__ __forceinline__ SlabPos slab_pos(const PGeom& g, long long sidx) {
+  SlabPos p;
+  p.chunk0 = sidx * g.cpb;
+  const long long left = g.nc - p.chunk0;
+  p.nch = (int)(left < g.cpb ? left : g.cpb);
+  p.col0 = p.chunk0 * g.chunk;
+  p.ncols = p.nch * g.chunk;
+  return p;
+}
+
+template <int RG, int VEC, int G>
+__device__ __forceinline__ void load_tile(Tile<RG, VEC, G>& t, const PGeom& g,
+                                          const SlabPos& p, const signed char* codes_in,
+                                          const float* scales_in, const float* w,
+                                          const float* ref, const float* acc,
+                                          const float* u) {
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int c = (k * kThreads + threadIdx.x) * VEC;
+    if (c < p.ncols) {
+#pragma unroll
+      for (int i = 0; i < RG; ++i) {
+        if (i < g.m_out) {
+          const long long at = (long long)i * g.d + p.col0 + c;
+          ld_vec<VEC>(w + at, t.w[k][i]);
+          ld_vec<VEC>(ref + at, t.r[k][i]);
+          ld_vec<VEC>(acc + at, t.a[k][i]);
+          ld_vec_stream<VEC>(u + at, t.u[k][i]);
+        }
+      }
+      const long long ch = p.chunk0 + c / g.chunk;
+#pragma unroll
+      for (int j = 0; j < kPreRows; ++j) {
+        if (j < g.m) {
+          t.q[k][j] = ld_codes<VEC>(codes_in + (long long)j * g.d + p.col0 + c);
+          t.s[k][j] = scales_in[(long long)j * g.nc + ch];
+        }
+      }
+    }
+  }
+}
+
+// One (a_ij s_j) q_j term of every own row of one column group.
+template <int RG, int VEC>
+__device__ __forceinline__ void mix_term(float (*a)[VEC], const float* sa, const PGeom& g,
+                                         int j, unsigned qw, float sj) {
+#pragma unroll
+  for (int i = 0; i < RG; ++i) {
+    if (i < g.m_out) {
+      const float ws = __fmul_rn(sa[i * g.m + j], sj);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) a[i][e] = __fmaf_rn(ws, code_at(qw, e), a[i][e]);
+    }
+  }
+}
+
+// The resident body, for m_out <= 4 own rows and a chunk no wider than a
+// tile.  A persistent grid: block b walks slabs b, b + gridDim.x, ...  A
+// thread owns VEC consecutive columns in each of its G column groups and
+// loads every operand of a slab once, into registers, one slab ahead:
+//   phase 1: delta = w - r (kept), acc' = acc + sum_j (a_ij s_j) q_j
+//            (stored: acc and w of these columns are already loaded, so acc
+//            may be w), |delta| folded into the slab's absmax set;
+//   then the NEXT slab's loads are issued, and one __syncthreads;
+//   phase 2: s, 1/s per (row, chunk); q' = C(delta; u), r' = r + q' s'
+//            stored, the slab's new scales stored (every old one of the slab
+//            was read in phase 1 or in the prefetch, before the barrier);
+//            the absmax set of the slab after next is cleared.
+// In the square call the delayed codes of a column are read (prefetched) by
+// the thread that later writes that column's new codes, so the in-place
+// update is safe; the prefetched slab is disjoint from the one written.
+template <int RG, int VEC>
 __global__ void __launch_bounds__(kThreads)
     pipelined_kernel(const float* __restrict__ a, const signed char* codes_in,
-                     const float* scales_in, const float* w, float* __restrict__ ref, float* acc,
+                     const float* scales_in, const float* w, float* ref, float* acc,
                      const float* __restrict__ u, signed char* codes_out, float* scales_out,
-                     Geom g) {
+                     PGeom g) {
+  constexpr int G = col_groups<RG>();
+  extern __shared__ float smem_raw[];
+  float* sa = smem_raw;
+  const int slots = g.m_out * g.cpb;
+  unsigned* absmax = reinterpret_cast<unsigned*>(smem_raw + g.m_out * g.m);
+  for (int k = threadIdx.x; k < g.m_out * g.m; k += blockDim.x) sa[k] = a[k];
+  for (int k = threadIdx.x; k < kAbsmaxSets * slots; k += blockDim.x) absmax[k] = 0u;
+  __syncthreads();
+  Tile<RG, VEC, G> cur;
+  long long sidx = blockIdx.x;
+  if (sidx < g.nslabs)
+    load_tile(cur, g, slab_pos(g, sidx), codes_in, scales_in, w, ref, acc, u);
+  for (int it = 0; sidx < g.nslabs; ++it, sidx += gridDim.x) {
+    const SlabPos p = slab_pos(g, sidx);
+    unsigned* set = absmax + (it % kAbsmaxSets) * slots;
+    // ---- phase 1 ----
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int c = (k * kThreads + threadIdx.x) * VEC;
+      const bool valid = c < p.ncols;
+      const int lc = valid ? c / g.chunk : 0;
+      if (valid) {
+#pragma unroll
+        for (int j = 0; j < kPreRows; ++j) {
+          if (j < g.m) mix_term<RG, VEC>(cur.a[k], sa, g, j, cur.q[k][j], cur.s[k][j]);
+        }
+        for (int j = kPreRows; j < g.m; ++j) {
+          const unsigned qw = ld_codes<VEC>(codes_in + (long long)j * g.d + p.col0 + c);
+          const float sj = scales_in[(long long)j * g.nc + p.chunk0 + lc];
+          mix_term<RG, VEC>(cur.a[k], sa, g, j, qw, sj);
+        }
+#pragma unroll
+        for (int i = 0; i < RG; ++i) {
+          if (i < g.m_out) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) cur.w[k][i][e] = __fsub_rn(cur.w[k][i][e], cur.r[k][i][e]);
+            st_vec<VEC>(acc + (long long)i * g.d + p.col0 + c, cur.a[k][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RG; ++i) {
+        if (i < g.m_out) fold_vec<VEC>(set, g, i, lc, valid, cur.w[k][i]);
+      }
+    }
+    // ---- the next slab's loads, in flight across the barrier ----
+    Tile<RG, VEC, G> nxt;
+    const long long nidx = sidx + gridDim.x;
+    if (nidx < g.nslabs)
+      load_tile(nxt, g, slab_pos(g, nidx), codes_in, scales_in, w, ref, acc, u);
+    __syncthreads();
+    // ---- phase 2 ----
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const int c = (k * kThreads + threadIdx.x) * VEC;
+      if (c < p.ncols) {
+        const int lc = c / g.chunk;
+#pragma unroll
+        for (int i = 0; i < RG; ++i) {
+          if (i < g.m_out) {
+            const float s = scale_of(set[i * g.cpb + lc], g.rq);
+            const float inv = __fdiv_rn(1.f, s);
+            float rn[VEC];
+            unsigned word = 0u;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              const signed char q = quantize(cur.w[k][i][e], inv, cur.u[k][i][e], g.qmax);
+              rn[e] = __fmaf_rn((float)q, s, cur.r[k][i][e]);
+              word |= (unsigned)(unsigned char)q << (8 * e);
+            }
+            const long long at = (long long)i * g.d + p.col0 + c;
+            st_vec<VEC>(ref + at, rn);
+            st_codes<VEC>(codes_out + at, word);
+          }
+        }
+      }
+    }
+    for (int k = threadIdx.x; k < g.m_out * p.nch; k += blockDim.x) {
+      const int row = k / p.nch, lc = k - row * p.nch;
+      scales_out[(long long)row * g.nc + p.chunk0 + lc] = scale_of(set[row * g.cpb + lc], g.rq);
+    }
+    // the set of slab it - 1: every thread has read it (it is past this
+    // slab's barrier); slab it + 2 folds into it after slab it + 1's barrier
+    unsigned* stale = absmax + ((it + 2) % kAbsmaxSets) * slots;
+    for (int k = threadIdx.x; k < slots; k += blockDim.x) stale[k] = 0u;
+    cur = nxt;
+  }
+}
+
+// The two-pass body, for more than four own rows (one process holding more
+// than four servers) or a chunk wider than a tile: one block a slab of
+// whole chunks (about 1024 columns) of every own row.  Pass 1 folds
+// |w - r| into the absmax; pass 2 reads w, r (again), acc, u and the
+// delayed codes and writes everything.  A column's delayed codes and
+// scales of the MT (>= M) gathered rows are loaded once into registers
+// through the read-only cache before any of its new codes is written (the
+// thread that reads a column's codes is the one that writes them, and the
+// new scales are written after a last __syncthreads, so no cached line goes
+// stale and the square call may update them in place); a run-time loop
+// over the own rows then reads and writes one row's w, r, acc and u at a
+// time, so only the 2 MT delayed values live in registers (no spills at
+// MT = 64).
+template <int MT>
+__global__ void __launch_bounds__(kThreads)
+    pipelined_twopass_kernel(const float* __restrict__ a, const signed char* codes_in,
+                             const float* scales_in, const float* w, float* ref, float* acc,
+                             const float* __restrict__ u, signed char* codes_out,
+                             float* scales_out, Geom g) {
   extern __shared__ float smem_raw[];
   const Slab sl = slab_of(g);
   const Smem sm = smem_layout(smem_raw, g);
@@ -297,40 +628,27 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = threadIdx.x; c < sl.ncols; c += blockDim.x) {
     const long long col = sl.col0 + c;
     const int lc = c / g.chunk;
-    float q[MT], s[MT], wv[MT], rv[MT], av[MT];
+    float q[MT], s[MT];
 #pragma unroll
     for (int j = 0; j < MT; ++j) {
       if (j < g.m) {
-        // the delayed codes and scales through the read-only data cache:
-        // this thread reads a column's codes before it writes them, and the
-        // block writes its scales after the last __syncthreads, so no
-        // cached line goes stale (on one H100 at M = 4, D = 364,904,448 the
-        // square call takes 19.1-20.3 ms this way, 22.7 with plain loads)
         q[j] = (float)__ldg(&codes_in[(long long)j * g.d + col]);
         s[j] = __ldg(&scales_in[(long long)j * g.nc + sl.chunk0 + lc]);
       }
-      if (j < g.m_out) {
-        const long long at = (long long)j * g.d + col;
-        wv[j] = w[at];
-        rv[j] = ref[at];
-        av[j] = acc[at];
-      }
     }
+    for (int i = 0; i < g.m_out; ++i) {
+      const long long at = (long long)i * g.d + col;
+      const int slot = i * g.cpb + lc;
+      const float wv = w[at], rv = ref[at];
+      float acc2 = acc[at];
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (i < g.m_out) {
-        const long long at = (long long)i * g.d + col;
-        const int slot = i * g.cpb + lc;
-        const signed char qi = quantize(__fsub_rn(wv[i], rv[i]), sm.inv[slot], u[at], g.qmax);
-        float acc2 = av[i];
-#pragma unroll
-        for (int j = 0; j < MT; ++j) {
-          if (j < g.m) acc2 = __fmaf_rn(__fmul_rn(sm.a[i * g.m + j], s[j]), q[j], acc2);
-        }
-        ref[at] = __fmaf_rn((float)qi, sm.scale[slot], rv[i]);
-        acc[at] = acc2;
-        codes_out[at] = qi;
+      for (int j = 0; j < MT; ++j) {
+        if (j < g.m) acc2 = __fmaf_rn(__fmul_rn(sm.a[i * g.m + j], s[j]), q[j], acc2);
       }
+      const signed char qi = quantize(__fsub_rn(wv, rv), sm.inv[slot], u[at], g.qmax);
+      ref[at] = __fmaf_rn((float)qi, sm.scale[slot], rv);
+      acc[at] = acc2;
+      codes_out[at] = qi;
     }
   }
   __syncthreads();  // no thread reads an old scale past this point
@@ -445,6 +763,64 @@ unsigned grid_of(const Geom& g) { return (unsigned)((g.nc + g.cpb - 1) / g.cpb);
     else KERNEL<64><<<gr_, kThreads, sm_, STREAM>>>(__VA_ARGS__, G);                    \
   } while (0)
 
+const char* g_pipelined_instance = "none";
+
+bool aligned(const void* p, unsigned n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
+
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] == 0) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev);
+  return cached[dev];
+}
+
+struct PipelinedArgs {
+  const float* a;
+  const signed char* codes_in;
+  const float* scales_in;
+  const float* w;
+  float* ref;
+  float* acc;
+  const float* u;
+  signed char* codes_out;
+  float* scales_out;
+  cudaStream_t stream;
+};
+
+// Launch the resident body on a persistent grid: as many blocks as fit on
+// the card at once (registers bound it), at most one a slab.
+template <int RG, int VEC>
+int launch_resident(const PipelinedArgs& p, const Geom& geom) {
+  constexpr int tile = kThreads * VEC * col_groups<RG>();
+  PGeom g;
+  g.m = geom.m;
+  g.m_out = geom.m_out;
+  g.chunk = geom.chunk;
+  g.cpb = tile / geom.chunk;
+  g.d = geom.d;
+  g.nc = geom.nc;
+  g.nslabs = (g.nc + g.cpb - 1) / g.cpb;
+  g.qmax = geom.qmax;
+  g.rq = geom.rq;
+  g.warp_chunks = geom.chunk % (32 * VEC) == 0;
+  const size_t smem =
+      sizeof(float) * ((size_t)g.m_out * g.m + (size_t)kAbsmaxSets * g.m_out * g.cpb);
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, pipelined_kernel<RG, VEC>, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  long long grid = (long long)per_sm * sm_count();
+  if (grid > g.nslabs) grid = g.nslabs;
+  pipelined_kernel<RG, VEC><<<(unsigned)grid, kThreads, smem, p.stream>>>(
+      p.a, p.codes_in, p.scales_in, p.w, p.ref, p.acc, p.u, p.codes_out, p.scales_out, g);
+  g_pipelined_instance = VEC == 4 ? (RG == 1 ? "vec4.own1" : "vec4.own4")
+                                  : (RG == 1 ? "vec1.own1" : "vec1.own4");
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int wire_encode_f32(const void* w, const void* r, const void* u, void* codes,
@@ -498,13 +874,22 @@ extern "C" int wire_pipelined_round_rows_f32(const void* a, const void* codes_in
   Geom g;
   if (!make_geom(m, d, chunk, bits, &g, m_out, 0)) return (int)cudaErrorInvalidValue;
   if (d == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  WIRE_DISPATCH_MT(pipelined_kernel, g, s, static_cast<const float*>(a),
-                   static_cast<const signed char*>(codes_in),
-                   static_cast<const float*>(scales_in), static_cast<const float*>(w),
-                   static_cast<float*>(ref), static_cast<float*>(acc),
-                   static_cast<const float*>(u), static_cast<signed char*>(codes_out),
-                   static_cast<float*>(scales_out));
+  const PipelinedArgs p{static_cast<const float*>(a), static_cast<const signed char*>(codes_in),
+                        static_cast<const float*>(scales_in), static_cast<const float*>(w),
+                        static_cast<float*>(ref), static_cast<float*>(acc),
+                        static_cast<const float*>(u), static_cast<signed char*>(codes_out),
+                        static_cast<float*>(scales_out), static_cast<cudaStream_t>(stream)};
+  const bool vec4 = chunk % 4 == 0 && d % 4 == 0 && aligned(w, 16) && aligned(ref, 16) &&
+                    aligned(acc, 16) && aligned(u, 16) && aligned(codes_in, 4) &&
+                    aligned(codes_out, 4);
+  const int tile = kThreads * (vec4 ? 4 : 1) * (m_out == 1 ? 2 : 1);
+  if (m_out <= 4 && chunk <= tile) {
+    if (m_out == 1) return vec4 ? launch_resident<1, 4>(p, g) : launch_resident<1, 1>(p, g);
+    return vec4 ? launch_resident<4, 4>(p, g) : launch_resident<4, 1>(p, g);
+  }
+  WIRE_DISPATCH_MT(pipelined_twopass_kernel, g, p.stream, p.a, p.codes_in, p.scales_in, p.w,
+                   p.ref, p.acc, p.u, p.codes_out, p.scales_out);
+  g_pipelined_instance = "twopass";
   return (int)cudaGetLastError();
 }
 
@@ -514,6 +899,12 @@ extern "C" int wire_pipelined_round_f32(const void* a, void* codes, void* scales
   return wire_pipelined_round_rows_f32(a, codes, scales, w, ref, acc, u, codes, scales, m, m, d,
                                        chunk, bits, stream);
 }
+
+// The instance of kernel 8 that the last wire_pipelined_round*_f32 call
+// of this process launched: "vec<VEC>.own<1|4>" for the resident body (VEC
+// columns a thread, one or up to four own rows), "twopass" for the
+// two-pass body.
+extern "C" const char* wire_pipelined_instance() { return g_pipelined_instance; }
 
 extern "C" int wire_leaf_round_f32(const void* a, void* codes, void* scales, void* ref,
                                    void* mixed, const void* u, int m, long long d, int chunk,

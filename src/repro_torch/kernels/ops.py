@@ -33,6 +33,7 @@ def reset_launch_counts() -> None:
     _rn.bwd_launches = 0
     _ssd.launches = 0
     _cm.quant_mix_launches = 0
+    _cm.pipelined_instances.clear()
     for counts in (_cm.wire_launches, _cm.row_launches):
         for name in counts:
             counts[name] = 0
@@ -50,6 +51,14 @@ def flash_attention_mode_counts() -> Dict[str, int]:
     """Kernel 3's launches since the last ``reset_launch_counts()`` by mode
     (``flash_attention.mode_key``); they sum to its ``launch_counts()``."""
     return dict(_fa.mode_launches)
+
+
+def wire_pipelined_instance_counts() -> Dict[str, int]:
+    """Kernel 8's launches (square and row form) since the last
+    ``reset_launch_counts()`` by the instance each took
+    (``consensus_mix.pipelined_instances``); they sum to its two
+    ``launch_counts()`` entries."""
+    return dict(_cm.pipelined_instances)
 
 
 # ---------------------------------------------------------------------------

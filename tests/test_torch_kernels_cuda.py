@@ -1195,6 +1195,160 @@ def test_wire_row_forms_are_row_r_of_the_square_calls(cuda, m, chunk, bits):
     assert all(after[n] == before[n] for n in WIRE_NAMES), after
 
 
+# ---------------------------------------------------------------------------
+# kernel 8's bodies: the resident one (VEC = 4 or 1 columns a thread, one or
+# up to four own rows) and the two-pass
+# one (more than four own rows, or a chunk wider than a tile), bitwise the
+# plain version, the row form bitwise row r of the square call
+# ---------------------------------------------------------------------------
+
+K8_CHUNKS = (4, 6, 16, 256, 960, 2048)
+
+
+def _k8_instance(m_out: int, chunk: int, vec4: bool = True) -> str:
+    """The instance ``wire_pipelined_round*_f32`` picks (its C rule)."""
+    own = 1 if m_out == 1 else 4
+    vec = 4 if vec4 and chunk % 4 == 0 else 1
+    tile = 256 * vec * (2 if own == 1 else 1)
+    if m_out > 4 or chunk > tile:
+        return "twopass"
+    return f"vec{vec}.own{own}"
+
+
+def _k8_square(x, kw, acc_is_w=False):
+    c, s_, r = (x[k].clone() for k in ("codes", "scales", "ref"))
+    w = x["w"].clone()
+    acc = w if acc_is_w else x["acc"].clone()
+    got = ops.bucketed_gossip_round_pipelined(x["a"], c, s_, w, r, acc,
+                                              x["u"], **kw)
+    assert got[0] is acc and got[2] is c and got[3] is s_
+    return got
+
+
+def _k8_counts():
+    torch.cuda.synchronize()
+    return ops.wire_pipelined_instance_counts()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("chunk", K8_CHUNKS)
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 64])
+def test_pipelined_round_bodies_match_plain(cuda, m, chunk, bits):
+    """Kernel 8 square and row form, in place and with ``acc`` the iterate
+    itself, over every instance; one launch a call, counted by instance."""
+    nc = max(37, 3 * (2048 // chunk) + 1)   # three slabs or more, ragged
+    d = chunk * nc
+    x = _wire_inputs(cuda, m, d, chunk, bits, seed=7 * m + chunk + bits)
+    kw = dict(bits=bits, chunk=chunk)
+    want = ref.bucketed_gossip_round_pipelined_ref(
+        x["a"], x["codes"], x["scales"], x["w"], x["ref"], x["acc"], x["u"],
+        **kw)
+    want_w = ref.bucketed_gossip_round_pipelined_ref(
+        x["a"], x["codes"], x["scales"], x["w"], x["ref"], x["w"], x["u"],
+        **kw)
+    ops.reset_launch_counts()
+    sq = _k8_square(x, kw)
+    _assert_same(sq, want)
+    _assert_same(_k8_square(x, kw, acc_is_w=True), want_w)
+    assert _k8_counts() == {_k8_instance(m, chunk): 2}
+    codes0, scales0 = x["codes"].clone(), x["scales"].clone()
+    for r in sorted({0, m - 1}):
+        own = slice(r, r + 1)
+        a_r = x["a"][own].contiguous()
+        for acc_is_w in (False, True):
+            w_r = x["w"][own].clone()
+            acc_r = w_r if acc_is_w else x["acc"][own].clone()
+            out_c = torch.empty((1, d), dtype=torch.int8, device=cuda)
+            out_s = torch.empty((1, nc), device=cuda)
+            ops.reset_launch_counts()
+            got = ops.bucketed_gossip_round_pipelined_rows(
+                a_r, x["codes"], x["scales"], w_r, x["ref"][own].clone(),
+                acc_r, x["u"][own], out_c, out_s, **kw)
+            assert _k8_counts() == {_k8_instance(1, chunk): 1}
+            assert ops.launch_counts()[
+                "bucketed_gossip_round_pipelined_rows"] == 1
+            _assert_same(got, [t[own] for t in (want_w if acc_is_w
+                                                 else want)])
+            if not acc_is_w:
+                _assert_same(got, [t[own] for t in sq])
+    if m >= 2:          # a rank holding two rows
+        own = slice(0, 2)
+        ops.reset_launch_counts()
+        got = ops.bucketed_gossip_round_pipelined_rows(
+            x["a"][own].contiguous(), x["codes"], x["scales"], x["w"][own],
+            x["ref"][own].clone(), x["acc"][own].clone(), x["u"][own],
+            torch.empty((2, d), dtype=torch.int8, device=cuda),
+            torch.empty((2, nc), device=cuda), **kw)
+        assert _k8_counts() == {_k8_instance(2, chunk): 1}
+        _assert_same(got, [t[own] for t in sq])
+    _assert_same((x["codes"], x["scales"]), (codes0, scales0))
+
+
+@pytest.mark.parametrize("form", ["square", "rows"])
+def test_pipelined_round_misaligned_operand_takes_vec1(cuda, form):
+    """An operand 4 bytes off 16-byte alignment: the C entry point falls
+    back to one column a thread, and the result stays bitwise."""
+    m, chunk, bits = 4, 256, 8
+    d = chunk * 41
+    x = _wire_inputs(cuda, m, d, chunk, bits, seed=11)
+    kw = dict(bits=bits, chunk=chunk)
+    want = ref.bucketed_gossip_round_pipelined_ref(
+        x["a"], x["codes"], x["scales"], x["w"], x["ref"], x["acc"], x["u"],
+        **kw)
+    rows = m if form == "square" else 1
+    buf = torch.empty(rows * d + 1, device=cuda)
+    u_off = buf[1:].view(rows, d)               # 4 bytes past 16-aligned
+    u_off.copy_(x["u"][:rows])
+    assert u_off.data_ptr() % 16 == 4
+    ops.reset_launch_counts()
+    if form == "square":
+        got = ops.bucketed_gossip_round_pipelined(
+            x["a"], x["codes"].clone(), x["scales"].clone(), x["w"],
+            x["ref"].clone(), x["acc"].clone(), u_off, **kw)
+        _assert_same(got, want)
+        assert _k8_counts() == {_k8_instance(m, chunk, vec4=False): 1}
+    else:
+        got = ops.bucketed_gossip_round_pipelined_rows(
+            x["a"][:1].contiguous(), x["codes"], x["scales"], x["w"][:1],
+            x["ref"][:1].clone(), x["acc"][:1].clone(), u_off,
+            torch.empty((1, d), dtype=torch.int8, device=cuda),
+            torch.empty((1, d // chunk), device=cuda), **kw)
+        _assert_same(got, [t[:1] for t in want])
+        assert _k8_counts() == {_k8_instance(1, chunk, vec4=False): 1}
+
+
+@pytest.mark.parametrize("form", ["square", "rows"])
+def test_pipelined_round_more_slabs_than_the_grid(cuda, form):
+    """D of 8,453 chunks of 256 (more slabs than the persistent grid has
+    blocks at up to eight blocks an SM; a ragged last slab): bitwise the
+    plain version, in place with ``acc`` the iterate, as the periods call
+    it."""
+    m, chunk = 4, 256
+    nc = 8 * 132 * 8 + 5
+    d = chunk * nc
+    x = _wire_inputs(cuda, m, d, chunk, 8, seed=12)
+    kw = dict(bits=8, chunk=chunk)
+    want = ref.bucketed_gossip_round_pipelined_ref(
+        x["a"], x["codes"], x["scales"], x["w"], x["ref"], x["w"], x["u"],
+        **kw)
+    ops.reset_launch_counts()
+    if form == "square":
+        got = _k8_square(x, kw, acc_is_w=True)
+        _assert_same(got, want)
+        assert _k8_counts() == {"vec4.own4": 1}
+    else:
+        r = 2
+        own = slice(r, r + 1)
+        w_r = x["w"][own].clone()
+        got = ops.bucketed_gossip_round_pipelined_rows(
+            x["a"][own].contiguous(), x["codes"], x["scales"], w_r,
+            x["ref"][own].clone(), w_r, x["u"][own],
+            torch.empty((1, d), dtype=torch.int8, device=cuda),
+            torch.empty((1, nc), device=cuda), **kw)
+        _assert_same(got, [t[own] for t in want])
+        assert _k8_counts() == {"vec4.own1": 1}
+
+
 def test_row_forms_refuse_what_they_do_not_take(cuda):
     x = _wire_inputs(cuda, 4, 1024, 256, 8, seed=4)
     own = slice(1, 2)

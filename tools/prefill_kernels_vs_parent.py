@@ -23,7 +23,9 @@ bf16 prefills of ``chip_smoke.py``'s Gemma-2-27B, Command-R-35B and
 Mixtral-8x22B cells (full width, bf16 weights from seed 0; Mixtral cut to 10
 layers) in turns with each checkout's kernel-3 module swapped into
 ``ops``, one model at a time.  Prints one JSON line per comparison, then the
-card's name and power limit.  Needs one NVIDIA GPU.
+card's name and power limit.  Rows 3a and 3b's library yardstick, the
+compiled ``flex_attention`` at Gemma-2's shapes, runs after the zoo modes.
+Needs one NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -209,6 +211,68 @@ def prefills_in_turns(torch, cs, other_fa, this_fa) -> None:
         ops._fa = saved
 
 
+def flex_attention_rows(torch, cs, this_fa, g, reps: int) -> None:
+    """The library yardstick of rows 3a and 3b (Gemma-2's local and global
+    layers, bf16): ``torch.nn.attention.flex_attention`` under
+    ``torch.compile``, the tanh softcap as a ``score_mod`` and the causal
+    mask with the sliding window as a block mask, at
+    ``chip_smoke.FLASH_ZOO``'s shapes; held per row against this checkout's
+    kernel 3 and timed beside it.  The port never calls it.  A failure to
+    compile or run is printed as the row's ``error``."""
+    dev = torch.device("cuda")
+    for name, _, b, s, h, kvh, hd, kw, dtype, _ in cs.FLASH_ZOO:
+        if not name.startswith("gemma2"):
+            continue
+        row = {"phase": "flex_attention_library", "mode": name,
+               "shape": [b, s, s, h, kvh, hd], "dtype": dtype, **kw}
+        try:
+            from torch.nn.attention.flex_attention import (create_block_mask,
+                                                           flex_attention)
+            window, cap = kw.get("window"), kw["softcap"]
+
+            def mask_mod(b_, h_, qi, ki):
+                keep = ki <= qi
+                if window is not None:
+                    keep = keep & (ki > qi - window)
+                return keep
+
+            def score_mod(score, b_, h_, qi, ki):
+                return cap * torch.tanh(score / cap)
+
+            dt = getattr(torch, dtype)
+            q = (torch.randn((b, s, h, hd), device=dev, generator=g)
+                 * cs.FLASH_SOFTCAP_Q_SCALE).to(dt)
+            k = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
+            v = torch.randn((b, s, kvh, hd), device=dev, generator=g).to(dt)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            block_mask = create_block_mask(mask_mod, None, None, s, s,
+                                           device=dev)
+            compiled = torch.compile(flex_attention, dynamic=False)
+
+            def lib():
+                return compiled(qt, kt, vt, score_mod=score_mod,
+                                block_mask=block_mask, enable_gqa=True)
+            t0 = time.perf_counter()
+            out = lib()
+            torch.cuda.synchronize()
+            row["compile_s"] = time.perf_counter() - t0
+            ours = this_fa.flash_attention_cuda(q, k, v, **kw)
+            row["row_rel_diff_vs_kernel"] = row_rel(out.transpose(1, 2),
+                                                    ours)
+            row["limit_each_vs_plain"] = cs.FLASH_BF16_ROW_LIMIT
+            del out, ours
+            row["library_ms"] = events_ms(torch, lib, reps)
+            row["kernel_ms"] = events_ms(
+                torch, lambda: this_fa.flash_attention_cuda(q, k, v, **kw),
+                reps)
+            del q, k, v, qt, kt, vt
+        except Exception as exc:    # recorded: the row says why
+            row["library_ms"] = None
+            row["error"] = f"{type(exc).__name__}: {exc}"[:2000]
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
@@ -280,6 +344,7 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         del q, k, v, o0, o1, fns
         zoo_modes(torch, chip_smoke, other_fa, this_fa, g, args.reps)
+        flex_attention_rows(torch, chip_smoke, this_fa, g, args.reps)
         prefills_in_turns(torch, chip_smoke, other_fa, this_fa)
     print(smi, flush=True)
     return 0
