@@ -137,6 +137,22 @@ before it and read just after:
   epoch, collective and staging seconds and peak; then the trainer under
   ``python -m torch.distributed.run --nproc-per-node 4`` at the smoke
   size, rank 0's JSONL history against the in-process run's.
+* the launch layer (PR 27), in the same world: ``shard_map_inlier``, one
+  dynamic epoch with ``inlier_shift`` on server 0 (the honest envelope
+  reduced over the ranks), rows bitwise the one-process epoch's;
+  ``shard_map_axes``, the four ranks as a (server 2, client 1, replica 2,
+  model 1) mesh of ``launch.mesh`` holding full-width SmolLM-360M server
+  rows cut by ``launch.sharding.fl_server_specs`` (FSDP over "replica"):
+  one T_S = 5 period of the plain program (kernel 1r), of the int8
+  physical wire with error feedback at staleness 0 (kernels 6, 7r) and 1
+  (kernel 8r), each rank's pieces and residual bitwise row r of the
+  one-process period on every piece under A ⊗ I_S (this process, square
+  kernels), each rank's calls and bytes a round equal to the meta-device
+  dry run's record, and the same federation's wire period with one whole
+  row a rank on the two replica-0 ranks (``wire_whole``) as the
+  yardstick; then ``dryrun``, one pair of each
+  program (SmolLM-360M train_4k, Qwen3-1.7B prefill_32k, Mamba2-780M
+  long_500k) on the meta device in a process of its own beside the CLI.
 
 Kernels 3 and 9 at their prefill shapes also report each device kernel's
 time from the profiler, the blocks of each launch, and the registers and
@@ -151,6 +167,7 @@ prints no result.  It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -3909,6 +3926,11 @@ SHARD_PHASES = [
         wire="physical", error_feedback=True)),
     ("push_sum", "train", dict(PS_TRAIN, epochs=1, compression="int8",
                                wire="physical", error_feedback=True)),
+    # inlier_shift across ranks: seed 1 marks server 0 (one attacker of
+    # four), plain gossip over the dynamic graph
+    ("inlier", "train_dynamic", dict(
+        DYN_TRAIN, faults="", epochs=1, byzantine="inlier_shift:0.25:0.9",
+        seed=1)),
 ]
 #: each rank's share of the card: four ranks of ~14 GB at their peak and
 #: this process's context fit in 80 GB only if no rank keeps another's
@@ -3959,6 +3981,216 @@ def _run_fingerprints(torch, run, tree_leaves, sample=False) -> dict:
                         if k not in ("epoch_s", "alloc_gb")}}
 
 
+# the sharded server row: a (server, client, replica, model) mesh of the
+# launch layer, _BIG_SP's structure (M = 2, N = 1, R = 8, TP = 16) at four
+# ranks; full-width SmolLM-360M server rows cut by fl_server_specs (FSDP
+# over "replica", tp_axis None as SmolLM's plan has it); one T_S period of
+# each run; "wire_whole" is the timing yardstick: the same M = 2
+# federation and period with one whole row a rank (the mesh (2, 1, 1, 1)),
+# run on the bare server group of the ranks at replica 0 while the others
+# wait
+AXES_SHAPE = (2, 1, 2, 1)
+AXES_WHOLE = (2, 1, 1, 1)
+AXES_A = [[0.75, 0.25], [0.25, 0.75]]
+AXES_T = 5
+AXES_KEY = 7
+AXES_CODEC = "int8"
+AXES_DEVICE = "cuda"
+# run -> (mesh shape, staleness; None: the plain program)
+AXES_RUNS = {"plain": (AXES_SHAPE, None), "wire": (AXES_SHAPE, 0),
+             "wire_stale": (AXES_SHAPE, 1), "wire_whole": (AXES_WHOLE, 0)}
+# the dry run's pairs, one of each program (prefill is qwen3's)
+DRYRUN_PAIRS = [("smollm-360m", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                ("mamba2-780m", "long_500k")]
+
+
+def axes_matrix(m: int) -> np.ndarray:
+    """The period's mixing matrix, AXES_A (M = 2)."""
+    assert m == 2, m
+    return np.asarray(AXES_A, np.float32)
+
+
+def axes_server_row(torch, ttf, cfg, i: int) -> list:
+    """Server i's row of full SmolLM-360M (its leaves in tree order): the
+    seed-0 init plus 0.01 N(0, 1) drawn leaf by leaf from a generator
+    seeded 1 + i (on the card, the same values in every process)."""
+    dev = torch.device(AXES_DEVICE)
+    from repro_torch.tree import tree_leaves
+    base = tree_leaves(ttf.init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, torch.float32,
+        device=dev))
+    g = torch.Generator(device=dev).manual_seed(1 + i)
+    for leaf in base:
+        leaf.add_(torch.randn(leaf.shape, device=dev, generator=g),
+                  alpha=0.01)
+    return base
+
+
+def axes_layout(torch, ttf, cfg, shape, rank=None):
+    """``(mesh, server_abs, specs)`` of a run: the FL rank mesh of
+    ``shape``, the (M, *w) server tree on meta, its fl_server_specs."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.tree import tree_map
+    mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=rank)
+    meta = ttf.init_params(torch.Generator(), cfg, torch.float32,
+                           device="meta")
+    server_abs = tree_map(lambda x: torch.empty(
+        (shape[0],) + tuple(x.shape), device="meta"), meta)
+    return mesh, server_abs, shd.fl_server_specs(server_abs, mesh,
+                                                 tp_axis=None)
+
+
+def axes_pieces(torch, ttf, cfg, shape, rank: int, row=None) -> list:
+    """Rank ``rank``'s pieces (leaves ``(1, *local)``) of its server's row
+    on the mesh of ``shape``."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.tree import tree_leaves
+    mesh, server_abs, specs = axes_layout(torch, ttf, cfg, shape, rank)
+    i = mesh.coords(rank)["server"]
+    row = axes_server_row(torch, ttf, cfg, i) if row is None else row
+    out = []
+    for leaf, full, spec in zip(row, tree_leaves(server_abs),
+                                tree_leaves(specs)):
+        cut = shd.shard_slices(tuple(full.shape), spec, mesh, rank)
+        out.append(leaf[cut[1:]][None].contiguous())
+    return out
+
+
+def axes_backend(torch, cns, m: int, t_s: int, staleness, mesh=None,
+                 specs=None, kron: int = 0):
+    """The run's backend: on ``mesh`` the shard_map backend over ``specs``
+    (``mesh`` a bare group and ``specs`` None: whole rows), or (``kron`` =
+    S) the one-process backend on the (M * S)-row problem under A ⊗ I_S;
+    the int8 physical wire with error feedback unless ``staleness`` is
+    None."""
+    from repro_torch.comm import compressors as cp
+    a = axes_matrix(m)
+    if kron:
+        inner = cns.GossipBackend(np.kron(a, np.eye(kron, dtype=np.float32)),
+                                  t_s, staleness=staleness or 0)
+    else:
+        from repro_torch.launch import sharding as shd
+        from repro_torch.tree import tree_leaves
+        counted = (None if specs is None else
+                   [shd.first_copy(x, mesh) for x in tree_leaves(specs)])
+        inner = cns.ShardMapBackend(mesh, a, t_s, specs, counted=counted,
+                                    staleness=staleness or 0)
+    if staleness is None:
+        return inner
+    return cns.CompressedBackend(inner, cp.make_compressor(AXES_CODEC),
+                                 error_feedback=True, wire="physical",
+                                 wire_block=16_777_216)
+
+
+def axes_period(torch, cns, backend, staleness, tree):
+    """One period: ``(mixed, residual)`` (residual None on the plain
+    program)."""
+    from repro_torch.comm import prng
+    from repro_torch.tree import tree_map
+    if staleness is None:
+        return backend.mix(tree), None
+    return backend.mix_compressed(
+        tree, residual=tree_map(torch.zeros_like, tree),
+        key=prng.key(AXES_KEY))
+
+
+def axes_rank(torch, cns, ops, ttf, cfg, rank: int) -> dict:
+    """The world's ``shard_map_axes`` runs on this rank: per run, its
+    pieces' and residual's fingerprints, launches, collectives, the
+    period's seconds, the disagreement over the world and the peak.  A
+    rank at replica 1 sits ``wire_whole`` out (no entry)."""
+    import torch.distributed as dist
+    out = {}
+    # the mesh's server subgroups are made once, on every rank
+    mesh, _, specs = axes_layout(torch, ttf, cfg, AXES_SHAPE)
+    pieces = axes_pieces(torch, ttf, cfg, AXES_SHAPE, rank)
+    for name, (shape, stale) in AXES_RUNS.items():
+        start = None            # the group that starts the period: all
+        if shape == AXES_WHOLE:
+            dist.barrier()
+            if mesh.coords()["replica"]:
+                continue
+            # the same federation one whole row a rank: the server group
+            # of the replica-0 ranks, taken as a bare group
+            start = mesh.group("server")
+            pieces = [x[None] for x in axes_server_row(
+                torch, ttf, cfg, mesh.coords()["server"])]
+            backend = axes_backend(torch, cns, shape[0], AXES_T, stale,
+                                   start)
+        else:
+            backend = axes_backend(torch, cns, shape[0], AXES_T, stale,
+                                   mesh, specs)
+        tree = list(pieces)
+        inner = getattr(backend, "inner", backend)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cns.reset_collective_counts()
+        torch.cuda.synchronize()
+        dist.barrier(group=start)
+        t0 = time.perf_counter()
+        mixed, res = axes_period(torch, cns, backend, stale, tree)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = cns.collective_counts()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        k8 = ops.wire_pipelined_instance_counts()
+        dis = float(inner.disagreement(mixed))
+        out[name] = {
+            "rows": rows_fingerprint(torch, [x[:, None] for x in mixed]),
+            "ef": (None if res is None else rows_fingerprint(
+                torch, [x[:, None] for x in res])),
+            "period_s": seconds, "launches": launches,
+            "kernel8_instances": k8,
+            "collectives": counts, "disagreement": dis,
+            "server_group": dist.get_process_group_ranks(inner.group),
+            "piece_elems": sum(x.numel() for x in pieces),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del mixed, res, tree, backend, inner
+    del pieces
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def axes_emulation(torch, cns, ttf, cfg) -> dict:
+    """The one-process periods on the (M * S)-row problem of every piece
+    under A ⊗ I_S (rank r's pieces as row r), each row's fingerprints,
+    and the seconds of each period (square kernels 1, 6, 7, 8)."""
+    want = {}
+    m, s = AXES_SHAPE[0], AXES_SHAPE[2]
+    rows = [[] for _ in range(m * s)]
+    for i in range(m):
+        row = axes_server_row(torch, ttf, cfg, i)
+        for k in range(s):
+            rows[i * s + k] = axes_pieces(torch, ttf, cfg, AXES_SHAPE,
+                                          i * s + k, row)
+        del row
+    emul = [torch.cat(parts) for parts in zip(*rows)]
+    del rows
+    torch.cuda.empty_cache()
+    for name, (shape, stale) in AXES_RUNS.items():
+        if shape != AXES_SHAPE:
+            continue
+        backend = axes_backend(torch, cns, m, AXES_T, stale, kron=s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mixed, res = axes_period(torch, cns, backend, stale, list(emul))
+        torch.cuda.synchronize()
+        want[name] = {
+            "rows": rows_fingerprint(torch, [x[:, None] for x in mixed]),
+            "ef": (None if res is None else rows_fingerprint(
+                torch, [x[:, None] for x in res])),
+            "period_s": time.perf_counter() - t0}
+        del mixed, res, backend
+        torch.cuda.empty_cache()
+    want["elems"] = sum(x[0].numel() for x in emul)
+    del emul
+    torch.cuda.empty_cache()
+    return want
+
+
 def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
     """One rank of the world: server ``rank`` on ``cuda:0``.  Runs every
     phase through the trainers and puts its readings on ``q``; a failure
@@ -3985,6 +4217,14 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                                 world_size=SHARD_M, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         for name, trainer, kw in phases:
+            if trainer == "axes":
+                from repro_torch.configs import get_arch
+                from repro_torch.models import transformer as ttf
+                t0 = time.perf_counter()
+                out[name] = axes_rank(torch, cns, ops, ttf,
+                                      get_arch("smollm-360m"), rank)
+                out[name]["wall_s"] = time.perf_counter() - t0
+                continue
             ops.reset_launch_counts()
             cns.reset_collective_counts()
             torch.cuda.empty_cache()
@@ -4236,9 +4476,11 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     (``shard_map_rows``), then one-process reference epochs in this process,
     then one world of four gloo ranks running ``shard_map_wire`` (staleness
     0 and 1), ``shard_map_plain``, ``shard_map_dynamic`` (and push-sum),
-    each rank's rows held to the one-process run's; then ``shard_map_cli``
-    through ``torch.distributed.run``.  Returns the row forms' kernel rows
-    with their launches."""
+    ``shard_map_inlier`` and ``shard_map_axes``, each rank's rows held to
+    the one-process run's; then ``shard_map_cli`` through
+    ``torch.distributed.run`` with the dry run's process beside it (the
+    last timed phase is over) and the ``dryrun`` lines.  Returns the row
+    forms' kernel rows with their launches."""
     from repro_torch.comm import compressors as cp
     from repro_torch.comm.accounting import \
         tree_bucketed_wire_bytes_per_server
@@ -4265,6 +4507,15 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                                          for k, v in want.items()},
          wall_s={k: v["wall_s"] for k, v in want.items()})
 
+    # ---- the sharded row's one-process emulation (A ⊗ I_S on every
+    # piece) and the dry run's collective record of each run ----
+    from repro_torch.configs import get_arch
+    from repro_torch.core import consensus as cns
+    from repro_torch.models import transformer as ttf
+    cfg = get_arch("smollm-360m")
+    want_axes = axes_emulation(torch, cns, ttf, cfg)
+    dry_axes = axes_dry_records(torch, ttf, cfg)
+
     # ---- the world: four ranks, one server each, on the one card (this
     # process keeps only its context and what main() still holds) ----
     import gc
@@ -4273,7 +4524,7 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     emit("shard_map_parent", alloc_gb=torch.cuda.memory_allocated() / 1e9,
          reserved_gb=torch.cuda.memory_reserved() / 1e9)
     t0 = time.perf_counter()
-    ranks = shard_world(torch, SHARD_PHASES)
+    ranks = shard_world(torch, SHARD_PHASES + [("axes", "axes", {})])
     world_s = time.perf_counter() - t0
     server_abs = [torch.empty((SHARD_M,) + tuple(s), device="meta")
                   for s in ranks[0]["wire"]["leaf_shapes"]]
@@ -4319,12 +4570,31 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
             phase = {"wire": "shard_map_wire",
                      "wire_stale": "shard_map_wire",
                      "dynamic": "shard_map_dynamic",
-                     "push_sum": "shard_map_dynamic"}[name]
+                     "push_sum": "shard_map_dynamic",
+                     "inlier": "shard_map_inlier"}[name]
             k8 = [r[name]["kernel8_instances"] for r in ranks]
+            attack = {}
+            if name == "inlier":
+                # the attack ran: the honest envelope's two max-reductions
+                # a leaf an epoch on every rank, an attacker that epoch
+                attack = dict(
+                    inlier_shift_reductions=[
+                        r[name]["collectives"]["sites"].get(
+                            "inlier_shift", 0) for r in ranks],
+                    expected_reductions=2 * len(ranks[0][name][
+                        "leaf_shapes"]) * epochs,
+                    byzantine=ranks[0][name]["history"]["byzantine"],
+                    one_process_byzantine=want[name]["history"][
+                        "byzantine"])
             emit(phase, run=name, staleness=kw.get("staleness", 0),
                  bitwise=bitwise, ef_bitwise=ef_same,
-                 same_history=same_hist, kernel8_instances=k8, **fields)
+                 same_history=same_hist, kernel8_instances=k8, **attack,
+                 **fields)
             assert bitwise and ef_same, name
+            if attack:
+                assert attack["inlier_shift_reductions"] == [
+                    attack["expected_reductions"]] * SHARD_M, attack
+                assert min(attack["one_process_byzantine"]) > 0, attack
             # every rank's round on the resident row body, VEC = 4
             want_k8 = ({KERNEL8_ROW: kw["t_server"] * kw["epochs"]}
                        if kw.get("staleness") else {})
@@ -4339,16 +4609,192 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                     rank_row
                 assert sum(rank_row["bytes_per_round"].values()) \
                     == row_bytes, rank_row
+    axes_launches = axes_check(torch, ranks, want_axes, dry_axes, smi)
     launches = {k: sum(r[name]["launches"].get(k, 0) for r in ranks
                        for name in ("wire", "wire_stale", "plain"))
-                for k in ROW_KERNELS}
+                + axes_launches.get(k, 0) for k in ROW_KERNELS}
     assert all(launches.values()), launches
     for k, row in rows.items():
         row["launches"] = launches[k]
 
-    # ---- the CLI as users start it, at the smoke size ----
+    # ---- the CLI as users start it, at the smoke size; the dry run of one
+    # pair of each program beside it, in a process of its own (no CUDA;
+    # started after the last timed phase, so it shares the host's cores
+    # with no measurement) ----
+    dry = start_dryrun()
     shard_cli(torch, ttrain)
+    finish_dryrun(dry, dry_axes)
     return rows
+
+
+def axes_dry_records(torch, ttf, cfg) -> dict:
+    """The dry run's collective record of each ``shard_map_axes`` run (meta
+    pieces, ``DryGroup``s) on rank 0: what each rank of the world must
+    send (every rank's pieces have rank 0's shapes)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import FLMeshSpec
+    out = {}
+    for name, (shape, stale) in AXES_RUNS.items():
+        _, server_abs, _ = axes_layout(torch, ttf, cfg, shape, rank=0)
+        kw = ({} if stale is None else dict(
+            compression=AXES_CODEC, error_feedback=True, wire="physical",
+            staleness=stale))
+        out[name] = dryrun.consensus_record(
+            server_abs, FLMeshSpec(*shape), axes_matrix(shape[0]), AXES_T,
+            rank=0, tp_axis=None, **kw)
+    return out
+
+
+def axes_check(torch, ranks, want: dict, dry: dict, smi: str) -> dict:
+    """``shard_map_axes``, one line a run: each rank's pieces (and EF
+    residual) bitwise row r of the one-process A ⊗ I_S emulation, the
+    launches, each rank's calls and bytes a round by op:dtype equal to the
+    dry run's record, the period's seconds (and the emulation's), the
+    server subgroups, the disagreement over the world, the peak per rank;
+    ``wire_whole`` on ranks 0 and 2 only, beside the sharded wire's
+    period.  Returns the row kernels' launches summed over the runs and
+    ranks."""
+    total: dict = {}
+    whole_bytes = sum(ranks[0]["axes"]["wire_whole"]["collectives"][
+        "bytes"].values()) / AXES_T
+    for name, (shape, stale) in AXES_RUNS.items():
+        # rank -> its readings (a rank at replica 1 sits wire_whole out)
+        got = {r: x["axes"][name] for r, x in enumerate(ranks)
+               if name in x["axes"]}
+        per_rank = []
+        for r, x in got.items():
+            c = x["collectives"]
+            per_rank.append({
+                "rank": r, "period_s": x["period_s"],
+                "calls_per_round": {k: v / AXES_T
+                                    for k, v in c["calls"].items()},
+                "bytes_per_round": {k: v / AXES_T
+                                    for k, v in c["bytes"].items()},
+                "collective_s": c["seconds"], "staging_s": c["staging_s"],
+                "server_group": x["server_group"],
+                "piece_elems": x["piece_elems"], "launches": x["launches"],
+                "kernel8_instances": x["kernel8_instances"],
+                "peak_gb": x["peak_gb"]})
+            for k, v in x["launches"].items():
+                total[k] = total.get(k, 0) + v
+        same_dry = all(x["collectives"]["calls"] == dry[name]["calls"]
+                       and x["collectives"]["bytes"] == dry[name]["bytes"]
+                       for x in got.values())
+        dis = [x["disagreement"] for x in got.values()]
+        fields = dict(run=name, mesh=dict(zip(
+            ("server", "client", "replica", "model"), shape)),
+            staleness=stale, t_server=AXES_T, ranks=per_rank,
+            disagreement=dis, same_as_dry_run=same_dry, nvidia_smi=smi)
+        if stale is not None:
+            fields["bytes_per_round_vs_whole_row"] = sum(
+                per_rank[0]["bytes_per_round"].values()) / whole_bytes
+        if shape == AXES_WHOLE:
+            fields["sharded_wire_period_s"] = [
+                r["axes"]["wire"]["period_s"] for r in ranks]
+        if name in want:
+            rows_same = all(x["rows"][0] == want[name]["rows"][r]
+                            for r, x in got.items())
+            ef_same = all(x["ef"] is None and want[name]["ef"] is None
+                          or x["ef"][0] == want[name]["ef"][r]
+                          for r, x in got.items())
+            fields.update(bitwise=rows_same, ef_bitwise=ef_same,
+                          one_process_period_s=want[name]["period_s"])
+        emit("shard_map_axes", **fields)
+        assert same_dry, (name, [x["collectives"] for x in got.values()],
+                          dry[name])
+        assert all(np.isfinite(dis)), dis
+        if name in want:
+            assert fields["bitwise"] and fields["ef_bitwise"], name
+        if shape == AXES_SHAPE:
+            # the server subgroups: the two ranks of each replica
+            assert [x["server_group"] for x in got.values()] == [
+                [r % 2, 2 + r % 2] for r in range(SHARD_M)], got
+        else:
+            # the yardstick: the replica-0 ranks, one group, whole rows
+            assert sorted(got) == [0, 2] and all(
+                x["server_group"] == [0, 2] for x in got.values()), got
+        launches = got[0]["launches"]
+        if stale is None:
+            assert launches.get("consensus_mix_rows", 0) > 0, launches
+        elif stale == 0:
+            assert launches.get("bucketed_gossip_round_rows") == AXES_T
+            assert launches.get("quantized_gossip_encode", 0) >= 1
+        else:
+            assert launches.get(
+                "bucketed_gossip_round_pipelined_rows") == AXES_T
+            assert all(x["kernel8_instances"] == {KERNEL8_ROW: AXES_T}
+                       for x in got.values()), got
+        if stale is not None:
+            assert all(p["calls_per_round"] == {"all_gather:int8": 1.0,
+                                                "all_gather:float32": 1.0}
+                       for p in per_rank), per_rank
+    return total
+
+
+def _stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_dryrun():
+    """The dry run of DRYRUN_PAIRS in a process of its own, on the CPU (it
+    runs on meta tensors: no card, no storage); ``finish_dryrun`` reads
+    it, and the process is killed at exit if it still runs."""
+    root = pathlib.Path(__file__).resolve().parent
+    code = ("import json, sys, time\n"
+            "from repro_torch.launch import dryrun\n"
+            "for a, s in json.loads(sys.argv[1]):\n"
+            "    t0 = time.perf_counter()\n"
+            "    r = dryrun.run_one(a, s, save=False, verbose=False)\n"
+            "    r['pair_s'] = time.perf_counter() - t0\n"
+            "    print(json.dumps(r, default=str), flush=True)\n")
+    env = {**__import__("os").environ, "PYTHONPATH": str(root / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    # its output goes to files: a full pipe would stall it while this
+    # process runs the paths
+    (root / "build").mkdir(exist_ok=True)
+    out = root / "build" / f"dryrun_{int(time.time())}"
+    with open(f"{out}.out", "w") as fo, open(f"{out}.err", "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, json.dumps(DRYRUN_PAIRS)],
+            cwd=root, env=env, stdout=fo, stderr=fe)
+    proc.out_path = out
+    atexit.register(_stop, proc)
+    return proc
+
+
+def finish_dryrun(proc, dry_axes: dict) -> None:
+    """``dryrun``: one line a pair (the device's peak and FLOPs against the
+    card's 80 GB, the collective bytes, the dominant roofline term, each
+    number's label), and the consensus bytes of the (2, 1, 2, 1) mesh at
+    SmolLM-360M's tree (the dry record ``shard_map_axes`` was held to)."""
+    t0 = time.perf_counter()
+    proc.wait(timeout=600)
+    out = pathlib.Path(f"{proc.out_path}.out").read_text()
+    if proc.returncode != 0:
+        err = pathlib.Path(f"{proc.out_path}.err").read_text()
+        raise RuntimeError(f"the dry run exited {proc.returncode}:\n"
+                           f"{err[-4000:]}")
+    recs = [json.loads(line) for line in out.splitlines() if line.strip()]
+    assert [(r["meta"]["arch"], r["meta"]["shape"]) for r in recs] == \
+        DRYRUN_PAIRS, recs
+    for r in recs:
+        emit("dryrun", arch=r["meta"]["arch"], shape=r["meta"]["shape"],
+             mesh=r["mesh_axes"], chips=r["chips"],
+             peak_per_device=r["memory"]["peak_per_device"],
+             argument_bytes=r["memory"]["argument_bytes"],
+             flops_per_device=r["cost"]["flops_per_device"],
+             collective_bytes=r["collectives"]["total_bytes"],
+             dominant=r["roofline"]["dominant"],
+             unsharded=r["meta"]["unsharded"], pair_s=r["pair_s"],
+             wait_s=time.perf_counter() - t0)
+        assert r["memory"]["peak_per_device"]["label"] in (
+            "measured_meta", "analytic_split"), r
+    emit("dryrun", arch="smollm-360m", shape="consensus_period",
+         mesh=dict(zip(("server", "client", "replica", "model"), AXES_SHAPE)),
+         calls=dry_axes["wire"]["calls"], bytes=dry_axes["wire"]["bytes"],
+         label="measured_meta")
 
 
 #: history keys that depend on the wire's byte layout: the shard_map

@@ -6,7 +6,8 @@ Mamba-2 path (``mamba2_780m``), the vision-patch frontend
 (``internvl2_1b``), the encoder-decoder (``seamless_m4t_large_v2``), the
 MoE (``mixtral_8x22b``), MLA with a dense prefix layer and shared experts
 (``deepseek_v2_236b``) and the Mamba/attention/MoE hybrid
-(``jamba_1_5_large_398b``).
+(``jamba_1_5_large_398b``).  ``INPUT_SHAPES`` are the four assigned input
+shapes (``InputShape``) the launch layer plans for.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from repro_torch.configs import (command_r_35b, deepseek_v2_236b, gemma2_27b,
                                  internvl2_1b, jamba_1_5_large_398b,
                                  mamba2_780m, mixtral_8x22b, qwen3_1_7b,
                                  seamless_m4t_large_v2, smollm_360m)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig, InputShape
 
 _ARCHS = {"command_r_35b": command_r_35b,
           "deepseek_v2_236b": deepseek_v2_236b, "gemma2_27b": gemma2_27b,
@@ -47,4 +48,5 @@ def get_smoke(arch_id: str) -> ArchConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ARCH_IDS", "ArchConfig", "get_arch", "get_smoke"]
+__all__ = ["ARCH_IDS", "INPUT_SHAPES", "ArchConfig", "InputShape",
+           "get_arch", "get_smoke"]

@@ -223,3 +223,24 @@ def _param_count(cfg: ArchConfig, active_only: bool = False) -> int:
             p += 2 * d + _attn_params(cfg) + _mlp_params(d, cfg.d_ff)
         p += cfg.num_layers * (d + _attn_params(cfg))  # cross-attn + its norm
     return p
+
+
+# ---------------------------------------------------------------------------
+# input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -106,6 +106,7 @@ bounded staleness on and off the wire, and push-sum over the first three.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -742,16 +743,18 @@ def wire_roundtrip_tree(codec, tree: Any, key=None, *,
 
 #: what the collective helpers did since ``reset_collective_counts()``:
 #: ``calls``, ``bytes`` (what this rank SENT) and host ``op_seconds`` per
-#: ``"op:dtype"``, their total ``seconds`` and, of them, the ``staging_s``
-#: of the copies between the device and the pinned host buffers
+#: ``"op:dtype"``, the ``calls`` per collective ``sites``, their total
+#: ``seconds`` and, of them, the ``staging_s`` of the copies between the
+#: device and the pinned host buffers
 _COLL: Dict[str, Any] = {"calls": {}, "bytes": {}, "op_seconds": {},
-                         "seconds": 0.0, "staging_s": 0.0}
+                         "sites": {}, "seconds": 0.0, "staging_s": 0.0}
 #: pinned host buffers of the staged collectives, one per collective site
 _STAGING: Dict[str, torch.Tensor] = {}
 
 
 def reset_collective_counts() -> None:
     _COLL["calls"], _COLL["bytes"], _COLL["op_seconds"] = {}, {}, {}
+    _COLL["sites"] = {}
     _COLL["seconds"] = _COLL["staging_s"] = 0.0
 
 
@@ -759,22 +762,45 @@ def collective_counts() -> Dict[str, Any]:
     """A copy of this rank's collective ledger (see ``_COLL``)."""
     return {"calls": dict(_COLL["calls"]), "bytes": dict(_COLL["bytes"]),
             "op_seconds": dict(_COLL["op_seconds"]),
+            "sites": dict(_COLL["sites"]),
             "seconds": _COLL["seconds"], "staging_s": _COLL["staging_s"]}
 
 
-def _count(op: str, x: torch.Tensor, t0: float, sends: int = 1) -> None:
-    """Count one call of ``op`` on ``x`` that started at ``t0``."""
+def _count(op: str, x: torch.Tensor, t0: float, sends: int = 1,
+           site: str = "") -> None:
+    """Count one call of ``op`` on ``x`` at ``site`` that started at
+    ``t0``."""
     k = f"{op}:{str(x.dtype).replace('torch.', '')}"
     dt = time.perf_counter() - t0
     _COLL["calls"][k] = _COLL["calls"].get(k, 0) + 1
+    _COLL["sites"][site] = _COLL["sites"].get(site, 0) + 1
     _COLL["bytes"][k] = (_COLL["bytes"].get(k, 0)
                          + sends * x.numel() * x.element_size())
     _COLL["op_seconds"][k] = _COLL["op_seconds"].get(k, 0.0) + dt
     _COLL["seconds"] += dt
 
 
+class DryGroup:
+    """A stand-in process group of ``size`` ranks, this process being
+    ``rank``: the collective helpers accept it, count the call and its bytes
+    as for a real group, and move nothing (the gathered output is left
+    unwritten, a reduction leaves its input).  On ``meta`` tensors it runs
+    a rank's consensus program without a world (the dry run's collective
+    record)."""
+
+    def __init__(self, size: int, rank: int = 0):
+        if not 0 <= rank < size:
+            raise ValueError(f"rank {rank} outside a group of {size}")
+        self.size, self.rank = int(size), int(rank)
+
+    def __repr__(self) -> str:
+        return f"DryGroup(size={self.size}, rank={self.rank})"
+
+
 def group_size_rank(group) -> Tuple[int, int]:
     """``(world size, this process's rank)`` of ``group``."""
+    if isinstance(group, DryGroup):
+        return group.size, group.rank
     return dist.get_world_size(group), dist.get_rank(group)
 
 
@@ -834,7 +860,9 @@ def all_gather_rows(x: torch.Tensor, group, *,
         out = torch.empty(shape, dtype=x.dtype, device=x.device)
     if tuple(out.shape) != shape or not out.is_contiguous():
         raise ValueError(f"out must be a contiguous {shape} tensor")
-    if dist.get_backend(group) == "gloo":
+    if isinstance(group, DryGroup):
+        pass
+    elif dist.get_backend(group) == "gloo":
         staged = x.is_cuda
         send = _to_host(x, site + ":send") if staged else x
         recv = _host(site + ":recv", shape, x.dtype) if staged else out
@@ -853,7 +881,7 @@ def all_gather_rows(x: torch.Tensor, group, *,
             _to_device(out, recv)
     else:
         dist.all_gather(list(out.chunk(m)), x, group=group)
-    _count("all_gather", x, t0)
+    _count("all_gather", x, t0, site=site)
     return out
 
 
@@ -868,6 +896,9 @@ def ring_exchange(x: torch.Tensor, group, *,
     x = x.contiguous()
     if m == 1:                      # a ring of one: the self-loop
         return x, x
+    if isinstance(group, DryGroup):
+        _count("ring_exchange", x, t0, sends=2, site=site)
+        return torch.empty_like(x), torch.empty_like(x)
     staged = _staged(x, group)
     send = _to_host(x, site + ":send") if staged else x
     left = (_host(site + ":left", x.shape, x.dtype) if staged
@@ -885,7 +916,7 @@ def ring_exchange(x: torch.Tensor, group, *,
     if staged:
         left = _to_device(torch.empty_like(x), left)
         right = _to_device(torch.empty_like(x), right)
-    _count("ring_exchange", x, t0, sends=2)
+    _count("ring_exchange", x, t0, sends=2, site=site)
     return left, right
 
 
@@ -896,13 +927,15 @@ def all_reduce_(x: torch.Tensor, group, op: str = "sum", *,
     reduce over servers.  Counts one call and ``x``'s bytes."""
     t0 = time.perf_counter()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    if _staged(x, group):
+    if isinstance(group, DryGroup):
+        pass
+    elif _staged(x, group):
         h = _to_host(x, site)
         dist.all_reduce(h, op=red, group=group)
         _to_device(x, h)
     else:
         dist.all_reduce(x, op=red, group=group)
-    _count("all_reduce", x, t0)
+    _count("all_reduce", x, t0, site=site)
     return x
 
 
@@ -923,26 +956,93 @@ def _check_shard_map(codec, with_shipped: bool, staleness: int) -> None:
             "codec or use staleness=0")
 
 
-class _ShardPlain:
-    """The plain shard_map program, ``run(a, local_tree)``: each leaf of the
-    rank's ``(1, ...)`` rows, flattened in its own dtype (bf16 stays bf16
-    on the wire) and cut into blocks of ``min(block, d)`` with a zero-padded
-    tail, runs T_S rounds a block of one ``all_gather_rows`` and kernel 1's
-    row form with A's own row, leaf after leaf."""
+class _ServerView(NamedTuple):
+    """Where this rank sits on the server axis: the ``group`` of the ranks
+    that share its other coordinates, its ``m`` servers, this rank's
+    server ``idx``, its row-major position ``sub`` over the ``n_other``
+    positions of the other axes (the wire's dither coordinate is ``idx *
+    n_other + sub``), and the ``world`` group a federation-wide reduction
+    crosses."""
 
-    def __init__(self, group, t_server: int, block: int):
-        self.group, self.t_server, self.block = group, t_server, block
+    group: Any
+    m: int
+    idx: int
+    sub: int
+    n_other: int
+    world: Any
+
+
+def _server_view(mesh, axis_name: str) -> _ServerView:
+    """The ``axis_name`` axis of a ``launch.mesh.RankMesh``; a bare group
+    (``None`` for the default one, a ``torch.distributed`` group or a
+    ``DryGroup``) is the one-axis mesh of its ranks, one server a rank.
+    The only place that tells the two apart."""
+    if mesh is None or isinstance(mesh, (dist.ProcessGroup, DryGroup)):
+        m, rank = group_size_rank(mesh)
+        return _ServerView(mesh, m, rank, 0, 1, mesh)
+    sub, n_other = mesh.other_index(axis_name)
+    return _ServerView(mesh.group(axis_name), mesh.shape[axis_name],
+                       mesh.coords()[axis_name], sub, n_other,
+                       mesh.world_group())
+
+
+def disagreement_over(server_tree: Any, group, m: int) -> torch.Tensor:
+    """``sqrt(sum_i |w_i|^2 - M |mean|^2)`` of the federation from one
+    rank's whole rows: the squared norms and the row sums all-reduced over
+    ``group``."""
+    total = None
+    for leaf in tree_leaves(server_tree):
+        s_sq = torch.sum(torch.square(leaf), dtype=torch.float32).reshape(1)
+        col = leaf.sum(dim=0, dtype=torch.float32)
+        all_reduce_(s_sq, group, site="metrics")
+        all_reduce_(col, group, site="metrics")
+        term = s_sq[0] - m * torch.sum(torch.square(col / m))
+        total = term if total is None else total + term
+    return torch.sqrt(torch.clamp(total, min=0.0))
+
+
+def _check_leaf_count(tree: Any, leaf_specs: Any) -> None:
+    if leaf_specs is not None and \
+            len(tree_leaves(tree)) != len(tree_leaves(leaf_specs)):
+        raise ValueError(f"a tree of {len(tree_leaves(tree))} leaves "
+                         f"against {len(tree_leaves(leaf_specs))} leaf specs")
+
+
+class _ShardProgram:
+    """What both shard_map programs hold: the mesh (or bare group) and its
+    server axis, read once into ``view`` when the program first runs."""
+
+    def __init__(self, mesh, t_server: int, block: int, leaf_specs=None,
+                 axis_name: str = "server"):
+        self.mesh, self.t_server, self.block = mesh, t_server, block
+        self.leaf_specs, self.axis_name = leaf_specs, axis_name
+
+    @functools.cached_property
+    def view(self) -> _ServerView:
+        return _server_view(self.mesh, self.axis_name)
+
+
+class _ShardPlain(_ShardProgram):
+    """The plain shard_map program, ``run(a, local_tree)``: each leaf of the
+    rank's ``(1, ...)`` rows (its piece of its server's row, on a mesh),
+    flattened in its own dtype (bf16 stays bf16 on the wire) and cut into
+    blocks of ``min(block, d)`` with a zero-padded tail, runs T_S rounds a
+    block of one ``all_gather_rows`` over the server group and kernel 1's
+    row form with A's own row, leaf after leaf.  The piece k of server i
+    mixes with the pieces k of the other servers only."""
 
     def __call__(self, a: torch.Tensor, tree: Any) -> Any:
         if self.t_server == 0:
             return tree
-        m, rank = group_size_rank(self.group)
+        _check_leaf_count(tree, self.leaf_specs)
+        view = self.view
+        m, idx = view.m, view.idx
         leaves, treedef = tree_flatten(tree)
         kops.one_dtype(leaves, "the shard_map gossip")
         out = []
         for leaf in leaves:
             rows = leaf.shape[0]
-            a_row = _f32_on(a, leaf)[rank * rows:(rank + 1) * rows] \
+            a_row = _f32_on(a, leaf)[idx * rows:(idx + 1) * rows] \
                 .contiguous()
             flat = leaf.reshape(rows, -1)
             d = flat.shape[1]
@@ -958,7 +1058,7 @@ class _ShardPlain:
             for b in range(nb):
                 w = buf[:, b * blk:(b + 1) * blk]
                 for _ in range(self.t_server):
-                    all_gather_rows(w, self.group, out=gathered,
+                    all_gather_rows(w, view.group, out=gathered,
                                     site="plain")
                     kops.consensus_mix_rows(a_row, gathered, out=nxt)
                     w.copy_(nxt)
@@ -966,25 +1066,29 @@ class _ShardPlain:
         return tree_unflatten(treedef, out)
 
 
-class _ShardWire:
+class _ShardWire(_ShardProgram):
     """The bucketed quantized-wire shard_map program, ``run(a, local_tree,
     key=None)`` (``(mixed, shipped)`` with ``with_shipped``): the rank's
-    whole local tree is one zero-padded (1, D_pad) f32 bucket
-    (``_bucket_layout`` / ``_bucket_flat``), and every round is ONE int8
-    ``all_gather_rows`` of codes (int4 packed two a byte) plus ONE f32 one
-    of scales, whatever the leaf count.  The rank keeps its own reference
+    whole local tree (on a mesh: its pieces of its server's row) is one
+    zero-padded (1, D_pad) f32 bucket (``_bucket_layout`` /
+    ``_bucket_flat``), and every round is ONE int8 ``all_gather_rows`` of
+    codes (int4 packed two a byte) plus ONE f32 one of scales over the
+    server group, whatever the leaf count.  The rank keeps its own reference
     row and accumulator; round 0 encodes on kernel 6, each round then runs
     kernel 7's row form (staleness 0) or kernel 8's (staleness s >= 1, the
     gathered codes in an (s, M, D_pad) in-flight ring pre-filled with zero
-    codes and unit scales).  The dither is row ``rank`` of
-    ``_bucket_dither_rows``.  ``gather_codes=False`` ships the same code
-    values at f32 width.  Row ``rank`` of the result is bitwise row
-    ``rank`` of ``gossip_scan_wire_bucketed`` under the same key."""
+    codes and unit scales).  The dither's server coordinate is ``idx *
+    n_other + sub`` (``_ServerView``; the rank on a bare group), so the
+    pieces of one server row draw distinct noise.  ``gather_codes=False``
+    ships the same code values at f32 width.  Row ``rank`` of the result
+    is bitwise row ``rank`` of ``gossip_scan_wire_bucketed`` under the same
+    key; on a mesh, the piece k of server i is row ``i * n_other + k`` of
+    it on the (M * n_other)-row problem of every piece under ``A ⊗ I``."""
 
-    def __init__(self, group, t_server: int, block: int, codec,
+    def __init__(self, mesh, t_server: int, block: int, codec,
                  stochastic: bool, gather_codes: bool, with_shipped: bool,
-                 staleness: int):
-        self.group, self.t_server, self.block = group, t_server, block
+                 staleness: int, leaf_specs=None, axis_name: str = "server"):
+        super().__init__(mesh, t_server, block, leaf_specs, axis_name)
         self.codec, self.stochastic = codec, stochastic
         self.gather_codes, self.with_shipped = gather_codes, with_shipped
         self.staleness = staleness
@@ -999,6 +1103,7 @@ class _ShardWire:
             return ((tree, tree_map(torch.zeros_like, tree))
                     if self.with_shipped else tree)
         codec = self.codec
+        _check_leaf_count(tree, self.leaf_specs)
         leaves, treedef = _wire_leaves(tree)
         _, d_pad = _bucket_layout(leaves, self.block, codec.chunk)
         dtype = leaves[0].dtype
@@ -1018,21 +1123,20 @@ class _ShardWire:
             return mixed
         return mixed, _bucket_split(sent[0], leaves, treedef)
 
-    def _gather(self, codes: torch.Tensor, scales: torch.Tensor,
+    def _gather(self, group, codes: torch.Tensor, scales: torch.Tensor,
                 g_codes: torch.Tensor, g_scales: torch.Tensor) -> None:
         """One round's collective pair into ``g_codes`` / ``g_scales``."""
         codec = self.codec
         payload = (_compressors.pack_int4(codes) if codec.bits == 4
                    else codes)
         if self.gather_codes and codec.bits == 8:
-            all_gather_rows(payload, self.group, out=g_codes, site="codes")
+            all_gather_rows(payload, group, out=g_codes, site="codes")
         else:
             wide = payload.float() if not self.gather_codes else payload
-            got = all_gather_rows(wide, self.group, site="codes").to(
-                torch.int8)
+            got = all_gather_rows(wide, group, site="codes").to(torch.int8)
             g_codes.copy_(_compressors.unpack_int4(got, g_codes.shape[1])
                           if codec.bits == 4 else got)
-        all_gather_rows(scales, self.group, out=g_scales, site="scales")
+        all_gather_rows(scales, group, out=g_scales, site="scales")
 
     def period(self, a: torch.Tensor, flat: torch.Tensor, key,
                shipped: Optional[Callable] = None,
@@ -1040,11 +1144,12 @@ class _ShardWire:
         """``_bucketed_period`` of the rank's own (rows, D_pad) f32 bucket:
         the iterate after T_S rounds.  ``shipped(codes, scales)`` receives
         round 0's own codes and scales (the error-feedback hook)."""
-        codec, group = self.codec, self.group
-        m, rank = group_size_rank(group)
+        codec = self.codec
+        view = self.view
+        group, m, idx = view.group, view.m, view.idx
         rows, d_pad = flat.shape
         bits, chunk, nc = codec.bits, codec.chunk, d_pad // codec.chunk
-        a_rows = _f32_on(a, flat)[rank * rows:(rank + 1) * rows].contiguous()
+        a_rows = _f32_on(a, flat)[idx * rows:(idx + 1) * rows].contiguous()
         ref = torch.zeros_like(flat)
         acc = torch.zeros_like(flat)
         u = torch.empty_like(flat)
@@ -1057,9 +1162,10 @@ class _ShardWire:
             if key is None:
                 return u.fill_(0.5)
             for i in range(rows):
-                _compressors.wire_dither(key, d_pad, leaf=0, rnd=rnd,
-                                         server=rank * rows + i, block=0,
-                                         out=u[i])
+                _compressors.wire_dither(
+                    key, d_pad, leaf=0, rnd=rnd,
+                    server=(idx * rows + i) * view.n_other + view.sub,
+                    block=0, out=u[i])
             return u
 
         s = self.staleness
@@ -1074,12 +1180,12 @@ class _ShardWire:
                                    device=flat.device)
             w = None if dtype == torch.float32 else torch.empty_like(flat)
             for t in range(self.t_server):
-                self._gather(codes, scales, g_codes, g_scales)
+                self._gather(group, codes, scales, g_codes, g_scales)
                 if t + 1 < self.t_server:   # the last re-encode is unused
                     dither(t + 1)
                 kops.bucketed_gossip_round_rows(
                     a_rows, g_codes, g_scales, ref, acc, u, codes, scales,
-                    row0=rank * rows, bits=bits, chunk=chunk)
+                    row0=idx * rows, bits=bits, chunk=chunk)
                 if w is not None and t + 1 < self.t_server:
                     kops.quantized_gossip_encode(
                         _round_to(w.copy_(acc), dtype), ref, u, codes,
@@ -1098,7 +1204,7 @@ class _ShardWire:
             if t == 0 and shipped is not None:
                 shipped(codes, scales)
             # this round's codes, consumed s rounds from now
-            self._gather(codes, scales, ring_c[slot], ring_s[slot])
+            self._gather(group, codes, scales, ring_c[slot], ring_s[slot])
             if t >= s:              # a delayed buffer has landed
                 if dtype == torch.float32:
                     w = acc
@@ -1109,27 +1215,38 @@ class _ShardWire:
         return w
 
 
-def make_gossip_shard_map(group, t_server: int, *, block: int = 16_777_216,
-                          codec=None, stochastic: bool = True,
+def make_gossip_shard_map(mesh, t_server: int, leaf_specs: Any = None, *,
+                          axis_name: str = "server",
+                          block: int = 16_777_216, codec=None,
+                          stochastic: bool = True,
                           gather_codes: bool = True,
                           with_shipped: bool = False,
                           staleness: int = 0) -> Callable:
-    """T_S-round gossip as a rank-local program over a ``torch.distributed``
-    group of M processes, rank r holding server r (the reference's
-    ``make_gossip_shard_map`` over a ``('server',)`` mesh).  Returns
-    ``run(a, local_tree)`` (plain) or ``run(a, local_tree, key=None)``
-    (``codec=`` a quantizer): ``a`` the full ``(M, M)`` operator (A, or A'
-    for a push-sum numerator), read row-wise; ``local_tree`` the rank's
-    leading ``(1, ...)`` rows.  The plain program is ``_ShardPlain``, the
-    bucketed wire ``_ShardWire``.  ``with_shipped`` returns ``(mixed,
+    """T_S-round gossip as a rank-local program (the reference's
+    ``make_gossip_shard_map``).  ``mesh`` is a ``launch.mesh.RankMesh``
+    whose ``axis_name`` axis holds the M servers, each rank holding its
+    piece of its server's row cut by ``leaf_specs`` (the specs of the
+    ``(M, *w)`` server tree, ``launch.sharding.fl_server_specs``); or a bare
+    ``torch.distributed`` group of M processes, rank r holding server r.
+    Each round gathers over the ranks that share this rank's other
+    coordinates only.
+
+    Returns ``run(a, local_tree)`` (plain) or ``run(a, local_tree,
+    key=None)`` (``codec=`` a quantizer): ``a`` the full ``(M, M)`` operator
+    (A, or A' for a push-sum numerator), read row-wise; ``local_tree`` the
+    rank's leading ``(1, ...)`` rows.  The plain program is ``_ShardPlain``,
+    the bucketed wire ``_ShardWire``.  ``with_shipped`` returns ``(mixed,
     shipped)`` with ``shipped`` round 0's own decoded transmission;
     ``staleness=s > 0`` needs the codec; ``t_server == 0`` is the
-    identity."""
+    identity.  A leaf replicated over the other axes keeps one copy a rank
+    (on the wire the copies draw distinct dither and drift apart, as the
+    reference's devices' do)."""
     _check_shard_map(codec, with_shipped, staleness)
     if codec is None:
-        return _ShardPlain(group, t_server, block)
-    return _ShardWire(group, t_server, block, codec, stochastic,
-                      gather_codes, with_shipped, staleness)
+        return _ShardPlain(mesh, t_server, block, leaf_specs, axis_name)
+    return _ShardWire(mesh, t_server, block, codec, stochastic,
+                      gather_codes, with_shipped, staleness, leaf_specs,
+                      axis_name)
 
 
 # -- ring gossip over the neighbour exchange ---------------------------------
@@ -1829,39 +1946,83 @@ def _screen_first_round(backend: ConsensusBackend, a_p, m: int):
 
 class ShardMapBackend(ConsensusBackend):
     """The multi-process wire's backend (the reference's ``ShardMapBackend``):
-    the plain ``make_gossip_shard_map`` program over a ``torch.distributed``
-    group of M ranks, rank r holding server r, with the mixing matrix an
-    operand (a per-epoch ``A_p`` overrides the static one).  Each rank's
-    trees hold its own rows only (``rows``), so the epoch step runs
-    rank-locally (``dfl.build_dfl_epoch_step``); being bound to the group's
-    size it cannot survive fault surgery that changes M (``mesh_bound``).
-    Push-sum mixes the numerator with A' through the same program and the
-    ``(M,)`` weight, replicated on every rank, identically on each.
-    ``wire_runner`` builds the bucketed wire programs
-    (``CompressedBackend(wire="physical")``)."""
+    the plain ``make_gossip_shard_map`` program over a
+    ``launch.mesh.RankMesh`` with ``leaf_specs`` (each rank holding its piece
+    of its server's row) or a bare ``torch.distributed`` group of M ranks
+    (rank r holding server r), with the mixing matrix an operand (a
+    per-epoch ``A_p`` overrides the static one).  ``rows`` are the server
+    rows this rank holds (a piece of), so the epoch step runs rank-locally
+    (``dfl.build_dfl_epoch_step``; a server row sharded over further axes
+    only mixes, see ``sharded``); being bound to the mesh's size it cannot
+    survive fault surgery that changes M (``mesh_bound``).  Push-sum mixes
+    the numerator with A' through the same program and the ``(M,)``
+    weight, replicated on every rank, identically on each.  ``wire_runner``
+    builds the bucketed wire programs (``CompressedBackend(wire=
+    "physical")``)."""
 
     name = "shard_map"
     mesh_bound = True
 
-    def __init__(self, group, a_static, t_server, *,
+    def __init__(self, mesh, a_static, t_server, leaf_specs: Any = None, *,
+                 axis_name: str = "server", counted=None,
                  block: int = 16_777_216, staleness: int = 0):
         super().__init__(a_static, t_server)
         if staleness < 0:
             raise ValueError(f"staleness must be >= 0, got {staleness}")
-        self.group = group
+        #: the mesh or bare group as given, and its server axis
+        self.mesh, self.axis_name = mesh, axis_name
+        self.leaf_specs = leaf_specs
+        #: per leaf, whether this rank's piece enters a federation-wide sum
+        #: (its first copy, ``launch.sharding.first_copy``); needed only
+        #: when a server's row spans several ranks
+        self.counted = None if counted is None else list(counted)
         self.block = block
         self.staleness = staleness
-        self.num_servers, self.rank = group_size_rank(group)
+        self._run = make_gossip_shard_map(mesh, t_server, leaf_specs,
+                                          axis_name=axis_name, block=block)
+        view = self.view = self._run.view
+        self.num_servers, self.rank = view.m, view.idx
+        #: the server group each round crosses, and whether a server's row
+        #: spans several ranks (its pieces over the other axes)
+        self.group = view.group
+        self.sharded = view.n_other > 1
         if self.a_static is not None and \
                 self.a_static.shape[0] != self.num_servers:
             raise ValueError(
-                f"the shard_map backend runs one server a rank: a "
-                f"{self.a_static.shape[0]}-server mixing matrix on a group "
-                f"of {self.num_servers}")
-        #: the federation rows this rank holds, [lo, hi)
-        self.rows = (self.rank, self.rank + 1)
-        self._run = make_gossip_shard_map(group, t_server, block=block)
+                f"the shard_map backend runs one server a rank along the "
+                f"server axis: a {self.a_static.shape[0]}-server mixing "
+                f"matrix on {self.num_servers} servers")
+        #: the federation rows this rank holds (a piece of), [lo, hi)
+        self.rows = (view.idx, view.idx + 1)
         self._wire_runners: Dict[tuple, _ShardWire] = {}
+
+    def disagreement(self, server_tree: Any) -> torch.Tensor:
+        """``disagreement_over`` the federation from this rank's rows or
+        pieces: a piece's column sums cross the server group, and each
+        piece's terms (its first copy's, its sums counted once) cross the
+        whole mesh in one reduction."""
+        if not self.sharded:
+            return disagreement_over(server_tree, self.group,
+                                     self.num_servers)
+        if self.counted is None:
+            raise ValueError(
+                "a server row sharded over ranks sums each piece once: "
+                "build the backend with counted= (each leaf's first copy, "
+                "launch.sharding.first_copy; fl_consensus_backend does)")
+        m = self.num_servers
+        leaves = tree_leaves(server_tree)
+        parts = torch.zeros((2, len(leaves)), dtype=torch.float32,
+                            device=leaves[0].device)
+        for i, (leaf, keep) in enumerate(zip(leaves, self.counted)):
+            col = leaf.sum(dim=0, dtype=torch.float32)
+            all_reduce_(col, self.group, site="metrics")
+            if keep:
+                parts[0, i] = torch.sum(torch.square(leaf),
+                                        dtype=torch.float32)
+                if self.rank == 0:
+                    parts[1, i] = m * torch.sum(torch.square(col / m))
+        all_reduce_(parts, self.view.world, site="metrics")
+        return torch.sqrt(torch.clamp((parts[0] - parts[1]).sum(), min=0.0))
 
     def _mix(self, tree, a):
         if self.staleness:
@@ -1881,7 +2042,8 @@ class ShardMapBackend(ConsensusBackend):
              bool(with_shipped), self.staleness)
         if k not in self._wire_runners:
             self._wire_runners[k] = make_gossip_shard_map(
-                self.group, self.t_server, block=self.block, codec=codec,
+                self.mesh, self.t_server, self.leaf_specs,
+                axis_name=self.axis_name, block=self.block, codec=codec,
                 stochastic=stochastic, gather_codes=gather_codes,
                 with_shipped=with_shipped, staleness=self.staleness)
         return self._wire_runners[k]
@@ -1983,6 +2145,12 @@ class CompressedBackend(ConsensusBackend):
         self.supports_directed = inner.supports_directed
         self.needs_spectral = inner.needs_spectral
         self.mesh_bound = inner.mesh_bound
+        if wire == "simulated" and getattr(inner, "sharded", False):
+            raise ValueError(
+                "the simulated wire round-trips each server's whole leaves "
+                "(their chunks and dither span the full row); a server row "
+                "sharded over ranks rides wire='physical', whose bucket is "
+                "the rank's own pieces")
         # the federation row of the trees' first row (a rank's own rows)
         self._row0 = getattr(inner, "rows", (0, 0))[0]
 

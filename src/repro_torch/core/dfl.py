@@ -68,7 +68,10 @@ reads its rows of them; the consensus period crosses the group.  The
 metrics that reduce over servers go through ``consensus.all_reduce_``: the
 losses (exact: the other ranks add zeros), the grad norm's and the
 disagreement's sums (within rounding of the one-process sums), the drift's
-max (exact).  The push-sum weight is replicated on every rank.
+max (exact); an ``inlier_shift`` attack's honest envelope (max and min,
+exact).  The push-sum weight is replicated on every rank.  A mesh whose
+client, replica or model axes exceed 1 (a server row over several ranks)
+is refused here: its clients' local period would need FSDP / TP.
 """
 from __future__ import annotations
 
@@ -244,7 +247,8 @@ def carry_forward(mask: torch.Tensor, new_tree: Any, old_tree: Any) -> Any:
 
 
 def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
-                    attacks: Tuple[Any, ...], row0: int = 0) -> Any:
+                    attacks: Tuple[Any, ...], row0: int = 0,
+                    group=None) -> Any:
     """Inject the scheduled attacks into the pre-gossip server tree.
 
     ``codes`` is the (M,) per-row attack marking of
@@ -266,15 +270,21 @@ def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
     when no honest row exists).  On float32 leaves ``scale * x + y`` is one
     fused multiply-add, as XLA compiles it inside the reference's jitted
     epoch step (its eager ops round twice).  ``row0`` is the federation
-    row of the tree's first row (a rank's own rows under the multi-process
-    wire: ``codes`` is then its rows' codes); ``inlier_shift`` reads every
-    honest row, so it takes the whole federation's tree."""
-    codes = np.asarray(codes.detach().cpu() if isinstance(codes, torch.Tensor)
-                       else codes, dtype=np.int64).reshape(-1)
+    row of the tree's first row.  Under the multi-process wire the tree
+    holds a rank's own rows and ``group`` is the group of every server's
+    rank: ``codes`` are then the federation's (M,) codes (on every rank, so
+    who attacks is a host fact), and ``inlier_shift`` reduces the honest
+    rows' envelope over the group (``consensus.all_reduce_`` with "max" of
+    the masked rows and of their negation, site ``"inlier_shift"``: exact,
+    so the attacked rows are the one-process step's bit for bit)."""
+    fed = np.asarray(codes.detach().cpu() if isinstance(codes, torch.Tensor)
+                     else codes, dtype=np.int64).reshape(-1)
     leaves, treedef = tree_flatten(server_tree)
-    if not attacks or not codes.any():
+    if not attacks or not fed.any():
         return server_tree
-    honest = np.nonzero(codes == 0)[0]
+    codes = (fed if group is None
+             else fed[row0:row0 + leaves[0].shape[0]])
+    honest = np.nonzero(fed == 0)[0]
     needs_key = any(a.kind == "scaled_noise" and (codes == i + 1).any()
                     for i, a in enumerate(attacks))
     if needs_key and key is None:
@@ -287,6 +297,17 @@ def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
         out = leaf
         for idx, atk in enumerate(attacks):
             rows = np.nonzero(codes == idx + 1)[0].tolist()
+            if group is not None and atk.kind == "inlier_shift":
+                # every rank enters the reductions, attacker or not
+                if not (fed == idx + 1).any() or not honest.size:
+                    continue
+                target = _honest_envelope(leaf, codes == 0, atk.scale,
+                                          group)
+                if rows and out is leaf:
+                    out = leaf.clone()
+                for r in rows:
+                    out[r] = target
+                continue
             if not rows:
                 continue
             if out is leaf:
@@ -312,6 +333,27 @@ def apply_byzantine(server_tree: Any, codes: Any, key: Optional[np.ndarray],
                     out[r] = target
         out_leaves.append(out)
     return tree_unflatten(treedef, out_leaves)
+
+
+def _honest_envelope(leaf: torch.Tensor, honest_here: np.ndarray,
+                     scale: float, group) -> torch.Tensor:
+    """``h_min + scale * (h_max - h_min)`` over the honest rows of the whole
+    federation, from this rank's rows (``honest_here`` marks its honest
+    ones): the coordinatewise max of the masked rows and of their negation
+    reduced with "max" over ``group``.  A bf16 / f16 leaf reduces in f32
+    (exact both ways)."""
+    mask = torch.as_tensor(honest_here, device=leaf.device).reshape(
+        (-1,) + (1,) * (leaf.dim() - 1))
+    work = (leaf.float() if leaf.dtype in (torch.bfloat16, torch.float16)
+            else leaf)
+    ninf = torch.full((), float("-inf"), dtype=work.dtype,
+                      device=leaf.device)
+    hmax = torch.where(mask, work, ninf).amax(dim=0).contiguous()
+    nmin = torch.where(mask, -work, ninf).amax(dim=0).contiguous()
+    cns.all_reduce_(hmax, group, "max", site="inlier_shift")
+    cns.all_reduce_(nmin, group, "max", site="inlier_shift")
+    hmax, hmin = hmax.to(leaf.dtype), (-nmin).to(leaf.dtype)
+    return _scale_add(scale, hmax - hmin, hmin)
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -439,22 +481,17 @@ def mesh_rows(cfg: DFLConfig) -> Optional[Tuple[int, int, Any]]:
     if backend is None or not getattr(backend, "mesh_bound", False):
         return None
     inner = getattr(backend, "inner", backend)
+    if getattr(inner, "sharded", False):
+        raise ValueError(
+            "the rank-local epoch step trains whole client rows, one server "
+            "a rank: this backend's mesh has client, replica or model axes "
+            "above 1, so a server's row spans several ranks, and training "
+            "such a client needs the local period sharded (FSDP / TP), which "
+            "the port does not have.  Train on a mesh (M, 1, 1, 1) or a "
+            "group of M ranks; the sharded row runs the consensus period "
+            "alone (ShardMapBackend.mix)")
     lo, hi = inner.rows
     return lo, hi, inner.group
-
-
-def _disagreement_over(server_tree: Any, group, m: int) -> torch.Tensor:
-    """``disagreement_norm`` of the federation from one rank's rows: the
-    squared norms and the row sums all-reduced over ``group``."""
-    total = None
-    for leaf in tree_leaves(server_tree):
-        s_sq = torch.sum(torch.square(leaf), dtype=torch.float32).reshape(1)
-        col = leaf.sum(dim=0, dtype=torch.float32)
-        cns.all_reduce_(s_sq, group, site="metrics")
-        cns.all_reduce_(col, group, site="metrics")
-        term = s_sq[0] - m * torch.sum(torch.square(col / m))
-        total = term if total is None else total + term
-    return torch.sqrt(torch.clamp(total, min=0.0))
 
 
 def _compresses(cfg: DFLConfig) -> bool:
@@ -565,11 +602,6 @@ def build_dfl_epoch_step(
     # the robust screen's readout is a fact of the config (a robust backend
     # and full metrics)
     screen_stats = (backend is not None and backend.robust and full)
-    if local is not None and any(a.kind == "inlier_shift"
-                                 for a in byz_attacks):
-        raise ValueError("inlier_shift reads every honest server's value, "
-                         "which a rank of the multi-process wire does not "
-                         "hold; use sign_flip or scaled_noise there")
     n_micro = max(cfg.grad_microbatches, 1)
     push_sum = cfg.mixing == "push_sum"
 
@@ -662,12 +694,11 @@ def build_dfl_epoch_step(
         on the device."""
         device = tree_leaves(state.client_params)[0].device
         if group is not None:
-            # this rank's rows of the federation's draw and schedule
+            # this rank's rows of the federation's draw and schedule (the
+            # attack codes stay whole: apply_byzantine reads them all)
             batches = tree_map(lambda x: x[:, lo:hi], batches)
             if mask is not None:
                 mask = mask[lo:hi]
-            if byz is not None:
-                byz = byz[lo:hi]
         # Lemma 3 LHS needs each client's start-of-epoch server model w^i_p
         # (== the broadcast client params at entry), which the in-place
         # local period overwrites: keep a copy
@@ -724,7 +755,7 @@ def build_dfl_epoch_step(
                 if key is not None:
                     key, bkey = prng.split(key)
                 server = apply_byzantine(server, byz, bkey, byz_attacks,
-                                         row0=lo)
+                                         row0=lo, group=group)
 
             # ---- 3. consensus period: T_S gossip rounds (Eq. 5/7) ----
             screen = (torch.zeros((m,), dtype=torch.float32, device=device)
@@ -766,7 +797,7 @@ def build_dfl_epoch_step(
                 disagreement = torch.zeros((), dtype=torch.float32,
                                            device=device)
             elif group is not None:
-                disagreement = _disagreement_over(server, group, m)
+                disagreement = cns.disagreement_over(server, group, m)
             else:
                 disagreement = disagreement_norm(server)
 

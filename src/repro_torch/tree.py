@@ -66,3 +66,49 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
             raise ValueError("tree_map over trees of different structure")
     return tree_unflatten(treedef, [
         fn(*args) for args in zip(leaves, *(o[0] for o in others))])
+
+
+class DictKey(tuple):
+    """A dict entry of a key path: ``DictKey((key,))``, ``.key`` the key."""
+
+    @property
+    def key(self):
+        return self[0]
+
+
+class GetAttrKey(tuple):
+    """A named-tuple field of a key path: ``.name`` the field's name."""
+
+    @property
+    def name(self):
+        return self[0]
+
+
+class SequenceKey(tuple):
+    """A list / tuple position of a key path: ``.idx`` the position."""
+
+    @property
+    def idx(self):
+        return self[0]
+
+
+def tree_map_with_path(fn: Callable[..., Any], tree: Any) -> Any:
+    """``fn(path, leaf)`` leafwise, ``path`` the tuple of ``DictKey`` /
+    ``GetAttrKey`` / ``SequenceKey`` entries from the root, as
+    ``jax.tree_util.tree_map_with_path`` names them."""
+    return _map_path(fn, tree, ())
+
+
+def _map_path(fn, node, path):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _map_path(fn, node[k], path + (DictKey((k,)),))
+                for k in sorted(node)}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_map_path(fn, c, path + (GetAttrKey((f,)),))
+                            for f, c in zip(node._fields, node)))
+    if isinstance(node, (tuple, list)):
+        return type(node)(_map_path(fn, c, path + (SequenceKey((i,)),))
+                          for i, c in enumerate(node))
+    return fn(path, node)

@@ -40,7 +40,8 @@ def test_walk_covers_the_port_and_catches_violations():
     names = {p.name for p in FILES}
     assert {"dfl.py", "consensus.py", "ops.py", "train.py", "engine.py",
             "overlap.py", "schedule.py", "trace.py", "metrics.py",
-            "monitor.py", "sharding.py", "chip_smoke.py"} <= names
+            "monitor.py", "sharding.py", "mesh.py", "plans.py", "specs.py",
+            "roofline.py", "dryrun.py", "chip_smoke.py"} <= names
     src = "import jax.numpy as jnp\nfrom repro.core import dfl\n" \
           "import repro_torch\nfrom jaxlib import x\n"
     found = [m for _, m in _imported_modules(ast.parse(src))

@@ -14,7 +14,9 @@ numpy-made inputs:
   shipped tree against ``bucketed_roundtrip_tree``) and staleness 1 and 2,
   each against ``gossip_scan_wire_bucketed`` on the same key and against
   the port's one-process period; the static and dynamic epoch steps on the
-  physical wire against the port's one-process runs;
+  physical wire against the port's one-process runs; ``inlier_shift``
+  across ranks (the attack on each rank's rows against the one-process
+  ``apply_byzantine``, and the engine with it on the physical wire);
 * tolerance: the plain program against ``gossip_scan`` and the push-sum
   numerator (rtol/atol 2e-5), bf16 leaves (one bf16 step a round), the
   ring (plain and wire) against dense gossip and its own twin, the
@@ -74,6 +76,10 @@ GAMMA = 1e-2
 SCEN = dict(participation=dict(kind="bernoulli", rate=0.5, seed=3),
             topology=dict(kind="edge_drop", drop_prob=0.4, seed=5))
 PSUM_TOPOLOGY = dict(kind="asymmetric", drop_prob=0.4, seed=7)
+# inlier_shift: the attacker sets of the direct cases (codes a row, 1 =
+# the attack) and the engine's schedule (seed 1 marks server 0)
+INLIER_CODES = {"one": [1, 0, 0, 0], "two": [0, 1, 0, 1]}
+INLIER_SPEC = "inlier_shift:0.25:0.9"
 # the trainer's smallest LM run on the int8 physical wire
 TRAIN_KW = dict(device="cpu", servers=M, clients=2, t_client=1, t_server=2,
                 epochs=1, seq_len=8, compression="int8", wire="physical",
@@ -255,6 +261,27 @@ WORLD = textwrap.dedent('''
         res[("engine", "push_sum")] = {"params": every(st.client_params),
                                        "hist": hist,
                                        "weight": st.psum_weight.numpy()}
+        # inlier_shift across ranks: the attack on this rank's rows, and the
+        # engine on the int8 physical wire
+        from repro_torch.core import dfl
+        from repro_torch.core.schedule import (ByzantineAttack,
+                                               ByzantineSchedule)
+        atk = (ByzantineAttack("inlier_shift", 0.5, 0.25),)
+        for name, codes in spec["inlier_codes"].items():
+            got = dfl.apply_byzantine(local(spec["tree"]), np.array(codes),
+                                      None, atk, row0=rank, group=group)
+            res[("inlier", name)] = gathered(got)
+        eng = make_engine(
+            topo, task["loss_fn"], sgd(spec["gamma"]),
+            byzantine=ByzantineSchedule.parse(spec["inlier_spec"], seed=1),
+            consensus_backend=backend("physical"))
+        st = init_dfl_state(eng.cfg, torch.zeros(2), sgd(spec["gamma"]),
+                            wire_key=prng.key(0))
+        cns.reset_collective_counts()
+        st, hist = eng.run(st, 3, task["batch_fn"])
+        res[("engine", "inlier")] = {
+            "params": every(st.client_params), "hist": hist,
+            "sites": cns.collective_counts()["sites"]}
         # the trainer on the default group, its checkpoint written by rank 0
         from repro_torch.launch import train as ttrain
         run = ttrain.train("smollm-360m", consensus_backend="shard_map",
@@ -283,7 +310,8 @@ def world(tmp_path_factory):
                 ledger_trees={n: wire_tree(n, seed=n) for n in (1, 3, 7)},
                 engine_shape=ENGINE_SHAPE, gamma=GAMMA, scenario=SCEN,
                 psum_topology=PSUM_TOPOLOGY, ckpt_dir=str(d / "ckpt"),
-                train_kw=TRAIN_KW)
+                train_kw=TRAIN_KW, inlier_codes=INLIER_CODES,
+                inlier_spec=INLIER_SPEC)
     torch.save(spec, spec_path)
     src = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src")
@@ -582,6 +610,45 @@ def test_engine_push_sum_matches_reference(world):
                                jhist["psum_min_weight"], rtol=1e-5)
     w = got["weight"]
     assert (w > 0).all() and abs(float(w.sum()) - M) < 1e-4, w
+
+
+@pytest.mark.parametrize("name", sorted(INLIER_CODES))
+def test_inlier_shift_across_ranks_is_the_one_process_attack(world, name):
+    """Each rank attacks its own rows with the honest envelope reduced over
+    the group (max and min, exact): the assembled tree is bitwise the
+    one-process ``apply_byzantine`` of the whole federation."""
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.core.schedule import ByzantineAttack
+    one = tdfl.apply_byzantine(
+        {k: torch.from_numpy(v) for k, v in wire_tree().items()},
+        np.array(INLIER_CODES[name]), None,
+        (ByzantineAttack("inlier_shift", 0.5, 0.25),))
+    np.testing.assert_array_equal(
+        _stack(world[("inlier", name)]),
+        _stack({k: v.numpy() for k, v in one.items()}))
+
+
+def test_engine_inlier_shift_on_the_wire_is_the_one_process_engine(world):
+    """The dynamic engine with ``inlier_shift`` on server 0 over the int8
+    physical wire (EF): states bitwise and histories equal to the port's
+    one-process engine; the envelope's reductions are counted under their
+    own site, two a leaf an epoch."""
+    from repro_torch.core.schedule import ByzantineSchedule
+    topo = FLTopology(**ENGINE_SHAPE)
+    task = make_regression_task(topo, RegressionSpec(heterogeneity=0.5))
+    eng = make_engine(topo, task["loss_fn"], sgd(GAMMA),
+                      byzantine=ByzantineSchedule.parse(INLIER_SPEC, seed=1),
+                      compression="int8:8", error_feedback=True,
+                      wire="physical")
+    assert eng.cfg.byzantine.attacker_sets(0, M) == (frozenset({0}),)
+    st = init_dfl_state(eng.cfg, torch.zeros(2), sgd(GAMMA),
+                        wire_key=prng.key(0))
+    st, hist = eng.run(st, 3, task["batch_fn"])
+    got = world[("engine", "inlier")]
+    np.testing.assert_array_equal(got["params"], st.client_params.numpy())
+    for key in ("loss", "drift", "byzantine", "wire_mb"):
+        assert got["hist"][key] == hist[key], key
+    assert got["sites"]["inlier_shift"] == 2 * 3
 
 
 # ---------------------------------------------------------------------------
