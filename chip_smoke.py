@@ -150,7 +150,20 @@ before it and read just after:
   kernels), each rank's calls and bytes a round equal to the meta-device
   dry run's record, and the same federation's wire period with one whole
   row a rank on the two replica-0 ranks (``wire_whole``) as the
-  yardstick; then ``dryrun``, one pair of each
+  yardstick;
+* the local period of a client cut over ranks, in the same world:
+  ``shard_local``, one epoch of full SmolLM-360M (M = 2, T_C = 2, T_S = 5,
+  batch 2 x 128) through ``fl_consensus_backend(tp_axis=None)``,
+  ``init_dfl_state`` and ``build_dfl_epoch_step`` on four meshes: a
+  server's two clients on two ranks (2, 2, 1, 1), bitwise the one-process
+  epoch; FSDP over "replica" (2, 1, 2, 1) and the batch over "model"
+  (2, 1, 1, 2), the rows after the local period within 1e-5 of the
+  one-process epoch's and each consensus bitwise its A ⊗ I_S emulation
+  (kernels 2 and 1r); the int8 physical wire with error feedback on
+  (2, 1, 2, 1) (kernels 2, 6 and 7r), its rows and residual bitwise the
+  one-process wire on the (M * S)-row problem; each rank's epoch,
+  collectives by site, peak beside its pieces and the yardstick's whole
+  row, kernel 2's launches; then ``dryrun``, one pair of each
   program (SmolLM-360M train_4k, Qwen3-1.7B prefill_32k, Mamba2-780M
   long_500k) on the meta device in a process of its own beside the CLI.
 
@@ -4191,6 +4204,431 @@ def axes_emulation(torch, cns, ttf, cfg) -> dict:
     return want
 
 
+# the local period of a client cut over ranks (``shard_local``): full
+# SmolLM-360M, T_C = 2, T_S = 5, per-client batch 2 of 128 tokens, M = 2
+# servers on the Metropolis 2-ring, the four ranks as each mesh below; the
+# one-process port's epochs on the same draws are the yardstick
+LOCAL_TRAIN = dict(t_client=2, t_server=5, seq_len=128, per_client_batch=2,
+                   gamma=0.05, seed=0)
+# run -> (mesh shape, N, batch_over_model, compression): a server's two
+# clients on two ranks; FSDP over "replica" (the batch split too); the
+# batch split over "model" (SmolLM's plan structure, weights whole); the
+# int8 physical wire with error feedback on the FSDP mesh
+LOCAL_RUNS = {
+    "clients": ((2, 2, 1, 1), 2, False, "none"),
+    "fsdp": ((2, 1, 2, 1), 1, False, "none"),
+    "batch_over_model": ((2, 1, 1, 2), 1, True, "none"),
+    "wire": ((2, 1, 2, 1), 1, False, "int8"),
+}
+#: a rank's pieces after the local period against the one-process port's
+#: rows, relative to each leaf's largest |w|: a batch split regroups the
+#: gradient's mean (the mean of two shares' means), f32 rounding carried
+#: through two SGD steps (the CPU twin, tests/test_torch_sharded_local.py,
+#: holds it at rtol 1e-5, atol 1e-6)
+LOCAL_TOL = 1e-5
+LOCAL_SAMPLE = 65536        # elements a leaf of the tolerance's samples
+LOCAL_KEY = 1               # the wire's key: prng.key(seed + 1)
+# kernel 2's shapes on a rank's half of a client's batch (1 x 128 tokens):
+# ln1 / ln2 (64 + 64 a step, and 64 recomputed forwards under FSDP) and
+# the final norm (the loss drops the last position); held to the plain
+# version as rmsnorm_sweep holds f32 shapes, on inputs of their own
+# generator (the sweep's draws, and every later phase's, stay as they are)
+LOCAL_NORM_SHAPES = [(128, 960), (127, 960)]
+
+
+def local_norm_check(torch) -> set:
+    """Kernel 2 forward and backward at LOCAL_NORM_SHAPES against the plain
+    versions (1e-5 forward, 1e-4 backward, of the largest value): one
+    ``rmsnorm_check`` line a shape.  Returns the shapes as
+    ``launched_norms`` records them."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(28)
+    out = set()
+    for rows, d in LOCAL_NORM_SHAPES:
+        x = torch.randn((rows, d), device=dev, generator=g)
+        s = 1 + 0.1 * torch.randn(d, device=dev, generator=g)
+        gy = torch.randn((rows, d), device=dev, generator=g)
+        xg, sg = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+        before = ops.launch_counts()
+        y = ops.rmsnorm(xg, sg)
+        dx, ds = torch.autograd.grad(y, (xg, sg), gy)
+        after = ops.launch_counts()
+        dx_ref, ds_ref = ref.rmsnorm_bwd_ref(x, s, gy)
+        errs = {k: rel_err(torch, a, b) for k, (a, b) in {
+            "y": (y.detach(), ref.rmsnorm_ref(x, s)), "dx": (dx, dx_ref),
+            "dscale": (ds, ds_ref)}.items()}
+        limits = {"y": 1e-5, "dx": 1e-4, "dscale": 1e-4}
+        ok = (all(errs[k][1] < lim for k, lim in limits.items())
+              and after["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 1
+              and after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1)
+        emit("rmsnorm_check", rows=rows, d=d, dtype="float32",
+             path="smollm-360m client step on a rank's half of the batch "
+             "(shard_local)", max_abs_err={k: e[0] for k, e in errs.items()},
+             max_rel_err={k: e[1] for k, e in errs.items()}, limits=limits,
+             ok=ok)
+        assert ok, (rows, d, errs)
+        out.add((rows, d, "float32"))
+    return out
+
+
+def local_topology(n: int):
+    from repro_torch.core import FLTopology
+    return FLTopology(num_servers=2, clients_per_server=n,
+                      t_client=LOCAL_TRAIN["t_client"],
+                      t_server=LOCAL_TRAIN["t_server"])
+
+
+def local_batch(torch, cfg, n: int) -> dict:
+    """Epoch 0's draw of the (2, n) federation, on the card."""
+    from repro_torch.data import DataConfig, FLDataPipeline
+    return FLDataPipeline(local_topology(n), DataConfig(
+        seq_len=LOCAL_TRAIN["seq_len"],
+        per_client_batch=LOCAL_TRAIN["per_client_batch"],
+        vocab_size=cfg.vocab_size, seed=LOCAL_TRAIN["seed"]),
+        device="cuda").epoch_batches(0)
+
+
+def local_params(torch, ttf, cfg) -> dict:
+    """The seeded full-size weights (the same values in every process)."""
+    dev = torch.device("cuda")
+    return ttf.init_params(torch.Generator(device=dev).manual_seed(
+        LOCAL_TRAIN["seed"]), cfg, torch.float32, device=dev)
+
+
+def local_samples(torch, x) -> list:
+    """A strided sample of ``x``'s values (a list: what a rank puts on the
+    world's queue holds no tensor)."""
+    flat = x.reshape(-1)
+    step = max(1, flat.numel() // LOCAL_SAMPLE)
+    return flat[::step][:LOCAL_SAMPLE].float().cpu().tolist()
+
+
+def local_spy(backend, name: str, rec: dict) -> None:
+    """Record, on the host, the rows this rank hands the consensus period
+    (and the wire's key): the local period's output."""
+    from repro_torch.tree import tree_leaves
+    mix = getattr(backend, name)
+
+    def spy(tree, *a, **kw):
+        rec["pre"] = [x.detach().cpu() for x in tree_leaves(tree)]
+        if "key" in kw:
+            rec["key"] = np.asarray(kw["key"]).tolist()
+        return mix(tree, *a, **kw)
+
+    setattr(backend, name, spy)
+
+
+def local_references(torch, ttf, cfg) -> dict:
+    """Kernel 2 at a rank's shapes (``local_norm_check``), then the
+    one-process port's epochs (N = 2 and N = 1) on the same weights
+    and draws, plain gossip: each run's expected regions a rank (the
+    pre-consensus rows' fingerprints and samples, and for ``clients`` the
+    state's fingerprints), the N = 1 pre-consensus rows on the host (the
+    wire run's full comparison) and the epoch's seconds."""
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {"epoch_s": {}, "norm_shapes": local_norm_check(torch)}
+    for n in (2, 1):
+        topo = local_topology(n)
+        backend = cns.GossipBackend(topo.mixing_matrix(), topo.t_server)
+        rec: dict = {}
+        local_spy(backend, "mix", rec)
+        dcfg = tdfl.DFLConfig(topology=topo, consensus_backend=backend)
+        opt = sgd(LOCAL_TRAIN["gamma"])
+        step = tdfl.build_dfl_epoch_step(dcfg, ttf.make_loss_fn(cfg), opt)
+        params = local_params(torch, ttf, cfg)
+        state = tdfl.init_dfl_state(dcfg, params, opt)
+        batch = local_batch(torch, cfg, n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        out["epoch_s"][n] = time.perf_counter() - t0
+        leaves = tree_leaves(state.client_params)
+        server_abs = tree_map(lambda x: torch.empty(
+            (2,) + tuple(x.shape), device="meta"), params)
+        del params
+        pre_dev = [x.cuda() for x in rec["pre"]]
+        for name, (shape, nn_, _, _) in LOCAL_RUNS.items():
+            if nn_ != n:
+                continue
+            mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
+            sspecs = tree_leaves(shd.fl_server_specs(server_abs, mesh,
+                                                     tp_axis=None))
+            regions = []
+            for r in range(SHARD_M):
+                pre = [shd.local_shard(x, sp, mesh, r)
+                       for x, sp in zip(pre_dev, sspecs)]
+                c = mesh.coords(r)
+                regions.append({
+                    "pre_fp": rows_fingerprint(
+                        torch, [x[:, None] for x in pre]),
+                    "pre_samples": [local_samples(torch, x) for x in pre],
+                    "state_fp": rows_fingerprint(torch, [
+                        x[c["server"]:c["server"] + 1,
+                          c["client"]:c["client"] + 1] for x in leaves])})
+                del pre
+            out[name] = regions
+        if n == 1:
+            out["pre_rows"] = rec["pre"]
+            out["server_specs"] = server_abs
+        del state, leaves, rec, pre_dev
+        torch.cuda.empty_cache()
+    return out
+
+
+def local_rank(torch, cns, ops, ttf, cfg, rank: int) -> dict:
+    """The world's ``shard_local`` runs on this rank: per run, one epoch
+    through ``fl_consensus_backend`` (``tp_axis=None``), ``init_dfl_state``
+    and ``build_dfl_epoch_step`` on the mesh, with its seconds, peak,
+    pieces' bytes, collectives by site, launches and kernel-2 shapes; the
+    fingerprints of the rank's pre-consensus rows and of its state; for
+    the plain runs, its mixed row against the one-process gossip of its
+    server group's pre-consensus rows (the A ⊗ I_S emulation of its piece,
+    bitwise); for the wire, its pre-consensus pieces into a file the parent
+    emulates the whole (M * S)-row problem from."""
+    import torch.distributed as dist
+    from repro_torch.comm import prng
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {}
+    for name, (shape, n, bom, comp) in LOCAL_RUNS.items():
+        wire = comp != "none"
+        mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape))
+        topo = local_topology(n)
+        params = local_params(torch, ttf, cfg)
+        backend = shd.fl_consensus_backend(
+            topo, mesh, tree_map(lambda x: torch.empty(
+                (2,) + tuple(x.shape), device="meta"), params),
+            tp_axis=None, batch_over_model=bom, compression=comp,
+            error_feedback=wire, wire="physical" if wire else "simulated")
+        dcfg = tdfl.DFLConfig(topology=topo, consensus_backend=backend)
+        opt = sgd(LOCAL_TRAIN["gamma"])
+        step = tdfl.build_dfl_epoch_step(dcfg, ttf.make_loss_fn(cfg), opt)
+        state = tdfl.init_dfl_state(
+            dcfg, params, opt,
+            wire_key=prng.key(LOCAL_KEY) if wire else None)
+        del params
+        rec: dict = {}
+        local_spy(backend, "mix_compressed" if wire else "mix", rec)
+        batch = local_batch(torch, cfg, n)
+        pieces_gb = sum(x.numel() * x.element_size() for x in
+                        tree_leaves(state.client_params)) / 1e9
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cns.reset_collective_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with launched_norms(torch) as norms:
+            state, mt = step(state, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = cns.collective_counts()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        leaves = tree_leaves(state.client_params)
+        got = {
+            "epoch_s": seconds, "peak_gb": peak, "pieces_gb": pieces_gb,
+            "collectives": counts, "launches": launches,
+            "norm_shapes": sorted(norms),
+            "loss": mt.loss.tolist(), "grad_norm": float(mt.grad_norm),
+            "disagreement": float(mt.server_disagreement),
+            "drift": float(mt.client_drift),
+            "coords": mesh.coords(),
+            "pre_fp": rows_fingerprint(torch, [x[:, None].cuda()
+                                               for x in rec["pre"]]),
+            "pre_samples": [local_samples(torch, x) for x in rec["pre"]],
+            "state_fp": rows_fingerprint(torch, leaves),
+            "ef_fp": (None if state.ef_residual is None else
+                      rows_fingerprint(torch, [
+                          x[:, None] for x in tree_leaves(
+                              state.ef_residual)]))}
+        if wire:
+            path = pathlib.Path(__file__).resolve().parent / "build" / \
+                f"shard_local_pre_{rank}.pt"
+            torch.save(rec["pre"], path)
+            got.update(pre_path=str(path), key=rec["key"])
+        else:
+            # the emulation of this rank's piece: the one-process gossip of
+            # its server group's rows (the rows of A ⊗ I_S that mix with it)
+            inner = backend
+            mine = [x.cuda() for x in rec["pre"]]
+            rows = [cns.all_gather_rows(x, inner.group, site="check")
+                    for x in mine]
+            del mine
+            want = cns.GossipBackend(topo.mixing_matrix(),
+                                     topo.t_server).mix(rows)
+            i = inner.view.idx
+            got["emulation_bitwise"] = all(
+                torch.equal(w[i], x[0, 0]) for w, x in zip(want, leaves))
+            del rows, want
+        out[name] = got
+        del state, leaves, mt, backend, step, rec, batch
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def local_wire_emulation(torch, cns, ranks, want) -> dict:
+    """The wire run from the ranks' files: their pre-consensus pieces
+    against the one-process rows (each leaf's largest difference over its
+    largest |w|), then the one-process int8 physical wire with error
+    feedback on the (M * S)-row problem under A ⊗ I_S with the run's key:
+    each row's and residual's fingerprints."""
+    from repro_torch.comm import compressors as cp
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.tree import tree_leaves
+    shape = LOCAL_RUNS["wire"][0]
+    mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
+    sspecs = tree_leaves(shd.fl_server_specs(want["server_specs"], mesh,
+                                             tp_axis=None))
+    pre = [torch.load(r["shard_local"]["wire"]["pre_path"]) for r in ranks]
+    worst = 0.0
+    for leaf, (one, sp) in enumerate(zip(want["pre_rows"], sspecs)):
+        one = one.cuda()
+        scale = max(float(one.abs().max()), 1e-30)
+        for r in range(SHARD_M):
+            mine = pre[r][leaf].cuda()
+            worst = max(worst, float((mine - shd.local_shard(
+                one, sp, mesh, r)).abs().max()) / scale)
+        del one, mine
+    emul = [torch.cat([p[leaf] for p in pre]).cuda()
+            for leaf in range(len(pre[0]))]
+    del pre
+    for r in ranks:
+        pathlib.Path(r["shard_local"]["wire"]["pre_path"]).unlink()
+    a = local_topology(1).mixing_matrix().astype(np.float32)
+    s = SHARD_M // shape[0]
+    backend = cns.CompressedBackend(
+        cns.GossipBackend(np.kron(a, np.eye(s, dtype=np.float32)),
+                          LOCAL_TRAIN["t_server"]),
+        cp.make_compressor(LOCAL_RUNS["wire"][3]), error_feedback=True,
+        wire="physical", wire_block=16_777_216)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mixed, res = backend.mix_compressed(
+        emul, residual=[torch.zeros_like(x) for x in emul],
+        key=np.asarray(ranks[0]["shard_local"]["wire"]["key"],
+                       dtype=np.uint32))
+    torch.cuda.synchronize()
+    period_s = time.perf_counter() - t0
+    rows = rows_fingerprint(torch, [x[:, None] for x in mixed])
+    efs = rows_fingerprint(torch, [x[:, None] for x in res])
+    del emul, mixed, res, backend
+    torch.cuda.empty_cache()
+    return {"pre_rel_err": worst, "rows": rows, "ef": efs,
+            "period_s": period_s}
+
+
+def local_check(torch, cns, ranks, want, smi: str) -> dict:
+    """``shard_local``, one line a run: per rank the epoch's seconds, the
+    collectives by site (calls, bytes by op:dtype, seconds), the peak
+    beside its pieces' bytes and the whole-row yardstick's peak
+    (``wire_whole`` in the same world), kernel 2's launches and shapes;
+    the checks against the one-process port: ``clients`` bitwise (the
+    pre-consensus rows and the state), the batch splits within LOCAL_TOL
+    on samples (the wire's local period in full), the consensus bitwise
+    its A ⊗ I_S emulation.  Returns the launches of the kernels of the
+    path, summed over the runs and ranks."""
+    total: dict = {}
+    whole_peak = max(r["axes"]["wire_whole"]["peak_gb"] for r in ranks
+                     if "wire_whole" in r["axes"])
+    wire = local_wire_emulation(torch, cns, ranks, want)
+    for name, (shape, n, bom, comp) in LOCAL_RUNS.items():
+        got = [r["shard_local"][name] for r in ranks]
+        exp = want[name]
+        per_rank = []
+        for r, x in enumerate(got):
+            c = x["collectives"]
+            per_rank.append({
+                "rank": r, "coords": x["coords"], "epoch_s": x["epoch_s"],
+                "collective_s": c["seconds"], "staging_s": c["staging_s"],
+                "sites": c["sites"], "bytes": c["bytes"],
+                "op_seconds": c["op_seconds"], "peak_gb": x["peak_gb"],
+                "pieces_gb": x["pieces_gb"],
+                "rmsnorm_launches": {k: v for k, v in x["launches"].items()
+                                     if k.startswith("rmsnorm")},
+                "launches": x["launches"]})
+            for k, v in x["launches"].items():
+                total[k] = total.get(k, 0) + v
+        pre_bitwise = all(x["pre_fp"] == e["pre_fp"]
+                          for x, e in zip(got, exp))
+        worst = 0.0
+        for x, e in zip(got, exp):
+            for g_, w_ in zip(x["pre_samples"], e["pre_samples"]):
+                g_, w_ = np.asarray(g_), np.asarray(w_)
+                scale = max(float(np.abs(w_).max()), 1e-30)
+                worst = max(worst, float(np.abs(g_ - w_).max()) / scale)
+        fields = dict(
+            run=name, mesh=dict(zip(("server", "client", "replica",
+                                     "model"), shape)),
+            clients=n, batch_over_model=bom, compression=comp,
+            t_client=LOCAL_TRAIN["t_client"],
+            t_server=LOCAL_TRAIN["t_server"], ranks=per_rank,
+            one_process_epoch_s=want["epoch_s"][n],
+            whole_row_peak_gb=whole_peak, pre_bitwise=pre_bitwise,
+            pre_sample_rel_err=worst, tolerance=LOCAL_TOL,
+            loss=got[0]["loss"], grad_norm=got[0]["grad_norm"],
+            disagreement=got[0]["disagreement"], drift=got[0]["drift"],
+            nvidia_smi=smi)
+        if name == "clients":
+            fields["state_bitwise"] = all(
+                x["state_fp"] == e["state_fp"] for x, e in zip(got, exp))
+        if comp == "none":
+            fields["consensus_bitwise"] = all(x["emulation_bitwise"]
+                                              for x in got)
+        else:
+            fields.update(
+                consensus_bitwise=all(
+                    x["state_fp"][0] == wire["rows"][r]
+                    for r, x in enumerate(got)),
+                ef_bitwise=all(x["ef_fp"][0] == wire["ef"][r]
+                               for r, x in enumerate(got)),
+                pre_full_rel_err=wire["pre_rel_err"],
+                emulation_period_s=wire["period_s"])
+        emit("shard_local", **fields)
+        assert fields["consensus_bitwise"], name
+        assert all(x["peak_gb"] < whole_peak for x in got), (name, whole_peak)
+        assert all(set(map(tuple, x["norm_shapes"])) <= want["norm_shapes"]
+                   | {(r_, d, t) for r_, d, t, _, _ in RMSNORM_SHAPES}
+                   for x in got)
+        assert all(x["launches"].get("rmsnorm_fwd", 0) > 0
+                   and x["launches"].get("rmsnorm_bwd", 0) > 0
+                   for x in got), name
+        if name == "clients":
+            assert pre_bitwise and fields["state_bitwise"], name
+        else:
+            assert worst <= LOCAL_TOL, (name, worst)
+        if comp == "none":
+            assert all(x["launches"].get("consensus_mix_rows", 0) > 0
+                       for x in got), name
+        else:
+            assert fields["ef_bitwise"], name
+            assert wire["pre_rel_err"] <= LOCAL_TOL, wire["pre_rel_err"]
+            assert all(x["launches"].get("quantized_gossip_encode") == 1
+                       and x["launches"].get("bucketed_gossip_round_rows")
+                       == LOCAL_TRAIN["t_server"] for x in got), name
+        sites = [set(x["collectives"]["sites"]) for x in got]
+        if shape[2] > 1:
+            assert all({"fsdp_gather", "grad_reduce"} <= s for s in sites)
+        if bom:
+            assert all("grad_reduce" in s for s in sites)
+        if shape[1] > 1:
+            assert all("client_mean" in s for s in sites)
+    return total
+
+
 def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
     """One rank of the world: server ``rank`` on ``cuda:0``.  Runs every
     phase through the trainers and puts its readings on ``q``; a failure
@@ -4217,6 +4655,14 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                                 world_size=SHARD_M, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         for name, trainer, kw in phases:
+            if trainer == "shard_local":
+                from repro_torch.configs import get_arch
+                from repro_torch.models import transformer as ttf
+                t0 = time.perf_counter()
+                out[name] = local_rank(torch, cns, ops, ttf,
+                                       get_arch("smollm-360m"), rank)
+                out[name]["wall_s"] = time.perf_counter() - t0
+                continue
             if trainer == "axes":
                 from repro_torch.configs import get_arch
                 from repro_torch.models import transformer as ttf
@@ -4476,8 +4922,8 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     (``shard_map_rows``), then one-process reference epochs in this process,
     then one world of four gloo ranks running ``shard_map_wire`` (staleness
     0 and 1), ``shard_map_plain``, ``shard_map_dynamic`` (and push-sum),
-    ``shard_map_inlier`` and ``shard_map_axes``, each rank's rows held to
-    the one-process run's; then ``shard_map_cli`` through
+    ``shard_map_inlier``, ``shard_map_axes`` and ``shard_local``, each
+    rank's rows held to the one-process run's; then ``shard_map_cli`` through
     ``torch.distributed.run`` with the dry run's process beside it (the
     last timed phase is over) and the ``dryrun`` lines.  Returns the row
     forms' kernel rows with their launches."""
@@ -4515,6 +4961,8 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     cfg = get_arch("smollm-360m")
     want_axes = axes_emulation(torch, cns, ttf, cfg)
     dry_axes = axes_dry_records(torch, ttf, cfg)
+    # the one-process epochs the sharded local period is held to
+    want_local = local_references(torch, ttf, cfg)
 
     # ---- the world: four ranks, one server each, on the one card (this
     # process keeps only its context and what main() still holds) ----
@@ -4524,7 +4972,9 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     emit("shard_map_parent", alloc_gb=torch.cuda.memory_allocated() / 1e9,
          reserved_gb=torch.cuda.memory_reserved() / 1e9)
     t0 = time.perf_counter()
-    ranks = shard_world(torch, SHARD_PHASES + [("axes", "axes", {})])
+    ranks = shard_world(torch, SHARD_PHASES + [("axes", "axes", {}),
+                                               ("shard_local", "shard_local",
+                                                {})])
     world_s = time.perf_counter() - t0
     server_abs = [torch.empty((SHARD_M,) + tuple(s), device="meta")
                   for s in ranks[0]["wire"]["leaf_shapes"]]
@@ -4610,9 +5060,12 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                 assert sum(rank_row["bytes_per_round"].values()) \
                     == row_bytes, rank_row
     axes_launches = axes_check(torch, ranks, want_axes, dry_axes, smi)
+    local_launches = local_check(torch, cns, ranks, want_local, smi)
+    del want_local
     launches = {k: sum(r[name]["launches"].get(k, 0) for r in ranks
                        for name in ("wire", "wire_stale", "plain"))
-                + axes_launches.get(k, 0) for k in ROW_KERNELS}
+                + axes_launches.get(k, 0) + local_launches.get(k, 0)
+                for k in ROW_KERNELS}
     assert all(launches.values()), launches
     for k, row in rows.items():
         row["launches"] = launches[k]

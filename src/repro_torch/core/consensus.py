@@ -939,6 +939,67 @@ def all_reduce_(x: torch.Tensor, group, op: str = "sum", *,
     return x
 
 
+# -- the intra-client collectives: a client cut over ranks ------------------
+
+
+def _flat_of(leaves) -> torch.Tensor:
+    kops.one_dtype(leaves, "an intra-client collective")
+    return torch.cat([x.reshape(-1) for x in leaves])
+
+
+def gather_pieces(pieces, dims, group, *,
+                  site: str = "fsdp_gather") -> list:
+    """The whole leaves of one unit (a layer, or a model's top-level
+    leaves) from every rank's pieces, in one ``all_gather_rows`` over
+    ``group`` of their concatenation: ``pieces[i]`` is cut along dim
+    ``dims[i]`` into as many pieces as ``group`` has ranks, a rank's piece
+    at its group rank (``launch.mesh.RankMesh.ranks_over``); a ``None``
+    dim is a leaf every rank holds whole, returned as it is.  One
+    collective a unit, whatever its leaf count."""
+    cut = [p for p, d in zip(pieces, dims) if d is not None]
+    if not cut or group is None:
+        return list(pieces)
+    k, _ = group_size_rank(group)
+    got = all_gather_rows(_flat_of(cut)[None], group, site=site)
+    out, off = [], 0
+    for p, d in zip(pieces, dims):
+        if d is None:
+            out.append(p)
+            continue
+        n = p.numel()
+        parts = got[:, off:off + n].reshape((k,) + tuple(p.shape))
+        shape = list(p.shape)
+        shape[d] *= k
+        out.append(parts.movedim(0, d).reshape(shape))
+        off += n
+    return out
+
+
+def reduce_to_pieces(grads, dims, group, pos: int, k: int, *,
+                     site: str = "grad_reduce") -> list:
+    """Each rank's piece of the mean over ``group`` of one unit's
+    whole-leaf gradients: one ``all_reduce_`` (sum) of their concatenation
+    divided by the group's size, then each leaf cut along ``dims[i]`` into
+    ``k`` pieces and the one at ``pos`` kept (a ``None`` dim: the whole
+    leaf, a replicated leaf's averaged gradient).  gloo has no
+    reduce-scatter, so the whole sum crosses and the rank slices its piece
+    from it: the sum a reduce-scatter would give, at twice its bytes.
+    ``group`` None (the batch not split) reduces nothing."""
+    if group is not None:
+        flat = _flat_of(grads)
+        all_reduce_(flat, group, site=site)
+        flat.div_(group_size_rank(group)[0])
+        out, off = [], 0
+        for g in grads:
+            out.append(flat[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+        grads = out
+    return [g if d is None else g.narrow(d, pos * (g.shape[d] // k),
+                                         g.shape[d] // k).contiguous()
+            for g, d in zip(grads, dims)]
+
+
+
 # -- shard_map gossip: the rank-local programs ------------------------------
 
 
@@ -1952,9 +2013,10 @@ class ShardMapBackend(ConsensusBackend):
     (rank r holding server r), with the mixing matrix an operand (a
     per-epoch ``A_p`` overrides the static one).  ``rows`` are the server
     rows this rank holds (a piece of), so the epoch step runs rank-locally
-    (``dfl.build_dfl_epoch_step``; a server row sharded over further axes
-    only mixes, see ``sharded``); being bound to the mesh's size it cannot
-    survive fault surgery that changes M (``mesh_bound``).  Push-sum mixes
+    (``dfl.build_dfl_epoch_step``; on a server row sharded over further
+    axes, ``sharded``, with ``batch_spec`` its share of the batch); being
+    bound to the mesh's size it cannot survive fault surgery that changes
+    M (``mesh_bound``).  Push-sum mixes
     the numerator with A' through the same program and the ``(M,)``
     weight, replicated on every rank, identically on each.  ``wire_runner``
     builds the bucketed wire programs (``CompressedBackend(wire=
@@ -1965,7 +2027,8 @@ class ShardMapBackend(ConsensusBackend):
 
     def __init__(self, mesh, a_static, t_server, leaf_specs: Any = None, *,
                  axis_name: str = "server", counted=None,
-                 block: int = 16_777_216, staleness: int = 0):
+                 block: int = 16_777_216, staleness: int = 0,
+                 batch_spec=None):
         super().__init__(a_static, t_server)
         if staleness < 0:
             raise ValueError(f"staleness must be >= 0, got {staleness}")
@@ -1994,6 +2057,10 @@ class ShardMapBackend(ConsensusBackend):
                 f"matrix on {self.num_servers} servers")
         #: the federation rows this rank holds (a piece of), [lo, hi)
         self.rows = (view.idx, view.idx + 1)
+        #: on a mesh, the spec of the epoch's (T_C, M, N, b, ...) draw
+        #: (``launch.sharding.fl_batch_spec``): which share of its clients'
+        #: batches this rank trains on
+        self.batch_spec = batch_spec
         self._wire_runners: Dict[tuple, _ShardWire] = {}
 
     def disagreement(self, server_tree: Any) -> torch.Tensor:

@@ -60,18 +60,37 @@ robust backend (trimmed mean, median, clipped) with ``metrics="full"``
 reports its per-source screen activity in ``DFLMetrics.screen_rejected``.
 
 The multi-process wire (``DFLConfig.consensus_backend`` a mesh-bound
-``consensus.ShardMapBackend``, bare or inside a ``CompressedBackend``): one
-process a server, and the step runs rank-locally.  Its grid is ``(rows this
-rank holds, N)``; ``init_dfl_state`` builds only those rows; the step takes
-the pipeline's full ``(T_C, M, N, ...)`` draw and the full schedule and
-reads its rows of them; the consensus period crosses the group.  The
-metrics that reduce over servers go through ``consensus.all_reduce_``: the
-losses (exact: the other ranks add zeros), the grad norm's and the
-disagreement's sums (within rounding of the one-process sums), the drift's
-max (exact); an ``inlier_shift`` attack's honest envelope (max and min,
-exact).  The push-sum weight is replicated on every rank.  A mesh whose
-client, replica or model axes exceed 1 (a server row over several ranks)
-is refused here: its clients' local period would need FSDP / TP.
+``consensus.ShardMapBackend``, bare or inside a ``CompressedBackend``): the
+step runs rank-locally, in this process's ``RankRole`` (``rank_role``).
+One process a server (a bare group, or a mesh (M, 1, 1, 1)): its grid is
+``(rows this rank holds, N)``; ``init_dfl_state`` builds only those rows;
+the step takes the pipeline's full ``(T_C, M, N, ...)`` draw and the full
+schedule and reads its rows of them; the consensus period crosses the
+group.  The metrics that reduce over servers go through
+``consensus.all_reduce_``: the losses (exact: the other ranks add zeros),
+the grad norm's and the disagreement's sums (within rounding of the
+one-process sums), the drift's max (exact); an ``inlier_shift`` attack's
+honest envelope (max and min, exact).  The push-sum weight is replicated
+on every rank.
+
+A server row sharded over ranks (a ``launch.mesh.RankMesh`` whose client,
+replica or model axis exceeds 1, ``tp_axis=None``) computes the same
+function as the one-process step, as GSPMD does the reference's: a rank
+holds its clients ``[c_lo, c_hi)`` of its server (the "client" axis), its
+pieces of each leaf (FSDP over "replica", ``launch.sharding.local_shard``)
+and trains them on its share of each client's batch
+(``launch.sharding.fl_batch_spec``: over "replica", and over "model" under
+``batch_over_model``).  With cut leaves the loss takes them through
+``launch.fsdp.ClientShards`` (``ApplyOptions.provider``, bound through the
+loss's ``with_provider``): a layer gathered for its forward and again for
+its backward, its gradients averaged over the batch's ranks and cut to the
+rank's pieces; with whole leaves and a split batch the gradients are
+averaged after the backward.  Eq. 4 sums the rank's clients, then over
+the client group, then divides by N.  The losses
+are the mean of a client's shares, the grad norm and the drift count a
+replicated leaf once (its first copy), the disagreement is the backend's
+over the mesh.  Refused there, each by name: tensor parallelism over
+"model" (``tp_axis="model"``), and a dynamic, push-sum or robust config.
 """
 from __future__ import annotations
 
@@ -190,22 +209,31 @@ def replicate_to_clients(params: Any, m: int, n: int) -> Any:
                     .contiguous(), params)
 
 
-def _client_sum_over(x: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+def _client_sum_over(x: torch.Tensor, count: torch.Tensor,
+                     group=None) -> torch.Tensor:
     """Eq. 4's one operation: the sum over the client axis divided by the
     per-server ``count`` ((M,), on ``x``'s device).  The static and the
-    masked mean both go through it, so they round alike."""
+    masked mean both go through it, so they round alike.  With ``group``
+    the server's clients sit on several ranks: this rank's sum is summed
+    over them (site ``client_mean``) before the division."""
     c = count.reshape((-1,) + (1,) * (x.dim() - 2)).to(x.dtype)
-    return x.sum(dim=1) / c
+    s = x.sum(dim=1)
+    if group is not None:
+        cns.all_reduce_(s, group, site="client_mean")
+    return s / c
 
 
-def _full_count(x: torch.Tensor) -> torch.Tensor:
-    return torch.full((x.shape[0],), x.shape[1], dtype=x.dtype,
-                      device=x.device)
+def _full_count(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    return torch.full((x.shape[0],), x.shape[1] if n is None else n,
+                      dtype=x.dtype, device=x.device)
 
 
-def server_mean(client_tree: Any) -> Any:
-    """Eq. 4: w^i = (1/N) sum_j w^{ij}  — mean over the client axis."""
-    return tree_map(lambda x: _client_sum_over(x, _full_count(x)),
+def server_mean(client_tree: Any, group=None,
+                n: Optional[int] = None) -> Any:
+    """Eq. 4: w^i = (1/N) sum_j w^{ij}  — mean over the client axis; with
+    ``group`` the tree holds this rank's clients of the server's ``n``,
+    the others on the group's ranks."""
+    return tree_map(lambda x: _client_sum_over(x, _full_count(x, n), group),
                     client_tree)
 
 
@@ -408,15 +436,29 @@ def disagreement_norm(server_tree: Any) -> torch.Tensor:
 def max_client_drift(client_tree: Any, server_tree: Any) -> torch.Tensor:
     """max_{ij} ||w^{ij} - w^i|| (Lemma 3 LHS), as
     ``sum c^2 - 2 sum c*s + sum s^2`` per (i, j) with f32 accumulation."""
+    return torch.sqrt(torch.clamp(torch.max(
+        _drift_sq(client_tree, server_tree)), min=0.0))
+
+
+def _drift_sq(client_tree: Any, server_tree: Any,
+              counted: Optional[list] = None) -> torch.Tensor:
+    """Per (i, j), ``max_client_drift``'s squared distance summed over the
+    leaves (those ``counted`` marks: a rank's first copies)."""
     sq = None
-    for c, s in zip(tree_leaves(client_tree), tree_leaves(server_tree)):
+    for k, (c, s) in enumerate(zip(tree_leaves(client_tree),
+                                   tree_leaves(server_tree))):
+        if counted is not None and not counted[k]:
+            continue
         dims = tuple(range(2, c.dim()))
         sb = s[:, None]
         term = (_sum_over(torch.square(c), dims)
                 - 2.0 * _sum_over(c * sb, dims)
                 + _sum_over(torch.square(sb), dims))
         sq = term if sq is None else sq + term
-    return torch.sqrt(torch.clamp(torch.max(sq), min=0.0))
+    if sq is None:
+        c = tree_leaves(client_tree)[0]
+        sq = torch.zeros(c.shape[:2], dtype=torch.float32, device=c.device)
+    return sq
 
 
 def _sum_over(x: torch.Tensor, dims: Tuple[int, ...]) -> torch.Tensor:
@@ -473,25 +515,112 @@ def active_wire(cfg: DFLConfig) -> Tuple[str, int]:
     return cfg.wire, cns.DEFAULT_GOSSIP_BLOCK
 
 
-def mesh_rows(cfg: DFLConfig) -> Optional[Tuple[int, int, Any]]:
-    """``(lo, hi, group)`` of the federation rows ``[lo, hi)`` this process
-    holds under a mesh-bound injected backend (the multi-process wire),
-    else ``None``."""
+class RankRole(NamedTuple):
+    """Where this process sits in a federation on the multi-process wire
+    (``rank_role``).  It holds the server rows ``[lo, hi)`` and, of each,
+    the clients ``[c_lo, c_hi)``; the consensus period crosses ``group``,
+    the metrics reduce over ``world``.  The rest is set only on a
+    ``sharded`` row (a mesh whose client, replica or model axis exceeds
+    1): the ``mesh``; ``client_group``, the ranks of one server's clients
+    (Eq. 4); ``shard_group``, the ranks that hold pieces or copies of one
+    client (replica x model); ``batch_group``, the ranks its batch splits
+    over, under ``batch_spec`` of the draw; ``gather_group`` over
+    ``gather_axes``, the ranks of one cut leaf's pieces; ``specs``, each
+    client leaf's spec over its own dims (tree order); ``counted``, per
+    leaf, whether this rank's piece is its first copy (a sum over ranks
+    counts a replicated leaf once); ``first``, whether this rank is its
+    client's first (replica 0, model 0)."""
+
+    lo: int
+    hi: int
+    c_lo: int
+    c_hi: int
+    group: Any
+    world: Any
+    mesh: Any = None
+    client_group: Any = None
+    shard_group: Any = None
+    batch_group: Any = None
+    batch_spec: Any = None
+    gather_group: Any = None
+    gather_axes: Tuple[str, ...] = ()
+    specs: Optional[list] = None
+    counted: Optional[list] = None
+    first: bool = True
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None
+
+
+def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
+    """This process's ``RankRole`` under a mesh-bound injected backend (the
+    multi-process wire), else ``None``.  On a sharded row it makes the
+    row's groups, in one order on every rank.  Refused there, each by
+    name: a client cut over "model" (tensor parallelism: ``tp_axis=
+    "model"``), and a dynamic, push-sum or robust config."""
     backend = cfg.consensus_backend
     if backend is None or not getattr(backend, "mesh_bound", False):
         return None
     inner = getattr(backend, "inner", backend)
-    if getattr(inner, "sharded", False):
-        raise ValueError(
-            "the rank-local epoch step trains whole client rows, one server "
-            "a rank: this backend's mesh has client, replica or model axes "
-            "above 1, so a server's row spans several ranks, and training "
-            "such a client needs the local period sharded (FSDP / TP), which "
-            "the port does not have.  Train on a mesh (M, 1, 1, 1) or a "
-            "group of M ranks; the sharded row runs the consensus period "
-            "alone (ShardMapBackend.mix)")
     lo, hi = inner.rows
-    return lo, hi, inner.group
+    n = cfg.topology.clients_per_server
+    if not getattr(inner, "sharded", False):
+        return RankRole(lo, hi, 0, n, inner.group, inner.view.world)
+    from repro_torch.launch import sharding as shd
+    mesh = inner.mesh
+    specs = [shd.layer_spec(x, 1) for x in tree_leaves(inner.leaf_specs)]
+    if any("model" in x.used_axes() for x in specs):
+        raise ValueError(
+            "tensor parallelism over 'model' is not ported: this backend's "
+            "leaf specs cut a client's weights over the 'model' axis "
+            "(tp_axis='model').  The rank-local step cuts a client over "
+            "'client' and 'replica' (FSDP) and splits its batch over "
+            "'model' under batch_over_model: build the backend with "
+            "tp_axis=None (and batch_over_model=True, as the plans of "
+            "smollm_360m and internvl2_1b), or on a model axis of 1")
+    if cfg.dynamic or cfg.mixing == "push_sum" or cfg.byzantine is not None \
+            or getattr(backend, "robust", False):
+        raise ValueError(
+            "a server row sharded over ranks runs the static step: a "
+            "dynamic, push-sum or robust config (a per-epoch mask or A_p, "
+            "the ratio weight, an attack and its screen) on a sharded row "
+            "is not ported; run it on a mesh (M, 1, 1, 1) or a group of M "
+            "ranks")
+    per, c = n // mesh.shape["client"], mesh.coords()["client"]
+    if per * mesh.shape["client"] != n:
+        raise ValueError(f"N={n} clients do not split over the mesh's "
+                         f"{mesh.shape['client']} client ranks")
+    gather_axes = tuple(a for a in mesh.axis_names
+                        if any(a in x.used_axes() for x in specs))
+    batch_axes = inner.batch_spec.axes(3)
+    # the groups, in one order on every rank (gloo needs it)
+    client_group = mesh.group_over(("client",))
+    shard_group = mesh.group_over(("replica", "model"))
+    batch_group = mesh.group_over(batch_axes)
+    gather_group = mesh.group_over(gather_axes)
+    coords = mesh.coords()
+    return RankRole(
+        lo, hi, c * per, (c + 1) * per, inner.group, inner.view.world,
+        mesh=mesh, client_group=client_group, shard_group=shard_group,
+        batch_group=batch_group, batch_spec=inner.batch_spec,
+        gather_group=gather_group, gather_axes=gather_axes, specs=specs,
+        counted=[shd.first_copy(shd.PartitionSpec(
+            "server", "client", *x.dims), mesh) for x in specs],
+        first=coords["replica"] == 0 and coords["model"] == 0)
+
+
+def _cut(params: Any, role: RankRole) -> Any:
+    """This rank's pieces of the whole leaves ``params`` (views)."""
+    if not role.sharded:
+        return params
+    from repro_torch.launch import sharding as shd
+    leaves, treedef = tree_flatten(params)
+    if len(leaves) != len(role.specs):
+        raise ValueError(f"{len(leaves)} parameter leaves against the "
+                         f"backend's {len(role.specs)} leaf specs")
+    return tree_unflatten(treedef, [shd.local_shard(x, sp, role.mesh)
+                                    for x, sp in zip(leaves, role.specs)])
 
 
 def _compresses(cfg: DFLConfig) -> bool:
@@ -548,11 +677,26 @@ def build_dfl_epoch_step(
     topo = cfg.topology
     m, n = topo.num_servers, topo.clients_per_server
     # the rows this process holds: all M, or a rank's own under the
-    # multi-process wire (the consensus period then crosses the group)
-    local = mesh_rows(cfg)
-    lo, hi, group = (0, m, None) if local is None else local
+    # multi-process wire (the consensus period then crosses the group), and
+    # of each its clients: all N, or on a sharded row a rank's own pieces
+    # of its clients on its share of their batches
+    role = rank_role(cfg)
+    lo, hi, group = ((0, m, None) if role is None
+                     else (role.lo, role.hi, role.group))
+    c_lo, c_hi = (0, n) if role is None else (role.c_lo, role.c_hi)
     rows = hi - lo
-    grid = (rows, n)
+    grid = (rows, c_hi - c_lo)
+    world = None if role is None else role.world
+    sharded = role is not None and role.sharded
+    counted = None if not sharded else role.counted
+    if sharded and role.gather_axes \
+            and not hasattr(loss_fn, "with_provider"):
+        raise ValueError(
+            "this rank holds pieces of its client's leaves (cut over "
+            f"{role.gather_axes}): the loss must take its leaves through "
+            "ApplyOptions.provider — make it with "
+            "models.transformer.make_loss_fn, whose with_provider the step "
+            "binds to the client's pieces")
     if cfg.mixing not in ("symmetric", "row_stochastic", "push_sum"):
         raise ValueError(f"unknown mixing interpretation {cfg.mixing!r}")
     if cfg.mixing == "symmetric" and topo.mixing == "out_degree" and m > 1:
@@ -604,19 +748,50 @@ def build_dfl_epoch_step(
     screen_stats = (backend is not None and backend.robust and full)
     n_micro = max(cfg.grad_microbatches, 1)
     push_sum = cfg.mixing == "push_sum"
+    # a batch split with every leaf whole on the rank: the whole-leaf
+    # gradients averaged over the batch's ranks after the backward; with
+    # cut leaves the provider reduces each unit's inside it
+    batch_mean = sharded and role.batch_group is not None \
+        and not role.gather_axes
+    bound = {}
 
-    def client_grad(p_ij, batch_ij, rng):
+    def loss_for(client_params):
+        """The loss this rank runs: ``loss_fn``, or on a rank holding cut
+        leaves the same loss with its leaves through the client's
+        ``launch.fsdp.ClientShards`` (made at the first epoch, when the
+        tree's layout is known; its groups are the role's)."""
+        if not (sharded and role.gather_axes):
+            return loss_fn
+        if "loss" not in bound:
+            from repro_torch.launch.fsdp import ClientShards
+            specs = tree_unflatten(tree_flatten(client_params)[1],
+                                   role.specs)
+            bound["loss"] = loss_fn.with_provider(ClientShards(
+                role.mesh, specs, role.gather_group, role.batch_group,
+                role.gather_axes))
+        return bound["loss"]
+
+    def reduced(grads: list) -> list:
+        if not batch_mean:
+            return grads
+        return [cns.reduce_to_pieces([g], [None], role.batch_group, 0, 1)[0]
+                for g in grads]
+
+    def client_grad(loss_fn, p_ij, batch_ij, rng):
         """(loss, grads) of one client at its own params, averaged over
         ``n_micro`` sequential microbatches.  A leaf the loss never reads
         (a mamba block's ``ln2``) gets a zero gradient, as ``jax.grad``
-        gives it."""
+        gives it.  On a sharded row: this rank's pieces and batch share,
+        the gradients the client's (averaged over the batch's ranks), the
+        loss this share's."""
         leaves, treedef = tree_flatten(p_ij)
         live = [leaf.detach().requires_grad_(True) for leaf in leaves]
         params = tree_unflatten(treedef, live)
         if n_micro == 1:
             loss, _aux = loss_fn(params, batch_ij, rng)
             grads = torch.autograd.grad(loss, live, materialize_grads=True)
-            return loss.detach(), tree_unflatten(treedef, list(grads))
+            return loss.detach(), tree_unflatten(treedef,
+                                                 reduced(list(grads)))
 
         def split(leaf):
             b = leaf.shape[0]
@@ -636,7 +811,8 @@ def build_dfl_epoch_step(
             # 1/n first, as the reference does
             acc = [a + (x / n_micro).to(a.dtype) for a, x in zip(acc, g)]
             losses.append(mloss.detach())
-        return torch.stack(losses).mean(), tree_unflatten(treedef, acc)
+        return torch.stack(losses).mean(), tree_unflatten(treedef,
+                                                          reduced(acc))
 
     def local_period(state: DFLState, batches: Any):
         """T_C SGD steps of every client, in place; the losses and the last
@@ -644,8 +820,9 @@ def build_dfl_epoch_step(
         params, opt_state = state.client_params, state.opt_state
         t_c = tree_leaves(batches)[0].shape[0]
         device = tree_leaves(params)[0].device
+        run_loss = loss_for(params)
         # kept on the device: no host sync inside the client loop
-        losses = torch.zeros((t_c, rows, n), dtype=torch.float32,
+        losses = torch.zeros((t_c,) + grid, dtype=torch.float32,
                              device=device)
         gnorm = torch.zeros((), dtype=torch.float32, device=device)
         for t in range(t_c):
@@ -653,10 +830,11 @@ def build_dfl_epoch_step(
             sq = None
             new_shared = opt_state
             for i in range(rows):
-                for j in range(n):
+                for j in range(grid[1]):
                     p_ij = _client_slice(params, i, j, grid)
                     loss, grads = client_grad(
-                        p_ij, tree_map(lambda x: x[i, j], batch_t), state.rng)
+                        run_loss, p_ij,
+                        tree_map(lambda x: x[i, j], batch_t), state.rng)
                     with torch.no_grad():
                         new_p, new_s = optimizer.update(
                             grads, _client_slice(opt_state, i, j, grid), p_ij)
@@ -665,26 +843,36 @@ def build_dfl_epoch_step(
                                                    grid)
                         losses[t, i, j] = loss.float()
                         if full:
-                            g_sq = sum(torch.sum(torch.square(g),
-                                                 dtype=torch.float32)
-                                       for g in tree_leaves(grads))
+                            g_sq = sum(
+                                (torch.sum(torch.square(g),
+                                           dtype=torch.float32)
+                                 for k, g in enumerate(tree_leaves(grads))
+                                 if counted is None or counted[k]),
+                                torch.zeros((), dtype=torch.float32,
+                                            device=device))
                             sq = g_sq if sq is None else sq + g_sq
                     del grads
             # every client advanced the shared leaves (the step count) from
             # the same value, so the last client's are everyone's
             opt_state = new_shared
             if full:
-                if group is not None:
-                    sq = cns.all_reduce_(sq.reshape(1).clone(), group,
+                if world is not None:
+                    sq = cns.all_reduce_(sq.reshape(1).clone(), world,
                                          site="metrics")[0]
                 gnorm = torch.sqrt(sq / (m * n))
-        if group is not None:
+        if world is not None:
+            if sharded and role.batch_group is not None:
+                # a client's loss: the mean of its batch shares' losses
+                cns.all_reduce_(losses, role.batch_group, site="metrics")
+                losses /= cns.group_size_rank(role.batch_group)[0]
             # the federation's (T_C, M, N) losses: every other rank adds
-            # zeros to this rank's rows, so each loss arrives exactly
+            # zeros to this rank's clients (a client's first rank only),
+            # so each loss arrives exactly
             every = torch.zeros((t_c, m, n), dtype=torch.float32,
                                 device=device)
-            every[:, lo:hi] = losses
-            losses = cns.all_reduce_(every, group, site="metrics")
+            if role.first:
+                every[:, lo:hi, c_lo:c_hi] = losses
+            losses = cns.all_reduce_(every, world, site="metrics")
         return params, opt_state, losses, gnorm
 
     def run_epoch(state: DFLState, batches: Any, mask=None, a_p=None,
@@ -693,7 +881,11 @@ def build_dfl_epoch_step(
         the static matrix); ``byz`` the epoch's attack codes.  Metrics stay
         on the device."""
         device = tree_leaves(state.client_params)[0].device
-        if group is not None:
+        if sharded:
+            # this rank's clients' share of the federation's draw
+            from repro_torch.launch.sharding import batch_piece
+            batches = batch_piece(batches, role.batch_spec, role.mesh)
+        elif group is not None:
             # this rank's rows of the federation's draw and schedule (the
             # attack codes stay whole: apply_byzantine reads them all)
             batches = tree_map(lambda x: x[:, lo:hi], batches)
@@ -727,17 +919,25 @@ def build_dfl_epoch_step(
                 _client_write(opt_state, o_old, i, j, grid)
             del saved
             if full:
-                drift = max_client_drift(params, start_server)
+                # per client, the squared distance over this rank's first
+                # copies, summed over the client's ranks
+                dsq = _drift_sq(params, start_server, counted)
                 del start_server
-                if group is not None:
-                    drift = cns.all_reduce_(drift.reshape(1).clone(), group,
+                if sharded and role.shard_group is not None:
+                    cns.all_reduce_(dsq, role.shard_group, site="metrics")
+                drift = torch.sqrt(torch.clamp(torch.max(dsq), min=0.0))
+                if world is not None:
+                    drift = cns.all_reduce_(drift.reshape(1).clone(), world,
                                             "max", site="metrics")[0]
             else:
                 drift = torch.zeros((), dtype=torch.float32, device=device)
 
             # ---- 2. aggregation at each server (Eq. 4) ----
-            server = (server_mean(params) if mask is None
-                      else masked_server_mean(params, mask))
+            if sharded:
+                server = server_mean(params, role.client_group, n)
+            else:
+                server = (server_mean(params) if mask is None
+                          else masked_server_mean(params, mask))
 
             # the key follows the reference's rng: one split per local step,
             # then the injection's key and the consensus key split off
@@ -797,7 +997,10 @@ def build_dfl_epoch_step(
                 disagreement = torch.zeros((), dtype=torch.float32,
                                            device=device)
             elif group is not None:
-                disagreement = cns.disagreement_over(server, group, m)
+                # over the server group, or a sharded row's pieces over
+                # the mesh (each piece's first copy counted once)
+                disagreement = getattr(backend, "inner",
+                                       backend).disagreement(server)
             else:
                 disagreement = disagreement_norm(server)
 
@@ -857,7 +1060,7 @@ def build_consensus_replay(cfg: DFLConfig) -> Optional[Callable]:
     whose period is a collective that every rank would have to enter."""
     topo = cfg.topology
     if topo.num_servers == 1 or topo.t_server == 0 \
-            or mesh_rows(cfg) is not None:
+            or rank_role(cfg) is not None:
         return None
     backend = resolve_backend(cfg)
     if backend is None:
@@ -895,14 +1098,18 @@ def init_dfl_state(cfg: DFLConfig, params: Any, optimizer: Optimizer,
     ``prng.key(seed)`` where the reference passes ``jax.random.key(seed)``)
     is required, and error feedback adds a zero residual (leaves
     ``(M, *w)``).  Under ``mixing='push_sum'`` the state carries a unit
-    per-server weight.  Under the multi-process wire (``mesh_rows``) the
+    per-server weight.  Under the multi-process wire (``rank_role``) the
     client grid, the optimizer state and the residual hold this rank's rows
-    only; the push-sum weight stays the federation's ``(M,)``."""
+    only, and on a sharded row its clients of each and its pieces of each
+    leaf (cut from the whole ``params``: ``launch.sharding.local_shard``);
+    the push-sum weight stays the federation's ``(M,)``."""
     topo = cfg.topology
-    local = mesh_rows(cfg)
-    rows = topo.num_servers if local is None else local[1] - local[0]
-    client_params = replicate_to_clients(params, rows,
-                                         topo.clients_per_server)
+    role = rank_role(cfg)
+    rows, clients = topo.num_servers, topo.clients_per_server
+    if role is not None:
+        rows, clients = role.hi - role.lo, role.c_hi - role.c_lo
+        params = _cut(params, role)
+    client_params = replicate_to_clients(params, rows, clients)
     ef = None
     if _compresses(cfg):
         if wire_key is None:

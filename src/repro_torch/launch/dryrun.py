@@ -14,12 +14,14 @@ Usage:
 Each run writes experiments/dryrun_torch/<arch>_<shape>_<sp|mp>.json.
 Every number in it carries a label: ``measured_meta`` (read off the device
 program's meta run: the local shapes' bytes, the peak of live meta storage,
-``FlopCounterMode``'s FLOPs, the collective record of the consensus period
-against a ``consensus.DryGroup``) or ``analytic_split`` (a part the port
-runs whole where the reference shards it, divided evenly by the plan's
-degree, ``meta["compute_shards"]``; and the roofline's napkin terms on the
-H100 datasheet constants of ``launch.roofline``).  None is a measurement on
-a device.
+``FlopCounterMode``'s FLOPs, the collective record of the rank's local
+step (its client's FSDP gathers and gradient reductions, ``launch.fsdp``)
+and consensus period against ``consensus.DryGroup``s) or
+``analytic_split`` (a part the port runs whole where the reference shards
+it, divided evenly by the plan's degree, ``meta["compute_shards"]``: a
+client's tensor parallelism over "model" and the serve split; and the
+roofline's napkin terms on the H100 datasheet constants of
+``launch.roofline``).  None is a measurement on a device.
 """
 from __future__ import annotations
 
@@ -100,27 +102,37 @@ class LiveStorage(TorchDispatchMode):
 
 def measure(bundle) -> Dict[str, Any]:
     """Run each stage of ``bundle`` once on its meta arguments, in order,
-    under one live-storage tracker and a fresh collective record, each
-    under its own FLOP counter.  Per stage: its FLOPs and its working set
-    (the peak of live storage over the arguments while it runs)."""
-    cns.reset_collective_counts()
+    under one live-storage tracker, each under its own FLOP counter and
+    collective record.  Per stage: its FLOPs, its working set (the peak of
+    live storage over the arguments while it runs) and its collectives;
+    ``collectives`` is the program's: each stage's record times its
+    ``repeats`` (a local step's gathers and reductions recur every
+    microbatch step)."""
     tracker = LiveStorage()
-    stage_flops, stage_work = {}, {}
+    stage_flops, stage_work, stage_coll = {}, {}, {}
     t0 = time.perf_counter()
     with tracker:
         tracker.track(tree_leaves([list(st.args) for st in bundle.stages]))
         base = tracker.live
         for st in bundle.stages:
+            cns.reset_collective_counts()
             tracker.peak = start = tracker.live
             with FlopCounterMode(display=False) as fc:
                 out = st.fn(*st.args)
                 del out
             stage_flops[st.name] = fc.get_total_flops()
             stage_work[st.name] = tracker.peak - start
+            stage_coll[st.name] = cns.collective_counts()
     run_s = time.perf_counter() - t0
+    total: Dict[str, Dict[str, Any]] = {"calls": {}, "bytes": {},
+                                        "sites": {}}
+    for st in bundle.stages:
+        for part, counts in total.items():
+            for k, v in stage_coll[st.name][part].items():
+                counts[k] = counts.get(k, 0) + v * st.repeats
     return {"stage_flops": stage_flops, "stage_work": stage_work,
             "args_bytes": base, "run_s": run_s,
-            "collectives": cns.collective_counts()}
+            "stage_collectives": stage_coll, "collectives": total}
 
 
 def consensus_record(server_abs: Any, mesh_spec, a, t_server: int, *,
@@ -223,8 +235,10 @@ def run_one(arch_id: str, shape_name: str, *, multi_pod: bool = False,
             "bytes_by_kind": num(coll.bytes_by_kind, MEASURED),
             "count_by_kind": num(coll.count_by_kind, MEASURED),
             "total_bytes": num(coll.total_bytes, MEASURED),
-            "record": {k: got["collectives"][k]
-                       for k in ("calls", "bytes", "sites")},
+            "record": got["collectives"],
+            "stage_records": {
+                k: {part: v[part] for part in ("calls", "bytes", "sites")}
+                for k, v in got["stage_collectives"].items()},
         },
         "roofline": {k: (num(v, row_labels[k]) if k in row_labels else v)
                      for k, v in report.row().items()},

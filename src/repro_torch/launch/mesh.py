@@ -76,14 +76,7 @@ class RankMesh:
                     ) -> List[int]:
         """The ranks that share every other coordinate with ``rank``, in
         order along ``axis``."""
-        c = self.coords(rank)
-        ax = self.axis_names.index(axis)
-        idx = [c[a] for a in self.axis_names]
-        out = []
-        for k in range(self.shape[axis]):
-            idx[ax] = k
-            out.append(int(self.devices[tuple(idx)]))
-        return out
+        return self.ranks_over((axis,), rank)
 
     def other_index(self, axis: str, rank: Optional[int] = None
                     ) -> Tuple[int, int]:
@@ -97,16 +90,33 @@ class RankMesh:
                 n_other *= self.shape[a]
         return sub, n_other
 
-    def _lines(self, axis: str) -> List[List[int]]:
-        """Every subgroup along ``axis``, in one fixed order."""
-        others = [a for a in self.axis_names if a != axis]
+    def ranks_over(self, axes: Sequence[str], rank: Optional[int] = None
+                   ) -> List[int]:
+        """The ranks that share every coordinate but ``axes`` with
+        ``rank``, row-major over ``axes`` (in the mesh's axis order):
+        a rank's position in the list is its piece's position along a
+        dim split over ``axes``."""
+        c = self.coords(rank)
+        axes = [a for a in self.axis_names if a in axes]
+        out = []
+        for pos in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c.update(zip(axes, pos))
+            out.append(int(self.devices[tuple(c[a]
+                                              for a in self.axis_names)]))
+        return out
+
+    def _lines(self, axes) -> List[List[int]]:
+        """Every subgroup over ``axes`` (one axis name or a tuple of them),
+        in one fixed order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        others = [a for a in self.axis_names if a not in axes]
         lines = []
         for pos in itertools.product(*(range(self.shape[a])
                                        for a in others)):
-            c = dict(zip(others, pos))
-            c[axis] = 0
+            c = {a: 0 for a in axes}
+            c.update(zip(others, pos))
             r0 = int(self.devices[tuple(c[a] for a in self.axis_names)])
-            lines.append(self.ranks_along(axis, r0))
+            lines.append(self.ranks_over(axes, r0))
         return lines
 
     def group(self, axis: str):
@@ -114,9 +124,28 @@ class RankMesh:
         Every rank calls ``torch.distributed.new_group`` for every
         subgroup along the axis in the same order (gloo requires it); an
         axis that spans the whole world is its default group."""
-        if axis not in self._groups:
-            self._groups[axis] = self._make_group(axis)
-        return self._groups[axis]
+        return self._group((axis,))
+
+    def group_over(self, axes: Sequence[str]):
+        """The process group of this rank's ranks over several ``axes``
+        (``ranks_over``; group rank = row-major position over them), made
+        once per set of ranks, as ``group`` makes one axis's; ``None`` when
+        the axes hold this rank alone."""
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"{self} has no axes {sorted(unknown)}")
+        # an axis of one rank adds nothing: the same ranks, the same group
+        key = tuple(a for a in self.axis_names
+                    if a in axes and self.shape[a] > 1)
+        return self._group(key) if key else None
+
+    def _size_over(self, key: Tuple[str, ...]) -> int:
+        return int(np.prod([self.shape[a] for a in key], dtype=np.int64))
+
+    def _group(self, key: Tuple[str, ...]):
+        if key not in self._groups:
+            self._groups[key] = self._make_group(key, self._size_over(key))
+        return self._groups[key]
 
     def world_group(self):
         """The group of every rank of the mesh."""
@@ -136,16 +165,16 @@ class RankMesh:
                              f"the default group has "
                              f"{dist.get_world_size()}")
 
-    def _make_group(self, axis: str):
+    def _make_group(self, axes: Tuple[str, ...], size: int):
         if self.dry:
             from repro_torch.core.consensus import DryGroup
-            return DryGroup(self.shape[axis], self.coords()[axis])
+            return DryGroup(size, self.ranks_over(axes).index(self.rank))
         import torch.distributed as dist
         self._check_world(dist)
-        if self.shape[axis] == self.size():
+        if size == self.size():
             return dist.group.WORLD
         mine = None
-        for ranks in self._lines(axis):
+        for ranks in self._lines(axes):
             g = dist.new_group(ranks)
             if self.rank in ranks:
                 mine = g

@@ -31,7 +31,7 @@ import numpy as np
 
 from repro_torch.core import consensus as cns
 from repro_torch.launch.mesh import RankMesh
-from repro_torch.tree import DictKey, tree_leaves, tree_map_with_path
+from repro_torch.tree import DictKey, tree_leaves, tree_map, tree_map_with_path
 
 
 class PartitionSpec:
@@ -202,6 +202,20 @@ def fl_batch_spec(mesh, batch_div_replica: bool,
     return PartitionSpec(None, "server", "client", b_axis)
 
 
+def layer_spec(spec: PartitionSpec, drop: int) -> PartitionSpec:
+    """The spec of one slice of a leaf: ``spec`` with its ``drop`` leading
+    entries (the FL lead dims, and a stack's period axis) dropped."""
+    return PartitionSpec(*spec.dims[drop:])
+
+
+def batch_piece(batches: Any, spec: PartitionSpec, mesh,
+                rank: Optional[int] = None) -> Any:
+    """``rank``'s slice of a ``(T_C, M, N, per_client, ...)`` draw under
+    ``fl_batch_spec``'s ``spec``: its server rows, its clients and its
+    share of each client's batch (a view of each leaf)."""
+    return tree_map(lambda x: local_shard(x, spec, mesh, rank), batches)
+
+
 def fl_state_specs(state: Any, mesh, *,
                    tp_axis: Optional[str] = "model") -> Any:
     """Specs of a ``DFLState`` (params + opt + scalars).  The error-feedback
@@ -304,6 +318,7 @@ def assemble(pieces: Sequence[Any], spec: PartitionSpec, mesh):
 
 def fl_consensus_backend(topo: Any, mesh, server_tree: Any, *,
                          tp_axis: Optional[str] = "model",
+                         batch_over_model: bool = False,
                          block: Optional[int] = None,
                          compression: str = "none",
                          error_feedback: bool = False,
@@ -321,7 +336,12 @@ def fl_consensus_backend(topo: Any, mesh, server_tree: Any, *,
     whole local tree as one bucket (one int8 and one f32 ``all_gather`` a
     round).  ``staleness=s > 0`` pipelines the wire rounds and needs
     ``wire="physical"`` with a quantizer (the backends raise otherwise).
-    Inject the result through ``DFLConfig.consensus_backend``."""
+    On a ``RankMesh`` the backend also carries the batch's spec,
+    ``fl_batch_spec`` split over "replica" and, with ``batch_over_model``
+    (the plans of archs whose heads do not divide the model axis), over
+    "model": the rank-local epoch step trains this rank's piece of its
+    client on its share of the batch.  Inject the result through
+    ``DFLConfig.consensus_backend``."""
     m = topo.num_servers
     lead = {int(leaf.shape[0]) for leaf in tree_leaves(server_tree)}
     if lead != {m}:
@@ -334,7 +354,8 @@ def fl_consensus_backend(topo: Any, mesh, server_tree: Any, *,
         backend = cns.ShardMapBackend(
             mesh, a_np, topo.t_server, specs,
             counted=[first_copy(s, mesh) for s in tree_leaves(specs)],
-            staleness=staleness, **kw)
+            staleness=staleness, batch_spec=fl_batch_spec(
+                mesh, mesh.shape["replica"] > 1, batch_over_model), **kw)
     else:
         backend = cns.ShardMapBackend(mesh, a_np, topo.t_server,
                                       staleness=staleness, **kw)

@@ -8,18 +8,22 @@ plan's ``RankMesh``, the program that rank runs and its arguments as
 rank's local shapes where the plan shards them.
 
 Shape -> program:
-    train_4k     a client's local period (T_C SGD steps at the device's
-                 batch) then the consensus period on the rank's piece of
-                 its server's row, over the plan's mesh
+    train_4k     the rank's piece of a client's local period (T_C SGD
+                 steps at the device's batch) then the consensus period on
+                 the rank's piece of its server's row, over the plan's mesh
     prefill_32k  prefill          (full prompt -> KV cache)
     decode_32k   decode_step      (ONE token against a 32k cache)
     long_500k    decode_step      (ONE token against a 524k cache/state)
 
-Where the reference shards a computation the port runs whole (the TP /
-FSDP of a client's layers, the sequence-sharded long-context cache), the
-program runs it whole at the device's batch and ``meta["unsharded"]`` names
-it with ``meta["compute_shards"]``, the plan's degree the dry run divides
-it by.  Modality carve-out: audio / vlm archs get precomputed frame / patch
+A train program's local step is the rank's piece of its client: FSDP over
+"replica" and the batch over "replica" and, under ``batch_over_model``,
+"model" run as the rank-local epoch step runs them (``launch.fsdp``, its
+gathers and reductions against ``consensus.DryGroup``s).  Where the
+reference shards a computation the port runs whole (the TP of a client's
+layers over "model", the serve split, the sequence-sharded long-context
+cache), the program runs it whole at the device's batch and
+``meta["unsharded"]`` names it with ``meta["compute_shards"]``, the plan's
+degree the dry run divides it by.  Modality carve-out: audio / vlm archs get precomputed frame / patch
 embeddings as extra batch leaves.
 """
 from __future__ import annotations
@@ -147,12 +151,16 @@ def _tokens_on(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def client_local_period(loss_fn, optimizer) -> Callable:
+def client_local_period(loss_fn, optimizer, batch_group=None) -> Callable:
     """``run(params, opt_state, batches)``: one client's T_C SGD steps
     (``batches`` leaves ``(T_C, b, ...)``), each one gradient of its
     step's batch.  A plan's microbatches are identical steps of this one
-    at the microbatch's size (``Stage.repeats``).  Returns the new
-    ``(params, opt_state, losses)``."""
+    at the microbatch's size (``Stage.repeats``).  On a rank holding a
+    piece of a client, ``params`` are its pieces and ``loss_fn`` takes its
+    leaves through ``launch.fsdp.ClientShards``; with whole leaves and the
+    batch split over ``batch_group``, the gradients are averaged over it
+    after the backward, as the rank-local epoch step does.  Returns the
+    new ``(params, opt_state, losses)``."""
 
     def run(params, opt_state, batches):
         t_c = tree_leaves(batches)[0].shape[0]
@@ -166,6 +174,9 @@ def client_local_period(loss_fn, optimizer) -> Callable:
                                      _tokens_on(batch_t), None)
                 grads = torch.autograd.grad(loss, live,
                                             materialize_grads=True)
+            if batch_group is not None:
+                grads = [cns.reduce_to_pieces([g], [None], batch_group, 0,
+                                              1)[0] for g in grads]
             with torch.no_grad():
                 params, opt_state = optimizer.update(
                     tree_unflatten(treedef, list(grads)), opt_state,
@@ -176,13 +187,18 @@ def client_local_period(loss_fn, optimizer) -> Callable:
     return run
 
 
-def consensus_program(backend, compressed: bool) -> Callable:
+def consensus_program(backend, compressed: bool,
+                      client_group=None) -> Callable:
     """``run(server_piece, residual)``: one consensus period of the rank's
     piece through ``backend`` (the physical wire with its EF residual when
-    ``compressed``)."""
+    ``compressed``), after Eq. 4's sum over ``client_group`` (a server's
+    clients on several ranks)."""
 
     def run(server, residual):
         with torch.no_grad():
+            if client_group is not None:
+                for x in tree_leaves(server):
+                    cns.all_reduce_(x, client_group, site="client_mean")
             if compressed:
                 return backend.mix_compressed(server, None,
                                               residual=residual,
@@ -230,7 +246,9 @@ def build_train_program(arch_id: str, shape: InputShape, *,
     # microbatches of the device's batch (the reference's accumulate the
     # client batch; each device then holds per_device / micro sequences)
     micro_dev = micro if per_device % micro == 0 else 1
-    compute_shards = (max(r, 1) * tp) // batch_shards
+    # the rank runs its client's FSDP and batch split itself (launch.fsdp);
+    # only tensor parallelism over "model" is still run whole
+    compute_shards = tp if tp_axis else 1
 
     params = init_meta_params(cfg, dtype)
     client_abs = tree_map(lambda p: _meta((m, n) + tuple(p.shape), p.dtype),
@@ -245,9 +263,26 @@ def build_train_program(arch_id: str, shape: InputShape, *,
                               tuple(b_axes) if b_axes else None)
     batch_specs = tree_map(lambda _: bspec, batch_full)
     optimizer = sgd(1e-3)
+    # the rank's pieces of its client: FSDP over "replica" (the TP part is
+    # run whole), gathered and reduced over DryGroups by launch.fsdp
+    fsdp_specs = shd.fl_server_specs(server_abs, mesh, tp_axis=None)
+    wspecs = [shd.layer_spec(x, 1) for x in tree_leaves(fsdp_specs)]
+    gather_axes = tuple(a for a in mesh.axis_names
+                        if any(a in x.used_axes() for x in wspecs))
+    gather_group = mesh.group_over(gather_axes)
+    batch_group = mesh.group_over(b_axes)
+    pieces = tree_unflatten(tree_flatten(params)[1], [
+        _meta(shd.local_shape(tuple(x.shape), sp, mesh), x.dtype)
+        for x, sp in zip(tree_leaves(params), wspecs)])
     loss_fn = tf.make_loss_fn(cfg)
+    if gather_axes:
+        from repro_torch.launch.fsdp import ClientShards
+        loss_fn = loss_fn.with_provider(ClientShards(
+            mesh, tree_unflatten(tree_flatten(params)[1], wspecs),
+            gather_group, batch_group, gather_axes))
     # one of the period's T_C x micro_dev identical microbatch steps
-    local = client_local_period(loss_fn, optimizer)
+    local = client_local_period(
+        loss_fn, optimizer, None if gather_axes else batch_group)
     micro_batch = token_batch_specs(cfg, (1, per_device // micro_dev),
                                     shape.seq_len)
 
@@ -281,19 +316,19 @@ def build_train_program(arch_id: str, shape: InputShape, *,
                          server_piece)
         unsharded_mix = (f"consensus_mode={consensus_mode!r}: every "
                          f"server's piece mixed on one device",)
-    mix = consensus_program(backend, compressed)
-    opt_state = optimizer.init(params)
+    mix = consensus_program(
+        backend, compressed,
+        mesh.group_over(("client",)) if consensus_mode == "gossip_shardmap"
+        else None)
+    opt_state = optimizer.init(pieces)
 
     unsharded = []
     if compute_shards > 1:
         unsharded.append(
-            f"a client's layers over {compute_shards} ranks (TP "
-            f"{tp if tp_axis else 1} x FSDP {r}, batch over "
-            f"{b_axes or 'none'}): run whole at the device's batch of "
-            f"{per_device}")
+            f"a client's layers tensor parallel over {tp} 'model' ranks: "
+            f"run whole at the device's batch of {per_device}, and their "
+            f"reductions inside a layer not run, not counted")
     unsharded.extend(unsharded_mix)
-    unsharded.append("intra-client collectives (gradient all-reduce, FSDP "
-                     "gathers, TP reductions): not run, not counted")
     arg_parts = {
         "state": _local_bytes(client_abs, pspecs, mesh),
         "batch": _local_bytes(batch_full, batch_specs, mesh),
@@ -303,7 +338,7 @@ def build_train_program(arch_id: str, shape: InputShape, *,
     return ProgramBundle(
         name=f"{arch_id}:{shape.name}:{'mp' if multi_pod else 'sp'}",
         mesh=mesh,
-        stages=(Stage("local_step", local, (params, opt_state, micro_batch),
+        stages=(Stage("local_step", local, (pieces, opt_state, micro_batch),
                       repeats=topo.t_client * micro_dev),
                 Stage("consensus", mix, (piece, residual), split=False)),
         meta={"arch": arch_id, "shape": shape.name, "multi_pod": multi_pod,

@@ -94,7 +94,7 @@ from repro_torch.configs import get_arch, get_smoke
 from repro_torch.core import (DFLConfig, FLTopology, SigmaTracker,
                               build_dfl_epoch_step, init_dfl_state)
 from repro_torch.core import consensus as cns
-from repro_torch.core.dfl import active_compressor, active_wire, mesh_rows
+from repro_torch.core.dfl import active_compressor, active_wire, rank_role
 from repro_torch.core.engine import make_engine
 from repro_torch.core.schedule import (ByzantineSchedule, FaultSchedule,
                                        ParticipationSchedule,
@@ -181,11 +181,11 @@ def _gathered_clients(cfg: DFLConfig, client_params):
     """The federation's client tree on the host: this process's own, or
     under the multi-process wire every rank's rows gathered leaf by leaf
     through the group (host tensors; gloo)."""
-    local = mesh_rows(cfg)
-    if local is None:
+    role = rank_role(cfg)
+    if role is None:
         return client_params
     return tree_map(lambda x: cns.all_gather_rows(
-        x.detach().cpu(), local[2], site="checkpoint"), client_params)
+        x.detach().cpu(), role.group, site="checkpoint"), client_params)
 
 
 def resolve_device(device: str) -> torch.device:

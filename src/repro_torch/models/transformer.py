@@ -73,6 +73,14 @@ class ApplyOptions:
     # group-limited routing: the tokens split into this many groups, each
     # routed with its own capacity (not under moe_no_drop)
     moe_groups: int = 1
+    # where the training forward takes its parameters from (``None``: the
+    # params tree as given).  A provider has ``top(params)``, the params
+    # with every leaf outside the layer stacks whole, and ``run(path,
+    # layer, fn, *inputs)``, ``fn(layer_whole, *inputs)`` for the layer
+    # at ``path`` (("stack", i), ("prefix", i), ("encoder", "stack", 0))
+    # given its tree as the params hold it: ``launch.fsdp.ClientShards``,
+    # a client cut over ranks, gathers and reduces there
+    provider: Optional[Any] = None
 
     def moe_kw(self) -> Dict[str, Any]:
         return {"capacity_factor": self.capacity_factor,
@@ -342,15 +350,29 @@ def _run_stack(params, cfg: ArchConfig, x: torch.Tensor, *, memory=None,
     flags = _period_flags(cfg, plan)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params.get("prefix", ())):
-        x, _ = block_apply(blk, x, cfg, cfg.pattern_for_layer(i),
-                           memory=memory, opts=opts, causal=causal)
+        x, _ = _layer_apply(opts, ("prefix", i), blk, x, memory, cfg,
+                            cfg.pattern_for_layer(i), False, causal)
     for i, layer in _per_layer(params["stack"], plan.n_periods):
         kind, is_moe = flags[i]
-        x, a = block_apply(layer, x, cfg, kind, is_moe=is_moe, memory=memory,
-                           opts=opts, causal=causal)
+        x, a = _layer_apply(opts, ("stack", i), layer, x, memory, cfg, kind,
+                            is_moe, causal)
         if is_moe:
             aux = aux + a
     return x, aux
+
+
+def _layer_apply(opts: ApplyOptions, path: Tuple, layer, x: torch.Tensor,
+                 memory, cfg: ArchConfig, kind: str, is_moe: bool,
+                 causal: bool):
+    """``block_apply`` of the layer at ``path``, through ``opts.provider``
+    when there is one."""
+    def fn(p, xx, mem):
+        return block_apply(p, xx, cfg, kind, is_moe=is_moe, memory=mem,
+                           opts=opts, causal=causal)
+
+    if opts.provider is None:
+        return fn(layer, x, memory)
+    return opts.provider.run(path, layer, fn, x, memory)
 
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor,
@@ -359,12 +381,28 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor,
     the frontend's precomputed embeddings: non-causal global blocks (their
     attention on the flash kernel under ``attn_impl="kernel"``), then the
     encoder's final norm."""
+    params = _provided(params, opts)
     enc = params["encoder"]
     x = frames
-    for _, layer in _per_layer(enc["stack"],
+    for i, layer in _per_layer(enc["stack"],
                                cfg.encdec.num_encoder_layers):
-        x, _ = block_apply(layer, x, cfg, "global", opts=opts, causal=False)
+        x, _ = _layer_apply(opts, ("encoder", "stack", i), layer, x, None,
+                            cfg, "global", False, False)
     return nn.rmsnorm_apply(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _provided(params, opts: ApplyOptions):
+    """``params`` with the leaves outside the layer stacks as
+    ``opts.provider`` gives them (the tree itself without a provider, or
+    when they are already given: the loss, the forward and the encoder
+    take them once a call)."""
+    if opts.provider is None or isinstance(params, _Provided):
+        return params
+    return _Provided(opts.provider.top(params))
+
+
+class _Provided(dict):
+    """A params tree whose top-level leaves the provider has given."""
 
 
 def _trunk_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
@@ -403,6 +441,7 @@ def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     MoE).  ``batch`` keys by family:
     text ``tokens`` (b, s); vlm ``patch_embeds`` (b, p, d) and ``tokens``;
     audio ``frames`` (b, enc_len, d) and ``tokens`` (b, dec_len)."""
+    params = _provided(params, opts)
     n_text = batch["tokens"].shape[1]
     x, memory = _trunk_inputs(params, cfg, batch, opts)
     x, aux = _run_stack(params, cfg, x, memory=memory, opts=opts)
@@ -413,6 +452,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
             opts: ApplyOptions = DEFAULT_OPTS
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward: (logits over the token part, aux loss)."""
+    params = _provided(params, opts)
     x, aux = forward_hidden(params, cfg, batch, opts=opts)
     return _head(params, cfg, x), aux
 
@@ -425,10 +465,13 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
     """Next-token cross-entropy, the head and logsumexp taken over
     ``loss_chunk``-position slices so the peak logits tensor is
     (b, chunk, vocab); the loss is the mean nll plus the aux loss.
-    Signature matches ``repro_torch.core.dfl.LossFn``."""
+    Signature matches ``repro_torch.core.dfl.LossFn``; its
+    ``with_provider(p)`` is the same loss with ``ApplyOptions.provider``
+    set to ``p`` (the rank-local epoch step binds a cut client's there)."""
 
     def loss_fn(params, batch, rng):
         del rng
+        params = _provided(params, opts)
         x, aux = forward_hidden(params, cfg, batch, opts=opts)
         xs = x[:, :-1]                                       # predict t+1
         targets = batch["tokens"][:, 1:]
@@ -444,6 +487,8 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
         nll_mean = total / (b * sm1)
         return nll_mean + aux, {"nll": nll_mean, "aux": aux}
 
+    loss_fn.with_provider = lambda provider: make_loss_fn(
+        cfg, dataclasses.replace(opts, provider=provider), loss_chunk)
     return loss_fn
 
 

@@ -356,9 +356,45 @@ def test_dry_run_flops_equal_the_cpu_program(arch_id, shape, tmp_path):
     assert found <= {"measured_meta", "analytic_split"} and found
     if shape == "train_4k":
         calls = rec["collectives"]["record"]["calls"]
-        # the plain program: one f32 gather a block a round
-        assert set(calls) == {"all_gather:float32"}
-        assert rec["meta"]["unsharded"][-1].startswith("intra-client")
+        # the plain program: one f32 gather a block a round; the local
+        # step (SmolLM's plan: the batch over "model", weights whole): one
+        # f32 all-reduce of each leaf's gradient a microbatch step
+        assert set(calls) == {"all_gather:float32", "all_reduce:float32"}
+        assert rec["meta"]["unsharded"] == []
+        assert rec["memory"]["peak_per_device"]["label"] == "measured_meta"
+
+
+@pytest.mark.parametrize("arch_id", ["gemma2_27b", "smollm_360m"])
+def test_local_step_collective_record(arch_id):
+    """The train program's local step is the rank's piece of its client on
+    DryGroups: under FSDP over "replica" (gemma2's plan, R = 4) one
+    ``fsdp_gather`` a unit forward and a layer again backward and one
+    ``grad_reduce`` a unit; with the batch over "model" and the weights
+    whole (SmolLM's) one ``grad_reduce`` a leaf.  The program's record is
+    each stage's times its repeats; only a TP plan's layers stay
+    ``analytic_split``."""
+    cfg = get_smoke(arch_id)
+    bundle = specs.build_program(arch_id, "train_4k", arch=cfg)
+    got = dryrun.measure(bundle)
+    local = got["stage_collectives"]["local_step"]["sites"]
+    layers = cfg.num_layers
+    n_leaves = len(tree_leaves(tf.init_params(torch.Generator(), cfg,
+                                              device="meta")))
+    if bundle.meta["R"] > 1:
+        assert local == {"fsdp_gather": 1 + 2 * layers,
+                         "grad_reduce": 1 + layers}
+        assert bundle.meta["compute_shards"] == bundle.meta["TP"]
+        assert bundle.meta["unsharded"][0].startswith(
+            "a client's layers tensor parallel")
+    else:
+        assert local == {"grad_reduce": n_leaves}
+        assert bundle.meta["compute_shards"] == 1
+    repeats = {st.name: st.repeats for st in bundle.stages}
+    for k, v in local.items():
+        assert got["collectives"]["sites"][k] == v * repeats["local_step"]
+    assert dryrun.device_numbers(bundle, got)["label"] == (
+        "analytic_split" if bundle.meta["TP"] > 1 and bundle.meta["R"] > 1
+        else "measured_meta")
 
 
 def test_dryrun_cli_refuses_without_a_pair():

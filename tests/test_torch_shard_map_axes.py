@@ -399,9 +399,11 @@ def test_push_sum_numerator_on_the_mesh(world):
 
 
 def test_epoch_step_and_simulated_wire_refuse_a_sharded_row():
-    """Training a client whose weights span ranks needs the local period
-    sharded (not ported): the rank-local step refuses the mesh; the
-    simulated wire, whose chunks span whole leaves, refuses it too."""
+    """What a sharded row still refuses: the rank-local step trains a
+    client cut over "client" and "replica" (and its batch over "model"),
+    but not one whose weights are cut over "model" (tensor parallelism,
+    ``tp_axis="model"``); the simulated wire, whose chunks span whole
+    leaves, refuses the sharded row too."""
     tree = {k: torch.empty(v.shape, device="meta")
             for k, v in server_tree().items()}
     mesh = mesh_for(rank=1, dry=True)
@@ -409,13 +411,22 @@ def test_epoch_step_and_simulated_wire_refuse_a_sharded_row():
                       t_server=3)
     backend = shd.fl_consensus_backend(topo, mesh, tree, tp_axis=None)
     assert backend.sharded and backend.rows == (0, 1)
-    with pytest.raises(ValueError, match="local period sharded"):
+    # FSDP over "replica" trains, through a loss whose leaves the step can
+    # bind to the client's pieces (transformer.make_loss_fn's)
+    with pytest.raises(ValueError, match="ApplyOptions.provider"):
         build_dfl_epoch_step(DFLConfig(topology=topo,
                                        consensus_backend=backend),
                              lambda p, b, r: (None, None), None)
-    with pytest.raises(ValueError, match="local period sharded"):
-        init_dfl_state(DFLConfig(topology=topo, consensus_backend=backend),
-                       torch.zeros(2), None)
+    tp_mesh = tmesh.fl_rank_mesh(tmesh.FLMeshSpec(M, 1, 1, S), rank=1,
+                                 dry=True)
+    tp = shd.fl_consensus_backend(topo, tp_mesh, tree, tp_axis="model")
+    assert tp.sharded
+    with pytest.raises(ValueError, match="tensor parallelism over 'model'"):
+        build_dfl_epoch_step(DFLConfig(topology=topo, consensus_backend=tp),
+                             lambda p, b, r: (None, None), None)
+    with pytest.raises(ValueError, match="tensor parallelism over 'model'"):
+        init_dfl_state(DFLConfig(topology=topo, consensus_backend=tp),
+                       tree, None)
     with pytest.raises(ValueError, match="wire='physical'"):
         shd.fl_consensus_backend(topo, mesh, tree, tp_axis=None,
                                  compression="int8")
