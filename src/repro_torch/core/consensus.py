@@ -743,18 +743,19 @@ def wire_roundtrip_tree(codec, tree: Any, key=None, *,
 
 #: what the collective helpers did since ``reset_collective_counts()``:
 #: ``calls``, ``bytes`` (what this rank SENT) and host ``op_seconds`` per
-#: ``"op:dtype"``, the ``calls`` per collective ``sites``, their total
-#: ``seconds`` and, of them, the ``staging_s`` of the copies between the
-#: device and the pinned host buffers
+#: ``"op:dtype"``, the ``calls`` and ``site_bytes`` per collective
+#: ``sites``, their total ``seconds`` and, of them, the ``staging_s`` of
+#: the copies between the device and the pinned host buffers
 _COLL: Dict[str, Any] = {"calls": {}, "bytes": {}, "op_seconds": {},
-                         "sites": {}, "seconds": 0.0, "staging_s": 0.0}
+                         "sites": {}, "site_bytes": {}, "seconds": 0.0,
+                         "staging_s": 0.0}
 #: pinned host buffers of the staged collectives, one per collective site
 _STAGING: Dict[str, torch.Tensor] = {}
 
 
 def reset_collective_counts() -> None:
     _COLL["calls"], _COLL["bytes"], _COLL["op_seconds"] = {}, {}, {}
-    _COLL["sites"] = {}
+    _COLL["sites"], _COLL["site_bytes"] = {}, {}
     _COLL["seconds"] = _COLL["staging_s"] = 0.0
 
 
@@ -763,6 +764,7 @@ def collective_counts() -> Dict[str, Any]:
     return {"calls": dict(_COLL["calls"]), "bytes": dict(_COLL["bytes"]),
             "op_seconds": dict(_COLL["op_seconds"]),
             "sites": dict(_COLL["sites"]),
+            "site_bytes": dict(_COLL["site_bytes"]),
             "seconds": _COLL["seconds"], "staging_s": _COLL["staging_s"]}
 
 
@@ -774,8 +776,9 @@ def _count(op: str, x: torch.Tensor, t0: float, sends: int = 1,
     dt = time.perf_counter() - t0
     _COLL["calls"][k] = _COLL["calls"].get(k, 0) + 1
     _COLL["sites"][site] = _COLL["sites"].get(site, 0) + 1
-    _COLL["bytes"][k] = (_COLL["bytes"].get(k, 0)
-                         + sends * x.numel() * x.element_size())
+    n = sends * x.numel() * x.element_size()
+    _COLL["bytes"][k] = _COLL["bytes"].get(k, 0) + n
+    _COLL["site_bytes"][site] = _COLL["site_bytes"].get(site, 0) + n
     _COLL["op_seconds"][k] = _COLL["op_seconds"].get(k, 0.0) + dt
     _COLL["seconds"] += dt
 
@@ -822,6 +825,17 @@ def _host(site: str, shape, dtype: torch.dtype) -> torch.Tensor:
         buf = torch.empty((max(n, 1),), dtype=torch.uint8, pin_memory=True)
         _STAGING[site] = buf
     return buf[:n].view(dtype).view(tuple(shape))
+
+
+def release_staging() -> None:
+    """Free the pinned host buffers of every collective site, and the
+    pinned blocks the allocator caches (a long-lived rank between phases
+    of different sizes); the next call at a site allocates its buffer
+    again."""
+    _STAGING.clear()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None and torch.cuda.is_available():
+        empty()
 
 
 def _to_host(x: torch.Tensor, site: str) -> torch.Tensor:

@@ -529,7 +529,9 @@ class RankRole(NamedTuple):
     client leaf's spec over its own dims (tree order); ``counted``, per
     leaf, whether this rank's piece is its first copy (a sum over ranks
     counts a replicated leaf once); ``first``, whether this rank is its
-    client's first (replica 0, model 0)."""
+    client's first (replica 0, model 0); ``tp``, under tensor parallelism
+    (leaves cut over "model"), the ``launch.tp.ModelParallel`` of its model
+    axis, else ``None``."""
 
     lo: int
     hi: int
@@ -547,6 +549,7 @@ class RankRole(NamedTuple):
     specs: Optional[list] = None
     counted: Optional[list] = None
     first: bool = True
+    tp: Any = None
 
     @property
     def sharded(self) -> bool:
@@ -556,9 +559,13 @@ class RankRole(NamedTuple):
 def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
     """This process's ``RankRole`` under a mesh-bound injected backend (the
     multi-process wire), else ``None``.  On a sharded row it makes the
-    row's groups, in one order on every rank.  Refused there, each by
-    name: a client cut over "model" (tensor parallelism: ``tp_axis=
-    "model"``), and a dynamic, push-sum or robust config."""
+    row's groups, in one order on every rank.  A client cut over "model"
+    (``tp_axis="model"``) runs tensor parallel (``launch.tp``) when it is a
+    dense decoder (qwen3, gemma2, command_r); refused there, each by name:
+    the families whose TP is not ported (MoE, MLA, Mamba, the
+    encoder-decoder: ``launch.sharding.tp_refusal``; the vision frontend,
+    by the loss's ``with_tp``), a batch split over "model" as well, and a
+    dynamic, push-sum or robust config."""
     backend = cfg.consensus_backend
     if backend is None or not getattr(backend, "mesh_bound", False):
         return None
@@ -570,15 +577,21 @@ def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
     from repro_torch.launch import sharding as shd
     mesh = inner.mesh
     specs = [shd.layer_spec(x, 1) for x in tree_leaves(inner.leaf_specs)]
-    if any("model" in x.used_axes() for x in specs):
+    tp_cut = any(shd.model_dim(x) is not None for x in specs)
+    why = shd.tp_refusal(inner.leaf_specs)
+    if why is not None:
         raise ValueError(
-            "tensor parallelism over 'model' is not ported: this backend's "
-            "leaf specs cut a client's weights over the 'model' axis "
-            "(tp_axis='model').  The rank-local step cuts a client over "
-            "'client' and 'replica' (FSDP) and splits its batch over "
-            "'model' under batch_over_model: build the backend with "
-            "tp_axis=None (and batch_over_model=True, as the plans of "
-            "smollm_360m and internvl2_1b), or on a model axis of 1")
+            f"{why}: this backend's leaf specs cut a client's weights over "
+            f"the 'model' axis (tp_axis='model'), which the rank-local step "
+            f"runs for the dense decoders (qwen3, gemma2, command_r) only.  "
+            f"Build the backend with tp_axis=None (and batch_over_model="
+            f"True, as the plans of smollm_360m and internvl2_1b), or on a "
+            f"model axis of 1")
+    if tp_cut and "model" in inner.batch_spec.axes(3):
+        raise ValueError("a client's leaves cut over 'model' and its batch "
+                         "split over 'model' too: tensor parallelism runs "
+                         "the same tokens on every model rank (build the "
+                         "backend with batch_over_model=False)")
     if cfg.dynamic or cfg.mixing == "push_sum" or cfg.byzantine is not None \
             or getattr(backend, "robust", False):
         raise ValueError(
@@ -591,14 +604,20 @@ def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
     if per * mesh.shape["client"] != n:
         raise ValueError(f"N={n} clients do not split over the mesh's "
                          f"{mesh.shape['client']} client ranks")
-    gather_axes = tuple(a for a in mesh.axis_names
-                        if any(a in x.used_axes() for x in specs))
+    # the axes a layer's pieces are gathered over (FSDP); a piece over
+    # "model" is the rank's own under TP
+    gather_axes = tuple(a for a in mesh.axis_names if a != "model"
+                        and any(a in x.used_axes() for x in specs))
     batch_axes = inner.batch_spec.axes(3)
     # the groups, in one order on every rank (gloo needs it)
     client_group = mesh.group_over(("client",))
     shard_group = mesh.group_over(("replica", "model"))
     batch_group = mesh.group_over(batch_axes)
     gather_group = mesh.group_over(gather_axes)
+    tp = None
+    if tp_cut:
+        from repro_torch.launch.tp import ModelParallel
+        tp = ModelParallel.of(mesh)
     coords = mesh.coords()
     return RankRole(
         lo, hi, c * per, (c + 1) * per, inner.group, inner.view.world,
@@ -607,7 +626,7 @@ def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
         gather_group=gather_group, gather_axes=gather_axes, specs=specs,
         counted=[shd.first_copy(shd.PartitionSpec(
             "server", "client", *x.dims), mesh) for x in specs],
-        first=coords["replica"] == 0 and coords["model"] == 0)
+        first=coords["replica"] == 0 and coords["model"] == 0, tp=tp)
 
 
 def _cut(params: Any, role: RankRole) -> Any:
@@ -689,14 +708,18 @@ def build_dfl_epoch_step(
     world = None if role is None else role.world
     sharded = role is not None and role.sharded
     counted = None if not sharded else role.counted
-    if sharded and role.gather_axes \
+    if sharded and (role.gather_axes or role.tp is not None) \
             and not hasattr(loss_fn, "with_provider"):
         raise ValueError(
             "this rank holds pieces of its client's leaves (cut over "
-            f"{role.gather_axes}): the loss must take its leaves through "
-            "ApplyOptions.provider — make it with "
-            "models.transformer.make_loss_fn, whose with_provider the step "
-            "binds to the client's pieces")
+            f"{role.gather_axes or ('model',)}): the loss must take its "
+            "leaves through ApplyOptions.provider (and .tp) — make it with "
+            "models.transformer.make_loss_fn, whose with_provider and "
+            "with_tp the step binds to the client's pieces")
+    # under tensor parallelism the loss runs the rank's TP pieces (bound
+    # here: it refuses the families whose TP is not ported)
+    tp_loss = (loss_fn.with_tp(role.tp) if sharded and role.tp is not None
+               else loss_fn)
     if cfg.mixing not in ("symmetric", "row_stochastic", "push_sum"):
         raise ValueError(f"unknown mixing interpretation {cfg.mixing!r}")
     if cfg.mixing == "symmetric" and topo.mixing == "out_degree" and m > 1:
@@ -756,17 +779,18 @@ def build_dfl_epoch_step(
     bound = {}
 
     def loss_for(client_params):
-        """The loss this rank runs: ``loss_fn``, or on a rank holding cut
-        leaves the same loss with its leaves through the client's
+        """The loss this rank runs: ``loss_fn`` (under TP its ``with_tp``),
+        or on a rank holding leaves cut over "replica" the same loss with
+        its leaves through the client's
         ``launch.fsdp.ClientShards`` (made at the first epoch, when the
         tree's layout is known; its groups are the role's)."""
         if not (sharded and role.gather_axes):
-            return loss_fn
+            return tp_loss
         if "loss" not in bound:
             from repro_torch.launch.fsdp import ClientShards
             specs = tree_unflatten(tree_flatten(client_params)[1],
                                    role.specs)
-            bound["loss"] = loss_fn.with_provider(ClientShards(
+            bound["loss"] = tp_loss.with_provider(ClientShards(
                 role.mesh, specs, role.gather_group, role.batch_group,
                 role.gather_axes))
         return bound["loss"]

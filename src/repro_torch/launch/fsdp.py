@@ -29,6 +29,11 @@ piece.  A leaf that is not cut (a norm scale, a bias, the router, a dim
 the degree does not divide) passes whole and gets the averaged gradient.
 Every rank runs the same units in the same order, so the collectives
 match up.
+
+Under tensor parallelism (``launch.tp``) a leaf may be cut over "replica"
+and "model" along two dims: the gathers and reductions here run over
+"replica" only, and the rank keeps its piece over "model", which the
+layers multiply as it is.
 """
 from __future__ import annotations
 
@@ -45,12 +50,16 @@ from repro_torch.tree import (tree_flatten, tree_leaves, tree_map_with_path,
 _LAYER_KEYS = ("stack", "prefix")
 
 
-def _cut_dim(spec) -> Optional[int]:
-    """The one dim ``spec`` cuts, ``None`` for a leaf held whole."""
-    dims = [i for i in range(len(spec)) if spec.axes(i)]
-    if len(dims) > 1:
-        raise ValueError(f"{spec} cuts {len(dims)} dims; a client's leaf "
-                         f"is cut along one (FSDP over 'replica')")
+def _cut_dim(spec, axes: Sequence[str]) -> Optional[int]:
+    """The one dim ``spec`` cuts over the client's gather ``axes``, ``None``
+    for a leaf whose pieces are whole over them.  A dim cut over other
+    axes ("model", under tensor parallelism: ``launch.tp``) stays the
+    rank's piece and is never gathered here."""
+    dims = [i for i in range(len(spec)) if set(spec.axes(i)) & set(axes)]
+    if len(dims) > 1 or any(set(spec.axes(i)) - set(axes) for i in dims):
+        raise ValueError(f"{spec} cuts over {tuple(axes)} along more than "
+                         f"one dim, or one dim over other axes too; a "
+                         f"client's leaf is gathered along one")
     return dims[0] if dims else None
 
 
@@ -98,11 +107,10 @@ class ClientShards:
     def _dims_of(self, specs, drop: int = 0) -> list:
         out = []
         for s in specs:
-            d = _cut_dim(s)
+            d = _cut_dim(s, self.gather_axes)
             if d is not None:
-                if set(s.axes(d)) - set(self.gather_axes) or d < drop:
-                    raise ValueError(f"{s} cuts over {s.axes(d)}, not the "
-                                     f"client's {self.gather_axes}")
+                if d < drop:
+                    raise ValueError(f"{s} cuts a stack's period axis")
                 d -= drop
             out.append(d)
         return out

@@ -171,6 +171,87 @@ def _tree_specs(tree: Any, lead: Tuple[Optional[str], ...], mesh,
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism over "model": what a client's layers cut
+# ---------------------------------------------------------------------------
+
+#: the leaves whose TP dim falls back from the kv heads (-2) to the head
+#: dim (-1) when the kv heads do not divide the model axis: Qwen3 at the
+#: plan's TP of 16 (8 kv heads), qwen3-smoke at TP 4 (2 kv heads).  Every
+#: score then needs the whole head dim, so ``launch.tp`` gathers the two
+#: leaves whole (the reference's warning at
+#: ``repro/launch/sharding.py:107-111``)
+KV_HD_FALLBACK = ("w_k", "w_v")
+
+#: the dense leaves ``launch.tp`` multiplies as pieces: each must be cut
+#: over "model" for the rank-local step to run a client's layers TP
+_TP_CUT = ("embed", "head", "w_q", "w_o", "gate", "up", "down")
+
+#: leaf names of the families whose TP is not ported, each named
+_TP_REFUSED = (
+    (("w_gate", "w_up", "w_down", "router"),
+     "MoE (the experts' expert-parallel w_gate / w_up / w_down)"),
+    (("w_dq", "w_uq", "w_dkv", "w_ukv"), "MLA (the latent projections)"),
+    (("in_proj", "out_proj", "conv_w"),
+     "Mamba (in_proj's concatenated z/x/B/C/dt output cut over 'model')"),
+    (("encoder", "cross_attn"), "the encoder-decoder"),
+)
+
+
+def model_dim(spec: PartitionSpec) -> Optional[int]:
+    """The dim ``spec`` cuts over "model" (``None``: not cut over it)."""
+    dims = [i for i in range(len(spec)) if "model" in spec.axes(i)]
+    return dims[0] if dims else None
+
+
+def tp_dims(tree: Any, tp: int) -> Any:
+    """Per leaf of a client's tree (its own dims), the dim ``_spec_for_leaf``
+    cuts over "model" at TP degree ``tp``, counted from the right (a stack's
+    period axis stays in front), or ``None`` for a leaf held whole: the norm
+    scales, ``b_o``, and a dim ``tp`` does not divide.  ``w_k`` / ``w_v``
+    take -1, the head dim, under ``KV_HD_FALLBACK``."""
+    def leaf(path, x):
+        if not hasattr(x, "ndim") or x.ndim == 0:
+            return None
+        d = model_dim(_spec_for_leaf(_leaf_name(path), x.ndim,
+                                     tuple(x.shape), (), "model", tp, None,
+                                     1, {}))
+        return None if d is None else d - x.ndim
+
+    return tree_map_with_path(leaf, tree)
+
+
+def tp_refusal(spec_tree: Any) -> Optional[str]:
+    """Why the rank-local step cannot run a client whose leaves are cut by
+    ``spec_tree`` over "model" (``None``: it can, or nothing is cut over
+    it): a family whose TP is not ported, by name, or a dense leaf of
+    ``_TP_CUT`` left whole (its heads, d_ff or vocab not dividing the
+    axis)."""
+    keys, cut, whole = set(), False, []
+
+    def leaf(path, spec):
+        nonlocal cut
+        keys.update(str(getattr(e, "key", "")) for e in path)
+        name = _leaf_name(path)
+        if model_dim(spec) is not None:
+            cut = True
+        elif name in _TP_CUT:
+            whole.append(name)
+        return spec
+
+    tree_map_with_path(leaf, spec_tree)
+    if not cut:
+        return None
+    for names, family in _TP_REFUSED:
+        if keys & set(names):
+            return f"tensor parallelism over 'model' of {family} is not ported"
+    if whole:
+        return (f"tensor parallelism over 'model' multiplies pieces of "
+                f"{sorted(set(whole))}, which this axis leaves whole (a "
+                f"head count, d_ff or vocab it does not divide)")
+    return None
+
+
+# ---------------------------------------------------------------------------
 # public resolvers
 # ---------------------------------------------------------------------------
 

@@ -16,14 +16,16 @@ Shape -> program:
     long_500k    decode_step      (ONE token against a 524k cache/state)
 
 A train program's local step is the rank's piece of its client: FSDP over
-"replica" and the batch over "replica" and, under ``batch_over_model``,
-"model" run as the rank-local epoch step runs them (``launch.fsdp``, its
-gathers and reductions against ``consensus.DryGroup``s).  Where the
-reference shards a computation the port runs whole (the TP of a client's
-layers over "model", the serve split, the sequence-sharded long-context
-cache), the program runs it whole at the device's batch and
-``meta["unsharded"]`` names it with ``meta["compute_shards"]``, the plan's
-degree the dry run divides it by.  Modality carve-out: audio / vlm archs get precomputed frame / patch
+"replica", the batch over "replica" and, under ``batch_over_model``,
+"model", and for a dense decoder (qwen3, gemma2, command_r) tensor
+parallelism over "model" run as the rank-local epoch step runs them
+(``launch.fsdp``, ``launch.tp``: their gathers and reductions against
+``consensus.DryGroup``s).  Where the reference shards a computation the
+port runs whole (the TP of the families whose TP is not ported, the serve
+split, the sequence-sharded long-context cache), the program runs it whole
+at the device's batch and ``meta["unsharded"]`` names it with
+``meta["compute_shards"]``, the plan's degree the dry run divides it by.
+Modality carve-out: audio / vlm archs get precomputed frame / patch
 embeddings as extra batch leaves.
 """
 from __future__ import annotations
@@ -246,10 +248,6 @@ def build_train_program(arch_id: str, shape: InputShape, *,
     # microbatches of the device's batch (the reference's accumulate the
     # client batch; each device then holds per_device / micro sequences)
     micro_dev = micro if per_device % micro == 0 else 1
-    # the rank runs its client's FSDP and batch split itself (launch.fsdp);
-    # only tensor parallelism over "model" is still run whole
-    compute_shards = tp if tp_axis else 1
-
     params = init_meta_params(cfg, dtype)
     client_abs = tree_map(lambda p: _meta((m, n) + tuple(p.shape), p.dtype),
                           params)
@@ -257,24 +255,36 @@ def build_train_program(arch_id: str, shape: InputShape, *,
                           params)
     pspecs = shd.fl_param_specs(client_abs, mesh, tp_axis=tp_axis)
     sspecs = shd.fl_server_specs(server_abs, mesh, tp_axis=tp_axis)
+    # the rank runs its client's FSDP, batch split and, for a dense
+    # decoder, TP itself (launch.fsdp, launch.tp); the TP of the other
+    # families is still run whole
+    tp_ported = (tp_axis is not None and tp > 1
+                 and tf.tp_refusal(cfg) is None
+                 and shd.tp_refusal(sspecs) is None)
+    compute_shards = tp if tp_axis and not tp_ported else 1
     batch_full = token_batch_specs(cfg, (topo.t_client, m, n, per_client),
                                    shape.seq_len)
     bspec = shd.PartitionSpec(None, "server", "client",
                               tuple(b_axes) if b_axes else None)
     batch_specs = tree_map(lambda _: bspec, batch_full)
     optimizer = sgd(1e-3)
-    # the rank's pieces of its client: FSDP over "replica" (the TP part is
-    # run whole), gathered and reduced over DryGroups by launch.fsdp
-    fsdp_specs = shd.fl_server_specs(server_abs, mesh, tp_axis=None)
-    wspecs = [shd.layer_spec(x, 1) for x in tree_leaves(fsdp_specs)]
-    gather_axes = tuple(a for a in mesh.axis_names
-                        if any(a in x.used_axes() for x in wspecs))
+    # the rank's pieces of its client: FSDP over "replica", gathered and
+    # reduced over DryGroups by launch.fsdp, and TP over "model" where
+    # ported (else that part is run whole)
+    piece_specs = shd.fl_server_specs(
+        server_abs, mesh, tp_axis="model" if tp_ported else None)
+    wspecs = [shd.layer_spec(x, 1) for x in tree_leaves(piece_specs)]
+    gather_axes = tuple(a for a in mesh.axis_names if a != "model"
+                        and any(a in x.used_axes() for x in wspecs))
     gather_group = mesh.group_over(gather_axes)
     batch_group = mesh.group_over(b_axes)
     pieces = tree_unflatten(tree_flatten(params)[1], [
         _meta(shd.local_shape(tuple(x.shape), sp, mesh), x.dtype)
         for x, sp in zip(tree_leaves(params), wspecs)])
     loss_fn = tf.make_loss_fn(cfg)
+    if tp_ported:
+        from repro_torch.launch.tp import ModelParallel
+        loss_fn = loss_fn.with_tp(ModelParallel.of(mesh))
     if gather_axes:
         from repro_torch.launch.fsdp import ClientShards
         loss_fn = loss_fn.with_provider(ClientShards(
@@ -325,9 +335,10 @@ def build_train_program(arch_id: str, shape: InputShape, *,
     unsharded = []
     if compute_shards > 1:
         unsharded.append(
-            f"a client's layers tensor parallel over {tp} 'model' ranks: "
-            f"run whole at the device's batch of {per_device}, and their "
-            f"reductions inside a layer not run, not counted")
+            f"a client's layers tensor parallel over {tp} 'model' ranks "
+            f"({tf.tp_refusal(cfg) or shd.tp_refusal(sspecs)}): run whole "
+            f"at the device's batch of {per_device}, and their reductions "
+            f"inside a layer not run, not counted")
     unsharded.extend(unsharded_mix)
     arg_parts = {
         "state": _local_bytes(client_abs, pspecs, mesh),

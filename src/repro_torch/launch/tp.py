@@ -1,0 +1,191 @@
+"""Tensor parallelism over "model": the hand-written counterpart of what
+GSPMD inserts when the reference's plans cut a client's layers over the
+"model" axis (``launch.sharding._RULES`` with ``tp_axis="model"``), as
+``launch.fsdp`` is for FSDP over "replica".
+
+Megatron's layout, on the dense decoders (qwen3, gemma2, command_r):
+
+* attention: ``w_q`` (and the kv heads its q heads read) column-parallel
+  over heads, ``w_o`` row-parallel; the MLP's ``gate`` / ``up``
+  column-parallel over d_ff, ``down`` row-parallel;
+* the embedding vocab-parallel (a rank holds rows ``[v_lo, v_hi)``), and
+  the head with it (the tied embedding's piece, transposed, or the
+  untied ``head``'s columns), its cross-entropy vocab-parallel too;
+* the norms, and every other leaf the rules leave whole, replicated.
+
+Every TP rank runs the same tokens.  A column-parallel block starts with
+``copy`` ("f": the identity forward, its input's gradient all-reduced in
+the backward) and a row-parallel one ends with ``reduce`` ("g": the
+partial sums all-reduced in the forward, the identity backward), so the
+activations between blocks are whole and equal on every rank.  A
+replicated leaf that a rank reads only for its own heads (``q_norm``,
+``k_norm``) gets a partial gradient: ``replicated`` sums it over "model".
+Where the kv heads do not divide the axis (Qwen3 at TP 16, qwen3-smoke at
+TP 4) the rules cut ``w_k`` / ``w_v`` along the head dim instead
+(``launch.sharding.tp_dims``); ``gather`` then all-gathers them whole,
+once a layer, and the rank takes the kv heads its q heads read: the one
+whole gather of the slice.
+
+Each collective is one ``consensus.all_reduce_`` (or, for the fallback's
+gather, ``all_gather_rows``) under a site of its own, so
+``consensus.collective_counts()`` reports them: ``tp_forward`` (g, and the
+embedding's), ``tp_backward`` (f), ``tp_vocab`` (the cross-entropy's max,
+then its sum of exponentials with the target logit), ``tp_replicated``
+(a replicated leaf's partial gradient), ``tp_kv_gather`` /
+``tp_kv_reduce`` (the fallback's gather and its gradient's sum).
+
+The model code takes a ``ModelParallel`` through
+``models.transformer.ApplyOptions.tp`` and calls only its methods.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import consensus as cns
+
+
+class ModelParallel:
+    """This rank's place on the "model" axis: the ``group`` of its TP
+    ranks, its position ``pos`` among them and their number ``size``."""
+
+    def __init__(self, group, pos: int, size: int):
+        if not 0 <= pos < size:
+            raise ValueError(f"position {pos} outside a model axis of {size}")
+        self.group, self.pos, self.size = group, int(pos), int(size)
+
+    @classmethod
+    def of(cls, mesh) -> "ModelParallel":
+        """The model axis of a ``launch.mesh.RankMesh`` (its group made by
+        ``group_over``, in the order every rank makes it)."""
+        return cls(mesh.group_over(("model",)), mesh.coords()["model"],
+                   mesh.shape["model"])
+
+    def __repr__(self) -> str:
+        return f"ModelParallel(pos={self.pos}, size={self.size})"
+
+    # -- the four autograd functions ----------------------------------------
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """f: ``x`` as it is; its gradient summed over "model"."""
+        return _Copy.apply(x, self.group, "tp_backward")
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """g: the sum over "model" of the ranks' partial ``x``."""
+        return _Reduce.apply(x, self.group)
+
+    def replicated(self, w: torch.Tensor) -> torch.Tensor:
+        """A replicated leaf read for this rank's part only: ``w`` as it
+        is, its gradient summed over "model" (site ``tp_replicated``)."""
+        return _Copy.apply(w, self.group, "tp_replicated")
+
+    def gather(self, pieces, dim: int) -> list:
+        """The whole leaves from the ranks' ``pieces``, each cut along
+        ``dim``, in one all-gather (site ``tp_kv_gather``); their
+        gradients (this rank's part of a sum) summed over "model" in one
+        all-reduce (site ``tp_kv_reduce``) and cut back to the pieces."""
+        return list(_Gather.apply(dim, self, *pieces))
+
+    # -- the vocab-parallel embedding and cross-entropy ----------------------
+
+    def embed(self, piece: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The lookup of ``tokens`` in the embedding whose rows
+        ``[v_lo, v_hi)`` are ``piece``: ids outside them give zero, then the
+        ranks' lookups are summed (site ``tp_forward``)."""
+        n = piece.shape[0]
+        local = tokens - self.pos * n
+        inside = (local >= 0) & (local < n)
+        x = piece[local.clamp(0, n - 1)]
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+        return self.reduce(x)
+
+    def vocab_lo(self, n_local: int) -> int:
+        """The global id of this rank's first vocab row or column."""
+        return self.pos * n_local
+
+    def cross_entropy(self, logits: torch.Tensor,
+                      targets: torch.Tensor) -> torch.Tensor:
+        """Per position, ``logsumexp - target logit`` over the whole vocab
+        from this rank's slice ``logits`` (``(..., V / size)``, f32) of it:
+        the max, then the sum of exponentials and the target logit, are
+        summed over "model" (site ``tp_vocab``, two calls).  The backward is
+        local: ``softmax - onehot`` on the slice."""
+        return _VocabCE.apply(logits, targets, self)
+
+
+class _Copy(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group, site="tp_backward"):
+        ctx.group, ctx.site = group, site
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        cns.all_reduce_(g, ctx.group, site=ctx.site)
+        return g, None, None
+
+
+class _Reduce(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        return cns.all_reduce_(y, group, site="tp_forward")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, dim: int, mp: ModelParallel, *pieces):
+        ctx.mp = mp
+        ctx.dims = [dim % p.dim() for p in pieces]
+        ctx.ns = [p.shape[d] for p, d in zip(pieces, ctx.dims)]
+        return tuple(cns.gather_pieces(list(pieces), ctx.dims, mp.group,
+                                       site="tp_kv_gather"))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        cns.all_reduce_(flat, ctx.mp.group, site="tp_kv_reduce")
+        out, off = [], 0
+        for g, d, n in zip(grads, ctx.dims, ctx.ns):
+            whole = flat[off:off + g.numel()].view(g.shape)
+            off += g.numel()
+            out.append(whole.narrow(d, ctx.mp.pos * n, n).contiguous())
+        return (None, None) + tuple(out)
+
+
+class _VocabCE(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, logits, targets, mp: ModelParallel):
+        n = logits.shape[-1]
+        local = targets - mp.vocab_lo(n)
+        inside = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        m = logits.amax(dim=-1).contiguous()
+        cns.all_reduce_(m, mp.group, "max", site="tp_vocab")
+        s = torch.exp(logits - m[..., None]).sum(dim=-1)
+        t = torch.where(inside, torch.gather(logits, -1, local[..., None])
+                        [..., 0], torch.zeros((), dtype=logits.dtype,
+                                              device=logits.device))
+        st = torch.stack([s, t])
+        cns.all_reduce_(st, mp.group, site="tp_vocab")
+        lse = m + torch.log(st[0])
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - st[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, inside = ctx.saved_tensors
+        p = torch.exp(logits - lse[..., None])
+        p.scatter_add_(-1, local[..., None],
+                       -inside[..., None].to(p.dtype))
+        return p * g[..., None], None, None
+

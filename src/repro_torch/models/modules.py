@@ -325,14 +325,15 @@ def attention_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: Optional[torch.Tensor] = None,
                     kv_override: Optional[torch.Tensor] = None,
                     causal: bool = True,
-                    attn_impl: str = "reference") -> torch.Tensor:
-    """Self-attention over a full sequence, or cross-attention over the
-    memory ``kv_override`` (b, s_mem, d): queries without rope from ``x``,
-    keys and values from the memory, with their biases, no mask."""
+                    attn_impl: str = "reference", tp=None) -> torch.Tensor:
+    """Self-attention over a full sequence (over the rank's heads under
+    ``tp``), or cross-attention over the memory ``kv_override`` (b, s_mem,
+    d): queries without rope from ``x``, keys and values from the memory,
+    with their biases, no mask."""
     if kv_override is None:
         return attention_apply_kv(params, x, cfg, layer_kind=layer_kind,
                                   positions=positions, causal=causal,
-                                  attn_impl=attn_impl)[0]
+                                  attn_impl=attn_impl, tp=tp)[0]
     q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
     if "b_q" in params:
         q = q + params["b_q"]
@@ -355,30 +356,91 @@ def cross_kv(params: Dict, memory: torch.Tensor, *, bias: bool
     return k, v
 
 
-def _out_proj(params: Dict, out: torch.Tensor, dtype) -> torch.Tensor:
+def _out_proj(params: Dict, out: torch.Tensor, dtype, tp=None
+              ) -> torch.Tensor:
+    """The output projection; under ``tp`` (a ``launch.tp.ModelParallel``)
+    row-parallel over the rank's heads, the partial sums reduced over
+    "model" before ``b_o`` is added once."""
     y = torch.einsum("bshk,hkd->bsd", out.to(dtype), params["w_o"])
+    if tp is not None:
+        y = tp.reduce(y)
     if "b_o" in params:
         y = y + params["b_o"]
     return y
 
 
+def _tp_attention_params(params: Dict, cfg: ArchConfig, tp
+                         ) -> Tuple[Dict, Optional[torch.Tensor]]:
+    """The attention leaves a TP rank multiplies, and the index of the kv
+    head each of its q heads reads (``None``: GQA's own repeat).  Its q
+    heads are ``[p h / tp, (p + 1) h / tp)``; with the kv heads cut they
+    read its kv heads ``[p kvh / tp, ...)``, the group ratio kept.  Under
+    the head-dim fallback (``launch.sharding.KV_HD_FALLBACK``) ``w_k`` /
+    ``w_v`` are gathered whole over "model" and cut to the kv heads its q
+    heads read; a kv leaf held whole is cut so too.  A replicated leaf read
+    for these heads only (``q_norm``, ``k_norm``, a whole kv bias) has its
+    gradient summed over "model"."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim()
+    hl = params["w_q"].shape[-2]
+    if hl * tp.size != h:
+        raise ValueError(f"w_q holds {hl} of {h} heads on a model axis of "
+                         f"{tp.size}")
+    p = dict(params)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            p[name] = {"scale": tp.replicated(p[name]["scale"])}
+    w_k = params["w_k"]
+    if w_k.shape[-2] * tp.size == kvh and kvh % tp.size == 0:
+        return p, None
+    # kv heads held whole, or gathered whole from head-dim pieces: this
+    # rank's q heads read kv heads [kv_lo, kv_hi)
+    g = h // kvh
+    q_lo = tp.pos * hl
+    kv_lo, kv_hi = q_lo // g, (q_lo + hl - 1) // g + 1
+    kv = [params["w_k"], params["w_v"]]
+    kv = (tp.gather(kv, -1) if w_k.shape[-1] != hd
+          else [tp.replicated(w) for w in kv])
+    p["w_k"], p["w_v"] = (w[..., kv_lo:kv_hi, :] for w in kv)
+    for name in ("b_k", "b_v"):
+        if name in p:
+            p[name] = tp.replicated(p[name])[kv_lo:kv_hi]
+    idx = (q_lo + torch.arange(hl)) // g - kv_lo
+    nkv = kv_hi - kv_lo
+    if hl % nkv == 0 and torch.equal(
+            idx, torch.arange(nkv).repeat_interleave(hl // nkv)):
+        return p, None
+    return p, idx
+
+
 def attention_apply_kv(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                        layer_kind: str = "global",
                        positions: Optional[torch.Tensor] = None,
-                       causal: bool = True, attn_impl: str = "reference"
+                       causal: bool = True, attn_impl: str = "reference",
+                       tp=None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``attention_apply`` that also returns the layer's k and v
-    (b, s, kvh, hd), which a prefill writes into the cache."""
+    (b, s, kvh, hd), which a prefill writes into the cache.  Under ``tp``
+    (a ``launch.tp.ModelParallel``) the rank runs its own heads:
+    column-parallel q / k / v after ``tp.copy``, row-parallel ``w_o``
+    (``_tp_attention_params``); k and v are then its heads'."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     window = cfg.sliding_window if layer_kind == "local" else None
+    kv_idx = None
+    if tp is not None:
+        params, kv_idx = _tp_attention_params(params, cfg, tp)
+        x = tp.copy(x)
     q, k, v = _project_qkv(params, x, x, cfg, positions, positions,
                            use_rope=True)
+    if kv_idx is not None:
+        kv_idx = kv_idx.to(k.device)
+        k, v = k.index_select(2, kv_idx), v.index_select(2, kv_idx)
     out = dispatch_attend(q, k, v, causal=causal, window=window,
                           attn_softcap=cfg.attn_logit_softcap,
                           attn_impl=attn_impl)
-    return _out_proj(params, out, x.dtype), k, v
+    return _out_proj(params, out, x.dtype, tp), k, v
 
 
 # -- incremental decode ------------------------------------------------------
@@ -457,10 +519,17 @@ def _act(x, kind: str):
     return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(params: Dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_apply(params: Dict, x: torch.Tensor, act: str = "silu",
+              tp=None) -> torch.Tensor:
+    """The gated MLP; under ``tp`` (a ``launch.tp.ModelParallel``) over the
+    rank's d_ff columns: ``gate`` / ``up`` column-parallel after
+    ``tp.copy``, ``down`` row-parallel, its partial sums reduced."""
+    if tp is not None:
+        x = tp.copy(x)
     h = _act(torch.einsum("bsd,df->bsf", x, params["gate"]), act)
     h = h * torch.einsum("bsd,df->bsf", x, params["up"])
-    return torch.einsum("bsf,fd->bsd", h, params["down"])
+    y = torch.einsum("bsf,fd->bsd", h, params["down"])
+    return y if tp is None else tp.reduce(y)
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,11 @@ class ApplyOptions:
     # given its tree as the params hold it: ``launch.fsdp.ClientShards``,
     # a client cut over ranks, gathers and reduces there
     provider: Optional[Any] = None
+    # tensor parallelism over "model" (``None``: none): a
+    # ``launch.tp.ModelParallel``, whose rank then holds and multiplies its
+    # pieces of the dense layers (heads, d_ff columns, vocab rows) and
+    # reduces between them
+    tp: Optional[Any] = None
 
     def moe_kw(self) -> Dict[str, Any]:
         return {"capacity_factor": self.capacity_factor,
@@ -187,9 +192,10 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         mix = nn.mla_apply(params["mixer"], h, cfg)
     else:
         mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
-                                 causal=causal, attn_impl=opts.attn_impl)
+                                 causal=causal, attn_impl=opts.attn_impl,
+                                 tp=opts.tp)
     return _block_rest(params, x, mix, cfg, cross=_cross(params, cfg, memory),
-                       moe_kw=opts.moe_kw() if is_moe else None)
+                       moe_kw=opts.moe_kw() if is_moe else None, tp=opts.tp)
 
 
 def _cross(params: Dict, cfg: ArchConfig, memory: Optional[torch.Tensor]):
@@ -209,7 +215,7 @@ def _ssd_impl(opts: ApplyOptions) -> str:
 
 def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
                 cfg: ArchConfig, *, cross=None,
-                moe_kw: Optional[Dict[str, Any]] = None
+                moe_kw: Optional[Dict[str, Any]] = None, tp=None
                 ) -> Tuple[torch.Tensor, Any]:
     """The block after its mixer: (post-norm,) residual, the
     cross-attention ``cross`` (a function of the normed residual, for a
@@ -227,7 +233,7 @@ def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
         if moe_kw is not None:
             ff, aux = nn.moe_apply(params["ffn"], h, cfg, **moe_kw)
         else:
-            ff = nn.mlp_apply(params["ffn"], h, cfg.act)
+            ff = nn.mlp_apply(params["ffn"], h, cfg.act, tp)
         if "post_ln2" in params:
             ff = nn.rmsnorm_apply(params["post_ln2"], ff, cfg.norm_eps)
         x = x + ff
@@ -316,8 +322,13 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    """The token embeddings; under ``tp`` a vocab-parallel lookup in the
+    rank's rows, summed over "model" (``launch.tp.ModelParallel.embed``),
+    Gemma's scale after the sum."""
+    x = params["embed"][tokens] if tp is None else tp.embed(
+        params["embed"], tokens)
     if cfg.final_logit_softcap is not None:  # gemma family scales embeddings
         # sqrt(d) rounded to the activation dtype first, as the reference
         # does (jnp.asarray(..., x.dtype)); the rounded value, exact in
@@ -327,15 +338,23 @@ def _embed(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _head(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _head(params, cfg: ArchConfig, x: torch.Tensor,
+          tp=None) -> torch.Tensor:
+    """The final norm and the logits; under ``tp`` the rank's vocab slice
+    of them (its ``embed`` rows, transposed, or ``head`` columns) after
+    ``tp.copy``, the padding mask on the global ids ``v_lo + j``."""
     x = nn.rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
+    if tp is not None:
+        x = tp.copy(x)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params["head"])
     logits = nn.softcap(logits, cfg.final_logit_softcap)
     if cfg.padded_vocab_size != cfg.vocab_size:   # mask vocab-padding ids
-        pad_ids = torch.arange(logits.shape[-1],
+        n = logits.shape[-1]
+        lo = 0 if tp is None else tp.vocab_lo(n)
+        pad_ids = torch.arange(lo, lo + n,
                                device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad_ids, -1e30)
     return logits
@@ -413,7 +432,7 @@ def _trunk_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     memory = None
     if cfg.encdec is not None:
         memory = encode(params, cfg, batch["frames"], opts)
-    x = _embed(params, cfg, batch["tokens"])
+    x = _embed(params, cfg, batch["tokens"], opts.tp)
     if cfg.frontend is not None and cfg.frontend.kind == "vision_patches":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
     return x, memory
@@ -454,7 +473,7 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     """Training forward: (logits over the token part, aux loss)."""
     params = _provided(params, opts)
     x, aux = forward_hidden(params, cfg, batch, opts=opts)
-    return _head(params, cfg, x), aux
+    return _head(params, cfg, x, opts.tp), aux
 
 
 LOSS_CHUNK = 512     # sequence positions per head/loss chunk
@@ -467,7 +486,13 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
     (b, chunk, vocab); the loss is the mean nll plus the aux loss.
     Signature matches ``repro_torch.core.dfl.LossFn``; its
     ``with_provider(p)`` is the same loss with ``ApplyOptions.provider``
-    set to ``p`` (the rank-local epoch step binds a cut client's there)."""
+    set to ``p`` (the rank-local epoch step binds a cut client's there),
+    and ``with_tp(tp)`` with ``ApplyOptions.tp`` set to a
+    ``launch.tp.ModelParallel``: the rank's logits are then its vocab
+    slice, their logsumexp and target logit reduced over "model"
+    (``ModelParallel.cross_entropy``).  ``with_tp`` refuses, by name, the
+    families whose TP is not ported (``tp_refusal``)."""
+    tp = opts.tp
 
     def loss_fn(params, batch, rng):
         del rng
@@ -479,8 +504,11 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
         chunk = min(loss_chunk, sm1)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for lo in range(0, sm1, chunk):
-            logits = _head(params, cfg, xs[:, lo:lo + chunk]).float()
+            logits = _head(params, cfg, xs[:, lo:lo + chunk], tp).float()
             t_c = targets[:, lo:lo + chunk]
+            if tp is not None:
+                total = total + tp.cross_entropy(logits, t_c).sum()
+                continue
             lse = torch.logsumexp(logits, dim=-1)            # (b, chunk)
             tgt = torch.gather(logits, -1, t_c[..., None])[..., 0]
             total = total + (lse - tgt).sum()
@@ -489,7 +517,34 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
 
     loss_fn.with_provider = lambda provider: make_loss_fn(
         cfg, dataclasses.replace(opts, provider=provider), loss_chunk)
+
+    def with_tp(mp):
+        why = tp_refusal(cfg)
+        if why is not None:
+            raise ValueError(why)
+        return make_loss_fn(cfg, dataclasses.replace(opts, tp=mp),
+                            loss_chunk)
+
+    loss_fn.with_tp = with_tp
     return loss_fn
+
+
+def tp_refusal(cfg: ArchConfig) -> Optional[str]:
+    """Why a client of ``cfg`` cannot run tensor parallel over "model"
+    (``launch.tp``), by name, or ``None`` for the dense decoders."""
+    plan = stack_plan(cfg)
+    kinds = {k for k, _ in _period_flags(cfg, plan)}
+    for bad, family in ((cfg.moe is not None, "MoE (the experts' "
+                         "expert-parallel w_gate / w_up / w_down)"),
+                        (cfg.mla is not None, "MLA (the latent projections)"),
+                        ("mamba" in kinds, "Mamba (in_proj's concatenated "
+                         "z/x/B/C/dt output cut over 'model')"),
+                        (cfg.encdec is not None, "the encoder-decoder"),
+                        (cfg.frontend is not None, "the vision frontend")):
+        if bad:
+            return (f"tensor parallelism over 'model' of {family} is not "
+                    f"ported")
+    return None
 
 
 # ---------------------------------------------------------------------------

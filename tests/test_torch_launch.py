@@ -397,6 +397,80 @@ def test_local_step_collective_record(arch_id):
         else "measured_meta")
 
 
+#: the archs whose train pair runs its TP over "model" on the rank
+#: (launch.tp); the plans of smollm_360m and internvl2_1b split the batch
+#: over "model" instead
+TP_DENSE = ("qwen3_1_7b", "gemma2_27b", "command_r_35b")
+
+
+def test_tp_local_step_collective_record():
+    """Gemma-2's smoke config widened to 16 heads, so its layers cut over
+    the plan's 16-wide "model" axis: the local step runs the rank's TP
+    pieces (FSDP over "replica" around them) against DryGroups, each
+    layer's two row-parallel reductions forward and again in the
+    recomputed forward, its two column-parallel ones backward, the
+    embedding's and a head chunk's, two vocab reductions a loss chunk;
+    nothing of it is divided (``compute_shards`` 1, ``measured_meta``)."""
+    cfg = dataclasses.replace(get_smoke("gemma2-27b"), num_heads=16,
+                              num_kv_heads=16)
+    bundle = specs.build_program("gemma2_27b", "train_4k", arch=cfg)
+    got = dryrun.measure(bundle)
+    local = got["stage_collectives"]["local_step"]["sites"]
+    layers = cfg.num_layers
+    # the loss takes the head in chunks of LOSS_CHUNK positions: one
+    # column-parallel head and two vocab reductions a chunk
+    chunks = -(-(INPUT_SHAPES["train_4k"].seq_len - 1) // tf.LOSS_CHUNK)
+    assert local == {"fsdp_gather": 1 + 2 * layers,
+                     "grad_reduce": 1 + layers,
+                     "tp_forward": 1 + 4 * layers,
+                     "tp_backward": 2 * layers + chunks,
+                     "tp_vocab": 2 * chunks}
+    assert bundle.meta["compute_shards"] == 1
+    assert bundle.meta["unsharded"] == []
+    assert dryrun.device_numbers(bundle, got)["label"] == "measured_meta"
+
+
+def _committed(arch: str, tag: str) -> dict:
+    path = (__import__("pathlib").Path(__file__).resolve().parents[1]
+            / "experiments" / "dryrun_torch" / f"{arch}_train_4k_{tag}.json")
+    return json.loads(path.read_text())
+
+
+@pytest.mark.parametrize("arch_id", sorted(tplans.PLANS))
+def test_committed_train_records_are_labelled(arch_id):
+    """Each committed train record's peak and FLOPs: ``measured_meta``
+    where the rank runs its whole piece (the dense TP plans, and the
+    plans that split the batch over "model"), ``analytic_split`` where a
+    family's TP over "model" is still run whole and divided."""
+    for tag in ("sp", "mp"):
+        rec = _committed(arch_id, tag)
+        measured = (arch_id in TP_DENSE
+                    or tplans.PLANS[arch_id].batch_over_model)
+        label = "measured_meta" if measured else "analytic_split"
+        assert rec["memory"]["peak_per_device"]["label"] == label
+        assert rec["cost"]["flops_per_device"]["label"] == label
+        assert (rec["meta"]["compute_shards"] == 1) == measured
+
+
+def test_committed_tp_record_is_a_dry_group_run():
+    """Qwen3-1.7B's single-pod train pair (TP 16 on the head-dim
+    fallback: 8 kv heads): its committed collective calls and sites are
+    those of a ``DryGroup`` run of the program now, the TP sites among
+    them."""
+    rec = _committed("qwen3_1_7b", "sp")
+    got = dryrun.measure(specs.build_program("qwen3_1_7b", "train_4k"))
+    for part in ("calls", "bytes", "sites"):
+        assert got["collectives"][part] == rec["collectives"]["record"][
+            part], part
+    layers = get_arch("qwen3-1.7b").num_layers
+    local = got["stage_collectives"]["local_step"]["sites"]
+    chunks = -(-(INPUT_SHAPES["train_4k"].seq_len - 1) // tf.LOSS_CHUNK)
+    assert local["tp_forward"] == 1 + 2 * layers
+    assert local["tp_backward"] == 2 * layers + chunks
+    assert local["tp_kv_gather"] == local["tp_kv_reduce"] == layers
+    assert local["tp_replicated"] == 2 * layers
+
+
 def test_dryrun_cli_refuses_without_a_pair():
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "smollm-360m"])

@@ -33,8 +33,10 @@ on the (M * S)-row problem of every rank's pre-consensus pieces under
 A ⊗ I_S (rank r's pieces are row r), as ``test_torch_shard_map_axes.py``
 holds it; on (2, 1, 2, 1) also for the int8 physical wire with error
 feedback.  The metrics against the one-process step's.  Outside the world:
-the refusals of tensor parallelism over "model" and of a dynamic config on
-a sharded row, and the launch layer's helpers."""
+the refusals of tensor parallelism over "model" of a family whose TP is
+not ported (tests/test_torch_tensor_parallel.py runs the dense decoders'
+TP) and of a dynamic config on a sharded row, and the launch layer's
+helpers."""
 import functools
 import os
 import subprocess
@@ -184,7 +186,7 @@ WORLD = textwrap.dedent('''
 
     def tp_refusal(rank, spec):
         """On a (1, 1, 2, 2) mesh with tp_axis="model": the step refuses
-        the mesh whose "model" axis cuts the weights."""
+        a family whose tensor parallelism is not ported (Mixtral's MoE)."""
         from repro_torch.configs import get_smoke
         from repro_torch.core import (DFLConfig, FLTopology,
                                       build_dfl_epoch_step)
@@ -193,8 +195,8 @@ WORLD = textwrap.dedent('''
         from repro_torch.models import transformer as tf
         from repro_torch.tree import tree_map
         mesh = lm.fl_rank_mesh(lm.FLMeshSpec(1, 1, 2, 2))
-        params = tf.init_params(torch.Generator(), get_smoke(spec["arch"]),
-                                device="meta")
+        cfg = get_smoke("mixtral-8x22b")
+        params = tf.init_params(torch.Generator(), cfg, device="meta")
         topo = FLTopology(num_servers=1, clients_per_server=1, t_client=1,
                           t_server=1)
         backend = shd.fl_consensus_backend(topo, mesh, tree_map(
@@ -203,8 +205,7 @@ WORLD = textwrap.dedent('''
         try:
             build_dfl_epoch_step(DFLConfig(topology=topo,
                                            consensus_backend=backend),
-                                 tf.make_loss_fn(get_smoke(spec["arch"])),
-                                 None)
+                                 tf.make_loss_fn(cfg), None)
         except ValueError as e:
             return str(e)
         return None
@@ -515,7 +516,7 @@ def test_intra_client_collectives_by_site(world, case):
 
 def test_tp_over_model_is_refused(world):
     for w in world:
-        assert "tensor parallelism over 'model'" in w["tp_refused"]
+        assert "tensor parallelism over 'model' of MoE" in w["tp_refused"]
 
 
 # ---------------------------------------------------------------------------
