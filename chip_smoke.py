@@ -125,7 +125,8 @@ before it and read just after:
   epochs of the cells below in this process, each freed before the next;
   then one world of four gloo ranks on this card, one server a rank
   (spawned after the build, every collective staged through pinned host
-  buffers), training full SmolLM-360M through the trainers with
+  buffers), training SmolLM-360M at full width, 8 of its 32 layers
+  (SHARD_LAYERS), through the trainers with
   ``consensus_backend="shard_map"``: one epoch on the int8 physical wire
   with error feedback at staleness 0 and at 1, one uncompressed, one
   dynamic epoch (Bernoulli 0.5, edge drops 0.3) on the wire, one push-sum
@@ -152,7 +153,8 @@ before it and read just after:
   row a rank on the two replica-0 ranks (``wire_whole``) as the
   yardstick;
 * the local period of a client cut over ranks, in the same world:
-  ``shard_local``, one epoch of full SmolLM-360M (M = 2, T_C = 2, T_S = 5,
+  ``shard_local``, one epoch of SmolLM-360M at full width, 8 layers deep
+  (M = 2, T_C = 2, T_S = 5,
   batch 2 x 128) through ``fl_consensus_backend(tp_axis=None)``,
   ``init_dfl_state`` and ``build_dfl_epoch_step`` on four meshes: a
   server's two clients on two ranks (2, 2, 1, 1), bitwise the one-process
@@ -163,7 +165,21 @@ before it and read just after:
   (2, 1, 2, 1) (kernels 2, 6 and 7r), its rows and residual bitwise the
   one-process wire on the (M * S)-row problem; each rank's epoch,
   collectives by site, peak beside its pieces and the yardstick's whole
-  row, kernel 2's launches; then ``dryrun``, one pair of each
+  row, kernel 2's launches;
+* tensor parallelism over "model", in the same world: ``shard_tp``,
+  full-width Qwen3-1.7B (f32, 8 of 28 layers) on (2, 1, 1, 2) plain and on
+  the int8 physical wire and on (1, 1, 1, 4), held to the one-process
+  epoch within 1e-5 (kernels 2, 1r, 6, 7r); ``shard_tp_moe``, full-width
+  Mixtral-8x22B (1 of 56 layers, 4 of 8 experts a rank) on (2, 1, 1, 2)
+  and DeepSeek-V2 (the dense prefix and one MoE layer; MLA and 40 of 160
+  experts a rank) on (1, 1, 1, 4), bf16: the first step's gradients and
+  the pieces within twice a regrouped one-process run's distance plus
+  four bf16 steps, beside a control (every expert reading the slots of
+  the one before) that must fail; replicated leaves bitwise, Mixtral's
+  consensus bitwise its A ⊗ I_S emulation, the sites' bytes as predicted,
+  the routing's flips against one process (kernels 2 and 1rb, kernel 1's
+  bf16 row form, also held at its path's shape against its plain
+  version); then ``dryrun``, one pair of each
   program (SmolLM-360M train_4k, Qwen3-1.7B prefill_32k, Mamba2-780M
   long_500k) on the meta device in a process of its own beside the CLI.
 
@@ -2023,18 +2039,20 @@ def zoo_serving(torch, g, kernel_rows: dict) -> None:
 
 
 @contextlib.contextmanager
-def moe_routing(nn, record=None, pinned=None):
+def moe_routing(nn, record=None, pinned=None, own=None):
     """``nn.moe_route`` wrapped: each call's expert indices (g, tg, k)
     appended to ``record``; with ``pinned`` (index tensors, one a call in
     call order) the router's probabilities taken at those indices instead
     of its own top k, renormalised as ``moe_route`` does.  Pinning another
     run's routing leaves only the rounding of the rest of the model to
-    compare."""
+    compare; ``own`` receives the router's own top k before the pin."""
     orig = nn.moe_route
     calls = None if pinned is None else iter(pinned)
 
     def route(params, tokens, cfg):
         probs, gate_vals, gate_idx = orig(params, tokens, cfg)
+        if own is not None:
+            own.append(gate_idx.clone())
         if calls is not None:
             gate_idx = next(calls)
             gate_vals = probs.gather(-1, gate_idx)
@@ -3953,10 +3971,13 @@ ROW_KERNELS = {
         "src/repro_torch/kernels/csrc/quantized_wire.cu",
         "src/repro/kernels/consensus_mix.py:577"),
 }
+#: every row form's launch counter (``ops.launch_counts()``): kernel 1's
+#: bf16 instance counts on its own (``shard_tp_moe``)
+ROW_COUNTERS = (*ROW_KERNELS, "consensus_mix_rows_bf16")
 # the row forms' main shape: the SmolLM-360M wire bucket (M = 4)
 ROW_D = 364_904_448
 # the world's phases: (name, trainer, trainer keywords); every one full
-# width and full depth, one epoch, through the trainers with
+# width, SHARD_LAYERS deep, one epoch, through the trainers with
 # consensus_backend="shard_map"
 SHARD_PHASES = [
     ("wire", "train", dict(WIRE_TRAIN, epochs=1)),
@@ -3973,6 +3994,10 @@ SHARD_PHASES = [
         DYN_TRAIN, faults="", epochs=1, byzantine="inlier_shift:0.25:0.9",
         seed=1)),
 ]
+#: the depth of SHARD_PHASES' and ``shard_local``'s SmolLM-360M (of 32):
+#: cut for the script's time limit, their rounds' collectives scaling with
+#: the row (PR 30: the world took 318.6-431.6 s at full depth)
+SHARD_LAYERS = 8
 #: each rank's share of the card: four ranks of ~14 GB at their peak and
 #: this process's context fit in 80 GB only if no rank keeps another's
 #: share in its allocator's cache
@@ -3980,6 +4005,22 @@ SHARD_MEMORY_FRACTION = 0.23
 SHARD_SAMPLE = 4096         # elements a leaf of the plain phase's samples
 SHARD_PLAIN_TOL = 1e-6      # of the leaf's largest |w|: one f32 rounding
 SHARD_TIMEOUT_S = 900
+
+
+def shard_config():
+    """SmolLM-360M at its published widths, SHARD_LAYERS deep."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("smollm-360m"),
+                               num_layers=SHARD_LAYERS)
+
+
+def shard_params() -> int:
+    """The parameters of ``shard_config()`` (counted on the meta device)."""
+    import torch
+    from repro_torch.models import transformer as ttf
+    from repro_torch.tree import tree_leaves
+    return sum(x.numel() for x in tree_leaves(ttf.init_params(
+        torch.Generator(), shard_config(), device="meta")))
 
 
 def rows_fingerprint(torch, leaves, sample: bool = False) -> list:
@@ -4266,39 +4307,55 @@ LOCAL_NORM_SHAPES = [(128, 960), (127, 960)]
 
 def local_norm_check(torch, shapes=None, seed: int = 28,
                      path: str = "smollm-360m client step on a rank's half "
-                     "of the batch (shard_local)") -> set:
-    """Kernel 2 forward and backward at ``shapes`` (LOCAL_NORM_SHAPES) on
-    inputs of a generator of their own (``seed``) against the plain
-    versions (1e-5 forward, 1e-4 backward, of the largest value): one
+                     "of the batch (shard_local)",
+                     dtype: str = "float32") -> set:
+    """Kernel 2 forward and backward at ``shapes`` (LOCAL_NORM_SHAPES) in
+    ``dtype`` on inputs of a generator of their own (``seed``) against the
+    plain versions as ``rmsnorm_sweep`` holds them (f32: 1e-5 forward, 1e-4
+    backward, of the largest value; bf16: y and dscale within one bf16
+    step, dx within one step plus BF16_DX_FLOOR of its largest value): one
     ``rmsnorm_check`` line a shape.  Returns the shapes as
     ``launched_norms`` records them."""
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(seed)
     out = set()
     for rows, d in shapes or LOCAL_NORM_SHAPES:
-        x = torch.randn((rows, d), device=dev, generator=g)
-        s = 1 + 0.1 * torch.randn(d, device=dev, generator=g)
-        gy = torch.randn((rows, d), device=dev, generator=g)
+        x = torch.randn((rows, d), device=dev, generator=g).to(dt)
+        s = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        gy = torch.randn((rows, d), device=dev, generator=g).to(dt)
         xg, sg = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
         before = ops.launch_counts()
         y = ops.rmsnorm(xg, sg)
         dx, ds = torch.autograd.grad(y, (xg, sg), gy)
         after = ops.launch_counts()
         dx_ref, ds_ref = ref.rmsnorm_bwd_ref(x, s, gy)
-        errs = {k: rel_err(torch, a, b) for k, (a, b) in {
-            "y": (y.detach(), ref.rmsnorm_ref(x, s)), "dx": (dx, dx_ref),
-            "dscale": (ds, ds_ref)}.items()}
-        limits = {"y": 1e-5, "dx": 1e-4, "dscale": 1e-4}
-        ok = (all(errs[k][1] < lim for k, lim in limits.items())
+        pairs = {"y": (y.detach(), ref.rmsnorm_ref(x, s)),
+                 "dx": (dx, dx_ref), "dscale": (ds, ds_ref)}
+        errs = {k: rel_err(torch, a, b) for k, (a, b) in pairs.items()}
+        steps = None
+        if dtype == "float32":
+            limits = {"y": 1e-5, "dx": 1e-4, "dscale": 1e-4}
+            ok = all(errs[k][1] < lim for k, lim in limits.items())
+        else:
+            limits = {"y": "1 bf16 step", "dscale": "1 bf16 step",
+                      "dx": f"1 bf16 step + {BF16_DX_FLOOR} of max |dx|"}
+            steps = {k: bf16_steps(torch, *pairs[k]) for k in ("y", "dscale")}
+            steps["dx_ratio"] = bf16_step_ratio(
+                torch, dx, dx_ref,
+                BF16_DX_FLOOR * float(dx_ref.float().abs().max()))
+            ok = (steps["y"] <= 1 and steps["dscale"] <= 1
+                  and steps["dx_ratio"] <= 1)
+        ok = (ok and y.dtype == dx.dtype == ds.dtype == dt
               and after["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 1
               and after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1)
-        emit("rmsnorm_check", rows=rows, d=d, dtype="float32",
+        emit("rmsnorm_check", rows=rows, d=d, dtype=dtype,
              path=path, max_abs_err={k: e[0] for k, e in errs.items()},
              max_rel_err={k: e[1] for k, e in errs.items()}, limits=limits,
-             ok=ok)
-        assert ok, (rows, d, errs)
-        out.add((rows, d, "float32"))
+             bf16_steps=steps, ok=ok)
+        assert ok, (rows, d, errs, steps)
+        out.add((rows, d, dtype))
     return out
 
 
@@ -4671,14 +4728,15 @@ def local_check(torch, cns, ranks, want, smi: str) -> dict:
 # yardstick
 TP_ARCH = "qwen3-1.7b"
 # run -> (mesh shape, layers, compression): TP 2 on plain gossip (kernels 2
-# and 1r); TP 2 on the int8 physical wire with error feedback (6, 7r) at a
-# cut depth (the residual and the wire's bucket rows of 28 layers' pieces
-# would pass a rank's SHARD_MEMORY_FRACTION of the card); TP 4 with M = 1,
-# the local period only
+# and 1r); TP 2 on the int8 physical wire with error feedback (6, 7r); TP 4
+# with M = 1, the local period only.  8 of 28 layers each (the wire's
+# residual and bucket rows of 28 layers' pieces would pass a rank's
+# SHARD_MEMORY_FRACTION of the card; the plain runs were cut from 28 to
+# make room in the script's time limit for ``shard_tp_moe``)
 TP_RUNS = {
-    "tp2": ((2, 1, 1, 2), 28, "none"),
+    "tp2": ((2, 1, 1, 2), 8, "none"),
     "tp2_wire": ((2, 1, 1, 2), 8, "int8"),
-    "tp4": ((1, 1, 1, 4), 28, "none"),
+    "tp4": ((1, 1, 1, 4), 8, "none"),
 }
 # kernel 2's shapes on the TP path (a client step of 2 x 128 tokens): ln1 /
 # ln2 (256, 2048), the final norm (254, 2048), q_norm / k_norm over a
@@ -4724,19 +4782,27 @@ def tp_predicted(cfg, shape, pieces, codec: str = "none") -> dict:
     if shape[0] == 1:
         return out
     if codec == "none":
-        calls = nbytes = 0
-        for x in pieces:
-            n = x[0].numel()
-            blk = min(TP_BLOCK, n)
-            nb = -(-n // blk)
-            calls += t_s * nb
-            nbytes += t_s * nb * blk * 4
-        out["plain"] = (calls, nbytes)
+        out["plain"] = plain_sites(pieces)
     else:
         row = tree_bucketed_wire_bytes_per_server(cp.make_compressor(codec),
                                                   pieces, TP_BLOCK)
         out["codes+scales"] = (2 * t_s, t_s * row)
     return out
+
+
+def plain_sites(pieces) -> tuple:
+    """(calls, bytes) a rank's plain consensus period sends on its server
+    row's ``pieces`` (meta, ``(1, ...)``): T_S gathers a leaf block of
+    ``min(TP_BLOCK, d)`` elements, the last zero-padded."""
+    t_s = LOCAL_TRAIN["t_server"]
+    calls = nbytes = 0
+    for x in pieces:
+        n = x[0].numel()
+        blk = min(TP_BLOCK, n)
+        nb = -(-n // blk)
+        calls += t_s * nb
+        nbytes += t_s * nb * blk * x.element_size()
+    return calls, nbytes
 
 
 def tp_sites(counts: dict) -> dict:
@@ -5041,6 +5107,575 @@ def tp_check(torch, cns, ranks, want, smi: str) -> dict:
     return total
 
 
+# tensor parallelism over "model" for the MoE and MLA families
+# (``shard_tp_moe``): full-width Mixtral-8x22B (d 6144, 48 / 8 heads of
+# 128, 8 experts of d_ff 16384, top 2, vocab 32,768 untied), one of its 56
+# layers, on (2, 1, 1, 2): its plan's structure (M 2, N 1, TP), 4 experts a
+# rank; and DeepSeek-V2 (d 5120, MLA over 128 heads, q latent 1536, kv
+# latent 512 + rope 64; 160 routed experts of d_ff 1536, top 6, 2 shared;
+# the dense prefix layer of d_ff 12288; vocab 102,400 untied), the prefix
+# and one MoE layer of 60, on (1, 1, 1, 4): 40 experts and 32 heads a
+# rank.  bf16 (the plans' dtype), T_C = 2, T_S = 5, batch 2 x 128 seq
+# (LOCAL_TRAIN), the Metropolis 2-ring; depth cut only for a rank's
+# memory.  run -> (arch, mesh shape, layers)
+TP_MOE_RUNS = {
+    "mixtral": ("mixtral-8x22b", (2, 1, 1, 2), 1),
+    "deepseek": ("deepseek-v2-236b", (1, 1, 1, 4), 2),
+}
+# kernel 2's bf16 shapes new to training on these paths: Mixtral's ln1 /
+# ln2 (256, 6144) and final norm (254, 6144); DeepSeek's (256, 5120),
+# (254, 5120), q_norm over the whole q latent (256, 1536) and kv_norm
+# (256, 512); held to the plain version on inputs of their own generator
+TP_MOE_NORM_SHAPES = [(256, 6144), (254, 6144), (256, 5120), (254, 5120),
+                      (256, 1536), (256, 512)]
+TP_MOE_NORM_SEED = 30
+#: the yardstick's bf16 steps (the parity policy's bf16 form: twice the
+#: regrouped one-process run's distance from the plain one, plus four
+#: bf16 steps of the leaf's largest value)
+TP_MOE_STEPS = 4
+# the einsums of ``models.modules`` / ``models.transformer`` a TP rank runs
+# on its piece of the weight, in the regrouped one-process run: equation
+# -> "row" (the weight cut along its first dim: each group's partial in
+# the output's dtype, added in rank order as the all-reduce adds them) or
+# "col" (cut along its second: the groups' outputs concatenated, so the
+# backward sums the groups' input gradients, as ``copy``'s all-reduce
+# does).  Not regrouped: the experts' own einsums (expert-parallel: a
+# rank's experts are whole), MLA's ``w_dq`` / ``w_dkv`` (one equation, one
+# cut and one whole), the MoE combine (top 2 of 2 ranks adds the same two
+# terms either way), the vocab-parallel cross-entropy (f32)
+TP_REGROUP = {
+    "bshk,hkd->bsd": "row",      # w_o (attention, MLA)
+    "bsf,fd->bsd": "row",        # down (dense MLP, shared experts)
+    "bsd,dhk->bshk": "col",      # w_q / w_k / w_v
+    "bsd,df->bsf": "col",        # gate / up
+    "bsr,rhk->bshk": "col",      # w_uq / w_ukv
+    "bsd,dv->bsv": "col",        # the untied head
+}
+
+
+def tp_moe_config(arch: str, layers: int):
+    """``arch`` at its published widths, ``layers`` deep."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), num_layers=layers)
+
+
+def tp_moe_params(torch, ttf, cfg) -> dict:
+    """The seeded full-width bf16 weights (the same in every process)."""
+    dev = torch.device("cuda")
+    return ttf.init_params(torch.Generator(device=dev).manual_seed(
+        LOCAL_TRAIN["seed"]), cfg, torch.bfloat16, device=dev)
+
+
+def tp_moe_row_d(torch) -> int:
+    """The elements of a Mixtral TP-2 rank's server row: its pieces."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import transformer as ttf
+    from repro_torch.tree import tree_leaves, tree_map
+    arch, shape, layers = TP_MOE_RUNS["mixtral"]
+    params = ttf.init_params(torch.Generator(), tp_moe_config(arch, layers),
+                             torch.bfloat16, device="meta")
+    server = tree_map(lambda x: torch.empty((shape[0],) + tuple(x.shape),
+                                            device="meta"), params)
+    mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
+    return sum(int(np.prod(shd.local_shape(tuple(x.shape), sp, mesh)[1:]))
+               for x, sp in zip(tree_leaves(server), tree_leaves(
+                   shd.fl_server_specs(server, mesh, tp_axis="model"))))
+
+
+def tp_moe_row_check(torch, g) -> dict:
+    """Row 1rb: kernel 1's bf16 row form on its path's operand, A's own row
+    (1, 2) f32 of the Metropolis 2-ring over the gathered (2, D) bf16
+    pieces of Mixtral's TP-2 row (D = ``tp_moe_row_d``; the path runs it
+    in column blocks of TP_BLOCK a round), held to one rounding of an f32
+    sum (``bf16_mix_excess``), timed against its plain version, its byte
+    bound and ``torch.matmul`` with A's row in bf16 (the reference's
+    ``_mix_leaf``)."""
+    from repro_torch.core import topology as tp
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    m, d = 2, tp_moe_row_d(torch)
+    a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)),
+                     dtype=torch.float32, device=dev)
+    a_r = a[1:2].contiguous()
+    w = torch.randn((m, d), device=dev, generator=g).bfloat16()
+    out = torch.empty((1, d), dtype=torch.bfloat16, device=dev)
+    before = ops.launch_counts()["consensus_mix_rows_bf16"]
+    got = ops.consensus_mix_rows(a_r, w, out=out)
+    launched = ops.launch_counts()["consensus_mix_rows_bf16"] - before
+    want = ref.consensus_mix_ref(a_r, w)
+    err = float((got.float() - want.float()).abs().max())
+    del want
+    excess = bf16_mix_excess(torch, a_r, w, got)
+    a16 = a_r.bfloat16()
+    t = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix_rows(a_r, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(a_r, w),
+        "library": lambda: torch.matmul(a16, w)}, reps=10)
+    n_bytes = m * d * 2 + d * 2 + m * 4
+    bnd, by = bound_ms(n_bytes, 2 * m * d)
+    row = dict(max_abs_err=err, excess_over_one_rounding=excess,
+               ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+               bound_ms=bnd, bound_by=by)
+    emit("shard_tp_moe_rows", kernel="consensus_mix_rows_bf16", m=m, d=d,
+         bytes=n_bytes, bound_share=bnd / t["kernel"],
+         library="torch.matmul(A's row in bf16, W)", **row)
+    assert launched == 1 and got.dtype == torch.bfloat16 and excess <= 0, \
+        (launched, excess)
+    del w, out, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_moe_predicted(cfg, shape, pieces) -> dict:
+    """``{site: (calls, bytes)}`` a rank sends in one epoch of a
+    ``shard_tp_moe`` run, per client step (bf16 activations, f32 gates and
+    logits): ``tp_forward`` the embedding's, each mixer's ``w_o``, a dense
+    MLP's ``down``, an MoE layer's routed sum and its shared experts';
+    ``tp_backward`` each mixer's, a dense MLP's, an MoE layer's experts'
+    and shared experts' inputs and the head's (127 positions);
+    ``tp_gates`` an MoE layer's (1, 256, k) gates; ``tp_vocab`` two (3
+    values a position); under MLA ``tp_latent_gather`` the rank's (2, 128,
+    q_rank / TP) piece, ``tp_latent_reduce`` the whole latent's gradient
+    and ``tp_replicated`` q_norm, kv_norm and w_dkv a layer; then the
+    consensus period on ``pieces`` (meta, bf16): T_S gathers a leaf block
+    (``plain``)."""
+    b, s = LOCAL_TRAIN["per_client_batch"], LOCAL_TRAIN["seq_len"]
+    steps, tp, es = LOCAL_TRAIN["t_client"], shape[3], 2
+    layers = cfg.num_layers
+    moe = sum(cfg.is_moe_layer(i) for i in range(layers))
+    dense = layers - moe
+    shared = moe if cfg.moe.num_shared_experts else 0
+    act = b * s * cfg.d_model * es
+    fwd = 1 + layers + dense + moe + shared
+    bwd = layers + dense + moe + shared
+    out = {"tp_forward": (steps * fwd, steps * fwd * act),
+           "tp_backward": (steps * (bwd + 1), steps * (
+               bwd * act + b * (s - 1) * cfg.d_model * es)),
+           "tp_gates": (steps * moe, steps * moe * b * s * cfg.moe.top_k * 4),
+           "tp_vocab": (steps * 2, steps * 3 * b * (s - 1) * 4)}
+    if cfg.mla is not None:
+        m_ = cfg.mla
+        q = b * s * m_.q_lora_rank * es
+        out["tp_latent_gather"] = (steps * layers, steps * layers * q // tp)
+        out["tp_latent_reduce"] = (steps * layers, steps * layers * q)
+        rep = (m_.q_lora_rank + m_.kv_lora_rank + cfg.d_model
+               * (m_.kv_lora_rank + m_.qk_rope_head_dim)) * es
+        out["tp_replicated"] = (steps * 3 * layers, steps * layers * rep)
+    if shape[0] > 1:
+        out["plain"] = plain_sites(pieces)
+    return out
+
+
+def first_grads(opt, sample, calls: int):
+    """``opt`` whose first ``calls`` updates hand their gradients (the
+    leaves, tree order) and the call's index to ``sample``."""
+    from repro_torch.optim import Optimizer
+    from repro_torch.tree import tree_leaves
+    seen = [0]
+
+    def update(grads, state, params):
+        if seen[0] < calls:
+            sample(seen[0], tree_leaves(grads))
+        seen[0] += 1
+        return opt.update(grads, state, params)
+
+    return Optimizer(opt.init, update)
+
+
+def tp_moe_rank(torch, cns, ops, ttf, rank: int) -> dict:
+    """The world's ``shard_tp_moe`` runs on this rank: per run, one epoch
+    through ``fl_consensus_backend(..., tp_axis="model")``,
+    ``init_dfl_state`` (the rank's TP pieces of the seeded bf16 weights)
+    and ``build_dfl_epoch_step``, with its seconds, peak, pieces' and one
+    whole row's bytes, collectives by site, launches and kernel-2 shapes;
+    samples of its first step's gradients and of its pre-consensus pieces
+    (M > 1) or its state (M = 1); fingerprints for the replicated leaves;
+    its routing; for M > 1 its mixed piece against the one-process gossip
+    of its server group's pieces (the A ⊗ I_S emulation, bitwise)."""
+    import torch.distributed as dist
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import modules as nn
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {}
+    for name, (arch, shape, layers) in TP_MOE_RUNS.items():
+        cns.release_staging()
+        cfg = tp_moe_config(arch, layers)
+        m = shape[0]
+        mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape))
+        topo = local_topology(1, m)
+        params = tp_moe_params(torch, ttf, cfg)
+        server_abs = tree_map(lambda x: torch.empty(
+            (m,) + tuple(x.shape), dtype=x.dtype, device="meta"), params)
+        row_gb = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(params)) / 1e9
+        backend = shd.fl_consensus_backend(topo, mesh, server_abs,
+                                           tp_axis="model")
+        dcfg = tdfl.DFLConfig(topology=topo, consensus_backend=backend)
+        grads: list = []
+        opt = first_grads(sgd(LOCAL_TRAIN["gamma"]), lambda i, g: grads.append(
+            [local_samples(torch, x) for x in g]), 1)
+        step = tdfl.build_dfl_epoch_step(dcfg, ttf.make_loss_fn(cfg), opt)
+        state = tdfl.init_dfl_state(dcfg, params, opt)
+        del params
+        torch.cuda.empty_cache()
+        rec: dict = {}
+        if m > 1:
+            local_spy(backend, "mix", rec)
+        batch = local_batch(torch, cfg, 1, m)
+        sspecs = tree_leaves(shd.fl_server_specs(server_abs, mesh,
+                                                 tp_axis="model"))
+        pieces = [torch.empty(shd.local_shape(tuple(x.shape), sp, mesh),
+                              dtype=x.dtype, device="meta")
+                  for x, sp in zip(tree_leaves(server_abs), sspecs)]
+        leaves = tree_leaves(state.client_params)
+        shapes_ok = all(
+            tuple(x.shape[2:]) == tuple(p.shape[1:])
+            for x, p in zip(leaves, pieces))
+        pieces_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+        del leaves
+        routing: list = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cns.reset_collective_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with launched_norms(torch) as norms, moe_routing(nn, routing):
+            state, mt = step(state, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = cns.collective_counts()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        leaves = tree_leaves(state.client_params)
+        got = {
+            "epoch_s": seconds, "peak_gb": peak, "pieces_gb": pieces_gb,
+            "row_gb": row_gb, "collectives": counts, "launches": launches,
+            "norm_shapes": sorted(norms), "sites": tp_sites(counts),
+            "predicted": tp_moe_predicted(cfg, shape, pieces),
+            "shapes_ok": shapes_ok,
+            "loss": mt.loss.tolist(), "grad_norm": float(mt.grad_norm),
+            "disagreement": float(mt.server_disagreement),
+            "drift": float(mt.client_drift), "coords": mesh.coords(),
+            "replicated": [i for i, sp in enumerate(sspecs)
+                           if shd.model_dim(sp) is None],
+            "state_fp": rows_fingerprint(torch, leaves),
+            "grad_samples": grads[0],
+            "routing": [x.cpu().tolist() for x in routing],
+            "host_free_g": free_g() if rank == 0 else None}
+        if m == 1:
+            got["samples"] = [local_samples(torch, x) for x in leaves]
+        else:
+            got["pre_fp"] = rows_fingerprint(torch, [x[:, None].cuda()
+                                                     for x in rec["pre"]])
+            got["samples"] = [local_samples(torch, x) for x in rec["pre"]]
+            # the emulation of this rank's piece: the one-process gossip of
+            # its server group's pieces, leaf by leaf
+            gossip = cns.GossipBackend(topo.mixing_matrix(), topo.t_server)
+            i = backend.view.idx
+            same = True
+            for x, leaf in zip(rec["pre"], leaves):
+                rows = cns.all_gather_rows(x.cuda(), backend.group,
+                                           site="check")
+                same = same and torch.equal(gossip.mix([rows])[0][i],
+                                            leaf[0, 0])
+                del rows
+            got["emulation_bitwise"] = same
+        out[name] = got
+        del state, leaves, mt, backend, step, rec, batch, grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+@contextlib.contextmanager
+def tp_regrouped(torch, modules, k: int):
+    """Within the block, ``modules`` (``models.modules`` and
+    ``models.transformer``) compute the TP_REGROUP einsums in ``k`` groups
+    of the weight's cut dim, as ``k`` TP ranks group them: a one-process
+    run whose row-parallel sums and column-parallel input gradients round
+    as the ranks' do."""
+    class Regrouped:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def einsum(eq, *ops):
+            kind = TP_REGROUP.get(eq)
+            if kind is None or len(ops) != 2:
+                return torch.einsum(eq, *ops)
+            a, w = ops
+            if kind == "row":
+                parts = [torch.einsum(eq, x, y) for x, y in
+                         zip(a.chunk(k, dim=2), w.chunk(k, dim=0))]
+                out = parts[0]
+                for p in parts[1:]:
+                    out = out + p
+                return out
+            return torch.cat([torch.einsum(eq, a, y)
+                              for y in w.chunk(k, dim=1)], dim=2)
+
+    saved = [mod.torch for mod in modules]
+    for mod in modules:
+        mod.torch = Regrouped()
+    try:
+        yield
+    finally:
+        for mod, t in zip(modules, saved):
+            mod.torch = t
+
+
+@contextlib.contextmanager
+def experts_one_off(nn):
+    """The control: every expert reads the slot table of the expert before
+    it (``moe_dispatch``'s slot rows rolled by one), as a rank reading its
+    expert range one expert off."""
+    orig = nn.moe_dispatch
+
+    def dispatch(gate_idx, num_experts, capacity):
+        pos, keep, slot = orig(gate_idx, num_experts, capacity)
+        return pos, keep, slot.roll(1, dims=1)
+
+    nn.moe_dispatch = dispatch
+    try:
+        yield
+    finally:
+        nn.moe_dispatch = orig
+
+
+def tp_moe_reference(torch, ttf, name: str, pinned: list, mode: str
+                     ) -> dict:
+    """The one-process port's epoch of run ``name`` at its depth on the
+    same weights and draws (light metrics; the consensus period recorded,
+    not run), its routing pinned to the TP run's (``pinned``, call order),
+    ``mode`` "plain", "regrouped" (``tp_regrouped`` at the run's TP) or
+    "control" (``experts_one_off``): per rank of the run's mesh, the
+    samples of its pieces of the first step's gradients and of the
+    pre-consensus rows (M > 1) or the state (M = 1); the router's own
+    routing; the epoch's seconds."""
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import modules as nn
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    arch, shape, layers = TP_MOE_RUNS[name]
+    cfg = tp_moe_config(arch, layers)
+    m = shape[0]
+    topo = local_topology(1, m)
+    params = tp_moe_params(torch, ttf, cfg)
+    mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
+    client_abs = tree_map(lambda x: torch.empty(
+        (m, 1) + tuple(x.shape), device="meta"), params)
+    specs = [shd.layer_spec(sp, 2) for sp in tree_leaves(
+        shd.fl_param_specs(client_abs, mesh, tp_axis="model"))]
+    ranks_of = {s_: [r for r in range(SHARD_M)
+                     if mesh.coords(r)["server"] == s_] for s_ in range(m)}
+
+    def per_rank(server: int, leaves) -> dict:
+        return {r: [local_samples(torch, shd.local_shard(x, sp, mesh, r))
+                    for x, sp in zip(leaves, specs)]
+                for r in ranks_of[server]}
+
+    out = {"grads": {}, "samples": {}, "own": []}
+    backend = cns.GossipBackend(topo.mixing_matrix() if m > 1
+                                else np.ones((1, 1)), 0)
+
+    def spy(tree, *a, **kw):
+        leaves = tree_leaves(tree)
+        for s_ in range(m):
+            out["samples"].update(per_rank(s_, [x[s_] for x in leaves]))
+        return tree
+
+    backend.mix = spy
+    dcfg = tdfl.DFLConfig(topology=topo, consensus_backend=backend,
+                          metrics="light")
+    opt = first_grads(sgd(LOCAL_TRAIN["gamma"]), lambda i, g: out[
+        "grads"].update(per_rank(i, g)), m)
+    step = tdfl.build_dfl_epoch_step(dcfg, ttf.make_loss_fn(cfg), opt)
+    state = tdfl.init_dfl_state(dcfg, params, opt)
+    del params
+    batch = local_batch(torch, cfg, 1, m)
+    from repro_torch.models import transformer as tf_mod
+    ctx = (tp_regrouped(torch, (nn, tf_mod), shape[3]) if mode == "regrouped"
+           else experts_one_off(nn) if mode == "control"
+           else contextlib.nullcontext())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx, moe_routing(nn, pinned=pinned, own=out["own"]):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    out["epoch_s"] = time.perf_counter() - t0
+    if m == 1:
+        out["samples"] = per_rank(0, [x[0, 0] for x in
+                                      tree_leaves(state.client_params)])
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_moe_distances(got: dict, want: dict) -> list:
+    """Per leaf, the largest |got - want| over the ranks' samples, and the
+    largest |want| (``got`` / ``want``: rank -> per-leaf samples)."""
+    out = []
+    for i in range(len(next(iter(want.values())))):
+        dist_, scale = 0.0, 0.0
+        for r, w_ in want.items():
+            w_ = np.asarray(w_[i], dtype=np.float64)
+            g_ = np.asarray(got[r][i], dtype=np.float64)
+            dist_ = max(dist_, float(np.abs(g_ - w_).max()))
+            scale = max(scale, float(np.abs(w_).max()))
+        out.append((dist_, scale))
+    return out
+
+
+def tp_moe_check(torch, cns, ranks, smi: str) -> dict:
+    """``shard_tp_moe``, one line a run, after the world: the one-process
+    references one arch at a time (``tp_moe_reference``: plain, regrouped
+    and, on Mixtral, the control, each pinned to the TP run's routing),
+    then per rank the epoch's seconds, the collectives by site (calls and
+    bytes against the prediction), the peak beside its pieces' bytes and
+    one whole row's, the routing flips against one process, kernels 2 and
+    1rb's launches; the checks: every piece of the run's shape, replicated
+    leaves bitwise across each TP group, Mixtral's consensus bitwise its
+    A ⊗ I_S emulation, the TP sites' bytes as predicted, no gather of a
+    whole leaf, kernel 2's launches and shapes, kernel 1rb's launches; the
+    first step's gradients and the pieces within the yardstick (twice the
+    regrouped run's distance from the plain one plus TP_MOE_STEPS bf16
+    steps of the leaf's largest value) and the control outside it.
+    Returns the launches of the kernels of the path, summed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import transformer as ttf
+    total: dict = {}
+    norm_shapes = tp_moe_norm_shapes()
+    for name, (arch, shape, layers) in TP_MOE_RUNS.items():
+        got = [r["shard_tp_moe"][name] for r in ranks]
+        cfg = tp_moe_config(arch, layers)
+        m = shape[0]
+        mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
+        # the one-process run's calls in order: step, server, MoE layer;
+        # a server's calls are its model-0 rank's
+        per_step = len(got[0]["routing"]) // LOCAL_TRAIN["t_client"]
+        pinned = []
+        for t in range(LOCAL_TRAIN["t_client"]):
+            for s_ in range(m):
+                r0 = next(r for r in range(SHARD_M)
+                          if mesh.coords(r) == {**mesh.coords(r),
+                                                "server": s_, "model": 0})
+                pinned.extend(torch.tensor(x).cuda() for x in
+                              got[r0]["routing"][t * per_step:
+                                                 (t + 1) * per_step])
+        refs = {mode: tp_moe_reference(torch, ttf, name, pinned, mode)
+                for mode in (("plain", "regrouped", "control")
+                             if name == "mixtral" else
+                             ("plain", "regrouped"))}
+        plain = refs["plain"]
+        # the TP run's routing (its calls in the one-process order) against
+        # the one-process router's own top k on the same trajectory
+        flips = routing_flips([x.cpu() for x in pinned],
+                              [x.cpu() for x in plain["own"]],
+                              LOCAL_TRAIN["per_client_batch"])
+        tp_g = {r: x["grad_samples"] for r, x in enumerate(got)}
+        tp_w = {r: x["samples"] for r, x in enumerate(got)}
+
+        def bounded(key, tp_side):
+            regroup = tp_moe_distances(refs["regrouped"][key], plain[key])
+            mine = tp_moe_distances(tp_side, plain[key])
+            bound = [2 * d_ + TP_MOE_STEPS * bf16_step(sc)
+                     for d_, sc in regroup]
+            ratio = max(d_ / b_ for (d_, _), b_ in zip(mine, bound))
+            ctl = None
+            if "control" in refs:
+                ctl = max(d_ / b_ for (d_, _), b_ in zip(
+                    tp_moe_distances(refs["control"][key], plain[key]),
+                    bound))
+            return ratio, ctl, max(d_ / max(sc, 1e-30)
+                                   for d_, sc in regroup)
+
+        g_ratio, g_ctl, g_regroup = bounded("grads", tp_g)
+        w_ratio, w_ctl, w_regroup = bounded("samples", tp_w)
+        fps = ["pre_fp", "state_fp"] if m > 1 else ["state_fp"]
+        replicated_bitwise = all(
+            got[r][fp][0][i] == got[mesh.ranks_along("model", r)[0]][fp][0][i]
+            for fp in fps for r in range(SHARD_M)
+            for i in got[r]["replicated"])
+        per_rank = []
+        for r, x in enumerate(got):
+            c = x["collectives"]
+            per_rank.append({
+                "rank": r, "coords": x["coords"], "epoch_s": x["epoch_s"],
+                "collective_s": c["seconds"], "staging_s": c["staging_s"],
+                "sites": c["sites"], "site_bytes": c["site_bytes"],
+                "op_seconds": c["op_seconds"], "peak_gb": x["peak_gb"],
+                "pieces_gb": x["pieces_gb"], "launches": x["launches"]})
+            for k, v in x["launches"].items():
+                total[k] = total.get(k, 0) + v
+        norm_launches = LOCAL_TRAIN["t_client"] * (
+            2 * layers + 1 + (2 * layers if cfg.mla is not None else 0))
+        fields = dict(
+            run=name, arch=arch, layers=layers,
+            published_layers=get_arch(arch).num_layers, dtype="bfloat16",
+            mesh=dict(zip(("server", "client", "replica", "model"), shape)),
+            t_client=LOCAL_TRAIN["t_client"],
+            t_server=LOCAL_TRAIN["t_server"], ranks=per_rank,
+            one_process_epoch_s={k: v["epoch_s"] for k, v in refs.items()},
+            whole_row_gb=got[0]["row_gb"],
+            sites_predicted={k: list(v) for k, v in got[0]["predicted"]
+                             .items()},
+            sites_match=all(x["sites"] == x["predicted"] for x in got),
+            shapes_ok=all(x["shapes_ok"] for x in got),
+            routing_flips=flips,
+            grads_over_yardstick=g_ratio, pieces_over_yardstick=w_ratio,
+            control_grads_over_yardstick=g_ctl,
+            control_pieces_over_yardstick=w_ctl,
+            regrouped_rel_grads=g_regroup, regrouped_rel_pieces=w_regroup,
+            yardstick=f"2 x the regrouped one-process run's distance from "
+                      f"the plain one + {TP_MOE_STEPS} bf16 steps of the "
+                      f"leaf's largest value",
+            replicated_bitwise=replicated_bitwise,
+            rmsnorm_launches_expected=norm_launches,
+            loss=got[0]["loss"], grad_norm=got[0]["grad_norm"],
+            disagreement=got[0]["disagreement"], drift=got[0]["drift"],
+            host_free_g=got[0]["host_free_g"], nvidia_smi=smi)
+        if m > 1:
+            fields["consensus_bitwise"] = all(x["emulation_bitwise"]
+                                              for x in got)
+        emit("shard_tp_moe", **fields)
+        del refs, plain
+        torch.cuda.empty_cache()
+        assert fields["shapes_ok"], name
+        assert replicated_bitwise, name
+        assert fields["sites_match"], (name, [x["sites"] for x in got])
+        assert fields.get("consensus_bitwise", m == 1), name
+        assert g_ratio <= 1 and w_ratio <= 1, (name, g_ratio, w_ratio)
+        assert g_ctl is None or g_ctl > 1, (name, g_ctl)
+        assert all(not {"fsdp_gather", "tp_kv_gather"}
+                   & set(x["collectives"]["sites"]) for x in got), name
+        assert all(set(map(tuple, x["norm_shapes"])) <= norm_shapes
+                   for x in got), name
+        assert all(x["launches"].get("rmsnorm_fwd") == norm_launches
+                   and x["launches"].get("rmsnorm_bwd") == norm_launches
+                   for x in got), name
+        if m > 1:
+            assert all(x["launches"].get("consensus_mix_rows_bf16")
+                       == x["predicted"]["plain"][0] for x in got), name
+    return total
+
+
+def tp_moe_norm_shapes() -> set:
+    """The kernel-2 shapes held on the card for these paths: the sweep's
+    and ``local_norm_check``'s at TP_MOE_NORM_SHAPES."""
+    return ({(r, d, "bfloat16") for r, d in TP_MOE_NORM_SHAPES}
+            | {(r, d, t) for r, d, t, _, _ in RMSNORM_SHAPES})
+
+
 def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
     """One rank of the world: server ``rank`` on ``cuda:0``.  Runs every
     phase through the trainers and puts its readings on ``q``; a failure
@@ -5067,6 +5702,12 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                                 world_size=SHARD_M, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         for name, trainer, kw in phases:
+            if trainer == "shard_tp_moe":
+                from repro_torch.models import transformer as ttf
+                t0 = time.perf_counter()
+                out[name] = tp_moe_rank(torch, cns, ops, ttf, rank)
+                out[name]["wall_s"] = time.perf_counter() - t0
+                continue
             if trainer == "shard_tp":
                 from repro_torch.models import transformer as ttf
                 t0 = time.perf_counter()
@@ -5074,11 +5715,10 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                 out[name]["wall_s"] = time.perf_counter() - t0
                 continue
             if trainer == "shard_local":
-                from repro_torch.configs import get_arch
                 from repro_torch.models import transformer as ttf
                 t0 = time.perf_counter()
                 out[name] = local_rank(torch, cns, ops, ttf,
-                                       get_arch("smollm-360m"), rank)
+                                       shard_config(), rank)
                 out[name]["wall_s"] = time.perf_counter() - t0
                 continue
             if trainer == "axes":
@@ -5096,8 +5736,9 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
             dist.barrier()
             t0 = time.perf_counter()
             fn = ttrain.train if trainer == "train" else ttrain.train_dynamic
-            run = fn("smollm-360m", **kw, consensus_backend="shard_map",
-                     log=False)
+            with cut_depth(ttrain, "smollm-360m", SHARD_LAYERS):
+                run = fn("smollm-360m", **kw, consensus_backend="shard_map",
+                         log=False)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             leaves = tree_leaves(run["state"].client_params)
@@ -5356,7 +5997,8 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     for name, trainer, kw in SHARD_PHASES:
         fn = ttrain.train if trainer == "train" else ttrain.train_dynamic
         t0 = time.perf_counter()
-        run = fn("smollm-360m", **kw, log=False)
+        with cut_depth(ttrain, "smollm-360m", SHARD_LAYERS):
+            run = fn("smollm-360m", **kw, log=False)
         torch.cuda.synchronize()
         want[name] = _run_fingerprints(torch, run, tree_leaves,
                                        sample=name == "plain")
@@ -5366,8 +6008,9 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                        for t in tree_leaves(run["state"].client_params))
         del run
         torch.cuda.empty_cache()
-    assert n_params == SMOLLM_PARAMS, n_params
-    emit("shard_map_reference", epoch_s={k: v["epoch_s"]
+    assert n_params == shard_params(), n_params
+    emit("shard_map_reference", layers=SHARD_LAYERS,
+         epoch_s={k: v["epoch_s"]
                                          for k, v in want.items()},
          wall_s={k: v["wall_s"] for k, v in want.items()})
 
@@ -5381,8 +6024,15 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     dry_axes = axes_dry_records(torch, ttf, cfg)
     # the one-process epochs the sharded local period and the TP runs are
     # held to
-    want_local = local_references(torch, ttf, cfg)
+    want_local = local_references(torch, ttf, shard_config())
     want_tp = tp_references(torch, ttf)
+    # kernel 2's bf16 training shapes and kernel 1's bf16 row form on the
+    # MoE / MLA TP paths (their references run after the world, one arch
+    # at a time)
+    local_norm_check(torch, TP_MOE_NORM_SHAPES, TP_MOE_NORM_SEED,
+                     "mixtral / deepseek-v2 client step under TP "
+                     "(shard_tp_moe)", "bfloat16")
+    moe_row = tp_moe_row_check(torch, g)
 
     # ---- the world: four ranks, one server each, on the one card (this
     # process keeps only its context and what main() still holds) ----
@@ -5395,7 +6045,9 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     ranks = shard_world(torch, SHARD_PHASES + [("axes", "axes", {}),
                                                ("shard_local", "shard_local",
                                                 {}),
-                                               ("shard_tp", "shard_tp", {})])
+                                               ("shard_tp", "shard_tp", {}),
+                                               ("shard_tp_moe",
+                                                "shard_tp_moe", {})])
     world_s = time.perf_counter() - t0
     server_abs = [torch.empty((SHARD_M,) + tuple(s), device="meta")
                   for s in ranks[0]["wire"]["leaf_shapes"]]
@@ -5485,6 +6137,11 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     del want_local
     tp_launches = tp_check(torch, cns, ranks, want_tp, smi)
     del want_tp
+    moe_launches = tp_moe_check(torch, cns, ranks, smi)
+    moe_row["launches"] = moe_launches.get("consensus_mix_rows_bf16", 0)
+    assert moe_row["launches"] > 0, moe_launches
+    tp_launches = {k: tp_launches.get(k, 0) + moe_launches.get(k, 0)
+                   for k in set(tp_launches) | set(moe_launches)}
     launches = {k: sum(r[name]["launches"].get(k, 0) for r in ranks
                        for name in ("wire", "wire_stale", "plain"))
                 + axes_launches.get(k, 0) + local_launches.get(k, 0)
@@ -5501,7 +6158,7 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     dry = start_dryrun()
     shard_cli(torch, ttrain)
     finish_dryrun(dry, dry_axes)
-    return rows, tp_launches
+    return rows, tp_launches, moe_row
 
 
 def axes_dry_records(torch, ttf, cfg) -> dict:
@@ -6036,7 +6693,7 @@ def main() -> int:
                       "rmsnorm_fwd": norms_per_pass * SERVE["gen"],
                       "rmsnorm_bwd": 0, SIM_KERNEL[0]: 0, "ssd_scan": 0,
                       **{k: 0 for k in WIRE_KERNELS},
-                      **{k: 0 for k in ROW_KERNELS}}
+                      **{k: 0 for k in ROW_COUNTERS}}
     generated = res["generated"]
     emit("serve", arch="qwen3-1.7b", batch=b, prompt_len=s_len,
          gen=SERVE["gen"], prefill_s=res["prefill_s"],
@@ -6175,7 +6832,7 @@ def main() -> int:
         "quantized_gossip_encode": WIRE_TRAIN["epochs"],
         "bucketed_gossip_round": WIRE_TRAIN["t_server"] * WIRE_TRAIN["epochs"],
         "bucketed_gossip_round_pipelined": 0, "quantized_gossip_round": 0,
-        SIM_KERNEL[0]: 0, "ssd_scan": 0, **{k: 0 for k in ROW_KERNELS}}
+        SIM_KERNEL[0]: 0, "ssd_scan": 0, **{k: 0 for k in ROW_COUNTERS}}
     emit("train_wire", arch="smollm-360m", params=n_params,
          compression=WIRE_TRAIN["compression"], wire=WIRE_TRAIN["wire"],
          error_feedback=WIRE_TRAIN["error_feedback"], loss=hist["loss"],
@@ -6213,7 +6870,7 @@ def main() -> int:
         "quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
         "bucketed_gossip_round_pipelined": stale_train["t_server"],
         "quantized_gossip_round": 0, SIM_KERNEL[0]: 0, "ssd_scan": 0,
-        **{k: 0 for k in ROW_KERNELS}}
+        **{k: 0 for k in ROW_COUNTERS}}
     hist = run["history"]
     emit("train_wire_stale", arch="smollm-360m", staleness=1,
          loss=hist["loss"], epoch_s=hist["epoch_s"],
@@ -6515,7 +7172,7 @@ def main() -> int:
                 "rmsnorm_bwd": per_epoch_norms * epochs,
                 SIM_KERNEL[0]: kernel4 * epochs, "ssd_scan": 0,
                 **{k: 0 for k in WIRE_KERNELS},
-                **{k: 0 for k in ROW_KERNELS}}
+                **{k: 0 for k in ROW_COUNTERS}}
 
     # the ledger by host arithmetic: 8 live links of the 4-ring, T_S
     # messages each, of the closed-form payload of every leaf
@@ -6748,11 +7405,12 @@ def main() -> int:
 
     # ---- 22g. the multi-process wire: the row forms of kernels 1, 7 and 8,
     # then a world of four gloo ranks on this card (one server each)
-    # training full SmolLM-360M on the physical wire at staleness 0 and 1,
+    # training SmolLM-360M (8 layers) on the physical wire at staleness 0
+    # and 1,
     # uncompressed, dynamic and push-sum, each held to the one-process run;
     # then the trainer under torch.distributed.run ----
-    row_rows, tp_launches = shard_map_phases(torch, ttrain, ops, ref, tp,
-                                             smi, g)
+    row_rows, tp_launches, moe_row = shard_map_phases(
+        torch, ttrain, ops, ref, tp, smi, g)
 
     # ---- 23. per-kernel summary, card, result ----
     r256 = rn_stats[(256, 960, "float32")]
@@ -6821,6 +7479,15 @@ def main() -> int:
              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    kernels.append(
+        {"name": "consensus_mix_rows_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/consensus_mix.cu",
+         "replaces": "src/repro/kernels/consensus_mix.py:71",
+         "launches": moe_row["launches"],
+         "max_abs_err": moe_row["max_abs_err"], "ms": moe_row["ms"],
+         "plain_ms": moe_row["plain_ms"], "bound_ms": moe_row["bound_ms"],
+         "bound_by": moe_row["bound_by"],
+         "library_ms": moe_row["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -204,9 +204,13 @@ class DFLConfig:
 
 def replicate_to_clients(params: Any, m: int, n: int) -> Any:
     """Initial broadcast: shared w_0 across all servers and clients (a
-    materialised copy per client, since the local period updates each)."""
+    materialised copy per client, since the local period updates each in
+    place).  Always a copy: at one client a contiguous leaf would
+    otherwise be returned as it is, so the local period would write into
+    the caller's params, and a rank's piece cut along a leaf's first dim
+    would keep the whole leaf's storage alive."""
     return tree_map(lambda p: p[None, None].expand((m, n) + tuple(p.shape))
-                    .contiguous(), params)
+                    .clone(memory_format=torch.contiguous_format), params)
 
 
 def _client_sum_over(x: torch.Tensor, count: torch.Tensor,
@@ -561,11 +565,15 @@ def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
     multi-process wire), else ``None``.  On a sharded row it makes the
     row's groups, in one order on every rank.  A client cut over "model"
     (``tp_axis="model"``) runs tensor parallel (``launch.tp``) when it is a
-    dense decoder (qwen3, gemma2, command_r); refused there, each by name:
-    the families whose TP is not ported (MoE, MLA, Mamba, the
-    encoder-decoder: ``launch.sharding.tp_refusal``; the vision frontend,
-    by the loss's ``with_tp``), a batch split over "model" as well, and a
-    dynamic, push-sum or robust config."""
+    dense decoder (qwen3, gemma2, command_r) or of the MoE and MLA families
+    (Mixtral, DeepSeek-V2: the experts cut by expert or by d_ff, MLA's
+    latent projections); its replicated leaves (the norms, the router,
+    ``w_dkv``) are counted once a TP group in the metrics (``counted``).
+    Refused there, each by name: the families whose TP is not ported
+    (Mamba, and so Jamba; the encoder-decoder:
+    ``launch.sharding.tp_refusal``; the vision frontend, by the loss's
+    ``with_tp``), a batch split over "model" as well, and a dynamic,
+    push-sum or robust config."""
     backend = cfg.consensus_backend
     if backend is None or not getattr(backend, "mesh_bound", False):
         return None
@@ -583,7 +591,8 @@ def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
         raise ValueError(
             f"{why}: this backend's leaf specs cut a client's weights over "
             f"the 'model' axis (tp_axis='model'), which the rank-local step "
-            f"runs for the dense decoders (qwen3, gemma2, command_r) only.  "
+            f"runs for the dense decoders (qwen3, gemma2, command_r) and "
+            f"the MoE and MLA families (mixtral, deepseek_v2) only.  "
             f"Build the backend with tp_axis=None (and batch_over_model="
             f"True, as the plans of smollm_360m and internvl2_1b), or on a "
             f"model axis of 1")

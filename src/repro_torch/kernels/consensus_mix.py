@@ -21,7 +21,8 @@
   multi-process wire owns ``M_out`` of the ``M`` gathered rows, so it
   passes A's own rows ``(M_out, M)``, the gathered operand read-only and
   separate output buffers; row r of a row form is bitwise row r of the
-  square call.  Their launches count in ``row_launches``; kernel 8's
+  square call.  Their launches count in ``row_launches`` (kernel 1's
+  bf16 instance under ``consensus_mix_rows_bf16``); kernel 8's
   (both forms) also by the instance its C entry point took
   (``pipelined_instances``).
 
@@ -49,7 +50,8 @@ wire_launches = {"quantized_gossip_encode": 0, "bucketed_gossip_round": 0,
                  "bucketed_gossip_round_pipelined": 0,
                  "quantized_gossip_round": 0}
 #: launches of the row forms of kernels 1, 7 and 8, by ``ops`` entry point
-row_launches = {"consensus_mix_rows": 0, "bucketed_gossip_round_rows": 0,
+row_launches = {"consensus_mix_rows": 0, "consensus_mix_rows_bf16": 0,
+                "bucketed_gossip_round_rows": 0,
                 "bucketed_gossip_round_pipelined_rows": 0}
 #: kernel 8's launches (square and row form) by the instance the C entry
 #: point chose: ``vec<4|1>.own<1|4>`` (the resident body: columns a thread,
@@ -119,7 +121,8 @@ def consensus_mix_rows_cuda(a: torch.Tensor, w: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"consensus_mix_rows kernel launch failed: CUDA "
                            f"error {err}")
-    row_launches["consensus_mix_rows"] += 1
+    row_launches["consensus_mix_rows" if w.dtype == torch.float32
+                 else "consensus_mix_rows_bf16"] += 1
     return out
 
 

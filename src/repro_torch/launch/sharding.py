@@ -182,15 +182,24 @@ def _tree_specs(tree: Any, lead: Tuple[Optional[str], ...], mesh,
 #: ``repro/launch/sharding.py:107-111``)
 KV_HD_FALLBACK = ("w_k", "w_v")
 
-#: the dense leaves ``launch.tp`` multiplies as pieces: each must be cut
-#: over "model" for the rank-local step to run a client's layers TP
-_TP_CUT = ("embed", "head", "w_q", "w_o", "gate", "up", "down")
+#: the MoE expert tables whose TP dim falls back from the experts (-3) to
+#: each expert's d_ff (-1 for ``w_gate`` / ``w_up``, -2 for ``w_down``)
+#: when the experts do not divide the model axis: Mixtral's 8 experts at
+#: the plan's TP of 16.  ``models.modules.moe_apply`` then runs every
+#: expert on the rank's d_ff columns (feature-parallel) instead of the
+#: rank's experts on all of theirs (expert-parallel); both give a partial
+#: sum that ``launch.tp`` reduces
+MOE_DFF_FALLBACK = ("w_gate", "w_up", "w_down")
+
+#: the leaves ``launch.tp`` multiplies as pieces: each must be cut over
+#: "model" for the rank-local step to run a client's layers TP (the dense
+#: decoders', the MoE expert tables, MLA's q latent and per-head
+#: projections)
+_TP_CUT = ("embed", "head", "w_q", "w_o", "gate", "up", "down",
+           "w_gate", "w_up", "w_down", "w_dq", "w_uq", "w_ukv")
 
 #: leaf names of the families whose TP is not ported, each named
 _TP_REFUSED = (
-    (("w_gate", "w_up", "w_down", "router"),
-     "MoE (the experts' expert-parallel w_gate / w_up / w_down)"),
-    (("w_dq", "w_uq", "w_dkv", "w_ukv"), "MLA (the latent projections)"),
     (("in_proj", "out_proj", "conv_w"),
      "Mamba (in_proj's concatenated z/x/B/C/dt output cut over 'model')"),
     (("encoder", "cross_attn"), "the encoder-decoder"),
@@ -207,8 +216,10 @@ def tp_dims(tree: Any, tp: int) -> Any:
     """Per leaf of a client's tree (its own dims), the dim ``_spec_for_leaf``
     cuts over "model" at TP degree ``tp``, counted from the right (a stack's
     period axis stays in front), or ``None`` for a leaf held whole: the norm
-    scales, ``b_o``, and a dim ``tp`` does not divide.  ``w_k`` / ``w_v``
-    take -1, the head dim, under ``KV_HD_FALLBACK``."""
+    scales, ``b_o``, the router, ``w_dkv``, and a dim ``tp`` does not
+    divide.  ``w_k`` / ``w_v`` take -1, the head dim, under
+    ``KV_HD_FALLBACK``; the expert tables -3 (their experts) or, under
+    ``MOE_DFF_FALLBACK``, their d_ff (-1, and -2 for ``w_down``)."""
     def leaf(path, x):
         if not hasattr(x, "ndim") or x.ndim == 0:
             return None
@@ -247,7 +258,7 @@ def tp_refusal(spec_tree: Any) -> Optional[str]:
     if whole:
         return (f"tensor parallelism over 'model' multiplies pieces of "
                 f"{sorted(set(whole))}, which this axis leaves whole (a "
-                f"head count, d_ff or vocab it does not divide)")
+                f"head count, d_ff, q latent or vocab it does not divide)")
     return None
 
 

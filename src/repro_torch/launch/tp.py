@@ -26,13 +26,32 @@ TP 4) the rules cut ``w_k`` / ``w_v`` along the head dim instead
 once a layer, and the rank takes the kv heads its q heads read: the one
 whole gather of the slice.
 
-Each collective is one ``consensus.all_reduce_`` (or, for the fallback's
-gather, ``all_gather_rows``) under a site of its own, so
+The MoE and MLA families (Mixtral, DeepSeek-V2) cut the same way:
+
+* the experts expert-parallel (``w_gate`` / ``w_up`` / ``w_down``: a rank
+  holds experts ``[e_lo, e_hi)`` and combines only the (token, slot)
+  pairs routed to them) or, where the experts do not divide the axis
+  (Mixtral's 8 on the plan's 16), feature-parallel over each expert's
+  d_ff (``launch.sharding.MOE_DFF_FALLBACK``); either way a partial sum,
+  reduced.  The router stays replicated and routes every token on every
+  rank from the block's input as it is; its gates pass through ``copy``
+  (site ``tp_gates``) before the combine, so their gradient, partial on a
+  rank, is summed while the aux loss's stays whole (``replicated`` on the
+  router would sum that one ``size`` times);
+* MLA's ``w_dq`` column-parallel over the q latent, the latent gathered
+  whole (``gather_latent``) for ``q_norm``, ``w_uq`` / ``w_ukv`` over
+  heads, ``w_o`` row-parallel; ``w_dkv`` and both norms read whole, their
+  partial gradients through ``replicated``.
+
+Each collective is one ``consensus.all_reduce_`` (or, for a gather,
+``all_gather_rows``) under a site of its own, so
 ``consensus.collective_counts()`` reports them: ``tp_forward`` (g, and the
-embedding's), ``tp_backward`` (f), ``tp_vocab`` (the cross-entropy's max,
-then its sum of exponentials with the target logit), ``tp_replicated``
-(a replicated leaf's partial gradient), ``tp_kv_gather`` /
-``tp_kv_reduce`` (the fallback's gather and its gradient's sum).
+embedding's), ``tp_backward`` (f), ``tp_gates`` (f on the MoE gates),
+``tp_vocab`` (the cross-entropy's max, then its sum of exponentials with
+the target logit), ``tp_replicated`` (a replicated leaf's partial
+gradient), ``tp_kv_gather`` / ``tp_kv_reduce`` (the fallback's gather and
+its gradient's sum), ``tp_latent_gather`` / ``tp_latent_reduce`` (MLA's q
+latent, the same two).
 
 The model code takes a ``ModelParallel`` through
 ``models.transformer.ApplyOptions.tp`` and calls only its methods.
@@ -65,9 +84,10 @@ class ModelParallel:
 
     # -- the four autograd functions ----------------------------------------
 
-    def copy(self, x: torch.Tensor) -> torch.Tensor:
+    def copy(self, x: torch.Tensor, site: str = "tp_backward"
+             ) -> torch.Tensor:
         """f: ``x`` as it is; its gradient summed over "model"."""
-        return _Copy.apply(x, self.group, "tp_backward")
+        return _Copy.apply(x, self.group, site)
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         """g: the sum over "model" of the ranks' partial ``x``."""
@@ -83,7 +103,15 @@ class ModelParallel:
         ``dim``, in one all-gather (site ``tp_kv_gather``); their
         gradients (this rank's part of a sum) summed over "model" in one
         all-reduce (site ``tp_kv_reduce``) and cut back to the pieces."""
-        return list(_Gather.apply(dim, self, *pieces))
+        return list(_Gather.apply(dim, self, _KV_SITES, *pieces))
+
+    def gather_latent(self, piece: torch.Tensor) -> torch.Tensor:
+        """MLA's q latent whole from the ranks' column pieces ``piece``
+        (``(..., q_rank / size)``, ``x @ w_dq``'s piece), as ``gather``
+        does for weights (sites ``tp_latent_gather`` / ``tp_latent_reduce``):
+        its whole gradient, partial on a rank that reads it for its own
+        heads only, summed and cut back to the piece."""
+        return _Gather.apply(-1, self, _LATENT_SITES, piece)[0]
 
     # -- the vocab-parallel embedding and cross-entropy ----------------------
 
@@ -139,26 +167,31 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+#: (gather, reduce) sites of ``_Gather``: the kv fallback's, MLA's latent's
+_KV_SITES = ("tp_kv_gather", "tp_kv_reduce")
+_LATENT_SITES = ("tp_latent_gather", "tp_latent_reduce")
+
+
 class _Gather(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, dim: int, mp: ModelParallel, *pieces):
-        ctx.mp = mp
+    def forward(ctx, dim: int, mp: ModelParallel, sites, *pieces):
+        ctx.mp, ctx.sites = mp, sites
         ctx.dims = [dim % p.dim() for p in pieces]
         ctx.ns = [p.shape[d] for p, d in zip(pieces, ctx.dims)]
         return tuple(cns.gather_pieces(list(pieces), ctx.dims, mp.group,
-                                       site="tp_kv_gather"))
+                                       site=sites[0]))
 
     @staticmethod
     def backward(ctx, *grads):
         flat = torch.cat([g.reshape(-1) for g in grads])
-        cns.all_reduce_(flat, ctx.mp.group, site="tp_kv_reduce")
+        cns.all_reduce_(flat, ctx.mp.group, site=ctx.sites[1])
         out, off = [], 0
         for g, d, n in zip(grads, ctx.dims, ctx.ns):
             whole = flat[off:off + g.numel()].view(g.shape)
             off += g.numel()
             out.append(whole.narrow(d, ctx.mp.pos * n, n).contiguous())
-        return (None, None) + tuple(out)
+        return (None, None, None) + tuple(out)
 
 
 class _VocabCE(torch.autograd.Function):

@@ -23,7 +23,10 @@ the reference, so it always takes the reference route (its q/k head dim,
 ``c_kv`` and the shared ``k_rope``, written at ``position`` (clamped to the
 last slot, as ``dynamic_update_slice`` does, not a ring).  The MoE routes in
 f32, dispatches by a gather of token indices and combines slot by slot in
-``x.dtype``; the expert matmuls are batched einsums.
+``x.dtype``; the expert matmuls are batched einsums.  Both take a
+``launch.tp.ModelParallel`` (``tp``) as the attention and the MLP do: a
+rank then runs its heads, its q latent columns and its experts (or their
+d_ff columns), and the partial sums are reduced over "model".
 """
 from __future__ import annotations
 
@@ -556,13 +559,15 @@ def mla_init(gen, cfg: ArchConfig, dtype=torch.float32, device="cpu") -> Dict:
     }
 
 
-def _mla_qkv(params, x, cfg: ArchConfig, positions):
+def _mla_qkv(params, x, cfg: ArchConfig, positions, tp=None):
     """Returns q (b, s, h, qh), the latent c_kv (b, s, r) and the shared
-    k_rope (b, s, rope)."""
+    k_rope (b, s, rope).  Under ``tp`` (``_tp_mla_params``) q is the
+    rank's heads: its piece of the q latent is gathered whole first."""
     m = cfg.mla
-    cq = rmsnorm_apply(params["q_norm"],
-                       torch.einsum("bsd,dr->bsr", x, params["w_dq"]),
-                       cfg.norm_eps)
+    cq = torch.einsum("bsd,dr->bsr", x, params["w_dq"])
+    if tp is not None:
+        cq = tp.gather_latent(cq)
+    cq = rmsnorm_apply(params["q_norm"], cq, cfg.norm_eps)
     q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"])
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
                                  dim=-1)
@@ -600,22 +605,47 @@ def _mla_attend(params, q, c_kv, k_rope, mask, cfg: ArchConfig,
     return torch.einsum("bshk,hkd->bsd", out.to(q.dtype), params["w_o"])
 
 
+def _tp_mla_params(params: Dict, cfg: ArchConfig, tp) -> Dict:
+    """This rank's MLA weights under ``tp`` (a ``launch.tp.ModelParallel``):
+    ``w_dq`` its columns of the q latent, ``w_uq`` / ``w_ukv`` / ``w_o``
+    its heads ``[p h / tp, (p + 1) h / tp)`` as the pieces hold them;
+    ``w_dkv``, ``q_norm`` and ``kv_norm`` read whole but feeding only its
+    heads, so through ``tp.replicated`` (their gradients summed)."""
+    hl = params["w_uq"].shape[-2]
+    if hl * tp.size != cfg.num_heads or \
+            params["w_ukv"].shape[-2] != hl or params["w_o"].shape[0] != hl:
+        raise ValueError(f"MLA pieces of {hl} heads do not cut "
+                         f"{cfg.num_heads} heads over {tp.size} model ranks")
+    p = dict(params)
+    for name in ("q_norm", "kv_norm"):
+        p[name] = {"scale": tp.replicated(params[name]["scale"])}
+    p["w_dkv"] = tp.replicated(params["w_dkv"])
+    return p
+
+
 def mla_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return mla_apply_latent(params, x, cfg, positions)[0]
+              positions: Optional[torch.Tensor] = None,
+              tp=None) -> torch.Tensor:
+    return mla_apply_latent(params, x, cfg, positions, tp)[0]
 
 
 def mla_apply_latent(params: Dict, x: torch.Tensor, cfg: ArchConfig,
-                     positions: Optional[torch.Tensor] = None
+                     positions: Optional[torch.Tensor] = None, tp=None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``mla_apply`` that also returns the latent c_kv and k_rope, which a
-    prefill writes into the cache."""
+    prefill writes into the cache.  Under ``tp`` (a
+    ``launch.tp.ModelParallel``) the rank runs its heads after
+    ``tp.copy`` (``_tp_mla_params``) and reduces ``w_o``'s partial sums;
+    c_kv and k_rope are then the same on every rank."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
-    return (_mla_attend(params, q, c_kv, k_rope, None, cfg, causal=True),
-            c_kv, k_rope)
+    if tp is not None:
+        params = _tp_mla_params(params, cfg, tp)
+        x = tp.copy(x)
+    q, c_kv, k_rope = _mla_qkv(params, x, cfg, positions, tp)
+    y = _mla_attend(params, q, c_kv, k_rope, None, cfg, causal=True)
+    return y if tp is None else tp.reduce(y), c_kv, k_rope
 
 
 def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,
@@ -742,15 +772,43 @@ def moe_dispatch(gate_idx: torch.Tensor, num_experts: int, capacity: int
     return pos, keep, slot_token[:, :, :capacity]
 
 
+def _tp_experts(params: Dict, cfg: ArchConfig, tp) -> int:
+    """The first expert of this rank's expert-parallel piece under ``tp``
+    (its ``w_gate`` holds experts ``[lo, lo + e / tp)``), or -1 for the
+    feature-parallel fallback (``launch.sharding.MOE_DFF_FALLBACK``: every
+    expert, the rank's d_ff columns)."""
+    e, ff = cfg.moe.num_experts, cfg.moe.d_ff_expert
+    el, fl = params["w_gate"].shape[0], params["w_gate"].shape[-1]
+    if el * tp.size == e and fl == ff:
+        return tp.pos * el
+    if el == e and fl * tp.size == ff:
+        return -1
+    raise ValueError(f"expert pieces {tuple(params['w_gate'].shape)} cut "
+                     f"neither {e} experts nor their d_ff {ff} over "
+                     f"{tp.size} model ranks")
+
+
 def moe_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
               capacity_factor: float = 1.25, no_drop: bool = False,
-              groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+              groups: int = 1, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k capacity-based dispatch with group-limited routing: the b*s
     tokens split into ``groups`` groups (only when they divide evenly and
     not under ``no_drop``), each with capacity ``int(capacity_factor * tg
     * k / e)`` (at least 1), or every token under ``no_drop``.  Returns
     (output in x's dtype, the Switch load-balance aux loss
-    ``e * sum(me * ce) * router_aux_weight``)."""
+    ``e * sum(me * ce) * router_aux_weight``).
+
+    Under ``tp`` (a ``launch.tp.ModelParallel``) every rank routes every
+    token from ``x`` as it is (the router replicated, the routing and the
+    aux loss the same everywhere); the experts read ``tp.copy(x)``.  A rank
+    of expert-parallel pieces keeps its experts' part of the slot table
+    and combines the (token, slot) pairs routed to them (the others left
+    out, as a dropped pair is); under the d_ff fallback it runs every
+    expert on its columns (``_tp_experts``).  The gates pass through
+    ``tp.copy`` (site ``tp_gates``): their gradient is partial on a rank,
+    the aux loss's whole, so the router's sums to one process's.  The
+    routed partial sum is reduced, then the shared experts (column / row
+    parallel, ``mlp_apply``) added, in the reference's order."""
     moe = cfg.moe
     b, s, d = x.shape
     e, k = moe.num_experts, moe.top_k
@@ -770,31 +828,48 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     capacity = tg if no_drop else max(1, int(capacity_factor * tg * k / e))
     pos, keep, slot_token = moe_dispatch(gate_idx, e, capacity)
     gate_vals = gate_vals * keep
+    # this rank's experts [lo, lo + el) (all of them without tp or under
+    # the d_ff fallback)
+    lo, el, expert_tokens = 0, e, tokens
+    if tp is not None:
+        gate_vals = tp.copy(gate_vals, site="tp_gates")
+        expert_tokens = tp.copy(tokens)
+        first = _tp_experts(params, cfg, tp)
+        if first >= 0:
+            lo, el = first, params["w_gate"].shape[0]
+            slot_token = slot_token[:, lo:lo + el]
 
     # the gather of token vectors by the slot table; token id tg reads the
     # zero row appended as its sentinel
-    tokens_pad = torch.cat([tokens, tokens.new_zeros((g, 1, d))], dim=1)
+    tokens_pad = torch.cat([expert_tokens,
+                            tokens.new_zeros((g, 1, d))], dim=1)
     grange = torch.arange(g, device=x.device)[:, None]
-    expert_in = tokens_pad[grange, slot_token.reshape(g, e * capacity)
-                           ].reshape(g, e, capacity, d)
+    expert_in = tokens_pad[grange, slot_token.reshape(g, el * capacity)
+                           ].reshape(g, el, capacity, d)
     del tokens_pad
     h = _act(torch.einsum("gecd,edf->gecf", expert_in, params["w_gate"]),
              cfg.act)
     h = h * torch.einsum("gecd,edf->gecf", expert_in, params["w_up"])
     del expert_in
     flat_out = torch.einsum("gecf,efd->gecd", h, params["w_down"]
-                            ).reshape(g, e * capacity, d)
+                            ).reshape(g, el * capacity, d)
     del h
     # combine slot by slot in x's dtype; a dropped (token, slot) adds
-    # nothing (the reference reads its zero sentinel slot ``capacity``)
+    # nothing (the reference reads its zero sentinel slot ``capacity``),
+    # nor does one routed to another rank's expert
     y = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
     for slot in range(k):
-        kept = keep[:, :, slot, None]
-        idx = gate_idx[:, :, slot] * capacity + torch.where(
-            keep[:, :, slot], pos[:, :, slot], 0)
+        ex = gate_idx[:, :, slot] - lo
+        mine = keep[:, :, slot]
+        if el != e:
+            mine = mine & (ex >= 0) & (ex < el)
+            ex = torch.where(mine, ex, 0)
+        idx = ex * capacity + torch.where(mine, pos[:, :, slot], 0)
         picked = flat_out[grange, idx]
-        y = y + torch.where(kept, picked * gate_vals[:, :, slot, None]
-                            .to(x.dtype), 0)
+        y = y + torch.where(mine[..., None], picked * gate_vals[
+            :, :, slot, None].to(x.dtype), 0)
+    if tp is not None:
+        y = tp.reduce(y)
     if "shared" in params:
-        y = y + mlp_apply(params["shared"], tokens, cfg.act)
+        y = y + mlp_apply(params["shared"], tokens, cfg.act, tp)
     return y.reshape(b, s, d), aux

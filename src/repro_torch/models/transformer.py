@@ -189,7 +189,7 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         mix = mamba_mod.mamba_apply(params["mixer"], h, cfg,
                                     impl=_ssd_impl(opts))
     elif cfg.mla is not None:
-        mix = nn.mla_apply(params["mixer"], h, cfg)
+        mix = nn.mla_apply(params["mixer"], h, cfg, tp=opts.tp)
     else:
         mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
                                  causal=causal, attn_impl=opts.attn_impl,
@@ -231,7 +231,7 @@ def _block_rest(params: Dict, x: torch.Tensor, mix: torch.Tensor,
     if "ffn" in params:
         h = nn.rmsnorm_apply(params["ln2"], x, cfg.norm_eps)
         if moe_kw is not None:
-            ff, aux = nn.moe_apply(params["ffn"], h, cfg, **moe_kw)
+            ff, aux = nn.moe_apply(params["ffn"], h, cfg, **moe_kw, tp=tp)
         else:
             ff = nn.mlp_apply(params["ffn"], h, cfg.act, tp)
         if "post_ln2" in params:
@@ -531,13 +531,12 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
 
 def tp_refusal(cfg: ArchConfig) -> Optional[str]:
     """Why a client of ``cfg`` cannot run tensor parallel over "model"
-    (``launch.tp``), by name, or ``None`` for the dense decoders."""
+    (``launch.tp``), by name, or ``None`` for the dense decoders and the
+    MoE and MLA families (Mixtral, DeepSeek-V2); Jamba, MoE and Mamba, is
+    refused for its Mamba layers."""
     plan = stack_plan(cfg)
     kinds = {k for k, _ in _period_flags(cfg, plan)}
-    for bad, family in ((cfg.moe is not None, "MoE (the experts' "
-                         "expert-parallel w_gate / w_up / w_down)"),
-                        (cfg.mla is not None, "MLA (the latent projections)"),
-                        ("mamba" in kinds, "Mamba (in_proj's concatenated "
+    for bad, family in (("mamba" in kinds, "Mamba (in_proj's concatenated "
                          "z/x/B/C/dt output cut over 'model')"),
                         (cfg.encdec is not None, "the encoder-decoder"),
                         (cfg.frontend is not None, "the vision frontend")):

@@ -172,6 +172,7 @@ def test_ops_on_cpu_use_plain_versions_and_launch_nothing():
                                    "bucketed_gossip_round_pipelined": 0,
                                    "quantized_gossip_round": 0,
                                    "consensus_mix_rows": 0,
+                                   "consensus_mix_rows_bf16": 0,
                                    "bucketed_gossip_round_rows": 0,
                                    "bucketed_gossip_round_pipelined_rows": 0}
     assert ops.flash_attention_mode_counts() == {}

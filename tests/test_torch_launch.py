@@ -398,9 +398,11 @@ def test_local_step_collective_record(arch_id):
 
 
 #: the archs whose train pair runs its TP over "model" on the rank
-#: (launch.tp); the plans of smollm_360m and internvl2_1b split the batch
-#: over "model" instead
-TP_DENSE = ("qwen3_1_7b", "gemma2_27b", "command_r_35b")
+#: (launch.tp): the dense decoders, Mixtral's MoE and DeepSeek-V2's MoE and
+#: MLA; the plans of smollm_360m and internvl2_1b split the batch over
+#: "model" instead
+TP_PORTED = ("qwen3_1_7b", "gemma2_27b", "command_r_35b", "mixtral_8x22b",
+             "deepseek_v2_236b")
 
 
 def test_tp_local_step_collective_record():
@@ -439,12 +441,13 @@ def _committed(arch: str, tag: str) -> dict:
 @pytest.mark.parametrize("arch_id", sorted(tplans.PLANS))
 def test_committed_train_records_are_labelled(arch_id):
     """Each committed train record's peak and FLOPs: ``measured_meta``
-    where the rank runs its whole piece (the dense TP plans, and the
+    where the rank runs its whole piece (the ported TP plans, and the
     plans that split the batch over "model"), ``analytic_split`` where a
-    family's TP over "model" is still run whole and divided."""
+    family's TP over "model" is still run whole and divided (Mamba's: mamba2
+    and Jamba; the encoder-decoder's)."""
     for tag in ("sp", "mp"):
         rec = _committed(arch_id, tag)
-        measured = (arch_id in TP_DENSE
+        measured = (arch_id in TP_PORTED
                     or tplans.PLANS[arch_id].batch_over_model)
         label = "measured_meta" if measured else "analytic_split"
         assert rec["memory"]["peak_per_device"]["label"] == label

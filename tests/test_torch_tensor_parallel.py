@@ -41,7 +41,8 @@ one-process backend on the (M * S)-row problem under A ⊗ I_S, and the
 collectives by site: 2L + 1 forward (``tp_forward``) and 2L + 1 backward
 (``tp_backward``) all-reduces a client step, their bytes to the byte.
 Outside the world: the vocab-parallel cross-entropy emulated over k
-slices in one process, the role on a dry mesh and the refusals by name.
+slices in one process, the role on a dry mesh and the refusals by name
+(the MoE and MLA families now build: tests/test_torch_tensor_parallel_moe.py).
 """
 import functools
 import os
@@ -640,17 +641,35 @@ def test_role_on_a_dry_mesh():
     assert shd.tp_dims(params, 4)["embed"] == -2
 
 
+#: the families the rank-local step runs under TP beside the dense
+#: decoders (tests/test_torch_tensor_parallel_moe.py trains them)
+TP_PORTED = ("MoE",)
+
+
 @pytest.mark.parametrize("arch,family", [
     ("mixtral-8x22b", "MoE"), ("deepseek-v2-236b", "MoE"),
     ("mamba2-780m", "Mamba"), ("seamless-m4t-large-v2", "encoder-decoder"),
-    ("internvl2-1b", "vision frontend")])
+    ("internvl2-1b", "vision frontend"),
+    ("jamba-1.5-large-398b", "Mamba")])
 def test_families_left_under_tp_are_refused_by_name(arch, family):
+    """The families whose TP is not ported are refused by name (Jamba, MoE
+    and Mamba, for its Mamba layers); Mixtral's and DeepSeek-V2's step
+    builds on the same (1, 1, 2, 2) mesh."""
     topo, backend = _backend(arch, (1, 1, 2, 2))
-    with pytest.raises(ValueError, match="tensor parallelism over 'model' "
-                       "of .*" + family):
-        tdfl.build_dfl_epoch_step(
+
+    def build():
+        return tdfl.build_dfl_epoch_step(
             tdfl.DFLConfig(topology=topo, consensus_backend=backend),
             ttf.make_loss_fn(get_smoke(arch)), sgd(GAMMA))
+
+    if family in TP_PORTED:
+        assert callable(build())
+        assert tdfl.rank_role(tdfl.DFLConfig(
+            topology=topo, consensus_backend=backend)).tp.size == 2
+        return
+    with pytest.raises(ValueError, match="tensor parallelism over 'model' "
+                       "of .*" + family):
+        build()
 
 
 def test_tp_refuses_a_batch_over_model_and_a_dynamic_config():
