@@ -118,7 +118,8 @@ before it and read just after:
   period against CUDA events around the step's own consensus call; the
   physical wire's probe over one epoch (kernels 6 and 7, the state's wire
   key and error-feedback residual untouched); ``superepoch=4`` against 1 in
-  turns; the static trainer's telemetry files over one epoch.
+  turns (8 of SmolLM's 32 layers); the static trainer's telemetry files
+  over one epoch.
 * the multi-process wire: the row forms of kernels 1, 7 and 8 (a rank's
   own rows of a gathered round) at the wire's main shape, each row bitwise
   row r of the square call and held to its plain version; the one-process
@@ -179,7 +180,17 @@ before it and read just after:
   consensus bitwise its A ⊗ I_S emulation, the sites' bytes as predicted,
   the routing's flips against one process (kernels 2 and 1rb, kernel 1's
   bf16 row form, also held at its path's shape against its plain
-  version); then ``dryrun``, one pair of each
+  version); ``shard_tp_mamba``, full-width Mamba2-780M (f32, 16 of 48
+  layers, 24 of 48 heads a rank) on (2, 1, 1, 2) and Jamba-1.5-Large cut
+  to its first layer (mamba and a dense FFN, 64 of 256 heads a rank) on
+  (1, 1, 1, 4), bf16: the first step's gradients and the pieces within
+  twice a regrouped one-process run's distance plus 1e-5 of the largest
+  value (f32) or four bf16 steps (bf16), beside a grouped gated-norm
+  control that must fail; replicated leaves bitwise, Mamba2's consensus
+  bitwise its A ⊗ I_S
+  emulation, the sites' bytes as predicted (kernels 2 and 1r, the row
+  form also held at the Mamba rank's row against its plain version);
+  then ``dryrun``, one pair of each
   program (SmolLM-360M train_4k, Qwen3-1.7B prefill_32k, Mamba2-780M
   long_500k) on the meta device in a process of its own beside the CLI.
 
@@ -200,6 +211,7 @@ import atexit
 import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -334,6 +346,12 @@ RMSNORM_SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 # within one bf16 step plus this share of the largest |dx|, 8 f32 ulps of
 # it
 BF16_DX_FLOOR = 2.0 ** -20
+# bf16 dscale = sum over rows of g x r cancels in a column as dx does: a
+# column's element is held within one bf16 step plus this share of the
+# column's own sum of |g x r| (one f32 epsilon: no f32 sum of those terms
+# is nearer the exact one in general), so a column that does not cancel
+# is held to one step (tools/rmsnorm_bf16_steps.py --tp-mamba)
+DSCALE_COLUMN_FLOOR = 2.0 ** -23
 
 # the serving path: full Qwen3-1.7B, 4 prompts of 1024 tokens, 64 generated
 SERVE = dict(smoke=False, batch=4, prompt_len=1024, gen=64, device="cuda")
@@ -482,14 +500,25 @@ def bf16_step_ratio(torch, got, want, floor: float = 0.0) -> float:
     return float(((got.float() - want.float()).abs() / allowed).max())
 
 
-def bf16_steps(torch, got, want) -> int:
-    """Most bf16 steps between two bf16 tensors (0 when empty)."""
+def bf16_step_counts(torch, got, want):
+    """The bf16 steps between two bf16 tensors, element by element."""
     def ordered(t):
         bits = t.view(torch.int16).to(torch.int32)
         return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def bf16_steps(torch, got, want) -> int:
+    """Most bf16 steps between two bf16 tensors (0 when empty)."""
     if not got.numel():
         return 0
-    return int((ordered(got) - ordered(want)).abs().max())
+    return int(bf16_step_counts(torch, got, want).max())
+
+
+def bf16_steps_over(torch, got, want, n: int) -> int:
+    """How many elements of two bf16 tensors lie more than ``n`` steps
+    apart."""
+    return int((bf16_step_counts(torch, got, want) > n).sum())
 
 
 def ptxas_entries(log: str) -> list:
@@ -2522,10 +2551,11 @@ EPS32 = 2.0 ** -23
 @contextlib.contextmanager
 def launched_norms(torch):
     """Within the block, the (rows, d, dtype) of every kernel-2 launch,
-    forward and backward, into a set."""
+    forward and backward (a cut row's statistics launches too), into a
+    set."""
     from repro_torch.kernels import rmsnorm as rn
     seen = set()
-    fwd, bwd = rn.rmsnorm_fwd_cuda, rn.rmsnorm_bwd_cuda
+    fwd, bwd = rn._launch_fwd, rn._launch_bwd
 
     def note(x):
         seen.add((x.shape[0], x.shape[1], str(x.dtype).split(".")[-1]))
@@ -2538,11 +2568,11 @@ def launched_norms(torch):
         note(x)
         return bwd(x, *args, **kw)
 
-    rn.rmsnorm_fwd_cuda, rn.rmsnorm_bwd_cuda = fwd_noted, bwd_noted
+    rn._launch_fwd, rn._launch_bwd = fwd_noted, bwd_noted
     try:
         yield seen
     finally:
-        rn.rmsnorm_fwd_cuda, rn.rmsnorm_bwd_cuda = fwd, bwd
+        rn._launch_fwd, rn._launch_bwd = fwd, bwd
 
 
 @contextlib.contextmanager
@@ -3741,12 +3771,14 @@ def observability(torch, ttrain, ops, cns, smi: str) -> None:
     assert plain_launches["bucketed_gossip_round"] == n_ep * t_s
 
     # ---- obs_superepoch: K = 4 against K = 1 in turns (K = 1, K = 4
-    # traced, K = 4, K = 1) ----
+    # traced, K = 4, K = 1), SmolLM-360M at SHARD_LAYERS of its 32 layers
+    # for the script's time limit (16 epochs in all) ----
     runs = []
     for k, traced in ((1, False), (4, True), (4, False), (1, False)):
         ops.reset_launch_counts()
-        run, peak = run_dynamic(dict(OBS_SUPER, superepoch=k), traced,
-                                "super")
+        with cut_depth(ttrain, "smollm-360m", SHARD_LAYERS):
+            run, peak = run_dynamic(dict(OBS_SUPER, superepoch=k), traced,
+                                    "super")
         runs.append({"k": k, "traced": traced, "hist": run["history"],
                      "spans": None if not traced else [
                          (s.name, s.parent, s) for s in
@@ -3940,8 +3972,8 @@ def rmsnorm_host_path(torch, stream_us: dict) -> None:
             x, memory_format=torch.contiguous_format),
         "alloc_rstd": lambda: x.new_empty((256,), dtype=torch.float32),
         "ctypes_launch": lambda: rn._fwd(ptrs[0], 960, ptrs[1], ptrs[2],
-                                         ptrs[3], 256, 960, 1e-6, 0, 1,
-                                         stream),
+                                         ptrs[3], None, None, 0, 256, 960,
+                                         1e-6, 0, 1, stream),
         "wrapper": lambda: rn.rmsnorm_fwd_cuda(x, s, 1e-6),
         "wrapper_no_rstd": lambda: rn.rmsnorm_fwd_cuda(x, s, 1e-6,
                                                        need_rstd=False),
@@ -4305,17 +4337,50 @@ LOCAL_KEY = 1               # the wire's key: prng.key(seed + 1)
 LOCAL_NORM_SHAPES = [(128, 960), (127, 960)]
 
 
+def norm_agreement(torch, x, s, gy, got: dict, want: dict):
+    """``(errs, limits, steps, ok)`` of kernel 2's y, dx and dscale
+    (``got``) against the plain versions' (``want``) on inputs x, s, gy:
+    f32 within 1e-5 (y) and 1e-4 (dx, dscale) of the largest value; bf16 y
+    within one bf16 step, dx within one step plus BF16_DX_FLOOR of the
+    largest |dx|, dscale within one step plus DSCALE_COLUMN_FLOOR of its
+    column's sum of |g x r| (a column that does not cancel is held to one
+    step; ``steps["dscale_floor_used"]`` counts the elements that needed
+    more)."""
+    errs = {k: rel_err(torch, got[k], want[k]) for k in want}
+    if x.dtype == torch.float32:
+        limits = {"y": 1e-5, "dx": 1e-4, "dscale": 1e-4}
+        return errs, limits, None, all(errs[k][1] < lim
+                                       for k, lim in limits.items())
+    limits = {"y": "1 bf16 step",
+              "dscale": f"1 bf16 step + {DSCALE_COLUMN_FLOOR} of the "
+                        f"column's sum of |g x r|",
+              "dx": f"1 bf16 step + {BF16_DX_FLOOR} of max |dx|"}
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1) + 1e-6)
+    terms = (gy.float().abs() * xf.abs() * r[:, None]).sum(dim=0)
+    steps = {"y": bf16_steps(torch, got["y"], want["y"]),
+             "dscale": bf16_steps(torch, got["dscale"], want["dscale"]),
+             "dscale_floor_used": bf16_steps_over(torch, got["dscale"],
+                                                  want["dscale"], 1),
+             "dx_ratio": bf16_step_ratio(
+                 torch, got["dx"], want["dx"],
+                 BF16_DX_FLOOR * float(want["dx"].float().abs().max())),
+             "dscale_ratio": bf16_step_ratio(
+                 torch, got["dscale"], want["dscale"],
+                 DSCALE_COLUMN_FLOOR * terms)}
+    ok = (steps["y"] <= 1 and steps["dscale_ratio"] <= 1
+          and steps["dx_ratio"] <= 1)
+    return errs, limits, steps, ok
+
+
 def local_norm_check(torch, shapes=None, seed: int = 28,
                      path: str = "smollm-360m client step on a rank's half "
                      "of the batch (shard_local)",
                      dtype: str = "float32") -> set:
     """Kernel 2 forward and backward at ``shapes`` (LOCAL_NORM_SHAPES) in
     ``dtype`` on inputs of a generator of their own (``seed``) against the
-    plain versions as ``rmsnorm_sweep`` holds them (f32: 1e-5 forward, 1e-4
-    backward, of the largest value; bf16: y and dscale within one bf16
-    step, dx within one step plus BF16_DX_FLOOR of its largest value): one
-    ``rmsnorm_check`` line a shape.  Returns the shapes as
-    ``launched_norms`` records them."""
+    plain versions (``norm_agreement``): one ``rmsnorm_check`` line a
+    shape.  Returns the shapes as ``launched_norms`` records them."""
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
@@ -4331,22 +4396,9 @@ def local_norm_check(torch, shapes=None, seed: int = 28,
         dx, ds = torch.autograd.grad(y, (xg, sg), gy)
         after = ops.launch_counts()
         dx_ref, ds_ref = ref.rmsnorm_bwd_ref(x, s, gy)
-        pairs = {"y": (y.detach(), ref.rmsnorm_ref(x, s)),
-                 "dx": (dx, dx_ref), "dscale": (ds, ds_ref)}
-        errs = {k: rel_err(torch, a, b) for k, (a, b) in pairs.items()}
-        steps = None
-        if dtype == "float32":
-            limits = {"y": 1e-5, "dx": 1e-4, "dscale": 1e-4}
-            ok = all(errs[k][1] < lim for k, lim in limits.items())
-        else:
-            limits = {"y": "1 bf16 step", "dscale": "1 bf16 step",
-                      "dx": f"1 bf16 step + {BF16_DX_FLOOR} of max |dx|"}
-            steps = {k: bf16_steps(torch, *pairs[k]) for k in ("y", "dscale")}
-            steps["dx_ratio"] = bf16_step_ratio(
-                torch, dx, dx_ref,
-                BF16_DX_FLOOR * float(dx_ref.float().abs().max()))
-            ok = (steps["y"] <= 1 and steps["dscale"] <= 1
-                  and steps["dx_ratio"] <= 1)
+        errs, limits, steps, ok = norm_agreement(
+            torch, x, s, gy, {"y": y.detach(), "dx": dx, "dscale": ds},
+            {"y": ref.rmsnorm_ref(x, s), "dx": dx_ref, "dscale": ds_ref})
         ok = (ok and y.dtype == dx.dtype == ds.dtype == dt
               and after["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 1
               and after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 1)
@@ -4356,6 +4408,63 @@ def local_norm_check(torch, shapes=None, seed: int = 28,
              bf16_steps=steps, ok=ok)
         assert ok, (rows, d, errs, steps)
         out.add((rows, d, dtype))
+    return out
+
+
+def cut_norm_check(torch, cuts, seed: int, path: str) -> set:
+    """Kernel 2 on rows cut over ranks, at ``cuts`` ((rows, d, tp, dtype)
+    each), on inputs of a generator of their own (``seed``): per piece of
+    d / tp columns the forward's statistics launch, the sums added in
+    piece order (as the ranks' all-reduce adds them), the forward given
+    them; the backward's the same way; the pieces put back together
+    against the plain whole-row versions (``norm_agreement``), two
+    launches a piece each way.  One ``rmsnorm_check`` line a cut; returns
+    the piece shapes as ``launched_norms`` records them."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = set()
+    for rows, d, tp, dtype in cuts:
+        dt = getattr(torch, dtype)
+        x = torch.randn((rows, d), device=dev, generator=g).to(dt)
+        s = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        gy = torch.randn((rows, d), device=dev, generator=g).to(dt)
+        xs = [t.contiguous() for t in x.chunk(tp, dim=1)]
+        gs = [t.contiguous() for t in gy.chunk(tp, dim=1)]
+        ss_ = s.chunk(tp)
+        before = ops.launch_counts()
+        sq = rn.rmsnorm_sumsq_cuda(xs[0], ss_[0])
+        for xp, sp in zip(xs[1:], ss_[1:]):
+            sq = sq + rn.rmsnorm_sumsq_cuda(xp, sp)
+        fwd = [rn.rmsnorm_fwd_cuda(xp, sp, 1e-6, ss=sq, d_norm=d)
+               for xp, sp in zip(xs, ss_)]
+        dots = [rn.rmsnorm_dot_cuda(xp, sp, r, gp)
+                for xp, sp, gp, (_, r) in zip(xs, ss_, gs, fwd)]
+        dot = dots[0]
+        for t in dots[1:]:
+            dot = dot + t
+        bwd = [rn.rmsnorm_bwd_cuda(xp, sp, r, gp, dot=dot, d_norm=d)
+               for xp, sp, gp, (_, r) in zip(xs, ss_, gs, fwd)]
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        dx_ref, ds_ref = ref.rmsnorm_bwd_ref(x, s, gy)
+        got = {"y": torch.cat([y_ for y_, _ in fwd], dim=1),
+               "dx": torch.cat([dx_ for dx_, _ in bwd], dim=1),
+               "dscale": torch.cat([ds_ for _, ds_ in bwd])}
+        errs, limits, steps, ok = norm_agreement(
+            torch, x, s, gy, got,
+            {"y": ref.rmsnorm_ref(x, s), "dx": dx_ref, "dscale": ds_ref})
+        ok = (ok and all(v.dtype == dt for v in got.values())
+              and after["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 2 * tp
+              and after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 2 * tp)
+        emit("rmsnorm_check", rows=rows, d=d, dtype=dtype, cut=tp,
+             piece=d // tp, path=path,
+             max_abs_err={k: e[0] for k, e in errs.items()},
+             max_rel_err={k: e[1] for k, e in errs.items()}, limits=limits,
+             bf16_steps=steps, ok=ok)
+        assert ok, (rows, d, tp, errs, steps)
+        out.add((rows, d // tp, dtype))
     return out
 
 
@@ -5150,6 +5259,8 @@ TP_REGROUP = {
     "bsd,df->bsf": "col",        # gate / up
     "bsr,rhk->bshk": "col",      # w_uq / w_ukv
     "bsd,dv->bsv": "col",        # the untied head
+    "bsd,de->bse": "col",        # Mamba's in_proj
+    "bsi,id->bsd": "row",        # Mamba's out_proj
 }
 
 
@@ -5159,22 +5270,34 @@ def tp_moe_config(arch: str, layers: int):
     return dataclasses.replace(get_arch(arch), num_layers=layers)
 
 
-def tp_moe_params(torch, ttf, cfg) -> dict:
-    """The seeded full-width bf16 weights (the same in every process)."""
-    dev = torch.device("cuda")
-    return ttf.init_params(torch.Generator(device=dev).manual_seed(
-        LOCAL_TRAIN["seed"]), cfg, torch.bfloat16, device=dev)
+def seeded_params(dtype: str):
+    """The maker of a run's seeded full-width weights in ``dtype``, on the
+    card (the same values in every process)."""
+    def make(torch, ttf, cfg):
+        dev = torch.device("cuda")
+        return ttf.init_params(torch.Generator(device=dev).manual_seed(
+            LOCAL_TRAIN["seed"]), cfg, getattr(torch, dtype), device=dev)
+    return make
+
+
+tp_moe_params = seeded_params("bfloat16")
 
 
 def tp_moe_row_d(torch) -> int:
     """The elements of a Mixtral TP-2 rank's server row: its pieces."""
+    arch, shape, layers = TP_MOE_RUNS["mixtral"]
+    return tp_row_d(torch, tp_moe_config(arch, layers), shape,
+                    torch.bfloat16)
+
+
+def tp_row_d(torch, cfg, shape, dtype) -> int:
+    """The elements of a TP rank's server row of ``cfg`` on mesh ``shape``:
+    its pieces (meta)."""
     from repro_torch.launch import mesh as lm
     from repro_torch.launch import sharding as shd
     from repro_torch.models import transformer as ttf
     from repro_torch.tree import tree_leaves, tree_map
-    arch, shape, layers = TP_MOE_RUNS["mixtral"]
-    params = ttf.init_params(torch.Generator(), tp_moe_config(arch, layers),
-                             torch.bfloat16, device="meta")
+    params = ttf.init_params(torch.Generator(), cfg, dtype, device="meta")
     server = tree_map(lambda x: torch.empty((shape[0],) + tuple(x.shape),
                                             device="meta"), params)
     mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
@@ -5395,8 +5518,9 @@ def tp_moe_rank(torch, cns, ops, ttf, rank: int) -> dict:
 
 @contextlib.contextmanager
 def tp_regrouped(torch, modules, k: int):
-    """Within the block, ``modules`` (``models.modules`` and
-    ``models.transformer``) compute the TP_REGROUP einsums in ``k`` groups
+    """Within the block, ``modules`` (``models.modules``,
+    ``models.transformer``, ``models.mamba``) compute the TP_REGROUP
+    einsums in ``k`` groups
     of the weight's cut dim, as ``k`` TP ranks group them: a one-process
     run whose row-parallel sums and column-parallel input gradients round
     as the ranks' do."""
@@ -5450,26 +5574,50 @@ def experts_one_off(nn):
 
 def tp_moe_reference(torch, ttf, name: str, pinned: list, mode: str
                      ) -> dict:
-    """The one-process port's epoch of run ``name`` at its depth on the
-    same weights and draws (light metrics; the consensus period recorded,
-    not run), its routing pinned to the TP run's (``pinned``, call order),
-    ``mode`` "plain", "regrouped" (``tp_regrouped`` at the run's TP) or
-    "control" (``experts_one_off``): per rank of the run's mesh, the
-    samples of its pieces of the first step's gradients and of the
-    pre-consensus rows (M > 1) or the state (M = 1); the router's own
-    routing; the epoch's seconds."""
+    """The one-process port's epoch of ``shard_tp_moe`` run ``name``
+    (``tp_one_process``), its routing pinned to the TP run's (``pinned``,
+    call order), ``mode`` "plain", "regrouped" (``tp_regrouped`` at the
+    run's TP) or "control" (``experts_one_off``); ``own``: the router's own
+    routing."""
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as tf_mod
+    arch, shape, layers = TP_MOE_RUNS[name]
+    own: list = []
+    ctx = (tp_regrouped(torch, (nn, tf_mod), shape[3]) if mode == "regrouped"
+           else experts_one_off(nn) if mode == "control"
+           else contextlib.nullcontext())
+    out = tp_one_process(torch, ttf, tp_moe_config(arch, layers), shape,
+                         tp_moe_params, nested(
+                             ctx, moe_routing(nn, pinned=pinned, own=own)))
+    out["own"] = own
+    return out
+
+
+@contextlib.contextmanager
+def nested(*ctxs):
+    """Every context of ``ctxs`` entered in order, left in reverse."""
+    with contextlib.ExitStack() as stack:
+        for c in ctxs:
+            stack.enter_context(c)
+        yield
+
+
+def tp_one_process(torch, ttf, cfg, shape, make_params, ctx) -> dict:
+    """The one-process port's epoch of a TP run of ``cfg`` on mesh
+    ``shape`` on the same weights (``make_params(torch, ttf, cfg)``) and
+    draws (light metrics; the consensus period recorded, not run), its
+    step inside the context ``ctx``: per rank of the mesh, the samples of
+    its pieces of the first step's gradients and of the pre-consensus rows
+    (M > 1) or the state (M = 1); the epoch's seconds."""
     from repro_torch.core import consensus as cns
     from repro_torch.core import dfl as tdfl
     from repro_torch.launch import mesh as lm
     from repro_torch.launch import sharding as shd
-    from repro_torch.models import modules as nn
     from repro_torch.optim import sgd
     from repro_torch.tree import tree_leaves, tree_map
-    arch, shape, layers = TP_MOE_RUNS[name]
-    cfg = tp_moe_config(arch, layers)
     m = shape[0]
     topo = local_topology(1, m)
-    params = tp_moe_params(torch, ttf, cfg)
+    params = make_params(torch, ttf, cfg)
     mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
     client_abs = tree_map(lambda x: torch.empty(
         (m, 1) + tuple(x.shape), device="meta"), params)
@@ -5483,7 +5631,7 @@ def tp_moe_reference(torch, ttf, name: str, pinned: list, mode: str
                     for x, sp in zip(leaves, specs)]
                 for r in ranks_of[server]}
 
-    out = {"grads": {}, "samples": {}, "own": []}
+    out = {"grads": {}, "samples": {}}
     backend = cns.GossipBackend(topo.mixing_matrix() if m > 1
                                 else np.ones((1, 1)), 0)
 
@@ -5502,13 +5650,9 @@ def tp_moe_reference(torch, ttf, name: str, pinned: list, mode: str
     state = tdfl.init_dfl_state(dcfg, params, opt)
     del params
     batch = local_batch(torch, cfg, 1, m)
-    from repro_torch.models import transformer as tf_mod
-    ctx = (tp_regrouped(torch, (nn, tf_mod), shape[3]) if mode == "regrouped"
-           else experts_one_off(nn) if mode == "control"
-           else contextlib.nullcontext())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with ctx, moe_routing(nn, pinned=pinned, own=out["own"]):
+    with ctx:
         state, _ = step(state, batch)
     torch.cuda.synchronize()
     out["epoch_s"] = time.perf_counter() - t0
@@ -5676,6 +5820,523 @@ def tp_moe_norm_shapes() -> set:
             | {(r, d, t) for r, d, t, _, _ in RMSNORM_SHAPES})
 
 
+# tensor parallelism over "model" for Mamba-2 and the Jamba hybrid
+# (``shard_tp_mamba``): full-width Mamba2-780M (d 1536, 48 heads of 64,
+# d_state 128, in_proj 6448 columns, vocab 50,280 tied), 16 of its 48
+# layers, f32 on (2, 1, 1, 2), its plan's structure (M 2, N 1, TP): 24
+# heads a rank (at all 48 layers the script ran 1153 s of its 1200 s
+# limit on an NVIDIA H100 80GB HBM3);
+# Jamba-1.5-Large (d 8192, 256 heads of 64, d_inner 16384, in_proj 33,280
+# columns, dense d_ff 24,576, vocab 65,536 untied) cut to its first
+# layer, mamba with a dense FFN, bf16 on (1, 1, 1, 4): 64 heads a rank;
+# each held within the parity yardstick (``tp_mamba_check``).  An MoE
+# layer is not taken: its 16 experts are 19.3 GB of bf16, ~4.8 GB of a
+# rank's pieces at TP 4 and, at ``shard_tp_moe``'s peak-to-pieces ratio
+# (~5.2), ~25 GB of
+# its peak against the 18.4 GB a rank has; the CPU twin
+# (tests/test_torch_tensor_parallel_mamba.py, ``jamba_tp2``) holds the
+# three families together.  T_C = 2, T_S = 5, batch 2 x 128 (LOCAL_TRAIN).
+# run -> (arch, mesh shape, layers, dtype)
+TP_MAMBA_RUNS = {
+    "mamba": ("mamba2-780m", (2, 1, 1, 2), 16, "float32"),
+    "jamba": ("jamba-1.5-large-398b", (1, 1, 1, 4), 1, "bfloat16"),
+}
+# kernel 2's bf16 shapes new to training on Jamba's first layer: ln1 / ln2
+# (256, 8192) and the final norm (254, 8192); Mamba2's f32 ln1 and final
+# norm are RMSNORM_SHAPES' rows
+TP_MAMBA_NORM_SHAPES = [(256, 8192), (254, 8192)]
+TP_MAMBA_NORM_SEED = 31
+# the gated norm under TP: a rank's d_inner / TP channels of rows d_inner
+# wide, (rows, d_inner, TP, dtype) of each run
+TP_MAMBA_CUT_NORMS = [(256, 3072, 2, "float32"), (256, 16384, 4, "bfloat16")]
+# an f32 run's first-step gradients and pieces against the regrouped
+# one-process run (its sums grouped as the ranks group them), over the
+# leaf's largest value: a run whose gated norm gathered its input whole
+# read 6.6e-5 and 2.3e-4 at 16 layers, this one 3.4e-5 and 1.2e-4 (NVIDIA
+# H100 80GB HBM3 at 700 W)
+TP_MAMBA_TO_REGROUPED = {"grads": 2e-4, "samples": 1e-3}
+
+
+def tp_mamba_config(arch: str, layers: int):
+    """``arch`` at its published widths, ``layers`` deep; Jamba cut to its
+    first layer keeps that layer (mamba, dense FFN) and drops the MoE
+    config no layer left reads (its 8-layer period does not split one
+    layer)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if layers == cfg.num_layers:
+        return cfg
+    if cfg.moe is None:
+        return dataclasses.replace(cfg, num_layers=layers)
+    assert layers == 1 and not cfg.is_moe_layer(0), (arch, layers)
+    return dataclasses.replace(cfg, num_layers=1, moe=None,
+                               layer_pattern=cfg.layer_pattern[:1])
+
+
+@contextlib.contextmanager
+def mamba_regrouped(torch, mamba_mod, k: int):
+    """A one-process run's Mamba sums grouped as ``k`` TP ranks group
+    them: the depthwise conv and the SSD scan on each of ``k`` blocks of
+    heads, on the block's x channels with B and C whole (so B's and C's
+    gradients, and the conv leaves', are summed over the blocks, as the
+    ranks' are: in bf16 this is most of a TP run's distance from one
+    process, on ``conv_b``'s B and C channels), and the gated norm from
+    kernel 2's statistics launches on ``k`` blocks of d_inner, the sums
+    added in block order, then each block normalised by them
+    (``launch.tp``'s ``norm`` without the ranks)."""
+    from repro_torch.kernels import ops
+
+    class Cut(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, scale, eps):
+            d = x.shape[-1]
+            x2 = x.reshape(-1, d)
+            xs, ss_ = x2.chunk(k, dim=1), scale.chunk(k)
+            sq = ops.rmsnorm_sumsq(xs[0].contiguous(), ss_[0])
+            for xp, sp in zip(xs[1:], ss_[1:]):
+                sq = sq + ops.rmsnorm_sumsq(xp.contiguous(), sp)
+            fwd = [ops.rmsnorm_given(xp.contiguous(), sp, eps, sq, d)
+                   for xp, sp in zip(xs, ss_)]
+            ctx.save_for_backward(x2, scale, *[r for _, r in fwd])
+            return torch.cat([y for y, _ in fwd], dim=1).view(x.shape)
+
+        @staticmethod
+        def backward(ctx, g):
+            x2, scale, *rs = ctx.saved_tensors
+            d = x2.shape[1]
+            g2 = g.reshape(x2.shape)
+            pieces = [(xp.contiguous(), sp, r, gp.contiguous())
+                      for xp, sp, gp, r in zip(
+                          x2.chunk(k, dim=1), scale.chunk(k),
+                          g2.chunk(k, dim=1), rs)]
+            dot = ops.rmsnorm_dot(*pieces[0])
+            for p_ in pieces[1:]:
+                dot = dot + ops.rmsnorm_dot(*p_)
+            bwd = [ops.rmsnorm_given_bwd(*p_, dot, d) for p_ in pieces]
+            return (torch.cat([dx for dx, _ in bwd], dim=1).view(g.shape),
+                    torch.cat([ds for _, ds in bwd]), None)
+
+    mm = mamba_mod
+    orig, prefill = mm.rmsnorm_apply, mm.mamba_prefill
+
+    def cut(params, x, eps=1e-6):
+        return Cut.apply(x, params["scale"], eps)
+
+    def grouped(params, x, cfg, conv_cache_dtype=None, impl="reference"):
+        m = cfg.mamba
+        di = m.d_inner(cfg.d_model)
+        hl = m.num_heads(cfg.d_model) // k
+        dl = hl * m.head_dim
+        z, xbc_raw, dt = mm._split_proj(params, x, cfg)
+        a_coef = -torch.exp(params["a_log"].float())
+        ys, xss = [], []
+        for p_ in range(k):
+            lo, h_lo = p_ * dl, p_ * hl
+
+            def mine(t):
+                return torch.cat([t[..., lo:lo + dl], t[..., di:]], dim=-1)
+            xs, bs, cs_ = mm._split_xbc(mm._causal_conv(
+                mine(xbc_raw), mine(params["conv_w"]),
+                mine(params["conv_b"])), cfg)
+            y, _ = mm._scan(xs, bs, cs_, dt[..., h_lo:h_lo + hl],
+                            a_coef[h_lo:h_lo + hl], m.chunk_size, impl)
+            ys.append(y)
+            xss.append(xs)
+        return mm._mix_out(params, x, torch.cat(xss, dim=2), z,
+                           torch.cat(ys, dim=2), cfg), None
+
+    mm.rmsnorm_apply, mm.mamba_prefill = cut, grouped
+    try:
+        yield
+    finally:
+        mm.rmsnorm_apply, mm.mamba_prefill = orig, prefill
+
+
+@contextlib.contextmanager
+def grouped_gated_norm(torch, mamba_mod, k: int):
+    """The control: Megatron's grouped gated norm, one RMSNorm over each of
+    ``k`` blocks of d_inner (a rank's heads) instead of one over the
+    whole, in a one-process run."""
+    orig = mamba_mod.rmsnorm_apply
+
+    def grouped(params, x, eps=1e-6):
+        return torch.cat([orig({"scale": s_}, x_, eps) for x_, s_ in zip(
+            x.chunk(k, dim=-1), params["scale"].chunk(k))], dim=-1)
+
+    mamba_mod.rmsnorm_apply = grouped
+    try:
+        yield
+    finally:
+        mamba_mod.rmsnorm_apply = orig
+
+
+def tp_mamba_predicted(cfg, shape, pieces, es: int) -> dict:
+    """``{site: (calls, bytes)}`` a rank sends in one epoch of a
+    ``shard_tp_mamba`` run (activations of ``es`` bytes, f32 logits), per
+    client step of b x s tokens: ``tp_forward`` the embedding's, each
+    mixer's (``out_proj``) and a dense MLP's ``down`` ((b, s, d));
+    ``tp_backward`` each mixer's and a dense MLP's input and the head's
+    (s - 1 positions); ``tp_vocab`` two (3 values a position); a mamba
+    layer's ``tp_replicated`` (the gated norm's scale, ``dt_bias``,
+    ``a_log``, ``d_skip``: d_inner + 3 nh values), ``tp_ssm_gather`` (the
+    rank's (b, s, W / TP) block of in_proj's output and its (d_conv + 1,
+    xBC / TP) conv pieces), ``tp_ssm_reduce`` (their whole gradients),
+    ``tp_ssm_norm`` (the gated norm's (b, s) f32 sums of squares) and
+    ``tp_ssm_norm_reduce`` (its (b, s) f32 sums of g * scale * x); then
+    the consensus period on ``pieces`` (meta): T_S gathers a leaf block
+    (``plain``)."""
+    b, s = LOCAL_TRAIN["per_client_batch"], LOCAL_TRAIN["seq_len"]
+    steps, tp = LOCAL_TRAIN["t_client"], shape[3]
+    mc, L = cfg.mamba, cfg.num_layers
+    di, nh = mc.d_inner(cfg.d_model), mc.num_heads(cfg.d_model)
+    ch = di + 2 * mc.d_state
+    width = 2 * di + 2 * mc.d_state + nh
+    mamba = sum(cfg.pattern_for_layer(i) == "mamba" for i in range(L))
+    dense = L if cfg.d_ff > 0 else 0
+    act = b * s * cfg.d_model * es
+    ssm = (b * s * width + (mc.d_conv + 1) * ch) * es
+    out = {"tp_forward": (steps * (1 + L + dense),
+                          steps * (1 + L + dense) * act),
+           "tp_backward": (steps * (L + dense + 1), steps * (
+               (L + dense) * act + b * (s - 1) * cfg.d_model * es)),
+           "tp_vocab": (steps * 2, steps * 3 * b * (s - 1) * 4),
+           "tp_replicated": (steps * mamba,
+                             steps * mamba * (di + 3 * nh) * es),
+           "tp_ssm_gather": (steps * mamba, steps * mamba * ssm // tp),
+           "tp_ssm_reduce": (steps * mamba, steps * mamba * ssm),
+           "tp_ssm_norm": (steps * mamba, steps * mamba * b * s * 4),
+           "tp_ssm_norm_reduce": (steps * mamba, steps * mamba * b * s * 4)}
+    if shape[0] > 1:
+        out["plain"] = plain_sites(pieces)
+    return out
+
+
+def tp_mamba_norm_launches(cfg) -> int:
+    """Kernel 2's forward (and backward) launches in one epoch of a run:
+    a client step's ln1 and the gated norm's two (statistics, then the
+    norm) a mamba layer, ln2 a layer with an FFN, the final norm."""
+    L = cfg.num_layers
+    mamba = sum(cfg.pattern_for_layer(i) == "mamba" for i in range(L))
+    return LOCAL_TRAIN["t_client"] * (L + 2 * mamba + (L if cfg.d_ff > 0
+                                                        else 0) + 1)
+
+
+def tp_mamba_row_check(torch, g) -> dict:
+    """Row 1r on its Mamba path's operand: A's own row (1, 2) of the
+    Metropolis 2-ring over the gathered (2, D) f32 pieces of Mamba2-780M's
+    TP-2 row (D = ``tp_row_d``; the path runs it in column blocks of
+    TP_BLOCK a round), held to its plain version within 1e-5 of the
+    largest value, timed against the plain version, its byte bound and
+    ``torch.matmul`` of the row."""
+    from repro_torch.core import topology as tp
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    arch, shape, layers, dtype = TP_MAMBA_RUNS["mamba"]
+    m = shape[0]
+    d = tp_row_d(torch, tp_mamba_config(arch, layers), shape,
+                 getattr(torch, dtype))
+    a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)),
+                     dtype=torch.float32, device=dev)
+    a_r = a[1:2].contiguous()
+    w = torch.randn((m, d), device=dev, generator=g)
+    out = torch.empty((1, d), device=dev)
+    before = ops.launch_counts()["consensus_mix_rows"]
+    got = ops.consensus_mix_rows(a_r, w, out=out)
+    launched = ops.launch_counts()["consensus_mix_rows"] - before
+    err, rel = rel_err(torch, got, ref.consensus_mix_ref(a_r, w))
+    t = alternate(torch, {
+        "kernel": lambda: ops.consensus_mix_rows(a_r, w, out=out),
+        "plain": lambda: ref.consensus_mix_ref(a_r, w),
+        "library": lambda: torch.matmul(a_r, w)}, reps=10)
+    n_bytes = m * d * 4 + d * 4 + m * 4
+    bnd, by = bound_ms(n_bytes, 2 * m * d)
+    row = dict(max_abs_err=err, max_rel_err=rel, ms=t["kernel"],
+               plain_ms=t["plain"], library_ms=t["library"], bound_ms=bnd,
+               bound_by=by)
+    emit("shard_tp_mamba_rows", kernel="consensus_mix_rows", m=m, d=d,
+         bytes=n_bytes, bound_share=bnd / t["kernel"],
+         library="torch.matmul(A's row, W)", **row)
+    assert launched == 1 and rel <= 1e-5, (launched, rel)
+    del w, out, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def tp_mamba_references(torch, ttf) -> dict:
+    """Kernel 2 at TP_MAMBA_NORM_SHAPES (bf16) and on the gated norm's
+    cut rows (TP_MAMBA_CUT_NORMS), then per run the one-process port's
+    epochs on the same weights and draws (``tp_one_process``): "plain",
+    "regrouped" (``tp_regrouped``, with ``models.mamba``'s in_proj and
+    out_proj, and ``mamba_regrouped``) and "control"
+    (``grouped_gated_norm`` over the run's TP)."""
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as tf_mod
+    out = {"norm_shapes": local_norm_check(
+        torch, TP_MAMBA_NORM_SHAPES, TP_MAMBA_NORM_SEED,
+        "jamba-1.5-large (first layer) client step under TP 4 "
+        "(shard_tp_mamba)", "bfloat16") | cut_norm_check(
+        torch, TP_MAMBA_CUT_NORMS, TP_MAMBA_NORM_SEED,
+        "the gated norm on a rank's heads under TP (shard_tp_mamba)")}
+    for name, (arch, shape, layers, dtype) in TP_MAMBA_RUNS.items():
+        cfg = tp_mamba_config(arch, layers)
+        make = seeded_params(dtype)
+        modes = {"plain": contextlib.nullcontext,
+                 "regrouped": lambda: nested(
+                     tp_regrouped(torch, (nn, tf_mod, mamba_mod), shape[3]),
+                     mamba_regrouped(torch, mamba_mod, shape[3])),
+                 "control": lambda: grouped_gated_norm(torch, mamba_mod,
+                                                       shape[3])}
+        out[name] = {mode: tp_one_process(torch, ttf, cfg, shape, make,
+                                          ctx())
+                     for mode, ctx in modes.items()}
+    return out
+
+
+def tp_mamba_rank(torch, cns, ops, ttf, rank: int) -> dict:
+    """The world's ``shard_tp_mamba`` runs on this rank: per run, one epoch
+    through ``fl_consensus_backend(..., tp_axis="model")``,
+    ``init_dfl_state`` (the rank's TP pieces of the seeded weights) and
+    ``build_dfl_epoch_step``, with its seconds, peak, pieces' and one
+    whole row's bytes, collectives by site, launches and kernel-2 shapes;
+    samples of its first step's gradients and of its pre-consensus pieces
+    (M > 1) or its state (M = 1); fingerprints for the replicated leaves;
+    for M > 1 its mixed piece against the one-process gossip of its
+    server group's pieces (the A ⊗ I_S emulation, bitwise)."""
+    import torch.distributed as dist
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {}
+    for name, (arch, shape, layers, dtype) in TP_MAMBA_RUNS.items():
+        cns.release_staging()
+        cfg = tp_mamba_config(arch, layers)
+        m = shape[0]
+        mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape))
+        topo = local_topology(1, m)
+        params = seeded_params(dtype)(torch, ttf, cfg)
+        server_abs = tree_map(lambda x: torch.empty(
+            (m,) + tuple(x.shape), dtype=x.dtype, device="meta"), params)
+        row_gb = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(params)) / 1e9
+        backend = shd.fl_consensus_backend(topo, mesh, server_abs,
+                                           tp_axis="model")
+        dcfg = tdfl.DFLConfig(topology=topo, consensus_backend=backend)
+        grads: list = []
+        opt = first_grads(sgd(LOCAL_TRAIN["gamma"]), lambda i, g: grads.append(
+            [local_samples(torch, x) for x in g]), 1)
+        step = tdfl.build_dfl_epoch_step(dcfg, ttf.make_loss_fn(cfg), opt)
+        state = tdfl.init_dfl_state(dcfg, params, opt)
+        del params
+        torch.cuda.empty_cache()
+        rec: dict = {}
+        if m > 1:
+            local_spy(backend, "mix", rec)
+        batch = local_batch(torch, cfg, 1, m)
+        sspecs = tree_leaves(shd.fl_server_specs(server_abs, mesh,
+                                                 tp_axis="model"))
+        pieces = [torch.empty(shd.local_shape(tuple(x.shape), sp, mesh),
+                              dtype=x.dtype, device="meta")
+                  for x, sp in zip(tree_leaves(server_abs), sspecs)]
+        leaves = tree_leaves(state.client_params)
+        shapes_ok = all(tuple(x.shape[2:]) == tuple(p.shape[1:])
+                        for x, p in zip(leaves, pieces))
+        pieces_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+        del leaves
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cns.reset_collective_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with launched_norms(torch) as norms:
+            state, mt = step(state, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = cns.collective_counts()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        leaves = tree_leaves(state.client_params)
+        es = 4 if dtype == "float32" else 2
+        got = {
+            "epoch_s": seconds, "peak_gb": peak, "pieces_gb": pieces_gb,
+            "row_gb": row_gb, "collectives": counts, "launches": launches,
+            "norm_shapes": sorted(norms), "sites": tp_sites(counts),
+            "predicted": tp_mamba_predicted(cfg, shape, pieces, es),
+            "shapes_ok": shapes_ok,
+            "loss": mt.loss.tolist(), "grad_norm": float(mt.grad_norm),
+            "disagreement": float(mt.server_disagreement),
+            "drift": float(mt.client_drift), "coords": mesh.coords(),
+            "replicated": [i for i, sp in enumerate(sspecs)
+                           if shd.model_dim(sp) is None],
+            "state_fp": rows_fingerprint(torch, leaves),
+            "grad_samples": grads[0],
+            "host_free_g": free_g() if rank == 0 else None}
+        if m == 1:
+            got["samples"] = [local_samples(torch, x) for x in leaves]
+        else:
+            got["pre_fp"] = rows_fingerprint(torch, [x[:, None].cuda()
+                                                     for x in rec["pre"]])
+            got["samples"] = [local_samples(torch, x) for x in rec["pre"]]
+            gossip = cns.GossipBackend(topo.mixing_matrix(), topo.t_server)
+            i = backend.view.idx
+            same = True
+            for x, leaf in zip(rec["pre"], leaves):
+                rows = cns.all_gather_rows(x.cuda(), backend.group,
+                                           site="check")
+                same = same and torch.equal(gossip.mix([rows])[0][i],
+                                            leaf[0, 0])
+                del rows
+            got["emulation_bitwise"] = same
+        out[name] = got
+        del state, leaves, mt, backend, step, rec, batch, grads
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tp_mamba_check(torch, ranks, want: dict, smi: str) -> dict:
+    """``shard_tp_mamba``, one line a run, after the world: per rank the
+    epoch's seconds, the collectives by site (calls and bytes against the
+    prediction), the peak beside its pieces' bytes and one whole row's,
+    kernels 2 and 1r's launches; the checks: every piece of the run's
+    shape, replicated leaves bitwise across each TP group, the consensus
+    bitwise its A ⊗ I_S emulation (M > 1), the TP sites as predicted to
+    the byte, no whole-leaf gather, kernel 2's launches and shapes, kernel
+    1r's launches; the first step's gradients and the pieces within the
+    yardstick (twice the regrouped one-process run's distance from the
+    plain one plus LOCAL_TOL of the leaf's largest value in f32,
+    TP_MOE_STEPS bf16 steps of it in bf16) and the grouped-norm control's
+    gradients outside it; in f32 also within TP_MAMBA_TO_REGROUPED of the
+    regrouped run itself.  Held to the plain run alone, an f32 run cannot
+    be: the chunked scan's exponents are differences of cumulative sums
+    of dt A (to ~-4300 at chunk 256 and A = -48), so a regrouping of
+    in_proj's sums moves the one-process run's own first-step gradients
+    by ~3e-4 of their largest value at 4 layers and ~1.5e-3 at 48, and
+    training at gamma 0.05 carries that to O(1) in the pieces at 48 (on
+    an NVIDIA H100 80GB HBM3); the line also gives the distances from the
+    regrouped run, which also groups the conv's and the scan's B / C sums
+    and the gated norm's sums as the ranks do (``mamba_regrouped``).
+    Returns the launches of the kernels of the path, summed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as lm
+    total: dict = {}
+    norm_shapes = ({(r, d, "bfloat16") for r, d in TP_MAMBA_NORM_SHAPES}
+                   | {(r, d // tp, t) for r, d, tp, t in TP_MAMBA_CUT_NORMS}
+                   | {(r, d, t) for r, d, t, _, _ in RMSNORM_SHAPES})
+    for name, (arch, shape, layers, dtype) in TP_MAMBA_RUNS.items():
+        got = [r["shard_tp_mamba"][name] for r in ranks]
+        refs = want[name]
+        plain = refs["plain"]
+        cfg = tp_mamba_config(arch, layers)
+        m = shape[0]
+        mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape), rank=0, dry=True)
+        tp_g = {r: x["grad_samples"] for r, x in enumerate(got)}
+        tp_w = {r: x["samples"] for r, x in enumerate(got)}
+
+        def rel(key, side, base):
+            return max(d_ / max(sc, 1e-30)
+                       for d_, sc in tp_moe_distances(side, base[key]))
+
+        def bounded(key, side):
+            bound = [2 * d_ + (LOCAL_TOL * sc if dtype == "float32"
+                               else TP_MOE_STEPS * bf16_step(sc))
+                     for d_, sc in tp_moe_distances(refs["regrouped"][key],
+                                                    plain[key])]
+            # a leaf that stays zero (a mamba block's unread ln2) is held
+            # to zero
+            return max(d_ / b_ if b_ else (0.0 if d_ == 0 else math.inf)
+                       for (d_, _), b_ in zip(
+                           tp_moe_distances(side, plain[key]), bound))
+
+        floor = (f"{LOCAL_TOL} of the leaf's largest value"
+                 if dtype == "float32" else
+                 f"{TP_MOE_STEPS} bf16 steps of the leaf's largest value")
+        ctl = refs["control"]
+        fields = dict(
+            run=name, arch=arch, layers=layers,
+            published_layers=get_arch(arch).num_layers, dtype=dtype,
+            grads_over_yardstick=bounded("grads", tp_g),
+            pieces_over_yardstick=bounded("samples", tp_w),
+            control_grads_over_yardstick=bounded("grads", ctl["grads"]),
+            control_pieces_over_yardstick=bounded("samples", ctl["samples"]),
+            rel_grads=rel("grads", tp_g, plain),
+            rel_pieces=rel("samples", tp_w, plain),
+            regrouped_rel_grads=rel("grads", refs["regrouped"]["grads"],
+                                    plain),
+            regrouped_rel_pieces=rel("samples", refs["regrouped"]["samples"],
+                                     plain),
+            rel_grads_to_regrouped=rel("grads", tp_g, refs["regrouped"]),
+            rel_pieces_to_regrouped=rel("samples", tp_w, refs["regrouped"]),
+            yardstick=f"2 x the regrouped one-process run's distance from "
+                      f"the plain one + {floor}")
+        ok = (fields["grads_over_yardstick"] <= 1
+              and fields["pieces_over_yardstick"] <= 1
+              and fields["control_grads_over_yardstick"] > 1)
+        if dtype == "float32":
+            fields["to_regrouped_limits"] = TP_MAMBA_TO_REGROUPED
+            ok = (ok and fields["rel_grads_to_regrouped"]
+                  <= TP_MAMBA_TO_REGROUPED["grads"]
+                  and fields["rel_pieces_to_regrouped"]
+                  <= TP_MAMBA_TO_REGROUPED["samples"])
+        fps = ["pre_fp", "state_fp"] if m > 1 else ["state_fp"]
+        replicated_bitwise = all(
+            got[r][fp][0][i] == got[mesh.ranks_along("model", r)[0]][fp][0][i]
+            for fp in fps for r in range(SHARD_M)
+            for i in got[r]["replicated"])
+        per_rank = []
+        for r, x in enumerate(got):
+            c = x["collectives"]
+            per_rank.append({
+                "rank": r, "coords": x["coords"], "epoch_s": x["epoch_s"],
+                "collective_s": c["seconds"], "staging_s": c["staging_s"],
+                "sites": c["sites"], "site_bytes": c["site_bytes"],
+                "op_seconds": c["op_seconds"], "peak_gb": x["peak_gb"],
+                "pieces_gb": x["pieces_gb"], "launches": x["launches"],
+                "norm_shapes": x["norm_shapes"]})
+            for k, v in x["launches"].items():
+                total[k] = total.get(k, 0) + v
+        norm_launches = tp_mamba_norm_launches(cfg)
+        fields.update(
+            mesh=dict(zip(("server", "client", "replica", "model"), shape)),
+            t_client=LOCAL_TRAIN["t_client"],
+            t_server=LOCAL_TRAIN["t_server"], ranks=per_rank,
+            one_process_epoch_s={k: v["epoch_s"] for k, v in refs.items()},
+            whole_row_gb=got[0]["row_gb"],
+            sites_predicted={k: list(v) for k, v in got[0]["predicted"]
+                             .items()},
+            sites_match=all(x["sites"] == x["predicted"] for x in got),
+            shapes_ok=all(x["shapes_ok"] for x in got),
+            replicated_bitwise=replicated_bitwise,
+            rmsnorm_launches_expected=norm_launches,
+            loss=got[0]["loss"], grad_norm=got[0]["grad_norm"],
+            disagreement=got[0]["disagreement"], drift=got[0]["drift"],
+            host_free_g=got[0]["host_free_g"], nvidia_smi=smi)
+        if m > 1:
+            fields["consensus_bitwise"] = all(x["emulation_bitwise"]
+                                              for x in got)
+        emit("shard_tp_mamba", **fields)
+        assert ok, (name, fields)
+        assert fields["shapes_ok"], name
+        assert replicated_bitwise, name
+        assert fields["sites_match"], (name, [x["sites"] for x in got])
+        assert fields.get("consensus_bitwise", m == 1), name
+        assert all(not {"fsdp_gather", "tp_kv_gather"}
+                   & set(x["collectives"]["sites"]) for x in got), name
+        assert all(set(map(tuple, x["norm_shapes"])) <= norm_shapes
+                   for x in got), name
+        assert all(x["launches"].get("rmsnorm_fwd") == norm_launches
+                   and x["launches"].get("rmsnorm_bwd") == norm_launches
+                   for x in got), name
+        if m > 1:
+            assert all(x["launches"].get("consensus_mix_rows")
+                       == x["predicted"]["plain"][0] for x in got), name
+    return total
+
+
 def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
     """One rank of the world: server ``rank`` on ``cuda:0``.  Runs every
     phase through the trainers and puts its readings on ``q``; a failure
@@ -5702,6 +6363,12 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                                 world_size=SHARD_M, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         for name, trainer, kw in phases:
+            if trainer == "shard_tp_mamba":
+                from repro_torch.models import transformer as ttf
+                t0 = time.perf_counter()
+                out[name] = tp_mamba_rank(torch, cns, ops, ttf, rank)
+                out[name]["wall_s"] = time.perf_counter() - t0
+                continue
             if trainer == "shard_tp_moe":
                 from repro_torch.models import transformer as ttf
                 t0 = time.perf_counter()
@@ -6033,6 +6700,10 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                      "mixtral / deepseek-v2 client step under TP "
                      "(shard_tp_moe)", "bfloat16")
     moe_row = tp_moe_row_check(torch, g)
+    # kernel 2's bf16 shapes, kernel 1r at the Mamba rank's row and the
+    # one-process references of the Mamba-2 / Jamba TP runs
+    want_mamba = tp_mamba_references(torch, ttf)
+    mamba_row = tp_mamba_row_check(torch, g)
 
     # ---- the world: four ranks, one server each, on the one card (this
     # process keeps only its context and what main() still holds) ----
@@ -6047,7 +6718,9 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                                                 {}),
                                                ("shard_tp", "shard_tp", {}),
                                                ("shard_tp_moe",
-                                                "shard_tp_moe", {})])
+                                                "shard_tp_moe", {}),
+                                               ("shard_tp_mamba",
+                                                "shard_tp_mamba", {})])
     world_s = time.perf_counter() - t0
     server_abs = [torch.empty((SHARD_M,) + tuple(s), device="meta")
                   for s in ranks[0]["wire"]["leaf_shapes"]]
@@ -6140,8 +6813,14 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     moe_launches = tp_moe_check(torch, cns, ranks, smi)
     moe_row["launches"] = moe_launches.get("consensus_mix_rows_bf16", 0)
     assert moe_row["launches"] > 0, moe_launches
+    mamba_launches = tp_mamba_check(torch, ranks, want_mamba, smi)
+    del want_mamba
+    mamba_row["launches"] = mamba_launches.get("consensus_mix_rows", 0)
+    assert mamba_row["launches"] > 0, mamba_launches
     tp_launches = {k: tp_launches.get(k, 0) + moe_launches.get(k, 0)
-                   for k in set(tp_launches) | set(moe_launches)}
+                   + mamba_launches.get(k, 0)
+                   for k in set(tp_launches) | set(moe_launches)
+                   | set(mamba_launches)}
     launches = {k: sum(r[name]["launches"].get(k, 0) for r in ranks
                        for name in ("wire", "wire_stale", "plain"))
                 + axes_launches.get(k, 0) + local_launches.get(k, 0)

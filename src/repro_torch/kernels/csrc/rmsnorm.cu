@@ -39,6 +39,16 @@
 //     synchronised here; the host entry is a plain C function bound once
 //     with ctypes, so the call's host path is a handful of Python
 //     operations and one cudaLaunchKernel.
+//   * Rows cut over ranks (tensor parallelism: Mamba's gated norm over a
+//     d_inner whose heads the ranks share).  Each pass has a statistics
+//     mode and a given-statistics mode.  The forward's statistics mode
+//     writes the row's f32 sum of squares over the columns it holds and
+//     stops; the caller sums those over the ranks and hands them back
+//     with the whole row's width d_norm, and the forward then scales with
+//     rsqrt(ss / d_norm + eps).  The backward's writes the row's sum of
+//     g * s * x; given the ranks' total, dx uses it over d_norm, and
+//     dscale is the columns' own.  Between the two modes only a (rows,)
+//     f32 vector a pass crosses the ranks.
 //   * Backward.  The same row groups, S of them (at most ceil(rows / 2),
 //     and 16 warps an SM in all), each loop over rows slot, slot + S, ...:
 //     dx row by row, and g * x * rstd summed in registers for the group's
@@ -161,8 +171,9 @@ __device__ __forceinline__ float group_sum(float v, int wpr, int slot, float* re
 template <typename T, int V, int ITERS, int MAXT>
 __global__ void __launch_bounds__(MAXT)
 rmsnorm_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ scale,
-                   T* __restrict__ y, float* __restrict__ rstd, int rows, int d, float eps,
-                   int wpr) {
+                   T* __restrict__ y, float* __restrict__ rstd,
+                   const float* __restrict__ ss_in, float* __restrict__ ss_out, int rows,
+                   int d, float dn, float eps, int wpr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[32];
   const Group g = group_of(wpr);
@@ -187,7 +198,12 @@ rmsnorm_fwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ 
   const T* sp = stage_scale(scale, d, g.rpb, reinterpret_cast<T*>(smem_raw));
   ss = group_sum(ss, wpr, g.slot, red);
   if (!live) return;
-  const float r = rsqrtf(ss / (float)d + eps);
+  if (ss_out != nullptr) {  // the statistics mode: the sum of squares only
+    if (g.t == 0) ss_out[row] = ss;
+    return;
+  }
+  if (ss_in != nullptr) ss = ss_in[row];
+  const float r = rsqrtf(ss / dn + eps);
   if (rstd != nullptr && g.t == 0) rstd[row] = r;
   T* yr = y + row * (long long)d;
 #pragma unroll
@@ -207,8 +223,9 @@ template <typename T, int V, int ITERS, int MAXT>
 __global__ void __launch_bounds__(MAXT)
 rmsnorm_bwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ scale,
                    const T* __restrict__ gy, long long sg, const float* __restrict__ rstd,
-                   T* __restrict__ dx, float* __restrict__ part, int rows, int d, int wpr,
-                   int slots) {
+                   const float* __restrict__ dot_in, float* __restrict__ dot_out,
+                   T* __restrict__ dx, float* __restrict__ part, int rows, int d, float dn,
+                   int wpr, int slots) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ float red[2][32];
   const Group g = group_of(wpr);
@@ -254,7 +271,12 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ 
     const float r = live ? rstd[row] : 0.f;
     dot = group_sum(dot, wpr, g.slot, red[step & 1]);
     if (!live) continue;
-    const float m = dot / (float)d;
+    if (dot_out != nullptr) {  // the statistics mode: the row's dot only
+      if (g.t == 0) dot_out[row] = dot;
+      continue;
+    }
+    if (dot_in != nullptr) dot = dot_in[row];
+    const float m = dot / dn;
     const float r3 = r * r * r;
     T* dr = dx + row * (long long)d;
 #pragma unroll
@@ -272,6 +294,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, long long sx, const T* __restrict__ 
     }
   }
 
+  if (dot_out != nullptr) return;
   // the block's partial dscale: its row groups' sums added in group order
   // (an idle group's sums are 0) into row blockIdx.x of part
   float* pr = part + (long long)blockIdx.x * d;
@@ -361,19 +384,21 @@ Plan bwd_plan(int rows, int d, int v) {
 
 template <typename T, int V, int ITERS, int MAXT>
 void launch_fwd(const Plan& p, const T* x, long long sx, const T* scale, T* y, float* rstd,
-                int rows, int d, float eps, cudaStream_t stream) {
+                const float* ss_in, float* ss_out, int rows, int d, float dn, float eps,
+                cudaStream_t stream) {
   const size_t smem = p.rpb > 1 ? staged_bytes<T>(d) : 0;
   rmsnorm_fwd_kernel<T, V, ITERS, MAXT><<<p.blocks, p.rpb * p.wpr * 32, smem, stream>>>(
-      x, sx, scale, y, rstd, rows, d, eps, p.wpr);
+      x, sx, scale, y, rstd, ss_in, ss_out, rows, d, dn, eps, p.wpr);
 }
 
 template <typename T, int V, int ITERS, int MAXT>
 void launch_bwd(const Plan& p, const T* x, long long sx, const T* scale, const T* gy,
-                long long sg, const float* rstd, T* dx, float* part, int rows, int d,
-                cudaStream_t stream) {
+                long long sg, const float* rstd, const float* dot_in, float* dot_out, T* dx,
+                float* part, int rows, int d, float dn, cudaStream_t stream) {
   const size_t smem = p.rpb > 1 ? staged_bytes<T>(d) + (size_t)p.rpb * d * sizeof(float) : 0;
   rmsnorm_bwd_kernel<T, V, ITERS, MAXT><<<p.blocks, p.rpb * p.wpr * 32, smem, stream>>>(
-      x, sx, scale, gy, sg, rstd, dx, part, rows, d, p.wpr, bwd_slots(rows, p.wpr));
+      x, sx, scale, gy, sg, rstd, dot_in, dot_out, dx, part, rows, d, dn, p.wpr,
+      bwd_slots(rows, p.wpr));
 }
 
 template <int I>
@@ -402,65 +427,84 @@ int dispatch(const Plan& p, F&& go) {
 }
 
 template <typename T, int V>
-int fwd_v(const void* x, long long sx, const void* scale, void* y, float* rstd, int rows, int d,
-          float eps, cudaStream_t stream) {
+int fwd_v(const void* x, long long sx, const void* scale, void* y, float* rstd,
+          const float* ss_in, float* ss_out, int rows, int d, float dn, float eps,
+          cudaStream_t stream) {
   const Plan p = plan(d, V, rows);
   const int err = dispatch<V>(p, [&](auto it, auto mt) {
     launch_fwd<T, V, decltype(it)::value, decltype(mt)::value>(
         p, static_cast<const T*>(x), sx, static_cast<const T*>(scale), static_cast<T*>(y), rstd,
-        rows, d, eps, stream);
+        ss_in, ss_out, rows, d, dn, eps, stream);
   });
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
 template <typename T, int V>
 int bwd_v(const void* x, long long sx, const void* scale, const void* gy, long long sg,
-          const float* rstd, void* dx, void* dscale, float* part, int rows, int d,
-          cudaStream_t stream) {
+          const float* rstd, const float* dot_in, float* dot_out, void* dx, void* dscale,
+          float* part, int rows, int d, float dn, cudaStream_t stream) {
   const Plan p = bwd_plan(rows, d, V);
   int err = dispatch<V>(p, [&](auto it, auto mt) {
     launch_bwd<T, V, decltype(it)::value, decltype(mt)::value>(
         p, static_cast<const T*>(x), sx, static_cast<const T*>(scale),
-        static_cast<const T*>(gy), sg, rstd, static_cast<T*>(dx), part, rows, d, stream);
+        static_cast<const T*>(gy), sg, rstd, dot_in, dot_out, static_cast<T*>(dx), part, rows,
+        d, dn, stream);
   });
   if (err == 0) err = (int)cudaGetLastError();
-  if (err != 0) return err;
+  if (err != 0 || dot_out != nullptr) return err;
   rmsnorm_column_sum_kernel<T><<<(d + 31) / 32, 32 * kColsumWarps, 0, stream>>>(
       part, static_cast<T*>(dscale), p.blocks, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int fwd(const void* x, long long sx, const void* scale, void* y, float* rstd, int rows, int d,
-        float eps, int vec, cudaStream_t stream) {
-  if (vec) return fwd_v<T, 16 / sizeof(T)>(x, sx, scale, y, rstd, rows, d, eps, stream);
-  return fwd_v<T, 1>(x, sx, scale, y, rstd, rows, d, eps, stream);
+int fwd(const void* x, long long sx, const void* scale, void* y, float* rstd,
+        const float* ss_in, float* ss_out, int rows, int d, float dn, float eps, int vec,
+        cudaStream_t stream) {
+  if (vec)
+    return fwd_v<T, 16 / sizeof(T)>(x, sx, scale, y, rstd, ss_in, ss_out, rows, d, dn, eps,
+                                    stream);
+  return fwd_v<T, 1>(x, sx, scale, y, rstd, ss_in, ss_out, rows, d, dn, eps, stream);
 }
 
 template <typename T>
 int bwd(const void* x, long long sx, const void* scale, const void* gy, long long sg,
-        const float* rstd, void* dx, void* dscale, float* part, int rows, int d, int vec,
-        cudaStream_t stream) {
+        const float* rstd, const float* dot_in, float* dot_out, void* dx, void* dscale,
+        float* part, int rows, int d, float dn, int vec, cudaStream_t stream) {
   if (vec)
-    return bwd_v<T, 16 / sizeof(T)>(x, sx, scale, gy, sg, rstd, dx, dscale, part, rows, d,
-                                    stream);
-  return bwd_v<T, 1>(x, sx, scale, gy, sg, rstd, dx, dscale, part, rows, d, stream);
+    return bwd_v<T, 16 / sizeof(T)>(x, sx, scale, gy, sg, rstd, dot_in, dot_out, dx, dscale,
+                                    part, rows, d, dn, stream);
+  return bwd_v<T, 1>(x, sx, scale, gy, sg, rstd, dot_in, dot_out, dx, dscale, part, rows, d,
+                     dn, stream);
 }
 
 int vec_width(int dtype) { return dtype == 0 ? 4 : 8; }
+
+
+// The whole row's width: d_norm, or the columns held when it is 0.
+float row_width(int d, int d_norm) { return (float)(d_norm > 0 ? d_norm : d); }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, scale and y alike).  rstd (rows,) f32
 // may be null.  vec: x's start, its row stride sx (in elements), scale's
-// start and d all allow 16-byte vectors.
+// start and d all allow 16-byte vectors.  Rows cut over ranks: with ss_out
+// (rows,) f32 the launch writes the rows' sums of squares there and
+// nothing else (y and rstd unused); with ss_in it normalises by
+// rsqrt(ss_in / d_norm + eps) instead of the rows' own; both null and
+// d_norm 0 is the plain norm.
 extern "C" int rmsnorm_fwd(const void* x, long long sx, const void* scale, void* y, void* rstd,
-                           int rows, int d, float eps, int dtype, int vec, void* stream) {
+                           const void* ss_in, void* ss_out, int d_norm, int rows, int d,
+                           float eps, int dtype, int vec, void* stream) {
   if (rows < 1 || d < 1 || d > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pr = static_cast<float*>(rstd);
-  if (dtype == 0) return fwd<float>(x, sx, scale, y, pr, rows, d, eps, vec, s);
-  if (dtype == 1) return fwd<__nv_bfloat16>(x, sx, scale, y, pr, rows, d, eps, vec, s);
+  const float* si = static_cast<const float*>(ss_in);
+  float* so = static_cast<float*>(ss_out);
+  const float dn = row_width(d, d_norm);
+  if (dtype == 0) return fwd<float>(x, sx, scale, y, pr, si, so, rows, d, dn, eps, vec, s);
+  if (dtype == 1)
+    return fwd<__nv_bfloat16>(x, sx, scale, y, pr, si, so, rows, d, dn, eps, vec, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -472,17 +516,26 @@ extern "C" int rmsnorm_bwd_scratch_rows(int rows, int d, int dtype, int vec) {
 
 // dx (rows, d) contiguous in x's dtype; dscale (d,) in scale's dtype; part
 // the f32 scratch of rmsnorm_bwd_scratch_rows rows.  vec: as for
-// rmsnorm_fwd, over x, g (row stride sg) and scale.
+// rmsnorm_fwd, over x, g (row stride sg) and scale.  Rows cut over ranks:
+// with dot_out (rows,) f32 the launch writes the rows' sums of g * s * x
+// there and nothing else (dx, dscale and part unused); with dot_in, dx
+// takes dot_in / d_norm for the rows' mean of g * s * x.
 extern "C" int rmsnorm_bwd(const void* x, long long sx, const void* scale, const void* gy,
-                           long long sg, const void* rstd, void* dx, void* dscale, void* part,
-                           int rows, int d, int dtype, int vec, void* stream) {
+                           long long sg, const void* rstd, const void* dot_in, void* dot_out,
+                           int d_norm, void* dx, void* dscale, void* part, int rows, int d,
+                           int dtype, int vec, void* stream) {
   if (rows < 1 || d < 1 || d > kMaxD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pr = static_cast<const float*>(rstd);
+  const float* di = static_cast<const float*>(dot_in);
+  float* dout = static_cast<float*>(dot_out);
   float* pp = static_cast<float*>(part);
-  if (dtype == 0) return bwd<float>(x, sx, scale, gy, sg, pr, dx, dscale, pp, rows, d, vec, s);
+  const float dn = row_width(d, d_norm);
+  if (dtype == 0)
+    return bwd<float>(x, sx, scale, gy, sg, pr, di, dout, dx, dscale, pp, rows, d, dn, vec, s);
   if (dtype == 1)
-    return bwd<__nv_bfloat16>(x, sx, scale, gy, sg, pr, dx, dscale, pp, rows, d, vec, s);
+    return bwd<__nv_bfloat16>(x, sx, scale, gy, sg, pr, di, dout, dx, dscale, pp, rows, d, dn,
+                              vec, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -313,6 +313,50 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return y.reshape(*lead, d)
 
 
+# Rows cut over ranks: x (rows, d) this rank's columns of rows d_norm wide.
+# The two statistics functions give a (rows,) f32 vector that the caller
+# sums over the ranks before the pass that takes it.
+
+
+def rmsnorm_sumsq(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The rows' f32 sums of squares over x's columns: kernel 2's forward
+    statistics launch on the card, the plain version on the CPU."""
+    if not x.is_cuda:
+        return _ref.rmsnorm_sumsq_ref(x)
+    return _rn.rmsnorm_sumsq_cuda(x, scale)
+
+
+def rmsnorm_given(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                  ss: torch.Tensor, d_norm: int):
+    """``(y, rstd)`` of x's columns normalised by the whole rows' sums of
+    squares ``ss``: kernel 2's forward on the card, the plain version on
+    the CPU."""
+    if not x.is_cuda:
+        return _ref.rmsnorm_given_ref(x, scale, eps, ss, d_norm)
+    return _rn.rmsnorm_fwd_cuda(x, scale, eps, ss=ss, d_norm=d_norm)
+
+
+def rmsnorm_dot(x: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor,
+                g: torch.Tensor) -> torch.Tensor:
+    """The rows' f32 sums of ``g * scale * x`` over x's columns: kernel 2's
+    backward statistics launch on the card, the plain version on the
+    CPU."""
+    if not x.is_cuda:
+        return _ref.rmsnorm_dot_ref(x, scale, g)
+    return _rn.rmsnorm_dot_cuda(x, scale, rstd, g)
+
+
+def rmsnorm_given_bwd(x: torch.Tensor, scale: torch.Tensor,
+                      rstd: torch.Tensor, g: torch.Tensor, dot: torch.Tensor,
+                      d_norm: int):
+    """``(dx, dscale)`` of ``rmsnorm_given`` given the whole rows' sums
+    ``dot`` of g * scale * x: kernel 2's backward on the card, the plain
+    version on the CPU."""
+    if not x.is_cuda:
+        return _ref.rmsnorm_given_bwd_ref(x, scale, rstd, g, dot, d_norm)
+    return _rn.rmsnorm_bwd_cuda(x, scale, rstd, g, dot=dot, d_norm=d_norm)
+
+
 # ---------------------------------------------------------------------------
 # flash attention  (model layout: q (b, sq, h, hd), k/v (b, sk, kvh, hd))
 # ---------------------------------------------------------------------------

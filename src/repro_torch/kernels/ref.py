@@ -44,6 +44,41 @@ def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
+def rmsnorm_sumsq_ref(x: torch.Tensor) -> torch.Tensor:
+    """The rows' f32 sums of squares over x's columns: x (rows, d) ->
+    (rows,)."""
+    return torch.sum(torch.square(x.float()), dim=-1)
+
+
+def rmsnorm_given_ref(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                      ss: torch.Tensor, d_norm: int):
+    """``rmsnorm_ref`` of rows ``d_norm`` wide of which x (rows, d) holds d
+    columns, given the rows' sums of squares ``ss`` (rows,) over all of
+    them -> ``(y in x's dtype, rstd (rows,) f32)``."""
+    r = torch.rsqrt(ss / d_norm + eps)
+    y = (x.float() * r[:, None] * scale.float()).to(x.dtype)
+    return y, r
+
+
+def rmsnorm_dot_ref(x: torch.Tensor, scale: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """The rows' f32 sums of ``g * scale * x`` over x's columns: (rows,)."""
+    return torch.sum(g.float() * scale.float() * x.float(), dim=-1)
+
+
+def rmsnorm_given_bwd_ref(x: torch.Tensor, scale: torch.Tensor,
+                          rstd: torch.Tensor, g: torch.Tensor,
+                          dot: torch.Tensor, d_norm: int):
+    """``rmsnorm_bwd_ref`` on x's columns of rows ``d_norm`` wide, given
+    their ``rstd`` and the rows' sums ``dot`` of g * scale * x over all
+    columns -> ``(dx in x's dtype, dscale over x's columns in scale's)``."""
+    xf, gf, sf = x.float(), g.float(), scale.float()
+    r = rstd[:, None]
+    dx = r * (gf * sf) - xf * r ** 3 * (dot / d_norm)[:, None]
+    dscale = torch.sum(gf * xf * r, dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None,

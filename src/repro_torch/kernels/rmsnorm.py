@@ -16,6 +16,12 @@ and each wrapper makes one ctypes call on PyTorch's current stream, raising
 if it returns a CUDA error.  The plain versions are
 ``repro_torch.kernels.ref.rmsnorm_ref`` and ``rmsnorm_bwd_ref``;
 ``repro_torch.kernels.ops.rmsnorm`` picks between them by device.
+
+Rows cut over ranks (Mamba's gated norm under tensor parallelism) take
+two launches a pass: a statistics launch (``rmsnorm_sumsq_cuda``,
+``rmsnorm_dot_cuda``) whose (rows,) f32 output the caller sums over the
+ranks, then the pass given that sum and the whole row's width
+(``ss=`` / ``dot=`` with ``d_norm=``).  Each launch counts one.
 """
 from __future__ import annotations
 
@@ -44,10 +50,10 @@ def _bind() -> None:
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fwd, bwd, rows = lib.rmsnorm_fwd, lib.rmsnorm_bwd, \
         lib.rmsnorm_bwd_scratch_rows
-    fwd.argtypes = [ptr, i64, ptr, ptr, ptr, i32, i32, ctypes.c_float, i32,
-                    i32, ptr]
-    bwd.argtypes = [ptr, i64, ptr, ptr, i64, ptr, ptr, ptr, ptr, i32, i32,
-                    i32, i32, ptr]
+    fwd.argtypes = [ptr, i64, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                    ctypes.c_float, i32, i32, ptr]
+    bwd.argtypes = [ptr, i64, ptr, ptr, i64, ptr, ptr, ptr, i32, ptr, ptr,
+                    ptr, i32, i32, i32, i32, ptr]
     rows.argtypes = [i32] * 4
     for fn in (fwd, bwd, rows):
         fn.restype = i32
@@ -90,36 +96,69 @@ def _stream(x: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
-def rmsnorm_fwd_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
-                     need_rstd: bool = True):
-    """``(y, rstd)``: y (rows, d) in x's dtype, rstd (rows,) f32 — or None
-    with ``need_rstd=False``, when no backward will follow."""
+def _row_stats(t: torch.Tensor, x: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` is a (rows,) f32 vector of x's rows on its
+    device."""
+    if t.dim() != 1 or t.shape[0] != x.shape[0] \
+            or t.dtype != torch.float32 \
+            or t.get_device() != x.get_device() or t.stride(0) != 1:
+        raise ValueError(f"{what} must be the rows' (rows,) float32")
+
+
+def _launch_fwd(x, scale, eps, y, rstd, ss_in, ss_out, d_norm) -> None:
     global fwd_launches
     code = _check(x, scale)
     rows, d = x.shape
+    if not rows:
+        return
+    if _fwd is None:
+        _bind()
+    xp, sp, sx = x.data_ptr(), scale.data_ptr(), x.stride(0)
+    es = x.element_size()
+    vec = not (xp | sp | (sx | d) * es) & 15
+    err = _fwd(xp, sx, sp, None if y is None else y.data_ptr(),
+               None if rstd is None else rstd.data_ptr(),
+               None if ss_in is None else ss_in.data_ptr(),
+               None if ss_out is None else ss_out.data_ptr(), d_norm, rows,
+               d, eps, code, vec, _stream(x))
+    if err:
+        raise RuntimeError(f"rmsnorm forward launch failed: CUDA error "
+                           f"{err}")
+    fwd_launches += 1
+
+
+def rmsnorm_fwd_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float, *,
+                     need_rstd: bool = True, ss: torch.Tensor = None,
+                     d_norm: int = 0):
+    """``(y, rstd)``: y (rows, d) in x's dtype, rstd (rows,) f32 — or None
+    with ``need_rstd=False``, when no backward will follow.  With ``ss``
+    (the rows' (rows,) f32 sums of squares over all ``d_norm`` columns of
+    which x holds d), the rows are normalised by those instead of their
+    own."""
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    rstd = x.new_empty((rows,), dtype=torch.float32) if need_rstd else None
-    if rows:
-        if _fwd is None:
-            _bind()
-        xp, sp, sx = x.data_ptr(), scale.data_ptr(), x.stride(0)
-        es = x.element_size()
-        vec = not (xp | sp | (sx | d) * es) & 15
-        err = _fwd(xp, sx, sp, y.data_ptr(),
-                   None if rstd is None else rstd.data_ptr(), rows, d, eps,
-                   code, vec, _stream(x))
-        if err:
-            raise RuntimeError(f"rmsnorm forward launch failed: CUDA error "
-                               f"{err}")
-        fwd_launches += 1
+    rstd = x.new_empty((x.shape[0],), dtype=torch.float32) if need_rstd \
+        else None
+    if ss is not None:
+        _row_stats(ss, x, "ss")
+        if d_norm < x.shape[1]:
+            raise ValueError(f"a row of d_norm={d_norm} columns cannot hold "
+                             f"x's {x.shape[1]}")
+    _launch_fwd(x, scale, eps, y, rstd, ss, None, d_norm if ss is not None
+                else 0)
     return y, rstd
 
 
-def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
-                     rstd: torch.Tensor, g: torch.Tensor):
-    """``(dx, dscale)`` of the forward above for upstream gradient ``g``:
-    dx (rows, d) in x's dtype, dscale (d,) in scale's, summed over rows in
-    an order fixed by the shape (no atomics: equal inputs, equal bits)."""
+def rmsnorm_sumsq_cuda(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The rows' f32 sums of squares over x's columns (``(rows,)``), the
+    forward's statistics launch (``scale`` as the forward takes it)."""
+    ss = x.new_empty((x.shape[0],), dtype=torch.float32)
+    _launch_fwd(x, scale, 0.0, None, None, None, ss, 0)
+    return ss
+
+
+def _launch_bwd(x, scale, rstd, g, dot_in, dot_out, d_norm):
+    """The backward launch -> (dx, dscale), or ``(None, None)`` in the
+    statistics mode (``dot_out``)."""
     global bwd_launches
     code = _check(x, scale)
     rows, d = x.shape
@@ -127,30 +166,60 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
             or g.get_device() != x.get_device() or g.stride(1) != 1:
         raise ValueError("g must match x in shape, dtype and device, with "
                          "unit column stride")
-    if rstd.dim() != 1 or rstd.shape[0] != rows \
-            or rstd.dtype != torch.float32 \
-            or rstd.get_device() != x.get_device() or rstd.stride(0) != 1:
-        raise ValueError("rstd must be the forward's (rows,) float32")
-    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
-    dscale = torch.empty_like(scale)
+    _row_stats(rstd, x, "rstd")
+    stats = dot_out is not None
+    dx = None if stats else torch.empty_like(
+        x, memory_format=torch.contiguous_format)
+    dscale = None if stats else torch.empty_like(scale)
     if not rows:
-        return dx, dscale.zero_()
+        return dx, None if stats else dscale.zero_()
     if _bwd is None:
         _bind()
     xp, sp, gp, sx, sg = (x.data_ptr(), scale.data_ptr(), g.data_ptr(),
                           x.stride(0), g.stride(0))
     es = x.element_size()
     vec = not (xp | sp | gp | (sx | sg | d) * es) & 15
-    part = x.new_empty((_scratch_rows(rows, d, code, vec), d),
-                       dtype=torch.float32)
-    err = _bwd(xp, sx, sp, gp, sg, rstd.data_ptr(), dx.data_ptr(),
-               dscale.data_ptr(), part.data_ptr(), rows, d, code, vec,
+    part = None if stats else x.new_empty(
+        (_scratch_rows(rows, d, code, vec), d), dtype=torch.float32)
+    err = _bwd(xp, sx, sp, gp, sg, rstd.data_ptr(),
+               None if dot_in is None else dot_in.data_ptr(),
+               None if dot_out is None else dot_out.data_ptr(), d_norm,
+               None if stats else dx.data_ptr(),
+               None if stats else dscale.data_ptr(),
+               None if stats else part.data_ptr(), rows, d, code, vec,
                _stream(x))
     if err:
         raise RuntimeError(f"rmsnorm backward launch failed: CUDA error "
                            f"{err}")
     bwd_launches += 1
     return dx, dscale
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor,
+                     rstd: torch.Tensor, g: torch.Tensor, *,
+                     dot: torch.Tensor = None, d_norm: int = 0):
+    """``(dx, dscale)`` of the forward above for upstream gradient ``g``:
+    dx (rows, d) in x's dtype, dscale (d,) in scale's, summed over rows in
+    an order fixed by the shape (no atomics: equal inputs, equal bits).
+    With ``dot`` (the rows' (rows,) f32 sums of g * scale * x over all
+    ``d_norm`` columns, as ``rmsnorm_fwd_cuda``'s ``ss``), dx takes their
+    mean from it."""
+    if dot is not None:
+        _row_stats(dot, x, "dot")
+        if d_norm < x.shape[1]:
+            raise ValueError(f"a row of d_norm={d_norm} columns cannot hold "
+                             f"x's {x.shape[1]}")
+    return _launch_bwd(x, scale, rstd, g, dot, None,
+                       d_norm if dot is not None else 0)
+
+
+def rmsnorm_dot_cuda(x: torch.Tensor, scale: torch.Tensor,
+                     rstd: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The rows' f32 sums of ``g * scale * x`` over x's columns
+    (``(rows,)``), the backward's statistics launch."""
+    dot = x.new_empty((x.shape[0],), dtype=torch.float32)
+    _launch_bwd(x, scale, rstd, g, None, dot, 0)
+    return dot
 
 
 class RMSNormFn(torch.autograd.Function):

@@ -16,12 +16,13 @@ Every number in it carries a label: ``measured_meta`` (read off the device
 program's meta run: the local shapes' bytes, the peak of live meta storage,
 ``FlopCounterMode``'s FLOPs, the collective record of the rank's local
 step (its client's FSDP gathers and gradient reductions, ``launch.fsdp``,
-and a dense decoder's TP reductions over "model", ``launch.tp``) and
-consensus period against ``consensus.DryGroup``s) or ``analytic_split`` (a
-part the port runs whole where the reference shards it, divided evenly by
-the plan's degree, ``meta["compute_shards"]``: the tensor parallelism over
-"model" of the families whose TP is not ported (MoE, MLA, Mamba, the
-encoder-decoder, the vision frontend) and the serve split; and the
+and the TP collectives over "model", ``launch.tp``, of the dense decoders,
+the MoE and MLA families and Mamba-2 with Jamba) and consensus period
+against ``consensus.DryGroup``s) or ``analytic_split`` (a part the port
+runs whole where the reference shards it, divided evenly by the plan's
+degree, ``meta["compute_shards"]``: the tensor parallelism over "model"
+of the families whose TP is not ported (the encoder-decoder, the vision
+frontend) and the serve split; and the
 roofline's napkin terms on the H100 datasheet constants of
 ``launch.roofline``).  None is a measurement on a device.
 """

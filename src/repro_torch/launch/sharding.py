@@ -191,17 +191,16 @@ KV_HD_FALLBACK = ("w_k", "w_v")
 #: sum that ``launch.tp`` reduces
 MOE_DFF_FALLBACK = ("w_gate", "w_up", "w_down")
 
-#: the leaves ``launch.tp`` multiplies as pieces: each must be cut over
-#: "model" for the rank-local step to run a client's layers TP (the dense
-#: decoders', the MoE expert tables, MLA's q latent and per-head
-#: projections)
+#: the leaves ``launch.tp`` multiplies or gathers as pieces: each must be
+#: cut over "model" for the rank-local step to run a client's layers TP
+#: (the dense decoders', the MoE expert tables, MLA's q latent and per-head
+#: projections, Mamba's in_proj blocks, conv leaves and out_proj rows)
 _TP_CUT = ("embed", "head", "w_q", "w_o", "gate", "up", "down",
-           "w_gate", "w_up", "w_down", "w_dq", "w_uq", "w_ukv")
+           "w_gate", "w_up", "w_down", "w_dq", "w_uq", "w_ukv",
+           "in_proj", "conv_w", "conv_b", "out_proj")
 
 #: leaf names of the families whose TP is not ported, each named
 _TP_REFUSED = (
-    (("in_proj", "out_proj", "conv_w"),
-     "Mamba (in_proj's concatenated z/x/B/C/dt output cut over 'model')"),
     (("encoder", "cross_attn"), "the encoder-decoder"),
 )
 
@@ -258,7 +257,8 @@ def tp_refusal(spec_tree: Any) -> Optional[str]:
     if whole:
         return (f"tensor parallelism over 'model' multiplies pieces of "
                 f"{sorted(set(whole))}, which this axis leaves whole (a "
-                f"head count, d_ff, q latent or vocab it does not divide)")
+                f"head count, d_ff, q latent, Mamba width or vocab it does "
+                f"not divide)")
     return None
 
 

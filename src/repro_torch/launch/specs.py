@@ -17,12 +17,14 @@ Shape -> program:
 
 A train program's local step is the rank's piece of its client: FSDP over
 "replica", the batch over "replica" and, under ``batch_over_model``,
-"model", and for a dense decoder (qwen3, gemma2, command_r) tensor
-parallelism over "model" run as the rank-local epoch step runs them
-(``launch.fsdp``, ``launch.tp``: their gathers and reductions against
-``consensus.DryGroup``s).  Where the reference shards a computation the
-port runs whole (the TP of the families whose TP is not ported, the serve
-split, the sequence-sharded long-context cache), the program runs it whole
+"model", and tensor parallelism over "model" for the dense decoders
+(qwen3, gemma2, command_r), the MoE and MLA families (mixtral,
+deepseek_v2) and Mamba-2 (mamba2, jamba) run as the rank-local epoch step
+runs them (``launch.fsdp``, ``launch.tp``: their gathers and reductions
+against ``consensus.DryGroup``s).  Where the reference shards a
+computation the port runs whole (the TP of the families whose TP is not
+ported: the encoder-decoder, the vision frontend; the serve split, the
+sequence-sharded long-context cache), the program runs it whole
 at the device's batch and ``meta["unsharded"]`` names it with
 ``meta["compute_shards"]``, the plan's degree the dry run divides it by.
 Modality carve-out: audio / vlm archs get precomputed frame / patch
@@ -255,11 +257,11 @@ def build_train_program(arch_id: str, shape: InputShape, *,
                           params)
     pspecs = shd.fl_param_specs(client_abs, mesh, tp_axis=tp_axis)
     sspecs = shd.fl_server_specs(server_abs, mesh, tp_axis=tp_axis)
-    # the rank runs its client's FSDP, batch split and, for a dense
-    # decoder, TP itself (launch.fsdp, launch.tp); the TP of the other
-    # families is still run whole
+    # the rank runs its client's FSDP, batch split and, where ported, TP
+    # itself (launch.fsdp, launch.tp); the TP of the other families is
+    # still run whole
     tp_ported = (tp_axis is not None and tp > 1
-                 and tf.tp_refusal(cfg) is None
+                 and tf.tp_refusal(cfg, tp) is None
                  and shd.tp_refusal(sspecs) is None)
     compute_shards = tp if tp_axis and not tp_ported else 1
     batch_full = token_batch_specs(cfg, (topo.t_client, m, n, per_client),
@@ -336,7 +338,7 @@ def build_train_program(arch_id: str, shape: InputShape, *,
     if compute_shards > 1:
         unsharded.append(
             f"a client's layers tensor parallel over {tp} 'model' ranks "
-            f"({tf.tp_refusal(cfg) or shd.tp_refusal(sspecs)}): run whole "
+            f"({tf.tp_refusal(cfg, tp) or shd.tp_refusal(sspecs)}): run whole "
             f"at the device's batch of {per_device}, and their reductions "
             f"inside a layer not run, not counted")
     unsharded.extend(unsharded_mix)

@@ -43,6 +43,29 @@ The MoE and MLA families (Mixtral, DeepSeek-V2) cut the same way:
   heads, ``w_o`` row-parallel; ``w_dkv`` and both norms read whole, their
   partial gradients through ``replicated``.
 
+The Mamba-2 mixer (Mamba2-780M, Jamba's mamba layers) cuts over its
+heads, with the reference's leaves cut where its rules cut them:
+
+* ``in_proj`` is column-parallel over its ``[z | x | B | C | dt]``
+  columns, whose blocks do not fall on those boundaries (a rank's block
+  of Mamba2-780M's 6448 columns at TP 2 is z whole and the first 152 x
+  channels).  The rank multiplies its block after ``copy``, then
+  ``gather_ssm`` all-gathers the blocks whole (activations, not weights)
+  with the depthwise conv's ``conv_w`` / ``conv_b``, whose xBC channels
+  are cut without regard to heads; the rank takes z, x and dt of its own
+  heads and B, C whole.  Their gradient, exact on the rank's channels and
+  partial on B, C and the conv's, is summed over "model" and cut back to
+  the pieces;
+* the SSD scan runs on the rank's heads; ``a_log``, ``dt_bias``,
+  ``d_skip`` are read per head, so through ``replicated``;
+* the gated RMSNorm runs over the whole d_inner: ``norm`` sums the rows'
+  f32 sums of squares over the rank's channels over "model", and the norm
+  kernel scales the rank's channels by the whole rows'; backward, the
+  rows' sums of g * scale * x are summed the same way, and dx and the
+  rank's dscale follow from them (its ``scale`` through ``replicated``);
+* ``out_proj`` is row-parallel over d_inner, whose contiguous blocks are a
+  rank's heads, and ends in ``reduce``.
+
 Each collective is one ``consensus.all_reduce_`` (or, for a gather,
 ``all_gather_rows``) under a site of its own, so
 ``consensus.collective_counts()`` reports them: ``tp_forward`` (g, and the
@@ -51,7 +74,10 @@ embedding's), ``tp_backward`` (f), ``tp_gates`` (f on the MoE gates),
 the target logit), ``tp_replicated`` (a replicated leaf's partial
 gradient), ``tp_kv_gather`` / ``tp_kv_reduce`` (the fallback's gather and
 its gradient's sum), ``tp_latent_gather`` / ``tp_latent_reduce`` (MLA's q
-latent, the same two).
+latent, the same two), ``tp_ssm_gather`` / ``tp_ssm_reduce`` (Mamba's
+``in_proj`` blocks with the conv leaves, the same two) and
+``tp_ssm_norm`` / ``tp_ssm_norm_reduce`` (the gated norm's row sums,
+forward and backward).
 
 The model code takes a ``ModelParallel`` through
 ``models.transformer.ApplyOptions.tp`` and calls only its methods.
@@ -61,6 +87,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import consensus as cns
+from repro_torch.kernels import ops
 
 
 class ModelParallel:
@@ -112,6 +139,28 @@ class ModelParallel:
         its whole gradient, partial on a rank that reads it for its own
         heads only, summed and cut back to the piece."""
         return _Gather.apply(-1, self, _LATENT_SITES, piece)[0]
+
+    def gather_ssm(self, block: torch.Tensor, conv_w: torch.Tensor,
+                   conv_b: torch.Tensor) -> list:
+        """Mamba's whole ``x @ in_proj`` (``(b, s, W)``) from the ranks'
+        column blocks ``block`` (``(b, s, W / size)``) and the whole conv
+        leaves from their pieces, each cut along its last dim, in one
+        all-gather (site ``tp_ssm_gather``); their whole gradients,
+        partial on a rank that reads its own heads' channels (and B, C and
+        the conv's whole), summed in one all-reduce (site
+        ``tp_ssm_reduce``) and cut back to the pieces."""
+        return list(_Gather.apply(-1, self, _SSM_SITES, block, conv_w,
+                                  conv_b))
+
+    def norm(self, piece: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+        """RMSNorm over rows whose columns the ranks share: ``piece``
+        (``(..., d / size)``) this rank's columns and ``scale`` their
+        entries.  The rows' f32 sums of squares over the piece are summed
+        over "model" (site ``tp_ssm_norm``, one (...,) vector), and the
+        piece is normalised by the whole rows'; backward, the rows' sums
+        of g * scale * x the same way (site ``tp_ssm_norm_reduce``)."""
+        return _Norm.apply(piece, scale, eps, self)
 
     # -- the vocab-parallel embedding and cross-entropy ----------------------
 
@@ -170,6 +219,8 @@ class _Reduce(torch.autograd.Function):
 #: (gather, reduce) sites of ``_Gather``: the kv fallback's, MLA's latent's
 _KV_SITES = ("tp_kv_gather", "tp_kv_reduce")
 _LATENT_SITES = ("tp_latent_gather", "tp_latent_reduce")
+#: Mamba's: the in_proj blocks with the conv leaves
+_SSM_SITES = ("tp_ssm_gather", "tp_ssm_reduce")
 
 
 class _Gather(torch.autograd.Function):
@@ -192,6 +243,34 @@ class _Gather(torch.autograd.Function):
             off += g.numel()
             out.append(whole.narrow(d, ctx.mp.pos * n, n).contiguous())
         return (None, None, None) + tuple(out)
+
+
+class _Norm(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, mp: ModelParallel):
+        lead, dl = x.shape[:-1], x.shape[-1]
+        x2 = x.reshape(-1, dl)
+        if x2.stride(1) != 1:
+            x2 = x2.contiguous()
+        ss = ops.rmsnorm_sumsq(x2, scale)
+        cns.all_reduce_(ss, mp.group, site="tp_ssm_norm")
+        y, rstd = ops.rmsnorm_given(x2, scale, eps, ss, dl * mp.size)
+        ctx.mp = mp
+        ctx.save_for_backward(x2, scale, rstd)
+        return y.reshape(*lead, dl)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, scale, rstd = ctx.saved_tensors
+        g2 = g.reshape(x2.shape)
+        if g2.stride(1) != 1:
+            g2 = g2.contiguous()
+        dot = ops.rmsnorm_dot(x2, scale, rstd, g2)
+        cns.all_reduce_(dot, ctx.mp.group, site="tp_ssm_norm_reduce")
+        dx, dscale = ops.rmsnorm_given_bwd(x2, scale, rstd, g2, dot,
+                                           x2.shape[1] * ctx.mp.size)
+        return dx.reshape(g.shape), dscale, None, None
 
 
 class _VocabCE(torch.autograd.Function):

@@ -68,14 +68,20 @@ def mamba_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
 
 
 def _split_proj(params, x, cfg: ArchConfig):
+    zxbcdt = torch.einsum("bsd,de->bse", x, params["in_proj"])
+    return _split(zxbcdt, params["dt_bias"], cfg)
+
+
+def _split(zxbcdt, dt_bias, cfg: ArchConfig):
+    """in_proj's output -> z, xbc, dt: (b,s,di), (b,s,conv_ch), (b,s,nh)
+    f32."""
     m = cfg.mamba
     di = m.d_inner(cfg.d_model)
-    zxbcdt = torch.einsum("bsd,de->bse", x, params["in_proj"])
     z, xbc, dt = torch.split(
         zxbcdt, [di, di + 2 * N_GROUPS * m.d_state,
                  zxbcdt.shape[-1] - 2 * di - 2 * N_GROUPS * m.d_state], dim=-1)
-    dt = softplus(dt.float() + params["dt_bias"].float())
-    return z, xbc, dt  # (b,s,di), (b,s,conv_ch), (b,s,nh) f32
+    dt = softplus(dt.float() + dt_bias.float())
+    return z, xbc, dt
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -89,13 +95,13 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
 
 
 def _split_xbc(xbc, cfg: ArchConfig):
+    """xbc (all heads', or a TP rank's, x channels, then B and C) -> xs
+    (b,s,heads,hd), bs / cs (b,s,g,ds)."""
     m = cfg.mamba
-    di = m.d_inner(cfg.d_model)
-    nh = m.num_heads(cfg.d_model)
-    xs, bs, cs = torch.split(xbc, [di, N_GROUPS * m.d_state,
-                                   N_GROUPS * m.d_state], dim=-1)
+    ds = N_GROUPS * m.d_state
+    xs, bs, cs = torch.split(xbc, [xbc.shape[-1] - 2 * ds, ds, ds], dim=-1)
     b, s = xs.shape[:2]
-    xs = xs.reshape(b, s, nh, m.head_dim)
+    xs = xs.reshape(b, s, -1, m.head_dim)
     bs = bs.reshape(b, s, N_GROUPS, m.d_state)
     cs = cs.reshape(b, s, N_GROUPS, m.d_state)
     return xs, bs, cs
@@ -182,20 +188,85 @@ def ssd_chunked(xs, bs, cs, dt, a_coef, chunk: int):
     return y[:, :orig_s], h
 
 
+def _gate(y, xs, z, d_skip) -> torch.Tensor:
+    """The skip term and the gate after the scan: (b, s, heads * hd)
+    f32."""
+    y = y + xs.float() * d_skip.float()[:, None]
+    return y.reshape(z.shape) * silu(z.float())
+
+
 def _mix_out(params, x, xs, z, y, cfg: ArchConfig) -> torch.Tensor:
     """Skip term, gate, gated norm and out-projection after the scan (or
     the decode step's state update)."""
-    y = y + xs.float() * params["d_skip"].float()[:, None]
-    y = y.reshape(x.shape[0], x.shape[1], -1)
-    y = y * silu(z.float())
+    y = _gate(y, xs, z, params["d_skip"])
     y = rmsnorm_apply(params["norm"], y.to(x.dtype), cfg.norm_eps)
-    return torch.einsum("bsd,de->bse", y, params["out_proj"])
+    return torch.einsum("bsi,id->bsd", y, params["out_proj"])
 
 
 def mamba_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
-                impl: str = "reference") -> torch.Tensor:
-    """Full-sequence forward (training / prefill)."""
+                impl: str = "reference", tp=None) -> torch.Tensor:
+    """Full-sequence forward (training / prefill); under ``tp`` (a
+    ``launch.tp.ModelParallel``) on the rank's heads (``_tp_apply``)."""
+    if tp is not None:
+        return _tp_apply(params, x, cfg, impl, tp)
     return mamba_prefill(params, x, cfg, impl=impl)[0]
+
+
+def _scan(xs, bs, cs, dt, a_coef, chunk: int, impl: str):
+    """The SSD scan -> (y, final state): kernel 9 (its plain version off
+    the card) under ``impl="kernel"``, else ``ssd_chunked``."""
+    if impl == "kernel":
+        return kops.ssd_scan(xs, bs, cs, dt, a_coef, chunk=chunk)
+    if impl == "reference":
+        return ssd_chunked(xs, bs, cs, dt, a_coef, chunk)
+    raise ValueError(f"impl must be 'reference' or 'kernel', got {impl!r}")
+
+
+def _tp_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, impl: str,
+              tp) -> torch.Tensor:
+    """``mamba_apply`` on this rank's heads ``[p nh / tp, (p + 1) nh / tp)``
+    from its pieces as ``launch.sharding`` cuts them (``launch.tp``'s
+    Mamba layout): its ``in_proj`` column block after ``tp.copy``, the
+    blocks gathered whole with the conv leaves (``gather_ssm``), the conv
+    and the scan on the rank's x channels with B and C whole, the gated
+    norm of the rank's channels over the whole d_inner (``tp.norm``),
+    ``out_proj``'s rows of those channels, reduced.  The per-head leaves
+    and the norm's scale pass ``tp.replicated`` as one flat tensor."""
+    m = cfg.mamba
+    di, nh = m.d_inner(cfg.d_model), m.num_heads(cfg.d_model)
+    ds = N_GROUPS * m.d_state
+    width = 2 * di + 2 * ds + nh
+    hl = nh // tp.size
+    if hl * tp.size != nh or params["in_proj"].shape[-1] * tp.size != width:
+        raise ValueError(f"tensor parallelism over 'model' runs a rank's "
+                         f"Mamba heads from its in_proj block: {nh} heads "
+                         f"and {width} in_proj columns over {tp.size} model "
+                         f"ranks")
+    dl = hl * m.head_dim
+    lo, h_lo = tp.pos * dl, tp.pos * hl
+
+    def mine(t):
+        """The rank's x channels, then B and C, of an xBC-wide ``t``."""
+        return torch.cat([t[..., lo:lo + dl], t[..., di:]], dim=-1)
+
+    block = torch.einsum("bsd,de->bse", tp.copy(x), params["in_proj"])
+    zxbcdt, conv_w, conv_b = tp.gather_ssm(block, params["conv_w"],
+                                           params["conv_b"])
+    rep = tp.replicated(torch.cat([params["norm"]["scale"], params["dt_bias"],
+                                   params["a_log"], params["d_skip"]]))
+    scale, dt_bias, a_log, d_skip = torch.split(rep, [di, nh, nh, nh])
+    z, xbc, dt = _split(zxbcdt, dt_bias, cfg)
+    # a copy of the rank's z, so that what backward keeps holds no whole
+    # (b, s, W) buffer
+    z = z[..., lo:lo + dl].contiguous()
+    dt = dt[..., h_lo:h_lo + hl]
+    xs, bs, cs = _split_xbc(_causal_conv(mine(xbc), mine(conv_w),
+                                         mine(conv_b)), cfg)
+    y, _ = _scan(xs, bs, cs, dt, -torch.exp(a_log[h_lo:h_lo + hl].float()),
+                 m.chunk_size, impl)
+    y = _gate(y, xs, z, d_skip[h_lo:h_lo + hl])
+    y = tp.norm(y.to(x.dtype), scale[lo:lo + dl], cfg.norm_eps)
+    return tp.reduce(torch.einsum("bsi,id->bsd", y, params["out_proj"]))
 
 
 def mamba_prefill(params: Dict, x: torch.Tensor, cfg: ArchConfig,
@@ -209,12 +280,7 @@ def mamba_prefill(params: Dict, x: torch.Tensor, cfg: ArchConfig,
     xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
     xs, bs, cs = _split_xbc(xbc, cfg)
     a_coef = -torch.exp(params["a_log"].float())
-    if impl == "kernel":
-        y, final = kops.ssd_scan(xs, bs, cs, dt, a_coef, chunk=m.chunk_size)
-    elif impl == "reference":
-        y, final = ssd_chunked(xs, bs, cs, dt, a_coef, m.chunk_size)
-    else:
-        raise ValueError(f"impl must be 'reference' or 'kernel', got {impl!r}")
+    y, final = _scan(xs, bs, cs, dt, a_coef, m.chunk_size, impl)
     out = _mix_out(params, x, xs, z, y, cfg)
     cache = {"conv": xbc_raw[:, -(m.d_conv - 1):].to(conv_cache_dtype),
              "ssm": final}

@@ -187,7 +187,7 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         mix = mamba_mod.mamba_apply(params["mixer"], h, cfg,
-                                    impl=_ssd_impl(opts))
+                                    impl=_ssd_impl(opts), tp=opts.tp)
     elif cfg.mla is not None:
         mix = nn.mla_apply(params["mixer"], h, cfg, tp=opts.tp)
     else:
@@ -519,7 +519,7 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
         cfg, dataclasses.replace(opts, provider=provider), loss_chunk)
 
     def with_tp(mp):
-        why = tp_refusal(cfg)
+        why = tp_refusal(cfg, mp.size)
         if why is not None:
             raise ValueError(why)
         return make_loss_fn(cfg, dataclasses.replace(opts, tp=mp),
@@ -529,20 +529,27 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
     return loss_fn
 
 
-def tp_refusal(cfg: ArchConfig) -> Optional[str]:
+def tp_refusal(cfg: ArchConfig, size: int) -> Optional[str]:
     """Why a client of ``cfg`` cannot run tensor parallel over "model"
-    (``launch.tp``), by name, or ``None`` for the dense decoders and the
-    MoE and MLA families (Mixtral, DeepSeek-V2); Jamba, MoE and Mamba, is
-    refused for its Mamba layers."""
+    (``launch.tp``) on ``size`` model ranks, by name, or ``None`` for the
+    dense decoders, the MoE and MLA families (Mixtral, DeepSeek-V2) and
+    Mamba-2 (Mamba2-780M; Jamba's mamba, attention and MoE layers) whose
+    heads ``size`` divides: the encoder-decoder and the vision frontend are
+    refused, and a Mamba head count ``size`` does not divide (a rank runs
+    whole heads)."""
     plan = stack_plan(cfg)
     kinds = {k for k, _ in _period_flags(cfg, plan)}
-    for bad, family in (("mamba" in kinds, "Mamba (in_proj's concatenated "
-                         "z/x/B/C/dt output cut over 'model')"),
-                        (cfg.encdec is not None, "the encoder-decoder"),
+    for bad, family in ((cfg.encdec is not None, "the encoder-decoder"),
                         (cfg.frontend is not None, "the vision frontend")):
         if bad:
             return (f"tensor parallelism over 'model' of {family} is not "
                     f"ported")
+    if "mamba" in kinds:
+        nh = cfg.mamba.num_heads(cfg.d_model)
+        if nh % size:
+            return (f"tensor parallelism over 'model' runs a rank's Mamba "
+                    f"heads: {nh} heads do not divide over {size} model "
+                    f"ranks")
     return None
 
 

@@ -194,6 +194,51 @@ def test_flash_attention_mode_counts_key_and_reset():
     assert ops.flash_attention_mode_counts() == {}
 
 
+def _cut_rows_norm(x, s, g, tp):
+    """The cut-row norm's plain passes over ``tp`` column pieces of x, the
+    rows' statistics summed over the pieces as the ranks' all-reduce sums
+    them -> (y, dx, dscale) with the pieces' columns put back together."""
+    d = x.shape[1]
+    xs, ss_, gs = x.chunk(tp, dim=1), s.chunk(tp), g.chunk(tp, dim=1)
+    sq = sum(ops.rmsnorm_sumsq(xp, sp) for xp, sp in zip(xs, ss_))
+    fwd = [ops.rmsnorm_given(xp, sp, 1e-6, sq, d) for xp, sp in zip(xs, ss_)]
+    dot = sum(ops.rmsnorm_dot(xp, sp, r, gp)
+              for xp, sp, gp, (_, r) in zip(xs, ss_, gs, fwd))
+    bwd = [ops.rmsnorm_given_bwd(xp, sp, r, gp, dot, d)
+           for xp, sp, gp, (_, r) in zip(xs, ss_, gs, fwd)]
+    return (torch.cat([y for y, _ in fwd], dim=1),
+            torch.cat([dx for dx, _ in bwd], dim=1),
+            torch.cat([ds for _, ds in bwd]))
+
+
+@pytest.mark.parametrize("rows,d,tp", [(5, 64, 2), (48, 120, 4)])
+def test_rmsnorm_cut_rows_plain_matches_jax_grad(rows, d, tp):
+    """Rows cut over ``tp`` ranks (Mamba's gated norm under tensor
+    parallelism): the plain statistics and given-statistics passes, summed
+    over the pieces, give the module's norm (1e-5) and ``jax.grad`` of it
+    (1e-4: sums in another order) on the whole rows."""
+    rng = np.random.default_rng(rows * d + tp)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    s = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((rows, d)).astype(np.float32)
+
+    def jloss(xx, ss):
+        return jnp.sum(rmsnorm_apply({"scale": ss}, xx) * g)
+
+    jy = rmsnorm_apply({"scale": jnp.asarray(s)}, jnp.asarray(x))
+    jdx, jds = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(s))
+    ops.reset_launch_counts()
+    y, dx, ds = _cut_rows_norm(torch.from_numpy(x), torch.from_numpy(s),
+                               torch.from_numpy(g), tp)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(jds), rtol=1e-4,
+                               atol=1e-4)
+    assert not any(ops.launch_counts().values())
+
+
 def test_rmsnorm_kernels_refuse_cpu_tensors():
     """The CUDA wrappers never fall back: a CPU tensor raises (``ops``
     sends CPU tensors to the plain version before reaching them)."""
@@ -202,6 +247,19 @@ def test_rmsnorm_kernels_refuse_cpu_tensors():
         rn.rmsnorm_fwd_cuda(x, s, 1e-6)
     with pytest.raises(ValueError, match="CUDA"):
         rn.rmsnorm_bwd_cuda(x, s, torch.ones(4), x)
+    assert rn.fwd_launches == 0 and rn.bwd_launches == 0
+
+
+def test_rmsnorm_cut_row_kernels_refuse_cpu_tensors():
+    """The statistics launches and the given-statistics passes never fall
+    back either."""
+    x, s, r = torch.ones((4, 8)), torch.ones(8), torch.ones(4)
+    for call in (lambda: rn.rmsnorm_sumsq_cuda(x, s),
+                 lambda: rn.rmsnorm_dot_cuda(x, s, r, x),
+                 lambda: rn.rmsnorm_fwd_cuda(x, s, 1e-6, ss=r, d_norm=16),
+                 lambda: rn.rmsnorm_bwd_cuda(x, s, r, x, dot=r, d_norm=16)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     assert rn.fwd_launches == 0 and rn.bwd_launches == 0
 
 

@@ -507,6 +507,49 @@ def test_rmsnorm_backward_is_bitwise_run_to_run(cuda, rows, d):
     assert torch.equal(ds1, ds2) and torch.equal(dx1, dx2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,d,tp", [(256, 3072, 2), (256, 16384, 4),
+                                       (5, 1000, 4)])
+def test_rmsnorm_cut_rows_match_whole_rows(cuda, rows, d, tp, dtype):
+    """Rows cut over ``tp`` pieces (Mamba's gated norm under tensor
+    parallelism; 250 columns a piece take the scalar path): the statistics
+    launches, summed over the pieces, and the given-statistics passes
+    against the plain whole-row norm: f32 1e-5 forward, 1e-4 backward;
+    bf16 y within one step, dx and dscale within 2^-8 of their largest
+    value, as ``_check_rmsnorm``.  Two launches a piece each way."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, s, gy = _rms_inputs(cuda, rows, d, dtype)
+    xs, ss_, gs = x.chunk(tp, dim=1), s.chunk(tp), gy.chunk(tp, dim=1)
+    xs, gs = [t.contiguous() for t in xs], [t.contiguous() for t in gs]
+    before = dict(ops.launch_counts())
+    sq = sum(rn.rmsnorm_sumsq_cuda(xp, sp) for xp, sp in zip(xs, ss_))
+    fwd = [rn.rmsnorm_fwd_cuda(xp, sp, 1e-6, ss=sq, d_norm=d)
+           for xp, sp in zip(xs, ss_)]
+    dot = sum(rn.rmsnorm_dot_cuda(xp, sp, r, gp)
+              for xp, sp, gp, (_, r) in zip(xs, ss_, gs, fwd))
+    bwd = [rn.rmsnorm_bwd_cuda(xp, sp, r, gp, dot=dot, d_norm=d)
+           for xp, sp, gp, (_, r) in zip(xs, ss_, gs, fwd)]
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["rmsnorm_fwd"] == before["rmsnorm_fwd"] + 2 * tp
+    assert after["rmsnorm_bwd"] == before["rmsnorm_bwd"] + 2 * tp
+    y = torch.cat([y_ for y_, _ in fwd], dim=1)
+    dx = torch.cat([dx_ for dx_, _ in bwd], dim=1)
+    ds = torch.cat([ds_ for _, ds_ in bwd])
+    yr = ref.rmsnorm_ref(x, s)
+    dxr, dsr = ref.rmsnorm_bwd_ref(x, s, gy)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(dx, dxr, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(ds, dsr, rtol=1e-4, atol=1e-4)
+        return
+    assert _bf16_steps(y, yr) <= 1
+    for got, want in ((dx, dxr), (ds, dsr)):
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2 ** -8 * want.float().abs().max(), float(err)
+
+
 def test_rmsnorm_serving_forward_skips_rstd(cuda):
     """Without autograd the forward writes no rstd and is the same y."""
     from repro_torch.kernels import rmsnorm as rn

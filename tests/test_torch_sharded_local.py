@@ -35,7 +35,8 @@ holds it; on (2, 1, 2, 1) also for the int8 physical wire with error
 feedback.  The metrics against the one-process step's.  Outside the world:
 the refusals of tensor parallelism over "model" of a family whose TP is
 not ported (tests/test_torch_tensor_parallel.py runs the dense decoders'
-TP, tests/test_torch_tensor_parallel_moe.py the MoE and MLA families') and
+TP, tests/test_torch_tensor_parallel_moe.py the MoE and MLA families',
+tests/test_torch_tensor_parallel_mamba.py Mamba's and Jamba's) and
 of a dynamic config on a sharded row, and the launch layer's
 helpers."""
 import functools
@@ -187,8 +188,8 @@ WORLD = textwrap.dedent('''
 
     def tp_refusal(rank, spec):
         """On a (1, 1, 2, 2) mesh with tp_axis="model": the step refuses
-        a family whose tensor parallelism is not ported (Jamba's Mamba
-        layers)."""
+        a family whose tensor parallelism is not ported (the
+        encoder-decoder)."""
         from repro_torch.configs import get_smoke
         from repro_torch.core import (DFLConfig, FLTopology,
                                       build_dfl_epoch_step)
@@ -197,7 +198,7 @@ WORLD = textwrap.dedent('''
         from repro_torch.models import transformer as tf
         from repro_torch.tree import tree_map
         mesh = lm.fl_rank_mesh(lm.FLMeshSpec(1, 1, 2, 2))
-        cfg = get_smoke("jamba-1.5-large-398b")
+        cfg = get_smoke("seamless-m4t-large-v2")
         params = tf.init_params(torch.Generator(), cfg, device="meta")
         topo = FLTopology(num_servers=1, clients_per_server=1, t_client=1,
                           t_server=1)
@@ -518,7 +519,8 @@ def test_intra_client_collectives_by_site(world, case):
 
 def test_tp_over_model_is_refused(world):
     for w in world:
-        assert "tensor parallelism over 'model' of Mamba" in w["tp_refused"]
+        assert "tensor parallelism over 'model' of the encoder-decoder" \
+            in w["tp_refused"]
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ collectives by site: 2L + 1 forward (``tp_forward``) and 2L + 1 backward
 (``tp_backward``) all-reduces a client step, their bytes to the byte.
 Outside the world: the vocab-parallel cross-entropy emulated over k
 slices in one process, the role on a dry mesh and the refusals by name
-(the MoE and MLA families now build: tests/test_torch_tensor_parallel_moe.py).
+(the MoE and MLA families and Mamba now build:
+tests/test_torch_tensor_parallel_moe.py, tests/test_torch_tensor_parallel_mamba.py).
 """
 import functools
 import os
@@ -642,8 +643,9 @@ def test_role_on_a_dry_mesh():
 
 
 #: the families the rank-local step runs under TP beside the dense
-#: decoders (tests/test_torch_tensor_parallel_moe.py trains them)
-TP_PORTED = ("MoE",)
+#: decoders (tests/test_torch_tensor_parallel_moe.py and
+#: tests/test_torch_tensor_parallel_mamba.py train them)
+TP_PORTED = ("MoE", "Mamba")
 
 
 @pytest.mark.parametrize("arch,family", [
@@ -652,9 +654,10 @@ TP_PORTED = ("MoE",)
     ("internvl2-1b", "vision frontend"),
     ("jamba-1.5-large-398b", "Mamba")])
 def test_families_left_under_tp_are_refused_by_name(arch, family):
-    """The families whose TP is not ported are refused by name (Jamba, MoE
-    and Mamba, for its Mamba layers); Mixtral's and DeepSeek-V2's step
-    builds on the same (1, 1, 2, 2) mesh."""
+    """The families whose TP is not ported are refused by name (the
+    encoder-decoder, the vision frontend); the step of Mixtral,
+    DeepSeek-V2, Mamba2 and Jamba (mamba, attention and MoE layers) builds
+    on the same (1, 1, 2, 2) mesh."""
     topo, backend = _backend(arch, (1, 1, 2, 2))
 
     def build():

@@ -13,8 +13,17 @@ values, the plain version's f32 value before its rounding, the float64
 value of the same formula on the same bf16 inputs, and the magnitude of
 dx's two terms (|r g s| + |x r^3 mean(g s x)|): where dx cancels far
 below its terms, two f32 results a few f32 ulps of the terms apart round
-to bf16 values many steps apart.  Then the card's name and power limit.
-Needs one NVIDIA GPU.
+to bf16 values many steps apart; the same for dscale, whose column sums
+over the rows cancel too (its terms: sum over rows of |g x r|).  Then the
+card's name and power limit.  Needs one NVIDIA GPU.
+
+    python3 tools/rmsnorm_bf16_steps.py --tp-mamba
+
+takes instead Jamba-1.5-Large's first-layer training rows with its gated
+norm run on whole d_inner rows, (256, 8192), (254, 8192) and (256,
+16384), drawn as ``chip_smoke.local_norm_check`` draws them (its
+generator seeded with ``TP_MAMBA_NORM_SEED``, x, scale and upstream
+gradient a shape in turn): the draws where a dscale column cancels.
 """
 from __future__ import annotations
 
@@ -42,10 +51,14 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     _build.compile_all(["rmsnorm"])
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    for rows, d, dtype, _, _ in cs.RMSNORM_SHAPES:
-        if dtype != "bfloat16":
-            continue
+    if "--tp-mamba" in sys.argv[1:]:
+        g = torch.Generator(device=dev).manual_seed(cs.TP_MAMBA_NORM_SEED)
+        shapes = [(256, 8192), (254, 8192), (256, 16384)]
+    else:
+        g = torch.Generator(device=dev).manual_seed(0)
+        shapes = [(r, d) for r, d, dtype, _, _ in cs.RMSNORM_SHAPES
+                  if dtype == "bfloat16"]
+    for rows, d in shapes:
         x = torch.randn((rows, d), device=dev, generator=g).bfloat16()
         s = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).bfloat16()
         gy = torch.randn((rows, d), device=dev, generator=g).bfloat16()
@@ -61,6 +74,10 @@ def main() -> int:
         r64 = torch.rsqrt(torch.mean(x64 * x64, -1, keepdim=True) + 1e-6)
         dx64 = r64 * g64 * s64 - x64 * r64 ** 3 * torch.mean(
             g64 * s64 * x64, -1, keepdim=True)
+        xr64 = x64 * r64
+        ds64 = (g64 * xr64).sum(0)
+        ds_terms = (g64 * xr64).abs().sum(0)
+        ds32 = (gf * xf * r).sum(0)
         out = {"rows": rows, "d": d}
         for name, got, want in (("dx", dx, dx_ref), ("dscale", ds, ds_ref)):
             steps = (ordered(torch, got) - ordered(torch, want)).abs()
@@ -74,6 +91,16 @@ def main() -> int:
                 row.update(want_f32=float(dx32.reshape(-1)[i]),
                            f64=float(dx64.reshape(-1)[i]),
                            terms=float(terms.reshape(-1)[i]))
+            else:
+                row.update(
+                    want_f32=float(ds32[i]), f64=float(ds64[i]),
+                    terms=float(ds_terms[i]),
+                    got_f64_err=float((got.double() - ds64).abs().max()),
+                    want_f64_err=float((want.double() - ds64).abs().max()),
+                    f64_steps_got=int((ordered(torch, got) - ordered(
+                        torch, ds64.bfloat16())).abs().max()),
+                    f64_steps_want=int((ordered(torch, want) - ordered(
+                        torch, ds64.bfloat16())).abs().max()))
             out[name] = row
         print(json.dumps(out), flush=True)
     print(subprocess.run(
