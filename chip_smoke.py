@@ -190,6 +190,18 @@ before it and read just after:
   bitwise its A ⊗ I_S
   emulation, the sites' bytes as predicted (kernels 2 and 1r, the row
   form also held at the Mamba rank's row against its plain version);
+  ``shard_tp_encdec``, full-width Seamless-M4T-large-v2 (f32, 4 of 24
+  encoder and 4 of 24 decoder layers, 8 of 16 heads a rank) on (2, 1, 1,
+  2): the epoch within 1e-5 of one process, beside a control whose memory
+  reaches the cross K/V without ``copy`` and must miss (kernels 2 and 1r);
+  ``serve_tp``, ``serve(mesh=)`` at 4 x 1024 prompts and 16 greedy tokens
+  for Qwen3-1.7B on ("data", "model") = (1, 4), Seamless-M4T-large-v2 on
+  (2, 2) and InternVL2-1B on (1, 4) (``attn_tp=False``), full width and
+  depth: the greedy tokens one process's, and the same steps
+  teacher-forced within twice a regrouped one-process run's distance
+  plus 1e-5 of the largest |logit|, beside a cache one kv head off that
+  must miss (kernel 3 on each rank's head count, held against its plain
+  version there, and kernel 2);
   then ``dryrun``, one pair of each
   program (SmolLM-360M train_4k, Qwen3-1.7B prefill_32k, Mamba2-780M
   long_500k) on the meta device in a process of its own beside the CLI.
@@ -4026,9 +4038,10 @@ SHARD_PHASES = [
         DYN_TRAIN, faults="", epochs=1, byzantine="inlier_shift:0.25:0.9",
         seed=1)),
 ]
-#: the depth of SHARD_PHASES' and ``shard_local``'s SmolLM-360M (of 32):
-#: cut for the script's time limit, their rounds' collectives scaling with
-#: the row (PR 30: the world took 318.6-431.6 s at full depth)
+#: the depth of SHARD_PHASES', ``shard_local``'s and ``obs_superepoch``'s
+#: SmolLM-360M (of 32): cut for the script's time limit, their rounds'
+#: collectives scaling with the row (the world took 318.6-431.6 s at full
+#: depth)
 SHARD_LAYERS = 8
 #: each rank's share of the card: four ranks of ~14 GB at their peak and
 #: this process's context fit in 80 GB only if no rank keeps another's
@@ -5517,10 +5530,10 @@ def tp_moe_rank(torch, cns, ops, ttf, rank: int) -> dict:
 
 
 @contextlib.contextmanager
-def tp_regrouped(torch, modules, k: int):
+def tp_regrouped(torch, modules, k: int, skip=()):
     """Within the block, ``modules`` (``models.modules``,
     ``models.transformer``, ``models.mamba``) compute the TP_REGROUP
-    einsums in ``k`` groups
+    einsums (but those in ``skip``) in ``k`` groups
     of the weight's cut dim, as ``k`` TP ranks group them: a one-process
     run whose row-parallel sums and column-parallel input gradients round
     as the ranks' do."""
@@ -5530,7 +5543,7 @@ def tp_regrouped(torch, modules, k: int):
 
         @staticmethod
         def einsum(eq, *ops):
-            kind = TP_REGROUP.get(eq)
+            kind = None if eq in skip else TP_REGROUP.get(eq)
             if kind is None or len(ops) != 2:
                 return torch.einsum(eq, *ops)
             a, w = ops
@@ -6022,19 +6035,25 @@ def tp_mamba_norm_launches(cfg) -> int:
 
 
 def tp_mamba_row_check(torch, g) -> dict:
-    """Row 1r on its Mamba path's operand: A's own row (1, 2) of the
-    Metropolis 2-ring over the gathered (2, D) f32 pieces of Mamba2-780M's
-    TP-2 row (D = ``tp_row_d``; the path runs it in column blocks of
-    TP_BLOCK a round), held to its plain version within 1e-5 of the
-    largest value, timed against the plain version, its byte bound and
-    ``torch.matmul`` of the row."""
+    """Row 1r on its Mamba path's operand (``tp_row_check``):
+    Mamba2-780M's TP-2 row."""
+    arch, shape, layers, dtype = TP_MAMBA_RUNS["mamba"]
+    return tp_row_check(torch, g, tp_mamba_config(arch, layers), shape,
+                        getattr(torch, dtype), "shard_tp_mamba_rows")
+
+
+def tp_row_check(torch, g, cfg, shape, dtype, phase: str) -> dict:
+    """Row 1r on a TP path's operand: A's own row (1, 2) of the
+    Metropolis 2-ring over the gathered (2, D) f32 pieces of ``cfg``'s
+    TP rank's row on ``shape`` (D = ``tp_row_d``; the path runs it in
+    column blocks of TP_BLOCK a round), held to its plain version within
+    1e-5 of the largest value, timed against the plain version, its byte
+    bound and ``torch.matmul`` of the row: one ``phase`` line."""
     from repro_torch.core import topology as tp
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
-    arch, shape, layers, dtype = TP_MAMBA_RUNS["mamba"]
     m = shape[0]
-    d = tp_row_d(torch, tp_mamba_config(arch, layers), shape,
-                 getattr(torch, dtype))
+    d = tp_row_d(torch, cfg, shape, dtype)
     a = torch.tensor(tp.metropolis_weights(tp.ring_graph(m)),
                      dtype=torch.float32, device=dev)
     a_r = a[1:2].contiguous()
@@ -6053,7 +6072,7 @@ def tp_mamba_row_check(torch, g) -> dict:
     row = dict(max_abs_err=err, max_rel_err=rel, ms=t["kernel"],
                plain_ms=t["plain"], library_ms=t["library"], bound_ms=bnd,
                bound_by=by)
-    emit("shard_tp_mamba_rows", kernel="consensus_mix_rows", m=m, d=d,
+    emit(phase, kernel="consensus_mix_rows", m=m, d=d,
          bytes=n_bytes, bound_share=bnd / t["kernel"],
          library="torch.matmul(A's row, W)", **row)
     assert launched == 1 and rel <= 1e-5, (launched, rel)
@@ -6337,6 +6356,738 @@ def tp_mamba_check(torch, ranks, want: dict, smi: str) -> dict:
     return total
 
 
+# tensor parallelism over "model" for the encoder-decoder
+# (``shard_tp_encdec``): full-width Seamless-M4T-large-v2 (d 1024, 16 heads
+# of 64 with q / k / v / o biases, d_ff 8192, vocab 256,206 padded to
+# 256,256, untied head) on (2, 1, 1, 2), 8 heads a rank in the encoder's
+# self-attention and in the decoder's self- and cross-attention; f32, M =
+# 2, N = 1, T_C = 2, T_S = 5, batch 2 x 128 tokens with 128 frames each
+# (LOCAL_TRAIN), the Metropolis 2-ring
+TP_ENCDEC_ARCH = "seamless-m4t-large-v2"
+TP_ENCDEC_SHAPE = (2, 1, 1, 2)
+#: 4 of 24 encoder and 4 of 24 decoder layers: a TP rank's peak was
+#: 5.2-6.2x its pieces in the earlier TP phases, and Seamless's full depth
+#: puts 4.07 GB of pieces on a TP-2 rank, ~21-25 GB at that ratio, past a
+#: rank's share of the card (SHARD_MEMORY_FRACTION, 18.4 GB) beside three
+#: other ranks; 8 + 8 layers (2.06 GB of pieces, a 10.42 GB peak) fit,
+#: and 4 + 4 (1.55 GB) for the script's time limit: the script ran 1130 s
+#: of its 1200 with 8 + 8 on a slow host
+TP_ENCDEC_LAYERS = 4
+#: run -> whether the memory reaches the cross K/V through ``copy``
+#: (site ``tp_memory``; False: the control, whose encoder gradient lacks
+#: the other rank's cross-attention terms and must miss LOCAL_TOL)
+TP_ENCDEC_RUNS = {"plain": True, "cross_control": False}
+# kernel 2's shapes on the path: ln1 / ln2 / cross_ln and the encoder's
+# final norm (256, 1024), the decoder's final norm on the loss's 254 rows
+TP_ENCDEC_NORM_SHAPES = [(256, 1024), (254, 1024)]
+TP_ENCDEC_NORM_SEED = 32
+TP_ENCDEC_FRAMES_SEED = 33
+#: the cross-attention's ``b_k``: its gradient is zero in exact arithmetic
+#: (a key bias without rope shifts every score of a query alike, which the
+#: softmax does not see), so both runs hold rounding noise there, held to
+#: this absolute bound instead of LOCAL_TOL of its largest |value|
+TP_ENCDEC_NOISE_FLOOR = 1e-6
+
+
+def tp_encdec_config():
+    """Seamless-M4T-large-v2 at its published widths, TP_ENCDEC_LAYERS
+    encoder and decoder layers."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(TP_ENCDEC_ARCH)
+    return dataclasses.replace(
+        cfg, num_layers=TP_ENCDEC_LAYERS,
+        encdec=dataclasses.replace(cfg.encdec,
+                                   num_encoder_layers=TP_ENCDEC_LAYERS))
+
+
+def tp_encdec_batch(torch, cfg, m: int) -> dict:
+    """``local_batch``'s tokens and as many frames a sequence, unit normal
+    from a generator of their own (the same in every process)."""
+    batch = dict(local_batch(torch, cfg, 1, m))
+    dev = batch["tokens"].device
+    g = torch.Generator(device=dev).manual_seed(TP_ENCDEC_FRAMES_SEED)
+    batch["frames"] = torch.randn(tuple(batch["tokens"].shape)
+                                  + (cfg.d_model,), device=dev, generator=g)
+    return batch
+
+
+def leaf_names(torch, ttf, cfg) -> list:
+    """The '/'-joined key path of each leaf of ``cfg``'s tree, in order."""
+    from repro_torch.tree import tree_map_with_path
+    names: list = []
+    tree_map_with_path(lambda p, _: names.append("/".join(
+        str(getattr(e, "key", getattr(e, "idx", ""))) for e in p)),
+        ttf.init_params(torch.Generator(), cfg, device="meta"))
+    return names
+
+
+def tp_encdec_predicted(cfg, pieces) -> dict:
+    """``{site: (calls, bytes)}`` a rank sends in one epoch: a client
+    step's ``tp_forward`` (the embedding's reduce, two row-parallel blocks
+    an encoder layer, three a decoder layer: self-, cross-attention, MLP)
+    and ``tp_backward`` (each column-parallel block's input, and the
+    head's on the 127 positions the loss reads), all on (2, 128, d) f32;
+    ``tp_memory`` the memory once; ``tp_vocab``'s two (3 values a
+    position); then the plain consensus period on ``pieces``."""
+    L, le, d = cfg.num_layers, cfg.encdec.num_encoder_layers, cfg.d_model
+    b, s = LOCAL_TRAIN["per_client_batch"], LOCAL_TRAIN["seq_len"]
+    steps = LOCAL_TRAIN["t_client"]
+    act = b * s * d * 4
+    fwd, bwd = 1 + 2 * le + 3 * L, 2 * le + 3 * L + 1
+    return {"tp_forward": (steps * fwd, steps * fwd * act),
+            "tp_backward": (steps * bwd, steps * ((bwd - 1) * act
+                                                  + b * (s - 1) * d * 4)),
+            "tp_memory": (steps, steps * act),
+            "tp_vocab": (steps * 2, steps * 3 * b * (s - 1) * 4),
+            "plain": plain_sites(pieces)}
+
+
+def tp_encdec_references(torch, ttf) -> dict:
+    """Kernel 2 at TP_ENCDEC_NORM_SHAPES, then the one-process port's
+    epoch on the same weights and draws, plain gossip: per rank the
+    expected samples of its pieces of the pre-consensus rows, the epoch's
+    seconds."""
+    from repro_torch.core import consensus as cns
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {"norm_shapes": local_norm_check(
+        torch, TP_ENCDEC_NORM_SHAPES, TP_ENCDEC_NORM_SEED,
+        "seamless-m4t-large-v2 client step under TP 2 (shard_tp_encdec)")}
+    cfg = tp_encdec_config()
+    m = TP_ENCDEC_SHAPE[0]
+    topo = local_topology(1, m)
+    backend = cns.GossipBackend(topo.mixing_matrix(), topo.t_server)
+    rec: dict = {}
+    local_spy(backend, "mix", rec)
+    dcfg = tdfl.DFLConfig(topology=topo, consensus_backend=backend)
+    opt = sgd(LOCAL_TRAIN["gamma"])
+    step = tdfl.build_dfl_epoch_step(dcfg, ttf.make_loss_fn(cfg), opt)
+    params = local_params(torch, ttf, cfg)
+    out["params"] = sum(x.numel() for x in tree_leaves(params))
+    state = tdfl.init_dfl_state(dcfg, params, opt)
+    server_abs = tree_map(lambda x: torch.empty(
+        (m,) + tuple(x.shape), device="meta"), params)
+    del params
+    batch = tp_encdec_batch(torch, cfg, m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    out["epoch_s"] = time.perf_counter() - t0
+    mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*TP_ENCDEC_SHAPE), rank=0,
+                           dry=True)
+    specs = tree_leaves(shd.fl_server_specs(server_abs, mesh,
+                                            tp_axis="model"))
+    src = [x.cuda() for x in rec["pre"]]
+    out["samples"] = [[local_samples(torch, shd.local_shard(x, sp, mesh, r))
+                       for x, sp in zip(src, specs)] for r in range(SHARD_M)]
+    del state, src, rec, batch, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_encdec_rank(torch, cns, ops, ttf, rank: int) -> dict:
+    """The world's ``shard_tp_encdec`` runs on this rank: per run, one
+    epoch through ``fl_consensus_backend(..., tp_axis="model")``,
+    ``init_dfl_state`` (the rank's TP pieces) and ``build_dfl_epoch_step``
+    with its seconds, peak, pieces' and one whole row's bytes, collectives
+    by site, launches and kernel-2 shapes; the fingerprints and samples of
+    its pre-consensus pieces and fingerprints of its state; for the plain
+    run its mixed piece against the one-process gossip of its server
+    group's pieces (the A ⊗ I_S emulation, bitwise).  The control replaces
+    ``ModelParallel.copy`` at the site ``tp_memory`` by the identity and
+    skips the consensus period (its rows are held before it)."""
+    import torch.distributed as dist
+    from repro_torch.core import dfl as tdfl
+    from repro_torch.launch import mesh as lm
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import tp as ltp
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+    out = {}
+    cfg = tp_encdec_config()
+    shape = TP_ENCDEC_SHAPE
+    m = shape[0]
+    for name, memory_copy in TP_ENCDEC_RUNS.items():
+        cns.release_staging()
+        mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*shape))
+        topo = local_topology(1, m)
+        params = local_params(torch, ttf, cfg)
+        server_abs = tree_map(lambda x: torch.empty(
+            (m,) + tuple(x.shape), device="meta"), params)
+        row_gb = sum(x.numel() * x.element_size()
+                     for x in tree_leaves(params)) / 1e9
+        backend = shd.fl_consensus_backend(topo, mesh, server_abs,
+                                           tp_axis="model")
+        dcfg = tdfl.DFLConfig(topology=topo, consensus_backend=backend)
+        opt = sgd(LOCAL_TRAIN["gamma"])
+        step = tdfl.build_dfl_epoch_step(dcfg, ttf.make_loss_fn(cfg), opt)
+        state = tdfl.init_dfl_state(dcfg, params, opt)
+        del params
+        rec: dict = {}
+        local_spy(backend, "mix", rec)
+        if not memory_copy:
+            # the control's rows are held before the consensus: its
+            # period is skipped
+            backend.mix = lambda tree, *a, **kw: (
+                rec.update(pre=[x.detach().cpu() for x in tree_leaves(tree)])
+                or tree)
+        batch = tp_encdec_batch(torch, cfg, m)
+        sspecs = tree_leaves(shd.fl_server_specs(server_abs, mesh,
+                                                 tp_axis="model"))
+        pieces = [torch.empty(shd.local_shape(tuple(x.shape), sp, mesh),
+                              device="meta")
+                  for x, sp in zip(tree_leaves(server_abs), sspecs)]
+        pieces_gb = sum(x.numel() * x.element_size() for x in
+                        tree_leaves(state.client_params)) / 1e9
+        copy = ltp.ModelParallel.copy
+        if not memory_copy:
+            ltp.ModelParallel.copy = (
+                lambda self, x, site="tp_backward": x if site == "tp_memory"
+                else copy(self, x, site))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cns.reset_collective_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        try:
+            with launched_norms(torch) as norms:
+                state, mt = step(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            ltp.ModelParallel.copy = copy
+        seconds = time.perf_counter() - t0
+        counts = cns.collective_counts()
+        leaves = tree_leaves(state.client_params)
+        got = {
+            "epoch_s": seconds,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pieces_gb": pieces_gb, "row_gb": row_gb, "collectives": counts,
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "norm_shapes": sorted(norms), "sites": tp_sites(counts),
+            "predicted": tp_encdec_predicted(cfg, pieces),
+            "loss": mt.loss.tolist(), "coords": mesh.coords(),
+            "replicated": [i for i, sp in enumerate(sspecs)
+                           if shd.model_dim(sp) is None],
+            "state_fp": rows_fingerprint(torch, leaves),
+            "pre_fp": rows_fingerprint(torch, [x[:, None].cuda()
+                                               for x in rec["pre"]]),
+            "pre_samples": [local_samples(torch, x) for x in rec["pre"]]}
+        if memory_copy:
+            gossip = cns.GossipBackend(topo.mixing_matrix(), topo.t_server)
+            i = backend.view.idx
+            same = True
+            for x, leaf in zip(rec["pre"], leaves):
+                rows = cns.all_gather_rows(x.cuda(), backend.group,
+                                           site="check")
+                same = same and torch.equal(gossip.mix([rows])[0][i],
+                                            leaf[0, 0])
+                del rows
+            got["emulation_bitwise"] = same
+        out[name] = got
+        del state, leaves, mt, backend, step, rec, batch
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def tp_encdec_check(torch, ranks, want, smi: str) -> dict:
+    """``shard_tp_encdec``, one line a run: per rank the epoch's seconds,
+    the collectives by site against the prediction, the peak beside its
+    pieces' bytes and one whole row's, kernel 2's launches and shapes; the
+    checks of the plain run: the pre-consensus pieces within LOCAL_TOL of
+    the one-process port's on samples (the cross-attention's ``b_k``
+    within TP_ENCDEC_NOISE_FLOOR), replicated leaves bitwise across each
+    TP group, the consensus bitwise its A ⊗ I_S emulation, the sites as
+    predicted to the byte, no whole gather, kernel 2's launches (2 an
+    encoder layer, 3 a decoder layer and the two final norms, forward and
+    backward a client step) and shapes; the control must miss LOCAL_TOL
+    tenfold.  Returns the plain run's launches, summed over the ranks."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import transformer as ttf
+    total: dict = {}
+    cfg = tp_encdec_config()
+    names = leaf_names(torch, ttf, cfg)
+    noise = {i for i, n in enumerate(names) if n.endswith("cross_attn/b_k")}
+    mesh = lm.fl_rank_mesh(lm.FLMeshSpec(*TP_ENCDEC_SHAPE), rank=0, dry=True)
+    norm_launches = LOCAL_TRAIN["t_client"] * (
+        2 * cfg.encdec.num_encoder_layers + 1 + 3 * cfg.num_layers + 1)
+    for name, memory_copy in TP_ENCDEC_RUNS.items():
+        got = [r["shard_tp_encdec"][name] for r in ranks]
+        worst = noise_abs = 0.0
+        for x, e in zip(got, want["samples"]):
+            for i, (g_, w_) in enumerate(zip(x["pre_samples"], e)):
+                g_, w_ = np.asarray(g_), np.asarray(w_)
+                err = float(np.abs(g_ - w_).max())
+                if i in noise:
+                    noise_abs = max(noise_abs, err)
+                    continue
+                worst = max(worst, err / max(float(np.abs(w_).max()),
+                                             1e-30))
+        replicated_bitwise = all(
+            got[r][fp][0][i] == got[mesh.ranks_along("model", r)[0]][fp][0][i]
+            for fp in ("pre_fp", "state_fp") for r in range(SHARD_M)
+            for i in got[r]["replicated"])
+        per_rank = []
+        for r, x in enumerate(got):
+            c = x["collectives"]
+            per_rank.append({
+                "rank": r, "coords": x["coords"], "epoch_s": x["epoch_s"],
+                "collective_s": c["seconds"], "staging_s": c["staging_s"],
+                "sites": c["sites"], "site_bytes": c["site_bytes"],
+                "peak_gb": x["peak_gb"], "pieces_gb": x["pieces_gb"],
+                "launches": x["launches"], "norm_shapes": x["norm_shapes"]})
+        fields = dict(
+            run=name, arch=TP_ENCDEC_ARCH, params=want["params"],
+            encoder_layers=cfg.encdec.num_encoder_layers,
+            decoder_layers=cfg.num_layers,
+            mesh=dict(zip(("server", "client", "replica", "model"),
+                          TP_ENCDEC_SHAPE)),
+            memory_through_copy=memory_copy,
+            t_client=LOCAL_TRAIN["t_client"],
+            t_server=LOCAL_TRAIN["t_server"], ranks=per_rank,
+            one_process_epoch_s=want["epoch_s"],
+            whole_row_gb=got[0]["row_gb"],
+            sites_predicted={k: list(v) for k, v in got[0]["predicted"]
+                             .items()},
+            sites_match=all(x["sites"] == x["predicted"] for x in got),
+            sample_rel_err=worst, tolerance=LOCAL_TOL,
+            cross_b_k_abs_err=noise_abs,
+            cross_b_k_floor=TP_ENCDEC_NOISE_FLOOR,
+            replicated_bitwise=replicated_bitwise,
+            rmsnorm_launches_expected=norm_launches, loss=got[0]["loss"],
+            nvidia_smi=smi)
+        if memory_copy:
+            fields["consensus_bitwise"] = all(x["emulation_bitwise"]
+                                              for x in got)
+        emit("shard_tp_encdec", **fields)
+        if not memory_copy:
+            assert worst > 10 * LOCAL_TOL, worst
+            continue
+        assert worst <= LOCAL_TOL, worst
+        assert noise_abs <= TP_ENCDEC_NOISE_FLOOR, noise_abs
+        assert replicated_bitwise
+        assert fields["sites_match"], [x["sites"] for x in got]
+        assert fields["consensus_bitwise"]
+        assert all(not {"fsdp_gather", "tp_kv_gather"}
+                   & set(x["collectives"]["sites"]) for x in got)
+        assert all(set(map(tuple, x["norm_shapes"])) <= want["norm_shapes"]
+                   | {(r_, d, t) for r_, d, t, _, _ in RMSNORM_SHAPES}
+                   for x in got)
+        assert all(x["launches"].get("rmsnorm_fwd") == norm_launches
+                   and x["launches"].get("rmsnorm_bwd") == norm_launches
+                   for x in got)
+        assert all(x["launches"].get("consensus_mix_rows", 0) > 0
+                   for x in got)
+        for x in got:
+            for k, v in x["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+# serving tensor parallel over "model" (``serve_tp``): each model through
+# ``launch.serve.serve(mesh=)`` on four ranks at SERVE's batch and prompt
+# (f32 weights and cache), 16 greedy tokens, then the same prefill and
+# steps teacher-forced on the one-process ``serve``'s greedy tokens
+# (``forced_logits``); full width and depth.  arch -> the serve mesh
+# ("data", "model"): Qwen3-1.7B 4 q / 2 kv heads a rank; Seamless-M4T 8
+# heads a rank, 2 rows of the batch; InternVL2-1B's 14 heads do not divide
+# 4, so its attention runs whole (``attn_tp=False``), the MLP and the
+# vocab cut, 256 patches ahead of the prompt
+SERVE_TP = {"qwen3-1.7b": (1, 4), "seamless-m4t-large-v2": (2, 2),
+            "internvl2-1b": (1, 4)}
+SERVE_TP_RUN = dict(smoke=False, batch=4, prompt_len=1024, gen=16,
+                    device="cuda")
+#: the parity yardstick's share of the largest |logit| (of the real vocab:
+#: the padding ids hold -1e30), beside twice the regrouped one-process
+#: run's distance
+SERVE_TP_REL = 1e-5
+#: the control's decode steps (a decode step of a rank is ~0.5 s of gloo
+#: round trips on the card: 57-73 all-reduces)
+SERVE_TP_CONTROL_STEPS = 2
+#: kernel 3 on a rank's heads: name -> (arch, b, s, h, kvh, hd, causal)
+def serve_tp_config(arch: str):
+    """The config ``serve`` resolves for SERVE_TP_RUN."""
+    from repro_torch.configs import get_arch, get_smoke
+    return get_smoke(arch) if SERVE_TP_RUN["smoke"] else get_arch(arch)
+
+
+FLASH_TP = {
+    "qwen3_tp4": ("qwen3-1.7b", 4, 1024, 4, 2, 128, True),
+    "seamless_encoder_tp2": ("seamless-m4t-large-v2", 2, 1024, 8, 8, 64,
+                             False),
+    "seamless_decoder_tp2": ("seamless-m4t-large-v2", 2, 1024, 8, 8, 64,
+                             True),
+}
+
+
+@contextlib.contextmanager
+def flash_heads():
+    """Within the block, kernel 3's launches by (mode, batch, q heads, kv
+    heads): the head counts a rank's calls run at."""
+    from repro_torch.kernels import flash_attention as fa
+    seen: dict = {}
+    call = fa.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        key = "|".join(map(str, (
+            fa.mode_key(q.dtype, q.shape[2] // k.shape[2], q.shape[3],
+                        kw.get("causal", True), kw.get("window"),
+                        kw.get("softcap")), q.shape[0], q.shape[2],
+            k.shape[2])))
+        seen[key] = seen.get(key, 0) + 1
+        return call(q, k, v, **kw)
+    fa.flash_attention_cuda = recorded
+    try:
+        yield seen
+    finally:
+        fa.flash_attention_cuda = call
+
+
+def flash_heads_expected(cfg, shape) -> dict:
+    """``flash_heads``' record of one rank's prefill: one launch a layer
+    (the encoder's non-causal, the decoder's causal) at the rank's batch
+    and heads (every head under ``attn_tp=False``)."""
+    b = SERVE_TP_RUN["batch"] // shape[0]
+    size = shape[1]
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if h % size == 0:
+        h, kvh = h // size, kvh // size
+    mode = "float32/{}/{}/{}/None/None".format(h // kvh,
+                                               cfg.resolved_head_dim(), "{}")
+    out = {f"{mode.format(True)}|{b}|{h}|{kvh}": cfg.num_layers}
+    if cfg.encdec is not None:
+        out[f"{mode.format(False)}|{b}|{h}|{kvh}"] = \
+            cfg.encdec.num_encoder_layers
+    return out
+
+
+def serve_tp_predicted(cfg, shape, rows: int) -> dict:
+    """``{site: (calls, bytes)}`` of one rank's ``serve(mesh=)`` with
+    ``rows`` of the batch: ``tp_forward`` a pass's embedding reduce and
+    each block's row-parallel reduces (attention, cross-attention, MLP;
+    the attention's only under ``attn_tp``), of (rows, positions, d) f32 --
+    the prefill's over the prompt (the embedding), its positions with the
+    patches (the decoder) and the frames (the encoder), a decode step's
+    over one; ``tp_logits`` one gather a pass of (rows, 1, V / size)."""
+    size = shape[1]
+    attn = cfg.num_heads % size == 0
+    d, s, f = cfg.d_model, SERVE_TP_RUN["prompt_len"], 4
+    steps = SERVE_TP_RUN["gen"] - 1
+    fe = cfg.frontend
+    pos = s + (fe.num_tokens if fe is not None
+               and fe.kind == "vision_patches" else 0)
+    le = cfg.encdec.num_encoder_layers if cfg.encdec is not None else 0
+    per_layer = 1 + attn + (attn and cfg.encdec is not None)
+    L = cfg.num_layers
+    calls = 1 + le * (1 + attn) + L * per_layer + steps * (1 + L * per_layer)
+    nbytes = rows * d * f * (s + le * (1 + attn) * s + L * per_layer * pos
+                             + steps * (1 + L * per_layer))
+    vl = cfg.padded_vocab_size // size
+    return {"tp_forward": (calls, nbytes),
+            "tp_logits": (1 + steps, (1 + steps) * rows * vl * f)}
+
+
+def flash_tp_checks(torch, g) -> dict:
+    """Kernel 3 at each FLASH_TP shape (a rank's heads) against its plain
+    version (f32: 2e-5 of the largest value), timed against the plain
+    version, SDPA and its bound: one ``flash_attention_tp_shape`` line
+    each.  Returns the rows of the ``kernels`` line (launches filled in
+    from ``serve_tp``)."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for name, (arch, b, s_len, h, kvh, hd, causal) in FLASH_TP.items():
+        q = torch.randn((b, s_len, h, hd), device=dev, generator=g)
+        k = torch.randn((b, s_len, kvh, hd), device=dev, generator=g)
+        v = torch.randn((b, s_len, kvh, hd), device=dev, generator=g)
+        err, rel = rel_err(torch, ops.flash_attention(q, k, v, causal=causal),
+                           ref.attention_ref(q, k, v, causal=causal))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t = alternate(torch, {
+            "kernel": lambda: ops.flash_attention(q, k, v, causal=causal),
+            "plain": lambda: ref.attention_ref(q, k, v, causal=causal),
+            "library": lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                    enable_gqa=True)}, reps=20)
+        flops = b * h * attn_pairs(s_len, s_len, causal, None) * 4 * hd
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 4
+        bnd, by = bound_ms(n_bytes, flops)
+        row = {"name": f"flash_attention_{name}", "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "replaces": "src/repro/kernels/flash_attention.py:118",
+               "launches": 0, "max_abs_err": err, "ms": t["kernel"],
+               "plain_ms": t["plain"], "bound_ms": bnd, "bound_by": by,
+               "library_ms": t["library"]}
+        emit("flash_attention_tp_shape", arch=arch,
+             shape=[b, s_len, s_len, h, kvh, hd], causal=causal,
+             max_rel_err=rel, flops=flops, bytes=n_bytes,
+             bound_share=bnd / t["kernel"], **{
+                 k_: row[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")})
+        assert rel < 2e-5, (name, rel)
+        rows[name] = row
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def forced_logits(torch, cfg, params, inputs, feed, tp=None,
+                  control: bool = False):
+    """``serve``'s prefill and decode steps at SERVE_TP_RUN's shape on
+    ``params`` (a rank's pieces under ``tp``) and ``inputs``, each step
+    teacher-forced on ``feed`` (``(rows, gen - 1)`` tokens): every step's
+    whole logits ``(rows, gen, V)`` on the host (gathered over "model"
+    under ``tp``); with ``control``, also the first SERVE_TP_CONTROL_STEPS
+    steps' on a copy of the prefill's cache whose kv heads are one off the
+    rank's own (``shift_kv``), else ``None``."""
+    from repro_torch.core import consensus as cns
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+    run = SERVE_TP_RUN
+    opts = tf.ApplyOptions(attn_impl="kernel", moe_no_drop=True, tp=tp)
+    whole = (lambda x: x) if tp is None else tp.gather_logits
+    logits, cache = tf.prefill(params, cfg, inputs,
+                               max_len=run["prompt_len"] + run["gen"],
+                               cache_dtype=torch.float32, opts=opts)
+    shifted = None
+    if control:
+        with torch.inference_mode():    # the prefill's inference tensors
+            shifted = tree_map(lambda x: x.clone()
+                               if isinstance(x, torch.Tensor) else x, cache)
+        shift_kv(torch, cns, cfg, shifted, tp)
+    kept = [whole(logits)[:, -1].cpu()]
+    for i in range(run["gen"] - 1):
+        logits, cache = tf.decode_step(params, cfg, feed[:, i:i + 1], cache,
+                                       tp=tp)
+        kept.append(whole(logits)[:, -1].cpu())
+    ctl = None
+    if control:
+        ctl = []
+        for i in range(SERVE_TP_CONTROL_STEPS):
+            logits, shifted = tf.decode_step(params, cfg, feed[:, i:i + 1],
+                                             shifted, tp=tp)
+            ctl.append(whole(logits)[:, -1].cpu())
+        ctl = torch.stack(ctl, dim=1)
+    return torch.stack(kept, dim=1), ctl
+
+
+def serve_tp_references(torch) -> dict:
+    """Per SERVE_TP model, the one-process ``serve`` on the same draws
+    (its greedy tokens and seconds), then its steps teacher-forced on
+    those tokens (``forced_logits``: every step's logits), plainly and
+    with the row-parallel sums regrouped as the ranks group them
+    (``tp_regrouped``; the attention's ``w_o`` not under
+    ``attn_tp=False``, where a rank runs it whole), whose distance sets
+    the yardstick."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as tf_mod
+    dev = torch.device(SERVE_TP_RUN["device"])
+    out = {}
+    for arch, shape in SERVE_TP.items():
+        cfg = serve_tp_config(arch)
+        t0 = time.perf_counter()
+        plain = tserve.serve(arch, **SERVE_TP_RUN)
+        feed = plain["generated"][:, :-1]
+        params, inputs = tserve.draw(cfg, SERVE_TP_RUN["batch"],
+                                     SERVE_TP_RUN["prompt_len"], 0, dev)
+        logits, _ = forced_logits(torch, cfg, params, inputs, feed)
+        skip = () if cfg.num_heads % shape[1] == 0 else ("bshk,hkd->bsd",)
+        with tp_regrouped(torch, (nn, tf_mod), shape[1], skip):
+            regrouped, _ = forced_logits(torch, cfg, params, inputs, feed)
+        out[arch] = {"logits": logits, "tokens": plain["generated"].cpu(),
+                     "regrouped": regrouped,
+                     "prefill_s": plain["prefill_s"],
+                     "decode_s": plain["decode_s"],
+                     "wall_s": time.perf_counter() - t0}
+        del plain, params, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def shift_kv(torch, cns, cfg, cache, tp) -> None:
+    """The control: every attention leaf of ``cache`` (k, v, the cross K/V)
+    replaced, in place, by the kv heads one off the rank's own (its heads
+    gathered whole over "model" under ``attn_tp``, where the kv heads
+    divide the axis as on SERVE_TP's models, then the rank's range
+    shifted by one head)."""
+    from repro_torch.models import modules as nn
+    from repro_torch.tree import tree_leaves
+    kv_lo, kv_hi = nn.tp_kv_range(cfg, nn.attention_tp(tp))
+    idx = None
+    for x in tree_leaves(cache["stack"]):
+        if x.dim() < 4:
+            continue
+        whole = x
+        if tp.attn_tp:
+            assert cfg.num_kv_heads % tp.size == 0
+            whole = cns.gather_pieces([x], [x.dim() - 2], tp.group,
+                                      site="check")[0]
+        if idx is None:
+            idx = ((torch.arange(kv_lo, kv_hi) + 1)
+                   % cfg.num_kv_heads).to(x.device)
+        with torch.inference_mode():    # the prefill's inference tensors
+            x.copy_(whole.index_select(x.dim() - 2, idx))
+
+
+def serve_tp_rank(torch, cns, ops, rank: int, feed: dict) -> dict:
+    """The world's ``serve_tp`` on this rank: per SERVE_TP model,
+    ``serve(mesh=)`` greedy, with its prefill and decode seconds,
+    collectives, peak beside its pieces, launches, kernel 3's launches by
+    head count (``flash_heads``) and kernel 2's shapes; then, on the same
+    pieces and rows, ``forced_logits`` teacher-forced on ``feed`` (the
+    one-process greedy tokens) with the control.  The ranks at "model" 0
+    write the tokens and logits to a file under ``build/``."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.tree import tree_leaves
+    dev = torch.device(SERVE_TP_RUN["device"])
+    base = pathlib.Path(__file__).resolve().parent / "build"
+    base.mkdir(exist_ok=True)
+    out = {}
+    run = SERVE_TP_RUN
+    for arch, shape in SERVE_TP.items():
+        cns.release_staging()
+        cfg = serve_tp_config(arch)
+        mesh = RankMesh(("data", "model"), shape)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cns.reset_collective_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with flash_heads() as heads, launched_norms(torch) as norms:
+            res = tserve.serve(arch, mesh=mesh, **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = cns.collective_counts()
+        got = {"prefill_s": res["prefill_s"], "decode_s": res["decode_s"],
+               "wall_s": wall, "rows": list(res["rows"]),
+               "coords": mesh.coords(),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "collectives": counts,
+               "sites": {k: (v, counts["site_bytes"][k])
+                         for k, v in counts["sites"].items()
+                         if k.startswith("tp_")},
+               "launches": {k: v for k, v in ops.launch_counts().items()
+                            if v},
+               "flash_heads": dict(heads), "norm_shapes": sorted(norms)}
+        lo, hi = res["rows"]
+        # the same pieces and rows, teacher-forced, and the control
+        params, inputs = tserve.draw(cfg, run["batch"], run["prompt_len"], 0,
+                                     dev)
+        pieces, tp = tserve.serve_pieces(params, cfg, mesh)
+        del params
+        got["attn_tp"] = tp.attn_tp
+        got["pieces_gb"] = sum(x.numel() * x.element_size()
+                               for x in tree_leaves(pieces)) / 1e9
+        logits, control = forced_logits(
+            torch, cfg, pieces, {k: v[lo:hi] for k, v in inputs.items()},
+            feed[arch][lo:hi].to(dev), tp, control=True)
+        if mesh.coords()["model"] == 0:
+            path = base / f"serve_tp_{arch}_{rank}.pt"
+            torch.save({"logits": logits, "control": control,
+                        "generated": res["generated"].cpu()}, path)
+            got["path"] = str(path)
+        out[arch] = got
+        del res, pieces, inputs, logits, control
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def serve_tp_check(torch, ranks, want, smi: str) -> dict:
+    """``serve_tp``, one line a model: per rank its prefill and decode
+    seconds, collective seconds, peak beside its pieces, kernel 3's
+    launches by head count; the checks: the assembled logits of the
+    prefill and of each teacher-forced step within the parity yardstick
+    (twice the regrouped one-process run's distance plus SERVE_TP_REL of
+    the largest |logit|, step by step), the control outside it on each of
+    its steps, ``serve(mesh=)``'s greedy tokens equal to one process's
+    ``serve``'s on each row up to its first step whose top-2 margin does
+    not exceed the yardstick (a tie there may rightly go either way, and
+    the row's later steps then read other tokens), the sites as predicted
+    to the byte, kernel 3 launched once a layer at the rank's head count.
+    Returns the launches by ``flash_heads`` key and kernel 2's forward
+    launches, summed over the ranks."""
+    total: dict = {"flash_heads": {}, "rmsnorm_fwd": 0, "norm_shapes": set()}
+    for arch, shape in SERVE_TP.items():
+        cfg = serve_tp_config(arch)
+        got = [r["serve_tp"][arch] for r in ranks]
+        plain = want[arch]["logits"].double()
+        reg = want[arch]["regrouped"].double()
+        scale = float(plain[..., :cfg.vocab_size].abs().max())
+        reg_d = (reg - plain).abs().amax(dim=(0, 2))
+        yard = 2 * reg_d + SERVE_TP_REL * scale
+        tp_logits = torch.empty_like(plain)
+        ctl = torch.empty_like(plain[:, 1:1 + SERVE_TP_CONTROL_STEPS])
+        tokens = torch.empty_like(want[arch]["tokens"])
+        for x in got:
+            if "path" in x:
+                saved = torch.load(x["path"], weights_only=False)
+                lo, hi = x["rows"]
+                tp_logits[lo:hi] = saved["logits"].double()
+                ctl[lo:hi] = saved["control"].double()
+                tokens[lo:hi] = saved["generated"]
+        dist_t = (tp_logits - plain).abs().amax(dim=(0, 2))
+        ctl_t = (ctl - plain[:, 1:1 + SERVE_TP_CONTROL_STEPS]).abs().amax(
+            dim=(0, 2))
+        top2 = plain.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        sure = torch.cumprod((margin > yard[None, :]).int(), dim=1).bool()
+        same = tokens == want[arch]["tokens"]
+        predicted = [serve_tp_predicted(cfg, shape, x["rows"][1]
+                                        - x["rows"][0]) for x in got]
+        heads_want = flash_heads_expected(cfg, shape)
+        steps = SERVE_TP_RUN["gen"] - 1
+        per_rank = [{
+            "rank": r, "coords": x["coords"], "rows": x["rows"],
+            "prefill_s": x["prefill_s"],
+            "decode_s_per_step": x["decode_s"] / steps,
+            "collective_s": x["collectives"]["seconds"],
+            "staging_s": x["collectives"]["staging_s"],
+            "sites": x["sites"], "peak_gb": x["peak_gb"],
+            "pieces_gb": x["pieces_gb"], "flash_heads": x["flash_heads"],
+            "launches": x["launches"]} for r, x in enumerate(got)]
+        fields = dict(
+            arch=arch, mesh=dict(zip(("data", "model"), shape)),
+            attn_tp=got[0]["attn_tp"], batch=SERVE_TP_RUN["batch"],
+            prompt_len=SERVE_TP_RUN["prompt_len"], gen=SERVE_TP_RUN["gen"],
+            ranks=per_rank,
+            one_process_prefill_s=want[arch]["prefill_s"],
+            one_process_decode_s_per_step=want[arch]["decode_s"] / steps,
+            max_abs_logit=scale, dist=dist_t.tolist(),
+            regrouped_dist=reg_d.tolist(), yardstick=yard.tolist(),
+            control_dist=ctl_t.tolist(),
+            greedy_checked=int(sure.sum()), greedy_of=int(sure.numel()),
+            greedy_equal=bool(same[sure].all()),
+            greedy_equal_all=int(same.sum()),
+            sites_predicted={k: list(v) for k, v in predicted[0].items()},
+            sites_match=all(x["sites"] == p for x, p in zip(got, predicted)),
+            flash_heads_expected=heads_want, nvidia_smi=smi)
+        emit("serve_tp", **fields)
+        assert bool((dist_t <= yard).all()), (arch, dist_t, yard)
+        assert bool((ctl_t > yard[1:1 + SERVE_TP_CONTROL_STEPS]).all()), (
+            arch, ctl_t)
+        assert fields["greedy_equal"], arch
+        assert fields["sites_match"], (arch, [x["sites"] for x in got])
+        assert all(x["flash_heads"] == heads_want for x in got), arch
+        for x in got:
+            for k, v in x["flash_heads"].items():
+                total["flash_heads"][k] = total["flash_heads"].get(k, 0) + v
+            total["rmsnorm_fwd"] += x["launches"].get("rmsnorm_fwd", 0)
+            total["norm_shapes"] |= set(map(tuple, x["norm_shapes"]))
+    return total
+
+
 def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
     """One rank of the world: server ``rank`` on ``cuda:0``.  Runs every
     phase through the trainers and puts its readings on ``q``; a failure
@@ -6363,6 +7114,17 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                                 world_size=SHARD_M, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         for name, trainer, kw in phases:
+            if trainer == "serve_tp":
+                t0 = time.perf_counter()
+                out[name] = serve_tp_rank(torch, cns, ops, rank, kw["feed"])
+                out[name]["wall_s"] = time.perf_counter() - t0
+                continue
+            if trainer == "shard_tp_encdec":
+                from repro_torch.models import transformer as ttf
+                t0 = time.perf_counter()
+                out[name] = tp_encdec_rank(torch, cns, ops, ttf, rank)
+                out[name]["wall_s"] = time.perf_counter() - t0
+                continue
             if trainer == "shard_tp_mamba":
                 from repro_torch.models import transformer as ttf
                 t0 = time.perf_counter()
@@ -6704,6 +7466,16 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     # one-process references of the Mamba-2 / Jamba TP runs
     want_mamba = tp_mamba_references(torch, ttf)
     mamba_row = tp_mamba_row_check(torch, g)
+    # the encoder-decoder's TP run: kernel 2 at its shapes, kernel 1r at
+    # the Seamless rank's row and its one-process reference; then kernel 3
+    # on a rank's heads and the one-process serving references
+    want_encdec = tp_encdec_references(torch, ttf)
+    tp_row_check(torch, g, tp_encdec_config(), TP_ENCDEC_SHAPE,
+                 torch.float32, "shard_tp_encdec_rows")
+    flash_rows = flash_tp_checks(torch, g)
+    want_serve = serve_tp_references(torch)
+    serve_feed = {arch: w["tokens"][:, :-1].clone()
+                  for arch, w in want_serve.items()}
 
     # ---- the world: four ranks, one server each, on the one card (this
     # process keeps only its context and what main() still holds) ----
@@ -6720,7 +7492,11 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                                                ("shard_tp_moe",
                                                 "shard_tp_moe", {}),
                                                ("shard_tp_mamba",
-                                                "shard_tp_mamba", {})])
+                                                "shard_tp_mamba", {}),
+                                               ("shard_tp_encdec",
+                                                "shard_tp_encdec", {}),
+                                               ("serve_tp", "serve_tp",
+                                                {"feed": serve_feed})])
     world_s = time.perf_counter() - t0
     server_abs = [torch.empty((SHARD_M,) + tuple(s), device="meta")
                   for s in ranks[0]["wire"]["leaf_shapes"]]
@@ -6817,10 +7593,27 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     del want_mamba
     mamba_row["launches"] = mamba_launches.get("consensus_mix_rows", 0)
     assert mamba_row["launches"] > 0, mamba_launches
+    encdec_launches = tp_encdec_check(torch, ranks, want_encdec, smi)
+    del want_encdec
+    served = serve_tp_check(torch, ranks, want_serve, smi)
+    del want_serve
+    # kernel 2 at every serving shape the ranks launched that no earlier
+    # check held
+    unheld = sorted((r_, d) for r_, d, t in served["norm_shapes"]
+                    if (r_, d, t) not in {(a, b, c) for a, b, c, _, _
+                                          in RMSNORM_SHAPES})
+    if unheld:
+        local_norm_check(torch, unheld, TP_ENCDEC_NORM_SEED,
+                         "a serve_tp rank's prefill and decode")
+    for name, (arch, b, _, h, kvh, hd, causal) in FLASH_TP.items():
+        key = "|".join(map(str, (f"float32/{h // kvh}/{hd}/{causal}/None/"
+                                 f"None", b, h, kvh)))
+        flash_rows[name]["launches"] = served["flash_heads"].get(key, 0)
+        assert flash_rows[name]["launches"] > 0, (name, served)
     tp_launches = {k: tp_launches.get(k, 0) + moe_launches.get(k, 0)
-                   + mamba_launches.get(k, 0)
+                   + mamba_launches.get(k, 0) + encdec_launches.get(k, 0)
                    for k in set(tp_launches) | set(moe_launches)
-                   | set(mamba_launches)}
+                   | set(mamba_launches) | set(encdec_launches)}
     launches = {k: sum(r[name]["launches"].get(k, 0) for r in ranks
                        for name in ("wire", "wire_stale", "plain"))
                 + axes_launches.get(k, 0) + local_launches.get(k, 0)
@@ -6837,7 +7630,7 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     dry = start_dryrun()
     shard_cli(torch, ttrain)
     finish_dryrun(dry, dry_axes)
-    return rows, tp_launches, moe_row
+    return rows, tp_launches, moe_row, flash_rows
 
 
 def axes_dry_records(torch, ttf, cfg) -> dict:
@@ -8088,7 +8881,7 @@ def main() -> int:
     # and 1,
     # uncompressed, dynamic and push-sum, each held to the one-process run;
     # then the trainer under torch.distributed.run ----
-    row_rows, tp_launches, moe_row = shard_map_phases(
+    row_rows, tp_launches, moe_row, flash_tp_rows = shard_map_phases(
         torch, ttrain, ops, ref, tp, smi, g)
 
     # ---- 23. per-kernel summary, card, result ----
@@ -8167,6 +8960,7 @@ def main() -> int:
          "plain_ms": moe_row["plain_ms"], "bound_ms": moe_row["bound_ms"],
          "bound_by": moe_row["bound_by"],
          "library_ms": moe_row["library_ms"]})
+    kernels.extend(flash_tp_rows.values())
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

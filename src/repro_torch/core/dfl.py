@@ -565,18 +565,18 @@ def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
     multi-process wire), else ``None``.  On a sharded row it makes the
     row's groups, in one order on every rank.  A client cut over "model"
     (``tp_axis="model"``) runs tensor parallel (``launch.tp``) when it is a
-    dense decoder (qwen3, gemma2, command_r), of the MoE and MLA families
-    (Mixtral, DeepSeek-V2: the experts cut by expert or by d_ff, MLA's
-    latent projections) or Mamba-2 (Mamba2-780M, and Jamba's mamba,
+    dense decoder (qwen3, gemma2, command_r), the encoder-decoder
+    (Seamless-M4T: its encoder and the decoder's cross-attention over a
+    rank's heads), the vision frontend (InternVL2), of the MoE and MLA
+    families (Mixtral, DeepSeek-V2: the experts cut by expert or by d_ff,
+    MLA's latent projections) or Mamba-2 (Mamba2-780M, and Jamba's mamba,
     attention and MoE layers: a rank's heads); its replicated leaves (the
     norms, the router, ``w_dkv``, ``a_log``, ``dt_bias``, ``d_skip``) are
     counted once a TP group in the metrics (``counted``).  Refused there,
-    each by name: the families whose TP is not ported (the
-    encoder-decoder: ``launch.sharding.tp_refusal``; the vision frontend,
-    by the loss's ``with_tp``), a leaf the step multiplies as a piece that
-    the axis leaves whole, a Mamba head count the axis does not divide
-    (the loss's ``with_tp``), a batch split over "model" as well, and a
-    dynamic, push-sum or robust config."""
+    each by name: a leaf the step multiplies as a piece that the axis
+    leaves whole (``launch.sharding.tp_refusal``), a Mamba head count the
+    axis does not divide (the loss's ``with_tp``), a batch split over
+    "model" as well, and a dynamic, push-sum or robust config."""
     backend = cfg.consensus_backend
     if backend is None or not getattr(backend, "mesh_bound", False):
         return None
@@ -595,11 +595,12 @@ def rank_role(cfg: DFLConfig) -> Optional[RankRole]:
             f"{why}: this backend's leaf specs cut a client's weights over "
             f"the 'model' axis (tp_axis='model'), which the rank-local step "
             f"runs for the dense decoders (qwen3, gemma2, command_r), the "
-            f"MoE and MLA families (mixtral, deepseek_v2) and Mamba-2 "
-            f"(mamba2, jamba) only.  "
+            f"encoder-decoder (seamless), the vision frontend (internvl2), "
+            f"the MoE and MLA families (mixtral, deepseek_v2) and Mamba-2 "
+            f"(mamba2, jamba) on heads, d_ff and vocab the axis divides.  "
             f"Build the backend with tp_axis=None (and batch_over_model="
             f"True, as the plans of smollm_360m and internvl2_1b), or on a "
-            f"model axis of 1")
+            f"model axis that divides them")
     if tp_cut and "model" in inner.batch_spec.axes(3):
         raise ValueError("a client's leaves cut over 'model' and its batch "
                          "split over 'model' too: tensor parallelism runs "

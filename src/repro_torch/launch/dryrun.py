@@ -16,15 +16,21 @@ Every number in it carries a label: ``measured_meta`` (read off the device
 program's meta run: the local shapes' bytes, the peak of live meta storage,
 ``FlopCounterMode``'s FLOPs, the collective record of the rank's local
 step (its client's FSDP gathers and gradient reductions, ``launch.fsdp``,
-and the TP collectives over "model", ``launch.tp``, of the dense decoders,
-the MoE and MLA families and Mamba-2 with Jamba) and consensus period
-against ``consensus.DryGroup``s) or ``analytic_split`` (a part the port
-runs whole where the reference shards it, divided evenly by the plan's
-degree, ``meta["compute_shards"]``: the tensor parallelism over "model"
-of the families whose TP is not ported (the encoder-decoder, the vision
-frontend) and the serve split; and the
-roofline's napkin terms on the H100 datasheet constants of
-``launch.roofline``).  None is a measurement on a device.
+and the TP collectives over "model", ``launch.tp``, of every family: the
+dense decoders, the encoder-decoder, the MoE and MLA families and Mamba-2
+with Jamba; the vision frontend's plan splits the batch over "model") and
+consensus period against ``consensus.DryGroup``s, and of a serve
+program's TP over "model" for the attention families (qwen3, smollm,
+gemma2, command_r, internvl2, seamless: the rank's pieces and cache,
+``launch.serve.serve(mesh=)``'s layout)) or ``analytic_split`` (a part
+the port runs whole where the reference shards it, divided evenly by the
+plan's degree, ``meta["compute_shards"]``: the serve programs of the MoE,
+MLA and Mamba families, whose serving TP is not ported, and the sequence
+over "data" at ``long_500k``'s batch of 1; the serving weights' FSDP over
+"data" (``serve_fsdp``: Gemma-2, Command-R and the 140-400B plans), held
+as the plan's pieces; and the roofline's napkin terms on the H100
+datasheet constants of ``launch.roofline``).  None is a measurement on a
+device.
 """
 from __future__ import annotations
 
@@ -177,9 +183,12 @@ def device_numbers(bundle, got: Dict[str, Any]) -> Dict[str, Any]:
     divided by ``compute_shards``) and the peak (the argument bytes of the
     plan's local shapes plus the largest stage working set, a split
     stage's divided likewise); labelled ``analytic_split`` where a split
-    stage entered them."""
+    stage entered them, or where the serving weights' FSDP over "data"
+    (``serve_fsdp``) is the plan's arithmetic (the program holds its
+    "model" pieces whole over "data")."""
     shards = bundle.meta["compute_shards"]
-    flops, peak_work, split = 0.0, 0.0, False
+    flops, peak_work = 0.0, 0.0
+    split = bool(bundle.meta.get("serve_fsdp"))
     for st in bundle.stages:
         div = shards if st.split and shards > 1 else 1
         split = split or div > 1

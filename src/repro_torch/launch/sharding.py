@@ -199,12 +199,6 @@ _TP_CUT = ("embed", "head", "w_q", "w_o", "gate", "up", "down",
            "w_gate", "w_up", "w_down", "w_dq", "w_uq", "w_ukv",
            "in_proj", "conv_w", "conv_b", "out_proj")
 
-#: leaf names of the families whose TP is not ported, each named
-_TP_REFUSED = (
-    (("encoder", "cross_attn"), "the encoder-decoder"),
-)
-
-
 def model_dim(spec: PartitionSpec) -> Optional[int]:
     """The dim ``spec`` cuts over "model" (``None``: not cut over it)."""
     dims = [i for i in range(len(spec)) if "model" in spec.axes(i)]
@@ -233,14 +227,15 @@ def tp_dims(tree: Any, tp: int) -> Any:
 def tp_refusal(spec_tree: Any) -> Optional[str]:
     """Why the rank-local step cannot run a client whose leaves are cut by
     ``spec_tree`` over "model" (``None``: it can, or nothing is cut over
-    it): a family whose TP is not ported, by name, or a dense leaf of
-    ``_TP_CUT`` left whole (its heads, d_ff or vocab not dividing the
-    axis)."""
-    keys, cut, whole = set(), False, []
+    it): a leaf of ``_TP_CUT`` left whole beside cut ones (its heads, d_ff
+    or vocab not dividing the axis), by name.  Every family's TP is
+    ported: the dense decoders, the encoder-decoder (its encoder stack and
+    ``cross_attn`` cut as the decoder's attention), the vision frontend,
+    the MoE and MLA families and Mamba-2."""
+    cut, whole = False, []
 
     def leaf(path, spec):
         nonlocal cut
-        keys.update(str(getattr(e, "key", "")) for e in path)
         name = _leaf_name(path)
         if model_dim(spec) is not None:
             cut = True
@@ -251,9 +246,6 @@ def tp_refusal(spec_tree: Any) -> Optional[str]:
     tree_map_with_path(leaf, spec_tree)
     if not cut:
         return None
-    for names, family in _TP_REFUSED:
-        if keys & set(names):
-            return f"tensor parallelism over 'model' of {family} is not ported"
     if whole:
         return (f"tensor parallelism over 'model' multiplies pieces of "
                 f"{sorted(set(whole))}, which this axis leaves whole (a "

@@ -18,15 +18,20 @@ Shape -> program:
 A train program's local step is the rank's piece of its client: FSDP over
 "replica", the batch over "replica" and, under ``batch_over_model``,
 "model", and tensor parallelism over "model" for the dense decoders
-(qwen3, gemma2, command_r), the MoE and MLA families (mixtral,
-deepseek_v2) and Mamba-2 (mamba2, jamba) run as the rank-local epoch step
-runs them (``launch.fsdp``, ``launch.tp``: their gathers and reductions
-against ``consensus.DryGroup``s).  Where the reference shards a
-computation the port runs whole (the TP of the families whose TP is not
-ported: the encoder-decoder, the vision frontend; the serve split, the
-sequence-sharded long-context cache), the program runs it whole
-at the device's batch and ``meta["unsharded"]`` names it with
-``meta["compute_shards"]``, the plan's degree the dry run divides it by.
+(qwen3, gemma2, command_r), the encoder-decoder (seamless), the MoE and
+MLA families (mixtral, deepseek_v2) and Mamba-2 (mamba2, jamba) run as the
+rank-local epoch step runs them (``launch.fsdp``, ``launch.tp``: their
+gathers and reductions against ``consensus.DryGroup``s); the vision
+frontend's plan (internvl2, as smollm's) splits the batch over "model".
+A serve program of the attention families (qwen3, smollm, gemma2,
+command_r, internvl2, seamless) runs the rank's "model" pieces, its share
+of the batch over "data" and its cache, TP over a ``DryGroup``, as
+``launch.serve.serve(mesh=)`` runs them, then the logits' gather.  Where
+the reference shards a computation the port runs whole (the serving TP
+of the MoE, MLA and Mamba families; the sequence-sharded long-context
+cache at a batch of 1) or holds whole (the serving weights' FSDP over
+"data"), ``meta["unsharded"]`` names it; a computation run whole is
+divided by ``meta["compute_shards"]``, the plan's degree.
 Modality carve-out: audio / vlm archs get precomputed frame / patch
 embeddings as extra batch leaves.
 """
@@ -375,67 +380,147 @@ def build_train_program(arch_id: str, shape: InputShape, *,
 def _serve_split(cfg: ArchConfig, mesh: RankMesh, batch: int
                  ) -> Tuple[int, int, bool]:
     """``(device batch, compute shards, batch split over data)``: the batch
-    splits over "data" when it divides; the rest of the reference's cut
-    (TP over "model", and without a batch split the sequence) divides the
-    work evenly."""
+    splits over "data" when it divides.  The attention families run their
+    TP over "model" on the rank (``_serve_tp``), so only the sequence over
+    "data" at a batch it does not divide (``long_500k``'s batch of 1) is
+    left to divide the work evenly; the MoE, MLA and Mamba families run
+    the layers whole, and the rest of the reference's cut (TP over
+    "model", and without a batch split the sequence) divides it."""
     data = mesh.shape["data"]
     b_div = batch % data == 0
     b_dev = batch // data if b_div else batch
+    if tf.serve_tp_refusal(cfg) is None:
+        return b_dev, (1 if b_div else data), b_div
     shards = mesh.size() // (data if b_div else 1)
     return b_dev, shards, b_div
+
+
+def _serve_tp(cfg: ArchConfig, mesh: RankMesh, params):
+    """``(pieces, tp, attn_tp)`` of rank 0 of the dry serve ``mesh``: its
+    "model" pieces of ``params`` on meta and its
+    ``launch.tp.ModelParallel`` over a ``consensus.DryGroup``, as
+    ``launch.serve.serve_pieces`` cuts them; ``(params, None, True)`` for
+    the families whose serving TP is not ported
+    (``transformer.serve_tp_refusal``)."""
+    if tf.serve_tp_refusal(cfg) is not None:
+        return params, None, True
+    from repro_torch.launch.serve import serve_pieces
+    pieces, tp = serve_pieces(params, cfg, mesh)
+    return pieces, tp, tp.attn_tp
+
+
+def _serve_unsharded(cfg: ArchConfig, plan: DeploymentPlan, tp, shards: int,
+                     b_dev: int, b_div: bool, what: str) -> list:
+    """``meta["unsharded"]`` of a serve program: what the reference shards
+    and the program runs whole or holds at other shapes, each named."""
+    if tp is None:
+        return [f"the layers over {shards} ranks (TP over 'model'"
+                + ("" if b_div else f", {what} over 'data'")
+                + f"; {tf.serve_tp_refusal(cfg)}): run whole at the "
+                f"device's batch of {b_dev}"]
+    out = []
+    if shards > 1:
+        out.append(f"{what} over {shards} 'data' ranks at a batch of 1: "
+                   f"run whole on the rank's 'model' pieces")
+    if plan.serve_fsdp:
+        out.append("the weights' FSDP over 'data' (serve_fsdp): the program "
+                   "holds its 'model' pieces whole over 'data'; the state "
+                   "bytes are the plan's pieces")
+    return out
+
+
+def _state_bytes(params, pspecs, mesh: RankMesh, pieces, tp,
+                 plan: DeploymentPlan) -> int:
+    """A rank's weight bytes: the plan's local shapes under
+    ``serve_param_specs``, or under the port's serving TP the rank's own
+    pieces (``launch.serve.serve_pieces``: where the kv heads do not divide
+    "model", the kv heads its q heads read), unless the plan's FSDP over
+    "data" is held as its arithmetic (``_serve_unsharded``)."""
+    if tp is None or plan.serve_fsdp:
+        return _local_bytes(params, pspecs, mesh)
+    return tree_bytes(pieces)
+
+
+def _cache_bytes(cfg: ArchConfig, mesh: RankMesh, tp, batch: int,
+                 seq: int, attn_tp: bool) -> int:
+    """A rank's cache bytes: the plan's local shapes under
+    ``serve_cache_specs``, or under the port's serving TP the rank's own
+    cache (``init_cache(tp=)``: the kv heads its q heads read, every head
+    under ``attn_tp=False``) split over "data" as the spec splits it."""
+    if tp is None:
+        whole = tf.init_cache(cfg, batch, seq, torch.bfloat16, device=META)
+        return _local_bytes(whole, shd.serve_cache_specs(
+            whole, mesh, batch, attn_tp=attn_tp), mesh)
+    mine = tf.init_cache(cfg, batch, seq, torch.bfloat16, device=META,
+                         tp=tp)
+    data = RankMesh(("data", "model"), (mesh.shape["data"], 1), rank=0,
+                    dry=True)
+    return _local_bytes(mine, shd.serve_cache_specs(mine, data, batch),
+                        data)
 
 
 def build_prefill_program(arch_id: str, shape: InputShape, *,
                           multi_pod: bool = False,
                           plan: Optional[DeploymentPlan] = None,
                           arch: Optional[ArchConfig] = None) -> ProgramBundle:
+    """The prefill on rank 0 of the serve mesh: for the attention families
+    the rank's "model" pieces and cache, TP over a ``DryGroup`` as
+    ``launch.serve.serve(mesh=)`` runs it, then the logits' gather; for
+    the MoE, MLA and Mamba families the layers whole at the device's
+    batch."""
     cfg = arch or get_arch(arch_id)
     plan = plan or plan_for(arch_id)
     mesh = make_serve_mesh(multi_pod=multi_pod, rank=0, dry=True)
     dtype = plan.serve_dtype()
-    tp = mesh.shape["model"]
     b_dev, shards, b_div = _serve_split(cfg, mesh, shape.global_batch)
     params = init_meta_params(cfg, dtype)
     batch_full = token_batch_specs(cfg, (shape.global_batch,), shape.seq_len,
                                    dtype)
+    attn_tp = cfg.num_heads % mesh.shape["model"] == 0
     pspecs = shd.serve_param_specs(params, mesh, fsdp=plan.serve_fsdp,
-                                   attn_tp=cfg.num_heads % tp == 0)
+                                   attn_tp=attn_tp)
     b_axis = "data" if b_div else None
     batch_specs = tree_map(lambda _: shd.PartitionSpec(b_axis), batch_full)
     batch_dev = token_batch_specs(cfg, (b_dev,), shape.seq_len, dtype)
-    opts = tf.DEFAULT_OPTS
+    pieces, mp, _ = _serve_tp(cfg, mesh, params)
+    opts = dataclasses.replace(tf.DEFAULT_OPTS, tp=mp)
 
     def program(params, batch):
-        return tf.prefill(params, cfg, _tokens_on(batch),
-                          max_len=shape.seq_len, cache_dtype=torch.bfloat16,
-                          opts=opts)
+        logits, cache = tf.prefill(params, cfg, _tokens_on(batch),
+                                   max_len=shape.seq_len,
+                                   cache_dtype=torch.bfloat16, opts=opts)
+        return (logits if mp is None else mp.gather_logits(logits)), cache
 
-    cache_full = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
-                               torch.bfloat16, device=META)
-    cspecs = shd.serve_cache_specs(cache_full, mesh, shape.global_batch,
-                                   attn_tp=cfg.num_heads % tp == 0)
     return ProgramBundle(
         name=f"{arch_id}:{shape.name}:{'mp' if multi_pod else 'sp'}",
-        mesh=mesh, stages=(Stage("prefill", program, (params, batch_dev)),),
+        mesh=mesh, stages=(Stage("prefill", program, (pieces, batch_dev)),),
         meta={"arch": arch_id, "shape": shape.name, "multi_pod": multi_pod,
               "batch": shape.global_batch, "seq": shape.seq_len,
               "dtype": "bfloat16", "serve_fsdp": plan.serve_fsdp,
+              "attn_tp": attn_tp if mp is not None else None,
               "params": cfg.param_count(),
               "active_params": cfg.active_param_count(),
               "per_device_batch": b_dev, "compute_shards": shards,
-              "unsharded": [
-                  f"the layers over {shards} ranks (TP over 'model'"
-                  + ("" if b_div else ", the sequence over 'data'")
-                  + f"): run whole at the device's batch of {b_dev}"]},
-        arg_parts={"state": _local_bytes(params, pspecs, mesh),
+              "unsharded": _serve_unsharded(cfg, plan, mp, shards, b_dev,
+                                            b_div, "the sequence")},
+        arg_parts={"state": _state_bytes(params, pspecs, mesh, pieces, mp,
+                                         plan),
                    "batch": _local_bytes(batch_full, batch_specs, mesh),
-                   "cache": _local_bytes(cache_full, cspecs, mesh)})
+                   "cache": _cache_bytes(cfg, mesh, mp, shape.global_batch,
+                                         shape.seq_len, attn_tp)})
 
 
 def build_decode_program(arch_id: str, shape: InputShape, *,
                          multi_pod: bool = False,
                          plan: Optional[DeploymentPlan] = None,
                          arch: Optional[ArchConfig] = None) -> ProgramBundle:
+    """One decode step on rank 0 of the serve mesh against a full cache:
+    for the attention families the rank's "model" pieces and its cache
+    (``init_cache(tp=)``), TP over a ``DryGroup``, then the logits'
+    gather; the attention runs whole where the heads do not divide
+    "model", as in the prefill (the reference's decode lowering keeps
+    ``attn_tp=True`` there: K/V cut along the head dim); for the MoE, MLA
+    and Mamba families the layers whole at the device's batch."""
     cfg = arch or get_arch(arch_id)
     plan = plan or plan_for(arch_id)
     mesh = make_serve_mesh(multi_pod=multi_pod, rank=0, dry=True)
@@ -443,39 +528,40 @@ def build_decode_program(arch_id: str, shape: InputShape, *,
     b = shape.global_batch
     b_dev, shards, b_div = _serve_split(cfg, mesh, b)
     params = init_meta_params(cfg, dtype)
-    cache_full = tf.init_cache(cfg, b, shape.seq_len, torch.bfloat16,
-                               device=META)
+    pieces, mp, attn_tp = _serve_tp(cfg, mesh, params)
     cache_dev = tf.init_cache(cfg, b_dev, shape.seq_len, torch.bfloat16,
-                              device=META)
+                              device=META, tp=mp)
     # the step that fills the cache's last position
     cache_dev["position"] = torch.tensor(shape.seq_len - 1,
                                          dtype=torch.int32)
     token_dev = _meta((b_dev, 1), torch.int64)
     pspecs = shd.serve_param_specs(params, mesh, fsdp=plan.serve_fsdp,
-                                   attn_tp=True)
-    cspecs = shd.serve_cache_specs(cache_full, mesh, b, attn_tp=True)
+                                   attn_tp=attn_tp)
 
     def program(params, token, cache):
         with torch.no_grad():
-            return tf.decode_step(params, cfg, token, cache)
+            logits, cache = tf.decode_step(params, cfg, token, cache, tp=mp)
+            return (logits if mp is None else mp.gather_logits(logits)), \
+                cache
 
     return ProgramBundle(
         name=f"{arch_id}:{shape.name}:{'mp' if multi_pod else 'sp'}",
         mesh=mesh,
-        stages=(Stage("decode", program, (params, token_dev, cache_dev)),),
+        stages=(Stage("decode", program, (pieces, token_dev, cache_dev)),),
         meta={"arch": arch_id, "shape": shape.name, "multi_pod": multi_pod,
               "batch": b, "cache_len": shape.seq_len,
               "dtype": "bfloat16", "serve_fsdp": plan.serve_fsdp,
+              "attn_tp": attn_tp if mp is not None else None,
               "params": cfg.param_count(),
               "active_params": cfg.active_param_count(),
               "per_device_batch": b_dev, "compute_shards": shards,
-              "unsharded": [
-                  f"the layers over {shards} ranks (TP over 'model'"
-                  + ("" if b_div else ", the cache's sequence over 'data'")
-                  + f"): run whole at the device's batch of {b_dev}"]},
-        arg_parts={"state": _local_bytes(params, pspecs, mesh),
+              "unsharded": _serve_unsharded(cfg, plan, mp, shards, b_dev,
+                                            b_div, "the cache's sequence")},
+        arg_parts={"state": _state_bytes(params, pspecs, mesh, pieces, mp,
+                                         plan),
                    "batch": b // (mesh.shape["data"] if b_div else 1) * 4,
-                   "cache": _local_bytes(cache_full, cspecs, mesh)})
+                   "cache": _cache_bytes(cfg, mesh, mp, b, shape.seq_len,
+                                         attn_tp)})
 
 
 # ---------------------------------------------------------------------------

@@ -66,10 +66,52 @@ heads, with the reference's leaves cut where its rules cut them:
 * ``out_proj`` is row-parallel over d_inner, whose contiguous blocks are a
   rank's heads, and ends in ``reduce``.
 
+The encoder-decoder (Seamless-M4T) and the vision frontend (InternVL2)
+cut as the dense decoders do:
+
+* the encoder's blocks (non-causal self-attention with its q / k / v / o
+  biases, the gated MLP) are column- and row-parallel as the decoder's;
+  ``b_q`` / ``b_k`` / ``b_v`` are cut with their heads, ``b_o`` is added
+  once after the reduce, and the encoder's final norm is read whole, so
+  the memory it ends in is whole and equal on every rank;
+* a decoder block's cross-attention runs the rank's heads: q from the
+  normed residual after ``copy``, k and v from the memory with the rank's
+  ``w_k`` / ``w_v`` columns, ``w_o`` row-parallel and reduced.  Each rank
+  reads the memory for its own heads only, so the memory's gradient is
+  partial: ``models.transformer._trunk_inputs`` passes it through
+  ``copy`` once, after the encoder, under the site ``tp_memory`` (one
+  (b, s_enc, d) all-reduce a client step, whatever the decoder's depth);
+* the vision frontend has no weights: its patch embeddings are
+  concatenated ahead of the tokens after the vocab-parallel embedding's
+  reduce, so every rank holds the same whole activations.
+
+Serving on the serve mesh ("data", "model") runs the same layout
+(``launch.serve.serve(mesh=)``): the rank's pieces are ``local_shard``
+of the whole tree under ``launch.sharding.serve_param_specs`` (without
+FSDP over "data"), and prefill and decode run under
+``torch.inference_mode()``, where ``copy`` is the identity and ``reduce``
+all-reduces an inference tensor in place.  The rank's cache holds its
+kv heads (``models.modules.tp_kv_range``): where the kv heads divide the
+axis that is ``local_shard`` of the whole cache under
+``serve_cache_specs``; where they do not, the rank holds the kv heads its
+q heads read (the reference's spec cuts the head dim there), and so do
+its ``w_k`` / ``w_v`` (``launch.serve.serve_pieces``: the weights never
+change while serving, so no pass gathers them, ``tp_kv_gather``).  The
+encoder-decoder's cross cache holds the rank's kv heads too.  The last
+position's logits are the rank's vocab slice; ``gather_logits``
+all-gathers the slices whole (site ``tp_logits``) before sampling, so
+every rank samples the same token.  Where the heads do not divide the
+axis (``attn_tp=False``: InternVL2's 14 at TP 4 or 16) the attention
+leaves are whole on every rank and the attention runs whole, with no
+``copy`` or ``reduce`` around it (``models.modules.attention_tp``); the
+MLP and the vocab stay cut.
+
 Each collective is one ``consensus.all_reduce_`` (or, for a gather,
 ``all_gather_rows``) under a site of its own, so
 ``consensus.collective_counts()`` reports them: ``tp_forward`` (g, and the
-embedding's), ``tp_backward`` (f), ``tp_gates`` (f on the MoE gates),
+embedding's; in serving every reduction), ``tp_backward`` (f),
+``tp_memory`` (f on the encoder-decoder's memory), ``tp_logits`` (the
+serving logits' gather), ``tp_gates`` (f on the MoE gates),
 ``tp_vocab`` (the cross-entropy's max, then its sum of exponentials with
 the target logit), ``tp_replicated`` (a replicated leaf's partial
 gradient), ``tp_kv_gather`` / ``tp_kv_reduce`` (the fallback's gather and
@@ -94,20 +136,24 @@ class ModelParallel:
     """This rank's place on the "model" axis: the ``group`` of its TP
     ranks, its position ``pos`` among them and their number ``size``."""
 
-    def __init__(self, group, pos: int, size: int):
+    def __init__(self, group, pos: int, size: int, attn_tp: bool = True):
         if not 0 <= pos < size:
             raise ValueError(f"position {pos} outside a model axis of {size}")
         self.group, self.pos, self.size = group, int(pos), int(size)
+        #: whether the attention runs over the rank's heads (``False``:
+        #: whole on every rank, ``serve_param_specs(attn_tp=False)``)
+        self.attn_tp = bool(attn_tp)
 
     @classmethod
-    def of(cls, mesh) -> "ModelParallel":
+    def of(cls, mesh, attn_tp: bool = True) -> "ModelParallel":
         """The model axis of a ``launch.mesh.RankMesh`` (its group made by
         ``group_over``, in the order every rank makes it)."""
         return cls(mesh.group_over(("model",)), mesh.coords()["model"],
-                   mesh.shape["model"])
+                   mesh.shape["model"], attn_tp)
 
     def __repr__(self) -> str:
-        return f"ModelParallel(pos={self.pos}, size={self.size})"
+        return (f"ModelParallel(pos={self.pos}, size={self.size}, "
+                f"attn_tp={self.attn_tp})")
 
     # -- the four autograd functions ----------------------------------------
 
@@ -175,6 +221,13 @@ class ModelParallel:
         x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
         return self.reduce(x)
+
+    def gather_logits(self, piece: torch.Tensor) -> torch.Tensor:
+        """The whole vocab row from the ranks' slices ``piece`` (``(...,
+        V / size)``, the padding masked on global ids), in one all-gather
+        (site ``tp_logits``): equal on every rank."""
+        return cns.gather_pieces([piece], [piece.dim() - 1], self.group,
+                                 site="tp_logits")[0]
 
     def vocab_lo(self, n_local: int) -> int:
         """The global id of this rank's first vocab row or column."""

@@ -26,7 +26,11 @@ f32, dispatches by a gather of token indices and combines slot by slot in
 ``x.dtype``; the expert matmuls are batched einsums.  Both take a
 ``launch.tp.ModelParallel`` (``tp``) as the attention and the MLP do: a
 rank then runs its heads, its q latent columns and its experts (or their
-d_ff columns), and the partial sums are reduced over "model".
+d_ff columns), and the partial sums are reduced over "model".  The
+cross-attention, the decode steps and the cache take it too: a rank
+attends with its q heads over its cache of the kv heads they read
+(``tp_kv_range``), and where the serve mesh leaves the attention whole
+(``attention_tp``: ``attn_tp=False``) it runs every head.
 """
 from __future__ import annotations
 
@@ -323,28 +327,86 @@ def dispatch_attend(q, k, v, *, causal: bool, window: Optional[int],
     return mha_attend(q, k, v, mask, attn_softcap=attn_softcap, scale=scale)
 
 
+def attention_tp(tp):
+    """``tp`` where the attention runs over the rank's heads, ``None``
+    where it runs whole on every rank: a ``launch.tp.ModelParallel`` built
+    with ``attn_tp=False`` (the serve mesh's layout where the heads do not
+    divide the axis, ``launch.sharding.serve_param_specs(attn_tp=False)``:
+    the attention leaves replicated, the MLP and the vocab still cut)."""
+    return tp if tp is not None and tp.attn_tp else None
+
+
+def tp_kv_range(cfg: ArchConfig, tp) -> Tuple[int, int]:
+    """The kv heads ``[lo, hi)`` a rank's q heads read under ``tp`` (every
+    kv head without it): its own ``kvh / size`` where the kv heads divide
+    the axis, else those its q heads ``[p h / size, (p + 1) h / size)``
+    read, the group ratio kept (Qwen3 at TP 16, qwen3-smoke at TP 4)."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if tp is None:
+        return 0, kvh
+    if kvh % tp.size == 0:
+        n = kvh // tp.size
+        return tp.pos * n, (tp.pos + 1) * n
+    hl, g = h // tp.size, h // kvh
+    q_lo = tp.pos * hl
+    return q_lo // g, (q_lo + hl - 1) // g + 1
+
+
+def _kv_index(cfg: ArchConfig, tp) -> Optional[torch.Tensor]:
+    """The index, among the kv heads ``tp_kv_range`` gives a rank, of the
+    kv head each of its q heads reads, or ``None`` where GQA's own repeat
+    (``_expand_kv``) picks them."""
+    hl, g = cfg.num_heads // tp.size, cfg.num_heads // cfg.num_kv_heads
+    kv_lo, kv_hi = tp_kv_range(cfg, tp)
+    idx = (tp.pos * hl + torch.arange(hl)) // g - kv_lo
+    nkv = kv_hi - kv_lo
+    if hl % nkv == 0 and torch.equal(
+            idx, torch.arange(nkv).repeat_interleave(hl // nkv)):
+        return None
+    return idx
+
+
+def _read_kv(k: torch.Tensor, v: torch.Tensor, kv_idx
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads each q head reads (``_kv_index``), or ``k``, ``v`` as
+    they are."""
+    if kv_idx is None:
+        return k, v
+    kv_idx = kv_idx.to(k.device)
+    return k.index_select(2, kv_idx), v.index_select(2, kv_idx)
+
+
 def attention_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                     layer_kind: str = "global",
                     positions: Optional[torch.Tensor] = None,
                     kv_override: Optional[torch.Tensor] = None,
                     causal: bool = True,
                     attn_impl: str = "reference", tp=None) -> torch.Tensor:
-    """Self-attention over a full sequence (over the rank's heads under
-    ``tp``), or cross-attention over the memory ``kv_override`` (b, s_mem,
-    d): queries without rope from ``x``, keys and values from the memory,
-    with their biases, no mask."""
+    """Self-attention over a full sequence, or cross-attention over the
+    memory ``kv_override`` (b, s_mem, d): queries without rope from ``x``,
+    keys and values from the memory, with their biases, no mask.  Under
+    ``tp`` either runs the rank's heads (``_tp_attention_params``): q after
+    ``tp.copy`` of ``x``, ``w_o`` row-parallel and reduced.  The memory is
+    whole on every rank, and each rank reads it for its own heads only, so
+    its gradient is partial: the caller passes it through ``tp.copy`` once
+    (``models.transformer._trunk_inputs``, site ``tp_memory``)."""
     if kv_override is None:
         return attention_apply_kv(params, x, cfg, layer_kind=layer_kind,
                                   positions=positions, causal=causal,
                                   attn_impl=attn_impl, tp=tp)[0]
+    tp = attention_tp(tp)
+    kv_idx = None
+    if tp is not None:
+        params, kv_idx = _tp_attention_params(params, cfg, tp)
+        x = tp.copy(x)
     q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
     if "b_q" in params:
         q = q + params["b_q"]
-    k, v = cross_kv(params, kv_override, bias=True)
+    k, v = _read_kv(*cross_kv(params, kv_override, bias=True), kv_idx)
     out = dispatch_attend(q, k, v, causal=False, window=None,
                           attn_softcap=cfg.attn_logit_softcap,
                           attn_impl=attn_impl)
-    return _out_proj(params, out, x.dtype)
+    return _out_proj(params, out, x.dtype, tp)
 
 
 def cross_kv(params: Dict, memory: torch.Tensor, *, bias: bool
@@ -357,6 +419,17 @@ def cross_kv(params: Dict, memory: torch.Tensor, *, bias: bool
     if bias and "b_k" in params:
         k, v = k + params["b_k"], v + params["b_v"]
     return k, v
+
+
+def cross_cache_kv(params: Dict, memory: torch.Tensor, cfg: ArchConfig,
+                   tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What a prefill writes into the cross cache: the memory's keys and
+    values without their biases, under ``tp`` of the rank's kv heads
+    (``tp_kv_range``)."""
+    tp = attention_tp(tp)
+    if tp is not None:
+        params = _tp_attention_params(params, cfg, tp)[0]
+    return cross_kv(params, memory, bias=False)
 
 
 def _out_proj(params: Dict, out: torch.Tensor, dtype, tp=None
@@ -380,9 +453,11 @@ def _tp_attention_params(params: Dict, cfg: ArchConfig, tp
     read its kv heads ``[p kvh / tp, ...)``, the group ratio kept.  Under
     the head-dim fallback (``launch.sharding.KV_HD_FALLBACK``) ``w_k`` /
     ``w_v`` are gathered whole over "model" and cut to the kv heads its q
-    heads read; a kv leaf held whole is cut so too.  A replicated leaf read
-    for these heads only (``q_norm``, ``k_norm``, a whole kv bias) has its
-    gradient summed over "model"."""
+    heads read (``tp_kv_range``); a kv leaf held whole is cut so too, and
+    kv leaves held as those heads already (a serving rank's,
+    ``launch.serve.serve_pieces``) are read as they are.  A replicated
+    leaf read for these heads only (``q_norm``, ``k_norm``, a whole kv
+    bias) has its gradient summed over "model"."""
     h, kvh = cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim()
     hl = params["w_q"].shape[-2]
@@ -396,11 +471,11 @@ def _tp_attention_params(params: Dict, cfg: ArchConfig, tp
     w_k = params["w_k"]
     if w_k.shape[-2] * tp.size == kvh and kvh % tp.size == 0:
         return p, None
-    # kv heads held whole, or gathered whole from head-dim pieces: this
-    # rank's q heads read kv heads [kv_lo, kv_hi)
-    g = h // kvh
-    q_lo = tp.pos * hl
-    kv_lo, kv_hi = q_lo // g, (q_lo + hl - 1) // g + 1
+    # kv heads held whole, gathered whole from head-dim pieces, or held as
+    # its own: this rank's q heads read kv heads [kv_lo, kv_hi)
+    kv_lo, kv_hi = tp_kv_range(cfg, tp)
+    if w_k.shape[-1] == hd and w_k.shape[-2] == kv_hi - kv_lo < kvh:
+        return p, _kv_index(cfg, tp)
     kv = [params["w_k"], params["w_v"]]
     kv = (tp.gather(kv, -1) if w_k.shape[-1] != hd
           else [tp.replicated(w) for w in kv])
@@ -408,12 +483,7 @@ def _tp_attention_params(params: Dict, cfg: ArchConfig, tp
     for name in ("b_k", "b_v"):
         if name in p:
             p[name] = tp.replicated(p[name])[kv_lo:kv_hi]
-    idx = (q_lo + torch.arange(hl)) // g - kv_lo
-    nkv = kv_hi - kv_lo
-    if hl % nkv == 0 and torch.equal(
-            idx, torch.arange(nkv).repeat_interleave(hl // nkv)):
-        return p, None
-    return p, idx
+    return p, _kv_index(cfg, tp)
 
 
 def attention_apply_kv(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
@@ -426,21 +496,21 @@ def attention_apply_kv(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     (b, s, kvh, hd), which a prefill writes into the cache.  Under ``tp``
     (a ``launch.tp.ModelParallel``) the rank runs its own heads:
     column-parallel q / k / v after ``tp.copy``, row-parallel ``w_o``
-    (``_tp_attention_params``); k and v are then its heads'."""
+    (``_tp_attention_params``); k and v are then its kv heads'
+    (``tp_kv_range``), before any repeat to its q heads."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
     window = cfg.sliding_window if layer_kind == "local" else None
+    tp = attention_tp(tp)
     kv_idx = None
     if tp is not None:
         params, kv_idx = _tp_attention_params(params, cfg, tp)
         x = tp.copy(x)
     q, k, v = _project_qkv(params, x, x, cfg, positions, positions,
                            use_rope=True)
-    if kv_idx is not None:
-        kv_idx = kv_idx.to(k.device)
-        k, v = k.index_select(2, kv_idx), v.index_select(2, kv_idx)
-    out = dispatch_attend(q, k, v, causal=causal, window=window,
+    out = dispatch_attend(q, *_read_kv(k, v, kv_idx), causal=causal,
+                          window=window,
                           attn_softcap=cfg.attn_logit_softcap,
                           attn_impl=attn_impl)
     return _out_proj(params, out, x.dtype, tp), k, v
@@ -451,10 +521,13 @@ def attention_apply_kv(params: Dict, x: torch.Tensor, cfg: ArchConfig, *,
 
 def attention_cache_init(cfg: ArchConfig, batch: int, max_len: int,
                          layer_kind: str, dtype=torch.bfloat16,
-                         device="cpu") -> Dict:
-    """Ring-buffer KV cache.  Local layers only keep ``sliding_window``
-    slots; ``pos`` is the true position of each slot (-1: empty)."""
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim()
+                         device="cpu", kv_heads: Optional[int] = None
+                         ) -> Dict:
+    """Ring-buffer KV cache of ``kv_heads`` heads (default: every kv head;
+    a TP rank's ``tp_kv_range``).  Local layers only keep
+    ``sliding_window`` slots; ``pos`` is the true position of each slot
+    (-1: empty)."""
+    kvh, hd = kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim()
     n = min(max_len, cfg.sliding_window) if (
         layer_kind == "local" and cfg.sliding_window) else max_len
     return {
@@ -466,15 +539,21 @@ def attention_cache_init(cfg: ArchConfig, batch: int, max_len: int,
 
 def attention_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
                           position: int, cfg: ArchConfig, *,
-                          layer_kind: str = "global"
+                          layer_kind: str = "global", tp=None
                           ) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: (b, 1, d); ``position``: the int position of
     the token (one for the whole batch — synchronous decode).  Writes the
     token's k, v and position into slot ``position % n`` of ``cache`` IN
     PLACE (the reference returns a new cache; the port saves the copy) and
-    returns ``(y, cache)``."""
+    returns ``(y, cache)``.  Under ``tp`` the rank's heads, as
+    ``attention_apply_kv`` runs them, against its cache of its kv heads."""
     b = x.shape[0]
     n = cache["k"].shape[1]
+    tp = attention_tp(tp)
+    kv_idx = None
+    if tp is not None:
+        params, kv_idx = _tp_attention_params(params, cfg, tp)
+        x = tp.copy(x)
     pos_b = torch.full((b, 1), position, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, x, x, cfg, pos_b, pos_b, use_rope=True)
     slot = position % n
@@ -486,22 +565,32 @@ def attention_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
     valid = (cpos >= 0) & (cpos <= position)
     if window is not None:
         valid = valid & (cpos > position - window)
-    out = mha_attend(q, cache["k"], cache["v"], valid[:, None, :],
-                     attn_softcap=cfg.attn_logit_softcap)
-    return _out_proj(params, out, x.dtype), cache
+    out = mha_attend(q, *_read_kv(cache["k"], cache["v"], kv_idx),
+                     valid[:, None, :], attn_softcap=cfg.attn_logit_softcap)
+    return _out_proj(params, out, x.dtype, tp), cache
 
 
 def cross_attention_decode_step(params: Dict, x: torch.Tensor,
                                 cross_k: torch.Tensor,
-                                cross_v: torch.Tensor) -> torch.Tensor:
+                                cross_v: torch.Tensor,
+                                cfg: Optional[ArchConfig] = None,
+                                tp=None) -> torch.Tensor:
     """One token's cross-attention over the cached memory keys and values,
     as the reference's ``_block_decode`` computes it: no query bias, no
     output bias and no softcap (its prefill's cross-attention adds them;
-    the biases start at zero, so the two agree on fresh weights)."""
+    the biases start at zero, so the two agree on fresh weights).  Under
+    ``tp`` (``cfg`` given) the rank's q heads against its cross cache of
+    their kv heads, ``w_o`` row-parallel and reduced."""
+    tp = attention_tp(tp)
+    kv_idx = None
+    if tp is not None:
+        params, kv_idx = _tp_attention_params(params, cfg, tp)
+        x = tp.copy(x)
     q = torch.einsum("bsd,dhk->bshk", x, params["w_q"])
-    out = mha_attend(q, cross_k.to(x.dtype), cross_v.to(x.dtype), None,
-                     attn_softcap=None)
-    return torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["w_o"])
+    k, v = _read_kv(cross_k.to(x.dtype), cross_v.to(x.dtype), kv_idx)
+    out = mha_attend(q, k, v, None, attn_softcap=None)
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["w_o"])
+    return y if tp is None else tp.reduce(y)
 
 
 # ---------------------------------------------------------------------------

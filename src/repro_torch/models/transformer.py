@@ -39,7 +39,12 @@ encoder-decoder the memory's ``cross_k`` / ``cross_v``.
 it on the host to pick the ring slot, and a device copy would cost a
 synchronisation per step.
 ``decode_step`` updates the cache's tensors in place.  Prefill and decode
-run under ``torch.inference_mode()``: no autograd tape is recorded.
+run under ``torch.inference_mode()``: no autograd tape is recorded.  Under
+tensor parallelism (``ApplyOptions.tp``, ``decode_step(tp=)``, a
+``launch.tp.ModelParallel``) they run a rank's pieces, cache and vocab
+slice for the attention families (the dense decoders, the
+encoder-decoder, the vision frontend); ``serve_tp_refusal`` names the
+MoE, MLA and Mamba families, whose serving TP is not ported.
 """
 from __future__ import annotations
 
@@ -194,19 +199,22 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, kind: str,
         mix = nn.attention_apply(params["mixer"], h, cfg, layer_kind=kind,
                                  causal=causal, attn_impl=opts.attn_impl,
                                  tp=opts.tp)
-    return _block_rest(params, x, mix, cfg, cross=_cross(params, cfg, memory),
+    return _block_rest(params, x, mix, cfg,
+                       cross=_cross(params, cfg, memory, opts.tp),
                        moe_kw=opts.moe_kw() if is_moe else None, tp=opts.tp)
 
 
-def _cross(params: Dict, cfg: ArchConfig, memory: Optional[torch.Tensor]):
+def _cross(params: Dict, cfg: ArchConfig, memory: Optional[torch.Tensor],
+           tp=None):
     """A decoder block's full-sequence cross-attention over ``memory`` as a
-    function of the normed residual (``None`` without memory): the
-    reference calls ``attention_apply(kv_override=...)`` without
-    ``attn_impl``, so it always takes the reference route."""
+    function of the normed residual (``None`` without memory), on the
+    rank's heads under ``tp``: the reference calls
+    ``attention_apply(kv_override=...)`` without ``attn_impl``, so it
+    always takes the reference route."""
     if memory is None or "cross_attn" not in params:
         return None
     return lambda h: nn.attention_apply(params["cross_attn"], h, cfg,
-                                        kv_override=memory)
+                                        kv_override=memory, tp=tp)
 
 
 def _ssd_impl(opts: ApplyOptions) -> str:
@@ -428,10 +436,15 @@ def _trunk_inputs(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
                   opts: ApplyOptions):
     """``(x, memory)``: the token embeddings, with a vision frontend's patch
     embeddings ahead of them, and an encoder-decoder's encoder memory
-    (``None`` otherwise)."""
+    (``None`` otherwise).  Under tensor parallelism the memory, whole on
+    every rank, passes through ``tp.copy`` once (site ``tp_memory``): each
+    decoder layer's cross-attention reads it for the rank's heads only, so
+    its gradient is summed over "model" before the encoder's backward."""
     memory = None
     if cfg.encdec is not None:
         memory = encode(params, cfg, batch["frames"], opts)
+        if nn.attention_tp(opts.tp) is not None:
+            memory = opts.tp.copy(memory, "tp_memory")
     x = _embed(params, cfg, batch["tokens"], opts.tp)
     if cfg.frontend is not None and cfg.frontend.kind == "vision_patches":
         x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
@@ -490,8 +503,8 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
     and ``with_tp(tp)`` with ``ApplyOptions.tp`` set to a
     ``launch.tp.ModelParallel``: the rank's logits are then its vocab
     slice, their logsumexp and target logit reduced over "model"
-    (``ModelParallel.cross_entropy``).  ``with_tp`` refuses, by name, the
-    families whose TP is not ported (``tp_refusal``)."""
+    (``ModelParallel.cross_entropy``).  ``with_tp`` refuses, by name, a
+    Mamba head count the axis does not divide (``tp_refusal``)."""
     tp = opts.tp
 
     def loss_fn(params, batch, rng):
@@ -532,18 +545,14 @@ def make_loss_fn(cfg: ArchConfig, opts: ApplyOptions = DEFAULT_OPTS,
 def tp_refusal(cfg: ArchConfig, size: int) -> Optional[str]:
     """Why a client of ``cfg`` cannot run tensor parallel over "model"
     (``launch.tp``) on ``size`` model ranks, by name, or ``None`` for the
-    dense decoders, the MoE and MLA families (Mixtral, DeepSeek-V2) and
-    Mamba-2 (Mamba2-780M; Jamba's mamba, attention and MoE layers) whose
-    heads ``size`` divides: the encoder-decoder and the vision frontend are
-    refused, and a Mamba head count ``size`` does not divide (a rank runs
-    whole heads)."""
+    dense decoders, the encoder-decoder (Seamless-M4T), the vision
+    frontend (InternVL2), the MoE and MLA families (Mixtral, DeepSeek-V2)
+    and Mamba-2 (Mamba2-780M; Jamba's mamba, attention and MoE layers):
+    a Mamba head count ``size`` does not divide is refused (a rank runs
+    whole heads).  A head count that leaves attention leaves whole beside
+    cut ones is refused by ``launch.sharding.tp_refusal``."""
     plan = stack_plan(cfg)
     kinds = {k for k, _ in _period_flags(cfg, plan)}
-    for bad, family in ((cfg.encdec is not None, "the encoder-decoder"),
-                        (cfg.frontend is not None, "the vision frontend")):
-        if bad:
-            return (f"tensor parallelism over 'model' of {family} is not "
-                    f"ported")
     if "mamba" in kinds:
         nh = cfg.mamba.num_heads(cfg.d_model)
         if nh % size:
@@ -553,6 +562,29 @@ def tp_refusal(cfg: ArchConfig, size: int) -> Optional[str]:
     return None
 
 
+def serve_tp_refusal(cfg: ArchConfig) -> Optional[str]:
+    """Why ``cfg`` cannot be served tensor parallel over "model", by name,
+    or ``None`` for the attention families (the dense decoders, the
+    encoder-decoder, the vision frontend): the MoE, MLA and Mamba serving
+    paths (drop-free experts on a rank, MLA's absorbed decode over a
+    latent cut by rank, the SSM state on a rank's heads) are not ported."""
+    plan = stack_plan(cfg)
+    kinds = {k for k, _ in _period_flags(cfg, plan)}
+    for bad, family in ((cfg.moe is not None, "the MoE family"),
+                        (cfg.mla is not None, "MLA"),
+                        ("mamba" in kinds, "Mamba-2")):
+        if bad:
+            return (f"serving tensor parallel over 'model' of {family} is "
+                    f"not ported")
+    return None
+
+
+def _check_serve_tp(cfg: ArchConfig, tp) -> None:
+    why = None if tp is None else serve_tp_refusal(cfg)
+    if why is not None:
+        raise ValueError(why)
+
+
 # ---------------------------------------------------------------------------
 # serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
@@ -560,11 +592,17 @@ def tp_refusal(cfg: ArchConfig, size: int) -> Optional[str]:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cpu",
-               enc_len: Optional[int] = None) -> Dict:
+               enc_len: Optional[int] = None, tp=None) -> Dict:
     """An empty cache for ``batch`` sequences of up to ``max_len`` tokens;
     an encoder-decoder's cross K/V hold ``enc_len`` memory positions
-    (default ``int(max_len * encoder_len_ratio)``, as the reference)."""
+    (default ``int(max_len * encoder_len_ratio)``, as the reference).
+    Under ``tp`` (a ``launch.tp.ModelParallel``) a rank's cache: each
+    attention layer's K/V and the cross K/V hold the kv heads its q heads
+    read (``models.modules.tp_kv_range``; every head under
+    ``attn_tp=False``)."""
+    _check_serve_tp(cfg, tp)
     plan = stack_plan(cfg)
+    kv_lo, kv_hi = nn.tp_kv_range(cfg, nn.attention_tp(tp))
 
     def block(kind):
         if kind == "mamba":
@@ -573,12 +611,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             one = nn.mla_cache_init(cfg, batch, max_len, dtype, device)
         else:
             one = nn.attention_cache_init(cfg, batch, max_len, kind, dtype,
-                                          device)
+                                          device, kv_hi - kv_lo)
         blk = {"mixer": one}
         if cfg.encdec is not None:
             n = (int(max_len * cfg.encdec.encoder_len_ratio)
                  if enc_len is None else enc_len)
-            shape = (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim())
+            shape = (batch, n, kv_hi - kv_lo, cfg.resolved_head_dim())
             blk["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
             blk["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
         return blk
@@ -595,11 +633,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
-                  is_moe: bool, position: int) -> torch.Tensor:
+                  is_moe: bool, position: int, tp=None) -> torch.Tensor:
     """One block of a decode step; writes its k/v (an attention layer), its
     latent (MLA: the absorbed decode, as the reference's) or its conv
     window and SSM state (a mamba layer) into ``cache``.  An MoE FFN runs
-    drop-free."""
+    drop-free.  Under ``tp`` an attention block runs the rank's heads
+    against its cache, its cross-attention too, and the MLP its d_ff
+    columns."""
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         mix, _ = mamba_mod.mamba_decode_step(params["mixer"], h,
@@ -609,14 +649,16 @@ def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
                                     position, cfg, absorbed=True)
     else:
         mix, _ = nn.attention_decode_step(params["mixer"], h, cache["mixer"],
-                                          position, cfg, layer_kind=kind)
+                                          position, cfg, layer_kind=kind,
+                                          tp=tp)
     cross = None
     if "cross_k" in cache:
         def cross(hh):
             return nn.cross_attention_decode_step(
-                params["cross_attn"], hh, cache["cross_k"], cache["cross_v"])
+                params["cross_attn"], hh, cache["cross_k"], cache["cross_v"],
+                cfg, tp)
     return _block_rest(params, x, mix, cfg, cross=cross,
-                       moe_kw=_DECODE_MOE if is_moe else None)[0]
+                       moe_kw=_DECODE_MOE if is_moe else None, tp=tp)[0]
 
 
 def _layers(params, cache, cfg: ArchConfig, plan: StackPlan):
@@ -632,18 +674,25 @@ def _layers(params, cache, cfg: ArchConfig, plan: StackPlan):
 
 
 @torch.inference_mode()
-def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Dict
-                ) -> Tuple[torch.Tensor, Dict]:
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: Dict,
+                tp=None) -> Tuple[torch.Tensor, Dict]:
     """One synchronous decode step. token: (b, 1) int.  Updates ``cache``'s
     tensors in place and returns ``(logits (b, 1, v), cache)`` with
-    ``position`` advanced by one."""
+    ``position`` advanced by one.  Under ``tp`` (a
+    ``launch.tp.ModelParallel``) ``params`` are the rank's pieces and
+    ``cache`` its cache (``init_cache(tp=)``): the vocab-parallel
+    embedding, each block on the rank's heads and d_ff columns, and the
+    logits the rank's vocab slice (``ModelParallel.gather_logits`` makes
+    them whole)."""
+    _check_serve_tp(cfg, tp)
     plan = stack_plan(cfg)
     position = int(cache["position"])
-    x = _embed(params, cfg, token)
+    x = _embed(params, cfg, token, tp)
     for layer, layer_cache, kind, is_moe in _layers(params, cache, cfg, plan):
-        x = _block_decode(layer, layer_cache, x, cfg, kind, is_moe, position)
+        x = _block_decode(layer, layer_cache, x, cfg, kind, is_moe, position,
+                          tp)
     cache["position"] = torch.tensor(position + 1, dtype=torch.int32)
-    return _head(params, cfg, x), cache
+    return _head(params, cfg, x, tp), cache
 
 
 @torch.inference_mode()
@@ -665,7 +714,12 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     count, as in the reference); an encoder-decoder encodes ``frames``
     first, and each decoder block's cross-attention (reference route)
     records the memory's K/V without their biases, as the reference's
-    prefill does.  Returns the last position's logits (b, 1, v)."""
+    prefill does.  Returns the last position's logits (b, 1, v).  Under
+    ``opts.tp`` (a ``launch.tp.ModelParallel``) ``params`` are the rank's
+    pieces: every block runs the rank's heads and d_ff columns, the cache
+    is the rank's (``init_cache(tp=)``) and the logits its vocab slice."""
+    tp = opts.tp
+    _check_serve_tp(cfg, tp)
     tokens = batch["tokens"]
     b = tokens.shape[0]
     max_len = max_len or tokens.shape[1]
@@ -673,7 +727,8 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     seq = x.shape[1]
     plan = stack_plan(cfg)
     cache = init_cache(cfg, b, max_len, cache_dtype, x.device,
-                       enc_len=None if memory is None else memory.shape[1])
+                       enc_len=None if memory is None else memory.shape[1],
+                       tp=tp)
     positions = torch.arange(seq, device=x.device).expand(b, seq)
     moe_kw = opts.moe_kw()
     for layer, layer_cache, kind, is_moe in _layers(params, cache, cfg, plan):
@@ -694,21 +749,21 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         else:
             mix, k, v = nn.attention_apply_kv(
                 layer["mixer"], h, cfg, layer_kind=kind, positions=positions,
-                attn_impl=opts.attn_impl)
+                attn_impl=opts.attn_impl, tp=tp)
             filled = _attention_fill(k, v, positions, slots["k"].shape[1],
                                      cache_dtype)
         for key, val in filled.items():
             # the slots past the prompt keep their empty values (0, pos -1)
             slots[key][:, :val.shape[1]].copy_(val)
         if memory is not None:
-            ck, cv = nn.cross_kv(layer["cross_attn"], memory, bias=False)
+            ck, cv = nn.cross_cache_kv(layer["cross_attn"], memory, cfg, tp)
             layer_cache["cross_k"].copy_(ck)
             layer_cache["cross_v"].copy_(cv)
         x, _ = _block_rest(layer, x, mix, cfg,
-                           cross=_cross(layer, cfg, memory),
-                           moe_kw=moe_kw if is_moe else None)
+                           cross=_cross(layer, cfg, memory, tp),
+                           moe_kw=moe_kw if is_moe else None, tp=tp)
     cache["position"] = torch.tensor(seq, dtype=torch.int32)
-    return _head(params, cfg, x[:, -1:]), cache
+    return _head(params, cfg, x[:, -1:], tp), cache
 
 
 def _attention_fill(k, v, positions, n: int, cache_dtype) -> Dict:

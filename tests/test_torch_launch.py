@@ -398,11 +398,12 @@ def test_local_step_collective_record(arch_id):
 
 
 #: the archs whose train pair runs its TP over "model" on the rank
-#: (launch.tp): the dense decoders, Mixtral's MoE, DeepSeek-V2's MoE and
-#: MLA, Mamba2 and Jamba; the plans of smollm_360m and internvl2_1b split
-#: the batch over "model" instead
+#: (launch.tp): the dense decoders, the encoder-decoder, Mixtral's MoE,
+#: DeepSeek-V2's MoE and MLA, Mamba2 and Jamba; the plans of smollm_360m
+#: and internvl2_1b split the batch over "model" instead
 TP_PORTED = ("qwen3_1_7b", "gemma2_27b", "command_r_35b", "mixtral_8x22b",
-             "deepseek_v2_236b", "mamba2_780m", "jamba_1_5_large_398b")
+             "deepseek_v2_236b", "mamba2_780m", "jamba_1_5_large_398b",
+             "seamless_m4t_large_v2")
 
 
 def test_tp_local_step_collective_record():
@@ -441,10 +442,10 @@ def _committed(arch: str, tag: str) -> dict:
 @pytest.mark.parametrize("arch_id", sorted(tplans.PLANS))
 def test_committed_train_records_are_labelled(arch_id):
     """Each committed train record's peak and FLOPs: ``measured_meta``
-    where the rank runs its whole piece (the ported TP plans, and the
-    plans that split the batch over "model"), ``analytic_split`` where a
-    family's TP over "model" is still run whole and divided (the
-    encoder-decoder's)."""
+    where the rank runs its whole piece (every plan now: the TP plans,
+    and the plans that split the batch over "model"), ``analytic_split``
+    where a family's TP over "model" would still be run whole and
+    divided."""
     for tag in ("sp", "mp"):
         rec = _committed(arch_id, tag)
         measured = (arch_id in TP_PORTED

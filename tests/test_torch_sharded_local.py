@@ -188,8 +188,9 @@ WORLD = textwrap.dedent('''
 
     def tp_refusal(rank, spec):
         """On a (1, 1, 2, 2) mesh with tp_axis="model": the step refuses
-        a family whose tensor parallelism is not ported (the
-        encoder-decoder)."""
+        a client whose attention leaves the axis leaves whole beside its
+        cut MLP and vocab (seamless-smoke at 3 heads), by name."""
+        import dataclasses
         from repro_torch.configs import get_smoke
         from repro_torch.core import (DFLConfig, FLTopology,
                                       build_dfl_epoch_step)
@@ -198,7 +199,8 @@ WORLD = textwrap.dedent('''
         from repro_torch.models import transformer as tf
         from repro_torch.tree import tree_map
         mesh = lm.fl_rank_mesh(lm.FLMeshSpec(1, 1, 2, 2))
-        cfg = get_smoke("seamless-m4t-large-v2")
+        cfg = dataclasses.replace(get_smoke("seamless-m4t-large-v2"),
+                                  num_heads=3, num_kv_heads=3)
         params = tf.init_params(torch.Generator(), cfg, device="meta")
         topo = FLTopology(num_servers=1, clients_per_server=1, t_client=1,
                           t_server=1)
@@ -519,8 +521,8 @@ def test_intra_client_collectives_by_site(world, case):
 
 def test_tp_over_model_is_refused(world):
     for w in world:
-        assert "tensor parallelism over 'model' of the encoder-decoder" \
-            in w["tp_refused"]
+        assert ("tensor parallelism over 'model' multiplies pieces of "
+                "['w_o', 'w_q']") in w["tp_refused"]
 
 
 # ---------------------------------------------------------------------------

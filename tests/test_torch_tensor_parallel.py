@@ -41,9 +41,11 @@ one-process backend on the (M * S)-row problem under A ⊗ I_S, and the
 collectives by site: 2L + 1 forward (``tp_forward``) and 2L + 1 backward
 (``tp_backward``) all-reduces a client step, their bytes to the byte.
 Outside the world: the vocab-parallel cross-entropy emulated over k
-slices in one process, the role on a dry mesh and the refusals by name
-(the MoE and MLA families and Mamba now build:
-tests/test_torch_tensor_parallel_moe.py, tests/test_torch_tensor_parallel_mamba.py).
+slices in one process, the role on a dry mesh and the families that once
+were refused by name (the MoE and MLA families, Mamba, the
+encoder-decoder and the vision frontend now build:
+tests/test_torch_tensor_parallel_moe.py, tests/test_torch_tensor_parallel_mamba.py,
+tests/test_torch_tensor_parallel_encdec.py).
 """
 import functools
 import os
@@ -643,9 +645,10 @@ def test_role_on_a_dry_mesh():
 
 
 #: the families the rank-local step runs under TP beside the dense
-#: decoders (tests/test_torch_tensor_parallel_moe.py and
-#: tests/test_torch_tensor_parallel_mamba.py train them)
-TP_PORTED = ("MoE", "Mamba")
+#: decoders (tests/test_torch_tensor_parallel_moe.py,
+#: tests/test_torch_tensor_parallel_mamba.py and
+#: tests/test_torch_tensor_parallel_encdec.py train them): every family
+TP_PORTED = ("MoE", "Mamba", "encoder-decoder", "vision frontend")
 
 
 @pytest.mark.parametrize("arch,family", [
@@ -654,25 +657,23 @@ TP_PORTED = ("MoE", "Mamba")
     ("internvl2-1b", "vision frontend"),
     ("jamba-1.5-large-398b", "Mamba")])
 def test_families_left_under_tp_are_refused_by_name(arch, family):
-    """The families whose TP is not ported are refused by name (the
-    encoder-decoder, the vision frontend); the step of Mixtral,
-    DeepSeek-V2, Mamba2 and Jamba (mamba, attention and MoE layers) builds
-    on the same (1, 1, 2, 2) mesh."""
+    """Every family once refused by name now builds on the same (1, 1, 2,
+    2) mesh: Mixtral, DeepSeek-V2, Mamba2 and Jamba (mamba, attention and
+    MoE layers), the encoder-decoder and the vision frontend; neither
+    resolver names a family any more (what is still refused, a leaf cut
+    beside a whole one and a Mamba head count the axis does not divide,
+    is held by name in tests/test_torch_tensor_parallel_encdec.py and
+    tests/test_torch_tensor_parallel_mamba.py)."""
+    assert family in TP_PORTED
     topo, backend = _backend(arch, (1, 1, 2, 2))
-
-    def build():
-        return tdfl.build_dfl_epoch_step(
-            tdfl.DFLConfig(topology=topo, consensus_backend=backend),
-            ttf.make_loss_fn(get_smoke(arch)), sgd(GAMMA))
-
-    if family in TP_PORTED:
-        assert callable(build())
-        assert tdfl.rank_role(tdfl.DFLConfig(
-            topology=topo, consensus_backend=backend)).tp.size == 2
-        return
-    with pytest.raises(ValueError, match="tensor parallelism over 'model' "
-                       "of .*" + family):
-        build()
+    step = tdfl.build_dfl_epoch_step(
+        tdfl.DFLConfig(topology=topo, consensus_backend=backend),
+        ttf.make_loss_fn(get_smoke(arch)), sgd(GAMMA))
+    assert callable(step)
+    assert tdfl.rank_role(tdfl.DFLConfig(
+        topology=topo, consensus_backend=backend)).tp.size == 2
+    assert shd.tp_refusal(backend.leaf_specs) is None
+    assert ttf.tp_refusal(get_smoke(arch), 2) is None
 
 
 def test_tp_refuses_a_batch_over_model_and_a_dynamic_config():
