@@ -5274,6 +5274,7 @@ TP_REGROUP = {
     "bsd,dv->bsv": "col",        # the untied head
     "bsd,de->bse": "col",        # Mamba's in_proj
     "bsi,id->bsd": "row",        # Mamba's out_proj
+    "bthv,hvd->btd": "row",      # w_o after MLA's absorbed decode
 }
 
 
@@ -5893,10 +5894,48 @@ def mamba_regrouped(torch, mamba_mod, k: int):
     heads, on the block's x channels with B and C whole (so B's and C's
     gradients, and the conv leaves', are summed over the blocks, as the
     ranks' are: in bf16 this is most of a TP run's distance from one
-    process, on ``conv_b``'s B and C channels), and the gated norm from
-    kernel 2's statistics launches on ``k`` blocks of d_inner, the sums
-    added in block order, then each block normalised by them
-    (``launch.tp``'s ``norm`` without the ranks)."""
+    process, on ``conv_b``'s B and C channels), and the gated norm as the
+    ranks group it (``gated_norm_regrouped``)."""
+    mm = mamba_mod
+    prefill = mm.mamba_prefill
+
+    def grouped(params, x, cfg, conv_cache_dtype=None, impl="reference"):
+        m = cfg.mamba
+        di = m.d_inner(cfg.d_model)
+        hl = m.num_heads(cfg.d_model) // k
+        dl = hl * m.head_dim
+        z, xbc_raw, dt = mm._split_proj(params, x, cfg)
+        a_coef = -torch.exp(params["a_log"].float())
+        ys, xss = [], []
+        for p_ in range(k):
+            lo, h_lo = p_ * dl, p_ * hl
+
+            def mine(t):
+                return torch.cat([t[..., lo:lo + dl], t[..., di:]], dim=-1)
+            xs, bs, cs_ = mm._split_xbc(mm._causal_conv(
+                mine(xbc_raw), mine(params["conv_w"]),
+                mine(params["conv_b"])), cfg)
+            y, _ = mm._scan(xs, bs, cs_, dt[..., h_lo:h_lo + hl],
+                            a_coef[h_lo:h_lo + hl], m.chunk_size, impl)
+            ys.append(y)
+            xss.append(xs)
+        return mm._mix_out(params, x, torch.cat(xss, dim=2), z,
+                           torch.cat(ys, dim=2), cfg), None
+
+    mm.mamba_prefill = grouped
+    try:
+        with gated_norm_regrouped(torch, mamba_mod, k):
+            yield
+    finally:
+        mm.mamba_prefill = prefill
+
+
+@contextlib.contextmanager
+def gated_norm_regrouped(torch, mamba_mod, k: int):
+    """Within the block, a Mamba layer's gated norm from kernel 2's
+    statistics launches on ``k`` blocks of d_inner, the sums added in
+    block order, then each block normalised by them (``launch.tp``'s
+    ``norm`` without the ranks)."""
     from repro_torch.kernels import ops
 
     class Cut(torch.autograd.Function):
@@ -5930,39 +5969,16 @@ def mamba_regrouped(torch, mamba_mod, k: int):
                     torch.cat([ds for _, ds in bwd]), None)
 
     mm = mamba_mod
-    orig, prefill = mm.rmsnorm_apply, mm.mamba_prefill
+    orig = mm.rmsnorm_apply
 
     def cut(params, x, eps=1e-6):
         return Cut.apply(x, params["scale"], eps)
 
-    def grouped(params, x, cfg, conv_cache_dtype=None, impl="reference"):
-        m = cfg.mamba
-        di = m.d_inner(cfg.d_model)
-        hl = m.num_heads(cfg.d_model) // k
-        dl = hl * m.head_dim
-        z, xbc_raw, dt = mm._split_proj(params, x, cfg)
-        a_coef = -torch.exp(params["a_log"].float())
-        ys, xss = [], []
-        for p_ in range(k):
-            lo, h_lo = p_ * dl, p_ * hl
-
-            def mine(t):
-                return torch.cat([t[..., lo:lo + dl], t[..., di:]], dim=-1)
-            xs, bs, cs_ = mm._split_xbc(mm._causal_conv(
-                mine(xbc_raw), mine(params["conv_w"]),
-                mine(params["conv_b"])), cfg)
-            y, _ = mm._scan(xs, bs, cs_, dt[..., h_lo:h_lo + hl],
-                            a_coef[h_lo:h_lo + hl], m.chunk_size, impl)
-            ys.append(y)
-            xss.append(xs)
-        return mm._mix_out(params, x, torch.cat(xss, dim=2), z,
-                           torch.cat(ys, dim=2), cfg), None
-
-    mm.rmsnorm_apply, mm.mamba_prefill = cut, grouped
+    mm.rmsnorm_apply = cut
     try:
         yield
     finally:
-        mm.rmsnorm_apply, mm.mamba_prefill = orig, prefill
+        mm.rmsnorm_apply = orig
 
 
 @contextlib.contextmanager
@@ -6793,31 +6809,53 @@ def serve_tp_predicted(cfg, shape, rows: int) -> dict:
             "tp_logits": (1 + steps, (1 + steps) * rows * vl * f)}
 
 
-def flash_tp_checks(torch, g) -> dict:
-    """Kernel 3 at each FLASH_TP shape (a rank's heads) against its plain
-    version (f32: 2e-5 of the largest value), timed against the plain
-    version, SDPA and its bound: one ``flash_attention_tp_shape`` line
-    each.  Returns the rows of the ``kernels`` line (launches filled in
-    from ``serve_tp``)."""
+def flash_tp_checks(torch, g, entries=None) -> dict:
+    """Kernel 3 at each ``entries`` shape (FLASH_TP unless given: a rank's
+    heads; ``(arch, b, s, h, kvh, hd, causal[, window, dtype])``) against
+    its plain version (f32: 2e-5 of the largest value; bf16: each row
+    within FLASH_BF16_ROW_LIMIT of its largest |value|), timed against the
+    plain version, SDPA (a boolean mask for a window) and its bound: one
+    ``flash_attention_tp_shape`` line each.  Returns the rows of the
+    ``kernels`` line (launches filled in from the serving phases) and each
+    row's ``flash_heads`` key under ``"key"``."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for name, (arch, b, s_len, h, kvh, hd, causal) in FLASH_TP.items():
-        q = torch.randn((b, s_len, h, hd), device=dev, generator=g)
-        k = torch.randn((b, s_len, kvh, hd), device=dev, generator=g)
-        v = torch.randn((b, s_len, kvh, hd), device=dev, generator=g)
-        err, rel = rel_err(torch, ops.flash_attention(q, k, v, causal=causal),
-                           ref.attention_ref(q, k, v, causal=causal))
+    for name, entry in (entries or FLASH_TP).items():
+        arch, b, s_len, h, kvh, hd, causal = entry[:7]
+        window, dtype = entry[7:] if len(entry) > 7 else (None, "float32")
+        dt = getattr(torch, dtype)
+        kw = dict(causal=causal, window=window)
+        q = torch.randn((b, s_len, h, hd), device=dev, generator=g).to(dt)
+        k = torch.randn((b, s_len, kvh, hd), device=dev, generator=g).to(dt)
+        v = torch.randn((b, s_len, kvh, hd), device=dev, generator=g).to(dt)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        err, rel = rel_err(torch, got, want)
+        if dtype == "bfloat16":
+            measure, limit = row_rel_err(torch, got, want), \
+                FLASH_BF16_ROW_LIMIT
+        else:
+            measure, limit = rel, 2e-5
+        del got, want
+        mask = None
+        if window is not None:
+            i = torch.arange(s_len, device=dev)
+            mask = (i[None, :] <= i[:, None]) & \
+                (i[None, :] > i[:, None] - window)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         t = alternate(torch, {
-            "kernel": lambda: ops.flash_attention(q, k, v, causal=causal),
-            "plain": lambda: ref.attention_ref(q, k, v, causal=causal),
-            "library": lambda: sdpa(qt, kt, vt, is_causal=causal,
+            "kernel": lambda: ops.flash_attention(q, k, v, **kw),
+            "plain": lambda: ref.attention_ref(q, k, v, **kw),
+            "library": lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                    is_causal=causal and mask is None,
                                     enable_gqa=True)}, reps=20)
-        flops = b * h * attn_pairs(s_len, s_len, causal, None) * 4 * hd
-        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * 4
-        bnd, by = bound_ms(n_bytes, flops)
+        flops = b * h * attn_pairs(s_len, s_len, causal, window) * 4 * hd
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bnd, by = bound_ms(n_bytes, flops, H100_BF16_TC_FLOP_PER_S
+                           if dtype == "bfloat16" else H100_F32_FLOP_PER_S)
         row = {"name": f"flash_attention_{name}", "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                "replaces": "src/repro/kernels/flash_attention.py:118",
@@ -6826,12 +6864,16 @@ def flash_tp_checks(torch, g) -> dict:
                "library_ms": t["library"]}
         emit("flash_attention_tp_shape", arch=arch,
              shape=[b, s_len, s_len, h, kvh, hd], causal=causal,
-             max_rel_err=rel, flops=flops, bytes=n_bytes,
+             window=window, dtype=dtype, max_rel_err=rel,
+             checked=measure, limit=limit, flops=flops, bytes=n_bytes,
              bound_share=bnd / t["kernel"], **{
                  k_: row[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")})
-        assert rel < 2e-5, (name, rel)
+        assert measure <= limit, (name, measure, limit)
+        row["key"] = "|".join(map(str, (
+            fa.mode_key(dt, h // kvh, hd, causal, window, None), b, h,
+            kvh)))
         rows[name] = row
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
@@ -6839,41 +6881,56 @@ def flash_tp_checks(torch, g) -> dict:
 
 
 def forced_logits(torch, cfg, params, inputs, feed, tp=None,
-                  control: bool = False):
-    """``serve``'s prefill and decode steps at SERVE_TP_RUN's shape on
-    ``params`` (a rank's pieces under ``tp``) and ``inputs``, each step
-    teacher-forced on ``feed`` (``(rows, gen - 1)`` tokens): every step's
-    whole logits ``(rows, gen, V)`` on the host (gathered over "model"
-    under ``tp``); with ``control``, also the first SERVE_TP_CONTROL_STEPS
-    steps' on a copy of the prefill's cache whose kv heads are one off the
-    rank's own (``shift_kv``), else ``None``."""
+                  control: bool = False, run=None, shift=None,
+                  control_ctx=contextlib.nullcontext, at_end=None,
+                  timing=None):
+    """``serve``'s prefill and decode steps at ``run``'s shape (SERVE_TP_RUN
+    unless given) on ``params`` (a rank's pieces under ``tp``) and
+    ``inputs``, each step teacher-forced on ``feed`` (``(rows, gen - 1)``
+    tokens): every step's whole logits ``(rows, gen, V)`` on the host
+    (gathered over "model" under ``tp``); with ``control``, also the first
+    SERVE_TP_CONTROL_STEPS steps' on a copy of the prefill's cache that
+    ``shift`` changed in place (``shift_kv`` unless given: its kv heads
+    one off the rank's own), run inside ``control_ctx()``, else ``None``.
+    ``at_end()`` is called after the teacher-forced steps, before the
+    control; ``timing`` receives the prefill's and the steps' seconds
+    (each ending in the logits' copy to the host)."""
     from repro_torch.core import consensus as cns
     from repro_torch.models import transformer as tf
     from repro_torch.tree import tree_map
-    run = SERVE_TP_RUN
+    run = run or SERVE_TP_RUN
+    shift = shift or shift_kv
     opts = tf.ApplyOptions(attn_impl="kernel", moe_no_drop=True, tp=tp)
     whole = (lambda x: x) if tp is None else tp.gather_logits
+    timing = {} if timing is None else timing
+    t0 = time.perf_counter()
     logits, cache = tf.prefill(params, cfg, inputs,
                                max_len=run["prompt_len"] + run["gen"],
                                cache_dtype=torch.float32, opts=opts)
+    kept = [whole(logits)[:, -1].cpu()]
+    timing["prefill_s"] = time.perf_counter() - t0
     shifted = None
     if control:
         with torch.inference_mode():    # the prefill's inference tensors
             shifted = tree_map(lambda x: x.clone()
                                if isinstance(x, torch.Tensor) else x, cache)
-        shift_kv(torch, cns, cfg, shifted, tp)
-    kept = [whole(logits)[:, -1].cpu()]
+        shift(torch, cns, cfg, shifted, tp)
+    t0 = time.perf_counter()
     for i in range(run["gen"] - 1):
         logits, cache = tf.decode_step(params, cfg, feed[:, i:i + 1], cache,
                                        tp=tp)
         kept.append(whole(logits)[:, -1].cpu())
+    timing["decode_s"] = time.perf_counter() - t0
+    if at_end is not None:
+        at_end()
     ctl = None
     if control:
         ctl = []
-        for i in range(SERVE_TP_CONTROL_STEPS):
-            logits, shifted = tf.decode_step(params, cfg, feed[:, i:i + 1],
-                                             shifted, tp=tp)
-            ctl.append(whole(logits)[:, -1].cpu())
+        with control_ctx():
+            for i in range(SERVE_TP_CONTROL_STEPS):
+                logits, shifted = tf.decode_step(
+                    params, cfg, feed[:, i:i + 1], shifted, tp=tp)
+                ctl.append(whole(logits)[:, -1].cpu())
         ctl = torch.stack(ctl, dim=1)
     return torch.stack(kept, dim=1), ctl
 
@@ -7088,6 +7145,581 @@ def serve_tp_check(torch, ranks, want, smi: str) -> dict:
     return total
 
 
+# serving tensor parallel over "model" for the MoE, MLA and Mamba families
+# (``serve_tp_families``): each model at full width on ("data", "model") =
+# (1, 4) at SERVE_TP_RUN's shape (4 x 1024-token prompts, 16 tokens),
+# depth cut for the card's 80 GB and the script's time: arch -> (config
+# replacements, weights' dtype).
+# Mixtral-8x22B one layer (PR 30's cut): 12 q / 2 kv heads a rank (kernel
+# 3, group 6, window 4096), 2 of 8 experts drop-free; DeepSeek-V2 the dense
+# prefix layer and one MoE layer: 32 of 128 MLA heads against the whole
+# latent, 40 of 160 experts and the shared experts' d_ff quarter;
+# Mamba2-780M 16 of 48 layers (PR 31's cut, f32): 12 of 48 SSD heads a
+# rank (kernel 9); Jamba-1.5-Large two layers, (mamba, global): 64 of 256
+# SSD heads (kernel 9 in bf16) with the dense FFN, then 16 q / 2 kv heads
+# (kernel 3, group 8) with 4 of 16 experts
+SERVE_TP_FAMILIES = {
+    "mixtral-8x22b": ({"num_layers": 1}, "bfloat16"),
+    "deepseek-v2-236b": ({"num_layers": 2}, "bfloat16"),
+    "mamba2-780m": ({"num_layers": 16}, "float32"),
+    "jamba-1.5-large-398b": ({"num_layers": 2,
+                              "layer_pattern": ("mamba", "global")},
+                             "bfloat16"),
+}
+SERVE_TP_FAMILIES_MESH = (1, 4)
+SERVE_TP_FAMILIES_RUN = SERVE_TP_RUN
+#: the models served through ``serve(mesh=)`` itself, beside the
+#: teacher-forced run every model takes
+SERVE_TP_FAMILIES_ON_MESH = ("mixtral-8x22b", "mamba2-780m")
+#: a rank's share of the card in this phase: the rank whose turn it is
+#: holds a whole tree (Jamba's two layers 23.8 GB in bf16, 36.75 GB at
+#: the peak of its draw and cut on an H100 80GB HBM3) beside its pieces;
+#: the others their pieces (~6 GB) and a prefill's activations
+SERVE_TP_FAMILIES_FRACTION = 0.5
+#: kernel 3 at the families' rank shapes (bf16): name -> (arch, b, s, h,
+#: kvh, hd, causal, window, dtype)
+FLASH_TP_FAMILIES = {
+    "mixtral_tp4": ("mixtral-8x22b", 4, 1024, 12, 2, 128, True, 4096,
+                    "bfloat16"),
+    "jamba_tp4": ("jamba-1.5-large-398b", 4, 1024, 16, 2, 128, True, None,
+                  "bfloat16"),
+}
+#: kernel 9 at the families' rank shapes: name -> (arch, b, s, heads, hd,
+#: d_state, chunk, dtype of x / B / C)
+SSD_TP = {
+    "mamba2_tp4": ("mamba2-780m", 4, 1024, 12, 64, 128, 256, "float32"),
+    "jamba_tp4": ("jamba-1.5-large-398b", 4, 1024, 64, 64, 128, 256,
+                  "bfloat16"),
+}
+
+
+def family_config(arch: str):
+    """``arch`` at its published widths, cut as SERVE_TP_FAMILIES says."""
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), **SERVE_TP_FAMILIES[arch][0])
+
+
+@contextlib.contextmanager
+def served_family(tserve):
+    """Within the block, ``launch.serve`` resolves every SERVE_TP_FAMILIES
+    arch to ``family_config``."""
+    saved = tserve.get_arch
+
+    def get(arch_id):
+        return (family_config(arch_id) if arch_id in SERVE_TP_FAMILIES
+                else saved(arch_id))
+    tserve.get_arch = get
+    try:
+        yield
+    finally:
+        tserve.get_arch = saved
+
+
+@contextlib.contextmanager
+def ssd_heads():
+    """Within the block, kernel 9's launches by (dtype, batch, heads,
+    head_dim): the head counts a rank's calls run at."""
+    from repro_torch.kernels import ssd_scan as ks
+    seen: dict = {}
+    call = ks.ssd_scan_cuda
+
+    def recorded(xs, bs, cs, dt, a_coef, **kw):
+        key = "|".join(map(str, (str(xs.dtype).split(".")[-1],
+                                 *xs.shape[:1], *xs.shape[2:])))
+        seen[key] = seen.get(key, 0) + 1
+        return call(xs, bs, cs, dt, a_coef, **kw)
+    ks.ssd_scan_cuda = recorded
+    try:
+        yield seen
+    finally:
+        ks.ssd_scan_cuda = call
+
+
+def family_heads_expected(cfg, dtype: str, passes: int) -> tuple:
+    """``flash_heads`` and ``ssd_heads`` records of one rank's ``passes``
+    prefills on SERVE_TP_FAMILIES_MESH: one kernel-3 launch an attention
+    layer at the rank's q / kv heads (none for MLA), one kernel-9 launch a
+    mamba layer at its SSD heads."""
+    from repro_torch.kernels import flash_attention as fa
+    import torch
+    size, b = SERVE_TP_FAMILIES_MESH[1], SERVE_TP_FAMILIES_RUN["batch"]
+    kinds = [cfg.pattern_for_layer(i) for i in range(cfg.num_layers)]
+    flash, ssd = {}, {}
+    n_attn = 0 if cfg.mla is not None else sum(k != "mamba" for k in kinds)
+    if n_attn:
+        h, kvh = cfg.num_heads // size, cfg.num_kv_heads // size
+        window = cfg.sliding_window if "local" in kinds else None
+        key = "|".join(map(str, (fa.mode_key(
+            getattr(torch, dtype), h // kvh, cfg.resolved_head_dim(), True,
+            window, cfg.attn_logit_softcap), b, h, kvh)))
+        flash[key] = n_attn * passes
+    n_mamba = kinds.count("mamba")
+    if n_mamba:
+        m = cfg.mamba
+        ssd[f"{dtype}|{b}|{m.num_heads(cfg.d_model) // size}|"
+            f"{m.head_dim}"] = n_mamba * passes
+    return flash, ssd
+
+
+def serve_family_predicted(cfg, rows: int, es: int) -> dict:
+    """``{site: (calls, bytes)}`` of one rank's ``serve(mesh=)`` (or its
+    teacher-forced prefill and steps) with ``rows`` of the batch on
+    SERVE_TP_FAMILIES_MESH, activations and logits of ``es`` bytes, a pass
+    over P positions (the prompt's, then one a decode step): ``tp_forward``
+    the embedding's reduce and, a layer, the mixer's (attention, MLA, a
+    mamba layer's ``out_proj``), the dense MLP's, an MoE layer's routed sum
+    and its shared experts', each (rows, P, d); ``tp_latent_gather`` an
+    MLA layer's (rows, P, q_rank / size) piece; ``tp_ssm_gather`` a mamba
+    layer's in_proj block (rows, P, W / size) with its conv leaves'
+    pieces, ``tp_ssm_norm`` its (rows x P,) f32 sums of squares;
+    ``tp_logits`` a pass's (rows, 1, V / size).  The gates' ``copy`` and
+    the replicated leaves send nothing in a forward pass."""
+    size = SERVE_TP_FAMILIES_MESH[1]
+    d = cfg.d_model
+    out: dict = {}
+
+    def add(site, n_bytes):
+        calls, total = out.get(site, (0, 0))
+        out[site] = (calls + 1, total + n_bytes)
+
+    run = SERVE_TP_FAMILIES_RUN
+    for p_ in [run["prompt_len"]] + [1] * (run["gen"] - 1):
+        act = rows * p_ * d * es
+        add("tp_forward", act)
+        for i in range(cfg.num_layers):
+            kind = cfg.pattern_for_layer(i)
+            if kind == "mamba":
+                m = cfg.mamba
+                di, nh = m.d_inner(d), m.num_heads(d)
+                width = 2 * di + 2 * m.d_state + nh
+                ch = di + 2 * m.d_state
+                add("tp_ssm_gather", (rows * p_ * width + m.d_conv * ch + ch)
+                    // size * es)
+                add("tp_ssm_norm", rows * p_ * 4)
+            elif cfg.mla is not None:
+                add("tp_latent_gather",
+                    rows * p_ * cfg.mla.q_lora_rank // size * es)
+            add("tp_forward", act)
+            if cfg.is_moe_layer(i):
+                add("tp_forward", act)
+                if cfg.moe.num_shared_experts:
+                    add("tp_forward", act)
+            elif cfg.d_ff > 0:
+                add("tp_forward", act)
+        add("tp_logits", rows * cfg.padded_vocab_size // size * es)
+    return out
+
+
+def shift_ssm(torch, cns, cfg, cache, tp) -> None:
+    """The control: every mamba layer's SSM state in ``cache`` replaced, in
+    place, by the heads one off the rank's own (the states gathered whole
+    over "model", then the rank's range shifted by one head)."""
+    nh = cfg.mamba.num_heads(cfg.d_model)
+    hl = nh // tp.size
+    for blk in cache["stack"]:
+        x = blk["mixer"].get("ssm")
+        if x is None:
+            continue
+        whole = cns.gather_pieces([x], [x.dim() - 3], tp.group,
+                                  site="check")[0]
+        idx = ((torch.arange(hl) + tp.pos * hl + 1) % nh).to(x.device)
+        with torch.inference_mode():    # the prefill's inference tensors
+            x.copy_(whole.index_select(x.dim() - 3, idx))
+
+
+def family_control(cfg):
+    """``(shift, control_ctx)`` of ``forced_logits``' control for ``cfg``:
+    a Mamba model's SSM state one head off (``shift_ssm``); an MoE model's
+    experts one off (``experts_one_off``: each expert of the rank reads
+    the tokens routed to the expert before it); Jamba both (its one
+    mamba layer's state one head off alone moved its logits by only 1.1x
+    the yardstick on the card: the heads of large |A| forget within a few
+    steps)."""
+    from repro_torch.models import modules as nn
+    shift = shift_ssm if cfg.mamba is not None else (lambda *a: None)
+    ctx = (contextlib.nullcontext if cfg.moe is None
+           else lambda: experts_one_off(nn))
+    return shift, ctx
+
+
+class _OneRank:
+    """A ``launch.tp.ModelParallel`` stand-in for one of ``size`` ranks
+    inside one process: ``copy`` and ``reduce`` the identity (the caller
+    sums the ranks' partial outputs)."""
+
+    def __init__(self, pos: int, size: int):
+        self.pos, self.size = pos, size
+
+    @staticmethod
+    def copy(x, site=None):
+        return x
+
+    @staticmethod
+    def reduce(x):
+        return x
+
+
+@contextlib.contextmanager
+def moe_combine_regrouped(torch, nn, k: int):
+    """Within the block, ``moe_apply`` (one process) combines as ``k``
+    expert-parallel ranks do: each rank's experts' (token, slot) pairs
+    summed in the output's dtype, the ranks' partial sums added in rank
+    order, then the shared experts; the router runs once a call (a pinned
+    routing is consumed once).  Where the experts do not divide ``k`` the
+    call runs as it is."""
+    orig = nn.moe_apply
+
+    def regrouped(params, x, cfg, capacity_factor=1.25, no_drop=False,
+                  groups=1, tp=None):
+        e = cfg.moe.num_experts
+        if tp is not None or e % k:
+            return orig(params, x, cfg, capacity_factor, no_drop, groups, tp)
+        el = e // k
+        route, first = nn.moe_route, []
+
+        def once(p_, tokens, c):
+            if not first:
+                first.append(route(p_, tokens, c))
+            return first[0]
+
+        nn.moe_route = once
+        try:
+            parts = []
+            for r in range(k):
+                piece = {n: (v[r * el:(r + 1) * el] if n in (
+                    "w_gate", "w_up", "w_down") else v)
+                    for n, v in params.items() if n != "shared"}
+                y, aux = orig(piece, x, cfg, capacity_factor, no_drop,
+                              groups, _OneRank(r, k))
+                parts.append(y)
+        finally:
+            nn.moe_route = route
+        y = parts[0]
+        for y_ in parts[1:]:
+            y = y + y_
+        if "shared" in params:
+            y = y + nn.mlp_apply(params["shared"], x, cfg.act)
+        return y, aux
+
+    nn.moe_apply = regrouped
+    try:
+        yield
+    finally:
+        nn.moe_apply = orig
+
+
+def ssd_tp_checks(torch, g) -> dict:
+    """Kernel 9 at each SSD_TP shape (a rank's heads, in the model's
+    layout, A = -(1..heads) as rank 0's heads of the model's init) against
+    its plain version at the reference's SSD tolerance, beside the control
+    (B and C swapped), timed against the plain version and its bound: one
+    ``ssd_tp_shape`` line each.  Returns the rows of the ``kernels`` line
+    (launches filled in from ``serve_tp_families``) and each row's
+    ``ssd_heads`` key under ``"key"``."""
+    from repro_torch.kernels import ops, ref
+    rows = {}
+    for name, (arch, b, s, nh, hd, ds, chunk, dtype) in SSD_TP.items():
+        a = -torch.arange(1, nh + 1, dtype=torch.float32,
+                          device=torch.device("cuda"))
+        xs, bs, cs, dt, a = ssd_inputs(torch, g, b, s, nh, hd, ds, a=a,
+                                       dtype=dtype)
+        got = ops.ssd_scan(xs, bs, cs, dt, a, chunk=chunk)
+        want = ref.ssd_scan_chunked_ref(xs, bs, cs, dt, a, chunk=chunk)
+        errs = [rel_err(torch, x, y) for x, y in zip(got, want)]
+        within = all(bool(((x - y).abs() <= SSD_LIMIT * (1 + y.abs())).all())
+                     for x, y in zip(got, want))
+        swapped = ops.ssd_scan(xs, cs, bs, dt, a, chunk=chunk)
+        control = max(rel_err(torch, x, y)[1] for x, y in zip(swapped, want))
+        del got, want, swapped
+        times = alternate(torch, {
+            "kernel": lambda: ops.ssd_scan(xs, bs, cs, dt, a, chunk=chunk),
+            "plain": lambda: ref.ssd_scan_chunked_ref(xs, bs, cs, dt, a,
+                                                      chunk=chunk)}, reps=5)
+        flops, n_bytes, _ = ssd_work(b, s, nh, hd, ds, chunk)
+        if dtype == "bfloat16":     # x, B and C in half of their f32 bytes
+            n_bytes -= 2 * (b * s * nh * hd + 2 * b * s * ds)
+        bound, by = bound_ms(n_bytes, flops)
+        err = max(e[0] for e in errs)
+        emit("ssd_tp_shape", arch=arch, shape=[b, s, nh, hd, ds, chunk],
+             dtype=dtype, max_abs_err=err,
+             max_rel_err=max(e[1] for e in errs), limit=SSD_LIMIT,
+             control_b_c_swapped_rel_err=control, kernel_ms=times["kernel"],
+             plain_ms=times["plain"], flops=flops, bytes=n_bytes,
+             bound_ms=bound, bound_by=by,
+             bound_share=bound / times["kernel"], within_limit=within)
+        assert within, (name, errs)
+        assert control > 4 * SSD_LIMIT, (name, control)
+        rows[name] = {"name": f"ssd_scan_{name}", "route": "cuda",
+                      "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                      "replaces": SSD_KERNEL[1], "launches": 0,
+                      "max_abs_err": err, "ms": times["kernel"],
+                      "plain_ms": times["plain"], "bound_ms": bound,
+                      "bound_by": by, "library_ms": None,
+                      "key": f"{dtype}|{b}|{nh}|{hd}"}
+        del xs, bs, cs, dt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_tp_family_references(torch) -> dict:
+    """Per SERVE_TP_FAMILIES model, the one-process ``serve`` on the same
+    draws: its greedy tokens (the teacher-forced runs' feed) and
+    seconds."""
+    from repro_torch.launch import serve as tserve
+    out = {}
+    for arch, (_, dtype) in SERVE_TP_FAMILIES.items():
+        t0 = time.perf_counter()
+        with served_family(tserve):
+            plain = tserve.serve(arch, param_dtype=getattr(torch, dtype),
+                                 **SERVE_TP_FAMILIES_RUN)
+        out[arch] = {"tokens": plain["generated"].cpu(),
+                     "prefill_s": plain["prefill_s"],
+                     "decode_s": plain["decode_s"],
+                     "wall_s": time.perf_counter() - t0}
+        del plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_family_rank(torch, cns, ops, rank: int, feed: dict) -> dict:
+    """The world's ``serve_tp_families`` on this rank, its share of the
+    card raised to SERVE_TP_FAMILIES_FRACTION for the phase: per model,
+    ``serve(mesh=)`` greedy where SERVE_TP_FAMILIES_ON_MESH names it, then
+    the same draws cut in turn (``draw_pieces``) and ``forced_logits``
+    teacher-forced on ``feed`` with the control (``family_control``), its
+    routing recorded; prefill and decode seconds, collectives and sites
+    (of ``serve(mesh=)``, else of the teacher-forced passes), peak beside
+    the pieces, launches, kernels 3 and 9 by head count and kernel 2's
+    shapes.  The ranks at "model" 0 write their tokens, logits and routing
+    to a file under ``build/``."""
+    import torch.distributed as dist
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import modules as nn
+    from repro_torch.tree import tree_leaves
+    dev = torch.device(SERVE_TP_FAMILIES_RUN["device"])
+    base = pathlib.Path(__file__).resolve().parent / "build"
+    base.mkdir(exist_ok=True)
+    run = SERVE_TP_FAMILIES_RUN
+    torch.cuda.set_per_process_memory_fraction(SERVE_TP_FAMILIES_FRACTION, 0)
+    out = {}
+    for arch, (_, dtype) in SERVE_TP_FAMILIES.items():
+        cns.release_staging()
+        cfg = family_config(arch)
+        mesh = RankMesh(("data", "model"), SERVE_TP_FAMILIES_MESH)
+        pdt = getattr(torch, dtype)
+        got, saved = {"coords": mesh.coords()}, {}
+        with flash_heads() as heads, ssd_heads() as ssd, \
+                launched_norms(torch) as norms:
+            if arch in SERVE_TP_FAMILIES_ON_MESH:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                cns.reset_collective_counts()
+                dist.barrier()
+                t0 = time.perf_counter()
+                with served_family(tserve):
+                    res = tserve.serve(arch, mesh=mesh, param_dtype=pdt,
+                                       **run)
+                torch.cuda.synchronize()
+                got.update(wall_s=time.perf_counter() - t0,
+                           prefill_s=res["prefill_s"],
+                           decode_s=res["decode_s"], rows=list(res["rows"]),
+                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           collectives=cns.collective_counts(),
+                           launches={k: v for k, v in
+                                     ops.launch_counts().items() if v})
+                saved["generated"] = res["generated"].cpu()
+                del res
+            # the same draws cut in turn, teacher-forced, and the control
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            cns.reset_collective_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
+            pieces, tp, inputs = tserve.draw_pieces(
+                cfg, run["batch"], run["prompt_len"], 0, dev, mesh, pdt)
+            torch.cuda.synchronize()
+            draw_s = time.perf_counter() - t0
+            lo, hi = tserve.batch_rows(mesh, run["batch"])
+            forced: dict = {}
+
+            def at_end():
+                torch.cuda.synchronize()
+                forced.update(
+                    seconds=time.perf_counter() - t1,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    collectives=cns.collective_counts(),
+                    launches={k: v for k, v in ops.launch_counts().items()
+                              if v})
+
+            routing: list = []
+            timing: dict = {}
+            shift, ctx = family_control(cfg)
+            t1 = time.perf_counter()
+            with moe_routing(nn, routing):
+                logits, control = forced_logits(
+                    torch, cfg, pieces, {k: v[lo:hi] for k, v in
+                                         inputs.items()},
+                    feed[arch][lo:hi].to(dev), tp, control=True, run=run,
+                    shift=shift, control_ctx=ctx, at_end=at_end,
+                    timing=timing)
+        for k_, v_ in {**forced, **timing}.items():
+            got.setdefault(k_ if k_ != "seconds" else "forced_s", v_)
+        got.setdefault("rows", [lo, hi])
+        counts = got["collectives"]
+        got.update(
+            draw_pieces_s=draw_s, forced_peak_gb=forced["peak_gb"],
+            sites={k: (v, counts["site_bytes"][k])
+                   for k, v in counts["sites"].items()
+                   if k.startswith("tp_")},
+            flash_heads=dict(heads), ssd_heads=dict(ssd),
+            norm_shapes=sorted(norms), attn_tp=tp.attn_tp,
+            pieces_gb=sum(x.numel() * x.element_size()
+                          for x in tree_leaves(pieces)) / 1e9)
+        if mesh.coords()["model"] == 0:
+            path = base / f"serve_tp_family_{arch}_{rank}.pt"
+            torch.save({"logits": logits, "control": control,
+                        "routing": [x.cpu() for x in routing], **saved},
+                       path)
+            got["path"] = str(path)
+        out[arch] = got
+        del pieces, inputs, logits, control, routing
+        torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(SHARD_MEMORY_FRACTION, 0)
+    dist.barrier()
+    return out
+
+
+def serve_tp_family_check(torch, ranks, want, smi: str) -> dict:
+    """``serve_tp_families``, one line a model, after the world: the
+    one-process teacher-forced runs on the same draws in this process,
+    pinned to the TP run's routing (``moe_routing``), plainly and
+    regrouped as the ranks group their sums (``tp_regrouped`` with the
+    absorbed decode's ``w_o``, ``moe_combine_regrouped``,
+    ``gated_norm_regrouped``); the routing flips (the (token, layer) pairs
+    whose expert set the one-process router would change); per rank its
+    seconds, collective seconds, sites against the prediction to the byte,
+    peak beside its pieces, kernels 3 and 9 by head count; the checks: the
+    logits of the prefill and of each teacher-forced step within the
+    parity yardstick (twice the regrouped run's distance plus
+    SERVE_TP_REL of the largest |logit| in f32, TP_MOE_STEPS bf16 steps of
+    it in bf16), the control outside it on each of its steps,
+    ``serve(mesh=)``'s greedy tokens equal to one process's on each row up
+    to its first step whose top-2 margin does not exceed the yardstick.
+    Returns the launches by ``flash_heads`` / ``ssd_heads`` key and kernel
+    2's shapes, over the ranks."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import mamba as mm
+    from repro_torch.models import modules as nn
+    from repro_torch.models import transformer as tf_mod
+    dev = torch.device(SERVE_TP_FAMILIES_RUN["device"])
+    run = SERVE_TP_FAMILIES_RUN
+    size = SERVE_TP_FAMILIES_MESH[1]
+    steps = run["gen"] - 1
+    total: dict = {"flash_heads": {}, "ssd_heads": {}, "norm_shapes": set()}
+    for arch, (_, dtype) in SERVE_TP_FAMILIES.items():
+        cfg = family_config(arch)
+        got = [r["serve_tp_families"][arch] for r in ranks]
+        saved = [torch.load(x["path"], weights_only=False)
+                 for x in got if "path" in x][0]
+        feed = want[arch]["tokens"][:, :-1].to(dev)
+        params, inputs = tserve.draw(cfg, run["batch"], run["prompt_len"], 0,
+                                     dev, getattr(torch, dtype))
+        pinned = [x.to(dev) for x in saved["routing"]]
+        own: list = []
+        t0 = time.perf_counter()
+        with moe_routing(nn, pinned=pinned, own=own):
+            plain, _ = forced_logits(torch, cfg, params, inputs, feed,
+                                     run=run)
+        plain_s = time.perf_counter() - t0
+        with nested(tp_regrouped(torch, (nn, tf_mod, mm), size),
+                    moe_combine_regrouped(torch, nn, size),
+                    gated_norm_regrouped(torch, mm, size),
+                    moe_routing(nn, pinned=pinned)):
+            regrouped, _ = forced_logits(torch, cfg, params, inputs, feed,
+                                         run=run)
+        del params, inputs
+        torch.cuda.empty_cache()
+        flips = sum(int((a.sort(-1).values != b.cpu().sort(-1).values)
+                        .any(-1).sum()) for a, b in zip(saved["routing"], own))
+        pairs = sum(int(x.shape[0] * x.shape[1]) for x in own)
+        plain, reg = plain.double(), regrouped.double()
+        scale = float(plain[..., :cfg.vocab_size].abs().max())
+        reg_d = (reg - plain).abs().amax(dim=(0, 2))
+        floor = (TP_MOE_STEPS * bf16_step(scale) if dtype == "bfloat16"
+                 else SERVE_TP_REL * scale)
+        yard = 2 * reg_d + floor
+        tp_logits = saved["logits"].double()
+        ctl = saved["control"].double()
+        dist_t = (tp_logits - plain).abs().amax(dim=(0, 2))
+        ctl_t = (ctl - plain[:, 1:1 + SERVE_TP_CONTROL_STEPS]).abs().amax(
+            dim=(0, 2))
+        greedy = {}
+        if "generated" in saved:
+            top2 = plain.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+            sure = torch.cumprod((margin > yard[None, :]).int(),
+                                 dim=1).bool()
+            same = saved["generated"] == want[arch]["tokens"]
+            greedy = dict(greedy_checked=int(sure.sum()),
+                          greedy_of=int(sure.numel()),
+                          greedy_equal=bool(same[sure].all()),
+                          greedy_equal_all=int(same.sum()))
+        es = 2 if dtype == "bfloat16" else 4
+        predicted = [serve_family_predicted(cfg, x["rows"][1] - x["rows"][0],
+                                            es) for x in got]
+        on_mesh = arch in SERVE_TP_FAMILIES_ON_MESH
+        flash_want, ssd_want = family_heads_expected(cfg, dtype,
+                                                     1 + on_mesh)
+        per_rank = [{
+            "rank": r, "coords": x["coords"], "rows": x["rows"],
+            "prefill_s": x["prefill_s"],
+            "decode_s_per_step": x["decode_s"] / steps,
+            "draw_pieces_s": x["draw_pieces_s"], "forced_s": x["forced_s"],
+            "collective_s": x["collectives"]["seconds"],
+            "staging_s": x["collectives"]["staging_s"],
+            "sites": x["sites"], "peak_gb": x["peak_gb"],
+            "forced_peak_gb": x["forced_peak_gb"],
+            "pieces_gb": x["pieces_gb"], "flash_heads": x["flash_heads"],
+            "ssd_heads": x["ssd_heads"], "launches": x["launches"]}
+            for r, x in enumerate(got)]
+        fields = dict(
+            arch=arch, layers=cfg.num_layers, dtype=dtype,
+            mesh=dict(zip(("data", "model"), SERVE_TP_FAMILIES_MESH)),
+            attn_tp=got[0]["attn_tp"], batch=run["batch"],
+            prompt_len=run["prompt_len"], gen=run["gen"],
+            served_on_mesh=on_mesh, ranks=per_rank,
+            one_process_prefill_s=want[arch]["prefill_s"],
+            one_process_decode_s_per_step=want[arch]["decode_s"] / steps,
+            one_process_forced_s=plain_s, max_abs_logit=scale,
+            dist=dist_t.tolist(), regrouped_dist=reg_d.tolist(),
+            yardstick=yard.tolist(), control_dist=ctl_t.tolist(),
+            over_yardstick=float((dist_t / yard).max()),
+            control_over_yardstick=float(
+                (ctl_t / yard[1:1 + SERVE_TP_CONTROL_STEPS]).min()),
+            routing_flips=flips, routing_pairs=pairs, **greedy,
+            sites_predicted={k: list(v) for k, v in predicted[0].items()},
+            sites_match=all(x["sites"] == p for x, p in zip(got, predicted)),
+            flash_heads_expected=flash_want, ssd_heads_expected=ssd_want,
+            nvidia_smi=smi)
+        emit("serve_tp_families", **fields)
+        assert bool((dist_t <= yard).all()), (arch, dist_t, yard)
+        assert bool((ctl_t > yard[1:1 + SERVE_TP_CONTROL_STEPS]).all()), (
+            arch, ctl_t)
+        assert fields.get("greedy_equal", True), arch
+        assert fields["sites_match"], (arch, [x["sites"] for x in got])
+        assert all(x["flash_heads"] == flash_want
+                   and x["ssd_heads"] == ssd_want for x in got), arch
+        for x in got:
+            for kind in ("flash_heads", "ssd_heads"):
+                for k, v in x[kind].items():
+                    total[kind][k] = total[kind].get(k, 0) + v
+            total["norm_shapes"] |= set(map(tuple, x["norm_shapes"]))
+    return total
+
+
 def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
     """One rank of the world: server ``rank`` on ``cuda:0``.  Runs every
     phase through the trainers and puts its readings on ``q``; a failure
@@ -7114,6 +7746,12 @@ def shard_rank_main(rank: int, rdv: str, phases, q) -> None:
                                 world_size=SHARD_M, rank=rank,
                                 timeout=datetime.timedelta(seconds=300))
         for name, trainer, kw in phases:
+            if trainer == "serve_tp_families":
+                t0 = time.perf_counter()
+                out[name] = serve_tp_family_rank(torch, cns, ops, rank,
+                                                 kw["feed"])
+                out[name]["wall_s"] = time.perf_counter() - t0
+                continue
             if trainer == "serve_tp":
                 t0 = time.perf_counter()
                 out[name] = serve_tp_rank(torch, cns, ops, rank, kw["feed"])
@@ -7476,6 +8114,18 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     want_serve = serve_tp_references(torch)
     serve_feed = {arch: w["tokens"][:, :-1].clone()
                   for arch, w in want_serve.items()}
+    # kernels 3 and 9 at the MoE / MLA / Mamba families' rank shapes and
+    # those families' one-process serving (the greedy tokens fed)
+    fam_rows = {**{f"flash_{k}": v for k, v in flash_tp_checks(
+        torch, g, FLASH_TP_FAMILIES).items()},
+        **{f"ssd_{k}": v for k, v in ssd_tp_checks(torch, g).items()}}
+    t_fam = time.perf_counter()
+    want_fam = serve_tp_family_references(torch)
+    fam_feed = {arch: w["tokens"][:, :-1].clone()
+                for arch, w in want_fam.items()}
+    emit("serve_tp_families_references",
+         seconds=time.perf_counter() - t_fam,
+         wall_s={k: v["wall_s"] for k, v in want_fam.items()})
 
     # ---- the world: four ranks, one server each, on the one card (this
     # process keeps only its context and what main() still holds) ----
@@ -7496,7 +8146,10 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
                                                ("shard_tp_encdec",
                                                 "shard_tp_encdec", {}),
                                                ("serve_tp", "serve_tp",
-                                                {"feed": serve_feed})])
+                                                {"feed": serve_feed}),
+                                               ("serve_tp_families",
+                                                "serve_tp_families",
+                                                {"feed": fam_feed})])
     world_s = time.perf_counter() - t0
     server_abs = [torch.empty((SHARD_M,) + tuple(s), device="meta")
                   for s in ranks[0]["wire"]["leaf_shapes"]]
@@ -7597,19 +8250,30 @@ def shard_map_phases(torch, ttrain, ops, ref, tp, smi: str, g) -> dict:
     del want_encdec
     served = serve_tp_check(torch, ranks, want_serve, smi)
     del want_serve
+    t_fam = time.perf_counter()
+    fam = serve_tp_family_check(torch, ranks, want_fam, smi)
+    emit("serve_tp_families_check", seconds=time.perf_counter() - t_fam)
+    del want_fam
     # kernel 2 at every serving shape the ranks launched that no earlier
-    # check held
-    unheld = sorted((r_, d) for r_, d, t in served["norm_shapes"]
-                    if (r_, d, t) not in {(a, b, c) for a, b, c, _, _
-                                          in RMSNORM_SHAPES})
-    if unheld:
-        local_norm_check(torch, unheld, TP_ENCDEC_NORM_SEED,
-                         "a serve_tp rank's prefill and decode")
-    for name, (arch, b, _, h, kvh, hd, causal) in FLASH_TP.items():
-        key = "|".join(map(str, (f"float32/{h // kvh}/{hd}/{causal}/None/"
-                                 f"None", b, h, kvh)))
-        flash_rows[name]["launches"] = served["flash_heads"].get(key, 0)
-        assert flash_rows[name]["launches"] > 0, (name, served)
+    # check held, by dtype
+    held = {(a, b, c) for a, b, c, _, _ in RMSNORM_SHAPES}
+    for dtype in ("float32", "bfloat16"):
+        unheld = sorted((r_, d) for r_, d, t in served["norm_shapes"]
+                        | fam["norm_shapes"]
+                        if t == dtype and (r_, d, t) not in held)
+        if unheld:
+            local_norm_check(torch, unheld, TP_ENCDEC_NORM_SEED,
+                             "a serve_tp / serve_tp_families rank's "
+                             "prefill and decode", dtype)
+    for name, row in fam_rows.items():
+        kind = name.split("_")[0] + "_heads"
+        row["launches"] = fam[kind].get(row.pop("key"), 0)
+        assert row["launches"] > 0, (name, fam)
+    flash_rows.update(fam_rows)
+    for name in FLASH_TP:
+        row = flash_rows[name]
+        row["launches"] = served["flash_heads"].get(row.pop("key"), 0)
+        assert row["launches"] > 0, (name, served)
     tp_launches = {k: tp_launches.get(k, 0) + moe_launches.get(k, 0)
                    + mamba_launches.get(k, 0) + encdec_launches.get(k, 0)
                    for k in set(tp_launches) | set(moe_launches)

@@ -20,13 +20,11 @@ and the TP collectives over "model", ``launch.tp``, of every family: the
 dense decoders, the encoder-decoder, the MoE and MLA families and Mamba-2
 with Jamba; the vision frontend's plan splits the batch over "model") and
 consensus period against ``consensus.DryGroup``s, and of a serve
-program's TP over "model" for the attention families (qwen3, smollm,
-gemma2, command_r, internvl2, seamless: the rank's pieces and cache,
+program's TP over "model" for every family (the rank's pieces and cache,
 ``launch.serve.serve(mesh=)``'s layout)) or ``analytic_split`` (a part
 the port runs whole where the reference shards it, divided evenly by the
-plan's degree, ``meta["compute_shards"]``: the serve programs of the MoE,
-MLA and Mamba families, whose serving TP is not ported, and the sequence
-over "data" at ``long_500k``'s batch of 1; the serving weights' FSDP over
+plan's degree, ``meta["compute_shards"]``: the sequence over "data" at
+``long_500k``'s batch of 1; the serving weights' FSDP over
 "data" (``serve_fsdp``: Gemma-2, Command-R and the 140-400B plans), held
 as the plan's pieces; and the roofline's napkin terms on the H100
 datasheet constants of ``launch.roofline``).  None is a measurement on a

@@ -21,15 +21,20 @@ process does, keeps its pieces of the weights (``serve_pieces``:
 attention whole where the heads do not divide "model", ``attn_tp=False``;
 where only the kv heads do not divide it, the kv heads its q heads read)
 and its share of the batch over "data" where the batch divides it
-(``batch_rows``), and serves tensor parallel over "model" (``launch.tp``):
-its heads (kernel 3 on them in the prefill), its d_ff columns, its vocab
-slice of the logits, all-gathered whole (site ``tp_logits``) before the
-token is sampled as one process samples it, so every rank of a model group
-feeds the same token.  The attention families run so (the dense decoders,
-the encoder-decoder, the vision frontend); the MoE, MLA and Mamba families
-are refused by name (``models.transformer.serve_tp_refusal``).  There is
-no CLI flag for it, as the reference's ``serve`` CLI has no mesh: start it
-under ``torch.distributed.run`` from a short Python entry::
+(``batch_rows``); the ranks of a model group draw in turn, each freeing
+the whole tree once it has cut its pieces (``draw_pieces``), so one card's
+ranks hold one whole tree at a time.  It serves tensor parallel over
+"model" (``launch.tp``): its heads (kernel 3 on them in the prefill; an
+MLA layer's absorbed decode against the whole latent; a Mamba layer's
+scan, kernel 9, and its SSM state on them), its d_ff columns, its experts
+drop-free (or, where they do not divide "model", every expert's d_ff
+columns), its vocab slice of the logits, all-gathered whole (site
+``tp_logits``) before the token is sampled as one process samples it, so
+every rank of a model group feeds the same token.  Every family runs so;
+a Mamba or MLA head count that "model" does not divide is refused by name
+(``models.transformer.serve_tp_refusal``).  There is no CLI flag for it,
+as the reference's ``serve`` CLI has no mesh: start it under
+``torch.distributed.run`` from a short Python entry::
 
     import torch.distributed as dist
     from repro_torch.launch.mesh import RankMesh
@@ -93,10 +98,11 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, max_len: Optional[int] = None,
           temperature: float = 0.0, seed: int = 0,
           cache_dtype=torch.float32, device: str = "cuda",
-          mesh=None) -> Dict:
+          mesh=None, param_dtype=torch.float32) -> Dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens and decode
     ``gen`` tokens each, with weights and prompts drawn from one generator
-    seeded with ``seed`` (weights first, ``draw``).  An arch with a
+    seeded with ``seed`` (weights first, in ``param_dtype``, ``draw``).
+    An arch with a
     frontend gets its embeddings as the reference's ``serve`` makes them:
     ``num_tokens`` of them (``prompt_len`` where that is 0), normal times
     0.02, as ``patch_embeds`` ahead of the tokens (vision) or as the
@@ -105,7 +111,7 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
     only its last ``max_len`` positions in every layer's cache.  With a
     serve ``mesh`` (a ``launch.mesh.RankMesh`` over ("data", "model"), its
     process group initialised) this process serves its rank's pieces
-    (``serve_pieces``) and rows (``batch_rows``) tensor parallel over
+    (``draw_pieces``) and rows (``batch_rows``) tensor parallel over
     "model", each step's logits gathered whole before sampling.  Returns
     the generated tokens of the rows served (``rows``: (lo, hi)), the
     prompt and ``inputs`` (the whole batch's), and the prefill and decode
@@ -115,10 +121,12 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
     set_full_f32()
     cfg = get_smoke(arch_id) if smoke else get_arch(arch_id)
     max_len = max_len or (prompt_len + gen)
-    params, inputs = draw(cfg, batch, prompt_len, seed, dev)
     tp, lo, hi = None, 0, batch
-    if mesh is not None:
-        params, tp = serve_pieces(params, cfg, mesh)
+    if mesh is None:
+        params, inputs = draw(cfg, batch, prompt_len, seed, dev, param_dtype)
+    else:
+        params, tp, inputs = draw_pieces(cfg, batch, prompt_len, seed, dev,
+                                         mesh, param_dtype)
         lo, hi = batch_rows(mesh, batch)
     mine = {k: v[lo:hi] for k, v in inputs.items()}
     opts = tf.ApplyOptions(attn_impl="kernel", moe_no_drop=True, tp=tp)
@@ -150,13 +158,13 @@ def serve(arch_id: str, *, smoke: bool = True, batch: int = 4,
             "tok_per_s": (hi - lo) * (gen - 1) / max(t_decode, 1e-9)}
 
 
-def draw(cfg, batch: int, prompt_len: int, seed: int,
-         dev: torch.device) -> Tuple[Any, Dict[str, torch.Tensor]]:
+def draw(cfg, batch: int, prompt_len: int, seed: int, dev: torch.device,
+         dtype=torch.float32) -> Tuple[Any, Dict[str, torch.Tensor]]:
     """``serve``'s draws from one generator seeded with ``seed``: the whole
-    weights, then ``batch`` prompts of ``prompt_len`` tokens and a
-    frontend's embeddings (``inputs``)."""
+    weights in ``dtype``, then ``batch`` prompts of ``prompt_len`` tokens
+    and a frontend's embeddings (``inputs``)."""
     rng = torch.Generator(device=dev).manual_seed(seed)
-    params = tf.init_params(rng, cfg, device=dev)
+    params = tf.init_params(rng, cfg, dtype, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=rng, device=dev)
     inputs = {"tokens": prompt}
@@ -167,6 +175,30 @@ def draw(cfg, batch: int, prompt_len: int, seed: int,
         inputs[name] = torch.randn((batch, n, cfg.d_model), generator=rng,
                                    device=dev) * 0.02
     return params, inputs
+
+
+def draw_pieces(cfg, batch: int, prompt_len: int, seed: int,
+                dev: torch.device, mesh, dtype=torch.float32
+                ) -> Tuple[Any, Any, Dict[str, torch.Tensor]]:
+    """``(pieces, tp, inputs)``: ``draw``'s whole weights cut to this rank's
+    pieces (``serve_pieces``) and the whole inputs.  The ranks of a model
+    group draw in turn, in their order over "model", each freeing the
+    whole tree once its pieces are cut, a barrier on the group between one
+    rank's cut and the next rank's draw: ranks sharing a card hold one
+    whole tree at a time beside their pieces."""
+    import torch.distributed as dist
+    group = mesh.group_over(("model",))     # every rank, before the turns
+    pieces = tp = inputs = None
+    for turn in range(mesh.shape["model"]):
+        if turn == mesh.coords()["model"]:
+            params, inputs = draw(cfg, batch, prompt_len, seed, dev, dtype)
+            pieces, tp = serve_pieces(params, cfg, mesh)
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if group is not None:
+            dist.barrier(group=group)
+    return pieces, tp, inputs
 
 
 #: the kv leaves a rank keeps as the kv heads its q heads read
@@ -189,7 +221,7 @@ def serve_pieces(params, cfg, mesh) -> Tuple[Any, Any]:
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.tp import ModelParallel
     from repro_torch.models import modules as nn
-    why = tf.serve_tp_refusal(cfg)
+    why = tf.serve_tp_refusal(cfg, mesh.shape["model"])
     if why is not None:
         raise ValueError(why)
     attn_tp = cfg.num_heads % mesh.shape["model"] == 0

@@ -23,15 +23,16 @@ MLA families (mixtral, deepseek_v2) and Mamba-2 (mamba2, jamba) run as the
 rank-local epoch step runs them (``launch.fsdp``, ``launch.tp``: their
 gathers and reductions against ``consensus.DryGroup``s); the vision
 frontend's plan (internvl2, as smollm's) splits the batch over "model".
-A serve program of the attention families (qwen3, smollm, gemma2,
-command_r, internvl2, seamless) runs the rank's "model" pieces, its share
-of the batch over "data" and its cache, TP over a ``DryGroup``, as
-``launch.serve.serve(mesh=)`` runs them, then the logits' gather.  Where
-the reference shards a computation the port runs whole (the serving TP
-of the MoE, MLA and Mamba families; the sequence-sharded long-context
-cache at a batch of 1) or holds whole (the serving weights' FSDP over
-"data"), ``meta["unsharded"]`` names it; a computation run whole is
-divided by ``meta["compute_shards"]``, the plan's degree.
+A serve program of every family runs the rank's "model" pieces, its
+share of the batch over "data" and its cache (an MLA layer's latent
+whole, a mamba layer's conv window with B and C whole beside its heads'
+x channels), TP over a ``DryGroup``, as ``launch.serve.serve(mesh=)``
+runs them, then the logits' gather.  Where the reference shards a
+computation the port runs whole (the sequence-sharded long-context cache
+at a batch of 1; a family ``transformer.serve_tp_refusal`` names) or
+holds whole (the serving weights' FSDP over "data"),
+``meta["unsharded"]`` names it; a computation run whole is divided by
+``meta["compute_shards"]``, the plan's degree.
 Modality carve-out: audio / vlm archs get precomputed frame / patch
 embeddings as extra batch leaves.
 """
@@ -380,16 +381,16 @@ def build_train_program(arch_id: str, shape: InputShape, *,
 def _serve_split(cfg: ArchConfig, mesh: RankMesh, batch: int
                  ) -> Tuple[int, int, bool]:
     """``(device batch, compute shards, batch split over data)``: the batch
-    splits over "data" when it divides.  The attention families run their
-    TP over "model" on the rank (``_serve_tp``), so only the sequence over
-    "data" at a batch it does not divide (``long_500k``'s batch of 1) is
-    left to divide the work evenly; the MoE, MLA and Mamba families run
-    the layers whole, and the rest of the reference's cut (TP over
-    "model", and without a batch split the sequence) divides it."""
+    splits over "data" when it divides.  The families run their TP over
+    "model" on the rank (``_serve_tp``), so only the sequence over "data"
+    at a batch it does not divide (``long_500k``'s batch of 1) is left to
+    divide the work evenly; a family ``transformer.serve_tp_refusal``
+    names runs the layers whole, and the rest of the reference's cut (TP
+    over "model", and without a batch split the sequence) divides it."""
     data = mesh.shape["data"]
     b_div = batch % data == 0
     b_dev = batch // data if b_div else batch
-    if tf.serve_tp_refusal(cfg) is None:
+    if tf.serve_tp_refusal(cfg, mesh.shape["model"]) is None:
         return b_dev, (1 if b_div else data), b_div
     shards = mesh.size() // (data if b_div else 1)
     return b_dev, shards, b_div
@@ -400,24 +401,24 @@ def _serve_tp(cfg: ArchConfig, mesh: RankMesh, params):
     "model" pieces of ``params`` on meta and its
     ``launch.tp.ModelParallel`` over a ``consensus.DryGroup``, as
     ``launch.serve.serve_pieces`` cuts them; ``(params, None, True)`` for
-    the families whose serving TP is not ported
-    (``transformer.serve_tp_refusal``)."""
-    if tf.serve_tp_refusal(cfg) is not None:
+    a family ``transformer.serve_tp_refusal`` names."""
+    if tf.serve_tp_refusal(cfg, mesh.shape["model"]) is not None:
         return params, None, True
     from repro_torch.launch.serve import serve_pieces
     pieces, tp = serve_pieces(params, cfg, mesh)
     return pieces, tp, tp.attn_tp
 
 
-def _serve_unsharded(cfg: ArchConfig, plan: DeploymentPlan, tp, shards: int,
-                     b_dev: int, b_div: bool, what: str) -> list:
+def _serve_unsharded(cfg: ArchConfig, plan: DeploymentPlan, mesh: RankMesh,
+                     tp, shards: int, b_dev: int, b_div: bool,
+                     what: str) -> list:
     """``meta["unsharded"]`` of a serve program: what the reference shards
     and the program runs whole or holds at other shapes, each named."""
     if tp is None:
         return [f"the layers over {shards} ranks (TP over 'model'"
                 + ("" if b_div else f", {what} over 'data'")
-                + f"; {tf.serve_tp_refusal(cfg)}): run whole at the "
-                f"device's batch of {b_dev}"]
+                + f"; {tf.serve_tp_refusal(cfg, mesh.shape['model'])}): run "
+                f"whole at the device's batch of {b_dev}"]
     out = []
     if shards > 1:
         out.append(f"{what} over {shards} 'data' ranks at a batch of 1: "
@@ -446,7 +447,9 @@ def _cache_bytes(cfg: ArchConfig, mesh: RankMesh, tp, batch: int,
     """A rank's cache bytes: the plan's local shapes under
     ``serve_cache_specs``, or under the port's serving TP the rank's own
     cache (``init_cache(tp=)``: the kv heads its q heads read, every head
-    under ``attn_tp=False``) split over "data" as the spec splits it."""
+    under ``attn_tp=False``; an MLA layer's latent whole; a mamba layer's
+    conv window of its heads' x channels with B and C whole, the SSM state
+    of its heads) split over "data" as the spec splits it."""
     if tp is None:
         whole = tf.init_cache(cfg, batch, seq, torch.bfloat16, device=META)
         return _local_bytes(whole, shd.serve_cache_specs(
@@ -463,11 +466,11 @@ def build_prefill_program(arch_id: str, shape: InputShape, *,
                           multi_pod: bool = False,
                           plan: Optional[DeploymentPlan] = None,
                           arch: Optional[ArchConfig] = None) -> ProgramBundle:
-    """The prefill on rank 0 of the serve mesh: for the attention families
-    the rank's "model" pieces and cache, TP over a ``DryGroup`` as
-    ``launch.serve.serve(mesh=)`` runs it, then the logits' gather; for
-    the MoE, MLA and Mamba families the layers whole at the device's
-    batch."""
+    """The prefill on rank 0 of the serve mesh: the rank's "model" pieces
+    and cache, TP over a ``DryGroup`` as ``launch.serve.serve(mesh=)``
+    runs it, then the logits' gather (a family
+    ``transformer.serve_tp_refusal`` names: the layers whole at the
+    device's batch)."""
     cfg = arch or get_arch(arch_id)
     plan = plan or plan_for(arch_id)
     mesh = make_serve_mesh(multi_pod=multi_pod, rank=0, dry=True)
@@ -501,8 +504,8 @@ def build_prefill_program(arch_id: str, shape: InputShape, *,
               "params": cfg.param_count(),
               "active_params": cfg.active_param_count(),
               "per_device_batch": b_dev, "compute_shards": shards,
-              "unsharded": _serve_unsharded(cfg, plan, mp, shards, b_dev,
-                                            b_div, "the sequence")},
+              "unsharded": _serve_unsharded(cfg, plan, mesh, mp, shards,
+                                            b_dev, b_div, "the sequence")},
         arg_parts={"state": _state_bytes(params, pspecs, mesh, pieces, mp,
                                          plan),
                    "batch": _local_bytes(batch_full, batch_specs, mesh),
@@ -515,12 +518,12 @@ def build_decode_program(arch_id: str, shape: InputShape, *,
                          plan: Optional[DeploymentPlan] = None,
                          arch: Optional[ArchConfig] = None) -> ProgramBundle:
     """One decode step on rank 0 of the serve mesh against a full cache:
-    for the attention families the rank's "model" pieces and its cache
-    (``init_cache(tp=)``), TP over a ``DryGroup``, then the logits'
-    gather; the attention runs whole where the heads do not divide
-    "model", as in the prefill (the reference's decode lowering keeps
-    ``attn_tp=True`` there: K/V cut along the head dim); for the MoE, MLA
-    and Mamba families the layers whole at the device's batch."""
+    the rank's "model" pieces and its cache (``init_cache(tp=)``), TP over
+    a ``DryGroup``, then the logits' gather; the attention runs whole
+    where the heads do not divide "model", as in the prefill (the
+    reference's decode lowering keeps ``attn_tp=True`` there: K/V cut
+    along the head dim); a family ``transformer.serve_tp_refusal`` names
+    runs the layers whole at the device's batch."""
     cfg = arch or get_arch(arch_id)
     plan = plan or plan_for(arch_id)
     mesh = make_serve_mesh(multi_pod=multi_pod, rank=0, dry=True)
@@ -555,8 +558,9 @@ def build_decode_program(arch_id: str, shape: InputShape, *,
               "params": cfg.param_count(),
               "active_params": cfg.active_param_count(),
               "per_device_batch": b_dev, "compute_shards": shards,
-              "unsharded": _serve_unsharded(cfg, plan, mp, shards, b_dev,
-                                            b_div, "the cache's sequence")},
+              "unsharded": _serve_unsharded(cfg, plan, mesh, mp, shards,
+                                            b_dev, b_div,
+                                            "the cache's sequence")},
         arg_parts={"state": _state_bytes(params, pspecs, mesh, pieces, mp,
                                          plan),
                    "batch": b // (mesh.shape["data"] if b_div else 1) * 4,

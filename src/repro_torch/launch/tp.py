@@ -104,7 +104,18 @@ every rank samples the same token.  Where the heads do not divide the
 axis (``attn_tp=False``: InternVL2's 14 at TP 4 or 16) the attention
 leaves are whole on every rank and the attention runs whole, with no
 ``copy`` or ``reduce`` around it (``models.modules.attention_tp``); the
-MLP and the vocab stay cut.
+MLP and the vocab stay cut.  The MoE, MLA and Mamba families serve the
+training layout too, forward only: the MoE drop-free on the rank's
+experts (the gates' ``copy`` sends nothing forward); MLA's absorbed
+decode on the rank's heads, its q latent gathered whole
+(``tp_latent_gather``) and its latent cache whole on every rank (``w_dkv``
+and ``kv_norm`` are whole, so every rank writes the same token latent;
+the reference's ``serve_cache_specs`` cuts the latent's rank dim); a
+Mamba layer's prefill and decode step on the rank's heads, its in_proj
+block gathered with the conv leaves (``tp_ssm_gather``, one token's in a
+decode step), the gated norm's row sums all-reduced (``tp_ssm_norm``),
+its cache the conv window of its heads' x channels beside B and C whole
+and its heads' SSM state.
 
 Each collective is one ``consensus.all_reduce_`` (or, for a gather,
 ``all_gather_rows``) under a site of its own, so

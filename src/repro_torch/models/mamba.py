@@ -206,9 +206,9 @@ def _mix_out(params, x, xs, z, y, cfg: ArchConfig) -> torch.Tensor:
 def mamba_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig,
                 impl: str = "reference", tp=None) -> torch.Tensor:
     """Full-sequence forward (training / prefill); under ``tp`` (a
-    ``launch.tp.ModelParallel``) on the rank's heads (``_tp_apply``)."""
+    ``launch.tp.ModelParallel``) on the rank's heads (``_tp_mix``)."""
     if tp is not None:
-        return _tp_apply(params, x, cfg, impl, tp)
+        return _tp_mix(params, x, cfg, impl, tp, None)[0]
     return mamba_prefill(params, x, cfg, impl=impl)[0]
 
 
@@ -222,59 +222,95 @@ def _scan(xs, bs, cs, dt, a_coef, chunk: int, impl: str):
     raise ValueError(f"impl must be 'reference' or 'kernel', got {impl!r}")
 
 
-def _tp_apply(params: Dict, x: torch.Tensor, cfg: ArchConfig, impl: str,
-              tp) -> torch.Tensor:
-    """``mamba_apply`` on this rank's heads ``[p nh / tp, (p + 1) nh / tp)``
-    from its pieces as ``launch.sharding`` cuts them (``launch.tp``'s
-    Mamba layout): its ``in_proj`` column block after ``tp.copy``, the
-    blocks gathered whole with the conv leaves (``gather_ssm``), the conv
-    and the scan on the rank's x channels with B and C whole, the gated
-    norm of the rank's channels over the whole d_inner (``tp.norm``),
-    ``out_proj``'s rows of those channels, reduced.  The per-head leaves
-    and the norm's scale pass ``tp.replicated`` as one flat tensor."""
-    m = cfg.mamba
-    di, nh = m.d_inner(cfg.d_model), m.num_heads(cfg.d_model)
-    ds = N_GROUPS * m.d_state
-    width = 2 * di + 2 * ds + nh
-    hl = nh // tp.size
-    if hl * tp.size != nh or params["in_proj"].shape[-1] * tp.size != width:
-        raise ValueError(f"tensor parallelism over 'model' runs a rank's "
-                         f"Mamba heads from its in_proj block: {nh} heads "
-                         f"and {width} in_proj columns over {tp.size} model "
-                         f"ranks")
-    dl = hl * m.head_dim
-    lo, h_lo = tp.pos * dl, tp.pos * hl
+class _Rank:
+    """A rank's share of a Mamba layer under ``tp`` (``launch.tp``'s Mamba
+    layout): its heads ``[h_lo, h_lo + hl)``, whose x channels ``[lo, lo +
+    dl)`` of d_inner are its z, x and norm channels."""
 
-    def mine(t):
+    def __init__(self, params: Dict, cfg: ArchConfig, tp):
+        m = cfg.mamba
+        self.di, self.nh = m.d_inner(cfg.d_model), m.num_heads(cfg.d_model)
+        width = 2 * self.di + 2 * N_GROUPS * m.d_state + self.nh
+        self.hl = self.nh // tp.size
+        if self.hl * tp.size != self.nh or \
+                params["in_proj"].shape[-1] * tp.size != width:
+            raise ValueError(f"tensor parallelism over 'model' runs a rank's "
+                             f"Mamba heads from its in_proj block: {self.nh} "
+                             f"heads and {width} in_proj columns over "
+                             f"{tp.size} model ranks")
+        self.dl = self.hl * m.head_dim
+        self.lo, self.h_lo = tp.pos * self.dl, tp.pos * self.hl
+
+    def mine(self, t: torch.Tensor) -> torch.Tensor:
         """The rank's x channels, then B and C, of an xBC-wide ``t``."""
-        return torch.cat([t[..., lo:lo + dl], t[..., di:]], dim=-1)
+        return torch.cat([t[..., self.lo:self.lo + self.dl],
+                          t[..., self.di:]], dim=-1)
 
-    block = torch.einsum("bsd,de->bse", tp.copy(x), params["in_proj"])
-    zxbcdt, conv_w, conv_b = tp.gather_ssm(block, params["conv_w"],
-                                           params["conv_b"])
-    rep = tp.replicated(torch.cat([params["norm"]["scale"], params["dt_bias"],
-                                   params["a_log"], params["d_skip"]]))
-    scale, dt_bias, a_log, d_skip = torch.split(rep, [di, nh, nh, nh])
-    z, xbc, dt = _split(zxbcdt, dt_bias, cfg)
-    # a copy of the rank's z, so that what backward keeps holds no whole
-    # (b, s, W) buffer
-    z = z[..., lo:lo + dl].contiguous()
-    dt = dt[..., h_lo:h_lo + hl]
-    xs, bs, cs = _split_xbc(_causal_conv(mine(xbc), mine(conv_w),
-                                         mine(conv_b)), cfg)
-    y, _ = _scan(xs, bs, cs, dt, -torch.exp(a_log[h_lo:h_lo + hl].float()),
-                 m.chunk_size, impl)
-    y = _gate(y, xs, z, d_skip[h_lo:h_lo + hl])
-    y = tp.norm(y.to(x.dtype), scale[lo:lo + dl], cfg.norm_eps)
-    return tp.reduce(torch.einsum("bsi,id->bsd", y, params["out_proj"]))
+    def inputs(self, params: Dict, x: torch.Tensor, cfg: ArchConfig, tp):
+        """The in_proj column block of ``x`` after ``tp.copy``, gathered
+        whole with the conv leaves (``gather_ssm``); the per-head leaves
+        and the norm's scale through ``tp.replicated`` as one flat tensor.
+        Returns the rank's z (a copy, so that what backward keeps holds no
+        whole (b, s, W) buffer), its xBC before the conv (its x channels, B
+        and C whole), dt, conv_w, conv_b, the norm's scale, A and D."""
+        block = torch.einsum("bsd,de->bse", tp.copy(x), params["in_proj"])
+        zxbcdt, conv_w, conv_b = tp.gather_ssm(block, params["conv_w"],
+                                               params["conv_b"])
+        rep = tp.replicated(torch.cat([params["norm"]["scale"],
+                                       params["dt_bias"], params["a_log"],
+                                       params["d_skip"]]))
+        scale, dt_bias, a_log, d_skip = torch.split(
+            rep, [self.di, self.nh, self.nh, self.nh])
+        z, xbc, dt = _split(zxbcdt, dt_bias, cfg)
+        lo, dl, h_lo, hl = self.lo, self.dl, self.h_lo, self.hl
+        return (z[..., lo:lo + dl].contiguous(), self.mine(xbc),
+                dt[..., h_lo:h_lo + hl], self.mine(conv_w),
+                self.mine(conv_b), scale[lo:lo + dl],
+                -torch.exp(a_log[h_lo:h_lo + hl].float()),
+                d_skip[h_lo:h_lo + hl])
+
+    @staticmethod
+    def out(params: Dict, x, xs, z, y, d_skip, scale, cfg: ArchConfig, tp):
+        """Skip term, gate, the gated norm of the rank's channels over the
+        whole d_inner (``tp.norm``) and ``out_proj``'s rows of them,
+        reduced."""
+        y = _gate(y, xs, z, d_skip)
+        y = tp.norm(y.to(x.dtype), scale, cfg.norm_eps)
+        return tp.reduce(torch.einsum("bsi,id->bsd", y, params["out_proj"]))
+
+
+def _tp_mix(params: Dict, x: torch.Tensor, cfg: ArchConfig, impl: str, tp,
+            conv_cache_dtype) -> Tuple[torch.Tensor, Dict]:
+    """``mamba_prefill`` on this rank's heads ``[p nh / tp, (p + 1) nh /
+    tp)`` from its pieces as ``launch.sharding`` cuts them (``launch.tp``'s
+    Mamba layout, ``_Rank``): the conv and the scan on the rank's x
+    channels with B and C whole, the gated norm over the whole d_inner,
+    ``out_proj`` reduced.  Its cache (``None`` without a
+    ``conv_cache_dtype``): the last d_conv - 1 pre-conv inputs of the
+    rank's x channels and of B and C (width dl + 2 ds), and its heads'
+    final state (b, hl, ds, hd) f32."""
+    r = _Rank(params, cfg, tp)
+    z, xbc_raw, dt, conv_w, conv_b, scale, a_coef, d_skip = r.inputs(
+        params, x, cfg, tp)
+    xs, bs, cs = _split_xbc(_causal_conv(xbc_raw, conv_w, conv_b), cfg)
+    conv = None if conv_cache_dtype is None else \
+        xbc_raw[:, -(cfg.mamba.d_conv - 1):].to(conv_cache_dtype)
+    del xbc_raw
+    y, final = _scan(xs, bs, cs, dt, a_coef, cfg.mamba.chunk_size, impl)
+    out = r.out(params, x, xs, z, y, d_skip, scale, cfg, tp)
+    return out, (None if conv is None else {"conv": conv, "ssm": final})
 
 
 def mamba_prefill(params: Dict, x: torch.Tensor, cfg: ArchConfig,
-                  conv_cache_dtype=torch.bfloat16,
-                  impl: str = "reference") -> Tuple[torch.Tensor, Dict]:
+                  conv_cache_dtype=torch.bfloat16, impl: str = "reference",
+                  tp=None) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence forward that ALSO returns the decode cache — one SSD
     scan for both: ``{"conv": the last d_conv - 1 pre-conv inputs,
-    "ssm": the final state (b, nh, ds, hd) f32}``."""
+    "ssm": the final state (b, nh, ds, hd) f32}``; under ``tp`` (a
+    ``launch.tp.ModelParallel``) on the rank's heads, with the rank's
+    cache (``_tp_mix``)."""
+    if tp is not None:
+        return _tp_mix(params, x, cfg, impl, tp, conv_cache_dtype)
     m = cfg.mamba
     z, xbc_raw, dt = _split_proj(params, x, cfg)
     xbc = _causal_conv(xbc_raw, params["conv_w"], params["conv_b"])
@@ -293,12 +329,15 @@ def mamba_prefill(params: Dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def mamba_cache_init(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                     device="cpu") -> Dict:
+                     device="cpu", tp=None) -> Dict:
+    """An empty conv window and SSM state; under ``tp`` a rank's: the
+    window of its heads' x channels and of B and C, the state of its
+    heads."""
     m = cfg.mamba
-    d = cfg.d_model
-    di = m.d_inner(d)
-    nh = m.num_heads(d)
-    conv_ch = di + 2 * N_GROUPS * m.d_state
+    nh = m.num_heads(cfg.d_model)
+    if tp is not None:
+        nh //= tp.size
+    conv_ch = nh * m.head_dim + 2 * N_GROUPS * m.d_state
     return {
         "conv": torch.zeros((batch, m.d_conv - 1, conv_ch), dtype=dtype,
                             device=device),
@@ -307,24 +346,20 @@ def mamba_cache_init(cfg: ArchConfig, batch: int, dtype=torch.float32,
     }
 
 
-def mamba_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
-                      cfg: ArchConfig) -> Tuple[torch.Tensor, Dict]:
-    """x: (b, 1, d).  O(1) per token.  Writes the new conv window and SSM
-    state into ``cache`` IN PLACE (the reference returns a new cache) and
-    returns ``(y, cache)``."""
+def _step(cache: Dict, xbc_raw, dt, conv_w, conv_b, a_coef,
+          cfg: ArchConfig):
+    """The conv over [the window, the token] and the O(1) state update of
+    a decode step: writes the new window and state into ``cache`` IN PLACE
+    and returns xs (b, heads, hd) and y (b, heads, hd) f32."""
     m = cfg.mamba
-    z, xbc_raw, dt = _split_proj(params, x, cfg)          # seq dim == 1
-    # conv over [cache, current]
     hist = torch.cat([cache["conv"], xbc_raw.to(cache["conv"].dtype)], dim=1)
-    w = params["conv_w"]
-    window = hist[:, -m.d_conv:].to(torch.promote_types(hist.dtype, w.dtype))
-    conv_out = torch.einsum("bwc,wc->bc", window, w.to(window.dtype)) \
-        + params["conv_b"]
-    xbc = silu(conv_out)[:, None]                         # (b,1,ch)
-    xs, bs, cs = _split_xbc(xbc, cfg)
-    a_coef = -torch.exp(params["a_log"].float())
-    dt1 = dt[:, 0]                                        # (b,nh)
-    decay = torch.exp(dt1 * a_coef)                       # (b,nh)
+    window = hist[:, -m.d_conv:].to(torch.promote_types(hist.dtype,
+                                                        conv_w.dtype))
+    conv_out = torch.einsum("bwc,wc->bc", window, conv_w.to(window.dtype)) \
+        + conv_b
+    xs, bs, cs = _split_xbc(silu(conv_out)[:, None], cfg)    # (b,1,ch)
+    dt1 = dt[:, 0]                                        # (b,heads)
+    decay = torch.exp(dt1 * a_coef)                       # (b,heads)
     bx = torch.einsum("bhn,bhp->bhnp",
                       bs[:, 0, 0][:, None].expand(*dt1.shape, m.d_state)
                       .float(),
@@ -333,7 +368,27 @@ def mamba_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
     y = torch.einsum("bhn,bhnp->bhp",
                      cs[:, 0, 0][:, None].expand(*dt1.shape, m.d_state)
                      .float(), ssm)
-    out = _mix_out(params, x, xs[:, 0], z, y, cfg)
     cache["conv"].copy_(hist[:, 1:])
     cache["ssm"].copy_(ssm)
-    return out, cache
+    return xs[:, 0], y
+
+
+def mamba_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
+                      cfg: ArchConfig, tp=None) -> Tuple[torch.Tensor, Dict]:
+    """x: (b, 1, d).  O(1) per token.  Writes the new conv window and SSM
+    state into ``cache`` IN PLACE (the reference returns a new cache) and
+    returns ``(y, cache)``.  Under ``tp`` (a ``launch.tp.ModelParallel``)
+    on the rank's heads against its cache (``mamba_cache_init(tp=)``), as
+    ``_tp_mix`` runs a prefill: the token's in_proj block gathered whole,
+    the conv over the rank's window, the state update on its heads, the
+    gated norm over the whole d_inner, ``out_proj`` reduced."""
+    if tp is not None:
+        r = _Rank(params, cfg, tp)
+        z, xbc_raw, dt, conv_w, conv_b, scale, a_coef, d_skip = r.inputs(
+            params, x, cfg, tp)
+        xs, y = _step(cache, xbc_raw, dt, conv_w, conv_b, a_coef, cfg)
+        return r.out(params, x, xs, z, y, d_skip, scale, cfg, tp), cache
+    z, xbc_raw, dt = _split_proj(params, x, cfg)          # seq dim == 1
+    xs, y = _step(cache, xbc_raw, dt, params["conv_w"], params["conv_b"],
+                  -torch.exp(params["a_log"].float()), cfg)
+    return _mix_out(params, x, xs, z, y, cfg), cache

@@ -751,17 +751,25 @@ def mla_cache_init(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def mla_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
-                    position: int, cfg: ArchConfig,
-                    absorbed: bool = False) -> Tuple[torch.Tensor, Dict]:
+                    position: int, cfg: ArchConfig, absorbed: bool = False,
+                    tp=None) -> Tuple[torch.Tensor, Dict]:
     """One-token MLA decode.  Writes the token's latent, k_rope and position
     into slot ``min(position, max_len - 1)`` of ``cache`` IN PLACE: the
     reference's ``dynamic_update_slice`` clamps an index past the end, so
     a token past ``max_len`` overwrites the last slot (not a ring).
     ``absorbed`` attends the latent cache directly
-    (``_mla_attend_absorbed``), as the reference's decode does."""
+    (``_mla_attend_absorbed``), as the reference's decode does.  Under
+    ``tp`` (a ``launch.tp.ModelParallel``) the rank's heads
+    (``_tp_mla_params``: its piece of the q latent gathered whole, its
+    ``w_uq`` / ``w_ukv`` / ``w_o`` heads) against the whole latent cache,
+    which ``w_dkv`` and ``kv_norm``, read whole, fill alike on every rank;
+    ``w_o``'s partial sums reduced."""
     b = x.shape[0]
     pos_b = torch.full((b, 1), position, dtype=torch.int64, device=x.device)
-    q, c_kv, k_rope = _mla_qkv(params, x, cfg, pos_b)
+    if tp is not None:
+        params = _tp_mla_params(params, cfg, tp)
+        x = tp.copy(x)
+    q, c_kv, k_rope = _mla_qkv(params, x, cfg, pos_b, tp)
     slot = min(position, cache["c_kv"].shape[1] - 1)
     cache["c_kv"][:, slot] = c_kv[:, 0].to(cache["c_kv"].dtype)
     cache["k_rope"][:, slot] = k_rope[:, 0].to(cache["k_rope"].dtype)
@@ -774,7 +782,7 @@ def mla_decode_step(params: Dict, x: torch.Tensor, cache: Dict,
     else:
         y = _mla_attend(params, q, cache["c_kv"].to(x.dtype),
                         cache["k_rope"].to(x.dtype), mask, cfg)
-    return y, cache
+    return (y if tp is None else tp.reduce(y)), cache
 
 
 def _mla_attend_absorbed(params, q, c_kv, k_rope, mask, cfg: ArchConfig):

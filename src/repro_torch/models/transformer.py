@@ -42,9 +42,8 @@ synchronisation per step.
 run under ``torch.inference_mode()``: no autograd tape is recorded.  Under
 tensor parallelism (``ApplyOptions.tp``, ``decode_step(tp=)``, a
 ``launch.tp.ModelParallel``) they run a rank's pieces, cache and vocab
-slice for the attention families (the dense decoders, the
-encoder-decoder, the vision frontend); ``serve_tp_refusal`` names the
-MoE, MLA and Mamba families, whose serving TP is not ported.
+slice for every family; ``serve_tp_refusal`` names a Mamba or MLA head
+count the axis does not divide.
 """
 from __future__ import annotations
 
@@ -562,25 +561,28 @@ def tp_refusal(cfg: ArchConfig, size: int) -> Optional[str]:
     return None
 
 
-def serve_tp_refusal(cfg: ArchConfig) -> Optional[str]:
-    """Why ``cfg`` cannot be served tensor parallel over "model", by name,
-    or ``None`` for the attention families (the dense decoders, the
-    encoder-decoder, the vision frontend): the MoE, MLA and Mamba serving
-    paths (drop-free experts on a rank, MLA's absorbed decode over a
-    latent cut by rank, the SSM state on a rank's heads) are not ported."""
-    plan = stack_plan(cfg)
-    kinds = {k for k, _ in _period_flags(cfg, plan)}
-    for bad, family in ((cfg.moe is not None, "the MoE family"),
-                        (cfg.mla is not None, "MLA"),
-                        ("mamba" in kinds, "Mamba-2")):
-        if bad:
-            return (f"serving tensor parallel over 'model' of {family} is "
-                    f"not ported")
+def serve_tp_refusal(cfg: ArchConfig, size: int) -> Optional[str]:
+    """Why ``cfg`` cannot be served tensor parallel over "model" on
+    ``size`` model ranks, by name, or ``None``: every family is served so
+    (the attention families, the MoE family's drop-free experts on a rank,
+    MLA's absorbed decode on a rank's heads, the SSM state on a rank's
+    heads), but a rank runs whole Mamba heads and whole MLA heads, so a
+    Mamba or MLA head count ``size`` does not divide is refused.  Attention
+    heads that do not divide it run whole on every rank
+    (``attn_tp=False``)."""
+    why = tp_refusal(cfg, size)
+    if why is not None:
+        return why.replace("tensor parallelism over 'model'",
+                           "serving tensor parallel over 'model'")
+    if cfg.mla is not None and cfg.num_heads % size:
+        return (f"serving tensor parallel over 'model' runs a rank's MLA "
+                f"heads: {cfg.num_heads} heads do not divide over {size} "
+                f"model ranks")
     return None
 
 
 def _check_serve_tp(cfg: ArchConfig, tp) -> None:
-    why = None if tp is None else serve_tp_refusal(cfg)
+    why = None if tp is None else serve_tp_refusal(cfg, tp.size)
     if why is not None:
         raise ValueError(why)
 
@@ -599,14 +601,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     Under ``tp`` (a ``launch.tp.ModelParallel``) a rank's cache: each
     attention layer's K/V and the cross K/V hold the kv heads its q heads
     read (``models.modules.tp_kv_range``; every head under
-    ``attn_tp=False``)."""
+    ``attn_tp=False``), an MLA layer's latent whole (the same on every
+    rank), a mamba layer's conv window of its heads' x channels and of B
+    and C and the SSM state of its heads (``mamba_cache_init(tp=)``)."""
     _check_serve_tp(cfg, tp)
     plan = stack_plan(cfg)
     kv_lo, kv_hi = nn.tp_kv_range(cfg, nn.attention_tp(tp))
 
     def block(kind):
         if kind == "mamba":
-            one = mamba_mod.mamba_cache_init(cfg, batch, dtype, device)
+            one = mamba_mod.mamba_cache_init(cfg, batch, dtype, device, tp)
         elif cfg.mla is not None:
             one = nn.mla_cache_init(cfg, batch, max_len, dtype, device)
         else:
@@ -637,16 +641,16 @@ def _block_decode(params, cache, x, cfg: ArchConfig, kind: str,
     """One block of a decode step; writes its k/v (an attention layer), its
     latent (MLA: the absorbed decode, as the reference's) or its conv
     window and SSM state (a mamba layer) into ``cache``.  An MoE FFN runs
-    drop-free.  Under ``tp`` an attention block runs the rank's heads
-    against its cache, its cross-attention too, and the MLP its d_ff
-    columns."""
+    drop-free.  Under ``tp`` a block runs the rank's heads against its
+    cache (attention, cross-attention, MLA, a mamba layer), the MLP its
+    d_ff columns and the MoE its experts (or their d_ff columns)."""
     h = nn.rmsnorm_apply(params["ln1"], x, cfg.norm_eps)
     if kind == "mamba":
         mix, _ = mamba_mod.mamba_decode_step(params["mixer"], h,
-                                             cache["mixer"], cfg)
+                                             cache["mixer"], cfg, tp)
     elif cfg.mla is not None:
         mix, _ = nn.mla_decode_step(params["mixer"], h, cache["mixer"],
-                                    position, cfg, absorbed=True)
+                                    position, cfg, absorbed=True, tp=tp)
     else:
         mix, _ = nn.attention_decode_step(params["mixer"], h, cache["mixer"],
                                           position, cfg, layer_kind=kind,
@@ -716,8 +720,9 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
     records the memory's K/V without their biases, as the reference's
     prefill does.  Returns the last position's logits (b, 1, v).  Under
     ``opts.tp`` (a ``launch.tp.ModelParallel``) ``params`` are the rank's
-    pieces: every block runs the rank's heads and d_ff columns, the cache
-    is the rank's (``init_cache(tp=)``) and the logits its vocab slice."""
+    pieces: every block runs the rank's heads (kernel 3 and kernel 9 on
+    them on the kernel route), d_ff columns and experts, the cache is the
+    rank's (``init_cache(tp=)``) and the logits its vocab slice."""
     tp = opts.tp
     _check_serve_tp(cfg, tp)
     tokens = batch["tokens"]
@@ -737,10 +742,10 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor], *,
         if kind == "mamba":
             mix, filled = mamba_mod.mamba_prefill(
                 layer["mixer"], h, cfg, conv_cache_dtype=slots["conv"].dtype,
-                impl=_ssd_impl(opts))
+                impl=_ssd_impl(opts), tp=tp)
         elif cfg.mla is not None:
             mix, c_kv, k_rope = nn.mla_apply_latent(layer["mixer"], h, cfg,
-                                                    positions)
+                                                    positions, tp)
             if seq > slots["c_kv"].shape[1]:
                 raise ValueError(f"an MLA cache of {slots['c_kv'].shape[1]} "
                                  f"positions cannot hold a {seq}-position "

@@ -53,6 +53,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke as j_get_smoke  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 from repro_torch.configs import get_arch, get_smoke  # noqa: E402
+from repro_torch.configs.base import MambaConfig  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.tp import ModelParallel  # noqa: E402
 from repro_torch.models import modules as tnn  # noqa: E402
@@ -525,24 +526,39 @@ def test_serve_on_mesh_samples_as_one_process(world):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v2-236b",
-                                  "mamba2-780m", "jamba-1.5-large-398b"])
-def test_serving_tp_of_moe_mla_and_mamba_is_refused_by_name(arch):
-    cfg = get_smoke(arch)
-    why = ttf.serve_tp_refusal(cfg)
-    assert why is not None and "is not ported" in why
+@pytest.mark.parametrize("arch,smoke,size,family", [
+    ("mamba2-780m", True, 3, "Mamba"),
+    ("jamba-1.5-large-398b", True, 16, "Mamba"),
+    ("deepseek-v2-236b", True, 8, "MLA"),
+    ("deepseek-v2-236b", False, 3, "MLA")])
+def test_serving_tp_of_undivided_mamba_or_mla_heads_is_refused_by_name(
+        arch, smoke, size, family):
+    """A rank serves whole Mamba and MLA heads: a head count the "model"
+    axis does not divide (mamba2-smoke's 8 on 3, jamba-smoke's 8 on 16,
+    deepseek-smoke's 4 MLA heads on 8, DeepSeek-V2's 128 on 3) is refused
+    by name, by ``init_cache`` and ``serve_pieces`` alike."""
+    from repro_torch.launch.mesh import RankMesh
+    cfg = get_smoke(arch) if smoke else get_arch(arch)
+    why = ttf.serve_tp_refusal(cfg, size)
+    assert why is not None and f"a rank's {family} heads" in why
+    assert "do not divide" in why
     with pytest.raises(ValueError, match="serving tensor parallel"):
-        ttf.init_cache(cfg, 1, 8, tp=ModelParallel(None, 0, 2))
+        ttf.init_cache(cfg, 1, 8, device="meta",
+                       tp=ModelParallel(None, 0, size))
+    params = ttf.init_params(torch.Generator(), cfg, device="meta")
+    with pytest.raises(ValueError, match=f"a rank's {family} heads"):
+        tserve.serve_pieces(params, cfg, RankMesh(("data", "model"),
+                                                  (1, size), rank=0,
+                                                  dry=True))
 
 
 def test_serve_tp_families_and_the_attention_layout():
-    """The attention families are served TP; ``attn_tp`` follows the
-    heads at the plan's 16-wide axis (InternVL2's 14 and SmolLM's 15 do
-    not divide it)."""
+    """Every family is served TP at the plan's 16-wide axis; ``attn_tp``
+    follows the heads (InternVL2's 14 and SmolLM's 15 do not divide it)."""
     for arch in ("qwen3-1.7b", "smollm-360m", "gemma2-27b", "command-r-35b",
                  "internvl2-1b", "seamless-m4t-large-v2"):
         cfg = get_arch(arch)
-        assert ttf.serve_tp_refusal(cfg) is None
+        assert ttf.serve_tp_refusal(cfg, 16) is None
         assert (cfg.num_heads % 16 == 0) == (
             arch not in ("internvl2-1b", "smollm-360m"))
 
@@ -591,6 +607,12 @@ def _dry(arch: str, shape: str, **rep):
     return bundle, got, dryrun.device_numbers(bundle, got)["label"]
 
 
+#: mamba2-smoke at head_dim 16: 16 SSD heads, so the plan's 16-wide axis
+#: divides them
+_MAMBA16 = {"mamba": MambaConfig(d_state=16, d_conv=4, expand=2,
+                                 head_dim=16, chunk_size=8)}
+
+
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("arch,rep,label", [
     ("qwen3-1.7b", {"num_heads": 16, "num_kv_heads": 8}, "measured_meta"),
@@ -598,27 +620,32 @@ def _dry(arch: str, shape: str, **rep):
     ("seamless-m4t-large-v2", {"num_heads": 16, "num_kv_heads": 16},
      "measured_meta"),
     ("gemma2-27b", {"num_heads": 16, "num_kv_heads": 16}, "analytic_split"),
-    ("mixtral-8x22b", {}, "analytic_split")])
+    ("mixtral-8x22b", {}, "analytic_split"),
+    ("deepseek-v2-236b", {"num_heads": 16, "num_kv_heads": 16},
+     "analytic_split"),
+    ("mamba2-780m", _MAMBA16, "measured_meta")])
 def test_dry_serve_programs_run_the_ranks_tp(shape, arch, rep, label):
-    """The dry run's serve programs on the smoke configs: the attention
-    families run a rank's "model" pieces on a ``DryGroup`` (one
-    ``tp_logits`` gather a pass, the reductions counted; nothing divided,
+    """The dry run's serve programs on the smoke configs: every family
+    runs a rank's "model" pieces on a ``DryGroup`` (one ``tp_logits``
+    gather a pass, the reductions counted; nothing divided,
     ``compute_shards`` 1), ``measured_meta`` unless the plan's FSDP over
-    "data" (Gemma-2's ``serve_fsdp``) is held as its arithmetic; the MoE
-    family still runs whole, divided by the mesh (``analytic_split``),
-    its reason named."""
+    "data" (``serve_fsdp``: Gemma-2, Mixtral, DeepSeek-V2) is held as its
+    arithmetic, named in ``meta["unsharded"]``.  Mixtral's 8 smoke heads
+    run whole on 16 ranks (``attn_tp=False``), its 4 experts on their d_ff
+    columns; DeepSeek's MLA gathers its q latent (``tp_latent_gather``);
+    Mamba's in_proj blocks (``tp_ssm_gather``)."""
     bundle, got, lab = _dry(arch, shape, **rep)
     assert lab == label
     sites = got["collectives"]["sites"]
-    if arch == "mixtral-8x22b":
-        assert bundle.meta["compute_shards"] == 16 and not sites
-        assert "MoE family is not ported" in bundle.meta["unsharded"][0]
-        return
     assert bundle.meta["compute_shards"] == 1
     assert sites["tp_logits"] == 1 and sites["tp_forward"] > 0
-    assert bundle.meta["attn_tp"] == (arch != "internvl2-1b")
+    cfg = dataclasses.replace(get_smoke(arch), **rep)
+    assert bundle.meta["attn_tp"] == (cfg.num_heads % 16 == 0)
+    assert ("tp_latent_gather" in sites) == (arch == "deepseek-v2-236b")
+    assert ("tp_ssm_gather" in sites) == (arch == "mamba2-780m")
     fsdp = [u for u in bundle.meta["unsharded"] if "FSDP" in u]
-    assert bool(fsdp) == (arch == "gemma2-27b")
+    assert bundle.meta["unsharded"] == fsdp
+    assert bool(fsdp) == (label == "analytic_split")
 
 
 def test_dry_train_program_runs_the_encdec_tp():
